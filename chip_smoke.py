@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (skypilot_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal (nonzero exit, no result line) when it fails:
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: nvcc builds the flash kernels from csrc/ into build/;
+3. kernels: each kernel against its plain PyTorch version on the card in
+   bf16, at the training shape and two others; then its time, the plain
+   version's, the library call's (scaled_dot_product_attention, a
+   yardstick the port never calls) and the bound;
+4. slice: the Llama-3-8B-width training step (4 layers, batch 2 x seq
+   2048, adamw, full remat) takes 8 steps on one repeated batch through
+   the port's entry points; the loss must fall and the launch counts must
+   show every step went through the three kernels; one forward's loss
+   through the kernels must match the reference attention's;
+5. the kernels line ({"kernels": [...]}), then the last line
+   {"ok": true, "device": {...}}.
+
+Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
+the port from beside itself). Imports nothing of JAX.
+"""
+import dataclasses
+import json
+import pathlib
+import re
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM dense peaks: bf16 tensor cores and HBM3 (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# Kernel vs plain, both on the card from the same bf16 inputs. The kernel
+# rounds P and dS to bf16 before its second product and writes bf16; the
+# plain version stays fp32 until the final cast. Norm-relative error:
+OUT_REL_TOL = 1e-2     # o and lse
+GRAD_REL_TOL = 2e-2    # dq, dk, dv
+# and the largest single error, as a share of the largest |reference|:
+MAX_ABS_SHARE = 3e-2
+LOSS_TOL = 2e-2        # |loss(kernel) - loss(reference)|, same weights
+
+# (B, S, H, KVH, D, causal): the slice's shape (Llama-3-8B attention at
+# seq 2048), a non-causal head_dim-64 case and an unequal GQA group (6).
+MAIN_SHAPE = (2, 2048, 32, 8, 128, True)
+CHECK_SHAPES = (MAIN_SHAPE, (2, 1024, 16, 4, 64, False),
+                (1, 768, 12, 2, 128, True))
+
+N_LAYERS = 4
+BATCH, SEQ = 2, 2048
+TRAIN_STEPS = 8
+
+TPU_KERNELS = {
+    "flash_fwd": "skypilot_tpu/ops/pallas/flash_attention.py:759",
+    "flash_dq": "skypilot_tpu/ops/pallas/flash_attention.py:862",
+    "flash_dkv": "skypilot_tpu/ops/pallas/flash_attention.py:906",
+}
+SOURCES = {
+    "flash_fwd": "skypilot_tpu_torch/csrc/flash_fwd.cu",
+    "flash_dq": "skypilot_tpu_torch/csrc/flash_bwd.cu",
+    "flash_dkv": "skypilot_tpu_torch/csrc/flash_bwd.cu",
+}
+
+
+class PhaseError(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def time_ms(fn, reps, warmup=2):
+    """Mean device time of fn over reps, by CUDA events after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_device():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"[device] {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}", flush=True)
+    return card
+
+
+def phase_build(build):
+    t0 = time.perf_counter()
+    info = build.build_all()
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, rec in info.items():
+        print(f"[build] {name}.cu nvcc {rec['seconds']:.1f} s: "
+              + "; ".join(_ptxas_summary(rec["ptxas"])), flush=True)
+
+
+def _ptxas_summary(log):
+    """'kernel<D>: N registers, spills S/L bytes' from nvcc -Xptxas -v."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, spills {spill} "
+                       "bytes")
+    return out
+
+
+def _inputs(shape, seed):
+    b, s, h, kvh, d, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*dims):
+        return torch.randn(*dims, device="cuda", generator=g).bfloat16()
+
+    return (rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d),
+            rnd(b, s, h, d))
+
+
+def _err(out, ref):
+    out, ref = out.float(), ref.float()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    max_abs = (out - ref).abs().max().item()
+    return rel, max_abs, ref.abs().max().item()
+
+
+def phase_kernels(fa):
+    """Kernels against plain versions; returns per-kernel records at the
+    main shape."""
+    records = {}
+    for idx, shape in enumerate(CHECK_SHAPES):
+        b, s, h, kvh, d, causal = shape
+        scale = d ** -0.5
+        q, k, v, do = _inputs(shape, idx)
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        dq, delta = fa.flash_dq(q, k, v, o, lse, do, causal, scale)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        # The backward pair is held against the plain backward of the
+        # same saved forward (the kernel's o and lse).
+        dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, o, lse, do, causal,
+                                              scale)
+        errs = {"o": (_err(o, o_p), OUT_REL_TOL),
+                "lse": (_err(lse, lse_p), OUT_REL_TOL),
+                "dq": (_err(dq, dq_p), GRAD_REL_TOL),
+                "dk": (_err(dk, dk_p), GRAD_REL_TOL),
+                "dv": (_err(dv, dv_p), GRAD_REL_TOL)}
+        for name, ((rel, max_abs, peak), tol) in errs.items():
+            print(f"[kernels] {shape} {name}: rel {rel:.3e} (tol {tol}) "
+                  f"max_abs {max_abs:.3e} (cap "
+                  f"{MAX_ABS_SHARE * peak:.3e})", flush=True)
+            check(rel <= tol and max_abs <= MAX_ABS_SHARE * peak,
+                  f"{name} disagrees with its plain version at {shape}")
+        if shape == MAIN_SHAPE:
+            records = _measure(fa, shape, (q, k, v, do), (o, lse, delta),
+                               errs)
+        del o_p, lse_p, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+    return records
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _measure(fa, shape, inputs, saved, errs):
+    b, s, h, kvh, d, causal = shape
+    scale = d ** -0.5
+    q, k, v, do = inputs
+    o, lse, delta = saved
+    # Work this run's inputs need: the (q, k) pairs the causal mask keeps.
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    q_bytes, kv_bytes, stat_bytes = 2 * q.numel(), 2 * k.numel(), 4 * b * h * s
+    work = {
+        "flash_fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes),
+        "flash_dq": (6 * d * pairs, 4 * q_bytes + 2 * kv_bytes
+                     + 2 * stat_bytes),
+        "flash_dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes
+                      + 2 * stat_bytes),
+    }
+    kernel_ms = {
+        "flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale),
+                             20),
+        "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, o, lse, do, causal,
+                                                scale), 20),
+        "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                                  causal, scale), 20),
+    }
+    plain_fwd = time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
+                        3, warmup=1)
+    plain_bwd = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
+                                                   causal, scale),
+                        3, warmup=1)
+    # Library yardstick: SDPA in its own (B, H, S, D) layout, GQA native.
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, 20)
+    out = sdpa()
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 20)
+    records = {}
+    for name, err_key in (("flash_fwd", "o"), ("flash_dq", "dq"),
+                          ("flash_dkv", "dk")):
+        flops, nbytes = work[name]
+        bound_ms, bound_by = _bound(flops, nbytes)
+        max_abs = max(errs[k][0][1] for k in
+                      (("o", "lse") if name == "flash_fwd" else
+                       ("dq",) if name == "flash_dq" else ("dk", "dv")))
+        fwd = name == "flash_fwd"
+        records[name] = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": 0,
+            "max_abs_err": max_abs, "ms": kernel_ms[name],
+            "plain_ms": plain_fwd if fwd else plain_bwd,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd if fwd else lib_bwd,
+            # The plain backward and SDPA's backward each compute dq, dk
+            # and dv in one call; the dq and dk/dv rows share them.
+            "plain_covers": "o, lse" if fwd else "dq, dk, dv",
+            "library_covers": "sdpa forward" if fwd
+                              else "sdpa backward: dq, dk, dv",
+            "flops": flops, "bytes": nbytes, "shape": list(shape),
+        }
+        print(f"[kernels] {name}: {kernel_ms[name]:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
+              f"{flops / kernel_ms[name] / 1e9:.1f} TFLOP/s, plain "
+              f"{records[name]['plain_ms']:.3f} ms, library "
+              f"{records[name]['library_ms']:.4f} ms", flush=True)
+    return records
+
+
+def phase_slice(fa, llama, trainer, records):
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=N_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+                           generator=gen)
+    batch = {"tokens": tokens}
+    tx = trainer.make_optimizer(trainer.TrainConfig(warmup_steps=1,
+                                                    total_steps=100))
+    state = trainer.init_train_state(params, tx)
+    step = trainer.make_train_step(
+        lambda p, t: llama.forward(cfg, p, t), tx, with_grad_norm=False)
+    print(f"[slice] llama3_8b width, {N_LAYERS} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B params, batch {BATCH} x seq "
+          f"{SEQ}, bf16, remat {cfg.remat_policy}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    losses = [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    print(f"[slice] losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[slice] launches {launches}", flush=True)
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "non-finite loss")
+    check(losses[-1] < losses[0], "loss did not fall")
+    expect = {"flash_fwd": 2 * N_LAYERS * TRAIN_STEPS,
+              "flash_dq": N_LAYERS * TRAIN_STEPS,
+              "flash_dkv": N_LAYERS * TRAIN_STEPS}
+    check(launches == expect, f"launch counts {launches} != {expect} "
+          "(2L forward under full remat, L dq, L dk/dv per step)")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tok_s = BATCH * SEQ / steady
+    tflops = cfg.flops_per_token(SEQ) * tok_s / 1e12
+    print(f"[slice] step {steady * 1e3:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), {tok_s:.0f} "
+          f"tokens/s, {tflops:.1f} model TFLOP/s (6N + attention), peak "
+          f"memory {peak_gb:.2f} GB", flush=True)
+    for name, rec in records.items():
+        rec["launches"] = launches[name]
+
+    # One forward through the kernels against the reference attention,
+    # same trained weights, loss in fp32.
+    with torch.no_grad():
+        out = {}
+        for impl in ("kernel", "reference"):
+            c = dataclasses.replace(cfg, attention_impl=impl, remat=False)
+            logits = llama.forward(c, state.params, tokens)
+            check(logits.shape == (BATCH, SEQ, cfg.vocab_size)
+                  and logits.dtype == torch.float32
+                  and bool(torch.isfinite(logits).all()),
+                  f"bad logits from impl={impl}")
+            out[impl] = float(trainer.cross_entropy_loss(
+                logits[:, :-1], tokens[:, 1:]))
+            del logits
+    diff = abs(out["kernel"] - out["reference"])
+    print(f"[slice] loss kernel {out['kernel']:.5f} reference "
+          f"{out['reference']:.5f} |diff| {diff:.2e} (tol {LOSS_TOL})",
+          flush=True)
+    check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    repo = pathlib.Path(__file__).resolve().parent
+    if not (repo / "skypilot_tpu_torch" / "csrc").is_dir():
+        print(f"FAIL: no skypilot_tpu_torch/ beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(repo))
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import _build
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import trainer
+
+    try:
+        card = phase_device()
+        phase_build(_build)
+        records = phase_kernels(fa)
+        phase_slice(fa, llama, trainer, records)
+    except (PhaseError, RuntimeError, ValueError, OSError,
+            subprocess.SubprocessError) as exc:
+        print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's training step spends its time, on one card.
+
+    python3 tools/torch_profile_step.py
+
+Builds the slice chip_smoke.py drives (Llama-3-8B width, 4 layers, batch
+2 x seq 2048, bf16, adamw, full remat, flash kernels), warms up, then:
+
+1. times the step's three phases (forward + loss, backward, optimizer)
+   with a synchronised host clock, median of 5 steps;
+2. profiles 2 steps with torch.profiler and prints the device time per
+   step by kernel family, the device's idle share of the window, and the
+   top kernels.
+
+Imports nothing of JAX. Needs a CUDA card and this file's checkout.
+"""
+import collections
+import dataclasses
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+N_LAYERS, BATCH, SEQ = 4, 2, 2048
+
+# Kernel-name fragments -> family, first match wins.
+FAMILIES = (
+    ("flash attention (port kernels)", ("flash_fwd", "flash_dq",
+                                        "flash_dkv")),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+    ("adamw (fused multi-tensor)", ("multi_tensor_apply", "fusedopti")),
+    ("softmax / logsumexp / CE", ("softmax", "logsumexp", "log_softmax",
+                                  "nll", "cross_entropy")),
+    ("reductions (norms, grad norm)", ("reduce", "norm")),
+    ("gather / scatter / embedding", ("index", "embedding", "gather",
+                                      "scatter")),
+    ("copies and casts", ("copy", "cast", "memcpy", "memset", "fill")),
+    ("elementwise (rope, silu, clip, residual)", ("elementwise",
+                                                   "vectorized", "unrolled",
+                                                   "foreach")),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(f"[card] {smi.stdout.strip()}")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=N_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+                           generator=gen)
+    tx = trainer.make_optimizer(trainer.TrainConfig(warmup_steps=1,
+                                                    total_steps=100))
+    state = trainer.init_train_state(params, tx)
+    plist = list(params.parameters())
+
+    def sync_clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def step(phases=None):
+        # make_train_step's body, split where the phases are timed.
+        for p in plist:
+            p.grad = None
+        t0 = sync_clock() if phases is not None else 0.0
+        logits = llama.forward(cfg, params, tokens)
+        loss = trainer.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+        t1 = sync_clock() if phases is not None else 0.0
+        loss.backward()
+        del logits
+        t2 = sync_clock() if phases is not None else 0.0
+        grads = [p.grad for p in plist]
+        tx.update_(plist, grads, state.opt_state)
+        for p in plist:
+            p.grad = None
+        if phases is not None:
+            t3 = sync_clock()
+            phases.append((t1 - t0, t2 - t1, t3 - t2))
+
+    for _ in range(2):
+        step()
+    phases = []
+    for _ in range(5):
+        step(phases)
+    med = [sorted(col)[len(col) // 2] * 1e3 for col in zip(*phases)]
+    print(f"[phases] forward+loss {med[0]:.1f} ms, backward (with remat "
+          f"forward) {med[1]:.1f} ms, adamw {med[2]:.1f} ms; sum "
+          f"{sum(med):.1f} ms (median of 5 steps)")
+
+    n_prof = 2
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = sync_clock()
+        for _ in range(n_prof):
+            step()
+        wall = sync_clock() - t0
+    by_family = collections.Counter()
+    by_kernel = collections.Counter()
+    for evt in prof.events():
+        # Kernels only: the CPU op that launched a kernel carries its time
+        # again, and a user range on the device timeline (Optimizer.step)
+        # spans kernels that are counted on their own.
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        us = evt.time_range.elapsed_us()
+        by_family[family(evt.name)] += us
+        by_kernel[evt.name] += us
+    busy = sum(by_family.values()) / 1e6
+    if busy == 0:
+        print("[profile] the profiler recorded no device time")
+        return 1
+    print(f"[profile] window {wall / n_prof * 1e3:.1f} ms/step, device busy "
+          f"{busy / n_prof * 1e3:.1f} ms/step, idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}")
+    for fam, us in by_family.most_common():
+        print(f"[profile] {us / n_prof / 1e3:9.2f} ms/step "
+              f"{us / 1e6 / busy:6.1%}  {fam}")
+    for name, us in by_kernel.most_common(15):
+        print(f"[kernel] {us / n_prof / 1e3:8.2f} ms/step  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
