@@ -6,18 +6,30 @@
 Phases, each fatal (nonzero exit, no result line) when it fails:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the flash kernels from csrc/ into build/;
-3. kernels: each kernel against its plain PyTorch version on the card in
-   bf16, at the training shape and two others; then its time, the plain
-   version's, the library call's (scaled_dot_product_attention, a
-   yardstick the port never calls) and the bound;
+2. build: nvcc builds the flash kernels from csrc/ into build/ (one
+   process per source, all at once) and reports ptxas's registers and
+   spills per kernel;
+3. kernels: each kernel of both families against its plain PyTorch
+   version on the card in bf16 (the resident family at its training
+   shape and two others, the triangular family at three causal shapes
+   past the resident budget); then, at each family's main shape, its
+   time, the plain version's, the library call's
+   (scaled_dot_product_attention, a yardstick the port never calls) and
+   the bound;
 4. slice: the Llama-3-8B-width training step (4 layers, batch 2 x seq
    2048, adamw, full remat) takes 8 steps on one repeated batch through
    the port's entry points; the loss must fall and the launch counts must
-   show every step went through the three kernels; one forward's loss
-   through the kernels must match the reference attention's;
-5. the kernels line ({"kernels": [...]}), then the last line
-   {"ok": true, "device": {...}}.
+   show every step went through the three resident kernels (2L/L/L);
+   one forward's loss through the kernels must match the reference
+   attention's;
+5. long context: the same width at batch 1 x seq 8192, remat policy
+   save_flash_offload_qkv, chunked cross entropy through
+   make_train_step(trunk_fn=..., head_fn=...), 8 steps; the loss must
+   fall, the launch counts must be exactly L/L/L triangular and no
+   resident launch per step, and one forward's loss through the kernels
+   must match the reference attention's;
+6. the kernels line ({"kernels": [...]}, six records), then the last
+   line {"ok": true, "device": {...}}.
 
 Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
 the port from beside itself). Imports nothing of JAX.
@@ -50,20 +62,34 @@ LOSS_TOL = 2e-2        # |loss(kernel) - loss(reference)|, same weights
 MAIN_SHAPE = (2, 2048, 32, 8, 128, True)
 CHECK_SHAPES = (MAIN_SHAPE, (2, 1024, 16, 4, 64, False),
                 (1, 768, 12, 2, 128, True))
+# The triangular family, causal past the resident budget (S * D >
+# 524,288): the long-context shape (Llama-3-8B attention at seq 8192),
+# head_dim 64, and an unequal GQA group (6) just past the budget.
+TRI_MAIN_SHAPE = (1, 8192, 32, 8, 128, True)
+TRI_CHECK_SHAPES = (TRI_MAIN_SHAPE, (1, 16384, 8, 2, 64, True),
+                    (1, 4608, 12, 2, 128, True))
 
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
 TRAIN_STEPS = 8
+# The long-context phase: JAX bench's long-context leg at its headline
+# point (Llama-3-8B's published context), depth cut to 4 layers.
+LC_LAYERS, LC_BATCH, LC_SEQ = 4, 1, 8192
+LC_POLICY = "save_flash_offload_qkv"
 
+_FA = "skypilot_tpu/ops/pallas/flash_attention.py"
 TPU_KERNELS = {
-    "flash_fwd": "skypilot_tpu/ops/pallas/flash_attention.py:759",
-    "flash_dq": "skypilot_tpu/ops/pallas/flash_attention.py:862",
-    "flash_dkv": "skypilot_tpu/ops/pallas/flash_attention.py:906",
+    "flash_fwd": f"{_FA}:759", "flash_dq": f"{_FA}:862",
+    "flash_dkv": f"{_FA}:906", "flash_fwd_tri": f"{_FA}:417",
+    "flash_dq_tri": f"{_FA}:543", "flash_dkv_tri": f"{_FA}:598",
 }
+_CSRC = "skypilot_tpu_torch/csrc"
 SOURCES = {
-    "flash_fwd": "skypilot_tpu_torch/csrc/flash_fwd.cu",
-    "flash_dq": "skypilot_tpu_torch/csrc/flash_bwd.cu",
-    "flash_dkv": "skypilot_tpu_torch/csrc/flash_bwd.cu",
+    "flash_fwd": f"{_CSRC}/flash_fwd.cu", "flash_dq": f"{_CSRC}/flash_bwd.cu",
+    "flash_dkv": f"{_CSRC}/flash_bwd.cu",
+    "flash_fwd_tri": f"{_CSRC}/flash_tri.cu",
+    "flash_dq_tri": f"{_CSRC}/flash_tri.cu",
+    "flash_dkv_tri": f"{_CSRC}/flash_tri.cu",
 }
 
 
@@ -117,7 +143,8 @@ def _ptxas_summary(log):
     """'kernel<D>: N registers, spills S/L bytes' from nvcc -Xptxas -v."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
+        m = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tri)?_kernel)ILi(\d+)E",
+                      line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -149,39 +176,87 @@ def _err(out, ref):
     return rel, max_abs, ref.abs().max().item()
 
 
+class Family:
+    """One kernel family's three wrappers and two plain versions, closed
+    over (causal, scale), with its kernels' names."""
+
+    def __init__(self, fa, fam, causal, scale):
+        if fam == fa.RESIDENT:
+            self.names = ("flash_fwd", "flash_dq", "flash_dkv")
+            self.fwd = lambda q, k, v: fa.flash_fwd(q, k, v, causal, scale)
+            self.dq = lambda q, k, v, o, lse, do: fa.flash_dq(
+                q, k, v, o, lse, do, causal, scale)
+            self.dkv = lambda q, k, v, do, lse, delta: fa.flash_dkv(
+                q, k, v, do, lse, delta, causal, scale)
+            self.fwd_plain = lambda q, k, v: fa.flash_fwd_plain(
+                q, k, v, causal, scale)
+            self.bwd_plain = lambda q, k, v, o, lse, do: fa.flash_bwd_plain(
+                q, k, v, o, lse, do, causal, scale)
+        else:
+            self.names = ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri")
+            self.fwd = lambda q, k, v: fa.flash_fwd_tri(q, k, v, scale)
+            self.dq = lambda q, k, v, o, lse, do: fa.flash_dq_tri(
+                q, k, v, o, lse, do, scale)
+            self.dkv = lambda q, k, v, do, lse, delta: fa.flash_dkv_tri(
+                q, k, v, do, lse, delta, scale)
+            self.fwd_plain = lambda q, k, v: fa.flash_fwd_tri_plain(
+                q, k, v, scale)
+            self.bwd_plain = lambda q, k, v, o, lse, do: (
+                fa.flash_bwd_tri_plain(q, k, v, o, lse, do, scale))
+
+
 def phase_kernels(fa):
-    """Kernels against plain versions; returns per-kernel records at the
-    main shape."""
+    """Kernels against plain versions; returns per-kernel records at each
+    family's main shape."""
     records = {}
-    for idx, shape in enumerate(CHECK_SHAPES):
-        b, s, h, kvh, d, causal = shape
-        scale = d ** -0.5
-        q, k, v, do = _inputs(shape, idx)
-        o, lse = fa.flash_fwd(q, k, v, causal, scale)
-        dq, delta = fa.flash_dq(q, k, v, o, lse, do, causal, scale)
-        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, scale)
-        torch.cuda.synchronize()
-        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
-        # The backward pair is held against the plain backward of the
-        # same saved forward (the kernel's o and lse).
-        dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, o, lse, do, causal,
-                                              scale)
-        errs = {"o": (_err(o, o_p), OUT_REL_TOL),
-                "lse": (_err(lse, lse_p), OUT_REL_TOL),
-                "dq": (_err(dq, dq_p), GRAD_REL_TOL),
-                "dk": (_err(dk, dk_p), GRAD_REL_TOL),
-                "dv": (_err(dv, dv_p), GRAD_REL_TOL)}
-        for name, ((rel, max_abs, peak), tol) in errs.items():
-            print(f"[kernels] {shape} {name}: rel {rel:.3e} (tol {tol}) "
-                  f"max_abs {max_abs:.3e} (cap "
-                  f"{MAX_ABS_SHARE * peak:.3e})", flush=True)
-            check(rel <= tol and max_abs <= MAX_ABS_SHARE * peak,
-                  f"{name} disagrees with its plain version at {shape}")
-        if shape == MAIN_SHAPE:
-            records = _measure(fa, shape, (q, k, v, do), (o, lse, delta),
-                               errs)
-        del o_p, lse_p, dq_p, dk_p, dv_p
-        torch.cuda.empty_cache()
+    for fam, shapes, main in ((fa.RESIDENT, CHECK_SHAPES, MAIN_SHAPE),
+                              (fa.TRIANGULAR, TRI_CHECK_SHAPES,
+                               TRI_MAIN_SHAPE)):
+        for idx, shape in enumerate(shapes):
+            b, s, h, kvh, d, causal = shape
+            check(fam == fa.RESIDENT or fa.family(s, d, causal) == fam,
+                  f"{shape} is not past the resident budget")
+            fns = Family(fa, fam, causal, d ** -0.5)
+            q, k, v, do = _inputs(shape, idx)
+            o, lse = fns.fwd(q, k, v)
+            dq, delta = fns.dq(q, k, v, o, lse, do)
+            dk, dv = fns.dkv(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            o_p, lse_p = fns.fwd_plain(q, k, v)
+            # The backward pair is held against the plain backward of the
+            # same saved forward (the kernel's o and lse).
+            dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+            errs = {"o": (_err(o, o_p), OUT_REL_TOL),
+                    "lse": (_err(lse, lse_p), OUT_REL_TOL),
+                    "dq": (_err(dq, dq_p), GRAD_REL_TOL),
+                    "dk": (_err(dk, dk_p), GRAD_REL_TOL),
+                    "dv": (_err(dv, dv_p), GRAD_REL_TOL)}
+            del o_p, lse_p, dq_p, dk_p, dv_p
+            for name, ((rel, max_abs, peak), tol) in errs.items():
+                print(f"[kernels] {fam} {shape} {name}: rel {rel:.3e} (tol "
+                      f"{tol}) max_abs {max_abs:.3e} (cap "
+                      f"{MAX_ABS_SHARE * peak:.3e})", flush=True)
+                check(rel <= tol and max_abs <= MAX_ABS_SHARE * peak,
+                      f"{name} disagrees with its plain version at "
+                      f"{shape} ({fam})")
+            if shape == main:
+                records.update(_measure(fns, shape, (q, k, v, do),
+                                        (o, lse, delta), errs))
+            if fam == fa.TRIANGULAR and shape == main:
+                # The resident kernels at the same shape: same tile code,
+                # per-head grid order against the longest-first list.
+                res = Family(fa, fa.RESIDENT, causal, d ** -0.5)
+                o_r, lse_r = res.fwd(q, k, v)
+                _, delta_r = res.dq(q, k, v, o_r, lse_r, do)
+                times = [time_ms(lambda: res.fwd(q, k, v), 10),
+                         time_ms(lambda: res.dq(q, k, v, o_r, lse_r, do), 10),
+                         time_ms(lambda: res.dkv(q, k, v, do, lse_r, delta_r),
+                                 10)]
+                print(f"[kernels] resident kernels at {shape}: forward "
+                      f"{times[0]:.4f} ms, dq {times[1]:.4f} ms, dk/dv "
+                      f"{times[2]:.4f} ms", flush=True)
+            del q, k, v, do, o, lse, dq, delta, dk, dv
+            torch.cuda.empty_cache()
     return records
 
 
@@ -191,34 +266,29 @@ def _bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _measure(fa, shape, inputs, saved, errs):
+def _measure(fns, shape, inputs, saved, errs):
     b, s, h, kvh, d, causal = shape
     scale = d ** -0.5
     q, k, v, do = inputs
     o, lse, delta = saved
+    fwd_name, dq_name, dkv_name = fns.names
     # Work this run's inputs need: the (q, k) pairs the causal mask keeps.
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     q_bytes, kv_bytes, stat_bytes = 2 * q.numel(), 2 * k.numel(), 4 * b * h * s
     work = {
-        "flash_fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes),
-        "flash_dq": (6 * d * pairs, 4 * q_bytes + 2 * kv_bytes
-                     + 2 * stat_bytes),
-        "flash_dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes
-                      + 2 * stat_bytes),
+        fwd_name: (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes),
+        dq_name: (6 * d * pairs, 4 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
+        dkv_name: (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes
+                   + 2 * stat_bytes),
     }
     kernel_ms = {
-        "flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale),
-                             20),
-        "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, o, lse, do, causal,
-                                                scale), 20),
-        "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta,
-                                                  causal, scale), 20),
+        fwd_name: time_ms(lambda: fns.fwd(q, k, v), 20),
+        dq_name: time_ms(lambda: fns.dq(q, k, v, o, lse, do), 20),
+        dkv_name: time_ms(lambda: fns.dkv(q, k, v, do, lse, delta), 20),
     }
-    plain_fwd = time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
-                        3, warmup=1)
-    plain_bwd = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
-                                                   causal, scale),
-                        3, warmup=1)
+    plain_fwd = time_ms(lambda: fns.fwd_plain(q, k, v), 3, warmup=1)
+    plain_bwd = time_ms(lambda: fns.bwd_plain(q, k, v, o, lse, do), 3,
+                        warmup=1)
     # Library yardstick: SDPA in its own (B, H, S, D) layout, GQA native.
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
@@ -233,15 +303,14 @@ def _measure(fa, shape, inputs, saved, errs):
     out = sdpa()
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 20)
+    del out
     records = {}
-    for name, err_key in (("flash_fwd", "o"), ("flash_dq", "dq"),
-                          ("flash_dkv", "dk")):
+    for name, err_keys in ((fwd_name, ("o", "lse")), (dq_name, ("dq",)),
+                           (dkv_name, ("dk", "dv"))):
         flops, nbytes = work[name]
         bound_ms, bound_by = _bound(flops, nbytes)
-        max_abs = max(errs[k][0][1] for k in
-                      (("o", "lse") if name == "flash_fwd" else
-                       ("dq",) if name == "flash_dq" else ("dk", "dv")))
-        fwd = name == "flash_fwd"
+        max_abs = max(errs[k][0][1] for k in err_keys)
+        fwd = name == fwd_name
         records[name] = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name], "launches": 0,
@@ -300,11 +369,12 @@ def phase_slice(fa, llama, trainer, records):
     check(all(x == x and abs(x) != float("inf") for x in losses),
           "non-finite loss")
     check(losses[-1] < losses[0], "loss did not fall")
-    expect = {"flash_fwd": 2 * N_LAYERS * TRAIN_STEPS,
-              "flash_dq": N_LAYERS * TRAIN_STEPS,
-              "flash_dkv": N_LAYERS * TRAIN_STEPS}
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"flash_fwd": 2 * N_LAYERS * TRAIN_STEPS,
+                   "flash_dq": N_LAYERS * TRAIN_STEPS,
+                   "flash_dkv": N_LAYERS * TRAIN_STEPS})
     check(launches == expect, f"launch counts {launches} != {expect} "
-          "(2L forward under full remat, L dq, L dk/dv per step)")
+          "(2L resident forward under full remat, L dq, L dk/dv per step)")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     tok_s = BATCH * SEQ / steady
     tflops = cfg.flops_per_token(SEQ) * tok_s / 1e12
@@ -312,8 +382,8 @@ def phase_slice(fa, llama, trainer, records):
           f"{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), {tok_s:.0f} "
           f"tokens/s, {tflops:.1f} model TFLOP/s (6N + attention), peak "
           f"memory {peak_gb:.2f} GB", flush=True)
-    for name, rec in records.items():
-        rec["launches"] = launches[name]
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        records[name]["launches"] = launches[name]
 
     # One forward through the kernels against the reference attention,
     # same trained weights, loss in fp32.
@@ -336,6 +406,85 @@ def phase_slice(fa, llama, trainer, records):
     check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
 
 
+def phase_long_context(fa, llama, trainer, records):
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=LC_LAYERS, max_seq_len=LC_SEQ,
+                              remat_policy=LC_POLICY)
+    check(fa.family(LC_SEQ, cfg.head_dim, True) == fa.TRIANGULAR,
+          f"seq {LC_SEQ} does not take the triangular family")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = llama.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (LC_BATCH, LC_SEQ),
+                           device="cuda", generator=gen)
+    batch = {"tokens": tokens}
+    tx = trainer.make_optimizer(trainer.TrainConfig(warmup_steps=1,
+                                                    total_steps=100))
+    state = trainer.init_train_state(params, tx)
+    step = trainer.make_train_step(
+        lambda p, t: llama.forward(cfg, p, t), tx,
+        trunk_fn=lambda p, t: llama.forward_trunk(cfg, p, t),
+        head_fn=llama.head_weights, with_grad_norm=False)
+    print(f"[long] llama3_8b width, {LC_LAYERS} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B params, batch {LC_BATCH} x seq "
+          f"{LC_SEQ}, bf16, remat {cfg.remat_policy}, chunked CE "
+          f"({trainer.CE_CHUNK}-row chunks)", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    losses = [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    print(f"[long] losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[long] launches {launches}", flush=True)
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          "non-finite loss")
+    check(losses[-1] < losses[0], "loss did not fall")
+    expect = dict.fromkeys(launches, 0)
+    expect.update({n: LC_LAYERS * TRAIN_STEPS for n in
+                   ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri")})
+    check(launches == expect, f"launch counts {launches} != {expect} "
+          "(L triangular forward, dq and dk/dv per step, no resident)")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tok_s = LC_BATCH * LC_SEQ / steady
+    tflops = cfg.flops_per_token(LC_SEQ) * tok_s / 1e12
+    print(f"[long] step {steady * 1e3:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), {tok_s:.0f} "
+          f"tokens/s, {tflops:.1f} model TFLOP/s (6N + attention), peak "
+          f"memory {peak_gb:.2f} GB", flush=True)
+    for name in ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri"):
+        records[name]["launches"] = launches[name]
+
+    # One forward loss through the kernels against the reference attention
+    # (fp32 scores, ~9 GB per layer at this length, freed layer by layer
+    # under no_grad), same trained weights, chunked loss in fp32.
+    with torch.no_grad():
+        out = {}
+        for impl in ("kernel", "reference"):
+            c = dataclasses.replace(cfg, attention_impl=impl, remat=False)
+            hidden = llama.forward_trunk(c, state.params, tokens)
+            check(hidden.shape == (LC_BATCH, LC_SEQ, cfg.dim)
+                  and bool(torch.isfinite(hidden).all()),
+                  f"bad hidden states from impl={impl}")
+            out[impl] = float(trainer.chunked_cross_entropy_loss(
+                hidden[:, :-1], llama.head_weights(state.params),
+                tokens[:, 1:]))
+            del hidden
+    diff = abs(out["kernel"] - out["reference"])
+    print(f"[long] loss kernel {out['kernel']:.5f} reference "
+          f"{out['reference']:.5f} |diff| {diff:.2e} (tol {LOSS_TOL})",
+          flush=True)
+    check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -351,15 +500,19 @@ def main() -> int:
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.train import trainer
 
+    t0 = time.perf_counter()
     try:
         card = phase_device()
         phase_build(_build)
         records = phase_kernels(fa)
         phase_slice(fa, llama, trainer, records)
+        torch.cuda.empty_cache()
+        phase_long_context(fa, llama, trainer, records)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
+    print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,16 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile shapes, global->shared tile loads, ldmatrix and the bf16 mma.sync
-// m16n8k16 tensor-core product with fp32 accumulation.
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_tri.cu): tile shapes, global->shared tile loads, ldmatrix, the bf16
+// mma.sync m16n8k16 tensor-core product with fp32 accumulation, and the
+// three tile bodies (forward, dq, dk/dv) as templates over the softmax base.
+//
+// Two kernel families instantiate the bodies. The resident family
+// (flash_fwd.cu, flash_bwd.cu) works in natural exp with a natural-log lse;
+// the triangular family (flash_tri.cu) works in exp2 with a base-2 lse, as
+// the TPU's long-context kernels do, and walks a host-built tile schedule.
+// Both skip every fully masked tile (the KV loop stops at the causal
+// bound) and mask only the tiles that straddle the diagonal: the step is a
+// template over MASK, and interior tiles run the instance with no compare
+// or select.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4*g + t.
 //   A (16x16, row-major): a0 = (row g,   k 2t..2t+1), a1 = (row g+8, k 2t..),
@@ -21,6 +31,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 128;          // 4 warps; each owns 16 rows of a tile
 constexpr int kTile = 64;              // q and kv rows per tile (fwd, dq, dkv)
+constexpr int kDkvQ = 32;              // q rows per inner tile of dk/dv
 // bf16 padding per shared row: rows stay 16-byte aligned and the 8 row
 // addresses of one ldmatrix fall in 8 different 4-bank groups.
 constexpr int kPad = 8;
@@ -114,6 +125,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+}
+
 // Large dynamic shared memory must be allowed per kernel before launch.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, int bytes) {
@@ -121,5 +138,624 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
 }
+
+// ------------------------------------------------------- softmax bases
+// Scores are scale * q k^T * kScoreMul; P = exp(scores - stat) in the base;
+// the lse is written as m + log(l) in the base. The score scale rides the
+// one multiply each score takes anyway, so exp2's log2(e) costs nothing.
+
+struct BaseE {  // resident family: natural exp, natural-log lse
+  static constexpr float kScoreMul = 1.f;
+  static __device__ __forceinline__ float exp(float x) { return __expf(x); }
+  static __device__ __forceinline__ float log(float x) { return logf(x); }
+};
+
+struct Base2 {  // triangular family: exp2, base-2 lse
+  static constexpr float kScoreMul = 1.4426950408889634f;  // log2(e)
+  static __device__ __forceinline__ float exp(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+  }
+  static __device__ __forceinline__ float log(float x) { return log2f(x); }
+};
+
+// ------------------------------------------------------------ parameters
+
+struct FwdParams {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  float* lse;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  int S, H, KVH;
+  float scale;
+  int causal;
+};
+
+struct BwdParams {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* o;
+  const bf16* dout;
+  const float* lse;
+  float* delta;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
+  int S, H, KVH;
+  float scale;
+  int causal;
+};
+
+// strides: (batch, seq, head) in elements for q, k, v. o is written
+// contiguous (B, S, H, D) and lse (B, H, S) fp32.
+inline FwdParams fwd_params(const void* q, const void* k, const void* v,
+                            void* o, void* lse, const long long* st, int S,
+                            int H, int KVH, float scale, int causal) {
+  FwdParams p;
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
+  p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
+  p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
+  p.S = S; p.H = H; p.KVH = KVH;
+  p.scale = scale;
+  p.causal = causal;
+  return p;
+}
+
+// strides: (batch, seq, head) for q, k, v, then o (dq only), then dO.
+// dq, dk, dv are written contiguous and delta (B, H, S) fp32.
+inline BwdParams bwd_params(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout,
+                            const void* lse, const void* delta, void* dq,
+                            void* dk, void* dv, const long long* st, int S,
+                            int H, int KVH, float scale, int causal) {
+  BwdParams p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.o = static_cast<const bf16*>(o);
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(const_cast<void*>(delta));
+  p.dq = static_cast<bf16*>(dq);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
+  p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
+  p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
+  const long long* d = st + 9;
+  if (o != nullptr) {
+    p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
+    d = st + 12;
+  }
+  p.do_sb = d[0]; p.do_ss = d[1]; p.do_sh = d[2];
+  p.S = S; p.H = H; p.KVH = KVH;
+  p.scale = scale;
+  p.causal = causal;
+  return p;
+}
+
+// ---------------------------------------------------------------- forward
+// One q tile of 64 rows of one (b, h): o = softmax(scores) v and the lse.
+// Each warp owns 16 q rows and keeps their q fragments, the running (max,
+// sum) and the fp32 output in registers; the KV loop runs 64-row K/V
+// tiles staged in shared memory up to the causal bound.
+
+template <int D>
+constexpr int fwd_smem_bytes() {
+  return 3 * kTile * row_elems(D) * (int)sizeof(bf16);
+}
+
+template <int D, class Base, bool MASK>
+__device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
+                                         int q_start, int k_start, float sm,
+                                         const uint32_t (&qf)[D / 16][4],
+                                         float (&acc)[D / 8][4],
+                                         float (&m)[2], float (&l)[2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wrow = warp * 16;
+  float s[kTile / 8][4];
+  zero(s);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+    for (int np = 0; np < kTile / 16; ++np) {
+      uint32_t bfr[4];
+      load_b_nk<D>(bfr, sK, np * 16, ks * 16);
+      mma(s[2 * np], qf[ks], bfr[0], bfr[1]);
+      mma(s[2 * np + 1], qf[ks], bfr[2], bfr[3]);
+    }
+  }
+
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < kTile / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[i][e] * sm;
+      if (MASK) {
+        const int qpos = q_start + wrow + g + (e >= 2 ? 8 : 0);
+        const int kpos = k_start + i * 8 + 2 * t + (e & 1);
+        if (qpos < kpos) x = kNegInf;
+      }
+      s[i][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    alpha[r] = Base::exp(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[i][0] *= alpha[0];
+    acc[i][1] *= alpha[0];
+    acc[i][2] *= alpha[1];
+    acc[i][3] *= alpha[1];
+  }
+
+  // P = exp(s - m), packed straight into A fragments for P v.
+  uint32_t pf[kTile / 16][4];
+#pragma unroll
+  for (int i = 0; i < kTile / 8; ++i) {
+    const float p0 = Base::exp(s[i][0] - m[0]);
+    const float p1 = Base::exp(s[i][1] - m[0]);
+    const float p2 = Base::exp(s[i][2] - m[1]);
+    const float p3 = Base::exp(s[i][3] - m[1]);
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    pf[i / 2][(i % 2) * 2] = pack_bf16(p0, p1);
+    pf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t bfr[4];
+      load_b_kn<D>(bfr, sV, kk * 16, dn * 16);
+      mma(acc[2 * dn], pf[kk], bfr[0], bfr[1]);
+      mma(acc[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
+    }
+  }
+}
+
+template <int D, class Base>
+__device__ __forceinline__ void fwd_tile(const FwdParams& p, int b, int h,
+                                         int qt, unsigned char* smem) {
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kTile * row_elems(D);
+  bf16* sV = sK + kTile * row_elems(D);
+
+  const int kvh = h / (p.H / p.KVH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q_start = qt * kTile;
+  const int wrow = warp * 16;  // this warp's first row in the tile
+
+  const bf16* qg = p.q + b * p.q_sb + h * p.q_sh + q_start * p.q_ss;
+  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+
+  load_tile<D, kTile>(sQ, qg, p.q_ss);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) load_a<D>(qf[ks], sQ, wrow, ks * 16);
+
+  float acc[D / 8][4];
+  zero(acc);
+  float m[2] = {kNegInf, kNegInf};  // rows g and g+8
+  float l[2] = {0.f, 0.f};          // this lane's partial row sums
+  const float sm = p.scale * Base::kScoreMul;
+
+  // With equal q and kv tiles only tile qt straddles the diagonal.
+  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
+  for (int j = 0; j < n_kt; ++j) {
+    const int k_start = j * kTile;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile<D, kTile>(sK, kg + k_start * p.k_ss, p.k_ss);
+    load_tile<D, kTile>(sV, vg + k_start * p.v_ss, p.v_ss);
+    __syncthreads();
+    if (p.causal && j == qt)
+      fwd_step<D, Base, true>(sK, sV, q_start, k_start, sm, qf, acc, m, l);
+    else
+      fwd_step<D, Base, false>(sK, sV, q_start, k_start, sm, qf, acc, m, l);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.f / l[r];
+  }
+  const int row0 = q_start + wrow + g;
+  bf16* og = p.o + ((long long)b * p.S * p.H + h) * D;
+  const long long o_ss = (long long)p.H * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(og + row0 * o_ss + col) =
+        pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(og + (row0 + 8) * o_ss + col) =
+        pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
+  }
+  if (t == 0) {
+    float* lg = p.lse + ((long long)b * p.H + h) * p.S;
+    lg[row0] = m[0] + Base::log(l[0]);
+    lg[row0 + 8] = m[1] + Base::log(l[1]);
+  }
+}
+
+// --------------------------------------------------------------------- dq
+// One q tile of one (b, h): q and dO sit in shared memory, each warp owns
+// 16 rows and keeps its dq in fp32 registers while it loops over K/V tiles
+// up to the causal bound; dq is written once. It also computes delta =
+// rowsum(dO * O) for its rows and writes it for the dk/dv kernel, so that
+// kernel never reads O.
+
+template <int D>
+constexpr int dq_smem_bytes() {
+  return 4 * kTile * row_elems(D) * (int)sizeof(bf16) +
+         kTile * (int)sizeof(float);
+}
+
+template <int D, class Base, bool MASK>
+__device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
+                                        const bf16* sK, const bf16* sV,
+                                        int q_start, int k_start, float sm,
+                                        const float (&lse_r)[2],
+                                        const float (&dlt_r)[2],
+                                        float (&dq)[D / 8][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wrow = warp * 16;
+  float s[kTile / 8][4], dp[kTile / 8][4];
+  zero(s);
+  zero(dp);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t qa[4], da[4];
+    load_a<D>(qa, sQ, wrow, ks * 16);
+    load_a<D>(da, sdO, wrow, ks * 16);
+#pragma unroll
+    for (int np = 0; np < kTile / 16; ++np) {
+      uint32_t bk[4], bv[4];
+      load_b_nk<D>(bk, sK, np * 16, ks * 16);
+      load_b_nk<D>(bv, sV, np * 16, ks * 16);
+      mma(s[2 * np], qa, bk[0], bk[1]);
+      mma(s[2 * np + 1], qa, bk[2], bk[3]);
+      mma(dp[2 * np], da, bv[0], bv[1]);
+      mma(dp[2 * np + 1], da, bv[2], bv[3]);
+    }
+  }
+
+  // dS = P * (dP - delta), P = exp(scores - lse), into A fragments.
+  uint32_t dsf[kTile / 16][4];
+#pragma unroll
+  for (int i = 0; i < kTile / 8; ++i) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[i][e] * sm;
+      if (MASK) {
+        const int qpos = q_start + wrow + g + (e >= 2 ? 8 : 0);
+        const int kpos = k_start + i * 8 + 2 * t + (e & 1);
+        if (qpos < kpos) x = kNegInf;
+      }
+      const float pr = Base::exp(x - lse_r[e >> 1]);
+      ds[e] = pr * (dp[i][e] - dlt_r[e >> 1]);
+    }
+    dsf[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
+    dsf[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+  }
+  // dq += dS k: k is the (kv x d) = (k x n) operand, stored k-major.
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t bfr[4];
+      load_b_kn<D>(bfr, sK, kk * 16, dn * 16);
+      mma(dq[2 * dn], dsf[kk], bfr[0], bfr[1]);
+      mma(dq[2 * dn + 1], dsf[kk], bfr[2], bfr[3]);
+    }
+  }
+}
+
+template <int D, class Base>
+__device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
+                                        int qt, unsigned char* smem) {
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + kTile * row_elems(D);
+  bf16* sK = sdO + kTile * row_elems(D);
+  bf16* sV = sK + kTile * row_elems(D);
+  float* sDelta = reinterpret_cast<float*>(sV + kTile * row_elems(D));
+
+  const int kvh = h / (p.H / p.KVH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q_start = qt * kTile;
+  const int wrow = warp * 16;
+
+  const bf16* qg = p.q + b * p.q_sb + h * p.q_sh + q_start * p.q_ss;
+  const bf16* dog = p.dout + b * p.do_sb + h * p.do_sh + q_start * p.do_ss;
+  const bf16* og = p.o + b * p.o_sb + h * p.o_sh + q_start * p.o_ss;
+  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+  const long long stat = ((long long)b * p.H + h) * p.S + q_start;
+
+  load_tile<D, kTile>(sQ, qg, p.q_ss);
+  load_tile<D, kTile>(sdO, dog, p.do_ss);
+  __syncthreads();
+
+  // delta = rowsum(dO * O) in fp32: two lanes per row, D/2 columns each.
+  {
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+    const bf16* orow = og + r * p.o_ss + half * (D / 2);
+    const bf16* drow = sdO + r * row_elems(D) + half * (D / 2);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < D / 2; ++c)
+      sum += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      sDelta[r] = sum;
+      p.delta[stat + r] = sum;
+    }
+  }
+  __syncthreads();
+
+  const float lse_r[2] = {p.lse[stat + wrow + g], p.lse[stat + wrow + g + 8]};
+  const float dlt_r[2] = {sDelta[wrow + g], sDelta[wrow + g + 8]};
+  const float sm = p.scale * Base::kScoreMul;
+
+  float dq[D / 8][4];
+  zero(dq);
+
+  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
+  for (int j = 0; j < n_kt; ++j) {
+    const int k_start = j * kTile;
+    __syncthreads();
+    load_tile<D, kTile>(sK, kg + k_start * p.k_ss, p.k_ss);
+    load_tile<D, kTile>(sV, vg + k_start * p.v_ss, p.v_ss);
+    __syncthreads();
+    if (p.causal && j == qt)
+      dq_step<D, Base, true>(sQ, sdO, sK, sV, q_start, k_start, sm, lse_r,
+                             dlt_r, dq);
+    else
+      dq_step<D, Base, false>(sQ, sdO, sK, sV, q_start, k_start, sm, lse_r,
+                              dlt_r, dq);
+  }
+
+  // dS is the gradient of the natural-unit logit in both bases, so dq
+  // takes the plain logit scale.
+  const int row0 = q_start + wrow + g;
+  bf16* dqg = p.dq + ((long long)b * p.S * p.H + h) * D;
+  const long long dq_ss = (long long)p.H * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dqg + row0 * dq_ss + col) =
+        pack_bf16(dq[i][0] * p.scale, dq[i][1] * p.scale);
+    *reinterpret_cast<uint32_t*>(dqg + (row0 + 8) * dq_ss + col) =
+        pack_bf16(dq[i][2] * p.scale, dq[i][3] * p.scale);
+  }
+}
+
+// ------------------------------------------------------------------ dk/dv
+// One kv tile of 64 rows of one (b, kv head). Its K and V tiles stay in
+// shared memory; each warp owns 16 kv rows and keeps their dk and dv in
+// fp32 registers (D/2 floats per lane each) while it loops over the G query
+// heads of its group and, for each, over 32-row q/dO tiles from the causal
+// start. The GQA group-sum therefore happens in registers: no atomics and
+// no per-query-head gradient in device memory. The body computes S^T =
+// k q^T directly, so P^T and dS^T come out in the C-fragment layout that
+// feeds P^T dO and dS^T q from registers. The 32-row q tile keeps the score
+// registers (2 x 16 per lane) beside the 2 x 64 accumulators at D = 128.
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return (2 * kTile + 2 * kDkvQ) * row_elems(D) * (int)sizeof(bf16) +
+         2 * kDkvQ * (int)sizeof(float);
+}
+
+template <int D, class Base, bool MASK>
+__device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
+                                         const bf16* sQ, const bf16* sdO,
+                                         const float* sLse,
+                                         const float* sDelta, int q_start,
+                                         int k_start, float sm,
+                                         float (&dk)[D / 8][4],
+                                         float (&dv)[D / 8][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wrow = warp * 16;
+  // S^T = k q^T (kv rows x q cols): k rows are A, q (n x k) is B.
+  float st[kDkvQ / 8][4];
+  zero(st);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t ka[4];
+    load_a<D>(ka, sK, wrow, ks * 16);
+#pragma unroll
+    for (int np = 0; np < kDkvQ / 16; ++np) {
+      uint32_t bq[4];
+      load_b_nk<D>(bq, sQ, np * 16, ks * 16);
+      mma(st[2 * np], ka, bq[0], bq[1]);
+      mma(st[2 * np + 1], ka, bq[2], bq[3]);
+    }
+  }
+  // P^T = exp(scores^T - lse[q]), kept in fp32 for dS and packed for the
+  // dv product.
+  uint32_t pf[kDkvQ / 16][4];
+#pragma unroll
+  for (int c = 0; c < kDkvQ / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qcol = c * 8 + 2 * t + (e & 1);
+      float x = st[c][e] * sm;
+      if (MASK) {
+        const int kpos = k_start + wrow + g + (e >= 2 ? 8 : 0);
+        if (q_start + qcol < kpos) x = kNegInf;
+      }
+      st[c][e] = Base::exp(x - sLse[qcol]);
+    }
+    pf[c / 2][(c % 2) * 2] = pack_bf16(st[c][0], st[c][1]);
+    pf[c / 2][(c % 2) * 2 + 1] = pack_bf16(st[c][2], st[c][3]);
+  }
+  // dv += P^T dO: dO is the (q x d) = (k x n) operand, stored k-major.
+#pragma unroll
+  for (int kk = 0; kk < kDkvQ / 16; ++kk) {
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t bfr[4];
+      load_b_kn<D>(bfr, sdO, kk * 16, dn * 16);
+      mma(dv[2 * dn], pf[kk], bfr[0], bfr[1]);
+      mma(dv[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
+    }
+  }
+  // dP^T = v dO^T.
+  float dpt[kDkvQ / 8][4];
+  zero(dpt);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t va[4];
+    load_a<D>(va, sV, wrow, ks * 16);
+#pragma unroll
+    for (int np = 0; np < kDkvQ / 16; ++np) {
+      uint32_t bd[4];
+      load_b_nk<D>(bd, sdO, np * 16, ks * 16);
+      mma(dpt[2 * np], va, bd[0], bd[1]);
+      mma(dpt[2 * np + 1], va, bd[2], bd[3]);
+    }
+  }
+  // dS^T = P^T * (dP^T - delta[q]); dk += dS^T q.
+  uint32_t dsf[kDkvQ / 16][4];
+#pragma unroll
+  for (int c = 0; c < kDkvQ / 8; ++c) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qcol = c * 8 + 2 * t + (e & 1);
+      ds[e] = st[c][e] * (dpt[c][e] - sDelta[qcol]);
+    }
+    dsf[c / 2][(c % 2) * 2] = pack_bf16(ds[0], ds[1]);
+    dsf[c / 2][(c % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kDkvQ / 16; ++kk) {
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t bfr[4];
+      load_b_kn<D>(bfr, sQ, kk * 16, dn * 16);
+      mma(dk[2 * dn], dsf[kk], bfr[0], bfr[1]);
+      mma(dk[2 * dn + 1], dsf[kk], bfr[2], bfr[3]);
+    }
+  }
+}
+
+template <int D, class Base>
+__device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
+                                         int kt, unsigned char* smem) {
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kTile * row_elems(D);
+  bf16* sQ = sV + kTile * row_elems(D);
+  bf16* sdO = sQ + kDkvQ * row_elems(D);
+  float* sLse = reinterpret_cast<float*>(sdO + kDkvQ * row_elems(D));
+  float* sDelta = sLse + kDkvQ;
+
+  const int groups = p.H / p.KVH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k_start = kt * kTile;
+  const int wrow = warp * 16;
+  const float sm = p.scale * Base::kScoreMul;
+
+  load_tile<D, kTile>(sK, p.k + b * p.k_sb + kvh * p.k_sh + k_start * p.k_ss,
+                      p.k_ss);
+  load_tile<D, kTile>(sV, p.v + b * p.v_sb + kvh * p.v_sh + k_start * p.v_ss,
+                      p.v_ss);
+
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+
+  // Causal: q tiles start at the kv tile's first row; the two 32-row q
+  // tiles that overlap the 64-row kv tile straddle the diagonal, every
+  // later one lies wholly below it.
+  const int n_qt = p.S / kDkvQ;
+  const int i0 = p.causal ? k_start / kDkvQ : 0;
+  const int i_free = p.causal ? i0 + kTile / kDkvQ : 0;
+  for (int gi = 0; gi < groups; ++gi) {
+    const int h = kvh * groups + gi;
+    const bf16* qg = p.q + b * p.q_sb + h * p.q_sh;
+    const bf16* dog = p.dout + b * p.do_sb + h * p.do_sh;
+    const long long stat = ((long long)b * p.H + h) * p.S;
+    for (int i = i0; i < n_qt; ++i) {
+      const int q_start = i * kDkvQ;
+      __syncthreads();  // previous q tile fully consumed
+      load_tile<D, kDkvQ>(sQ, qg + q_start * p.q_ss, p.q_ss);
+      load_tile<D, kDkvQ>(sdO, dog + q_start * p.do_ss, p.do_ss);
+      if (threadIdx.x < kDkvQ) {
+        sLse[threadIdx.x] = p.lse[stat + q_start + threadIdx.x];
+        sDelta[threadIdx.x] = p.delta[stat + q_start + threadIdx.x];
+      }
+      __syncthreads();
+      if (i < i_free)
+        dkv_step<D, Base, true>(sK, sV, sQ, sdO, sLse, sDelta, q_start,
+                                k_start, sm, dk, dv);
+      else
+        dkv_step<D, Base, false>(sK, sV, sQ, sdO, sLse, sDelta, q_start,
+                                 k_start, sm, dk, dv);
+    }
+  }
+
+  const int row0 = k_start + wrow + g;
+  const long long ss = (long long)p.KVH * D;
+  const long long base = ((long long)b * p.S * p.KVH + kvh) * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(p.dk + base + row0 * ss + col) =
+        pack_bf16(dk[i][0] * p.scale, dk[i][1] * p.scale);
+    *reinterpret_cast<uint32_t*>(p.dk + base + (row0 + 8) * ss + col) =
+        pack_bf16(dk[i][2] * p.scale, dk[i][3] * p.scale);
+    *reinterpret_cast<uint32_t*>(p.dv + base + row0 * ss + col) =
+        pack_bf16(dv[i][0], dv[i][1]);
+    *reinterpret_cast<uint32_t*>(p.dv + base + (row0 + 8) * ss + col) =
+        pack_bf16(dv[i][2], dv[i][3]);
+  }
+}
+
+// Launches KERNEL<64> or KERNEL<128> for the runtime head_dim HEAD_DIM,
+// with its dynamic shared memory allowed first; returns from the calling
+// C entry with the launch's error code.
+#define STPU_LAUNCH_BY_D(HEAD_DIM, KERNEL, SMEM, GRID, STREAM, ...)          \
+  do {                                                                       \
+    cudaError_t err_;                                                        \
+    if ((HEAD_DIM) == 64) {                                                  \
+      err_ = allow_smem(KERNEL<64>, SMEM<64>());                             \
+      if (err_ != cudaSuccess) return (int)err_;                             \
+      KERNEL<64><<<GRID, kThreads, SMEM<64>(), STREAM>>>(__VA_ARGS__);       \
+    } else if ((HEAD_DIM) == 128) {                                          \
+      err_ = allow_smem(KERNEL<128>, SMEM<128>());                           \
+      if (err_ != cudaSuccess) return (int)err_;                             \
+      KERNEL<128><<<GRID, kThreads, SMEM<128>(), STREAM>>>(__VA_ARGS__);     \
+    } else {                                                                 \
+      return (int)cudaErrorInvalidValue;                                     \
+    }                                                                        \
+    return (int)cudaGetLastError();                                          \
+  } while (0)
 
 }  // namespace stpu

@@ -7,14 +7,39 @@ weight keeps the JAX package's (in, out) orientation and is applied as
 a copy along the stacked layer axis, never a transpose. Matmuls run in the
 config dtype, norms and softmax statistics in fp32, logits in fp32.
 
+Remat policies (``LlamaConfig.remat_policy``), the counterparts of
+``_remat_policy`` there, applied per layer in ``forward_trunk``:
+
+* ``"full"``: ``torch.utils.checkpoint`` of the whole layer; the backward
+  re-runs it, the flash forward included (2L flash forwards per step).
+* ``"save_flash"``: the flash op's outputs o and lse stay on the device;
+  the backward recomputes the norms, projections, rope and MLP around
+  them but never the flash forward (L per step).
+* ``"save_flash_qkv"``: as ``save_flash``, and the roped q/k/v stay too,
+  so ``qkv_proj`` runs once per layer and step; the backward takes the
+  projection's transposes from the saved q/k/v cotangents directly.
+* ``"save_flash_offload_qkv"``: as ``save_flash_qkv``, but q/k/v wait in
+  pinned host memory between the forward and the backward
+  (``offload_to_host``); o and lse stay on the device.
+
+The three ``save_flash*`` policies are one explicit per-layer
+``autograd.Function`` (``_FlashRematLayer``) that calls the flash op's
+forward and backward halves itself and recomputes exactly what its policy
+drops. ``torch.utils.checkpoint``'s selective policy cannot do this: it
+re-runs the whole layer function in the backward, returning cached
+outputs only for the ops it saved, so ``qkv_proj`` would still run twice;
+and it cannot offload. As in the JAX package, whose names live on its
+flash path only, a layer whose attention takes the reference path (the
+reference impl, or a shape the flash path refuses) has nothing to name and
+runs the ``"full"`` policy.
+
 Not in this slice: the int8 ``_scale`` weights and LoRA adapters of
-``lora_dense``, the KV-cache decode paths, and the remat policies other
-than "full".
+``lora_dense``, and the KV-cache decode paths.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.ops import attention as attention_ops
+from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops.linear import matmul_f32
 
 REMAT_POLICIES = ("full", "save_flash", "save_flash_qkv",
@@ -44,9 +70,7 @@ class LlamaConfig:
     tie_embeddings: bool = False
     attention_impl: str = "auto"  # auto|kernel|reference
     remat: bool = True
-    # Only "full" (per-layer checkpoint, everything recomputed in the
-    # backward) runs in this slice; the other names are recognised and
-    # raise NotImplementedError.
+    # One of REMAT_POLICIES; see the module docstring.
     remat_policy: str = "full"
 
     @property
@@ -216,16 +240,24 @@ def mlp_block(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
     return x + (gate * (y @ lp.w_up)) @ lp.w_down
 
 
+def _attn_residual(cfg, x: torch.Tensor, attn: torch.Tensor,
+                   lp: nn.Module) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp.wo
+
+
+def _attn_norm(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
+    return rms_norm(x, lp.attn_norm, cfg.norm_eps,
+                    getattr(cfg, "norm_offset", 0.0))
+
+
 def attention_block(cfg, x: torch.Tensor, lp: nn.Module,
                     positions: torch.Tensor) -> torch.Tensor:
     """Pre-norm GQA attention residual block."""
-    b, s, _ = x.shape
-    y = rms_norm(x, lp.attn_norm, cfg.norm_eps,
-                 getattr(cfg, "norm_offset", 0.0))
-    q, kk, vv = qkv_proj(cfg, y, lp, positions)
+    q, kk, vv = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp, positions)
     attn = attention_ops.attention(q, kk, vv, causal=True,
                                    impl=cfg.attention_impl)
-    return x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp.wo
+    return _attn_residual(cfg, x, attn, lp)
 
 
 def embed_tokens(params: LlamaParams, tokens: torch.Tensor) -> torch.Tensor:
@@ -250,16 +282,178 @@ def lm_head(cfg, params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
     return _vocab_proj(params, x)
 
 
-def _check_remat_policy(cfg) -> None:
+def _remat_policy(cfg) -> str:
     name = getattr(cfg, "remat_policy", "full")
-    if name == "full":
-        return
-    if name in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy {name!r} is not ported yet; use 'full'")
-    raise ValueError(
-        f"Unknown remat_policy {name!r}; expected 'full', 'save_flash', "
-        "'save_flash_qkv' or 'save_flash_offload_qkv'.")
+    if name not in REMAT_POLICIES:
+        # A typo silently degrading to full remat would re-run the
+        # quadratic kernel every backward: the cost the knob avoids.
+        raise ValueError(
+            f"Unknown remat_policy {name!r}; expected 'full', 'save_flash', "
+            "'save_flash_qkv' or 'save_flash_offload_qkv'.")
+    return name
+
+
+# ------------------------------------------------ the save_flash* policies
+
+_COPY_STREAMS: dict = {}
+
+
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    stream = _COPY_STREAMS.get(device)
+    if stream is None:
+        stream = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def offload_to_host(t: torch.Tensor) -> tuple:
+    """Park a CUDA tensor in pinned host memory: the copy runs on a side
+    stream after the producing work, so it overlaps the rest of the
+    forward. A CPU tensor stays where it is (there is no pinned memory to
+    move it to). Returns the handle ``reload_from_host`` takes."""
+    if not t.is_cuda:
+        return t, None
+    main = torch.cuda.current_stream(t.device)
+    side = _copy_stream(t.device)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        host.copy_(t, non_blocking=True)
+    t.record_stream(side)  # its memory is not reused before the copy ends
+    return host, t.device
+
+
+def reload_from_host(handle: tuple) -> Tuple[torch.Tensor, object]:
+    """Start copying a parked tensor back on the side stream, behind its
+    copy out and ahead of the work already queued on the current stream:
+    (tensor, event the current stream must wait for before reading it, or
+    None)."""
+    host, device = handle
+    if device is None:
+        return host, None
+    side = _copy_stream(device)
+    with torch.cuda.stream(side):
+        t = host.to(device, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(side)
+    t.record_stream(torch.cuda.current_stream(device))
+    return t, ready
+
+
+def _grads(outputs, inputs: dict, grad_outputs) -> dict:
+    """{name: gradient} for the inputs that require one."""
+    names = [n for n, t in inputs.items() if t.requires_grad]
+    got = torch.autograd.grad(outputs, [inputs[n] for n in names],
+                              grad_outputs)
+    return dict(zip(names, got))
+
+
+def _qkv_proj_backward(cfg, lp: nn.Module, x: torch.Tensor,
+                       positions: torch.Tensor, dq: torch.Tensor,
+                       dk: torch.Tensor, dv: torch.Tensor) -> dict:
+    """Gradients of the norm + qkv_proj segment from the cotangents of its
+    saved outputs, without re-running the projections: rope is a rotation,
+    so its transpose is rope at -positions; the projections' transposes
+    are two matmuls each; the norm is recomputed under autograd."""
+    with torch.enable_grad():
+        x_ = x.detach().requires_grad_(x.requires_grad)
+        y = _attn_norm(cfg, x_, lp)
+    b, s, dim = y.shape
+    y2 = y.detach().reshape(b * s, dim)
+    g = {"wq": rope(dq, -positions, cfg.rope_theta).reshape(b * s, -1),
+         "wk": rope(dk, -positions, cfg.rope_theta).reshape(b * s, -1),
+         "wv": dv.reshape(b * s, -1)}
+    out = {n: y2.t() @ g[n] for n in g if getattr(lp, n).requires_grad}
+    gy = sum(g[n] @ getattr(lp, n).t() for n in g).reshape(b, s, dim)
+    out.update(_grads(y, {"x": x_, "attn_norm": lp.attn_norm}, gy))
+    return out
+
+
+class _FlashRematLayer(torch.autograd.Function):
+    """One decoder layer under a save_flash* policy (module docstring).
+
+    Forward, without a graph: norm, qkv_proj, the flash forward (its
+    family picked from the shape), the residual and the MLP. Saved: the
+    layer input, o and lse, and under *_qkv the roped q/k/v (on the device
+    or parked on the host). Backward: recompute the residual + MLP from x
+    and o under autograd for their gradients and dO; the flash backward of
+    the same family; then the norm + qkv_proj segment, recomputed under
+    autograd (save_flash) or from the saved q/k/v (``_qkv_proj_backward``).
+    """
+
+    @staticmethod
+    def forward(ctx, cfg, policy: str, lp: nn.Module, x: torch.Tensor,
+                positions: torch.Tensor, *weights: torch.Tensor):
+        # ``weights`` are lp's parameters, passed so that autograd routes
+        # their gradients through backward; the body reads them from lp.
+        s, hd = x.shape[1], cfg.head_dim
+        scale = hd ** -0.5
+        fam = flash_ops.family(s, hd, True)
+        q, k, v = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp, positions)
+        o, lse = flash_ops.flash_forward(q, k, v, True, scale, fam)
+        out = mlp_block(cfg, _attn_residual(cfg, x, o, lp), lp)
+        ctx.cfg, ctx.policy, ctx.lp = cfg, policy, lp
+        ctx.scale, ctx.family = scale, fam
+        ctx.parked = None
+        if policy == "save_flash":
+            ctx.save_for_backward(x, positions, o, lse)
+        elif policy == "save_flash_qkv":
+            ctx.save_for_backward(x, positions, o, lse, q, k, v)
+        else:
+            ctx.save_for_backward(x, positions, o, lse)
+            ctx.parked = [offload_to_host(t) for t in (q, k, v)]
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        cfg, lp = ctx.cfg, ctx.lp
+        x, positions, o, lse, *qkv = ctx.saved_tensors
+        ready = []
+        if ctx.parked is not None:  # the copies back overlap the MLP work
+            qkv, ready = zip(*map(reload_from_host, ctx.parked))
+            ctx.parked = None
+        with torch.enable_grad():
+            x_ = x.detach().requires_grad_(x.requires_grad)
+            o_ = o.detach().requires_grad_()
+            out = mlp_block(cfg, _attn_residual(cfg, x_, o_, lp), lp)
+        post = {"x": x_, "o": o_}
+        post.update((n, getattr(lp, n)) for n in
+                    ("wo", "mlp_norm", "w_gate", "w_up", "w_down"))
+        grads = _grads(out, post, g)
+        do = grads.pop("o")
+        dx = grads.pop("x", None)
+
+        if ctx.policy == "save_flash":
+            with torch.enable_grad():
+                x_ = x.detach().requires_grad_(x.requires_grad)
+                qkv = qkv_proj(cfg, _attn_norm(cfg, x_, lp), lp, positions)
+            dqkv = flash_ops.flash_backward(
+                *(t.detach() for t in qkv), o, lse, do, True, ctx.scale,
+                ctx.family)
+            pre = {"x": x_}
+            pre.update((n, getattr(lp, n)) for n in
+                       ("attn_norm", "wq", "wk", "wv"))
+            grads.update(_grads(qkv, pre, dqkv))
+        else:
+            for ev in ready:
+                if ev is not None:
+                    torch.cuda.current_stream(o.device).wait_event(ev)
+            dqkv = flash_ops.flash_backward(*qkv, o, lse, do, True,
+                                            ctx.scale, ctx.family)
+            grads.update(_qkv_proj_backward(cfg, lp, x, positions, *dqkv))
+        if dx is not None:
+            dx = dx + grads.pop("x")
+        return (None, None, None, dx, None,
+                *(grads.get(n) for n in layer_shapes(cfg)))
+
+
+def _flash_remat_applies(cfg, x: torch.Tensor) -> bool:
+    impl = cfg.attention_impl
+    if impl == "auto":
+        impl = "kernel" if x.is_cuda else "reference"
+    b, s = x.shape[0], x.shape[1]
+    return impl == "kernel" and flash_ops.takes_kernel_path(
+        (b, s, cfg.n_heads, cfg.head_dim),
+        (b, s, cfg.n_kv_heads, cfg.head_dim))
 
 
 def forward_trunk(cfg: LlamaConfig, params: LlamaParams,
@@ -273,13 +467,18 @@ def forward_trunk(cfg: LlamaConfig, params: LlamaParams,
     scale = getattr(cfg, "embed_multiplier", 1.0)
     if scale != 1.0:  # gemma: embeddings scaled by sqrt(dim)
         x = (x.float() * scale).to(x.dtype)
-    if cfg.remat:
-        _check_remat_policy(cfg)
+    policy = _remat_policy(cfg) if cfg.remat else None
+    if policy not in (None, "full") and not _flash_remat_applies(cfg, x):
+        policy = "full"
     for lp in params.layers:
-        if cfg.remat:
+        if policy is None:
+            x = lp(cfg, x, positions)
+        elif policy == "full":
             x = checkpoint(lp, cfg, x, positions, use_reentrant=False)
         else:
-            x = lp(cfg, x, positions)
+            x = _FlashRematLayer.apply(
+                cfg, policy, lp, x, positions,
+                *(getattr(lp, n) for n in layer_shapes(cfg)))
     return rms_norm(x, params.final_norm, cfg.norm_eps,
                     getattr(cfg, "norm_offset", 0.0))
 

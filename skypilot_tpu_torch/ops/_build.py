@@ -23,7 +23,7 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2] / "build" /
               "stpu_torch_kernels")
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_tri")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -31,12 +31,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# C signatures: (pointers..., strides, B, S, H, KVH, D, scale, causal, stream)
+# C signatures: (pointers..., strides, B, S, H, KVH, D, scale, causal, stream);
+# the triangular family is causal only and takes its tile schedule as the
+# last pointer.
 _TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 SIGNATURES = {
     "flash_fwd": {"stpu_flash_fwd": [_P] * 5 + _TAIL},
     "flash_bwd": {"stpu_flash_dq": [_P] * 8 + _TAIL,
                   "stpu_flash_dkv": [_P] * 8 + _TAIL},
+    "flash_tri": {"stpu_flash_fwd_tri": [_P] * 6 + _TRI_TAIL,
+                  "stpu_flash_dq_tri": [_P] * 9 + _TRI_TAIL,
+                  "stpu_flash_dkv_tri": [_P] * 9 + _TRI_TAIL},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

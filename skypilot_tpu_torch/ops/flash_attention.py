@@ -1,48 +1,90 @@
 """Flash attention, forward and backward, as hand-written Hopper kernels.
 
-Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` (its
-resident family, which the JAX dispatcher picks at the training shapes:
-``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
-``_dkv_kernel_resident``). Three CUDA kernels for sm_90a live in
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``:
+Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` and of its
+dispatch by family (``_use_resident``, ``_flash_fwd``, ``_flash_bwd``).
+Two families of three CUDA kernels for sm_90a, sharing their tile bodies
+(``csrc/flash_common.cuh``):
 
-* ``flash_fwd``: o = softmax(scale * q k^T, causal) v and the natural-log
-  lse, (B, H, S) fp32;
-* ``flash_dq``: dq = scale * sum_k (P * (dP - delta)) k, and delta =
-  rowsum(dO * O), which it writes for the next kernel;
-* ``flash_dkv``: dv = sum P^T dO and dk = scale * sum dS^T q, the GQA
-  group summed in the kernel, no atomics.
+* the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
+  ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
+  ``_dkv_kernel_resident``, natural-log lse:
 
-Beside them stand their plain PyTorch versions, ``flash_fwd_plain`` and
-``flash_bwd_plain``, written as the formulas; the CPU path runs them and
-``chip_smoke.py`` holds the kernels against them on the card. Which one
-runs depends only on where the tensors lie: a CUDA tensor launches the
+  - ``flash_fwd``: o = softmax(scale * q k^T, causal) v and the lse,
+    (B, H, S) fp32;
+  - ``flash_dq``: dq = scale * sum_k (P * (dP - delta)) k, and delta =
+    rowsum(dO * O), which it writes for the next kernel;
+  - ``flash_dkv``: dv = sum P^T dO and dk = scale * sum dS^T q, the GQA
+    group summed in the kernel, no atomics;
+
+* the triangular family (``csrc/flash_tri.cu``), for ``_fwd_kernel_tri``,
+  ``_dq_kernel_tri`` and ``_dkv_kernel_tri``: the same three functions,
+  causal only, in exp2 with a base-2 lse, over a host-built tile schedule
+  (``tri_schedule``): ``flash_fwd_tri``, ``flash_dq_tri``,
+  ``flash_dkv_tri``.
+
+``family`` picks one from the shape, as the JAX dispatcher does: the
+resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
+triangular family for causal attention past it. Non-causal attention past
+the budget goes to the resident kernels, which take any S: the JAX
+package's streamed family (its third) is not ported. The choice is made
+once per call in the forward and carried to the backward, so the base-2
+lse never meets a natural-log kernel.
+
+Beside each family stand its plain PyTorch versions (``flash_fwd_plain``
+and ``flash_bwd_plain``; ``flash_fwd_tri_plain`` and
+``flash_bwd_tri_plain``), written as the formulas; the CPU path runs them
+and ``chip_smoke.py`` holds the kernels against them on the card. Which
+one runs depends only on where the tensors lie: a CUDA tensor launches a
 kernel or raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from skypilot_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 # The kernels' tile: q, kv rows per block. S must be a multiple of it.
 TILE = 64
+# q rows per inner tile of the dk/dv kernels (csrc/flash_common.cuh kDkvQ).
+DKV_Q_TILE = 32
 HEAD_DIMS = (64, 128)
 # JAX's default block, halved until it divides S: decides, as there, when
 # a shape is too irregular for the kernel path (see flash_attention).
 _JAX_DEFAULT_BLOCK = 1024
 
+# The JAX dispatcher's budget: the resident family stages 3 full-sequence
+# fp32 tensors of (S, D) and is picked while they fit.
+_RESIDENT_MAX_BYTES = 6 * 1024 * 1024
+RESIDENT, TRIANGULAR = "resident", "triangular"
+
 # Launch counts, one per kernel: each wrapper adds one where it launches.
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "flash_fwd_tri": 0, "flash_dq_tri": 0, "flash_dkv_tri": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _use_resident(s: int, d: int) -> bool:
+    return 3 * s * d * 4 <= _RESIDENT_MAX_BYTES
+
+
+def family(s: int, d: int, causal: bool) -> str:
+    """The kernel family for sequence length ``s`` and head_dim ``d``: the
+    JAX dispatcher's choice, except that non-causal attention past the
+    budget stays on the resident kernels (the streamed family is not
+    ported; the resident kernels take any S)."""
+    if causal and not _use_resident(s, d):
+        return TRIANGULAR
+    return RESIDENT
 
 
 # ----------------------------------------------------------- plain versions
@@ -99,6 +141,133 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
     return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def _tri_group_scores(q: torch.Tensor, k: torch.Tensor, j: int,
+                      scale: float) -> torch.Tensor:
+    """Base-2 causal scores of KV head j's query group, fp32 (B, G, S, S):
+    scale * log2(e) * q k^T, masked above the diagonal."""
+    s, h = q.shape[1], q.shape[2]
+    g = h // k.shape[2]
+    qg = q[:, :, j * g:(j + 1) * g].float()
+    sc = torch.einsum("bqgd,bkd->bgqk", qg, k[:, :, j].float())
+    sc = sc * (scale * LOG2E)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    return sc.masked_fill(~mask, NEG_INF)
+
+
+def flash_fwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal (o in q's dtype, lse (B, H, S) fp32 in base 2), the
+    triangular family's convention. One KV head's query group at a time,
+    so at most one group's (B, G, S, S) scores are live."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for j in range(kvh):
+        hs = slice(j * g, (j + 1) * g)
+        sc = _tri_group_scores(q, k, j, scale)
+        m = sc.amax(dim=-1, keepdim=True)
+        lse_j = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
+        p = torch.exp2(sc - lse_j)
+        del sc
+        o[:, :, hs] = torch.einsum("bgqk,bkd->bqgd", p,
+                                   v[:, :, j].float()).to(q.dtype)
+        lse[:, hs] = lse_j[..., 0]
+    return o, lse
+
+
+def flash_bwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the triangular forward's (o, base-2 lse), fp32
+    until the final cast: P = exp2(S2 - lse), dP = dO v^T, delta =
+    rowsum(dO * O), dS = P * (dP - delta); dq = scale dS k, dk = scale
+    sum_g dS^T q, dv = sum_g P^T dO. One KV head's group at a time."""
+    h = q.shape[2]
+    kvh = k.shape[2]
+    g = h // kvh
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for j in range(kvh):
+        hs = slice(j * g, (j + 1) * g)
+        p = torch.exp2(_tri_group_scores(q, k, j, scale)
+                       - lse[:, hs, :, None])
+        dof = do[:, :, hs].float()
+        dp = torch.einsum("bqgd,bkd->bgqk", dof, v[:, :, j].float())
+        delta = (dof * o[:, :, hs].float()).sum(-1)          # (b, s, g)
+        ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+        del dp
+        dq[:, :, hs] = (torch.einsum("bgqk,bkd->bqgd", ds,
+                                     k[:, :, j].float()) * scale).to(q.dtype)
+        dk[:, :, j] = (torch.einsum("bgqk,bqgd->bkd", ds,
+                                    q[:, :, hs].float()) * scale).to(k.dtype)
+        dv[:, :, j] = torch.einsum("bgqk,bqgd->bkd", p, dof).to(v.dtype)
+    return dq, dk, dv
+
+
+# ------------------------------------------------ triangular tile schedule
+
+def _tri_maps_row(nq: int, nk: int, block_q: int, block_k: int):
+    """Row-major (qi, ki) pairs with any unmasked element:
+    k_start <= q_start + block_q - 1 (the JAX package's enumeration)."""
+    qs, ks = [], []
+    for qi in range(nq):
+        bound = min(nk - 1, (qi * block_q + block_q - 1) // block_k)
+        for ki in range(bound + 1):
+            qs.append(qi)
+            ks.append(ki)
+    return qs, ks
+
+
+def _tri_maps_col(nq: int, nk: int, block_q: int, block_k: int,
+                  n_heads: int):
+    """Column-major (ki, hi, qi) triples for dk/dv: for each KV block,
+    every query head's unmasked q blocks, consecutive."""
+    kks, hhs, qqs = [], [], []
+    for ki in range(nk):
+        lo = (ki * block_k) // block_q
+        for hi in range(n_heads):
+            for qi in range(lo, nq):
+                kks.append(ki)
+                hhs.append(hi)
+                qqs.append(qi)
+    return kks, hhs, qqs
+
+
+_SCHEDULES: Dict[tuple, torch.Tensor] = {}
+
+
+def tri_schedule(kind: str, n_rows: int, s: int,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """The triangular kernels' work list, (n_rows * S / TILE, 2) int32:
+    one (row, tile) item per block, where a row is b * H + h ("rows": the
+    forward and dq, a tile is a q tile) or b * KVH + kvh ("cols": dk/dv, a
+    tile is a kv tile). Items are sorted by how many tile pairs they
+    compute, from the JAX package's own enumeration (``_tri_maps_row``,
+    ``_tri_maps_col``), longest first across all rows. Built once per shape
+    and device."""
+    key = (kind, n_rows, s, str(device))
+    work = _SCHEDULES.get(key)
+    if work is not None:
+        return work
+    nt = s // TILE
+    if kind == "rows":
+        tiles, _ = _tri_maps_row(nt, nt, TILE, TILE)
+    elif kind == "cols":
+        tiles, _, _ = _tri_maps_col(s // DKV_Q_TILE, nt, DKV_Q_TILE, TILE, 1)
+    else:
+        raise ValueError(f"unknown schedule kind {kind!r}")
+    pairs = collections.Counter(tiles)
+    items = sorted(((r, t) for t in range(nt) for r in range(n_rows)),
+                   key=lambda it: -pairs[it[1]])
+    work = torch.tensor(items, dtype=torch.int32, device=device)
+    _SCHEDULES[key] = work
+    return work
 
 
 # --------------------------------------------------------- kernel wrappers
@@ -221,32 +390,119 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
-# ------------------------------------------------------------ autograd op
+def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
+              scale: float) -> None:
+    """Launch triangular kernel ``fn`` on (q, k, ...) = ``ptrs``."""
+    q = ptrs[0]
+    b, s, h, d = q.shape
+    lib = _build.library("flash_tri")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"stpu_{fn}")(
+            *(t.data_ptr() for t in ptrs), work.data_ptr(), strides, b, s, h,
+            ptrs[1].shape[2], d, float(scale), _stream(q))
+    _raise_on(err, fn)
+    LAUNCHES[fn] += 1
+
+
+def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Triangular-family kernel forward, causal: (o (B,S,H,D) bf16,
+    lse (B,H,S) fp32 in base 2)."""
+    _check_inputs(q, k, v)
+    b, s, h, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    work = tri_schedule("rows", b * h, s, q.device)
+    _tri_call("flash_fwd_tri", (q, k, v, o, lse), _strides(q, k, v), work,
+              scale)
+    return o, lse
+
+
+def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Triangular-family kernel dq from the base-2 lse: (dq (B,S,H,D) bf16,
+    delta = rowsum(dO*O) (B,H,S) fp32)."""
+    _check_inputs(q, k, v, o, do, lse)
+    b, s, h, d = q.shape
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    work = tri_schedule("rows", b * h, s, q.device)
+    _tri_call("flash_dq_tri", (q, k, v, o, do, lse, dq, delta),
+              _strides(q, k, v, o, do), work, scale)
+    return dq, delta
+
+
+def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Triangular-family kernel dk/dv: (dk, dv) (B,S,KVH,D) bf16, the GQA
+    group summed."""
+    _check_inputs(q, k, v, do, lse, delta)
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
+    work = tri_schedule("cols", b * kvh, s, q.device)
+    _tri_call("flash_dkv_tri", (q, k, v, do, lse, delta, dk, dv),
+              _strides(q, k, v, do), work, scale)
+    return dk, dv
+
+
+# ------------------------------------------------------------ the op
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float, fam: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) through family ``fam``: the kernel for CUDA tensors, the
+    plain version for CPU tensors. lse is in the family's base."""
+    if fam == TRIANGULAR:
+        if q.is_cuda:
+            return flash_fwd_tri(q, k, v, scale)
+        return flash_fwd_tri_plain(q, k, v, scale)
+    if q.is_cuda:
+        return flash_fwd(q, k, v, causal, scale)
+    return flash_fwd_plain(q, k, v, causal, scale)
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   causal: bool, scale: float, fam: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from a forward of family ``fam``: its dq kernel then
+    its dk/dv kernel on CUDA, its plain backward on the CPU."""
+    if not do.is_cuda:
+        if fam == TRIANGULAR:
+            return flash_bwd_tri_plain(q, k, v, o, lse, do, scale)
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    do = do.contiguous()
+    if fam == TRIANGULAR:
+        dq, delta = flash_dq_tri(q, k, v, o, lse, do, scale)
+        dk, dv = flash_dkv_tri(q, k, v, do, lse, delta, scale)
+    else:
+        dq, delta = flash_dq(q, k, v, o, lse, do, causal, scale)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
 
 class _FlashAttention(torch.autograd.Function):
     """Saves (q, k, v, o, lse) as the JAX package's ``_flash_vjp_fwd``
-    does; the backward is the dq kernel then the dk/dv kernel."""
+    does, and the family the forward picked: the backward reads it from
+    there and never re-derives it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        if q.is_cuda:
-            o, lse = flash_fwd(q, k, v, causal, scale)
-        else:
-            o, lse = flash_fwd_plain(q, k, v, causal, scale)
+        fam = family(q.shape[1], q.shape[3], causal)
+        o, lse = flash_forward(q, k, v, causal, scale, fam)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.family = causal, scale, fam
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, scale = ctx.causal, ctx.scale
-        if do.is_cuda:
-            do = do.contiguous()
-            dq, delta = flash_dq(q, k, v, o, lse, do, causal, scale)
-            dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale)
-        else:
-            dq, dk, dv = flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal,
+                                    ctx.scale, ctx.family)
         return dq, dk, dv, None, None
 
 
@@ -257,21 +513,27 @@ def _fit_block(block: int, s: int) -> int:
     return block
 
 
+def takes_kernel_path(q_shape, k_shape) -> bool:
+    """False for the irregular shapes the JAX package sends to its
+    reference (kv length != S, H % KVH != 0, d % 8 != 0, or no block of
+    8k rows divides S). Shapes are q's (B,S,H,D) and k's (B,Sk,KVH,D)."""
+    _, s, h, d = q_shape
+    block = _fit_block(_JAX_DEFAULT_BLOCK, s)
+    return not (k_shape[1] != s or s % block or h % k_shape[2] or block % 8
+                or d % 8)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention. q: (B,S,H,D); k, v: (B,S,KVH,D).
 
     Irregular shapes go to the reference, exactly where the JAX package
-    sends them (kv length != S, H % KVH != 0, d % 8 != 0, or no block of
-    8k rows divides S). Any other shape the kernels do not take raises on
-    CUDA (e.g. head_dim 256)."""
-    b, s, h, d = q.shape
+    sends them (``takes_kernel_path``). Any other shape the kernels do not
+    take raises on CUDA (e.g. head_dim 256)."""
     if scale is None:
-        scale = d ** -0.5
-    block = _fit_block(_JAX_DEFAULT_BLOCK, s)
-    if (k.shape[1] != s or s % block or h % k.shape[2] or block % 8
-            or d % 8):
+        scale = q.shape[3] ** -0.5
+    if not takes_kernel_path(q.shape, k.shape):
         from skypilot_tpu_torch.ops import attention as attention_ops
         return attention_ops.reference_attention(q, k, v, causal=causal,
                                                  scale=scale)

@@ -91,15 +91,21 @@ def test_lse_matches_jax(monkeypatch, resident, to_natural):
                                atol=OUT_TOL)
 
 
-@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_dq", "flash_dkv",
+                                     "flash_fwd_tri", "flash_dq_tri",
+                                     "flash_dkv_tri"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     # A kernel wrapper launches its kernel or raises; it never computes the
     # plain version itself. (The plain path is chosen above it, by device.)
+    # The triangular wrappers are causal only and take no causal flag.
     q, k, v = map(torch.from_numpy, _qkv(6, s=64))
     lse = torch.zeros(2, 4, 64)
-    args = {"flash_fwd": (q, k, v),
-            "flash_dq": (q, k, v, q, lse, q),
-            "flash_dkv": (q, k, v, q, lse, lse)}[wrapper]
+    args = {"flash_fwd": (q, k, v, True),
+            "flash_dq": (q, k, v, q, lse, q, True),
+            "flash_dkv": (q, k, v, q, lse, lse, True),
+            "flash_fwd_tri": (q, k, v),
+            "flash_dq_tri": (q, k, v, q, lse, q),
+            "flash_dkv_tri": (q, k, v, q, lse, lse)}[wrapper]
     with pytest.raises(ValueError):
-        getattr(fa_torch, wrapper)(*args, True, 0.125)
+        getattr(fa_torch, wrapper)(*args, 0.125)
     assert fa_torch.LAUNCHES[wrapper] == 0

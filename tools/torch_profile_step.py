@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's training step spends its time, on one card.
 
-    python3 tools/torch_profile_step.py
+    python3 tools/torch_profile_step.py            # the seq-2048 slice
+    python3 tools/torch_profile_step.py --seq 8192 --batch 1 \
+        --remat-policy save_flash_offload_qkv --chunked-ce   # long context
 
-Builds the slice chip_smoke.py drives (Llama-3-8B width, 4 layers, batch
-2 x seq 2048, bf16, adamw, full remat, flash kernels), warms up, then:
+Builds the step chip_smoke.py drives (Llama-3-8B width, 4 layers, bf16,
+adamw, flash kernels; by default batch 2 x seq 2048, full remat and the
+unchunked loss), warms up, then:
 
 1. times the step's three phases (forward + loss, backward, optimizer)
    with a synchronised host clock, median of 5 steps;
 2. profiles 2 steps with torch.profiler and prints the device time per
-   step by kernel family, the device's idle share of the window, and the
-   top kernels.
+   step by kernel family, the device's idle share of the window, the top
+   kernels, and the copy engine's time for host offload (the
+   save_flash_offload_qkv policy's q/k/v round trip), which runs beside
+   the kernels and is not counted as busy.
 
 Imports nothing of JAX. Needs a CUDA card and this file's checkout.
 """
+import argparse
 import collections
 import dataclasses
 import pathlib
@@ -25,12 +31,15 @@ import torch
 from torch.autograd import DeviceType
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-N_LAYERS, BATCH, SEQ = 4, 2, 2048
+N_LAYERS = 4
 
+# Host offload copies: the copy engine, beside the kernels.
+OFFLOAD = ("memcpy dtoh", "memcpy htod")
 # Kernel-name fragments -> family, first match wins.
 FAMILIES = (
-    ("flash attention (port kernels)", ("flash_fwd", "flash_dq",
-                                        "flash_dkv")),
+    ("flash attention, triangular (port kernels)", ("_tri_kernel",)),
+    ("flash attention, resident (port kernels)", ("flash_fwd", "flash_dq",
+                                                  "flash_dkv")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("adamw (fused multi-tensor)", ("multi_tensor_apply", "fusedopti")),
     ("softmax / logsumexp / CE", ("softmax", "logsumexp", "log_softmax",
@@ -54,6 +63,14 @@ def family(name: str) -> str:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seq", type=int, default=2048)
+    parser.add_argument("--batch", type=int, default=2)
+    parser.add_argument("--remat-policy", default="full")
+    parser.add_argument("--chunked-ce", action="store_true",
+                        help="forward_trunk + chunked_cross_entropy_loss "
+                             "instead of full-sequence logits")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
@@ -66,11 +83,15 @@ def main() -> int:
                          text=True, timeout=60)
     print(f"[card] {smi.stdout.strip()}")
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
-                              n_layers=N_LAYERS)
+                              n_layers=N_LAYERS, max_seq_len=args.seq,
+                              remat_policy=args.remat_policy)
+    print(f"[config] llama3_8b width, {N_LAYERS} layers, batch "
+          f"{args.batch} x seq {args.seq}, remat {args.remat_policy}, "
+          f"{'chunked' if args.chunked_ce else 'full-logits'} loss")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init(cfg, gen)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
-                           generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                           device="cuda", generator=gen)
     tx = trainer.make_optimizer(trainer.TrainConfig(warmup_steps=1,
                                                     total_steps=100))
     state = trainer.init_train_state(params, tx)
@@ -85,11 +106,16 @@ def main() -> int:
         for p in plist:
             p.grad = None
         t0 = sync_clock() if phases is not None else 0.0
-        logits = llama.forward(cfg, params, tokens)
-        loss = trainer.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+        if args.chunked_ce:
+            hidden = llama.forward_trunk(cfg, params, tokens)
+            loss = trainer.chunked_cross_entropy_loss(
+                hidden[:, :-1], llama.head_weights(params), tokens[:, 1:])
+        else:
+            logits = llama.forward(cfg, params, tokens)
+            loss = trainer.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
         t1 = sync_clock() if phases is not None else 0.0
         loss.backward()
-        del logits
+        del loss
         t2 = sync_clock() if phases is not None else 0.0
         grads = [p.grad for p in plist]
         tx.update_(plist, grads, state.opt_state)
@@ -119,6 +145,7 @@ def main() -> int:
         wall = sync_clock() - t0
     by_family = collections.Counter()
     by_kernel = collections.Counter()
+    offload = collections.Counter()
     for evt in prof.events():
         # Kernels only: the CPU op that launched a kernel carries its time
         # again, and a user range on the device timeline (Optimizer.step)
@@ -126,6 +153,10 @@ def main() -> int:
         if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
             continue
         us = evt.time_range.elapsed_us()
+        low = evt.name.lower()
+        if any(k in low for k in OFFLOAD):
+            offload[evt.name] += us
+            continue
         by_family[family(evt.name)] += us
         by_kernel[evt.name] += us
     busy = sum(by_family.values()) / 1e6
@@ -140,6 +171,9 @@ def main() -> int:
               f"{us / 1e6 / busy:6.1%}  {fam}")
     for name, us in by_kernel.most_common(15):
         print(f"[kernel] {us / n_prof / 1e3:8.2f} ms/step  {name[:110]}")
+    for name, us in offload.most_common():
+        print(f"[offload] {us / n_prof / 1e3:8.2f} ms/step  {name} (copy "
+              "engine, beside the kernels)")
     return 0
 
 
