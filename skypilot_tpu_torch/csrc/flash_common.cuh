@@ -1,16 +1,22 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_tri.cu): tile shapes, global->shared tile loads, ldmatrix, the bf16
-// mma.sync m16n8k16 tensor-core product with fp32 accumulation, and the
-// three tile bodies (forward, dq, dk/dv) as templates over the softmax base.
+// flash_tri.cu, flash_streamed.cu): tile shapes, global->shared tile loads
+// (plain, and staged through cp.async), ldmatrix, the bf16 mma.sync
+// m16n8k16 tensor-core product with fp32 accumulation, the three tile steps
+// (forward, dq, dk/dv) as templates over the softmax base, and their
+// epilogues.
 //
-// Two kernel families instantiate the bodies. The resident family
-// (flash_fwd.cu, flash_bwd.cu) works in natural exp with a natural-log lse;
-// the triangular family (flash_tri.cu) works in exp2 with a base-2 lse, as
-// the TPU's long-context kernels do, and walks a host-built tile schedule.
-// Both skip every fully masked tile (the KV loop stops at the causal
-// bound) and mask only the tiles that straddle the diagonal: the step is a
-// template over MASK, and interior tiles run the instance with no compare
-// or select.
+// Three kernel families instantiate them. The resident family
+// (flash_fwd.cu, flash_bwd.cu) and the streamed family (flash_streamed.cu)
+// work in natural exp with a natural-log lse; the triangular family
+// (flash_tri.cu) works in exp2 with a base-2 lse, as the TPU's long-context
+// kernels do, and walks a host-built tile schedule. The resident and
+// triangular tiles (fwd_tile, dq_tile, dkv_tile below) load each K/V (or
+// q/dO) tile synchronously between two barriers; the streamed family's
+// loops keep the next tile's cp.async copy in flight while the current
+// tile's products run. All skip every fully masked tile (the KV loop stops
+// at the causal bound) and mask only the tiles that straddle the diagonal:
+// the step is a template over MASK, and interior tiles run the instance
+// with no compare or select.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4*g + t.
 //   A (16x16, row-major): a0 = (row g,   k 2t..2t+1), a1 = (row g+8, k 2t..),
@@ -53,6 +59,40 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
     const int r = c / kChunks, cc = c % kChunks;
     *reinterpret_cast<uint4*>(s + r * row_elems(D) + cc * 8) =
         *reinterpret_cast<const uint4*>(g + r * gstride + cc * 8);
+  }
+}
+
+// Staged copies (the streamed family): 16-byte cp.async.cg copies from
+// global to shared memory that bypass L1 and use no registers for the data.
+// A thread's copies since its last commit form one group; wait_all returns
+// once every group of this thread has landed, and a __syncthreads() after
+// it makes all threads' copies visible to the block. kStages tiles of a
+// stream are resident at once: the one being computed on and the next.
+constexpr int kStages = 2;
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(smem_addr(s)), "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// load_tile's copy, issued as cp.async: nothing is read until a wait.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g,
+                                                long long gstride) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks, cc = c % kChunks;
+    cp_async16(s + r * row_elems(D) + cc * 8, g + r * gstride + cc * 8);
   }
 }
 
@@ -333,6 +373,40 @@ __device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
   }
 }
 
+// The forward's epilogue: o = acc / l (bf16, contiguous (B, S, H, D)) and
+// lse = m + log(l) in the base for this warp's 16 rows of the q tile.
+template <int D, class Base>
+__device__ __forceinline__ void store_o_lse(const FwdParams& p, int b, int h,
+                                            int q_start,
+                                            const float (&acc)[D / 8][4],
+                                            const float (&m)[2],
+                                            float (&l)[2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.f / l[r];
+  }
+  const int row0 = q_start + warp * 16 + g;
+  bf16* og = p.o + ((long long)b * p.S * p.H + h) * D;
+  const long long o_ss = (long long)p.H * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(og + row0 * o_ss + col) =
+        pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(og + (row0 + 8) * o_ss + col) =
+        pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
+  }
+  if (t == 0) {
+    float* lg = p.lse + ((long long)b * p.H + h) * p.S;
+    lg[row0] = m[0] + Base::log(l[0]);
+    lg[row0 + 8] = m[1] + Base::log(l[1]);
+  }
+}
+
 template <int D, class Base>
 __device__ __forceinline__ void fwd_tile(const FwdParams& p, int b, int h,
                                          int qt, unsigned char* smem) {
@@ -341,8 +415,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, int b, int h,
   bf16* sV = sK + kTile * row_elems(D);
 
   const int kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int warp = threadIdx.x / 32;
   const int q_start = qt * kTile;
   const int wrow = warp * 16;  // this warp's first row in the tile
 
@@ -375,29 +448,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, int b, int h,
     else
       fwd_step<D, Base, false>(sK, sV, q_start, k_start, sm, qf, acc, m, l);
   }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-    inv[r] = 1.f / l[r];
-  }
-  const int row0 = q_start + wrow + g;
-  bf16* og = p.o + ((long long)b * p.S * p.H + h) * D;
-  const long long o_ss = (long long)p.H * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(og + row0 * o_ss + col) =
-        pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(og + (row0 + 8) * o_ss + col) =
-        pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
-  }
-  if (t == 0) {
-    float* lg = p.lse + ((long long)b * p.H + h) * p.S;
-    lg[row0] = m[0] + Base::log(l[0]);
-    lg[row0 + 8] = m[1] + Base::log(l[1]);
-  }
+  store_o_lse<D, Base>(p, b, h, q_start, acc, m, l);
 }
 
 // --------------------------------------------------------------------- dq
@@ -474,6 +525,49 @@ __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
   }
 }
 
+// delta = rowsum(dO * O) in fp32 for the 64 rows of a q tile, O read from
+// global memory at og and dO from shared memory: two lanes per row, D/2
+// columns each. Written to sDelta and, for the dk/dv kernel, to p.delta.
+template <int D>
+__device__ __forceinline__ void tile_delta(const BwdParams& p, const bf16* og,
+                                           const bf16* sdO, float* sDelta,
+                                           long long stat) {
+  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+  const bf16* orow = og + r * p.o_ss + half * (D / 2);
+  const bf16* drow = sdO + r * row_elems(D) + half * (D / 2);
+  float sum = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < D / 2; ++c)
+    sum += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (half == 0) {
+    sDelta[r] = sum;
+    p.delta[stat + r] = sum;
+  }
+}
+
+// The dq epilogue for this warp's 16 rows of the q tile. dS is the gradient
+// of the natural-unit logit in both bases, so dq takes the plain logit
+// scale.
+template <int D>
+__device__ __forceinline__ void store_dq(const BwdParams& p, int b, int h,
+                                         int q_start,
+                                         const float (&dq)[D / 8][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q_start + warp * 16 + g;
+  bf16* dqg = p.dq + ((long long)b * p.S * p.H + h) * D;
+  const long long dq_ss = (long long)p.H * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dqg + row0 * dq_ss + col) =
+        pack_bf16(dq[i][0] * p.scale, dq[i][1] * p.scale);
+    *reinterpret_cast<uint32_t*>(dqg + (row0 + 8) * dq_ss + col) =
+        pack_bf16(dq[i][2] * p.scale, dq[i][3] * p.scale);
+  }
+}
+
 template <int D, class Base>
 __device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
                                         int qt, unsigned char* smem) {
@@ -485,7 +579,7 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
 
   const int kvh = h / (p.H / p.KVH);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int g = lane / 4;
   const int q_start = qt * kTile;
   const int wrow = warp * 16;
 
@@ -499,22 +593,7 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
   load_tile<D, kTile>(sQ, qg, p.q_ss);
   load_tile<D, kTile>(sdO, dog, p.do_ss);
   __syncthreads();
-
-  // delta = rowsum(dO * O) in fp32: two lanes per row, D/2 columns each.
-  {
-    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-    const bf16* orow = og + r * p.o_ss + half * (D / 2);
-    const bf16* drow = sdO + r * row_elems(D) + half * (D / 2);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c)
-      sum += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (half == 0) {
-      sDelta[r] = sum;
-      p.delta[stat + r] = sum;
-    }
-  }
+  tile_delta<D>(p, og, sdO, sDelta, stat);
   __syncthreads();
 
   const float lse_r[2] = {p.lse[stat + wrow + g], p.lse[stat + wrow + g + 8]};
@@ -538,20 +617,7 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
       dq_step<D, Base, false>(sQ, sdO, sK, sV, q_start, k_start, sm, lse_r,
                               dlt_r, dq);
   }
-
-  // dS is the gradient of the natural-unit logit in both bases, so dq
-  // takes the plain logit scale.
-  const int row0 = q_start + wrow + g;
-  bf16* dqg = p.dq + ((long long)b * p.S * p.H + h) * D;
-  const long long dq_ss = (long long)p.H * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dqg + row0 * dq_ss + col) =
-        pack_bf16(dq[i][0] * p.scale, dq[i][1] * p.scale);
-    *reinterpret_cast<uint32_t*>(dqg + (row0 + 8) * dq_ss + col) =
-        pack_bf16(dq[i][2] * p.scale, dq[i][3] * p.scale);
-  }
+  store_dq<D>(p, b, h, q_start, dq);
 }
 
 // ------------------------------------------------------------------ dk/dv
@@ -665,6 +731,32 @@ __device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
   }
 }
 
+// The dk/dv epilogue for this warp's 16 rows of the kv tile at k_start:
+// dk takes the plain logit scale; both are written contiguous (B, S, KVH, D).
+template <int D>
+__device__ __forceinline__ void store_dkv(const BwdParams& p, int b, int kvh,
+                                          int k_start,
+                                          const float (&dk)[D / 8][4],
+                                          const float (&dv)[D / 8][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = k_start + warp * 16 + g;
+  const long long ss = (long long)p.KVH * D;
+  const long long base = ((long long)b * p.S * p.KVH + kvh) * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(p.dk + base + row0 * ss + col) =
+        pack_bf16(dk[i][0] * p.scale, dk[i][1] * p.scale);
+    *reinterpret_cast<uint32_t*>(p.dk + base + (row0 + 8) * ss + col) =
+        pack_bf16(dk[i][2] * p.scale, dk[i][3] * p.scale);
+    *reinterpret_cast<uint32_t*>(p.dv + base + row0 * ss + col) =
+        pack_bf16(dv[i][0], dv[i][1]);
+    *reinterpret_cast<uint32_t*>(p.dv + base + (row0 + 8) * ss + col) =
+        pack_bf16(dv[i][2], dv[i][3]);
+  }
+}
+
 template <int D, class Base>
 __device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
                                          int kt, unsigned char* smem) {
@@ -676,10 +768,7 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
   float* sDelta = sLse + kDkvQ;
 
   const int groups = p.H / p.KVH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
   const int k_start = kt * kTile;
-  const int wrow = warp * 16;
   const float sm = p.scale * Base::kScoreMul;
 
   load_tile<D, kTile>(sK, p.k + b * p.k_sb + kvh * p.k_sh + k_start * p.k_ss,
@@ -721,21 +810,7 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
     }
   }
 
-  const int row0 = k_start + wrow + g;
-  const long long ss = (long long)p.KVH * D;
-  const long long base = ((long long)b * p.S * p.KVH + kvh) * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(p.dk + base + row0 * ss + col) =
-        pack_bf16(dk[i][0] * p.scale, dk[i][1] * p.scale);
-    *reinterpret_cast<uint32_t*>(p.dk + base + (row0 + 8) * ss + col) =
-        pack_bf16(dk[i][2] * p.scale, dk[i][3] * p.scale);
-    *reinterpret_cast<uint32_t*>(p.dv + base + row0 * ss + col) =
-        pack_bf16(dv[i][0], dv[i][1]);
-    *reinterpret_cast<uint32_t*>(p.dv + base + (row0 + 8) * ss + col) =
-        pack_bf16(dv[i][2], dv[i][3]);
-  }
+  store_dkv<D>(p, b, kvh, k_start, dk, dv);
 }
 
 // Launches KERNEL<64> or KERNEL<128> for the runtime head_dim HEAD_DIM,

@@ -1,0 +1,325 @@
+// Flash attention for long non-causal sequences on Hopper (sm_90a): the
+// streamed family, forward, dq and dk/dv.
+//
+// Replaces skypilot_tpu/ops/pallas/flash_attention.py:
+//   flash_fwd_streamed_kernel <- _fwd_kernel (launched by _flash_fwd_streamed),
+//   flash_dq_streamed_kernel  <- _dq_kernel  (launched by _flash_bwd_streamed),
+//   flash_dkv_streamed_kernel <- _dkv_kernel (launched by _flash_bwd_streamed).
+// The JAX dispatcher sends non-causal attention here once 3*S*D*4 bytes pass
+// its resident budget (S*D > 524,288, so S > 4096 at head_dim 128). The
+// functions are the TPU kernels': natural exp, lse = m + log(l) in natural
+// log, (B, H, S) fp32; the causal flag is honoured as there, with the causal
+// KV (or q) range cut to the diagonal and only the straddling tile masked.
+// delta = rowsum(dO * O) follows the port's convention: the dq kernel
+// computes it once per q tile and writes it, and the dk/dv kernel reads it
+// (the TPU dk/dv kernel recomputes it from o and dO at every step; the two
+// give the same function, and this way dk/dv never reads O).
+//
+// What bounds them: at (1, 8192, 32, 8, 128) non-causal each kernel does
+// 5,500 to 11,000 flops per byte it must move (the order of S), far past
+// the card's ~295 flop/byte ridge, so the tensor cores (bounds 1.11, 1.67
+// and 2.22 ms by operations for forward, dq and dk/dv). The tile steps are the other
+// families' (flash_common.cuh: mma.sync m16n8k16 from ldmatrix fragments,
+// P and dS fed from registers, the GQA group of dk/dv summed in registers
+// without atomics).
+//
+// What the TPU family adds over its resident one is how the KV stream is
+// staged: the KV axis is a sequential grid axis and Pallas double-buffers
+// each (block_k, d) fetch behind the previous step's compute. Here the
+// stream is a ring of kStages (2) tiles in shared memory filled by
+// cp.async: at the top of step j one barrier makes tile j visible and frees
+// the stage tile j-1 used; the block then issues the copy of tile j+1 into
+// that stage and runs tile j's products while it is in flight, so each
+// tile's load latency hides behind the previous tile's mma work instead of
+// stalling all four warps between two barriers. The forward and dq stream
+// 64-row K/V tiles past a q tile held in shared memory (and, for the
+// forward, in registers); dk/dv holds its 64-row K/V tile and streams the
+// 32-row q/dO tiles of every query head of its group, with their lse and
+// delta. Shared memory at D = 128: 87 KB (forward), 104 KB (dq), 70 KB
+// (dk/dv), two blocks per SM. TMA and wgmma are later steps.
+#include "flash_common.cuh"
+
+namespace stpu {
+namespace {
+
+// Elements of one shared tile of `rows` rows.
+template <int D>
+__host__ __device__ constexpr int tile_elems(int rows) {
+  return rows * row_elems(D);
+}
+
+template <int D>
+constexpr int fwd_streamed_smem_bytes() {
+  return (1 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(bf16);
+}
+
+template <int D>
+constexpr int dq_streamed_smem_bytes() {
+  return (2 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(bf16) +
+         kTile * (int)sizeof(float);
+}
+
+template <int D>
+constexpr int dkv_streamed_smem_bytes() {
+  return (2 * tile_elems<D>(kTile) + 2 * kStages * tile_elems<D>(kDkvQ)) *
+             (int)sizeof(bf16) +
+         2 * kStages * kDkvQ * (int)sizeof(float);
+}
+
+// Issue the copies of K/V tile j (rows j*64..) into ring stage j % kStages.
+template <int D>
+__device__ __forceinline__ void issue_kv(const bf16* kg, const bf16* vg,
+                                         long long k_ss, long long v_ss,
+                                         int j, bf16* sK, bf16* sV) {
+  const int st = j % kStages;
+  const long long r0 = (long long)j * kTile;
+  load_tile_async<D, kTile>(sK + st * tile_elems<D>(kTile), kg + r0 * k_ss,
+                            k_ss);
+  load_tile_async<D, kTile>(sV + st * tile_elems<D>(kTile), vg + r0 * v_ss,
+                            v_ss);
+  cp_async_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_streamed_kernel(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kTE = tile_elems<D>(kTile);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kTE;             // kStages K tiles, then
+  bf16* sV = sK + kStages * kTE;   // kStages V tiles
+
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int qt = p.S / kTile - 1 - blockIdx.x;  // longest causal rows first
+  const int q_start = qt * kTile;
+  const int wrow = (threadIdx.x / 32) * 16;
+  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+
+  // Prologue: q and K/V tile 0 in one group.
+  load_tile_async<D, kTile>(sQ, p.q + b * p.q_sb + h * p.q_sh +
+                                    q_start * p.q_ss, p.q_ss);
+  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, 0, sK, sV);
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) load_a<D>(qf[ks], sQ, wrow, ks * 16);
+
+  float acc[D / 8][4];
+  zero(acc);
+  float m[2] = {kNegInf, kNegInf};  // rows g and g+8
+  float l[2] = {0.f, 0.f};          // this lane's partial row sums
+  const float sm = p.scale * BaseE::kScoreMul;
+
+  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
+  for (int j = 0; j < n_kt; ++j) {
+    cp_async_wait_all();  // this thread's copies of tile j have landed
+    __syncthreads();      // everyone's have, and tile j-1 is consumed
+    if (j + 1 < n_kt) issue_kv<D>(kg, vg, p.k_ss, p.v_ss, j + 1, sK, sV);
+    const bf16* k_t = sK + (j % kStages) * kTE;
+    const bf16* v_t = sV + (j % kStages) * kTE;
+    if (p.causal && j == qt)
+      fwd_step<D, BaseE, true>(k_t, v_t, q_start, j * kTile, sm, qf, acc, m,
+                               l);
+    else
+      fwd_step<D, BaseE, false>(k_t, v_t, q_start, j * kTile, sm, qf, acc, m,
+                                l);
+  }
+  store_o_lse<D, BaseE>(p, b, h, q_start, acc, m, l);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_streamed_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kTE = tile_elems<D>(kTile);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + kTE;
+  bf16* sK = sdO + kTE;            // kStages K tiles, then
+  bf16* sV = sK + kStages * kTE;   // kStages V tiles
+  float* sDelta = reinterpret_cast<float*>(sV + kStages * kTE);
+
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int qt = p.S / kTile - 1 - blockIdx.x;  // longest causal rows first
+  const int q_start = qt * kTile;
+  const int wrow = (threadIdx.x / 32) * 16, g = (threadIdx.x % 32) / 4;
+  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+  const long long stat = ((long long)b * p.H + h) * p.S + q_start;
+
+  // Prologue: q, dO and K/V tile 0 in one group; then delta from O.
+  load_tile_async<D, kTile>(sQ, p.q + b * p.q_sb + h * p.q_sh +
+                                    q_start * p.q_ss, p.q_ss);
+  load_tile_async<D, kTile>(sdO, p.dout + b * p.do_sb + h * p.do_sh +
+                                     q_start * p.do_ss, p.do_ss);
+  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, 0, sK, sV);
+  cp_async_wait_all();
+  __syncthreads();
+  tile_delta<D>(p, p.o + b * p.o_sb + h * p.o_sh + q_start * p.o_ss, sdO,
+                sDelta, stat);
+  __syncthreads();
+
+  const float lse_r[2] = {p.lse[stat + wrow + g], p.lse[stat + wrow + g + 8]};
+  const float dlt_r[2] = {sDelta[wrow + g], sDelta[wrow + g + 8]};
+  const float sm = p.scale * BaseE::kScoreMul;
+
+  float dq[D / 8][4];
+  zero(dq);
+
+  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
+  for (int j = 0; j < n_kt; ++j) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < n_kt) issue_kv<D>(kg, vg, p.k_ss, p.v_ss, j + 1, sK, sV);
+    const bf16* k_t = sK + (j % kStages) * kTE;
+    const bf16* v_t = sV + (j % kStages) * kTE;
+    if (p.causal && j == qt)
+      dq_step<D, BaseE, true>(sQ, sdO, k_t, v_t, q_start, j * kTile, sm,
+                              lse_r, dlt_r, dq);
+    else
+      dq_step<D, BaseE, false>(sQ, sdO, k_t, v_t, q_start, j * kTile, sm,
+                               lse_r, dlt_r, dq);
+  }
+  store_dq<D>(p, b, h, q_start, dq);
+}
+
+// The dk/dv stream: item `it` is query head kvh * G + it / per_head of the
+// group and q tile i0 + it % per_head. Issue its 32 q and dO rows and
+// their lse and delta (32 floats each: 8 threads of 16 bytes apiece) into
+// ring stage it % kStages.
+template <int D>
+__device__ __forceinline__ void issue_q_item(const BwdParams& p, int b,
+                                             int kvh, int it, int i0,
+                                             int per_head, bf16* sQ,
+                                             bf16* sdO, float* sLse,
+                                             float* sDelta) {
+  constexpr int kQE = tile_elems<D>(kDkvQ);
+  constexpr int kStatChunks = kDkvQ / 4;
+  const int st = it % kStages;
+  const int h = kvh * (p.H / p.KVH) + it / per_head;
+  const int q_start = (i0 + it % per_head) * kDkvQ;
+  load_tile_async<D, kDkvQ>(sQ + st * kQE, p.q + b * p.q_sb + h * p.q_sh +
+                                               q_start * p.q_ss, p.q_ss);
+  load_tile_async<D, kDkvQ>(sdO + st * kQE, p.dout + b * p.do_sb +
+                                                h * p.do_sh +
+                                                q_start * p.do_ss, p.do_ss);
+  if (threadIdx.x < 2 * kStatChunks) {
+    const int c = threadIdx.x % kStatChunks;
+    const long long at = ((long long)b * p.H + h) * p.S + q_start + 4 * c;
+    if (threadIdx.x < kStatChunks)
+      cp_async16(sLse + st * kDkvQ + 4 * c, p.lse + at);
+    else
+      cp_async16(sDelta + st * kDkvQ + 4 * c, p.delta + at);
+  }
+  cp_async_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_streamed_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kTE = tile_elems<D>(kTile), kQE = tile_elems<D>(kDkvQ);
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kTE;
+  bf16* sQ = sV + kTE;             // kStages q tiles, then
+  bf16* sdO = sQ + kStages * kQE;  // kStages dO tiles, then
+  float* sLse = reinterpret_cast<float*>(sdO + kStages * kQE);
+  float* sDelta = sLse + kStages * kDkvQ;  // kStages rows of 32 floats each
+
+  const int b = blockIdx.y / p.KVH, kvh = blockIdx.y % p.KVH;
+  const int k_start = blockIdx.x * kTile;  // kv tile 0 has the most q rows
+  const float sm = p.scale * BaseE::kScoreMul;
+
+  // Causal: q tiles start at the kv tile's first row, and the two 32-row
+  // q tiles that overlap the 64-row kv tile straddle the diagonal.
+  const int i0 = p.causal ? k_start / kDkvQ : 0;
+  const int i_free = p.causal ? i0 + kTile / kDkvQ : 0;
+  const int per_head = p.S / kDkvQ - i0;
+  const int n_items = (p.H / p.KVH) * per_head;
+
+  // Prologue: the block's K/V tile and item 0 in one group.
+  load_tile_async<D, kTile>(sK, p.k + b * p.k_sb + kvh * p.k_sh +
+                                    k_start * p.k_ss, p.k_ss);
+  load_tile_async<D, kTile>(sV, p.v + b * p.v_sb + kvh * p.v_sh +
+                                    k_start * p.v_ss, p.v_ss);
+  issue_q_item<D>(p, b, kvh, 0, i0, per_head, sQ, sdO, sLse, sDelta);
+
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait_all();  // this thread's copies of item it have landed
+    __syncthreads();      // everyone's have, and item it-1 is consumed
+    if (it + 1 < n_items)
+      issue_q_item<D>(p, b, kvh, it + 1, i0, per_head, sQ, sdO, sLse, sDelta);
+    const int st = it % kStages;
+    const int i = i0 + it % per_head;
+    if (i < i_free)
+      dkv_step<D, BaseE, true>(sK, sV, sQ + st * kQE, sdO + st * kQE,
+                               sLse + st * kDkvQ, sDelta + st * kDkvQ,
+                               i * kDkvQ, k_start, sm, dk, dv);
+    else
+      dkv_step<D, BaseE, false>(sK, sV, sQ + st * kQE, sdO + st * kQE,
+                                sLse + st * kDkvQ, sDelta + st * kDkvQ,
+                                i * kDkvQ, k_start, sm, dk, dv);
+  }
+  store_dkv<D>(p, b, kvh, k_start, dk, dv);
+}
+
+}  // namespace
+}  // namespace stpu
+
+// strides: (batch, seq, head) in elements for q, k, v. o is written
+// contiguous (B, S, H, D) bf16 and lse (B, H, S) fp32, natural log.
+extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       const long long* strides, int B, int S,
+                                       int H, int KVH, int D, float scale,
+                                       int causal, void* stream) {
+  using namespace stpu;
+  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  const FwdParams p =
+      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
+  const dim3 grid(S / kTile, B * H);
+  STPU_LAUNCH_BY_D(D, flash_fwd_streamed_kernel, fwd_streamed_smem_bytes,
+                   grid, static_cast<cudaStream_t>(stream), p);
+}
+
+// strides: q, k, v, o, dO. dq (B, S, H, D) bf16 and delta (B, H, S) fp32
+// are written contiguous; lse and delta are 16-byte aligned.
+extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* dout, const void* lse,
+                                      void* dq, void* delta,
+                                      const long long* strides, int B, int S,
+                                      int H, int KVH, int D, float scale,
+                                      int causal, void* stream) {
+  using namespace stpu;
+  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
+                                 nullptr, strides, S, H, KVH, scale, causal);
+  const dim3 grid(S / kTile, B * H);
+  STPU_LAUNCH_BY_D(D, flash_dq_streamed_kernel, dq_streamed_smem_bytes, grid,
+                   static_cast<cudaStream_t>(stream), p);
+}
+
+// strides: q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D)
+// bf16; lse and delta (B, H, S) fp32 are read through 16-byte copies.
+extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv,
+                                       const long long* strides, int B, int S,
+                                       int H, int KVH, int D, float scale,
+                                       int causal, void* stream) {
+  using namespace stpu;
+  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
+                                 dk, dv, strides, S, H, KVH, scale, causal);
+  const dim3 grid(S / kTile, B * KVH);
+  STPU_LAUNCH_BY_D(D, flash_dkv_streamed_kernel, dkv_streamed_smem_bytes,
+                   grid, static_cast<cudaStream_t>(stream), p);
+}

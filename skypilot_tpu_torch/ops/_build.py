@@ -23,7 +23,7 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2] / "build" /
               "stpu_torch_kernels")
-SOURCES = ("flash_fwd", "flash_bwd", "flash_tri")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_tri", "flash_streamed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -43,6 +43,9 @@ SIGNATURES = {
     "flash_tri": {"stpu_flash_fwd_tri": [_P] * 6 + _TRI_TAIL,
                   "stpu_flash_dq_tri": [_P] * 9 + _TRI_TAIL,
                   "stpu_flash_dkv_tri": [_P] * 9 + _TRI_TAIL},
+    "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 5 + _TAIL,
+                       "stpu_flash_dq_streamed": [_P] * 8 + _TAIL,
+                       "stpu_flash_dkv_streamed": [_P] * 8 + _TAIL},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

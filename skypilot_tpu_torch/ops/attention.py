@@ -32,6 +32,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     impl: 'auto' (the kernel for CUDA tensors, the reference for CPU
     tensors) | 'kernel' | 'reference'.
+
+    The kernel path picks its family by shape, as the JAX dispatcher does
+    (``flash_attention.family``): the resident kernels while 3 * S * D * 4
+    bytes fit 6 MiB, past that the triangular kernels when ``causal`` and
+    the streamed kernels when not (bidirectional attention at long
+    context). Irregular shapes go to the reference
+    (``flash_attention.takes_kernel_path``).
     """
     if impl == "auto":
         impl = "kernel" if q.is_cuda else "reference"

@@ -2,7 +2,7 @@
 
 Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` and of its
 dispatch by family (``_use_resident``, ``_flash_fwd``, ``_flash_bwd``).
-Two families of three CUDA kernels for sm_90a, sharing their tile bodies
+Three families of three CUDA kernels for sm_90a, sharing their tile steps
 (``csrc/flash_common.cuh``):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
@@ -20,21 +20,28 @@ Two families of three CUDA kernels for sm_90a, sharing their tile bodies
   ``_dq_kernel_tri`` and ``_dkv_kernel_tri``: the same three functions,
   causal only, in exp2 with a base-2 lse, over a host-built tile schedule
   (``tri_schedule``): ``flash_fwd_tri``, ``flash_dq_tri``,
-  ``flash_dkv_tri``.
+  ``flash_dkv_tri``;
+
+* the streamed family (``csrc/flash_streamed.cu``), for ``_fwd_kernel``,
+  ``_dq_kernel`` and ``_dkv_kernel``: the same three functions with the
+  resident family's conventions (natural-log lse, causal flag), their K/V
+  (or q/dO) stream staged through a cp.async ring in shared memory:
+  ``flash_fwd_streamed``, ``flash_dq_streamed``, ``flash_dkv_streamed``.
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
-triangular family for causal attention past it. Non-causal attention past
-the budget goes to the resident kernels, which take any S: the JAX
-package's streamed family (its third) is not ported. The choice is made
-once per call in the forward and carried to the backward, so the base-2
-lse never meets a natural-log kernel.
+triangular family for causal attention past it, the streamed family for
+non-causal attention past it. The choice is made once per call in the
+forward and carried to the backward, so the base-2 lse never meets a
+natural-log kernel.
 
 Beside each family stand its plain PyTorch versions (``flash_fwd_plain``
 and ``flash_bwd_plain``; ``flash_fwd_tri_plain`` and
-``flash_bwd_tri_plain``), written as the formulas; the CPU path runs them
-and ``chip_smoke.py`` holds the kernels against them on the card. Which
-one runs depends only on where the tensors lie: a CUDA tensor launches a
+``flash_bwd_tri_plain``; ``flash_fwd_streamed_plain`` and
+``flash_bwd_streamed_plain``), written as the formulas, the last two
+families one KV head's query group at a time; the CPU path runs them and
+``chip_smoke.py`` holds the kernels against them on the card. Which one
+runs depends only on where the tensors lie: a CUDA tensor launches a
 kernel or raises.
 """
 from __future__ import annotations
@@ -61,11 +68,13 @@ _JAX_DEFAULT_BLOCK = 1024
 # The JAX dispatcher's budget: the resident family stages 3 full-sequence
 # fp32 tensors of (S, D) and is picked while they fit.
 _RESIDENT_MAX_BYTES = 6 * 1024 * 1024
-RESIDENT, TRIANGULAR = "resident", "triangular"
+RESIDENT, TRIANGULAR, STREAMED = "resident", "triangular", "streamed"
 
 # Launch counts, one per kernel: each wrapper adds one where it launches.
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "flash_fwd_tri": 0, "flash_dq_tri": 0, "flash_dkv_tri": 0}
+            "flash_fwd_tri": 0, "flash_dq_tri": 0, "flash_dkv_tri": 0,
+            "flash_fwd_streamed": 0, "flash_dq_streamed": 0,
+            "flash_dkv_streamed": 0}
 
 
 def reset_launches() -> None:
@@ -78,13 +87,12 @@ def _use_resident(s: int, d: int) -> bool:
 
 
 def family(s: int, d: int, causal: bool) -> str:
-    """The kernel family for sequence length ``s`` and head_dim ``d``: the
-    JAX dispatcher's choice, except that non-causal attention past the
-    budget stays on the resident kernels (the streamed family is not
-    ported; the resident kernels take any S)."""
-    if causal and not _use_resident(s, d):
-        return TRIANGULAR
-    return RESIDENT
+    """The kernel family for sequence length ``s`` and head_dim ``d``, the
+    JAX dispatcher's choice: resident within the budget, triangular for
+    causal attention past it, streamed for non-causal attention past it."""
+    if _use_resident(s, d):
+        return RESIDENT
+    return TRIANGULAR if causal else STREAMED
 
 
 # ----------------------------------------------------------- plain versions
@@ -143,35 +151,43 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.to(v.dtype))
 
 
-def _tri_group_scores(q: torch.Tensor, k: torch.Tensor, j: int,
-                      scale: float) -> torch.Tensor:
-    """Base-2 causal scores of KV head j's query group, fp32 (B, G, S, S):
-    scale * log2(e) * q k^T, masked above the diagonal."""
+# Group-at-a-time plain versions (the triangular and streamed families):
+# one KV head's query group at a time, so at most one group's (B, G, S, S)
+# scores are live, in the family's softmax base: natural exp with a
+# natural-log lse, or exp2 with a base-2 lse (scores times log2(e)).
+_BASES = {"e": (torch.exp, torch.log, 1.0),
+          "2": (torch.exp2, torch.log2, LOG2E)}
+
+
+def _group_scores(q: torch.Tensor, k: torch.Tensor, j: int, causal: bool,
+                  mul: float) -> torch.Tensor:
+    """KV head j's query group's scores, fp32 (B, G, S, S): mul * q k^T,
+    masked above the diagonal when causal."""
     s, h = q.shape[1], q.shape[2]
     g = h // k.shape[2]
     qg = q[:, :, j * g:(j + 1) * g].float()
-    sc = torch.einsum("bqgd,bkd->bgqk", qg, k[:, :, j].float())
-    sc = sc * (scale * LOG2E)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    return sc.masked_fill(~mask, NEG_INF)
+    sc = torch.einsum("bqgd,bkd->bgqk", qg, k[:, :, j].float()) * mul
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~mask, NEG_INF)
+    return sc
 
 
-def flash_fwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal (o in q's dtype, lse (B, H, S) fp32 in base 2), the
-    triangular family's convention. One KV head's query group at a time,
-    so at most one group's (B, G, S, S) scores are live."""
+def _fwd_by_group(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float, base: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
+    exp, log, mul = _BASES[base]
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     for j in range(kvh):
         hs = slice(j * g, (j + 1) * g)
-        sc = _tri_group_scores(q, k, j, scale)
+        sc = _group_scores(q, k, j, causal, scale * mul)
         m = sc.amax(dim=-1, keepdim=True)
-        lse_j = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
-        p = torch.exp2(sc - lse_j)
+        lse_j = m + log(exp(sc - m).sum(dim=-1, keepdim=True))
+        p = exp(sc - lse_j)
         del sc
         o[:, :, hs] = torch.einsum("bgqk,bkd->bqgd", p,
                                    v[:, :, j].float()).to(q.dtype)
@@ -179,24 +195,21 @@ def flash_fwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def flash_bwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, scale: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) from the triangular forward's (o, base-2 lse), fp32
-    until the final cast: P = exp2(S2 - lse), dP = dO v^T, delta =
-    rowsum(dO * O), dS = P * (dP - delta); dq = scale dS k, dk = scale
-    sum_g dS^T q, dv = sum_g P^T dO. One KV head's group at a time."""
+def _bwd_by_group(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool, scale: float, base: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     h = q.shape[2]
     kvh = k.shape[2]
     g = h // kvh
+    exp, _, mul = _BASES[base]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     for j in range(kvh):
         hs = slice(j * g, (j + 1) * g)
-        p = torch.exp2(_tri_group_scores(q, k, j, scale)
-                       - lse[:, hs, :, None])
+        p = exp(_group_scores(q, k, j, causal, scale * mul)
+                - lse[:, hs, :, None])
         dof = do[:, :, hs].float()
         dp = torch.einsum("bqgd,bkd->bgqk", dof, v[:, :, j].float())
         delta = (dof * o[:, :, hs].float()).sum(-1)          # (b, s, g)
@@ -208,6 +221,44 @@ def flash_bwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     q[:, :, hs].float()) * scale).to(k.dtype)
         dv[:, :, j] = torch.einsum("bgqk,bqgd->bkd", p, dof).to(v.dtype)
     return dq, dk, dv
+
+
+def flash_fwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal (o in q's dtype, lse (B, H, S) fp32 in base 2), the
+    triangular family's convention, one KV head's query group at a
+    time."""
+    return _fwd_by_group(q, k, v, True, scale, "2")
+
+
+def flash_bwd_tri_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the triangular forward's (o, base-2 lse), fp32
+    until the final cast: P = exp2(S2 - lse), dP = dO v^T, delta =
+    rowsum(dO * O), dS = P * (dP - delta); dq = scale dS k, dk = scale
+    sum_g dS^T q, dv = sum_g P^T dO. One KV head's group at a time."""
+    return _bwd_by_group(q, k, v, o, lse, do, True, scale, "2")
+
+
+def flash_fwd_streamed_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool, scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o in q's dtype, lse (B, H, S) fp32 in natural log), the streamed
+    family's convention, one KV head's query group at a time."""
+    return _fwd_by_group(q, k, v, causal, scale, "e")
+
+
+def flash_bwd_streamed_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool, scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) from the streamed forward's (o, natural-log lse), as
+    ``flash_bwd_plain`` computes them, one KV head's group at a time."""
+    return _bwd_by_group(q, k, v, o, lse, do, causal, scale, "e")
 
 
 # ------------------------------------------------ triangular tile schedule
@@ -315,8 +366,10 @@ def _check_inputs(q, k, v, *rest):
                 raise ValueError("flash kernels need 16-byte aligned rows "
                                  f"with unit last stride; got strides "
                                  f"{t.stride()}")
-        elif t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("lse/delta must be contiguous fp32 (B, H, S)")
+        elif (t.dtype != torch.float32 or not t.is_contiguous()
+              or t.data_ptr() % 16):
+            raise ValueError("lse/delta must be contiguous, 16-byte aligned "
+                             "fp32 (B, H, S)")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -328,23 +381,66 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, scale: float
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel forward: (o (B,S,H,D) bf16, lse (B,H,S) fp32)."""
+# The resident and streamed families share their C signatures: (pointers,
+# strides, B, S, H, KVH, D, scale, causal, stream).
+
+def _fwd_call(name: str, source: str, q, k, v, causal, scale):
     _check_inputs(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_fwd")
+    lib = _build.library(source)
     with torch.cuda.device(q.device):
-        err = lib.stpu_flash_fwd(
+        err = getattr(lib, f"stpu_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _strides(q, k, v), b, s, h, k.shape[2], d,
             float(scale), int(causal), _stream(q))
-    _raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return o, lse
+
+
+def _dq_call(name: str, source: str, q, k, v, o, lse, do, causal, scale):
+    _check_inputs(q, k, v, o, do, lse)
+    b, s, h, d = q.shape
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _build.library(source)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"stpu_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+            _strides(q, k, v, o, do), b, s, h, k.shape[2], d, float(scale),
+            int(causal), _stream(q))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return dq, delta
+
+
+def _dkv_call(name: str, source: str, q, k, v, do, lse, delta, causal,
+              scale):
+    _check_inputs(q, k, v, do, lse, delta)
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
+    lib = _build.library(source)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"stpu_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _strides(q, k, v, do), b, s, h, kvh, d, float(scale),
+            int(causal), _stream(q))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return dk, dv
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel forward: (o (B,S,H,D) bf16, lse (B,H,S) fp32)."""
+    return _fwd_call("flash_fwd", "flash_fwd", q, k, v, causal, scale)
 
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -352,20 +448,8 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, scale: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dq: (dq (B,S,H,D) bf16, delta = rowsum(dO*O) (B,H,S) fp32)."""
-    _check_inputs(q, k, v, o, do, lse)
-    b, s, h, d = q.shape
-    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_bwd")
-    with torch.cuda.device(q.device):
-        err = lib.stpu_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-            _strides(q, k, v, o, do), b, s, h, k.shape[2], d, float(scale),
-            int(causal), _stream(q))
-    _raise_on(err, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
-    return dq, delta
+    return _dq_call("flash_dq", "flash_bwd", q, k, v, o, lse, do, causal,
+                    scale)
 
 
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -373,21 +457,37 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dk/dv: (dk, dv) (B,S,KVH,D) bf16, the GQA group summed."""
-    _check_inputs(q, k, v, do, lse, delta)
-    b, s, h, d = q.shape
-    kvh = k.shape[2]
-    dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
-    lib = _build.library("flash_bwd")
-    with torch.cuda.device(q.device):
-        err = lib.stpu_flash_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides(q, k, v, do), b, s, h, kvh, d, float(scale),
-            int(causal), _stream(q))
-    _raise_on(err, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
-    return dk, dv
+    return _dkv_call("flash_dkv", "flash_bwd", q, k, v, do, lse, delta,
+                     causal, scale)
+
+
+def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streamed-family kernel forward: (o (B,S,H,D) bf16, lse (B,H,S) fp32
+    in natural log)."""
+    return _fwd_call("flash_fwd_streamed", "flash_streamed", q, k, v, causal,
+                     scale)
+
+
+def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool, scale: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streamed-family kernel dq: (dq (B,S,H,D) bf16, delta = rowsum(dO*O)
+    (B,H,S) fp32)."""
+    return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
+                    do, causal, scale)
+
+
+def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, causal: bool, scale: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streamed-family kernel dk/dv: (dk, dv) (B,S,KVH,D) bf16, the GQA
+    group summed."""
+    return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
+                     lse, delta, causal, scale)
 
 
 def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
@@ -460,6 +560,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q.is_cuda:
             return flash_fwd_tri(q, k, v, scale)
         return flash_fwd_tri_plain(q, k, v, scale)
+    if fam == STREAMED:
+        if q.is_cuda:
+            return flash_fwd_streamed(q, k, v, causal, scale)
+        return flash_fwd_streamed_plain(q, k, v, causal, scale)
     if q.is_cuda:
         return flash_fwd(q, k, v, causal, scale)
     return flash_fwd_plain(q, k, v, causal, scale)
@@ -474,11 +578,17 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not do.is_cuda:
         if fam == TRIANGULAR:
             return flash_bwd_tri_plain(q, k, v, o, lse, do, scale)
+        if fam == STREAMED:
+            return flash_bwd_streamed_plain(q, k, v, o, lse, do, causal,
+                                            scale)
         return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
     do = do.contiguous()
     if fam == TRIANGULAR:
         dq, delta = flash_dq_tri(q, k, v, o, lse, do, scale)
         dk, dv = flash_dkv_tri(q, k, v, do, lse, delta, scale)
+    elif fam == STREAMED:
+        dq, delta = flash_dq_streamed(q, k, v, o, lse, do, causal, scale)
+        dk, dv = flash_dkv_streamed(q, k, v, do, lse, delta, causal, scale)
     else:
         dq, delta = flash_dq(q, k, v, o, lse, do, causal, scale)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale)

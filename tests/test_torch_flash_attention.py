@@ -93,7 +93,9 @@ def test_lse_matches_jax(monkeypatch, resident, to_natural):
 
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_dq", "flash_dkv",
                                      "flash_fwd_tri", "flash_dq_tri",
-                                     "flash_dkv_tri"])
+                                     "flash_dkv_tri", "flash_fwd_streamed",
+                                     "flash_dq_streamed",
+                                     "flash_dkv_streamed"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     # A kernel wrapper launches its kernel or raises; it never computes the
     # plain version itself. (The plain path is chosen above it, by device.)
@@ -105,7 +107,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
             "flash_dkv": (q, k, v, q, lse, lse, True),
             "flash_fwd_tri": (q, k, v),
             "flash_dq_tri": (q, k, v, q, lse, q),
-            "flash_dkv_tri": (q, k, v, q, lse, lse)}[wrapper]
+            "flash_dkv_tri": (q, k, v, q, lse, lse),
+            "flash_fwd_streamed": (q, k, v, False),
+            "flash_dq_streamed": (q, k, v, q, lse, q, False),
+            "flash_dkv_streamed": (q, k, v, q, lse, lse, False)}[wrapper]
     with pytest.raises(ValueError):
         getattr(fa_torch, wrapper)(*args, 0.125)
     assert fa_torch.LAUNCHES[wrapper] == 0

@@ -125,17 +125,16 @@ def test_dispatch_past_budget_takes_triangular_family(monkeypatch,
 @pytest.mark.parametrize("s,d,causal", [
     (2048, 128, True), (4096, 128, True), (4160, 128, True),
     (8192, 128, True), (8192, 64, True), (16384, 64, True),
-    (8192, 128, False)])
+    (8192, 128, False), (32768, 128, False), (4160, 128, False)])
 def test_family_follows_jax_budget(s, d, causal):
     # JAX: resident within the budget, triangular for causal past it,
-    # streamed for non-causal past it; the port sends the last to its
-    # resident kernels (the streamed family is not ported).
+    # streamed for non-causal past it; the port makes the same choice.
     if fa_jax._use_resident(s, d):
         want = fa_torch.RESIDENT
     elif causal:
         want = fa_torch.TRIANGULAR
     else:
-        want = fa_torch.RESIDENT
+        want = fa_torch.STREAMED
     assert fa_torch._use_resident(s, d) == fa_jax._use_resident(s, d)
     assert fa_torch.family(s, d, causal) == want
 
