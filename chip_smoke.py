@@ -8,17 +8,23 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the flash kernels from csrc/ into build/ (one
    process per source, all at once) and reports ptxas's registers and
-   spills per kernel;
+   spills per kernel, and the Hopper forwards' launch registers and
+   shared memory; cuobjdump -sass must find HGMMA (wgmma) and UTMALDG
+   (TMA load) instructions in both forwards (flash_fwd, flash_fwd_tri);
 3. kernels: each kernel of the three families against its plain PyTorch
    version on the card in bf16 (the resident family at its training
-   shape and two others, the triangular family at three causal shapes
-   past the resident budget, the streamed family at three non-causal
-   shapes past it and one causal); then, at each family's main shape,
+   shape and four others, two with ragged S; the triangular family at
+   four causal shapes past the resident budget, one ragged; the
+   streamed family at four non-causal shapes past it, one ragged, and
+   one causal); then, at each family's main shape,
    its time, the plain version's, the library call's
    (scaled_dot_product_attention, a yardstick the port never calls), the
    bound, and, for the triangular and streamed families, the resident
    kernels' time at the same shape; at seq 32768, where no plain version
    fits, the streamed kernels against the resident kernels, both timed;
+   then the public attention op at a ragged S (200) through autograd,
+   against the plain versions, with exactly one launch of each resident
+   kernel;
 4. streamed: the public attention op, non-causal, at Llama-3-8B
    attention width and seq 8192 (1 x 8192, 32 heads, 8 KV heads,
    head_dim 128), forward and autograd backward of a fixed dO; output
@@ -36,16 +42,20 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    fall, the launch counts must be exactly L/L/L triangular and no
    other per step, and one forward's loss through the kernels must match
    the reference attention's;
-7. the kernels line ({"kernels": [...]}, nine records), then the last
+7. a summary of the two Hopper forwards (registers, shared memory, time
+   beside bound and SDPA, their step's time) and the streamed forward;
+   the kernels line ({"kernels": [...]}, nine records), then the last
    line {"ok": true, "device": {...}}.
 
 Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
 the port from beside itself). Imports nothing of JAX.
 """
+import ctypes
 import dataclasses
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,16 +76,19 @@ MAX_ABS_SHARE = 3e-2
 LOSS_TOL = 2e-2        # |loss(kernel) - loss(reference)|, same weights
 
 # (B, S, H, KVH, D, causal): the slice's shape (Llama-3-8B attention at
-# seq 2048), a non-causal head_dim-64 case and an unequal GQA group (6).
+# seq 2048), a non-causal head_dim-64 case, an unequal GQA group (6), and
+# two ragged S (a multiple of 8, not of the 64- or 128-row tiles).
 MAIN_SHAPE = (2, 2048, 32, 8, 128, True)
 CHECK_SHAPES = (MAIN_SHAPE, (2, 1024, 16, 4, 64, False),
-                (1, 768, 12, 2, 128, True))
+                (1, 768, 12, 2, 128, True), (1, 200, 8, 2, 128, True),
+                (2, 1000, 16, 4, 64, False))
 # The triangular family, causal past the resident budget (S * D >
 # 524,288): the long-context shape (Llama-3-8B attention at seq 8192),
-# head_dim 64, and an unequal GQA group (6) just past the budget.
+# head_dim 64, an unequal GQA group (6) just past the budget, and a
+# ragged S.
 TRI_MAIN_SHAPE = (1, 8192, 32, 8, 128, True)
 TRI_CHECK_SHAPES = (TRI_MAIN_SHAPE, (1, 16384, 8, 2, 64, True),
-                    (1, 4608, 12, 2, 128, True))
+                    (1, 4608, 12, 2, 128, True), (1, 4136, 12, 2, 128, True))
 # The streamed family, non-causal past the budget (the public op's
 # bidirectional use at long context, Llama-3-8B attention width), head_dim
 # 64, an unequal GQA group just past the budget, and the causal mode the
@@ -83,8 +96,15 @@ TRI_CHECK_SHAPES = (TRI_MAIN_SHAPE, (1, 16384, 8, 2, 64, True),
 # there the streamed kernels are held against the resident kernels.
 STR_MAIN_SHAPE = (1, 8192, 32, 8, 128, False)
 STR_CHECK_SHAPES = (STR_MAIN_SHAPE, (1, 16384, 8, 2, 64, False),
-                    (1, 4608, 12, 2, 128, False), (1, 4608, 12, 2, 128, True))
+                    (1, 4608, 12, 2, 128, False), (1, 4608, 12, 2, 128, True),
+                    (1, 4136, 12, 2, 128, False))
 STR_LONG_SHAPE = (1, 32768, 32, 8, 128, False)
+# The public op at a ragged S, through autograd (resident family).
+RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
+# The Hopper forwards: library, kernel name in the SASS, attributes entry.
+SM90_FORWARDS = (("flash_fwd", "flash_fwd_kernel", "stpu_flash_fwd_attrs"),
+                 ("flash_tri", "flash_fwd_tri_kernel",
+                  "stpu_flash_fwd_tri_attrs"))
 
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
@@ -159,6 +179,48 @@ def phase_build(build):
     for name, rec in info.items():
         print(f"[build] {name}.cu nvcc {rec['seconds']:.1f} s: "
               + "; ".join(_ptxas_summary(rec["ptxas"])), flush=True)
+        for line in rec["ptxas"].splitlines():
+            if "warning" in line.lower():
+                print(f"[build] {name}.cu: {line.strip()}", flush=True)
+    attrs = {}
+    for source, kernel, attrs_fn in SM90_FORWARDS:
+        fn = getattr(build.library(source), attrs_fn)
+        for d in (64, 128):
+            regs, smem = ctypes.c_int(), ctypes.c_int()
+            check(fn(d, ctypes.byref(regs), ctypes.byref(smem)) == 0,
+                  f"cudaFuncGetAttributes failed for {kernel}<{d}>")
+            attrs[(kernel, d)] = (regs.value, smem.value)
+            print(f"[build] {kernel}<{d}>: {regs.value} registers per "
+                  f"thread at launch (setmaxnreg: producer 40, consumers "
+                  f"232), {smem.value} bytes dynamic shared memory, 384 "
+                  "threads", flush=True)
+    phase_sass(build)
+    return attrs
+
+
+def phase_sass(build):
+    """The Hopper forwards must hold wgmma (HGMMA) and TMA loads
+    (UTMALDG) in their SASS."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for source, kernel, _ in SM90_FORWARDS:
+        lib = build.build_dir() / f"lib{source}.so"
+        out = subprocess.run([cuobjdump, "-sass", str(lib)],
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump failed on {lib}: "
+              f"{out.stderr[-2000:]}")
+        found = 0
+        for part in out.stdout.split("Function : ")[1:]:
+            name = part.split(None, 1)[0]
+            if not re.search(kernel + r"ILi\d+E", name):
+                continue
+            found += 1
+            hgmma, utmaldg = part.count("HGMMA"), part.count("UTMALDG")
+            print(f"[sass] {name}: {hgmma} HGMMA, {utmaldg} UTMALDG",
+                  flush=True)
+            check(hgmma > 0 and utmaldg > 0,
+                  f"{name} holds no wgmma or no TMA load")
+        check(found == 2, f"{kernel}: {found} instances in {lib}'s SASS, "
+              "expected 2 (head_dim 64 and 128)")
 
 
 def _ptxas_summary(log):
@@ -296,6 +358,36 @@ def phase_kernels(fa):
             torch.cuda.empty_cache()
     phase_streamed_vs_resident(fa, records)
     return records
+
+
+def phase_ragged_op(fa, attention_ops):
+    """The public attention op at a ragged S (a multiple of 8, not of the
+    tiles), forward and autograd backward: it runs the resident kernels,
+    one launch each, and matches the plain versions."""
+    shape = RAGGED_OP_SHAPE
+    b, s, h, kvh, d, causal = shape
+    scale = d ** -0.5
+    check(fa.family(s, d, causal) == fa.RESIDENT and s % fa.TILE,
+          f"{shape} is not a ragged resident shape")
+    q, k, v, do = _inputs(shape, 13)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launches()
+    out = attention_ops.attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    print(f"[ragged op] attention(causal={causal}) at {shape}: launches "
+          f"{launches}", flush=True)
+    expect = dict.fromkeys(launches, 0)
+    expect.update({n: 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")})
+    check(launches == expect, f"launch counts {launches} != {expect}")
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+    dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal,
+                                          scale)
+    _hold("[ragged op]", shape, (("o", (out, o_p), OUT_REL_TOL),
+                                 ("dq", (grads[0], dq_p), GRAD_REL_TOL),
+                                 ("dk", (grads[1], dk_p), GRAD_REL_TOL),
+                                 ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
 
 
 def phase_streamed_vs_resident(fa, records):
@@ -500,6 +592,7 @@ def phase_slice(fa, llama, trainer, records):
           f"memory {peak_gb:.2f} GB", flush=True)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         records[name]["launches"] = launches[name]
+    records["flash_fwd"]["step_ms"] = steady * 1e3
 
     # One forward through the kernels against the reference attention,
     # same trained weights, loss in fp32.
@@ -578,6 +671,7 @@ def phase_long_context(fa, llama, trainer, records):
           f"memory {peak_gb:.2f} GB", flush=True)
     for name in ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri"):
         records[name]["launches"] = launches[name]
+    records["flash_fwd_tri"]["step_ms"] = steady * 1e3
 
     # One forward loss through the kernels against the reference attention
     # (fp32 scores, ~9 GB per layer at this length, freed layer by layer
@@ -620,8 +714,9 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         card = phase_device()
-        phase_build(_build)
+        attrs = phase_build(_build)
         records = phase_kernels(fa)
+        phase_ragged_op(fa, attention_ops)
         phase_streamed(fa, attention_ops, records)
         torch.cuda.empty_cache()
         phase_slice(fa, llama, trainer, records)
@@ -631,6 +726,20 @@ def main() -> int:
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
+    for (_, kernel, _), name in zip(SM90_FORWARDS,
+                                    ("flash_fwd", "flash_fwd_tri")):
+        rec = records[name]
+        rec["regs"], rec["smem_bytes"] = attrs[(kernel, 128)]
+        print(f"[summary] {name} (Hopper forward, D=128: {rec['regs']} "
+              f"registers at launch, {rec['smem_bytes']} B shared): "
+              f"{rec['ms']:.4f} ms at {tuple(rec['shape'])}, bound "
+              f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms; "
+              f"its step {rec['step_ms']:.1f} ms", flush=True)
+    rec = records["flash_fwd_streamed"]
+    print(f"[summary] flash_fwd_streamed (mma.sync + cp.async ring): "
+          f"{rec['ms']:.4f} ms at {tuple(rec['shape'])}, bound "
+          f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms",
+          flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

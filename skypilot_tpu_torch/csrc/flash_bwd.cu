@@ -29,7 +29,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int qt = p.S / kTile - 1 - blockIdx.x;  // longest causal rows first
+  // longest causal rows first
+  const int qt = ceil_div(p.S, kTile) - 1 - blockIdx.x;
   dq_tile<D, BaseE>(p, blockIdx.y / p.H, blockIdx.y % p.H, qt, smem);
 }
 
@@ -54,10 +55,10 @@ extern "C" int stpu_flash_dq(const void* q, const void* k, const void* v,
                              int KVH, int D, float scale, int causal,
                              void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, causal);
-  const dim3 grid(S / kTile, B * H);
+  const dim3 grid(ceil_div(S, kTile), B * H);
   STPU_LAUNCH_BY_D(D, flash_dq_kernel, dq_smem_bytes, grid,
                    static_cast<cudaStream_t>(stream), p);
 }
@@ -71,10 +72,10 @@ extern "C" int stpu_flash_dkv(const void* q, const void* k, const void* v,
                               int KVH, int D, float scale, int causal,
                               void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, causal);
-  const dim3 grid(S / kTile, B * KVH);
+  const dim3 grid(ceil_div(S, kTile), B * KVH);
   STPU_LAUNCH_BY_D(D, flash_dkv_kernel, dkv_smem_bytes, grid,
                    static_cast<cudaStream_t>(stream), p);
 }

@@ -1,22 +1,31 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// Shared pieces of the mma.sync flash-attention kernels (flash_bwd.cu,
 // flash_tri.cu, flash_streamed.cu): tile shapes, global->shared tile loads
 // (plain, and staged through cp.async), ldmatrix, the bf16 mma.sync
 // m16n8k16 tensor-core product with fp32 accumulation, the three tile steps
 // (forward, dq, dk/dv) as templates over the softmax base, and their
-// epilogues.
+// epilogues. The resident and triangular forwards are Hopper-native
+// instead (wgmma + TMA, flash_fwd_sm90.cuh); only the streamed forward
+// still runs fwd_step here.
 //
 // Three kernel families instantiate them. The resident family
 // (flash_fwd.cu, flash_bwd.cu) and the streamed family (flash_streamed.cu)
 // work in natural exp with a natural-log lse; the triangular family
 // (flash_tri.cu) works in exp2 with a base-2 lse, as the TPU's long-context
 // kernels do, and walks a host-built tile schedule. The resident and
-// triangular tiles (fwd_tile, dq_tile, dkv_tile below) load each K/V (or
+// triangular backward tiles (dq_tile, dkv_tile below) load each K/V (or
 // q/dO) tile synchronously between two barriers; the streamed family's
 // loops keep the next tile's cp.async copy in flight while the current
 // tile's products run. All skip every fully masked tile (the KV loop stops
 // at the causal bound) and mask only the tiles that straddle the diagonal:
 // the step is a template over MASK, and interior tiles run the instance
 // with no compare or select.
+//
+// Ragged sequence tails: S need only be a multiple of 8, so a sequence has
+// ceil(S / 64) tiles and the last may be partial. Rows at or past S load
+// as zeros, the last KV tile of a non-causal loop runs the MASK instance
+// with key columns at or past S dropped (causal loops drop them with the
+// diagonal), q rows past S carry a large finite lse (P = 0) and zero delta
+// into dk/dv, and every store is predicated on row < S.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4*g + t.
 //   A (16x16, row-major): a0 = (row g,   k 2t..2t+1), a1 = (row g+8, k 2t..),
@@ -42,23 +51,42 @@ constexpr int kDkvQ = 32;              // q rows per inner tile of dk/dv
 // addresses of one ldmatrix fall in 8 different 4-bank groups.
 constexpr int kPad = 8;
 constexpr float kNegInf = -1e30f;      // the JAX package's mask value
+// The lse a q row past S carries into dk/dv: P = exp(x - kPastLse) = 0.
+constexpr float kPastLse = 1e30f;
 
 __host__ __device__ constexpr int row_elems(int d) { return d + kPad; }
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copy `rows` rows of D bf16 (16-byte chunks) from global, row stride
-// `gstride` elements, into a shared tile with rows of row_elems(D).
+// Copy ROWS rows of D bf16 (16-byte chunks) from global, row stride
+// `gstride` elements, into a shared tile with rows of row_elems(D); rows
+// at or past `valid` (the rows left before S) are zero-filled. Every tile
+// but a ragged last one is whole: it takes the unpredicated loop (the
+// branch is uniform across the block).
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          long long gstride) {
+                                          long long gstride, int valid) {
   constexpr int kChunks = D / 8;
+  if (valid >= ROWS) {
+    for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+      const int r = c / kChunks, cc = c % kChunks;
+      *reinterpret_cast<uint4*>(s + r * row_elems(D) + cc * 8) =
+          *reinterpret_cast<const uint4*>(g + r * gstride + cc * 8);
+    }
+    return;
+  }
   for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int r = c / kChunks, cc = c % kChunks;
-    *reinterpret_cast<uint4*>(s + r * row_elems(D) + cc * 8) =
-        *reinterpret_cast<const uint4*>(g + r * gstride + cc * 8);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid)
+      x = *reinterpret_cast<const uint4*>(g + r * gstride + cc * 8);
+    *reinterpret_cast<uint4*>(s + r * row_elems(D) + cc * 8) = x;
   }
 }
 
@@ -77,6 +105,17 @@ __device__ __forceinline__ void cp_async16(void* s, const void* g) {
                : "memory");
 }
 
+// The same with a source size: when valid is false nothing is read
+// (src-size 0) and the 16 bytes are zero-filled; g must still be an
+// address inside the tensor.
+__device__ __forceinline__ void cp_async16_zfill(void* s, const void* g,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(s)), "l"(g), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -86,13 +125,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // load_tile's copy, issued as cp.async: nothing is read until a wait.
+// Rows at or past `valid` are zero-filled from row 0's address; whole
+// tiles take the unpredicated loop, as in load_tile.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g,
-                                                long long gstride) {
+                                                long long gstride,
+                                                int valid) {
   constexpr int kChunks = D / 8;
+  if (valid >= ROWS) {
+    for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+      const int r = c / kChunks, cc = c % kChunks;
+      cp_async16(s + r * row_elems(D) + cc * 8, g + r * gstride + cc * 8);
+    }
+    return;
+  }
   for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int r = c / kChunks, cc = c % kChunks;
-    cp_async16(s + r * row_elems(D) + cc * 8, g + r * gstride + cc * 8);
+    const bool ok = r < valid;
+    cp_async16_zfill(s + r * row_elems(D) + cc * 8,
+                     g + (ok ? r : 0) * gstride + cc * 8, ok);
   }
 }
 
@@ -200,6 +251,23 @@ struct Base2 {  // triangular family: exp2, base-2 lse
   static __device__ __forceinline__ float log(float x) { return log2f(x); }
 };
 
+// What a MASK step drops: key columns at or past S (the ragged last tile)
+// and, when causal, columns past the query row. The KV tile a q tile's
+// loop masks is the diagonal one when causal, the last one when S leaves
+// it partial, and none otherwise (-1).
+struct TileMask {
+  int S;
+  int causal;
+  __device__ __forceinline__ bool drop(int qpos, int kpos) const {
+    return kpos >= S || (causal && qpos < kpos);
+  }
+};
+
+__host__ __device__ inline int masked_tile(int causal, int S, int tile,
+                                           int n_kt) {
+  return (causal || S % tile) ? n_kt - 1 : -1;
+}
+
 // ------------------------------------------------------------ parameters
 
 struct FwdParams {
@@ -286,19 +354,14 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------- forward
-// One q tile of 64 rows of one (b, h): o = softmax(scores) v and the lse.
-// Each warp owns 16 q rows and keeps their q fragments, the running (max,
-// sum) and the fp32 output in registers; the KV loop runs 64-row K/V
-// tiles staged in shared memory up to the causal bound.
-
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return 3 * kTile * row_elems(D) * (int)sizeof(bf16);
-}
+// One KV step of a 64-row q tile of one (b, h), the streamed forward's
+// body: each warp owns 16 q rows and keeps their q fragments, the running
+// (max, sum) and the fp32 output in registers.
 
 template <int D, class Base, bool MASK>
 __device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
-                                         int q_start, int k_start, float sm,
+                                         int q_start, int k_start,
+                                         TileMask mask, float sm,
                                          const uint32_t (&qf)[D / 16][4],
                                          float (&acc)[D / 8][4],
                                          float (&m)[2], float (&l)[2]) {
@@ -326,7 +389,7 @@ __device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
       if (MASK) {
         const int qpos = q_start + wrow + g + (e >= 2 ? 8 : 0);
         const int kpos = k_start + i * 8 + 2 * t + (e & 1);
-        if (qpos < kpos) x = kNegInf;
+        if (mask.drop(qpos, kpos)) x = kNegInf;
       }
       s[i][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -390,65 +453,24 @@ __device__ __forceinline__ void store_o_lse(const FwdParams& p, int b, int h,
     inv[r] = 1.f / l[r];
   }
   const int row0 = q_start + warp * 16 + g;
+  const bool ok0 = row0 < p.S, ok1 = row0 + 8 < p.S;
   bf16* og = p.o + ((long long)b * p.S * p.H + h) * D;
   const long long o_ss = (long long)p.H * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = i * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(og + row0 * o_ss + col) =
-        pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(og + (row0 + 8) * o_ss + col) =
-        pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(og + row0 * o_ss + col) =
+          pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(og + (row0 + 8) * o_ss + col) =
+          pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
   }
   if (t == 0) {
     float* lg = p.lse + ((long long)b * p.H + h) * p.S;
-    lg[row0] = m[0] + Base::log(l[0]);
-    lg[row0 + 8] = m[1] + Base::log(l[1]);
+    if (ok0) lg[row0] = m[0] + Base::log(l[0]);
+    if (ok1) lg[row0 + 8] = m[1] + Base::log(l[1]);
   }
-}
-
-template <int D, class Base>
-__device__ __forceinline__ void fwd_tile(const FwdParams& p, int b, int h,
-                                         int qt, unsigned char* smem) {
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kTile * row_elems(D);
-  bf16* sV = sK + kTile * row_elems(D);
-
-  const int kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32;
-  const int q_start = qt * kTile;
-  const int wrow = warp * 16;  // this warp's first row in the tile
-
-  const bf16* qg = p.q + b * p.q_sb + h * p.q_sh + q_start * p.q_ss;
-  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
-
-  load_tile<D, kTile>(sQ, qg, p.q_ss);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) load_a<D>(qf[ks], sQ, wrow, ks * 16);
-
-  float acc[D / 8][4];
-  zero(acc);
-  float m[2] = {kNegInf, kNegInf};  // rows g and g+8
-  float l[2] = {0.f, 0.f};          // this lane's partial row sums
-  const float sm = p.scale * Base::kScoreMul;
-
-  // With equal q and kv tiles only tile qt straddles the diagonal.
-  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
-  for (int j = 0; j < n_kt; ++j) {
-    const int k_start = j * kTile;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, kTile>(sK, kg + k_start * p.k_ss, p.k_ss);
-    load_tile<D, kTile>(sV, vg + k_start * p.v_ss, p.v_ss);
-    __syncthreads();
-    if (p.causal && j == qt)
-      fwd_step<D, Base, true>(sK, sV, q_start, k_start, sm, qf, acc, m, l);
-    else
-      fwd_step<D, Base, false>(sK, sV, q_start, k_start, sm, qf, acc, m, l);
-  }
-  store_o_lse<D, Base>(p, b, h, q_start, acc, m, l);
 }
 
 // --------------------------------------------------------------------- dq
@@ -467,7 +489,8 @@ constexpr int dq_smem_bytes() {
 template <int D, class Base, bool MASK>
 __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
                                         const bf16* sK, const bf16* sV,
-                                        int q_start, int k_start, float sm,
+                                        int q_start, int k_start,
+                                        TileMask mask, float sm,
                                         const float (&lse_r)[2],
                                         const float (&dlt_r)[2],
                                         float (&dq)[D / 8][4]) {
@@ -504,7 +527,7 @@ __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
       if (MASK) {
         const int qpos = q_start + wrow + g + (e >= 2 ? 8 : 0);
         const int kpos = k_start + i * 8 + 2 * t + (e & 1);
-        if (qpos < kpos) x = kNegInf;
+        if (mask.drop(qpos, kpos)) x = kNegInf;
       }
       const float pr = Base::exp(x - lse_r[e >> 1]);
       ds[e] = pr * (dp[i][e] - dlt_r[e >> 1]);
@@ -527,22 +550,26 @@ __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
 
 // delta = rowsum(dO * O) in fp32 for the 64 rows of a q tile, O read from
 // global memory at og and dO from shared memory: two lanes per row, D/2
-// columns each. Written to sDelta and, for the dk/dv kernel, to p.delta.
+// columns each. Written to sDelta and, for the dk/dv kernel, to p.delta;
+// rows at or past `valid` read nothing and get 0 in sDelta only.
 template <int D>
 __device__ __forceinline__ void tile_delta(const BwdParams& p, const bf16* og,
                                            const bf16* sdO, float* sDelta,
-                                           long long stat) {
+                                           long long stat, int valid) {
   const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-  const bf16* orow = og + r * p.o_ss + half * (D / 2);
-  const bf16* drow = sdO + r * row_elems(D) + half * (D / 2);
+  const bool ok = r < valid;
   float sum = 0.f;
+  if (ok) {
+    const bf16* orow = og + r * p.o_ss + half * (D / 2);
+    const bf16* drow = sdO + r * row_elems(D) + half * (D / 2);
 #pragma unroll 8
-  for (int c = 0; c < D / 2; ++c)
-    sum += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+    for (int c = 0; c < D / 2; ++c)
+      sum += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+  }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   if (half == 0) {
     sDelta[r] = sum;
-    p.delta[stat + r] = sum;
+    if (ok) p.delta[stat + r] = sum;
   }
 }
 
@@ -556,15 +583,18 @@ __device__ __forceinline__ void store_dq(const BwdParams& p, int b, int h,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int row0 = q_start + warp * 16 + g;
+  const bool ok0 = row0 < p.S, ok1 = row0 + 8 < p.S;
   bf16* dqg = p.dq + ((long long)b * p.S * p.H + h) * D;
   const long long dq_ss = (long long)p.H * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = i * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dqg + row0 * dq_ss + col) =
-        pack_bf16(dq[i][0] * p.scale, dq[i][1] * p.scale);
-    *reinterpret_cast<uint32_t*>(dqg + (row0 + 8) * dq_ss + col) =
-        pack_bf16(dq[i][2] * p.scale, dq[i][3] * p.scale);
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(dqg + row0 * dq_ss + col) =
+          pack_bf16(dq[i][0] * p.scale, dq[i][1] * p.scale);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(dqg + (row0 + 8) * dq_ss + col) =
+          pack_bf16(dq[i][2] * p.scale, dq[i][3] * p.scale);
   }
 }
 
@@ -589,33 +619,39 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
   const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
   const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
   const long long stat = ((long long)b * p.H + h) * p.S + q_start;
+  const int valid = p.S - q_start;
 
-  load_tile<D, kTile>(sQ, qg, p.q_ss);
-  load_tile<D, kTile>(sdO, dog, p.do_ss);
+  load_tile<D, kTile>(sQ, qg, p.q_ss, valid);
+  load_tile<D, kTile>(sdO, dog, p.do_ss, valid);
   __syncthreads();
-  tile_delta<D>(p, og, sdO, sDelta, stat);
+  tile_delta<D>(p, og, sdO, sDelta, stat, valid);
   __syncthreads();
 
-  const float lse_r[2] = {p.lse[stat + wrow + g], p.lse[stat + wrow + g + 8]};
+  // Rows past S are never stored; any finite lse keeps them finite.
+  const float lse_r[2] = {wrow + g < valid ? p.lse[stat + wrow + g] : 0.f,
+                          wrow + g + 8 < valid ? p.lse[stat + wrow + g + 8]
+                                               : 0.f};
   const float dlt_r[2] = {sDelta[wrow + g], sDelta[wrow + g + 8]};
   const float sm = p.scale * Base::kScoreMul;
+  const TileMask mask = {p.S, p.causal};
 
   float dq[D / 8][4];
   zero(dq);
 
-  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
+  const int n_kt = p.causal ? qt + 1 : ceil_div(p.S, kTile);
+  const int j_mask = masked_tile(p.causal, p.S, kTile, n_kt);
   for (int j = 0; j < n_kt; ++j) {
     const int k_start = j * kTile;
     __syncthreads();
-    load_tile<D, kTile>(sK, kg + k_start * p.k_ss, p.k_ss);
-    load_tile<D, kTile>(sV, vg + k_start * p.v_ss, p.v_ss);
+    load_tile<D, kTile>(sK, kg + k_start * p.k_ss, p.k_ss, p.S - k_start);
+    load_tile<D, kTile>(sV, vg + k_start * p.v_ss, p.v_ss, p.S - k_start);
     __syncthreads();
-    if (p.causal && j == qt)
-      dq_step<D, Base, true>(sQ, sdO, sK, sV, q_start, k_start, sm, lse_r,
-                             dlt_r, dq);
+    if (j == j_mask)
+      dq_step<D, Base, true>(sQ, sdO, sK, sV, q_start, k_start, mask, sm,
+                             lse_r, dlt_r, dq);
     else
-      dq_step<D, Base, false>(sQ, sdO, sK, sV, q_start, k_start, sm, lse_r,
-                              dlt_r, dq);
+      dq_step<D, Base, false>(sQ, sdO, sK, sV, q_start, k_start, mask, sm,
+                              lse_r, dlt_r, dq);
   }
   store_dq<D>(p, b, h, q_start, dq);
 }
@@ -741,20 +777,55 @@ __device__ __forceinline__ void store_dkv(const BwdParams& p, int b, int kvh,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int row0 = k_start + warp * 16 + g;
+  const bool ok0 = row0 < p.S, ok1 = row0 + 8 < p.S;
   const long long ss = (long long)p.KVH * D;
   const long long base = ((long long)b * p.S * p.KVH + kvh) * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = i * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(p.dk + base + row0 * ss + col) =
-        pack_bf16(dk[i][0] * p.scale, dk[i][1] * p.scale);
-    *reinterpret_cast<uint32_t*>(p.dk + base + (row0 + 8) * ss + col) =
-        pack_bf16(dk[i][2] * p.scale, dk[i][3] * p.scale);
-    *reinterpret_cast<uint32_t*>(p.dv + base + row0 * ss + col) =
-        pack_bf16(dv[i][0], dv[i][1]);
-    *reinterpret_cast<uint32_t*>(p.dv + base + (row0 + 8) * ss + col) =
-        pack_bf16(dv[i][2], dv[i][3]);
+    if (ok0) {
+      *reinterpret_cast<uint32_t*>(p.dk + base + row0 * ss + col) =
+          pack_bf16(dk[i][0] * p.scale, dk[i][1] * p.scale);
+      *reinterpret_cast<uint32_t*>(p.dv + base + row0 * ss + col) =
+          pack_bf16(dv[i][0], dv[i][1]);
+    }
+    if (ok1) {
+      *reinterpret_cast<uint32_t*>(p.dk + base + (row0 + 8) * ss + col) =
+          pack_bf16(dk[i][2] * p.scale, dk[i][3] * p.scale);
+      *reinterpret_cast<uint32_t*>(p.dv + base + (row0 + 8) * ss + col) =
+          pack_bf16(dv[i][2], dv[i][3]);
+    }
   }
+}
+
+// One 32-row q tile (index i) of query head row `stat` against the kv
+// tile held in shared memory: its q, dO, lse and delta are loaded, then
+// one dkv_step. WHOLE: the tile lies wholly before S (every tile but a
+// ragged last one), so its loads take no row predicate; otherwise rows
+// past S load as zeros with lse kPastLse and delta 0, and add exactly 0.
+template <int D, class Base, bool WHOLE>
+__device__ __forceinline__ void dkv_q_tile(
+    const BwdParams& p, const bf16* qg, const bf16* dog, long long stat,
+    int i, int i_free, int k_start, float sm, const bf16* sK,
+    const bf16* sV, bf16* sQ, bf16* sdO, float* sLse, float* sDelta,
+    float (&dk)[D / 8][4], float (&dv)[D / 8][4]) {
+  const int q_start = i * kDkvQ;
+  const int valid = WHOLE ? kDkvQ : p.S - q_start;
+  __syncthreads();  // previous q tile fully consumed
+  load_tile<D, kDkvQ>(sQ, qg + q_start * p.q_ss, p.q_ss, valid);
+  load_tile<D, kDkvQ>(sdO, dog + q_start * p.do_ss, p.do_ss, valid);
+  if (threadIdx.x < kDkvQ) {
+    const bool ok = (int)threadIdx.x < valid;
+    sLse[threadIdx.x] = ok ? p.lse[stat + q_start + threadIdx.x] : kPastLse;
+    sDelta[threadIdx.x] = ok ? p.delta[stat + q_start + threadIdx.x] : 0.f;
+  }
+  __syncthreads();
+  if (i < i_free)
+    dkv_step<D, Base, true>(sK, sV, sQ, sdO, sLse, sDelta, q_start, k_start,
+                            sm, dk, dv);
+  else
+    dkv_step<D, Base, false>(sK, sV, sQ, sdO, sLse, sDelta, q_start,
+                             k_start, sm, dk, dv);
 }
 
 template <int D, class Base>
@@ -772,9 +843,9 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
   const float sm = p.scale * Base::kScoreMul;
 
   load_tile<D, kTile>(sK, p.k + b * p.k_sb + kvh * p.k_sh + k_start * p.k_ss,
-                      p.k_ss);
+                      p.k_ss, p.S - k_start);
   load_tile<D, kTile>(sV, p.v + b * p.v_sb + kvh * p.v_sh + k_start * p.v_ss,
-                      p.v_ss);
+                      p.v_ss, p.S - k_start);
 
   float dk[D / 8][4], dv[D / 8][4];
   zero(dk);
@@ -782,8 +853,11 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
 
   // Causal: q tiles start at the kv tile's first row; the two 32-row q
   // tiles that overlap the 64-row kv tile straddle the diagonal, every
-  // later one lies wholly below it.
-  const int n_qt = p.S / kDkvQ;
+  // later one lies wholly below it. Kv rows past S are never stored, so
+  // the kv axis needs no ragged mask. The loop runs the whole q tiles,
+  // then a ragged last one on its own instance: a row predicate on the
+  // loop's loads cost it 3-7% (PERF.md).
+  const int n_whole = p.S / kDkvQ, n_qt = ceil_div(p.S, kDkvQ);
   const int i0 = p.causal ? k_start / kDkvQ : 0;
   const int i_free = p.causal ? i0 + kTile / kDkvQ : 0;
   for (int gi = 0; gi < groups; ++gi) {
@@ -791,23 +865,12 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
     const bf16* qg = p.q + b * p.q_sb + h * p.q_sh;
     const bf16* dog = p.dout + b * p.do_sb + h * p.do_sh;
     const long long stat = ((long long)b * p.H + h) * p.S;
-    for (int i = i0; i < n_qt; ++i) {
-      const int q_start = i * kDkvQ;
-      __syncthreads();  // previous q tile fully consumed
-      load_tile<D, kDkvQ>(sQ, qg + q_start * p.q_ss, p.q_ss);
-      load_tile<D, kDkvQ>(sdO, dog + q_start * p.do_ss, p.do_ss);
-      if (threadIdx.x < kDkvQ) {
-        sLse[threadIdx.x] = p.lse[stat + q_start + threadIdx.x];
-        sDelta[threadIdx.x] = p.delta[stat + q_start + threadIdx.x];
-      }
-      __syncthreads();
-      if (i < i_free)
-        dkv_step<D, Base, true>(sK, sV, sQ, sdO, sLse, sDelta, q_start,
-                                k_start, sm, dk, dv);
-      else
-        dkv_step<D, Base, false>(sK, sV, sQ, sdO, sLse, sDelta, q_start,
-                                 k_start, sm, dk, dv);
-    }
+    for (int i = i0; i < n_whole; ++i)
+      dkv_q_tile<D, Base, true>(p, qg, dog, stat, i, i_free, k_start, sm,
+                                sK, sV, sQ, sdO, sLse, sDelta, dk, dv);
+    if (n_whole < n_qt)  // a ragged last tile; i0 <= n_whole: k_start < S
+      dkv_q_tile<D, Base, false>(p, qg, dog, stat, n_whole, i_free, k_start,
+                                 sm, sK, sV, sQ, sdO, sLse, sDelta, dk, dv);
   }
 
   store_dkv<D>(p, b, kvh, k_start, dk, dv);

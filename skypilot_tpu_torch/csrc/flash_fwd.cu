@@ -8,42 +8,52 @@
 //
 // What bounds it: at the training shapes (S 2048, D 128) it does ~2*S*D
 // flops per byte of q/k/v/o, far above the card's ~295 flop/byte ridge, so
-// the tensor cores bound it. Design: one block of 4 warps per (q tile of 64
-// rows, b*h), running fwd_tile (flash_common.cuh): the TPU grid's
-// sequential "arbitrary" axis becomes the block's loop over K/V tiles up to
-// the causal bound, q k^T and P v run on the tensor cores with mma.sync
-// m16n8k16, and P feeds the second product straight from the registers
-// that hold the scores, cast to bf16 as the JAX kernel does. Only the
-// diagonal tile is masked. q tiles are scheduled longest-first so the
-// causal tail does not idle the card. No cp.async pipelining, wgmma or TMA
-// yet: those are the next steps.
-#include "flash_common.cuh"
+// the tensor cores bound it. Design: the Hopper-native forward of
+// flash_fwd_sm90.cuh (one producer warpgroup issuing TMA loads into a K/V
+// ring, two consumer warpgroups running wgmma), whose softmax works in
+// exp2; this instance writes its base-2 lse times ln 2, the natural-log lse
+// that flash_dq and flash_dkv read. The TPU grid's sequential "arbitrary"
+// axis becomes each consumer's loop over K/V tiles up to the causal bound.
+// One CTA per item of a host-built longest-first work list of 128-row q
+// tiles (ops/flash_attention.py: tri_schedule), so the causal tail does
+// not idle the card.
+#include "flash_fwd_sm90.cuh"
 
 namespace stpu {
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const FwdParams p) {
+__global__ void __launch_bounds__(sm90::kFwdThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const FwdParams p,
+                 const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int qt = p.S / kTile - 1 - blockIdx.x;  // longest causal rows first
-  fwd_tile<D, BaseE>(p, blockIdx.y / p.H, blockIdx.y % p.H, qt, smem);
+  sm90::fwd_cta<D, /*kNaturalLse=*/true>(tq, tk, tv, p, work, smem);
 }
 
 }  // namespace
 }  // namespace stpu
 
-// strides: (batch, seq, head) in elements for q, k, v. o is written
-// contiguous (B, S, H, D) and lse (B, H, S) fp32.
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. strides: (batch, seq,
+// head) in elements for q, k, v. o is written contiguous (B, S, H, D) and
+// lse (B, H, S) fp32.
 extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, const long long* strides,
-                              int B, int S, int H, int KVH, int D,
-                              float scale, int causal, void* stream) {
+                              void* o, void* lse, const void* work,
+                              const long long* strides, int B, int S, int H,
+                              int KVH, int D, float scale, int causal,
+                              void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
-  const dim3 grid(S / kTile, B * H);
-  STPU_LAUNCH_BY_D(D, flash_fwd_kernel, fwd_smem_bytes, grid,
-                   static_cast<cudaStream_t>(stream), p);
+  STPU_LAUNCH_FWD_SM90(D, flash_fwd_kernel, p, B,
+                       static_cast<const int*>(work),
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Registers per thread at launch and dynamic shared memory of the head_dim
+// D instance.
+extern "C" int stpu_flash_fwd_attrs(int D, int* regs, int* smem) {
+  STPU_FWD_SM90_ATTRS(D, stpu::flash_fwd_kernel, regs, smem);
 }

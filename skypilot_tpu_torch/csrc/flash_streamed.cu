@@ -67,16 +67,17 @@ constexpr int dkv_streamed_smem_bytes() {
 }
 
 // Issue the copies of K/V tile j (rows j*64..) into ring stage j % kStages.
+// Rows at or past S are zero-filled.
 template <int D>
 __device__ __forceinline__ void issue_kv(const bf16* kg, const bf16* vg,
                                          long long k_ss, long long v_ss,
-                                         int j, bf16* sK, bf16* sV) {
+                                         int S, int j, bf16* sK, bf16* sV) {
   const int st = j % kStages;
-  const long long r0 = (long long)j * kTile;
-  load_tile_async<D, kTile>(sK + st * tile_elems<D>(kTile), kg + r0 * k_ss,
-                            k_ss);
-  load_tile_async<D, kTile>(sV + st * tile_elems<D>(kTile), vg + r0 * v_ss,
-                            v_ss);
+  const int r0 = j * kTile;
+  load_tile_async<D, kTile>(sK + st * tile_elems<D>(kTile),
+                            kg + (long long)r0 * k_ss, k_ss, S - r0);
+  load_tile_async<D, kTile>(sV + st * tile_elems<D>(kTile),
+                            vg + (long long)r0 * v_ss, v_ss, S - r0);
   cp_async_commit();
 }
 
@@ -91,7 +92,8 @@ flash_fwd_streamed_kernel(const FwdParams p) {
 
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int qt = p.S / kTile - 1 - blockIdx.x;  // longest causal rows first
+  // longest causal rows first
+  const int qt = ceil_div(p.S, kTile) - 1 - blockIdx.x;
   const int q_start = qt * kTile;
   const int wrow = (threadIdx.x / 32) * 16;
   const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
@@ -99,8 +101,9 @@ flash_fwd_streamed_kernel(const FwdParams p) {
 
   // Prologue: q and K/V tile 0 in one group.
   load_tile_async<D, kTile>(sQ, p.q + b * p.q_sb + h * p.q_sh +
-                                    q_start * p.q_ss, p.q_ss);
-  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, 0, sK, sV);
+                                    q_start * p.q_ss, p.q_ss,
+                            p.S - q_start);
+  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, 0, sK, sV);
   cp_async_wait_all();
   __syncthreads();
   uint32_t qf[D / 16][4];
@@ -112,20 +115,23 @@ flash_fwd_streamed_kernel(const FwdParams p) {
   float m[2] = {kNegInf, kNegInf};  // rows g and g+8
   float l[2] = {0.f, 0.f};          // this lane's partial row sums
   const float sm = p.scale * BaseE::kScoreMul;
+  const TileMask mask = {p.S, p.causal};
 
-  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
+  const int n_kt = p.causal ? qt + 1 : ceil_div(p.S, kTile);
+  const int j_mask = masked_tile(p.causal, p.S, kTile, n_kt);
   for (int j = 0; j < n_kt; ++j) {
     cp_async_wait_all();  // this thread's copies of tile j have landed
     __syncthreads();      // everyone's have, and tile j-1 is consumed
-    if (j + 1 < n_kt) issue_kv<D>(kg, vg, p.k_ss, p.v_ss, j + 1, sK, sV);
+    if (j + 1 < n_kt)
+      issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, j + 1, sK, sV);
     const bf16* k_t = sK + (j % kStages) * kTE;
     const bf16* v_t = sV + (j % kStages) * kTE;
-    if (p.causal && j == qt)
-      fwd_step<D, BaseE, true>(k_t, v_t, q_start, j * kTile, sm, qf, acc, m,
-                               l);
+    if (j == j_mask)
+      fwd_step<D, BaseE, true>(k_t, v_t, q_start, j * kTile, mask, sm, qf,
+                               acc, m, l);
     else
-      fwd_step<D, BaseE, false>(k_t, v_t, q_start, j * kTile, sm, qf, acc, m,
-                                l);
+      fwd_step<D, BaseE, false>(k_t, v_t, q_start, j * kTile, mask, sm, qf,
+                                acc, m, l);
   }
   store_o_lse<D, BaseE>(p, b, h, q_start, acc, m, l);
 }
@@ -143,8 +149,10 @@ flash_dq_streamed_kernel(const BwdParams p) {
 
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int qt = p.S / kTile - 1 - blockIdx.x;  // longest causal rows first
+  // longest causal rows first
+  const int qt = ceil_div(p.S, kTile) - 1 - blockIdx.x;
   const int q_start = qt * kTile;
+  const int valid = p.S - q_start;
   const int wrow = (threadIdx.x / 32) * 16, g = (threadIdx.x % 32) / 4;
   const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
   const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
@@ -152,36 +160,42 @@ flash_dq_streamed_kernel(const BwdParams p) {
 
   // Prologue: q, dO and K/V tile 0 in one group; then delta from O.
   load_tile_async<D, kTile>(sQ, p.q + b * p.q_sb + h * p.q_sh +
-                                    q_start * p.q_ss, p.q_ss);
+                                    q_start * p.q_ss, p.q_ss, valid);
   load_tile_async<D, kTile>(sdO, p.dout + b * p.do_sb + h * p.do_sh +
-                                     q_start * p.do_ss, p.do_ss);
-  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, 0, sK, sV);
+                                     q_start * p.do_ss, p.do_ss, valid);
+  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, 0, sK, sV);
   cp_async_wait_all();
   __syncthreads();
   tile_delta<D>(p, p.o + b * p.o_sb + h * p.o_sh + q_start * p.o_ss, sdO,
-                sDelta, stat);
+                sDelta, stat, valid);
   __syncthreads();
 
-  const float lse_r[2] = {p.lse[stat + wrow + g], p.lse[stat + wrow + g + 8]};
+  // Rows past S are never stored; any finite lse keeps them finite.
+  const float lse_r[2] = {wrow + g < valid ? p.lse[stat + wrow + g] : 0.f,
+                          wrow + g + 8 < valid ? p.lse[stat + wrow + g + 8]
+                                               : 0.f};
   const float dlt_r[2] = {sDelta[wrow + g], sDelta[wrow + g + 8]};
   const float sm = p.scale * BaseE::kScoreMul;
+  const TileMask mask = {p.S, p.causal};
 
   float dq[D / 8][4];
   zero(dq);
 
-  const int n_kt = p.causal ? qt + 1 : p.S / kTile;
+  const int n_kt = p.causal ? qt + 1 : ceil_div(p.S, kTile);
+  const int j_mask = masked_tile(p.causal, p.S, kTile, n_kt);
   for (int j = 0; j < n_kt; ++j) {
     cp_async_wait_all();
     __syncthreads();
-    if (j + 1 < n_kt) issue_kv<D>(kg, vg, p.k_ss, p.v_ss, j + 1, sK, sV);
+    if (j + 1 < n_kt)
+      issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, j + 1, sK, sV);
     const bf16* k_t = sK + (j % kStages) * kTE;
     const bf16* v_t = sV + (j % kStages) * kTE;
-    if (p.causal && j == qt)
-      dq_step<D, BaseE, true>(sQ, sdO, k_t, v_t, q_start, j * kTile, sm,
-                              lse_r, dlt_r, dq);
+    if (j == j_mask)
+      dq_step<D, BaseE, true>(sQ, sdO, k_t, v_t, q_start, j * kTile, mask,
+                              sm, lse_r, dlt_r, dq);
     else
-      dq_step<D, BaseE, false>(sQ, sdO, k_t, v_t, q_start, j * kTile, sm,
-                               lse_r, dlt_r, dq);
+      dq_step<D, BaseE, false>(sQ, sdO, k_t, v_t, q_start, j * kTile, mask,
+                               sm, lse_r, dlt_r, dq);
   }
   store_dq<D>(p, b, h, q_start, dq);
 }
@@ -189,8 +203,12 @@ flash_dq_streamed_kernel(const BwdParams p) {
 // The dk/dv stream: item `it` is query head kvh * G + it / per_head of the
 // group and q tile i0 + it % per_head. Issue its 32 q and dO rows and
 // their lse and delta (32 floats each: 8 threads of 16 bytes apiece) into
-// ring stage it % kStages.
-template <int D>
+// ring stage it % kStages. WHOLE: S is a multiple of the q tile, so no
+// row lies past it and the copies take no row predicate. Otherwise rows
+// past S load as zeros, with lse kPastLse and delta 0 (S is a multiple of
+// 8, so each 4-row chunk of the statistics lies wholly before S or wholly
+// past it): such rows add exactly 0 to dk and dv.
+template <int D, bool WHOLE>
 __device__ __forceinline__ void issue_q_item(const BwdParams& p, int b,
                                              int kvh, int it, int i0,
                                              int per_head, bf16* sQ,
@@ -201,26 +219,37 @@ __device__ __forceinline__ void issue_q_item(const BwdParams& p, int b,
   const int st = it % kStages;
   const int h = kvh * (p.H / p.KVH) + it / per_head;
   const int q_start = (i0 + it % per_head) * kDkvQ;
+  const int valid = WHOLE ? kDkvQ : p.S - q_start;
   load_tile_async<D, kDkvQ>(sQ + st * kQE, p.q + b * p.q_sb + h * p.q_sh +
-                                               q_start * p.q_ss, p.q_ss);
+                                               q_start * p.q_ss, p.q_ss,
+                            valid);
   load_tile_async<D, kDkvQ>(sdO + st * kQE, p.dout + b * p.do_sb +
                                                 h * p.do_sh +
-                                                q_start * p.do_ss, p.do_ss);
+                                                q_start * p.do_ss, p.do_ss,
+                            valid);
   if (threadIdx.x < 2 * kStatChunks) {
     const int c = threadIdx.x % kStatChunks;
-    const long long at = ((long long)b * p.H + h) * p.S + q_start + 4 * c;
-    if (threadIdx.x < kStatChunks)
-      cp_async16(sLse + st * kDkvQ + 4 * c, p.lse + at);
-    else
-      cp_async16(sDelta + st * kDkvQ + 4 * c, p.delta + at);
+    const bool lse_half = threadIdx.x < kStatChunks;
+    float* dst = (lse_half ? sLse : sDelta) + st * kDkvQ + 4 * c;
+    if (4 * c < valid) {
+      const long long at = ((long long)b * p.H + h) * p.S + q_start + 4 * c;
+      cp_async16(dst, (lse_half ? p.lse : p.delta) + at);
+    } else {
+      // This stage's previous item is consumed (the caller's barrier);
+      // the next barrier makes the store visible with the copies.
+      const float x = lse_half ? kPastLse : 0.f;
+      *reinterpret_cast<float4*>(dst) = make_float4(x, x, x, x);
+    }
   }
   cp_async_commit();
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_streamed_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The dk/dv kernel's body, as one instance for S a multiple of the q tile
+// and one for a ragged S (the kernel picks once per launch): the item loop
+// with a row predicate on its copies ran 5-7% slower (PERF.md).
+template <int D, bool WHOLE>
+__device__ __forceinline__ void dkv_streamed(const BwdParams& p,
+                                             unsigned char* smem) {
   constexpr int kTE = tile_elems<D>(kTile), kQE = tile_elems<D>(kDkvQ);
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = sK + kTE;
@@ -237,15 +266,17 @@ flash_dkv_streamed_kernel(const BwdParams p) {
   // q tiles that overlap the 64-row kv tile straddle the diagonal.
   const int i0 = p.causal ? k_start / kDkvQ : 0;
   const int i_free = p.causal ? i0 + kTile / kDkvQ : 0;
-  const int per_head = p.S / kDkvQ - i0;
+  const int per_head = ceil_div(p.S, kDkvQ) - i0;
   const int n_items = (p.H / p.KVH) * per_head;
 
   // Prologue: the block's K/V tile and item 0 in one group.
   load_tile_async<D, kTile>(sK, p.k + b * p.k_sb + kvh * p.k_sh +
-                                    k_start * p.k_ss, p.k_ss);
+                                    k_start * p.k_ss, p.k_ss,
+                            p.S - k_start);
   load_tile_async<D, kTile>(sV, p.v + b * p.v_sb + kvh * p.v_sh +
-                                    k_start * p.v_ss, p.v_ss);
-  issue_q_item<D>(p, b, kvh, 0, i0, per_head, sQ, sdO, sLse, sDelta);
+                                    k_start * p.v_ss, p.v_ss,
+                            p.S - k_start);
+  issue_q_item<D, WHOLE>(p, b, kvh, 0, i0, per_head, sQ, sdO, sLse, sDelta);
 
   float dk[D / 8][4], dv[D / 8][4];
   zero(dk);
@@ -254,7 +285,8 @@ flash_dkv_streamed_kernel(const BwdParams p) {
     cp_async_wait_all();  // this thread's copies of item it have landed
     __syncthreads();      // everyone's have, and item it-1 is consumed
     if (it + 1 < n_items)
-      issue_q_item<D>(p, b, kvh, it + 1, i0, per_head, sQ, sdO, sLse, sDelta);
+      issue_q_item<D, WHOLE>(p, b, kvh, it + 1, i0, per_head, sQ, sdO, sLse,
+                             sDelta);
     const int st = it % kStages;
     const int i = i0 + it % per_head;
     if (i < i_free)
@@ -269,6 +301,16 @@ flash_dkv_streamed_kernel(const BwdParams p) {
   store_dkv<D>(p, b, kvh, k_start, dk, dv);
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_streamed_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (p.S % kDkvQ == 0)
+    dkv_streamed<D, true>(p, smem);
+  else
+    dkv_streamed<D, false>(p, smem);
+}
+
 }  // namespace
 }  // namespace stpu
 
@@ -280,10 +322,10 @@ extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
                                        int H, int KVH, int D, float scale,
                                        int causal, void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
-  const dim3 grid(S / kTile, B * H);
+  const dim3 grid(ceil_div(S, kTile), B * H);
   STPU_LAUNCH_BY_D(D, flash_fwd_streamed_kernel, fwd_streamed_smem_bytes,
                    grid, static_cast<cudaStream_t>(stream), p);
 }
@@ -298,10 +340,10 @@ extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
                                       int H, int KVH, int D, float scale,
                                       int causal, void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, causal);
-  const dim3 grid(S / kTile, B * H);
+  const dim3 grid(ceil_div(S, kTile), B * H);
   STPU_LAUNCH_BY_D(D, flash_dq_streamed_kernel, dq_streamed_smem_bytes, grid,
                    static_cast<cudaStream_t>(stream), p);
 }
@@ -316,10 +358,10 @@ extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
                                        int H, int KVH, int D, float scale,
                                        int causal, void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, causal);
-  const dim3 grid(S / kTile, B * KVH);
+  const dim3 grid(ceil_div(S, kTile), B * KVH);
   STPU_LAUNCH_BY_D(D, flash_dkv_streamed_kernel, dkv_streamed_smem_bytes,
                    grid, static_cast<cudaStream_t>(stream), p);
 }

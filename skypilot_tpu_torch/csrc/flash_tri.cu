@@ -16,10 +16,12 @@
 //
 // What bounds them: at S 8192, D 128 each kernel does ~S*D/2 flops per
 // byte it must move, far past the card's ~295 flop/byte ridge, so the
-// tensor cores. The tile bodies are the resident family's (flash_common.cuh:
-// mma.sync m16n8k16 from ldmatrix fragments, P and dS fed from registers,
-// the GQA group of dk/dv summed in registers without atomics), instanced in
-// base 2.
+// tensor cores. The forward is the Hopper-native body of
+// flash_fwd_sm90.cuh (wgmma + TMA, warp specialised), writing its base-2
+// lse as it is. dq and dk/dv run the resident family's tile bodies
+// (flash_common.cuh: mma.sync m16n8k16 from ldmatrix fragments, P and dS
+// fed from registers, the GQA group of dk/dv summed in registers without
+// atomics), instanced in base 2.
 //
 // Schedule: the TPU kernels walk scalar-prefetched maps of the lower-
 // triangle block pairs (_tri_maps_row, _tri_maps_col). Here the host builds
@@ -29,18 +31,22 @@
 // are dispatched in index order, so the list acts as one longest-first
 // queue over the whole launch and the short causal rows fill the last wave.
 // Inside an item the loop stops at the diagonal, so no fully masked tile is
-// loaded, and only the straddling tile runs the masked step.
-#include "flash_common.cuh"
+// loaded, and only the straddling tile runs the masked step. The forward's
+// list counts 128-row q tiles, dq's 64-row q tiles, dk/dv's 64-row kv
+// tiles.
+#include "flash_fwd_sm90.cuh"
 
 namespace stpu {
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_tri_kernel(const FwdParams p, const int* __restrict__ work) {
+__global__ void __launch_bounds__(sm90::kFwdThreads, 1)
+flash_fwd_tri_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const FwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
-  fwd_tile<D, Base2>(p, bh / p.H, bh % p.H, qt, smem);
+  sm90::fwd_cta<D, /*kNaturalLse=*/false>(tq, tk, tv, p, work, smem);
 }
 
 template <int D>
@@ -62,26 +68,32 @@ flash_dkv_tri_kernel(const BwdParams p, const int* __restrict__ work) {
 }  // namespace
 }  // namespace stpu
 
-// work: B*H*(S/64) (b*h, q tile) int32 pairs. strides: (batch, seq, head)
-// in elements for q, k, v. o is written contiguous (B, S, H, D) bf16 and
-// lse (B, H, S) fp32, base 2.
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. strides: (batch, seq,
+// head) in elements for q, k, v. o is written contiguous (B, S, H, D) bf16
+// and lse (B, H, S) fp32, base 2.
 extern "C" int stpu_flash_fwd_tri(const void* q, const void* k,
                                   const void* v, void* o, void* lse,
                                   const void* work, const long long* strides,
                                   int B, int S, int H, int KVH, int D,
                                   float scale, void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p = fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale,
                                  /*causal=*/1);
-  const int* w = static_cast<const int*>(work);
-  const dim3 grid(B * H * (S / kTile));
-  STPU_LAUNCH_BY_D(D, flash_fwd_tri_kernel, fwd_smem_bytes, grid,
-                   static_cast<cudaStream_t>(stream), p, w);
+  STPU_LAUNCH_FWD_SM90(D, flash_fwd_tri_kernel, p, B,
+                       static_cast<const int*>(work),
+                       static_cast<cudaStream_t>(stream));
 }
 
-// work as for the forward. strides: q, k, v, o, dO. dq (B, S, H, D) bf16
-// and delta (B, H, S) fp32 are written contiguous; lse is base 2.
+// Registers per thread at launch and dynamic shared memory of the head_dim
+// D instance of the forward.
+extern "C" int stpu_flash_fwd_tri_attrs(int D, int* regs, int* smem) {
+  STPU_FWD_SM90_ATTRS(D, stpu::flash_fwd_tri_kernel, regs, smem);
+}
+
+// work: B*H*ceil(S/64) (b*h, q tile) int32 pairs. strides: q, k, v, o, dO.
+// dq (B, S, H, D) bf16 and delta (B, H, S) fp32 are written contiguous;
+// lse is base 2.
 extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* dq, void* delta,
@@ -89,16 +101,17 @@ extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
                                  int B, int S, int H, int KVH, int D,
                                  float scale, void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, 1);
   const int* w = static_cast<const int*>(work);
-  const dim3 grid(B * H * (S / kTile));
+  const dim3 grid(B * H * ceil_div(S, kTile));
   STPU_LAUNCH_BY_D(D, flash_dq_tri_kernel, dq_smem_bytes, grid,
                    static_cast<cudaStream_t>(stream), p, w);
 }
 
-// work: B*KVH*(S/64) (b*KVH, kv tile) int32 pairs. strides: q, k, v, dO.
+// work: B*KVH*ceil(S/64) (b*KVH, kv tile) int32 pairs. strides: q, k, v,
+// dO.
 // dk and dv are written contiguous (B, S, KVH, D) bf16.
 extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
                                   const void* v, const void* dout,
@@ -108,11 +121,11 @@ extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
                                   int H, int KVH, int D, float scale,
                                   void* stream) {
   using namespace stpu;
-  if (S % kTile || H % KVH) return (int)cudaErrorInvalidValue;
+  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, 1);
   const int* w = static_cast<const int*>(work);
-  const dim3 grid(B * KVH * (S / kTile));
+  const dim3 grid(B * KVH * ceil_div(S, kTile));
   STPU_LAUNCH_BY_D(D, flash_dkv_tri_kernel, dkv_smem_bytes, grid,
                    static_cast<cudaStream_t>(stream), p, w);
 }

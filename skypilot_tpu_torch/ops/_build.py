@@ -32,15 +32,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, scale, causal, stream);
-# the triangular family is causal only and takes its tile schedule as the
-# last pointer.
+# the triangular family is causal only; it and the resident forward take
+# their tile schedule as the last pointer. The *_attrs entries report the
+# Hopper forward's registers and dynamic shared memory for a head_dim.
 _TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_ATTRS = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
 SIGNATURES = {
-    "flash_fwd": {"stpu_flash_fwd": [_P] * 5 + _TAIL},
+    "flash_fwd": {"stpu_flash_fwd": [_P] * 6 + _TAIL,
+                  "stpu_flash_fwd_attrs": _ATTRS},
     "flash_bwd": {"stpu_flash_dq": [_P] * 8 + _TAIL,
                   "stpu_flash_dkv": [_P] * 8 + _TAIL},
     "flash_tri": {"stpu_flash_fwd_tri": [_P] * 6 + _TRI_TAIL,
+                  "stpu_flash_fwd_tri_attrs": _ATTRS,
                   "stpu_flash_dq_tri": [_P] * 9 + _TRI_TAIL,
                   "stpu_flash_dkv_tri": [_P] * 9 + _TRI_TAIL},
     "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 5 + _TAIL,
@@ -62,7 +66,8 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _build_dir() -> pathlib.Path:
+def build_dir() -> pathlib.Path:
+    """Where this tree's sources and flags are built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
@@ -74,7 +79,7 @@ def _build_dir() -> pathlib.Path:
 def build_all() -> Dict[str, dict]:
     """Compile every source not yet built, in parallel; returns BUILD_INFO.
     A failed nvcc raises with its output."""
-    out = _build_dir()
+    out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     todo = [n for n in SOURCES if not (out / f"lib{n}.so").exists()]
     for n in SOURCES:
@@ -113,7 +118,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of source ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _build_dir() / f"lib{name}.so"
+        path = build_dir() / f"lib{name}.so"
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))

@@ -2,8 +2,11 @@
 
 Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` and of its
 dispatch by family (``_use_resident``, ``_flash_fwd``, ``_flash_bwd``).
-Three families of three CUDA kernels for sm_90a, sharing their tile steps
-(``csrc/flash_common.cuh``):
+Three families of three CUDA kernels for sm_90a. The resident and
+triangular forwards share one Hopper-native body (``csrc/flash_fwd_sm90.cuh``:
+wgmma + TMA, one producer and two consumer warpgroups); the other seven
+kernels share their mma.sync tile steps (``csrc/flash_common.cuh``). Every
+kernel takes any S that is a multiple of 8 (a ragged last tile is masked):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
   ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
@@ -56,10 +59,17 @@ from skypilot_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# The kernels' tile: q, kv rows per block. S must be a multiple of it.
+# The mma.sync kernels' tile: q, kv rows per block (a sequence has
+# ceil(S / TILE) of them, the last one possibly partial).
 TILE = 64
+# q rows per CTA of the Hopper forward (csrc/flash_fwd_sm90.cuh kBM).
+FWD_TILE = 128
 # q rows per inner tile of the dk/dv kernels (csrc/flash_common.cuh kDkvQ).
 DKV_Q_TILE = 32
+# S must be a multiple of this: the JAX package only sends such S to its
+# kernels (its blocks are multiples of 8), and the dk/dv kernels read lse
+# and delta in 16-byte chunks that lie wholly before S or past it.
+SEQ_MULTIPLE = 8
 HEAD_DIMS = (64, 128)
 # JAX's default block, halved until it divides S: decides, as there, when
 # a shape is too irregular for the kernel path (see flash_attention).
@@ -294,25 +304,28 @@ _SCHEDULES: Dict[tuple, torch.Tensor] = {}
 
 
 def tri_schedule(kind: str, n_rows: int, s: int,
-                 device: Optional[torch.device] = None) -> torch.Tensor:
-    """The triangular kernels' work list, (n_rows * S / TILE, 2) int32:
-    one (row, tile) item per block, where a row is b * H + h ("rows": the
-    forward and dq, a tile is a q tile) or b * KVH + kvh ("cols": dk/dv, a
-    tile is a kv tile). Items are sorted by how many tile pairs they
-    compute, from the JAX package's own enumeration (``_tri_maps_row``,
-    ``_tri_maps_col``), longest first across all rows. Built once per shape
-    and device."""
-    key = (kind, n_rows, s, str(device))
+                 device: Optional[torch.device] = None,
+                 tile: int = TILE) -> torch.Tensor:
+    """A causal work list, (n_rows * ceil(S / tile), 2) int32: one (row,
+    tile) item per block, where a row is b * H + h ("rows": a tile is a q
+    tile; the Hopper forwards at ``tile=FWD_TILE``, the dq kernels at
+    TILE) or b * KVH + kvh ("cols": dk/dv, a tile is a 64-row kv tile,
+    counted in 32-row q tiles). Items are sorted by how many tile pairs
+    they compute, from the JAX package's own enumeration
+    (``_tri_maps_row``, ``_tri_maps_col``) at these tile counts, longest
+    first across all rows. Built once per shape and device."""
+    key = (kind, n_rows, s, str(device), tile)
     work = _SCHEDULES.get(key)
     if work is not None:
         return work
-    nt = s // TILE
+    nt = -(-s // tile)
     if kind == "rows":
-        tiles, _ = _tri_maps_row(nt, nt, TILE, TILE)
-    elif kind == "cols":
-        tiles, _, _ = _tri_maps_col(s // DKV_Q_TILE, nt, DKV_Q_TILE, TILE, 1)
+        tiles, _ = _tri_maps_row(nt, nt, tile, tile)
+    elif kind == "cols" and tile == TILE:
+        tiles, _, _ = _tri_maps_col(-(-s // DKV_Q_TILE), nt, DKV_Q_TILE, TILE,
+                                    1)
     else:
-        raise ValueError(f"unknown schedule kind {kind!r}")
+        raise ValueError(f"unknown schedule {kind!r} at tile {tile}")
     pairs = collections.Counter(tiles)
     items = sorted(((r, t) for t in range(nt) for r in range(n_rows)),
                    key=lambda it: -pairs[it[1]])
@@ -330,25 +343,38 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _check_inputs(q, k, v, *rest):
-    """Raise on what the kernels do not take: they read bf16 (B,S,H,D)
-    rows through strides, 16-byte aligned, at S a multiple of TILE and
-    head_dim 64 or 128."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    b, s, h, d = q.shape
-    kvh = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d) or h % kvh:
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)} (need H % KVH == 0)")
+def kernel_shape_error(q_shape, k_shape) -> Optional[str]:
+    """Why the kernels cannot take q of shape (B,S,H,D) with k and v of
+    shape (B,S,KVH,D), or None when they can: H % KVH == 0, head_dim in
+    HEAD_DIMS, S a positive multiple of SEQ_MULTIPLE, B*H within the
+    grid's y limit."""
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return f"bad shapes q {tuple(q_shape)} k {tuple(k_shape)}"
+    b, s, h, d = q_shape
+    kvh = k_shape[2]
+    if (k_shape[0], k_shape[1], k_shape[3]) != (b, s, d) or h % kvh:
+        return (f"k/v {tuple(k_shape)} do not match q {tuple(q_shape)} "
+                "(need H % KVH == 0)")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim {HEAD_DIMS}, got {d}")
-    if s % TILE:
-        raise ValueError(f"flash kernels take S a multiple of {TILE}, "
-                         f"got {s}")
+        return (f"flash kernels take head_dim {HEAD_DIMS}; no kernel for "
+                f"head_dim {d}")
+    if s <= 0 or s % SEQ_MULTIPLE:
+        return f"flash kernels take S a multiple of {SEQ_MULTIPLE}, got {s}"
     if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the grid's y limit")
+        return f"B*H = {b * h} exceeds the grid's y limit"
+    return None
+
+
+def _check_inputs(q, k, v, *rest):
+    """Raise on what the kernels do not take: the shapes
+    ``kernel_shape_error`` refuses, and anything but bf16 (B,S,H,D) rows
+    16-byte aligned with a unit last stride, on one CUDA device."""
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    err = kernel_shape_error(tuple(q.shape), tuple(k.shape))
+    if err:
+        raise ValueError(err)
+    b, s, h, _ = q.shape
     for t in rest:  # o and dO as q; lse and delta (B, H, S)
         want = q.shape if t.dim() == 4 else (b, h, s)
         if t.shape != want:
@@ -373,6 +399,7 @@ def _check_inputs(q, k, v, *rest):
 
 
 def _raise_on(err: int, name: str) -> None:
+    # Codes from 10000 up are cuTensorMapEncodeTiled's CUresult + 10000.
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -382,19 +409,23 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 # The resident and streamed families share their C signatures: (pointers,
-# strides, B, S, H, KVH, D, scale, causal, stream).
+# strides, B, S, H, KVH, D, scale, causal, stream); the resident forward
+# also takes the Hopper forward's work list as its last pointer.
 
-def _fwd_call(name: str, source: str, q, k, v, causal, scale):
+def _fwd_call(name: str, source: str, q, k, v, causal, scale,
+              scheduled: bool = False):
     _check_inputs(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    ptrs = [q, k, v, o, lse]
+    if scheduled:
+        ptrs.append(tri_schedule("rows", b * h, s, q.device, tile=FWD_TILE))
     lib = _build.library(source)
     with torch.cuda.device(q.device):
         err = getattr(lib, f"stpu_{name}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), _strides(q, k, v), b, s, h, k.shape[2], d,
-            float(scale), int(causal), _stream(q))
+            *(t.data_ptr() for t in ptrs), _strides(q, k, v), b, s, h,
+            k.shape[2], d, float(scale), int(causal), _stream(q))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return o, lse
@@ -439,8 +470,10 @@ def _dkv_call(name: str, source: str, q, k, v, do, lse, delta, causal,
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel forward: (o (B,S,H,D) bf16, lse (B,H,S) fp32)."""
-    return _fwd_call("flash_fwd", "flash_fwd", q, k, v, causal, scale)
+    """Kernel forward (the Hopper forward over 128-row q tiles,
+    longest first): (o (B,S,H,D) bf16, lse (B,H,S) fp32)."""
+    return _fwd_call("flash_fwd", "flash_fwd", q, k, v, causal, scale,
+                     scheduled=True)
 
 
 def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -506,13 +539,14 @@ def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
 
 def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Triangular-family kernel forward, causal: (o (B,S,H,D) bf16,
-    lse (B,H,S) fp32 in base 2)."""
+    """Triangular-family kernel forward (the Hopper forward over 128-row
+    q tiles, longest first), causal: (o (B,S,H,D) bf16, lse (B,H,S) fp32
+    in base 2)."""
     _check_inputs(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    work = tri_schedule("rows", b * h, s, q.device)
+    work = tri_schedule("rows", b * h, s, q.device, tile=FWD_TILE)
     _tri_call("flash_fwd_tri", (q, k, v, o, lse), _strides(q, k, v), work,
               scale)
     return o, lse
@@ -639,8 +673,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention. q: (B,S,H,D); k, v: (B,S,KVH,D).
 
     Irregular shapes go to the reference, exactly where the JAX package
-    sends them (``takes_kernel_path``). Any other shape the kernels do not
-    take raises on CUDA (e.g. head_dim 256)."""
+    sends them (``takes_kernel_path``); every other S reaches the kernels,
+    ragged tails included. Any shape the kernels do not take raises on
+    CUDA (``kernel_shape_error``: e.g. head_dim 256)."""
     if scale is None:
         scale = q.shape[3] ** -0.5
     if not takes_kernel_path(q.shape, k.shape):
