@@ -8,15 +8,19 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds the flash kernels from csrc/ into build/ (one
    process per source, all at once) and reports ptxas's registers and
-   spills per kernel, and the Hopper forwards' launch registers and
-   shared memory; cuobjdump -sass must find HGMMA (wgmma) and UTMALDG
-   (TMA load) instructions in both forwards (flash_fwd, flash_fwd_tri);
+   spills per kernel, and each Hopper kernel's launch registers, shared
+   memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
+   (wgmma) and UTMALDG (TMA load) instructions in every instance of the
+   four Hopper kernels (flash_fwd, flash_fwd_tri, flash_dq_tri,
+   flash_dkv_tri);
 3. kernels: each kernel of the three families against its plain PyTorch
    version on the card in bf16 (the resident family at its training
    shape and four others, two with ragged S; the triangular family at
-   four causal shapes past the resident budget, one ragged; the
-   streamed family at four non-causal shapes past it, one ragged, and
-   one causal); then, at each family's main shape,
+   five causal shapes past the resident budget, two with S not a
+   multiple of 128; the streamed family at four non-causal shapes past
+   it, one ragged, and one causal); the triangular backward pair run
+   twice on the same inputs at its main shape must give bit-identical
+   dq, dk and dv; then, at each family's main shape,
    its time, the plain version's, the library call's
    (scaled_dot_product_attention, a yardstick the port never calls), the
    bound, and, for the triangular and streamed families, the resident
@@ -42,7 +46,7 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    fall, the launch counts must be exactly L/L/L triangular and no
    other per step, and one forward's loss through the kernels must match
    the reference attention's;
-7. a summary of the two Hopper forwards (registers, shared memory, time
+7. a summary of the four Hopper kernels (registers, shared memory, time
    beside bound and SDPA, their step's time) and the streamed forward;
    the kernels line ({"kernels": [...]}, nine records), then the last
    line {"ok": true, "device": {...}}.
@@ -84,11 +88,13 @@ CHECK_SHAPES = (MAIN_SHAPE, (2, 1024, 16, 4, 64, False),
                 (2, 1000, 16, 4, 64, False))
 # The triangular family, causal past the resident budget (S * D >
 # 524,288): the long-context shape (Llama-3-8B attention at seq 8192),
-# head_dim 64, an unequal GQA group (6) just past the budget, and a
-# ragged S.
+# head_dim 64, an unequal GQA group (6) just past the budget, a ragged S
+# and an S that is a multiple of 64 but not of the backward's 128-row
+# tiles (the second consumer of the last tile has no rows).
 TRI_MAIN_SHAPE = (1, 8192, 32, 8, 128, True)
 TRI_CHECK_SHAPES = (TRI_MAIN_SHAPE, (1, 16384, 8, 2, 64, True),
-                    (1, 4608, 12, 2, 128, True), (1, 4136, 12, 2, 128, True))
+                    (1, 4608, 12, 2, 128, True), (1, 4136, 12, 2, 128, True),
+                    (1, 4160, 12, 2, 128, True))
 # The streamed family, non-causal past the budget (the public op's
 # bidirectional use at long context, Llama-3-8B attention width), head_dim
 # 64, an unequal GQA group just past the budget, and the causal mode the
@@ -101,10 +107,12 @@ STR_CHECK_SHAPES = (STR_MAIN_SHAPE, (1, 16384, 8, 2, 64, False),
 STR_LONG_SHAPE = (1, 32768, 32, 8, 128, False)
 # The public op at a ragged S, through autograd (resident family).
 RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
-# The Hopper forwards: library, kernel name in the SASS, attributes entry.
-SM90_FORWARDS = (("flash_fwd", "flash_fwd_kernel", "stpu_flash_fwd_attrs"),
-                 ("flash_tri", "flash_fwd_tri_kernel",
-                  "stpu_flash_fwd_tri_attrs"))
+# The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
+# the SASS.
+SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
+                ("flash_fwd_tri", "flash_tri", "flash_fwd_tri_kernel"),
+                ("flash_dq_tri", "flash_tri", "flash_dq_tri_kernel"),
+                ("flash_dkv_tri", "flash_tri", "flash_dkv_tri_kernel"))
 
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
@@ -183,33 +191,37 @@ def phase_build(build):
             if "warning" in line.lower():
                 print(f"[build] {name}.cu: {line.strip()}", flush=True)
     attrs = {}
-    for source, kernel, attrs_fn in SM90_FORWARDS:
-        fn = getattr(build.library(source), attrs_fn)
+    for name, source, kernel in SM90_KERNELS:
+        fn = getattr(build.library(source), f"stpu_{name}_attrs")
         for d in (64, 128):
-            regs, smem = ctypes.c_int(), ctypes.c_int()
-            check(fn(d, ctypes.byref(regs), ctypes.byref(smem)) == 0,
+            out = (ctypes.c_int * 5)()
+            check(fn(d, out) == 0,
                   f"cudaFuncGetAttributes failed for {kernel}<{d}>")
-            attrs[(kernel, d)] = (regs.value, smem.value)
-            print(f"[build] {kernel}<{d}>: {regs.value} registers per "
-                  f"thread at launch (setmaxnreg: producer 40, consumers "
-                  f"232), {smem.value} bytes dynamic shared memory, 384 "
-                  "threads", flush=True)
+            regs, smem, threads, producer, consumer = out
+            attrs[(kernel, d)] = (regs, smem)
+            print(f"[build] {kernel}<{d}>: {regs} registers per thread at "
+                  f"launch (setmaxnreg: producer {producer}, consumers "
+                  f"{consumer}), {smem} bytes dynamic shared memory, "
+                  f"{threads} threads", flush=True)
     phase_sass(build)
     return attrs
 
 
 def phase_sass(build):
-    """The Hopper forwards must hold wgmma (HGMMA) and TMA loads
-    (UTMALDG) in their SASS."""
+    """Every instance of the Hopper kernels must hold wgmma (HGMMA) and TMA
+    loads (UTMALDG) in its SASS."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for source, kernel, _ in SM90_FORWARDS:
+    sass = {}
+    for _, source, kernel in SM90_KERNELS:
         lib = build.build_dir() / f"lib{source}.so"
-        out = subprocess.run([cuobjdump, "-sass", str(lib)],
-                             capture_output=True, text=True, timeout=300)
-        check(out.returncode == 0, f"cuobjdump failed on {lib}: "
-              f"{out.stderr[-2000:]}")
+        if source not in sass:
+            out = subprocess.run([cuobjdump, "-sass", str(lib)],
+                                 capture_output=True, text=True, timeout=300)
+            check(out.returncode == 0, f"cuobjdump failed on {lib}: "
+                  f"{out.stderr[-2000:]}")
+            sass[source] = out.stdout
         found = 0
-        for part in out.stdout.split("Function : ")[1:]:
+        for part in sass[source].split("Function : ")[1:]:
             name = part.split(None, 1)[0]
             if not re.search(kernel + r"ILi\d+E", name):
                 continue
@@ -334,6 +346,9 @@ def phase_kernels(fa):
                 ("dk", (dk, dk_p), GRAD_REL_TOL),
                 ("dv", (dv, dv_p), GRAD_REL_TOL)))
             del o_p, lse_p, dq_p, dk_p, dv_p
+            if fam == fa.TRIANGULAR and shape == main:
+                _check_deterministic(fns, (q, k, v, do), (o, lse),
+                                     (dq, dk, dv))
             if shape == main:
                 records.update(_measure(fns, shape, (q, k, v, do),
                                         (o, lse, delta), errs))
@@ -358,6 +373,20 @@ def phase_kernels(fa):
             torch.cuda.empty_cache()
     phase_streamed_vs_resident(fa, records)
     return records
+
+
+def _check_deterministic(fns, inputs, saved, grads):
+    """The backward pair again on the same inputs: no atomics, a fixed
+    order of sums, so dq, dk and dv must be bit-identical."""
+    q, k, v, do = inputs
+    o, lse = saved
+    dq, delta = fns.dq(q, k, v, o, lse, do)
+    dk, dv = fns.dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip((dq, dk, dv), grads)]
+    print(f"[kernels] {fns.names[1]}, {fns.names[2]} twice on the same "
+          f"inputs: dq, dk, dv bit-identical {same}", flush=True)
+    check(all(same), "the triangular backward is not deterministic")
 
 
 def phase_ragged_op(fa, attention_ops):
@@ -592,7 +621,7 @@ def phase_slice(fa, llama, trainer, records):
           f"memory {peak_gb:.2f} GB", flush=True)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         records[name]["launches"] = launches[name]
-    records["flash_fwd"]["step_ms"] = steady * 1e3
+        records[name]["step_ms"] = steady * 1e3
 
     # One forward through the kernels against the reference attention,
     # same trained weights, loss in fp32.
@@ -671,7 +700,7 @@ def phase_long_context(fa, llama, trainer, records):
           f"memory {peak_gb:.2f} GB", flush=True)
     for name in ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri"):
         records[name]["launches"] = launches[name]
-    records["flash_fwd_tri"]["step_ms"] = steady * 1e3
+        records[name]["step_ms"] = steady * 1e3
 
     # One forward loss through the kernels against the reference attention
     # (fp32 scores, ~9 GB per layer at this length, freed layer by layer
@@ -726,15 +755,14 @@ def main() -> int:
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
-    for (_, kernel, _), name in zip(SM90_FORWARDS,
-                                    ("flash_fwd", "flash_fwd_tri")):
+    for name, _, kernel in SM90_KERNELS:
         rec = records[name]
         rec["regs"], rec["smem_bytes"] = attrs[(kernel, 128)]
-        print(f"[summary] {name} (Hopper forward, D=128: {rec['regs']} "
-              f"registers at launch, {rec['smem_bytes']} B shared): "
-              f"{rec['ms']:.4f} ms at {tuple(rec['shape'])}, bound "
-              f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms; "
-              f"its step {rec['step_ms']:.1f} ms", flush=True)
+        print(f"[summary] {name} (Hopper, D=128: {rec['regs']} registers "
+              f"at launch, {rec['smem_bytes']} B shared): {rec['ms']:.4f} "
+              f"ms at {tuple(rec['shape'])}, bound {rec['bound_ms']:.4f} "
+              f"ms, SDPA {rec['library_ms']:.4f} ms ({rec['library_covers']}"
+              f"); its step {rec['step_ms']:.1f} ms", flush=True)
     rec = records["flash_fwd_streamed"]
     print(f"[summary] flash_fwd_streamed (mma.sync + cp.async ring): "
           f"{rec['ms']:.4f} ms at {tuple(rec['shape'])}, bound "

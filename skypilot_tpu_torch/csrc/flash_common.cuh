@@ -1,19 +1,21 @@
-// Shared pieces of the mma.sync flash-attention kernels (flash_bwd.cu,
-// flash_tri.cu, flash_streamed.cu): tile shapes, global->shared tile loads
+// Shared pieces of the flash-attention kernels: for the mma.sync kernels
+// (flash_bwd.cu, flash_streamed.cu) tile shapes, global->shared tile loads
 // (plain, and staged through cp.async), ldmatrix, the bf16 mma.sync
 // m16n8k16 tensor-core product with fp32 accumulation, the three tile steps
 // (forward, dq, dk/dv) as templates over the softmax base, and their
-// epilogues. The resident and triangular forwards are Hopper-native
-// instead (wgmma + TMA, flash_fwd_sm90.cuh); only the streamed forward
-// still runs fwd_step here.
+// epilogues; for every kernel the parameters, softmax bases and mask. The
+// resident and triangular forwards are Hopper-native instead (wgmma + TMA,
+// flash_fwd_sm90.cuh), and so are the triangular dq and dk/dv
+// (flash_bwd_sm90.cuh); only the streamed forward still runs fwd_step
+// here.
 //
 // Three kernel families instantiate them. The resident family
 // (flash_fwd.cu, flash_bwd.cu) and the streamed family (flash_streamed.cu)
 // work in natural exp with a natural-log lse; the triangular family
 // (flash_tri.cu) works in exp2 with a base-2 lse, as the TPU's long-context
-// kernels do, and walks a host-built tile schedule. The resident and
-// triangular backward tiles (dq_tile, dkv_tile below) load each K/V (or
-// q/dO) tile synchronously between two barriers; the streamed family's
+// kernels do, and walks a host-built tile schedule. The resident backward
+// tiles (dq_tile, dkv_tile below) load each K/V (or q/dO) tile
+// synchronously between two barriers; the streamed family's
 // loops keep the next tile's cp.async copy in flight while the current
 // tile's products run. All skip every fully masked tile (the KV loop stops
 // at the causal bound) and mask only the tiles that straddle the diagonal:

@@ -47,13 +47,14 @@ extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
-  STPU_LAUNCH_FWD_SM90(D, flash_fwd_kernel, p, B,
-                       static_cast<const int*>(work),
-                       static_cast<cudaStream_t>(stream));
+  STPU_SM90_BY_D(D, launch_fwd, flash_fwd_kernel, p, B,
+                 static_cast<const int*>(work),
+                 static_cast<cudaStream_t>(stream));
 }
 
-// Registers per thread at launch and dynamic shared memory of the head_dim
-// D instance.
-extern "C" int stpu_flash_fwd_attrs(int D, int* regs, int* smem) {
-  STPU_FWD_SM90_ATTRS(D, stpu::flash_fwd_kernel, regs, smem);
+// The build report of the head_dim D instance (sm90::kernel_attrs): five
+// ints, registers at launch, dynamic shared memory, threads, producer and
+// consumer registers.
+extern "C" int stpu_flash_fwd_attrs(int D, int* out) {
+  STPU_SM90_BY_D(D, fwd_attrs, stpu::flash_fwd_kernel, out);
 }

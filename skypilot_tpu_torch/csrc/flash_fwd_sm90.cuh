@@ -295,6 +295,46 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
     wgmma_m64n128_rs(o, a, desc_v);
 }
 
+// Element offset of 16-byte chunk ch (8 bf16) of row R in a kBM-row tile
+// stored as TMA's 128-byte swizzle left it (D / 64 boxes of kBM x 128
+// bytes): box ch / 8, chunk ch % 8 at (ch % 8) ^ (R % 8).
+__device__ __forceinline__ int swz(int R, int ch) {
+  return (ch / 8) * kBM * kBoxCols + R * kBoxCols + ((ch % 8) ^ (R % 8)) * 8;
+}
+
+// A consumer warpgroup's epilogue: its accumulator fragment (rows R0, R0 +
+// 8 of the CTA's kBM; row r times mul[r]) into its own 64 rows of the
+// swizzled tile (conflict-free both ways), then, after the warpgroup's
+// barrier, out to global memory at g (the CTA's row 0, row stride ss) in
+// 16-byte stores predicated on row < S. Only this warpgroup's products
+// may read those rows of the tile.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           const float (&mul)[2],
+                                           bf16* tile, bf16* g,
+                                           long long ss, int row_start,
+                                           int S) {
+  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int t = tid % 4, R0 = cw * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int R = R0 + 8 * hf;
+      *reinterpret_cast<uint32_t*>(tile + swz(R, i) + 2 * t) = pack_bf16(
+          acc[4 * i + 2 * hf] * mul[hf], acc[4 * i + 2 * hf + 1] * mul[hf]);
+    }
+  }
+  warpgroup_sync(1 + cw);
+  constexpr int kChunks = D / 8;
+  for (int c = tid; c < 64 * kChunks; c += 128) {
+    const int R = cw * 64 + c / kChunks, ch = c % kChunks;
+    if (row_start + R < S)
+      *reinterpret_cast<uint4*>(g + (row_start + R) * ss + ch * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz(R, ch));
+  }
+}
+
 // ------------------------------------------------------------ the forward
 
 // The producer's one thread: Q, then the K/V ring.
@@ -454,35 +494,11 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
     l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
     inv[r] = 1.f / l[r];
   }
-  // o / l into this consumer's own rows of the Q tile (row R of the CTA's
-  // 128, 16-byte chunk c of a box at chunk c ^ (R % 8), as TMA swizzled
-  // them: conflict-free both ways), then out 16 bytes a thread.
-  bf16* sQ = reinterpret_cast<bf16*>(base);
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int R = cw * 64 + warp * 16 + g + 8 * hf;
-      bf16* dst = sQ + (i / 8) * kBM * kBoxCols + R * kBoxCols +
-                  ((i % 8) ^ (R % 8)) * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dst) =
-          pack_bf16(o[4 * i + 2 * hf] * inv[hf],
-                    o[4 * i + 2 * hf + 1] * inv[hf]);
-    }
-  }
-  warpgroup_sync(1 + cw);
-  bf16* og = p.o + ((long long)b * p.S * p.H + h) * D;
-  const long long o_ss = (long long)p.H * D;
-  constexpr int kChunks = D / 8;
-  for (int c = tid; c < 64 * kChunks; c += 128) {
-    const int R = cw * 64 + c / kChunks, ch = c % kChunks;
-    const int row = q_start + R;
-    if (row < p.S)
-      *reinterpret_cast<uint4*>(og + row * o_ss + ch * 8) =
-          *reinterpret_cast<const uint4*>(sQ + (ch / 8) * kBM * kBoxCols +
-                                          R * kBoxCols +
-                                          ((ch % 8) ^ (R % 8)) * 8);
-  }
+  // o / l through this consumer's own rows of the Q tile (its last
+  // product has read them).
+  store_rows<D>(o, inv, reinterpret_cast<bf16*>(base),
+                p.o + ((long long)b * p.S * p.H + h) * D, (long long)p.H * D,
+                q_start, p.S);
   if (t == 0) {
     float* lg = p.lse + ((long long)b * p.H + h) * p.S;
 #pragma unroll
@@ -603,38 +619,40 @@ inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
   return (int)cudaGetLastError();
 }
 
-// Registers per thread at launch and dynamic shared memory of one
-// instance, for the build report.
-template <int D, class Kernel>
-inline int fwd_attrs(Kernel kernel, int* regs, int* smem) {
+// The build report of one kernel instance: out = {registers per thread at
+// launch, dynamic shared memory bytes, threads, producer and consumer
+// registers after setmaxnreg}.
+template <class Kernel>
+inline int kernel_attrs(Kernel kernel, int smem, int threads, int producer,
+                        int consumer, int* out) {
   cudaFuncAttributes a;
   const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  *regs = a.numRegs;
-  *smem = FwdSmem<D>::kBytes;
+  out[0] = a.numRegs;
+  out[1] = smem;
+  out[2] = threads;
+  out[3] = producer;
+  out[4] = consumer;
   return (int)e;
+}
+
+template <int D, class Kernel>
+inline int fwd_attrs(Kernel kernel, int* out) {
+  return kernel_attrs(kernel, FwdSmem<D>::kBytes, kFwdThreads, kProducerRegs,
+                      kConsumerRegs, out);
 }
 
 }  // namespace sm90
 }  // namespace stpu
 
-// Launches KERNEL<64> or KERNEL<128>, one family's instances of the
-// Hopper forward, for the runtime head_dim; returns from the calling C
-// entry with the error code.
-#define STPU_LAUNCH_FWD_SM90(HEAD_DIM, KERNEL, P, B, WORK, STREAM)          \
-  do {                                                                      \
-    if ((HEAD_DIM) == 64)                                                   \
-      return stpu::sm90::launch_fwd<64>(KERNEL<64>, P, B, WORK, STREAM);    \
-    if ((HEAD_DIM) == 128)                                                  \
-      return stpu::sm90::launch_fwd<128>(KERNEL<128>, P, B, WORK, STREAM);  \
-    return (int)cudaErrorInvalidValue;                                      \
-  } while (0)
-
-// The same for fwd_attrs.
-#define STPU_FWD_SM90_ATTRS(HEAD_DIM, KERNEL, REGS, SMEM)                    \
-  do {                                                                      \
-    if ((HEAD_DIM) == 64)                                                   \
-      return stpu::sm90::fwd_attrs<64>(KERNEL<64>, REGS, SMEM);             \
-    if ((HEAD_DIM) == 128)                                                  \
-      return stpu::sm90::fwd_attrs<128>(KERNEL<128>, REGS, SMEM);           \
-    return (int)cudaErrorInvalidValue;                                      \
+// Returns from the calling C entry with FN<64>(KERNEL<64>, ...) or
+// FN<128>(KERNEL<128>, ...) for the runtime head_dim: the instances of one
+// Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or reported
+// (fwd_attrs, dq_attrs, dkv_attrs).
+#define STPU_SM90_BY_D(HEAD_DIM, FN, KERNEL, ...)                         \
+  do {                                                                    \
+    if ((HEAD_DIM) == 64)                                                 \
+      return stpu::sm90::FN<64>(KERNEL<64>, __VA_ARGS__);                 \
+    if ((HEAD_DIM) == 128)                                                \
+      return stpu::sm90::FN<128>(KERNEL<128>, __VA_ARGS__);               \
+    return (int)cudaErrorInvalidValue;                                    \
   } while (0)

@@ -16,12 +16,13 @@
 //
 // What bounds them: at S 8192, D 128 each kernel does ~S*D/2 flops per
 // byte it must move, far past the card's ~295 flop/byte ridge, so the
-// tensor cores. The forward is the Hopper-native body of
-// flash_fwd_sm90.cuh (wgmma + TMA, warp specialised), writing its base-2
-// lse as it is. dq and dk/dv run the resident family's tile bodies
-// (flash_common.cuh: mma.sync m16n8k16 from ldmatrix fragments, P and dS
-// fed from registers, the GQA group of dk/dv summed in registers without
-// atomics), instanced in base 2.
+// tensor cores. All three are Hopper-native (wgmma + TMA, warp
+// specialised): the forward is the body of flash_fwd_sm90.cuh, writing
+// its base-2 lse as it is; dq and dk/dv are the bodies of
+// flash_bwd_sm90.cuh (one CTA per 128-row tile of the resident operand, a
+// TMA ring of 64-row tiles of the streamed one, P and dS fed to the next
+// product from registers, the GQA group of dk/dv summed in registers
+// without atomics), instanced in base 2.
 //
 // Schedule: the TPU kernels walk scalar-prefetched maps of the lower-
 // triangle block pairs (_tri_maps_row, _tri_maps_col). Here the host builds
@@ -32,9 +33,9 @@
 // queue over the whole launch and the short causal rows fill the last wave.
 // Inside an item the loop stops at the diagonal, so no fully masked tile is
 // loaded, and only the straddling tile runs the masked step. The forward's
-// list counts 128-row q tiles, dq's 64-row q tiles, dk/dv's 64-row kv
-// tiles.
-#include "flash_fwd_sm90.cuh"
+// and dq's lists count 128-row q tiles (dq's pairs against 64-row KV
+// tiles), dk/dv's 128-row kv tiles (pairs against 64-row q tiles).
+#include "flash_bwd_sm90.cuh"
 
 namespace stpu {
 namespace {
@@ -50,19 +51,27 @@ flash_fwd_tri_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_tri_kernel(const BwdParams p, const int* __restrict__ work) {
+__global__ void __launch_bounds__(sm90::kFwdThreads, 1)
+flash_dq_tri_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
-  dq_tile<D, Base2>(p, bh / p.H, bh % p.H, qt, smem);
+  sm90::dq_cta<D, Base2>(tq, tdo, tk, tv, p, work, smem);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_tri_kernel(const BwdParams p, const int* __restrict__ work) {
+__global__ void __launch_bounds__(sm90::kFwdThreads, 1)
+flash_dkv_tri_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tlse,
+                     const __grid_constant__ CUtensorMap tdlt,
+                     const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bkv = work[2 * blockIdx.x], kt = work[2 * blockIdx.x + 1];
-  dkv_tile<D, Base2>(p, bkv / p.KVH, bkv % p.KVH, kt, smem);
+  sm90::dkv_cta<D, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
 }
 
 }  // namespace
@@ -80,20 +89,14 @@ extern "C" int stpu_flash_fwd_tri(const void* q, const void* k,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p = fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale,
                                  /*causal=*/1);
-  STPU_LAUNCH_FWD_SM90(D, flash_fwd_tri_kernel, p, B,
-                       static_cast<const int*>(work),
-                       static_cast<cudaStream_t>(stream));
+  STPU_SM90_BY_D(D, launch_fwd, flash_fwd_tri_kernel, p, B,
+                 static_cast<const int*>(work),
+                 static_cast<cudaStream_t>(stream));
 }
 
-// Registers per thread at launch and dynamic shared memory of the head_dim
-// D instance of the forward.
-extern "C" int stpu_flash_fwd_tri_attrs(int D, int* regs, int* smem) {
-  STPU_FWD_SM90_ATTRS(D, stpu::flash_fwd_tri_kernel, regs, smem);
-}
-
-// work: B*H*ceil(S/64) (b*h, q tile) int32 pairs. strides: q, k, v, o, dO.
-// dq (B, S, H, D) bf16 and delta (B, H, S) fp32 are written contiguous;
-// lse is base 2.
+// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs. strides: q, k,
+// v, o, dO. dq (B, S, H, D) bf16 and delta (B, H, S) fp32 are written
+// contiguous; lse is base 2.
 extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* dq, void* delta,
@@ -104,15 +107,13 @@ extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, 1);
-  const int* w = static_cast<const int*>(work);
-  const dim3 grid(B * H * ceil_div(S, kTile));
-  STPU_LAUNCH_BY_D(D, flash_dq_tri_kernel, dq_smem_bytes, grid,
-                   static_cast<cudaStream_t>(stream), p, w);
+  STPU_SM90_BY_D(D, launch_dq, flash_dq_tri_kernel, p, B,
+                 static_cast<const int*>(work),
+                 static_cast<cudaStream_t>(stream));
 }
 
-// work: B*KVH*ceil(S/64) (b*KVH, kv tile) int32 pairs. strides: q, k, v,
-// dO.
-// dk and dv are written contiguous (B, S, KVH, D) bf16.
+// work: B*KVH*ceil(S/128) (b*KVH, 128-row kv tile) int32 pairs. strides:
+// q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D) bf16.
 extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -124,8 +125,22 @@ extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, 1);
-  const int* w = static_cast<const int*>(work);
-  const dim3 grid(B * KVH * ceil_div(S, kTile));
-  STPU_LAUNCH_BY_D(D, flash_dkv_tri_kernel, dkv_smem_bytes, grid,
-                   static_cast<cudaStream_t>(stream), p, w);
+  STPU_SM90_BY_D(D, launch_dkv, flash_dkv_tri_kernel, p, B,
+                 static_cast<const int*>(work),
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The build reports of the head_dim D instances (sm90::kernel_attrs): five
+// ints each, registers at launch, dynamic shared memory, threads, producer
+// and consumer registers.
+extern "C" int stpu_flash_fwd_tri_attrs(int D, int* out) {
+  STPU_SM90_BY_D(D, fwd_attrs, stpu::flash_fwd_tri_kernel, out);
+}
+
+extern "C" int stpu_flash_dq_tri_attrs(int D, int* out) {
+  STPU_SM90_BY_D(D, dq_attrs, stpu::flash_dq_tri_kernel, out);
+}
+
+extern "C" int stpu_flash_dkv_tri_attrs(int D, int* out) {
+  STPU_SM90_BY_D(D, dkv_attrs, stpu::flash_dkv_tri_kernel, out);
 }

@@ -33,11 +33,12 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, scale, causal, stream);
 # the triangular family is causal only; it and the resident forward take
-# their tile schedule as the last pointer. The *_attrs entries report the
-# Hopper forward's registers and dynamic shared memory for a head_dim.
+# their tile schedule as the last pointer. The *_attrs entries fill five
+# ints for a Hopper kernel at a head_dim: registers at launch, dynamic
+# shared memory, threads, producer and consumer registers (setmaxnreg).
 _TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-_ATTRS = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+_ATTRS = [_I, ctypes.POINTER(_I)]
 SIGNATURES = {
     "flash_fwd": {"stpu_flash_fwd": [_P] * 6 + _TAIL,
                   "stpu_flash_fwd_attrs": _ATTRS},
@@ -46,7 +47,9 @@ SIGNATURES = {
     "flash_tri": {"stpu_flash_fwd_tri": [_P] * 6 + _TRI_TAIL,
                   "stpu_flash_fwd_tri_attrs": _ATTRS,
                   "stpu_flash_dq_tri": [_P] * 9 + _TRI_TAIL,
-                  "stpu_flash_dkv_tri": [_P] * 9 + _TRI_TAIL},
+                  "stpu_flash_dq_tri_attrs": _ATTRS,
+                  "stpu_flash_dkv_tri": [_P] * 9 + _TRI_TAIL,
+                  "stpu_flash_dkv_tri_attrs": _ATTRS},
     "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 5 + _TAIL,
                        "stpu_flash_dq_streamed": [_P] * 8 + _TAIL,
                        "stpu_flash_dkv_streamed": [_P] * 8 + _TAIL},

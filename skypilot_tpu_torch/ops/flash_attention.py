@@ -2,11 +2,13 @@
 
 Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` and of its
 dispatch by family (``_use_resident``, ``_flash_fwd``, ``_flash_bwd``).
-Three families of three CUDA kernels for sm_90a. The resident and
-triangular forwards share one Hopper-native body (``csrc/flash_fwd_sm90.cuh``:
-wgmma + TMA, one producer and two consumer warpgroups); the other seven
-kernels share their mma.sync tile steps (``csrc/flash_common.cuh``). Every
-kernel takes any S that is a multiple of 8 (a ragged last tile is masked):
+Three families of three CUDA kernels for sm_90a. Four are Hopper-native
+(wgmma + TMA, one producer and two consumer warpgroups): the resident and
+triangular forwards share one body (``csrc/flash_fwd_sm90.cuh``), the
+triangular dq and dk/dv the backward's (``csrc/flash_bwd_sm90.cuh``); the
+other five kernels share their mma.sync tile steps
+(``csrc/flash_common.cuh``). Every kernel takes any S that is a multiple of
+8 (a ragged last tile is masked):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
   ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
@@ -64,7 +66,13 @@ LOG2E = 1.4426950408889634
 TILE = 64
 # q rows per CTA of the Hopper forward (csrc/flash_fwd_sm90.cuh kBM).
 FWD_TILE = 128
-# q rows per inner tile of the dk/dv kernels (csrc/flash_common.cuh kDkvQ).
+# The Hopper backward (csrc/flash_bwd_sm90.cuh): rows of the resident tile
+# a CTA owns (dq: q rows, dk/dv: kv rows; kBwdRows) and of the tiles its
+# ring streams against it (dq: K/V, dk/dv: q/dO; kBwdTile).
+BWD_TILE = 128
+BWD_INNER = 64
+# q rows per inner tile of the mma.sync dk/dv kernels (csrc/flash_common.cuh
+# kDkvQ).
 DKV_Q_TILE = 32
 # S must be a multiple of this: the JAX package only sends such S to its
 # kernels (its blocks are multiples of 8), and the dk/dv kernels read lse
@@ -304,28 +312,29 @@ _SCHEDULES: Dict[tuple, torch.Tensor] = {}
 
 
 def tri_schedule(kind: str, n_rows: int, s: int,
-                 device: Optional[torch.device] = None,
-                 tile: int = TILE) -> torch.Tensor:
+                 device: Optional[torch.device] = None, *, tile: int,
+                 inner: int) -> torch.Tensor:
     """A causal work list, (n_rows * ceil(S / tile), 2) int32: one (row,
-    tile) item per block, where a row is b * H + h ("rows": a tile is a q
-    tile; the Hopper forwards at ``tile=FWD_TILE``, the dq kernels at
-    TILE) or b * KVH + kvh ("cols": dk/dv, a tile is a 64-row kv tile,
-    counted in 32-row q tiles). Items are sorted by how many tile pairs
-    they compute, from the JAX package's own enumeration
-    (``_tri_maps_row``, ``_tri_maps_col``) at these tile counts, longest
-    first across all rows. Built once per shape and device."""
-    key = (kind, n_rows, s, str(device), tile)
+    tile) item per block. "rows": a row is b * H + h and a tile is a q
+    tile walked against ``inner``-row KV tiles (the Hopper forwards at
+    FWD_TILE against FWD_TILE, the Hopper dq at BWD_TILE against
+    BWD_INNER). "cols": a row is b * KVH + kvh and a tile is a kv tile
+    walked against ``inner``-row q tiles (the Hopper dk/dv at BWD_TILE
+    against BWD_INNER). Items are sorted by how many tile pairs they
+    compute, from the JAX package's own enumeration (``_tri_maps_row``,
+    ``_tri_maps_col``) at these tiles, longest first across all rows.
+    Built once per shape and device."""
+    key = (kind, n_rows, s, str(device), tile, inner)
     work = _SCHEDULES.get(key)
     if work is not None:
         return work
-    nt = -(-s // tile)
+    nt, ni = -(-s // tile), -(-s // inner)
     if kind == "rows":
-        tiles, _ = _tri_maps_row(nt, nt, tile, tile)
-    elif kind == "cols" and tile == TILE:
-        tiles, _, _ = _tri_maps_col(-(-s // DKV_Q_TILE), nt, DKV_Q_TILE, TILE,
-                                    1)
+        tiles, _ = _tri_maps_row(nt, ni, tile, inner)
+    elif kind == "cols":
+        tiles, _, _ = _tri_maps_col(ni, nt, inner, tile, 1)
     else:
-        raise ValueError(f"unknown schedule {kind!r} at tile {tile}")
+        raise ValueError(f"unknown schedule {kind!r}")
     pairs = collections.Counter(tiles)
     items = sorted(((r, t) for t in range(nt) for r in range(n_rows)),
                    key=lambda it: -pairs[it[1]])
@@ -420,7 +429,8 @@ def _fwd_call(name: str, source: str, q, k, v, causal, scale,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     ptrs = [q, k, v, o, lse]
     if scheduled:
-        ptrs.append(tri_schedule("rows", b * h, s, q.device, tile=FWD_TILE))
+        ptrs.append(tri_schedule("rows", b * h, s, q.device, tile=FWD_TILE,
+                                 inner=FWD_TILE))
     lib = _build.library(source)
     with torch.cuda.device(q.device):
         err = getattr(lib, f"stpu_{name}")(
@@ -546,7 +556,8 @@ def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    work = tri_schedule("rows", b * h, s, q.device, tile=FWD_TILE)
+    work = tri_schedule("rows", b * h, s, q.device, tile=FWD_TILE,
+                        inner=FWD_TILE)
     _tri_call("flash_fwd_tri", (q, k, v, o, lse), _strides(q, k, v), work,
               scale)
     return o, lse
@@ -555,13 +566,15 @@ def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Triangular-family kernel dq from the base-2 lse: (dq (B,S,H,D) bf16,
-    delta = rowsum(dO*O) (B,H,S) fp32)."""
+    """Triangular-family kernel dq from the base-2 lse (the Hopper dq over
+    128-row q tiles, longest first): (dq (B,S,H,D) bf16, delta =
+    rowsum(dO*O) (B,H,S) fp32)."""
     _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    work = tri_schedule("rows", b * h, s, q.device)
+    work = tri_schedule("rows", b * h, s, q.device, tile=BWD_TILE,
+                        inner=BWD_INNER)
     _tri_call("flash_dq_tri", (q, k, v, o, do, lse, dq, delta),
               _strides(q, k, v, o, do), work, scale)
     return dq, delta
@@ -570,14 +583,16 @@ def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Triangular-family kernel dk/dv: (dk, dv) (B,S,KVH,D) bf16, the GQA
-    group summed."""
+    """Triangular-family kernel dk/dv (the Hopper dk/dv over 128-row kv
+    tiles, longest first): (dk, dv) (B,S,KVH,D) bf16, the GQA group
+    summed."""
     _check_inputs(q, k, v, do, lse, delta)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
-    work = tri_schedule("cols", b * kvh, s, q.device)
+    work = tri_schedule("cols", b * kvh, s, q.device, tile=BWD_TILE,
+                        inner=BWD_INNER)
     _tri_call("flash_dkv_tri", (q, k, v, do, lse, delta, dk, dv),
               _strides(q, k, v, do), work, scale)
     return dk, dv

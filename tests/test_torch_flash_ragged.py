@@ -69,28 +69,38 @@ def test_forward_schedule_covers_128_row_tiles(n_rows, s):
     # The Hopper forwards' list: one item per (row, 128-row q tile), pair
     # counts from the JAX enumeration at that tile.
     tile = fa_torch.FWD_TILE
-    work = fa_torch.tri_schedule("rows", n_rows, s, tile=tile).tolist()
+    work = fa_torch.tri_schedule("rows", n_rows, s, tile=tile,
+                                 inner=tile).tolist()
     nt = _ceil(s, tile)
     qs, _ = fa_jax._tri_maps_row(nt, nt, tile, tile)
     _check_schedule(work, n_rows, nt, qs.tolist())
 
 
-@pytest.mark.parametrize("kind", ["rows", "cols"])
-@pytest.mark.parametrize("s", [RAGGED_S, 1000])
-def test_ragged_schedules_count_partial_tiles(kind, s):
-    # At S not a multiple of 64 the dq and dk/dv lists count the partial
-    # last tile: ceil(S / 64) tiles, costs from the JAX enumerations at
-    # those counts (dk/dv's in 32-row q tiles).
+_T, _BT, _BI = fa_torch.TILE, fa_torch.BWD_TILE, fa_torch.BWD_INNER
+
+
+@pytest.mark.parametrize("s,kind,tile,inner", [
+    pytest.param(s, kind, _T, _T if kind == "rows" else fa_torch.DKV_Q_TILE,
+                 id=f"{s}-{kind}")
+    for s in (RAGGED_S, 1000) for kind in ("rows", "cols")
+] + [pytest.param(s, kind, _BT, _BI, id=f"bwd-{s}-{kind}")
+     for s in (RAGGED_S, 1000, 4136, 4160) for kind in ("rows", "cols")])
+def test_ragged_schedules_count_partial_tiles(s, kind, tile, inner):
+    # At S not a multiple of the tile the dq and dk/dv lists count the
+    # partial last tile: ceil(S / tile) tiles, costs from the JAX
+    # enumerations at those counts; the mma.sync kernels' 64-row tiles
+    # (dk/dv's against 32-row q tiles), and the Hopper backward's 128-row
+    # tiles against 64-row ones.
     n_rows = 3
-    work = fa_torch.tri_schedule(kind, n_rows, s).tolist()
-    nt = _ceil(s, fa_torch.TILE)
-    assert nt == s // fa_torch.TILE + 1
+    work = fa_torch.tri_schedule(kind, n_rows, s, tile=tile,
+                                 inner=inner).tolist()
+    nt = _ceil(s, tile)
+    assert nt == s // tile + 1
     if kind == "rows":
-        tiles, _ = fa_jax._tri_maps_row(nt, nt, fa_torch.TILE, fa_torch.TILE)
+        tiles, _ = fa_jax._tri_maps_row(nt, _ceil(s, inner), tile, inner)
     else:
-        tiles, _, _ = fa_jax._tri_maps_col(_ceil(s, fa_torch.DKV_Q_TILE), nt,
-                                           fa_torch.DKV_Q_TILE,
-                                           fa_torch.TILE, 1)
+        tiles, _, _ = fa_jax._tri_maps_col(_ceil(s, inner), nt, inner, tile,
+                                           1)
     _check_schedule(work, n_rows, nt, tiles.tolist())
 
 

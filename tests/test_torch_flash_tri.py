@@ -12,6 +12,8 @@ lse, 5e-3 for gradients (f32 on both sides; the gap is summation order and
 the JAX side's pre-scaled q).
 """
 import collections
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -139,32 +141,71 @@ def test_family_follows_jax_budget(s, d, causal):
     assert fa_torch.family(s, d, causal) == want
 
 
-@pytest.mark.parametrize("n_rows,s", [(1, 64), (3, 512), (8, 1024)])
-def test_row_schedule_covers_the_triangle(n_rows, s):
+# The long-context lengths the Hopper backward's lists must cover: ragged
+# (200, 4136), a multiple of 64 but not of 128 (4160), and whole.
+BWD_S = (200, 4096, 4136, 4160, 8192)
+_T, _BT, _BI = fa_torch.TILE, fa_torch.BWD_TILE, fa_torch.BWD_INNER
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("n_rows,s,tile,inner", [
+    pytest.param(1, 64, _T, _T, id="1-64"),
+    pytest.param(3, 512, _T, _T, id="3-512"),
+    pytest.param(8, 1024, _T, _T, id="8-1024"),
+] + [pytest.param(2, s, _BT, _BI, id=f"bwd-2-{s}") for s in BWD_S])
+def test_row_schedule_covers_the_triangle(n_rows, s, tile, inner):
     # Forward / dq: every (row, q tile) once, longest first; the pair count
-    # is the JAX enumeration's at the port's 64-row tiles.
-    work = fa_torch.tri_schedule("rows", n_rows, s).tolist()
-    nt = s // fa_torch.TILE
+    # is the JAX enumeration's at the kernel's tiles: 64-row q and kv
+    # tiles, or the Hopper dq's 128-row q tiles against 64-row kv tiles.
+    work = fa_torch.tri_schedule("rows", n_rows, s, tile=tile,
+                                 inner=inner).tolist()
+    nt = _ceil(s, tile)
     assert sorted(map(tuple, work)) == [(r, t) for r in range(n_rows)
                                         for t in range(nt)]
-    qs, _ = fa_jax._tri_maps_row(nt, nt, fa_torch.TILE, fa_torch.TILE)
+    qs, _ = fa_jax._tri_maps_row(nt, _ceil(s, inner), tile, inner)
     pairs = collections.Counter(qs.tolist())
     cost = [pairs[t] for _, t in work]
     assert cost == sorted(cost, reverse=True)
     assert sum(cost) == n_rows * len(qs)
 
 
-@pytest.mark.parametrize("n_rows,s", [(1, 64), (2, 512), (8, 1024)])
-def test_col_schedule_covers_the_triangle(n_rows, s):
+@pytest.mark.parametrize("n_rows,s,tile,inner", [
+    pytest.param(1, 64, _T, fa_torch.DKV_Q_TILE, id="1-64"),
+    pytest.param(2, 512, _T, fa_torch.DKV_Q_TILE, id="2-512"),
+    pytest.param(8, 1024, _T, fa_torch.DKV_Q_TILE, id="8-1024"),
+] + [pytest.param(2, s, _BT, _BI, id=f"bwd-2-{s}") for s in BWD_S])
+def test_col_schedule_covers_the_triangle(n_rows, s, tile, inner):
     # dk/dv: every (row, kv tile) once, heaviest (first) kv tiles first,
-    # counted in the kernel's 32-row q tiles.
-    work = fa_torch.tri_schedule("cols", n_rows, s).tolist()
-    nt = s // fa_torch.TILE
+    # counted in the kernel's q tiles: 64-row kv tiles against 32-row q
+    # tiles, or the Hopper dk/dv's 128-row kv tiles against 64-row q
+    # tiles.
+    work = fa_torch.tri_schedule("cols", n_rows, s, tile=tile,
+                                 inner=inner).tolist()
+    nt = _ceil(s, tile)
     assert sorted(map(tuple, work)) == [(r, t) for r in range(n_rows)
                                         for t in range(nt)]
-    ks, _, _ = fa_jax._tri_maps_col(s // fa_torch.DKV_Q_TILE, nt,
-                                    fa_torch.DKV_Q_TILE, fa_torch.TILE, 1)
+    ks, _, _ = fa_jax._tri_maps_col(_ceil(s, inner), nt, inner, tile, 1)
     pairs = collections.Counter(ks.tolist())
     cost = [pairs[t] for _, t in work]
     assert cost == sorted(cost, reverse=True)
     assert sum(cost) == n_rows * len(ks)
+
+
+_CSRC = pathlib.Path(fa_torch.__file__).resolve().parents[1] / "csrc"
+
+
+@pytest.mark.parametrize("header,name,value", [
+    ("flash_fwd_sm90.cuh", "kBM", fa_torch.FWD_TILE),
+    ("flash_bwd_sm90.cuh", "kBwdRows", fa_torch.BWD_TILE),
+    ("flash_bwd_sm90.cuh", "kBwdTile", fa_torch.BWD_INNER),
+])
+def test_work_list_tiles_match_the_kernels(header, name, value):
+    # The wrappers build each Hopper kernel's work list at its tiles: one
+    # item per CTA, each CTA's loop bound from the same tiles. A constant
+    # changed on one side only would leave tiles unwalked.
+    text = (_CSRC / header).read_text()
+    got = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert got is not None and int(got.group(1)) == value
