@@ -10,25 +10,33 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    process per source, all at once) and reports ptxas's registers and
    spills per kernel, and each Hopper kernel's launch registers, shared
    memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
-   (wgmma) and UTMALDG (TMA load) instructions in every instance of the
-   four Hopper kernels (flash_fwd, flash_fwd_tri, flash_dq_tri,
-   flash_dkv_tri);
+   (wgmma) and UTMALDG (TMA load) instructions in every instance (head_dim
+   64 and 128, bf16 and f16) of the six Hopper kernels (flash_fwd,
+   flash_dq, flash_dkv, flash_fwd_tri, flash_dq_tri, flash_dkv_tri);
 3. kernels: each kernel of the three families against its plain PyTorch
    version on the card in bf16 (the resident family at its training
-   shape and four others, two with ragged S; the triangular family at
-   five causal shapes past the resident budget, two with S not a
-   multiple of 128; the streamed family at four non-causal shapes past
-   it, one ragged, and one causal); the triangular backward pair run
-   twice on the same inputs at its main shape must give bit-identical
-   dq, dk and dv; then, at each family's main shape,
-   its time, the plain version's, the library call's
+   shape and four others, causal and not, two with ragged S; the
+   triangular family at five causal shapes past the resident budget, two
+   with S not a multiple of 128; the streamed family at four non-causal
+   shapes past it, one ragged, and one causal), and in f16 at each
+   family's main shape; the resident and triangular backward pairs run
+   twice on the same inputs at their main shapes must give bit-identical
+   dq, dk and dv; then, at each family's main shape, its time in bf16
+   and f16, the plain version's, the library call's
    (scaled_dot_product_attention, a yardstick the port never calls), the
    bound, and, for the triangular and streamed families, the resident
    kernels' time at the same shape; at seq 32768, where no plain version
    fits, the streamed kernels against the resident kernels, both timed;
-   then the public attention op at a ragged S (200) through autograd,
-   against the plain versions, with exactly one launch of each resident
-   kernel;
+   then the public attention op through autograd, with exactly one
+   launch of each resident kernel: at a ragged S (200) against the plain
+   versions; at head_dim 16 and 96 (zero-padded to the kernels' 64 and
+   128) against the plain versions at that head_dim; and with f32 inputs
+   (2 x 256, 4 heads, 2 KV heads, head_dim 64, causal and not; and
+   1 x 200 at head_dim 128), through
+   the fp32 kernels (one launch each), against the fp32 plain versions at
+   the JAX reference tests' elementwise bounds (and, printed, not held,
+   the same inputs as f16 through the f16 kernels), then the fp32
+   kernels' time at the slice's shape;
 4. streamed: the public attention op, non-causal, at Llama-3-8B
    attention width and seq 8192 (1 x 8192, 32 heads, 8 KV heads,
    head_dim 128), forward and autograd backward of a fixed dO; output
@@ -46,7 +54,10 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    fall, the launch counts must be exactly L/L/L triangular and no
    other per step, and one forward's loss through the kernels must match
    the reference attention's;
-7. a summary of the four Hopper kernels (registers, shared memory, time
+7. tiny: LlamaConfig.tiny() (head_dim 16) takes 8 steps in bf16 and in
+   f32 (batch 4 x seq 256, full remat): the loss must fall and the launch
+   counts must be 2L/L/L, resident in bf16, fp32 kernels in f32;
+8. a summary of the six Hopper kernels (registers, shared memory, time
    beside bound and SDPA, their step's time) and the streamed forward;
    the kernels line ({"kernels": [...]}, nine records), then the last
    line {"ok": true, "device": {...}}.
@@ -70,14 +81,20 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# Kernel vs plain, both on the card from the same bf16 inputs. The kernel
-# rounds P and dS to bf16 before its second product and writes bf16; the
-# plain version stays fp32 until the final cast. Norm-relative error:
+# Kernel vs plain, both on the card from the same bf16 (or f16) inputs.
+# The kernel rounds P and dS to the input type before its second product
+# and writes that type; the plain version stays fp32 until the final cast.
+# Norm-relative error:
 OUT_REL_TOL = 1e-2     # o and lse
 GRAD_REL_TOL = 2e-2    # dq, dk, dv
 # and the largest single error, as a share of the largest |reference|:
 MAX_ABS_SHARE = 3e-2
 LOSS_TOL = 2e-2        # |loss(kernel) - loss(reference)|, same weights
+# The op with f32 inputs (the fp32 kernels) against the fp32 plain
+# versions, elementwise |out - ref| <= tol * (1 + |ref|): the JAX reference
+# tests' own bounds (tests/test_flash_attention.py).
+F32_OUT_TOL = 2e-3
+F32_GRAD_TOL = 5e-3
 
 # (B, S, H, KVH, D, causal): the slice's shape (Llama-3-8B attention at
 # seq 2048), a non-causal head_dim-64 case, an unequal GQA group (6), and
@@ -107,12 +124,24 @@ STR_CHECK_SHAPES = (STR_MAIN_SHAPE, (1, 16384, 8, 2, 64, False),
 STR_LONG_SHAPE = (1, 32768, 32, 8, 128, False)
 # The public op at a ragged S, through autograd (resident family).
 RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
+# The public op with f32 inputs: the JAX reference test's _make_qkv shape,
+# both causal modes, and a ragged S at head_dim 128.
+F32_OP_SHAPES = ((2, 256, 4, 2, 64, True), (2, 256, 4, 2, 64, False),
+                 (1, 200, 8, 2, 128, True))
+# The public op at head_dims the kernels take only zero-padded: the tiny
+# Llama's 16 and a 96.
+PAD_OP_SHAPES = ((2, 256, 8, 4, 16, True), (1, 384, 8, 2, 96, True))
 # The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
 # the SASS.
 SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
+                ("flash_dq", "flash_bwd", "flash_dq_kernel"),
+                ("flash_dkv", "flash_bwd", "flash_dkv_kernel"),
                 ("flash_fwd_tri", "flash_tri", "flash_fwd_tri_kernel"),
                 ("flash_dq_tri", "flash_tri", "flash_dq_tri_kernel"),
                 ("flash_dkv_tri", "flash_tri", "flash_dkv_tri_kernel"))
+# The kernels' element types (_build.DTYPES) by their tag in a kernel's
+# mangled name.
+ELEM_TAGS = {"bf16": "Bf16", "f16": "F16"}
 
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
@@ -121,6 +150,8 @@ TRAIN_STEPS = 8
 # point (Llama-3-8B's published context), depth cut to 4 layers.
 LC_LAYERS, LC_BATCH, LC_SEQ = 4, 1, 8192
 LC_POLICY = "save_flash_offload_qkv"
+# The tiny phase: LlamaConfig.tiny() (dim 128, 8 heads: head_dim 16).
+TINY_BATCH, TINY_SEQ = 4, 256
 
 _FA = "skypilot_tpu/ops/pallas/flash_attention.py"
 TPU_KERNELS = {
@@ -194,22 +225,24 @@ def phase_build(build):
     for name, source, kernel in SM90_KERNELS:
         fn = getattr(build.library(source), f"stpu_{name}_attrs")
         for d in (64, 128):
-            out = (ctypes.c_int * 5)()
-            check(fn(d, out) == 0,
-                  f"cudaFuncGetAttributes failed for {kernel}<{d}>")
-            regs, smem, threads, producer, consumer = out
-            attrs[(kernel, d)] = (regs, smem)
-            print(f"[build] {kernel}<{d}>: {regs} registers per thread at "
-                  f"launch (setmaxnreg: producer {producer}, consumers "
-                  f"{consumer}), {smem} bytes dynamic shared memory, "
-                  f"{threads} threads", flush=True)
+            for elem, code in build.DTYPES.items():
+                tag = ELEM_TAGS[elem]
+                out = (ctypes.c_int * 5)()
+                check(fn(d, code, out) == 0, "cudaFuncGetAttributes failed "
+                      f"for {kernel}<{d}, {tag}>")
+                regs, smem, threads, producer, consumer = out
+                attrs[(kernel, d, tag)] = (regs, smem)
+                print(f"[build] {kernel}<{d}, {tag}>: {regs} registers per "
+                      f"thread at launch (setmaxnreg: producer {producer}, "
+                      f"consumers {consumer}), {smem} bytes dynamic shared "
+                      f"memory, {threads} threads", flush=True)
     phase_sass(build)
     return attrs
 
 
 def phase_sass(build):
-    """Every instance of the Hopper kernels must hold wgmma (HGMMA) and TMA
-    loads (UTMALDG) in its SASS."""
+    """Every instance of the Hopper kernels (head_dim 64 and 128, bf16 and
+    f16) must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
     for _, source, kernel in SM90_KERNELS:
@@ -220,29 +253,31 @@ def phase_sass(build):
             check(out.returncode == 0, f"cuobjdump failed on {lib}: "
                   f"{out.stderr[-2000:]}")
             sass[source] = out.stdout
-        found = 0
+        found = set()
         for part in sass[source].split("Function : ")[1:]:
             name = part.split(None, 1)[0]
-            if not re.search(kernel + r"ILi\d+E", name):
+            m = re.search(kernel + r"ILi(\d+)ENS_\d(Bf16|F16)E", name)
+            if not m:
                 continue
-            found += 1
+            found.add(m.groups())
             hgmma, utmaldg = part.count("HGMMA"), part.count("UTMALDG")
-            print(f"[sass] {name}: {hgmma} HGMMA, {utmaldg} UTMALDG",
-                  flush=True)
+            print(f"[sass] {kernel}<{m.group(1)}, {m.group(2)}>: {hgmma} "
+                  f"HGMMA, {utmaldg} UTMALDG", flush=True)
             check(hgmma > 0 and utmaldg > 0,
                   f"{name} holds no wgmma or no TMA load")
-        check(found == 2, f"{kernel}: {found} instances in {lib}'s SASS, "
-              "expected 2 (head_dim 64 and 128)")
+        want = {(str(d), tag) for d in (64, 128) for tag in ELEM_TAGS.values()}
+        check(found == want, f"{kernel}: instances {sorted(found)} in "
+              f"{lib}'s SASS, expected {sorted(want)}")
 
 
 def _ptxas_summary(log):
     """'kernel<D>: N registers, spills S/L bytes' from nvcc -Xptxas -v."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tri|_streamed)?_kernel)ILi(\d+)E",
-                      line)
+        m = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tri|_streamed)?_kernel)"
+                      r"ILi(\d+)ENS_\d(Bf16|F16)E", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -254,12 +289,12 @@ def _ptxas_summary(log):
     return out
 
 
-def _inputs(shape, seed):
+def _inputs(shape, seed, dtype=torch.bfloat16):
     b, s, h, kvh, d, _ = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*dims):
-        return torch.randn(*dims, device="cuda", generator=g).bfloat16()
+        return torch.randn(*dims, device="cuda", generator=g).to(dtype)
 
     return (rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d),
             rnd(b, s, h, d))
@@ -346,12 +381,13 @@ def phase_kernels(fa):
                 ("dk", (dk, dk_p), GRAD_REL_TOL),
                 ("dv", (dv, dv_p), GRAD_REL_TOL)))
             del o_p, lse_p, dq_p, dk_p, dv_p
-            if fam == fa.TRIANGULAR and shape == main:
+            if fam != fa.STREAMED and shape == main:
                 _check_deterministic(fns, (q, k, v, do), (o, lse),
                                      (dq, dk, dv))
             if shape == main:
                 records.update(_measure(fns, shape, (q, k, v, do),
                                         (o, lse, delta), errs))
+                _check_f16(fns, shape, idx, records)
             if fam != fa.RESIDENT and shape == main:
                 # The resident kernels at the same shape: the same tile
                 # steps, against the triangular family's longest-first
@@ -386,7 +422,56 @@ def _check_deterministic(fns, inputs, saved, grads):
     same = [torch.equal(a, b) for a, b in zip((dq, dk, dv), grads)]
     print(f"[kernels] {fns.names[1]}, {fns.names[2]} twice on the same "
           f"inputs: dq, dk, dv bit-identical {same}", flush=True)
-    check(all(same), "the triangular backward is not deterministic")
+    check(all(same), f"{fns.names[1]}/{fns.names[2]} are not deterministic")
+
+
+def _check_f16(fns, shape, seed, records):
+    """The family's f16 instances at its main shape, on f16 inputs,
+    against the plain versions on the same inputs at the bf16 tolerances
+    (f16 keeps more mantissa bits), and timed."""
+    q, k, v, do = _inputs(shape, seed, torch.float16)
+    o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+    torch.cuda.synchronize()
+    check(all(t.dtype == torch.float16 for t in (o, dq, dk, dv)),
+          "f16 kernels wrote another dtype")
+    o_p, lse_p = fns.fwd_plain(q, k, v)
+    dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+    _hold("[kernels] f16", shape, (
+        ("o", (o, o_p), OUT_REL_TOL), ("lse", (lse, lse_p), OUT_REL_TOL),
+        ("dq", (dq, dq_p), GRAD_REL_TOL), ("dk", (dk, dk_p), GRAD_REL_TOL),
+        ("dv", (dv, dv_p), GRAD_REL_TOL)))
+    del o_p, lse_p, dq_p, dk_p, dv_p
+    times = (time_ms(lambda: fns.fwd(q, k, v), 20),
+             time_ms(lambda: fns.dq(q, k, v, o, lse, do), 20),
+             time_ms(lambda: fns.dkv(q, k, v, do, lse, delta), 20))
+    for name, t in zip(fns.names, times):
+        records[name]["f16_ms"] = t
+        print(f"[kernels] {name} f16: {t:.4f} ms (bf16 "
+              f"{records[name]['ms']:.4f} ms)", flush=True)
+
+
+def _op_grads(attention_ops, q, k, v, causal, do=None):
+    """The public op's output and autograd gradients of (q, k, v): of
+    sum(out * do), or of sum(out ** 2) (the JAX reference tests' loss)
+    when do is None."""
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = attention_ops.attention(*leaves, causal=causal)
+    loss = (out * do).sum() if do is not None else (out.float() ** 2).sum()
+    return out.detach(), torch.autograd.grad(loss, leaves)
+
+
+RESIDENT_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+F32_NAMES = ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")
+
+
+def _expect_launches(fa, label, shape, names, count=1):
+    """The launch counts since the last reset: `count` of each of `names`,
+    none of any other kernel."""
+    launches = dict(fa.LAUNCHES)
+    print(f"{label} {shape}: launches {launches}", flush=True)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(dict.fromkeys(names, count))
+    check(launches == expect, f"launch counts {launches} != {expect}")
 
 
 def phase_ragged_op(fa, attention_ops):
@@ -399,17 +484,11 @@ def phase_ragged_op(fa, attention_ops):
     check(fa.family(s, d, causal) == fa.RESIDENT and s % fa.TILE,
           f"{shape} is not a ragged resident shape")
     q, k, v, do = _inputs(shape, 13)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     fa.reset_launches()
-    out = attention_ops.attention(*leaves, causal=causal)
-    grads = torch.autograd.grad(out, leaves, do)
+    out, grads = _op_grads(attention_ops, q, k, v, causal, do)
     torch.cuda.synchronize()
-    launches = dict(fa.LAUNCHES)
-    print(f"[ragged op] attention(causal={causal}) at {shape}: launches "
-          f"{launches}", flush=True)
-    expect = dict.fromkeys(launches, 0)
-    expect.update({n: 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")})
-    check(launches == expect, f"launch counts {launches} != {expect}")
+    _expect_launches(fa, f"[ragged op] attention(causal={causal})", shape,
+                     RESIDENT_NAMES)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
     dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal,
                                           scale)
@@ -417,6 +496,88 @@ def phase_ragged_op(fa, attention_ops):
                                  ("dq", (grads[0], dq_p), GRAD_REL_TOL),
                                  ("dk", (grads[1], dk_p), GRAD_REL_TOL),
                                  ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
+
+
+def phase_f32_op(fa, attention_ops):
+    """The public op with f32 inputs on the card: the fp32 kernels, one
+    launch each, outputs and gradients in f32, within the JAX reference
+    tests' elementwise bounds of the fp32 plain versions (matmuls in full
+    fp32: TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for idx, shape in enumerate(F32_OP_SHAPES):
+        b, s, h, kvh, d, causal = shape
+        scale = d ** -0.5
+        q, k, v, _ = _inputs(shape, 20 + idx, torch.float32)
+        fa.reset_launches()
+        out, grads = _op_grads(attention_ops, q, k, v, causal)
+        torch.cuda.synchronize()
+        _expect_launches(fa, "[f32 op]", shape, F32_NAMES)
+        check(out.dtype == torch.float32
+              and all(g.dtype == torch.float32 for g in grads),
+              "the op did not return f32 for f32 inputs")
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        ref = (o_p, *fa.flash_bwd_plain(q, k, v, o_p, lse_p, 2 * o_p,
+                                        causal, scale))
+        for name, got, want, tol in zip(
+                ("o", "dq", "dk", "dv"), (out, *grads), ref,
+                (F32_OUT_TOL, F32_GRAD_TOL, F32_GRAD_TOL, F32_GRAD_TOL)):
+            excess = ((got - want).abs() - tol * want.abs()).max().item()
+            print(f"[f32 op] {shape} {name}: max |err| - rtol |ref| "
+                  f"{excess:.3e} (atol {tol})", flush=True)
+            check(excess <= tol, f"f32 {name} outside rtol = atol = {tol} "
+                  f"at {shape}")
+        # Not a gate: the same inputs rounded to f16 through the f16
+        # kernels, against the same fp32 references, show why f32 has
+        # kernels of its own.
+        out16, grads16 = _op_grads(attention_ops, q.half(), k.half(),
+                                   v.half(), causal)
+        excess = [((got.float() - want).abs() - tol * want.abs()).max().item()
+                  for got, want, tol in zip(
+                      (out16, *grads16), ref,
+                      (F32_OUT_TOL, F32_GRAD_TOL, F32_GRAD_TOL, F32_GRAD_TOL))]
+        print(f"[f32 op] {shape} as f16 through the f16 kernels: max |err| - "
+              f"rtol |ref| o {excess[0]:.3e}, dq {excess[1]:.3e}, dk "
+              f"{excess[2]:.3e}, dv {excess[3]:.3e} (bounds {F32_OUT_TOL}, "
+              f"{F32_GRAD_TOL})", flush=True)
+    # The fp32 kernels' time at the slice's attention shape (not a path
+    # the port's bf16 models take: f32 is the exact path, not the fast one).
+    q, k, v, do = _inputs(MAIN_SHAPE, 22, torch.float32)
+    causal, scale = MAIN_SHAPE[-1], MAIN_SHAPE[4] ** -0.5
+    o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
+    _, delta = fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
+    times = (time_ms(lambda: fa.flash_fwd_f32(q, k, v, causal, scale), 3,
+                     warmup=1),
+             time_ms(lambda: fa.flash_dq_f32(q, k, v, o, lse, do, causal,
+                                             scale), 3, warmup=1),
+             time_ms(lambda: fa.flash_dkv_f32(q, k, v, do, lse, delta,
+                                              causal, scale), 3, warmup=1))
+    print(f"[f32 op] fp32 kernels at {MAIN_SHAPE}: forward {times[0]:.3f} "
+          f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms", flush=True)
+
+
+def phase_pad_op(fa, attention_ops):
+    """The public op at head_dims the kernels take zero-padded (16 -> 64,
+    96 -> 128), bf16, through autograd: one launch of each resident kernel,
+    outputs and gradients of the caller's head_dim, against the plain
+    versions at that head_dim."""
+    for idx, shape in enumerate(PAD_OP_SHAPES):
+        b, s, h, kvh, d, causal = shape
+        scale = d ** -0.5
+        check(d not in fa.HEAD_DIMS, f"{shape} needs no padding")
+        q, k, v, do = _inputs(shape, 30 + idx)
+        fa.reset_launches()
+        out, grads = _op_grads(attention_ops, q, k, v, causal, do)
+        torch.cuda.synchronize()
+        _expect_launches(fa, "[pad op]", shape, RESIDENT_NAMES)
+        check(out.shape == q.shape and grads[1].shape == k.shape,
+              "padded head_dim leaked out of the op")
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do,
+                                              causal, scale)
+        _hold("[pad op]", shape, (("o", (out, o_p), OUT_REL_TOL),
+                                  ("dq", (grads[0], dq_p), GRAD_REL_TOL),
+                                  ("dk", (grads[1], dk_p), GRAD_REL_TOL),
+                                  ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
 
 
 def phase_streamed_vs_resident(fa, records):
@@ -724,6 +885,44 @@ def phase_long_context(fa, llama, trainer, records):
     check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
 
 
+def phase_tiny(fa, llama, trainer):
+    """LlamaConfig.tiny() (head_dim 16: the kernels' 64, zero-padded) on the
+    card, in bf16 and in f32: 8 steps each on one repeated batch, full
+    remat; the loss must fall and every step must go through the resident
+    kernels (bf16) or the fp32 kernels (f32), 2L/L/L."""
+    for dtype, names in ((torch.bfloat16, RESIDENT_NAMES),
+                         (torch.float32, F32_NAMES)):
+        cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        params = llama.init(cfg, gen)
+        tokens = torch.randint(0, cfg.vocab_size, (TINY_BATCH, TINY_SEQ),
+                               device="cuda", generator=gen)
+        tx = trainer.make_optimizer(trainer.TrainConfig(
+            warmup_steps=1, total_steps=100, learning_rate=1e-2))
+        state = trainer.init_train_state(params, tx)
+        step = trainer.make_train_step(
+            lambda p, t: llama.forward(cfg, p, t), tx, with_grad_norm=False)
+        fa.reset_launches()
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            state, metrics = step(state, {"tokens": tokens})
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        print(f"[tiny] {dtype}, head_dim {cfg.head_dim}, {cfg.n_layers} "
+              f"layers, batch {TINY_BATCH} x seq {TINY_SEQ}: losses "
+              f"{[round(x, 4) for x in losses]}, launches {launches}",
+              flush=True)
+        check(all(x == x and abs(x) != float("inf") for x in losses),
+              "non-finite loss")
+        check(losses[-1] < losses[0], "loss did not fall")
+        expect = dict.fromkeys(launches, 0)
+        expect.update(zip(names, (2 * cfg.n_layers * TRAIN_STEPS,
+                                  cfg.n_layers * TRAIN_STEPS,
+                                  cfg.n_layers * TRAIN_STEPS)))
+        check(launches == expect, f"launch counts {launches} != {expect}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -746,23 +945,27 @@ def main() -> int:
         attrs = phase_build(_build)
         records = phase_kernels(fa)
         phase_ragged_op(fa, attention_ops)
+        phase_f32_op(fa, attention_ops)
+        phase_pad_op(fa, attention_ops)
         phase_streamed(fa, attention_ops, records)
         torch.cuda.empty_cache()
         phase_slice(fa, llama, trainer, records)
         torch.cuda.empty_cache()
         phase_long_context(fa, llama, trainer, records)
+        phase_tiny(fa, llama, trainer)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
     for name, _, kernel in SM90_KERNELS:
         rec = records[name]
-        rec["regs"], rec["smem_bytes"] = attrs[(kernel, 128)]
+        rec["regs"], rec["smem_bytes"] = attrs[(kernel, 128, "Bf16")]
         print(f"[summary] {name} (Hopper, D=128: {rec['regs']} registers "
               f"at launch, {rec['smem_bytes']} B shared): {rec['ms']:.4f} "
               f"ms at {tuple(rec['shape'])}, bound {rec['bound_ms']:.4f} "
               f"ms, SDPA {rec['library_ms']:.4f} ms ({rec['library_covers']}"
-              f"); its step {rec['step_ms']:.1f} ms", flush=True)
+              f"), f16 {rec['f16_ms']:.4f} ms; its step {rec['step_ms']:.1f} "
+              "ms", flush=True)
     rec = records["flash_fwd_streamed"]
     print(f"[summary] flash_fwd_streamed (mma.sync + cp.async ring): "
           f"{rec['ms']:.4f} ms at {tuple(rec['shape'])}, bound "

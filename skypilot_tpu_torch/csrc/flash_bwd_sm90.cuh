@@ -10,19 +10,24 @@
 //   GQA group of query heads h / (H / KVH) == kvh in registers: no
 //   atomics, deterministic.
 //
-// Both are templates over D (64, 128) and the softmax base (Base2: exp2
-// with a base-2 lse, sm = scale * log2(e) folded into the one FFMA each
-// score takes; BaseE: natural exp and lse); the mask is the runtime
-// TileMask (causal, and key columns at or past S). flash_tri.cu
-// instantiates them in base 2, causal, as flash_dq_tri_kernel and
-// flash_dkv_tri_kernel.
+// Both are templates over D (64, 128), the element type T (bf16, f16:
+// the inputs', P's and dS's before their products, and the outputs') and
+// the softmax base (Base2: exp2 with a base-2 lse, sm = scale * log2(e)
+// folded into the one FFMA each score takes; BaseE: natural exp and lse);
+// the mask is the runtime TileMask (causal, and key columns at or past S).
+// flash_tri.cu instantiates them in base 2, causal, as flash_dq_tri_kernel
+// and flash_dkv_tri_kernel; flash_bwd.cu in natural exp, with the runtime
+// causal flag, as flash_dq_kernel and flash_dkv_kernel (the resident
+// family).
 //
 // What bounds them: the tensor cores (at S 8192, D 128 ~S*D/2 flops per
 // byte they must move, far past the ~295 flop/byte ridge). Design:
 //
 // - One CTA per 128-row tile of the resident operand (dq: q rows of one
 //   (b, h); dk/dv: kv rows of one (b, kv head)), walking a host-built
-//   longest-first work list (ops/flash_attention.py: tri_schedule). 384
+//   longest-first work list (ops/flash_attention.py: tri_schedule; a
+//   non-causal launch walks the same list, whose items then cost the
+//   same). 384
 //   threads: a producer warpgroup (setmaxnreg 40; one thread issues every
 //   TMA load) and two consumer warpgroups (setmaxnreg 232) of 64 resident
 //   rows each, as in the forward.
@@ -34,8 +39,9 @@
 //   register A operand and K read MN-major (tnspB = 1): the forward's
 //   P V with K in V's place.
 // - dk/dv: the producer loads K and V (128 rows) once, then, for each
-//   query head of the group and each 64-row q tile from the causal start,
-//   Q, dO and the tile's lse and delta into the ring. Per tile each
+//   query head of the group and each 64-row q tile from the causal start
+//   (0 when not causal), Q, dO and the tile's lse and delta into the
+//   ring. Per tile each
 //   consumer runs S^T = K Q^T and dP^T = V dO^T (m64n64, shared memory,
 //   K-major), P^T and dS^T on the fragments (their C layout is the A
 //   fragment of the next products), then dv += P^T dO and dk += dS^T Q
@@ -62,9 +68,13 @@
 //   are finite: dq reads lse with a row < S predicate (else 0) and
 //   computes delta 0 there; dk/dv loads them through a tensor map over
 //   (S, B * H) that zero-fills. With q = dO = 0 such a column gives P = 1,
-//   dP = 0, dS = 0: it adds exactly 0 to dk and dv. lse and delta are
-//   (B, H, S) fp32, so a bulk copy of a ragged last tile would read the
-//   next head's values: the map's S dimension stops it.
+//   dP = 0, dS = 0: it adds exactly 0 to dk and dv, in either causal mode.
+//   lse and delta are (B, H, S) fp32, so a bulk copy of a ragged last tile
+//   would read the next head's values: the map's S dimension stops it.
+//   Key columns past S: dq's non-causal loop masks its ragged last KV tile
+//   (masked_tile), a causal one its diagonal (zero K rows would add 0 to dq
+//   anyway; the mask keeps exp(-lse) out of dS). Both epilogues store only
+//   rows < S.
 // - A full barrier's transaction count is the whole boxes', rows past S
 //   included.
 // - Shared memory at D = 128: dq 2 x 32 KB (Q, dO) + kBwdRing x 32 KB
@@ -142,62 +152,70 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 }
 
 // d (m64n64, fp32) = A B, or d += A B when scale_d is nonzero; A and B
-// are read from shared memory through descriptors, both K-major.
+// (T) are read from shared memory through descriptors, both K-major.
+template <class T>
 __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32],
                                                uint64_t desc_a,
                                                uint64_t desc_b,
                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
 }
 
 // d (64 x 64 fp32) = A B^T over D: A, 64 rows at desc_a, and B, 64 rows at
 // desc_b, both K-major tiles of D / 64 boxes, a_box and b_box bytes apart.
-template <int D>
+template <int D, class T>
 __device__ __forceinline__ void mma_nt(float (&d)[32], uint64_t desc_a,
                                        int a_box, uint64_t desc_b,
                                        int b_box) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t in_box = (kk % 4) * 32;  // bytes into the 64-col box
-    wgmma_m64n64_ss(d, desc_a + (((kk / 4) * a_box + in_box) >> 4),
+    wgmma_m64n64_ss<T>(d, desc_a + (((kk / 4) * a_box + in_box) >> 4),
                     desc_b + (((kk / 4) * b_box + in_box) >> 4), kk);
   }
 }
 
-// d (64 x D fp32) += A B: A, 64 x kBwdTile bf16 from registers (a[kk] for
+// d (64 x D fp32) += A B: A, 64 x kBwdTile of T from registers (a[kk] for
 // k step kk); B, a kBwdTile x D tile read MN-major at desc_b (LBO = the
 // box stride, kBwdTile * 128 bytes).
-template <int D>
+template <int D, class T>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2],
                                        const uint32_t (&a)[kBwdTile / 16][4],
                                        uint64_t desc_b) {
 #pragma unroll
   for (int kk = 0; kk < kBwdTile / 16; ++kk)
-    wgmma_pv<D>(d, a[kk], desc_b + ((kk * 16 * 128) >> 4));
+    wgmma_pv<D, T>(d, a[kk], desc_b + ((kk * 16 * 128) >> 4));
 }
 
-// Sum of the products of 8 bf16 pairs.
+// Sum of the products of 8 pairs of T.
+template <class T>
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    const float2 fx = T::unpack(x[i]), fy = T::unpack(y[i]);
     s = fmaf(fx.x, fy.x, fmaf(fx.y, fy.y, s));
   }
   return s;
@@ -241,9 +259,9 @@ __device__ __forceinline__ void dq_producer(
 }
 
 // dS = P * (dP - delta) of one 64 x 64 tile, P = exp(sm * s - lse), into
-// the A fragments of dS K's four 16-deep k steps. MASK drops (row, key)
-// pairs by `mask`.
-template <class Base, bool MASK>
+// the A fragments of dS K's four 16-deep k steps, rounded to T. MASK drops
+// (row, key) pairs by `mask`.
+template <class T, class Base, bool MASK>
 __device__ __forceinline__ void ds_tile(const float (&s)[32],
                                         const float (&dp)[32],
                                         uint32_t (&da)[kBwdTile / 16][4],
@@ -263,14 +281,14 @@ __device__ __forceinline__ void ds_tile(const float (&s)[32],
         x = kDrop;
       ds[e] = Base::exp(x) * (dp[4 * i + e] - dlt[hf]);
     }
-    da[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
-    da[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    da[i / 2][(i % 2) * 2] = T::pack(ds[0], ds[1]);
+    da[i / 2][(i % 2) * 2 + 1] = T::pack(ds[2], ds[3]);
   }
 }
 
 // A consumer warpgroup: delta for its 64 q rows, then dq over the K/V
 // tiles up to its causal bound, then the epilogue.
-template <int D, class Base>
+template <int D, class T, class Base>
 __device__ __forceinline__ void dq_consumer(const BwdParams& p,
                                             unsigned char* base, int b,
                                             int h, int qt, int n_kt) {
@@ -301,15 +319,15 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   mbar_wait(qbar, 0);
   float* sDelta = reinterpret_cast<float*>(base + L::kDelta);
   {
-    const bf16* sdO = reinterpret_cast<const bf16*>(base + L::kDO);
+    const e16* sdO = reinterpret_cast<const e16*>(base + L::kDO);
     const int R = cw * 64 + tid / 2, half = tid % 2, row = q_start + R;
     float sum = 0.f;
     if (row < p.S) {
-      const bf16* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+      const e16* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) {
         const int ch = half * (D / 16) + c;
-        sum += dot8(*reinterpret_cast<const uint4*>(orow + ch * 8),
+        sum += dot8<T>(*reinterpret_cast<const uint4*>(orow + ch * 8),
                     *reinterpret_cast<const uint4*>(sdO + swz(R, ch)));
       }
     }
@@ -342,21 +360,21 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
       wgmma_fence();
-      mma_nt<D>(s, d_q, kBwdRows * 128, d_k + tile, kBwdTile * 128);
-      mma_nt<D>(dp, d_do, kBwdRows * 128, d_v + tile, kBwdTile * 128);
+      mma_nt<D, T>(s, d_q, kBwdRows * 128, d_k + tile, kBwdTile * 128);
+      mma_nt<D, T>(dp, d_do, kBwdRows * 128, d_v + tile, kBwdTile * 128);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
       fence_regs(dp);
       uint32_t da[kBwdTile / 16][4];
       if (j == j_mask)
-        ds_tile<Base, true>(s, dp, da, sm, lse_r, dlt_r, row0, j * kBwdTile,
-                            mask);
+        ds_tile<T, Base, true>(s, dp, da, sm, lse_r, dlt_r, row0,
+                               j * kBwdTile, mask);
       else
-        ds_tile<Base, false>(s, dp, da, sm, lse_r, dlt_r, row0, j * kBwdTile,
-                             mask);
+        ds_tile<T, Base, false>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                j * kBwdTile, mask);
       wgmma_fence();
-      mma_rs<D>(acc, da, d_kmn + tile);
+      mma_rs<D, T>(acc, da, d_kmn + tile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -367,13 +385,13 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   // dq * scale through this consumer's own rows of Q (its last product has
   // read them).
   const float mul[2] = {p.scale, p.scale};
-  store_rows<D>(acc, mul, reinterpret_cast<bf16*>(base + L::kQ),
+  store_rows<D, T>(acc, mul, reinterpret_cast<e16*>(base + L::kQ),
                 p.dq + ((long long)b * p.S * p.H + h) * D, (long long)p.H * D,
                 q_start, p.S);
 }
 
 // One CTA of dq: work item blockIdx.x is (b * H + h, 128-row q tile).
-template <int D, class Base>
+template <int D, class T, class Base>
 __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
                                        const CUtensorMap& tdo,
                                        const CUtensorMap& tk,
@@ -404,7 +422,7 @@ __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
       dq_producer<D>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dq_consumer<D, Base>(p, base, b, h, qt, n_kt);
+    dq_consumer<D, T, Base>(p, base, b, h, qt, n_kt);
   }
 }
 
@@ -456,9 +474,9 @@ __device__ __forceinline__ void dkv_producer(
 }
 
 // P^T = exp(sm * s^T - lse[q]) and dS^T = P^T * (dP^T - delta[q]) of one
-// 64 (kv) x 64 (q) tile, into the A fragments of P^T dO and dS^T Q. MASK
-// drops the causal pairs q < k.
-template <class Base, bool MASK>
+// 64 (kv) x 64 (q) tile, into the A fragments of P^T dO and dS^T Q,
+// rounded to T. MASK drops the causal pairs q < k.
+template <class T, class Base, bool MASK>
 __device__ __forceinline__ void dst_tile(const float (&s)[32],
                                          const float (&dp)[32],
                                          uint32_t (&pa)[kBwdTile / 16][4],
@@ -481,16 +499,16 @@ __device__ __forceinline__ void dst_tile(const float (&s)[32],
       pr[e] = Base::exp(x);
       ds[e] = pr[e] * (dp[4 * i + e] - dl);
     }
-    pa[i / 2][(i % 2) * 2] = pack_bf16(pr[0], pr[1]);
-    pa[i / 2][(i % 2) * 2 + 1] = pack_bf16(pr[2], pr[3]);
-    da[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
-    da[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    pa[i / 2][(i % 2) * 2] = T::pack(pr[0], pr[1]);
+    pa[i / 2][(i % 2) * 2 + 1] = T::pack(pr[2], pr[3]);
+    da[i / 2][(i % 2) * 2] = T::pack(ds[0], ds[1]);
+    da[i / 2][(i % 2) * 2 + 1] = T::pack(ds[2], ds[3]);
   }
 }
 
 // A consumer warpgroup: dk and dv of its 64 kv rows over every q tile of
 // the group's heads from its causal start, then the epilogue.
-template <int D, class Base>
+template <int D, class T, class Base>
 __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
                                              unsigned char* base, int b,
                                              int kvh, int kt, int i0,
@@ -535,8 +553,8 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
 #pragma unroll
         for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
         wgmma_fence();
-        mma_nt<D>(s, d_k, kBwdRows * 128, d_q + tile, kBwdTile * 128);
-        mma_nt<D>(dp, d_v, kBwdRows * 128, d_do + tile, kBwdTile * 128);
+        mma_nt<D, T>(s, d_k, kBwdRows * 128, d_q + tile, kBwdTile * 128);
+        mma_nt<D, T>(dp, d_v, kBwdRows * 128, d_do + tile, kBwdTile * 128);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(s);
@@ -547,14 +565,14 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
             reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
         uint32_t pa[kBwdTile / 16][4], da[kBwdTile / 16][4];
         if (i == i_mask)
-          dst_tile<Base, true>(s, dp, pa, da, lse, dlt, sm, krow0,
-                               i * kBwdTile);
+          dst_tile<T, Base, true>(s, dp, pa, da, lse, dlt, sm, krow0,
+                                  i * kBwdTile);
         else
-          dst_tile<Base, false>(s, dp, pa, da, lse, dlt, sm, krow0,
-                                i * kBwdTile);
+          dst_tile<T, Base, false>(s, dp, pa, da, lse, dlt, sm, krow0,
+                                   i * kBwdTile);
         wgmma_fence();
-        mma_rs<D>(dv, pa, d_domn + tile);
-        mma_rs<D>(dk, da, d_qmn + tile);
+        mma_rs<D, T>(dv, pa, d_domn + tile);
+        mma_rs<D, T>(dk, da, d_qmn + tile);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(dv);
@@ -569,15 +587,15 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
   const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
   const long long ss = (long long)p.KVH * D;
   const float dk_mul[2] = {p.scale, p.scale}, dv_mul[2] = {1.f, 1.f};
-  store_rows<D>(dk, dk_mul, reinterpret_cast<bf16*>(base + L::kK),
-                p.dk + off, ss, k_start, p.S);
-  store_rows<D>(dv, dv_mul, reinterpret_cast<bf16*>(base + L::kV),
-                p.dv + off, ss, k_start, p.S);
+  store_rows<D, T>(dk, dk_mul, reinterpret_cast<e16*>(base + L::kK),
+                   p.dk + off, ss, k_start, p.S);
+  store_rows<D, T>(dv, dv_mul, reinterpret_cast<e16*>(base + L::kV),
+                   p.dv + off, ss, k_start, p.S);
 }
 
 // One CTA of dk/dv: work item blockIdx.x is (b * KVH + kvh, 128-row kv
 // tile).
-template <int D, class Base>
+template <int D, class T, class Base>
 __device__ __forceinline__ void dkv_cta(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
     const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
@@ -607,7 +625,7 @@ __device__ __forceinline__ void dkv_cta(
                       n_qt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dkv_consumer<D, Base>(p, base, b, kvh, kt, i0, n_qt);
+    dkv_consumer<D, T, Base>(p, base, b, kvh, kt, i0, n_qt);
   }
 }
 
@@ -633,21 +651,21 @@ inline int encode_stats(CUtensorMap* map, const void* ptr, int S, int rows) {
 
 // Encodes dq's four maps and launches `kernel` (an instance of dq_cta)
 // over the B * H * ceil(S / 128) items of `work`.
-template <int D, class Kernel>
+template <int D, class T, class Kernel>
 inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
                      const int* work, cudaStream_t stream) {
   CUtensorMap tq, tdo, tk, tv;
-  int err = encode_rows(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
-                        kBwdRows);
+  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
+                           kBwdRows);
   if (!err)
-    err = encode_rows(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
-                      p.do_sb, kBwdRows);
+    err = encode_rows<T>(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
+                         p.do_sb, kBwdRows);
   if (!err)
-    err = encode_rows(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                      kBwdTile);
+    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
+                         kBwdTile);
   if (!err)
-    err = encode_rows(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                      kBwdTile);
+    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
+                         kBwdTile);
   if (err) return err;
   const cudaError_t e = allow_smem(kernel, DqSmem<D>::kBytes);
   if (e != cudaSuccess) return (int)e;
@@ -659,21 +677,21 @@ inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
 
 // Encodes dk/dv's six maps and launches `kernel` (an instance of dkv_cta)
 // over the B * KVH * ceil(S / 128) items of `work`.
-template <int D, class Kernel>
+template <int D, class T, class Kernel>
 inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
                       const int* work, cudaStream_t stream) {
   CUtensorMap tq, tdo, tk, tv, tlse, tdlt;
-  int err = encode_rows(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
-                        kBwdTile);
+  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
+                           kBwdTile);
   if (!err)
-    err = encode_rows(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
-                      p.do_sb, kBwdTile);
+    err = encode_rows<T>(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
+                         p.do_sb, kBwdTile);
   if (!err)
-    err = encode_rows(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                      kBwdRows);
+    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
+                         kBwdRows);
   if (!err)
-    err = encode_rows(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                      kBwdRows);
+    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
+                         kBwdRows);
   if (!err) err = encode_stats(&tlse, p.lse, p.S, B * p.H);
   if (!err) err = encode_stats(&tdlt, p.delta, p.S, B * p.H);
   if (err) return err;
@@ -685,13 +703,13 @@ inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
   return (int)cudaGetLastError();
 }
 
-template <int D, class Kernel>
+template <int D, class T, class Kernel>
 inline int dq_attrs(Kernel kernel, int* out) {
   return kernel_attrs(kernel, DqSmem<D>::kBytes, kFwdThreads,
                       kProducerRegs, kConsumerRegs, out);
 }
 
-template <int D, class Kernel>
+template <int D, class T, class Kernel>
 inline int dkv_attrs(Kernel kernel, int* out) {
   return kernel_attrs(kernel, DkvSmem<D>::kBytes, kFwdThreads,
                       kProducerRegs, kConsumerRegs, out);

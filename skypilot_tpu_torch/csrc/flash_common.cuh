@@ -1,26 +1,20 @@
-// Shared pieces of the flash-attention kernels: for the mma.sync kernels
-// (flash_bwd.cu, flash_streamed.cu) tile shapes, global->shared tile loads
-// (plain, and staged through cp.async), ldmatrix, the bf16 mma.sync
-// m16n8k16 tensor-core product with fp32 accumulation, the three tile steps
-// (forward, dq, dk/dv) as templates over the softmax base, and their
-// epilogues; for every kernel the parameters, softmax bases and mask. The
-// resident and triangular forwards are Hopper-native instead (wgmma + TMA,
-// flash_fwd_sm90.cuh), and so are the triangular dq and dk/dv
-// (flash_bwd_sm90.cuh); only the streamed forward still runs fwd_step
-// here.
+// Shared pieces of the flash-attention kernels: for every kernel the
+// 16-bit element types, parameters, softmax bases and mask; for the
+// streamed family's mma.sync kernels (flash_streamed.cu) tile shapes,
+// global->shared tile loads staged through cp.async, ldmatrix, the
+// mma.sync m16n8k16 tensor-core product with fp32 accumulation, the three
+// tile steps (forward, dq, dk/dv) as templates over the element type and
+// the softmax base, and their epilogues. The resident and triangular
+// families are Hopper-native instead (wgmma + TMA): their forwards are
+// flash_fwd_sm90.cuh, their dq and dk/dv flash_bwd_sm90.cuh.
 //
-// Three kernel families instantiate them. The resident family
-// (flash_fwd.cu, flash_bwd.cu) and the streamed family (flash_streamed.cu)
-// work in natural exp with a natural-log lse; the triangular family
-// (flash_tri.cu) works in exp2 with a base-2 lse, as the TPU's long-context
-// kernels do, and walks a host-built tile schedule. The resident backward
-// tiles (dq_tile, dkv_tile below) load each K/V (or q/dO) tile
-// synchronously between two barriers; the streamed family's
-// loops keep the next tile's cp.async copy in flight while the current
-// tile's products run. All skip every fully masked tile (the KV loop stops
-// at the causal bound) and mask only the tiles that straddle the diagonal:
-// the step is a template over MASK, and interior tiles run the instance
-// with no compare or select.
+// The resident and streamed families work in natural exp with a
+// natural-log lse; the triangular family works in exp2 with a base-2 lse,
+// as the TPU's long-context kernels do. The streamed loops keep the next
+// tile's cp.async copy in flight while the current tile's products run,
+// skip every fully masked tile (the KV loop stops at the causal bound) and
+// mask only the tiles that straddle the diagonal: the step is a template
+// over MASK, and interior tiles run the instance with no compare or select.
 //
 // Ragged sequence tails: S need only be a multiple of 8, so a sequence has
 // ceil(S / 64) tiles and the last may be partial. Rows at or past S load
@@ -29,7 +23,8 @@
 // diagonal), q rows past S carry a large finite lse (P = 0) and zero delta
 // into dk/dv, and every store is predicated on row < S.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4*g + t.
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 or .f16): lane =
+// 4*g + t.
 //   A (16x16, row-major): a0 = (row g,   k 2t..2t+1), a1 = (row g+8, k 2t..),
 //                         a2 = (row g,   k 2t+8..),   a3 = (row g+8, k 2t+8..)
 //   B (16x8, k x n):      b0 = (k 2t..2t+1, col g),   b1 = (k 2t+8.., col g)
@@ -39,17 +34,49 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace stpu {
 
-typedef __nv_bfloat16 bf16;
+// The two element types every kernel has an instance of: bf16 or f16
+// inputs and outputs, fp32 accumulation. Tiles, global loads, TMA copies
+// and ldmatrix move 16-bit words (e16) whatever the type; the type sets
+// the tensor-core product's type string (kHalf), the pack of two fp32
+// values into one 32-bit register (the round to the type of P and dS
+// before their product, and of each epilogue's output) and the unpack of
+// two values back to fp32. The C entries take the type as an int: kDtype.
+typedef uint16_t e16;
+
+struct Bf16 {
+  static constexpr bool kHalf = false;
+  static constexpr int kDtype = 0;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  }
+};
+
+struct F16 {
+  static constexpr bool kHalf = true;
+  static constexpr int kDtype = 1;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  }
+};
 
 constexpr int kThreads = 128;          // 4 warps; each owns 16 rows of a tile
 constexpr int kTile = 64;              // q and kv rows per tile (fwd, dq, dkv)
 constexpr int kDkvQ = 32;              // q rows per inner tile of dk/dv
-// bf16 padding per shared row: rows stay 16-byte aligned and the 8 row
+// Elements of padding per shared row: rows stay 16-byte aligned and the 8 row
 // addresses of one ldmatrix fall in 8 different 4-bank groups.
 constexpr int kPad = 8;
 constexpr float kNegInf = -1e30f;      // the JAX package's mask value
@@ -64,32 +91,6 @@ __host__ __device__ constexpr int ceil_div(int a, int b) {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy ROWS rows of D bf16 (16-byte chunks) from global, row stride
-// `gstride` elements, into a shared tile with rows of row_elems(D); rows
-// at or past `valid` (the rows left before S) are zero-filled. Every tile
-// but a ragged last one is whole: it takes the unpredicated loop (the
-// branch is uniform across the block).
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          long long gstride, int valid) {
-  constexpr int kChunks = D / 8;
-  if (valid >= ROWS) {
-    for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-      const int r = c / kChunks, cc = c % kChunks;
-      *reinterpret_cast<uint4*>(s + r * row_elems(D) + cc * 8) =
-          *reinterpret_cast<const uint4*>(g + r * gstride + cc * 8);
-    }
-    return;
-  }
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid)
-      x = *reinterpret_cast<const uint4*>(g + r * gstride + cc * 8);
-    *reinterpret_cast<uint4*>(s + r * row_elems(D) + cc * 8) = x;
-  }
 }
 
 // Staged copies (the streamed family): 16-byte cp.async.cg copies from
@@ -126,11 +127,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// load_tile's copy, issued as cp.async: nothing is read until a wait.
-// Rows at or past `valid` are zero-filled from row 0's address; whole
-// tiles take the unpredicated loop, as in load_tile.
+// Copy ROWS rows of D elements (16-byte chunks) from global, row stride
+// `gstride` elements, into a shared tile with rows of row_elems(D), as
+// cp.async: nothing is read until a wait. Rows at or past `valid` (the
+// rows left before S) are zero-filled from row 0's address. Every tile but
+// a ragged last one is whole: it takes the unpredicated loop (the branch
+// is uniform across the block).
 template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g,
+__device__ __forceinline__ void load_tile_async(e16* s, const e16* g,
                                                 long long gstride,
                                                 int valid) {
   constexpr int kChunks = D / 8;
@@ -149,39 +153,41 @@ __device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g,
   }
 }
 
-// Four 8x8 bf16 matrices; lane l gives the address of row l%8 of matrix l/8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// Four 8x8 16-bit matrices; lane l gives the address of row l%8 of matrix l/8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const e16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const e16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
 
-// c += a * b, 16x8x16, bf16 inputs, fp32 accumulate.
+// c += a * b, 16x8x16, T (bf16 or f16) inputs, fp32 accumulate.
+template <class T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+#define STPU_MMA(TY)                                                       \
+  asm volatile(                                                            \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "           \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"            \
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  if constexpr (T::kHalf)
+    STPU_MMA("f16");
+  else
+    STPU_MMA("bf16");
+#undef STPU_MMA
 }
 
 // A fragment of rows [r0, r0+16) x k [k0, k0+16) of a row-major shared tile.
 template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const e16* s,
                                        int r0, int k0) {
   const int l = threadIdx.x % 32;
   ldsm_x4(a, s + (r0 + (l % 16)) * row_elems(D) + k0 + (l / 16) * 8);
@@ -191,7 +197,7 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
 // tile is stored n-major (row n holds the k values: K for q k^T, V for
 // dO v^T). b[0], b[1] feed n-tile n0; b[2], b[3] feed n0+8.
 template <int D>
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* s,
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const e16* s,
                                           int n0, int k0) {
   const int l = threadIdx.x % 32;
   ldsm_x4(b, s + (n0 + (l % 8) + (l / 16) * 8) * row_elems(D) + k0 +
@@ -201,7 +207,7 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* s,
 // The same when the shared tile is stored k-major (row k holds the n
 // values: V for P v, K for dS k, dO and q in the dk/dv products).
 template <int D>
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* s,
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const e16* s,
                                           int k0, int n0) {
   const int l = threadIdx.x % 32;
   ldsm_x4_t(b, s + (k0 + (l % 16)) * row_elems(D) + n0 + (l / 16) * 8);
@@ -237,7 +243,7 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
 // the lse is written as m + log(l) in the base. The score scale rides the
 // one multiply each score takes anyway, so exp2's log2(e) costs nothing.
 
-struct BaseE {  // resident family: natural exp, natural-log lse
+struct BaseE {  // resident and streamed families: natural exp and lse
   static constexpr float kScoreMul = 1.f;
   static __device__ __forceinline__ float exp(float x) { return __expf(x); }
   static __device__ __forceinline__ float log(float x) { return logf(x); }
@@ -273,10 +279,10 @@ __host__ __device__ inline int masked_tile(int causal, int S, int tile,
 // ------------------------------------------------------------ parameters
 
 struct FwdParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
+  const e16* q;
+  const e16* k;
+  const e16* v;
+  e16* o;
   float* lse;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   int S, H, KVH;
@@ -285,16 +291,16 @@ struct FwdParams {
 };
 
 struct BwdParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;
-  const bf16* dout;
+  const e16* q;
+  const e16* k;
+  const e16* v;
+  const e16* o;
+  const e16* dout;
   const float* lse;
   float* delta;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  e16* dq;
+  e16* dk;
+  e16* dv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
   int S, H, KVH;
@@ -308,10 +314,10 @@ inline FwdParams fwd_params(const void* q, const void* k, const void* v,
                             void* o, void* lse, const long long* st, int S,
                             int H, int KVH, float scale, int causal) {
   FwdParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<bf16*>(o);
+  p.q = static_cast<const e16*>(q);
+  p.k = static_cast<const e16*>(k);
+  p.v = static_cast<const e16*>(v);
+  p.o = static_cast<e16*>(o);
   p.lse = static_cast<float*>(lse);
   p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
   p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
@@ -330,16 +336,16 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v,
                             void* dk, void* dv, const long long* st, int S,
                             int H, int KVH, float scale, int causal) {
   BwdParams p = {};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<const bf16*>(o);
-  p.dout = static_cast<const bf16*>(dout);
+  p.q = static_cast<const e16*>(q);
+  p.k = static_cast<const e16*>(k);
+  p.v = static_cast<const e16*>(v);
+  p.o = static_cast<const e16*>(o);
+  p.dout = static_cast<const e16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(const_cast<void*>(delta));
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
+  p.dq = static_cast<e16*>(dq);
+  p.dk = static_cast<e16*>(dk);
+  p.dv = static_cast<e16*>(dv);
   p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
   p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
   p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
@@ -360,8 +366,8 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v,
 // body: each warp owns 16 q rows and keeps their q fragments, the running
 // (max, sum) and the fp32 output in registers.
 
-template <int D, class Base, bool MASK>
-__device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
+template <int D, class T, class Base, bool MASK>
+__device__ __forceinline__ void fwd_step(const e16* sK, const e16* sV,
                                          int q_start, int k_start,
                                          TileMask mask, float sm,
                                          const uint32_t (&qf)[D / 16][4],
@@ -377,8 +383,8 @@ __device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
     for (int np = 0; np < kTile / 16; ++np) {
       uint32_t bfr[4];
       load_b_nk<D>(bfr, sK, np * 16, ks * 16);
-      mma(s[2 * np], qf[ks], bfr[0], bfr[1]);
-      mma(s[2 * np + 1], qf[ks], bfr[2], bfr[3]);
+      mma<T>(s[2 * np], qf[ks], bfr[0], bfr[1]);
+      mma<T>(s[2 * np + 1], qf[ks], bfr[2], bfr[3]);
     }
   }
 
@@ -423,8 +429,8 @@ __device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
     const float p3 = Base::exp(s[i][3] - m[1]);
     l[0] += p0 + p1;
     l[1] += p2 + p3;
-    pf[i / 2][(i % 2) * 2] = pack_bf16(p0, p1);
-    pf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2, p3);
+    pf[i / 2][(i % 2) * 2] = T::pack(p0, p1);
+    pf[i / 2][(i % 2) * 2 + 1] = T::pack(p2, p3);
   }
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk) {
@@ -432,15 +438,15 @@ __device__ __forceinline__ void fwd_step(const bf16* sK, const bf16* sV,
     for (int dn = 0; dn < D / 16; ++dn) {
       uint32_t bfr[4];
       load_b_kn<D>(bfr, sV, kk * 16, dn * 16);
-      mma(acc[2 * dn], pf[kk], bfr[0], bfr[1]);
-      mma(acc[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
+      mma<T>(acc[2 * dn], pf[kk], bfr[0], bfr[1]);
+      mma<T>(acc[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
     }
   }
 }
 
-// The forward's epilogue: o = acc / l (bf16, contiguous (B, S, H, D)) and
+// The forward's epilogue: o = acc / l (T, contiguous (B, S, H, D)) and
 // lse = m + log(l) in the base for this warp's 16 rows of the q tile.
-template <int D, class Base>
+template <int D, class T, class Base>
 __device__ __forceinline__ void store_o_lse(const FwdParams& p, int b, int h,
                                             int q_start,
                                             const float (&acc)[D / 8][4],
@@ -456,17 +462,17 @@ __device__ __forceinline__ void store_o_lse(const FwdParams& p, int b, int h,
   }
   const int row0 = q_start + warp * 16 + g;
   const bool ok0 = row0 < p.S, ok1 = row0 + 8 < p.S;
-  bf16* og = p.o + ((long long)b * p.S * p.H + h) * D;
+  e16* og = p.o + ((long long)b * p.S * p.H + h) * D;
   const long long o_ss = (long long)p.H * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = i * 8 + 2 * t;
     if (ok0)
       *reinterpret_cast<uint32_t*>(og + row0 * o_ss + col) =
-          pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
+          T::pack(acc[i][0] * inv[0], acc[i][1] * inv[0]);
     if (ok1)
       *reinterpret_cast<uint32_t*>(og + (row0 + 8) * o_ss + col) =
-          pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
+          T::pack(acc[i][2] * inv[1], acc[i][3] * inv[1]);
   }
   if (t == 0) {
     float* lg = p.lse + ((long long)b * p.H + h) * p.S;
@@ -476,21 +482,16 @@ __device__ __forceinline__ void store_o_lse(const FwdParams& p, int b, int h,
 }
 
 // --------------------------------------------------------------------- dq
-// One q tile of one (b, h): q and dO sit in shared memory, each warp owns
-// 16 rows and keeps its dq in fp32 registers while it loops over K/V tiles
-// up to the causal bound; dq is written once. It also computes delta =
+// One KV step of a 64-row q tile of one (b, h), the streamed dq's body: q
+// and dO sit in shared memory, each warp owns 16 rows and keeps its dq in
+// fp32 registers while the kernel loops over K/V tiles up to the causal
+// bound; dq is written once. The kernel also computes delta =
 // rowsum(dO * O) for its rows and writes it for the dk/dv kernel, so that
 // kernel never reads O.
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return 4 * kTile * row_elems(D) * (int)sizeof(bf16) +
-         kTile * (int)sizeof(float);
-}
-
-template <int D, class Base, bool MASK>
-__device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
-                                        const bf16* sK, const bf16* sV,
+template <int D, class T, class Base, bool MASK>
+__device__ __forceinline__ void dq_step(const e16* sQ, const e16* sdO,
+                                        const e16* sK, const e16* sV,
                                         int q_start, int k_start,
                                         TileMask mask, float sm,
                                         const float (&lse_r)[2],
@@ -511,10 +512,10 @@ __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
       uint32_t bk[4], bv[4];
       load_b_nk<D>(bk, sK, np * 16, ks * 16);
       load_b_nk<D>(bv, sV, np * 16, ks * 16);
-      mma(s[2 * np], qa, bk[0], bk[1]);
-      mma(s[2 * np + 1], qa, bk[2], bk[3]);
-      mma(dp[2 * np], da, bv[0], bv[1]);
-      mma(dp[2 * np + 1], da, bv[2], bv[3]);
+      mma<T>(s[2 * np], qa, bk[0], bk[1]);
+      mma<T>(s[2 * np + 1], qa, bk[2], bk[3]);
+      mma<T>(dp[2 * np], da, bv[0], bv[1]);
+      mma<T>(dp[2 * np + 1], da, bv[2], bv[3]);
     }
   }
 
@@ -534,8 +535,8 @@ __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
       const float pr = Base::exp(x - lse_r[e >> 1]);
       ds[e] = pr * (dp[i][e] - dlt_r[e >> 1]);
     }
-    dsf[i / 2][(i % 2) * 2] = pack_bf16(ds[0], ds[1]);
-    dsf[i / 2][(i % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    dsf[i / 2][(i % 2) * 2] = T::pack(ds[0], ds[1]);
+    dsf[i / 2][(i % 2) * 2 + 1] = T::pack(ds[2], ds[3]);
   }
   // dq += dS k: k is the (kv x d) = (k x n) operand, stored k-major.
 #pragma unroll
@@ -544,8 +545,8 @@ __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
     for (int dn = 0; dn < D / 16; ++dn) {
       uint32_t bfr[4];
       load_b_kn<D>(bfr, sK, kk * 16, dn * 16);
-      mma(dq[2 * dn], dsf[kk], bfr[0], bfr[1]);
-      mma(dq[2 * dn + 1], dsf[kk], bfr[2], bfr[3]);
+      mma<T>(dq[2 * dn], dsf[kk], bfr[0], bfr[1]);
+      mma<T>(dq[2 * dn + 1], dsf[kk], bfr[2], bfr[3]);
     }
   }
 }
@@ -554,19 +555,23 @@ __device__ __forceinline__ void dq_step(const bf16* sQ, const bf16* sdO,
 // global memory at og and dO from shared memory: two lanes per row, D/2
 // columns each. Written to sDelta and, for the dk/dv kernel, to p.delta;
 // rows at or past `valid` read nothing and get 0 in sDelta only.
-template <int D>
-__device__ __forceinline__ void tile_delta(const BwdParams& p, const bf16* og,
-                                           const bf16* sdO, float* sDelta,
+template <int D, class T>
+__device__ __forceinline__ void tile_delta(const BwdParams& p, const e16* og,
+                                           const e16* sdO, float* sDelta,
                                            long long stat, int valid) {
   const int r = threadIdx.x / 2, half = threadIdx.x % 2;
   const bool ok = r < valid;
   float sum = 0.f;
   if (ok) {
-    const bf16* orow = og + r * p.o_ss + half * (D / 2);
-    const bf16* drow = sdO + r * row_elems(D) + half * (D / 2);
+    const uint32_t* orow =
+        reinterpret_cast<const uint32_t*>(og + r * p.o_ss + half * (D / 2));
+    const uint32_t* drow = reinterpret_cast<const uint32_t*>(
+        sdO + r * row_elems(D) + half * (D / 2));
 #pragma unroll 8
-    for (int c = 0; c < D / 2; ++c)
-      sum += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+    for (int c = 0; c < D / 4; ++c) {
+      const float2 x = T::unpack(orow[c]), y = T::unpack(drow[c]);
+      sum = fmaf(x.y, y.y, fmaf(x.x, y.x, sum));
+    }
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   if (half == 0) {
@@ -578,7 +583,7 @@ __device__ __forceinline__ void tile_delta(const BwdParams& p, const bf16* og,
 // The dq epilogue for this warp's 16 rows of the q tile. dS is the gradient
 // of the natural-unit logit in both bases, so dq takes the plain logit
 // scale.
-template <int D>
+template <int D, class T>
 __device__ __forceinline__ void store_dq(const BwdParams& p, int b, int h,
                                          int q_start,
                                          const float (&dq)[D / 8][4]) {
@@ -586,80 +591,23 @@ __device__ __forceinline__ void store_dq(const BwdParams& p, int b, int h,
   const int g = lane / 4, t = lane % 4;
   const int row0 = q_start + warp * 16 + g;
   const bool ok0 = row0 < p.S, ok1 = row0 + 8 < p.S;
-  bf16* dqg = p.dq + ((long long)b * p.S * p.H + h) * D;
+  e16* dqg = p.dq + ((long long)b * p.S * p.H + h) * D;
   const long long dq_ss = (long long)p.H * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = i * 8 + 2 * t;
     if (ok0)
       *reinterpret_cast<uint32_t*>(dqg + row0 * dq_ss + col) =
-          pack_bf16(dq[i][0] * p.scale, dq[i][1] * p.scale);
+          T::pack(dq[i][0] * p.scale, dq[i][1] * p.scale);
     if (ok1)
       *reinterpret_cast<uint32_t*>(dqg + (row0 + 8) * dq_ss + col) =
-          pack_bf16(dq[i][2] * p.scale, dq[i][3] * p.scale);
+          T::pack(dq[i][2] * p.scale, dq[i][3] * p.scale);
   }
-}
-
-template <int D, class Base>
-__device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
-                                        int qt, unsigned char* smem) {
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + kTile * row_elems(D);
-  bf16* sK = sdO + kTile * row_elems(D);
-  bf16* sV = sK + kTile * row_elems(D);
-  float* sDelta = reinterpret_cast<float*>(sV + kTile * row_elems(D));
-
-  const int kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int q_start = qt * kTile;
-  const int wrow = warp * 16;
-
-  const bf16* qg = p.q + b * p.q_sb + h * p.q_sh + q_start * p.q_ss;
-  const bf16* dog = p.dout + b * p.do_sb + h * p.do_sh + q_start * p.do_ss;
-  const bf16* og = p.o + b * p.o_sb + h * p.o_sh + q_start * p.o_ss;
-  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
-  const long long stat = ((long long)b * p.H + h) * p.S + q_start;
-  const int valid = p.S - q_start;
-
-  load_tile<D, kTile>(sQ, qg, p.q_ss, valid);
-  load_tile<D, kTile>(sdO, dog, p.do_ss, valid);
-  __syncthreads();
-  tile_delta<D>(p, og, sdO, sDelta, stat, valid);
-  __syncthreads();
-
-  // Rows past S are never stored; any finite lse keeps them finite.
-  const float lse_r[2] = {wrow + g < valid ? p.lse[stat + wrow + g] : 0.f,
-                          wrow + g + 8 < valid ? p.lse[stat + wrow + g + 8]
-                                               : 0.f};
-  const float dlt_r[2] = {sDelta[wrow + g], sDelta[wrow + g + 8]};
-  const float sm = p.scale * Base::kScoreMul;
-  const TileMask mask = {p.S, p.causal};
-
-  float dq[D / 8][4];
-  zero(dq);
-
-  const int n_kt = p.causal ? qt + 1 : ceil_div(p.S, kTile);
-  const int j_mask = masked_tile(p.causal, p.S, kTile, n_kt);
-  for (int j = 0; j < n_kt; ++j) {
-    const int k_start = j * kTile;
-    __syncthreads();
-    load_tile<D, kTile>(sK, kg + k_start * p.k_ss, p.k_ss, p.S - k_start);
-    load_tile<D, kTile>(sV, vg + k_start * p.v_ss, p.v_ss, p.S - k_start);
-    __syncthreads();
-    if (j == j_mask)
-      dq_step<D, Base, true>(sQ, sdO, sK, sV, q_start, k_start, mask, sm,
-                             lse_r, dlt_r, dq);
-    else
-      dq_step<D, Base, false>(sQ, sdO, sK, sV, q_start, k_start, mask, sm,
-                              lse_r, dlt_r, dq);
-  }
-  store_dq<D>(p, b, h, q_start, dq);
 }
 
 // ------------------------------------------------------------------ dk/dv
-// One kv tile of 64 rows of one (b, kv head). Its K and V tiles stay in
+// One step of a kv tile of 64 rows of one (b, kv head), the streamed
+// dk/dv's body. Its K and V tiles stay in
 // shared memory; each warp owns 16 kv rows and keeps their dk and dv in
 // fp32 registers (D/2 floats per lane each) while it loops over the G query
 // heads of its group and, for each, over 32-row q/dO tiles from the causal
@@ -669,15 +617,9 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, int b, int h,
 // feeds P^T dO and dS^T q from registers. The 32-row q tile keeps the score
 // registers (2 x 16 per lane) beside the 2 x 64 accumulators at D = 128.
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * kTile + 2 * kDkvQ) * row_elems(D) * (int)sizeof(bf16) +
-         2 * kDkvQ * (int)sizeof(float);
-}
-
-template <int D, class Base, bool MASK>
-__device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
-                                         const bf16* sQ, const bf16* sdO,
+template <int D, class T, class Base, bool MASK>
+__device__ __forceinline__ void dkv_step(const e16* sK, const e16* sV,
+                                         const e16* sQ, const e16* sdO,
                                          const float* sLse,
                                          const float* sDelta, int q_start,
                                          int k_start, float sm,
@@ -696,8 +638,8 @@ __device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
     for (int np = 0; np < kDkvQ / 16; ++np) {
       uint32_t bq[4];
       load_b_nk<D>(bq, sQ, np * 16, ks * 16);
-      mma(st[2 * np], ka, bq[0], bq[1]);
-      mma(st[2 * np + 1], ka, bq[2], bq[3]);
+      mma<T>(st[2 * np], ka, bq[0], bq[1]);
+      mma<T>(st[2 * np + 1], ka, bq[2], bq[3]);
     }
   }
   // P^T = exp(scores^T - lse[q]), kept in fp32 for dS and packed for the
@@ -715,8 +657,8 @@ __device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
       }
       st[c][e] = Base::exp(x - sLse[qcol]);
     }
-    pf[c / 2][(c % 2) * 2] = pack_bf16(st[c][0], st[c][1]);
-    pf[c / 2][(c % 2) * 2 + 1] = pack_bf16(st[c][2], st[c][3]);
+    pf[c / 2][(c % 2) * 2] = T::pack(st[c][0], st[c][1]);
+    pf[c / 2][(c % 2) * 2 + 1] = T::pack(st[c][2], st[c][3]);
   }
   // dv += P^T dO: dO is the (q x d) = (k x n) operand, stored k-major.
 #pragma unroll
@@ -725,8 +667,8 @@ __device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
     for (int dn = 0; dn < D / 16; ++dn) {
       uint32_t bfr[4];
       load_b_kn<D>(bfr, sdO, kk * 16, dn * 16);
-      mma(dv[2 * dn], pf[kk], bfr[0], bfr[1]);
-      mma(dv[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
+      mma<T>(dv[2 * dn], pf[kk], bfr[0], bfr[1]);
+      mma<T>(dv[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
     }
   }
   // dP^T = v dO^T.
@@ -740,8 +682,8 @@ __device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
     for (int np = 0; np < kDkvQ / 16; ++np) {
       uint32_t bd[4];
       load_b_nk<D>(bd, sdO, np * 16, ks * 16);
-      mma(dpt[2 * np], va, bd[0], bd[1]);
-      mma(dpt[2 * np + 1], va, bd[2], bd[3]);
+      mma<T>(dpt[2 * np], va, bd[0], bd[1]);
+      mma<T>(dpt[2 * np + 1], va, bd[2], bd[3]);
     }
   }
   // dS^T = P^T * (dP^T - delta[q]); dk += dS^T q.
@@ -754,8 +696,8 @@ __device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
       const int qcol = c * 8 + 2 * t + (e & 1);
       ds[e] = st[c][e] * (dpt[c][e] - sDelta[qcol]);
     }
-    dsf[c / 2][(c % 2) * 2] = pack_bf16(ds[0], ds[1]);
-    dsf[c / 2][(c % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    dsf[c / 2][(c % 2) * 2] = T::pack(ds[0], ds[1]);
+    dsf[c / 2][(c % 2) * 2 + 1] = T::pack(ds[2], ds[3]);
   }
 #pragma unroll
   for (int kk = 0; kk < kDkvQ / 16; ++kk) {
@@ -763,15 +705,15 @@ __device__ __forceinline__ void dkv_step(const bf16* sK, const bf16* sV,
     for (int dn = 0; dn < D / 16; ++dn) {
       uint32_t bfr[4];
       load_b_kn<D>(bfr, sQ, kk * 16, dn * 16);
-      mma(dk[2 * dn], dsf[kk], bfr[0], bfr[1]);
-      mma(dk[2 * dn + 1], dsf[kk], bfr[2], bfr[3]);
+      mma<T>(dk[2 * dn], dsf[kk], bfr[0], bfr[1]);
+      mma<T>(dk[2 * dn + 1], dsf[kk], bfr[2], bfr[3]);
     }
   }
 }
 
 // The dk/dv epilogue for this warp's 16 rows of the kv tile at k_start:
 // dk takes the plain logit scale; both are written contiguous (B, S, KVH, D).
-template <int D>
+template <int D, class T>
 __device__ __forceinline__ void store_dkv(const BwdParams& p, int b, int kvh,
                                           int k_start,
                                           const float (&dk)[D / 8][4],
@@ -787,115 +729,45 @@ __device__ __forceinline__ void store_dkv(const BwdParams& p, int b, int kvh,
     const int col = i * 8 + 2 * t;
     if (ok0) {
       *reinterpret_cast<uint32_t*>(p.dk + base + row0 * ss + col) =
-          pack_bf16(dk[i][0] * p.scale, dk[i][1] * p.scale);
+          T::pack(dk[i][0] * p.scale, dk[i][1] * p.scale);
       *reinterpret_cast<uint32_t*>(p.dv + base + row0 * ss + col) =
-          pack_bf16(dv[i][0], dv[i][1]);
+          T::pack(dv[i][0], dv[i][1]);
     }
     if (ok1) {
       *reinterpret_cast<uint32_t*>(p.dk + base + (row0 + 8) * ss + col) =
-          pack_bf16(dk[i][2] * p.scale, dk[i][3] * p.scale);
+          T::pack(dk[i][2] * p.scale, dk[i][3] * p.scale);
       *reinterpret_cast<uint32_t*>(p.dv + base + (row0 + 8) * ss + col) =
-          pack_bf16(dv[i][2], dv[i][3]);
+          T::pack(dv[i][2], dv[i][3]);
     }
   }
 }
 
-// One 32-row q tile (index i) of query head row `stat` against the kv
-// tile held in shared memory: its q, dO, lse and delta are loaded, then
-// one dkv_step. WHOLE: the tile lies wholly before S (every tile but a
-// ragged last one), so its loads take no row predicate; otherwise rows
-// past S load as zeros with lse kPastLse and delta 0, and add exactly 0.
-template <int D, class Base, bool WHOLE>
-__device__ __forceinline__ void dkv_q_tile(
-    const BwdParams& p, const bf16* qg, const bf16* dog, long long stat,
-    int i, int i_free, int k_start, float sm, const bf16* sK,
-    const bf16* sV, bf16* sQ, bf16* sdO, float* sLse, float* sDelta,
-    float (&dk)[D / 8][4], float (&dv)[D / 8][4]) {
-  const int q_start = i * kDkvQ;
-  const int valid = WHOLE ? kDkvQ : p.S - q_start;
-  __syncthreads();  // previous q tile fully consumed
-  load_tile<D, kDkvQ>(sQ, qg + q_start * p.q_ss, p.q_ss, valid);
-  load_tile<D, kDkvQ>(sdO, dog + q_start * p.do_ss, p.do_ss, valid);
-  if (threadIdx.x < kDkvQ) {
-    const bool ok = (int)threadIdx.x < valid;
-    sLse[threadIdx.x] = ok ? p.lse[stat + q_start + threadIdx.x] : kPastLse;
-    sDelta[threadIdx.x] = ok ? p.delta[stat + q_start + threadIdx.x] : 0.f;
-  }
-  __syncthreads();
-  if (i < i_free)
-    dkv_step<D, Base, true>(sK, sV, sQ, sdO, sLse, sDelta, q_start, k_start,
-                            sm, dk, dv);
-  else
-    dkv_step<D, Base, false>(sK, sV, sQ, sdO, sLse, sDelta, q_start,
-                             k_start, sm, dk, dv);
-}
-
-template <int D, class Base>
-__device__ __forceinline__ void dkv_tile(const BwdParams& p, int b, int kvh,
-                                         int kt, unsigned char* smem) {
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTile * row_elems(D);
-  bf16* sQ = sV + kTile * row_elems(D);
-  bf16* sdO = sQ + kDkvQ * row_elems(D);
-  float* sLse = reinterpret_cast<float*>(sdO + kDkvQ * row_elems(D));
-  float* sDelta = sLse + kDkvQ;
-
-  const int groups = p.H / p.KVH;
-  const int k_start = kt * kTile;
-  const float sm = p.scale * Base::kScoreMul;
-
-  load_tile<D, kTile>(sK, p.k + b * p.k_sb + kvh * p.k_sh + k_start * p.k_ss,
-                      p.k_ss, p.S - k_start);
-  load_tile<D, kTile>(sV, p.v + b * p.v_sb + kvh * p.v_sh + k_start * p.v_ss,
-                      p.v_ss, p.S - k_start);
-
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-
-  // Causal: q tiles start at the kv tile's first row; the two 32-row q
-  // tiles that overlap the 64-row kv tile straddle the diagonal, every
-  // later one lies wholly below it. Kv rows past S are never stored, so
-  // the kv axis needs no ragged mask. The loop runs the whole q tiles,
-  // then a ragged last one on its own instance: a row predicate on the
-  // loop's loads cost it 3-7% (PERF.md).
-  const int n_whole = p.S / kDkvQ, n_qt = ceil_div(p.S, kDkvQ);
-  const int i0 = p.causal ? k_start / kDkvQ : 0;
-  const int i_free = p.causal ? i0 + kTile / kDkvQ : 0;
-  for (int gi = 0; gi < groups; ++gi) {
-    const int h = kvh * groups + gi;
-    const bf16* qg = p.q + b * p.q_sb + h * p.q_sh;
-    const bf16* dog = p.dout + b * p.do_sb + h * p.do_sh;
-    const long long stat = ((long long)b * p.H + h) * p.S;
-    for (int i = i0; i < n_whole; ++i)
-      dkv_q_tile<D, Base, true>(p, qg, dog, stat, i, i_free, k_start, sm,
-                                sK, sV, sQ, sdO, sLse, sDelta, dk, dv);
-    if (n_whole < n_qt)  // a ragged last tile; i0 <= n_whole: k_start < S
-      dkv_q_tile<D, Base, false>(p, qg, dog, stat, n_whole, i_free, k_start,
-                                 sm, sK, sV, sQ, sdO, sLse, sDelta, dk, dv);
-  }
-
-  store_dkv<D>(p, b, kvh, k_start, dk, dv);
-}
-
-// Launches KERNEL<64> or KERNEL<128> for the runtime head_dim HEAD_DIM,
-// with its dynamic shared memory allowed first; returns from the calling
-// C entry with the launch's error code.
-#define STPU_LAUNCH_BY_D(HEAD_DIM, KERNEL, SMEM, GRID, STREAM, ...)          \
+// Launches KERNEL<D, T> for the runtime head_dim HEAD_DIM (64, 128) and
+// element type DTYPE (T::kDtype), with its dynamic shared memory allowed
+// first; returns from the calling C entry with the launch's error code.
+#define STPU_LAUNCH_ONE(D_, T_, KERNEL, SMEM, GRID, STREAM, ...)            \
   do {                                                                       \
-    cudaError_t err_;                                                        \
-    if ((HEAD_DIM) == 64) {                                                  \
-      err_ = allow_smem(KERNEL<64>, SMEM<64>());                             \
-      if (err_ != cudaSuccess) return (int)err_;                             \
-      KERNEL<64><<<GRID, kThreads, SMEM<64>(), STREAM>>>(__VA_ARGS__);       \
-    } else if ((HEAD_DIM) == 128) {                                          \
-      err_ = allow_smem(KERNEL<128>, SMEM<128>());                           \
-      if (err_ != cudaSuccess) return (int)err_;                             \
-      KERNEL<128><<<GRID, kThreads, SMEM<128>(), STREAM>>>(__VA_ARGS__);     \
-    } else {                                                                 \
-      return (int)cudaErrorInvalidValue;                                     \
-    }                                                                        \
+    const cudaError_t err_ = allow_smem(KERNEL<D_, T_>, SMEM<D_>());         \
+    if (err_ != cudaSuccess) return (int)err_;                               \
+    KERNEL<D_, T_><<<GRID, kThreads, SMEM<D_>(), STREAM>>>(__VA_ARGS__);     \
     return (int)cudaGetLastError();                                          \
+  } while (0)
+
+#define STPU_LAUNCH_BY_D(HEAD_DIM, DTYPE, KERNEL, SMEM, GRID, STREAM, ...)   \
+  do {                                                                       \
+    const bool half_ = (DTYPE) == F16::kDtype;                               \
+    if (!half_ && (DTYPE) != Bf16::kDtype) return (int)cudaErrorInvalidValue; \
+    if ((HEAD_DIM) == 64) {                                                  \
+      if (half_) STPU_LAUNCH_ONE(64, F16, KERNEL, SMEM, GRID, STREAM,        \
+                                 __VA_ARGS__);                               \
+      STPU_LAUNCH_ONE(64, Bf16, KERNEL, SMEM, GRID, STREAM, __VA_ARGS__);    \
+    }                                                                        \
+    if ((HEAD_DIM) == 128) {                                                 \
+      if (half_) STPU_LAUNCH_ONE(128, F16, KERNEL, SMEM, GRID, STREAM,       \
+                                 __VA_ARGS__);                               \
+      STPU_LAUNCH_ONE(128, Bf16, KERNEL, SMEM, GRID, STREAM, __VA_ARGS__);   \
+    }                                                                        \
+    return (int)cudaErrorInvalidValue;                                       \
   } while (0)
 
 }  // namespace stpu

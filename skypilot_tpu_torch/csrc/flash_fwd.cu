@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax: the
-// resident family.
+// Flash-attention forward for Hopper (sm_90a), bf16 or f16 in and out,
+// fp32 softmax: the resident family.
 //
 // Replaces skypilot_tpu/ops/pallas/flash_attention.py:_fwd_kernel_resident
 // (launched by _flash_fwd_resident). Computes, for each (b, h) and q tile,
@@ -22,39 +22,40 @@
 namespace stpu {
 namespace {
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(sm90::kFwdThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const FwdParams p,
                  const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::fwd_cta<D, /*kNaturalLse=*/true>(tq, tk, tv, p, work, smem);
+  sm90::fwd_cta<D, T, /*kNaturalLse=*/true>(tq, tk, tv, p, work, smem);
 }
 
 }  // namespace
 }  // namespace stpu
 
-// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. strides: (batch, seq,
-// head) in elements for q, k, v. o is written contiguous (B, S, H, D) and
-// lse (B, H, S) fp32.
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. dtype: the element type
+// of q, k, v and o (Bf16::kDtype, F16::kDtype). strides: (batch, seq, head)
+// in elements for q, k, v. o is written contiguous (B, S, H, D) and lse
+// (B, H, S) fp32.
 extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* work,
                               const long long* strides, int B, int S, int H,
-                              int KVH, int D, float scale, int causal,
-                              void* stream) {
+                              int KVH, int D, int dtype, float scale,
+                              int causal, void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
-  STPU_SM90_BY_D(D, launch_fwd, flash_fwd_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
 
-// The build report of the head_dim D instance (sm90::kernel_attrs): five
-// ints, registers at launch, dynamic shared memory, threads, producer and
-// consumer registers.
-extern "C" int stpu_flash_fwd_attrs(int D, int* out) {
-  STPU_SM90_BY_D(D, fwd_attrs, stpu::flash_fwd_kernel, out);
+// The build report of the (head_dim D, element type dtype) instance
+// (sm90::kernel_attrs): five ints, registers at launch, dynamic shared
+// memory, threads, producer and consumer registers.
+extern "C" int stpu_flash_fwd_attrs(int D, int dtype, int* out) {
+  STPU_SM90_BY_D(D, dtype, fwd_attrs, stpu::flash_fwd_kernel, out);
 }

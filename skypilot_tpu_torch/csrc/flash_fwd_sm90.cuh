@@ -1,9 +1,10 @@
 // The Hopper-native flash-attention forward (sm_90a): wgmma + TMA, warp
-// specialised. One body, instantiated twice: flash_fwd.cu (the resident
+// specialised. One body, instantiated by flash_fwd.cu (the resident
 // family, natural-log lse) and flash_tri.cu (the triangular family, base-2
-// lse). The function is the TPU forward's: o = softmax(scale * q k^T,
-// causal) v and lse = m + log(l), query head h reading KV head
-// h / (H / KVH).
+// lse), each at head_dim 64 and 128 and element type bf16 and f16 (T, the
+// inputs' and outputs' type; the softmax and the sums stay fp32). The
+// function is the TPU forward's: o = softmax(scale * q k^T, causal) v and
+// lse = m + log(l), query head h reading KV head h / (H / KVH).
 //
 // What bounds it: the tensor cores. At the main shapes it does ~S*D/2 (or
 // more) flops per byte it must move, far past the card's ~295 flop/byte
@@ -21,7 +22,7 @@
 // - Consumers: S = Q K^T runs as wgmma m64n128k16 with both operands read
 //   from shared memory through descriptors (K-major). The online softmax
 //   runs in exp2 on the accumulator fragments, scale*log2(e) folded into
-//   the one FFMA each score takes. P, cast to bf16, is the register A
+//   the one FFMA each score takes. P, cast to T, is the register A
 //   operand of O += P V (wgmma m64nDk16), V read from shared memory
 //   MN-major. After that product has completed, one thread per consumer
 //   arrives on the stage's empty barrier. The two consumers run the same
@@ -38,15 +39,15 @@
 //   log family.
 //
 // Traps, and what the code does about each:
-// - With SWIZZLE_128B a TMA box is at most 128 bytes wide: 64 bf16. At
+// - With SWIZZLE_128B a TMA box is at most 128 bytes wide: 64 elements. At
 //   D = 128 a tile is loaded as two 64-column boxes, stored one after the
 //   other (rows x 128 bytes each); a K-major descriptor steps 32 bytes per
 //   16-deep k step inside a box and jumps a box every 4 steps, with SBO =
 //   1024 bytes (8 rows of 128 bytes) between 8-row core-matrix groups.
 // - V is the B operand of P V with N = D contiguous: MN-major, so tnspB =
-//   1 (allowed for bf16). Its descriptor has SBO = 1024 bytes between the
-//   8-row k groups and LBO = the distance between the two 64-column boxes
-//   along N; a 16-deep k step is 16 rows = 2048 bytes.
+//   1 (allowed for bf16 and f16). Its descriptor has SBO = 1024 bytes
+//   between the 8-row k groups and LBO = the distance between the two
+//   64-column boxes along N; a 16-deep k step is 16 rows = 2048 bytes.
 // - The m64nN accumulator of S holds, per thread, rows warp*16 + lane/4
 //   (+8) and columns 8i + 2(lane%4) (+1): two neighbouring 8-column chunks
 //   are exactly the A-register fragment of one 16-deep k step of P V, so P
@@ -79,7 +80,7 @@ constexpr int kRing = 2;       // K/V stages in shared memory
 constexpr int kConsumers = 2;  // consumer warpgroups
 constexpr int kFwdThreads = 128 * (1 + kConsumers);
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kBoxCols = 64;   // bf16 columns of one 128-byte swizzled box
+constexpr int kBoxCols = 64;   // columns of one 128-byte swizzled box
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // Error codes above this are cuTensorMapEncodeTiled's CUresult + this.
@@ -199,119 +200,141 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
 }
 
 // d (m64n128, fp32) = A B, or d += A B when scale_d is nonzero; A and B
-// are read from shared memory through descriptors, both K-major.
+// (T: bf16 or f16) are read from shared memory through descriptors, both
+// K-major. The product's type string is T's: one asm body, two instances.
+template <class T>
 __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64],
                                                 uint64_t desc_a,
                                                 uint64_t desc_b,
                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "        \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "        \
+      "%60, %61, %62, %63"                                                  \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),    \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),    \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),    \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
 }
 
-// d (m64n64, fp32) += A B: A, 64 x 16 bf16, from registers (the
+// d (m64n64, fp32) += A B: A, 64 x 16 of T, from registers (the
 // mma.m16n8k16 A fragment of each warp's 16 rows); B from shared memory
 // through a descriptor, MN-major (tnspB = 1).
+template <class T>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
 }
 
-// d (m64n128, fp32) += A B: A, 64 x 16 bf16, from registers (the
+// d (m64n128, fp32) += A B: A, 64 x 16 of T, from registers (the
 // mma.m16n8k16 A fragment of each warp's 16 rows); B from shared memory
 // through a descriptor, MN-major (tnspB = 1).
+template <class T>
 __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "        \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "        \
+      "%60, %61, %62, %63"                                                  \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),    \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),    \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),    \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
 }
 
-template <int D>
+template <int D, class T>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
   if constexpr (D == 64)
-    wgmma_m64n64_rs(o, a, desc_v);
+    wgmma_m64n64_rs<T>(o, a, desc_v);
   else
-    wgmma_m64n128_rs(o, a, desc_v);
+    wgmma_m64n128_rs<T>(o, a, desc_v);
 }
 
-// Element offset of 16-byte chunk ch (8 bf16) of row R in a kBM-row tile
-// stored as TMA's 128-byte swizzle left it (D / 64 boxes of kBM x 128
+// Element offset of 16-byte chunk ch (8 elements) of row R in a kBM-row
+// tile stored as TMA's 128-byte swizzle left it (D / 64 boxes of kBM x 128
 // bytes): box ch / 8, chunk ch % 8 at (ch % 8) ^ (R % 8).
 __device__ __forceinline__ int swz(int R, int ch) {
   return (ch / 8) * kBM * kBoxCols + R * kBoxCols + ((ch % 8) ^ (R % 8)) * 8;
 }
 
 // A consumer warpgroup's epilogue: its accumulator fragment (rows R0, R0 +
-// 8 of the CTA's kBM; row r times mul[r]) into its own 64 rows of the
-// swizzled tile (conflict-free both ways), then, after the warpgroup's
-// barrier, out to global memory at g (the CTA's row 0, row stride ss) in
-// 16-byte stores predicated on row < S. Only this warpgroup's products
-// may read those rows of the tile.
-template <int D>
+// 8 of the CTA's kBM; row r times mul[r]), rounded to T, into its own 64
+// rows of the swizzled tile (conflict-free both ways), then, after the
+// warpgroup's barrier, out to global memory at g (the CTA's row 0, row
+// stride ss) in 16-byte stores predicated on row < S. Only this
+// warpgroup's products may read those rows of the tile.
+template <int D, class T>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            const float (&mul)[2],
-                                           bf16* tile, bf16* g,
+                                           e16* tile, e16* g,
                                            long long ss, int row_start,
                                            int S) {
   const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
@@ -321,7 +344,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int R = R0 + 8 * hf;
-      *reinterpret_cast<uint32_t*>(tile + swz(R, i) + 2 * t) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(tile + swz(R, i) + 2 * t) = T::pack(
           acc[4 * i + 2 * hf] * mul[hf], acc[4 * i + 2 * hf + 1] * mul[hf]);
     }
   }
@@ -372,8 +395,8 @@ __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
 
 // The online softmax of one S tile (base 2): updates the running max and
 // sum of this thread's two rows, rescales o, and packs P into the A
-// fragments of P V's eight 16-deep k steps.
-template <int D, bool MASK>
+// fragments of P V's eight 16-deep k steps, rounded to T.
+template <int D, class T, bool MASK>
 __device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
                                              float (&o)[D / 2],
                                              float (&m)[2], float (&l)[2],
@@ -418,14 +441,14 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
     const float p3 = Base2::exp(fmaf(s[4 * i + 3], sm, -m[1]));
     l[0] += p0 + p1;
     l[1] += p2 + p3;
-    pa[i / 2][(i % 2) * 2] = pack_bf16(p0, p1);
-    pa[i / 2][(i % 2) * 2 + 1] = pack_bf16(p2, p3);
+    pa[i / 2][(i % 2) * 2] = T::pack(p0, p1);
+    pa[i / 2][(i % 2) * 2 + 1] = T::pack(p2, p3);
   }
 }
 
 // A consumer warpgroup: 64 q rows of the CTA's tile through every K/V
 // tile, then the epilogue.
-template <int D, bool kNaturalLse>
+template <int D, class T, bool kNaturalLse>
 __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
                                              unsigned char* base, int b,
                                              int h, int qt, int n_kt,
@@ -463,7 +486,7 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t in_box = (kk % 4) * 32;  // bytes into the 64-col box
-      wgmma_m64n128_ss(
+      wgmma_m64n128_ss<T>(
           s, dq + (((kk / 4) * kBM * 128 + in_box) >> 4),
           dk + ((st * L::kTileKV + (kk / 4) * kBN * 128 + in_box) >> 4),
           kk);
@@ -474,14 +497,15 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
 
     uint32_t pa[kBN / 16][4];
     if (j == j_mask)
-      softmax_step<D, true>(s, o, m, l, pa, sm, row0, j * kBN, mask);
+      softmax_step<D, T, true>(s, o, m, l, pa, sm, row0, j * kBN, mask);
     else
-      softmax_step<D, false>(s, o, m, l, pa, sm, row0, j * kBN, mask);
+      softmax_step<D, T, false>(s, o, m, l, pa, sm, row0, j * kBN, mask);
 
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_pv<D>(o, pa[kk], dv + ((st * L::kTileKV + kk * 16 * 128) >> 4));
+      wgmma_pv<D, T>(o, pa[kk],
+                     dv + ((st * L::kTileKV + kk * 16 * 128) >> 4));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -496,7 +520,7 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
   }
   // o / l through this consumer's own rows of the Q tile (its last
   // product has read them).
-  store_rows<D>(o, inv, reinterpret_cast<bf16*>(base),
+  store_rows<D, T>(o, inv, reinterpret_cast<e16*>(base),
                 p.o + ((long long)b * p.S * p.H + h) * D, (long long)p.H * D,
                 q_start, p.S);
   if (t == 0) {
@@ -511,7 +535,7 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
 }
 
 // One CTA of the forward: work item blockIdx.x is (b * H + h, q tile).
-template <int D, bool kNaturalLse>
+template <int D, class T, bool kNaturalLse>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
                                         const CUtensorMap& tv,
@@ -542,7 +566,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
       fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    fwd_consumer<D, kNaturalLse>(p, base, b, h, qt, n_kt, j_mask);
+    fwd_consumer<D, T, kNaturalLse>(p, base, b, h, qt, n_kt, j_mask);
   }
 }
 
@@ -573,10 +597,18 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A map of a (B, S, heads, D) bf16 tensor with element strides (sb, ss,
+// The TMA element type of T.
+template <class T>
+constexpr CUtensorMapDataType map_type() {
+  return T::kHalf ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// A map of a (B, S, heads, D) tensor of T with element strides (sb, ss,
 // sh, 1), as dimensions (D, S, heads, B) innermost first: boxes of 64
 // columns x `rows` rows of one head, 128-byte swizzled. S is its own
 // dimension, so rows at or past it read as zeros.
+template <class T>
 inline int encode_rows(CUtensorMap* map, const void* ptr, int D, int S,
                        int heads, int B, long long ss, long long sh,
                        long long sb, int rows) {
@@ -589,7 +621,7 @@ inline int encode_rows(CUtensorMap* map, const void* ptr, int D, int S,
   const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map, map_type<T>(), 4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -598,18 +630,18 @@ inline int encode_rows(CUtensorMap* map, const void* ptr, int D, int S,
 
 // Encodes the three maps and launches `kernel` (an instance of this
 // forward) over the B * H * ceil(S / 128) items of `work`.
-template <int D, class Kernel>
+template <int D, class T, class Kernel>
 inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
                       const int* work, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = encode_rows(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
-                        kBM);
+  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
+                           kBM);
   if (!err)
-    err = encode_rows(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                      kBN);
+    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
+                         kBN);
   if (!err)
-    err = encode_rows(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                      kBN);
+    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
+                         kBN);
   if (err) return err;
   const cudaError_t e = allow_smem(kernel, FwdSmem<D>::kBytes);
   if (e != cudaSuccess) return (int)e;
@@ -635,7 +667,7 @@ inline int kernel_attrs(Kernel kernel, int smem, int threads, int producer,
   return (int)e;
 }
 
-template <int D, class Kernel>
+template <int D, class T, class Kernel>
 inline int fwd_attrs(Kernel kernel, int* out) {
   return kernel_attrs(kernel, FwdSmem<D>::kBytes, kFwdThreads, kProducerRegs,
                       kConsumerRegs, out);
@@ -644,15 +676,25 @@ inline int fwd_attrs(Kernel kernel, int* out) {
 }  // namespace sm90
 }  // namespace stpu
 
-// Returns from the calling C entry with FN<64>(KERNEL<64>, ...) or
-// FN<128>(KERNEL<128>, ...) for the runtime head_dim: the instances of one
-// Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or reported
-// (fwd_attrs, dq_attrs, dkv_attrs).
-#define STPU_SM90_BY_D(HEAD_DIM, FN, KERNEL, ...)                         \
+// Returns from the calling C entry with FN<D, T>(KERNEL<D, T>, ...) for the
+// runtime head_dim (64, 128) and element type (T::kDtype): the instances
+// of one Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or
+// reported (fwd_attrs, dq_attrs, dkv_attrs).
+#define STPU_SM90_ONE(D_, T_, FN, KERNEL, ...) \
+  return stpu::sm90::FN<D_, stpu::T_>(KERNEL<D_, stpu::T_>, __VA_ARGS__)
+
+#define STPU_SM90_BY_D(HEAD_DIM, DTYPE, FN, KERNEL, ...)                  \
   do {                                                                    \
-    if ((HEAD_DIM) == 64)                                                 \
-      return stpu::sm90::FN<64>(KERNEL<64>, __VA_ARGS__);                 \
-    if ((HEAD_DIM) == 128)                                                \
-      return stpu::sm90::FN<128>(KERNEL<128>, __VA_ARGS__);               \
+    const bool half_ = (DTYPE) == stpu::F16::kDtype;                      \
+    if (!half_ && (DTYPE) != stpu::Bf16::kDtype)                          \
+      return (int)cudaErrorInvalidValue;                                  \
+    if ((HEAD_DIM) == 64) {                                               \
+      if (half_) STPU_SM90_ONE(64, F16, FN, KERNEL, __VA_ARGS__);         \
+      STPU_SM90_ONE(64, Bf16, FN, KERNEL, __VA_ARGS__);                   \
+    }                                                                     \
+    if ((HEAD_DIM) == 128) {                                              \
+      if (half_) STPU_SM90_ONE(128, F16, FN, KERNEL, __VA_ARGS__);        \
+      STPU_SM90_ONE(128, Bf16, FN, KERNEL, __VA_ARGS__);                  \
+    }                                                                     \
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)

@@ -18,10 +18,10 @@
 // What bounds them: at (1, 8192, 32, 8, 128) non-causal each kernel does
 // 5,500 to 11,000 flops per byte it must move (the order of S), far past
 // the card's ~295 flop/byte ridge, so the tensor cores (bounds 1.11, 1.67
-// and 2.22 ms by operations for forward, dq and dk/dv). The tile steps are the other
-// families' (flash_common.cuh: mma.sync m16n8k16 from ldmatrix fragments,
-// P and dS fed from registers, the GQA group of dk/dv summed in registers
-// without atomics).
+// and 2.22 ms by operations for forward, dq and dk/dv). The tile steps are
+// flash_common.cuh's (mma.sync m16n8k16 from ldmatrix fragments, P and dS
+// fed from registers, the GQA group of dk/dv summed in registers without
+// atomics), with a bf16 and an f16 instance each.
 //
 // What the TPU family adds over its resident one is how the KV stream is
 // staged: the KV axis is a sequential grid axis and Pallas double-buffers
@@ -50,28 +50,28 @@ __host__ __device__ constexpr int tile_elems(int rows) {
 
 template <int D>
 constexpr int fwd_streamed_smem_bytes() {
-  return (1 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(bf16);
+  return (1 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(e16);
 }
 
 template <int D>
 constexpr int dq_streamed_smem_bytes() {
-  return (2 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(bf16) +
+  return (2 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(e16) +
          kTile * (int)sizeof(float);
 }
 
 template <int D>
 constexpr int dkv_streamed_smem_bytes() {
   return (2 * tile_elems<D>(kTile) + 2 * kStages * tile_elems<D>(kDkvQ)) *
-             (int)sizeof(bf16) +
+             (int)sizeof(e16) +
          2 * kStages * kDkvQ * (int)sizeof(float);
 }
 
 // Issue the copies of K/V tile j (rows j*64..) into ring stage j % kStages.
 // Rows at or past S are zero-filled.
 template <int D>
-__device__ __forceinline__ void issue_kv(const bf16* kg, const bf16* vg,
+__device__ __forceinline__ void issue_kv(const e16* kg, const e16* vg,
                                          long long k_ss, long long v_ss,
-                                         int S, int j, bf16* sK, bf16* sV) {
+                                         int S, int j, e16* sK, e16* sV) {
   const int st = j % kStages;
   const int r0 = j * kTile;
   load_tile_async<D, kTile>(sK + st * tile_elems<D>(kTile),
@@ -81,14 +81,14 @@ __device__ __forceinline__ void issue_kv(const bf16* kg, const bf16* vg,
   cp_async_commit();
 }
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_streamed_kernel(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kTE = tile_elems<D>(kTile);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kTE;             // kStages K tiles, then
-  bf16* sV = sK + kStages * kTE;   // kStages V tiles
+  e16* sQ = reinterpret_cast<e16*>(smem);
+  e16* sK = sQ + kTE;             // kStages K tiles, then
+  e16* sV = sK + kStages * kTE;   // kStages V tiles
 
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.KVH);
@@ -96,8 +96,8 @@ flash_fwd_streamed_kernel(const FwdParams p) {
   const int qt = ceil_div(p.S, kTile) - 1 - blockIdx.x;
   const int q_start = qt * kTile;
   const int wrow = (threadIdx.x / 32) * 16;
-  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+  const e16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
+  const e16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
 
   // Prologue: q and K/V tile 0 in one group.
   load_tile_async<D, kTile>(sQ, p.q + b * p.q_sb + h * p.q_sh +
@@ -124,27 +124,27 @@ flash_fwd_streamed_kernel(const FwdParams p) {
     __syncthreads();      // everyone's have, and tile j-1 is consumed
     if (j + 1 < n_kt)
       issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, j + 1, sK, sV);
-    const bf16* k_t = sK + (j % kStages) * kTE;
-    const bf16* v_t = sV + (j % kStages) * kTE;
+    const e16* k_t = sK + (j % kStages) * kTE;
+    const e16* v_t = sV + (j % kStages) * kTE;
     if (j == j_mask)
-      fwd_step<D, BaseE, true>(k_t, v_t, q_start, j * kTile, mask, sm, qf,
-                               acc, m, l);
+      fwd_step<D, T, BaseE, true>(k_t, v_t, q_start, j * kTile, mask, sm,
+                                  qf, acc, m, l);
     else
-      fwd_step<D, BaseE, false>(k_t, v_t, q_start, j * kTile, mask, sm, qf,
-                                acc, m, l);
+      fwd_step<D, T, BaseE, false>(k_t, v_t, q_start, j * kTile, mask, sm,
+                                   qf, acc, m, l);
   }
-  store_o_lse<D, BaseE>(p, b, h, q_start, acc, m, l);
+  store_o_lse<D, T, BaseE>(p, b, h, q_start, acc, m, l);
 }
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_streamed_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kTE = tile_elems<D>(kTile);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + kTE;
-  bf16* sK = sdO + kTE;            // kStages K tiles, then
-  bf16* sV = sK + kStages * kTE;   // kStages V tiles
+  e16* sQ = reinterpret_cast<e16*>(smem);
+  e16* sdO = sQ + kTE;
+  e16* sK = sdO + kTE;            // kStages K tiles, then
+  e16* sV = sK + kStages * kTE;   // kStages V tiles
   float* sDelta = reinterpret_cast<float*>(sV + kStages * kTE);
 
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
@@ -154,8 +154,8 @@ flash_dq_streamed_kernel(const BwdParams p) {
   const int q_start = qt * kTile;
   const int valid = p.S - q_start;
   const int wrow = (threadIdx.x / 32) * 16, g = (threadIdx.x % 32) / 4;
-  const bf16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
+  const e16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
+  const e16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
   const long long stat = ((long long)b * p.H + h) * p.S + q_start;
 
   // Prologue: q, dO and K/V tile 0 in one group; then delta from O.
@@ -166,8 +166,8 @@ flash_dq_streamed_kernel(const BwdParams p) {
   issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, 0, sK, sV);
   cp_async_wait_all();
   __syncthreads();
-  tile_delta<D>(p, p.o + b * p.o_sb + h * p.o_sh + q_start * p.o_ss, sdO,
-                sDelta, stat, valid);
+  tile_delta<D, T>(p, p.o + b * p.o_sb + h * p.o_sh + q_start * p.o_ss,
+                   sdO, sDelta, stat, valid);
   __syncthreads();
 
   // Rows past S are never stored; any finite lse keeps them finite.
@@ -188,16 +188,16 @@ flash_dq_streamed_kernel(const BwdParams p) {
     __syncthreads();
     if (j + 1 < n_kt)
       issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, j + 1, sK, sV);
-    const bf16* k_t = sK + (j % kStages) * kTE;
-    const bf16* v_t = sV + (j % kStages) * kTE;
+    const e16* k_t = sK + (j % kStages) * kTE;
+    const e16* v_t = sV + (j % kStages) * kTE;
     if (j == j_mask)
-      dq_step<D, BaseE, true>(sQ, sdO, k_t, v_t, q_start, j * kTile, mask,
-                              sm, lse_r, dlt_r, dq);
+      dq_step<D, T, BaseE, true>(sQ, sdO, k_t, v_t, q_start, j * kTile,
+                                 mask, sm, lse_r, dlt_r, dq);
     else
-      dq_step<D, BaseE, false>(sQ, sdO, k_t, v_t, q_start, j * kTile, mask,
-                               sm, lse_r, dlt_r, dq);
+      dq_step<D, T, BaseE, false>(sQ, sdO, k_t, v_t, q_start, j * kTile,
+                                  mask, sm, lse_r, dlt_r, dq);
   }
-  store_dq<D>(p, b, h, q_start, dq);
+  store_dq<D, T>(p, b, h, q_start, dq);
 }
 
 // The dk/dv stream: item `it` is query head kvh * G + it / per_head of the
@@ -211,8 +211,8 @@ flash_dq_streamed_kernel(const BwdParams p) {
 template <int D, bool WHOLE>
 __device__ __forceinline__ void issue_q_item(const BwdParams& p, int b,
                                              int kvh, int it, int i0,
-                                             int per_head, bf16* sQ,
-                                             bf16* sdO, float* sLse,
+                                             int per_head, e16* sQ,
+                                             e16* sdO, float* sLse,
                                              float* sDelta) {
   constexpr int kQE = tile_elems<D>(kDkvQ);
   constexpr int kStatChunks = kDkvQ / 4;
@@ -247,14 +247,14 @@ __device__ __forceinline__ void issue_q_item(const BwdParams& p, int b,
 // The dk/dv kernel's body, as one instance for S a multiple of the q tile
 // and one for a ragged S (the kernel picks once per launch): the item loop
 // with a row predicate on its copies ran 5-7% slower (PERF.md).
-template <int D, bool WHOLE>
+template <int D, class T, bool WHOLE>
 __device__ __forceinline__ void dkv_streamed(const BwdParams& p,
                                              unsigned char* smem) {
   constexpr int kTE = tile_elems<D>(kTile), kQE = tile_elems<D>(kDkvQ);
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTE;
-  bf16* sQ = sV + kTE;             // kStages q tiles, then
-  bf16* sdO = sQ + kStages * kQE;  // kStages dO tiles, then
+  e16* sK = reinterpret_cast<e16*>(smem);
+  e16* sV = sK + kTE;
+  e16* sQ = sV + kTE;             // kStages q tiles, then
+  e16* sdO = sQ + kStages * kQE;  // kStages dO tiles, then
   float* sLse = reinterpret_cast<float*>(sdO + kStages * kQE);
   float* sDelta = sLse + kStages * kDkvQ;  // kStages rows of 32 floats each
 
@@ -290,78 +290,87 @@ __device__ __forceinline__ void dkv_streamed(const BwdParams& p,
     const int st = it % kStages;
     const int i = i0 + it % per_head;
     if (i < i_free)
-      dkv_step<D, BaseE, true>(sK, sV, sQ + st * kQE, sdO + st * kQE,
-                               sLse + st * kDkvQ, sDelta + st * kDkvQ,
-                               i * kDkvQ, k_start, sm, dk, dv);
+      dkv_step<D, T, BaseE, true>(sK, sV, sQ + st * kQE, sdO + st * kQE,
+                                  sLse + st * kDkvQ, sDelta + st * kDkvQ,
+                                  i * kDkvQ, k_start, sm, dk, dv);
     else
-      dkv_step<D, BaseE, false>(sK, sV, sQ + st * kQE, sdO + st * kQE,
-                                sLse + st * kDkvQ, sDelta + st * kDkvQ,
-                                i * kDkvQ, k_start, sm, dk, dv);
+      dkv_step<D, T, BaseE, false>(sK, sV, sQ + st * kQE, sdO + st * kQE,
+                                   sLse + st * kDkvQ, sDelta + st * kDkvQ,
+                                   i * kDkvQ, k_start, sm, dk, dv);
   }
-  store_dkv<D>(p, b, kvh, k_start, dk, dv);
+  store_dkv<D, T>(p, b, kvh, k_start, dk, dv);
 }
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_streamed_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (p.S % kDkvQ == 0)
-    dkv_streamed<D, true>(p, smem);
+    dkv_streamed<D, T, true>(p, smem);
   else
-    dkv_streamed<D, false>(p, smem);
+    dkv_streamed<D, T, false>(p, smem);
 }
 
 }  // namespace
 }  // namespace stpu
 
+// dtype: the element type of q, k, v and o (Bf16::kDtype, F16::kDtype).
 // strides: (batch, seq, head) in elements for q, k, v. o is written
-// contiguous (B, S, H, D) bf16 and lse (B, H, S) fp32, natural log.
+// contiguous (B, S, H, D) and lse (B, H, S) fp32, natural log.
 extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        const long long* strides, int B, int S,
-                                       int H, int KVH, int D, float scale,
-                                       int causal, void* stream) {
+                                       int H, int KVH, int D, int dtype,
+                                       float scale, int causal,
+                                       void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
   const dim3 grid(ceil_div(S, kTile), B * H);
-  STPU_LAUNCH_BY_D(D, flash_fwd_streamed_kernel, fwd_streamed_smem_bytes,
-                   grid, static_cast<cudaStream_t>(stream), p);
+  STPU_LAUNCH_BY_D(D, dtype, flash_fwd_streamed_kernel,
+                   fwd_streamed_smem_bytes, grid,
+                   static_cast<cudaStream_t>(stream), p);
 }
 
-// strides: q, k, v, o, dO. dq (B, S, H, D) bf16 and delta (B, H, S) fp32
-// are written contiguous; lse and delta are 16-byte aligned.
+// strides: q, k, v, o, dO. dq (B, S, H, D), of the inputs' type, and
+// delta (B, H, S) fp32 are written contiguous; lse and delta are 16-byte
+// aligned.
 extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
                                       void* dq, void* delta,
                                       const long long* strides, int B, int S,
-                                      int H, int KVH, int D, float scale,
-                                      int causal, void* stream) {
+                                      int H, int KVH, int D, int dtype,
+                                      float scale, int causal,
+                                      void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, causal);
   const dim3 grid(ceil_div(S, kTile), B * H);
-  STPU_LAUNCH_BY_D(D, flash_dq_streamed_kernel, dq_streamed_smem_bytes, grid,
+  STPU_LAUNCH_BY_D(D, dtype, flash_dq_streamed_kernel,
+                   dq_streamed_smem_bytes, grid,
                    static_cast<cudaStream_t>(stream), p);
 }
 
-// strides: q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D)
-// bf16; lse and delta (B, H, S) fp32 are read through 16-byte copies.
+// strides: q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D),
+// of the inputs' type; lse and delta (B, H, S) fp32 are read through
+// 16-byte copies.
 extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv,
                                        const long long* strides, int B, int S,
-                                       int H, int KVH, int D, float scale,
-                                       int causal, void* stream) {
+                                       int H, int KVH, int D, int dtype,
+                                       float scale, int causal,
+                                       void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, causal);
   const dim3 grid(ceil_div(S, kTile), B * KVH);
-  STPU_LAUNCH_BY_D(D, flash_dkv_streamed_kernel, dkv_streamed_smem_bytes,
-                   grid, static_cast<cudaStream_t>(stream), p);
+  STPU_LAUNCH_BY_D(D, dtype, flash_dkv_streamed_kernel,
+                   dkv_streamed_smem_bytes, grid,
+                   static_cast<cudaStream_t>(stream), p);
 }

@@ -22,7 +22,8 @@
 // flash_bwd_sm90.cuh (one CTA per 128-row tile of the resident operand, a
 // TMA ring of 64-row tiles of the streamed one, P and dS fed to the next
 // product from registers, the GQA group of dk/dv summed in registers
-// without atomics), instanced in base 2.
+// without atomics), instanced in base 2. Each kernel has a bf16 and an
+// f16 instance at head_dim 64 and 128.
 //
 // Schedule: the TPU kernels walk scalar-prefetched maps of the lower-
 // triangle block pairs (_tri_maps_row, _tri_maps_col). Here the host builds
@@ -40,17 +41,17 @@
 namespace stpu {
 namespace {
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(sm90::kFwdThreads, 1)
 flash_fwd_tri_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const FwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::fwd_cta<D, /*kNaturalLse=*/false>(tq, tk, tv, p, work, smem);
+  sm90::fwd_cta<D, T, /*kNaturalLse=*/false>(tq, tk, tv, p, work, smem);
 }
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(sm90::kFwdThreads, 1)
 flash_dq_tri_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
@@ -58,10 +59,10 @@ flash_dq_tri_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tv,
                     const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dq_cta<D, Base2>(tq, tdo, tk, tv, p, work, smem);
+  sm90::dq_cta<D, T, Base2>(tq, tdo, tk, tv, p, work, smem);
 }
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(sm90::kFwdThreads, 1)
 flash_dkv_tri_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
@@ -71,76 +72,78 @@ flash_dkv_tri_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdlt,
                      const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dkv_cta<D, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
+  sm90::dkv_cta<D, T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
 }
 
 }  // namespace
 }  // namespace stpu
 
-// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. strides: (batch, seq,
-// head) in elements for q, k, v. o is written contiguous (B, S, H, D) bf16
-// and lse (B, H, S) fp32, base 2.
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. dtype: the element type
+// of q, k, v and o (Bf16::kDtype, F16::kDtype). strides: (batch, seq, head)
+// in elements for q, k, v. o is written contiguous (B, S, H, D) and lse
+// (B, H, S) fp32, base 2.
 extern "C" int stpu_flash_fwd_tri(const void* q, const void* k,
                                   const void* v, void* o, void* lse,
                                   const void* work, const long long* strides,
                                   int B, int S, int H, int KVH, int D,
-                                  float scale, void* stream) {
+                                  int dtype, float scale, void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p = fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale,
                                  /*causal=*/1);
-  STPU_SM90_BY_D(D, launch_fwd, flash_fwd_tri_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_tri_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
 
 // work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs. strides: q, k,
-// v, o, dO. dq (B, S, H, D) bf16 and delta (B, H, S) fp32 are written
-// contiguous; lse is base 2.
+// v, o, dO. dq (B, S, H, D), of the inputs' type, and delta (B, H, S) fp32
+// are written contiguous; lse is base 2.
 extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* dq, void* delta,
                                  const void* work, const long long* strides,
                                  int B, int S, int H, int KVH, int D,
-                                 float scale, void* stream) {
+                                 int dtype, float scale, void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, 1);
-  STPU_SM90_BY_D(D, launch_dq, flash_dq_tri_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_dq, flash_dq_tri_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
 
 // work: B*KVH*ceil(S/128) (b*KVH, 128-row kv tile) int32 pairs. strides:
-// q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D) bf16.
+// q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D), of the
+// inputs' type.
 extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, const void* work,
                                   const long long* strides, int B, int S,
-                                  int H, int KVH, int D, float scale,
-                                  void* stream) {
+                                  int H, int KVH, int D, int dtype,
+                                  float scale, void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, 1);
-  STPU_SM90_BY_D(D, launch_dkv, flash_dkv_tri_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_dkv, flash_dkv_tri_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
 
-// The build reports of the head_dim D instances (sm90::kernel_attrs): five
-// ints each, registers at launch, dynamic shared memory, threads, producer
-// and consumer registers.
-extern "C" int stpu_flash_fwd_tri_attrs(int D, int* out) {
-  STPU_SM90_BY_D(D, fwd_attrs, stpu::flash_fwd_tri_kernel, out);
+// The build reports of the (head_dim D, element type dtype) instances
+// (sm90::kernel_attrs): five ints each, registers at launch, dynamic shared
+// memory, threads, producer and consumer registers.
+extern "C" int stpu_flash_fwd_tri_attrs(int D, int dtype, int* out) {
+  STPU_SM90_BY_D(D, dtype, fwd_attrs, stpu::flash_fwd_tri_kernel, out);
 }
 
-extern "C" int stpu_flash_dq_tri_attrs(int D, int* out) {
-  STPU_SM90_BY_D(D, dq_attrs, stpu::flash_dq_tri_kernel, out);
+extern "C" int stpu_flash_dq_tri_attrs(int D, int dtype, int* out) {
+  STPU_SM90_BY_D(D, dtype, dq_attrs, stpu::flash_dq_tri_kernel, out);
 }
 
-extern "C" int stpu_flash_dkv_tri_attrs(int D, int* out) {
-  STPU_SM90_BY_D(D, dkv_attrs, stpu::flash_dkv_tri_kernel, out);
+extern "C" int stpu_flash_dkv_tri_attrs(int D, int dtype, int* out) {
+  STPU_SM90_BY_D(D, dtype, dkv_attrs, stpu::flash_dkv_tri_kernel, out);
 }

@@ -23,7 +23,8 @@ from typing import Dict
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2] / "build" /
               "stpu_torch_kernels")
-SOURCES = ("flash_fwd", "flash_bwd", "flash_tri", "flash_streamed")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_tri", "flash_streamed",
+           "flash_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -31,19 +32,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# C signatures: (pointers..., strides, B, S, H, KVH, D, scale, causal, stream);
-# the triangular family is causal only; it and the resident forward take
-# their tile schedule as the last pointer. The *_attrs entries fill five
-# ints for a Hopper kernel at a head_dim: registers at launch, dynamic
-# shared memory, threads, producer and consumer registers (setmaxnreg).
-_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
-_TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-_ATTRS = [_I, ctypes.POINTER(_I)]
+# C signatures: (pointers..., strides, B, S, H, KVH, D, dtype, scale, causal,
+# stream), dtype being the element type's code (DTYPES); the triangular
+# family is causal only; every Hopper kernel (the resident and triangular
+# families) takes its work list as the last pointer; the fp32 kernels take
+# no dtype. The *_attrs entries
+# fill five ints for a Hopper kernel at a head_dim and dtype: registers at
+# launch, dynamic shared memory, threads, producer and consumer registers
+# (setmaxnreg).
+_TAIL = [_STRIDES, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_F32_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_ATTRS = [_I, _I, ctypes.POINTER(_I)]
 SIGNATURES = {
     "flash_fwd": {"stpu_flash_fwd": [_P] * 6 + _TAIL,
                   "stpu_flash_fwd_attrs": _ATTRS},
-    "flash_bwd": {"stpu_flash_dq": [_P] * 8 + _TAIL,
-                  "stpu_flash_dkv": [_P] * 8 + _TAIL},
+    "flash_bwd": {"stpu_flash_dq": [_P] * 9 + _TAIL,
+                  "stpu_flash_dq_attrs": _ATTRS,
+                  "stpu_flash_dkv": [_P] * 9 + _TAIL,
+                  "stpu_flash_dkv_attrs": _ATTRS},
     "flash_tri": {"stpu_flash_fwd_tri": [_P] * 6 + _TRI_TAIL,
                   "stpu_flash_fwd_tri_attrs": _ATTRS,
                   "stpu_flash_dq_tri": [_P] * 9 + _TRI_TAIL,
@@ -53,7 +60,13 @@ SIGNATURES = {
     "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 5 + _TAIL,
                        "stpu_flash_dq_streamed": [_P] * 8 + _TAIL,
                        "stpu_flash_dkv_streamed": [_P] * 8 + _TAIL},
+    "flash_f32": {"stpu_flash_fwd_f32": [_P] * 5 + _F32_TAIL,
+                  "stpu_flash_dq_f32": [_P] * 8 + _F32_TAIL,
+                  "stpu_flash_dkv_f32": [_P] * 8 + _F32_TAIL},
 }
+# The element types the kernels have instances of, by the code the C
+# entries take (csrc/flash_common.cuh: Bf16::kDtype, F16::kDtype).
+DTYPES = {"bf16": 0, "f16": 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Per source: seconds nvcc took in this process (0.0 when it was cached)

@@ -2,13 +2,17 @@
 
 Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` and of its
 dispatch by family (``_use_resident``, ``_flash_fwd``, ``_flash_bwd``).
-Three families of three CUDA kernels for sm_90a. Four are Hopper-native
+Three families of three CUDA kernels for sm_90a. Six are Hopper-native
 (wgmma + TMA, one producer and two consumer warpgroups): the resident and
 triangular forwards share one body (``csrc/flash_fwd_sm90.cuh``), the
-triangular dq and dk/dv the backward's (``csrc/flash_bwd_sm90.cuh``); the
-other five kernels share their mma.sync tile steps
-(``csrc/flash_common.cuh``). Every kernel takes any S that is a multiple of
-8 (a ragged last tile is masked):
+resident and triangular dq and dk/dv the backward's
+(``csrc/flash_bwd_sm90.cuh``); the streamed family's three kernels share
+their mma.sync tile steps (``csrc/flash_common.cuh``). Every kernel takes
+any S that is a multiple of 8 (a ragged last tile is masked), head_dim 64
+or 128, and bf16 or f16 (one instance each); f32 inputs take three fp32
+kernels of their own (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
+``flash_dq_f32``, ``flash_dkv_f32``, every family's shapes, natural-log
+lse):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
   ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
@@ -37,8 +41,15 @@ other five kernels share their mma.sync tile steps
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
 triangular family for causal attention past it, the streamed family for
 non-causal attention past it. The choice is made once per call in the
-forward and carried to the backward, so the base-2 lse never meets a
-natural-log kernel.
+forward, on the caller's head_dim, and carried to the backward, so the
+base-2 lse never meets a natural-log kernel.
+
+On the card, ``flash_forward`` and ``flash_backward`` (and so the op)
+bring any head_dim up to 128 to the kernels: head_dim is zero-padded to
+the next kernel width (``kernel_head_dim``, ``pad_head_dim``; zero columns
+change neither q k^T nor the lse, and the padded columns of o, dq, dk and
+dv come out 0 and are sliced off by ``unpad_head_dim``). ``kernel_dtype``
+names the kernels an input dtype reaches.
 
 Beside each family stand its plain PyTorch versions (``flash_fwd_plain``
 and ``flash_bwd_plain``; ``flash_fwd_tri_plain`` and
@@ -61,8 +72,8 @@ from skypilot_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# The mma.sync kernels' tile: q, kv rows per block (a sequence has
-# ceil(S / TILE) of them, the last one possibly partial).
+# The streamed (mma.sync) kernels' tile: q, kv rows per block (a sequence
+# has ceil(S / TILE) of them, the last one possibly partial).
 TILE = 64
 # q rows per CTA of the Hopper forward (csrc/flash_fwd_sm90.cuh kBM).
 FWD_TILE = 128
@@ -71,7 +82,7 @@ FWD_TILE = 128
 # ring streams against it (dq: K/V, dk/dv: q/dO; kBwdTile).
 BWD_TILE = 128
 BWD_INNER = 64
-# q rows per inner tile of the mma.sync dk/dv kernels (csrc/flash_common.cuh
+# q rows per inner tile of the streamed dk/dv kernel (csrc/flash_common.cuh
 # kDkvQ).
 DKV_Q_TILE = 32
 # S must be a multiple of this: the JAX package only sends such S to its
@@ -79,6 +90,9 @@ DKV_Q_TILE = 32
 # and delta in 16-byte chunks that lie wholly before S or past it.
 SEQ_MULTIPLE = 8
 HEAD_DIMS = (64, 128)
+# The kernels' element types, by the code their C entries take.
+_DTYPE_CODES = {torch.bfloat16: _build.DTYPES["bf16"],
+                torch.float16: _build.DTYPES["f16"]}
 # JAX's default block, halved until it divides S: decides, as there, when
 # a shape is too irregular for the kernel path (see flash_attention).
 _JAX_DEFAULT_BLOCK = 1024
@@ -92,7 +106,8 @@ RESIDENT, TRIANGULAR, STREAMED = "resident", "triangular", "streamed"
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_tri": 0, "flash_dq_tri": 0, "flash_dkv_tri": 0,
             "flash_fwd_streamed": 0, "flash_dq_streamed": 0,
-            "flash_dkv_streamed": 0}
+            "flash_dkv_streamed": 0, "flash_fwd_f32": 0, "flash_dq_f32": 0,
+            "flash_dkv_f32": 0}
 
 
 def reset_launches() -> None:
@@ -343,6 +358,61 @@ def tri_schedule(kind: str, n_rows: int, s: int,
     return work
 
 
+def bwd_schedule(kind: str, n_rows: int, s: int,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """The Hopper backward's work list (the resident and triangular dq,
+    "rows" over B * H, and dk/dv, "cols" over B * KVH): BWD_TILE-row tiles
+    against BWD_INNER-row ones. One list serves both causal modes: it holds
+    every (row, tile) once, and a non-causal launch's items all cost the
+    same, so its order only matters when causal."""
+    return tri_schedule(kind, n_rows, s, device, tile=BWD_TILE,
+                        inner=BWD_INNER)
+
+
+# ------------------------------------------- the kernels' types and widths
+
+def kernel_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The element type of the kernels inputs of ``dtype`` reach: bf16 and
+    f16 the Hopper kernels' instances of that type (f16 holds |x| <=
+    65504: a larger input, output or gradient becomes inf, and values under
+    6.1e-5 keep fewer bits), f32 the fp32 kernels (``flash_*_f32``; the
+    Hopper kernels' 16-bit operands would round it: rounding q, k and v to
+    f16 alone puts causal gradients past the JAX reference tests' 5e-3).
+    Nothing is cast. Any other dtype raises."""
+    if dtype in _DTYPE_CODES or dtype == torch.float32:
+        return dtype
+    raise ValueError(f"flash kernels take bf16, f16 or f32; got {dtype}")
+
+
+def kernel_head_dim(d: int) -> int:
+    """The kernel width head_dim ``d`` is zero-padded to: the least of
+    HEAD_DIMS at or above it. Past 128 it raises: the dk/dv kernel keeps dk
+    and dv (2 x d / 2 fp32 a thread) in registers beside S^T and dP^T,
+    past the 255 a thread has at d = 256, and no kernel splits them yet."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"flash kernels take head_dim up to {HEAD_DIMS[-1]}; "
+                     f"no kernel for head_dim {d} (its dk/dv accumulators "
+                     "do not fit in registers)")
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (..., d) with its last dimension zero-padded to ``width``, as
+    a kernel takes it; ``t`` itself when d is the width."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def unpad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel output (..., width) as the caller's: its first ``d``
+    columns (the padded ones are 0)."""
+    if t.shape[-1] == d:
+        return t
+    return t[..., :d].contiguous()
+
+
 # --------------------------------------------------------- kernel wrappers
 
 def _strides(*tensors):
@@ -374,10 +444,11 @@ def kernel_shape_error(q_shape, k_shape) -> Optional[str]:
     return None
 
 
-def _check_inputs(q, k, v, *rest):
+def _check_inputs(q, k, v, *rest, dtypes=tuple(_DTYPE_CODES)):
     """Raise on what the kernels do not take: the shapes
-    ``kernel_shape_error`` refuses, and anything but bf16 (B,S,H,D) rows
-    16-byte aligned with a unit last stride, on one CUDA device."""
+    ``kernel_shape_error`` refuses, and anything but (B,S,H,D) tensors of
+    one dtype of ``dtypes`` (the Hopper kernels': bf16, f16), rows 16-byte
+    aligned with a unit last stride, on one CUDA device."""
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     err = kernel_shape_error(tuple(q.shape), tuple(k.shape))
@@ -394,8 +465,10 @@ def _check_inputs(q, k, v, *rest):
             raise ValueError("flash kernels need all tensors on one CUDA "
                              f"device; got {t.device}")
         if t.dim() == 4:
-            if t.dtype != torch.bfloat16:
-                raise ValueError(f"flash kernels take bf16, got {t.dtype}")
+            if t.dtype not in dtypes or t.dtype != q.dtype:
+                raise ValueError(f"these flash kernels take tensors of one "
+                                 f"dtype of {dtypes}; got {t.dtype} beside "
+                                 f"{q.dtype}")
             if (t.stride(3) != 1 or any(x % 8 for x in t.stride()[:3])
                     or t.data_ptr() % 16):
                 raise ValueError("flash kernels need 16-byte aligned rows "
@@ -417,9 +490,23 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-# The resident and streamed families share their C signatures: (pointers,
-# strides, B, S, H, KVH, D, scale, causal, stream); the resident forward
-# also takes the Hopper forward's work list as its last pointer.
+# Every C entry takes (pointers..., strides, B, S, H, KVH, D, tail...,
+# stream); the tail is (dtype, scale, causal) for the resident and streamed
+# families, (dtype, scale) for the causal-only triangular one, (scale,
+# causal) for the fp32 kernels. The Hopper kernels (resident, triangular)
+# take their work list as their last pointer.
+
+def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
+            *tail) -> None:
+    b, s, h, d = q.shape
+    lib = _build.library(source)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"stpu_{name}")(
+            *(t.data_ptr() for t in ptrs), strides, b, s, h, kvh, d, *tail,
+            _stream(q))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+
 
 def _fwd_call(name: str, source: str, q, k, v, causal, scale,
               scheduled: bool = False):
@@ -431,49 +518,37 @@ def _fwd_call(name: str, source: str, q, k, v, causal, scale,
     if scheduled:
         ptrs.append(tri_schedule("rows", b * h, s, q.device, tile=FWD_TILE,
                                  inner=FWD_TILE))
-    lib = _build.library(source)
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"stpu_{name}")(
-            *(t.data_ptr() for t in ptrs), _strides(q, k, v), b, s, h,
-            k.shape[2], d, float(scale), int(causal), _stream(q))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _launch(name, source, ptrs, _strides(q, k, v), q, k.shape[2],
+            _DTYPE_CODES[q.dtype], float(scale), int(causal))
     return o, lse
 
 
-def _dq_call(name: str, source: str, q, k, v, o, lse, do, causal, scale):
+def _dq_call(name: str, source: str, q, k, v, o, lse, do, causal, scale,
+             scheduled: bool = False):
     _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _build.library(source)
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"stpu_{name}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-            _strides(q, k, v, o, do), b, s, h, k.shape[2], d, float(scale),
-            int(causal), _stream(q))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+    ptrs = [q, k, v, o, do, lse, dq, delta]
+    if scheduled:
+        ptrs.append(bwd_schedule("rows", b * h, s, q.device))
+    _launch(name, source, ptrs, _strides(q, k, v, o, do), q, k.shape[2],
+            _DTYPE_CODES[q.dtype], float(scale), int(causal))
     return dq, delta
 
 
 def _dkv_call(name: str, source: str, q, k, v, do, lse, delta, causal,
-              scale):
+              scale, scheduled: bool = False):
     _check_inputs(q, k, v, do, lse, delta)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
-    lib = _build.library(source)
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"stpu_{name}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides(q, k, v, do), b, s, h, kvh, d, float(scale),
-            int(causal), _stream(q))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+    ptrs = [q, k, v, do, lse, delta, dk, dv]
+    if scheduled:
+        ptrs.append(bwd_schedule("cols", b * kvh, s, q.device))
+    _launch(name, source, ptrs, _strides(q, k, v, do), q, kvh,
+            _DTYPE_CODES[q.dtype], float(scale), int(causal))
     return dk, dv
 
 
@@ -481,7 +556,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel forward (the Hopper forward over 128-row q tiles,
-    longest first): (o (B,S,H,D) bf16, lse (B,H,S) fp32)."""
+    longest first): (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32)."""
     return _fwd_call("flash_fwd", "flash_fwd", q, k, v, causal, scale,
                      scheduled=True)
 
@@ -490,25 +565,27 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
              causal: bool, scale: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel dq: (dq (B,S,H,D) bf16, delta = rowsum(dO*O) (B,H,S) fp32)."""
+    """Kernel dq (the Hopper dq over 128-row q tiles, longest first): (dq
+    (B,S,H,D) of q's dtype, delta = rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq", "flash_bwd", q, k, v, o, lse, do, causal,
-                    scale)
+                    scale, scheduled=True)
 
 
 def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel dk/dv: (dk, dv) (B,S,KVH,D) bf16, the GQA group summed."""
+    """Kernel dk/dv (the Hopper dk/dv over 128-row kv tiles, longest
+    first): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv", "flash_bwd", q, k, v, do, lse, delta,
-                     causal, scale)
+                     causal, scale, scheduled=True)
 
 
 def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-family kernel forward: (o (B,S,H,D) bf16, lse (B,H,S) fp32
-    in natural log)."""
+    """Streamed-family kernel forward: (o (B,S,H,D) of q's dtype, lse
+    (B,H,S) fp32 in natural log)."""
     return _fwd_call("flash_fwd_streamed", "flash_streamed", q, k, v, causal,
                      scale)
 
@@ -517,8 +594,8 @@ def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       causal: bool, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-family kernel dq: (dq (B,S,H,D) bf16, delta = rowsum(dO*O)
-    (B,H,S) fp32)."""
+    """Streamed-family kernel dq: (dq (B,S,H,D) of q's dtype, delta =
+    rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
                     do, causal, scale)
 
@@ -527,8 +604,8 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor,
                        delta: torch.Tensor, causal: bool, scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-family kernel dk/dv: (dk, dv) (B,S,KVH,D) bf16, the GQA
-    group summed."""
+    """Streamed-family kernel dk/dv: (dk, dv) (B,S,KVH,D) of k's dtype, the
+    GQA group summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
                      lse, delta, causal, scale)
 
@@ -537,21 +614,15 @@ def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
               scale: float) -> None:
     """Launch triangular kernel ``fn`` on (q, k, ...) = ``ptrs``."""
     q = ptrs[0]
-    b, s, h, d = q.shape
-    lib = _build.library("flash_tri")
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"stpu_{fn}")(
-            *(t.data_ptr() for t in ptrs), work.data_ptr(), strides, b, s, h,
-            ptrs[1].shape[2], d, float(scale), _stream(q))
-    _raise_on(err, fn)
-    LAUNCHES[fn] += 1
+    _launch(fn, "flash_tri", (*ptrs, work), strides, q, ptrs[1].shape[2],
+            _DTYPE_CODES[q.dtype], float(scale))
 
 
 def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel forward (the Hopper forward over 128-row
-    q tiles, longest first), causal: (o (B,S,H,D) bf16, lse (B,H,S) fp32
-    in base 2)."""
+    q tiles, longest first), causal: (o (B,S,H,D) of q's dtype, lse
+    (B,H,S) fp32 in base 2)."""
     _check_inputs(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -567,14 +638,13 @@ def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dq from the base-2 lse (the Hopper dq over
-    128-row q tiles, longest first): (dq (B,S,H,D) bf16, delta =
+    128-row q tiles, longest first): (dq (B,S,H,D) of q's dtype, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
     _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    work = tri_schedule("rows", b * h, s, q.device, tile=BWD_TILE,
-                        inner=BWD_INNER)
+    work = bwd_schedule("rows", b * h, s, q.device)
     _tri_call("flash_dq_tri", (q, k, v, o, do, lse, dq, delta),
               _strides(q, k, v, o, do), work, scale)
     return dq, delta
@@ -584,17 +654,62 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dk/dv (the Hopper dk/dv over 128-row kv
-    tiles, longest first): (dk, dv) (B,S,KVH,D) bf16, the GQA group
-    summed."""
+    tiles, longest first): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA
+    group summed."""
     _check_inputs(q, k, v, do, lse, delta)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
-    work = tri_schedule("cols", b * kvh, s, q.device, tile=BWD_TILE,
-                        inner=BWD_INNER)
+    work = bwd_schedule("cols", b * kvh, s, q.device)
     _tri_call("flash_dkv_tri", (q, k, v, do, lse, delta, dk, dv),
               _strides(q, k, v, do), work, scale)
+    return dk, dv
+
+
+def flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 kernel forward, any family's shape: (o (B,S,H,D) fp32, lse
+    (B,H,S) fp32 in natural log)."""
+    _check_inputs(q, k, v, dtypes=(torch.float32,))
+    b, s, h, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd_f32", "flash_f32", (q, k, v, o, lse),
+            _strides(q, k, v), q, k.shape[2], float(scale), int(causal))
+    return o, lse
+
+
+def flash_dq_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 causal: bool, scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 kernel dq from the natural-log lse: (dq (B,S,H,D) fp32, delta =
+    rowsum(dO*O) (B,H,S) fp32)."""
+    _check_inputs(q, k, v, o, do, lse, dtypes=(torch.float32,))
+    b, s, h, d = q.shape
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch("flash_dq_f32", "flash_f32", (q, k, v, o, do, lse, dq, delta),
+            _strides(q, k, v, o, do), q, k.shape[2], float(scale),
+            int(causal))
+    return dq, delta
+
+
+def flash_dkv_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 kernel dk/dv: (dk, dv) (B,S,KVH,D) fp32, the GQA group
+    summed."""
+    _check_inputs(q, k, v, do, lse, delta, dtypes=(torch.float32,))
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
+    _launch("flash_dkv_f32", "flash_f32", (q, k, v, do, lse, delta, dk, dv),
+            _strides(q, k, v, do), q, kvh, float(scale), int(causal))
     return dk, dv
 
 
@@ -603,19 +718,28 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, scale: float, fam: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) through family ``fam``: the kernel for CUDA tensors, the
-    plain version for CPU tensors. lse is in the family's base."""
-    if fam == TRIANGULAR:
-        if q.is_cuda:
-            return flash_fwd_tri(q, k, v, scale)
-        return flash_fwd_tri_plain(q, k, v, scale)
-    if fam == STREAMED:
-        if q.is_cuda:
-            return flash_fwd_streamed(q, k, v, causal, scale)
-        return flash_fwd_streamed_plain(q, k, v, causal, scale)
-    if q.is_cuda:
-        return flash_fwd(q, k, v, causal, scale)
-    return flash_fwd_plain(q, k, v, causal, scale)
+    """(o, lse) through family ``fam``: the kernel for CUDA tensors (q, k
+    and v padded to its head_dim first, o sliced back; f32 tensors take the
+    fp32 kernel, whatever the family), the plain version for CPU tensors.
+    lse is in the family's base (natural log from the fp32 kernel; its
+    backward reads it so)."""
+    if not q.is_cuda:
+        if fam == TRIANGULAR:
+            return flash_fwd_tri_plain(q, k, v, scale)
+        if fam == STREAMED:
+            return flash_fwd_streamed_plain(q, k, v, causal, scale)
+        return flash_fwd_plain(q, k, v, causal, scale)
+    d, width = q.shape[3], kernel_head_dim(q.shape[3])
+    q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
+    if kernel_dtype(q.dtype) == torch.float32:
+        o, lse = flash_fwd_f32(q, k, v, causal, scale)
+    elif fam == TRIANGULAR:
+        o, lse = flash_fwd_tri(q, k, v, scale)
+    elif fam == STREAMED:
+        o, lse = flash_fwd_streamed(q, k, v, causal, scale)
+    else:
+        o, lse = flash_fwd(q, k, v, causal, scale)
+    return unpad_head_dim(o, d), lse
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -623,7 +747,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool, scale: float, fam: str
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from a forward of family ``fam``: its dq kernel then
-    its dk/dv kernel on CUDA, its plain backward on the CPU."""
+    its dk/dv kernel on CUDA (on the kernels' head_dim and element type, as
+    in ``flash_forward``), its plain backward on the CPU."""
     if not do.is_cuda:
         if fam == TRIANGULAR:
             return flash_bwd_tri_plain(q, k, v, o, lse, do, scale)
@@ -631,8 +756,13 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return flash_bwd_streamed_plain(q, k, v, o, lse, do, causal,
                                             scale)
         return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    d, width = q.shape[3], kernel_head_dim(q.shape[3])
+    q, k, v, o, do = (pad_head_dim(t, width) for t in (q, k, v, o, do))
     do = do.contiguous()
-    if fam == TRIANGULAR:
+    if kernel_dtype(q.dtype) == torch.float32:
+        dq, delta = flash_dq_f32(q, k, v, o, lse, do, causal, scale)
+        dk, dv = flash_dkv_f32(q, k, v, do, lse, delta, causal, scale)
+    elif fam == TRIANGULAR:
         dq, delta = flash_dq_tri(q, k, v, o, lse, do, scale)
         dk, dv = flash_dkv_tri(q, k, v, do, lse, delta, scale)
     elif fam == STREAMED:
@@ -641,7 +771,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         dq, delta = flash_dq(q, k, v, o, lse, do, causal, scale)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, scale)
-    return dq, dk, dv
+    return tuple(unpad_head_dim(t, d) for t in (dq, dk, dv))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -689,8 +819,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Irregular shapes go to the reference, exactly where the JAX package
     sends them (``takes_kernel_path``); every other S reaches the kernels,
-    ragged tails included. Any shape the kernels do not take raises on
-    CUDA (``kernel_shape_error``: e.g. head_dim 256)."""
+    ragged tails included. On CUDA:
+
+    * head_dim: any multiple of 8 up to 128; it is zero-padded to 64 or 128
+      for the kernels, the scale stays ``D ** -0.5`` of the caller's D, and
+      the output and gradients are sliced back. Past 128 it raises
+      (``kernel_head_dim``: e.g. head_dim 256).
+    * dtype: bf16 and f16 run on the Hopper kernels' instances of that
+      type (fp32 sums inside, outputs in the input type); f16 holds |x|
+      <= 65504: an input, output or gradient past that becomes inf (and
+      the results inf or NaN; nothing clips or checks it), and values
+      under 6.1e-5 keep fewer bits. f32 runs on the fp32 kernels, exact to
+      fp32 rounding and far slower than the 16-bit ones. Other dtypes
+      raise (``kernel_dtype``).
+
+    Nothing on the card falls back to the plain versions."""
     if scale is None:
         scale = q.shape[3] ** -0.5
     if not takes_kernel_path(q.shape, k.shape):

@@ -39,6 +39,7 @@ OFFLOAD = ("memcpy dtoh", "memcpy htod")
 FAMILIES = (
     ("flash attention, triangular (port kernels)", ("_tri_kernel",)),
     ("flash attention, streamed (port kernels)", ("_streamed_kernel",)),
+    ("flash attention, fp32 (port kernels)", ("_f32_kernel",)),
     ("flash attention, resident (port kernels)", ("flash_fwd", "flash_dq",
                                                   "flash_dkv")),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
