@@ -11,22 +11,28 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    spills per kernel, and each Hopper kernel's launch registers, shared
    memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
    (wgmma) and UTMALDG (TMA load) instructions in every instance (head_dim
-   64 and 128, bf16 and f16) of the six Hopper kernels (flash_fwd,
-   flash_dq, flash_dkv, flash_fwd_tri, flash_dq_tri, flash_dkv_tri);
+   64 and 128, bf16 and f16) of the eight Hopper kernels (flash_fwd,
+   flash_dq, flash_dkv, flash_fwd_tri, flash_dq_tri, flash_dkv_tri,
+   flash_fwd_streamed, flash_dkv_streamed);
 3. kernels: each kernel of the three families against its plain PyTorch
    version on the card in bf16 (the resident family at its training
    shape and four others, causal and not, two with ragged S; the
    triangular family at five causal shapes past the resident budget, two
    with S not a multiple of 128; the streamed family at four non-causal
    shapes past it, one ragged, and one causal), and in f16 at each
-   family's main shape; the resident and triangular backward pairs run
-   twice on the same inputs at their main shapes must give bit-identical
-   dq, dk and dv; then, at each family's main shape, its time in bf16
-   and f16, the plain version's, the library call's
-   (scaled_dot_product_attention, a yardstick the port never calls), the
-   bound, and, for the triangular and streamed families, the resident
-   kernels' time at the same shape; at seq 32768, where no plain version
-   fits, the streamed kernels against the resident kernels, both timed;
+   family's main shape; each family's backward pair run twice on the same
+   inputs at its main shape must give bit-identical dq, dk and dv; then,
+   at each family's main shape, its time in bf16 and f16, the plain
+   version's, the library call's (scaled_dot_product_attention, a
+   yardstick the port never calls), the bound, and, for the triangular
+   and streamed families, the resident kernels' time at the same shape;
+   the streamed forward (the Hopper forward with the overlapped schedule)
+   is also timed at the resident and triangular main shapes beside
+   flash_fwd and flash_fwd_tri; at seq 32768, where no full plain version
+   fits, the streamed kernels against the resident kernels, both timed,
+   and against the plain versions on the first and last 512 q rows (o,
+   lse, dq) and KV rows (dk, dv) of every head, the plain lse and delta
+   for the latter built in q chunks;
    then the public attention op through autograd, with exactly one
    launch of each resident kernel: at a ragged S (200) against the plain
    versions; at head_dim 16 and 96 (zero-padded to the kernels' 64 and
@@ -57,8 +63,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
 7. tiny: LlamaConfig.tiny() (head_dim 16) takes 8 steps in bf16 and in
    f32 (batch 4 x seq 256, full remat): the loss must fall and the launch
    counts must be 2L/L/L, resident in bf16, fp32 kernels in f32;
-8. a summary of the six Hopper kernels (registers, shared memory, time
-   beside bound and SDPA, their step's time) and the streamed forward;
+8. a summary of the eight Hopper kernels (registers, shared memory, time
+   beside bound and SDPA, their step's time) and the streamed dq;
    the kernels line ({"kernels": [...]}, nine records), then the last
    line {"ok": true, "device": {...}}.
 
@@ -116,12 +122,17 @@ TRI_CHECK_SHAPES = (TRI_MAIN_SHAPE, (1, 16384, 8, 2, 64, True),
 # bidirectional use at long context, Llama-3-8B attention width), head_dim
 # 64, an unequal GQA group just past the budget, and the causal mode the
 # TPU kernels also have. At seq 32768 the plain versions no longer fit:
-# there the streamed kernels are held against the resident kernels.
+# there the streamed kernels are held against the resident kernels and,
+# on STR_SUBSET_ROWS rows at each end, against the plain versions.
 STR_MAIN_SHAPE = (1, 8192, 32, 8, 128, False)
 STR_CHECK_SHAPES = (STR_MAIN_SHAPE, (1, 16384, 8, 2, 64, False),
                     (1, 4608, 12, 2, 128, False), (1, 4608, 12, 2, 128, True),
                     (1, 4136, 12, 2, 128, False))
 STR_LONG_SHAPE = (1, 32768, 32, 8, 128, False)
+STR_SUBSET_ROWS = 512
+# q rows a chunk of the plain forward at STR_LONG_SHAPE (its fp32 scores:
+# 2 GiB per KV head's group).
+STR_PLAIN_CHUNK = 4096
 # The public op at a ragged S, through autograd (resident family).
 RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
 # The public op with f32 inputs: the JAX reference test's _make_qkv shape,
@@ -138,7 +149,11 @@ SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
                 ("flash_dkv", "flash_bwd", "flash_dkv_kernel"),
                 ("flash_fwd_tri", "flash_tri", "flash_fwd_tri_kernel"),
                 ("flash_dq_tri", "flash_tri", "flash_dq_tri_kernel"),
-                ("flash_dkv_tri", "flash_tri", "flash_dkv_tri_kernel"))
+                ("flash_dkv_tri", "flash_tri", "flash_dkv_tri_kernel"),
+                ("flash_fwd_streamed", "flash_streamed",
+                 "flash_fwd_streamed_kernel"),
+                ("flash_dkv_streamed", "flash_streamed",
+                 "flash_dkv_streamed_kernel"))
 # The kernels' element types (_build.DTYPES) by their tag in a kernel's
 # mangled name.
 ELEM_TAGS = {"bf16": "Bf16", "f16": "F16"}
@@ -219,7 +234,7 @@ def phase_build(build):
         print(f"[build] {name}.cu nvcc {rec['seconds']:.1f} s: "
               + "; ".join(_ptxas_summary(rec["ptxas"])), flush=True)
         for line in rec["ptxas"].splitlines():
-            if "warning" in line.lower():
+            if "warning" in line.lower() or "Performance Loss" in line:
                 print(f"[build] {name}.cu: {line.strip()}", flush=True)
     attrs = {}
     for name, source, kernel in SM90_KERNELS:
@@ -242,7 +257,11 @@ def phase_build(build):
 
 def phase_sass(build):
     """Every instance of the Hopper kernels (head_dim 64 and 128, bf16 and
-    f16) must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS."""
+    f16) must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS, and
+    its wgmmas must run asynchronously: ptxas serialises them (with a
+    "Potential Performance Loss" note) by placing a wait
+    (WARPGROUP.DEPBAR) after each one, so a kernel with as many waits as
+    wgmmas fails."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
     for _, source, kernel in SM90_KERNELS:
@@ -261,10 +280,13 @@ def phase_sass(build):
                 continue
             found.add(m.groups())
             hgmma, utmaldg = part.count("HGMMA"), part.count("UTMALDG")
+            waits = part.count("WARPGROUP.DEPBAR")
             print(f"[sass] {kernel}<{m.group(1)}, {m.group(2)}>: {hgmma} "
-                  f"HGMMA, {utmaldg} UTMALDG", flush=True)
+                  f"HGMMA, {utmaldg} UTMALDG, {waits} wgmma waits",
+                  flush=True)
             check(hgmma > 0 and utmaldg > 0,
                   f"{name} holds no wgmma or no TMA load")
+            check(waits < hgmma, f"{name}: ptxas serialised its wgmmas")
         want = {(str(d), tag) for d in (64, 128) for tag in ELEM_TAGS.values()}
         check(found == want, f"{kernel}: instances {sorted(found)} in "
               f"{lib}'s SASS, expected {sorted(want)}")
@@ -381,17 +403,18 @@ def phase_kernels(fa):
                 ("dk", (dk, dk_p), GRAD_REL_TOL),
                 ("dv", (dv, dv_p), GRAD_REL_TOL)))
             del o_p, lse_p, dq_p, dk_p, dv_p
-            if fam != fa.STREAMED and shape == main:
+            if shape == main:
                 _check_deterministic(fns, (q, k, v, do), (o, lse),
                                      (dq, dk, dv))
-            if shape == main:
                 records.update(_measure(fns, shape, (q, k, v, do),
                                         (o, lse, delta), errs))
                 _check_f16(fns, shape, idx, records)
+            if fam != fa.STREAMED and shape == main:
+                _time_streamed_forward(fa, fns, shape, (q, k, v), records)
             if fam != fa.RESIDENT and shape == main:
-                # The resident kernels at the same shape: the same tile
-                # steps, against the triangular family's longest-first
-                # list or the streamed family's cp.async ring.
+                # The resident kernels at the same shape: the same Hopper
+                # bodies in lockstep (and, beside the streamed dq, the
+                # Hopper dq).
                 res = Family(fa, fa.RESIDENT, causal, d ** -0.5)
                 o_r, lse_r = res.fwd(q, k, v)
                 _, delta_r = res.dq(q, k, v, o_r, lse_r, do)
@@ -409,6 +432,25 @@ def phase_kernels(fa):
             torch.cuda.empty_cache()
     phase_streamed_vs_resident(fa, records)
     return records
+
+
+def _time_streamed_forward(fa, fns, shape, qkv, records):
+    """The streamed forward (the Hopper forward, each consumer's softmax
+    overlapped with its own P V) at another family's main shape, timed in
+    turns with that family's forward (the same body in lockstep): what the
+    schedule would give there. Not used on that path."""
+    causal, scale = shape[-1], shape[4] ** -0.5
+    q, k, v = qkv
+    name = fns.names[0]
+    runs = {name: lambda: fns.fwd(q, k, v),
+            "streamed": lambda: fa.flash_fwd_streamed(q, k, v, causal,
+                                                      scale)}
+    times = {key: [] for key in runs}
+    for key in (name, "streamed", "streamed", name):
+        times[key].append(time_ms(runs[key], 20))
+    records[name]["streamed_instance_ms"] = times["streamed"]
+    print(f"[kernels] flash_fwd_streamed at {shape}: {times['streamed']} ms "
+          f"beside {name} {times[name]} ms (in turns)", flush=True)
 
 
 def _check_deterministic(fns, inputs, saved, grads):
@@ -581,11 +623,13 @@ def phase_pad_op(fa, attention_ops):
 
 
 def phase_streamed_vs_resident(fa, records):
-    """At seq 32768 no plain version fits on the card: the streamed
-    kernels are held against the resident kernels (the same function,
-    another staging of the K/V stream), as the JAX package's
-    test_streamed_kernels_match_resident holds its two families, and both
-    are timed with few repetitions."""
+    """At seq 32768 no full plain version fits on the card: the streamed
+    kernels are held against the resident kernels (the same function; the
+    forward and dk/dv the same bodies in another schedule, dq another
+    kernel), as the JAX package's test_streamed_kernels_match_resident
+    holds its two families, and both are timed with few repetitions; then
+    against the plain versions on a subset of rows
+    (_check_streamed_subset)."""
     shape = STR_LONG_SHAPE
     b, s, h, kvh, d, causal = shape
     check(fa.family(s, d, causal) == fa.STREAMED,
@@ -615,8 +659,49 @@ def phase_streamed_vs_resident(fa, records):
     for i, name in enumerate(fams[fa.STREAMED].names):
         records[name]["seq32768_ms"] = times[fa.STREAMED][i]
         records[name]["seq32768_resident_ms"] = times[fa.RESIDENT][i]
-    del q, k, v, do, out, got, ref
+    del ref, out
     torch.cuda.empty_cache()
+    _check_streamed_subset(fa, shape, (q, k, v, do), got)
+    del q, k, v, do, got
+    torch.cuda.empty_cache()
+
+
+def _check_streamed_subset(fa, shape, inputs, got):
+    """The streamed kernels at seq 32768 against the plain versions, on
+    the first and last STR_SUBSET_ROWS rows: o, lse and dq of those q rows
+    of every head against all keys (dq from the kernels' o and lse, as in
+    [kernels]), and dk and dv of those KV rows of every KV head over all q
+    rows, from a plain o and lse built STR_PLAIN_CHUNK q rows at a time
+    (delta = rowsum(dO * o) from that o)."""
+    b, s, h, kvh, d, causal = shape
+    scale = d ** -0.5
+    q, k, v, do = inputs
+    o, lse, dq, _, dk, dv = got
+    n = STR_SUBSET_ROWS
+    rows = torch.cat([torch.arange(n), torch.arange(s - n, s)]).to(q.device)
+    o_p, lse_p = fa.flash_fwd_streamed_plain(q[:, rows], k, v, causal,
+                                             scale)
+    dq_p, _, _ = fa.flash_bwd_streamed_plain(
+        q[:, rows], k, v, o[:, rows], lse[:, :, rows], do[:, rows], causal,
+        scale)
+    label = f"[kernels] streamed vs plain, q rows 0-{n - 1} and {s - n}-" \
+            f"{s - 1},"
+    _hold(label, shape, (("o", (o[:, rows], o_p), OUT_REL_TOL),
+                         ("lse", (lse[:, :, rows], lse_p), OUT_REL_TOL),
+                         ("dq", (dq[:, rows], dq_p), GRAD_REL_TOL)))
+    del o_p, lse_p, dq_p
+    o_all = torch.empty_like(q)
+    lse_all = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for c0 in range(0, s, STR_PLAIN_CHUNK):
+        c = slice(c0, c0 + STR_PLAIN_CHUNK)
+        o_all[:, c], lse_all[:, :, c] = fa.flash_fwd_streamed_plain(
+            q[:, c], k, v, causal, scale)
+    _, dk_p, dv_p = fa.flash_bwd_streamed_plain(
+        q, k[:, rows], v[:, rows], o_all, lse_all, do, causal, scale)
+    label = f"[kernels] streamed vs plain, kv rows 0-{n - 1} and {s - n}-" \
+            f"{s - 1},"
+    _hold(label, shape, (("dk", (dk[:, rows], dk_p), GRAD_REL_TOL),
+                         ("dv", (dv[:, rows], dv_p), GRAD_REL_TOL)))
 
 
 def _bound(flops, nbytes):
@@ -960,17 +1045,18 @@ def main() -> int:
     for name, _, kernel in SM90_KERNELS:
         rec = records[name]
         rec["regs"], rec["smem_bytes"] = attrs[(kernel, 128, "Bf16")]
+        where = (f"its step {rec['step_ms']:.1f} ms" if "step_ms" in rec
+                 else "per call of the non-causal op")
         print(f"[summary] {name} (Hopper, D=128: {rec['regs']} registers "
               f"at launch, {rec['smem_bytes']} B shared): {rec['ms']:.4f} "
               f"ms at {tuple(rec['shape'])}, bound {rec['bound_ms']:.4f} "
               f"ms, SDPA {rec['library_ms']:.4f} ms ({rec['library_covers']}"
-              f"), f16 {rec['f16_ms']:.4f} ms; its step {rec['step_ms']:.1f} "
-              "ms", flush=True)
-    rec = records["flash_fwd_streamed"]
-    print(f"[summary] flash_fwd_streamed (mma.sync + cp.async ring): "
+              f"), f16 {rec['f16_ms']:.4f} ms; {where}", flush=True)
+    rec = records["flash_dq_streamed"]
+    print(f"[summary] flash_dq_streamed (mma.sync + cp.async ring): "
           f"{rec['ms']:.4f} ms at {tuple(rec['shape'])}, bound "
-          f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms",
-          flush=True)
+          f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms "
+          f"({rec['library_covers']})", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

@@ -18,7 +18,8 @@
 // flash_tri.cu instantiates them in base 2, causal, as flash_dq_tri_kernel
 // and flash_dkv_tri_kernel; flash_bwd.cu in natural exp, with the runtime
 // causal flag, as flash_dq_kernel and flash_dkv_kernel (the resident
-// family).
+// family); flash_streamed.cu instantiates dkv_cta once more, as
+// flash_bwd.cu does, as flash_dkv_streamed_kernel.
 //
 // What bounds them: the tensor cores (at S 8192, D 128 ~S*D/2 flops per
 // byte they must move, far past the ~295 flop/byte ridge). Design:
@@ -49,8 +50,13 @@
 // - Registers: dq holds dq (D / 2 fp32 a thread), S and dP (32 each);
 //   dk/dv holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
 //   accumulator registers at D = 128, under the consumers' 232.
-// - Not done: ping-pong of the consumers, overlapping one tile's
-//   elementwise work with the next tile's products, a persistent grid.
+// - Not done: a persistent grid; overlapping one tile's elementwise work
+//   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
+//   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
+//   ptxas serialises every wgmma for want of registers, at 232 and at
+//   240). Running the two consumers half a tile apart on the forward's
+//   ping-pong barriers (each tile's two batches of products in turn) was
+//   correct, causal included, and no faster than lockstep (PERF.md).
 //
 // Traps, and what the code does about each:
 // - Unequal tiles make the two consumers' causal bounds differ. dq, q

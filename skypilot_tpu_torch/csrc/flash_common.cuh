@@ -1,27 +1,26 @@
 // Shared pieces of the flash-attention kernels: for every kernel the
-// 16-bit element types, parameters, softmax bases and mask; for the
-// streamed family's mma.sync kernels (flash_streamed.cu) tile shapes,
-// global->shared tile loads staged through cp.async, ldmatrix, the
-// mma.sync m16n8k16 tensor-core product with fp32 accumulation, the three
-// tile steps (forward, dq, dk/dv) as templates over the element type and
-// the softmax base, and their epilogues. The resident and triangular
-// families are Hopper-native instead (wgmma + TMA): their forwards are
-// flash_fwd_sm90.cuh, their dq and dk/dv flash_bwd_sm90.cuh.
+// 16-bit element types, parameters, softmax bases and mask; for the one
+// mma.sync kernel left, the streamed dq (flash_streamed.cu), its tile
+// shape, global->shared tile loads staged through cp.async, ldmatrix, the
+// mma.sync m16n8k16 tensor-core product with fp32 accumulation, its tile
+// step as a template over the element type and the softmax base, delta,
+// and its epilogue. Every other 16-bit kernel is Hopper-native (wgmma +
+// TMA): the forwards are flash_fwd_sm90.cuh, the dq and dk/dv kernels
+// flash_bwd_sm90.cuh.
 //
 // The resident and streamed families work in natural exp with a
 // natural-log lse; the triangular family works in exp2 with a base-2 lse,
-// as the TPU's long-context kernels do. The streamed loops keep the next
-// tile's cp.async copy in flight while the current tile's products run,
-// skip every fully masked tile (the KV loop stops at the causal bound) and
-// mask only the tiles that straddle the diagonal: the step is a template
-// over MASK, and interior tiles run the instance with no compare or select.
+// as the TPU's long-context kernels do. The streamed dq's loop keeps the
+// next tile's cp.async copy in flight while the current tile's products
+// run, stops at the causal bound and masks only the tile that straddles
+// the diagonal: the step is a template over MASK, and interior tiles run
+// the instance with no compare or select.
 //
 // Ragged sequence tails: S need only be a multiple of 8, so a sequence has
 // ceil(S / 64) tiles and the last may be partial. Rows at or past S load
 // as zeros, the last KV tile of a non-causal loop runs the MASK instance
 // with key columns at or past S dropped (causal loops drop them with the
-// diagonal), q rows past S carry a large finite lse (P = 0) and zero delta
-// into dk/dv, and every store is predicated on row < S.
+// diagonal), and every store is predicated on row < S.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 or .f16): lane =
 // 4*g + t.
@@ -74,14 +73,11 @@ struct F16 {
 };
 
 constexpr int kThreads = 128;          // 4 warps; each owns 16 rows of a tile
-constexpr int kTile = 64;              // q and kv rows per tile (fwd, dq, dkv)
-constexpr int kDkvQ = 32;              // q rows per inner tile of dk/dv
+constexpr int kTile = 64;              // q and kv rows per tile of dq
 // Elements of padding per shared row: rows stay 16-byte aligned and the 8 row
 // addresses of one ldmatrix fall in 8 different 4-bank groups.
 constexpr int kPad = 8;
 constexpr float kNegInf = -1e30f;      // the JAX package's mask value
-// The lse a q row past S carries into dk/dv: P = exp(x - kPastLse) = 0.
-constexpr float kPastLse = 1e30f;
 
 __host__ __device__ constexpr int row_elems(int d) { return d + kPad; }
 
@@ -93,7 +89,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Staged copies (the streamed family): 16-byte cp.async.cg copies from
+// Staged copies (the streamed dq): 16-byte cp.async.cg copies from
 // global to shared memory that bypass L1 and use no registers for the data.
 // A thread's copies since its last commit form one group; wait_all returns
 // once every group of this thread has landed, and a __syncthreads() after
@@ -205,7 +201,7 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const e16* s,
 }
 
 // The same when the shared tile is stored k-major (row k holds the n
-// values: V for P v, K for dS k, dO and q in the dk/dv products).
+// values: K for dS k).
 template <int D>
 __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const e16* s,
                                           int k0, int n0) {
@@ -361,126 +357,6 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-// ---------------------------------------------------------------- forward
-// One KV step of a 64-row q tile of one (b, h), the streamed forward's
-// body: each warp owns 16 q rows and keeps their q fragments, the running
-// (max, sum) and the fp32 output in registers.
-
-template <int D, class T, class Base, bool MASK>
-__device__ __forceinline__ void fwd_step(const e16* sK, const e16* sV,
-                                         int q_start, int k_start,
-                                         TileMask mask, float sm,
-                                         const uint32_t (&qf)[D / 16][4],
-                                         float (&acc)[D / 8][4],
-                                         float (&m)[2], float (&l)[2]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wrow = warp * 16;
-  float s[kTile / 8][4];
-  zero(s);
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-    for (int np = 0; np < kTile / 16; ++np) {
-      uint32_t bfr[4];
-      load_b_nk<D>(bfr, sK, np * 16, ks * 16);
-      mma<T>(s[2 * np], qf[ks], bfr[0], bfr[1]);
-      mma<T>(s[2 * np + 1], qf[ks], bfr[2], bfr[3]);
-    }
-  }
-
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int i = 0; i < kTile / 8; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[i][e] * sm;
-      if (MASK) {
-        const int qpos = q_start + wrow + g + (e >= 2 ? 8 : 0);
-        const int kpos = k_start + i * 8 + 2 * t + (e & 1);
-        if (mask.drop(qpos, kpos)) x = kNegInf;
-      }
-      s[i][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m[r], quad_max(mx[r]));
-    alpha[r] = Base::exp(m[r] - m_new);
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    acc[i][0] *= alpha[0];
-    acc[i][1] *= alpha[0];
-    acc[i][2] *= alpha[1];
-    acc[i][3] *= alpha[1];
-  }
-
-  // P = exp(s - m), packed straight into A fragments for P v.
-  uint32_t pf[kTile / 16][4];
-#pragma unroll
-  for (int i = 0; i < kTile / 8; ++i) {
-    const float p0 = Base::exp(s[i][0] - m[0]);
-    const float p1 = Base::exp(s[i][1] - m[0]);
-    const float p2 = Base::exp(s[i][2] - m[1]);
-    const float p3 = Base::exp(s[i][3] - m[1]);
-    l[0] += p0 + p1;
-    l[1] += p2 + p3;
-    pf[i / 2][(i % 2) * 2] = T::pack(p0, p1);
-    pf[i / 2][(i % 2) * 2 + 1] = T::pack(p2, p3);
-  }
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t bfr[4];
-      load_b_kn<D>(bfr, sV, kk * 16, dn * 16);
-      mma<T>(acc[2 * dn], pf[kk], bfr[0], bfr[1]);
-      mma<T>(acc[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
-    }
-  }
-}
-
-// The forward's epilogue: o = acc / l (T, contiguous (B, S, H, D)) and
-// lse = m + log(l) in the base for this warp's 16 rows of the q tile.
-template <int D, class T, class Base>
-__device__ __forceinline__ void store_o_lse(const FwdParams& p, int b, int h,
-                                            int q_start,
-                                            const float (&acc)[D / 8][4],
-                                            const float (&m)[2],
-                                            float (&l)[2]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-    inv[r] = 1.f / l[r];
-  }
-  const int row0 = q_start + warp * 16 + g;
-  const bool ok0 = row0 < p.S, ok1 = row0 + 8 < p.S;
-  e16* og = p.o + ((long long)b * p.S * p.H + h) * D;
-  const long long o_ss = (long long)p.H * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    if (ok0)
-      *reinterpret_cast<uint32_t*>(og + row0 * o_ss + col) =
-          T::pack(acc[i][0] * inv[0], acc[i][1] * inv[0]);
-    if (ok1)
-      *reinterpret_cast<uint32_t*>(og + (row0 + 8) * o_ss + col) =
-          T::pack(acc[i][2] * inv[1], acc[i][3] * inv[1]);
-  }
-  if (t == 0) {
-    float* lg = p.lse + ((long long)b * p.H + h) * p.S;
-    if (ok0) lg[row0] = m[0] + Base::log(l[0]);
-    if (ok1) lg[row0 + 8] = m[1] + Base::log(l[1]);
-  }
-}
-
 // --------------------------------------------------------------------- dq
 // One KV step of a 64-row q tile of one (b, h), the streamed dq's body: q
 // and dO sit in shared memory, each warp owns 16 rows and keeps its dq in
@@ -602,143 +478,6 @@ __device__ __forceinline__ void store_dq(const BwdParams& p, int b, int h,
     if (ok1)
       *reinterpret_cast<uint32_t*>(dqg + (row0 + 8) * dq_ss + col) =
           T::pack(dq[i][2] * p.scale, dq[i][3] * p.scale);
-  }
-}
-
-// ------------------------------------------------------------------ dk/dv
-// One step of a kv tile of 64 rows of one (b, kv head), the streamed
-// dk/dv's body. Its K and V tiles stay in
-// shared memory; each warp owns 16 kv rows and keeps their dk and dv in
-// fp32 registers (D/2 floats per lane each) while it loops over the G query
-// heads of its group and, for each, over 32-row q/dO tiles from the causal
-// start. The GQA group-sum therefore happens in registers: no atomics and
-// no per-query-head gradient in device memory. The body computes S^T =
-// k q^T directly, so P^T and dS^T come out in the C-fragment layout that
-// feeds P^T dO and dS^T q from registers. The 32-row q tile keeps the score
-// registers (2 x 16 per lane) beside the 2 x 64 accumulators at D = 128.
-
-template <int D, class T, class Base, bool MASK>
-__device__ __forceinline__ void dkv_step(const e16* sK, const e16* sV,
-                                         const e16* sQ, const e16* sdO,
-                                         const float* sLse,
-                                         const float* sDelta, int q_start,
-                                         int k_start, float sm,
-                                         float (&dk)[D / 8][4],
-                                         float (&dv)[D / 8][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wrow = warp * 16;
-  // S^T = k q^T (kv rows x q cols): k rows are A, q (n x k) is B.
-  float st[kDkvQ / 8][4];
-  zero(st);
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t ka[4];
-    load_a<D>(ka, sK, wrow, ks * 16);
-#pragma unroll
-    for (int np = 0; np < kDkvQ / 16; ++np) {
-      uint32_t bq[4];
-      load_b_nk<D>(bq, sQ, np * 16, ks * 16);
-      mma<T>(st[2 * np], ka, bq[0], bq[1]);
-      mma<T>(st[2 * np + 1], ka, bq[2], bq[3]);
-    }
-  }
-  // P^T = exp(scores^T - lse[q]), kept in fp32 for dS and packed for the
-  // dv product.
-  uint32_t pf[kDkvQ / 16][4];
-#pragma unroll
-  for (int c = 0; c < kDkvQ / 8; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qcol = c * 8 + 2 * t + (e & 1);
-      float x = st[c][e] * sm;
-      if (MASK) {
-        const int kpos = k_start + wrow + g + (e >= 2 ? 8 : 0);
-        if (q_start + qcol < kpos) x = kNegInf;
-      }
-      st[c][e] = Base::exp(x - sLse[qcol]);
-    }
-    pf[c / 2][(c % 2) * 2] = T::pack(st[c][0], st[c][1]);
-    pf[c / 2][(c % 2) * 2 + 1] = T::pack(st[c][2], st[c][3]);
-  }
-  // dv += P^T dO: dO is the (q x d) = (k x n) operand, stored k-major.
-#pragma unroll
-  for (int kk = 0; kk < kDkvQ / 16; ++kk) {
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t bfr[4];
-      load_b_kn<D>(bfr, sdO, kk * 16, dn * 16);
-      mma<T>(dv[2 * dn], pf[kk], bfr[0], bfr[1]);
-      mma<T>(dv[2 * dn + 1], pf[kk], bfr[2], bfr[3]);
-    }
-  }
-  // dP^T = v dO^T.
-  float dpt[kDkvQ / 8][4];
-  zero(dpt);
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t va[4];
-    load_a<D>(va, sV, wrow, ks * 16);
-#pragma unroll
-    for (int np = 0; np < kDkvQ / 16; ++np) {
-      uint32_t bd[4];
-      load_b_nk<D>(bd, sdO, np * 16, ks * 16);
-      mma<T>(dpt[2 * np], va, bd[0], bd[1]);
-      mma<T>(dpt[2 * np + 1], va, bd[2], bd[3]);
-    }
-  }
-  // dS^T = P^T * (dP^T - delta[q]); dk += dS^T q.
-  uint32_t dsf[kDkvQ / 16][4];
-#pragma unroll
-  for (int c = 0; c < kDkvQ / 8; ++c) {
-    float ds[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qcol = c * 8 + 2 * t + (e & 1);
-      ds[e] = st[c][e] * (dpt[c][e] - sDelta[qcol]);
-    }
-    dsf[c / 2][(c % 2) * 2] = T::pack(ds[0], ds[1]);
-    dsf[c / 2][(c % 2) * 2 + 1] = T::pack(ds[2], ds[3]);
-  }
-#pragma unroll
-  for (int kk = 0; kk < kDkvQ / 16; ++kk) {
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t bfr[4];
-      load_b_kn<D>(bfr, sQ, kk * 16, dn * 16);
-      mma<T>(dk[2 * dn], dsf[kk], bfr[0], bfr[1]);
-      mma<T>(dk[2 * dn + 1], dsf[kk], bfr[2], bfr[3]);
-    }
-  }
-}
-
-// The dk/dv epilogue for this warp's 16 rows of the kv tile at k_start:
-// dk takes the plain logit scale; both are written contiguous (B, S, KVH, D).
-template <int D, class T>
-__device__ __forceinline__ void store_dkv(const BwdParams& p, int b, int kvh,
-                                          int k_start,
-                                          const float (&dk)[D / 8][4],
-                                          const float (&dv)[D / 8][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = k_start + warp * 16 + g;
-  const bool ok0 = row0 < p.S, ok1 = row0 + 8 < p.S;
-  const long long ss = (long long)p.KVH * D;
-  const long long base = ((long long)b * p.S * p.KVH + kvh) * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    if (ok0) {
-      *reinterpret_cast<uint32_t*>(p.dk + base + row0 * ss + col) =
-          T::pack(dk[i][0] * p.scale, dk[i][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + base + row0 * ss + col) =
-          T::pack(dv[i][0], dv[i][1]);
-    }
-    if (ok1) {
-      *reinterpret_cast<uint32_t*>(p.dk + base + (row0 + 8) * ss + col) =
-          T::pack(dk[i][2] * p.scale, dk[i][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + base + (row0 + 8) * ss + col) =
-          T::pack(dv[i][2], dv[i][3]);
-    }
   }
 }
 

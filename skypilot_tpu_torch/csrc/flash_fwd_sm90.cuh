@@ -1,10 +1,12 @@
 // The Hopper-native flash-attention forward (sm_90a): wgmma + TMA, warp
 // specialised. One body, instantiated by flash_fwd.cu (the resident
-// family, natural-log lse) and flash_tri.cu (the triangular family, base-2
-// lse), each at head_dim 64 and 128 and element type bf16 and f16 (T, the
-// inputs' and outputs' type; the softmax and the sums stay fp32). The
-// function is the TPU forward's: o = softmax(scale * q k^T, causal) v and
-// lse = m + log(l), query head h reading KV head h / (H / KVH).
+// family, natural-log lse), flash_tri.cu (the triangular family, base-2
+// lse) and flash_streamed.cu (the streamed family, natural-log lse, with
+// the overlapped schedule below), each at head_dim 64 and 128
+// and element type bf16 and f16 (T, the inputs' and outputs' type; the
+// softmax and the sums stay fp32). The function is the TPU forward's: o =
+// softmax(scale * q k^T, causal) v and lse = m + log(l), query head h
+// reading KV head h / (H / KVH).
 //
 // What bounds it: the tensor cores. At the main shapes it does ~S*D/2 (or
 // more) flops per byte it must move, far past the card's ~295 flop/byte
@@ -25,11 +27,30 @@
 //   the one FFMA each score takes. P, cast to T, is the register A
 //   operand of O += P V (wgmma m64nDk16), V read from shared memory
 //   MN-major. After that product has completed, one thread per consumer
-//   arrives on the stage's empty barrier. The two consumers run the same
-//   loop independently, so one's softmax overlaps the other's products on
-//   the tensor cores. Not done: ping-pong scheduling of the two consumers
-//   (named barriers) and overlapping one tile's softmax with the next
-//   tile's Q K^T in the same warpgroup.
+//   arrives on the stage's empty barrier. In lockstep (kOverlap false: the
+//   resident and triangular instances) the two consumers run that loop
+//   independently and wait on the same barriers, so their softmaxes tend
+//   to coincide while the tensor cores idle.
+// - The overlapped schedule (kOverlap: the streamed instance;
+//   FlashAttention-3's section 3.2), for long loops: each consumer issues
+//   S_j = Q K_j^T and then O += P_{j-1} V_{j-1}, and runs tile j's softmax
+//   while P V is still in flight (o is rescaled by tile j's alpha just
+//   before the next P V, and P_j is packed once P V has read P_{j-1}'s
+//   registers). K and V then have their own full and empty barriers:
+//   stage j of K is released with stage j - 1 of V, after that P V, and
+//   the producer loads K_{j+1} ahead of V_j. Registers: o (D / 2), S (64)
+//   and the packed P (32) a thread, 160 at D = 128. Ping-pong of the two
+//   consumers on named barriers (section 3.1) on top of it measured no
+//   faster at the streamed main shape and was dropped (PERF.md).
+// - What ptxas needs to keep a product in flight across the softmax (else
+//   it waits for it early, or serialises every wgmma of the kernel, and
+//   says so only as a "Potential Performance Loss" note): no branch on a
+//   thread's own values (if (tid == 0) mbar_arrive) and no mbarrier
+//   arrival between the issue and the wait, hence arrivals predicated
+//   inside the instruction (mbar_arrive_if) and after the wait; no path
+//   on which the product is still in flight where its registers are read,
+//   hence tile 0's S peeled out of the loop; and the P registers fenced
+//   after the wait, so none is reused before it.
 // - Masking: only the KV tile that straddles the diagonal (causal) or S
 //   (the ragged last tile, non-causal) runs the MASK instance; a causal
 //   loop stops at the diagonal, so fully masked tiles are never loaded.
@@ -89,16 +110,19 @@ static_assert(kBM == kBN, "a causal q tile's loop ends at its own index");
 
 // Shared memory in bytes from a 1024-byte aligned base: Q (kBM x D), kRing
 // K tiles, kRing V tiles (kBN x D), each stored as D / 64 boxes of rows x
-// 128 bytes in the 128-byte swizzle; then the mbarriers full[kRing],
-// empty[kRing] and q. kBytes adds the slack for aligning the base.
-template <int D>
+// 128 bytes in the 128-byte swizzle; then kBars full mbarriers, kBars
+// empty ones and q: a K/V stage has one of each (kBars = kRing), or, for
+// the overlapped schedule (kSplit), K and V have their own (kBars = 2 *
+// kRing, K's stages first). kBytes adds the slack for aligning the base.
+template <int D, bool kSplit = false>
 struct FwdSmem {
   static constexpr int kQ = kBM * D * 2;
   static constexpr int kTileKV = kBN * D * 2;
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kRing * kTileKV;
   static constexpr int kBar = kV + kRing * kTileKV;
-  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
+  static constexpr int kBars = kSplit ? 2 * kRing : kRing;
+  static constexpr int kBytes = kBar + (2 * kBars + 1) * 8 + 1024;
 };
 
 // ------------------------------------------------------------- mbarriers
@@ -123,6 +147,18 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                :
                : "r"(bar)
                : "memory");
+}
+
+// One arrival from each thread whose `pred` holds, predicated inside the
+// instruction: no branch, so no divergent path that ptxas would have to
+// wait for a wgmma in flight in (it serialises every wgmma then).
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :
+      : "r"(bar), "r"((int)pred)
+      : "memory");
 }
 
 // Returns once the phase of parity `parity` has completed.
@@ -182,11 +218,29 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" : : : "memory");
 }
 
+// Returns once at most the newest committed group is still in flight.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" : : : "memory");
+}
+
 // After wgmma_wait_all: the accumulators are final here, not earlier.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) : : "memory");
+}
+
+// After a wait: the A fragments the waited-for wgmma read stay allocated,
+// and unwritten, until here. Without it ptxas may give their registers to
+// work placed between the issue and the wait, and then has to wait for
+// the wgmma before that work.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      asm volatile("" : "+r"(r[i][k]) : : "memory");
 }
 
 // A shared-memory matrix descriptor for the 128-byte swizzle (layout type
@@ -393,16 +447,55 @@ __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
   }
 }
 
-// The online softmax of one S tile (base 2): updates the running max and
-// sum of this thread's two rows, rescales o, and packs P into the A
-// fragments of P V's eight 16-deep k steps, rounded to T.
-template <int D, class T, bool MASK>
-__device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
-                                             float (&o)[D / 2],
-                                             float (&m)[2], float (&l)[2],
-                                             uint32_t (&pa)[kBN / 16][4],
-                                             float sm, int row0, int k_start,
-                                             TileMask mask) {
+// The producer's one thread for the overlapped schedule: Q, then K and V
+// tiles on their own barriers (full0 + 8 * st for K, full0 + 8 * (kRing +
+// st) for V, the empty ones alike), K_{j+1} ahead of V_j: a consumer needs
+// K_{j+1} a P V before V_j.
+template <int D>
+__device__ __forceinline__ void fwd_producer_split(const CUtensorMap& tq,
+                                                   const CUtensorMap& tk,
+                                                   const CUtensorMap& tv,
+                                                   const FwdParams& p,
+                                                   unsigned char* base,
+                                                   int b, int h, int qt,
+                                                   int n_kt) {
+  using L = FwdSmem<D, true>;
+  const int kvh = h / (p.H / p.KVH);
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kBars;
+  const uint32_t qbar = full0 + 16 * L::kBars;
+  mbar_expect_tx(qbar, L::kQ);
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c)
+    tma_load_4d(base + c * kBM * 128, &tq, qbar, c * kBoxCols, qt * kBM, h,
+                b);
+  // Tile j of operand x (0: K, 1: V) into its stage.
+  auto load = [&](int x, int j) {
+    const int st = j % kRing, bar = 8 * (x * kRing + st);
+    if (j >= kRing) mbar_wait(empty0 + bar, (j / kRing - 1) & 1);
+    mbar_expect_tx(full0 + bar, L::kTileKV);
+#pragma unroll
+    for (int c = 0; c < D / kBoxCols; ++c)
+      tma_load_4d(base + (x ? L::kV : L::kK) + st * L::kTileKV +
+                      c * kBN * 128,
+                  x ? &tv : &tk, full0 + bar, c * kBoxCols, j * kBN, kvh, b);
+  };
+  load(0, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) load(0, j + 1);
+    load(1, j);
+  }
+}
+
+// The running max of one S tile (base 2): drops the masked pairs (MASK),
+// updates the running max m of this thread's two rows and scales their
+// running sums l by alpha = exp2(m_old - m_new).
+template <bool MASK>
+__device__ __forceinline__ void online_max(float (&s)[kBN / 2],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2], float sm,
+                                           int row0, int k_start,
+                                           TileMask mask) {
   const int t = threadIdx.x % 4;
   const float kDrop = -__int_as_float(0x7f800000);  // -inf: exp2 gives 0
   float mx[2] = {kDrop, kDrop};
@@ -416,7 +509,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
       mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
     }
   }
-  float alpha[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     // m starts at the finite kNegInf, so a row with nothing kept yet has
@@ -426,6 +518,11 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
     m[r] = m_new;
     l[r] *= alpha[r];
   }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale_o(float (&o)[D / 2],
+                                          const float (&alpha)[2]) {
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     o[4 * i] *= alpha[0];
@@ -433,6 +530,21 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
     o[4 * i + 2] *= alpha[1];
     o[4 * i + 3] *= alpha[1];
   }
+}
+
+// The online softmax of one S tile (base 2): updates the running max and
+// sum of this thread's two rows, rescales o, and packs P into the A
+// fragments of P V's eight 16-deep k steps, rounded to T.
+template <int D, class T, bool MASK>
+__device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
+                                             float (&o)[D / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             uint32_t (&pa)[kBN / 16][4],
+                                             float sm, int row0, int k_start,
+                                             TileMask mask) {
+  float alpha[2];
+  online_max<MASK>(s, m, l, alpha, sm, row0, k_start, mask);
+  rescale_o<D>(o, alpha);
 #pragma unroll
   for (int i = 0; i < kBN / 8; ++i) {
     const float p0 = Base2::exp(fmaf(s[4 * i], sm, -m[0]));
@@ -446,8 +558,95 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
   }
 }
 
-// A consumer warpgroup: 64 q rows of the CTA's tile through every K/V
-// tile, then the epilogue.
+// The overlapped schedule's softmax of one S tile: s becomes P in fp32.
+// o is rescaled by alpha and P packed (pack_p) later, once the P V in
+// flight, which reads the previous P's registers and accumulates into o,
+// has completed.
+template <bool MASK>
+__device__ __forceinline__ void softmax_scores(float (&s)[kBN / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float sm,
+                                               int row0, int k_start,
+                                               TileMask mask) {
+  online_max<MASK>(s, m, l, alpha, sm, row0, k_start, mask);
+#pragma unroll
+  for (int i = 0; i < kBN / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * i + e] = Base2::exp(fmaf(s[4 * i + e], sm, -m[e >> 1]));
+    l[0] += s[4 * i] + s[4 * i + 1];
+    l[1] += s[4 * i + 2] + s[4 * i + 3];
+  }
+}
+
+// P (fp32 fragments of S's layout) into the A fragments of P V, rounded
+// to T.
+template <class T>
+__device__ __forceinline__ void pack_p(const float (&s)[kBN / 2],
+                                       uint32_t (&pa)[kBN / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < kBN / 8; ++i) {
+    pa[i / 2][(i % 2) * 2] = T::pack(s[4 * i], s[4 * i + 1]);
+    pa[i / 2][(i % 2) * 2 + 1] = T::pack(s[4 * i + 2], s[4 * i + 3]);
+  }
+}
+
+// Issues S = Q K^T against the K tile at byte offset `tile` (uncommitted):
+// dq at k step 0 of the consumer's Q rows, dk at stage 0's K.
+template <int D, class T>
+__device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint64_t dq,
+                                         uint64_t dk, int tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t in_box = (kk % 4) * 32;  // bytes into the 64-col box
+    wgmma_m64n128_ss<T>(s, dq + (((kk / 4) * kBM * 128 + in_box) >> 4),
+                        dk + ((tile + (kk / 4) * kBN * 128 + in_box) >> 4),
+                        kk);
+  }
+}
+
+// Issues o += P V against the V tile at byte offset `tile` (uncommitted).
+template <int D, class T>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[kBN / 16][4],
+                                         uint64_t dv, int tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_pv<D, T>(o, pa[kk], dv + ((tile + kk * 16 * 128) >> 4));
+}
+
+// A consumer's epilogue: o / l out through its own rows of the Q tile
+// (its last product has read them), lse = m + log2(l) (times ln 2 when
+// kNaturalLse) for rows < S, by the lanes whose t (lane % 4) is 0.
+template <int D, class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_epilogue(const FwdParams& p,
+                                             unsigned char* base, int b,
+                                             int h, int q_start, int row0,
+                                             int t, const float (&o)[D / 2],
+                                             const float (&m)[2],
+                                             float (&l)[2]) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.f / l[r];
+  }
+  store_rows<D, T>(o, inv, reinterpret_cast<e16*>(base),
+                p.o + ((long long)b * p.S * p.H + h) * D, (long long)p.H * D,
+                q_start, p.S);
+  if (t == 0) {
+    float* lg = p.lse + ((long long)b * p.H + h) * p.S;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = row0 + 8 * hf;
+      const float x = m[hf] + log2f(l[hf]);
+      if (row < p.S) lg[row] = kNaturalLse ? x * kLn2 : x;
+    }
+  }
+}
+
+// A consumer warpgroup in lockstep: 64 q rows of the CTA's tile through
+// every K/V tile, then the epilogue.
 template <int D, class T, bool kNaturalLse>
 __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
                                              unsigned char* base, int b,
@@ -483,14 +682,7 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t in_box = (kk % 4) * 32;  // bytes into the 64-col box
-      wgmma_m64n128_ss<T>(
-          s, dq + (((kk / 4) * kBM * 128 + in_box) >> 4),
-          dk + ((st * L::kTileKV + (kk / 4) * kBN * 128 + in_box) >> 4),
-          kk);
-    }
+    issue_qk<D, T>(s, dq, dk, st * L::kTileKV);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -502,47 +694,114 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
       softmax_step<D, T, false>(s, o, m, l, pa, sm, row0, j * kBN, mask);
 
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_pv<D, T>(o, pa[kk],
-                     dv + ((st * L::kTileKV + kk * 16 * 128) >> 4));
+    issue_pv<D, T>(o, pa, dv, st * L::kTileKV);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
     if (tid == 0) mbar_arrive(empty0 + 8 * st);  // K and V of st consumed
   }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-    inv[r] = 1.f / l[r];
-  }
-  // o / l through this consumer's own rows of the Q tile (its last
-  // product has read them).
-  store_rows<D, T>(o, inv, reinterpret_cast<e16*>(base),
-                p.o + ((long long)b * p.S * p.H + h) * D, (long long)p.H * D,
-                q_start, p.S);
-  if (t == 0) {
-    float* lg = p.lse + ((long long)b * p.H + h) * p.S;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = row0 + 8 * hf;
-      const float x = m[hf] + log2f(l[hf]);
-      if (row < p.S) lg[row] = kNaturalLse ? x * kLn2 : x;
-    }
-  }
+  fwd_epilogue<D, T, kNaturalLse>(p, base, b, h, q_start, row0, t, o, m,
+                                  l);
 }
 
-// One CTA of the forward: work item blockIdx.x is (b * H + h, q tile).
+// A consumer warpgroup in the overlapped schedule: iteration j issues S_j
+// and then P_{j-1} V_{j-1}, waits for S_j alone and runs tile j's softmax
+// while P V runs; then waits for P V, releases K_j and V_{j-1}, packs P_j.
+// Tile 0's S goes alone before the loop, the last tile's P V after it.
+// Between a product's issue and its wait nothing reads its registers on
+// any path and nothing arrives on an mbarrier or branches on a thread's
+// own values: ptxas would wait for the product there, or serialise every
+// wgmma of the kernel.
 template <int D, class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_consumer_overlap(const FwdParams& p,
+                                                     unsigned char* base,
+                                                     int b, int h, int qt,
+                                                     int n_kt, int j_mask) {
+  using L = FwdSmem<D, true>;
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q_start = qt * kBM;
+  const int row0 = q_start + cw * 64 + warp * 16 + g;  // and row0 + 8
+  // K's barriers at + 8 * st, V's at + 8 * (kRing + st).
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kBars;
+  const uint32_t qbar = full0 + 16 * L::kBars;
+  const float sm = p.scale * kLog2e;
+  const TileMask mask = {p.S, p.causal};
+  const uint64_t dq = smem_desc(base + cw * 64 * 128, 16, 1024);
+  const uint64_t dk = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t dv = smem_desc(base + L::kV, kBN * 128, 1024);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float s[kBN / 2];
+  uint32_t pa[kBN / 16][4];  // P_{j-1}, read by the P V in flight
+  // S_j issued after its K tile has landed.
+  auto issue_s = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+    mbar_wait(full0 + 8 * (j % kRing), (j / kRing) & 1);
+    wgmma_fence();
+    issue_qk<D, T>(s, dq, dk, (j % kRing) * L::kTileKV);
+    wgmma_commit();
+  };
+  auto softmax = [&](int j) {
+    if (j == j_mask)
+      softmax_scores<true>(s, m, l, alpha, sm, row0, j * kBN, mask);
+    else
+      softmax_scores<false>(s, m, l, alpha, sm, row0, j * kBN, mask);
+  };
+
+  mbar_wait(qbar, 0);
+  issue_s(0);
+  wgmma_wait_all();
+  fence_regs(s);
+  softmax(0);
+  mbar_arrive_if(empty0, tid == 0);  // K_0 read
+  pack_p<T>(s, pa);
+  for (int j = 1; j < n_kt; ++j) {
+    const int sp = (j - 1) % kRing;  // V_{j-1}'s stage
+    rescale_o<D>(o, alpha);
+    mbar_wait(full0 + 8 * (kRing + sp), ((j - 1) / kRing) & 1);
+    issue_s(j);
+    issue_pv<D, T>(o, pa, dv, sp * L::kTileKV);
+    wgmma_commit();
+    wgmma_wait_one();
+    fence_regs(s);
+    softmax(j);
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive_if(empty0 + 8 * (j % kRing), tid == 0);  // K_j read
+    mbar_arrive_if(empty0 + 8 * (kRing + sp), tid == 0);  // V_{j-1} read
+    fence_regs(s);  // P_j packed only after P V has read pa
+    pack_p<T>(s, pa);
+  }
+  const int sl = (n_kt - 1) % kRing;
+  rescale_o<D>(o, alpha);
+  mbar_wait(full0 + 8 * (kRing + sl), ((n_kt - 1) / kRing) & 1);
+  wgmma_fence();
+  issue_pv<D, T>(o, pa, dv, sl * L::kTileKV);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(o);
+  fwd_epilogue<D, T, kNaturalLse>(p, base, b, h, q_start, row0, t, o, m,
+                                  l);
+}
+
+// One CTA of the forward: work item blockIdx.x is (b * H + h, q tile);
+// kOverlap picks the overlapped schedule over lockstep.
+template <int D, class T, bool kNaturalLse, bool kOverlap = false>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
                                         const CUtensorMap& tv,
                                         const FwdParams& p,
                                         const int* __restrict__ work,
                                         unsigned char* smem) {
-  using L = FwdSmem<D>;
+  using L = FwdSmem<D, kOverlap>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
   const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
   const int b = bh / p.H, h = bh % p.H;
@@ -550,11 +809,11 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
   const int j_mask = masked_tile(p.causal, p.S, kBN, n_kt);
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
-    for (int i = 0; i < kRing; ++i) {
-      mbar_init(bars + 8 * i, 1);                     // full: the producer
-      mbar_init(bars + 8 * (kRing + i), kConsumers);  // empty: consumers
+    for (int i = 0; i < L::kBars; ++i) {
+      mbar_init(bars + 8 * i, 1);                        // full: producer
+      mbar_init(bars + 8 * (L::kBars + i), kConsumers);  // empty: consumers
     }
-    mbar_init(bars + 16 * kRing, 1);                  // q
+    mbar_init(bars + 16 * L::kBars, 1);                  // q
     asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
   }
   __syncthreads();
@@ -562,11 +821,19 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
   // ptxas can honour setmaxnreg.
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0)
-      fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
+    if (threadIdx.x == 0) {
+      if constexpr (kOverlap)
+        fwd_producer_split<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
+      else
+        fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
+    }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    fwd_consumer<D, T, kNaturalLse>(p, base, b, h, qt, n_kt, j_mask);
+    if constexpr (kOverlap)
+      fwd_consumer_overlap<D, T, kNaturalLse>(p, base, b, h, qt, n_kt,
+                                              j_mask);
+    else
+      fwd_consumer<D, T, kNaturalLse>(p, base, b, h, qt, n_kt, j_mask);
   }
 }
 
@@ -629,10 +896,13 @@ inline int encode_rows(CUtensorMap* map, const void* ptr, int D, int S,
 }
 
 // Encodes the three maps and launches `kernel` (an instance of this
-// forward) over the B * H * ceil(S / 128) items of `work`.
+// forward, with the overlapped schedule when `overlap`) over the B * H *
+// ceil(S / 128) items of `work`.
 template <int D, class T, class Kernel>
 inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
-                      const int* work, cudaStream_t stream) {
+                      const int* work, cudaStream_t stream,
+                      bool overlap = false) {
+  const int smem = overlap ? FwdSmem<D, true>::kBytes : FwdSmem<D>::kBytes;
   CUtensorMap tq, tk, tv;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
                            kBM);
@@ -643,11 +913,10 @@ inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
     err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
                          kBN);
   if (err) return err;
-  const cudaError_t e = allow_smem(kernel, FwdSmem<D>::kBytes);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int items = B * p.H * ceil_div(p.S, kBM);
-  kernel<<<items, kFwdThreads, FwdSmem<D>::kBytes, stream>>>(tq, tk, tv, p,
-                                                               work);
+  kernel<<<items, kFwdThreads, smem, stream>>>(tq, tk, tv, p, work);
   return (int)cudaGetLastError();
 }
 
@@ -668,9 +937,10 @@ inline int kernel_attrs(Kernel kernel, int smem, int threads, int producer,
 }
 
 template <int D, class T, class Kernel>
-inline int fwd_attrs(Kernel kernel, int* out) {
-  return kernel_attrs(kernel, FwdSmem<D>::kBytes, kFwdThreads, kProducerRegs,
-                      kConsumerRegs, out);
+inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
+  return kernel_attrs(kernel,
+                      overlap ? FwdSmem<D, true>::kBytes : FwdSmem<D>::kBytes,
+                      kFwdThreads, kProducerRegs, kConsumerRegs, out);
 }
 
 }  // namespace sm90

@@ -18,26 +18,30 @@
 // What bounds them: at (1, 8192, 32, 8, 128) non-causal each kernel does
 // 5,500 to 11,000 flops per byte it must move (the order of S), far past
 // the card's ~295 flop/byte ridge, so the tensor cores (bounds 1.11, 1.67
-// and 2.22 ms by operations for forward, dq and dk/dv). The tile steps are
-// flash_common.cuh's (mma.sync m16n8k16 from ldmatrix fragments, P and dS
-// fed from registers, the GQA group of dk/dv summed in registers without
-// atomics), with a bf16 and an f16 instance each.
+// and 2.22 ms by operations for forward, dq and dk/dv).
 //
-// What the TPU family adds over its resident one is how the KV stream is
-// staged: the KV axis is a sequential grid axis and Pallas double-buffers
-// each (block_k, d) fetch behind the previous step's compute. Here the
-// stream is a ring of kStages (2) tiles in shared memory filled by
-// cp.async: at the top of step j one barrier makes tile j visible and frees
-// the stage tile j-1 used; the block then issues the copy of tile j+1 into
-// that stage and runs tile j's products while it is in flight, so each
-// tile's load latency hides behind the previous tile's mma work instead of
-// stalling all four warps between two barriers. The forward and dq stream
-// 64-row K/V tiles past a q tile held in shared memory (and, for the
-// forward, in registers); dk/dv holds its 64-row K/V tile and streams the
-// 32-row q/dO tiles of every query head of its group, with their lse and
-// delta. Shared memory at D = 128: 87 KB (forward), 104 KB (dq), 70 KB
-// (dk/dv), two blocks per SM. TMA and wgmma are later steps.
-#include "flash_common.cuh"
+// On the TPU the streamed family differs from the resident one by how it
+// stages the KV (or q/dO) stream through VMEM; on Hopper every body
+// streams that operand through a shared-memory ring whatever S is. So:
+//
+// - The forward and dk/dv are the Hopper bodies (wgmma + TMA, one producer
+//   and two consumer warpgroups, a host-built work list; every bf16 and
+//   f16 instance at head_dim 64 and 128): flash_fwd_sm90.cuh's fwd_cta in
+//   natural log, as flash_fwd.cu's, and flash_bwd_sm90.cuh's dkv_cta in
+//   natural exp, as flash_bwd.cu's. For its long non-causal loops (64 K/V
+//   tiles a CTA) the forward takes the schedule the resident and
+//   triangular instances leave off: each consumer's softmax overlaps its
+//   own P V (fwd_cta's kOverlap; the two consumers in ping-pong on top
+//   measured no faster and were dropped). dk/dv is the resident instance's
+//   body as it is, in lockstep (its consumers offset half a tile measured
+//   no faster).
+// - dq keeps its mma.sync body (flash_common.cuh's dq_step: m16n8k16 from
+//   ldmatrix fragments, 64-row q tiles, 4 warps), its K/V tiles staged by
+//   a two-stage cp.async ring: at the top of step j one barrier makes tile
+//   j visible and frees the stage tile j-1 used; the block then issues the
+//   copy of tile j+1 into that stage and runs tile j's products while it
+//   is in flight. 104 KB of shared memory at D = 128, two blocks per SM.
+#include "flash_bwd_sm90.cuh"
 
 namespace stpu {
 namespace {
@@ -49,21 +53,9 @@ __host__ __device__ constexpr int tile_elems(int rows) {
 }
 
 template <int D>
-constexpr int fwd_streamed_smem_bytes() {
-  return (1 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(e16);
-}
-
-template <int D>
 constexpr int dq_streamed_smem_bytes() {
   return (2 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(e16) +
          kTile * (int)sizeof(float);
-}
-
-template <int D>
-constexpr int dkv_streamed_smem_bytes() {
-  return (2 * tile_elems<D>(kTile) + 2 * kStages * tile_elems<D>(kDkvQ)) *
-             (int)sizeof(e16) +
-         2 * kStages * kDkvQ * (int)sizeof(float);
 }
 
 // Issue the copies of K/V tile j (rows j*64..) into ring stage j % kStages.
@@ -82,58 +74,14 @@ __device__ __forceinline__ void issue_kv(const e16* kg, const e16* vg,
 }
 
 template <int D, class T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_streamed_kernel(const FwdParams p) {
+__global__ void __launch_bounds__(sm90::kFwdThreads, 1)
+flash_fwd_streamed_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const FwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kTE = tile_elems<D>(kTile);
-  e16* sQ = reinterpret_cast<e16*>(smem);
-  e16* sK = sQ + kTE;             // kStages K tiles, then
-  e16* sV = sK + kStages * kTE;   // kStages V tiles
-
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  // longest causal rows first
-  const int qt = ceil_div(p.S, kTile) - 1 - blockIdx.x;
-  const int q_start = qt * kTile;
-  const int wrow = (threadIdx.x / 32) * 16;
-  const e16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const e16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
-
-  // Prologue: q and K/V tile 0 in one group.
-  load_tile_async<D, kTile>(sQ, p.q + b * p.q_sb + h * p.q_sh +
-                                    q_start * p.q_ss, p.q_ss,
-                            p.S - q_start);
-  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, 0, sK, sV);
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) load_a<D>(qf[ks], sQ, wrow, ks * 16);
-
-  float acc[D / 8][4];
-  zero(acc);
-  float m[2] = {kNegInf, kNegInf};  // rows g and g+8
-  float l[2] = {0.f, 0.f};          // this lane's partial row sums
-  const float sm = p.scale * BaseE::kScoreMul;
-  const TileMask mask = {p.S, p.causal};
-
-  const int n_kt = p.causal ? qt + 1 : ceil_div(p.S, kTile);
-  const int j_mask = masked_tile(p.causal, p.S, kTile, n_kt);
-  for (int j = 0; j < n_kt; ++j) {
-    cp_async_wait_all();  // this thread's copies of tile j have landed
-    __syncthreads();      // everyone's have, and tile j-1 is consumed
-    if (j + 1 < n_kt)
-      issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, j + 1, sK, sV);
-    const e16* k_t = sK + (j % kStages) * kTE;
-    const e16* v_t = sV + (j % kStages) * kTE;
-    if (j == j_mask)
-      fwd_step<D, T, BaseE, true>(k_t, v_t, q_start, j * kTile, mask, sm,
-                                  qf, acc, m, l);
-    else
-      fwd_step<D, T, BaseE, false>(k_t, v_t, q_start, j * kTile, mask, sm,
-                                   qf, acc, m, l);
-  }
-  store_o_lse<D, T, BaseE>(p, b, h, q_start, acc, m, l);
+  sm90::fwd_cta<D, T, /*kNaturalLse=*/true, /*kOverlap=*/true>(tq, tk, tv, p,
+                                                               work, smem);
 }
 
 template <int D, class T>
@@ -200,125 +148,29 @@ flash_dq_streamed_kernel(const BwdParams p) {
   store_dq<D, T>(p, b, h, q_start, dq);
 }
 
-// The dk/dv stream: item `it` is query head kvh * G + it / per_head of the
-// group and q tile i0 + it % per_head. Issue its 32 q and dO rows and
-// their lse and delta (32 floats each: 8 threads of 16 bytes apiece) into
-// ring stage it % kStages. WHOLE: S is a multiple of the q tile, so no
-// row lies past it and the copies take no row predicate. Otherwise rows
-// past S load as zeros, with lse kPastLse and delta 0 (S is a multiple of
-// 8, so each 4-row chunk of the statistics lies wholly before S or wholly
-// past it): such rows add exactly 0 to dk and dv.
-template <int D, bool WHOLE>
-__device__ __forceinline__ void issue_q_item(const BwdParams& p, int b,
-                                             int kvh, int it, int i0,
-                                             int per_head, e16* sQ,
-                                             e16* sdO, float* sLse,
-                                             float* sDelta) {
-  constexpr int kQE = tile_elems<D>(kDkvQ);
-  constexpr int kStatChunks = kDkvQ / 4;
-  const int st = it % kStages;
-  const int h = kvh * (p.H / p.KVH) + it / per_head;
-  const int q_start = (i0 + it % per_head) * kDkvQ;
-  const int valid = WHOLE ? kDkvQ : p.S - q_start;
-  load_tile_async<D, kDkvQ>(sQ + st * kQE, p.q + b * p.q_sb + h * p.q_sh +
-                                               q_start * p.q_ss, p.q_ss,
-                            valid);
-  load_tile_async<D, kDkvQ>(sdO + st * kQE, p.dout + b * p.do_sb +
-                                                h * p.do_sh +
-                                                q_start * p.do_ss, p.do_ss,
-                            valid);
-  if (threadIdx.x < 2 * kStatChunks) {
-    const int c = threadIdx.x % kStatChunks;
-    const bool lse_half = threadIdx.x < kStatChunks;
-    float* dst = (lse_half ? sLse : sDelta) + st * kDkvQ + 4 * c;
-    if (4 * c < valid) {
-      const long long at = ((long long)b * p.H + h) * p.S + q_start + 4 * c;
-      cp_async16(dst, (lse_half ? p.lse : p.delta) + at);
-    } else {
-      // This stage's previous item is consumed (the caller's barrier);
-      // the next barrier makes the store visible with the copies.
-      const float x = lse_half ? kPastLse : 0.f;
-      *reinterpret_cast<float4*>(dst) = make_float4(x, x, x, x);
-    }
-  }
-  cp_async_commit();
-}
-
-// The dk/dv kernel's body, as one instance for S a multiple of the q tile
-// and one for a ragged S (the kernel picks once per launch): the item loop
-// with a row predicate on its copies ran 5-7% slower (PERF.md).
-template <int D, class T, bool WHOLE>
-__device__ __forceinline__ void dkv_streamed(const BwdParams& p,
-                                             unsigned char* smem) {
-  constexpr int kTE = tile_elems<D>(kTile), kQE = tile_elems<D>(kDkvQ);
-  e16* sK = reinterpret_cast<e16*>(smem);
-  e16* sV = sK + kTE;
-  e16* sQ = sV + kTE;             // kStages q tiles, then
-  e16* sdO = sQ + kStages * kQE;  // kStages dO tiles, then
-  float* sLse = reinterpret_cast<float*>(sdO + kStages * kQE);
-  float* sDelta = sLse + kStages * kDkvQ;  // kStages rows of 32 floats each
-
-  const int b = blockIdx.y / p.KVH, kvh = blockIdx.y % p.KVH;
-  const int k_start = blockIdx.x * kTile;  // kv tile 0 has the most q rows
-  const float sm = p.scale * BaseE::kScoreMul;
-
-  // Causal: q tiles start at the kv tile's first row, and the two 32-row
-  // q tiles that overlap the 64-row kv tile straddle the diagonal.
-  const int i0 = p.causal ? k_start / kDkvQ : 0;
-  const int i_free = p.causal ? i0 + kTile / kDkvQ : 0;
-  const int per_head = ceil_div(p.S, kDkvQ) - i0;
-  const int n_items = (p.H / p.KVH) * per_head;
-
-  // Prologue: the block's K/V tile and item 0 in one group.
-  load_tile_async<D, kTile>(sK, p.k + b * p.k_sb + kvh * p.k_sh +
-                                    k_start * p.k_ss, p.k_ss,
-                            p.S - k_start);
-  load_tile_async<D, kTile>(sV, p.v + b * p.v_sb + kvh * p.v_sh +
-                                    k_start * p.v_ss, p.v_ss,
-                            p.S - k_start);
-  issue_q_item<D, WHOLE>(p, b, kvh, 0, i0, per_head, sQ, sdO, sLse, sDelta);
-
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-  for (int it = 0; it < n_items; ++it) {
-    cp_async_wait_all();  // this thread's copies of item it have landed
-    __syncthreads();      // everyone's have, and item it-1 is consumed
-    if (it + 1 < n_items)
-      issue_q_item<D, WHOLE>(p, b, kvh, it + 1, i0, per_head, sQ, sdO, sLse,
-                             sDelta);
-    const int st = it % kStages;
-    const int i = i0 + it % per_head;
-    if (i < i_free)
-      dkv_step<D, T, BaseE, true>(sK, sV, sQ + st * kQE, sdO + st * kQE,
-                                  sLse + st * kDkvQ, sDelta + st * kDkvQ,
-                                  i * kDkvQ, k_start, sm, dk, dv);
-    else
-      dkv_step<D, T, BaseE, false>(sK, sV, sQ + st * kQE, sdO + st * kQE,
-                                   sLse + st * kDkvQ, sDelta + st * kDkvQ,
-                                   i * kDkvQ, k_start, sm, dk, dv);
-  }
-  store_dkv<D, T>(p, b, kvh, k_start, dk, dv);
-}
-
 template <int D, class T>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_streamed_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(sm90::kFwdThreads, 1)
+flash_dkv_streamed_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tlse,
+                          const __grid_constant__ CUtensorMap tdlt,
+                          const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if (p.S % kDkvQ == 0)
-    dkv_streamed<D, T, true>(p, smem);
-  else
-    dkv_streamed<D, T, false>(p, smem);
+  sm90::dkv_cta<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
 }
 
 }  // namespace
 }  // namespace stpu
 
-// dtype: the element type of q, k, v and o (Bf16::kDtype, F16::kDtype).
-// strides: (batch, seq, head) in elements for q, k, v. o is written
-// contiguous (B, S, H, D) and lse (B, H, S) fp32, natural log.
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. dtype: the element type
+// of q, k, v and o (Bf16::kDtype, F16::kDtype). strides: (batch, seq, head)
+// in elements for q, k, v. o is written contiguous (B, S, H, D) and lse
+// (B, H, S) fp32, natural log.
 extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
+                                       const void* work,
                                        const long long* strides, int B, int S,
                                        int H, int KVH, int D, int dtype,
                                        float scale, int causal,
@@ -327,10 +179,9 @@ extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
-  const dim3 grid(ceil_div(S, kTile), B * H);
-  STPU_LAUNCH_BY_D(D, dtype, flash_fwd_streamed_kernel,
-                   fwd_streamed_smem_bytes, grid,
-                   static_cast<cudaStream_t>(stream), p);
+  STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_streamed_kernel, p, B,
+                 static_cast<const int*>(work),
+                 static_cast<cudaStream_t>(stream), /*overlap=*/true);
 }
 
 // strides: q, k, v, o, dO. dq (B, S, H, D), of the inputs' type, and
@@ -354,13 +205,13 @@ extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
                    static_cast<cudaStream_t>(stream), p);
 }
 
-// strides: q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D),
-// of the inputs' type; lse and delta (B, H, S) fp32 are read through
-// 16-byte copies.
+// work: B*KVH*ceil(S/128) (b*KVH, 128-row kv tile) int32 pairs. strides:
+// q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D), of the
+// inputs' type; lse and delta (B, H, S) fp32 are read through tensor maps.
 extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
-                                       void* dk, void* dv,
+                                       void* dk, void* dv, const void* work,
                                        const long long* strides, int B, int S,
                                        int H, int KVH, int D, int dtype,
                                        float scale, int causal,
@@ -369,8 +220,19 @@ extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, causal);
-  const dim3 grid(ceil_div(S, kTile), B * KVH);
-  STPU_LAUNCH_BY_D(D, dtype, flash_dkv_streamed_kernel,
-                   dkv_streamed_smem_bytes, grid,
-                   static_cast<cudaStream_t>(stream), p);
+  STPU_SM90_BY_D(D, dtype, launch_dkv, flash_dkv_streamed_kernel, p, B,
+                 static_cast<const int*>(work),
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The build reports of the Hopper instances at (head_dim D, element type
+// dtype) (sm90::kernel_attrs): five ints, registers at launch, dynamic
+// shared memory, threads, producer and consumer registers.
+extern "C" int stpu_flash_fwd_streamed_attrs(int D, int dtype, int* out) {
+  STPU_SM90_BY_D(D, dtype, fwd_attrs, stpu::flash_fwd_streamed_kernel, out,
+                 /*overlap=*/true);
+}
+
+extern "C" int stpu_flash_dkv_streamed_attrs(int D, int dtype, int* out) {
+  STPU_SM90_BY_D(D, dtype, dkv_attrs, stpu::flash_dkv_streamed_kernel, out);
 }

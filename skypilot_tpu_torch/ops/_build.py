@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, dtype, scale, causal,
 # stream), dtype being the element type's code (DTYPES); the triangular
-# family is causal only; every Hopper kernel (the resident and triangular
-# families) takes its work list as the last pointer; the fp32 kernels take
-# no dtype. The *_attrs entries
+# family is causal only; every Hopper kernel (all but the streamed dq and
+# the fp32 kernels) takes its work list as the last pointer; the fp32
+# kernels take no dtype. The *_attrs entries
 # fill five ints for a Hopper kernel at a head_dim and dtype: registers at
 # launch, dynamic shared memory, threads, producer and consumer registers
 # (setmaxnreg).
@@ -57,9 +57,11 @@ SIGNATURES = {
                   "stpu_flash_dq_tri_attrs": _ATTRS,
                   "stpu_flash_dkv_tri": [_P] * 9 + _TRI_TAIL,
                   "stpu_flash_dkv_tri_attrs": _ATTRS},
-    "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 5 + _TAIL,
+    "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 6 + _TAIL,
+                       "stpu_flash_fwd_streamed_attrs": _ATTRS,
                        "stpu_flash_dq_streamed": [_P] * 8 + _TAIL,
-                       "stpu_flash_dkv_streamed": [_P] * 8 + _TAIL},
+                       "stpu_flash_dkv_streamed": [_P] * 9 + _TAIL,
+                       "stpu_flash_dkv_streamed_attrs": _ATTRS},
     "flash_f32": {"stpu_flash_fwd_f32": [_P] * 5 + _F32_TAIL,
                   "stpu_flash_dq_f32": [_P] * 8 + _F32_TAIL,
                   "stpu_flash_dkv_f32": [_P] * 8 + _F32_TAIL},

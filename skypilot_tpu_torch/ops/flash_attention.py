@@ -2,12 +2,15 @@
 
 Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` and of its
 dispatch by family (``_use_resident``, ``_flash_fwd``, ``_flash_bwd``).
-Three families of three CUDA kernels for sm_90a. Six are Hopper-native
+Three families of three CUDA kernels for sm_90a. Eight are Hopper-native
 (wgmma + TMA, one producer and two consumer warpgroups): the resident and
 triangular forwards share one body (``csrc/flash_fwd_sm90.cuh``), the
 resident and triangular dq and dk/dv the backward's
-(``csrc/flash_bwd_sm90.cuh``); the streamed family's three kernels share
-their mma.sync tile steps (``csrc/flash_common.cuh``). Every kernel takes
+(``csrc/flash_bwd_sm90.cuh``); the streamed forward and dk/dv are further
+instances of those two bodies (the forward with each consumer's softmax
+overlapped with its own products, for long loops); the streamed dq keeps its
+mma.sync
+tile step (``csrc/flash_common.cuh``). Every kernel takes
 any S that is a multiple of 8 (a ragged last tile is masked), head_dim 64
 or 128, and bf16 or f16 (one instance each); f32 inputs take three fp32
 kernels of their own (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
@@ -33,9 +36,10 @@ lse):
 
 * the streamed family (``csrc/flash_streamed.cu``), for ``_fwd_kernel``,
   ``_dq_kernel`` and ``_dkv_kernel``: the same three functions with the
-  resident family's conventions (natural-log lse, causal flag), their K/V
-  (or q/dO) stream staged through a cp.async ring in shared memory:
-  ``flash_fwd_streamed``, ``flash_dq_streamed``, ``flash_dkv_streamed``.
+  resident family's conventions (natural-log lse, causal flag):
+  ``flash_fwd_streamed`` and ``flash_dkv_streamed`` over the resident
+  work lists, ``flash_dq_streamed`` (a plain grid, its K/V stream staged
+  through a cp.async ring).
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
@@ -72,22 +76,21 @@ from skypilot_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# The streamed (mma.sync) kernels' tile: q, kv rows per block (a sequence
-# has ceil(S / TILE) of them, the last one possibly partial).
+# The streamed dq's (mma.sync) tile: q, kv rows per block (a sequence has
+# ceil(S / TILE) of them, the last one possibly partial).
 TILE = 64
 # q rows per CTA of the Hopper forward (csrc/flash_fwd_sm90.cuh kBM).
 FWD_TILE = 128
 # The Hopper backward (csrc/flash_bwd_sm90.cuh): rows of the resident tile
 # a CTA owns (dq: q rows, dk/dv: kv rows; kBwdRows) and of the tiles its
-# ring streams against it (dq: K/V, dk/dv: q/dO; kBwdTile).
+# ring streams against it (dq: K/V, dk/dv: q/dO, the streamed dk/dv's
+# too; kBwdTile).
 BWD_TILE = 128
 BWD_INNER = 64
-# q rows per inner tile of the streamed dk/dv kernel (csrc/flash_common.cuh
-# kDkvQ).
-DKV_Q_TILE = 32
 # S must be a multiple of this: the JAX package only sends such S to its
 # kernels (its blocks are multiples of 8), and the dk/dv kernels read lse
-# and delta in 16-byte chunks that lie wholly before S or past it.
+# and delta through a tensor map whose rows (4 * S bytes) a TMA copy needs
+# 16-byte aligned.
 SEQ_MULTIPLE = 8
 HEAD_DIMS = (64, 128)
 # The kernels' element types, by the code their C entries take.
@@ -493,8 +496,8 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # Every C entry takes (pointers..., strides, B, S, H, KVH, D, tail...,
 # stream); the tail is (dtype, scale, causal) for the resident and streamed
 # families, (dtype, scale) for the causal-only triangular one, (scale,
-# causal) for the fp32 kernels. The Hopper kernels (resident, triangular)
-# take their work list as their last pointer.
+# causal) for the fp32 kernels. The Hopper kernels (all but the streamed
+# dq) take their work list as their last pointer.
 
 def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
             *tail) -> None:
@@ -584,18 +587,19 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-family kernel forward: (o (B,S,H,D) of q's dtype, lse
-    (B,H,S) fp32 in natural log)."""
+    """Streamed-family kernel forward (the Hopper forward over 128-row q
+    tiles, longest first, each consumer's softmax overlapped with its own
+    P V): (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in natural log)."""
     return _fwd_call("flash_fwd_streamed", "flash_streamed", q, k, v, causal,
-                     scale)
+                     scale, scheduled=True)
 
 
 def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       causal: bool, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-family kernel dq: (dq (B,S,H,D) of q's dtype, delta =
-    rowsum(dO*O) (B,H,S) fp32)."""
+    """Streamed-family kernel dq (mma.sync, one block per 64-row q tile):
+    (dq (B,S,H,D) of q's dtype, delta = rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
                     do, causal, scale)
 
@@ -604,10 +608,11 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor,
                        delta: torch.Tensor, causal: bool, scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-family kernel dk/dv: (dk, dv) (B,S,KVH,D) of k's dtype, the
-    GQA group summed."""
+    """Streamed-family kernel dk/dv (the Hopper dk/dv body, the resident
+    instance's, in lockstep, over 128-row kv tiles, longest first): (dk,
+    dv) (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
-                     lse, delta, causal, scale)
+                     lse, delta, causal, scale, scheduled=True)
 
 
 def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,

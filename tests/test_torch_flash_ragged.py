@@ -80,7 +80,7 @@ _T, _BT, _BI = fa_torch.TILE, fa_torch.BWD_TILE, fa_torch.BWD_INNER
 
 
 @pytest.mark.parametrize("s,kind,tile,inner", [
-    pytest.param(s, kind, _T, _T if kind == "rows" else fa_torch.DKV_Q_TILE,
+    pytest.param(s, kind, _T, _T if kind == "rows" else _T // 2,
                  id=f"{s}-{kind}")
     for s in (RAGGED_S, 1000) for kind in ("rows", "cols")
 ] + [pytest.param(s, kind, _BT, _BI, id=f"bwd-{s}-{kind}")
@@ -88,9 +88,9 @@ _T, _BT, _BI = fa_torch.TILE, fa_torch.BWD_TILE, fa_torch.BWD_INNER
 def test_ragged_schedules_count_partial_tiles(s, kind, tile, inner):
     # At S not a multiple of the tile the dq and dk/dv lists count the
     # partial last tile: ceil(S / tile) tiles, costs from the JAX
-    # enumerations at those counts; the mma.sync kernels' 64-row tiles
-    # (dk/dv's against 32-row q tiles), and the Hopper backward's 128-row
-    # tiles against 64-row ones.
+    # enumerations at those counts; 64-row tiles (against 32-row q tiles
+    # for the columns), and the Hopper backward's 128-row tiles against
+    # 64-row ones.
     n_rows = 3
     work = fa_torch.tri_schedule(kind, n_rows, s, tile=tile,
                                  inner=inner).tolist()

@@ -71,13 +71,15 @@ def _dkv_pairs(work, s, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s", [2048, 1000, 200])
+@pytest.mark.parametrize("s", [2048, 1000, 200, 8192, 4136, 16384])
 @pytest.mark.parametrize("kind", ["rows", "cols"])
 def test_resident_work_lists_cover_every_tile_once(kind, s, causal):
     # The resident dq ("rows", over B * H) and dk/dv ("cols", over
     # B * KVH) walk bwd_schedule's list in both causal modes: every (row,
     # tile) once, and, with the kernels' loop bounds, every tile pair the
     # JAX enumeration needs (all of them when not causal) exactly once.
+    # The streamed dk/dv walks the same "cols" list, at the streamed
+    # family's lengths (8192, ragged 4136, 16384).
     n_rows = 3
     work = fa_torch.bwd_schedule(kind, n_rows, s).tolist()
     nt, ni = _ceil(s, _BT), _ceil(s, _BI)

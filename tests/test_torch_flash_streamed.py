@@ -12,8 +12,13 @@ plain versions a CPU tensor gets. The kernels honour the causal flag as
 the TPU ones do, so both modes are compared. The natural-log lse is
 compared as it is. Tolerances are the JAX tests' own: 2e-3 for outputs and
 lse, 5e-3 for gradients (f32 on both sides; the gap is summation order).
+What a CPU run can hold of the kernels themselves: that the sources
+instantiate the Hopper bodies, and that an on-card call reaches the three
+kernels with the work lists their CTAs walk.
 """
 import collections
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +33,7 @@ from skypilot_tpu_torch.ops import flash_attention as fa_torch
 OUT_TOL = 2e-3
 GRAD_TOL = 5e-3
 BLOCKS = [(128, 64), (64, 128)]
+_CSRC = pathlib.Path(fa_torch.__file__).resolve().parents[1] / "csrc"
 
 
 @pytest.fixture
@@ -162,3 +168,85 @@ def test_streamed_plain_matches_resident_plain(causal):
     want = fa_torch.flash_bwd_plain(q, k, v, o_r, lse_r, do, causal, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+# ------------------------------------------------ the kernels on the card
+
+@pytest.mark.parametrize("body", [
+    "sm90::fwd_cta<D, T, /*kNaturalLse=*/true",
+    "sm90::dkv_cta<D, T, BaseE",
+])
+def test_streamed_kernels_instantiate_the_hopper_bodies(body):
+    # The streamed forward and dk/dv are instances of the Hopper bodies
+    # (the forward in natural log, as the resident flash_fwd; dk/dv in
+    # natural exp, as the resident flash_dkv), with the schedules the
+    # bodies keep for long loops; the streamed dq stays its own mma.sync
+    # kernel. The mma.sync forward and dk/dv steps are gone.
+    text = (_CSRC / "flash_streamed.cu").read_text()
+    assert body in text
+    assert re.search(r"flash_dq_streamed_kernel\(const BwdParams p\)", text)
+    assert "dq_step<D, T, BaseE" in text
+    assert "dq_cta" not in text
+    common = (_CSRC / "flash_common.cuh").read_text()
+    for gone in ("fwd_step", "store_o_lse", "dkv_step", "store_dkv",
+                 "kDkvQ", "kPastLse"):
+        assert gone not in common
+
+
+class _OnCard(torch.Tensor):
+    is_cuda = True
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_streamed_family_reaches_its_kernels_with_work_lists(causal,
+                                                            monkeypatch):
+    # bf16 tensors on the card, streamed family: flash_forward and
+    # flash_backward launch flash_fwd_streamed, flash_dq_streamed and
+    # flash_dkv_streamed once each. The forward's launch carries the
+    # Hopper forward's list (128-row q tiles, B * H rows) and dk/dv's the
+    # Hopper backward's "cols" list (128-row kv tiles, B * KVH rows), each
+    # every (row, tile) once; dq's carries none. Spied here on CPU tensors
+    # that claim to be on the card, every other input check kept.
+    b, s, h, kvh, d = 1, 200, 4, 2, 64
+    launches = []
+    check = fa_torch._check_inputs
+
+    def on_card(*ts, **kw):
+        check(*(t.as_subclass(_OnCard) for t in ts), **kw)
+
+    def launch(name, source, ptrs, strides, q, n_kv, *tail):
+        launches.append((name, source, list(ptrs), n_kv, tail))
+
+    monkeypatch.setattr(fa_torch, "_check_inputs", on_card)
+    monkeypatch.setattr(fa_torch, "_launch", launch)
+    rng = np.random.default_rng(4)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16).as_subclass(_OnCard)
+        for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d),
+                      (b, s, h, d)))
+    o, lse = fa_torch.flash_forward(q, k, v, causal, 0.125,
+                                    fa_torch.STREAMED)
+    fa_torch.flash_backward(q, k, v, o, lse, do, causal, 0.125,
+                            fa_torch.STREAMED)
+    assert [(n, src) for n, src, *_ in launches] == [
+        ("flash_fwd_streamed", "flash_streamed"),
+        ("flash_dq_streamed", "flash_streamed"),
+        ("flash_dkv_streamed", "flash_streamed")]
+    for _, _, ptrs, n_kv, tail in launches:
+        assert n_kv == kvh
+        assert tail == (fa_torch._DTYPE_CODES[torch.bfloat16], 0.125,
+                        int(causal))
+    # The work list is the last pointer, the only int32 one.
+    lists = {n: [t for t in ptrs if t.dtype == torch.int32]
+             for n, _, ptrs, _, _ in launches}
+    assert lists["flash_dq_streamed"] == []
+    (fwd_work,) = lists["flash_fwd_streamed"]
+    (dkv_work,) = lists["flash_dkv_streamed"]
+    assert fwd_work is launches[0][2][-1] and dkv_work is launches[2][2][-1]
+    assert torch.equal(fwd_work, fa_torch.tri_schedule(
+        "rows", b * h, s, tile=fa_torch.FWD_TILE, inner=fa_torch.FWD_TILE))
+    assert torch.equal(dkv_work, fa_torch.bwd_schedule("cols", b * kvh, s))
+    for work, n_rows, tile in ((fwd_work, b * h, fa_torch.FWD_TILE),
+                               (dkv_work, b * kvh, fa_torch.BWD_TILE)):
+        assert sorted(map(tuple, work.tolist())) == [
+            (r, t) for r in range(n_rows) for t in range(-(-s // tile))]

@@ -172,16 +172,20 @@ def test_row_schedule_covers_the_triangle(n_rows, s, tile, inner):
     assert sum(cost) == n_rows * len(qs)
 
 
+# q tiles half the kv tiles: the column list at unequal small tiles.
+_HALF_T = _T // 2
+
+
 @pytest.mark.parametrize("n_rows,s,tile,inner", [
-    pytest.param(1, 64, _T, fa_torch.DKV_Q_TILE, id="1-64"),
-    pytest.param(2, 512, _T, fa_torch.DKV_Q_TILE, id="2-512"),
-    pytest.param(8, 1024, _T, fa_torch.DKV_Q_TILE, id="8-1024"),
+    pytest.param(1, 64, _T, _HALF_T, id="1-64"),
+    pytest.param(2, 512, _T, _HALF_T, id="2-512"),
+    pytest.param(8, 1024, _T, _HALF_T, id="8-1024"),
 ] + [pytest.param(2, s, _BT, _BI, id=f"bwd-2-{s}") for s in BWD_S])
 def test_col_schedule_covers_the_triangle(n_rows, s, tile, inner):
     # dk/dv: every (row, kv tile) once, heaviest (first) kv tiles first,
-    # counted in the kernel's q tiles: 64-row kv tiles against 32-row q
-    # tiles, or the Hopper dk/dv's 128-row kv tiles against 64-row q
-    # tiles.
+    # counted in q tiles: 64-row kv tiles against 32-row q tiles, or the
+    # Hopper dk/dv's (resident, triangular and streamed) 128-row kv tiles
+    # against 64-row q tiles.
     work = fa_torch.tri_schedule("cols", n_rows, s, tile=tile,
                                  inner=inner).tolist()
     nt = _ceil(s, tile)
