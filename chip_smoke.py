@@ -10,10 +10,11 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    process per source, all at once) and reports ptxas's registers and
    spills per kernel, and each Hopper kernel's launch registers, shared
    memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
-   (wgmma) and UTMALDG (TMA load) instructions in every instance (head_dim
-   64 and 128, bf16 and f16) of the eight Hopper kernels (flash_fwd,
-   flash_dq, flash_dkv, flash_fwd_tri, flash_dq_tri, flash_dkv_tri,
-   flash_fwd_streamed, flash_dkv_streamed);
+   (wgmma) and UTMALDG (TMA load) instructions, and fewer wgmma waits than
+   wgmmas, in every instance (head_dim 64 and 128, bf16 and f16) of the
+   nine Hopper kernels (flash_fwd, flash_dq, flash_dkv, flash_fwd_tri,
+   flash_dq_tri, flash_dkv_tri, flash_fwd_streamed, flash_dq_streamed,
+   flash_dkv_streamed);
 3. kernels: each kernel of the three families against its plain PyTorch
    version on the card in bf16 (the resident family at its training
    shape and four others, causal and not, two with ragged S; the
@@ -27,8 +28,12 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    yardstick the port never calls), the bound, and, for the triangular
    and streamed families, the resident kernels' time at the same shape;
    the streamed forward (the Hopper forward with the overlapped schedule)
-   is also timed at the resident and triangular main shapes beside
-   flash_fwd and flash_fwd_tri; at seq 32768, where no full plain version
+   and the streamed dq (the Hopper dq, Q and dO in registers, exp2) are
+   also timed at the resident and triangular main shapes, in turns beside
+   flash_fwd and flash_fwd_tri, flash_dq and flash_dq_tri (the dq checked
+   against the family's own there); nvidia-smi samples the SM clock and
+   power every 100 ms, and each kernel time is printed beside their
+   medians over its timing; at seq 32768, where no full plain version
    fits, the streamed kernels against the resident kernels, both timed,
    and against the plain versions on the first and last 512 q rows (o,
    lse, dq) and KV rows (dk, dv) of every head, the plain lse and delta
@@ -63,8 +68,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
 7. tiny: LlamaConfig.tiny() (head_dim 16) takes 8 steps in bf16 and in
    f32 (batch 4 x seq 256, full remat): the loss must fall and the launch
    counts must be 2L/L/L, resident in bf16, fp32 kernels in f32;
-8. a summary of the eight Hopper kernels (registers, shared memory, time
-   beside bound and SDPA, their step's time) and the streamed dq;
+8. a summary of the nine Hopper kernels (registers, shared memory, time
+   beside bound and SDPA and the SM clock during it, their step's time);
    the kernels line ({"kernels": [...]}, nine records), then the last
    line {"ok": true, "device": {...}}.
 
@@ -77,8 +82,10 @@ import json
 import pathlib
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -86,6 +93,7 @@ import torch
 # H100 SXM dense peaks: bf16 tensor cores and HBM3 (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+LN2 = 0.6931471805599453
 
 # Kernel vs plain, both on the card from the same bf16 (or f16) inputs.
 # The kernel rounds P and dS to the input type before its second product
@@ -152,6 +160,8 @@ SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
                 ("flash_dkv_tri", "flash_tri", "flash_dkv_tri_kernel"),
                 ("flash_fwd_streamed", "flash_streamed",
                  "flash_fwd_streamed_kernel"),
+                ("flash_dq_streamed", "flash_streamed",
+                 "flash_dq_streamed_kernel"),
                 ("flash_dkv_streamed", "flash_streamed",
                  "flash_dkv_streamed_kernel"))
 # The kernels' element types (_build.DTYPES) by their tag in a kernel's
@@ -168,6 +178,7 @@ LC_POLICY = "save_flash_offload_qkv"
 # The tiny phase: LlamaConfig.tiny() (dim 128, 8 heads: head_dim 16).
 TINY_BATCH, TINY_SEQ = 4, 256
 
+# The TPU kernel each port kernel replaces: its body, file:line.
 _FA = "skypilot_tpu/ops/pallas/flash_attention.py"
 TPU_KERNELS = {
     "flash_fwd": f"{_FA}:759", "flash_dq": f"{_FA}:862",
@@ -176,6 +187,8 @@ TPU_KERNELS = {
     "flash_fwd_streamed": f"{_FA}:57", "flash_dq_streamed": f"{_FA}:178",
     "flash_dkv_streamed": f"{_FA}:227",
 }
+# The port source each kernel is instantiated in (the bodies it shares are
+# csrc/flash_fwd_sm90.cuh and csrc/flash_bwd_sm90.cuh).
 _CSRC = "skypilot_tpu_torch/csrc"
 SOURCES = {
     "flash_fwd": f"{_CSRC}/flash_fwd.cu", "flash_dq": f"{_CSRC}/flash_bwd.cu",
@@ -198,18 +211,108 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
+class ClockSampler:
+    """The card's SM clock, its maximum, power draw, temperature and active
+    clock-limit reasons, sampled by nvidia-smi every 100 ms in a child
+    process and stamped with the host's perf_counter when read. Timings
+    (time_ms) mark their windows; `last()` summarises the samples within
+    PAD seconds of the last window (a window of a few ms holds no sample
+    of its own). Without nvidia-smi it samples nothing and says so."""
+
+    FIELDS = ("clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu")
+    # The limit reasons' field, under its current name and its older one.
+    REASONS = ("clocks_event_reasons.active", "clocks_throttle_reasons.active")
+    PAD = 0.15
+
+    def __init__(self):
+        self.samples, self.window = [], None
+        self.proc = self.thread = None
+
+    def start(self):
+        for reasons in self.REASONS:
+            query = ["nvidia-smi", "-i", "0", "--format=csv,noheader,nounits",
+                     "--query-gpu=" + ",".join(self.FIELDS + (reasons,))]
+            try:
+                probe = subprocess.run(query, capture_output=True, text=True,
+                                       timeout=30)
+            except (OSError, subprocess.SubprocessError):
+                return
+            if probe.returncode == 0:
+                self.proc = subprocess.Popen(
+                    query + ["-lms", "100"], stdout=subprocess.PIPE,
+                    stderr=subprocess.DEVNULL, text=True)
+                self.thread = threading.Thread(target=self._read,
+                                               daemon=True)
+                self.thread.start()
+                return
+
+    def _read(self):
+        for line in self.proc.stdout:
+            parts = [x.strip() for x in line.split(",")]
+            try:
+                values = [float(x) for x in parts[:4]]
+            except ValueError:
+                continue
+            self.samples.append((time.perf_counter(), *values, parts[4]))
+
+    def stop(self):
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            self.thread.join(timeout=10)
+            self.proc = None
+
+    def mark(self, t0, t1):
+        self.window = (t0, t1)
+
+    def last(self):
+        """{"sm_mhz", "max_mhz", "power_w", "temp_c", "reasons"} over the
+        last window: medians, the reasons seen; None without samples."""
+        if self.window is None:
+            return None
+        t0, t1 = self.window
+        got = [x for x in list(self.samples)
+               if t0 - self.PAD <= x[0] <= t1 + self.PAD]
+        if not got:
+            return None
+        return {"sm_mhz": statistics.median(x[1] for x in got),
+                "max_mhz": max(x[2] for x in got),
+                "power_w": statistics.median(x[3] for x in got),
+                "temp_c": max(x[4] for x in got),
+                "reasons": sorted({x[5] for x in got})}
+
+
+CLOCKS = ClockSampler()
+
+
+def clock_note(clk):
+    """A timing's clocks as printed beside it."""
+    if clk is None:
+        return "SM clock not sampled"
+    return (f"SM {clk['sm_mhz']:.0f} MHz (max {clk['max_mhz']:.0f}), "
+            f"{clk['power_w']:.1f} W, {clk['temp_c']:.0f} C, limit reasons "
+            f"{'/'.join(clk['reasons'])}")
+
+
 def time_ms(fn, reps, warmup=2):
-    """Mean device time of fn over reps, by CUDA events after warm-up."""
+    """Mean device time of fn over reps, by CUDA events after warm-up; the
+    window is marked on CLOCKS."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
+    CLOCKS.mark(t0, time.perf_counter())
     return start.elapsed_time(end) / reps
 
 
@@ -411,10 +514,12 @@ def phase_kernels(fa):
                 _check_f16(fns, shape, idx, records)
             if fam != fa.STREAMED and shape == main:
                 _time_streamed_forward(fa, fns, shape, (q, k, v), records)
+                _time_streamed_dq(fa, fam, fns, shape, (q, k, v, do),
+                                  (o, lse), records)
             if fam != fa.RESIDENT and shape == main:
                 # The resident kernels at the same shape: the same Hopper
-                # bodies in lockstep (and, beside the streamed dq, the
-                # Hopper dq).
+                # bodies in lockstep, dq with both operands of S and dP in
+                # shared memory and natural exp.
                 res = Family(fa, fa.RESIDENT, causal, d ** -0.5)
                 o_r, lse_r = res.fwd(q, k, v)
                 _, delta_r = res.dq(q, k, v, o_r, lse_r, do)
@@ -445,11 +550,48 @@ def _time_streamed_forward(fa, fns, shape, qkv, records):
     runs = {name: lambda: fns.fwd(q, k, v),
             "streamed": lambda: fa.flash_fwd_streamed(q, k, v, causal,
                                                       scale)}
-    times = {key: [] for key in runs}
-    for key in (name, "streamed", "streamed", name):
-        times[key].append(time_ms(runs[key], 20))
+    times = _in_turns(runs, name, "streamed")
     records[name]["streamed_instance_ms"] = times["streamed"]
     print(f"[kernels] flash_fwd_streamed at {shape}: {times['streamed']} ms "
+          f"beside {name} {times[name]} ms (in turns)", flush=True)
+
+
+def _in_turns(runs, a, b, reps=20):
+    """runs[a] and runs[b] timed a, b, b, a: {key: [ms, ms]}, each timing
+    printed with its clocks."""
+    times = {key: [] for key in runs}
+    for key in (a, b, b, a):
+        times[key].append(time_ms(runs[key], reps))
+        print(f"[kernels]   {key}: {times[key][-1]:.4f} ms; "
+              f"{clock_note(CLOCKS.last())}", flush=True)
+    return times
+
+
+def _time_streamed_dq(fa, fam, fns, shape, inputs, saved, records):
+    """The streamed dq (the Hopper dq with each consumer's Q and dO held
+    in registers, exp2 on the natural-log lse) at another family's main
+    shape, held against that family's dq there and timed in turns with it
+    (the same body with both operands of S and dP read from shared
+    memory; natural exp for the resident one, base 2 for the triangular
+    one, the same work): what that instance would give those rows. Not
+    used on their paths."""
+    causal, scale = shape[-1], shape[4] ** -0.5
+    q, k, v, do = inputs
+    o, lse = saved
+    # The streamed dq reads a natural-log lse; the triangular one is base 2.
+    lse_e = lse * LN2 if fam == fa.TRIANGULAR else lse
+    name = fns.names[1]
+    runs = {name: lambda: fns.dq(q, k, v, o, lse, do),
+            "streamed": lambda: fa.flash_dq_streamed(q, k, v, o, lse_e, do,
+                                                     causal, scale)}
+    (dq, _), (dq_s, _) = runs[name](), runs["streamed"]()
+    torch.cuda.synchronize()
+    _hold(f"[kernels] flash_dq_streamed vs {name}", shape,
+          (("dq", (dq_s, dq), GRAD_REL_TOL),))
+    times = _in_turns(runs, name, "streamed")
+    records[name]["streamed_dq_instance_ms"] = times["streamed"]
+    records[name]["ms_in_turns"] = times[name]
+    print(f"[kernels] flash_dq_streamed at {shape}: {times['streamed']} ms "
           f"beside {name} {times[name]} ms (in turns)", flush=True)
 
 
@@ -483,13 +625,13 @@ def _check_f16(fns, shape, seed, records):
         ("dq", (dq, dq_p), GRAD_REL_TOL), ("dk", (dk, dk_p), GRAD_REL_TOL),
         ("dv", (dv, dv_p), GRAD_REL_TOL)))
     del o_p, lse_p, dq_p, dk_p, dv_p
-    times = (time_ms(lambda: fns.fwd(q, k, v), 20),
-             time_ms(lambda: fns.dq(q, k, v, o, lse, do), 20),
-             time_ms(lambda: fns.dkv(q, k, v, do, lse, delta), 20))
-    for name, t in zip(fns.names, times):
-        records[name]["f16_ms"] = t
+    for name, fn in zip(fns.names, (
+            lambda: fns.fwd(q, k, v), lambda: fns.dq(q, k, v, o, lse, do),
+            lambda: fns.dkv(q, k, v, do, lse, delta))):
+        t = records[name]["f16_ms"] = time_ms(fn, 20)
         print(f"[kernels] {name} f16: {t:.4f} ms (bf16 "
-              f"{records[name]['ms']:.4f} ms)", flush=True)
+              f"{records[name]['ms']:.4f} ms); {clock_note(CLOCKS.last())}",
+              flush=True)
 
 
 def _op_grads(attention_ops, q, k, v, causal, do=None):
@@ -523,7 +665,7 @@ def phase_ragged_op(fa, attention_ops):
     shape = RAGGED_OP_SHAPE
     b, s, h, kvh, d, causal = shape
     scale = d ** -0.5
-    check(fa.family(s, d, causal) == fa.RESIDENT and s % fa.TILE,
+    check(fa.family(s, d, causal) == fa.RESIDENT and s % fa.BWD_INNER,
           f"{shape} is not a ragged resident shape")
     q, k, v, do = _inputs(shape, 13)
     fa.reset_launches()
@@ -725,11 +867,12 @@ def _measure(fns, shape, inputs, saved, errs):
         dkv_name: (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes
                    + 2 * stat_bytes),
     }
-    kernel_ms = {
-        fwd_name: time_ms(lambda: fns.fwd(q, k, v), 20),
-        dq_name: time_ms(lambda: fns.dq(q, k, v, o, lse, do), 20),
-        dkv_name: time_ms(lambda: fns.dkv(q, k, v, do, lse, delta), 20),
-    }
+    kernel_ms, clocks = {}, {}
+    for name, fn in ((fwd_name, lambda: fns.fwd(q, k, v)),
+                     (dq_name, lambda: fns.dq(q, k, v, o, lse, do)),
+                     (dkv_name, lambda: fns.dkv(q, k, v, do, lse, delta))):
+        kernel_ms[name] = time_ms(fn, 20)
+        clocks[name] = CLOCKS.last()
     plain_fwd = time_ms(lambda: fns.fwd_plain(q, k, v), 3, warmup=1)
     plain_bwd = time_ms(lambda: fns.bwd_plain(q, k, v, o, lse, do), 3,
                         warmup=1)
@@ -768,12 +911,16 @@ def _measure(fns, shape, inputs, saved, errs):
             "library_covers": "sdpa forward" if fwd
                               else "sdpa backward: dq, dk, dv",
             "flops": flops, "bytes": nbytes, "shape": list(shape),
+            # Medians of nvidia-smi's samples around the kernel's timing.
+            "sm_clock_mhz": clocks[name] and clocks[name]["sm_mhz"],
+            "power_w": clocks[name] and clocks[name]["power_w"],
         }
         print(f"[kernels] {name}: {kernel_ms[name]:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), "
               f"{flops / kernel_ms[name] / 1e9:.1f} TFLOP/s, plain "
               f"{records[name]['plain_ms']:.3f} ms, library "
-              f"{records[name]['library_ms']:.4f} ms", flush=True)
+              f"{records[name]['library_ms']:.4f} ms; "
+              f"{clock_note(clocks[name])}", flush=True)
     return records
 
 
@@ -1028,7 +1175,11 @@ def main() -> int:
     try:
         card = phase_device()
         attrs = phase_build(_build)
-        records = phase_kernels(fa)
+        CLOCKS.start()
+        try:
+            records = phase_kernels(fa)
+        finally:
+            CLOCKS.stop()
         phase_ragged_op(fa, attention_ops)
         phase_f32_op(fa, attention_ops)
         phase_pad_op(fa, attention_ops)
@@ -1047,16 +1198,14 @@ def main() -> int:
         rec["regs"], rec["smem_bytes"] = attrs[(kernel, 128, "Bf16")]
         where = (f"its step {rec['step_ms']:.1f} ms" if "step_ms" in rec
                  else "per call of the non-causal op")
+        clock = (f"SM {rec['sm_clock_mhz']:.0f} MHz" if rec["sm_clock_mhz"]
+                 else "SM clock not sampled")
         print(f"[summary] {name} (Hopper, D=128: {rec['regs']} registers "
               f"at launch, {rec['smem_bytes']} B shared): {rec['ms']:.4f} "
-              f"ms at {tuple(rec['shape'])}, bound {rec['bound_ms']:.4f} "
-              f"ms, SDPA {rec['library_ms']:.4f} ms ({rec['library_covers']}"
-              f"), f16 {rec['f16_ms']:.4f} ms; {where}", flush=True)
-    rec = records["flash_dq_streamed"]
-    print(f"[summary] flash_dq_streamed (mma.sync + cp.async ring): "
-          f"{rec['ms']:.4f} ms at {tuple(rec['shape'])}, bound "
-          f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms "
-          f"({rec['library_covers']})", flush=True)
+              f"ms at {tuple(rec['shape'])} ({clock}), bound "
+              f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms "
+              f"({rec['library_covers']}), f16 {rec['f16_ms']:.4f} ms; "
+              f"{where}", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": list(records.values())}))

@@ -13,13 +13,17 @@
 // Both are templates over D (64, 128), the element type T (bf16, f16:
 // the inputs', P's and dS's before their products, and the outputs') and
 // the softmax base (Base2: exp2 with a base-2 lse, sm = scale * log2(e)
-// folded into the one FFMA each score takes; BaseE: natural exp and lse);
+// folded into the one FFMA each score takes; BaseE: natural exp and lse;
+// BaseE2, dq only: a natural-log lse scaled into base 2 once per row,
+// then exp2 as Base2);
 // the mask is the runtime TileMask (causal, and key columns at or past S).
 // flash_tri.cu instantiates them in base 2, causal, as flash_dq_tri_kernel
 // and flash_dkv_tri_kernel; flash_bwd.cu in natural exp, with the runtime
 // causal flag, as flash_dq_kernel and flash_dkv_kernel (the resident
-// family); flash_streamed.cu instantiates dkv_cta once more, as
-// flash_bwd.cu does, as flash_dkv_streamed_kernel.
+// family); flash_streamed.cu instantiates both once more, as flash_bwd.cu
+// does, as flash_dq_streamed_kernel (in BaseE2, with Q and dO held in
+// registers, kRegA = 2) and flash_dkv_streamed_kernel: every backward
+// kernel of the 16-bit path is one of these two bodies.
 //
 // What bounds them: the tensor cores (at S 8192, D 128 ~S*D/2 flops per
 // byte they must move, far past the ~295 flop/byte ridge). Design:
@@ -35,10 +39,14 @@
 // - dq: the producer loads Q and dO (128 rows) once, then 64-row K and V
 //   tiles into a ring of kBwdRing stages (full and empty mbarrier per
 //   stage). Per tile each consumer runs S = Q K^T and dP = dO V^T as
-//   wgmma m64n64k16 with both operands read from shared memory (K-major),
-//   dS on the accumulator fragments, then dq += dS K with dS as the
-//   register A operand and K read MN-major (tnspB = 1): the forward's
-//   P V with K in V's place.
+//   wgmma m64n64k16, dS on the accumulator fragments, then dq += dS K
+//   with dS as the register A operand and K read MN-major (tnspB = 1):
+//   the forward's P V with K in V's place. S and dP read both operands
+//   from shared memory (K-major), or, with kRegA, Q (1) or Q and dO (2)
+//   from registers, loaded once from the swizzled tile (ldmatrix) into
+//   A fragments: an m64n64k16 with both operands in shared memory reads
+//   4 KB per 131 kFLOP, 128 B a clock at the tensor cores' peak, all
+//   that shared memory gives an SM; with A in registers it reads half.
 // - dk/dv: the producer loads K and V (128 rows) once, then, for each
 //   query head of the group and each 64-row q tile from the causal start
 //   (0 when not causal), Q, dO and the tile's lse and delta into the
@@ -47,9 +55,11 @@
 //   K-major), P^T and dS^T on the fragments (their C layout is the A
 //   fragment of the next products), then dv += P^T dO and dk += dS^T Q
 //   with dO and Q read MN-major from the same stage.
-// - Registers: dq holds dq (D / 2 fp32 a thread), S and dP (32 each);
-//   dk/dv holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
-//   accumulator registers at D = 128, under the consumers' 232.
+// - Registers: dq holds dq (D / 2 fp32 a thread), S and dP (32 each) and
+//   dS packed (16), plus with kRegA the A fragments of Q and dO (D / 4
+//   each): 208 at D = 128 with both, under the consumers' 232; dk/dv
+//   holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
+//   accumulator registers at D = 128.
 // - Not done: a persistent grid; overlapping one tile's elementwise work
 //   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
 //   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
@@ -201,6 +211,35 @@ __device__ __forceinline__ void mma_nt(float (&d)[32], uint64_t desc_a,
   }
 }
 
+// The same with A, this warpgroup's 64 rows, held in registers (a[kk] for
+// k step kk, as load_a_frags leaves them): only B is read from shared
+// memory, K-major (tnspB = 0).
+template <int D, class T>
+__device__ __forceinline__ void mma_rs_nt(float (&d)[32],
+                                          const uint32_t (&a)[D / 16][4],
+                                          uint64_t desc_b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_m64n64_rs<T, /*kTnspB=*/0>(
+        d, a[kk], desc_b + (((kk / 4) * kBwdTile * 128 + (kk % 4) * 32) >> 4));
+}
+
+// The wgmma A fragments of rows R0..R0 + 15 of a kBwdRows-row swizzled
+// tile over D, one k step of 16 columns each: the mma.m16n8k16 A layout,
+// which ldmatrix.x4 gives when lane l points at row R0 + l % 16, chunk
+// 2 kk + l / 16 (eight rows of a matrix, eight distinct swizzled chunks:
+// no bank conflicts).
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4],
+                                             const unsigned char* tile,
+                                             int R0) {
+  const int l = threadIdx.x % 32;
+  const e16* t = reinterpret_cast<const e16*>(tile);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(a[kk], t + swz(R0 + l % 16, 2 * kk + l / 16));
+}
+
 // d (64 x D fp32) += A B: A, 64 x kBwdTile of T from registers (a[kk] for
 // k step kk); B, a kBwdTile x D tile read MN-major at desc_b (LBO = the
 // box stride, kBwdTile * 128 bytes).
@@ -293,8 +332,11 @@ __device__ __forceinline__ void ds_tile(const float (&s)[32],
 }
 
 // A consumer warpgroup: delta for its 64 q rows, then dq over the K/V
-// tiles up to its causal bound, then the epilogue.
-template <int D, class T, class Base>
+// tiles up to its causal bound, then the epilogue. kRegA: how many of its
+// resident A operands, Q then dO, it holds in registers for the whole loop
+// (S = Q K^T and dP = dO V^T then read only K or V from shared memory);
+// 0 reads both from shared memory at every tile.
+template <int D, class T, class Base, int kRegA>
 __device__ __forceinline__ void dq_consumer(const BwdParams& p,
                                             unsigned char* base, int b,
                                             int h, int qt, int n_kt) {
@@ -318,7 +360,9 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   float lse_r[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf)
-    lse_r[hf] = row0 + 8 * hf < p.S ? p.lse[stat + row0 + 8 * hf] : 0.f;
+    lse_r[hf] = row0 + 8 * hf < p.S
+                    ? p.lse[stat + row0 + 8 * hf] * Base::kLseMul
+                    : 0.f;
 
   // delta = rowsum(dO * O): two threads a row, O from global memory, dO
   // from the swizzled tile; 0 past S.
@@ -346,6 +390,15 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   warpgroup_sync(1 + cw);
   const float dlt_r[2] = {sDelta[R0], sDelta[R0 + 8]};
 
+  // This warp's 16 rows of Q (and dO) as A fragments (unused arrays when
+  // kRegA leaves them in shared memory).
+  [[maybe_unused]] uint32_t qa[kRegA >= 1 ? D / 16 : 1][4];
+  [[maybe_unused]] uint32_t doa[kRegA >= 2 ? D / 16 : 1][4];
+  if constexpr (kRegA >= 1)
+    load_a_frags<D>(qa, base + L::kQ, cw * 64 + warp * 16);
+  if constexpr (kRegA >= 2)
+    load_a_frags<D>(doa, base + L::kDO, cw * 64 + warp * 16);
+
   // Descriptors: this consumer's Q and dO rows (A), stage 0's K and V (B,
   // K-major), and K again MN-major for dS K.
   const uint64_t d_q = smem_desc(base + L::kQ + cw * 64 * 128, 16, 1024);
@@ -366,8 +419,14 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
       wgmma_fence();
-      mma_nt<D, T>(s, d_q, kBwdRows * 128, d_k + tile, kBwdTile * 128);
-      mma_nt<D, T>(dp, d_do, kBwdRows * 128, d_v + tile, kBwdTile * 128);
+      if constexpr (kRegA >= 1)
+        mma_rs_nt<D, T>(s, qa, d_k + tile);
+      else
+        mma_nt<D, T>(s, d_q, kBwdRows * 128, d_k + tile, kBwdTile * 128);
+      if constexpr (kRegA >= 2)
+        mma_rs_nt<D, T>(dp, doa, d_v + tile);
+      else
+        mma_nt<D, T>(dp, d_do, kBwdRows * 128, d_v + tile, kBwdTile * 128);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -397,7 +456,7 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
 }
 
 // One CTA of dq: work item blockIdx.x is (b * H + h, 128-row q tile).
-template <int D, class T, class Base>
+template <int D, class T, class Base, int kRegA = 0>
 __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
                                        const CUtensorMap& tdo,
                                        const CUtensorMap& tk,
@@ -428,7 +487,7 @@ __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
       dq_producer<D>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dq_consumer<D, T, Base>(p, base, b, h, qt, n_kt);
+    dq_consumer<D, T, Base, kRegA>(p, base, b, h, qt, n_kt);
   }
 }
 
@@ -606,6 +665,7 @@ __device__ __forceinline__ void dkv_cta(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
     const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
     const BwdParams& p, const int* __restrict__ work, unsigned char* smem) {
+  static_assert(Base::kLseMul == 1.f, "dk/dv reads lse as the base's own");
   using L = DkvSmem<D>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
   const int bkv = work[2 * blockIdx.x], kt = work[2 * blockIdx.x + 1];

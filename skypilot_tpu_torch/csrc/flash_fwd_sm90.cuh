@@ -295,8 +295,8 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64],
 
 // d (m64n64, fp32) += A B: A, 64 x 16 of T, from registers (the
 // mma.m16n8k16 A fragment of each warp's 16 rows); B from shared memory
-// through a descriptor, MN-major (tnspB = 1).
-template <class T>
+// through a descriptor, MN-major (kTnspB = 1, tnspB) or K-major (0).
+template <class T, int kTnspB = 1>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc_b) {
@@ -307,7 +307,7 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
       "%24, %25, %26, %27, %28, %29, %30, %31"                              \
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                    \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
@@ -315,7 +315,8 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
         "+f"(d[30]), "+f"(d[31])                                            \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),    \
+        "n"(kTnspB))
   if constexpr (T::kHalf)
     STPU_WGMMA("f16");
   else

@@ -22,56 +22,31 @@
 //
 // On the TPU the streamed family differs from the resident one by how it
 // stages the KV (or q/dO) stream through VMEM; on Hopper every body
-// streams that operand through a shared-memory ring whatever S is. So:
+// streams that operand through a shared-memory ring whatever S is, so all
+// three kernels are instances of the Hopper bodies (wgmma + TMA, one
+// producer and two consumer warpgroups, a host-built work list; every
+// bf16 and f16 instance at head_dim 64 and 128), reading and writing a
+// natural-log lse with the runtime causal flag, as flash_fwd.cu's and
+// flash_bwd.cu's, each with what its long loops (64 or 128 tiles a CTA at
+// S 8192) take:
 //
-// - The forward and dk/dv are the Hopper bodies (wgmma + TMA, one producer
-//   and two consumer warpgroups, a host-built work list; every bf16 and
-//   f16 instance at head_dim 64 and 128): flash_fwd_sm90.cuh's fwd_cta in
-//   natural log, as flash_fwd.cu's, and flash_bwd_sm90.cuh's dkv_cta in
-//   natural exp, as flash_bwd.cu's. For its long non-causal loops (64 K/V
-//   tiles a CTA) the forward takes the schedule the resident and
-//   triangular instances leave off: each consumer's softmax overlaps its
-//   own P V (fwd_cta's kOverlap; the two consumers in ping-pong on top
-//   measured no faster and were dropped). dk/dv is the resident instance's
-//   body as it is, in lockstep (its consumers offset half a tile measured
-//   no faster).
-// - dq keeps its mma.sync body (flash_common.cuh's dq_step: m16n8k16 from
-//   ldmatrix fragments, 64-row q tiles, 4 warps), its K/V tiles staged by
-//   a two-stage cp.async ring: at the top of step j one barrier makes tile
-//   j visible and frees the stage tile j-1 used; the block then issues the
-//   copy of tile j+1 into that stage and runs tile j's products while it
-//   is in flight. 104 KB of shared memory at D = 128, two blocks per SM.
+// - the forward, flash_fwd_sm90.cuh's fwd_cta with the overlapped
+//   schedule (kOverlap: each consumer's softmax under its own P V; the
+//   two consumers in ping-pong on top measured no faster and were
+//   dropped);
+// - dq, flash_bwd_sm90.cuh's dq_cta with each consumer's 64 rows of Q
+//   and dO held as wgmma A fragments in registers for the whole loop
+//   (kRegA = 2: S = Q K^T and dP = dO V^T read only their K or V tile
+//   from shared memory, half of what two shared-memory operands take)
+//   and the natural-log lse taken into base 2 once per row (BaseE2: one
+//   FFMA and one ex2 a score, where natural exp takes a multiply, a range
+//   test and two predicated multiplies more);
+// - dk/dv, dkv_cta as the resident instance runs it, in lockstep (its
+//   consumers offset half a tile measured no faster).
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
 namespace {
-
-// Elements of one shared tile of `rows` rows.
-template <int D>
-__host__ __device__ constexpr int tile_elems(int rows) {
-  return rows * row_elems(D);
-}
-
-template <int D>
-constexpr int dq_streamed_smem_bytes() {
-  return (2 + 2 * kStages) * tile_elems<D>(kTile) * (int)sizeof(e16) +
-         kTile * (int)sizeof(float);
-}
-
-// Issue the copies of K/V tile j (rows j*64..) into ring stage j % kStages.
-// Rows at or past S are zero-filled.
-template <int D>
-__device__ __forceinline__ void issue_kv(const e16* kg, const e16* vg,
-                                         long long k_ss, long long v_ss,
-                                         int S, int j, e16* sK, e16* sV) {
-  const int st = j % kStages;
-  const int r0 = j * kTile;
-  load_tile_async<D, kTile>(sK + st * tile_elems<D>(kTile),
-                            kg + (long long)r0 * k_ss, k_ss, S - r0);
-  load_tile_async<D, kTile>(sV + st * tile_elems<D>(kTile),
-                            vg + (long long)r0 * v_ss, v_ss, S - r0);
-  cp_async_commit();
-}
 
 template <int D, class T>
 __global__ void __launch_bounds__(sm90::kFwdThreads, 1)
@@ -85,67 +60,14 @@ flash_fwd_streamed_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int D, class T>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_streamed_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(sm90::kFwdThreads, 1)
+flash_dq_streamed_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kTE = tile_elems<D>(kTile);
-  e16* sQ = reinterpret_cast<e16*>(smem);
-  e16* sdO = sQ + kTE;
-  e16* sK = sdO + kTE;            // kStages K tiles, then
-  e16* sV = sK + kStages * kTE;   // kStages V tiles
-  float* sDelta = reinterpret_cast<float*>(sV + kStages * kTE);
-
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  // longest causal rows first
-  const int qt = ceil_div(p.S, kTile) - 1 - blockIdx.x;
-  const int q_start = qt * kTile;
-  const int valid = p.S - q_start;
-  const int wrow = (threadIdx.x / 32) * 16, g = (threadIdx.x % 32) / 4;
-  const e16* kg = p.k + b * p.k_sb + kvh * p.k_sh;
-  const e16* vg = p.v + b * p.v_sb + kvh * p.v_sh;
-  const long long stat = ((long long)b * p.H + h) * p.S + q_start;
-
-  // Prologue: q, dO and K/V tile 0 in one group; then delta from O.
-  load_tile_async<D, kTile>(sQ, p.q + b * p.q_sb + h * p.q_sh +
-                                    q_start * p.q_ss, p.q_ss, valid);
-  load_tile_async<D, kTile>(sdO, p.dout + b * p.do_sb + h * p.do_sh +
-                                     q_start * p.do_ss, p.do_ss, valid);
-  issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, 0, sK, sV);
-  cp_async_wait_all();
-  __syncthreads();
-  tile_delta<D, T>(p, p.o + b * p.o_sb + h * p.o_sh + q_start * p.o_ss,
-                   sdO, sDelta, stat, valid);
-  __syncthreads();
-
-  // Rows past S are never stored; any finite lse keeps them finite.
-  const float lse_r[2] = {wrow + g < valid ? p.lse[stat + wrow + g] : 0.f,
-                          wrow + g + 8 < valid ? p.lse[stat + wrow + g + 8]
-                                               : 0.f};
-  const float dlt_r[2] = {sDelta[wrow + g], sDelta[wrow + g + 8]};
-  const float sm = p.scale * BaseE::kScoreMul;
-  const TileMask mask = {p.S, p.causal};
-
-  float dq[D / 8][4];
-  zero(dq);
-
-  const int n_kt = p.causal ? qt + 1 : ceil_div(p.S, kTile);
-  const int j_mask = masked_tile(p.causal, p.S, kTile, n_kt);
-  for (int j = 0; j < n_kt; ++j) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (j + 1 < n_kt)
-      issue_kv<D>(kg, vg, p.k_ss, p.v_ss, p.S, j + 1, sK, sV);
-    const e16* k_t = sK + (j % kStages) * kTE;
-    const e16* v_t = sV + (j % kStages) * kTE;
-    if (j == j_mask)
-      dq_step<D, T, BaseE, true>(sQ, sdO, k_t, v_t, q_start, j * kTile,
-                                 mask, sm, lse_r, dlt_r, dq);
-    else
-      dq_step<D, T, BaseE, false>(sQ, sdO, k_t, v_t, q_start, j * kTile,
-                                  mask, sm, lse_r, dlt_r, dq);
-  }
-  store_dq<D, T>(p, b, h, q_start, dq);
+  sm90::dq_cta<D, T, BaseE2, /*kRegA=*/2>(tq, tdo, tk, tv, p, work, smem);
 }
 
 template <int D, class T>
@@ -184,13 +106,13 @@ extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
                  static_cast<cudaStream_t>(stream), /*overlap=*/true);
 }
 
-// strides: q, k, v, o, dO. dq (B, S, H, D), of the inputs' type, and
-// delta (B, H, S) fp32 are written contiguous; lse and delta are 16-byte
-// aligned.
+// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs. strides: q, k,
+// v, o, dO. dq (B, S, H, D), of the inputs' type, and delta (B, H, S) fp32
+// are written contiguous; lse is natural-log.
 extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
-                                      void* dq, void* delta,
+                                      void* dq, void* delta, const void* work,
                                       const long long* strides, int B, int S,
                                       int H, int KVH, int D, int dtype,
                                       float scale, int causal,
@@ -199,10 +121,9 @@ extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, causal);
-  const dim3 grid(ceil_div(S, kTile), B * H);
-  STPU_LAUNCH_BY_D(D, dtype, flash_dq_streamed_kernel,
-                   dq_streamed_smem_bytes, grid,
-                   static_cast<cudaStream_t>(stream), p);
+  STPU_SM90_BY_D(D, dtype, launch_dq, flash_dq_streamed_kernel, p, B,
+                 static_cast<const int*>(work),
+                 static_cast<cudaStream_t>(stream));
 }
 
 // work: B*KVH*ceil(S/128) (b*KVH, 128-row kv tile) int32 pairs. strides:
@@ -231,6 +152,10 @@ extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
 extern "C" int stpu_flash_fwd_streamed_attrs(int D, int dtype, int* out) {
   STPU_SM90_BY_D(D, dtype, fwd_attrs, stpu::flash_fwd_streamed_kernel, out,
                  /*overlap=*/true);
+}
+
+extern "C" int stpu_flash_dq_streamed_attrs(int D, int dtype, int* out) {
+  STPU_SM90_BY_D(D, dtype, dq_attrs, stpu::flash_dq_streamed_kernel, out);
 }
 
 extern "C" int stpu_flash_dkv_streamed_attrs(int D, int dtype, int* out) {

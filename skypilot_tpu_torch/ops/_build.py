@@ -34,12 +34,11 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, dtype, scale, causal,
 # stream), dtype being the element type's code (DTYPES); the triangular
-# family is causal only; every Hopper kernel (all but the streamed dq and
-# the fp32 kernels) takes its work list as the last pointer; the fp32
-# kernels take no dtype. The *_attrs entries
-# fill five ints for a Hopper kernel at a head_dim and dtype: registers at
-# launch, dynamic shared memory, threads, producer and consumer registers
-# (setmaxnreg).
+# family is causal only; every Hopper kernel (all but the fp32 kernels)
+# takes its work list as the last pointer; the fp32 kernels take no dtype.
+# The *_attrs entries fill five ints for a Hopper kernel at a head_dim and
+# dtype: registers at launch, dynamic shared memory, threads, producer and
+# consumer registers (setmaxnreg).
 _TAIL = [_STRIDES, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 _F32_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
@@ -59,7 +58,8 @@ SIGNATURES = {
                   "stpu_flash_dkv_tri_attrs": _ATTRS},
     "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 6 + _TAIL,
                        "stpu_flash_fwd_streamed_attrs": _ATTRS,
-                       "stpu_flash_dq_streamed": [_P] * 8 + _TAIL,
+                       "stpu_flash_dq_streamed": [_P] * 9 + _TAIL,
+                       "stpu_flash_dq_streamed_attrs": _ATTRS,
                        "stpu_flash_dkv_streamed": [_P] * 9 + _TAIL,
                        "stpu_flash_dkv_streamed_attrs": _ATTRS},
     "flash_f32": {"stpu_flash_fwd_f32": [_P] * 5 + _F32_TAIL,

@@ -2,20 +2,17 @@
 
 Counterpart of ``skypilot_tpu/ops/pallas/flash_attention.py`` and of its
 dispatch by family (``_use_resident``, ``_flash_fwd``, ``_flash_bwd``).
-Three families of three CUDA kernels for sm_90a. Eight are Hopper-native
-(wgmma + TMA, one producer and two consumer warpgroups): the resident and
-triangular forwards share one body (``csrc/flash_fwd_sm90.cuh``), the
-resident and triangular dq and dk/dv the backward's
-(``csrc/flash_bwd_sm90.cuh``); the streamed forward and dk/dv are further
-instances of those two bodies (the forward with each consumer's softmax
-overlapped with its own products, for long loops); the streamed dq keeps its
-mma.sync
-tile step (``csrc/flash_common.cuh``). Every kernel takes
-any S that is a multiple of 8 (a ragged last tile is masked), head_dim 64
-or 128, and bf16 or f16 (one instance each); f32 inputs take three fp32
-kernels of their own (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
-``flash_dq_f32``, ``flash_dkv_f32``, every family's shapes, natural-log
-lse):
+Three families of three CUDA kernels for sm_90a, all nine Hopper-native
+(wgmma + TMA, one producer and two consumer warpgroups): every forward is
+an instance of one body (``csrc/flash_fwd_sm90.cuh``), every dq and dk/dv
+of the backward's (``csrc/flash_bwd_sm90.cuh``); the streamed instances
+take what their long loops need (the forward overlaps each consumer's
+softmax with its own products; dq holds Q and dO in registers and takes
+the natural-log lse into exp2). Every kernel takes any S that is a
+multiple of 8 (a ragged last tile is masked), head_dim 64 or 128, and
+bf16 or f16 (one instance each); f32 inputs take three fp32 kernels of
+their own (``csrc/flash_f32.cu``: ``flash_fwd_f32``, ``flash_dq_f32``,
+``flash_dkv_f32``, every family's shapes, natural-log lse):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
   ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
@@ -37,9 +34,8 @@ lse):
 * the streamed family (``csrc/flash_streamed.cu``), for ``_fwd_kernel``,
   ``_dq_kernel`` and ``_dkv_kernel``: the same three functions with the
   resident family's conventions (natural-log lse, causal flag):
-  ``flash_fwd_streamed`` and ``flash_dkv_streamed`` over the resident
-  work lists, ``flash_dq_streamed`` (a plain grid, its K/V stream staged
-  through a cp.async ring).
+  ``flash_fwd_streamed``, ``flash_dq_streamed`` and ``flash_dkv_streamed``
+  over the resident work lists.
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
@@ -76,9 +72,6 @@ from skypilot_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# The streamed dq's (mma.sync) tile: q, kv rows per block (a sequence has
-# ceil(S / TILE) of them, the last one possibly partial).
-TILE = 64
 # q rows per CTA of the Hopper forward (csrc/flash_fwd_sm90.cuh kBM).
 FWD_TILE = 128
 # The Hopper backward (csrc/flash_bwd_sm90.cuh): rows of the resident tile
@@ -363,8 +356,8 @@ def tri_schedule(kind: str, n_rows: int, s: int,
 
 def bwd_schedule(kind: str, n_rows: int, s: int,
                  device: Optional[torch.device] = None) -> torch.Tensor:
-    """The Hopper backward's work list (the resident and triangular dq,
-    "rows" over B * H, and dk/dv, "cols" over B * KVH): BWD_TILE-row tiles
+    """The Hopper backward's work list (every dq, "rows" over B * H, and
+    every dk/dv, "cols" over B * KVH): BWD_TILE-row tiles
     against BWD_INNER-row ones. One list serves both causal modes: it holds
     every (row, tile) once, and a non-causal launch's items all cost the
     same, so its order only matters when causal."""
@@ -496,8 +489,8 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # Every C entry takes (pointers..., strides, B, S, H, KVH, D, tail...,
 # stream); the tail is (dtype, scale, causal) for the resident and streamed
 # families, (dtype, scale) for the causal-only triangular one, (scale,
-# causal) for the fp32 kernels. The Hopper kernels (all but the streamed
-# dq) take their work list as their last pointer.
+# causal) for the fp32 kernels. The Hopper kernels take their work list as
+# their last pointer.
 
 def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
             *tail) -> None:
@@ -598,10 +591,12 @@ def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       causal: bool, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streamed-family kernel dq (mma.sync, one block per 64-row q tile):
-    (dq (B,S,H,D) of q's dtype, delta = rowsum(dO*O) (B,H,S) fp32)."""
+    """Streamed-family kernel dq (the Hopper dq over 128-row q tiles,
+    longest first, each consumer's Q and dO held in registers, exp2 on
+    the natural-log lse): (dq (B,S,H,D) of q's dtype, delta =
+    rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
-                    do, causal, scale)
+                    do, causal, scale, scheduled=True)
 
 
 def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -76,7 +76,9 @@ def test_forward_schedule_covers_128_row_tiles(n_rows, s):
     _check_schedule(work, n_rows, nt, qs.tolist())
 
 
-_T, _BT, _BI = fa_torch.TILE, fa_torch.BWD_TILE, fa_torch.BWD_INNER
+# _T: a small tile (64 rows), the lists' arithmetic at tiles other than
+# the kernels'.
+_T, _BT, _BI = 64, fa_torch.BWD_TILE, fa_torch.BWD_INNER
 
 
 @pytest.mark.parametrize("s,kind,tile,inner", [

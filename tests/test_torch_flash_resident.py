@@ -140,6 +140,33 @@ def test_dtype_codes_match_the_kernels(tag, name):
     assert got is not None and int(got.group(1)) == _build.DTYPES[name]
 
 
+def _c_kind(param):
+    return ("ptr" if "*" in param else
+            "float" if param.split()[0] == "float" else "int")
+
+
+def _ctypes_kind(argtype):
+    if argtype is _build.ctypes.c_float:
+        return "float"
+    return "int" if argtype is _build.ctypes.c_int else "ptr"
+
+
+@pytest.mark.parametrize("source", sorted(_build.SIGNATURES))
+def test_c_signatures_match_the_sources(source):
+    # ctypes passes what SIGNATURES declares, whatever the C entry takes:
+    # every extern "C" entry of a source is declared there, parameter by
+    # parameter (pointer, int or float), and nothing else is.
+    text = (_CSRC / f"{source}.cu").read_text()
+    entries = {name: [p.strip() for p in params.split(",")]
+               for name, params in re.findall(
+                   r'extern "C" int (stpu_\w+)\(([^)]*)\)', text)}
+    declared = _build.SIGNATURES[source]
+    assert set(entries) == set(declared)
+    for name, params in entries.items():
+        assert [_c_kind(p) for p in params] == [
+            _ctypes_kind(t) for t in declared[name]], name
+
+
 # -------------------------------------------------------- the dtype rule
 
 @pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 0),

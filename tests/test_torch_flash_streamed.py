@@ -13,8 +13,9 @@ the TPU ones do, so both modes are compared. The natural-log lse is
 compared as it is. Tolerances are the JAX tests' own: 2e-3 for outputs and
 lse, 5e-3 for gradients (f32 on both sides; the gap is summation order).
 What a CPU run can hold of the kernels themselves: that the sources
-instantiate the Hopper bodies, and that an on-card call reaches the three
-kernels with the work lists their CTAs walk.
+instantiate the Hopper bodies and hold no mma.sync or non-bulk cp.async,
+and that an on-card call reaches the three kernels with the work lists
+their CTAs walk.
 """
 import collections
 import pathlib
@@ -174,23 +175,36 @@ def test_streamed_plain_matches_resident_plain(causal):
 
 @pytest.mark.parametrize("body", [
     "sm90::fwd_cta<D, T, /*kNaturalLse=*/true",
+    "sm90::dq_cta<D, T, BaseE",
     "sm90::dkv_cta<D, T, BaseE",
 ])
 def test_streamed_kernels_instantiate_the_hopper_bodies(body):
-    # The streamed forward and dk/dv are instances of the Hopper bodies
-    # (the forward in natural log, as the resident flash_fwd; dk/dv in
-    # natural exp, as the resident flash_dkv), with the schedules the
-    # bodies keep for long loops; the streamed dq stays its own mma.sync
-    # kernel. The mma.sync forward and dk/dv steps are gone.
+    # All three streamed kernels are instances of the Hopper bodies (the
+    # forward in natural log, as the resident flash_fwd; dq and dk/dv in
+    # natural exp, as the resident flash_dq and flash_dkv), with what the
+    # bodies keep for long loops. The mma.sync steps and their cp.async
+    # ring are gone.
     text = (_CSRC / "flash_streamed.cu").read_text()
     assert body in text
-    assert re.search(r"flash_dq_streamed_kernel\(const BwdParams p\)", text)
-    assert "dq_step<D, T, BaseE" in text
-    assert "dq_cta" not in text
+    assert "dq_step" not in text
+    assert not re.search(r"flash_dq_streamed_kernel\(const BwdParams p\)",
+                         text)
     common = (_CSRC / "flash_common.cuh").read_text()
     for gone in ("fwd_step", "store_o_lse", "dkv_step", "store_dkv",
-                 "kDkvQ", "kPastLse"):
+                 "kDkvQ", "kPastLse", "dq_step", "tile_delta", "store_dq",
+                 "load_tile_async", "kStages", "STPU_LAUNCH"):
         assert gone not in common
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in _CSRC.iterdir()
+                                          if p.suffix in (".cu", ".cuh")))
+def test_no_kernel_source_holds_mma_sync_or_cp_async(source):
+    # Every 16-bit product is a wgmma and every tile load a TMA bulk copy
+    # (cp.async.bulk.tensor): no source keeps the pre-Hopper mma.sync
+    # product or a non-bulk cp.async copy, in code or in a comment.
+    text = (_CSRC / source).read_text()
+    assert "mma.sync" not in text
+    assert not re.search(r"cp\.async(?!\.bulk)", text)
 
 
 class _OnCard(torch.Tensor):
@@ -203,10 +217,11 @@ def test_streamed_family_reaches_its_kernels_with_work_lists(causal,
     # bf16 tensors on the card, streamed family: flash_forward and
     # flash_backward launch flash_fwd_streamed, flash_dq_streamed and
     # flash_dkv_streamed once each. The forward's launch carries the
-    # Hopper forward's list (128-row q tiles, B * H rows) and dk/dv's the
-    # Hopper backward's "cols" list (128-row kv tiles, B * KVH rows), each
-    # every (row, tile) once; dq's carries none. Spied here on CPU tensors
-    # that claim to be on the card, every other input check kept.
+    # Hopper forward's list (128-row q tiles, B * H rows), dq's the Hopper
+    # backward's "rows" list (128-row q tiles, B * H rows) and dk/dv's its
+    # "cols" list (128-row kv tiles, B * KVH rows), each every (row, tile)
+    # once. Spied here on CPU tensors that claim to be on the card, every
+    # other input check kept.
     b, s, h, kvh, d = 1, 200, 4, 2, 64
     launches = []
     check = fa_torch._check_inputs
@@ -239,14 +254,17 @@ def test_streamed_family_reaches_its_kernels_with_work_lists(causal,
     # The work list is the last pointer, the only int32 one.
     lists = {n: [t for t in ptrs if t.dtype == torch.int32]
              for n, _, ptrs, _, _ in launches}
-    assert lists["flash_dq_streamed"] == []
     (fwd_work,) = lists["flash_fwd_streamed"]
+    (dq_work,) = lists["flash_dq_streamed"]
     (dkv_work,) = lists["flash_dkv_streamed"]
-    assert fwd_work is launches[0][2][-1] and dkv_work is launches[2][2][-1]
+    assert all(work is launch[2][-1] for work, launch in
+               zip((fwd_work, dq_work, dkv_work), launches))
     assert torch.equal(fwd_work, fa_torch.tri_schedule(
         "rows", b * h, s, tile=fa_torch.FWD_TILE, inner=fa_torch.FWD_TILE))
+    assert torch.equal(dq_work, fa_torch.bwd_schedule("rows", b * h, s))
     assert torch.equal(dkv_work, fa_torch.bwd_schedule("cols", b * kvh, s))
     for work, n_rows, tile in ((fwd_work, b * h, fa_torch.FWD_TILE),
+                               (dq_work, b * h, fa_torch.BWD_TILE),
                                (dkv_work, b * kvh, fa_torch.BWD_TILE)):
         assert sorted(map(tuple, work.tolist())) == [
             (r, t) for r in range(n_rows) for t in range(-(-s // tile))]

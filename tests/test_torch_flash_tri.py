@@ -144,7 +144,9 @@ def test_family_follows_jax_budget(s, d, causal):
 # The long-context lengths the Hopper backward's lists must cover: ragged
 # (200, 4136), a multiple of 64 but not of 128 (4160), and whole.
 BWD_S = (200, 4096, 4136, 4160, 8192)
-_T, _BT, _BI = fa_torch.TILE, fa_torch.BWD_TILE, fa_torch.BWD_INNER
+# _T: a small square tile (64 rows), the lists' arithmetic at tiles
+# other than the kernels'.
+_T, _BT, _BI = 64, fa_torch.BWD_TILE, fa_torch.BWD_INNER
 
 
 def _ceil(a, b):
@@ -158,7 +160,7 @@ def _ceil(a, b):
 ] + [pytest.param(2, s, _BT, _BI, id=f"bwd-2-{s}") for s in BWD_S])
 def test_row_schedule_covers_the_triangle(n_rows, s, tile, inner):
     # Forward / dq: every (row, q tile) once, longest first; the pair count
-    # is the JAX enumeration's at the kernel's tiles: 64-row q and kv
+    # is the JAX enumeration's at the list's tiles: 64-row q and kv
     # tiles, or the Hopper dq's 128-row q tiles against 64-row kv tiles.
     work = fa_torch.tri_schedule("rows", n_rows, s, tile=tile,
                                  inner=inner).tolist()
