@@ -68,7 +68,29 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
 7. tiny: LlamaConfig.tiny() (head_dim 16) takes 8 steps in bf16 and in
    f32 (batch 4 x seq 256, full remat): the loss must fall and the launch
    counts must be 2L/L/L, resident in bf16, fp32 kernels in f32;
-8. a summary of the nine Hopper kernels (registers, shared memory, time
+8. adafactor: bench.py's 8B-shape leg at its largest candidate (Llama-3-8B
+   layer geometry, vocab 32768, 8 layers), batch 8 x seq 2048,
+   TrainConfig(optimizer="adafactor"), full remat, 8 steps on one batch:
+   the loss must fall, launches exactly 2L/L/L resident and no other, one
+   forward's loss within LOSS_TOL of the reference attention's; prints the
+   step, tokens/s, model TFLOP/s, the optimizer's time per step (CUDA
+   events) beside adamw's on the same parameters, and peak memory;
+9. lora: the LoRA recipe (recipes.llama_lora.main) at Llama-3-8B, full
+   width and depth, batch 8 x seq 2048 (examples/llama31_lora.yaml), three
+   runs: A 4 steps saving every 2, B 2 steps into a fresh directory, B'
+   resuming B to step 4; B' must report resumed_from 2, its step-4
+   checkpoint must equal A's byte for byte (adapters, optimizer state,
+   step, data position, RNG state), launches exactly 2L/L/L resident per
+   step over the 8 steps and no other, and A's trained adapters must
+   lower the loss on A's first batch below its step-1 loss; prints the
+   wall time per step of B' and peak memory;
+10. mixtral: Mixtral-8x7B widths (8 experts, top 2), depth cut to 2,
+   batch 2 x seq 2048, adafactor, full remat, 6 steps on one batch: CE +
+   aux must fall, the aux loss be finite and positive, launches exactly
+   2L/L/L resident and no other, one forward's loss within LOSS_TOL of the
+   reference attention's; prints the step and the share of token choices
+   dropped by capacity at step 1;
+11. a summary of the nine Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
    the kernels line ({"kernels": [...]}, nine records), then the last
    line {"ok": true, "device": {...}}.
@@ -76,15 +98,19 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
 Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
 the port from beside itself). Imports nothing of JAX.
 """
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import pathlib
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -177,6 +203,17 @@ LC_LAYERS, LC_BATCH, LC_SEQ = 4, 1, 8192
 LC_POLICY = "save_flash_offload_qkv"
 # The tiny phase: LlamaConfig.tiny() (dim 128, 8 heads: head_dim 16).
 TINY_BATCH, TINY_SEQ = 4, 256
+# The adafactor phase: bench.py's 8B-shape leg (_eight_b_shape_leg) at its
+# largest candidate, as bench.py runs it.
+AF_LAYERS, AF_VOCAB, AF_MAX_SEQ = 8, 32768, 4096
+AF_BATCH, AF_SEQ = 8, 2048
+# The lora phase: examples/llama31_lora.yaml's shape, Llama-3-8B at full
+# width and depth; run A's steps, B's, and B' resuming B to A's count.
+LORA_BATCH, LORA_SEQ = 8, 2048
+LORA_STEPS, LORA_SPLIT = 4, 2
+# The mixtral phase: Mixtral-8x7B widths; depth cut from 32 to 2 layers
+# (47 B parameters in bf16 do not fit one 80 GB card).
+MX_LAYERS, MX_BATCH, MX_SEQ, MX_STEPS = 2, 2, 2048, 6
 
 # The TPU kernel each port kernel replaces: its body, file:line.
 _FA = "skypilot_tpu/ops/pallas/flash_attention.py"
@@ -1155,6 +1192,298 @@ def phase_tiny(fa, llama, trainer):
         check(launches == expect, f"launch counts {launches} != {expect}")
 
 
+def _resident_expect(launches, n_layers, steps):
+    """2L resident forwards (full remat), L dq and L dk/dv per step, no
+    other kernel."""
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"flash_fwd": 2 * n_layers * steps,
+                   "flash_dq": n_layers * steps,
+                   "flash_dkv": n_layers * steps})
+    return expect
+
+
+def _finite(xs):
+    return all(x == x and abs(x) != float("inf") for x in xs)
+
+
+class _TimedOptimizer:
+    """An optimizer whose ``update_`` is bracketed by CUDA events on the
+    current stream: its device time per step, with no host sync added."""
+
+    def __init__(self, tx):
+        self.tx, self.events = tx, []
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update_(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.tx.update_(*args, **kwargs)
+        end.record()
+        self.events.append((start, end))
+
+    def ms(self):
+        """Median over the steps after the first (synchronise first)."""
+        times = [s.elapsed_time(e) for s, e in self.events[1:]]
+        return sorted(times)[len(times) // 2]
+
+
+def _train_steps(fa, step, state, batch, steps):
+    """``steps`` steps from zeroed launch counts: (losses, aux losses,
+    step seconds, launches, peak GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, aux, step_s = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["total_loss"])
+        aux.append(metrics["aux_loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    return ([float(x) for x in losses], [float(x) for x in aux], step_s,
+            launches, torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _kernel_vs_reference(label, forward, cfg, params, tokens, trainer):
+    """One forward's CE through the kernels and through the reference
+    attention, same weights; fails past LOSS_TOL."""
+    out = {}
+    with torch.no_grad():
+        for impl in ("kernel", "reference"):
+            c = dataclasses.replace(cfg, attention_impl=impl, remat=False)
+            logits = forward(c, params, tokens)
+            check(logits.dtype == torch.float32
+                  and bool(torch.isfinite(logits).all()),
+                  f"bad logits from impl={impl}")
+            out[impl] = float(trainer.cross_entropy_loss(
+                logits[:, :-1], tokens[:, 1:]))
+            del logits
+    diff = abs(out["kernel"] - out["reference"])
+    print(f"{label} loss kernel {out['kernel']:.5f} reference "
+          f"{out['reference']:.5f} |diff| {diff:.2e} (tol {LOSS_TOL})",
+          flush=True)
+    check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
+
+
+def phase_adafactor(fa, llama, trainer):
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              vocab_size=AF_VOCAB, n_layers=AF_LAYERS,
+                              max_seq_len=AF_MAX_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = llama.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (AF_BATCH, AF_SEQ),
+                           device="cuda", generator=gen)
+    tx = _TimedOptimizer(trainer.make_optimizer(trainer.TrainConfig(
+        warmup_steps=1, total_steps=100, optimizer="adafactor")))
+    state = trainer.init_train_state(params, tx)
+    step = trainer.make_train_step(
+        lambda p, t: llama.forward(cfg, p, t), tx, with_grad_norm=False)
+    print(f"[adafactor] 8B layer shape, vocab {cfg.vocab_size}, "
+          f"{cfg.n_layers} layers, {cfg.num_params() / 1e9:.3f} B params, "
+          f"batch {AF_BATCH} x seq {AF_SEQ}, bf16, adafactor, remat "
+          f"{cfg.remat_policy}", flush=True)
+    losses, _, step_s, launches, peak_gb = _train_steps(
+        fa, step, state, {"tokens": tokens}, TRAIN_STEPS)
+    print(f"[adafactor] losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[adafactor] launches {launches}", flush=True)
+    check(_finite(losses), "non-finite loss")
+    check(losses[-1] < losses[0], "loss did not fall")
+    expect = _resident_expect(launches, cfg.n_layers, TRAIN_STEPS)
+    check(launches == expect, f"launch counts {launches} != {expect}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tok_s = AF_BATCH * AF_SEQ / steady
+    tflops = cfg.flops_per_token(AF_SEQ) * tok_s / 1e12
+    print(f"[adafactor] step {steady * 1e3:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), {tok_s:.0f} "
+          f"tokens/s, {tflops:.1f} model TFLOP/s (6N + attention) of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f}, peak memory {peak_gb:.2f} GB",
+          flush=True)
+    _kernel_vs_reference("[adafactor]", llama.forward, cfg, state.params,
+                         tokens, trainer)
+
+    # Each optimizer's device time on these parameters, in turns, from
+    # the same gradients (their values do not change the work).
+    plist = list(state.params.parameters())
+    grads = [torch.randn_like(p) * 1e-3 for p in plist]
+    adamw = _TimedOptimizer(trainer.make_optimizer(trainer.TrainConfig()))
+    adamw_state = adamw.init(state.params)
+    for _ in range(4):
+        tx.update_(plist, [g.clone() for g in grads], state.opt_state)
+        adamw.update_(plist, [g.clone() for g in grads], adamw_state)
+    torch.cuda.synchronize()
+    af_in_step = sorted(s.elapsed_time(e)
+                        for s, e in tx.events[1:TRAIN_STEPS])
+    af_in_step = af_in_step[len(af_in_step) // 2]
+    tx.events = tx.events[TRAIN_STEPS:]
+    print(f"[adafactor] optimizer per step: adafactor "
+          f"{af_in_step:.2f} ms in the step (median of steps 2-"
+          f"{TRAIN_STEPS}), {tx.ms():.2f} ms alone; adamw (fused) "
+          f"{adamw.ms():.2f} ms alone on the same parameters (CUDA events, "
+          f"in turns)", flush=True)
+
+
+def _lora_run(llama_lora, argv):
+    """The recipe's main() with its stdout kept: its metrics line."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        metrics = llama_lora.main(argv)
+    return metrics
+
+
+def phase_lora(fa, llama, trainer):
+    from skypilot_tpu_torch.recipes import llama_lora
+    from skypilot_tpu_torch.train import checkpoint
+    cfg = llama.LlamaConfig.llama3_8b()
+    common = ["--model", "8b", "--batch-size", str(LORA_BATCH),
+              "--seq-len", str(LORA_SEQ), "--ckpt-every", str(LORA_SPLIT)]
+    print(f"[lora] llama3_8b, {cfg.n_layers} layers (full depth), "
+          f"{cfg.num_params() / 1e9:.3f} B params frozen, rank-8 adapters "
+          f"on wq/wk/wv/wo, batch {LORA_BATCH} x seq {LORA_SEQ}, bf16, "
+          f"remat {cfg.remat_policy}: A {LORA_STEPS} steps saving every "
+          f"{LORA_SPLIT}, B {LORA_SPLIT} steps, B' resumes B to "
+          f"{LORA_STEPS}", flush=True)
+    sigterm = signal.getsignal(signal.SIGTERM)  # the recipe installs its own
+    with tempfile.TemporaryDirectory(prefix="stpu-lora-") as tmp:
+        dir_a, dir_b = f"{tmp}/a", f"{tmp}/b"
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            argv_a = common + ["--steps", str(LORA_STEPS),
+                               "--checkpoint-dir", dir_a]
+            run_a = _lora_run(llama_lora, argv_a)
+            run_b = _lora_run(llama_lora, common + [
+                "--steps", str(LORA_SPLIT), "--checkpoint-dir", dir_b])
+            run_b2 = _lora_run(llama_lora, common + [
+                "--steps", str(LORA_STEPS), "--checkpoint-dir", dir_b])
+            launches = dict(fa.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            signal.signal(signal.SIGTERM, sigterm)
+        for name, run in (("A", run_a), ("B", run_b), ("B'", run_b2)):
+            print(f"[lora] {name}: {json.dumps(run)}", flush=True)
+        print(f"[lora] launches {launches}", flush=True)
+        check(_finite([run_a["first_loss"], run_a["final_loss"]]),
+              "non-finite loss")
+        check(run_b2["resumed_from"] == LORA_SPLIT,
+              f"B' resumed from {run_b2['resumed_from']}, not {LORA_SPLIT}")
+        check(run_b2["final_loss"] == run_a["final_loss"],
+              "B' final loss differs from A's")
+        got_a = checkpoint.restore_latest(dir_a)
+        got_b = checkpoint.restore_latest(dir_b)
+        check(got_a.step == got_b.step == LORA_STEPS,
+              f"checkpoints at {got_a.step} and {got_b.step}")
+        state_keys = [k for k in got_a.tree
+                      if k.startswith(("lora/", "opt_state/"))]
+        for key in state_keys:
+            a, b = got_a.tree[key], got_b.tree[key]
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and torch.equal(a.reshape(-1).view(torch.uint8),
+                                  b.reshape(-1).view(torch.uint8)),
+                  f"{key}: resumed state differs from uninterrupted")
+        check(got_a.manifest_sha256 == got_b.manifest_sha256,
+              "checkpoint payloads differ")
+        print(f"[lora] B' at step {LORA_STEPS} equals A byte for byte: "
+              f"{len(state_keys)} adapter and optimizer leaves, payload "
+              f"sha256 {got_a.manifest_sha256[:16]}", flush=True)
+        expect = _resident_expect(launches, cfg.n_layers,
+                                  LORA_STEPS + 2 * LORA_SPLIT)
+        check(launches == expect, f"launch counts {launches} != {expect}")
+        per_step = run_b2["wall_seconds"] / LORA_SPLIT
+        print(f"[lora] B' {per_step * 1e3:.0f} ms per step (wall over its "
+              f"{LORA_SPLIT} steps, checkpoint save included), "
+              f"{run_b2['tokens_per_second']:.0f} tokens/s; A "
+              f"{run_a['tokens_per_second']:.0f} tokens/s (first step "
+              f"included); peak memory {peak_gb:.2f} GB", flush=True)
+
+        # Losses fall: A's adapters at step 4 against the base (the
+        # adapters at step 1, B = 0) on A's first batch, both as the
+        # recipe makes them from A's arguments.
+        args_a = llama_lora.build_arg_parser(["tiny", "8b"],
+                                             "tiny").parse_args(argv_a)
+        base, lora = llama_lora.init_model(llama, cfg, args_a,
+                                           torch.device("cuda"))
+        llama_lora.load_lora(lora, checkpoint.restore_latest(
+            dir_a, like={"lora": lora.stacked()}).tree["lora"])
+    first = next(llama_lora.train_batches(cfg, args_a, 1))[0]
+    tokens = torch.from_numpy(first).long().cuda()
+    with torch.no_grad():
+        logits = llama.forward(cfg, llama_lora.merge_params(base, lora),
+                               tokens)
+        trained = float(trainer.cross_entropy_loss(logits[:, :-1],
+                                                   tokens[:, 1:]))
+    del logits, base, lora
+    print(f"[lora] A's first batch: loss {run_a['first_loss']:.5f} at step "
+          f"1, {trained:.5f} with the step-{LORA_STEPS} adapters",
+          flush=True)
+    check(trained < run_a["first_loss"], "loss did not fall")
+
+
+def _dropped_share(mixtral, llama, cfg, params, tokens):
+    """Per layer, the share of (token, choice) pairs past an expert's
+    capacity at these weights."""
+    shares = []
+    with torch.no_grad():
+        x = llama.embed_tokens(params, tokens)
+        positions = torch.arange(tokens.shape[1], device="cuda").expand(
+            tokens.shape)
+        for lp in params.layers:
+            y = llama.rms_norm(llama.attention_block(cfg, x, lp, positions),
+                               lp.mlp_norm, cfg.norm_eps)
+            dispatch, _, _ = mixtral._top2_dispatch(
+                mixtral.router_gates(y, lp),
+                mixtral.capacity(cfg, tokens.numel()))
+            shares.append(1.0 - float(dispatch.sum()) /
+                          (cfg.top_k * tokens.numel()))
+            x, _ = lp(cfg, x, positions)
+    return shares
+
+
+def phase_mixtral(fa, llama, trainer):
+    from skypilot_tpu_torch.models import mixtral
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                              n_layers=MX_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = mixtral.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (MX_BATCH, MX_SEQ),
+                           device="cuda", generator=gen)
+    print(f"[mixtral] mixtral_8x7b width ({cfg.n_experts} experts, top "
+          f"{cfg.top_k}, capacity {mixtral.capacity(cfg, tokens.numel())} "
+          f"per expert), {cfg.n_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B params, batch {MX_BATCH} x seq "
+          f"{MX_SEQ}, bf16, adafactor, full remat", flush=True)
+    shares = _dropped_share(mixtral, llama, cfg, params, tokens)
+    tx = trainer.make_optimizer(trainer.TrainConfig(
+        warmup_steps=1, total_steps=100, optimizer="adafactor"))
+    state = trainer.init_train_state(params, tx)
+    step = trainer.make_train_step(
+        lambda p, t: mixtral.forward(cfg, p, t), tx, with_grad_norm=False)
+    losses, aux, step_s, launches, peak_gb = _train_steps(
+        fa, step, state, {"tokens": tokens}, MX_STEPS)
+    print(f"[mixtral] losses (CE + aux) {[round(x, 4) for x in losses]}, "
+          f"aux {[round(x, 5) for x in aux]}", flush=True)
+    print(f"[mixtral] launches {launches}", flush=True)
+    check(_finite(losses + aux), "non-finite loss")
+    check(losses[-1] < losses[0], "loss did not fall")
+    check(all(x > 0 for x in aux), "aux loss not positive")
+    expect = _resident_expect(launches, cfg.n_layers, MX_STEPS)
+    check(launches == expect, f"launch counts {launches} != {expect}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tok_s = MX_BATCH * MX_SEQ / steady
+    print(f"[mixtral] step {steady * 1e3:.1f} ms (median of steps 2-"
+          f"{MX_STEPS}; first {step_s[0] * 1e3:.1f} ms), {tok_s:.0f} "
+          f"tokens/s, peak memory {peak_gb:.2f} GB; token choices dropped "
+          f"by capacity at step 1: "
+          f"{', '.join(f'{x:.4f}' for x in shares)} (by layer)", flush=True)
+    _kernel_vs_reference(
+        "[mixtral]", lambda c, p, t: mixtral.forward(c, p, t)[0], cfg,
+        state.params, tokens, trainer)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -1189,6 +1518,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_long_context(fa, llama, trainer, records)
         phase_tiny(fa, llama, trainer)
+        torch.cuda.empty_cache()
+        phase_adafactor(fa, llama, trainer)
+        torch.cuda.empty_cache()
+        phase_lora(fa, llama, trainer)
+        torch.cuda.empty_cache()
+        phase_mixtral(fa, llama, trainer)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -1,10 +1,16 @@
 """PyTorch/CUDA port of skypilot_tpu's compute path, for one NVIDIA H100.
 
 The JAX package ``skypilot_tpu`` stays the reference; this package never
-imports it (nor jax). Slice 1 carries the Llama training step: the model
-(``models.llama``), the adamw trainer (``train.trainer``) and flash
+imports it (nor jax). It carries the training half of the JAX package on
+one card: the Llama model with LoRA adapters and int8 weights in
+``lora_dense`` (``models.llama``) and Mixtral's top-2 MoE
+(``models.mixtral``); the trainer with adamw and adafactor
+(``train.trainer``); crash-consistent checkpoints in the JAX package's
+format (``train.checkpoint``); the LoRA recipe with bit-identical resume
+(``recipes.llama_lora``, on ``recipes.synthetic_data``); and flash
 attention as hand-written sm_90a CUDA kernels (``ops.flash_attention``,
-sources under ``csrc/``).
+sources under ``csrc/``). ``convert`` moves parameters and adapters
+between the two packages.
 
 Entry points run on the card: a caller that wants the CPU (the parity
 tests) passes ``device="cpu"`` and gets the kernels' plain PyTorch

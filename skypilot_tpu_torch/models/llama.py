@@ -3,9 +3,15 @@
 
 Parameters live in an ``nn.Module`` with one submodule per layer; every
 weight keeps the JAX package's (in, out) orientation and is applied as
-``y @ w``, so converting a JAX tree (``convert.llama_params_from_jax``) is
-a copy along the stacked layer axis, never a transpose. Matmuls run in the
-config dtype, norms and softmax statistics in fp32, logits in fp32.
+``y @ w`` through ``lora_dense``, so converting a JAX tree
+(``convert.llama_params_from_jax``) is a copy along the stacked layer axis,
+never a transpose. Matmuls run in the config dtype, norms and softmax
+statistics in fp32, logits in fp32.
+
+A layer may carry, beside a weight ``<name>``, LoRA adapters
+``<name>_lora_a`` (in, r) and ``<name>_lora_b`` (r, out), registered on it
+by ``recipes.llama_lora.merge_params``, and ``lora_dense`` adds y @ A @ B;
+or an int8 ``<name>`` with a per-output-channel f32 ``<name>_scale``.
 
 Remat policies (``LlamaConfig.remat_policy``), the counterparts of
 ``_remat_policy`` there, applied per layer in ``forward_trunk``:
@@ -22,6 +28,10 @@ Remat policies (``LlamaConfig.remat_policy``), the counterparts of
   pinned host memory between the forward and the backward
   (``offload_to_host``); o and lse stay on the device.
 
+All four take adapters: the save_flash* backward computes each adapter's
+gradient (dA = y^T (g B^T), dB = (y A)^T g) and a frozen weight
+(``requires_grad=False``) gets none.
+
 The three ``save_flash*`` policies are one explicit per-layer
 ``autograd.Function`` (``_FlashRematLayer``) that calls the flash op's
 forward and backward halves itself and recomputes exactly what its policy
@@ -33,8 +43,8 @@ flash path only, a layer whose attention takes the reference path (the
 reference impl, or a shape the flash path refuses) has nothing to name and
 runs the ``"full"`` policy.
 
-Not in this slice: the int8 ``_scale`` weights and LoRA adapters of
-``lora_dense``, and the KV-cache decode paths.
+Not in this slice: ``quantize_params`` (the int8 serving tree) and the
+KV-cache decode paths.
 """
 from __future__ import annotations
 
@@ -129,7 +139,8 @@ def _empty(shape, device, dtype) -> nn.Parameter:
 
 
 class LlamaLayer(nn.Module):
-    """One decoder layer's weights; ``forward`` is the JAX ``_layer``."""
+    """One decoder layer's weights (``layer_shapes``, and any adapters
+    registered beside them); ``forward`` is the JAX ``_layer``."""
 
     def __init__(self, cfg: LlamaConfig, device, dtype):
         super().__init__()
@@ -212,13 +223,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def lora_dense(y: torch.Tensor, lp: nn.Module, name: str) -> torch.Tensor:
+    """y @ W, plus the low-rank path (y @ A) @ B when the layer carries
+    ``<name>_lora_a`` / ``<name>_lora_b`` (never the full-rank delta).
+
+    With a ``<name>_scale`` the weight is int8: the codes are cast to y's
+    dtype, the product runs as usual and the per-output-channel f32 scale
+    multiplies it in fp32, as the JAX package's ``lora_dense`` does."""
+    w = getattr(lp, name)
+    scale = getattr(lp, name + "_scale", None)
+    if scale is None:
+        out = y @ w
+    else:
+        out = ((y @ w.to(y.dtype)).float() * scale).to(y.dtype)
+    a = getattr(lp, name + "_lora_a", None)
+    if a is not None:
+        out = out + (y @ a) @ getattr(lp, name + "_lora_b")
+    return out
+
+
 def qkv_proj(cfg, y: torch.Tensor, lp: nn.Module, positions: torch.Tensor):
     """Projection + RoPE; returns (q, k, v), v unroped."""
     b, t = y.shape[0], y.shape[1]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (y @ lp.wq).reshape(b, t, h, hd)
-    kk = (y @ lp.wk).reshape(b, t, kvh, hd)
-    vv = (y @ lp.wv).reshape(b, t, kvh, hd)
+    q = lora_dense(y, lp, "wq").reshape(b, t, h, hd)
+    kk = lora_dense(y, lp, "wk").reshape(b, t, kvh, hd)
+    vv = lora_dense(y, lp, "wv").reshape(b, t, kvh, hd)
     return (rope(q, positions, cfg.rope_theta),
             rope(kk, positions, cfg.rope_theta), vv)
 
@@ -236,14 +266,15 @@ def mlp_block(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
     """Pre-norm gated-MLP residual block (SwiGLU or GeGLU by config)."""
     y = rms_norm(x, lp.mlp_norm, cfg.norm_eps,
                  getattr(cfg, "norm_offset", 0.0))
-    gate = _mlp_activation(cfg)(y @ lp.w_gate)
-    return x + (gate * (y @ lp.w_up)) @ lp.w_down
+    gate = _mlp_activation(cfg)(lora_dense(y, lp, "w_gate"))
+    return x + lora_dense(gate * lora_dense(y, lp, "w_up"), lp, "w_down")
 
 
 def _attn_residual(cfg, x: torch.Tensor, attn: torch.Tensor,
                    lp: nn.Module) -> torch.Tensor:
     b, s, _ = x.shape
-    return x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp.wo
+    return x + lora_dense(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp,
+                          "wo")
 
 
 def _attn_norm(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
@@ -342,9 +373,56 @@ def reload_from_host(handle: tuple) -> Tuple[torch.Tensor, object]:
 def _grads(outputs, inputs: dict, grad_outputs) -> dict:
     """{name: gradient} for the inputs that require one."""
     names = [n for n, t in inputs.items() if t.requires_grad]
+    if not names:
+        return {}
     got = torch.autograd.grad(outputs, [inputs[n] for n in names],
                               grad_outputs)
     return dict(zip(names, got))
+
+
+def layer_param_names(lp: nn.Module) -> Tuple[str, ...]:
+    """The layer's own parameters: its weights and any adapters."""
+    return tuple(n for n, _ in lp.named_parameters(recurse=False))
+
+
+# The weights of the norm + qkv_proj segment; the rest of a layer (wo and
+# the MLP) is its residual + MLP segment.
+_PRE_WEIGHTS = ("attn_norm", "wq", "wk", "wv")
+
+
+def _in_pre(name: str) -> bool:
+    """Whether a weight, its scale or its adapter belongs to the norm +
+    qkv_proj segment."""
+    return name.split("_lora_")[0].removesuffix("_scale") in _PRE_WEIGHTS
+
+
+def _dense_backward(y2: torch.Tensor, g: torch.Tensor, lp: nn.Module,
+                    name: str, out: dict) -> torch.Tensor:
+    """The transpose of ``lora_dense`` at rows y2 (N, in) for the
+    cotangent g (N, out): the gradients of the weight (an int8 one has
+    none), its scale and its adapters that require one go into ``out``;
+    returns y2's cotangent."""
+    w = getattr(lp, name)
+    scale = getattr(lp, name + "_scale", None)
+    if scale is None:
+        if w.requires_grad:
+            out[name] = y2.t() @ g
+        gy = g @ w.t()
+    else:
+        w = w.to(g.dtype)
+        if scale.requires_grad:
+            out[name + "_scale"] = ((y2 @ w).float() * g.float()).sum(0)
+        gy = (g.float() * scale).to(g.dtype) @ w.t()
+    a = getattr(lp, name + "_lora_a", None)
+    if a is not None:
+        b = getattr(lp, name + "_lora_b")
+        gb = g @ b.t()
+        if a.requires_grad:
+            out[name + "_lora_a"] = y2.t() @ gb
+        if b.requires_grad:
+            out[name + "_lora_b"] = (y2 @ a).t() @ g
+        gy = gy + gb @ a.t()
+    return gy
 
 
 def _qkv_proj_backward(cfg, lp: nn.Module, x: torch.Tensor,
@@ -352,8 +430,8 @@ def _qkv_proj_backward(cfg, lp: nn.Module, x: torch.Tensor,
                        dk: torch.Tensor, dv: torch.Tensor) -> dict:
     """Gradients of the norm + qkv_proj segment from the cotangents of its
     saved outputs, without re-running the projections: rope is a rotation,
-    so its transpose is rope at -positions; the projections' transposes
-    are two matmuls each; the norm is recomputed under autograd."""
+    so its transpose is rope at -positions; each projection's transpose is
+    ``_dense_backward``; the norm is recomputed under autograd."""
     with torch.enable_grad():
         x_ = x.detach().requires_grad_(x.requires_grad)
         y = _attn_norm(cfg, x_, lp)
@@ -362,9 +440,10 @@ def _qkv_proj_backward(cfg, lp: nn.Module, x: torch.Tensor,
     g = {"wq": rope(dq, -positions, cfg.rope_theta).reshape(b * s, -1),
          "wk": rope(dk, -positions, cfg.rope_theta).reshape(b * s, -1),
          "wv": dv.reshape(b * s, -1)}
-    out = {n: y2.t() @ g[n] for n in g if getattr(lp, n).requires_grad}
-    gy = sum(g[n] @ getattr(lp, n).t() for n in g).reshape(b, s, dim)
-    out.update(_grads(y, {"x": x_, "attn_norm": lp.attn_norm}, gy))
+    out: dict = {}
+    gy = sum(_dense_backward(y2, g[n], lp, n, out) for n in g)
+    out.update(_grads(y, {"x": x_, "attn_norm": lp.attn_norm},
+                      gy.reshape(b, s, dim)))
     return out
 
 
@@ -383,8 +462,9 @@ class _FlashRematLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, policy: str, lp: nn.Module, x: torch.Tensor,
                 positions: torch.Tensor, *weights: torch.Tensor):
-        # ``weights`` are lp's parameters, passed so that autograd routes
-        # their gradients through backward; the body reads them from lp.
+        # ``weights`` are lp's parameters (``layer_param_names``), passed so
+        # that autograd routes their gradients through backward; the body
+        # reads them from lp.
         s, hd = x.shape[1], cfg.head_dim
         scale = hd ** -0.5
         fam = flash_ops.family(s, hd, True)
@@ -415,9 +495,9 @@ class _FlashRematLayer(torch.autograd.Function):
             x_ = x.detach().requires_grad_(x.requires_grad)
             o_ = o.detach().requires_grad_()
             out = mlp_block(cfg, _attn_residual(cfg, x_, o_, lp), lp)
+        names = layer_param_names(lp)
         post = {"x": x_, "o": o_}
-        post.update((n, getattr(lp, n)) for n in
-                    ("wo", "mlp_norm", "w_gate", "w_up", "w_down"))
+        post.update((n, getattr(lp, n)) for n in names if not _in_pre(n))
         grads = _grads(out, post, g)
         do = grads.pop("o")
         dx = grads.pop("x", None)
@@ -430,8 +510,7 @@ class _FlashRematLayer(torch.autograd.Function):
                 *(t.detach() for t in qkv), o, lse, do, True, ctx.scale,
                 ctx.family)
             pre = {"x": x_}
-            pre.update((n, getattr(lp, n)) for n in
-                       ("attn_norm", "wq", "wk", "wv"))
+            pre.update((n, getattr(lp, n)) for n in names if _in_pre(n))
             grads.update(_grads(qkv, pre, dqkv))
         else:
             for ev in ready:
@@ -442,8 +521,7 @@ class _FlashRematLayer(torch.autograd.Function):
             grads.update(_qkv_proj_backward(cfg, lp, x, positions, *dqkv))
         if dx is not None:
             dx = dx + grads.pop("x")
-        return (None, None, None, dx, None,
-                *(grads.get(n) for n in layer_shapes(cfg)))
+        return (None, None, None, dx, None, *(grads.get(n) for n in names))
 
 
 def _flash_remat_applies(cfg, x: torch.Tensor) -> bool:
@@ -478,7 +556,7 @@ def forward_trunk(cfg: LlamaConfig, params: LlamaParams,
         else:
             x = _FlashRematLayer.apply(
                 cfg, policy, lp, x, positions,
-                *(getattr(lp, n) for n in layer_shapes(cfg)))
+                *(getattr(lp, n) for n in layer_param_names(lp)))
     return rms_norm(x, params.final_norm, cfg.norm_eps,
                     getattr(cfg, "norm_offset", 0.0))
 

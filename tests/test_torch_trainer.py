@@ -136,11 +136,16 @@ def test_adamw_steps_match_optax():
                                        atol=1e-6)
 
 
-@pytest.mark.parametrize("name,error", [("adafactor", NotImplementedError),
+@pytest.mark.parametrize("name,error", [("adafactor", None),
                                         ("sgd", ValueError)])
 def test_optimizer_names(name, error):
+    cfg = trainer_torch.TrainConfig(optimizer=name)
+    if error is None:
+        assert isinstance(trainer_torch.make_optimizer(cfg),
+                          trainer_torch.Adafactor)
+        return
     with pytest.raises(error):
-        trainer_torch.make_optimizer(trainer_torch.TrainConfig(optimizer=name))
+        trainer_torch.make_optimizer(cfg)
 
 
 def test_delayed_fetch_hands_back_previous():

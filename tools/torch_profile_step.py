@@ -4,10 +4,17 @@
     python3 tools/torch_profile_step.py            # the seq-2048 slice
     python3 tools/torch_profile_step.py --seq 8192 --batch 1 \
         --remat-policy save_flash_offload_qkv --chunked-ce   # long context
+    python3 tools/torch_profile_step.py --batch 8 --layers 8 \
+        --vocab 32768 --optimizer adafactor              # [adafactor]
+    python3 tools/torch_profile_step.py --batch 8 --layers 32 --lora
+                                                         # [lora]
+    python3 tools/torch_profile_step.py --model mixtral --layers 2 \
+        --optimizer adafactor                            # [mixtral]
 
 Builds the step chip_smoke.py drives (Llama-3-8B width, 4 layers, bf16,
 adamw, flash kernels; by default batch 2 x seq 2048, full remat and the
-unchunked loss), warms up, then:
+unchunked loss; or the step of its adafactor, lora or mixtral phase),
+warms up, then:
 
 1. times the step's three phases (forward + loss, backward, optimizer)
    with a synchronised host clock, median of 5 steps;
@@ -72,32 +79,68 @@ def main() -> int:
     parser.add_argument("--chunked-ce", action="store_true",
                         help="forward_trunk + chunked_cross_entropy_loss "
                              "instead of full-sequence logits")
+    parser.add_argument("--layers", type=int, default=N_LAYERS)
+    parser.add_argument("--vocab", type=int, default=None,
+                        help="vocabulary (default: the model's)")
+    parser.add_argument("--optimizer", default="adamw",
+                        choices=("adamw", "adafactor"))
+    parser.add_argument("--model", default="llama",
+                        choices=("llama", "mixtral"),
+                        help="Llama-3-8B or Mixtral-8x7B widths")
+    parser.add_argument("--lora", action="store_true",
+                        help="the LoRA recipe's step: the base frozen, "
+                             "rank-8 adapters on wq/wk/wv/wo, AdamW on "
+                             "them (recipes.llama_lora)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import llama, mixtral
+    from skypilot_tpu_torch.recipes import llama_lora
     from skypilot_tpu_torch.train import trainer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(f"[card] {smi.stdout.strip()}")
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
-                              n_layers=N_LAYERS, max_seq_len=args.seq,
-                              remat_policy=args.remat_policy)
-    print(f"[config] llama3_8b width, {N_LAYERS} layers, batch "
-          f"{args.batch} x seq {args.seq}, remat {args.remat_policy}, "
-          f"{'chunked' if args.chunked_ce else 'full-logits'} loss")
+    if args.model == "mixtral":
+        model = mixtral
+        cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                                  n_layers=args.layers, max_seq_len=args.seq)
+    else:
+        model = llama
+        cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                  n_layers=args.layers, max_seq_len=args.seq,
+                                  remat_policy=args.remat_policy)
+    if args.vocab:
+        cfg = dataclasses.replace(cfg, vocab_size=args.vocab)
+    print(f"[config] {args.model} width, {args.layers} layers, vocab "
+          f"{cfg.vocab_size}, batch {args.batch} x seq {args.seq}, remat "
+          f"{getattr(cfg, 'remat_policy', 'full')}, "
+          f"{'chunked' if args.chunked_ce else 'full-logits'} loss, "
+          f"{'LoRA, adamw on the adapters' if args.lora else args.optimizer}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = llama.init(cfg, gen)
+    params = model.init(cfg, gen)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
                            device="cuda", generator=gen)
-    tx = trainer.make_optimizer(trainer.TrainConfig(warmup_steps=1,
-                                                    total_steps=100))
-    state = trainer.init_train_state(params, tx)
-    plist = list(params.parameters())
+    if args.lora:
+        params.requires_grad_(False)
+        lora = llama_lora.init_lora(cfg, 8, gen)
+        llama_lora.merge_params(params, lora)
+        opt = llama_lora.make_adamw(lora, 1e-3)
+        plist = list(lora.parameters())
+
+        def update():
+            opt.step()
+    else:
+        tx = trainer.make_optimizer(trainer.TrainConfig(
+            warmup_steps=1, total_steps=100, optimizer=args.optimizer))
+        state = trainer.init_train_state(params, tx)
+        plist = list(params.parameters())
+
+        def update():
+            tx.update_(plist, [p.grad for p in plist], state.opt_state)
 
     def sync_clock():
         torch.cuda.synchronize()
@@ -108,19 +151,22 @@ def main() -> int:
         for p in plist:
             p.grad = None
         t0 = sync_clock() if phases is not None else 0.0
+        aux = 0.0
         if args.chunked_ce:
             hidden = llama.forward_trunk(cfg, params, tokens)
             loss = trainer.chunked_cross_entropy_loss(
                 hidden[:, :-1], llama.head_weights(params), tokens[:, 1:])
         else:
-            logits = llama.forward(cfg, params, tokens)
-            loss = trainer.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+            logits = model.forward(cfg, params, tokens)
+            if isinstance(logits, tuple):
+                logits, aux = logits
+            loss = trainer.cross_entropy_loss(logits[:, :-1],
+                                              tokens[:, 1:]) + aux
         t1 = sync_clock() if phases is not None else 0.0
         loss.backward()
         del loss
         t2 = sync_clock() if phases is not None else 0.0
-        grads = [p.grad for p in plist]
-        tx.update_(plist, grads, state.opt_state)
+        update()
         for p in plist:
             p.grad = None
         if phases is not None:
@@ -134,7 +180,7 @@ def main() -> int:
         step(phases)
     med = [sorted(col)[len(col) // 2] * 1e3 for col in zip(*phases)]
     print(f"[phases] forward+loss {med[0]:.1f} ms, backward (with remat "
-          f"forward) {med[1]:.1f} ms, adamw {med[2]:.1f} ms; sum "
+          f"forward) {med[1]:.1f} ms, optimizer {med[2]:.1f} ms; sum "
           f"{sum(med):.1f} ms (median of 5 steps)")
 
     n_prof = 2
