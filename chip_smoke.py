@@ -90,7 +90,38 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    2L/L/L resident and no other, one forward's loss within LOSS_TOL of the
    reference attention's; prints the step and the share of token choices
    dropped by capacity at step 1;
-11. a summary of the nine Hopper kernels (registers, shared memory, time
+11. serve: one Llama-3-8B replica (full width and depth, bf16, random
+   weights) through the port's serve_llm.serve in-process, 8 engine
+   slots, paged 64-token blocks, max_seq 1280: eight concurrent streamed
+   /generate requests (prompts 32 to 1024 tokens, 128 tokens each, four
+   greedy, four seeded at T=0.8), then a ninth sharing a 512-token
+   prefix with the longest. Every stream must end in its stats frame and
+   [DONE] after 128 tokens, the ninth must hit the prefix cache, and no
+   flash kernel may launch during the engine's work (serving attention
+   is the split-KV torch path, as it is XLA in the JAX package). The
+   greedy streams are teacher-forced through llama.forward (one resident
+   forward launch per layer and stream) and through the engine's dense
+   and paged cache paths (its prefill chunks, then batched T = 1 steps):
+   paged == dense bit for bit, logits within 3.5e-2 norm-relative, two
+   planted faults (a query's own key masked; positions one late) past
+   it, and every emitted token the forward's argmax but at near-ties
+   (gap within twice the two paths' largest logit difference, printed).
+   Then the same requests with int8
+   weights and int8 KV (printed, not gated: its numbers and the share of
+   greedy tokens equal to the bf16 leg's). Prints TTFT and tokens/s per
+   request, aggregate tokens/s, decode-step ms by live slots and ms per
+   64-token prefill chunk (stepstats), peak memory and the weight-read
+   bound per decode step, each beside the card's name and power limit.
+   Last, in f32 at the 8B width cut to 4 layers with TF32 off: paged ==
+   dense == llama.decode, speculative decoding on == off, and a seeded
+   stream cut at token 16 and resumed == the uninterrupted one, where
+   two paths may part only at a near-tie (the first divergence's logit
+   gap, printed, within 1e-3); the teacher-forced cache paths as above
+   within 1e-4 and the planted faults past it; and the host tier: a
+   seeded stream whose prefix blocks were spilled to the host (clone,
+   then the side stream's D2H) while the next request rewrote them, then
+   re-admitted, equal to its cold run;
+12. a summary of the nine Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
    the kernels line ({"kernels": [...]}, nine records), then the last
    line {"ok": true, "device": {...}}.
@@ -101,6 +132,7 @@ the port from beside itself). Imports nothing of JAX.
 import contextlib
 import ctypes
 import dataclasses
+import http.client
 import io
 import json
 import pathlib
@@ -114,6 +146,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM dense peaks: bf16 tensor cores and HBM3 (NVIDIA data sheet).
@@ -214,6 +247,32 @@ LORA_STEPS, LORA_SPLIT = 4, 2
 # The mixtral phase: Mixtral-8x7B widths; depth cut from 32 to 2 layers
 # (47 B parameters in bf16 do not fit one 80 GB card).
 MX_LAYERS, MX_BATCH, MX_SEQ, MX_STEPS = 2, 2, 2048, 6
+
+# The serve phase: one Llama-3-8B replica (full width and depth, bf16,
+# random weights) through the port's serve_llm at its own max_seq
+# (MAX_PROMPT_TOKENS + MAX_GEN_TOKENS = 1280), 8 engine slots, paged,
+# 64-token blocks; eight concurrent streamed requests, four greedy and
+# four seeded, then a ninth sharing a 512-token prefix with the longest.
+SV_SLOTS, SV_BLOCK = 8, 64
+SV_PROMPTS = (32, 64, 128, 256, 384, 512, 768, 1024)
+SV_MAX_TOKENS, SV_TEMP, SV_PREFIX = 128, 0.8, 512
+# The cache paths' bf16 logits against the full forward's (flash kernels),
+# norm-relative, on the greedy streams teacher-forced. Set between the
+# sound reading and the planted faults' (H100, 32 layers: 1.93e-2; faults
+# 6.6e-2 and 1.8e-1): bf16 rounding grown over 32 random layers puts
+# any two summation orders ~2e-2 apart.
+CACHE_REL_TOL = 3.5e-2
+# Exactness checks in f32 at the 8B width, depth cut to 4 layers: two
+# paths' tokens may part only where the two candidates' (perturbed, when
+# sampled) logits lie within this of each other.
+SV_EXACT_LAYERS, SV_EXACT_TOKENS = 4, 32
+F32_NEAR_TIE = 1e-3
+# The cache paths' f32 logits against the full forward's, teacher-forced
+# (H100, 4 layers: 3.0e-6; the planted faults 1.3e-1 and 2.8e-1).
+F32_CACHE_REL_TOL = 1e-4
+# The host-tier leg (f32, 4 layers): one slot, a pool of 9 usable 64-token
+# blocks, prompts A and B (B needs all nine), a 64 MiB host tier.
+SP_POOL_BLOCKS, SP_PROMPTS, SP_HOST_MB = 10, (200, 520), 64
 
 # The TPU kernel each port kernel replaces: its body, file:line.
 _FA = "skypilot_tpu/ops/pallas/flash_attention.py"
@@ -1484,6 +1543,504 @@ def phase_mixtral(fa, llama, trainer):
         state.params, tokens, trainer)
 
 
+def _sse_generate(port, body, out, idx):
+    """One streamed /generate over HTTP: out[idx] = its status, send time
+    and each SSE frame with its arrival time."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    t0 = time.perf_counter()
+    conn.request("POST", "/generate", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    buf, frames, times = b"", [], []
+    while True:
+        chunk = resp.read1(65536)
+        if not chunk:
+            break
+        buf += chunk
+        while b"\n\n" in buf:
+            frame, buf = buf.split(b"\n\n", 1)
+            frames.append(frame.decode())
+            times.append(time.perf_counter())
+    conn.close()
+    out[idx] = {"status": resp.status, "t0": t0, "frames": frames,
+                "times": times}
+
+
+def _stream_tokens(label, res):
+    """The stream's tokens and its stats record; fails unless it is 128
+    token frames, then the stats frame, then [DONE]."""
+    frames = res["frames"]
+    check(res["status"] == 200, f"{label}: HTTP {res['status']}")
+    check(len(frames) >= 2 and frames[-1] == "data: [DONE]"
+          and frames[-2].startswith("event: stats\ndata: "),
+          f"{label}: stream does not end in a stats frame and [DONE]")
+    toks = [json.loads(f[len("data: "):])["token"] for f in frames[:-2]]
+    check(len(toks) == SV_MAX_TOKENS,
+          f"{label}: {len(toks)} tokens, not {SV_MAX_TOKENS}")
+    return toks, json.loads(frames[-2].split("data: ", 1)[1])
+
+
+def _serve_requests(cfg, seed):
+    """(prompt, temperature, seed) of the eight requests (even ones
+    greedy) and the ninth, sharing SV_PREFIX tokens with the longest."""
+    gen = torch.Generator().manual_seed(seed)
+    reqs = []
+    for i, n in enumerate(SV_PROMPTS):
+        prompt = torch.randint(1, cfg.vocab_size, (n,), generator=gen)
+        reqs.append((prompt.tolist(), 0.0 if i % 2 == 0 else SV_TEMP,
+                     100 + i))
+    tail = torch.randint(1, cfg.vocab_size, (256,), generator=gen).tolist()
+    return reqs, (reqs[-1][0][:SV_PREFIX] + tail, 0.0, 0)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def _serve_leg(fa, cfg, params, reqs, ninth, card, label, dev, **kw):
+    """One replica through serve(): the eight concurrent streams, then
+    the ninth alone. Returns the streams' tokens and prints the leg's
+    numbers beside the card."""
+    from skypilot_tpu_torch.observability import metrics, stepstats
+    from skypilot_tpu_torch.recipes import serve_llm
+    hits = metrics.REGISTRY.counter("stpu_engine_prefix_cache_hits_total")
+    ready = threading.Event()
+    httpd = serve_llm.serve(cfg, params, 0, ready_event=ready,
+                            engine_slots=SV_SLOTS, kv_paged=True,
+                            kv_block_tokens=SV_BLOCK, device=dev, **kw)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        check(ready.wait(timeout=900), f"{label} replica never ready")
+        engine = httpd.engine.engine
+        geo = engine.kv_config()
+        weight_gb = sum(p.numel() * p.element_size()
+                        for p in engine._params.parameters()) / 1e9
+        port = httpd.server_address[1]
+        stepstats.reset()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        out = [None] * len(reqs)
+        threads = [threading.Thread(target=_sse_generate, args=(
+            port, {"prompt": p, "max_tokens": SV_MAX_TOKENS,
+                   "temperature": t, "seed": s, "stream": True}, out, i))
+            for i, (p, t, s) in enumerate(reqs)]
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        t_end = time.perf_counter()
+        steps8 = stepstats.steps_tail()
+        hits_before = hits.get()
+        last = [None]
+        _sse_generate(port, {"prompt": ninth[0],
+                             "max_tokens": SV_MAX_TOKENS, "stream": True},
+                      last, 0)
+        launches = dict(fa.LAUNCHES)
+        hit_count = hits.get() - hits_before
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = stepstats.steps_tail()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.engine.shutdown()
+        httpd.engine.engine.release()
+    streams = []
+    for i, res in enumerate(out):
+        check(res is not None, f"{label} request {i} never returned")
+        toks, stats = _stream_tokens(f"{label} request {i}", res)
+        streams.append(toks)
+        ttft = res["times"][0] - res["t0"]
+        total = res["times"][-1] - res["t0"]
+        print(f"{label} request {i}: prompt {len(reqs[i][0])}, "
+              f"{'greedy' if reqs[i][1] == 0 else f'T={reqs[i][1]}'}: "
+              f"TTFT {ttft * 1e3:.1f} ms, {len(toks) / total:.1f} tokens/s "
+              f"end to end, {(len(toks) - 1) / (res['times'][-3] - res['times'][0]):.1f} "
+              f"tokens/s after the first ({card})", flush=True)
+    toks9, stats9 = _stream_tokens(f"{label} request 9", last[0])
+    agg = len(reqs) * SV_MAX_TOKENS / (t_end - t_start)
+    print(f"{label} aggregate {agg:.1f} tokens/s over the eight streams "
+          f"({t_end - t_start:.2f} s wall); peak memory {peak_gb:.2f} GB; "
+          f"weights {weight_gb:.2f} GB, weight-read bound per decode step "
+          f"{weight_gb * 1e9 / PEAK_BYTES_PER_S * 1e3:.2f} ms ({card})",
+          flush=True)
+    print(f"{label} ninth request (shares {SV_PREFIX} tokens with the "
+          f"longest): cached {stats9['cached_prompt_tokens']} prompt "
+          f"tokens, kv tier {stats9['kv_tier']}, TTFT "
+          f"{stats9['ttft_s'] * 1e3:.1f} ms, prefix hits +{hit_count}",
+          flush=True)
+    check(hit_count >= 1 and stats9["cached_prompt_tokens"] >= SV_PREFIX,
+          f"{label}: the ninth request missed the prefix cache")
+    check(all(v == 0 for v in launches.values()),
+          f"{label}: flash kernels launched during the engine's work "
+          f"{launches} (serving attention is the split-KV torch path)")
+    by_live = {}
+    for rec in steps:
+        if rec["phase"] == "decode":
+            by_live.setdefault(rec["decode_tokens"], []).append(rec["dur"])
+    chunk = [r["dur"] for r in steps if r["phase"] == "prefill"
+             and r["prefill_tokens"] == SV_BLOCK]
+    mixed = [r["dur"] for r in steps8 if r["phase"] == "mixed"]
+    print(f"{label} decode step ms by live slots (median, steps): " +
+          ", ".join(f"{n}: {_median(d) * 1e3:.2f} ({len(d)})"
+                    for n, d in sorted(by_live.items())) +
+          f"; {SV_BLOCK}-token prefill chunk alone {_median(chunk) * 1e3:.2f} "
+          f"ms ({len(chunk)}); prefill chunk + decode step "
+          f"{_median(mixed) * 1e3:.2f} ms ({len(mixed)}) ({card})",
+          flush=True)
+    return streams, geo
+
+
+def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
+                       paged, fault=None):
+    """Each (prompt, tokens) of ``seqs`` teacher-forced through the
+    engine's cache path at its geometry ``geo`` (kv_config()): the
+    prompt in chunk-sized prefill chunks (the engine's _prefill_chunk /
+    _paged_prefill_chunk), then the tokens but the last in batched T = 1
+    steps over all streams, as the decode step runs them. Returns one
+    f32 (len(tokens), vocab) per stream: row j predicts tokens[j].
+
+    ``fault`` plants an off-by-one in the T = 1 steps, a control the
+    gates must catch: "self" passes valid_len = position, so a query
+    misses its own key row; "shift" starts each step one position late,
+    so the token's rope position and cache row are one past its place."""
+    chunk, window, block = geo["chunk"], geo.get("window"), geo["block"]
+    b = len(seqs)
+    if paged:
+        per = [-(-(len(p) + len(t)) // chunk) for p, t in seqs]
+        table = np.zeros((b, max(geo["table_len"], max(per))), np.int64)
+        nxt = 1
+        for i, n in enumerate(per):
+            table[i, :n] = np.arange(nxt, nxt + n)
+            nxt += n
+        cache = llama.init_paged_cache(cfg, nxt, chunk,
+                                       quantized=bool(geo["kv_quant"]),
+                                       device=dev)
+    else:
+        cache = llama.init_cache(cfg, b, geo["max_seq"], dev)
+    out = []
+    with torch.inference_mode():
+        for i, (prompt, _) in enumerate(seqs):
+            for start in range(0, len(prompt), chunk):
+                piece = prompt[start:start + chunk]
+                buf = torch.zeros(chunk, dtype=torch.long, device=dev)
+                buf[:len(piece)] = torch.tensor(piece, device=dev)
+                valid = start + len(piece)
+                if paged:
+                    z = decode_engine._paged_prefill_chunk(
+                        cfg, params, cache, buf, table[i], start, valid,
+                        int(table[i, start // chunk]), window)
+                else:
+                    z = decode_engine._prefill_chunk(
+                        cfg, params, cache, buf, i, start, valid, block)
+            out.append([z])
+        pos = np.array([len(p) for p, _ in seqs], np.int64)
+        for j in range(len(seqs[0][1]) - 1):
+            toks = torch.tensor([t[j] for _, t in seqs], device=dev)[:, None]
+            start, valid = pos + j, None
+            if fault == "self":
+                valid = start
+            elif fault == "shift":
+                start = start + 1
+            if paged:
+                z, _ = llama.forward_with_paged_cache(
+                    cfg, params, toks, cache, table, start, valid_len=valid,
+                    window=window)
+            else:
+                z, _ = llama.forward_with_cache(cfg, params, toks, cache,
+                                                start, valid_len=valid,
+                                                block=block)
+            for i in range(b):
+                out[i].append(z[i, 0])
+    return [torch.stack(o) for o in out]
+
+
+def _rel(a, b):
+    """Norm-relative distance of logits a from the reference b, over
+    every stream."""
+    num = sum(float((x - y).double().norm() ** 2) for x, y in zip(a, b))
+    den = sum(float(y.double().norm() ** 2) for y in b)
+    return (num / den) ** 0.5
+
+
+def _hold_cache_paths(label, llama, decode_engine, cfg, params, seqs, geo,
+                      refs, dev, tol):
+    """The dense and paged cache paths against the full forward's
+    logits ``refs``: paged == dense bit for bit (the window is the dense
+    tile), both within ``tol`` norm-relative, and each planted fault
+    past ``tol``. Returns the paged logits."""
+    dense = _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo,
+                               dev, paged=False)
+    paged = _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo,
+                               dev, paged=True)
+    check(all(torch.equal(a, b) for a, b in zip(paged, dense)),
+          f"{label}: paged cache path logits differ from the dense path's "
+          f"(window {geo['window']} = dense tile {geo['block']})")
+    sound = _rel(paged, refs)
+    faults = {f: _rel(_cache_path_logits(llama, decode_engine, cfg, params,
+                                         seqs, geo, dev, paged=True,
+                                         fault=f), refs)
+              for f in ("self", "shift")}
+    print(f"{label}: dense and paged cache paths (chunk {geo['chunk']}, "
+          f"window {geo['window']}) bit-equal; {sound:.3e} norm-relative "
+          f"from llama.forward's logits (tol {tol:g}); planted faults: "
+          f"own key masked {faults['self']:.3e}, positions shifted by one "
+          f"{faults['shift']:.3e}", flush=True)
+    check(sound <= tol, f"{label}: cache path logits {sound:.3e} from the "
+          f"forward's, past {tol:g}")
+    for f, r in faults.items():
+        check(r > tol, f"{label}: the planted fault {f!r} reads {r:.3e}, "
+              f"inside the tolerance {tol:g}: the gate cannot see it")
+    return paged
+
+
+def _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
+                    geo, dev):
+    """The greedy streams through llama.forward (flash kernels) and
+    through the engine's dense and paged cache paths: logits within
+    CACHE_REL_TOL, planted faults past it, emitted tokens the forward's
+    argmax except at near-ties."""
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    ref_cfg = dataclasses.replace(fwd_cfg, attention_impl="reference")
+    seqs = [(p, toks) for (p, temp, _), toks in zip(reqs, streams)
+            if not temp]
+    fa.reset_launches()
+    full, ref_rels = [], []
+    with torch.no_grad():
+        for prompt, toks in seqs:
+            seq = torch.tensor(prompt + toks, device=dev)[None]
+            full.append(llama.forward(fwd_cfg, params, seq)[0,
+                                                            len(prompt) - 1:-1])
+        launches = dict(fa.LAUNCHES)
+        cached = _hold_cache_paths("[serve] teacher-forced greedy streams",
+                                   llama, decode_engine, cfg, params, seqs,
+                                   geo, full, dev, CACHE_REL_TOL)
+        check(dict(fa.LAUNCHES) == launches,
+              f"the cache paths launched flash kernels {fa.LAUNCHES}")
+        # Diagnostic, not a gate: the cache path against the forward
+        # with the fp32 reference attention (the flash kernels round P
+        # to bf16 before P V; the cache path keeps it in fp32).
+        for (prompt, toks), c in zip(seqs, cached):
+            seq = torch.tensor(prompt + toks, device=dev)[None]
+            ref = llama.forward(ref_cfg, params, seq)[0, len(prompt) - 1:-1]
+            ref_rels.append(float((c - ref).norm() / ref.norm()))
+            del ref
+    expect = dict.fromkeys(launches, 0)
+    expect["flash_fwd"] = cfg.n_layers * len(seqs)
+    check(launches == expect, f"teacher-forced launches {launches} != "
+          f"{expect}")
+    mismatches = []
+    for (prompt, toks), f, c in zip(seqs, full, cached):
+        scale = float((c - f).abs().max())
+        emitted = torch.tensor(toks, device=dev)
+        best = f.argmax(-1)
+        for i in torch.nonzero(best != emitted).flatten().tolist():
+            gap = float(f[i, best[i]] - f[i, emitted[i]])
+            mismatches.append((len(prompt), i, gap, scale))
+            check(gap <= 2 * scale,
+                  f"prompt {len(prompt)} token {i}: emitted {toks[i]}, the "
+                  f"forward's argmax {int(best[i])} by {gap:.4f}, past "
+                  f"twice the paths' largest logit difference {scale:.4f}")
+    print(f"[serve] teacher-forced greedy streams (prompts "
+          f"{[len(p) for p, _ in seqs]}): per stream "
+          f"{[f'{_rel([c], [f]):.2e}' for c, f in zip(cached, full)]} "
+          f"norm-relative from llama.forward's, "
+          f"{[f'{x:.2e}' for x in ref_rels]} from its fp32 reference "
+          f"attention's (not gated); launches {launches}; emitted != "
+          f"forward argmax at {len(mismatches)} of "
+          f"{len(seqs) * SV_MAX_TOKENS} tokens, each a near-tie "
+          f"(prompt, token, gap, paths' max |logit diff|): "
+          f"{[(n, i, round(g, 4), round(s, 4)) for n, i, g, s in mismatches]}",
+          flush=True)
+
+
+def _first_divergence(llama, prng, cfg, params, prompt, temp, seed, a, b):
+    """None when token lists a and b agree; else (index, gap): the two
+    candidates' (gumbel-perturbed, when sampled) f32 logits apart at the
+    first divergence, from a full forward on the shared prefix."""
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        check(len(a) == len(b), "streams of different lengths")
+        return None
+    seq = torch.tensor(prompt + a[:i], device=params.embed.device)[None]
+    with torch.no_grad():
+        z = llama.forward(dataclasses.replace(cfg, remat=False), params,
+                          seq)[0, -1]
+        if temp:
+            key = prng.fold_in(prng.fold_in(prng.key(0, seq.device), seed),
+                               len(prompt) + i)
+            z = z / temp + prng.gumbel(key, z.shape)
+    return i, abs(float(z[a[i]] - z[b[i]]))
+
+
+def _hold_equal(label, llama, prng, cfg, params, req, a, b):
+    div = _first_divergence(llama, prng, cfg, params, *req, a, b)
+    if div is None:
+        print(f"[serve] {label}: equal ({len(a)} tokens)", flush=True)
+        return
+    i, gap = div
+    print(f"[serve] {label}: first divergence at token {i}, logit gap "
+          f"{gap:.2e} (near-tie bound {F32_NEAR_TIE})", flush=True)
+    check(gap <= F32_NEAR_TIE, f"{label}: diverged at token {i} by {gap}")
+
+
+def _exactness(llama, decode_engine, prng, dev):
+    """f32 at the 8B width (4 layers), TF32 off: paged == dense ==
+    decode (greedy), speculative on == off, and a seeded stream cut at
+    token 16 and resumed == the uninterrupted one."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=SV_EXACT_LAYERS, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = llama.init(cfg, gen, dev)
+    cpu = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=cpu).tolist()
+               for n in (40, 100, 200)]
+    loop = torch.randint(1, cfg.vocab_size, (6,), generator=cpu).tolist()
+    reqs = ([(p, 0.0, 0) for p in prompts] +
+            [(prompts[1], SV_TEMP, 9), (loop * 8, 0.0, 0),
+             (loop * 8, SV_TEMP, 3)])
+
+    def run(**kw):
+        eng = decode_engine.DecodeEngine(
+            cfg, params, slots=4, max_seq=512, prefill_chunk=64,
+            spec_ngram=2, device=dev, **kw).start()
+        try:
+            hs = [eng.submit(p, max_tokens=SV_EXACT_TOKENS, temperature=t,
+                             seed=s) for p, t, s in reqs]
+            return ([h.result(timeout=900) for h in hs],
+                    sum(h.spec_drafted for h in hs), eng.kv_config())
+        finally:
+            eng.shutdown()
+            eng.release()
+
+    dense, _, _ = run(paged=False)
+    paged, _, geo = run(paged=True)
+    spec, drafted, _ = run(paged=True, spec_k=4)
+    check(drafted > 0, "speculative decoding drafted nothing")
+    for n, req in enumerate(reqs):
+        _hold_equal(f"f32 request {n}: paged vs dense", llama, prng, cfg,
+                    params, req, paged[n], dense[n])
+        _hold_equal(f"f32 request {n}: spec_k 4 ({drafted} drafted in all) "
+                    f"vs off", llama, prng, cfg, params, req, spec[n],
+                    paged[n])
+    with torch.no_grad():
+        for n, req in enumerate(reqs[:3]):
+            ref = llama.decode(cfg, params,
+                               torch.tensor([req[0]], device=dev),
+                               len(req[0]), SV_EXACT_TOKENS,
+                               len(req[0]) + SV_EXACT_TOKENS)[0].tolist()
+            _hold_equal(f"f32 request {n}: paged vs llama.decode", llama,
+                        prng, cfg, params, req, paged[n], ref)
+    prompt, temp, seed = reqs[3]
+    eng = decode_engine.DecodeEngine(cfg, params, slots=4, max_seq=512,
+                                     prefill_chunk=64, paged=True,
+                                     device=dev).start()
+    try:
+        resumed = eng.submit(prompt, max_tokens=SV_EXACT_TOKENS - 16,
+                             temperature=temp, seed=seed,
+                             resume=paged[3][:16]).result(timeout=900)
+    finally:
+        eng.shutdown()
+        eng.release()
+    _hold_equal("f32 seeded stream cut at 16 and resumed vs uninterrupted",
+                llama, prng, cfg, params, (prompt + paged[3][:16], temp,
+                                           seed), resumed, paged[3][16:])
+    seqs = [(reqs[n][0], paged[n]) for n in range(3)]
+    with torch.no_grad():
+        refs = [llama.forward(dataclasses.replace(cfg, remat=False), params,
+                              torch.tensor([p + t], device=dev))[
+                                  0, len(p) - 1:-1] for p, t in seqs]
+    _hold_cache_paths("[serve] f32 teacher-forced greedy streams", llama,
+                      decode_engine, cfg, params, seqs, geo, refs, dev,
+                      F32_CACHE_REL_TOL)
+    _spill_readmit(llama, decode_engine, prng, cfg, params, cpu, dev)
+
+
+def _spill_readmit(llama, decode_engine, prng, cfg, params, gen, dev):
+    """The host tier on the card: one slot and a pool too small for two
+    requests' blocks, so admitting B evicts A's cached prefix and spills
+    it (clone on the compute stream, D2H on the side stream) while B's
+    prefill rewrites those blocks; A again then re-admits them H2D. A's
+    warm stream must equal its cold one."""
+    a = (torch.randint(1, cfg.vocab_size, (SP_PROMPTS[0],),
+                       generator=gen).tolist(), SV_TEMP, 11)
+    b = torch.randint(1, cfg.vocab_size, (SP_PROMPTS[1],),
+                      generator=gen).tolist()
+    eng = decode_engine.DecodeEngine(
+        cfg, params, slots=1, max_seq=512, prefill_chunk=64, paged=True,
+        kv_pool_blocks=SP_POOL_BLOCKS, prefix_cache_mb=SP_HOST_MB,
+        device=dev).start()
+    try:
+        def go(prompt, temp=0.0, seed=0):
+            return eng.submit(prompt, max_tokens=SV_EXACT_TOKENS,
+                              temperature=temp, seed=seed)
+        cold = go(*a).result(timeout=900)
+        go(b).result(timeout=900)
+        deadline = time.monotonic() + 120
+        while eng.spill_in_flight():
+            check(time.monotonic() < deadline, "spill D2H never landed")
+            time.sleep(0.01)
+        spilled = eng.host_tier_stats()
+        warm_req = go(*a)
+        warm = warm_req.result(timeout=900)
+        stats = eng.host_tier_stats()
+    finally:
+        eng.shutdown()
+        eng.release()
+    print(f"[serve] f32 host tier: {spilled['evict_spills']} blocks spilled "
+          f"admitting B, {stats['readmitted_blocks']} re-admitted for A's "
+          f"second run ({warm_req.cached_prompt_tokens} prompt tokens "
+          f"cached, kv tier {warm_req.kv_tier}); host tier {stats}",
+          flush=True)
+    check(spilled["evict_spills"] > 0 and stats["readmitted_blocks"] > 0,
+          f"the host tier neither spilled nor re-admitted: {stats}")
+    _hold_equal("f32 seeded stream re-admitted from the host tier vs cold",
+                llama, prng, cfg, params, a, warm, cold)
+
+
+def phase_serve(fa, llama, card, dev="cuda"):
+    """[serve]: the port's serve_llm at Llama-3-8B full width and depth
+    (module docstring, phase 11)."""
+    from skypilot_tpu_torch.observability import reqlog, stepstats
+    from skypilot_tpu_torch.recipes import serve_llm
+    from skypilot_tpu_torch.serve import decode_engine, prng
+    reqlog.arm(sample=1.0)          # the stats frame before [DONE]
+    stepstats.arm(ring=4096)
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = llama.init(cfg, gen, dev)
+    reqs, ninth = _serve_requests(cfg, seed=6)
+    print(f"[serve] llama3_8b, {cfg.n_layers} layers (full depth), "
+          f"{cfg.num_params() / 1e9:.3f} B params, bf16; serve_llm with "
+          f"{SV_SLOTS} engine slots, paged {SV_BLOCK}-token blocks, max_seq "
+          f"{serve_llm.MAX_PROMPT_TOKENS + serve_llm.MAX_GEN_TOKENS}; prompts "
+          f"{list(SV_PROMPTS)}, {SV_MAX_TOKENS} tokens each, even ones "
+          f"greedy, odd ones T={SV_TEMP}", flush=True)
+    streams, geo = _serve_leg(fa, cfg, params, reqs, ninth, card,
+                              "[serve bf16]", dev)
+    torch.cuda.empty_cache()
+    _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
+                    geo, dev)
+    torch.cuda.empty_cache()
+    q_streams, _ = _serve_leg(fa, cfg, params, reqs, ninth, card,
+                           "[serve int8]", dev, weight_quant=True,
+                           kv_quant=True)
+    greedy = [i for i, r in enumerate(reqs) if not r[1]]
+    same = sum(a == b for i in greedy
+               for a, b in zip(streams[i], q_streams[i]))
+    print(f"[serve int8] greedy tokens equal to the bf16 leg's: {same} of "
+          f"{len(greedy) * SV_MAX_TOKENS} (not a gate)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    _exactness(llama, decode_engine, prng, dev)
+    stepstats.disarm()
+    reqlog.disarm()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -1524,6 +2081,8 @@ def main() -> int:
         phase_lora(fa, llama, trainer)
         torch.cuda.empty_cache()
         phase_mixtral(fa, llama, trainer)
+        torch.cuda.empty_cache()
+        phase_serve(fa, llama, card)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

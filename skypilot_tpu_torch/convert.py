@@ -1,6 +1,9 @@
 """Parameters between the JAX package's trees and the port's modules:
-Llama's and Mixtral's parameters and the LoRA adapter tree
-(``{"layers": {"wq_lora_a": (L, in, r), "wq_lora_b": (L, r, out), ...}}``).
+Llama's and Mixtral's parameters (Llama's also as ``quantize_params``'
+int8 tree: codes plus f32 ``<name>_scale`` leaves), the LoRA adapter tree
+(``{"layers": {"wq_lora_a": (L, in, r), "wq_lora_b": (L, r, out), ...}}``)
+and the serving KV caches (dense and paged, int8 pools with their
+scales).
 
 A JAX tree (``skypilot_tpu.models.llama.init``, ``mixtral.init``) is a
 nested dict with the layers stacked on axis 0 and every weight stored
@@ -48,11 +51,38 @@ def llama_params_from_jax(cfg: llama.LlamaConfig,
                           params_np: Dict[str, Any],
                           device: DeviceLike = None) -> llama.LlamaParams:
     """The port's parameters from a JAX llama tree of numpy arrays in the
-    config's dtype."""
+    config's dtype, or from a ``quantize_params`` tree (int8 codes and
+    f32 scales, recognised by its ``embed_scale``)."""
     device = resolve_device(device)
     params = llama.LlamaParams(cfg, "meta", cfg.dtype)
-    _put_tree(params, params_np, llama.layer_shapes(cfg), device)
+    names = list(llama.layer_shapes(cfg))
+    if "embed_scale" in params_np:
+        _as_quantized(params)
+        names += [n + "_scale" for n in llama.QUANT_LAYER_WEIGHTS]
+    _put_tree(params, params_np, names, device)
     return params
+
+
+def _frozen_meta(shape, dtype) -> torch.nn.Parameter:
+    return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"),
+                              requires_grad=False)
+
+
+def _as_quantized(params: llama.LlamaParams) -> None:
+    """Re-type a meta ``LlamaParams`` as ``quantize_params``' tree: int8
+    codes, and per-output-channel f32 scales beside them."""
+    heads = ["embed"] + (["lm_head"] if params.lm_head is not None else [])
+    for name in heads:
+        w = getattr(params, name)
+        out = w.shape[0] if name == "embed" else w.shape[-1]
+        setattr(params, name, _frozen_meta(w.shape, torch.int8))
+        setattr(params, name + "_scale", _frozen_meta((out,), torch.float32))
+    for lp in params.layers:
+        for name in llama.QUANT_LAYER_WEIGHTS:
+            w = getattr(lp, name)
+            setattr(lp, name, _frozen_meta(w.shape, torch.int8))
+            setattr(lp, name + "_scale",
+                    _frozen_meta((w.shape[-1],), torch.float32))
 
 
 def _put(module: torch.nn.Module, name: str, arr: Any,
@@ -66,12 +96,14 @@ def _put(module: torch.nn.Module, name: str, arr: Any,
     t = to_tensor(arr, device)
     if t.dtype != like.dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {like.dtype}")
-    setattr(module, name, torch.nn.Parameter(t))
+    setattr(module, name, torch.nn.Parameter(
+        t, requires_grad=like.requires_grad))
 
 
 def _put_tree(params: torch.nn.Module, params_np: Dict[str, Any],
               layer_names, device: torch.device) -> None:
-    for name in ("embed", "final_norm", "lm_head"):
+    for name in ("embed", "embed_scale", "final_norm", "lm_head",
+                 "lm_head_scale"):
         if getattr(params, name, None) is not None:
             _put(params, name, params_np[name], device)
     stacked = params_np["layers"]
@@ -82,11 +114,12 @@ def _put_tree(params: torch.nn.Module, params_np: Dict[str, Any],
 
 def llama_params_to_numpy(params: torch.nn.Module) -> Dict[str, Any]:
     """The JAX tree layout (layers stacked on axis 0) as numpy arrays; also
-    Mixtral's parameters."""
-    out = {"embed": to_numpy(params.embed),
-           "final_norm": to_numpy(params.final_norm)}
-    if params.lm_head is not None:
-        out["lm_head"] = to_numpy(params.lm_head)
+    Mixtral's parameters and ``quantize_params``' tree."""
+    out = {}
+    for name in ("embed", "embed_scale", "final_norm", "lm_head",
+                 "lm_head_scale"):
+        if getattr(params, name, None) is not None:
+            out[name] = to_numpy(getattr(params, name))
     out.update(_stacked_layers(params.layers))
     return out
 
@@ -150,3 +183,17 @@ def lora_from_jax(cfg, lora_np: Dict[str, Any], device: DeviceLike = None):
 def lora_to_numpy(lora) -> Dict[str, Any]:
     """The JAX adapter tree (layers stacked on axis 0) as numpy arrays."""
     return _stacked_layers(lora.layers)
+
+
+def cache_from_jax(cache_np: Dict[str, Any],
+                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A serving cache (``init_cache``'s dense rows or
+    ``init_paged_cache``'s pool, with ``k_scale``/``v_scale`` when int8)
+    from the JAX package's dict of numpy arrays; the layouts are equal."""
+    device = resolve_device(device)
+    return {k: to_tensor(v, device) for k, v in cache_np.items()}
+
+
+def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A serving cache as the JAX package's dict of numpy arrays."""
+    return {k: to_numpy(v) for k, v in cache.items()}

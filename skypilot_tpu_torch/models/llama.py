@@ -1,5 +1,6 @@
-"""Llama-3-class decoder, training half: counterpart of
-``skypilot_tpu/models/llama.py`` (config, init, forward and its blocks).
+"""Llama-3-class decoder: counterpart of ``skypilot_tpu/models/llama.py``
+(config, init, forward and its blocks; the int8 serving tree and the
+KV-cache decode paths).
 
 Parameters live in an ``nn.Module`` with one submodule per layer; every
 weight keeps the JAX package's (in, out) orientation and is applied as
@@ -43,20 +44,36 @@ flash path only, a layer whose attention takes the reference path (the
 reference impl, or a shape the flash path refuses) has nothing to name and
 runs the ``"full"`` policy.
 
-Not in this slice: ``quantize_params`` (the int8 serving tree) and the
-KV-cache decode paths.
+Serving (below the training half): ``quantize_params`` (int8 codes plus
+per-output-channel f32 scales), the dense KV cache (``init_cache``,
+``forward_with_cache``), the paged block pool (``init_paged_cache``,
+``forward_with_paged_cache``, int8 codes plus per-(layer, block, kv_head)
+scales), the speculative verify window (``verify_step``,
+``verify_step_paged``) and ``decode``. Their attention is the JAX
+package's split-KV online softmax, written as torch ops as it is XLA
+there: one tile function (``_attn_tile``) for the dense and the paged
+loop, so paged output equals dense bit for bit when the tiles align.
+
+Cache tensors are updated in place (the JAX package donates them), and
+each forward returns the same cache it was given. The host-side values
+of a forward (``start_pos``, ``valid_len``, ``logits_at``, ``write_pos``
+and the block table) are read to the host once per forward, never per
+layer: the split-KV loop bound and the write indices come from them, so
+a caller that passes them as Python ints, lists or numpy arrays (as the
+decode engine does) makes a forward that never waits on the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from skypilot_tpu_torch import DeviceLike, resolve_device
+from skypilot_tpu_torch import DeviceLike, resolve_device, to_device
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops.linear import matmul_f32
@@ -302,8 +319,16 @@ def head_weights(params: LlamaParams) -> torch.Tensor:
 
 
 def _vocab_proj(params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) hidden -> fp32 logits, inputs in the working dtype."""
-    return matmul_f32(x, head_weights(params))
+    """(B, S, D) hidden -> fp32 logits, inputs in the working dtype. An
+    int8 head's per-vocab-channel scale (``embed_scale`` for a tied head:
+    the table's per-row scale is the head's per-column one) folds into
+    the f32 logits."""
+    logits = matmul_f32(x, head_weights(params))
+    scale = getattr(params, "lm_head_scale" if params.lm_head is not None
+                    else "embed_scale", None)
+    if scale is not None:
+        logits = logits * scale
+    return logits
 
 
 def lm_head(cfg, params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
@@ -565,3 +590,592 @@ def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token ids (B, S) -> fp32 logits (B, S, vocab)."""
     return _vocab_proj(params, forward_trunk(cfg, params, tokens, positions))
+
+
+# ------------------------------------------------------ int8 serving tree
+
+# Layer weights the int8 serving path quantizes (norms stay in their
+# dtype, as in the JAX package).
+QUANT_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                       "w_down")
+
+
+def _div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """``a / c`` rounded as a true division: CUDA divides by a host
+    scalar as a multiply by its reciprocal, which can round otherwise."""
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _quantize_weight(w: torch.Tensor,
+                     reduce_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-channel int8: absmax over the in-features axis
+    (``reduce_axis``), one f32 scale per output channel, codes in
+    [-127, 127]."""
+    wf = w.float()
+    scale = torch.clamp(_div(wf.abs().amax(dim=reduce_axis), 127.0),
+                        min=1e-8)
+    q = torch.round(wf / scale.unsqueeze(reduce_axis))
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+@torch.no_grad()
+def quantize_params(cfg: LlamaConfig, params: LlamaParams) -> LlamaParams:
+    """The int8 serving tree: every matmul weight becomes int8 codes plus
+    a per-output-channel f32 ``<name>_scale`` (the embed table's scale is
+    per vocab row, which is also a tied head's per-column scale). A new
+    module of ``params``' shape; norms are shared with ``params``, not
+    copied. ``lora_dense``, ``_decode_embed`` and ``_vocab_proj`` read the
+    scales."""
+    out = LlamaParams(cfg, "meta", cfg.dtype)
+    codes, scale = _quantize_weight(params.embed, -1)
+    out.embed, out.embed_scale = _frozen(codes), _frozen(scale)
+    out.final_norm = params.final_norm
+    if params.lm_head is not None:
+        codes, scale = _quantize_weight(params.lm_head, -2)
+        out.lm_head, out.lm_head_scale = _frozen(codes), _frozen(scale)
+    for src, dst in zip(params.layers, out.layers):
+        dst.attn_norm, dst.mlp_norm = src.attn_norm, src.mlp_norm
+        for name in QUANT_LAYER_WEIGHTS:
+            codes, scale = _quantize_weight(getattr(src, name), -2)
+            setattr(dst, name, _frozen(codes))
+            setattr(dst, name + "_scale", _frozen(scale))
+    return out
+
+
+def params_quantized(params: nn.Module) -> bool:
+    """True when ``params`` is a :func:`quantize_params` tree."""
+    return getattr(params, "embed_scale", None) is not None
+
+
+def _decode_embed(cfg, params: LlamaParams,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """Token-embedding gather for the serving paths, dequantizing the
+    per-row scales of an int8 table."""
+    x = params.embed[tokens]
+    row_scale = getattr(params, "embed_scale", None)
+    if row_scale is not None:
+        x = (x.float() * row_scale[tokens][..., None]).to(cfg.dtype)
+    return x
+
+
+# ----------------------------------------------------------- KV-cache decode
+
+# KV rows read per split-KV tile.
+SPLIT_KV_BLOCK = 256
+
+Cache = Dict[str, torch.Tensor]
+
+
+def init_cache(cfg, batch: int, max_seq: int,
+               device: DeviceLike = None) -> Cache:
+    """Per-layer KV cache (layers, batch, max_seq, kv_heads, head_dim),
+    zeros in the config dtype; ``device`` defaults to the card."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def init_paged_cache(cfg, num_blocks: int, block_tokens: int, *,
+                     quantized: bool = False,
+                     device: DeviceLike = None) -> Cache:
+    """ONE paged KV pool shared by every engine slot and the prefix
+    cache: (layers, num_blocks, block_tokens, kv_heads, head_dim); block 0
+    is the scratch block free slots write into. ``quantized`` stores int8
+    codes plus per-(layer, block, kv_head) f32 ``k_scale``/``v_scale``."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_tokens, cfg.n_kv_heads,
+             cfg.head_dim)
+    if not quantized:
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    sshape = (cfg.n_layers, num_blocks, cfg.n_kv_heads)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device)}
+
+
+def _attn_tile(qf, scale: float, kb, vb, msk, m, el, acc):
+    """One online-softmax tile (running max / normalizer / accumulator),
+    shared by the dense and paged loops so both are the same arithmetic
+    term for term. qf: (B, T, KVH, G, D) f32; kb/vb: (B, W, KVH, D) f32;
+    msk: (B, T, W) bool. Returns (m, el, acc) updated."""
+    s_blk = torch.einsum("btkgd,bskd->bkgts", qf, kb) * scale
+    mk = msk[:, None, None]
+    s_blk = torch.where(mk, s_blk, -1e30)
+    m_new = torch.maximum(m, s_blk.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    # Masked entries multiplied to exactly 0 (not just exp(-big)): a
+    # fully-masked slot (a free engine slot) must stay finite.
+    p = torch.exp(s_blk - m_new[..., None]) * mk
+    el = el * corr + p.sum(dim=-1)
+    pv = torch.einsum("bkgts,bskd->btkgd", p, vb)
+    corr_t = corr.permute(0, 3, 1, 2)[..., None]
+    return m_new, el, acc * corr_t + pv
+
+
+def _attn_carry(b: int, t: int, kvh: int, g: int, d: int, device):
+    f32 = torch.float32
+    return (torch.full((b, kvh, g, t), -1e30, dtype=f32, device=device),
+            torch.zeros((b, kvh, g, t), dtype=f32, device=device),
+            torch.zeros((b, t, kvh, g, d), dtype=f32, device=device))
+
+
+def _attn_normalize(el: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    el_t = el.permute(0, 3, 1, 2)[..., None]
+    return torch.where(el_t > 0, acc / torch.clamp(el_t, min=1e-30), 0.0)
+
+
+def _tile_mask(s0: int, start: int, width: int, positions: torch.Tensor,
+               valid_len: torch.Tensor) -> torch.Tensor:
+    kpos = start + torch.arange(width, device=positions.device)
+    return ((kpos >= s0) & (kpos <= positions[..., None]) &
+            (kpos < valid_len[:, None, None]))
+
+
+def _loop_limit(positions: np.ndarray, valid_len: np.ndarray,
+                rows: int) -> int:
+    """Rows any query of the batch can attend: the batch max of
+    min(its last position + 1, valid_len), capped at ``rows``."""
+    return int(min(np.max(np.minimum(positions[:, -1] + 1, valid_len)),
+                   rows))
+
+
+def _split_kv_attention(qg: torch.Tensor, ck: torch.Tensor,
+                        cv: torch.Tensor, positions: torch.Tensor,
+                        valid_len: torch.Tensor, limit: int,
+                        block: Optional[int] = None) -> torch.Tensor:
+    """Flash-decode attention against the ragged dense cache: key tiles
+    of ``block`` rows with an online softmax, up to ``limit`` rows (the
+    longest frontier in the batch, a host int). When ``block`` does not
+    divide max_seq, the final tile clamps back to max_seq - block and the
+    rows before its nominal start are masked. qg: (B, T, KVH, G, D);
+    ck/cv: (B, max_seq, KVH, D); positions (B, T), valid_len (B,) on the
+    device. Returns f32 (B, T, KVH, G, D)."""
+    b, t, kvh, g, d = qg.shape
+    max_seq = ck.shape[1]
+    block = min(block or SPLIT_KV_BLOCK, max_seq)
+    qf = qg.float()
+    scale = d ** -0.5
+    m, el, acc = _attn_carry(b, t, kvh, g, d, qg.device)
+    for s0 in range(0, limit, block):
+        start = min(s0, max_seq - block)
+        kb = ck[:, start:start + block].float().contiguous()
+        vb = cv[:, start:start + block].float().contiguous()
+        msk = _tile_mask(s0, start, block, positions, valid_len)
+        m, el, acc = _attn_tile(qf, scale, kb, vb, msk, m, el, acc)
+    return _attn_normalize(el, acc)
+
+
+def _paged_split_kv_attention(qg: torch.Tensor, pk: torch.Tensor,
+                              pv: torch.Tensor, table: torch.Tensor,
+                              positions: torch.Tensor,
+                              valid_len: torch.Tensor, limit: int,
+                              window: int,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Split-KV attention reading K/V through per-slot block tables:
+    each tile gathers ``window // block_tokens`` blocks per slot
+    (``table[b, j]`` names the physical block of slot b's logical chunk
+    j), reassembles the (B, W, KVH, D) tile the dense loop slices, and
+    runs the same ``_attn_tile`` (dequantized by the blocks' per-head
+    scales when the pool is int8). pk/pv: one layer's pool (NB, BT, KVH,
+    D); table (B, table_len) on the device; ``limit`` a host int."""
+    b, t, kvh, g, d = qg.shape
+    bt = pk.shape[1]
+    nb_win = window // bt
+    if nb_win * bt != window:
+        raise ValueError(f"window {window} must be a multiple of the "
+                         f"block size {bt}")
+    qf = qg.float()
+    scale = d ** -0.5
+    m, el, acc = _attn_carry(b, t, kvh, g, d, qg.device)
+    last = table.shape[1] - nb_win
+    for s0 in range(0, limit, window):
+        c = min(s0 // bt, last)
+        phys = table[:, c:c + nb_win]                       # (B, nbw)
+        kb = pk[phys].float()                  # (B, nbw, bt, KVH, D)
+        vb = pv[phys].float()
+        if k_scale is not None:
+            kb = kb * k_scale[phys][:, :, None, :, None]
+            vb = vb * v_scale[phys][:, :, None, :, None]
+        kb = kb.reshape(b, window, kvh, d)
+        vb = vb.reshape(b, window, kvh, d)
+        msk = _tile_mask(s0, s0, window, positions, valid_len)
+        m, el, acc = _attn_tile(qf, scale, kb, vb, msk, m, el, acc)
+    return _attn_normalize(el, acc)
+
+
+def _host_ints(v, b: int) -> np.ndarray:
+    """A scalar or (B,) of ints (int, list, numpy or tensor) as a host
+    (B,) int64 array."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    v = np.asarray(v, dtype=np.int64)
+    return np.broadcast_to(v, (b,)).copy() if v.ndim == 0 else v
+
+
+def _host_array(v) -> Optional[np.ndarray]:
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.int64)
+
+
+class _Step:
+    """What one cached forward reads from the host, computed once so no
+    layer does: per-slot start positions and valid lengths, the split-KV
+    loop bound, and the write indices, uploaded without waiting on the
+    device."""
+
+    def __init__(self, tokens: torch.Tensor, start_pos, valid_len,
+                 rows: int):
+        b, t = tokens.shape
+        self.device = tokens.device
+        self.start = _host_ints(start_pos, b)
+        self.valid = (self.start + t if valid_len is None
+                      else _host_ints(valid_len, b))
+        pos = self.start[:, None] + np.arange(t)[None, :]
+        self.positions = to_device(pos, self.device)
+        self.valid_dev = to_device(self.valid, self.device)
+        self.limit = _loop_limit(pos, self.valid, rows)
+
+
+class _DenseStep(_Step):
+    """A forward against the dense cache: each token's (slot, column,
+    row) write. Without ``write_pos`` a slot's T rows start at its start
+    position, clamped so they fit (as ``dynamic_update_slice`` clamps);
+    with it (the verify window) each token has its own row and rows
+    outside the cache are dropped."""
+
+    def __init__(self, tokens, start_pos, valid_len, write_pos,
+                 max_seq: int):
+        super().__init__(tokens, start_pos, valid_len, max_seq)
+        b, t = tokens.shape
+        if write_pos is None:
+            rows = (np.minimum(self.start, max_seq - t)[:, None] +
+                    np.arange(t)[None, :])
+            bs, ts = np.divmod(np.arange(b * t), t)
+        else:
+            bs, ts = np.nonzero((write_pos >= 0) & (write_pos < max_seq))
+            rows = write_pos
+        rs = rows[bs, ts]
+        self.write = tuple(to_device(a, self.device) for a in (bs, ts, rs))
+
+
+def _residual_attn(cfg, x: torch.Tensor, attn: torch.Tensor,
+                   lp: nn.Module) -> torch.Tensor:
+    return _attn_residual(cfg, x, attn.to(x.dtype), lp)
+
+
+def cached_attention_block(cfg, x: torch.Tensor, lp: nn.Module,
+                           ck: torch.Tensor, cv: torch.Tensor,
+                           step: _DenseStep,
+                           block: Optional[int] = None) -> torch.Tensor:
+    """One pre-norm GQA attention residual block against the dense
+    cache: one layer's ck/cv, written in place at ``step``'s rows, then
+    attended up to each slot's frontier. Returns x + attn_out."""
+    b, t = x.shape[0], x.shape[1]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k_new, v_new = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp,
+                               step.positions)
+    bi, ti, ri = step.write
+    ck.index_put_((bi, ri), k_new[bi, ti].to(ck.dtype))
+    cv.index_put_((bi, ri), v_new[bi, ti].to(cv.dtype))
+    qg = q.reshape(b, t, kvh, h // kvh, hd)
+    attn = _split_kv_attention(qg, ck, cv, step.positions, step.valid_dev,
+                               step.limit, block)
+    return _residual_attn(cfg, x, attn.reshape(b, t, h * hd), lp)
+
+
+def _read_out(x: torch.Tensor, logits_at) -> torch.Tensor:
+    """x (B, T, D) at the chunk-relative ``logits_at`` (a scalar or a
+    per-slot (B,)): (B, 1, D)."""
+    at = _host_array(logits_at)
+    if at is None:
+        return x
+    if at.ndim == 0:
+        return x[:, int(at):int(at) + 1]
+    b = x.shape[0]
+    return x[torch.arange(b, device=x.device), to_device(at, x.device)][
+        :, None]
+
+
+def forward_with_cache(cfg, params: LlamaParams, tokens: torch.Tensor,
+                       cache: Cache, start_pos, valid_len=None,
+                       logits_at=None, *, write_pos=None,
+                       block: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, Cache]:
+    """Incremental forward: tokens (B, T) at positions [start_pos,
+    start_pos + T), reading and writing the dense cache in place.
+    ``start_pos``, ``valid_len`` (default start_pos + T: cache rows at or
+    past it are masked) and ``logits_at`` (chunk-relative read-out, (B,
+    1, vocab)) take a scalar or a per-slot (B,). ``write_pos`` (B, T)
+    selects the verify window's per-token writes; ``block`` the split-KV
+    tile width (SPLIT_KV_BLOCK by default). Returns (fp32 logits, cache)."""
+    step = _DenseStep(tokens, start_pos, valid_len, _host_array(write_pos),
+                      cache["k"].shape[2])
+    x = _decode_embed(cfg, params, tokens)
+    for i, lp in enumerate(params.layers):
+        x = cached_attention_block(cfg, x, lp, cache["k"][i],
+                                   cache["v"][i], step, block)
+        x = mlp_block(cfg, x, lp)
+    return lm_head(cfg, params, _read_out(x, logits_at)), cache
+
+
+def _quant_scatter_row(pk: torch.Tensor, ks: torch.Tensor,
+                       blk: torch.Tensor, off: torch.Tensor,
+                       row: torch.Tensor) -> None:
+    """Scatter one new K/V row per slot into the int8 pool in place,
+    keeping one scale per (block, head). In code space: the row's absmax
+    can only grow the block's scale, and when it does not the rescale
+    ratio is exactly 1, so resident codes round back to themselves.
+    ``off == 0`` (a freshly granted block) resets the inherited scale.
+    Free slots write to the scratch block (duplicates there: last write
+    wins, never attended). pk: (NB, BT, KVH, D) int8; ks: (NB, KVH) f32;
+    blk/off: (B,) on the device; row: (B, KVH, D)."""
+    b = blk.shape[0]
+    cur = pk[blk].float()                              # (B, BT, KVH, D)
+    old_s = torch.where((off == 0)[:, None], 0.0, ks[blk])   # (B, KVH)
+    rf = row.float()
+    row_s = _div(rf.abs().amax(dim=-1), 127.0)
+    new_s = torch.clamp(torch.maximum(old_s, row_s), min=1e-8)
+    ratio = (old_s / new_s)[:, None, :, None]
+    scaled = torch.round(cur * ratio)
+    scaled[torch.arange(b, device=blk.device), off] = torch.round(
+        rf / new_s[..., None])
+    pk[blk] = torch.clamp(scaled, -127, 127).to(torch.int8)
+    ks[blk] = new_s
+
+
+def _quant_block_write(pk: torch.Tensor, ks: torch.Tensor,
+                       write_block: int, rows: torch.Tensor,
+                       valid_rows: torch.Tensor) -> None:
+    """Whole-block int8 overwrite in place (single-slot chunk prefill): a
+    fresh per-(block, head) scale from the chunk's valid rows only (a
+    right-padded final chunk's junk rows never inflate it), then every
+    row quantized under it. rows: (BT, KVH, D); valid_rows: (BT,) bool."""
+    rf = rows.float()
+    masked = torch.where(valid_rows[:, None, None], rf.abs(), 0.0)
+    s = torch.clamp(_div(masked.amax(dim=(0, 2)), 127.0), min=1e-8)
+    pk[write_block] = torch.clamp(torch.round(rf / s[None, :, None]),
+                                  -127, 127).to(torch.int8)
+    ks[write_block] = s
+
+
+class _PagedStep(_Step):
+    """A forward against the paged pool: the block table (on the device,
+    for the gather) and each token's (block, offset) write. The verify
+    window (``write_pos``) and T == 1 write rows through the table (junk
+    columns and free slots to the scratch block 0); a longer T is the
+    single-slot chunk prefill, which writes a whole block."""
+
+    def __init__(self, tokens, table, start_pos, valid_len, write_pos,
+                 block_tokens: int):
+        table = _host_array(table)
+        bt = block_tokens
+        super().__init__(tokens, start_pos, valid_len, table.shape[1] * bt)
+        self.table = to_device(table, self.device)
+        b, t = tokens.shape
+        self.rows = None
+        if write_pos is not None:
+            ok = write_pos < table.shape[1] * bt
+            blk_idx = np.clip(write_pos // bt, 0, table.shape[1] - 1)
+            blk = np.where(ok, np.take_along_axis(table, blk_idx, axis=1),
+                           0)
+            off = np.where(ok, write_pos % bt, 0)
+        elif t == 1:
+            blk = table[np.arange(b), self.start // bt][:, None]
+            off = (self.start % bt)[:, None]
+        else:
+            return
+        self.rows = (to_device(blk, self.device), to_device(off, self.device))
+
+
+def paged_attention_block(cfg, x: torch.Tensor, lp: nn.Module,
+                          pk: torch.Tensor, pv: torch.Tensor,
+                          step: _PagedStep, window: int,
+                          write_block: Optional[int],
+                          ks: Optional[torch.Tensor] = None,
+                          vs: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """One pre-norm GQA attention residual block against the paged pool
+    (one layer's pk/pv and, int8, ks/vs; all written in place): row
+    writes through the table (``step.rows``: each slot's new row, or a
+    verify window's columns in order), or the single-slot chunk
+    prefill's whole block ``write_block`` (B == 1, T == block_tokens).
+    Returns x + attn_out."""
+    b, t = x.shape[0], x.shape[1]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bt = pk.shape[1]
+    quant = ks is not None
+    q, k_new, v_new = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp,
+                               step.positions)
+    if step.rows is not None:
+        blk, off = step.rows
+        if quant:
+            # Columns in order: a verify window's positions are
+            # consecutive, so a block boundary (off == 0, scale reset) is
+            # crossed before that block's later offsets are written.
+            for j in range(t):
+                _quant_scatter_row(pk, ks, blk[:, j], off[:, j],
+                                   k_new[:, j])
+                _quant_scatter_row(pv, vs, blk[:, j], off[:, j],
+                                   v_new[:, j])
+        else:
+            pk.index_put_((blk, off), k_new.to(pk.dtype))
+            pv.index_put_((blk, off), v_new.to(pv.dtype))
+    else:
+        if b != 1 or t != bt or write_block is None:
+            raise ValueError(
+                "paged chunk prefill needs B == 1, T == block_tokens "
+                "and a write_block (chunk-aligned whole-block write); "
+                f"got B={b}, T={t}, block_tokens={bt}")
+        if quant:
+            valid_rows = step.positions[0] < int(step.valid[0])
+            _quant_block_write(pk, ks, write_block, k_new[0], valid_rows)
+            _quant_block_write(pv, vs, write_block, v_new[0], valid_rows)
+        else:
+            pk[write_block] = k_new[0].to(pk.dtype)
+            pv[write_block] = v_new[0].to(pv.dtype)
+    qg = q.reshape(b, t, kvh, h // kvh, hd)
+    attn = _paged_split_kv_attention(qg, pk, pv, step.table,
+                                     step.positions, step.valid_dev,
+                                     step.limit, window, ks, vs)
+    return _residual_attn(cfg, x, attn.reshape(b, t, h * hd), lp)
+
+
+def forward_with_paged_cache(cfg, params: LlamaParams, tokens: torch.Tensor,
+                             cache: Cache, table, start_pos,
+                             valid_len=None, logits_at=None, *,
+                             window: int, write_block: Optional[int] = None,
+                             write_pos=None
+                             ) -> Tuple[torch.Tensor, Cache]:
+    """Incremental forward against the paged pool (``init_paged_cache``,
+    updated in place) through ``table`` (B, table_len) block tables; the
+    scalar-or-(B,) ``start_pos``/``valid_len``/``logits_at`` contract of
+    :func:`forward_with_cache`. ``window`` is the attention tile width
+    (match the dense ``min(SPLIT_KV_BLOCK, max_seq)`` for bit parity);
+    ``write_block`` the single-slot prefill's target block. Returns (fp32
+    logits, cache)."""
+    step = _PagedStep(tokens, table, start_pos, valid_len,
+                      _host_array(write_pos), cache["k"].shape[2])
+    wb = None if write_block is None else int(write_block)
+    quant = "k_scale" in cache
+    x = _decode_embed(cfg, params, tokens)
+    for i, lp in enumerate(params.layers):
+        x = paged_attention_block(
+            cfg, x, lp, cache["k"][i], cache["v"][i], step, window, wb,
+            cache["k_scale"][i] if quant else None,
+            cache["v_scale"][i] if quant else None)
+        x = mlp_block(cfg, x, lp)
+    return lm_head(cfg, params, _read_out(x, logits_at)), cache
+
+
+def _verify_write_positions(t: int, start_pos: np.ndarray,
+                            spec_len: np.ndarray, span: int) -> np.ndarray:
+    """(B, T) cache-write positions of a speculative verify window:
+    column j of slot b at start_pos[b] + j while j <= spec_len[b], and at
+    the out-of-range sentinel ``span`` past its draft tail."""
+    offs = np.arange(t)[None, :]
+    return np.where(offs <= spec_len[:, None], start_pos[:, None] + offs,
+                    span)
+
+
+def verify_step(cfg, params: LlamaParams, tokens: torch.Tensor,
+                cache: Cache, start_pos, spec_len, *,
+                block: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """Multi-token speculative verification against the dense cache:
+    ``tokens`` (B, T) is each slot's last token and up to T - 1 drafts
+    (``spec_len`` real ones); logits at all T positions, writes per token
+    with the junk columns dropped, ``valid_len = start_pos + spec_len +
+    1``. Returns (logits (B, T, vocab), cache)."""
+    b, t = tokens.shape
+    start = _host_ints(start_pos, b)
+    spec = _host_ints(spec_len, b)
+    wpos = _verify_write_positions(t, start, spec, cache["k"].shape[2])
+    return forward_with_cache(cfg, params, tokens, cache, start,
+                              valid_len=start + spec + 1, write_pos=wpos,
+                              block=block)
+
+
+def verify_step_paged(cfg, params: LlamaParams, tokens: torch.Tensor,
+                      cache: Cache, table, start_pos, spec_len, *,
+                      window: int
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """:func:`verify_step` against the paged pool: writes scatter through
+    each slot's block table (junk columns to the scratch block)."""
+    b, t = tokens.shape
+    start = _host_ints(start_pos, b)
+    spec = _host_ints(spec_len, b)
+    span = np.shape(table)[1] * cache["k"].shape[2]
+    wpos = _verify_write_positions(t, start, spec, span)
+    return forward_with_paged_cache(
+        cfg, params, tokens, cache, table, start,
+        valid_len=start + spec + 1, window=window, write_pos=wpos)
+
+
+def decode(cfg, params: LlamaParams, prompt: torch.Tensor, true_len,
+           max_tokens: int, max_seq: int, temperature: float = 0.0,
+           key: Optional[torch.Tensor] = None, *,
+           cache: Optional[Cache] = None) -> torch.Tensor:
+    """Prefill + cached decode: prompt (B, S_pad) -> (B, max_tokens)
+    int64 tokens. ``true_len``: the un-padded prompt length, a scalar or a
+    per-example (B,) (a ragged batch). temperature 0 is greedy; > 0
+    samples from softmax(logits / T) with ``key`` (a ``serve.prng`` key,
+    split before each token as ``jax.random.split`` splits it).
+    ``cache``: an ``init_cache`` cache to fill in place (allocated on the
+    prompt's device otherwise)."""
+    from skypilot_tpu_torch.serve import prng
+    b, s_pad = prompt.shape
+    lens = _host_array(true_len)
+    if lens.ndim and lens.shape != (b,):
+        raise ValueError(
+            f"true_len must be a scalar or a (batch,) vector of "
+            f"un-padded prompt lengths; got shape {lens.shape} "
+            f"for batch {b}.")
+    lens = _host_ints(lens, b)
+    if s_pad + max_tokens > max_seq:
+        raise ValueError(
+            f"prompt ({s_pad}) + max_tokens ({max_tokens}) exceeds the "
+            f"cache (max_seq={max_seq}); the cache write would clamp and "
+            f"corrupt the tail.")
+    if temperature > 0.0 and key is None:
+        raise ValueError("temperature > 0 needs a PRNG key")
+    dev = prompt.device
+    temp = torch.full((), temperature, dtype=torch.float32, device=dev)
+
+    def pick(logits_row):
+        nonlocal key
+        if temperature <= 0.0:
+            return torch.argmax(logits_row, dim=-1)
+        key, sub = prng.split(key)
+        return prng.categorical(sub, logits_row / temp)
+
+    if cache is None:
+        cache = init_cache(cfg, b, max_seq, dev)
+    logits, cache = forward_with_cache(cfg, params, prompt, cache, 0,
+                                       valid_len=lens, logits_at=lens - 1)
+    tok = pick(logits[:, 0])
+    toks = []
+    for i in range(max_tokens):
+        toks.append(tok)
+        logits, cache = forward_with_cache(cfg, params, tok[:, None], cache,
+                                           lens + i)
+        tok = pick(logits[:, -1])
+    return torch.stack(toks, dim=1)
+
+
+def greedy_decode(cfg, params: LlamaParams, prompt: torch.Tensor, true_len,
+                  max_tokens: int, max_seq: int) -> torch.Tensor:
+    return decode(cfg, params, prompt, true_len, max_tokens, max_seq)

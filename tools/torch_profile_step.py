@@ -10,6 +10,8 @@
                                                          # [lora]
     python3 tools/torch_profile_step.py --model mixtral --layers 2 \
         --optimizer adafactor                            # [mixtral]
+    python3 tools/torch_profile_step.py --decode         # [serve]'s step
+    python3 tools/torch_profile_step.py --decode --weight-quant --kv-quant
 
 Builds the step chip_smoke.py drives (Llama-3-8B width, 4 layers, bf16,
 adamw, flash kernels; by default batch 2 x seq 2048, full remat and the
@@ -23,6 +25,20 @@ warms up, then:
    kernels, and the copy engine's time for host offload (the
    save_flash_offload_qkv policy's q/k/v round trip), which runs beside
    the kernels and is not counted as busy.
+
+With ``--decode`` it profiles one decode step of the serving engine
+instead, at [serve]'s geometry: Llama-3-8B at full depth (unless
+``--layers``), 8 live slots (``--slots``) each ~1k tokens into its
+context (``--context``), the paged pool of 64-token blocks, greedy; the
+engine is driven step by step on this thread (prefill first, then decode
+steps), and it prints the step's median ms, device time by family,
+kernels and copies launched per step, and the device's idle share; then
+where the step's host time goes: the CPU ops by self time per step (from
+the same profile; the profiler's own cost inflates them, so the profiled
+window is printed beside the unprofiled step), the host time outside any
+op (Python and the engine's own code), and, without the profiler, the
+host's cost of one small kernel launch and of one call of the split-KV
+tile's einsum, gather and mask ops at the step's shapes.
 
 Imports nothing of JAX. Needs a CUDA card and this file's checkout.
 """
@@ -49,7 +65,8 @@ FAMILIES = (
     ("flash attention, fp32 (port kernels)", ("_f32_kernel",)),
     ("flash attention, resident (port kernels)", ("flash_fwd", "flash_dq",
                                                   "flash_dkv")),
-    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+    ("matmul (cuBLAS)", ("gemm", "gemv", "xmma", "cutlass", "nvjet",
+                         "sm90_")),
     ("adamw (fused multi-tensor)", ("multi_tensor_apply", "fusedopti")),
     ("softmax / logsumexp / CE", ("softmax", "logsumexp", "log_softmax",
                                   "nll", "cross_entropy")),
@@ -79,7 +96,9 @@ def main() -> int:
     parser.add_argument("--chunked-ce", action="store_true",
                         help="forward_trunk + chunked_cross_entropy_loss "
                              "instead of full-sequence logits")
-    parser.add_argument("--layers", type=int, default=N_LAYERS)
+    parser.add_argument("--layers", type=int, default=None,
+                        help=f"depth (default {N_LAYERS}; --decode: the "
+                             "model's)")
     parser.add_argument("--vocab", type=int, default=None,
                         help="vocabulary (default: the model's)")
     parser.add_argument("--optimizer", default="adamw",
@@ -91,6 +110,12 @@ def main() -> int:
                         help="the LoRA recipe's step: the base frozen, "
                              "rank-8 adapters on wq/wk/wv/wo, AdamW on "
                              "them (recipes.llama_lora)")
+    parser.add_argument("--decode", action="store_true",
+                        help="one serving decode step (module docstring)")
+    parser.add_argument("--slots", type=int, default=8)
+    parser.add_argument("--context", type=int, default=1024)
+    parser.add_argument("--weight-quant", action="store_true")
+    parser.add_argument("--kv-quant", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -104,6 +129,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(f"[card] {smi.stdout.strip()}")
+    if args.decode:
+        return decode_step(args, llama)
+    args.layers = args.layers or N_LAYERS
     if args.model == "mixtral":
         model = mixtral
         cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
@@ -141,10 +169,6 @@ def main() -> int:
 
         def update():
             tx.update_(plist, [p.grad for p in plist], state.opt_state)
-
-    def sync_clock():
-        torch.cuda.synchronize()
-        return time.perf_counter()
 
     def step(phases=None):
         # make_train_step's body, split where the phases are timed.
@@ -184,22 +208,38 @@ def main() -> int:
           f"{sum(med):.1f} ms (median of 5 steps)")
 
     n_prof = 2
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+    with torch.profiler.profile(activities=ACTIVITIES,
+                                acc_events=True) as prof:
         t0 = sync_clock()
         for _ in range(n_prof):
             step()
         wall = sync_clock() - t0
+    return report(prof, wall, n_prof, "step")
+
+
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
+
+
+def sync_clock():
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def report(prof, wall: float, n_prof: int, unit: str) -> int:
+    """Device time per ``unit`` by kernel family and by kernel, the
+    launches per ``unit``, and the device's idle share of the window."""
     by_family = collections.Counter()
     by_kernel = collections.Counter()
     offload = collections.Counter()
+    launches = 0
     for evt in prof.events():
         # Kernels only: the CPU op that launched a kernel carries its time
         # again, and a user range on the device timeline (Optimizer.step)
         # spans kernels that are counted on their own.
         if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
             continue
+        launches += 1
         us = evt.time_range.elapsed_us()
         low = evt.name.lower()
         if any(k in low for k in OFFLOAD):
@@ -211,18 +251,125 @@ def main() -> int:
     if busy == 0:
         print("[profile] the profiler recorded no device time")
         return 1
-    print(f"[profile] window {wall / n_prof * 1e3:.1f} ms/step, device busy "
-          f"{busy / n_prof * 1e3:.1f} ms/step, idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}")
+    print(f"[profile] window {wall / n_prof * 1e3:.1f} ms/{unit}, device "
+          f"busy {busy / n_prof * 1e3:.1f} ms/{unit}, idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}; {launches / n_prof:.0f} "
+          f"kernels and copies on the device per {unit}")
     for fam, us in by_family.most_common():
-        print(f"[profile] {us / n_prof / 1e3:9.2f} ms/step "
+        print(f"[profile] {us / n_prof / 1e3:9.2f} ms/{unit} "
               f"{us / 1e6 / busy:6.1%}  {fam}")
     for name, us in by_kernel.most_common(15):
-        print(f"[kernel] {us / n_prof / 1e3:8.2f} ms/step  {name[:110]}")
+        print(f"[kernel] {us / n_prof / 1e3:8.2f} ms/{unit}  {name[:110]}")
     for name, us in offload.most_common():
-        print(f"[offload] {us / n_prof / 1e3:8.2f} ms/step  {name} (copy "
+        print(f"[offload] {us / n_prof / 1e3:8.2f} ms/{unit}  {name} (copy "
               "engine, beside the kernels)")
     return 0
+
+
+def decode_step(args, llama) -> int:
+    """The serving engine's decode step (module docstring)."""
+    from skypilot_tpu_torch.serve import decode_engine
+    cfg = llama.LlamaConfig.llama3_8b()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init(cfg, gen)
+    n_warm, n_time, n_prof = 3, 10, 3
+    eng = decode_engine.DecodeEngine(
+        cfg, params, slots=args.slots, max_seq=1280, prefill_chunk=64,
+        paged=True, kv_quant=args.kv_quant, weight_quant=args.weight_quant)
+    cpu = torch.Generator().manual_seed(1)
+    for _ in range(args.slots):
+        prompt = torch.randint(1, cfg.vocab_size, (args.context - 1,),
+                               generator=cpu).tolist()
+        eng.submit(prompt, max_tokens=n_warm + n_time + n_prof + 2)
+    eng._admit()
+    while eng._prefill_one():
+        pass
+    print(f"[config] llama3_8b width, {cfg.n_layers} layers, "
+          f"{args.slots} live slots at context ~{args.context}, paged "
+          f"64-token blocks, greedy, weights "
+          f"{'int8' if args.weight_quant else 'bf16'}, KV "
+          f"{'int8' if args.kv_quant else 'bf16'}")
+    for _ in range(n_warm):
+        eng._decode_step()
+    times = []
+    for _ in range(n_time):
+        t0 = sync_clock()
+        decoded = eng._decode_step()
+        times.append(sync_clock() - t0)
+        if decoded != args.slots:
+            print(f"FAIL: {decoded} slots decoded, not {args.slots}",
+                  file=sys.stderr)
+            return 1
+    print(f"[decode] step {sorted(times)[n_time // 2] * 1e3:.2f} ms (median "
+          f"of {n_time}; min {min(times) * 1e3:.2f}), {args.slots} tokens a "
+          f"step")
+    with torch.profiler.profile(activities=ACTIVITIES,
+                                acc_events=True) as prof:
+        t0 = sync_clock()
+        for _ in range(n_prof):
+            eng._decode_step()
+        wall = sync_clock() - t0
+    rc = report(prof, wall, n_prof, "decode step")
+    host_report(prof, wall, n_prof, sorted(times)[n_time // 2])
+    host_calls(cfg, args.slots)
+    return rc
+
+
+def host_report(prof, wall: float, n_prof: int, step_s: float) -> None:
+    """CPU ops by self time per decode step, and the host time outside
+    any op, from the profile."""
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    in_ops = sum(e.self_cpu_time_total for e in ops) / 1e6
+    print(f"[host] profiled window {wall / n_prof * 1e3:.1f} ms/decode step "
+          f"(unprofiled step {step_s * 1e3:.1f} ms): {in_ops / n_prof * 1e3:.1f}"
+          f" ms inside CPU ops, {(wall - in_ops) / n_prof * 1e3:.1f} ms "
+          f"outside any op (Python, the engine's code)")
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:15]:
+        print(f"[host] {e.self_cpu_time_total / n_prof / 1e3:8.2f} ms/decode "
+              f"step self, {e.count / n_prof:6.0f} calls, "
+              f"{e.self_cpu_time_total / max(e.count, 1):6.1f} us/call  "
+              f"{e.key[:60]}")
+
+
+def host_calls(cfg, slots: int, n: int = 500) -> None:
+    """Host microseconds per call, without the profiler: one small
+    kernel launch, and the split-KV tile's ops at the decode step's
+    shapes (llama._attn_tile, _paged_split_kv_attention, _tile_mask)."""
+    dev = "cuda"
+    kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    w, bt = 256, 64
+    x = torch.zeros(16, device=dev)
+    qf = torch.randn(slots, 1, kvh, g, d, device=dev)
+    kb = torch.randn(slots, w, kvh, d, device=dev)
+    pool = torch.zeros(64, bt, kvh, d, dtype=torch.bfloat16, device=dev)
+    phys = torch.randint(1, 64, (slots, w // bt), device=dev)
+    pos = torch.full((slots, 1), 1000, device=dev)
+    s_blk = torch.randn(slots, kvh, g, 1, w, device=dev)
+    msk = torch.ones(slots, 1, w, dtype=torch.bool, device=dev)
+    calls = (
+        ("x.add_(1) (a small kernel)", lambda: x.add_(1)),
+        ("einsum btkgd,bskd->bkgts", lambda: torch.einsum(
+            "btkgd,bskd->bkgts", qf, kb)),
+        ("pool[phys].float() (block gather)", lambda: pool[phys].float()),
+        ("torch.where(mask, s, -1e30)", lambda: torch.where(
+            msk[:, None, None], s_blk, -1e30)),
+        ("arange + tile mask", lambda: (
+            torch.arange(w, device=dev) <= pos[..., None])),
+    )
+    out = []
+    for label, fn in calls:
+        fn()
+        t0 = sync_clock()
+        for _ in range(n):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out.append(f"{label} {host / n * 1e6:.1f}")
+    print(f"[host] host us per call, no profiler ({n} calls each): " +
+          "; ".join(out))
 
 
 if __name__ == "__main__":
