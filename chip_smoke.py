@@ -11,7 +11,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    spills per kernel, and each Hopper kernel's launch registers, shared
    memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
    (wgmma) and UTMALDG (TMA load) instructions, and fewer wgmma waits than
-   wgmmas, in every instance (head_dim 64 and 128, bf16 and f16) of the
+   wgmmas, in every instance (head_dim 64 and 128, and 256 for the
+   resident three; bf16 and f16) of the
    nine Hopper kernels (flash_fwd, flash_dq, flash_dkv, flash_fwd_tri,
    flash_dq_tri, flash_dkv_tri, flash_fwd_streamed, flash_dq_streamed,
    flash_dkv_streamed);
@@ -37,11 +38,16 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    fits, the streamed kernels against the resident kernels, both timed,
    and against the plain versions on the first and last 512 q rows (o,
    lse, dq) and KV rows (dk, dv) of every head, the plain lse and delta
-   for the latter built in q chunks;
+   for the latter built in q chunks; then the resident three at head_dim
+   256 ([kernels d256]: Gemma-2B's 8 x 2048 MQA shape, a ragged
+   non-causal S, Gemma-7B's MHA at S = 200) against the plain versions,
+   the pair bit-identical twice, f16 and times at the first;
    then the public attention op through autograd, with exactly one
    launch of each resident kernel: at a ragged S (200) against the plain
-   versions; at head_dim 16 and 96 (zero-padded to the kernels' 64 and
-   128) against the plain versions at that head_dim; and with f32 inputs
+   versions; at head_dim 16, 96 and 192 (zero-padded to the kernels' 64,
+   128 and 256) against the plain versions at that head_dim; at width
+   256 past the resident budget it must raise a ValueError naming the
+   triangular family before any launch; and with f32 inputs
    (2 x 256, 4 heads, 2 KV heads, head_dim 64, causal and not; and
    1 x 200 at head_dim 128), through
    the fp32 kernels (one launch each), against the fp32 plain versions at
@@ -121,10 +127,25 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    seeded stream whose prefix blocks were spilled to the host (clone,
    then the side stream's D2H) while the next request rewrote them, then
    re-admitted, equal to its cold run;
-12. a summary of the nine Hopper kernels (registers, shared memory, time
+12. gemma_lora (run after mixtral, before serve): the Gemma LoRA recipe at
+   Gemma-2B full width and depth, seq 2048, 4 steps, at the largest of
+   batch 8, 7, 6, ... that fits the card (cut printed): launches exactly
+   2L/L/L of the width-256 resident kernels per step and no other, the
+   trained adapters lower the first batch's loss, one forward's loss
+   within LOSS_TOL of the reference attention's; ms a step, tokens/s,
+   peak memory;
+13. gemma_serve: [serve]'s bf16 leg on a Gemma-2B replica (full width and
+   depth, the same nine requests and gates; teacher-forced within
+   GEMMA_CACHE_REL_TOL of gemma.forward, whose check launches the
+   width-256 forward), then f32 at 4 layers: paged == dense ==
+   gemma.decode, the cache paths within F32_CACHE_REL_TOL with three
+   planted faults past it (the third: the serving embed without its
+   sqrt(dim) multiplier);
+14. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
-   the kernels line ({"kernels": [...]}, nine records), then the last
-   line {"ok": true, "device": {...}}.
+   the kernels line ({"kernels": [...]}, twelve records: the nine at
+   head_dim 128 and the resident three at 256), then the last line
+   {"ok": true, "device": {...}}.
 
 Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
 the port from beside itself). Imports nothing of JAX.
@@ -132,6 +153,7 @@ the port from beside itself). Imports nothing of JAX.
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import http.client
 import io
 import json
@@ -207,8 +229,18 @@ RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
 F32_OP_SHAPES = ((2, 256, 4, 2, 64, True), (2, 256, 4, 2, 64, False),
                  (1, 200, 8, 2, 128, True))
 # The public op at head_dims the kernels take only zero-padded: the tiny
-# Llama's 16 and a 96.
-PAD_OP_SHAPES = ((2, 256, 8, 4, 16, True), (1, 384, 8, 2, 96, True))
+# Llama's 16, a 96 and a 192 (to the resident family's width 256).
+PAD_OP_SHAPES = ((2, 256, 8, 4, 16, True), (1, 384, 8, 2, 96, True),
+                 (1, 384, 8, 1, 192, True))
+# Width 256, the resident family only (Gemma's head_dim): Gemma-2B's LoRA
+# shape (examples/gemma_lora.yaml: 8 x 2048, 8 heads, MQA), a ragged
+# non-causal S, and Gemma-7B's MHA (16/16) at a ragged causal S.
+WIDE_MAIN_SHAPE = (8, 2048, 8, 1, 256, True)
+WIDE_CHECK_SHAPES = (WIDE_MAIN_SHAPE, (2, 1000, 8, 1, 256, False),
+                     (1, 200, 16, 16, 256, True))
+# Past the resident budget at width 256 (3 * S * 256 * 4 > 6 MiB): no
+# triangular kernel there, so the op must refuse before any launch.
+WIDE_REFUSED_SHAPE = (1, 4096, 8, 1, 256, True)
 # The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
 # the SASS.
 SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
@@ -226,6 +258,13 @@ SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
 # The kernels' element types (_build.DTYPES) by their tag in a kernel's
 # mangled name.
 ELEM_TAGS = {"bf16": "Bf16", "f16": "F16"}
+RESIDENT_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def head_dims(name):
+    """The head_dim instances of Hopper kernel `name`: 64 and 128, and
+    256 for the resident family."""
+    return (64, 128, 256) if name in RESIDENT_NAMES else (64, 128)
 
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
@@ -248,6 +287,13 @@ LORA_STEPS, LORA_SPLIT = 4, 2
 # (47 B parameters in bf16 do not fit one 80 GB card).
 MX_LAYERS, MX_BATCH, MX_SEQ, MX_STEPS = 2, 2, 2048, 6
 
+# The gemma_lora phase: examples/gemma_lora.yaml's shape (batch 8 x seq
+# 2048), Gemma-2B at full width and depth, where every attention call
+# takes the width-256 resident kernels (3 * 2048 * 256 * 4 bytes = the 6
+# MiB budget). The recipe's full-vocabulary f32 logits are 16.8 GB at
+# batch 8, and a step holds several logit-sized tensors: the largest of
+# GL_BATCHES that fits the card is taken, and the cut printed.
+GL_BATCHES, GL_SEQ, GL_STEPS = (8, 7, 6, 5, 4), 2048, 4
 # The serve phase: one Llama-3-8B replica (full width and depth, bf16,
 # random weights) through the port's serve_llm at its own max_seq
 # (MAX_PROMPT_TOKENS + MAX_GEN_TOKENS = 1280), 8 engine slots, paged,
@@ -262,6 +308,12 @@ SV_MAX_TOKENS, SV_TEMP, SV_PREFIX = 128, 0.8, 512
 # 6.6e-2 and 1.8e-1): bf16 rounding grown over 32 random layers puts
 # any two summation orders ~2e-2 apart.
 CACHE_REL_TOL = 3.5e-2
+# The same at Gemma-2B ([gemma_serve], 18 layers, MQA), set between its
+# sound reading and its faults' (H100: 1.81e-2; own key masked 2.76e-2,
+# shift 7.27e-2): with one KV head over long contexts a query's own key
+# moves its output less than in Llama, so [serve]'s 3.5e-2 would not see
+# that fault.
+GEMMA_CACHE_REL_TOL = 2.25e-2
 # Exactness checks in f32 at the 8B width, depth cut to 4 layers: two
 # paths' tokens may part only where the two candidates' (perturbed, when
 # sampled) logits lie within this of each other.
@@ -438,7 +490,7 @@ def phase_build(build):
     attrs = {}
     for name, source, kernel in SM90_KERNELS:
         fn = getattr(build.library(source), f"stpu_{name}_attrs")
-        for d in (64, 128):
+        for d in head_dims(name):
             for elem, code in build.DTYPES.items():
                 tag = ELEM_TAGS[elem]
                 out = (ctypes.c_int * 5)()
@@ -455,15 +507,16 @@ def phase_build(build):
 
 
 def phase_sass(build):
-    """Every instance of the Hopper kernels (head_dim 64 and 128, bf16 and
-    f16) must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS, and
+    """Every instance of the Hopper kernels (head_dim 64 and 128, and 256
+    for the resident family; bf16 and f16) must hold wgmma (HGMMA) and
+    TMA loads (UTMALDG) in its SASS, and
     its wgmmas must run asynchronously: ptxas serialises them (with a
     "Potential Performance Loss" note) by placing a wait
     (WARPGROUP.DEPBAR) after each one, so a kernel with as many waits as
     wgmmas fails."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
-    for _, source, kernel in SM90_KERNELS:
+    for name, source, kernel in SM90_KERNELS:
         lib = build.build_dir() / f"lib{source}.so"
         if source not in sass:
             out = subprocess.run([cuobjdump, "-sass", str(lib)],
@@ -473,8 +526,8 @@ def phase_sass(build):
             sass[source] = out.stdout
         found = set()
         for part in sass[source].split("Function : ")[1:]:
-            name = part.split(None, 1)[0]
-            m = re.search(kernel + r"ILi(\d+)ENS_\d(Bf16|F16)E", name)
+            mangled = part.split(None, 1)[0]
+            m = re.search(kernel + r"ILi(\d+)ENS_\d(Bf16|F16)E", mangled)
             if not m:
                 continue
             found.add(m.groups())
@@ -484,9 +537,10 @@ def phase_sass(build):
                   f"HGMMA, {utmaldg} UTMALDG, {waits} wgmma waits",
                   flush=True)
             check(hgmma > 0 and utmaldg > 0,
-                  f"{name} holds no wgmma or no TMA load")
-            check(waits < hgmma, f"{name}: ptxas serialised its wgmmas")
-        want = {(str(d), tag) for d in (64, 128) for tag in ELEM_TAGS.values()}
+                  f"{mangled} holds no wgmma or no TMA load")
+            check(waits < hgmma, f"{mangled}: ptxas serialised its wgmmas")
+        want = {(str(d), tag) for d in head_dims(name)
+                for tag in ELEM_TAGS.values()}
         check(found == want, f"{kernel}: instances {sorted(found)} in "
               f"{lib}'s SASS, expected {sorted(want)}")
 
@@ -635,6 +689,61 @@ def phase_kernels(fa):
     return records
 
 
+def phase_kernels_wide(fa, records):
+    """[kernels] at width 256: the resident trio (fwd_consumer_wide,
+    the dq with a one-stage ring, the two-sweep dk/dv) against the plain
+    versions in bf16 at WIDE_CHECK_SHAPES, then at the main shape the
+    backward pair twice bit-identical, the times (bf16, f16, plain, SDPA,
+    bound) and f16 against the plain versions. Records keyed
+    "<name>@256"."""
+    for idx, shape in enumerate(WIDE_CHECK_SHAPES):
+        b, s, h, kvh, d, causal = shape
+        check(fa.family(s, d, causal) == fa.RESIDENT
+              and fa.kernel_head_dim(d) == 256,
+              f"{shape} is not a width-256 resident shape")
+        fns = Family(fa, fa.RESIDENT, causal, d ** -0.5)
+        q, k, v, do = _inputs(shape, 40 + idx)
+        o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+        torch.cuda.synchronize()
+        o_p, lse_p = fns.fwd_plain(q, k, v)
+        dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+        errs = _hold("[kernels d256]", shape, (
+            ("o", (o, o_p), OUT_REL_TOL), ("lse", (lse, lse_p), OUT_REL_TOL),
+            ("dq", (dq, dq_p), GRAD_REL_TOL), ("dk", (dk, dk_p), GRAD_REL_TOL),
+            ("dv", (dv, dv_p), GRAD_REL_TOL)))
+        del o_p, lse_p, dq_p, dk_p, dv_p
+        if shape == WIDE_MAIN_SHAPE:
+            _check_deterministic(fns, (q, k, v, do), (o, lse), (dq, dk, dv))
+            wide = _measure(fns, shape, (q, k, v, do), (o, lse, delta), errs)
+            _check_f16(fns, shape, 40 + idx, wide)
+            records.update((f"{name}@256", rec) for name, rec in wide.items())
+        del q, k, v, do, o, lse, dq, delta, dk, dv
+        torch.cuda.empty_cache()
+
+
+def phase_wide_refusal(fa, attention_ops):
+    """Past the resident budget at width 256 the op would need the
+    triangular family, which has no width-256 kernel: it must raise a
+    ValueError naming both, before any launch."""
+    shape = WIDE_REFUSED_SHAPE
+    b, s, h, kvh, d, causal = shape
+    check(fa.family(s, d, causal) == fa.TRIANGULAR,
+          f"{shape} does not take the triangular family")
+    q, k, v, do = _inputs(shape, 45)
+    fa.reset_launches()
+    try:
+        _op_grads(attention_ops, q, k, v, causal, do)
+        msg = None
+    except ValueError as exc:
+        msg = str(exc)
+    torch.cuda.synchronize()
+    print(f"[wide refusal] attention(causal={causal}) at {shape}: "
+          f"ValueError {msg!r}", flush=True)
+    check(msg is not None and "triangular" in msg and "256" in msg,
+          f"the op at {shape} did not refuse width 256 by name")
+    _expect_launches(fa, "[wide refusal]", shape, ())
+
+
 def _time_streamed_forward(fa, fns, shape, qkv, records):
     """The streamed forward (the Hopper forward, each consumer's softmax
     overlapped with its own P V) at another family's main shape, timed in
@@ -740,7 +849,6 @@ def _op_grads(attention_ops, q, k, v, causal, do=None):
     return out.detach(), torch.autograd.grad(loss, leaves)
 
 
-RESIDENT_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
 F32_NAMES = ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")
 
 
@@ -972,7 +1080,8 @@ def _measure(fns, shape, inputs, saved, errs):
     plain_fwd = time_ms(lambda: fns.fwd_plain(q, k, v), 3, warmup=1)
     plain_bwd = time_ms(lambda: fns.bwd_plain(q, k, v, o, lse, do), 3,
                         warmup=1)
-    # Library yardstick: SDPA in its own (B, H, S, D) layout, GQA native.
+    # Library yardstick: SDPA in its own (B, H, S, D) layout, GQA native
+    # (None, printed, where PyTorch has no SDPA kernel for the shape).
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
@@ -981,12 +1090,16 @@ def _measure(fns, shape, inputs, saved, errs):
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
 
-    with torch.no_grad():
-        lib_fwd = time_ms(sdpa, 20)
-    out = sdpa()
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), 20)
-    del out
+    try:
+        with torch.no_grad():
+            lib_fwd = time_ms(sdpa, 20)
+        out = sdpa()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 20)
+        del out
+    except RuntimeError as exc:
+        print(f"[kernels] SDPA at {shape}: no kernel ({exc})", flush=True)
+        lib_fwd = lib_bwd = None
     records = {}
     for name, err_keys in ((fwd_name, ("o", "lse")), (dq_name, ("dq",)),
                            (dkv_name, ("dk", "dv"))):
@@ -1007,15 +1120,17 @@ def _measure(fns, shape, inputs, saved, errs):
             "library_covers": "sdpa forward" if fwd
                               else "sdpa backward: dq, dk, dv",
             "flops": flops, "bytes": nbytes, "shape": list(shape),
+            "head_dim": d,
             # Medians of nvidia-smi's samples around the kernel's timing.
             "sm_clock_mhz": clocks[name] and clocks[name]["sm_mhz"],
             "power_w": clocks[name] and clocks[name]["power_w"],
         }
-        print(f"[kernels] {name}: {kernel_ms[name]:.4f} ms, bound "
+        lib = records[name]["library_ms"]
+        print(f"[kernels] {name} (D={d}): {kernel_ms[name]:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), "
               f"{flops / kernel_ms[name] / 1e9:.1f} TFLOP/s, plain "
               f"{records[name]['plain_ms']:.3f} ms, library "
-              f"{records[name]['library_ms']:.4f} ms; "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}; "
               f"{clock_note(clocks[name])}", flush=True)
     return records
 
@@ -1704,7 +1819,18 @@ def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
     ``fault`` plants an off-by-one in the T = 1 steps, a control the
     gates must catch: "self" passes valid_len = position, so a query
     misses its own key row; "shift" starts each step one position late,
-    so the token's rope position and cache row are one past its place."""
+    so the token's rope position and cache row are one past its place;
+    "embed" gathers the embeddings without gemma's sqrt(dim) multiplier
+    (the serving embed's fault before this was repaired)."""
+    if fault == "embed":
+        from skypilot_tpu_torch.models import llama as llama_mod
+        real = llama_mod._decode_embed
+        llama_mod._decode_embed = lambda c, p, toks: p.embed[toks]
+        try:
+            return _cache_path_logits(llama, decode_engine, cfg, params,
+                                      seqs, geo, dev, paged)
+        finally:
+            llama_mod._decode_embed = real
     chunk, window, block = geo["chunk"], geo.get("window"), geo["block"]
     b = len(seqs)
     if paged:
@@ -1765,11 +1891,11 @@ def _rel(a, b):
 
 
 def _hold_cache_paths(label, llama, decode_engine, cfg, params, seqs, geo,
-                      refs, dev, tol):
+                      refs, dev, tol, faults=("self", "shift")):
     """The dense and paged cache paths against the full forward's
     logits ``refs``: paged == dense bit for bit (the window is the dense
-    tile), both within ``tol`` norm-relative, and each planted fault
-    past ``tol``. Returns the paged logits."""
+    tile), both within ``tol`` norm-relative, and each planted fault of
+    ``faults`` past ``tol``. Returns the paged logits."""
     dense = _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo,
                                dev, paged=False)
     paged = _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo,
@@ -1781,12 +1907,14 @@ def _hold_cache_paths(label, llama, decode_engine, cfg, params, seqs, geo,
     faults = {f: _rel(_cache_path_logits(llama, decode_engine, cfg, params,
                                          seqs, geo, dev, paged=True,
                                          fault=f), refs)
-              for f in ("self", "shift")}
+              for f in faults}
+    names = {"self": "own key masked", "shift": "positions shifted by one",
+             "embed": "embed multiplier dropped"}
     print(f"{label}: dense and paged cache paths (chunk {geo['chunk']}, "
           f"window {geo['window']}) bit-equal; {sound:.3e} norm-relative "
-          f"from llama.forward's logits (tol {tol:g}); planted faults: "
-          f"own key masked {faults['self']:.3e}, positions shifted by one "
-          f"{faults['shift']:.3e}", flush=True)
+          f"from the forward's logits (tol {tol:g}); planted faults: "
+          + ", ".join(f"{names[f]} {r:.3e}" for f, r in faults.items()),
+          flush=True)
     check(sound <= tol, f"{label}: cache path logits {sound:.3e} from the "
           f"forward's, past {tol:g}")
     for f, r in faults.items():
@@ -1796,11 +1924,11 @@ def _hold_cache_paths(label, llama, decode_engine, cfg, params, seqs, geo,
 
 
 def _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
-                    geo, dev):
-    """The greedy streams through llama.forward (flash kernels) and
-    through the engine's dense and paged cache paths: logits within
-    CACHE_REL_TOL, planted faults past it, emitted tokens the forward's
-    argmax except at near-ties."""
+                    geo, dev, label="[serve]", tol=CACHE_REL_TOL):
+    """The greedy streams through the model's forward (``llama``: the
+    llama or gemma module; flash kernels) and through the engine's dense
+    and paged cache paths: logits within ``tol``, planted faults past
+    it, emitted tokens the forward's argmax except at near-ties."""
     fwd_cfg = dataclasses.replace(cfg, remat=False)
     ref_cfg = dataclasses.replace(fwd_cfg, attention_impl="reference")
     seqs = [(p, toks) for (p, temp, _), toks in zip(reqs, streams)
@@ -1813,9 +1941,9 @@ def _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
             full.append(llama.forward(fwd_cfg, params, seq)[0,
                                                             len(prompt) - 1:-1])
         launches = dict(fa.LAUNCHES)
-        cached = _hold_cache_paths("[serve] teacher-forced greedy streams",
+        cached = _hold_cache_paths(f"{label} teacher-forced greedy streams",
                                    llama, decode_engine, cfg, params, seqs,
-                                   geo, full, dev, CACHE_REL_TOL)
+                                   geo, full, dev, tol)
         check(dict(fa.LAUNCHES) == launches,
               f"the cache paths launched flash kernels {fa.LAUNCHES}")
         # Diagnostic, not a gate: the cache path against the forward
@@ -1842,10 +1970,10 @@ def _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
                   f"prompt {len(prompt)} token {i}: emitted {toks[i]}, the "
                   f"forward's argmax {int(best[i])} by {gap:.4f}, past "
                   f"twice the paths' largest logit difference {scale:.4f}")
-    print(f"[serve] teacher-forced greedy streams (prompts "
+    print(f"{label} teacher-forced greedy streams (prompts "
           f"{[len(p) for p, _ in seqs]}): per stream "
           f"{[f'{_rel([c], [f]):.2e}' for c, f in zip(cached, full)]} "
-          f"norm-relative from llama.forward's, "
+          f"norm-relative from the forward's, "
           f"{[f'{x:.2e}' for x in ref_rels]} from its fp32 reference "
           f"attention's (not gated); launches {launches}; emitted != "
           f"forward argmax at {len(mismatches)} of "
@@ -2041,6 +2169,176 @@ def phase_serve(fa, llama, card, dev="cuda"):
     reqlog.disarm()
 
 
+def phase_gemma_lora(fa, trainer, records, dev="cuda"):
+    """[gemma_lora]: the Gemma LoRA recipe (recipes.gemma_lora.main) at
+    Gemma-2B full width and depth, seq GL_SEQ, GL_STEPS steps, at the
+    largest batch of GL_BATCHES that fits: launches exactly 2L/L/L of the
+    width-256 resident kernels per step and no other, the trained
+    adapters lower the loss on the first batch, and one forward's loss
+    within LOSS_TOL of the reference attention's."""
+    from skypilot_tpu_torch.models import gemma
+    from skypilot_tpu_torch.recipes import gemma_lora, llama_lora
+    from skypilot_tpu_torch.train import checkpoint
+    cfg = gemma.GemmaConfig.gemma_2b()
+    check(fa.family(GL_SEQ, cfg.head_dim, True) == fa.RESIDENT
+          and fa.kernel_head_dim(cfg.head_dim) == 256,
+          "Gemma-2B's attention does not take the width-256 resident "
+          "kernels")
+    print(f"[gemma_lora] gemma_2b, {cfg.n_layers} layers (full depth), "
+          f"vocab {cfg.vocab_size}, {cfg.num_params() / 1e9:.3f} B params "
+          f"frozen ({2 * cfg.num_params() / 1e9:.2f} GB bf16), head_dim "
+          f"{cfg.head_dim}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV head, "
+          f"rank-8 adapters on wq/wk/wv/wo, seq {GL_SEQ}, {GL_STEPS} steps, "
+          f"remat {cfg.remat_policy}", flush=True)
+    sigterm = signal.getsignal(signal.SIGTERM)  # the recipe installs its own
+    with tempfile.TemporaryDirectory(prefix="stpu-gemma-lora-") as tmp:
+        run = None
+        for batch in GL_BATCHES:
+            argv = ["--model", "2b", "--batch-size", str(batch),
+                    "--seq-len", str(GL_SEQ), "--steps", str(GL_STEPS),
+                    "--ckpt-every", str(GL_STEPS)]
+            ckpt = f"{tmp}/batch{batch}"
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                fa.reset_launches()
+                run = _lora_run(gemma_lora, argv + ["--checkpoint-dir", ckpt,
+                                                    "--device", dev])
+                break
+            except torch.cuda.OutOfMemoryError as exc:
+                print(f"[gemma_lora] batch {batch} x {GL_SEQ} does not fit "
+                      f"the card: {str(exc).split('. ')[0]}", flush=True)
+            finally:
+                signal.signal(signal.SIGTERM, sigterm)
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(run is not None, f"no batch of {GL_BATCHES} fits the card")
+        launches = dict(fa.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cut = "" if batch == GL_BATCHES[0] else f" (cut from {GL_BATCHES[0]})"
+        print(f"[gemma_lora] batch {batch} x seq {GL_SEQ}{cut}: "
+              f"{json.dumps(run)}", flush=True)
+        print(f"[gemma_lora] launches {launches}", flush=True)
+        check(_finite([run["first_loss"], run["final_loss"]]),
+              "non-finite loss")
+        expect = _resident_expect(launches, cfg.n_layers, GL_STEPS)
+        check(launches == expect, f"launch counts {launches} != {expect}")
+        per_step = run["wall_seconds"] / GL_STEPS
+        print(f"[gemma_lora] {per_step * 1e3:.0f} ms per step (wall over "
+              f"its {GL_STEPS} steps, the first and the step-{GL_STEPS} "
+              f"save included), {run['tokens_per_second']:.0f} tokens/s, "
+              f"peak memory {peak_gb:.2f} GB", flush=True)
+        for name in RESIDENT_NAMES:
+            records[f"{name}@256"]["launches"] = launches[name]
+            records[f"{name}@256"]["step_ms"] = per_step * 1e3
+        args = llama_lora.build_arg_parser(list(gemma_lora.MODELS),
+                                           "tiny").parse_args(argv)
+        base, lora = llama_lora.init_model(gemma, cfg, args,
+                                           torch.device(dev))
+        llama_lora.load_lora(lora, checkpoint.restore_latest(
+            ckpt, like={"lora": lora.stacked()}).tree["lora"])
+    first = next(llama_lora.train_batches(cfg, args, 1))[0]
+    tokens = torch.from_numpy(first).long().to(dev)
+    params = llama_lora.merge_params(base, lora)
+    with torch.no_grad():
+        logits = gemma.forward(cfg, params, tokens)
+        trained = float(trainer.cross_entropy_loss(logits[:, :-1],
+                                                   tokens[:, 1:]))
+        del logits
+    print(f"[gemma_lora] the first batch: loss {run['first_loss']:.5f} at "
+          f"step 1, {trained:.5f} with the step-{GL_STEPS} adapters",
+          flush=True)
+    check(trained < run["first_loss"], "loss did not fall")
+    _kernel_vs_reference("[gemma_lora]", gemma.forward, cfg, params, tokens,
+                         trainer)
+
+
+def _gemma_exactness(decode_engine, prng, dev):
+    """f32 at Gemma-2B's width cut to 4 layers, TF32 off: the engine's
+    paged streams == its dense ones == gemma.decode (greedy), then the
+    teacher-forced cache paths within F32_CACHE_REL_TOL of gemma.forward
+    with three planted faults past it (own key, shift, and the serving
+    embed without the multiplier). The forward takes the fp32 reference
+    attention: no fp32 kernel has width 256 yet, and the op refuses it
+    (ROADMAP, Queue 2 item 1)."""
+    from skypilot_tpu_torch.models import gemma
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on")
+    cfg = dataclasses.replace(gemma.GemmaConfig.gemma_2b(),
+                              n_layers=SV_EXACT_LAYERS, dtype=torch.float32,
+                              attention_impl="reference")
+    params = gemma.init(cfg, torch.Generator(device=dev).manual_seed(11),
+                        dev)
+    cpu = torch.Generator().manual_seed(12)
+    reqs = [(torch.randint(1, cfg.vocab_size, (n,), generator=cpu).tolist(),
+             0.0, 0) for n in (40, 100, 200)]
+
+    def run(**kw):
+        eng = decode_engine.DecodeEngine(
+            cfg, params, slots=4, max_seq=512, prefill_chunk=64, device=dev,
+            **kw).start()
+        try:
+            hs = [eng.submit(p, max_tokens=SV_EXACT_TOKENS) for p, _, _ in
+                  reqs]
+            return [h.result(timeout=900) for h in hs], eng.kv_config()
+        finally:
+            eng.shutdown()
+            eng.release()
+
+    dense, _ = run(paged=False)
+    paged, geo = run(paged=True)
+    with torch.no_grad():
+        for n, req in enumerate(reqs):
+            _hold_equal(f"gemma f32 request {n}: paged vs dense", gemma,
+                        prng, cfg, params, req, paged[n], dense[n])
+            ref = gemma.decode(cfg, params, torch.tensor([req[0]], device=dev),
+                               len(req[0]), SV_EXACT_TOKENS,
+                               len(req[0]) + SV_EXACT_TOKENS)[0].tolist()
+            _hold_equal(f"gemma f32 request {n}: paged vs gemma.decode",
+                        gemma, prng, cfg, params, req, paged[n], ref)
+        seqs = [(reqs[n][0], paged[n]) for n in range(len(reqs))]
+        refs = [gemma.forward(dataclasses.replace(cfg, remat=False), params,
+                              torch.tensor([p + t], device=dev))[
+                                  0, len(p) - 1:-1] for p, t in seqs]
+    _hold_cache_paths("[gemma_serve] f32 teacher-forced greedy streams",
+                      gemma, decode_engine, cfg, params, seqs, geo, refs, dev,
+                      F32_CACHE_REL_TOL, faults=("self", "shift", "embed"))
+
+
+def phase_gemma_serve(fa, card, dev="cuda"):
+    """[gemma_serve]: [serve]'s bf16 leg on one Gemma-2B replica (full
+    width and depth, random weights through gemma.init), the same nine
+    requests and gates; then the f32 leg at 4 layers (_gemma_exactness).
+    The int8 leg is left to the CPU tests."""
+    from skypilot_tpu_torch.models import gemma
+    from skypilot_tpu_torch.observability import reqlog, stepstats
+    from skypilot_tpu_torch.recipes import serve_llm
+    from skypilot_tpu_torch.serve import decode_engine, prng
+    gc.collect()            # the engines and replicas of [serve]
+    torch.cuda.empty_cache()
+    reqlog.arm(sample=1.0)
+    stepstats.arm(ring=4096)
+    cfg = gemma.GemmaConfig.gemma_2b()
+    params = gemma.init(cfg, torch.Generator(device=dev).manual_seed(9), dev)
+    reqs, ninth = _serve_requests(cfg, seed=10)
+    print(f"[gemma_serve] gemma_2b, {cfg.n_layers} layers (full depth), "
+          f"{cfg.num_params() / 1e9:.3f} B params, bf16; serve_llm with "
+          f"{SV_SLOTS} engine slots, paged {SV_BLOCK}-token blocks, max_seq "
+          f"{serve_llm.MAX_PROMPT_TOKENS + serve_llm.MAX_GEN_TOKENS}; prompts "
+          f"{list(SV_PROMPTS)}, {SV_MAX_TOKENS} tokens each, even ones "
+          f"greedy, odd ones T={SV_TEMP}", flush=True)
+    streams, geo = _serve_leg(fa, cfg, params, reqs, ninth, card,
+                              "[gemma_serve bf16]", dev)
+    torch.cuda.empty_cache()
+    _teacher_forced(fa, gemma, decode_engine, cfg, params, reqs, streams,
+                    geo, dev, label="[gemma_serve]", tol=GEMMA_CACHE_REL_TOL)
+    del params
+    torch.cuda.empty_cache()
+    _gemma_exactness(decode_engine, prng, dev)
+    stepstats.disarm()
+    reqlog.disarm()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -2064,11 +2362,13 @@ def main() -> int:
         CLOCKS.start()
         try:
             records = phase_kernels(fa)
+            phase_kernels_wide(fa, records)
         finally:
             CLOCKS.stop()
         phase_ragged_op(fa, attention_ops)
         phase_f32_op(fa, attention_ops)
         phase_pad_op(fa, attention_ops)
+        phase_wide_refusal(fa, attention_ops)
         phase_streamed(fa, attention_ops, records)
         torch.cuda.empty_cache()
         phase_slice(fa, llama, trainer, records)
@@ -2082,22 +2382,31 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_mixtral(fa, llama, trainer)
         torch.cuda.empty_cache()
+        phase_gemma_lora(fa, trainer, records)
+        torch.cuda.empty_cache()
         phase_serve(fa, llama, card)
+        torch.cuda.empty_cache()
+        phase_gemma_serve(fa, card)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
-    for name, _, kernel in SM90_KERNELS:
-        rec = records[name]
-        rec["regs"], rec["smem_bytes"] = attrs[(kernel, 128, "Bf16")]
+    summary = [(name, kernel, 128) for name, _, kernel in SM90_KERNELS]
+    summary += [(f"{name}@256", kernel, 256)
+                for name, _, kernel in SM90_KERNELS[:3]]
+    for key, kernel, d in summary:
+        rec = records[key]
+        rec["regs"], rec["smem_bytes"] = attrs[(kernel, d, "Bf16")]
         where = (f"its step {rec['step_ms']:.1f} ms" if "step_ms" in rec
                  else "per call of the non-causal op")
         clock = (f"SM {rec['sm_clock_mhz']:.0f} MHz" if rec["sm_clock_mhz"]
                  else "SM clock not sampled")
-        print(f"[summary] {name} (Hopper, D=128: {rec['regs']} registers "
-              f"at launch, {rec['smem_bytes']} B shared): {rec['ms']:.4f} "
-              f"ms at {tuple(rec['shape'])} ({clock}), bound "
-              f"{rec['bound_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms "
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f} ms")
+        print(f"[summary] {rec['name']} (Hopper, D={d}: {rec['regs']} "
+              f"registers at launch, {rec['smem_bytes']} B shared): "
+              f"{rec['ms']:.4f} ms at {tuple(rec['shape'])} ({clock}), "
+              f"bound {rec['bound_ms']:.4f} ms, SDPA {lib} "
               f"({rec['library_covers']}), f16 {rec['f16_ms']:.4f} ms; "
               f"{where}", flush=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,6 +1,8 @@
 """Parameters between the JAX package's trees and the port's modules:
-Llama's and Mixtral's parameters (Llama's also as ``quantize_params``'
-int8 tree: codes plus f32 ``<name>_scale`` leaves), the LoRA adapter tree
+Llama's, Gemma's and Mixtral's parameters (Llama's and Gemma's also as
+``quantize_params``' int8 tree: codes plus f32 ``<name>_scale`` leaves;
+Gemma's is llama's tree at its shapes, tied: no ``lm_head`` unless
+``tie_embeddings=False``), the LoRA adapter tree
 (``{"layers": {"wq_lora_a": (L, in, r), "wq_lora_b": (L, r, out), ...}}``)
 and the serving KV caches (dense and paged, int8 pools with their
 scales).
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
-from skypilot_tpu_torch.models import llama, mixtral
+from skypilot_tpu_torch.models import gemma, llama, mixtral
 
 
 def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -122,6 +124,23 @@ def llama_params_to_numpy(params: torch.nn.Module) -> Dict[str, Any]:
             out[name] = to_numpy(getattr(params, name))
     out.update(_stacked_layers(params.layers))
     return out
+
+
+@torch.no_grad()
+def gemma_params_from_jax(cfg: gemma.GemmaConfig, params_np: Dict[str, Any],
+                          device: DeviceLike = None) -> llama.LlamaParams:
+    """The port's Gemma parameters from a JAX gemma tree of numpy arrays
+    (or its ``quantize_params`` tree): llama's module at gemma's shapes.
+    The tree's head must match the config's: an ``lm_head`` leaf exactly
+    when ``tie_embeddings`` is False."""
+    if ("lm_head" in params_np) == cfg.tie_embeddings:
+        raise ValueError(
+            f"tie_embeddings={cfg.tie_embeddings} but the tree "
+            f"{'has' if 'lm_head' in params_np else 'has no'} lm_head")
+    return llama_params_from_jax(cfg, params_np, device)
+
+
+gemma_params_to_numpy = llama_params_to_numpy
 
 
 def _stacked_layers(layers) -> Dict[str, Any]:

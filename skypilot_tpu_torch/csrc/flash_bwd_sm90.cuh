@@ -10,7 +10,8 @@
 //   GQA group of query heads h / (H / KVH) == kvh in registers: no
 //   atomics, deterministic.
 //
-// Both are templates over D (64, 128), the element type T (bf16, f16:
+// Both are templates over D (64, 128; 256 for the resident family), the
+// element type T (bf16, f16:
 // the inputs', P's and dS's before their products, and the outputs') and
 // the softmax base (Base2: exp2 with a base-2 lse, sm = scale * log2(e)
 // folded into the one FFMA each score takes; BaseE: natural exp and lse;
@@ -60,6 +61,17 @@
 //   each): 208 at D = 128 with both, under the consumers' 232; dk/dv
 //   holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
 //   accumulator registers at D = 128.
+// - Head_dim 256 (Gemma's; the resident family only). Shared memory: the
+//   128-row resident pair takes 128 KB and a stage of the ring 64 KB, so
+//   the ring has one stage (bwd_ring; 193 KB), and the producer's next
+//   load waits for both consumers to release the last. dq holds dq (128)
+//   + S, dP (32 each) + dS (16) = 208 registers, Q and dO read from
+//   shared memory (kRegA 0). dk and dv together (256 fp32 a thread) do
+//   not fit: dkv_consumer_sweeps walks the group's q tiles twice, first
+//   S^T -> P^T, dv += P^T dO (dv written straight from registers:
+//   store_frag, since the second sweep still reads K and V), then S^T,
+//   dP^T -> dS^T, dk += dS^T Q; five products per tile pair instead of
+//   four, still one launch, the GQA sum in registers, deterministic.
 // - Not done: a persistent grid; overlapping one tile's elementwise work
 //   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
 //   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
@@ -120,39 +132,50 @@ static_assert(kBwdRows == kBM, "the forward's resident tile");
 static_assert(kBwdRows % kBwdTile == 0,
               "a resident tile is whole streamed tiles");
 
+// Streamed stages at head_dim D: kBwdRing, and one at D = 256, where the
+// 128-row resident pair alone takes 128 KB and a stage 64 KB.
+template <int D>
+constexpr int bwd_ring() {
+  return D > 128 ? 1 : kBwdRing;
+}
+
 // dq's shared memory from a 1024-byte aligned base: Q and dO (kBwdRows x
-// D), kBwdRing K and V tiles (kBwdTile x D), each tile D / 64 boxes of
-// rows x 128 bytes, 128-byte swizzled; delta of the 128 rows; mbarriers
-// full[kBwdRing], empty[kBwdRing], q.
+// D), kRing K and V tiles (kBwdTile x D), each tile D / 64 boxes of rows x
+// 128 bytes, 128-byte swizzled; delta of the 128 rows; mbarriers
+// full[kRing], empty[kRing], q.
 template <int D>
 struct DqSmem {
+  static constexpr int kRing = bwd_ring<D>();
   static constexpr int kRowsTile = kBwdRows * D * 2;
   static constexpr int kTile = kBwdTile * D * 2;
   static constexpr int kQ = 0;
   static constexpr int kDO = kRowsTile;
   static constexpr int kK = 2 * kRowsTile;
-  static constexpr int kV = kK + kBwdRing * kTile;
-  static constexpr int kDelta = kV + kBwdRing * kTile;
+  static constexpr int kV = kK + kRing * kTile;
+  static constexpr int kDelta = kV + kRing * kTile;
   static constexpr int kBar = kDelta + kBwdRows * 4;
-  static constexpr int kBytes = kBar + (2 * kBwdRing + 1) * 8 + 1024;
+  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
 };
 
-// dk/dv's: K and V (kBwdRows x D); kBwdRing Q and dO tiles (kBwdTile x
-// D); kBwdRing lse and delta rows (kBwdTile fp32); mbarriers full, empty,
-// kv.
+// dk/dv's: K and V (kBwdRows x D); kRing Q and dO tiles (kBwdTile x D);
+// kRing lse and delta rows (kBwdTile fp32); mbarriers full, empty, kv.
+// kSweeps: how often the producer walks the group's q tiles (two at D =
+// 256: dv first, then dk).
 template <int D>
 struct DkvSmem {
+  static constexpr int kRing = bwd_ring<D>();
+  static constexpr int kSweeps = D > 128 ? 2 : 1;
   static constexpr int kRowsTile = kBwdRows * D * 2;
   static constexpr int kTile = kBwdTile * D * 2;
   static constexpr int kStat = kBwdTile * 4;
   static constexpr int kK = 0;
   static constexpr int kV = kRowsTile;
   static constexpr int kQ = 2 * kRowsTile;
-  static constexpr int kDO = kQ + kBwdRing * kTile;
-  static constexpr int kLse = kDO + kBwdRing * kTile;
-  static constexpr int kDelta = kLse + kBwdRing * kStat;
-  static constexpr int kBar = kDelta + kBwdRing * kStat;
-  static constexpr int kBytes = kBar + (2 * kBwdRing + 1) * 8 + 1024;
+  static constexpr int kDO = kQ + kRing * kTile;
+  static constexpr int kLse = kDO + kRing * kTile;
+  static constexpr int kDelta = kLse + kRing * kStat;
+  static constexpr int kBar = kDelta + kRing * kStat;
+  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
 };
 
 // TMA: the box at (c0, c1), innermost first (the fp32 lse / delta rows).
@@ -165,50 +188,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
         "r"(c1), "r"(bar)
       : "memory");
-}
-
-// d (m64n64, fp32) = A B, or d += A B when scale_d is nonzero; A and B
-// (T) are read from shared memory through descriptors, both K-major.
-template <class T>
-__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32],
-                                               uint64_t desc_a,
-                                               uint64_t desc_b,
-                                               int scale_d) {
-#define STPU_WGMMA(TY)                                                      \
-  asm volatile(                                                             \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
-      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                    \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-        "+f"(d[30]), "+f"(d[31])                                            \
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
-  if constexpr (T::kHalf)
-    STPU_WGMMA("f16");
-  else
-    STPU_WGMMA("bf16");
-#undef STPU_WGMMA
-}
-
-// d (64 x 64 fp32) = A B^T over D: A, 64 rows at desc_a, and B, 64 rows at
-// desc_b, both K-major tiles of D / 64 boxes, a_box and b_box bytes apart.
-template <int D, class T>
-__device__ __forceinline__ void mma_nt(float (&d)[32], uint64_t desc_a,
-                                       int a_box, uint64_t desc_b,
-                                       int b_box) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t in_box = (kk % 4) * 32;  // bytes into the 64-col box
-    wgmma_m64n64_ss<T>(d, desc_a + (((kk / 4) * a_box + in_box) >> 4),
-                    desc_b + (((kk / 4) * b_box + in_box) >> 4), kk);
-  }
 }
 
 // The same with A, this warpgroup's 64 rows, held in registers (a[kk] for
@@ -277,7 +256,7 @@ __device__ __forceinline__ void dq_producer(
   using L = DqSmem<D>;
   const int kvh = h / (p.H / p.KVH);
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * kBwdRing, qbar = full0 + 16 * kBwdRing;
+  const uint32_t empty0 = full0 + 8 * L::kRing, qbar = full0 + 16 * L::kRing;
   mbar_expect_tx(qbar, 2 * L::kRowsTile);
 #pragma unroll
   for (int c = 0; c < D / kBoxCols; ++c) {
@@ -288,8 +267,8 @@ __device__ __forceinline__ void dq_producer(
                 qt * kBwdRows, h, b);
   }
   for (int j = 0; j < n_kt; ++j) {
-    const int st = j % kBwdRing;
-    if (j >= kBwdRing) mbar_wait(empty0 + 8 * st, (j / kBwdRing - 1) & 1);
+    const int st = j % L::kRing;
+    if (j >= L::kRing) mbar_wait(empty0 + 8 * st, (j / L::kRing - 1) & 1);
     const uint32_t full = full0 + 8 * st;
     mbar_expect_tx(full, 2 * L::kTile);
 #pragma unroll
@@ -347,7 +326,7 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   const int R0 = cw * 64 + warp * 16 + lane / 4;  // and R0 + 8
   const int row0 = q_start + R0;
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * kBwdRing, qbar = full0 + 16 * kBwdRing;
+  const uint32_t empty0 = full0 + 8 * L::kRing, qbar = full0 + 16 * L::kRing;
   const float sm = p.scale * Base::kScoreMul;
   const TileMask mask = {p.S, p.causal};
   const long long stat = ((long long)b * p.H + h) * p.S;
@@ -411,8 +390,8 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   for (int j = 0; j < n_kt; ++j) {
-    const int st = j % kBwdRing;
-    mbar_wait(full0 + 8 * st, (j / kBwdRing) & 1);
+    const int st = j % L::kRing;
+    mbar_wait(full0 + 8 * st, (j / L::kRing) & 1);
     if (j <= j_last) {
       const uint32_t tile = (st * L::kTile) >> 4;
       float s[32], dp[32];
@@ -473,11 +452,11 @@ __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
       p.causal ? min(n_all, (qt + 1) * (kBwdRows / kBwdTile)) : n_all;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
-    for (int i = 0; i < kBwdRing; ++i) {
+    for (int i = 0; i < L::kRing; ++i) {
       mbar_init(bars + 8 * i, 1);                        // full: producer
-      mbar_init(bars + 8 * (kBwdRing + i), kConsumers);  // empty: consumers
+      mbar_init(bars + 8 * (L::kRing + i), kConsumers);  // empty: consumers
     }
-    mbar_init(bars + 16 * kBwdRing, 1);                  // q and dO
+    mbar_init(bars + 16 * L::kRing, 1);                  // q and dO
     asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
   }
   __syncthreads();
@@ -504,7 +483,7 @@ __device__ __forceinline__ void dkv_producer(
   using L = DkvSmem<D>;
   const int groups = p.H / p.KVH;
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * kBwdRing, kvbar = full0 + 16 * kBwdRing;
+  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
   mbar_expect_tx(kvbar, 2 * L::kRowsTile);
 #pragma unroll
   for (int c = 0; c < D / kBoxCols; ++c) {
@@ -515,11 +494,13 @@ __device__ __forceinline__ void dkv_producer(
                 kvh, b);
   }
   int n = 0;
+  // The group's q tiles once per consumer sweep (twice at D = 256).
+  for (int sw = 0; sw < L::kSweeps; ++sw)
   for (int gi = 0; gi < groups; ++gi) {
     const int h = kvh * groups + gi;
     for (int i = i0; i < n_qt; ++i, ++n) {
-      const int st = n % kBwdRing;
-      if (n >= kBwdRing) mbar_wait(empty0 + 8 * st, (n / kBwdRing - 1) & 1);
+      const int st = n % L::kRing;
+      if (n >= L::kRing) mbar_wait(empty0 + 8 * st, (n / L::kRing - 1) & 1);
       const uint32_t full = full0 + 8 * st;
       mbar_expect_tx(full, 2 * L::kTile + 2 * L::kStat);
 #pragma unroll
@@ -586,7 +567,7 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
   const int krow0 = k_start + R0;
   const int groups = p.H / p.KVH;
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * kBwdRing, kvbar = full0 + 16 * kBwdRing;
+  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
   const float sm = p.scale * Base::kScoreMul;
   // Causal: q tile i0 + cw is this consumer's diagonal, which it masks;
   // consumer 1 skips tile i0, wholly above its rows. Non-causal: every
@@ -610,8 +591,8 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
   int n = 0;
   for (int gi = 0; gi < groups; ++gi) {
     for (int i = i0; i < n_qt; ++i, ++n) {
-      const int st = n % kBwdRing;
-      mbar_wait(full0 + 8 * st, (n / kBwdRing) & 1);
+      const int st = n % L::kRing;
+      mbar_wait(full0 + 8 * st, (n / L::kRing) & 1);
       if (i >= i_first) {
         const uint32_t tile = (st * L::kTile) >> 4;
         float s[32], dp[32];
@@ -658,6 +639,162 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
                    p.dv + off, ss, k_start, p.S);
 }
 
+// P^T = exp(sm * s^T - lse[q]) of one 64 (kv) x 64 (q) tile into the A
+// fragments of P^T dO, rounded to T (dst_tile without dS^T: the first
+// sweep at head_dim 256). MASK drops the causal pairs q < k.
+template <class T, class Base, bool MASK>
+__device__ __forceinline__ void pt_tile(const float (&s)[32],
+                                        uint32_t (&pa)[kBwdTile / 16][4],
+                                        const float* lse, float sm,
+                                        int krow0, int q_start) {
+  const int t = threadIdx.x % 4;
+  const float kDrop = -__int_as_float(0x7f800000);  // -inf: exp gives 0
+#pragma unroll
+  for (int i = 0; i < kBwdTile / 8; ++i) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse + i * 8 + 2 * t);
+    float pr[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(s[4 * i + e], sm, (e & 1) ? -l2.y : -l2.x);
+      if (MASK && q_start + i * 8 + 2 * t + (e & 1) < krow0 + 8 * (e >> 1))
+        x = kDrop;
+      pr[e] = Base::exp(x);
+    }
+    pa[i / 2][(i % 2) * 2] = T::pack(pr[0], pr[1]);
+    pa[i / 2][(i % 2) * 2 + 1] = T::pack(pr[2], pr[3]);
+  }
+}
+
+// A consumer warpgroup's accumulator fragment (rows R0, R0 + 8 of the
+// CTA's 128), rounded to T, straight to global memory at g (the CTA's row
+// 0, row stride ss) in 4-byte stores, rows < S: dv at head_dim 256, whose
+// second sweep still reads the K and V tiles store_rows would stage it in.
+template <int D, class T>
+__device__ __forceinline__ void store_frag(const float (&acc)[D / 2], e16* g,
+                                           long long ss, int row_start,
+                                           int S) {
+  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int t = tid % 4, R0 = cw * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row_start + R0 + 8 * hf;
+    if (row < S) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(g + row * ss + 8 * i + 2 * t) =
+            T::pack(acc[4 * i + 2 * hf], acc[4 * i + 2 * hf + 1]);
+    }
+  }
+}
+
+// One sweep of the head_dim-256 dk/dv over the group's q tiles (n counts
+// the ring's uses across both sweeps): kDk false computes S^T, P^T and dv
+// += P^T dO; kDk true S^T, dP^T, dS^T and dk += dS^T Q. Either holds one
+// 128-register accumulator beside S^T (and dP^T), where dk and dv
+// together (256) would not fit the consumers' 232.
+template <int D, class T, class Base, bool kDk>
+__device__ __forceinline__ void dkv_sweep(float (&acc)[D / 2],
+                                          const BwdParams& p,
+                                          unsigned char* base, int& n,
+                                          int i0, int n_qt, int krow0) {
+  using L = DkvSmem<D>;
+  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kRing;
+  const float sm = p.scale * Base::kScoreMul;
+  const int i_first = p.causal ? i0 + cw : 0;
+  const int i_mask = p.causal ? i0 + cw : -1;
+  const uint64_t d_k = smem_desc(base + L::kK + cw * 64 * 128, 16, 1024);
+  const uint64_t d_v = smem_desc(base + L::kV + cw * 64 * 128, 16, 1024);
+  const uint64_t d_q = smem_desc(base + L::kQ, 16, 1024);
+  const uint64_t d_do = smem_desc(base + L::kDO, 16, 1024);
+  // dk += dS^T Q reads Q MN-major, dv += P^T dO reads dO so.
+  const uint64_t d_bmn = smem_desc(base + (kDk ? L::kQ : L::kDO),
+                                   kBwdTile * 128, 1024);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int gi = 0; gi < p.H / p.KVH; ++gi) {
+    for (int i = i0; i < n_qt; ++i, ++n) {
+      const int st = n % L::kRing;
+      mbar_wait(full0 + 8 * st, (n / L::kRing) & 1);
+      if (i >= i_first) {
+        const uint32_t tile = (st * L::kTile) >> 4;
+        const float* lse =
+            reinterpret_cast<const float*>(base + L::kLse + st * L::kStat);
+        const float* dlt =
+            reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
+        float s[32];
+        uint32_t a[kBwdTile / 16][4];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = 0.f;
+        if constexpr (kDk) {
+          float dp[32];
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dp[e] = 0.f;
+          wgmma_fence();
+          mma_nt<D, T>(s, d_k, kBwdRows * 128, d_q + tile, kBwdTile * 128);
+          mma_nt<D, T>(dp, d_v, kBwdRows * 128, d_do + tile, kBwdTile * 128);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(s);
+          fence_regs(dp);
+          // P^T, packed beside dS^T, is not read: dead code for ptxas.
+          uint32_t unused[kBwdTile / 16][4];
+          if (i == i_mask)
+            dst_tile<T, Base, true>(s, dp, unused, a, lse, dlt, sm, krow0,
+                                    i * kBwdTile);
+          else
+            dst_tile<T, Base, false>(s, dp, unused, a, lse, dlt, sm, krow0,
+                                     i * kBwdTile);
+        } else {
+          wgmma_fence();
+          mma_nt<D, T>(s, d_k, kBwdRows * 128, d_q + tile, kBwdTile * 128);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(s);
+          if (i == i_mask)
+            pt_tile<T, Base, true>(s, a, lse, sm, krow0, i * kBwdTile);
+          else
+            pt_tile<T, Base, false>(s, a, lse, sm, krow0, i * kBwdTile);
+        }
+        wgmma_fence();
+        mma_rs<D, T>(acc, a, d_bmn + tile);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+      if (tid == 0) mbar_arrive(empty0 + 8 * st);  // Q, dO, lse, delta read
+    }
+  }
+}
+
+// A consumer warpgroup at head_dim 256: dv over every q tile of the group
+// (first sweep), written straight from registers, then dk (second sweep)
+// through its own rows of K. Five products per tile pair instead of four
+// (S^T twice); the GQA sum stays in registers, no atomics.
+template <int D, class T, class Base>
+__device__ __forceinline__ void dkv_consumer_sweeps(const BwdParams& p,
+                                                    unsigned char* base,
+                                                    int b, int kvh, int kt,
+                                                    int i0, int n_qt) {
+  using L = DkvSmem<D>;
+  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int k_start = kt * kBwdRows;
+  const int krow0 = k_start + cw * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+  const uint32_t kvbar = smem_addr(base + L::kBar) + 16 * L::kRing;
+  const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
+  const long long ss = (long long)p.KVH * D;
+  float acc[D / 2];
+  int n = 0;
+  mbar_wait(kvbar, 0);
+  dkv_sweep<D, T, Base, false>(acc, p, base, n, i0, n_qt, krow0);
+  store_frag<D, T>(acc, p.dv + off, ss, k_start, p.S);
+  dkv_sweep<D, T, Base, true>(acc, p, base, n, i0, n_qt, krow0);
+  const float dk_mul[2] = {p.scale, p.scale};
+  store_rows<D, T>(acc, dk_mul, reinterpret_cast<e16*>(base + L::kK),
+                   p.dk + off, ss, k_start, p.S);
+}
+
 // One CTA of dk/dv: work item blockIdx.x is (b * KVH + kvh, 128-row kv
 // tile).
 template <int D, class T, class Base>
@@ -676,11 +813,11 @@ __device__ __forceinline__ void dkv_cta(
   const int i0 = p.causal ? kt * (kBwdRows / kBwdTile) : 0;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
-    for (int i = 0; i < kBwdRing; ++i) {
+    for (int i = 0; i < L::kRing; ++i) {
       mbar_init(bars + 8 * i, 1);
-      mbar_init(bars + 8 * (kBwdRing + i), kConsumers);
+      mbar_init(bars + 8 * (L::kRing + i), kConsumers);
     }
-    mbar_init(bars + 16 * kBwdRing, 1);  // K and V
+    mbar_init(bars + 16 * L::kRing, 1);  // K and V
     asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
   }
   __syncthreads();
@@ -691,7 +828,10 @@ __device__ __forceinline__ void dkv_cta(
                       n_qt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dkv_consumer<D, T, Base>(p, base, b, kvh, kt, i0, n_qt);
+    if constexpr (D > 128)
+      dkv_consumer_sweeps<D, T, Base>(p, base, b, kvh, kt, i0, n_qt);
+    else
+      dkv_consumer<D, T, Base>(p, base, b, kvh, kt, i0, n_qt);
   }
 }
 

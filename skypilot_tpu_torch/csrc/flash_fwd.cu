@@ -16,7 +16,8 @@
 // axis becomes each consumer's loop over K/V tiles up to the causal bound.
 // One CTA per item of a host-built longest-first work list of 128-row q
 // tiles (ops/flash_attention.py: tri_schedule), so the causal tail does
-// not idle the card.
+// not idle the card. Head_dim 64, 128 and 256 (Gemma's: 64-row K/V tiles,
+// P V as m64n256; flash_fwd_sm90.cuh), bf16 and f16.
 #include "flash_fwd_sm90.cuh"
 
 namespace stpu {
@@ -48,7 +49,7 @@ extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
-  STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_kernel, p, B,
+  STPU_SM90_BY_D_WIDE(D, dtype, launch_fwd, flash_fwd_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
@@ -57,5 +58,5 @@ extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
 // (sm90::kernel_attrs): five ints, registers at launch, dynamic shared
 // memory, threads, producer and consumer registers.
 extern "C" int stpu_flash_fwd_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D(D, dtype, fwd_attrs, stpu::flash_fwd_kernel, out);
+  STPU_SM90_BY_D_WIDE(D, dtype, fwd_attrs, stpu::flash_fwd_kernel, out);
 }

@@ -2,8 +2,9 @@
 // specialised. One body, instantiated by flash_fwd.cu (the resident
 // family, natural-log lse), flash_tri.cu (the triangular family, base-2
 // lse) and flash_streamed.cu (the streamed family, natural-log lse, with
-// the overlapped schedule below), each at head_dim 64 and 128
-// and element type bf16 and f16 (T, the inputs' and outputs' type; the
+// the overlapped schedule below), each at head_dim 64 and 128 (the
+// resident family at 256 too, fwd_consumer_wide below) and element type
+// bf16 and f16 (T, the inputs' and outputs' type; the
 // softmax and the sums stay fp32). The function is the TPU forward's: o =
 // softmax(scale * q k^T, causal) v and lse = m + log(l), query head h
 // reading KV head h / (H / KVH).
@@ -54,6 +55,14 @@
 // - Masking: only the KV tile that straddles the diagonal (causal) or S
 //   (the ragged last tile, non-causal) runs the MASK instance; a causal
 //   loop stops at the diagonal, so fully masked tiles are never loaded.
+// - Head_dim 256 (Gemma's; the resident instance only): a 128-row K and V
+//   stage would take 128 KB and Q 64 KB, past the 227 KB a CTA has with a
+//   second stage. So K/V tiles are kBNWide = 64 rows (a 2-stage ring: 64
+//   + 2 x 64 = 192 KB), S = Q K^T is m64n64 (32 registers), P V one
+//   m64n256k16 per 16 keys (o: 128 registers; 176 with S and P, under
+//   the consumers' 232). With 64-row K/V tiles under 128-row q tiles
+//   the two consumers' causal ends differ by a tile, as in the
+//   backward's dq (fwd_consumer_wide).
 // - Epilogue: o / l goes through the consumer's own 64 rows of Q in shared
 //   memory (its last product has read them) and out in 16-byte stores
 //   predicated on row < S; lse = m + log2(l), times ln 2 for the natural-
@@ -108,16 +117,26 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTensorMapError = 10000;
 static_assert(kBM == kBN, "a causal q tile's loop ends at its own index");
 
+// Rows of a K/V tile: kBN, and kBNWide at head_dim 256, where a 128-row
+// K and V stage (64 KB each) would not leave room for a second one.
+constexpr int kBNWide = 64;
+template <int D>
+constexpr int fwd_kv_rows() {
+  return D > 128 ? kBNWide : kBN;
+}
+
 // Shared memory in bytes from a 1024-byte aligned base: Q (kBM x D), kRing
-// K tiles, kRing V tiles (kBN x D), each stored as D / 64 boxes of rows x
-// 128 bytes in the 128-byte swizzle; then kBars full mbarriers, kBars
+// K tiles, kRing V tiles (kKvRows x D), each stored as D / 64 boxes of rows
+// x 128 bytes in the 128-byte swizzle; then kBars full mbarriers, kBars
 // empty ones and q: a K/V stage has one of each (kBars = kRing), or, for
 // the overlapped schedule (kSplit), K and V have their own (kBars = 2 *
-// kRing, K's stages first). kBytes adds the slack for aligning the base.
+// kRing, K's stages first). kBytes adds the slack for aligning the base:
+// 161 KB at D = 128, 193 KB at D = 256 (64-row K/V tiles).
 template <int D, bool kSplit = false>
 struct FwdSmem {
+  static constexpr int kKvRows = fwd_kv_rows<D>();
   static constexpr int kQ = kBM * D * 2;
-  static constexpr int kTileKV = kBN * D * 2;
+  static constexpr int kTileKV = kKvRows * D * 2;
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kRing * kTileKV;
   static constexpr int kBar = kV + kRing * kTileKV;
@@ -363,14 +382,119 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
 #undef STPU_WGMMA
 }
 
+// d (m64n256, fp32) += A B: A, 64 x 16 of T, from registers; B from shared
+// memory through a descriptor, MN-major (tnspB = 1). N = 256 is wgmma's
+// widest: O += P V and dq += dS K at head_dim 256, 128 accumulators a
+// thread.
+template <class T>
+__device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[128],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "   \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "   \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "   \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "   \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "  \
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "  \
+      "%127"                                                                \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),     \
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),     \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),     \
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),     \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),     \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),     \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),     \
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),     \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),              \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),              \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),              \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),              \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),              \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),              \
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
+}
+
 template <int D, class T>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
   if constexpr (D == 64)
     wgmma_m64n64_rs<T>(o, a, desc_v);
-  else
+  else if constexpr (D == 128)
     wgmma_m64n128_rs<T>(o, a, desc_v);
+  else
+    wgmma_m64n256_rs<T>(o, a, desc_v);
+}
+
+// d (m64n64, fp32) = A B, or d += A B when scale_d is nonzero; A and B
+// (T) are read from shared memory through descriptors, both K-major.
+template <class T>
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b,
+                                               int scale_d) {
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
+}
+
+// d (64 x 64 fp32) = A B^T over D: A, 64 rows at desc_a, and B, 64 rows at
+// desc_b, both K-major tiles of D / 64 boxes, a_box and b_box bytes apart.
+template <int D, class T>
+__device__ __forceinline__ void mma_nt(float (&d)[32], uint64_t desc_a,
+                                       int a_box, uint64_t desc_b,
+                                       int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t in_box = (kk % 4) * 32;  // bytes into the 64-col box
+    wgmma_m64n64_ss<T>(d, desc_a + (((kk / 4) * a_box + in_box) >> 4),
+                    desc_b + (((kk / 4) * b_box + in_box) >> 4), kk);
+  }
 }
 
 // Element offset of 16-byte chunk ch (8 elements) of row R in a kBM-row
@@ -432,6 +556,7 @@ __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
   for (int c = 0; c < D / kBoxCols; ++c)
     tma_load_4d(base + c * kBM * 128, &tq, qbar, c * kBoxCols, qt * kBM, h,
                 b);
+  constexpr int kRows = L::kKvRows;
   for (int j = 0; j < n_kt; ++j) {
     const int st = j % kRing;
     if (j >= kRing) mbar_wait(empty0 + 8 * st, (j / kRing - 1) & 1);
@@ -439,11 +564,11 @@ __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
     mbar_expect_tx(full, 2 * L::kTileKV);
 #pragma unroll
     for (int c = 0; c < D / kBoxCols; ++c) {
-      const int off = st * L::kTileKV + c * kBN * 128;
-      tma_load_4d(base + L::kK + off, &tk, full, c * kBoxCols, j * kBN, kvh,
-                  b);
-      tma_load_4d(base + L::kV + off, &tv, full, c * kBoxCols, j * kBN, kvh,
-                  b);
+      const int off = st * L::kTileKV + c * kRows * 128;
+      tma_load_4d(base + L::kK + off, &tk, full, c * kBoxCols, j * kRows,
+                  kvh, b);
+      tma_load_4d(base + L::kV + off, &tv, full, c * kBoxCols, j * kRows,
+                  kvh, b);
     }
   }
 }
@@ -488,20 +613,20 @@ __device__ __forceinline__ void fwd_producer_split(const CUtensorMap& tq,
   }
 }
 
-// The running max of one S tile (base 2): drops the masked pairs (MASK),
-// updates the running max m of this thread's two rows and scales their
-// running sums l by alpha = exp2(m_old - m_new).
-template <bool MASK>
-__device__ __forceinline__ void online_max(float (&s)[kBN / 2],
-                                           float (&m)[2], float (&l)[2],
-                                           float (&alpha)[2], float sm,
-                                           int row0, int k_start,
+// The running max of one S tile (base 2; NS = its columns / 2 a thread):
+// drops the masked pairs (MASK), updates the running max m of this
+// thread's two rows and scales their running sums l by alpha =
+// exp2(m_old - m_new).
+template <bool MASK, int NS>
+__device__ __forceinline__ void online_max(float (&s)[NS], float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2],
+                                           float sm, int row0, int k_start,
                                            TileMask mask) {
   const int t = threadIdx.x % 4;
   const float kDrop = -__int_as_float(0x7f800000);  // -inf: exp2 gives 0
   float mx[2] = {kDrop, kDrop};
 #pragma unroll
-  for (int i = 0; i < kBN / 8; ++i) {
+  for (int i = 0; i < NS / 4; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (MASK && mask.drop(row0 + (e >> 1) * 8,
@@ -535,19 +660,20 @@ __device__ __forceinline__ void rescale_o(float (&o)[D / 2],
 
 // The online softmax of one S tile (base 2): updates the running max and
 // sum of this thread's two rows, rescales o, and packs P into the A
-// fragments of P V's eight 16-deep k steps, rounded to T.
-template <int D, class T, bool MASK>
-__device__ __forceinline__ void softmax_step(float (&s)[kBN / 2],
+// fragments of P V's 16-deep k steps (eight of a 128-column tile, four of
+// a 64-column one), rounded to T.
+template <int D, class T, bool MASK, int NS>
+__device__ __forceinline__ void softmax_step(float (&s)[NS],
                                              float (&o)[D / 2],
                                              float (&m)[2], float (&l)[2],
-                                             uint32_t (&pa)[kBN / 16][4],
+                                             uint32_t (&pa)[NS / 8][4],
                                              float sm, int row0, int k_start,
                                              TileMask mask) {
   float alpha[2];
   online_max<MASK>(s, m, l, alpha, sm, row0, k_start, mask);
   rescale_o<D>(o, alpha);
 #pragma unroll
-  for (int i = 0; i < kBN / 8; ++i) {
+  for (int i = 0; i < NS / 4; ++i) {
     const float p0 = Base2::exp(fmaf(s[4 * i], sm, -m[0]));
     const float p1 = Base2::exp(fmaf(s[4 * i + 1], sm, -m[0]));
     const float p2 = Base2::exp(fmaf(s[4 * i + 2], sm, -m[1]));
@@ -606,13 +732,14 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint64_t dq,
   }
 }
 
-// Issues o += P V against the V tile at byte offset `tile` (uncommitted).
-template <int D, class T>
+// Issues o += P V against the V tile at byte offset `tile` (uncommitted),
+// one 16-deep k step per NK.
+template <int D, class T, int NK>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[kBN / 16][4],
+                                         const uint32_t (&pa)[NK][4],
                                          uint64_t dv, int tile) {
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
+  for (int kk = 0; kk < NK; ++kk)
     wgmma_pv<D, T>(o, pa[kk], dv + ((tile + kk * 16 * 128) >> 4));
 }
 
@@ -793,8 +920,114 @@ __device__ __forceinline__ void fwd_consumer_overlap(const FwdParams& p,
                                   l);
 }
 
+// A consumer warpgroup at head_dim 256, in lockstep over kBNWide-row K/V
+// tiles: S = Q K^T as sixteen m64n64k16 (both from shared memory), P V as
+// four m64n256k16 (P from registers). o (128), S (32) and the packed P
+// (16) a thread. The two consumers' causal ends differ: consumer 0 (q rows
+// 128 qt + 0..63) ends on KV tile 2 qt, its diagonal, consumer 1 on 2 qt
+// + 1; consumer 0 skips 2 qt + 1, wholly above its rows, but still waits
+// for it and arrives on its empty barrier (flash_bwd_sm90.cuh's dq, Traps).
+// Non-causal, every tile, the ragged last one masked.
+template <int D, class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
+                                                  unsigned char* base, int b,
+                                                  int h, int qt, int n_kt) {
+  using L = FwdSmem<D>;
+  constexpr int kRows = L::kKvRows;
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q_start = qt * kBM;
+  const int row0 = q_start + cw * 64 + warp * 16 + g;  // and row0 + 8
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * kRing, qbar = full0 + 16 * kRing;
+  const float sm = p.scale * kLog2e;
+  const TileMask mask = {p.S, p.causal};
+  const int diag = qt * (kBM / kRows) + cw;
+  const int j_last = p.causal ? min(diag, n_kt - 1) : n_kt - 1;
+  const int j_mask = p.causal ? diag : masked_tile(0, p.S, kRows, n_kt);
+
+  const uint64_t dq = smem_desc(base + cw * 64 * 128, 16, 1024);
+  const uint64_t dk = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t dv = smem_desc(base + L::kV, kRows * 128, 1024);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kRing;
+    mbar_wait(full0 + 8 * st, (j / kRing) & 1);
+    if (j <= j_last) {
+      float s[kRows / 2];
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) s[i] = 0.f;
+      wgmma_fence();
+      mma_nt<D, T>(s, dq, kBM * 128, dk + ((st * L::kTileKV) >> 4),
+                   kRows * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      uint32_t pa[kRows / 16][4];
+      if (j == j_mask)
+        softmax_step<D, T, true>(s, o, m, l, pa, sm, row0, j * kRows, mask);
+      else
+        softmax_step<D, T, false>(s, o, m, l, pa, sm, row0, j * kRows, mask);
+
+      wgmma_fence();
+      issue_pv<D, T>(o, pa, dv, st * L::kTileKV);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    if (tid == 0) mbar_arrive(empty0 + 8 * st);  // K and V of st consumed
+  }
+  fwd_epilogue<D, T, kNaturalLse>(p, base, b, h, q_start, row0, t, o, m,
+                                  l);
+}
+
+// One CTA of the forward at head_dim 256 (fwd_consumer_wide; lockstep).
+// Its own function, so the narrow instances below compile as they did.
+template <int D, class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
+                                             const CUtensorMap& tk,
+                                             const CUtensorMap& tv,
+                                             const FwdParams& p,
+                                             const int* __restrict__ work,
+                                             unsigned char* smem) {
+  using L = FwdSmem<D>;
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_all = ceil_div(p.S, kBNWide);
+  // Causal: to consumer 1's diagonal, KV tile 2 qt + 1 (or S's end).
+  const int n_kt = p.causal ? min(n_all, (qt + 1) * (kBM / kBNWide)) : n_all;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kBars; ++i) {
+      mbar_init(bars + 8 * i, 1);                        // full: producer
+      mbar_init(bars + 8 * (L::kBars + i), kConsumers);  // empty: consumers
+    }
+    mbar_init(bars + 16 * L::kBars, 1);                  // q
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    fwd_consumer_wide<D, T, kNaturalLse>(p, base, b, h, qt, n_kt);
+  }
+}
+
 // One CTA of the forward: work item blockIdx.x is (b * H + h, q tile);
-// kOverlap picks the overlapped schedule over lockstep.
+// kOverlap picks the overlapped schedule over lockstep; head_dim 256 goes
+// to fwd_cta_wide (lockstep only).
 template <int D, class T, bool kNaturalLse, bool kOverlap = false>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
@@ -802,6 +1035,10 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         const FwdParams& p,
                                         const int* __restrict__ work,
                                         unsigned char* smem) {
+  static_assert(D <= 128 || !kOverlap, "head_dim 256 runs in lockstep");
+  if constexpr (D > 128) {
+    fwd_cta_wide<D, T, kNaturalLse>(tq, tk, tv, p, work, smem);
+  } else {
   using L = FwdSmem<D, kOverlap>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
   const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
@@ -835,6 +1072,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                               j_mask);
     else
       fwd_consumer<D, T, kNaturalLse>(p, base, b, h, qt, n_kt, j_mask);
+  }
   }
 }
 
@@ -904,15 +1142,16 @@ inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
                       const int* work, cudaStream_t stream,
                       bool overlap = false) {
   const int smem = overlap ? FwdSmem<D, true>::kBytes : FwdSmem<D>::kBytes;
+  constexpr int kRows = FwdSmem<D>::kKvRows;
   CUtensorMap tq, tk, tv;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
                            kBM);
   if (!err)
     err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                         kBN);
+                         kRows);
   if (!err)
     err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                         kBN);
+                         kRows);
   if (err) return err;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -948,24 +1187,38 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
 }  // namespace stpu
 
 // Returns from the calling C entry with FN<D, T>(KERNEL<D, T>, ...) for the
-// runtime head_dim (64, 128) and element type (T::kDtype): the instances
-// of one Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or
-// reported (fwd_attrs, dq_attrs, dkv_attrs).
+// runtime head_dim and element type (T::kDtype): the instances of one
+// Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or reported
+// (fwd_attrs, dq_attrs, dkv_attrs). STPU_SM90_BY_D takes head_dim 64 and
+// 128 (every family), STPU_SM90_BY_D_WIDE 256 as well (the resident
+// family); any other head_dim or type returns cudaErrorInvalidValue.
 #define STPU_SM90_ONE(D_, T_, FN, KERNEL, ...) \
   return stpu::sm90::FN<D_, stpu::T_>(KERNEL<D_, stpu::T_>, __VA_ARGS__)
 
+#define STPU_SM90_AT_D(D_, HEAD_DIM, FN, KERNEL, ...)                     \
+  if ((HEAD_DIM) == D_) {                                                 \
+    if (half_) STPU_SM90_ONE(D_, F16, FN, KERNEL, __VA_ARGS__);           \
+    STPU_SM90_ONE(D_, Bf16, FN, KERNEL, __VA_ARGS__);                     \
+  }
+
+#define STPU_SM90_DTYPE(DTYPE)                                            \
+  const bool half_ = (DTYPE) == stpu::F16::kDtype;                        \
+  if (!half_ && (DTYPE) != stpu::Bf16::kDtype)                            \
+    return (int)cudaErrorInvalidValue
+
 #define STPU_SM90_BY_D(HEAD_DIM, DTYPE, FN, KERNEL, ...)                  \
   do {                                                                    \
-    const bool half_ = (DTYPE) == stpu::F16::kDtype;                      \
-    if (!half_ && (DTYPE) != stpu::Bf16::kDtype)                          \
-      return (int)cudaErrorInvalidValue;                                  \
-    if ((HEAD_DIM) == 64) {                                               \
-      if (half_) STPU_SM90_ONE(64, F16, FN, KERNEL, __VA_ARGS__);         \
-      STPU_SM90_ONE(64, Bf16, FN, KERNEL, __VA_ARGS__);                   \
-    }                                                                     \
-    if ((HEAD_DIM) == 128) {                                              \
-      if (half_) STPU_SM90_ONE(128, F16, FN, KERNEL, __VA_ARGS__);        \
-      STPU_SM90_ONE(128, Bf16, FN, KERNEL, __VA_ARGS__);                  \
-    }                                                                     \
+    STPU_SM90_DTYPE(DTYPE);                                               \
+    STPU_SM90_AT_D(64, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                 \
+    STPU_SM90_AT_D(128, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
+    return (int)cudaErrorInvalidValue;                                    \
+  } while (0)
+
+#define STPU_SM90_BY_D_WIDE(HEAD_DIM, DTYPE, FN, KERNEL, ...)             \
+  do {                                                                    \
+    STPU_SM90_DTYPE(DTYPE);                                               \
+    STPU_SM90_AT_D(64, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                 \
+    STPU_SM90_AT_D(128, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
+    STPU_SM90_AT_D(256, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)

@@ -654,11 +654,16 @@ def params_quantized(params: nn.Module) -> bool:
 def _decode_embed(cfg, params: LlamaParams,
                   tokens: torch.Tensor) -> torch.Tensor:
     """Token-embedding gather for the serving paths, dequantizing the
-    per-row scales of an int8 table."""
+    per-row scales of an int8 table and applying gemma's sqrt(dim) embed
+    multiplier, rounded as the JAX package rounds them: the row scale
+    times the multiplier in f32, then one cast."""
     x = params.embed[tokens]
     row_scale = getattr(params, "embed_scale", None)
+    mult = getattr(cfg, "embed_multiplier", 1.0)
     if row_scale is not None:
-        x = (x.float() * row_scale[tokens][..., None]).to(cfg.dtype)
+        x = (x.float() * (row_scale[tokens][..., None] * mult)).to(cfg.dtype)
+    elif mult != 1.0:
+        x = (x.float() * mult).to(x.dtype)
     return x
 
 

@@ -20,14 +20,14 @@ sampling uses threefry keys equal to ``jax.random``'s, so a stream
 resumes on either package's replica.
 
     python -m skypilot_tpu_torch.recipes.serve_llm --model llama3-8b \
-        --port 8080
+        --port 8080        # or --model gemma-2b
 
 Runs on the card unless given ``--device cpu``. Not ported yet, and
 refused with a ValueError: gang and tensor-parallel replicas
 (``--replica-hosts`` > 1, ``--tp`` > 1, ``SKYPILOT_NUM_NODES`` > 1 or a
 ``SKYPILOT_NODE_RANK`` > 0), the co-located load balancer
 (``--lb-port``: run the JAX package's load balancer process in front
-instead), and the mixtral and gemma families.
+instead), and the mixtral family.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device, to_device
-from skypilot_tpu_torch.models import llama, mixtral, model_api
+from skypilot_tpu_torch.models import gemma, llama, mixtral, model_api
 from skypilot_tpu_torch.observability import metrics
 from skypilot_tpu_torch.observability import reqlog
 from skypilot_tpu_torch.observability import stepstats
@@ -745,8 +745,8 @@ def serve(cfg: llama.LlamaConfig, params, port: int,
     backoff, ``engine_max_restarts`` consecutive fast failures →
     permanently down so the replica manager replaces the replica).
     ``device`` (default: the card) must hold ``params``; the CPU runs
-    only on ``device="cpu"``. Mixtral and gemma configs raise a
-    ValueError (their serving halves are not ported)."""
+    only on ``device="cpu"``. Mixtral configs raise a ValueError (its
+    serving half is not ported)."""
     model_api(cfg)
     device = resolve_device(device)
     if engine_slots is None:
@@ -824,31 +824,30 @@ def serve(cfg: llama.LlamaConfig, params, port: int,
     return httpd
 
 
-# --model choice -> the port's config; None marks a family whose serving
-# half is not ported (gemma has no port config yet).
+# --model choice -> the port's config.
 MODELS = {
     "llama-tiny": llama.LlamaConfig.tiny,
     "llama3-8b": llama.LlamaConfig.llama3_8b,
     "mixtral-tiny": mixtral.MixtralConfig.tiny,
     "mixtral-8x7b": mixtral.MixtralConfig.mixtral_8x7b,
-    "gemma-tiny": None,
-    "gemma-2b": None,
-    "gemma-7b": None,
+    "gemma-tiny": gemma.GemmaConfig.tiny,
+    "gemma-2b": gemma.GemmaConfig.gemma_2b,
+    "gemma-7b": gemma.GemmaConfig.gemma_7b,
 }
 
 
 def _build_model(args, device: torch.device):
-    make = MODELS[args.model]
-    if make is None:
-        raise ValueError(f"gemma serving is not ported yet ({args.model})")
-    cfg = make()
-    model_api(cfg)     # the families not ported raise before any init
+    """The --model config (--dtype applied) and its random weights from
+    --seed, through the family's own init (gemma's norms start at zero).
+    A family whose serving is not ported raises before any init."""
+    cfg = MODELS[args.model]()
+    api = model_api(cfg)
     if args.dtype:
         cfg = dataclasses.replace(
             cfg, dtype={"bfloat16": torch.bfloat16,
                         "float32": torch.float32}[args.dtype])
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    return cfg, llama.init(cfg, gen, device)
+    return cfg, api.init(cfg, gen, device)
 
 
 def _refuse_not_ported(args) -> None:

@@ -10,7 +10,9 @@ JAX's, and the paged step's write targets.
 The JAX engine's streams are the same in every one of these modes (its
 own tests hold dense == paged == spec on == spec off, and a re-admitted
 block equal to a cold prefill), so each mode of the port is held to one
-JAX run per numeric mode (f32, int8).
+JAX run per numeric mode (f32, int8). The stream checks run again on two
+Gemma configs (``test_gemma_engine_matches_jax``): the tiny one and
+Gemma-2B's MQA head at head_dim 256.
 """
 import dataclasses
 import random
@@ -22,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu.models import gemma as gemma_jax
 from skypilot_tpu.models import llama as llama_jax
 from skypilot_tpu.serve import decode_engine as engine_jax
 from skypilot_tpu_torch import convert
+from skypilot_tpu_torch.models import gemma as gemma_torch
 from skypilot_tpu_torch.models import llama as llama_torch
 from skypilot_tpu_torch.models import mixtral as mixtral_torch
 from skypilot_tpu_torch.observability import metrics as metrics_torch
@@ -73,6 +77,10 @@ def _run(engine, reqs):
 
 @pytest.fixture(scope="module")
 def jax_streams(model):
+    return _jax_streams(model)
+
+
+def _jax_streams(model):
     """The JAX engine's streams: {"f32": ..., "int8": ...}, each the
     requests' streams followed by PREFIXED's."""
     cfg_j, _, params_j, _ = model
@@ -310,3 +318,39 @@ def test_capture_profile_writes_a_torch_trace(tmp_path, monkeypatch):
     assert stepstats.begin_profile()      # the slot was released
     stepstats.capture_profile(0.05, out_dir=str(tmp_path / "p2"),
                               claimed=True)
+
+
+# Gemma's tiny config, and Gemma-2B's attention (MQA, head_dim 256) at a
+# small width; 2 layers, f32.
+GEMMA_FIELDS = {"tiny": dict(n_layers=2),
+                "d256": dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=1,
+                             head_dim_=256, mlp_dim=512)}
+
+
+@pytest.fixture(scope="module", params=list(GEMMA_FIELDS))
+def gemma_streams(request):
+    """(model, the JAX engine's streams) for one Gemma config."""
+    fields = GEMMA_FIELDS[request.param]
+    cfg_j = dataclasses.replace(gemma_jax.GemmaConfig.tiny(VOCAB),
+                                dtype=jnp.float32, **fields)
+    cfg_t = dataclasses.replace(gemma_torch.GemmaConfig.tiny(VOCAB),
+                                dtype=torch.float32, **fields)
+    params_j = gemma_jax.init(cfg_j, jax.random.key(0))
+    params_t = convert.gemma_params_from_jax(
+        cfg_t, jax.tree.map(np.asarray, params_j), "cpu")
+    model = (cfg_j, cfg_t, params_j, params_t)
+    return model, _jax_streams(model)
+
+
+GEMMA_CHECKS = {
+    "dense": lambda m, s: test_engine_matches_jax(m, s, False, 0),
+    "paged-spec4": lambda m, s: test_engine_matches_jax(m, s, True, 4),
+    "int8": lambda m, s: test_engine_int8_weights_and_kv_match_jax(m, s, 0),
+    "prefix-hit": test_prefix_hit_matches_jax,
+    "host-tier": test_host_tier_readmit_matches_jax,
+}
+
+
+@pytest.mark.parametrize("check", list(GEMMA_CHECKS))
+def test_gemma_engine_matches_jax(gemma_streams, check):
+    GEMMA_CHECKS[check](*gemma_streams)

@@ -229,17 +229,64 @@ def test_f32_wrappers_refuse_cpu_and_16_bit_tensors(wrapper):
 # ------------------------------------------------------ the head_dim rule
 
 @pytest.mark.parametrize("d,width", [(8, 64), (16, 64), (32, 64), (64, 64),
-                                     (72, 128), (96, 128), (128, 128)])
+                                     (72, 128), (96, 128), (128, 128),
+                                     (136, 256), (200, 256), (256, 256)])
 def test_kernel_head_dim_pads_to_the_next_width(d, width):
     assert fa_torch.kernel_head_dim(d) == width
     assert fa_torch.kernel_shape_error((1, 256, 8, width),
                                        (1, 256, 2, width)) is None
 
 
-@pytest.mark.parametrize("d", [136, 256])
-def test_kernel_head_dim_refuses_past_128(d):
+@pytest.mark.parametrize("d", [264, 512])
+def test_kernel_head_dim_refuses_past_256(d):
     with pytest.raises(ValueError, match=f"head_dim {d}"):
         fa_torch.kernel_head_dim(d)
+
+
+@pytest.mark.parametrize("fam,dtype,match", [
+    (fa_torch.TRIANGULAR, torch.bfloat16, "no triangular flash kernel"),
+    (fa_torch.STREAMED, torch.float16, "no streamed flash kernel"),
+    (fa_torch.RESIDENT, torch.float32, "no fp32 flash kernel"),
+    (fa_torch.TRIANGULAR, torch.float32, "no fp32 flash kernel")])
+@pytest.mark.parametrize("d", [200, 256])
+def test_width_256_refuses_all_but_the_resident_16_bit_kernels(
+        monkeypatch, fam, dtype, match, d):
+    # On the card, head_dim 136-256 pads to 256, where only the resident
+    # bf16/f16 kernels exist: the other families and f32 raise a ValueError
+    # naming the width before any launch, never take a plain version.
+    # Spied on CPU tensors that claim to be on the card.
+    calls = []
+    for name in fa_torch.LAUNCHES:
+        monkeypatch.setattr(fa_torch, name, lambda *a, _n=name: calls.append(
+            _n))
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    q = torch.zeros(1, 64, 2, d, dtype=dtype).as_subclass(OnCard)
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match=f"{match} for head_dim width 256"):
+        fa_torch.flash_forward(q, q, q, True, d ** -0.5, fam)
+    with pytest.raises(ValueError, match=f"{match} for head_dim width 256"):
+        fa_torch.flash_backward(q, q, q, q, lse, q, True, d ** -0.5, fam)
+    assert calls == []
+    assert fa_torch.wide_head_dim_error(256, fa_torch.RESIDENT,
+                                        torch.bfloat16) is None
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    ("flash_fwd_tri", lambda q, lse: (q, q, q)),
+    ("flash_dq_streamed", lambda q, lse: (q, q, q, q, lse, q, False)),
+    ("flash_dkv_f32", lambda q, lse: (q.float(), q.float(), q.float(),
+                                      q.float(), lse, lse, True))])
+def test_narrow_wrappers_refuse_width_256(wrapper, args):
+    # Called directly, the triangular, streamed and fp32 wrappers refuse
+    # width 256 before they look for a card.
+    q = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match=r"head_dim \(64, 128\)"):
+        getattr(fa_torch, wrapper)(*args(q, lse), 0.0625)
+    assert fa_torch.LAUNCHES[wrapper] == 0
 
 
 def _padded_plain(q, k, v, causal):

@@ -4,12 +4,14 @@ the CPU beside the JAX package's replica on converted weights: SSE
 non-streamed JSON), the trailing stats frame with the same keys, a
 ``resume`` giving the uninterrupted continuation, /health, /drain,
 /metrics and the 400s on bad bodies; the port's replica behind the JAX
-package's load balancer; and the replica kinds not ported refusing to
-start."""
+package's load balancer; the same bytes from a Gemma replica pair (its
+tiny config); the --model choices built through their family's init; and
+the replica kinds not ported refusing to start."""
 import dataclasses
 import http.client
 import json
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -17,14 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu.models import gemma as gemma_jax
 from skypilot_tpu.models import llama as llama_jax
 from skypilot_tpu.observability import reqlog as reqlog_jax
 from skypilot_tpu.recipes import serve_llm as serve_jax
 from skypilot_tpu.serve import load_balancer as lb_lib
 from skypilot_tpu.serve.load_balancing_policies import RoundRobinPolicy
 from skypilot_tpu_torch import convert
+from skypilot_tpu_torch.models import gemma as gemma_torch
 from skypilot_tpu_torch.models import llama as llama_torch
 from skypilot_tpu_torch.models import mixtral as mixtral_torch
+from skypilot_tpu_torch.models import family_name
 from skypilot_tpu_torch.observability import reqlog as reqlog_torch
 from skypilot_tpu_torch.recipes import serve_llm as serve_torch
 
@@ -46,18 +51,34 @@ def _stop(httpd):
     httpd.engine.shutdown()
 
 
+def _replica_pair(jax_mod, torch_mod, from_jax):
+    """(JAX replica, port replica) on the same tiny f32 weights of one
+    family, 2 layers."""
+    cfg_j = dataclasses.replace(jax_mod.tiny(VOCAB), n_layers=2,
+                                dtype=jnp.float32)
+    cfg_t = dataclasses.replace(torch_mod.tiny(VOCAB), n_layers=2,
+                                dtype=torch.float32)
+    params_j = {llama_jax.LlamaConfig: llama_jax,
+                gemma_jax.GemmaConfig: gemma_jax}[jax_mod].init(
+                    cfg_j, jax.random.key(0))
+    params_t = from_jax(cfg_t, jax.tree.map(np.asarray, params_j), "cpu")
+    return (_start(serve_jax, cfg_j, params_j),
+            _start(serve_torch, cfg_t, params_t, device="cpu"))
+
+
 @pytest.fixture(scope="module")
 def replicas():
-    """(JAX replica, port replica) on the same tiny f32 weights."""
-    cfg_j = dataclasses.replace(llama_jax.LlamaConfig.tiny(VOCAB),
-                                n_layers=2, dtype=jnp.float32)
-    cfg_t = dataclasses.replace(llama_torch.LlamaConfig.tiny(VOCAB),
-                                n_layers=2, dtype=torch.float32)
-    params_j = llama_jax.init(cfg_j, jax.random.key(0))
-    params_t = convert.llama_params_from_jax(
-        cfg_t, jax.tree.map(np.asarray, params_j), "cpu")
-    pair = (_start(serve_jax, cfg_j, params_j),
-            _start(serve_torch, cfg_t, params_t, device="cpu"))
+    pair = _replica_pair(llama_jax.LlamaConfig, llama_torch.LlamaConfig,
+                         convert.llama_params_from_jax)
+    yield pair
+    for httpd in pair:
+        _stop(httpd)
+
+
+@pytest.fixture(scope="module")
+def gemma_replicas():
+    pair = _replica_pair(gemma_jax.GemmaConfig, gemma_torch.GemmaConfig,
+                         convert.gemma_params_from_jax)
     yield pair
     for httpd in pair:
         _stop(httpd)
@@ -96,6 +117,27 @@ def test_generate_bytes_equal_jax(replicas, body):
     if body["stream"]:
         assert _frames(got[1])[-1] == "data: [DONE]"
         assert len(_frames(got[1])) == body["max_tokens"] + 1
+
+
+@pytest.mark.parametrize("body", [GREEDY, SEEDED,
+                                  dict(SEEDED, stream=False)],
+                         ids=["greedy-sse", "seeded-sse", "seeded-json"])
+def test_gemma_generate_bytes_equal_jax(gemma_replicas, body):
+    # --model gemma-tiny's replica: the same bytes as JAX's on the same
+    # weights (its serving embed scaled by sqrt(dim) as JAX's is).
+    test_generate_bytes_equal_jax(gemma_replicas, body)
+
+
+@pytest.mark.parametrize("model,family", [("gemma-tiny", "gemma"),
+                                          ("llama-tiny", "llama")])
+def test_build_model_inits_through_the_family(model, family):
+    args = types.SimpleNamespace(model=model, dtype="float32", seed=0)
+    cfg, params = serve_torch._build_model(args, torch.device("cpu"))
+    assert family_name(cfg) == family and cfg.dtype == torch.float32
+    norm = float(params.final_norm.detach().abs().sum())
+    # gemma's (1 + w) norms start at zero, llama's at one.
+    assert norm == (0.0 if family == "gemma" else cfg.dim)
+    assert (params.lm_head is None) == cfg.tie_embeddings
 
 
 def test_stats_frame_keys_equal_jax(replicas, monkeypatch):
@@ -261,8 +303,7 @@ def test_legacy_locked_path_streams_jax_tokens():
     (["--replica-hosts", "2"], "gang"),
     (["--tp", "2"], "gang"),
     (["--model", "mixtral-tiny"], "mixtral serving is not ported"),
-    (["--model", "gemma-tiny"], "gemma serving is not ported"),
-], ids=["lb-port", "replica-hosts", "tp", "mixtral", "gemma"])
+], ids=["lb-port", "replica-hosts", "tp", "mixtral"])
 def test_main_refuses_what_is_not_ported(argv, match):
     with pytest.raises(ValueError, match=match):
         serve_torch.main(argv + ["--device", "cpu", "--port", "0"])

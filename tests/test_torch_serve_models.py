@@ -2,6 +2,10 @@
 against the JAX package's, on the CPU in f32, from the same converted
 weights, tokens and caches: forward_with_cache, forward_with_paged_cache,
 verify_step(_paged), decode, quantize_params and the int8 pool writes.
+Gemma's serving is those functions driven by its config's knobs (the
+(1 + w) norms, GeGLU, the sqrt(dim) embed multiplier, MQA at head_dim
+256): every check that takes a model runs again on two Gemma configs
+(``test_gemma_serving_matches_jax``).
 
 Logits and float caches are held to 2e-3 norm-relative (the JAX flash
 tests' tolerance: f32, summation order only). int8 codes and scales are
@@ -18,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu.models import gemma as gemma_jax
 from skypilot_tpu.models import llama as llama_jax
 from skypilot_tpu_torch import convert
+from skypilot_tpu_torch.models import gemma as gemma_torch
 from skypilot_tpu_torch.models import llama as llama_torch
 
 TOL = 2e-3
@@ -371,3 +377,45 @@ def test_decode_rejects_bad_arguments(model):
     with pytest.raises(ValueError, match="PRNG key"):
         llama_torch.decode(cfg_t, params_t, prompt, 8, 4, 16,
                            temperature=0.5)
+
+
+# Gemma's tiny config, and Gemma-2B's attention (MQA, head_dim 256) at a
+# small width; 2 layers, f32.
+GEMMA_FIELDS = {"tiny": dict(n_layers=2),
+                "d256": dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=1,
+                             head_dim_=256, mlp_dim=512)}
+
+
+@pytest.fixture(scope="module", params=list(GEMMA_FIELDS))
+def gemma_model(request):
+    fields = GEMMA_FIELDS[request.param]
+    cfg_j = dataclasses.replace(gemma_jax.GemmaConfig.tiny(VOCAB),
+                                dtype=jnp.float32, **fields)
+    cfg_t = dataclasses.replace(gemma_torch.GemmaConfig.tiny(VOCAB),
+                                dtype=torch.float32, **fields)
+    params_j = gemma_jax.init(cfg_j, jax.random.key(0))
+    params_t = convert.gemma_params_from_jax(
+        cfg_t, jax.tree.map(np.asarray, params_j), "cpu")
+    return cfg_j, cfg_t, params_j, params_t
+
+
+GEMMA_CHECKS = {
+    "cache": lambda m: test_forward_with_cache_matches_jax(m, 48, 16),
+    "cache-clamped": lambda m: test_forward_with_cache_matches_jax(m, 48,
+                                                                   20),
+    "logits-at": test_forward_with_cache_logits_at_matches_jax,
+    "verify-junk": test_verify_step_junk_columns_match_jax,
+    "paged-float": lambda m: test_paged_forward_and_verify_match_jax(m,
+                                                                     False),
+    "paged-int8": lambda m: test_paged_forward_and_verify_match_jax(m,
+                                                                    True),
+    "paged-equals-dense": test_paged_equals_dense_bitwise,
+    "quantize-codes": test_quantize_params_codes_equal_jax,
+    "int8-forward": test_int8_forward_matches_jax,
+    "decode": test_decode_greedy_and_seeded_match_jax,
+}
+
+
+@pytest.mark.parametrize("check", list(GEMMA_CHECKS))
+def test_gemma_serving_matches_jax(gemma_model, check):
+    GEMMA_CHECKS[check](gemma_model)

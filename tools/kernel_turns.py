@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""The flash kernels of two checkouts, timed in turns on one card.
+
+    git archive HEAD | tar -x -C build/parent     # the parent, gitignored
+    python3 tools/kernel_turns.py P=build/parent C=. C=. P=build/parent
+
+Each LABEL=DIR argument runs, in a process of its own from that checkout
+(its own sources, its own build), every Hopper kernel at chip_smoke.py's
+main shapes: the resident, triangular and streamed families at head_dim
+128, and the resident three at head_dim 256 where the checkout has them.
+Each kernel is timed over 20 launches by CUDA events after a warm-up,
+beside the median SM clock nvidia-smi sampled during it, and the run
+prints one line, `TIMES {"flash_fwd": [ms, MHz], ...}`. Parent, change,
+change, parent compares two trees on one card. Then, once per checkout,
+the SASS instruction count of each kernel instance (cuobjdump -sass of the
+libraries it built): a change to a shared body shows there before it
+shows in a time.
+
+Imports nothing of JAX; needs a CUDA card, the CUDA toolkit and the
+checkouts' chip_smoke.py.
+"""
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+CHILD = r'''
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.ops import flash_attention as fa
+_build.build_all()
+shapes = [(fa.RESIDENT, cs.MAIN_SHAPE, ""),
+          (fa.TRIANGULAR, cs.TRI_MAIN_SHAPE, ""),
+          (fa.STREAMED, cs.STR_MAIN_SHAPE, "")]
+if 256 in getattr(fa, "HEAD_DIMS", ()):
+    shapes.append((fa.RESIDENT, cs.WIDE_MAIN_SHAPE, "@256"))
+out = {}
+cs.CLOCKS.start()
+try:
+    for fam, shape, tag in shapes:
+        b, s, h, kvh, d, causal = shape
+        fns = cs.Family(fa, fam, causal, d ** -0.5)
+        q, k, v, do = cs._inputs(shape, 0)
+        o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+        for name, fn in zip(fns.names, (
+                lambda: fns.fwd(q, k, v),
+                lambda: fns.dq(q, k, v, o, lse, do),
+                lambda: fns.dkv(q, k, v, do, lse, delta))):
+            ms = cs.time_ms(fn, 20)
+            clk = cs.CLOCKS.last()
+            out[name + tag] = [round(ms, 4), clk and clk["sm_mhz"]]
+        del q, k, v, do, o, lse, dq, delta, dk, dv
+finally:
+    cs.CLOCKS.stop()
+print("TIMES", json.dumps(out), flush=True)
+'''
+KERNEL = re.compile(r"\d(flash_[a-z_]+_kernel)ILi(\d+)ENS_\d(Bf16|F16)E")
+
+
+def instructions(checkout: pathlib.Path) -> dict:
+    """{"kernel<D, T>": SASS instruction count} of the checkout's newest
+    build."""
+    libs = sorted((checkout / "build" / "stpu_torch_kernels").glob(
+        "*/libflash_fwd.so"), key=lambda p: p.stat().st_mtime)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for lib in sorted(libs[-1].parent.glob("lib*.so")):
+        text = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for part in text.split("Function : ")[1:]:
+            m = KERNEL.search(part.split(None, 1)[0])
+            if m:
+                counts[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = len(
+                    re.findall(r"^\s+/\*[0-9a-f]{4,}\*/ ", part, re.M))
+    return counts
+
+
+def main() -> int:
+    runs = [arg.split("=", 1) for arg in sys.argv[1:]]
+    if not runs:
+        print(__doc__, file=sys.stderr)
+        return 2
+    rc = 0
+    for label, where in runs:
+        proc = subprocess.run([sys.executable, "-c", CHILD], cwd=where,
+                              capture_output=True, text=True, timeout=900)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("TIMES")]
+        print(f"{label} {where} rc {proc.returncode}: "
+              f"{line[0] if line else proc.stderr[-2000:]}", flush=True)
+        rc = max(rc, proc.returncode)
+    seen = {}
+    for label, where in runs:
+        if where not in seen:
+            seen[where] = instructions(pathlib.Path(where))
+    for name in sorted(set().union(*seen.values())):
+        print(f"[sass] {name}: " + ", ".join(
+            f"{where} {counts.get(name, '-')}"
+            for where, counts in seen.items()), flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

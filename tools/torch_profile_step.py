@@ -10,8 +10,12 @@
                                                          # [lora]
     python3 tools/torch_profile_step.py --model mixtral --layers 2 \
         --optimizer adafactor                            # [mixtral]
+    python3 tools/torch_profile_step.py --model gemma --layers 18 \
+        --batch 6 --lora                                 # [gemma_lora]
     python3 tools/torch_profile_step.py --decode         # [serve]'s step
     python3 tools/torch_profile_step.py --decode --weight-quant --kv-quant
+    python3 tools/torch_profile_step.py --decode --model gemma
+                                                         # [gemma_serve]
 
 Builds the step chip_smoke.py drives (Llama-3-8B width, 4 layers, bf16,
 adamw, flash kernels; by default batch 2 x seq 2048, full remat and the
@@ -104,8 +108,8 @@ def main() -> int:
     parser.add_argument("--optimizer", default="adamw",
                         choices=("adamw", "adafactor"))
     parser.add_argument("--model", default="llama",
-                        choices=("llama", "mixtral"),
-                        help="Llama-3-8B or Mixtral-8x7B widths")
+                        choices=("llama", "mixtral", "gemma"),
+                        help="Llama-3-8B, Mixtral-8x7B or Gemma-2B widths")
     parser.add_argument("--lora", action="store_true",
                         help="the LoRA recipe's step: the base frozen, "
                              "rank-8 adapters on wq/wk/wv/wo, AdamW on "
@@ -121,7 +125,7 @@ def main() -> int:
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from skypilot_tpu_torch.models import llama, mixtral
+    from skypilot_tpu_torch.models import gemma, llama, mixtral
     from skypilot_tpu_torch.recipes import llama_lora
     from skypilot_tpu_torch.train import trainer
 
@@ -130,12 +134,17 @@ def main() -> int:
                          text=True, timeout=60)
     print(f"[card] {smi.stdout.strip()}")
     if args.decode:
-        return decode_step(args, llama)
+        return decode_step(args, gemma if args.model == "gemma" else llama)
     args.layers = args.layers or N_LAYERS
     if args.model == "mixtral":
         model = mixtral
         cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
                                   n_layers=args.layers, max_seq_len=args.seq)
+    elif args.model == "gemma":
+        model = gemma
+        cfg = dataclasses.replace(gemma.GemmaConfig.gemma_2b(),
+                                  n_layers=args.layers, max_seq_len=args.seq,
+                                  remat_policy=args.remat_policy)
     else:
         model = llama
         cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
@@ -266,14 +275,17 @@ def report(prof, wall: float, n_prof: int, unit: str) -> int:
     return 0
 
 
-def decode_step(args, llama) -> int:
-    """The serving engine's decode step (module docstring)."""
+def decode_step(args, model) -> int:
+    """The serving engine's decode step (module docstring): Llama-3-8B,
+    or Gemma-2B with ``--model gemma``; ``model`` is that family's
+    module."""
     from skypilot_tpu_torch.serve import decode_engine
-    cfg = llama.LlamaConfig.llama3_8b()
+    cfg = (model.GemmaConfig.gemma_2b() if args.model == "gemma"
+           else model.LlamaConfig.llama3_8b())
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = llama.init(cfg, gen)
+    params = model.init(cfg, gen)
     n_warm, n_time, n_prof = 3, 10, 3
     eng = decode_engine.DecodeEngine(
         cfg, params, slots=args.slots, max_seq=1280, prefill_chunk=64,
@@ -286,7 +298,7 @@ def decode_step(args, llama) -> int:
     eng._admit()
     while eng._prefill_one():
         pass
-    print(f"[config] llama3_8b width, {cfg.n_layers} layers, "
+    print(f"[config] {type(cfg).__name__} width, {cfg.n_layers} layers, "
           f"{args.slots} live slots at context ~{args.context}, paged "
           f"64-token blocks, greedy, weights "
           f"{'int8' if args.weight_quant else 'bf16'}, KV "
