@@ -11,9 +11,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    spills per kernel, and each Hopper kernel's launch registers, shared
    memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
    (wgmma) and UTMALDG (TMA load) instructions, and fewer wgmma waits than
-   wgmmas, in every instance (head_dim 64 and 128, and 256 for the
-   resident three; bf16 and f16) of the
-   nine Hopper kernels (flash_fwd, flash_dq, flash_dkv, flash_fwd_tri,
+   wgmmas, in every instance (head_dim 64, 128 and 256; bf16 and f16) of
+   the nine Hopper kernels (flash_fwd, flash_dq, flash_dkv, flash_fwd_tri,
    flash_dq_tri, flash_dkv_tri, flash_fwd_streamed, flash_dq_streamed,
    flash_dkv_streamed);
 3. kernels: each kernel of the three families against its plain PyTorch
@@ -38,22 +37,28 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    fits, the streamed kernels against the resident kernels, both timed,
    and against the plain versions on the first and last 512 q rows (o,
    lse, dq) and KV rows (dk, dv) of every head, the plain lse and delta
-   for the latter built in q chunks; then the resident three at head_dim
-   256 ([kernels d256]: Gemma-2B's 8 x 2048 MQA shape, a ragged
-   non-causal S, Gemma-7B's MHA at S = 200) against the plain versions,
-   the pair bit-identical twice, f16 and times at the first;
+   for the latter built in q chunks; then the three families at head_dim
+   256 ([kernels d256]: the resident trio at Gemma-2B's 8 x 2048 MQA
+   shape, a ragged non-causal S and Gemma-7B's MHA at S = 200; the
+   triangular trio at Gemma-2B's 1 x 8192, Gemma-7B's MHA at 4096, and
+   S = 4136 and 4160; the streamed trio non-causal at 1 x 4096 and 4136)
+   against the plain versions, at each family's first shape the pair
+   bit-identical twice, f16 and times;
    then the public attention op through autograd, with exactly one
-   launch of each resident kernel: at a ragged S (200) against the plain
-   versions; at head_dim 16, 96 and 192 (zero-padded to the kernels' 64,
-   128 and 256) against the plain versions at that head_dim; at width
-   256 past the resident budget it must raise a ValueError naming the
-   triangular family before any launch; and with f32 inputs
-   (2 x 256, 4 heads, 2 KV heads, head_dim 64, causal and not; and
-   1 x 200 at head_dim 128), through
-   the fp32 kernels (one launch each), against the fp32 plain versions at
-   the JAX reference tests' elementwise bounds (and, printed, not held,
-   the same inputs as f16 through the f16 kernels), then the fp32
-   kernels' time at the slice's shape;
+   launch of each kernel of its family: at a ragged S (200) against the
+   plain versions; at head_dim 16, 96 and 192 (zero-padded to the
+   kernels' 64, 128 and 256; 192 at S 384 and, triangular, at 4096, where
+   the padded columns of the kernels' outputs must be exactly 0) against
+   the plain versions at that head_dim; at width 256 past the resident
+   budget ([wide op]) the triangular trio causal and the streamed trio
+   non-causal against the plain versions, and head_dim 264 a ValueError
+   naming it before any launch; and with f32 inputs (2 x 256, 4 heads, 2
+   KV heads, head_dim 64, causal and not; 1 x 200 at head_dim 128; 1 x
+   2048 and 1 x 4096 at head_dim 256, 8 heads over 1), through the fp32
+   kernels (one launch each), against the fp32 plain versions at the JAX
+   reference tests' elementwise bounds (and, printed, not held, the same
+   inputs as f16 through the f16 kernels), then the fp32 kernels' time at
+   the slice's shape and at width 256;
 4. streamed: the public attention op, non-causal, at Llama-3-8B
    attention width and seq 8192 (1 x 8192, 32 heads, 8 KV heads,
    head_dim 128), forward and autograd backward of a fixed dO; output
@@ -134,17 +139,23 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    trained adapters lower the first batch's loss, one forward's loss
    within LOSS_TOL of the reference attention's; ms a step, tokens/s,
    peak memory;
-13. gemma_serve: [serve]'s bf16 leg on a Gemma-2B replica (full width and
+13. gemma_long (right after gemma_lora): the same recipe at Gemma-2B's
+   own context, seq 8192, full width and depth, 4 steps with a save at
+   the last, at the largest of batch 8, 4, 2, 1 that fits (cut printed):
+   launches exactly 2L/L/L of the width-256 triangular kernels per step
+   and no other, the same loss gates; ms a step, tokens/s, peak memory;
+14. gemma_serve: [serve]'s bf16 leg on a Gemma-2B replica (full width and
    depth, the same nine requests and gates; teacher-forced within
    GEMMA_CACHE_REL_TOL of gemma.forward, whose check launches the
    width-256 forward), then f32 at 4 layers: paged == dense ==
-   gemma.decode, the cache paths within F32_CACHE_REL_TOL with three
+   gemma.decode, the cache paths within F32_CACHE_REL_TOL of
+   gemma.forward (through the fp32 kernels at width 256) with three
    planted faults past it (the third: the serving embed without its
    sqrt(dim) multiplier);
-14. a summary of the Hopper kernels (registers, shared memory, time
+15. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
-   the kernels line ({"kernels": [...]}, twelve records: the nine at
-   head_dim 128 and the resident three at 256), then the last line
+   the kernels line ({"kernels": [...]}, eighteen records: the nine at
+   head_dim 128 and the nine at 256), then the last line
    {"ok": true, "device": {...}}.
 
 Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
@@ -225,22 +236,38 @@ STR_PLAIN_CHUNK = 4096
 # The public op at a ragged S, through autograd (resident family).
 RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
 # The public op with f32 inputs: the JAX reference test's _make_qkv shape,
-# both causal modes, and a ragged S at head_dim 128.
+# both causal modes, a ragged S at head_dim 128, and Gemma-2B's attention
+# at width 256 within the resident budget and past it.
 F32_OP_SHAPES = ((2, 256, 4, 2, 64, True), (2, 256, 4, 2, 64, False),
-                 (1, 200, 8, 2, 128, True))
+                 (1, 200, 8, 2, 128, True), (1, 2048, 8, 1, 256, True),
+                 (1, 4096, 8, 1, 256, True))
 # The public op at head_dims the kernels take only zero-padded: the tiny
-# Llama's 16, a 96 and a 192 (to the resident family's width 256).
+# Llama's 16, a 96 and a 192 (to width 256; at S 4096 past the budget,
+# through the triangular kernels).
 PAD_OP_SHAPES = ((2, 256, 8, 4, 16, True), (1, 384, 8, 2, 96, True),
-                 (1, 384, 8, 1, 192, True))
-# Width 256, the resident family only (Gemma's head_dim): Gemma-2B's LoRA
-# shape (examples/gemma_lora.yaml: 8 x 2048, 8 heads, MQA), a ragged
-# non-causal S, and Gemma-7B's MHA (16/16) at a ragged causal S.
+                 (1, 384, 8, 1, 192, True), (1, 4096, 8, 1, 192, True))
+# Width 256 (Gemma's head_dim), each family at its own shapes, the first
+# its main one. Resident: Gemma-2B's LoRA shape (examples/gemma_lora.yaml:
+# 8 x 2048, 8 heads, MQA), a ragged non-causal S, and Gemma-7B's MHA
+# (16/16) at a ragged causal S. Triangular (causal past the budget, S >
+# 2048 at width 256): Gemma-2B at its max_seq_len, Gemma-7B's MHA, a
+# ragged S and a multiple of 64 that is not one of 128 (the second
+# consumer of the last tile has no rows). Streamed: the op's non-causal
+# use past the budget, and a ragged S.
 WIDE_MAIN_SHAPE = (8, 2048, 8, 1, 256, True)
 WIDE_CHECK_SHAPES = (WIDE_MAIN_SHAPE, (2, 1000, 8, 1, 256, False),
                      (1, 200, 16, 16, 256, True))
-# Past the resident budget at width 256 (3 * S * 256 * 4 > 6 MiB): no
-# triangular kernel there, so the op must refuse before any launch.
-WIDE_REFUSED_SHAPE = (1, 4096, 8, 1, 256, True)
+TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
+TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
+                         (1, 4136, 8, 1, 256, True),
+                         (1, 4160, 8, 1, 256, True))
+STR_WIDE_MAIN_SHAPE = (1, 4096, 8, 1, 256, False)
+STR_WIDE_CHECK_SHAPES = (STR_WIDE_MAIN_SHAPE, (1, 4136, 8, 1, 256, False))
+# The op past the resident budget at width 256 ([wide op]): causal takes
+# the triangular trio, non-causal the streamed one. Past width 256 no
+# kernel exists: the op must refuse before any launch.
+WIDE_OP_SHAPE = (1, 4096, 8, 1, 256, True)
+REFUSED_HEAD_DIM = 264
 # The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
 # the SASS.
 SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
@@ -259,12 +286,11 @@ SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
 # mangled name.
 ELEM_TAGS = {"bf16": "Bf16", "f16": "F16"}
 RESIDENT_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
-
-
-def head_dims(name):
-    """The head_dim instances of Hopper kernel `name`: 64 and 128, and
-    256 for the resident family."""
-    return (64, 128, 256) if name in RESIDENT_NAMES else (64, 128)
+TRI_NAMES = ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri")
+STREAMED_NAMES = ("flash_fwd_streamed", "flash_dq_streamed",
+                  "flash_dkv_streamed")
+# The head_dim instances of every Hopper kernel.
+HEAD_DIMS = (64, 128, 256)
 
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
@@ -294,6 +320,10 @@ MX_LAYERS, MX_BATCH, MX_SEQ, MX_STEPS = 2, 2, 2048, 6
 # batch 8, and a step holds several logit-sized tensors: the largest of
 # GL_BATCHES that fits the card is taken, and the cut printed.
 GL_BATCHES, GL_SEQ, GL_STEPS = (8, 7, 6, 5, 4), 2048, 4
+# The gemma_long phase: the same recipe at Gemma-2B's max_seq_len, where
+# every attention call takes the width-256 triangular kernels; its f32
+# logits are 8.4 GB a copy at batch 1.
+GLONG_BATCHES, GLONG_SEQ, GLONG_STEPS = (8, 4, 2, 1), 8192, 4
 # The serve phase: one Llama-3-8B replica (full width and depth, bf16,
 # random weights) through the port's serve_llm at its own max_seq
 # (MAX_PROMPT_TOKENS + MAX_GEN_TOKENS = 1280), 8 engine slots, paged,
@@ -490,7 +520,7 @@ def phase_build(build):
     attrs = {}
     for name, source, kernel in SM90_KERNELS:
         fn = getattr(build.library(source), f"stpu_{name}_attrs")
-        for d in head_dims(name):
+        for d in HEAD_DIMS:
             for elem, code in build.DTYPES.items():
                 tag = ELEM_TAGS[elem]
                 out = (ctypes.c_int * 5)()
@@ -507,11 +537,10 @@ def phase_build(build):
 
 
 def phase_sass(build):
-    """Every instance of the Hopper kernels (head_dim 64 and 128, and 256
-    for the resident family; bf16 and f16) must hold wgmma (HGMMA) and
-    TMA loads (UTMALDG) in its SASS, and
-    its wgmmas must run asynchronously: ptxas serialises them (with a
-    "Potential Performance Loss" note) by placing a wait
+    """Every instance of the Hopper kernels (head_dim 64, 128 and 256;
+    bf16 and f16) must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its
+    SASS, and its wgmmas must run asynchronously: ptxas serialises them
+    (with a "Potential Performance Loss" note) by placing a wait
     (WARPGROUP.DEPBAR) after each one, so a kernel with as many waits as
     wgmmas fails."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -539,20 +568,22 @@ def phase_sass(build):
             check(hgmma > 0 and utmaldg > 0,
                   f"{mangled} holds no wgmma or no TMA load")
             check(waits < hgmma, f"{mangled}: ptxas serialised its wgmmas")
-        want = {(str(d), tag) for d in head_dims(name)
+        want = {(str(d), tag) for d in HEAD_DIMS
                 for tag in ELEM_TAGS.values()}
         check(found == want, f"{kernel}: instances {sorted(found)} in "
               f"{lib}'s SASS, expected {sorted(want)}")
 
 
 def _ptxas_summary(log):
-    """'kernel<D>: N registers, spills S/L bytes' from nvcc -Xptxas -v."""
+    """'kernel<D[, T]>: N registers, spills S/L bytes' from nvcc -Xptxas
+    -v (the fp32 kernels have no element type)."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tri|_streamed)?_kernel)"
-                      r"ILi(\d+)ENS_\d(Bf16|F16)E", line)
+        m = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tri|_streamed|_f32)?_kernel)"
+                      r"ILi(\d+)E(?:NS_\d(Bf16|F16)E)?", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+            name = f"{m.group(1)}<{m.group(2)}" + (
+                f", {m.group(3)}>" if m.group(3) else ">")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -690,58 +721,98 @@ def phase_kernels(fa):
 
 
 def phase_kernels_wide(fa, records):
-    """[kernels] at width 256: the resident trio (fwd_consumer_wide,
-    the dq with a one-stage ring, the two-sweep dk/dv) against the plain
-    versions in bf16 at WIDE_CHECK_SHAPES, then at the main shape the
-    backward pair twice bit-identical, the times (bf16, f16, plain, SDPA,
-    bound) and f16 against the plain versions. Records keyed
-    "<name>@256"."""
-    for idx, shape in enumerate(WIDE_CHECK_SHAPES):
-        b, s, h, kvh, d, causal = shape
-        check(fa.family(s, d, causal) == fa.RESIDENT
-              and fa.kernel_head_dim(d) == 256,
-              f"{shape} is not a width-256 resident shape")
-        fns = Family(fa, fa.RESIDENT, causal, d ** -0.5)
-        q, k, v, do = _inputs(shape, 40 + idx)
-        o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+    """[kernels] at width 256: each family's trio (the forward's
+    fwd_consumer_wide, the dq with a one-stage ring and Q and dO in shared
+    memory, the two-sweep dk/dv; natural exp for the resident and streamed
+    families, base 2 for the triangular one) against its plain versions in
+    bf16 at its shapes, then at its main shape the backward pair twice
+    bit-identical, the times (bf16, f16, plain, SDPA, bound) and f16
+    against the plain versions. Records keyed "<name>@256"."""
+    seed = 40
+    for fam, shapes, main in ((fa.RESIDENT, WIDE_CHECK_SHAPES,
+                               WIDE_MAIN_SHAPE),
+                              (fa.TRIANGULAR, TRI_WIDE_CHECK_SHAPES,
+                               TRI_WIDE_MAIN_SHAPE),
+                              (fa.STREAMED, STR_WIDE_CHECK_SHAPES,
+                               STR_WIDE_MAIN_SHAPE)):
+        for shape in shapes:
+            b, s, h, kvh, d, causal = shape
+            check(fa.family(s, d, causal) == fam
+                  and fa.kernel_head_dim(d) == 256,
+                  f"{shape} is not a width-256 {fam} shape")
+            fns = Family(fa, fam, causal, d ** -0.5)
+            q, k, v, do = _inputs(shape, seed)
+            o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+            torch.cuda.synchronize()
+            o_p, lse_p = fns.fwd_plain(q, k, v)
+            dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+            errs = _hold(f"[kernels d256] {fam}", shape, (
+                ("o", (o, o_p), OUT_REL_TOL),
+                ("lse", (lse, lse_p), OUT_REL_TOL),
+                ("dq", (dq, dq_p), GRAD_REL_TOL),
+                ("dk", (dk, dk_p), GRAD_REL_TOL),
+                ("dv", (dv, dv_p), GRAD_REL_TOL)))
+            del o_p, lse_p, dq_p, dk_p, dv_p
+            if shape == main:
+                _check_deterministic(fns, (q, k, v, do), (o, lse),
+                                     (dq, dk, dv))
+                wide = _measure(fns, shape, (q, k, v, do), (o, lse, delta),
+                                errs)
+                _check_f16(fns, shape, seed, wide)
+                records.update((f"{name}@256", rec)
+                               for name, rec in wide.items())
+            del q, k, v, do, o, lse, dq, delta, dk, dv
+            torch.cuda.empty_cache()
+            seed += 1
+
+
+def phase_wide_op(fa, attention_ops, records):
+    """[wide op]: the public op past the resident budget at width 256,
+    through autograd: causal, exactly one launch of each triangular
+    kernel, non-causal one of each streamed kernel (their launches in the
+    kernels line: per call of the op), each against its family's plain
+    versions. Past width 256 no kernel exists: head_dim REFUSED_HEAD_DIM
+    must raise a ValueError naming it, before any launch."""
+    b, s, h, kvh, d, _ = WIDE_OP_SHAPE
+    for causal in (True, False):
+        shape = (b, s, h, kvh, d, causal)
+        fam = fa.TRIANGULAR if causal else fa.STREAMED
+        check(fa.family(s, d, causal) == fam,
+              f"{shape} does not take the {fam} family")
+        fns = Family(fa, fam, causal, d ** -0.5)
+        q, k, v, do = _inputs(shape, 49)
+        fa.reset_launches()
+        out, grads = _op_grads(attention_ops, q, k, v, causal, do)
         torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        _expect_launches(fa, f"[wide op] attention(causal={causal})", shape,
+                         fns.names)
         o_p, lse_p = fns.fwd_plain(q, k, v)
-        dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
-        errs = _hold("[kernels d256]", shape, (
-            ("o", (o, o_p), OUT_REL_TOL), ("lse", (lse, lse_p), OUT_REL_TOL),
-            ("dq", (dq, dq_p), GRAD_REL_TOL), ("dk", (dk, dk_p), GRAD_REL_TOL),
-            ("dv", (dv, dv_p), GRAD_REL_TOL)))
-        del o_p, lse_p, dq_p, dk_p, dv_p
-        if shape == WIDE_MAIN_SHAPE:
-            _check_deterministic(fns, (q, k, v, do), (o, lse), (dq, dk, dv))
-            wide = _measure(fns, shape, (q, k, v, do), (o, lse, delta), errs)
-            _check_f16(fns, shape, 40 + idx, wide)
-            records.update((f"{name}@256", rec) for name, rec in wide.items())
-        del q, k, v, do, o, lse, dq, delta, dk, dv
+        dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o_p, lse_p, do)
+        _hold("[wide op]", shape, (("o", (out, o_p), OUT_REL_TOL),
+                                   ("dq", (grads[0], dq_p), GRAD_REL_TOL),
+                                   ("dk", (grads[1], dk_p), GRAD_REL_TOL),
+                                   ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
+        if fam == fa.STREAMED:
+            for name in fns.names:
+                records[f"{name}@256"]["launches"] = launches[name]
+        del q, k, v, do, out, grads, o_p, lse_p, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
-
-
-def phase_wide_refusal(fa, attention_ops):
-    """Past the resident budget at width 256 the op would need the
-    triangular family, which has no width-256 kernel: it must raise a
-    ValueError naming both, before any launch."""
-    shape = WIDE_REFUSED_SHAPE
-    b, s, h, kvh, d, causal = shape
-    check(fa.family(s, d, causal) == fa.TRIANGULAR,
-          f"{shape} does not take the triangular family")
-    q, k, v, do = _inputs(shape, 45)
+    shape = (b, s, h, kvh, REFUSED_HEAD_DIM, True)
+    q, k, v, do = _inputs(shape, 50)
     fa.reset_launches()
     try:
-        _op_grads(attention_ops, q, k, v, causal, do)
+        _op_grads(attention_ops, q, k, v, True, do)
         msg = None
     except ValueError as exc:
         msg = str(exc)
     torch.cuda.synchronize()
-    print(f"[wide refusal] attention(causal={causal}) at {shape}: "
-          f"ValueError {msg!r}", flush=True)
-    check(msg is not None and "triangular" in msg and "256" in msg,
-          f"the op at {shape} did not refuse width 256 by name")
-    _expect_launches(fa, "[wide refusal]", shape, ())
+    print(f"[wide op] attention(causal=True) at {shape}: ValueError "
+          f"{msg!r}", flush=True)
+    check(msg is not None and str(REFUSED_HEAD_DIM) in msg,
+          f"the op at {shape} did not refuse head_dim {REFUSED_HEAD_DIM} "
+          "by name")
+    _expect_launches(fa, "[wide op]", shape, ())
 
 
 def _time_streamed_forward(fa, fns, shape, qkv, records):
@@ -927,36 +998,50 @@ def phase_f32_op(fa, attention_ops):
               f"rtol |ref| o {excess[0]:.3e}, dq {excess[1]:.3e}, dk "
               f"{excess[2]:.3e}, dv {excess[3]:.3e} (bounds {F32_OUT_TOL}, "
               f"{F32_GRAD_TOL})", flush=True)
-    # The fp32 kernels' time at the slice's attention shape (not a path
-    # the port's bf16 models take: f32 is the exact path, not the fast one).
-    q, k, v, do = _inputs(MAIN_SHAPE, 22, torch.float32)
-    causal, scale = MAIN_SHAPE[-1], MAIN_SHAPE[4] ** -0.5
-    o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
-    _, delta = fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
-    times = (time_ms(lambda: fa.flash_fwd_f32(q, k, v, causal, scale), 3,
-                     warmup=1),
-             time_ms(lambda: fa.flash_dq_f32(q, k, v, o, lse, do, causal,
-                                             scale), 3, warmup=1),
-             time_ms(lambda: fa.flash_dkv_f32(q, k, v, do, lse, delta,
-                                              causal, scale), 3, warmup=1))
-    print(f"[f32 op] fp32 kernels at {MAIN_SHAPE}: forward {times[0]:.3f} "
-          f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms", flush=True)
+    # The fp32 kernels' time at the slice's attention shape and at width
+    # 256 past the budget (not a path the port's bf16 models take: f32 is
+    # the exact path, not the fast one), beside the fp32 plain versions'.
+    for shape in (MAIN_SHAPE, F32_OP_SHAPES[-1]):
+        q, k, v, do = _inputs(shape, 22, torch.float32)
+        causal, scale = shape[-1], shape[4] ** -0.5
+        o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
+        _, delta = fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
+        times = (time_ms(lambda: fa.flash_fwd_f32(q, k, v, causal, scale),
+                         3, warmup=1),
+                 time_ms(lambda: fa.flash_dq_f32(q, k, v, o, lse, do, causal,
+                                                 scale), 3, warmup=1),
+                 time_ms(lambda: fa.flash_dkv_f32(q, k, v, do, lse, delta,
+                                                  causal, scale), 3,
+                         warmup=1))
+        plain = (time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
+                         3, warmup=1),
+                 time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
+                                                    causal, scale), 3,
+                         warmup=1))
+        print(f"[f32 op] fp32 kernels at {shape}: forward {times[0]:.3f} "
+              f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms; plain "
+              f"forward {plain[0]:.3f} ms, backward {plain[1]:.3f} ms",
+              flush=True)
+        del q, k, v, do, o, lse, delta
 
 
 def phase_pad_op(fa, attention_ops):
     """The public op at head_dims the kernels take zero-padded (16 -> 64,
-    96 -> 128), bf16, through autograd: one launch of each resident kernel,
-    outputs and gradients of the caller's head_dim, against the plain
-    versions at that head_dim."""
+    96 -> 128, 192 -> 256), bf16, through autograd: one launch of each
+    kernel of the family the caller's shape takes (resident, or at 192 x
+    4096 triangular), outputs and gradients of the caller's head_dim,
+    against the plain versions at that head_dim; then the family's kernels
+    on the padded inputs, whose padded columns must come out exactly 0."""
     for idx, shape in enumerate(PAD_OP_SHAPES):
         b, s, h, kvh, d, causal = shape
         scale = d ** -0.5
         check(d not in fa.HEAD_DIMS, f"{shape} needs no padding")
+        fns = Family(fa, fa.family(s, d, causal), causal, scale)
         q, k, v, do = _inputs(shape, 30 + idx)
         fa.reset_launches()
         out, grads = _op_grads(attention_ops, q, k, v, causal, do)
         torch.cuda.synchronize()
-        _expect_launches(fa, "[pad op]", shape, RESIDENT_NAMES)
+        _expect_launches(fa, "[pad op]", shape, fns.names)
         check(out.shape == q.shape and grads[1].shape == k.shape,
               "padded head_dim leaked out of the op")
         o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
@@ -966,6 +1051,16 @@ def phase_pad_op(fa, attention_ops):
                                   ("dq", (grads[0], dq_p), GRAD_REL_TOL),
                                   ("dk", (grads[1], dk_p), GRAD_REL_TOL),
                                   ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
+        width = fa.kernel_head_dim(d)
+        o, _, dq, _, dk, dv = fns.run(
+            *(fa.pad_head_dim(t, width) for t in (q, k, v, do)))
+        torch.cuda.synchronize()
+        zero = {n: bool((t[..., d:] == 0).all()) for n, t in
+                (("o", o), ("dq", dq), ("dk", dk), ("dv", dv))}
+        print(f"[pad op] {shape} {fns.names} at width {width}: columns "
+              f"{d}-{width - 1} exactly 0 {zero}", flush=True)
+        check(all(zero.values()), f"padded columns not 0 at {shape}")
+        del q, k, v, do, out, grads, o_p, lse_p, dq_p, dk_p, dv_p
 
 
 def phase_streamed_vs_resident(fa, records):
@@ -1153,8 +1248,7 @@ def phase_streamed(fa, attention_ops, records):
     print(f"[streamed] attention(causal=False) at {shape}: launches "
           f"{launches}", flush=True)
     expect = dict.fromkeys(launches, 0)
-    expect.update({n: 1 for n in ("flash_fwd_streamed", "flash_dq_streamed",
-                                  "flash_dkv_streamed")})
+    expect.update(dict.fromkeys(STREAMED_NAMES, 1))
     check(launches == expect, f"launch counts {launches} != {expect} "
           "(one streamed forward, dq and dk/dv, nothing else)")
     for name, t, ref in (("o", out, q), ("dq", grads[0], q),
@@ -1169,8 +1263,7 @@ def phase_streamed(fa, attention_ops, records):
                               ("dq", (grads[0], dq_p), GRAD_REL_TOL),
                               ("dk", (grads[1], dk_p), GRAD_REL_TOL),
                               ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
-    for name in ("flash_fwd_streamed", "flash_dq_streamed",
-                 "flash_dkv_streamed"):
+    for name in STREAMED_NAMES:
         records[name]["launches"] = launches[name]
 
 
@@ -1291,8 +1384,7 @@ def phase_long_context(fa, llama, trainer, records):
           "non-finite loss")
     check(losses[-1] < losses[0], "loss did not fall")
     expect = dict.fromkeys(launches, 0)
-    expect.update({n: LC_LAYERS * TRAIN_STEPS for n in
-                   ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri")})
+    expect.update(dict.fromkeys(TRI_NAMES, LC_LAYERS * TRAIN_STEPS))
     check(launches == expect, f"launch counts {launches} != {expect} "
           "(L triangular forward, dq and dk/dv per step, no other)")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
@@ -1302,7 +1394,7 @@ def phase_long_context(fa, llama, trainer, records):
           f"{TRAIN_STEPS}; first {step_s[0] * 1e3:.1f} ms), {tok_s:.0f} "
           f"tokens/s, {tflops:.1f} model TFLOP/s (6N + attention), peak "
           f"memory {peak_gb:.2f} GB", flush=True)
-    for name in ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri"):
+    for name in TRI_NAMES:
         records[name]["launches"] = launches[name]
         records[name]["step_ms"] = steady * 1e3
 
@@ -1366,13 +1458,13 @@ def phase_tiny(fa, llama, trainer):
         check(launches == expect, f"launch counts {launches} != {expect}")
 
 
-def _resident_expect(launches, n_layers, steps):
-    """2L resident forwards (full remat), L dq and L dk/dv per step, no
-    other kernel."""
+def _step_expect(launches, n_layers, steps, names=RESIDENT_NAMES):
+    """2L forwards (full remat), L dq and L dk/dv per step of the family
+    whose kernels are `names` (the resident one by default), no other
+    kernel."""
     expect = dict.fromkeys(launches, 0)
-    expect.update({"flash_fwd": 2 * n_layers * steps,
-                   "flash_dq": n_layers * steps,
-                   "flash_dkv": n_layers * steps})
+    expect.update(zip(names, (2 * n_layers * steps, n_layers * steps,
+                              n_layers * steps)))
     return expect
 
 
@@ -1467,7 +1559,7 @@ def phase_adafactor(fa, llama, trainer):
     print(f"[adafactor] launches {launches}", flush=True)
     check(_finite(losses), "non-finite loss")
     check(losses[-1] < losses[0], "loss did not fall")
-    expect = _resident_expect(launches, cfg.n_layers, TRAIN_STEPS)
+    expect = _step_expect(launches, cfg.n_layers, TRAIN_STEPS)
     check(launches == expect, f"launch counts {launches} != {expect}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     tok_s = AF_BATCH * AF_SEQ / steady
@@ -1564,7 +1656,7 @@ def phase_lora(fa, llama, trainer):
         print(f"[lora] B' at step {LORA_STEPS} equals A byte for byte: "
               f"{len(state_keys)} adapter and optimizer leaves, payload "
               f"sha256 {got_a.manifest_sha256[:16]}", flush=True)
-        expect = _resident_expect(launches, cfg.n_layers,
+        expect = _step_expect(launches, cfg.n_layers,
                                   LORA_STEPS + 2 * LORA_SPLIT)
         check(launches == expect, f"launch counts {launches} != {expect}")
         per_step = run_b2["wall_seconds"] / LORA_SPLIT
@@ -1644,7 +1736,7 @@ def phase_mixtral(fa, llama, trainer):
     check(_finite(losses + aux), "non-finite loss")
     check(losses[-1] < losses[0], "loss did not fall")
     check(all(x > 0 for x in aux), "aux loss not positive")
-    expect = _resident_expect(launches, cfg.n_layers, MX_STEPS)
+    expect = _step_expect(launches, cfg.n_layers, MX_STEPS)
     check(launches == expect, f"launch counts {launches} != {expect}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     tok_s = MX_BATCH * MX_SEQ / steady
@@ -2169,34 +2261,35 @@ def phase_serve(fa, llama, card, dev="cuda"):
     reqlog.disarm()
 
 
-def phase_gemma_lora(fa, trainer, records, dev="cuda"):
-    """[gemma_lora]: the Gemma LoRA recipe (recipes.gemma_lora.main) at
-    Gemma-2B full width and depth, seq GL_SEQ, GL_STEPS steps, at the
-    largest batch of GL_BATCHES that fits: launches exactly 2L/L/L of the
-    width-256 resident kernels per step and no other, the trained
-    adapters lower the loss on the first batch, and one forward's loss
-    within LOSS_TOL of the reference attention's."""
+def _gemma_recipe(fa, trainer, records, label, fam, names, seq, batches,
+                  steps, dev):
+    """The Gemma LoRA recipe (recipes.gemma_lora.main) at Gemma-2B full
+    width and depth, seq `seq`, `steps` steps with a save at the last, at
+    the largest batch of `batches` that fits: launches exactly 2L/L/L of
+    the width-256 kernels `names` of family `fam` per step and no other,
+    the trained adapters lower the loss on the first batch, and one
+    forward's loss within LOSS_TOL of the reference attention's."""
     from skypilot_tpu_torch.models import gemma
     from skypilot_tpu_torch.recipes import gemma_lora, llama_lora
     from skypilot_tpu_torch.train import checkpoint
     cfg = gemma.GemmaConfig.gemma_2b()
-    check(fa.family(GL_SEQ, cfg.head_dim, True) == fa.RESIDENT
+    check(seq <= cfg.max_seq_len and fa.family(seq, cfg.head_dim, True) == fam
           and fa.kernel_head_dim(cfg.head_dim) == 256,
-          "Gemma-2B's attention does not take the width-256 resident "
-          "kernels")
-    print(f"[gemma_lora] gemma_2b, {cfg.n_layers} layers (full depth), "
+          f"Gemma-2B's attention at seq {seq} does not take the width-256 "
+          f"{fam} kernels")
+    print(f"{label} gemma_2b, {cfg.n_layers} layers (full depth), "
           f"vocab {cfg.vocab_size}, {cfg.num_params() / 1e9:.3f} B params "
           f"frozen ({2 * cfg.num_params() / 1e9:.2f} GB bf16), head_dim "
           f"{cfg.head_dim}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV head, "
-          f"rank-8 adapters on wq/wk/wv/wo, seq {GL_SEQ}, {GL_STEPS} steps, "
-          f"remat {cfg.remat_policy}", flush=True)
+          f"rank-8 adapters on wq/wk/wv/wo, seq {seq}, {steps} steps, "
+          f"remat {cfg.remat_policy}, {fam} kernels", flush=True)
     sigterm = signal.getsignal(signal.SIGTERM)  # the recipe installs its own
     with tempfile.TemporaryDirectory(prefix="stpu-gemma-lora-") as tmp:
         run = None
-        for batch in GL_BATCHES:
+        for batch in batches:
             argv = ["--model", "2b", "--batch-size", str(batch),
-                    "--seq-len", str(GL_SEQ), "--steps", str(GL_STEPS),
-                    "--ckpt-every", str(GL_STEPS)]
+                    "--seq-len", str(seq), "--steps", str(steps),
+                    "--ckpt-every", str(steps)]
             ckpt = f"{tmp}/batch{batch}"
             try:
                 torch.cuda.reset_peak_memory_stats()
@@ -2205,29 +2298,29 @@ def phase_gemma_lora(fa, trainer, records, dev="cuda"):
                                                     "--device", dev])
                 break
             except torch.cuda.OutOfMemoryError as exc:
-                print(f"[gemma_lora] batch {batch} x {GL_SEQ} does not fit "
-                      f"the card: {str(exc).split('. ')[0]}", flush=True)
+                print(f"{label} batch {batch} x {seq} does not fit the "
+                      f"card: {str(exc).split('. ')[0]}", flush=True)
             finally:
                 signal.signal(signal.SIGTERM, sigterm)
             gc.collect()
             torch.cuda.empty_cache()
-        check(run is not None, f"no batch of {GL_BATCHES} fits the card")
+        check(run is not None, f"no batch of {batches} fits the card")
         launches = dict(fa.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        cut = "" if batch == GL_BATCHES[0] else f" (cut from {GL_BATCHES[0]})"
-        print(f"[gemma_lora] batch {batch} x seq {GL_SEQ}{cut}: "
-              f"{json.dumps(run)}", flush=True)
-        print(f"[gemma_lora] launches {launches}", flush=True)
+        cut = "" if batch == batches[0] else f" (cut from {batches[0]})"
+        print(f"{label} batch {batch} x seq {seq}{cut}: {json.dumps(run)}",
+              flush=True)
+        print(f"{label} launches {launches}", flush=True)
         check(_finite([run["first_loss"], run["final_loss"]]),
               "non-finite loss")
-        expect = _resident_expect(launches, cfg.n_layers, GL_STEPS)
+        expect = _step_expect(launches, cfg.n_layers, steps, names)
         check(launches == expect, f"launch counts {launches} != {expect}")
-        per_step = run["wall_seconds"] / GL_STEPS
-        print(f"[gemma_lora] {per_step * 1e3:.0f} ms per step (wall over "
-              f"its {GL_STEPS} steps, the first and the step-{GL_STEPS} "
-              f"save included), {run['tokens_per_second']:.0f} tokens/s, "
-              f"peak memory {peak_gb:.2f} GB", flush=True)
-        for name in RESIDENT_NAMES:
+        per_step = run["wall_seconds"] / steps
+        print(f"{label} {per_step * 1e3:.0f} ms per step (wall over its "
+              f"{steps} steps, the first and the step-{steps} save "
+              f"included), {run['tokens_per_second']:.0f} tokens/s, peak "
+              f"memory {peak_gb:.2f} GB", flush=True)
+        for name in names:
             records[f"{name}@256"]["launches"] = launches[name]
             records[f"{name}@256"]["step_ms"] = per_step * 1e3
         args = llama_lora.build_arg_parser(list(gemma_lora.MODELS),
@@ -2244,12 +2337,25 @@ def phase_gemma_lora(fa, trainer, records, dev="cuda"):
         trained = float(trainer.cross_entropy_loss(logits[:, :-1],
                                                    tokens[:, 1:]))
         del logits
-    print(f"[gemma_lora] the first batch: loss {run['first_loss']:.5f} at "
-          f"step 1, {trained:.5f} with the step-{GL_STEPS} adapters",
-          flush=True)
+    print(f"{label} the first batch: loss {run['first_loss']:.5f} at step "
+          f"1, {trained:.5f} with the step-{steps} adapters", flush=True)
     check(trained < run["first_loss"], "loss did not fall")
-    _kernel_vs_reference("[gemma_lora]", gemma.forward, cfg, params, tokens,
-                         trainer)
+    _kernel_vs_reference(label, gemma.forward, cfg, params, tokens, trainer)
+
+
+def phase_gemma_lora(fa, trainer, records, dev="cuda"):
+    """[gemma_lora]: the recipe at examples/gemma_lora.yaml's seq 2048,
+    where every attention call takes the width-256 resident kernels."""
+    _gemma_recipe(fa, trainer, records, "[gemma_lora]", fa.RESIDENT,
+                  RESIDENT_NAMES, GL_SEQ, GL_BATCHES, GL_STEPS, dev)
+
+
+def phase_gemma_long(fa, trainer, records, dev="cuda"):
+    """[gemma_long]: the recipe at Gemma-2B's own context (max_seq_len
+    8192), where every attention call takes the width-256 triangular
+    kernels."""
+    _gemma_recipe(fa, trainer, records, "[gemma_long]", fa.TRIANGULAR,
+                  TRI_NAMES, GLONG_SEQ, GLONG_BATCHES, GLONG_STEPS, dev)
 
 
 def _gemma_exactness(decode_engine, prng, dev):
@@ -2257,16 +2363,14 @@ def _gemma_exactness(decode_engine, prng, dev):
     paged streams == its dense ones == gemma.decode (greedy), then the
     teacher-forced cache paths within F32_CACHE_REL_TOL of gemma.forward
     with three planted faults past it (own key, shift, and the serving
-    embed without the multiplier). The forward takes the fp32 reference
-    attention: no fp32 kernel has width 256 yet, and the op refuses it
-    (ROADMAP, Queue 2 item 1)."""
+    embed without the multiplier). The forward and gemma.decode take the
+    fp32 kernels at width 256."""
     from skypilot_tpu_torch.models import gemma
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "TF32 matmuls are on")
     cfg = dataclasses.replace(gemma.GemmaConfig.gemma_2b(),
-                              n_layers=SV_EXACT_LAYERS, dtype=torch.float32,
-                              attention_impl="reference")
+                              n_layers=SV_EXACT_LAYERS, dtype=torch.float32)
     params = gemma.init(cfg, torch.Generator(device=dev).manual_seed(11),
                         dev)
     cpu = torch.Generator().manual_seed(12)
@@ -2368,7 +2472,7 @@ def main() -> int:
         phase_ragged_op(fa, attention_ops)
         phase_f32_op(fa, attention_ops)
         phase_pad_op(fa, attention_ops)
-        phase_wide_refusal(fa, attention_ops)
+        phase_wide_op(fa, attention_ops, records)
         phase_streamed(fa, attention_ops, records)
         torch.cuda.empty_cache()
         phase_slice(fa, llama, trainer, records)
@@ -2384,6 +2488,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_gemma_lora(fa, trainer, records)
         torch.cuda.empty_cache()
+        phase_gemma_long(fa, trainer, records)
+        torch.cuda.empty_cache()
         phase_serve(fa, llama, card)
         torch.cuda.empty_cache()
         phase_gemma_serve(fa, card)
@@ -2393,7 +2499,7 @@ def main() -> int:
         return 1
     summary = [(name, kernel, 128) for name, _, kernel in SM90_KERNELS]
     summary += [(f"{name}@256", kernel, 256)
-                for name, _, kernel in SM90_KERNELS[:3]]
+                for name, _, kernel in SM90_KERNELS]
     for key, kernel, d in summary:
         rec = records[key]
         rec["regs"], rec["smem_bytes"] = attrs[(kernel, d, "Bf16")]

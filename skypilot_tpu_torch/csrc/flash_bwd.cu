@@ -76,7 +76,7 @@ extern "C" int stpu_flash_dq(const void* q, const void* k, const void* v,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, causal);
-  STPU_SM90_BY_D_WIDE(D, dtype, launch_dq, flash_dq_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_dq, flash_dq_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
@@ -95,7 +95,7 @@ extern "C" int stpu_flash_dkv(const void* q, const void* k, const void* v,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, causal);
-  STPU_SM90_BY_D_WIDE(D, dtype, launch_dkv, flash_dkv_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_dkv, flash_dkv_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
@@ -104,9 +104,9 @@ extern "C" int stpu_flash_dkv(const void* q, const void* k, const void* v,
 // (sm90::kernel_attrs): five ints each, registers at launch, dynamic shared
 // memory, threads, producer and consumer registers.
 extern "C" int stpu_flash_dq_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D_WIDE(D, dtype, dq_attrs, stpu::flash_dq_kernel, out);
+  STPU_SM90_BY_D(D, dtype, dq_attrs, stpu::flash_dq_kernel, out);
 }
 
 extern "C" int stpu_flash_dkv_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D_WIDE(D, dtype, dkv_attrs, stpu::flash_dkv_kernel, out);
+  STPU_SM90_BY_D(D, dtype, dkv_attrs, stpu::flash_dkv_kernel, out);
 }

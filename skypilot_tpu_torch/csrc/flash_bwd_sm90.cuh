@@ -10,9 +10,8 @@
 //   GQA group of query heads h / (H / KVH) == kvh in registers: no
 //   atomics, deterministic.
 //
-// Both are templates over D (64, 128; 256 for the resident family), the
-// element type T (bf16, f16:
-// the inputs', P's and dS's before their products, and the outputs') and
+// Both are templates over D (64, 128, 256), the element type T (bf16,
+// f16: the inputs', P's and dS's before their products, and the outputs') and
 // the softmax base (Base2: exp2 with a base-2 lse, sm = scale * log2(e)
 // folded into the one FFMA each score takes; BaseE: natural exp and lse;
 // BaseE2, dq only: a natural-log lse scaled into base 2 once per row,
@@ -61,14 +60,15 @@
 //   each): 208 at D = 128 with both, under the consumers' 232; dk/dv
 //   holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
 //   accumulator registers at D = 128.
-// - Head_dim 256 (Gemma's; the resident family only). Shared memory: the
+// - Head_dim 256 (Gemma's; every family, in every base). Shared memory: the
 //   128-row resident pair takes 128 KB and a stage of the ring 64 KB, so
 //   the ring has one stage (bwd_ring; 193 KB), and the producer's next
 //   load waits for both consumers to release the last. dq holds dq (128)
 //   + S, dP (32 each) + dS (16) = 208 registers, Q and dO read from
-//   shared memory (kRegA 0). dk and dv together (256 fp32 a thread) do
-//   not fit: dkv_consumer_sweeps walks the group's q tiles twice, first
-//   S^T -> P^T, dv += P^T dO (dv written straight from registers:
+//   shared memory (kRegA 0, the streamed instance's too). dk and dv
+//   together (256 fp32 a thread) do not fit: dkv_consumer_sweeps walks
+//   the group's q tiles twice, first S^T -> P^T, dv += P^T dO (dv
+//   written straight from registers:
 //   store_frag, since the second sweep still reads K and V), then S^T,
 //   dP^T -> dS^T, dk += dS^T Q; five products per tile pair instead of
 //   four, still one launch, the GQA sum in registers, deterministic.

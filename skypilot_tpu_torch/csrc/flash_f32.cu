@@ -1,6 +1,7 @@
 // Flash attention in fp32 on Hopper (sm_90a): forward, dq and dk/dv for
 // f32 inputs, every family's shapes (any S that is a multiple of 8,
-// head_dim 64 or 128, causal or not), natural exp and a natural-log lse.
+// head_dim 64, 128 or 256, causal or not), natural exp and a natural-log
+// lse.
 //
 // Replaces, for f32 inputs, skypilot_tpu/ops/pallas/flash_attention.py's
 // kernels, whose dots take the input dtype (_fwd_kernel_resident,
@@ -238,7 +239,8 @@ flash_dkv_f32_kernel(const BwdParams p) {
 }  // namespace
 }  // namespace stpu
 
-// Launches KERNEL<64> or KERNEL<128> over (ceil(S / 16), ROWS) blocks.
+// Launches KERNEL<64>, KERNEL<128> or KERNEL<256> over (ceil(S / 16),
+// ROWS) blocks.
 #define STPU_F32_BY_D(HEAD_DIM, KERNEL, ROWS, STREAM, P)                    \
   do {                                                                      \
     const dim3 grid(ceil_div(S, kF32BlockRows), (ROWS));                    \
@@ -246,6 +248,8 @@ flash_dkv_f32_kernel(const BwdParams p) {
       KERNEL<64><<<grid, kF32Block, 0, (STREAM)>>>(P);                      \
     else if ((HEAD_DIM) == 128)                                             \
       KERNEL<128><<<grid, kF32Block, 0, (STREAM)>>>(P);                     \
+    else if ((HEAD_DIM) == 256)                                             \
+      KERNEL<256><<<grid, kF32Block, 0, (STREAM)>>>(P);                     \
     else                                                                    \
       return (int)cudaErrorInvalidValue;                                    \
     return (int)cudaGetLastError();                                         \

@@ -49,7 +49,7 @@ extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
       fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
-  STPU_SM90_BY_D_WIDE(D, dtype, launch_fwd, flash_fwd_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
@@ -58,5 +58,5 @@ extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
 // (sm90::kernel_attrs): five ints, registers at launch, dynamic shared
 // memory, threads, producer and consumer registers.
 extern "C" int stpu_flash_fwd_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D_WIDE(D, dtype, fwd_attrs, stpu::flash_fwd_kernel, out);
+  STPU_SM90_BY_D(D, dtype, fwd_attrs, stpu::flash_fwd_kernel, out);
 }

@@ -2,10 +2,10 @@
 // specialised. One body, instantiated by flash_fwd.cu (the resident
 // family, natural-log lse), flash_tri.cu (the triangular family, base-2
 // lse) and flash_streamed.cu (the streamed family, natural-log lse, with
-// the overlapped schedule below), each at head_dim 64 and 128 (the
-// resident family at 256 too, fwd_consumer_wide below) and element type
-// bf16 and f16 (T, the inputs' and outputs' type; the
-// softmax and the sums stay fp32). The function is the TPU forward's: o =
+// the overlapped schedule below), each at head_dim 64, 128 and 256
+// (fwd_consumer_wide below) and element type bf16 and f16 (T, the inputs'
+// and outputs' type; the softmax and the sums stay fp32). The function is
+// the TPU forward's: o =
 // softmax(scale * q k^T, causal) v and lse = m + log(l), query head h
 // reading KV head h / (H / KVH).
 //
@@ -55,14 +55,15 @@
 // - Masking: only the KV tile that straddles the diagonal (causal) or S
 //   (the ragged last tile, non-causal) runs the MASK instance; a causal
 //   loop stops at the diagonal, so fully masked tiles are never loaded.
-// - Head_dim 256 (Gemma's; the resident instance only): a 128-row K and V
+// - Head_dim 256 (Gemma's; every family, in lockstep): a 128-row K and V
 //   stage would take 128 KB and Q 64 KB, past the 227 KB a CTA has with a
 //   second stage. So K/V tiles are kBNWide = 64 rows (a 2-stage ring: 64
 //   + 2 x 64 = 192 KB), S = Q K^T is m64n64 (32 registers), P V one
 //   m64n256k16 per 16 keys (o: 128 registers; 176 with S and P, under
 //   the consumers' 232). With 64-row K/V tiles under 128-row q tiles
 //   the two consumers' causal ends differ by a tile, as in the
-//   backward's dq (fwd_consumer_wide).
+//   backward's dq (fwd_consumer_wide). The epilogue is the narrow one, so
+//   the triangular instance writes its base-2 lse as at 64 and 128.
 // - Epilogue: o / l goes through the consumer's own 64 rows of Q in shared
 //   memory (its last product has read them) and out in 16-byte stores
 //   predicated on row < S; lse = m + log2(l), times ln 2 for the natural-
@@ -1134,6 +1135,14 @@ inline int encode_rows(CUtensorMap* map, const void* ptr, int D, int S,
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
+// The dynamic shared memory of an instance: the overlapped schedule's
+// split barriers when `overlap` (head_dim 256 runs in lockstep whatever
+// the family asks).
+template <int D>
+constexpr int fwd_smem_bytes(bool overlap) {
+  return overlap && D <= 128 ? FwdSmem<D, true>::kBytes : FwdSmem<D>::kBytes;
+}
+
 // Encodes the three maps and launches `kernel` (an instance of this
 // forward, with the overlapped schedule when `overlap`) over the B * H *
 // ceil(S / 128) items of `work`.
@@ -1141,7 +1150,7 @@ template <int D, class T, class Kernel>
 inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
                       const int* work, cudaStream_t stream,
                       bool overlap = false) {
-  const int smem = overlap ? FwdSmem<D, true>::kBytes : FwdSmem<D>::kBytes;
+  const int smem = fwd_smem_bytes<D>(overlap);
   constexpr int kRows = FwdSmem<D>::kKvRows;
   CUtensorMap tq, tk, tv;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
@@ -1178,9 +1187,8 @@ inline int kernel_attrs(Kernel kernel, int smem, int threads, int producer,
 
 template <int D, class T, class Kernel>
 inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
-  return kernel_attrs(kernel,
-                      overlap ? FwdSmem<D, true>::kBytes : FwdSmem<D>::kBytes,
-                      kFwdThreads, kProducerRegs, kConsumerRegs, out);
+  return kernel_attrs(kernel, fwd_smem_bytes<D>(overlap), kFwdThreads,
+                      kProducerRegs, kConsumerRegs, out);
 }
 
 }  // namespace sm90
@@ -1189,9 +1197,8 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
 // Returns from the calling C entry with FN<D, T>(KERNEL<D, T>, ...) for the
 // runtime head_dim and element type (T::kDtype): the instances of one
 // Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or reported
-// (fwd_attrs, dq_attrs, dkv_attrs). STPU_SM90_BY_D takes head_dim 64 and
-// 128 (every family), STPU_SM90_BY_D_WIDE 256 as well (the resident
-// family); any other head_dim or type returns cudaErrorInvalidValue.
+// (fwd_attrs, dq_attrs, dkv_attrs) at head_dim 64, 128 and 256; any other
+// head_dim or type returns cudaErrorInvalidValue.
 #define STPU_SM90_ONE(D_, T_, FN, KERNEL, ...) \
   return stpu::sm90::FN<D_, stpu::T_>(KERNEL<D_, stpu::T_>, __VA_ARGS__)
 
@@ -1207,14 +1214,6 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
     return (int)cudaErrorInvalidValue
 
 #define STPU_SM90_BY_D(HEAD_DIM, DTYPE, FN, KERNEL, ...)                  \
-  do {                                                                    \
-    STPU_SM90_DTYPE(DTYPE);                                               \
-    STPU_SM90_AT_D(64, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                 \
-    STPU_SM90_AT_D(128, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
-    return (int)cudaErrorInvalidValue;                                    \
-  } while (0)
-
-#define STPU_SM90_BY_D_WIDE(HEAD_DIM, DTYPE, FN, KERNEL, ...)             \
   do {                                                                    \
     STPU_SM90_DTYPE(DTYPE);                                               \
     STPU_SM90_AT_D(64, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                 \

@@ -25,7 +25,7 @@
 // streams that operand through a shared-memory ring whatever S is, so all
 // three kernels are instances of the Hopper bodies (wgmma + TMA, one
 // producer and two consumer warpgroups, a host-built work list; every
-// bf16 and f16 instance at head_dim 64 and 128), reading and writing a
+// bf16 and f16 instance at head_dim 64, 128 and 256), reading and writing a
 // natural-log lse with the runtime causal flag, as flash_fwd.cu's and
 // flash_bwd.cu's, each with what its long loops (64 or 128 tiles a CTA at
 // S 8192) take:
@@ -33,16 +33,21 @@
 // - the forward, flash_fwd_sm90.cuh's fwd_cta with the overlapped
 //   schedule (kOverlap: each consumer's softmax under its own P V; the
 //   two consumers in ping-pong on top measured no faster and were
-//   dropped);
+//   dropped); at head_dim 256 the wide body in lockstep (o takes 128
+//   registers a thread, and S beside it leaves no room for a P V in
+//   flight across the softmax);
 // - dq, flash_bwd_sm90.cuh's dq_cta with each consumer's 64 rows of Q
 //   and dO held as wgmma A fragments in registers for the whole loop
 //   (kRegA = 2: S = Q K^T and dP = dO V^T read only their K or V tile
 //   from shared memory, half of what two shared-memory operands take)
 //   and the natural-log lse taken into base 2 once per row (BaseE2: one
 //   FFMA and one ex2 a score, where natural exp takes a multiply, a range
-//   test and two predicated multiplies more);
+//   test and two predicated multiplies more); at head_dim 256 Q and dO
+//   stay in shared memory (kRegA = 0: their fragments would take 128
+//   registers beside dq's 128);
 // - dk/dv, dkv_cta as the resident instance runs it, in lockstep (its
-//   consumers offset half a tile measured no faster).
+//   consumers offset half a tile measured no faster; two sweeps at head_dim
+//   256).
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -55,8 +60,8 @@ flash_fwd_streamed_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const FwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::fwd_cta<D, T, /*kNaturalLse=*/true, /*kOverlap=*/true>(tq, tk, tv, p,
-                                                               work, smem);
+  sm90::fwd_cta<D, T, /*kNaturalLse=*/true, /*kOverlap=*/(D <= 128)>(
+      tq, tk, tv, p, work, smem);
 }
 
 template <int D, class T>
@@ -67,7 +72,8 @@ flash_dq_streamed_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tv,
                          const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dq_cta<D, T, BaseE2, /*kRegA=*/2>(tq, tdo, tk, tv, p, work, smem);
+  sm90::dq_cta<D, T, BaseE2, /*kRegA=*/(D > 128 ? 0 : 2)>(tq, tdo, tk, tv,
+                                                          p, work, smem);
 }
 
 template <int D, class T>

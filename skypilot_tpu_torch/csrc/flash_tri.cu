@@ -23,7 +23,9 @@
 // TMA ring of 64-row tiles of the streamed one, P and dS fed to the next
 // product from registers, the GQA group of dk/dv summed in registers
 // without atomics), instanced in base 2. Each kernel has a bf16 and an
-// f16 instance at head_dim 64 and 128.
+// f16 instance at head_dim 64, 128 and 256 (Gemma's, on the bodies' wide
+// paths: the forward's 64-row K/V tiles, the backward's one-stage ring and
+// dk/dv's two sweeps; the JAX dispatcher sends Gemma here past S 2048).
 //
 // Schedule: the TPU kernels walk scalar-prefetched maps of the lower-
 // triangle block pairs (_tri_maps_row, _tri_maps_col). Here the host builds

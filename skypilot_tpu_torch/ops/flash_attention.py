@@ -6,14 +6,14 @@ Three families of three CUDA kernels for sm_90a, all nine Hopper-native
 (wgmma + TMA, one producer and two consumer warpgroups): every forward is
 an instance of one body (``csrc/flash_fwd_sm90.cuh``), every dq and dk/dv
 of the backward's (``csrc/flash_bwd_sm90.cuh``); the streamed instances
-take what their long loops need (the forward overlaps each consumer's
-softmax with its own products; dq holds Q and dO in registers and takes
-the natural-log lse into exp2). Every kernel takes any S that is a
-multiple of 8 (a ragged last tile is masked), head_dim 64 or 128 (the
-resident family 256 too: Gemma's), and bf16 or f16 (one instance each);
-f32 inputs take three fp32 kernels of
-their own (``csrc/flash_f32.cu``: ``flash_fwd_f32``, ``flash_dq_f32``,
-``flash_dkv_f32``, every family's shapes, natural-log lse):
+take what their long loops need (at head_dim 64 and 128 the forward
+overlaps each consumer's softmax with its own products and dq holds Q
+and dO in registers; dq takes the natural-log lse into exp2). Every
+kernel takes any S that is a multiple of 8 (a ragged last tile is
+masked), head_dim 64, 128 or 256 (Gemma's), and bf16 or f16 (one
+instance each); f32 inputs take three fp32 kernels of their own
+(``csrc/flash_f32.cu``: ``flash_fwd_f32``, ``flash_dq_f32``,
+``flash_dkv_f32``, every family's shapes and widths, natural-log lse):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
   ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
@@ -49,11 +49,10 @@ On the card, ``flash_forward`` and ``flash_backward`` (and so the op)
 bring any head_dim up to 256 to the kernels: head_dim is zero-padded to
 the next kernel width (``kernel_head_dim``, ``pad_head_dim``; zero columns
 change neither q k^T nor the lse, and the padded columns of o, dq, dk and
-dv come out 0 and are sliced off by ``unpad_head_dim``). At width 256
-only the resident family's bf16 and f16 kernels exist: the triangular
-and streamed families and f32 raise a ValueError there before any launch
-(``wide_head_dim_error``). ``kernel_dtype`` names the kernels an input
-dtype reaches.
+dv come out 0 and are sliced off by ``unpad_head_dim``). Every family and
+the fp32 kernels have every width; past 256 the op raises a ValueError
+before any launch (``kernel_head_dim``). ``kernel_dtype`` names the
+kernels an input dtype reaches.
 
 Beside each family stand its plain PyTorch versions (``flash_fwd_plain``
 and ``flash_bwd_plain``; ``flash_fwd_tri_plain`` and
@@ -89,11 +88,10 @@ BWD_INNER = 64
 # and delta through a tensor map whose rows (4 * S bytes) a TMA copy needs
 # 16-byte aligned.
 SEQ_MULTIPLE = 8
-# The kernel widths: every family takes 64 and 128; 256 has resident
-# kernels only (csrc/flash_fwd_sm90.cuh fwd_consumer_wide, flash_bwd_sm90.cuh
-# dkv_consumer_sweeps), in bf16 and f16.
+# The kernel widths, of every family and of the fp32 kernels (256 on the
+# Hopper bodies' wide paths: csrc/flash_fwd_sm90.cuh fwd_consumer_wide,
+# flash_bwd_sm90.cuh bwd_ring and dkv_consumer_sweeps).
 HEAD_DIMS = (64, 128, 256)
-NARROW_HEAD_DIMS = (64, 128)
 # The kernels' element types, by the code their C entries take.
 _DTYPE_CODES = {torch.bfloat16: _build.DTYPES["bf16"],
                 torch.float16: _build.DTYPES["f16"]}
@@ -400,24 +398,6 @@ def kernel_head_dim(d: int) -> int:
                      "256)")
 
 
-def wide_head_dim_error(width: int, fam: str, dtype: torch.dtype
-                        ) -> Optional[str]:
-    """Why no kernel takes kernel width ``width`` for family ``fam`` and
-    ``dtype``, or None: width 256 has the resident family's bf16 and f16
-    kernels only; the triangular and streamed families and the fp32
-    kernels stop at 128."""
-    if width in NARROW_HEAD_DIMS:
-        return None
-    if dtype == torch.float32:
-        return (f"no fp32 flash kernel for head_dim width {width} (the "
-                f"fp32 kernels take {NARROW_HEAD_DIMS})")
-    if fam != RESIDENT:
-        return (f"no {fam} flash kernel for head_dim width {width}: only "
-                f"the resident family has width-{width} kernels (the "
-                f"{fam} family takes {NARROW_HEAD_DIMS})")
-    return None
-
-
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
     """``t`` (..., d) with its last dimension zero-padded to ``width``, as
     a kernel takes it; ``t`` itself when d is the width."""
@@ -443,13 +423,11 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def kernel_shape_error(q_shape, k_shape,
-                       widths=HEAD_DIMS) -> Optional[str]:
+def kernel_shape_error(q_shape, k_shape) -> Optional[str]:
     """Why the kernels cannot take q of shape (B,S,H,D) with k and v of
     shape (B,S,KVH,D), or None when they can: H % KVH == 0, head_dim in
-    ``widths`` (the resident kernels' HEAD_DIMS; NARROW_HEAD_DIMS for the
-    other families and the fp32 kernels), S a positive multiple of
-    SEQ_MULTIPLE, B*H within the grid's y limit."""
+    HEAD_DIMS, S a positive multiple of SEQ_MULTIPLE, B*H within the
+    grid's y limit."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return f"bad shapes q {tuple(q_shape)} k {tuple(k_shape)}"
     b, s, h, d = q_shape
@@ -457,9 +435,9 @@ def kernel_shape_error(q_shape, k_shape,
     if (k_shape[0], k_shape[1], k_shape[3]) != (b, s, d) or h % kvh:
         return (f"k/v {tuple(k_shape)} do not match q {tuple(q_shape)} "
                 "(need H % KVH == 0)")
-    if d not in widths:
-        return (f"these flash kernels take head_dim {widths}; no kernel "
-                f"for head_dim {d}")
+    if d not in HEAD_DIMS:
+        return (f"flash kernels take head_dim {HEAD_DIMS}; no kernel for "
+                f"head_dim {d}")
     if s <= 0 or s % SEQ_MULTIPLE:
         return f"flash kernels take S a multiple of {SEQ_MULTIPLE}, got {s}"
     if b * h > 65535:
@@ -467,16 +445,15 @@ def kernel_shape_error(q_shape, k_shape,
     return None
 
 
-def _check_inputs(q, k, v, *rest, dtypes=tuple(_DTYPE_CODES),
-                  widths=HEAD_DIMS):
+def _check_inputs(q, k, v, *rest, dtypes=tuple(_DTYPE_CODES)):
     """Raise on what the kernels do not take: the shapes
-    ``kernel_shape_error`` refuses at ``widths``, and anything but
+    ``kernel_shape_error`` refuses, and anything but
     (B,S,H,D) tensors of one dtype of ``dtypes`` (the Hopper kernels':
     bf16, f16), rows 16-byte aligned with a unit last stride, on one CUDA
     device."""
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
-    err = kernel_shape_error(tuple(q.shape), tuple(k.shape), widths)
+    err = kernel_shape_error(tuple(q.shape), tuple(k.shape))
     if err:
         raise ValueError(err)
     b, s, h, _ = q.shape
@@ -534,8 +511,8 @@ def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
 
 
 def _fwd_call(name: str, source: str, q, k, v, causal, scale,
-              scheduled: bool = False, widths=HEAD_DIMS):
-    _check_inputs(q, k, v, widths=widths)
+              scheduled: bool = False):
+    _check_inputs(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -549,8 +526,8 @@ def _fwd_call(name: str, source: str, q, k, v, causal, scale,
 
 
 def _dq_call(name: str, source: str, q, k, v, o, lse, do, causal, scale,
-             scheduled: bool = False, widths=HEAD_DIMS):
-    _check_inputs(q, k, v, o, do, lse, widths=widths)
+             scheduled: bool = False):
+    _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -563,8 +540,8 @@ def _dq_call(name: str, source: str, q, k, v, o, lse, do, causal, scale,
 
 
 def _dkv_call(name: str, source: str, q, k, v, do, lse, delta, causal,
-              scale, scheduled: bool = False, widths=HEAD_DIMS):
-    _check_inputs(q, k, v, do, lse, delta, widths=widths)
+              scale, scheduled: bool = False):
+    _check_inputs(q, k, v, do, lse, delta)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
@@ -613,7 +590,7 @@ def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tiles, longest first, each consumer's softmax overlapped with its own
     P V): (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in natural log)."""
     return _fwd_call("flash_fwd_streamed", "flash_streamed", q, k, v, causal,
-                     scale, scheduled=True, widths=NARROW_HEAD_DIMS)
+                     scale, scheduled=True)
 
 
 def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -625,8 +602,7 @@ def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the natural-log lse): (dq (B,S,H,D) of q's dtype, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
-                    do, causal, scale, scheduled=True,
-                    widths=NARROW_HEAD_DIMS)
+                    do, causal, scale, scheduled=True)
 
 
 def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -637,8 +613,7 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     instance's, in lockstep, over 128-row kv tiles, longest first): (dk,
     dv) (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
-                     lse, delta, causal, scale, scheduled=True,
-                     widths=NARROW_HEAD_DIMS)
+                     lse, delta, causal, scale, scheduled=True)
 
 
 def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
@@ -654,7 +629,7 @@ def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Triangular-family kernel forward (the Hopper forward over 128-row
     q tiles, longest first), causal: (o (B,S,H,D) of q's dtype, lse
     (B,H,S) fp32 in base 2)."""
-    _check_inputs(q, k, v, widths=NARROW_HEAD_DIMS)
+    _check_inputs(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -671,7 +646,7 @@ def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Triangular-family kernel dq from the base-2 lse (the Hopper dq over
     128-row q tiles, longest first): (dq (B,S,H,D) of q's dtype, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
-    _check_inputs(q, k, v, o, do, lse, widths=NARROW_HEAD_DIMS)
+    _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -687,7 +662,7 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Triangular-family kernel dk/dv (the Hopper dk/dv over 128-row kv
     tiles, longest first): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA
     group summed."""
-    _check_inputs(q, k, v, do, lse, delta, widths=NARROW_HEAD_DIMS)
+    _check_inputs(q, k, v, do, lse, delta)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
@@ -703,8 +678,7 @@ def flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 kernel forward, any family's shape: (o (B,S,H,D) fp32, lse
     (B,H,S) fp32 in natural log)."""
-    _check_inputs(q, k, v, dtypes=(torch.float32,),
-                  widths=NARROW_HEAD_DIMS)
+    _check_inputs(q, k, v, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -719,8 +693,7 @@ def flash_dq_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 kernel dq from the natural-log lse: (dq (B,S,H,D) fp32, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
-    _check_inputs(q, k, v, o, do, lse, dtypes=(torch.float32,),
-                  widths=NARROW_HEAD_DIMS)
+    _check_inputs(q, k, v, o, do, lse, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -736,8 +709,7 @@ def flash_dkv_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 kernel dk/dv: (dk, dv) (B,S,KVH,D) fp32, the GQA group
     summed."""
-    _check_inputs(q, k, v, do, lse, delta, dtypes=(torch.float32,),
-                  widths=NARROW_HEAD_DIMS)
+    _check_inputs(q, k, v, do, lse, delta, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
@@ -749,23 +721,13 @@ def flash_dkv_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ------------------------------------------------------------ the op
 
-def _kernel_width(q: torch.Tensor, fam: str) -> int:
-    """The kernel width q's head_dim pads to, or a ValueError naming the
-    width and the family (or fp32) that has no kernel there: nothing on
-    the card falls back to a plain version."""
-    width = kernel_head_dim(q.shape[3])
-    err = wide_head_dim_error(width, fam, q.dtype)
-    if err:
-        raise ValueError(err)
-    return width
-
-
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, scale: float, fam: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) through family ``fam``: the kernel for CUDA tensors (q, k
     and v padded to its head_dim first, o sliced back; f32 tensors take the
-    fp32 kernel, whatever the family), the plain version for CPU tensors.
+    fp32 kernel, whatever the family; past head_dim 256 a ValueError before
+    any launch), the plain version for CPU tensors.
     lse is in the family's base (natural log from the fp32 kernel; its
     backward reads it so)."""
     if not q.is_cuda:
@@ -774,7 +736,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if fam == STREAMED:
             return flash_fwd_streamed_plain(q, k, v, causal, scale)
         return flash_fwd_plain(q, k, v, causal, scale)
-    d, width = q.shape[3], _kernel_width(q, fam)
+    d, width = q.shape[3], kernel_head_dim(q.shape[3])
     q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     if kernel_dtype(q.dtype) == torch.float32:
         o, lse = flash_fwd_f32(q, k, v, causal, scale)
@@ -801,7 +763,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return flash_bwd_streamed_plain(q, k, v, o, lse, do, causal,
                                             scale)
         return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
-    d, width = q.shape[3], _kernel_width(q, fam)
+    d, width = q.shape[3], kernel_head_dim(q.shape[3])
     q, k, v, o, do = (pad_head_dim(t, width) for t in (q, k, v, o, do))
     do = do.contiguous()
     if kernel_dtype(q.dtype) == torch.float32:
@@ -867,11 +829,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ragged tails included. On CUDA:
 
     * head_dim: any multiple of 8 up to 256; it is zero-padded to 64, 128
-      or 256 for the kernels, the scale stays ``D ** -0.5`` of the
-      caller's D, and the output and gradients are sliced back. Width 256
-      (head_dim 136-256, Gemma's 256) has resident bf16/f16 kernels only:
-      a shape past the resident budget there, or f32, raises a ValueError
-      (``wide_head_dim_error``), as does any head_dim past 256.
+      or 256 (head_dim 136-256, Gemma's 256) for the kernels of every
+      family and dtype, the scale stays ``D ** -0.5`` of the caller's D,
+      and the output and gradients are sliced back. A head_dim past 256
+      raises a ValueError before any launch (``kernel_head_dim``).
     * dtype: bf16 and f16 run on the Hopper kernels' instances of that
       type (fp32 sums inside, outputs in the input type); f16 holds |x|
       <= 65504: an input, output or gradient past that becomes inf (and

@@ -6,7 +6,8 @@ Adapters ride the same ``lora_dense`` seam in llama's blocks, checkpoints
 keep the JAX package's format, and a preempted run resumes bit-identically
 exactly as the llama recipe does (examples/gemma_lora.yaml: ``--model 2b
 --batch-size 8 --seq-len 2048``, where every attention call takes the
-width-256 resident flash kernels).
+width-256 resident flash kernels; a ``--seq-len`` past 2048, up to Gemma's
+8192, takes the width-256 triangular kernels).
 
     python -m skypilot_tpu_torch.recipes.gemma_lora --device cpu \\
         --model tiny --steps 6 --checkpoint-dir /tmp/run1

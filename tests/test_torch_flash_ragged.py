@@ -114,14 +114,14 @@ def test_kernel_shape_error_takes_ragged_s(s):
 
 @pytest.mark.parametrize("d", [256, 96])
 def test_kernel_shape_error_names_missing_head_dim(d):
-    # 256 is a kernel width of the resident family only: the other
-    # families' widths (NARROW_HEAD_DIMS) name it missing.
-    if d == 256:
-        assert fa_torch.kernel_shape_error((1, 512, 8, d),
-                                           (1, 512, 1, d)) is None
-    err = fa_torch.kernel_shape_error((1, 512, 8, d), (1, 512, 1, d),
-                                      fa_torch.NARROW_HEAD_DIMS)
-    assert err is not None and f"head_dim {d}" in err
+    # Every family's kernels and the fp32 ones take each width of
+    # HEAD_DIMS, 256 included: the width a head_dim pads to is always
+    # taken, and a head_dim that is no width is named missing.
+    width = fa_torch.kernel_head_dim(d)
+    assert fa_torch.kernel_shape_error((1, 512, 8, width),
+                                       (1, 512, 1, width)) is None
+    err = fa_torch.kernel_shape_error((1, 512, 8, d), (1, 512, 1, d))
+    assert err is None if d == width else f"head_dim {d}" in err
 
 
 @pytest.mark.parametrize("q_shape,k_shape,words", [

@@ -131,6 +131,26 @@ def test_backward_kernels_instantiate_the_hopper_body(source, body):
         assert gone not in common
 
 
+@pytest.mark.parametrize("source", sorted(_build.SOURCES))
+def test_every_entry_dispatches_every_width(source):
+    # Every C entry of every source (the Hopper kernels' launches and
+    # build reports, the fp32 kernels' launches) dispatches each width of
+    # HEAD_DIMS to an instance of its own: no family or dtype stops short
+    # of 256.
+    text = (_CSRC / f"{source}.cu").read_text()
+    macro = "STPU_F32_BY_D" if source == "flash_f32" else "STPU_SM90_BY_D"
+    header = (_CSRC / ("flash_f32.cu" if source == "flash_f32"
+                       else "flash_fwd_sm90.cuh")).read_text()
+    body = re.search(rf"#define {macro}\(.*?while \(0\)", header, re.S)
+    widths = re.findall(r"STPU_SM90_AT_D\((\d+),|KERNEL<(\d+)>", body.group(0))
+    assert [int(a or b) for a, b in widths] == list(fa_torch.HEAD_DIMS)
+    entries = re.findall(r'extern "C" int (stpu_\w+)\([^)]*\) \{(.*?)\n\}',
+                         text, re.S)
+    assert {n for n, _ in entries} == set(_build.SIGNATURES[source])
+    for name, code in entries:
+        assert f"{macro}(" in code, name
+
+
 @pytest.mark.parametrize("tag,name", [("Bf16", "bf16"), ("F16", "f16")])
 def test_dtype_codes_match_the_kernels(tag, name):
     # The wrappers pass an element type's code; the C entries dispatch on
@@ -243,35 +263,48 @@ def test_kernel_head_dim_refuses_past_256(d):
         fa_torch.kernel_head_dim(d)
 
 
-@pytest.mark.parametrize("fam,dtype,match", [
-    (fa_torch.TRIANGULAR, torch.bfloat16, "no triangular flash kernel"),
-    (fa_torch.STREAMED, torch.float16, "no streamed flash kernel"),
-    (fa_torch.RESIDENT, torch.float32, "no fp32 flash kernel"),
-    (fa_torch.TRIANGULAR, torch.float32, "no fp32 flash kernel")])
+_F32_NAMES = ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")
+_PLAIN_NAMES = ("flash_fwd_plain", "flash_bwd_plain", "flash_fwd_tri_plain",
+                "flash_bwd_tri_plain", "flash_fwd_streamed_plain",
+                "flash_bwd_streamed_plain")
+
+
+class _OnCard(torch.Tensor):
+    is_cuda = True
+
+
+@pytest.mark.parametrize("fam,dtype,wrappers", [
+    (fa_torch.TRIANGULAR, torch.bfloat16,
+     ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri")),
+    (fa_torch.STREAMED, torch.float16,
+     ("flash_fwd_streamed", "flash_dq_streamed", "flash_dkv_streamed")),
+    (fa_torch.RESIDENT, torch.float32, _F32_NAMES),
+    (fa_torch.TRIANGULAR, torch.float32, _F32_NAMES)])
 @pytest.mark.parametrize("d", [200, 256])
 def test_width_256_refuses_all_but_the_resident_16_bit_kernels(
-        monkeypatch, fam, dtype, match, d):
-    # On the card, head_dim 136-256 pads to 256, where only the resident
-    # bf16/f16 kernels exist: the other families and f32 raise a ValueError
-    # naming the width before any launch, never take a plain version.
-    # Spied on CPU tensors that claim to be on the card.
+        monkeypatch, fam, dtype, wrappers, d):
+    # On the card, head_dim 136-256 pads to 256, which every family and
+    # the fp32 kernels take: flash_forward and flash_backward reach the
+    # family's own wrappers (f32 the fp32 ones) with q padded to 256,
+    # never a plain version, and nothing is refused. Spied on CPU tensors
+    # that claim to be on the card.
     calls = []
     for name in fa_torch.LAUNCHES:
-        monkeypatch.setattr(fa_torch, name, lambda *a, _n=name: calls.append(
-            _n))
+        monkeypatch.setattr(fa_torch, name, lambda *a, _n=name: (
+            calls.append((_n, a[0].shape[-1])) or (a[0], a[0])))
+    for name in _PLAIN_NAMES:
+        monkeypatch.setattr(fa_torch, name, lambda *a, _n=name: pytest.fail(
+            f"{_n} on the card"))
 
     class OnCard(torch.Tensor):
         is_cuda = True
 
     q = torch.zeros(1, 64, 2, d, dtype=dtype).as_subclass(OnCard)
     lse = torch.zeros(1, 2, 64)
-    with pytest.raises(ValueError, match=f"{match} for head_dim width 256"):
-        fa_torch.flash_forward(q, q, q, True, d ** -0.5, fam)
-    with pytest.raises(ValueError, match=f"{match} for head_dim width 256"):
-        fa_torch.flash_backward(q, q, q, q, lse, q, True, d ** -0.5, fam)
-    assert calls == []
-    assert fa_torch.wide_head_dim_error(256, fa_torch.RESIDENT,
-                                        torch.bfloat16) is None
+    o, _ = fa_torch.flash_forward(q, q, q, True, d ** -0.5, fam)
+    grads = fa_torch.flash_backward(q, q, q, q, lse, q, True, d ** -0.5, fam)
+    assert calls == [(name, 256) for name in wrappers]
+    assert o.shape[-1] == d and all(g.shape[-1] == d for g in grads)
 
 
 @pytest.mark.parametrize("wrapper,args", [
@@ -279,14 +312,29 @@ def test_width_256_refuses_all_but_the_resident_16_bit_kernels(
     ("flash_dq_streamed", lambda q, lse: (q, q, q, q, lse, q, False)),
     ("flash_dkv_f32", lambda q, lse: (q.float(), q.float(), q.float(),
                                       q.float(), lse, lse, True))])
-def test_narrow_wrappers_refuse_width_256(wrapper, args):
-    # Called directly, the triangular, streamed and fp32 wrappers refuse
-    # width 256 before they look for a card.
-    q = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16)
+def test_narrow_wrappers_refuse_width_256(monkeypatch, wrapper, args):
+    # Called directly at width 256, the triangular, streamed and fp32
+    # wrappers launch their kernel at that head_dim (spied on CPU tensors
+    # that claim to be on the card, every other input check kept); past
+    # 256 they raise, naming the head_dim, before any launch.
+    launches = []
+    check = fa_torch._check_inputs
+
+    def on_card(*ts, **kw):
+        check(*(t.as_subclass(_OnCard) for t in ts), **kw)
+
+    monkeypatch.setattr(fa_torch, "_check_inputs", on_card)
+    monkeypatch.setattr(fa_torch, "_launch", lambda name, source, ptrs,
+                        strides, q, *rest: launches.append(
+                            (name, q.shape[-1])))
     lse = torch.zeros(1, 2, 64)
-    with pytest.raises(ValueError, match=r"head_dim \(64, 128\)"):
+    q = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16)
+    getattr(fa_torch, wrapper)(*args(q, lse), 0.0625)
+    assert launches == [(wrapper, 256)]
+    q = torch.zeros(1, 64, 2, 264, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 264"):
         getattr(fa_torch, wrapper)(*args(q, lse), 0.0625)
-    assert fa_torch.LAUNCHES[wrapper] == 0
+    assert launches == [(wrapper, 256)]
 
 
 def _padded_plain(q, k, v, causal):

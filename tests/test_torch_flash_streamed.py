@@ -57,17 +57,14 @@ def _arrays(seed, b=1, s=256, h=4, kvh=2, d=64):
                           (b, s, h, d))]
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("block_q,block_k", BLOCKS)
-def test_streamed_forward_matches_jax(causal, block_q, block_k):
-    q, k, v, _ = _arrays(0)
+def _check_forward(q, k, v, causal, block_q, block_k):
     scale = q.shape[-1] ** -0.5
     o_j, lse_j = fa_jax._flash_fwd_streamed(
         *map(jnp.asarray, (q, k, v)), causal=causal, scale=scale,
         block_q=block_q, block_k=block_k)
     o_t, lse_t = fa_torch.flash_fwd_streamed_plain(
         *map(torch.from_numpy, (q, k, v)), causal, scale)
-    assert lse_t.shape == lse_j.shape == (1, 4, 256)
+    assert lse_t.shape == lse_j.shape == (q.shape[0], q.shape[2], q.shape[1])
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
                                rtol=OUT_TOL, atol=OUT_TOL)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=OUT_TOL,
@@ -76,8 +73,19 @@ def test_streamed_forward_matches_jax(causal, block_q, block_k):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("block_q,block_k", BLOCKS)
-def test_streamed_backward_matches_jax(causal, block_q, block_k):
-    q, k, v, do = _arrays(1, b=2, h=6)
+def test_streamed_forward_matches_jax(causal, block_q, block_k):
+    _check_forward(*_arrays(0)[:3], causal, block_q, block_k)
+
+
+@pytest.mark.parametrize("block_q,block_k", BLOCKS)
+def test_streamed_forward_matches_jax_at_head_dim_256(block_q, block_k):
+    # Gemma's head (one KV head of 256 for four query heads), non-causal:
+    # the op's bidirectional use past the budget at that width.
+    _check_forward(*_arrays(5, h=4, kvh=1, d=256)[:3], False, block_q,
+                   block_k)
+
+
+def _check_backward(q, k, v, do, causal, block_q, block_k):
     scale = q.shape[-1] ** -0.5
     qj, kj, vj, doj = map(jnp.asarray, (q, k, v, do))
     o_j, lse_pad = fa_jax._flash_fwd_streamed(
@@ -94,6 +102,17 @@ def test_streamed_backward_matches_jax(causal, block_q, block_k):
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
                                    atol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block_q,block_k", BLOCKS)
+def test_streamed_backward_matches_jax(causal, block_q, block_k):
+    _check_backward(*_arrays(1, b=2, h=6), causal, block_q, block_k)
+
+
+@pytest.mark.parametrize("block_q,block_k", BLOCKS)
+def test_streamed_backward_matches_jax_at_head_dim_256(block_q, block_k):
+    _check_backward(*_arrays(6, h=4, kvh=1, d=256), False, block_q, block_k)
 
 
 @pytest.mark.parametrize("entry", ["flash_attention", "attention"])

@@ -49,16 +49,14 @@ def _arrays(seed, b=1, s=256, h=4, kvh=2, d=64):
                           (b, s, h, d))]
 
 
-@pytest.mark.parametrize("block_q,block_k", BLOCKS)
-def test_tri_forward_matches_jax(block_q, block_k):
-    q, k, v, _ = _arrays(0)
+def _check_forward(q, k, v, block_q, block_k):
     scale = q.shape[-1] ** -0.5
     o_j, lse_j = fa_jax._flash_fwd_tri(*map(jnp.asarray, (q, k, v)),
                                        scale=scale, block_q=block_q,
                                        block_k=block_k)
     o_t, lse_t = fa_torch.flash_fwd_tri_plain(
         *map(torch.from_numpy, (q, k, v)), scale)
-    assert lse_t.shape == lse_j.shape == (1, 4, 256)
+    assert lse_t.shape == lse_j.shape == (q.shape[0], q.shape[2], q.shape[1])
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
                                rtol=OUT_TOL, atol=OUT_TOL)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=OUT_TOL,
@@ -66,8 +64,18 @@ def test_tri_forward_matches_jax(block_q, block_k):
 
 
 @pytest.mark.parametrize("block_q,block_k", BLOCKS)
-def test_tri_backward_matches_jax(block_q, block_k):
-    q, k, v, do = _arrays(1, b=2, h=6)
+def test_tri_forward_matches_jax(block_q, block_k):
+    _check_forward(*_arrays(0)[:3], block_q, block_k)
+
+
+@pytest.mark.parametrize("block_q,block_k", BLOCKS)
+def test_tri_forward_matches_jax_at_head_dim_256(block_q, block_k):
+    # Gemma's head (one KV head of 256 for four query heads), the width
+    # the kernels take past the budget at S > 2048.
+    _check_forward(*_arrays(5, h=4, kvh=1, d=256)[:3], block_q, block_k)
+
+
+def _check_backward(q, k, v, do, block_q, block_k):
     scale = q.shape[-1] ** -0.5
     qj, kj, vj, doj = map(jnp.asarray, (q, k, v, do))
     o_j, lse_pad = fa_jax._flash_fwd_tri(qj, kj, vj, scale=scale,
@@ -83,6 +91,16 @@ def test_tri_backward_matches_jax(block_q, block_k):
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
                                    atol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("block_q,block_k", BLOCKS)
+def test_tri_backward_matches_jax(block_q, block_k):
+    _check_backward(*_arrays(1, b=2, h=6), block_q, block_k)
+
+
+@pytest.mark.parametrize("block_q,block_k", BLOCKS)
+def test_tri_backward_matches_jax_at_head_dim_256(block_q, block_k):
+    _check_backward(*_arrays(6, h=4, kvh=1, d=256), block_q, block_k)
 
 
 def test_dispatch_past_budget_takes_triangular_family(monkeypatch,

@@ -15,6 +15,9 @@ weights and numpy tokens.
 * The serving embed: ``_decode_embed`` and ``forward_with_cache`` apply
   the sqrt(dim) multiplier as JAX's do, in bf16 and on the int8 tree
   (the tied table's per-row scale times the multiplier).
+* The LoRA loss and adapter gradients at the head_dim-256 config past
+  the resident budget, where both packages take their triangular flash
+  family (Gemma-2B past seq 2048), within the same tolerances.
 * A few trainer steps whose loss falls; the LoRA recipe's step against
   the JAX recipe's ``step_fn`` logic, and ``gemma_lora.main`` against
   JAX's on what both report.
@@ -32,12 +35,14 @@ import torch
 
 from skypilot_tpu.models import gemma as gemma_jax
 from skypilot_tpu.models import llama as llama_jax
+from skypilot_tpu.ops.pallas import flash_attention as fa_jax
 from skypilot_tpu.recipes import gemma_lora as gemma_lora_jax
 from skypilot_tpu.recipes import llama_lora as lora_jax
 from skypilot_tpu.train import trainer as trainer_jax
 from skypilot_tpu_torch import convert
 from skypilot_tpu_torch.models import gemma as gemma_torch
 from skypilot_tpu_torch.models import llama as llama_torch
+from skypilot_tpu_torch.ops import flash_attention as fa_torch
 from skypilot_tpu_torch.recipes import gemma_lora as gemma_lora_torch
 from skypilot_tpu_torch.recipes import llama_lora as lora_torch
 from skypilot_tpu_torch.recipes import synthetic_data as data_torch
@@ -218,6 +223,65 @@ def test_gradients_match_jax(name, jax_impl):
             t = getattr(params_t, keys[0]).grad
         np.testing.assert_allclose(t.numpy(), np.asarray(g), rtol=GRAD_TOL,
                                    atol=GRAD_TOL, err_msg=str(keys))
+
+
+@pytest.fixture
+def past_budget(monkeypatch):
+    """Both packages past the resident flash budget. JAX keeps traces of
+    its flash op keyed on the function, not on the patched budget, so its
+    caches are cleared on entry and on exit."""
+    jax.clear_caches()
+    monkeypatch.setattr(fa_jax, "_use_resident", lambda s, d: False)
+    monkeypatch.setattr(fa_torch, "_use_resident", lambda s, d: False)
+    yield
+    jax.clear_caches()
+
+
+def test_d256_lora_past_budget_matches_jax(monkeypatch, past_budget):
+    # Gemma-2B's attention head (MQA, head_dim 256) past the budget, as at
+    # seq 4096-8192: JAX's Pallas triangular kernels (interpret mode)
+    # against the port's triangular family on the converted base and
+    # adapters (B nonzero, so both adapters have gradients): the recipe's
+    # loss and the adapters' gradients.
+    cfg_j, cfg_t = _configs("d256", "pallas")
+    base_j, base_t = _init_both(cfg_j, cfg_t)
+    base_t.requires_grad_(False)
+    lora_j = lora_jax.init_lora(cfg_j, 4, jax.random.key(3))
+    lora_j["layers"] = {
+        name: (0.05 * jax.random.normal(jax.random.key(4 + i), a.shape)
+               ).astype(a.dtype) if name.endswith("_lora_b") else a
+        for i, (name, a) in enumerate(sorted(lora_j["layers"].items()))}
+    lora_t = convert.lora_from_jax(cfg_t, jax.tree.map(np.asarray, lora_j),
+                                   "cpu")
+    params_t = lora_torch.merge_params(base_t, lora_t)
+    tokens = _tokens("d256", seed=5)
+
+    def loss_j(lora):
+        base = jax.tree.map(jax.lax.stop_gradient, base_j)
+        logits = gemma_jax.forward(cfg_j, lora_jax.merge_params(base, lora),
+                                   jnp.asarray(tokens))
+        return trainer_jax.cross_entropy_loss(logits[:, :-1],
+                                              jnp.asarray(tokens)[:, 1:])
+
+    value_j, grads_j = jax.value_and_grad(loss_j)(lora_j)
+    calls = []
+    for name in ("flash_fwd_plain", "flash_bwd_plain", "flash_fwd_tri_plain",
+                 "flash_bwd_tri_plain"):
+        fn = getattr(fa_torch, name)
+        monkeypatch.setattr(fa_torch, name, lambda *a, _n=name, _f=fn: (
+            calls.append(_n) or _f(*a)))
+    tok_t = torch.from_numpy(tokens).long()
+    logits = gemma_torch.forward(cfg_t, params_t, tok_t)
+    loss_t = trainer_torch.cross_entropy_loss(logits[:, :-1], tok_t[:, 1:])
+    loss_t.backward()
+    assert set(calls) == {"flash_fwd_tri_plain", "flash_bwd_tri_plain"}
+    assert calls.count("flash_bwd_tri_plain") == cfg_t.n_layers
+    np.testing.assert_allclose(loss_t.item(), float(value_j), rtol=TOL)
+    for name, g in grads_j["layers"].items():
+        t = torch.stack([getattr(lp, name).grad for lp in lora_t.layers])
+        assert float(np.abs(np.asarray(g)).max()) > 0, name
+        np.testing.assert_allclose(t.numpy(), np.asarray(g), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
 
 
 # ----------------------------------------------------------- serving embed

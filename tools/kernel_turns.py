@@ -7,14 +7,15 @@
 Each LABEL=DIR argument runs, in a process of its own from that checkout
 (its own sources, its own build), every Hopper kernel at chip_smoke.py's
 main shapes: the resident, triangular and streamed families at head_dim
-128, and the resident three at head_dim 256 where the checkout has them.
+128, and at head_dim 256 the families the checkout has there.
 Each kernel is timed over 20 launches by CUDA events after a warm-up,
 beside the median SM clock nvidia-smi sampled during it, and the run
 prints one line, `TIMES {"flash_fwd": [ms, MHz], ...}`. Parent, change,
 change, parent compares two trees on one card. Then, once per checkout,
 the SASS instruction count of each kernel instance (cuobjdump -sass of the
-libraries it built): a change to a shared body shows there before it
-shows in a time.
+libraries it built), and whether the instructions themselves are
+identical across the checkouts: a change to a shared body shows there
+before it shows in a time.
 
 Imports nothing of JAX; needs a CUDA card, the CUDA toolkit and the
 checkouts' chip_smoke.py.
@@ -37,6 +38,9 @@ shapes = [(fa.RESIDENT, cs.MAIN_SHAPE, ""),
           (fa.STREAMED, cs.STR_MAIN_SHAPE, "")]
 if 256 in getattr(fa, "HEAD_DIMS", ()):
     shapes.append((fa.RESIDENT, cs.WIDE_MAIN_SHAPE, "@256"))
+if hasattr(cs, "TRI_WIDE_MAIN_SHAPE"):
+    shapes += [(fa.TRIANGULAR, cs.TRI_WIDE_MAIN_SHAPE, "@256"),
+               (fa.STREAMED, cs.STR_WIDE_MAIN_SHAPE, "@256")]
 out = {}
 cs.CLOCKS.start()
 try:
@@ -61,8 +65,8 @@ KERNEL = re.compile(r"\d(flash_[a-z_]+_kernel)ILi(\d+)ENS_\d(Bf16|F16)E")
 
 
 def instructions(checkout: pathlib.Path) -> dict:
-    """{"kernel<D, T>": SASS instruction count} of the checkout's newest
-    build."""
+    """{"kernel<D, T>": (SASS instruction count, the instructions' text
+    without their addresses)} of the checkout's newest build."""
     libs = sorted((checkout / "build" / "stpu_torch_kernels").glob(
         "*/libflash_fwd.so"), key=lambda p: p.stat().st_mtime)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -74,8 +78,10 @@ def instructions(checkout: pathlib.Path) -> dict:
         for part in text.split("Function : ")[1:]:
             m = KERNEL.search(part.split(None, 1)[0])
             if m:
-                counts[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = len(
-                    re.findall(r"^\s+/\*[0-9a-f]{4,}\*/ ", part, re.M))
+                code = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/ +(.*)$", part,
+                                  re.M)
+                counts[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = (
+                    len(code), "\n".join(code))
     return counts
 
 
@@ -97,9 +103,12 @@ def main() -> int:
         if where not in seen:
             seen[where] = instructions(pathlib.Path(where))
     for name in sorted(set().union(*seen.values())):
+        got = [counts.get(name, ("-", None)) for counts in seen.values()]
+        same = len({text for _, text in got}) == 1
         print(f"[sass] {name}: " + ", ".join(
-            f"{where} {counts.get(name, '-')}"
-            for where, counts in seen.items()), flush=True)
+            f"{where} {n}" for where, (n, _) in zip(seen, got))
+            + (" (instructions identical)" if same and len(got) > 1
+               else ""), flush=True)
     return rc
 
 

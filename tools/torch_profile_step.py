@@ -12,6 +12,8 @@
         --optimizer adafactor                            # [mixtral]
     python3 tools/torch_profile_step.py --model gemma --layers 18 \
         --batch 6 --lora                                 # [gemma_lora]
+    python3 tools/torch_profile_step.py --model gemma --layers 18 \
+        --seq 8192 --batch 1 --lora                      # [gemma_long]
     python3 tools/torch_profile_step.py --decode         # [serve]'s step
     python3 tools/torch_profile_step.py --decode --weight-quant --kv-quant
     python3 tools/torch_profile_step.py --decode --model gemma
