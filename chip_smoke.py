@@ -41,7 +41,9 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    256 ([kernels d256]: the resident trio at Gemma-2B's 8 x 2048 MQA
    shape, a ragged non-causal S and Gemma-7B's MHA at S = 200; the
    triangular trio at Gemma-2B's 1 x 8192, Gemma-7B's MHA at 4096, and
-   S = 4136 and 4160; the streamed trio non-causal at 1 x 4096 and 4136)
+   S = 4136 and 4160; the streamed trio non-causal at 1 x 4096 and 4136;
+   each launch's items, P and shared memory printed, P being the parts of
+   the GQA group the triangular and streamed dk/dv split across CTAs)
    against the plain versions, at each family's first shape the pair
    bit-identical twice, f16 and times;
    then the public attention op through autograd, with exactly one
@@ -58,7 +60,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    kernels (one launch each), against the fp32 plain versions at the JAX
    reference tests' elementwise bounds (and, printed, not held, the same
    inputs as f16 through the f16 kernels), then the fp32 kernels' time at
-   the slice's shape and at width 256;
+   the slice's shape and at width 256, beside the plain versions' and
+   SDPA's in f32 (forward, whole backward);
 4. streamed: the public attention op, non-causal, at Llama-3-8B
    attention width and seq 8192 (1 x 8192, 32 heads, 8 KV heads,
    head_dim 128), forward and autograd backward of a fixed dO; output
@@ -723,11 +726,14 @@ def phase_kernels(fa):
 def phase_kernels_wide(fa, records):
     """[kernels] at width 256: each family's trio (the forward's
     fwd_consumer_wide, the dq with a one-stage ring and Q and dO in shared
-    memory, the two-sweep dk/dv; natural exp for the resident and streamed
+    memory; the resident dk/dv in two sweeps, the triangular and streamed
+    ones on dkv_cta_wide, the GQA group in P parts summed by the last
+    item of each kv tile; natural exp for the resident and streamed
     families, base 2 for the triangular one) against its plain versions in
-    bf16 at its shapes, then at its main shape the backward pair twice
-    bit-identical, the times (bf16, f16, plain, SDPA, bound) and f16
-    against the plain versions. Records keyed "<name>@256"."""
+    bf16 at its shapes, each launch's items, P and shared memory printed,
+    then at its main shape the backward pair twice bit-identical, the
+    times (bf16, f16, plain, SDPA, bound) and f16 against the plain
+    versions. Records keyed "<name>@256"."""
     seed = 40
     for fam, shapes, main in ((fa.RESIDENT, WIDE_CHECK_SHAPES,
                                WIDE_MAIN_SHAPE),
@@ -741,6 +747,7 @@ def phase_kernels_wide(fa, records):
                   and fa.kernel_head_dim(d) == 256,
                   f"{shape} is not a width-256 {fam} shape")
             fns = Family(fa, fam, causal, d ** -0.5)
+            _print_launches(fa, fam, fns, shape)
             q, k, v, do = _inputs(shape, seed)
             o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
             torch.cuda.synchronize()
@@ -764,6 +771,31 @@ def phase_kernels_wide(fa, records):
             del q, k, v, do, o, lse, dq, delta, dk, dv
             torch.cuda.empty_cache()
             seed += 1
+
+
+def _print_launches(fa, fam, fns, shape):
+    """Each kernel's launch at a width-256 shape: its items (CTAs), P (the
+    parts of the GQA group: the triangular and streamed dk/dv) and its
+    dynamic shared memory (the kernel's build report)."""
+    b, s, h, kvh, d, causal = shape
+    parts, tile = 1, fa.BWD_TILE
+    if fam != fa.RESIDENT:
+        parts = fa.dkv_parts(b, s, kvh, h // kvh, causal,
+                             fa._sm_count(torch.device("cuda")))
+        tile = fa.WIDE_KV_TILE
+    items = (b * h * -(-s // fa.FWD_TILE), b * h * -(-s // fa.BWD_TILE),
+             b * kvh * -(-s // tile) * parts)
+    source = {fa.RESIDENT: ("flash_fwd", "flash_bwd", "flash_bwd"),
+              fa.TRIANGULAR: ("flash_tri",) * 3,
+              fa.STREAMED: ("flash_streamed",) * 3}[fam]
+    notes = []
+    for name, src, n, p in zip(fns.names, source, items, (1, 1, parts)):
+        out = (ctypes.c_int * 5)()
+        check(getattr(fa._build.library(src), f"stpu_{name}_attrs")(
+            d, fa._build.DTYPES["bf16"], out) == 0, f"{name} attrs failed")
+        notes.append(f"{name} {n} items, P {p}, {out[1]} B shared")
+    print(f"[kernels d256] {fam} {shape} launches: " + "; ".join(notes),
+          flush=True)
 
 
 def phase_wide_op(fa, attention_ops, records):
@@ -1018,10 +1050,16 @@ def phase_f32_op(fa, attention_ops):
                  time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
                                                     causal, scale), 3,
                          warmup=1))
+        # SDPA in f32 (TF32 off), forward and whole backward: a yardstick
+        # only.
+        lib = _sdpa_ms(shape, (q, k, v, do), reps=3)
+        lib_note = ("SDPA none" if lib[0] is None else
+                    f"SDPA forward {lib[0]:.3f} ms, whole backward "
+                    f"{lib[1]:.3f} ms")
         print(f"[f32 op] fp32 kernels at {shape}: forward {times[0]:.3f} "
               f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms; plain "
-              f"forward {plain[0]:.3f} ms, backward {plain[1]:.3f} ms",
-              flush=True)
+              f"forward {plain[0]:.3f} ms, backward {plain[1]:.3f} ms; "
+              f"{lib_note}", flush=True)
         del q, k, v, do, o, lse, delta
 
 
@@ -1151,6 +1189,33 @@ def _bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _sdpa_ms(shape, inputs, reps=20):
+    """Library yardstick: SDPA's forward and whole backward (dq, dk, dv)
+    on the same inputs, in its own (B, H, S, D) layout, GQA native; (None,
+    None), printed, where PyTorch has no SDPA kernel for the shape."""
+    causal, scale = shape[-1], shape[4] ** -0.5
+    q, k, v, do = inputs
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+
+    try:
+        with torch.no_grad():
+            lib_fwd = time_ms(sdpa, reps)
+        out = sdpa()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps)
+        del out
+    except RuntimeError as exc:
+        print(f"[kernels] SDPA at {shape}: no kernel ({exc})", flush=True)
+        return None, None
+    return lib_fwd, lib_bwd
+
+
 def _measure(fns, shape, inputs, saved, errs):
     b, s, h, kvh, d, causal = shape
     scale = d ** -0.5
@@ -1175,26 +1240,7 @@ def _measure(fns, shape, inputs, saved, errs):
     plain_fwd = time_ms(lambda: fns.fwd_plain(q, k, v), 3, warmup=1)
     plain_bwd = time_ms(lambda: fns.bwd_plain(q, k, v, o, lse, do), 3,
                         warmup=1)
-    # Library yardstick: SDPA in its own (B, H, S, D) layout, GQA native
-    # (None, printed, where PyTorch has no SDPA kernel for the shape).
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
-
-    try:
-        with torch.no_grad():
-            lib_fwd = time_ms(sdpa, 20)
-        out = sdpa()
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 20)
-        del out
-    except RuntimeError as exc:
-        print(f"[kernels] SDPA at {shape}: no kernel ({exc})", flush=True)
-        lib_fwd = lib_bwd = None
+    lib_fwd, lib_bwd = _sdpa_ms(shape, inputs)
     records = {}
     for name, err_keys in ((fwd_name, ("o", "lse")), (dq_name, ("dq",)),
                            (dkv_name, ("dk", "dv"))):

@@ -8,7 +8,9 @@
 //   rowsum(dO * O) and writes it for dk/dv.
 // - dkv_cta: dv = sum P^T dO and dk = scale * sum dS^T Q, summed over the
 //   GQA group of query heads h / (H / KVH) == kvh in registers: no
-//   atomics, deterministic.
+//   atomics, deterministic. dkv_cta_wide is its head_dim-256 body for the
+//   triangular and streamed families (below), the group split across
+//   CTAs and summed in a fixed order.
 //
 // Both are templates over D (64, 128, 256), the element type T (bf16,
 // f16: the inputs', P's and dS's before their products, and the outputs') and
@@ -60,18 +62,44 @@
 //   each): 208 at D = 128 with both, under the consumers' 232; dk/dv
 //   holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
 //   accumulator registers at D = 128.
-// - Head_dim 256 (Gemma's; every family, in every base). Shared memory: the
-//   128-row resident pair takes 128 KB and a stage of the ring 64 KB, so
-//   the ring has one stage (bwd_ring; 193 KB), and the producer's next
-//   load waits for both consumers to release the last. dq holds dq (128)
-//   + S, dP (32 each) + dS (16) = 208 registers, Q and dO read from
-//   shared memory (kRegA 0, the streamed instance's too). dk and dv
-//   together (256 fp32 a thread) do not fit: dkv_consumer_sweeps walks
-//   the group's q tiles twice, first S^T -> P^T, dv += P^T dO (dv
-//   written straight from registers:
-//   store_frag, since the second sweep still reads K and V), then S^T,
-//   dP^T -> dS^T, dk += dS^T Q; five products per tile pair instead of
-//   four, still one launch, the GQA sum in registers, deterministic.
+// - Head_dim 256 (Gemma's; every family, in every base). dq: the 128-row
+//   resident pair takes 128 KB and a stage of the ring 64 KB, so the ring
+//   has one stage (bwd_ring; 193 KB), and the producer's next load waits
+//   for both consumers to release the last. dq holds dq (128) + S, dP
+//   (32 each) + dS (16) = 208 registers, Q and dO read from shared memory
+//   (kRegA 0, the streamed instance's too). dk and dv together (256 fp32
+//   a thread) do not fit one consumer. The resident dk/dv (flash_bwd.cu)
+//   keeps dkv_consumer_sweeps: its 128-row CTA walks the group's q tiles
+//   twice, first S^T -> P^T, dv += P^T dO (dv written straight from
+//   registers: store_frag, since the second sweep still reads K and V),
+//   then S^T, dP^T -> dS^T, dk += dS^T Q.
+// - The triangular and streamed dk/dv at 256 run dkv_cta_wide instead, a
+//   CTA built for what bounds the two-sweep one there (too few CTAs: B x
+//   KVH x S / 128, 64 at Gemma-2B's 1 x 8192 MQA on 132 SMs; every Q and
+//   dO tile loaded twice; a one-stage ring, loads and products in turn):
+//   - one 64-row kv tile of one (b, kv head) per CTA, twice the CTAs,
+//     with dv and dk in separate consumer warpgroups over the same rows:
+//     consumer 0 runs S^T = K Q^T, P^T, dv += P^T dO (176 registers),
+//     consumer 1 S^T, dP^T = V dO^T, dS^T, dk += dS^T Q (208). Both read
+//     the same ring stage, so each Q/dO tile is loaded once per item;
+//     five products per tile pair, as in the two sweeps. Causal, both
+//     consumers own the same rows: they share the diagonal q tile (kt),
+//     mask it alike and skip nothing;
+//   - K and V take 64 KB, so the ring has two stages of Q, dO, lse and
+//     delta (2 x 64.5 KB; 193 KB in all): the producer's next TMA load
+//     is in flight while the consumers run their products;
+//   - the GQA group split across CTAs: work item (b * KVH + kvh, kv
+//     tile, part) walks heads [part * G / P, (part + 1) * G / P) of the
+//     group of G = H / KVH. P (a divisor of G) comes from the host
+//     (ops/flash_attention.py: dkv_parts, the shape and the card's SM
+//     count). P = 1 writes dk and dv in T as before. P > 1: each item
+//     writes its fp32 partials from registers into a workspace (2, P, B,
+//     S, KVH, D) (dv then dk, rows < S), takes an integer ticket per kv
+//     tile and output, and the last item to arrive sums the P partials in
+//     part order (all read back through L2, 16-byte chunks, every part's
+//     load issued before the sums), times scale for dk, rounds to T and
+//     writes them: one launch, no float atomics, and the same sum in the
+//     same order whichever item arrives last, so deterministic.
 // - Not done: a persistent grid; overlapping one tile's elementwise work
 //   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
 //   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
@@ -105,6 +133,13 @@
 //   rows < S.
 // - A full barrier's transaction count is the whole boxes', rows past S
 //   included.
+// - The ticket of dkv_cta_wide: every thread of a consumer stores its
+//   partial, fences (__threadfence), meets the others at the warpgroup's
+//   barrier, and only then does one thread add 1 to the tile's counter;
+//   the item that reads P - 1 reads the other parts through L2
+//   (ld.global.cg), never through L1, which may hold no stale line of
+//   them but is not coherent. Counters start at 0 (zeroed by the wrapper
+//   each call), so no launch depends on the previous one's.
 // - Shared memory at D = 128: dq 2 x 32 KB (Q, dO) + kBwdRing x 32 KB
 //   (64-row K and V) + 512 B delta; dk/dv 2 x 32 KB (K, V) + kBwdRing x
 //   (32 KB + 512 B) (Q, dO, lse, delta): 129.6 KB each at 2 stages, under
@@ -131,6 +166,23 @@ constexpr int kBwdRing = 2;    // streamed stages in shared memory
 static_assert(kBwdRows == kBM, "the forward's resident tile");
 static_assert(kBwdRows % kBwdTile == 0,
               "a resident tile is whole streamed tiles");
+// kv rows per CTA of dkv_cta_wide (one consumer's 64, held by both).
+constexpr int kWideRows = 64;
+static_assert(kWideRows == kBwdTile,
+              "dkv_cta_wide's diagonal q tile has its kv tile's index");
+
+// The GQA split of dkv_cta_wide: P = parts items per kv tile (at most
+// kMaxParts), each over G / P heads of the group; with P > 1 their fp32
+// partials go to ws, (2, P, batch, S, KVH, D) (dv, then dk), and each kv
+// tile has two counters in tickets (dv, dk), zero at launch. Unused (P =
+// 1) by every other dk/dv.
+constexpr int kMaxParts = 8;
+struct DkvSplit {
+  float* ws;
+  int* tickets;
+  int parts;
+  int batch;
+};
 
 // Streamed stages at head_dim D: kBwdRing, and one at D = 256, where the
 // 128-row resident pair alone takes 128 KB and a stage 64 KB.
@@ -835,6 +887,309 @@ __device__ __forceinline__ void dkv_cta(
   }
 }
 
+// ------------------------------------------------- dk/dv at head_dim 256
+
+// dkv_cta_wide's shared memory: K and V (kWideRows x D); kRing Q and dO
+// tiles (kBwdTile x D); kRing lse and delta rows; two last-arrival flags
+// (dv, dk); mbarriers full, empty, kv. 193 KB at D = 256.
+template <int D>
+struct DkvWideSmem {
+  static constexpr int kRing = kBwdRing;
+  static constexpr int kTile = kBwdTile * D * 2;
+  static constexpr int kRowsTile = kWideRows * D * 2;
+  static constexpr int kStat = kBwdTile * 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kRowsTile;
+  static constexpr int kQ = 2 * kRowsTile;
+  static constexpr int kDO = kQ + kRing * kTile;
+  static constexpr int kLse = kDO + kRing * kTile;
+  static constexpr int kDelta = kLse + kRing * kStat;
+  static constexpr int kFlag = kDelta + kRing * kStat;
+  static constexpr int kBar = kFlag + 16;
+  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
+};
+
+// The producer's one thread: K and V (kWideRows), then for each of the
+// item's `heads` query heads from h0 its q tiles from i0 (Q, dO, lse,
+// delta) into the two-stage ring, each tile once for both consumers.
+template <int D>
+__device__ __forceinline__ void dkv_wide_producer(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
+    const BwdParams& p, unsigned char* base, int b, int kvh, int kt, int h0,
+    int heads, int i0, int n_qt) {
+  using L = DkvWideSmem<D>;
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
+  mbar_expect_tx(kvbar, 2 * L::kRowsTile);
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c) {
+    const int off = c * kWideRows * 128;
+    tma_load_4d(base + L::kK + off, &tk, kvbar, c * kBoxCols, kt * kWideRows,
+                kvh, b);
+    tma_load_4d(base + L::kV + off, &tv, kvbar, c * kBoxCols, kt * kWideRows,
+                kvh, b);
+  }
+  int n = 0;
+  for (int h = h0; h < h0 + heads; ++h) {
+    for (int i = i0; i < n_qt; ++i, ++n) {
+      const int st = n % L::kRing;
+      if (n >= L::kRing) mbar_wait(empty0 + 8 * st, (n / L::kRing - 1) & 1);
+      const uint32_t full = full0 + 8 * st;
+      mbar_expect_tx(full, 2 * L::kTile + 2 * L::kStat);
+#pragma unroll
+      for (int c = 0; c < D / kBoxCols; ++c) {
+        const int off = st * L::kTile + c * kBwdTile * 128;
+        tma_load_4d(base + L::kQ + off, &tq, full, c * kBoxCols,
+                    i * kBwdTile, h, b);
+        tma_load_4d(base + L::kDO + off, &tdo, full, c * kBoxCols,
+                    i * kBwdTile, h, b);
+      }
+      tma_load_2d(base + L::kLse + st * L::kStat, &tlse, full, i * kBwdTile,
+                  b * p.H + h);
+      tma_load_2d(base + L::kDelta + st * L::kStat, &tdlt, full,
+                  i * kBwdTile, b * p.H + h);
+    }
+  }
+}
+
+// One consumer of dkv_cta_wide over the item's q tiles: kDk false is
+// consumer 0, S^T = K Q^T, P^T and acc = dv += P^T dO; kDk true is
+// consumer 1, S^T and dP^T = V dO^T, dS^T and acc = dk += dS^T Q (dk
+// unscaled). Both hold the CTA's kWideRows kv rows (this warp's 16 at
+// krow0, krow0 + 8) and read every stage; causal, both mask q tile i0
+// (the diagonal: kt) and skip none.
+template <int D, class T, class Base, bool kDk>
+__device__ __forceinline__ void dkv_wide_consumer(float (&acc)[D / 2],
+                                                  const BwdParams& p,
+                                                  unsigned char* base,
+                                                  int kt, int heads, int i0,
+                                                  int n_qt) {
+  using L = DkvWideSmem<D>;
+  const int tid = threadIdx.x % 128;
+  const int krow0 = kt * kWideRows + (tid / 32) * 16 + (tid % 32) / 4;
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
+  const float sm = p.scale * Base::kScoreMul;
+  const int i_mask = p.causal ? i0 : -1;
+  const uint64_t d_k = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t d_v = smem_desc(base + L::kV, 16, 1024);
+  const uint64_t d_q = smem_desc(base + L::kQ, 16, 1024);
+  const uint64_t d_do = smem_desc(base + L::kDO, 16, 1024);
+  // dk += dS^T Q reads Q MN-major, dv += P^T dO reads dO so.
+  const uint64_t d_bmn = smem_desc(base + (kDk ? L::kQ : L::kDO),
+                                   kBwdTile * 128, 1024);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kvbar, 0);
+  int n = 0;
+  for (int g = 0; g < heads; ++g) {
+    for (int i = i0; i < n_qt; ++i, ++n) {
+      const int st = n % L::kRing;
+      mbar_wait(full0 + 8 * st, (n / L::kRing) & 1);
+      const uint32_t tile = (st * L::kTile) >> 4;
+      const float* lse =
+          reinterpret_cast<const float*>(base + L::kLse + st * L::kStat);
+      const float* dlt =
+          reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
+      float s[32];
+      uint32_t a[kBwdTile / 16][4];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = 0.f;
+      if constexpr (kDk) {
+        float dp[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dp[e] = 0.f;
+        wgmma_fence();
+        mma_nt<D, T>(s, d_k, kWideRows * 128, d_q + tile, kBwdTile * 128);
+        mma_nt<D, T>(dp, d_v, kWideRows * 128, d_do + tile, kBwdTile * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        // P^T, packed beside dS^T, is not read: dead code for ptxas.
+        uint32_t unused[kBwdTile / 16][4];
+        if (i == i_mask)
+          dst_tile<T, Base, true>(s, dp, unused, a, lse, dlt, sm, krow0,
+                                  i * kBwdTile);
+        else
+          dst_tile<T, Base, false>(s, dp, unused, a, lse, dlt, sm, krow0,
+                                   i * kBwdTile);
+      } else {
+        wgmma_fence();
+        mma_nt<D, T>(s, d_k, kWideRows * 128, d_q + tile, kBwdTile * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        if (i == i_mask)
+          pt_tile<T, Base, true>(s, a, lse, sm, krow0, i * kBwdTile);
+        else
+          pt_tile<T, Base, false>(s, a, lse, sm, krow0, i * kBwdTile);
+      }
+      wgmma_fence();
+      mma_rs<D, T>(acc, a, d_bmn + tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(empty0 + 8 * st);  // Q, dO, lse, delta read
+    }
+  }
+}
+
+// A consumer's accumulator (its rows row_start + (tid / 32) * 16 + (tid %
+// 32) / 4, + 8) times mul, straight to global memory at g (row stride
+// ss, rows < S): rounded to T in 4-byte stores, or, kF32, as fp32 pairs
+// in 8-byte stores.
+template <int D, class T, bool kF32>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 2],
+                                          float mul, void* g, long long ss,
+                                          int row_start, int S) {
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4, R0 = (tid / 32) * 16 + (tid % 32) / 4;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row_start + R0 + 8 * hf;
+    if (row < S) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const float x = acc[4 * i + 2 * hf] * mul;
+        const float y = acc[4 * i + 2 * hf + 1] * mul;
+        const long long at = row * ss + 8 * i + 2 * t;
+        if constexpr (kF32)
+          *reinterpret_cast<float2*>(static_cast<float*>(g) + at) =
+              make_float2(x, y);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<e16*>(g) + at) =
+              T::pack(x, y);
+      }
+    }
+  }
+}
+
+// The last item of a kv tile to arrive, one consumer's 128 threads: out =
+// mul * (part 0 + part 1 + ... + part P - 1), in that order, rounded to T,
+// rows < S. Every part (its own too) is read from ws (part stride
+// `plane`) through L2 in 16-byte chunks, row-major, each thread's up to
+// kMaxParts loads of a chunk issued before its sums.
+template <int D, class T>
+__device__ __forceinline__ void sum_parts(float mul,
+                                          const float* __restrict__ ws,
+                                          long long plane, int parts,
+                                          e16* __restrict__ g, long long ss,
+                                          int row_start, int S) {
+  constexpr int kRowChunks = D / 4;
+#pragma unroll 2
+  for (int c = threadIdx.x % 128; c < kWideRows * kRowChunks; c += 128) {
+    const int row = row_start + c / kRowChunks;
+    if (row < S) {
+      const long long at = row * ss + (c % kRowChunks) * 4;
+      float4 x[kMaxParts];
+#pragma unroll
+      for (int pp = 0; pp < kMaxParts; ++pp)
+        if (pp < parts)
+          x[pp] = __ldcg(reinterpret_cast<const float4*>(ws + pp * plane +
+                                                         at));
+      float4 s = x[0];
+#pragma unroll
+      for (int pp = 1; pp < kMaxParts; ++pp) {
+        if (pp < parts) {
+          s.x += x[pp].x;
+          s.y += x[pp].y;
+          s.z += x[pp].z;
+          s.w += x[pp].w;
+        }
+      }
+      *reinterpret_cast<uint2*>(g + at) =
+          make_uint2(T::pack(s.x * mul, s.y * mul),
+                     T::pack(s.z * mul, s.w * mul));
+    }
+  }
+}
+
+// A consumer's epilogue (which: 0 dv, 1 dk): P = 1 writes out (the
+// (b, kvh) plane at row 0) in T; P > 1 writes this part's fp32 partial,
+// takes the kv tile's ticket and, last to arrive, sums the parts into out.
+template <int D, class T>
+__device__ __forceinline__ void dkv_wide_store(
+    const float (&acc)[D / 2], float mul, e16* out, const BwdParams& p,
+    const DkvSplit& split, unsigned char* base, int which, long long off,
+    int bkv, int kt, int part) {
+  const long long ss = (long long)p.KVH * D;
+  const int row0 = kt * kWideRows;
+  if (split.parts == 1) {
+    store_acc<D, T, false>(acc, mul, out + off, ss, row0, p.S);
+    return;
+  }
+  const long long plane = (long long)split.batch * p.S * ss;
+  float* ws = split.ws + which * split.parts * plane + off;
+  store_acc<D, T, true>(acc, 1.f, ws + part * plane, ss, row0, p.S);
+  __threadfence();
+  warpgroup_sync(1 + which);
+  volatile int* last =
+      reinterpret_cast<int*>(base + DkvWideSmem<D>::kFlag) + which;
+  if (threadIdx.x % 128 == 0) {
+    const int tile = bkv * ceil_div(p.S, kWideRows) + kt;
+    *last = atomicAdd(split.tickets + 2 * tile + which, 1) ==
+            split.parts - 1;
+  }
+  warpgroup_sync(1 + which);
+  if (*last) {
+    __threadfence();
+    sum_parts<D, T>(mul, ws, plane, split.parts, out + off, ss, row0, p.S);
+  }
+}
+
+// One CTA of the head_dim-256 dk/dv of the triangular and streamed
+// families: work item blockIdx.x is (b * KVH + kvh, kWideRows-row kv tile,
+// part of the GQA group).
+template <int D, class T, class Base>
+__device__ __forceinline__ void dkv_cta_wide(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
+    const BwdParams& p, const int* __restrict__ work, const DkvSplit& split,
+    unsigned char* smem) {
+  static_assert(Base::kLseMul == 1.f, "dk/dv reads lse as the base's own");
+  using L = DkvWideSmem<D>;
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const int* item = work + 3 * blockIdx.x;
+  const int bkv = item[0], kt = item[1], part = item[2];
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  const int heads = p.H / p.KVH / split.parts;
+  const int h0 = kvh * (p.H / p.KVH) + part * heads;
+  const int n_qt = ceil_div(p.S, kBwdTile);
+  // Causal: q tiles from the diagonal one, kt (kt's rows start before S).
+  const int i0 = p.causal ? kt : 0;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kRing; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (L::kRing + i), kConsumers);
+    }
+    mbar_init(bars + 16 * L::kRing, 1);  // K and V
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      dkv_wide_producer<D>(tq, tdo, tk, tv, tlse, tdlt, p, base, b, kvh, kt,
+                           h0, heads, i0, n_qt);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
+  float acc[D / 2];
+  if (threadIdx.x < 256) {
+    dkv_wide_consumer<D, T, Base, false>(acc, p, base, kt, heads, i0, n_qt);
+    dkv_wide_store<D, T>(acc, 1.f, p.dv, p, split, base, 0, off, bkv, kt,
+                         part);
+  } else {
+    dkv_wide_consumer<D, T, Base, true>(acc, p, base, kt, heads, i0, n_qt);
+    dkv_wide_store<D, T>(acc, p.scale, p.dk, p, split, base, 1, off, bkv,
+                         kt, part);
+  }
+}
+
 // ----------------------------------------------------------------- host
 
 // A map of the (B * H, S) fp32 rows of lse or delta, as dimensions (S,
@@ -882,10 +1237,12 @@ inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
 }
 
 // Encodes dk/dv's six maps and launches `kernel` (an instance of dkv_cta)
-// over the B * KVH * ceil(S / 128) items of `work`.
-template <int D, class T, class Kernel>
+// over the B * KVH * ceil(S / 128) items of `work`; `extra` follows the
+// work list (the triangular and streamed kernels' DkvSplit, unused here).
+template <int D, class T, class Kernel, class... Extra>
 inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
-                      const int* work, cudaStream_t stream) {
+                      const int* work, cudaStream_t stream,
+                      const Extra&... extra) {
   CUtensorMap tq, tdo, tk, tv, tlse, tdlt;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
                            kBwdTile);
@@ -905,8 +1262,55 @@ inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
   if (e != cudaSuccess) return (int)e;
   const int items = B * p.KVH * ceil_div(p.S, kBwdRows);
   kernel<<<items, kFwdThreads, DkvSmem<D>::kBytes, stream>>>(
-      tq, tdo, tk, tv, tlse, tdlt, p, work);
+      tq, tdo, tk, tv, tlse, tdlt, p, work, extra...);
   return (int)cudaGetLastError();
+}
+
+// Encodes dkv_cta_wide's six maps (K and V in kWideRows-row boxes) and
+// launches `kernel` over the B * KVH * ceil(S / 64) * P items of `work`.
+template <int D, class T, class Kernel>
+inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
+                           const int* work, const DkvSplit& split,
+                           cudaStream_t stream) {
+  using L = DkvWideSmem<D>;
+  CUtensorMap tq, tdo, tk, tv, tlse, tdlt;
+  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
+                           kBwdTile);
+  if (!err)
+    err = encode_rows<T>(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
+                         p.do_sb, kBwdTile);
+  if (!err)
+    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
+                         kWideRows);
+  if (!err)
+    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
+                         kWideRows);
+  if (!err) err = encode_stats(&tlse, p.lse, p.S, B * p.H);
+  if (!err) err = encode_stats(&tdlt, p.delta, p.S, B * p.H);
+  if (err) return err;
+  const cudaError_t e = allow_smem(kernel, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int items = B * p.KVH * ceil_div(p.S, kWideRows) * split.parts;
+  kernel<<<items, kFwdThreads, L::kBytes, stream>>>(tq, tdo, tk, tv, tlse,
+                                                    tdlt, p, work, split);
+  return (int)cudaGetLastError();
+}
+
+// The triangular and streamed dk/dv: dkv_cta's launch at head_dim 64 and
+// 128 (P must be 1), dkv_cta_wide's at 256. P must divide H / KVH.
+template <int D, class T, class Kernel>
+inline int launch_dkv_split(Kernel kernel, const BwdParams& p, int B,
+                            const int* work, const DkvSplit& split,
+                            cudaStream_t stream) {
+  if (split.parts < 1 || split.parts > kMaxParts ||
+      (p.H / p.KVH) % split.parts ||
+      (D <= 128 && split.parts != 1) || (split.parts > 1 &&
+                                         (!split.ws || !split.tickets)))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (D > 128)
+    return launch_dkv_wide<D, T>(kernel, p, B, work, split, stream);
+  else
+    return launch_dkv<D, T>(kernel, p, B, work, stream, split);
 }
 
 template <int D, class T, class Kernel>
@@ -919,6 +1323,15 @@ template <int D, class T, class Kernel>
 inline int dkv_attrs(Kernel kernel, int* out) {
   return kernel_attrs(kernel, DkvSmem<D>::kBytes, kFwdThreads,
                       kProducerRegs, kConsumerRegs, out);
+}
+
+// The triangular and streamed dk/dv's (dkv_cta_wide's shared memory at
+// head_dim 256).
+template <int D, class T, class Kernel>
+inline int dkv_split_attrs(Kernel kernel, int* out) {
+  return kernel_attrs(kernel,
+                      D > 128 ? DkvWideSmem<D>::kBytes : DkvSmem<D>::kBytes,
+                      kFwdThreads, kProducerRegs, kConsumerRegs, out);
 }
 
 }  // namespace sm90

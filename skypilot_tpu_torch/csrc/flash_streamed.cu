@@ -46,8 +46,8 @@
 //   stay in shared memory (kRegA = 0: their fragments would take 128
 //   registers beside dq's 128);
 // - dk/dv, dkv_cta as the resident instance runs it, in lockstep (its
-//   consumers offset half a tile measured no faster; two sweeps at head_dim
-//   256).
+//   consumers offset half a tile measured no faster); at head_dim 256
+//   dkv_cta_wide, as the triangular family's, in natural exp.
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -84,9 +84,14 @@ flash_dkv_streamed_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tlse,
                           const __grid_constant__ CUtensorMap tdlt,
-                          const BwdParams p, const int* __restrict__ work) {
+                          const BwdParams p, const int* __restrict__ work,
+                          const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dkv_cta<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
+  if constexpr (D > 128)
+    sm90::dkv_cta_wide<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work,
+                                     split, smem);
+  else
+    sm90::dkv_cta<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
 }
 
 }  // namespace
@@ -132,23 +137,30 @@ extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
                  static_cast<cudaStream_t>(stream));
 }
 
-// work: B*KVH*ceil(S/128) (b*KVH, 128-row kv tile) int32 pairs. strides:
-// q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D), of the
-// inputs' type; lse and delta (B, H, S) fp32 are read through tensor maps.
+// work: at head_dim 64 and 128, B*KVH*ceil(S/128) (b*KVH, 128-row kv tile)
+// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row
+// kv tile, part) triples, parts dividing H / KVH, and with parts > 1 an
+// fp32 workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64)
+// int32 tickets, zero (dkv_cta_wide). strides: q, k, v, dO. dk and dv are
+// written contiguous (B, S, KVH, D), of the inputs' type; lse and delta
+// (B, H, S) fp32 are read through tensor maps.
 extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, const void* work,
+                                       void* ws, void* tickets,
                                        const long long* strides, int B, int S,
                                        int H, int KVH, int D, int dtype,
-                                       float scale, int causal,
+                                       float scale, int causal, int parts,
                                        void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, causal);
-  STPU_SM90_BY_D(D, dtype, launch_dkv, flash_dkv_streamed_kernel, p, B,
-                 static_cast<const int*>(work),
+  const sm90::DkvSplit split = {static_cast<float*>(ws),
+                                static_cast<int*>(tickets), parts, B};
+  STPU_SM90_BY_D(D, dtype, launch_dkv_split, flash_dkv_streamed_kernel, p, B,
+                 static_cast<const int*>(work), split,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -165,5 +177,6 @@ extern "C" int stpu_flash_dq_streamed_attrs(int D, int dtype, int* out) {
 }
 
 extern "C" int stpu_flash_dkv_streamed_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D(D, dtype, dkv_attrs, stpu::flash_dkv_streamed_kernel, out);
+  STPU_SM90_BY_D(D, dtype, dkv_split_attrs, stpu::flash_dkv_streamed_kernel,
+                 out);
 }

@@ -24,8 +24,11 @@
 // product from registers, the GQA group of dk/dv summed in registers
 // without atomics), instanced in base 2. Each kernel has a bf16 and an
 // f16 instance at head_dim 64, 128 and 256 (Gemma's, on the bodies' wide
-// paths: the forward's 64-row K/V tiles, the backward's one-stage ring and
-// dk/dv's two sweeps; the JAX dispatcher sends Gemma here past S 2048).
+// paths: the forward's 64-row K/V tiles, dq's one-stage ring, and
+// dkv_cta_wide for dk/dv: one 64-row kv tile per CTA, dv and dk in separate
+// consumers, the GQA group split in P parts across CTAs and summed in part
+// order by the last to finish; the JAX dispatcher sends Gemma here past S
+// 2048).
 //
 // Schedule: the TPU kernels walk scalar-prefetched maps of the lower-
 // triangle block pairs (_tri_maps_row, _tri_maps_col). Here the host builds
@@ -37,7 +40,9 @@
 // Inside an item the loop stops at the diagonal, so no fully masked tile is
 // loaded, and only the straddling tile runs the masked step. The forward's
 // and dq's lists count 128-row q tiles (dq's pairs against 64-row KV
-// tiles), dk/dv's 128-row kv tiles (pairs against 64-row q tiles).
+// tiles), dk/dv's 128-row kv tiles (pairs against 64-row q tiles), and at
+// head_dim 256 (kv tile, part) items of 64-row kv tiles
+// (dkv_wide_schedule).
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -72,9 +77,14 @@ flash_dkv_tri_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tlse,
                      const __grid_constant__ CUtensorMap tdlt,
-                     const BwdParams p, const int* __restrict__ work) {
+                     const BwdParams p, const int* __restrict__ work,
+                     const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dkv_cta<D, T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
+  if constexpr (D > 128)
+    sm90::dkv_cta_wide<D, T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work,
+                                     split, smem);
+  else
+    sm90::dkv_cta<D, T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work, smem);
 }
 
 }  // namespace
@@ -116,22 +126,28 @@ extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
                  static_cast<cudaStream_t>(stream));
 }
 
-// work: B*KVH*ceil(S/128) (b*KVH, 128-row kv tile) int32 pairs. strides:
-// q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D), of the
-// inputs' type.
+// work: at head_dim 64 and 128, B*KVH*ceil(S/128) (b*KVH, 128-row kv tile)
+// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row
+// kv tile, part) triples, parts dividing H / KVH, and with parts > 1 an
+// fp32 workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64)
+// int32 tickets, zero (dkv_cta_wide). strides: q, k, v, dO. dk and dv are
+// written contiguous (B, S, KVH, D), of the inputs' type.
 extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, const void* work,
+                                  void* ws, void* tickets,
                                   const long long* strides, int B, int S,
                                   int H, int KVH, int D, int dtype,
-                                  float scale, void* stream) {
+                                  float scale, int parts, void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
                                  dk, dv, strides, S, H, KVH, scale, 1);
-  STPU_SM90_BY_D(D, dtype, launch_dkv, flash_dkv_tri_kernel, p, B,
-                 static_cast<const int*>(work),
+  const sm90::DkvSplit split = {static_cast<float*>(ws),
+                                static_cast<int*>(tickets), parts, B};
+  STPU_SM90_BY_D(D, dtype, launch_dkv_split, flash_dkv_tri_kernel, p, B,
+                 static_cast<const int*>(work), split,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -147,5 +163,6 @@ extern "C" int stpu_flash_dq_tri_attrs(int D, int dtype, int* out) {
 }
 
 extern "C" int stpu_flash_dkv_tri_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D(D, dtype, dkv_attrs, stpu::flash_dkv_tri_kernel, out);
+  STPU_SM90_BY_D(D, dtype, dkv_split_attrs, stpu::flash_dkv_tri_kernel,
+                 out);
 }

@@ -35,12 +35,16 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, dtype, scale, causal,
 # stream), dtype being the element type's code (DTYPES); the triangular
 # family is causal only; every Hopper kernel (all but the fp32 kernels)
-# takes its work list as the last pointer; the fp32 kernels take no dtype.
+# takes its work list after its tensors; the triangular and streamed
+# dk/dv then take their split workspace and tickets, and their number of
+# parts after the scale (and causal flag); the fp32 kernels take no dtype.
 # The *_attrs entries fill five ints for a Hopper kernel at a head_dim and
 # dtype: registers at launch, dynamic shared memory, threads, producer and
 # consumer registers (setmaxnreg).
 _TAIL = [_STRIDES, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_SPLIT_TAIL = _TAIL[:-1] + [_I, _P]
+_TRI_SPLIT_TAIL = _TRI_TAIL[:-1] + [_I, _P]
 _F32_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _ATTRS = [_I, _I, ctypes.POINTER(_I)]
 SIGNATURES = {
@@ -54,13 +58,13 @@ SIGNATURES = {
                   "stpu_flash_fwd_tri_attrs": _ATTRS,
                   "stpu_flash_dq_tri": [_P] * 9 + _TRI_TAIL,
                   "stpu_flash_dq_tri_attrs": _ATTRS,
-                  "stpu_flash_dkv_tri": [_P] * 9 + _TRI_TAIL,
+                  "stpu_flash_dkv_tri": [_P] * 11 + _TRI_SPLIT_TAIL,
                   "stpu_flash_dkv_tri_attrs": _ATTRS},
     "flash_streamed": {"stpu_flash_fwd_streamed": [_P] * 6 + _TAIL,
                        "stpu_flash_fwd_streamed_attrs": _ATTRS,
                        "stpu_flash_dq_streamed": [_P] * 9 + _TAIL,
                        "stpu_flash_dq_streamed_attrs": _ATTRS,
-                       "stpu_flash_dkv_streamed": [_P] * 9 + _TAIL,
+                       "stpu_flash_dkv_streamed": [_P] * 11 + _SPLIT_TAIL,
                        "stpu_flash_dkv_streamed_attrs": _ATTRS},
     "flash_f32": {"stpu_flash_fwd_f32": [_P] * 5 + _F32_TAIL,
                   "stpu_flash_dq_f32": [_P] * 8 + _F32_TAIL,

@@ -38,6 +38,11 @@ instance each); f32 inputs take three fp32 kernels of their own
   ``flash_fwd_streamed``, ``flash_dq_streamed`` and ``flash_dkv_streamed``
   over the resident work lists.
 
+At head_dim 256 the triangular and streamed dk/dv run a CTA of their own
+(``dkv_cta_wide``): 64-row kv tiles, and the GQA group split in
+``dkv_parts`` parts across CTAs (``dkv_wide_schedule``), whose fp32
+partials the last CTA of each kv tile sums in part order.
+
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
 triangular family for causal attention past it, the streamed family for
@@ -67,6 +72,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+import heapq
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -83,6 +90,18 @@ FWD_TILE = 128
 # too; kBwdTile).
 BWD_TILE = 128
 BWD_INNER = 64
+# kv rows per CTA of the triangular and streamed dk/dv at head_dim 256
+# (csrc/flash_bwd_sm90.cuh dkv_cta_wide, kWideRows), walked against
+# BWD_INNER-row q tiles.
+WIDE_KV_TILE = 64
+# The most parts it splits a GQA group in (kMaxParts), and the partials'
+# bytes that cost the time of one tile step (five 64 x 64 x 256
+# products): the scale in which dkv_parts weighs the partials' traffic
+# against the work list's makespan. Fitted by least squares to 43
+# timings, every P at 11 shapes, on an H100 SXM at 700 W
+# (tools/flash_dkv_variants.py: 2.01 us a step, partials at 1.84 TB/s).
+MAX_PARTS = 8
+WIDE_STEP_BYTES = 3.69e6
 # S must be a multiple of this: the JAX package only sends such S to its
 # kernels (its blocks are multiples of 8), and the dk/dv kernels read lse
 # and delta through a tensor map whose rows (4 * S bytes) a TMA copy needs
@@ -90,7 +109,7 @@ BWD_INNER = 64
 SEQ_MULTIPLE = 8
 # The kernel widths, of every family and of the fp32 kernels (256 on the
 # Hopper bodies' wide paths: csrc/flash_fwd_sm90.cuh fwd_consumer_wide,
-# flash_bwd_sm90.cuh bwd_ring and dkv_consumer_sweeps).
+# flash_bwd_sm90.cuh bwd_ring, dkv_consumer_sweeps and dkv_cta_wide).
 HEAD_DIMS = (64, 128, 256)
 # The kernels' element types, by the code their C entries take.
 _DTYPE_CODES = {torch.bfloat16: _build.DTYPES["bf16"],
@@ -360,6 +379,69 @@ def tri_schedule(kind: str, n_rows: int, s: int,
     return work
 
 
+def dkv_wide_schedule(n_rows: int, s: int, parts: int,
+                      device: Optional[torch.device] = None
+                      ) -> torch.Tensor:
+    """The work list of the triangular and streamed dk/dv at head_dim 256
+    (``dkv_cta_wide``), (n_rows * ceil(S / WIDE_KV_TILE) * parts, 3)
+    int32: one (row, kv tile, part) item per CTA, a row being b * KVH +
+    kvh and part p the p-th of ``parts`` equal slices of the GQA group.
+    Items are sorted by the causal tile pairs of their kv tile, from the
+    JAX package's own enumeration (``_tri_maps_col``) at WIDE_KV_TILE x
+    BWD_INNER tiles, longest first across all rows; a tile's parts stay
+    together. One list serves both causal modes (a non-causal launch's
+    items all cost the same). Built once per shape and device."""
+    key = ("wide", n_rows, s, str(device), parts)
+    work = _SCHEDULES.get(key)
+    if work is not None:
+        return work
+    nt, ni = -(-s // WIDE_KV_TILE), -(-s // BWD_INNER)
+    tiles, _, _ = _tri_maps_col(ni, nt, BWD_INNER, WIDE_KV_TILE, 1)
+    pairs = collections.Counter(tiles)
+    items = sorted(((r, t, p) for t in range(nt) for r in range(n_rows)
+                    for p in range(parts)), key=lambda it: -pairs[it[1]])
+    work = torch.tensor(items, dtype=torch.int32, device=device)
+    _SCHEDULES[key] = work
+    return work
+
+
+def dkv_parts_cost(b: int, s: int, kvh: int, groups: int, causal: bool,
+                   sms: int, parts: int) -> Tuple[int, float]:
+    """The modelled time of the width-256 dk/dv with the GQA group of
+    ``groups`` query heads in ``parts`` parts, in tile steps (one q tile
+    of one head against a kv tile): (the makespan of its longest-first
+    work list dealt to ``sms`` SMs as each frees, one CTA an SM, each item
+    its steps plus one for its K/V load; the partials' traffic with P > 1,
+    dk's and dv's fp32 planes of B x S x KVH x 256 written and read once
+    per part, in WIDE_STEP_BYTES)."""
+    n = -(-s // WIDE_KV_TILE)
+    heads = groups // parts
+    loads = [0] * sms
+    for kt in range(n):
+        cost = heads * (n - kt if causal else n) + 1
+        for _ in range(b * kvh * parts):
+            heapq.heappush(loads, heapq.heappop(loads) + cost)
+    plane = b * s * kvh * 256 * 4
+    traffic = 0.0 if parts == 1 else 4 * parts * plane / WIDE_STEP_BYTES
+    return max(loads), traffic
+
+
+@functools.lru_cache(maxsize=None)
+def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
+              sms: int) -> int:
+    """P, the parts the GQA group of ``groups`` query heads is split in
+    across the CTAs of the width-256 triangular and streamed dk/dv: the
+    divisor of the group, up to MAX_PARTS, of least ``dkv_parts_cost``
+    (the least such divisor on a tie). Fewer parts leave the card part
+    idle behind the longest items; more add partials to write and sum.
+    P = 1 where the shape alone fills the card (MHA; a batch of 8 at
+    2048, MQA)."""
+    divisors = [p for p in range(1, min(groups, MAX_PARTS) + 1)
+                if groups % p == 0]
+    return min(divisors, key=lambda p: sum(
+        dkv_parts_cost(b, s, kvh, groups, causal, sms, p)))
+
+
 def bwd_schedule(kind: str, n_rows: int, s: int,
                  device: Optional[torch.device] = None) -> torch.Tensor:
     """The Hopper backward's work list (every dq, "rows" over B * H, and
@@ -504,8 +586,8 @@ def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
     lib = _build.library(source)
     with torch.cuda.device(q.device):
         err = getattr(lib, f"stpu_{name}")(
-            *(t.data_ptr() for t in ptrs), strides, b, s, h, kvh, d, *tail,
-            _stream(q))
+            *(None if t is None else t.data_ptr() for t in ptrs), strides, b,
+            s, h, kvh, d, *tail, _stream(q))
     _raise_on(err, name)
     LAUNCHES[name] += 1
 
@@ -539,18 +621,60 @@ def _dq_call(name: str, source: str, q, k, v, o, lse, do, causal, scale,
     return dq, delta
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dkv_wide_buffers(q, kvh: int, parts: int):
+    """(work list, workspace, tickets) of a width-256 triangular or
+    streamed dk/dv launch split in ``parts``: ``dkv_wide_schedule``'s
+    list, and with P > 1 the fp32 partials' workspace, (2, P, B, S, KVH,
+    D) from the caching allocator, and the kv tiles' tickets, zeroed
+    (None, None at P = 1)."""
+    b, s, _, d = q.shape
+    work = dkv_wide_schedule(b * kvh, s, parts, q.device)
+    if parts == 1:
+        return work, None, None
+    ws = torch.empty((2, parts, b, s, kvh, d), dtype=torch.float32,
+                     device=q.device)
+    tickets = torch.zeros(2 * b * kvh * -(-s // WIDE_KV_TILE),
+                          dtype=torch.int32, device=q.device)
+    return work, ws, tickets
+
+
+def _dkv_split(q, kvh: int, causal: bool):
+    """(work list, workspace, tickets, P) of a triangular or streamed dk/dv
+    launch: at head_dim 64 and 128 the "cols" list of ``bwd_schedule`` and
+    P = 1; at 256 ``dkv_wide_buffers`` at P = ``dkv_parts`` of the shape
+    and the card's SM count."""
+    b, s, h, d = q.shape
+    if d <= 128:
+        return bwd_schedule("cols", b * kvh, s, q.device), None, None, 1
+    parts = dkv_parts(b, s, kvh, h // kvh, causal, _sm_count(q.device))
+    return (*dkv_wide_buffers(q, kvh, parts), parts)
+
+
 def _dkv_call(name: str, source: str, q, k, v, do, lse, delta, causal,
-              scale, scheduled: bool = False):
+              scale, flags: Tuple[int, ...], split: bool = False):
+    """A dk/dv launch: ``flags`` follow the scale in its C entry (the
+    causal flag, where it takes one). Over ``bwd_schedule``'s "cols"
+    list, or, ``split`` (the triangular and streamed kernels), over
+    ``_dkv_split``'s list, workspace and tickets, with P last."""
     _check_inputs(q, k, v, do, lse, delta)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
     ptrs = [q, k, v, do, lse, delta, dk, dv]
-    if scheduled:
+    tail = [_DTYPE_CODES[q.dtype], float(scale), *flags]
+    if split:
+        work, ws, tickets, parts = _dkv_split(q, kvh, causal)
+        ptrs += [work, ws, tickets]
+        tail.append(parts)
+    else:
         ptrs.append(bwd_schedule("cols", b * kvh, s, q.device))
-    _launch(name, source, ptrs, _strides(q, k, v, do), q, kvh,
-            _DTYPE_CODES[q.dtype], float(scale), int(causal))
+    _launch(name, source, ptrs, _strides(q, k, v, do), q, kvh, *tail)
     return dk, dv
 
 
@@ -578,9 +702,10 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dk/dv (the Hopper dk/dv over 128-row kv tiles, longest
-    first): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group summed."""
+    first; at head_dim 256 in two sweeps): (dk, dv) (B,S,KVH,D) of k's
+    dtype, the GQA group summed."""
     return _dkv_call("flash_dkv", "flash_bwd", q, k, v, do, lse, delta,
-                     causal, scale, scheduled=True)
+                     causal, scale, (int(causal),))
 
 
 def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -610,10 +735,12 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        delta: torch.Tensor, causal: bool, scale: float
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed-family kernel dk/dv (the Hopper dk/dv body, the resident
-    instance's, in lockstep, over 128-row kv tiles, longest first): (dk,
-    dv) (B,S,KVH,D) of k's dtype, the GQA group summed."""
+    instance's, in lockstep, over 128-row kv tiles, longest first; at
+    head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts of the
+    GQA group, ``_dkv_split``): (dk, dv) (B,S,KVH,D) of k's dtype, the
+    GQA group summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
-                     lse, delta, causal, scale, scheduled=True)
+                     lse, delta, causal, scale, (int(causal),), split=True)
 
 
 def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
@@ -660,17 +787,11 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dk/dv (the Hopper dk/dv over 128-row kv
-    tiles, longest first): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA
-    group summed."""
-    _check_inputs(q, k, v, do, lse, delta)
-    b, s, h, d = q.shape
-    kvh = k.shape[2]
-    dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
-    work = bwd_schedule("cols", b * kvh, s, q.device)
-    _tri_call("flash_dkv_tri", (q, k, v, do, lse, delta, dk, dv),
-              _strides(q, k, v, do), work, scale)
-    return dk, dv
+    tiles, longest first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv
+    tiles and parts of the GQA group, ``_dkv_split``): (dk, dv)
+    (B,S,KVH,D) of k's dtype, the GQA group summed."""
+    return _dkv_call("flash_dkv_tri", "flash_tri", q, k, v, do, lse, delta,
+                     True, scale, (), split=True)
 
 
 def flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

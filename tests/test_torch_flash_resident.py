@@ -118,6 +118,7 @@ def test_resident_lists_at_the_slice_shape(kind, n_rows):
     ("flash_bwd.cu", "sm90::dkv_cta<D, T, BaseE>"),
     ("flash_tri.cu", "sm90::dq_cta<D, T, Base2>"),
     ("flash_tri.cu", "sm90::dkv_cta<D, T, Base2>"),
+    ("flash_tri.cu", "sm90::dkv_cta_wide<D, T, Base2>"),
 ])
 def test_backward_kernels_instantiate_the_hopper_body(source, body):
     # Both backward families are instances of flash_bwd_sm90.cuh's bodies

@@ -196,6 +196,7 @@ def test_streamed_plain_matches_resident_plain(causal):
     "sm90::fwd_cta<D, T, /*kNaturalLse=*/true",
     "sm90::dq_cta<D, T, BaseE",
     "sm90::dkv_cta<D, T, BaseE",
+    "sm90::dkv_cta_wide<D, T, BaseE>",
 ])
 def test_streamed_kernels_instantiate_the_hopper_bodies(body):
     # All three streamed kernels are instances of the Hopper bodies (the
@@ -266,18 +267,22 @@ def test_streamed_family_reaches_its_kernels_with_work_lists(causal,
         ("flash_fwd_streamed", "flash_streamed"),
         ("flash_dq_streamed", "flash_streamed"),
         ("flash_dkv_streamed", "flash_streamed")]
-    for _, _, ptrs, n_kv, tail in launches:
+    for name, _, ptrs, n_kv, tail in launches:
         assert n_kv == kvh
+        # dk/dv also takes its number of parts of the GQA group: 1 below
+        # head_dim 256.
         assert tail == (fa_torch._DTYPE_CODES[torch.bfloat16], 0.125,
-                        int(causal))
-    # The work list is the last pointer, the only int32 one.
-    lists = {n: [t for t in ptrs if t.dtype == torch.int32]
+                        int(causal)) + ((1,) if name == "flash_dkv_streamed"
+                                        else ())
+    # The work list follows the tensors, the only int32 one; after dk/dv's
+    # come its split workspace and tickets, null at P = 1.
+    lists = {n: [t for t in ptrs if t is not None and t.dtype == torch.int32]
              for n, _, ptrs, _, _ in launches}
     (fwd_work,) = lists["flash_fwd_streamed"]
     (dq_work,) = lists["flash_dq_streamed"]
     (dkv_work,) = lists["flash_dkv_streamed"]
-    assert all(work is launch[2][-1] for work, launch in
-               zip((fwd_work, dq_work, dkv_work), launches))
+    assert fwd_work is launches[0][2][-1] and dq_work is launches[1][2][-1]
+    assert launches[2][2][-3:] == [dkv_work, None, None]
     assert torch.equal(fwd_work, fa_torch.tri_schedule(
         "rows", b * h, s, tile=fa_torch.FWD_TILE, inner=fa_torch.FWD_TILE))
     assert torch.equal(dq_work, fa_torch.bwd_schedule("rows", b * h, s))
@@ -287,3 +292,79 @@ def test_streamed_family_reaches_its_kernels_with_work_lists(causal,
                                (dkv_work, b * kvh, fa_torch.BWD_TILE)):
         assert sorted(map(tuple, work.tolist())) == [
             (r, t) for r in range(n_rows) for t in range(-(-s // tile))]
+
+
+def _spy_dkv(monkeypatch, wrapper, b, s, h, kvh, d, *flag):
+    """One call of dk/dv ``wrapper`` on bf16 CPU tensors that claim to be
+    on the card (every input check kept, 132 SMs): (pointers, tail) of its
+    launch."""
+    launches = []
+    check = fa_torch._check_inputs
+
+    def on_card(*ts, **kw):
+        check(*(t.as_subclass(_OnCard) for t in ts), **kw)
+
+    monkeypatch.setattr(fa_torch, "_check_inputs", on_card)
+    monkeypatch.setattr(fa_torch, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(fa_torch, "_launch", lambda name, source, ptrs,
+                        strides, q, n_kv, *tail: launches.append(
+                            (name, list(ptrs), tail)))
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+        for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d),
+                      (b, s, h, d)))
+    lse = torch.zeros(b, h, s)
+    getattr(fa_torch, wrapper)(q, k, v, do, lse, lse, *flag, 0.0625)
+    ((name, ptrs, tail),) = launches
+    assert name == wrapper
+    return ptrs, tail
+
+
+@pytest.mark.parametrize("wrapper,flag,shape", [
+    # MQA past a few waves: P > 1 (8 at S 512, causal or not).
+    ("flash_dkv_tri", (), (1, 512, 8, 1)),
+    ("flash_dkv_streamed", (False,), (1, 520, 8, 1)),
+    ("flash_dkv_streamed", (True,), (1, 512, 8, 2)),
+    # MHA: one head a group, P = 1.
+    ("flash_dkv_tri", (), (1, 264, 4, 4)),
+])
+def test_width_256_dkv_launches_carry_the_split_list(monkeypatch, wrapper,
+                                                     flag, shape):
+    # At head_dim 256 the triangular and streamed dk/dv launch
+    # dkv_cta_wide over dkv_wide_schedule's list at the shape's P
+    # (dkv_parts), then, with P > 1, an fp32 workspace (2, P, B, S, KVH,
+    # D) for the parts' partials and the kv tiles' tickets (two each,
+    # zero), null at P = 1; the tail ends in P.
+    b, s, h, kvh = shape
+    causal = flag[0] if flag else True
+    parts = fa_torch.dkv_parts(b, s, kvh, h // kvh, causal, 132)
+    ptrs, tail = _spy_dkv(monkeypatch, wrapper, b, s, h, kvh, 256, *flag)
+    work, ws, tickets = ptrs[8:]
+    assert tail[-1] == parts and len(ptrs) == 11
+    assert torch.equal(work, fa_torch.dkv_wide_schedule(b * kvh, s, parts))
+    if parts == 1:
+        assert kvh == h and ws is None and tickets is None
+        return
+    assert ws.shape == (2, parts, b, s, kvh, 256)
+    assert ws.dtype == torch.float32
+    assert tickets.dtype == torch.int32 and not tickets.any()
+    assert tickets.numel() == 2 * b * kvh * -(-s // fa_torch.WIDE_KV_TILE)
+
+
+@pytest.mark.parametrize("wrapper,flag,d", [
+    ("flash_dkv", (True,), 256), ("flash_dkv", (False,), 128),
+    ("flash_dkv_tri", (), 128), ("flash_dkv_tri", (), 64),
+    ("flash_dkv_streamed", (False,), 128)])
+def test_other_dkv_launches_keep_the_cols_list(monkeypatch, wrapper, flag,
+                                               d):
+    # The resident dk/dv at every width, and the triangular and streamed
+    # ones below 256, walk bwd_schedule's "cols" list (128-row kv tiles):
+    # no split, P = 1 where the launch takes it.
+    b, s, h, kvh = 1, 264, 8, 1
+    ptrs, tail = _spy_dkv(monkeypatch, wrapper, b, s, h, kvh, d, *flag)
+    work = [t for t in ptrs if t is not None and t.dtype == torch.int32]
+    assert len(work) == 1
+    assert torch.equal(work[0], fa_torch.bwd_schedule("cols", b * kvh, s))
+    if wrapper != "flash_dkv":
+        assert ptrs[-2:] == [None, None] and tail[-1] == 1

@@ -218,6 +218,145 @@ def test_col_schedule_covers_the_triangle(n_rows, s, tile, inner):
     assert sum(cost) == n_rows * len(ks)
 
 
+# The width-256 triangular and streamed dk/dv (dkv_cta_wide): 64-row kv
+# tiles against 64-row q tiles, each (row, kv tile) in P parts of the GQA
+# group.
+_WT = fa_torch.WIDE_KV_TILE
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("parts", [1, 2, 4])
+@pytest.mark.parametrize("s", [200, 4136, 4160, 8192])
+def test_wide_dkv_schedule_covers_every_part(s, parts, causal):
+    # Every (row, kv tile, part) once, the longest items first, costed in
+    # q tiles per head from the kernel's loop bounds (causal: from the
+    # diagonal tile kt): causal, they sum to n_rows x P x the JAX
+    # enumeration's pairs at 64 x 64 tiles; not causal, every item walks
+    # every q tile.
+    n_rows = 3
+    work = fa_torch.dkv_wide_schedule(n_rows, s, parts).tolist()
+    nt, ni = _ceil(s, _WT), _ceil(s, fa_torch.BWD_INNER)
+    assert sorted(map(tuple, work)) == [(r, t, p) for r in range(n_rows)
+                                        for t in range(nt)
+                                        for p in range(parts)]
+    cost = [ni - (t if causal else 0) for _, t, _ in work]
+    assert cost == sorted(cost, reverse=True)
+    ks, _, _ = fa_jax._tri_maps_col(ni, nt, fa_torch.BWD_INNER, _WT, 1)
+    assert sum(cost) == n_rows * parts * (len(ks) if causal else nt * ni)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,causal,want", [
+    # Gemma-2B at its context ([gemma_long], triangular): 256 items.
+    (1, 8192, 8, 1, True, 2),
+    # The streamed width-256 main shape, non-causal: 128 items.
+    (1, 4096, 8, 1, False, 2),
+    # Causal at 4096 (the op's [wide op] shape): the shorter triangle
+    # needs smaller items.
+    (1, 4096, 8, 1, True, 4),
+    # Shapes that fill the card alone: Gemma-7B's MHA, a batch of 8.
+    (1, 4096, 16, 16, True, 1),
+    (8, 2048, 8, 1, True, 1),
+])
+def test_dkv_parts_at_the_main_shapes(b, s, h, kvh, causal, want):
+    assert fa_torch.dkv_parts(b, s, kvh, h // kvh, causal, 132) == want
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 6, 8, 12, 16])
+@pytest.mark.parametrize("s,causal", [(200, True), (4160, True),
+                                      (8192, True), (4136, False),
+                                      (16384, False)])
+def test_dkv_parts_is_the_least_cost_divisor(groups, s, causal):
+    # P divides G, is at most MAX_PARTS, and has the least modelled cost
+    # of all such divisors; each divisor's makespan lies within list
+    # scheduling's bounds (at least the longest item and an SM's mean
+    # share, at most their sum), and only a split pays for partials.
+    sms = 132
+    parts = fa_torch.dkv_parts(1, s, 1, groups, causal, sms)
+    assert groups % parts == 0 and parts <= fa_torch.MAX_PARTS
+    n = _ceil(s, _WT)
+    costs = {}
+    for p in range(1, min(groups, fa_torch.MAX_PARTS) + 1):
+        if groups % p:
+            continue
+        makespan, traffic = fa_torch.dkv_parts_cost(1, s, 1, groups, causal,
+                                                    sms, p)
+        items = [groups // p * (n - (t if causal else 0)) + 1
+                 for t in range(n) for _ in range(p)]
+        mean = sum(items) / sms
+        assert max(max(items), mean) <= makespan <= max(items) + mean
+        assert (traffic == 0) == (p == 1)
+        costs[p] = makespan + traffic
+    assert costs[parts] == min(costs.values())
+
+
+def _split_sum_plain(q, k, v, o, lse, do, causal, scale, base, parts):
+    """What the width-256 dk/dv's split computes, plainly: the (2, P, B,
+    S, KVH, D) fp32 partials its items hold (dv's, then dk's unscaled),
+    part p over the p-th of P equal slices of each KV head's query group,
+    from the family's lse (``base`` "2" or "e"); then (dk, dv) as the last
+    item of a kv tile sums them, part 0 + part 1 + ... in fp32, dk times
+    ``scale``."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    per = g // parts
+    exp, _, mul = fa_torch._BASES[base]
+    ws = torch.empty((2, parts, b, s, kvh, d), dtype=torch.float32)
+    for j in range(kvh):
+        sc = fa_torch._group_scores(q, k, j, causal, scale * mul)
+        for part in range(parts):
+            hs = slice(j * g + part * per, j * g + (part + 1) * per)
+            p = exp(sc[:, part * per:(part + 1) * per]
+                    - lse[:, hs, :, None])
+            dp = torch.einsum("bqgd,bkd->bgqk", do[:, :, hs], v[:, :, j])
+            delta = (do[:, :, hs] * o[:, :, hs]).sum(-1)
+            ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+            ws[0, part, :, :, j] = torch.einsum("bgqk,bqgd->bkd", p,
+                                                do[:, :, hs])
+            ws[1, part, :, :, j] = torch.einsum("bgqk,bqgd->bkd", ds,
+                                                q[:, :, hs])
+    dv, dk = ws[0, 0].clone(), ws[1, 0].clone()
+    for part in range(1, parts):
+        dv += ws[0, part]
+        dk += ws[1, part]
+    return dk * scale, dv
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+@pytest.mark.parametrize("fam,causal", [("tri", True), ("streamed", False),
+                                        ("streamed", True)])
+def test_split_sum_matches_jax_at_head_dim_256(fam, causal, parts):
+    # The plain counterpart of the width-256 dk/dv's split (each part's
+    # fp32 partials summed in part order) from the family's own lse
+    # (triangular base 2, streamed natural) against JAX's triangular or
+    # streamed backward, G = 4 over two KV heads.
+    q, k, v, do = _arrays(7 if fam == "tri" else 8, h=8, kvh=2, d=256)
+    scale = q.shape[-1] ** -0.5
+    qj, kj, vj, doj = map(jnp.asarray, (q, k, v, do))
+    blocks = dict(scale=scale, block_q=128, block_k=64)
+    if fam == "tri":
+        o_j, lse_pad = fa_jax._flash_fwd_tri(qj, kj, vj, keep_lse_pad=True,
+                                             **blocks)
+        _, dk_j, dv_j = fa_jax._flash_bwd_tri((qj, kj, vj, o_j, lse_pad),
+                                              doj, **blocks)
+    else:
+        o_j, lse_pad = fa_jax._flash_fwd_streamed(
+            qj, kj, vj, causal=causal, keep_lse_pad=True, **blocks)
+        _, dk_j, dv_j = fa_jax._flash_bwd_streamed(
+            (qj, kj, vj, o_j, lse_pad), doj, causal=causal, **blocks)
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    if fam == "tri":
+        o_t, lse_t = fa_torch.flash_fwd_tri_plain(qt, kt, vt, scale)
+    else:
+        o_t, lse_t = fa_torch.flash_fwd_streamed_plain(qt, kt, vt, causal,
+                                                       scale)
+    dk, dv = _split_sum_plain(qt, kt, vt, o_t, lse_t, dot, causal, scale,
+                              "2" if fam == "tri" else "e", parts)
+    for name, a, b in (("dk", dk, dk_j), ("dv", dv, dv_j)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+
+
 _CSRC = pathlib.Path(fa_torch.__file__).resolve().parents[1] / "csrc"
 
 
@@ -225,6 +364,8 @@ _CSRC = pathlib.Path(fa_torch.__file__).resolve().parents[1] / "csrc"
     ("flash_fwd_sm90.cuh", "kBM", fa_torch.FWD_TILE),
     ("flash_bwd_sm90.cuh", "kBwdRows", fa_torch.BWD_TILE),
     ("flash_bwd_sm90.cuh", "kBwdTile", fa_torch.BWD_INNER),
+    ("flash_bwd_sm90.cuh", "kWideRows", fa_torch.WIDE_KV_TILE),
+    ("flash_bwd_sm90.cuh", "kMaxParts", fa_torch.MAX_PARTS),
 ])
 def test_work_list_tiles_match_the_kernels(header, name, value):
     # The wrappers build each Hopper kernel's work list at its tiles: one

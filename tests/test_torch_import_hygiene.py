@@ -16,7 +16,8 @@ from skypilot_tpu_torch.models import llama as llama_torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "skypilot_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "torch_profile_step.py",
-    REPO / "tools" / "kernel_turns.py"]
+    REPO / "tools" / "kernel_turns.py",
+    REPO / "tools" / "flash_dkv_variants.py"]
 BANNED = ("jax", "jaxlib", "skypilot_tpu", "flax", "optax")
 
 

@@ -14,8 +14,13 @@ prints one line, `TIMES {"flash_fwd": [ms, MHz], ...}`. Parent, change,
 change, parent compares two trees on one card. Then, once per checkout,
 the SASS instruction count of each kernel instance (cuobjdump -sass of the
 libraries it built), and whether the instructions themselves are
-identical across the checkouts: a change to a shared body shows there
-before it shows in a time.
+identical across the checkouts, each branch label read as the index of
+the instruction it marks within its function (cuobjdump numbers labels
+across a whole library, so a change to one function renames the labels
+of every function after it; a branch to another instruction still reads
+as a difference); where they differ, the first pair of lines that
+differs. A change to a shared body
+shows there before it shows in a time.
 
 Imports nothing of JAX; needs a CUDA card, the CUDA toolkit and the
 checkouts' chip_smoke.py.
@@ -78,11 +83,29 @@ def instructions(checkout: pathlib.Path) -> dict:
         for part in text.split("Function : ")[1:]:
             m = KERNEL.search(part.split(None, 1)[0])
             if m:
-                code = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/ +(.*)$", part,
-                                  re.M)
+                code = _code(part)
                 counts[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = (
                     len(code), "\n".join(code))
     return counts
+
+
+def _code(part):
+    """One function's instructions without their addresses, each branch
+    label (.L_x_N) replaced by the index of the instruction its
+    definition line (".L_x_N:") precedes; a label defined nowhere in the
+    function keeps its name."""
+    code, at = [], {}
+    for line in part.splitlines():
+        label = re.match(r"^\s*(\.L_x_\d+):", line)
+        if label:
+            at[label.group(1)] = len(code)
+            continue
+        ins = re.match(r"^\s+/\*[0-9a-f]{4,}\*/ +(.*)$", line)
+        if ins:
+            code.append(ins.group(1))
+    return [re.sub(r"\.L_x_\d+", lambda m: (
+        f".L@{at[m.group(0)]}" if m.group(0) in at else m.group(0)), line)
+        for line in code]
 
 
 def main() -> int:
@@ -109,6 +132,11 @@ def main() -> int:
             f"{where} {n}" for where, (n, _) in zip(seen, got))
             + (" (instructions identical)" if same and len(got) > 1
                else ""), flush=True)
+        if not same and all(text for _, text in got):
+            first = next((pair for pair in zip(*(
+                text.splitlines() for _, text in got))
+                if len(set(pair)) > 1), None)
+            print(f"[sass]   first difference: {first}", flush=True)
     return rc
 
 
