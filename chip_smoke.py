@@ -39,13 +39,16 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    lse, dq) and KV rows (dk, dv) of every head, the plain lse and delta
    for the latter built in q chunks; then the three families at head_dim
    256 ([kernels d256]: the resident trio at Gemma-2B's 8 x 2048 MQA
-   shape, a ragged non-causal S and Gemma-7B's MHA at S = 200; the
-   triangular trio at Gemma-2B's 1 x 8192, Gemma-7B's MHA at 4096, and
-   S = 4136 and 4160; the streamed trio non-causal at 1 x 4096 and 4136;
-   each launch's items, P and shared memory printed, P being the parts of
-   the GQA group the triangular and streamed dk/dv split across CTAs)
-   against the plain versions, at each family's first shape the pair
-   bit-identical twice, f16 and times;
+   shape, a ragged non-causal S and Gemma-7B's MHA at S = 200, and its
+   backward pair past the budget at a ragged causal S = 4136 and at
+   4160 non-causal; the triangular trio at Gemma-2B's 1 x 8192,
+   Gemma-7B's MHA at 4096, and S = 4136 and 4160; the streamed trio
+   non-causal at 1 x 4096 and 4136; each launch's items, P and shared
+   memory printed, P being the parts of the GQA group every width-256
+   dk/dv splits across CTAs, and the resident dq's CTA shape) against
+   the plain versions, at each family's first shape the pair
+   bit-identical twice, f16 and times, and the resident pair's time
+   beside SDPA's whole backward;
    then the public attention op through autograd, with exactly one
    launch of each kernel of its family: at a ragged S (200) against the
    plain versions; at head_dim 16, 96 and 192 (zero-padded to the
@@ -260,6 +263,12 @@ PAD_OP_SHAPES = ((2, 256, 8, 4, 16, True), (1, 384, 8, 2, 96, True),
 WIDE_MAIN_SHAPE = (8, 2048, 8, 1, 256, True)
 WIDE_CHECK_SHAPES = (WIDE_MAIN_SHAPE, (2, 1000, 8, 1, 256, False),
                      (1, 200, 16, 16, 256, True))
+# The resident backward pair at width 256 past the budget (the op sends
+# such S to the triangular or streamed family; the kernels take any S): a
+# ragged causal S and a multiple of 64 that is not one of 128.
+WIDE_PAIR_SHAPES = ((1, 4136, 8, 1, 256, True), (1, 4160, 8, 1, 256, False))
+# The resident dq's CTA at width 256 (csrc/flash_bwd_sm90.cuh DqResident).
+WIDE_DQ_DESIGN = "DqWide: 128 q rows, 32-row K/V tiles in 3 stages"
 TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
 TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
                          (1, 4136, 8, 1, 256, True),
@@ -725,15 +734,16 @@ def phase_kernels(fa):
 
 def phase_kernels_wide(fa, records):
     """[kernels] at width 256: each family's trio (the forward's
-    fwd_consumer_wide, the dq with a one-stage ring and Q and dO in shared
-    memory; the resident dk/dv in two sweeps, the triangular and streamed
-    ones on dkv_cta_wide, the GQA group in P parts summed by the last
+    fwd_consumer_wide; the resident dq on WIDE_DQ_DESIGN, the triangular
+    and streamed ones with a one-stage ring of 64-row K/V tiles; every
+    dk/dv on dkv_cta_wide, the GQA group in P parts summed by the last
     item of each kv tile; natural exp for the resident and streamed
     families, base 2 for the triangular one) against its plain versions in
-    bf16 at its shapes, each launch's items, P and shared memory printed,
-    then at its main shape the backward pair twice bit-identical, the
-    times (bf16, f16, plain, SDPA, bound) and f16 against the plain
-    versions. Records keyed "<name>@256"."""
+    bf16 at its shapes (the resident pair also at WIDE_PAIR_SHAPES), each
+    launch's items, P and shared memory printed, then at its main shape
+    the backward pair twice bit-identical, the times (bf16, f16, plain,
+    SDPA, bound) and f16 against the plain versions. Records keyed
+    "<name>@256"."""
     seed = 40
     for fam, shapes, main in ((fa.RESIDENT, WIDE_CHECK_SHAPES,
                                WIDE_MAIN_SHAPE),
@@ -768,23 +778,57 @@ def phase_kernels_wide(fa, records):
                 _check_f16(fns, shape, seed, wide)
                 records.update((f"{name}@256", rec)
                                for name, rec in wide.items())
+                if fam == fa.RESIDENT:
+                    _print_pair_vs_sdpa(fns, wide)
             del q, k, v, do, o, lse, dq, delta, dk, dv
             torch.cuda.empty_cache()
             seed += 1
+    _check_resident_pair_past_budget(fa, seed)
+
+
+def _print_pair_vs_sdpa(fns, records):
+    """The resident backward pair's time at width 256 beside SDPA's whole
+    backward (dq, dk, dv) on the same inputs, both from this run."""
+    dq_ms, dkv_ms = (records[n]["ms"] for n in fns.names[1:])
+    lib = records[fns.names[1]]["library_ms"]
+    total = dq_ms + dkv_ms
+    print(f"[kernels d256] resident backward pair: flash_dq {dq_ms:.4f} + "
+          f"flash_dkv {dkv_ms:.4f} = {total:.4f} ms; SDPA's whole backward "
+          + ("none" if lib is None else
+             f"{lib:.4f} ms (pair / SDPA {total / lib:.3f})"), flush=True)
+
+
+def _check_resident_pair_past_budget(fa, seed):
+    """The resident dq and dk/dv at width 256 at WIDE_PAIR_SHAPES against
+    the plain backward of the resident forward, and bit-identical twice."""
+    for shape in WIDE_PAIR_SHAPES:
+        b, s, h, kvh, d, causal = shape
+        fns = Family(fa, fa.RESIDENT, causal, d ** -0.5)
+        _print_launches(fa, fa.RESIDENT, fns, shape)
+        q, k, v, do = _inputs(shape, seed)
+        o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+        torch.cuda.synchronize()
+        dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+        _hold("[kernels d256] resident pair", shape, (
+            ("dq", (dq, dq_p), GRAD_REL_TOL),
+            ("dk", (dk, dk_p), GRAD_REL_TOL),
+            ("dv", (dv, dv_p), GRAD_REL_TOL)))
+        _check_deterministic(fns, (q, k, v, do), (o, lse), (dq, dk, dv))
+        del q, k, v, do, o, lse, dq, delta, dk, dv, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+        seed += 1
 
 
 def _print_launches(fa, fam, fns, shape):
     """Each kernel's launch at a width-256 shape: its items (CTAs), P (the
-    parts of the GQA group: the triangular and streamed dk/dv) and its
-    dynamic shared memory (the kernel's build report)."""
+    parts of the GQA group every width-256 dk/dv splits across CTAs) and
+    its dynamic shared memory (the kernel's build report); the resident
+    dq's CTA shape."""
     b, s, h, kvh, d, causal = shape
-    parts, tile = 1, fa.BWD_TILE
-    if fam != fa.RESIDENT:
-        parts = fa.dkv_parts(b, s, kvh, h // kvh, causal,
-                             fa._sm_count(torch.device("cuda")))
-        tile = fa.WIDE_KV_TILE
+    parts = fa.dkv_parts(b, s, kvh, h // kvh, causal,
+                         fa._sm_count(torch.device("cuda")))
     items = (b * h * -(-s // fa.FWD_TILE), b * h * -(-s // fa.BWD_TILE),
-             b * kvh * -(-s // tile) * parts)
+             b * kvh * -(-s // fa.WIDE_KV_TILE) * parts)
     source = {fa.RESIDENT: ("flash_fwd", "flash_bwd", "flash_bwd"),
               fa.TRIANGULAR: ("flash_tri",) * 3,
               fa.STREAMED: ("flash_streamed",) * 3}[fam]
@@ -794,6 +838,8 @@ def _print_launches(fa, fam, fns, shape):
         check(getattr(fa._build.library(src), f"stpu_{name}_attrs")(
             d, fa._build.DTYPES["bf16"], out) == 0, f"{name} attrs failed")
         notes.append(f"{name} {n} items, P {p}, {out[1]} B shared")
+    if fam == fa.RESIDENT:
+        notes[1] += f" ({WIDE_DQ_DESIGN})"
     print(f"[kernels d256] {fam} {shape} launches: " + "; ".join(notes),
           flush=True)
 

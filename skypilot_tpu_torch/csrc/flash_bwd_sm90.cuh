@@ -8,9 +8,9 @@
 //   rowsum(dO * O) and writes it for dk/dv.
 // - dkv_cta: dv = sum P^T dO and dk = scale * sum dS^T Q, summed over the
 //   GQA group of query heads h / (H / KVH) == kvh in registers: no
-//   atomics, deterministic. dkv_cta_wide is its head_dim-256 body for the
-//   triangular and streamed families (below), the group split across
-//   CTAs and summed in a fixed order.
+//   atomics, deterministic. dkv_cta_wide is its head_dim-256 body in every
+//   family (below), the group split across CTAs and summed in a fixed
+//   order.
 //
 // Both are templates over D (64, 128, 256), the element type T (bf16,
 // f16: the inputs', P's and dS's before their products, and the outputs') and
@@ -21,7 +21,8 @@
 // the mask is the runtime TileMask (causal, and key columns at or past S).
 // flash_tri.cu instantiates them in base 2, causal, as flash_dq_tri_kernel
 // and flash_dkv_tri_kernel; flash_bwd.cu in natural exp, with the runtime
-// causal flag, as flash_dq_kernel and flash_dkv_kernel (the resident
+// causal flag, as flash_dq_kernel (its CTA shape DqResident: DqWide at
+// head_dim 256) and flash_dkv_kernel (the resident
 // family); flash_streamed.cu instantiates both once more, as flash_bwd.cu
 // does, as flash_dq_streamed_kernel (in BaseE2, with Q and dO held in
 // registers, kRegA = 2) and flash_dkv_streamed_kernel: every backward
@@ -63,28 +64,35 @@
 //   holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
 //   accumulator registers at D = 128.
 // - Head_dim 256 (Gemma's; every family, in every base). dq: the 128-row
-//   resident pair takes 128 KB and a stage of the ring 64 KB, so the ring
-//   has one stage (bwd_ring; 193 KB), and the producer's next load waits
-//   for both consumers to release the last. dq holds dq (128) + S, dP
-//   (32 each) + dS (16) = 208 registers, Q and dO read from shared memory
-//   (kRegA 0, the streamed instance's too). dk and dv together (256 fp32
-//   a thread) do not fit one consumer. The resident dk/dv (flash_bwd.cu)
-//   keeps dkv_consumer_sweeps: its 128-row CTA walks the group's q tiles
-//   twice, first S^T -> P^T, dv += P^T dO (dv written straight from
-//   registers: store_frag, since the second sweep still reads K and V),
-//   then S^T, dP^T -> dS^T, dk += dS^T Q.
-// - The triangular and streamed dk/dv at 256 run dkv_cta_wide instead, a
-//   CTA built for what bounds the two-sweep one there (too few CTAs: B x
-//   KVH x S / 128, 64 at Gemma-2B's 1 x 8192 MQA on 132 SMs; every Q and
-//   dO tile loaded twice; a one-stage ring, loads and products in turn):
-//   - one 64-row kv tile of one (b, kv head) per CTA, twice the CTAs,
-//     with dv and dk in separate consumer warpgroups over the same rows:
-//     consumer 0 runs S^T = K Q^T, P^T, dv += P^T dO (176 registers),
-//     consumer 1 S^T, dP^T = V dO^T, dS^T, dk += dS^T Q (208). Both read
-//     the same ring stage, so each Q/dO tile is loaded once per item;
-//     five products per tile pair, as in the two sweeps. Causal, both
-//     consumers own the same rows: they share the diagonal q tile (kt),
-//     mask it alike and skip nothing;
+//   resident pair takes 128 KB, and a stage of 64-row K and V 64 KB. The
+//   triangular and streamed dq keep one such stage (DqBase, bwd_ring;
+//   193 KB), so the producer's next load waits for both consumers to
+//   release the last and loads and products run in turn; they hold dq
+//   (128) + S, dP (32 each) + dS (16) = 208 registers, Q and dO read
+//   from shared memory (kRegA 0). The resident dq runs DqWide: 32-row K/V
+//   tiles in three 32 KB stages (226 KB), so the next two tiles' TMA
+//   loads are in flight while the consumers run a tile's S, dP and dS K.
+//   S and dP become m64n32 (16 registers each, 168 in all, no spills)
+//   with both operands in shared memory: 3 KB per 65.5 kFLOP, 1.5 times
+//   what m64n64 asks a clock of the SM's 128 bytes. Each consumer's 64
+//   rows meet the diagonal in two 32-row tiles, both masked.
+//   Timed against it in turns (tools/flash_dq_variants.py; PERF.md) and
+//   gone: K and V of 64 rows in three slots of their own (216 B of
+//   spills), a 64-row q tile shared by both consumers exchanging P and dP
+//   through shared memory (twice the K/V bytes from L2 per flop), and the
+//   next tile's S and dP issued before this tile's dS (168 B of spills),
+//   tile j's dS K waited for with tile j + 1's S and dP, and consumer 1
+//   started behind consumer 0 (both no faster).
+//   dk and dv together (256 fp32 a thread) do not fit one consumer, so
+//   every dk/dv at 256 runs dkv_cta_wide, a CTA of its own:
+//   - one 64-row kv tile of one (b, kv head) per CTA, with dv and dk in
+//     separate consumer warpgroups over the same rows: consumer 0 runs
+//     S^T = K Q^T, P^T, dv += P^T dO (176 registers), consumer 1 S^T,
+//     dP^T = V dO^T, dS^T, dk += dS^T Q (208). Both read the same ring
+//     stage, so each Q/dO tile is loaded once per item; five products
+//     per tile pair (S^T in both). Causal, both consumers own the same
+//     rows: they share the diagonal q tile (kt), mask it alike and skip
+//     nothing;
 //   - K and V take 64 KB, so the ring has two stages of Q, dO, lse and
 //     delta (2 x 64.5 KB; 193 KB in all): the producer's next TMA load
 //     is in flight while the consumers run their products;
@@ -104,14 +112,17 @@
 //   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
 //   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
 //   ptxas serialises every wgmma for want of registers, at 232 and at
-//   240). Running the two consumers half a tile apart on the forward's
-//   ping-pong barriers (each tile's two batches of products in turn) was
-//   correct, causal included, and no faster than lockstep (PERF.md).
+//   240; the width-256 dq spills and runs 2.6 times slower). Running the
+//   two consumers half a tile apart on the forward's ping-pong barriers
+//   (each tile's two batches of products in turn) was correct, causal
+//   included, and no faster than lockstep (PERF.md). A cluster of two
+//   CTAs over two heads of a KV group, one K/V load multicast to both.
 //
 // Traps, and what the code does about each:
 // - Unequal tiles make the two consumers' causal bounds differ. dq, q
 //   tile qt, 64-row KV tiles: consumer 0 (rows 128 qt + 0..63) ends on KV
-//   tile 2 qt, its diagonal; consumer 1 on 2 qt + 1. dk/dv, KV tile kt,
+//   tile 2 qt, its diagonal; consumer 1 on 2 qt + 1 (32-row tiles: on 4
+//   qt + 1 and 4 qt + 3, each masking its last two). dk/dv, KV tile kt,
 //   64-row q tiles: q tile 2 kt is consumer 0's diagonal and lies wholly
 //   above consumer 1's rows, so consumer 1 skips it (in every head of the
 //   group) and masks 2 kt + 1. Each consumer decides its own MASK tile.
@@ -143,15 +154,17 @@
 // - Shared memory at D = 128: dq 2 x 32 KB (Q, dO) + kBwdRing x 32 KB
 //   (64-row K and V) + 512 B delta; dk/dv 2 x 32 KB (K, V) + kBwdRing x
 //   (32 KB + 512 B) (Q, dO, lse, delta): 129.6 KB each at 2 stages, under
-//   227 KB. Every swizzled tile starts on a 1024-byte boundary. Plain
-//   reads and writes of a swizzled tile (dq's delta, both epilogues)
-//   apply the 128-byte swizzle: 16-byte chunk c of row R lies at chunk
-//   c ^ (R % 8).
+//   227 KB (kMaxSmem; DqSmem asserts it). Every swizzled tile starts on
+//   a 1024-byte boundary. Plain reads and writes of a swizzled tile (dq's
+//   delta, both epilogues) apply the 128-byte swizzle: 16-byte chunk c of
+//   row R lies at chunk c ^ (R % 8).
 // - The forward's traps hold here too: wgmma.fence before each batch,
 //   wait_group 0 and the "+f" register fence before accumulators are
 //   read, tensor maps by value as __grid_constant__ parameters, two
 //   64-column boxes per 128-wide row.
 #pragma once
+
+#include <type_traits>
 
 #include "flash_fwd_sm90.cuh"
 
@@ -191,32 +204,57 @@ constexpr int bwd_ring() {
   return D > 128 ? 1 : kBwdRing;
 }
 
-// dq's shared memory from a 1024-byte aligned base: Q and dO (kBwdRows x
-// D), kRing K and V tiles (kBwdTile x D), each tile D / 64 boxes of rows x
-// 128 bytes, 128-byte swizzled; delta of the 128 rows; mbarriers
-// full[kRing], empty[kRing], q.
+// The shape of a dq CTA's K/V ring: kSlots stages of a kKv-row K and V
+// tile each, against the 128 resident q rows (a 64-row half for each
+// consumer).
+template <int kKvN, int kSlotsN>
+struct DqShape {
+  static constexpr int kKv = kKvN, kSlots = kSlotsN;
+};
+
+// Every dq but the resident one at head_dim 256: bwd_ring<D>() stages of
+// a 64-row K and V tile.
 template <int D>
+using DqBase = DqShape<kBwdTile, bwd_ring<D>()>;
+
+// The resident dq at head_dim 256: 32-row K/V tiles in three 32 KB stages
+// beside the 128 KB of Q and dO, so two tiles' loads are in flight under
+// the products (S and dP become m64n32 with both operands in shared
+// memory).
+using DqWide = DqShape<32, 3>;
+
+// The resident dq's shape (flash_bwd.cu): DqWide at head_dim 256.
+template <int D>
+using DqResident = std::conditional_t<(D > 128), DqWide, DqBase<D>>;
+
+// The most dynamic shared memory a block may use.
+constexpr int kMaxSmem = 232448;
+
+// dq's shared memory from a 1024-byte aligned base: Q and dO (kBwdRows x
+// D); kSlots K tiles, then kSlots V tiles (kKv x D), each tile D / 64
+// boxes of rows x 128 bytes, 128-byte swizzled; delta of the 128 rows;
+// mbarriers full[kSlots], empty[kSlots], q.
+template <int D, class Sh = DqBase<D>>
 struct DqSmem {
-  static constexpr int kRing = bwd_ring<D>();
   static constexpr int kRowsTile = kBwdRows * D * 2;
-  static constexpr int kTile = kBwdTile * D * 2;
+  static constexpr int kTile = Sh::kKv * D * 2;
   static constexpr int kQ = 0;
   static constexpr int kDO = kRowsTile;
   static constexpr int kK = 2 * kRowsTile;
-  static constexpr int kV = kK + kRing * kTile;
-  static constexpr int kDelta = kV + kRing * kTile;
+  static constexpr int kV = kK + Sh::kSlots * kTile;
+  static constexpr int kDelta = kV + Sh::kSlots * kTile;
   static constexpr int kBar = kDelta + kBwdRows * 4;
-  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
+  static constexpr int kBytes = kBar + (2 * Sh::kSlots + 1) * 8 + 1024;
+  static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
 };
 
-// dk/dv's: K and V (kBwdRows x D); kRing Q and dO tiles (kBwdTile x D);
-// kRing lse and delta rows (kBwdTile fp32); mbarriers full, empty, kv.
-// kSweeps: how often the producer walks the group's q tiles (two at D =
-// 256: dv first, then dk).
+// dk/dv's at head_dim 64 and 128 (dkv_cta_wide has its own): K and V
+// (kBwdRows x D); kRing Q and dO tiles (kBwdTile x D); kRing lse and delta
+// rows (kBwdTile fp32); mbarriers full, empty, kv.
 template <int D>
 struct DkvSmem {
-  static constexpr int kRing = bwd_ring<D>();
-  static constexpr int kSweeps = D > 128 ? 2 : 1;
+  static_assert(D <= 128, "head_dim 256 runs dkv_cta_wide");
+  static constexpr int kRing = kBwdRing;
   static constexpr int kRowsTile = kBwdRows * D * 2;
   static constexpr int kTile = kBwdTile * D * 2;
   static constexpr int kStat = kBwdTile * 4;
@@ -271,16 +309,61 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4],
     ldsm_x4(a[kk], t + swz(R0 + l % 16, 2 * kk + l / 16));
 }
 
-// d (64 x D fp32) += A B: A, 64 x kBwdTile of T from registers (a[kk] for
-// k step kk); B, a kBwdTile x D tile read MN-major at desc_b (LBO = the
-// box stride, kBwdTile * 128 bytes).
-template <int D, class T>
+// d (64 x D fp32) += A B: A, 64 x N of T from registers (a[kk] for k
+// step kk); B, an N x D tile read MN-major at desc_b (LBO = the box
+// stride, N * 128 bytes).
+template <int D, class T, int N = kBwdTile>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2],
-                                       const uint32_t (&a)[kBwdTile / 16][4],
+                                       const uint32_t (&a)[N / 16][4],
                                        uint64_t desc_b) {
 #pragma unroll
-  for (int kk = 0; kk < kBwdTile / 16; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
     wgmma_pv<D, T>(d, a[kk], desc_b + ((kk * 16 * 128) >> 4));
+}
+
+// d (m64n32, fp32) = A B, or d += A B when scale_d is nonzero; A and B (T)
+// read from shared memory through descriptors, both K-major.
+template <class T>
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b,
+                                               int scale_d) {
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15"                                                  \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15])                                                         \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
+}
+
+// mma_nt with N-row B tiles: d (64 x N fp32) = A B^T over D, N = 64 or
+// 32.
+template <int D, class T, int N>
+__device__ __forceinline__ void mma_nt_n(float (&d)[N / 2], uint64_t desc_a,
+                                         int a_box, uint64_t desc_b,
+                                         int b_box) {
+  if constexpr (N == 64) {
+    mma_nt<D, T>(d, desc_a, a_box, desc_b, b_box);
+  } else {
+    static_assert(N == 32, "S and dP tiles of 64 or 32 keys");
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t in_box = (kk % 4) * 32;
+      wgmma_m64n32_ss<T>(d, desc_a + (((kk / 4) * a_box + in_box) >> 4),
+                         desc_b + (((kk / 4) * b_box + in_box) >> 4), kk);
+    }
+  }
 }
 
 // Sum of the products of 8 pairs of T.
@@ -299,16 +382,17 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
 
 // ---------------------------------------------------------------------- dq
 
-// The producer's one thread: Q and dO, then the K/V ring.
-template <int D>
+// The producer's one thread: Q and dO, then the K/V ring of shape Sh.
+template <int D, class Sh>
 __device__ __forceinline__ void dq_producer(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
     const CUtensorMap& tv, const BwdParams& p, unsigned char* base, int b,
     int h, int qt, int n_kt) {
-  using L = DqSmem<D>;
+  using L = DqSmem<D, Sh>;
   const int kvh = h / (p.H / p.KVH);
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * L::kRing, qbar = full0 + 16 * L::kRing;
+  const uint32_t empty0 = full0 + 8 * Sh::kSlots;
+  const uint32_t qbar = full0 + 16 * Sh::kSlots;
   mbar_expect_tx(qbar, 2 * L::kRowsTile);
 #pragma unroll
   for (int c = 0; c < D / kBoxCols; ++c) {
@@ -319,35 +403,35 @@ __device__ __forceinline__ void dq_producer(
                 qt * kBwdRows, h, b);
   }
   for (int j = 0; j < n_kt; ++j) {
-    const int st = j % L::kRing;
-    if (j >= L::kRing) mbar_wait(empty0 + 8 * st, (j / L::kRing - 1) & 1);
+    const int st = j % Sh::kSlots;
+    if (j >= Sh::kSlots) mbar_wait(empty0 + 8 * st, (j / Sh::kSlots - 1) & 1);
     const uint32_t full = full0 + 8 * st;
     mbar_expect_tx(full, 2 * L::kTile);
 #pragma unroll
     for (int c = 0; c < D / kBoxCols; ++c) {
-      const int off = st * L::kTile + c * kBwdTile * 128;
-      tma_load_4d(base + L::kK + off, &tk, full, c * kBoxCols, j * kBwdTile,
+      const int off = st * L::kTile + c * Sh::kKv * 128;
+      tma_load_4d(base + L::kK + off, &tk, full, c * kBoxCols, j * Sh::kKv,
                   kvh, b);
-      tma_load_4d(base + L::kV + off, &tv, full, c * kBoxCols, j * kBwdTile,
+      tma_load_4d(base + L::kV + off, &tv, full, c * kBoxCols, j * Sh::kKv,
                   kvh, b);
     }
   }
 }
 
-// dS = P * (dP - delta) of one 64 x 64 tile, P = exp(sm * s - lse), into
-// the A fragments of dS K's four 16-deep k steps, rounded to T. MASK drops
-// (row, key) pairs by `mask`.
-template <class T, class Base, bool MASK>
-__device__ __forceinline__ void ds_tile(const float (&s)[32],
-                                        const float (&dp)[32],
-                                        uint32_t (&da)[kBwdTile / 16][4],
+// dS = P * (dP - delta) of one 64 x N tile, P = exp(sm * s - lse), into
+// the A fragments of dS K's N / 16 16-deep k steps, rounded to T. MASK
+// drops (row, key) pairs by `mask`.
+template <class T, class Base, bool MASK, int N = kBwdTile>
+__device__ __forceinline__ void ds_tile(const float (&s)[N / 2],
+                                        const float (&dp)[N / 2],
+                                        uint32_t (&da)[N / 16][4],
                                         float sm, const float (&lse)[2],
                                         const float (&dlt)[2], int row0,
                                         int k_start, TileMask mask) {
   const int t = threadIdx.x % 4;
   const float kDrop = -__int_as_float(0x7f800000);  // -inf: exp gives 0
 #pragma unroll
-  for (int i = 0; i < kBwdTile / 8; ++i) {
+  for (int i = 0; i < N / 8; ++i) {
     float ds[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -362,32 +446,38 @@ __device__ __forceinline__ void ds_tile(const float (&s)[32],
   }
 }
 
-// A consumer warpgroup: delta for its 64 q rows, then dq over the K/V
-// tiles up to its causal bound, then the epilogue. kRegA: how many of its
-// resident A operands, Q then dO, it holds in registers for the whole loop
-// (S = Q K^T and dP = dO V^T then read only K or V from shared memory);
-// 0 reads both from shared memory at every tile.
-template <int D, class T, class Base, int kRegA>
+// A consumer warpgroup of a kBwdRows-row CTA: delta for its 64 q rows,
+// then dq over the K/V tiles up to its causal bound, then the epilogue.
+// kRegA: how many of its resident A operands, Q then dO, it holds in
+// registers for the whole loop (S = Q K^T and dP = dO V^T then read only
+// K or V from shared memory); 0 reads both from shared memory at every
+// tile.
+template <int D, class T, class Base, int kRegA, class Sh>
 __device__ __forceinline__ void dq_consumer(const BwdParams& p,
                                             unsigned char* base, int b,
                                             int h, int qt, int n_kt) {
-  using L = DqSmem<D>;
+  using L = DqSmem<D, Sh>;
+  constexpr int kKv = Sh::kKv;
+  static_assert(kRegA == 0 || kKv == kBwdTile, "register A against 64 keys");
   const int cw = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int q_start = qt * kBwdRows;
   const int R0 = cw * 64 + warp * 16 + lane / 4;  // and R0 + 8
   const int row0 = q_start + R0;
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * L::kRing, qbar = full0 + 16 * L::kRing;
+  const uint32_t empty0 = full0 + 8 * Sh::kSlots;
+  const uint32_t qbar = full0 + 16 * Sh::kSlots;
   const float sm = p.scale * Base::kScoreMul;
   const TileMask mask = {p.S, p.causal};
   const long long stat = ((long long)b * p.H + h) * p.S;
-  // Causal: this consumer's rows end on KV tile `diag`, which it masks;
-  // consumer 0 skips the CTA's last tile (2 qt + 1), wholly above its
-  // rows. Rows past S are never stored: lse 0 keeps them finite.
-  const int diag = qt * (kBwdRows / kBwdTile) + cw;
-  const int j_last = p.causal ? min(diag, n_kt - 1) : n_kt - 1;
-  const int j_mask = p.causal ? diag : masked_tile(0, p.S, kBwdTile, n_kt);
+  // Causal: this consumer's rows meet the diagonal in KV tiles diag ..
+  // j_last (one 64-row tile, two 32-row ones), which it masks; consumer 0
+  // skips the CTA's tiles past its rows. Rows past S are never stored:
+  // lse 0 keeps them finite.
+  const int diag = qt * (kBwdRows / kKv) + cw * (64 / kKv);
+  const int j_last =
+      p.causal ? min(diag + 64 / kKv - 1, n_kt - 1) : n_kt - 1;
+  const int j_mask = p.causal ? diag : masked_tile(0, p.S, kKv, n_kt);
   float lse_r[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf)
@@ -430,47 +520,51 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   if constexpr (kRegA >= 2)
     load_a_frags<D>(doa, base + L::kDO, cw * 64 + warp * 16);
 
-  // Descriptors: this consumer's Q and dO rows (A), stage 0's K and V (B,
-  // K-major), and K again MN-major for dS K.
+  // Descriptors: this consumer's Q and dO rows (A), the ring's first K
+  // and V (B, K-major), and K again MN-major for dS K.
   const uint64_t d_q = smem_desc(base + L::kQ + cw * 64 * 128, 16, 1024);
   const uint64_t d_do = smem_desc(base + L::kDO + cw * 64 * 128, 16, 1024);
   const uint64_t d_k = smem_desc(base + L::kK, 16, 1024);
   const uint64_t d_v = smem_desc(base + L::kV, 16, 1024);
-  const uint64_t d_kmn = smem_desc(base + L::kK, kBwdTile * 128, 1024);
+  const uint64_t d_kmn = smem_desc(base + L::kK, kKv * 128, 1024);
 
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   for (int j = 0; j < n_kt; ++j) {
-    const int st = j % L::kRing;
-    mbar_wait(full0 + 8 * st, (j / L::kRing) & 1);
+    const int st = j % Sh::kSlots;
+    mbar_wait(full0 + 8 * st, (j / Sh::kSlots) & 1);
     if (j <= j_last) {
       const uint32_t tile = (st * L::kTile) >> 4;
-      float s[32], dp[32];
+      float s[kKv / 2], dp[kKv / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      for (int i = 0; i < kKv / 2; ++i) s[i] = dp[i] = 0.f;
       wgmma_fence();
       if constexpr (kRegA >= 1)
         mma_rs_nt<D, T>(s, qa, d_k + tile);
       else
-        mma_nt<D, T>(s, d_q, kBwdRows * 128, d_k + tile, kBwdTile * 128);
+        mma_nt_n<D, T, kKv>(s, d_q, kBwdRows * 128, d_k + tile, kKv * 128);
       if constexpr (kRegA >= 2)
         mma_rs_nt<D, T>(dp, doa, d_v + tile);
       else
-        mma_nt<D, T>(dp, d_do, kBwdRows * 128, d_v + tile, kBwdTile * 128);
+        mma_nt_n<D, T, kKv>(dp, d_do, kBwdRows * 128, d_v + tile,
+                            kKv * 128);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
       fence_regs(dp);
-      uint32_t da[kBwdTile / 16][4];
-      if (j == j_mask)
-        ds_tile<T, Base, true>(s, dp, da, sm, lse_r, dlt_r, row0,
-                               j * kBwdTile, mask);
+      // Causally the tiles from the diagonal one on take the masked step
+      // (64 / kKv of them: the loop stops after them); otherwise only a
+      // ragged last tile.
+      uint32_t da[kKv / 16][4];
+      if ((kKv < 64 && p.causal) ? j >= j_mask : j == j_mask)
+        ds_tile<T, Base, true, kKv>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                    j * kKv, mask);
       else
-        ds_tile<T, Base, false>(s, dp, da, sm, lse_r, dlt_r, row0,
-                                j * kBwdTile, mask);
+        ds_tile<T, Base, false, kKv>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                     j * kKv, mask);
       wgmma_fence();
-      mma_rs<D, T>(acc, da, d_kmn + tile);
+      mma_rs<D, T, kKv>(acc, da, d_kmn + tile);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -487,7 +581,7 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
 }
 
 // One CTA of dq: work item blockIdx.x is (b * H + h, 128-row q tile).
-template <int D, class T, class Base, int kRegA = 0>
+template <int D, class T, class Base, int kRegA = 0, class Sh = DqBase<D>>
 __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
                                        const CUtensorMap& tdo,
                                        const CUtensorMap& tk,
@@ -495,30 +589,30 @@ __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
                                        const BwdParams& p,
                                        const int* __restrict__ work,
                                        unsigned char* smem) {
-  using L = DqSmem<D>;
+  using L = DqSmem<D, Sh>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
   const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
   const int b = bh / p.H, h = bh % p.H;
-  const int n_all = ceil_div(p.S, kBwdTile);
+  const int n_all = ceil_div(p.S, Sh::kKv);
   const int n_kt =
-      p.causal ? min(n_all, (qt + 1) * (kBwdRows / kBwdTile)) : n_all;
+      p.causal ? min(n_all, (qt + 1) * (kBwdRows / Sh::kKv)) : n_all;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
-    for (int i = 0; i < L::kRing; ++i) {
-      mbar_init(bars + 8 * i, 1);                        // full: producer
-      mbar_init(bars + 8 * (L::kRing + i), kConsumers);  // empty: consumers
+    for (int i = 0; i < Sh::kSlots; ++i) {
+      mbar_init(bars + 8 * i, 1);                          // full: producer
+      mbar_init(bars + 8 * (Sh::kSlots + i), kConsumers);  // empty
     }
-    mbar_init(bars + 16 * L::kRing, 1);                  // q and dO
+    mbar_init(bars + 16 * Sh::kSlots, 1);                  // q and dO
     asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
   }
   __syncthreads();
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0)
-      dq_producer<D>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt);
+      dq_producer<D, Sh>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dq_consumer<D, T, Base, kRegA>(p, base, b, h, qt, n_kt);
+    dq_consumer<D, T, Base, kRegA, Sh>(p, base, b, h, qt, n_kt);
   }
 }
 
@@ -546,8 +640,6 @@ __device__ __forceinline__ void dkv_producer(
                 kvh, b);
   }
   int n = 0;
-  // The group's q tiles once per consumer sweep (twice at D = 256).
-  for (int sw = 0; sw < L::kSweeps; ++sw)
   for (int gi = 0; gi < groups; ++gi) {
     const int h = kvh * groups + gi;
     for (int i = i0; i < n_qt; ++i, ++n) {
@@ -692,8 +784,8 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
 }
 
 // P^T = exp(sm * s^T - lse[q]) of one 64 (kv) x 64 (q) tile into the A
-// fragments of P^T dO, rounded to T (dst_tile without dS^T: the first
-// sweep at head_dim 256). MASK drops the causal pairs q < k.
+// fragments of P^T dO, rounded to T (dst_tile without dS^T: dkv_cta_wide's
+// dv consumer). MASK drops the causal pairs q < k.
 template <class T, class Base, bool MASK>
 __device__ __forceinline__ void pt_tile(const float (&s)[32],
                                         uint32_t (&pa)[kBwdTile / 16][4],
@@ -715,136 +807,6 @@ __device__ __forceinline__ void pt_tile(const float (&s)[32],
     pa[i / 2][(i % 2) * 2] = T::pack(pr[0], pr[1]);
     pa[i / 2][(i % 2) * 2 + 1] = T::pack(pr[2], pr[3]);
   }
-}
-
-// A consumer warpgroup's accumulator fragment (rows R0, R0 + 8 of the
-// CTA's 128), rounded to T, straight to global memory at g (the CTA's row
-// 0, row stride ss) in 4-byte stores, rows < S: dv at head_dim 256, whose
-// second sweep still reads the K and V tiles store_rows would stage it in.
-template <int D, class T>
-__device__ __forceinline__ void store_frag(const float (&acc)[D / 2], e16* g,
-                                           long long ss, int row_start,
-                                           int S) {
-  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
-  const int t = tid % 4, R0 = cw * 64 + (tid / 32) * 16 + (tid % 32) / 4;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = row_start + R0 + 8 * hf;
-    if (row < S) {
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(g + row * ss + 8 * i + 2 * t) =
-            T::pack(acc[4 * i + 2 * hf], acc[4 * i + 2 * hf + 1]);
-    }
-  }
-}
-
-// One sweep of the head_dim-256 dk/dv over the group's q tiles (n counts
-// the ring's uses across both sweeps): kDk false computes S^T, P^T and dv
-// += P^T dO; kDk true S^T, dP^T, dS^T and dk += dS^T Q. Either holds one
-// 128-register accumulator beside S^T (and dP^T), where dk and dv
-// together (256) would not fit the consumers' 232.
-template <int D, class T, class Base, bool kDk>
-__device__ __forceinline__ void dkv_sweep(float (&acc)[D / 2],
-                                          const BwdParams& p,
-                                          unsigned char* base, int& n,
-                                          int i0, int n_qt, int krow0) {
-  using L = DkvSmem<D>;
-  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
-  const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * L::kRing;
-  const float sm = p.scale * Base::kScoreMul;
-  const int i_first = p.causal ? i0 + cw : 0;
-  const int i_mask = p.causal ? i0 + cw : -1;
-  const uint64_t d_k = smem_desc(base + L::kK + cw * 64 * 128, 16, 1024);
-  const uint64_t d_v = smem_desc(base + L::kV + cw * 64 * 128, 16, 1024);
-  const uint64_t d_q = smem_desc(base + L::kQ, 16, 1024);
-  const uint64_t d_do = smem_desc(base + L::kDO, 16, 1024);
-  // dk += dS^T Q reads Q MN-major, dv += P^T dO reads dO so.
-  const uint64_t d_bmn = smem_desc(base + (kDk ? L::kQ : L::kDO),
-                                   kBwdTile * 128, 1024);
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  for (int gi = 0; gi < p.H / p.KVH; ++gi) {
-    for (int i = i0; i < n_qt; ++i, ++n) {
-      const int st = n % L::kRing;
-      mbar_wait(full0 + 8 * st, (n / L::kRing) & 1);
-      if (i >= i_first) {
-        const uint32_t tile = (st * L::kTile) >> 4;
-        const float* lse =
-            reinterpret_cast<const float*>(base + L::kLse + st * L::kStat);
-        const float* dlt =
-            reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
-        float s[32];
-        uint32_t a[kBwdTile / 16][4];
-#pragma unroll
-        for (int e = 0; e < 32; ++e) s[e] = 0.f;
-        if constexpr (kDk) {
-          float dp[32];
-#pragma unroll
-          for (int e = 0; e < 32; ++e) dp[e] = 0.f;
-          wgmma_fence();
-          mma_nt<D, T>(s, d_k, kBwdRows * 128, d_q + tile, kBwdTile * 128);
-          mma_nt<D, T>(dp, d_v, kBwdRows * 128, d_do + tile, kBwdTile * 128);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(s);
-          fence_regs(dp);
-          // P^T, packed beside dS^T, is not read: dead code for ptxas.
-          uint32_t unused[kBwdTile / 16][4];
-          if (i == i_mask)
-            dst_tile<T, Base, true>(s, dp, unused, a, lse, dlt, sm, krow0,
-                                    i * kBwdTile);
-          else
-            dst_tile<T, Base, false>(s, dp, unused, a, lse, dlt, sm, krow0,
-                                     i * kBwdTile);
-        } else {
-          wgmma_fence();
-          mma_nt<D, T>(s, d_k, kBwdRows * 128, d_q + tile, kBwdTile * 128);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(s);
-          if (i == i_mask)
-            pt_tile<T, Base, true>(s, a, lse, sm, krow0, i * kBwdTile);
-          else
-            pt_tile<T, Base, false>(s, a, lse, sm, krow0, i * kBwdTile);
-        }
-        wgmma_fence();
-        mma_rs<D, T>(acc, a, d_bmn + tile);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(acc);
-      }
-      if (tid == 0) mbar_arrive(empty0 + 8 * st);  // Q, dO, lse, delta read
-    }
-  }
-}
-
-// A consumer warpgroup at head_dim 256: dv over every q tile of the group
-// (first sweep), written straight from registers, then dk (second sweep)
-// through its own rows of K. Five products per tile pair instead of four
-// (S^T twice); the GQA sum stays in registers, no atomics.
-template <int D, class T, class Base>
-__device__ __forceinline__ void dkv_consumer_sweeps(const BwdParams& p,
-                                                    unsigned char* base,
-                                                    int b, int kvh, int kt,
-                                                    int i0, int n_qt) {
-  using L = DkvSmem<D>;
-  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
-  const int k_start = kt * kBwdRows;
-  const int krow0 = k_start + cw * 64 + (tid / 32) * 16 + (tid % 32) / 4;
-  const uint32_t kvbar = smem_addr(base + L::kBar) + 16 * L::kRing;
-  const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
-  const long long ss = (long long)p.KVH * D;
-  float acc[D / 2];
-  int n = 0;
-  mbar_wait(kvbar, 0);
-  dkv_sweep<D, T, Base, false>(acc, p, base, n, i0, n_qt, krow0);
-  store_frag<D, T>(acc, p.dv + off, ss, k_start, p.S);
-  dkv_sweep<D, T, Base, true>(acc, p, base, n, i0, n_qt, krow0);
-  const float dk_mul[2] = {p.scale, p.scale};
-  store_rows<D, T>(acc, dk_mul, reinterpret_cast<e16*>(base + L::kK),
-                   p.dk + off, ss, k_start, p.S);
 }
 
 // One CTA of dk/dv: work item blockIdx.x is (b * KVH + kvh, 128-row kv
@@ -880,10 +842,7 @@ __device__ __forceinline__ void dkv_cta(
                       n_qt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    if constexpr (D > 128)
-      dkv_consumer_sweeps<D, T, Base>(p, base, b, kvh, kt, i0, n_qt);
-    else
-      dkv_consumer<D, T, Base>(p, base, b, kvh, kt, i0, n_qt);
+    dkv_consumer<D, T, Base>(p, base, b, kvh, kt, i0, n_qt);
   }
 }
 
@@ -1210,11 +1169,12 @@ inline int encode_stats(CUtensorMap* map, const void* ptr, int S, int rows) {
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
-// Encodes dq's four maps and launches `kernel` (an instance of dq_cta)
-// over the B * H * ceil(S / 128) items of `work`.
-template <int D, class T, class Kernel>
+// Encodes dq's four maps and launches `kernel` (an instance of dq_cta of
+// shape Sh) over the B * H * ceil(S / 128) items of `work`.
+template <int D, class T, class Sh = DqBase<D>, class Kernel>
 inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
                      const int* work, cudaStream_t stream) {
+  using L = DqSmem<D, Sh>;
   CUtensorMap tq, tdo, tk, tv;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
                            kBwdRows);
@@ -1223,26 +1183,26 @@ inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
                          p.do_sb, kBwdRows);
   if (!err)
     err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                         kBwdTile);
+                         Sh::kKv);
   if (!err)
     err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                         kBwdTile);
+                         Sh::kKv);
   if (err) return err;
-  const cudaError_t e = allow_smem(kernel, DqSmem<D>::kBytes);
+  const cudaError_t e = allow_smem(kernel, L::kBytes);
   if (e != cudaSuccess) return (int)e;
   const int items = B * p.H * ceil_div(p.S, kBwdRows);
-  kernel<<<items, kFwdThreads, DqSmem<D>::kBytes, stream>>>(tq, tdo, tk, tv,
-                                                            p, work);
+  kernel<<<items, kFwdThreads, L::kBytes, stream>>>(tq, tdo, tk, tv, p,
+                                                    work);
   return (int)cudaGetLastError();
 }
 
 // Encodes dk/dv's six maps and launches `kernel` (an instance of dkv_cta)
-// over the B * KVH * ceil(S / 128) items of `work`; `extra` follows the
-// work list (the triangular and streamed kernels' DkvSplit, unused here).
-template <int D, class T, class Kernel, class... Extra>
+// over the B * KVH * ceil(S / 128) items of `work`; the kernel takes
+// `split` after the work list (unused at these widths: P = 1).
+template <int D, class T, class Kernel>
 inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
-                      const int* work, cudaStream_t stream,
-                      const Extra&... extra) {
+                      const int* work, const DkvSplit& split,
+                      cudaStream_t stream) {
   CUtensorMap tq, tdo, tk, tv, tlse, tdlt;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
                            kBwdTile);
@@ -1262,7 +1222,7 @@ inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
   if (e != cudaSuccess) return (int)e;
   const int items = B * p.KVH * ceil_div(p.S, kBwdRows);
   kernel<<<items, kFwdThreads, DkvSmem<D>::kBytes, stream>>>(
-      tq, tdo, tk, tv, tlse, tdlt, p, work, extra...);
+      tq, tdo, tk, tv, tlse, tdlt, p, work, split);
   return (int)cudaGetLastError();
 }
 
@@ -1296,8 +1256,8 @@ inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
   return (int)cudaGetLastError();
 }
 
-// The triangular and streamed dk/dv: dkv_cta's launch at head_dim 64 and
-// 128 (P must be 1), dkv_cta_wide's at 256. P must divide H / KVH.
+// Every dk/dv: dkv_cta's launch at head_dim 64 and 128 (P must be 1),
+// dkv_cta_wide's at 256. P must divide H / KVH.
 template <int D, class T, class Kernel>
 inline int launch_dkv_split(Kernel kernel, const BwdParams& p, int B,
                             const int* work, const DkvSplit& split,
@@ -1310,28 +1270,36 @@ inline int launch_dkv_split(Kernel kernel, const BwdParams& p, int B,
   if constexpr (D > 128)
     return launch_dkv_wide<D, T>(kernel, p, B, work, split, stream);
   else
-    return launch_dkv<D, T>(kernel, p, B, work, stream, split);
+    return launch_dkv<D, T>(kernel, p, B, work, split, stream);
 }
 
-template <int D, class T, class Kernel>
+template <int D, class T, class Sh = DqBase<D>, class Kernel>
 inline int dq_attrs(Kernel kernel, int* out) {
-  return kernel_attrs(kernel, DqSmem<D>::kBytes, kFwdThreads,
+  return kernel_attrs(kernel, DqSmem<D, Sh>::kBytes, kFwdThreads,
                       kProducerRegs, kConsumerRegs, out);
 }
 
+template <int D, class T, class Kernel>
+inline int launch_dq_resident(Kernel kernel, const BwdParams& p, int B,
+                              const int* work, cudaStream_t stream) {
+  return launch_dq<D, T, DqResident<D>>(kernel, p, B, work, stream);
+}
+
+template <int D, class T, class Kernel>
+inline int dq_resident_attrs(Kernel kernel, int* out) {
+  return dq_attrs<D, T, DqResident<D>>(kernel, out);
+}
+
+// Every dk/dv's (dkv_cta_wide's shared memory at head_dim 256).
 template <int D, class T, class Kernel>
 inline int dkv_attrs(Kernel kernel, int* out) {
-  return kernel_attrs(kernel, DkvSmem<D>::kBytes, kFwdThreads,
-                      kProducerRegs, kConsumerRegs, out);
-}
-
-// The triangular and streamed dk/dv's (dkv_cta_wide's shared memory at
-// head_dim 256).
-template <int D, class T, class Kernel>
-inline int dkv_split_attrs(Kernel kernel, int* out) {
-  return kernel_attrs(kernel,
-                      D > 128 ? DkvWideSmem<D>::kBytes : DkvSmem<D>::kBytes,
-                      kFwdThreads, kProducerRegs, kConsumerRegs, out);
+  int smem;
+  if constexpr (D > 128)
+    smem = DkvWideSmem<D>::kBytes;
+  else
+    smem = DkvSmem<D>::kBytes;
+  return kernel_attrs(kernel, smem, kFwdThreads, kProducerRegs,
+                      kConsumerRegs, out);
 }
 
 }  // namespace sm90

@@ -163,6 +163,5 @@ extern "C" int stpu_flash_dq_tri_attrs(int D, int dtype, int* out) {
 }
 
 extern "C" int stpu_flash_dkv_tri_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D(D, dtype, dkv_split_attrs, stpu::flash_dkv_tri_kernel,
-                 out);
+  STPU_SM90_BY_D(D, dtype, dkv_attrs, stpu::flash_dkv_tri_kernel, out);
 }

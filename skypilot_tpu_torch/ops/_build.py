@@ -35,9 +35,9 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, dtype, scale, causal,
 # stream), dtype being the element type's code (DTYPES); the triangular
 # family is causal only; every Hopper kernel (all but the fp32 kernels)
-# takes its work list after its tensors; the triangular and streamed
-# dk/dv then take their split workspace and tickets, and their number of
-# parts after the scale (and causal flag); the fp32 kernels take no dtype.
+# takes its work list after its tensors; every dk/dv then takes its split
+# workspace and tickets, and its number of parts after the scale (and
+# causal flag); the fp32 kernels take no dtype.
 # The *_attrs entries fill five ints for a Hopper kernel at a head_dim and
 # dtype: registers at launch, dynamic shared memory, threads, producer and
 # consumer registers (setmaxnreg).
@@ -52,7 +52,7 @@ SIGNATURES = {
                   "stpu_flash_fwd_attrs": _ATTRS},
     "flash_bwd": {"stpu_flash_dq": [_P] * 9 + _TAIL,
                   "stpu_flash_dq_attrs": _ATTRS,
-                  "stpu_flash_dkv": [_P] * 9 + _TAIL,
+                  "stpu_flash_dkv": [_P] * 11 + _SPLIT_TAIL,
                   "stpu_flash_dkv_attrs": _ATTRS},
     "flash_tri": {"stpu_flash_fwd_tri": [_P] * 6 + _TRI_TAIL,
                   "stpu_flash_fwd_tri_attrs": _ATTRS,

@@ -38,10 +38,12 @@ instance each); f32 inputs take three fp32 kernels of their own
   ``flash_fwd_streamed``, ``flash_dq_streamed`` and ``flash_dkv_streamed``
   over the resident work lists.
 
-At head_dim 256 the triangular and streamed dk/dv run a CTA of their own
-(``dkv_cta_wide``): 64-row kv tiles, and the GQA group split in
-``dkv_parts`` parts across CTAs (``dkv_wide_schedule``), whose fp32
-partials the last CTA of each kv tile sums in part order.
+At head_dim 256 every dk/dv runs a CTA of its own (``dkv_cta_wide``):
+64-row kv tiles, and the GQA group split in ``dkv_parts`` parts across
+CTAs (``dkv_wide_schedule``), whose fp32 partials the last CTA of each kv
+tile sums in part order. The resident dq at 256 keeps its next K/V loads
+in flight under its products (``DqWide``: 32-row K/V tiles in three
+stages).
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
@@ -90,9 +92,8 @@ FWD_TILE = 128
 # too; kBwdTile).
 BWD_TILE = 128
 BWD_INNER = 64
-# kv rows per CTA of the triangular and streamed dk/dv at head_dim 256
-# (csrc/flash_bwd_sm90.cuh dkv_cta_wide, kWideRows), walked against
-# BWD_INNER-row q tiles.
+# kv rows per CTA of every dk/dv at head_dim 256 (csrc/flash_bwd_sm90.cuh
+# dkv_cta_wide, kWideRows), walked against BWD_INNER-row q tiles.
 WIDE_KV_TILE = 64
 # The most parts it splits a GQA group in (kMaxParts), and the partials'
 # bytes that cost the time of one tile step (five 64 x 64 x 256
@@ -109,7 +110,7 @@ WIDE_STEP_BYTES = 3.69e6
 SEQ_MULTIPLE = 8
 # The kernel widths, of every family and of the fp32 kernels (256 on the
 # Hopper bodies' wide paths: csrc/flash_fwd_sm90.cuh fwd_consumer_wide,
-# flash_bwd_sm90.cuh bwd_ring, dkv_consumer_sweeps and dkv_cta_wide).
+# flash_bwd_sm90.cuh bwd_ring, DqWide and dkv_cta_wide).
 HEAD_DIMS = (64, 128, 256)
 # The kernels' element types, by the code their C entries take.
 _DTYPE_CODES = {torch.bfloat16: _build.DTYPES["bf16"],
@@ -382,10 +383,10 @@ def tri_schedule(kind: str, n_rows: int, s: int,
 def dkv_wide_schedule(n_rows: int, s: int, parts: int,
                       device: Optional[torch.device] = None
                       ) -> torch.Tensor:
-    """The work list of the triangular and streamed dk/dv at head_dim 256
-    (``dkv_cta_wide``), (n_rows * ceil(S / WIDE_KV_TILE) * parts, 3)
-    int32: one (row, kv tile, part) item per CTA, a row being b * KVH +
-    kvh and part p the p-th of ``parts`` equal slices of the GQA group.
+    """The work list of every dk/dv at head_dim 256 (``dkv_cta_wide``),
+    (n_rows * ceil(S / WIDE_KV_TILE) * parts, 3) int32: one (row, kv
+    tile, part) item per CTA, a row being b * KVH + kvh and part p the
+    p-th of ``parts`` equal slices of the GQA group.
     Items are sorted by the causal tile pairs of their kv tile, from the
     JAX package's own enumeration (``_tri_maps_col``) at WIDE_KV_TILE x
     BWD_INNER tiles, longest first across all rows; a tile's parts stay
@@ -430,9 +431,9 @@ def dkv_parts_cost(b: int, s: int, kvh: int, groups: int, causal: bool,
 def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
               sms: int) -> int:
     """P, the parts the GQA group of ``groups`` query heads is split in
-    across the CTAs of the width-256 triangular and streamed dk/dv: the
-    divisor of the group, up to MAX_PARTS, of least ``dkv_parts_cost``
-    (the least such divisor on a tie). Fewer parts leave the card part
+    across the CTAs of the width-256 dk/dv: the divisor of the group, up
+    to MAX_PARTS, of least ``dkv_parts_cost`` (the least such divisor on
+    a tie). Fewer parts leave the card part
     idle behind the longest items; more add partials to write and sum.
     P = 1 where the shape alone fills the card (MHA; a batch of 8 at
     2048, MQA)."""
@@ -445,10 +446,10 @@ def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
 def bwd_schedule(kind: str, n_rows: int, s: int,
                  device: Optional[torch.device] = None) -> torch.Tensor:
     """The Hopper backward's work list (every dq, "rows" over B * H, and
-    every dk/dv, "cols" over B * KVH): BWD_TILE-row tiles
-    against BWD_INNER-row ones. One list serves both causal modes: it holds
-    every (row, tile) once, and a non-causal launch's items all cost the
-    same, so its order only matters when causal."""
+    the dk/dv at head_dim 64 and 128, "cols" over B * KVH): BWD_TILE-row
+    tiles against BWD_INNER-row ones. One list serves both causal modes: it
+    holds every (row, tile) once, and a non-causal launch's items all cost
+    the same, so its order only matters when causal."""
     return tri_schedule(kind, n_rows, s, device, tile=BWD_TILE,
                         inner=BWD_INNER)
 
@@ -627,11 +628,10 @@ def _sm_count(device: torch.device) -> int:
 
 
 def dkv_wide_buffers(q, kvh: int, parts: int):
-    """(work list, workspace, tickets) of a width-256 triangular or
-    streamed dk/dv launch split in ``parts``: ``dkv_wide_schedule``'s
-    list, and with P > 1 the fp32 partials' workspace, (2, P, B, S, KVH,
-    D) from the caching allocator, and the kv tiles' tickets, zeroed
-    (None, None at P = 1)."""
+    """(work list, workspace, tickets) of a width-256 dk/dv launch split
+    in ``parts``: ``dkv_wide_schedule``'s list, and with P > 1 the fp32
+    partials' workspace, (2, P, B, S, KVH, D) from the caching allocator,
+    and the kv tiles' tickets, zeroed (None, None at P = 1)."""
     b, s, _, d = q.shape
     work = dkv_wide_schedule(b * kvh, s, parts, q.device)
     if parts == 1:
@@ -644,10 +644,10 @@ def dkv_wide_buffers(q, kvh: int, parts: int):
 
 
 def _dkv_split(q, kvh: int, causal: bool):
-    """(work list, workspace, tickets, P) of a triangular or streamed dk/dv
-    launch: at head_dim 64 and 128 the "cols" list of ``bwd_schedule`` and
-    P = 1; at 256 ``dkv_wide_buffers`` at P = ``dkv_parts`` of the shape
-    and the card's SM count."""
+    """(work list, workspace, tickets, P) of a dk/dv launch: at head_dim 64
+    and 128 the "cols" list of ``bwd_schedule`` and P = 1; at 256
+    ``dkv_wide_buffers`` at P = ``dkv_parts`` of the shape and the card's
+    SM count."""
     b, s, h, d = q.shape
     if d <= 128:
         return bwd_schedule("cols", b * kvh, s, q.device), None, None, 1
@@ -656,25 +656,19 @@ def _dkv_split(q, kvh: int, causal: bool):
 
 
 def _dkv_call(name: str, source: str, q, k, v, do, lse, delta, causal,
-              scale, flags: Tuple[int, ...], split: bool = False):
-    """A dk/dv launch: ``flags`` follow the scale in its C entry (the
-    causal flag, where it takes one). Over ``bwd_schedule``'s "cols"
-    list, or, ``split`` (the triangular and streamed kernels), over
-    ``_dkv_split``'s list, workspace and tickets, with P last."""
+              scale, flags: Tuple[int, ...]):
+    """A dk/dv launch over ``_dkv_split``'s list, workspace and tickets:
+    ``flags`` follow the scale in its C entry (the causal flag, where it
+    takes one), then P."""
     _check_inputs(q, k, v, do, lse, delta)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
-    ptrs = [q, k, v, do, lse, delta, dk, dv]
-    tail = [_DTYPE_CODES[q.dtype], float(scale), *flags]
-    if split:
-        work, ws, tickets, parts = _dkv_split(q, kvh, causal)
-        ptrs += [work, ws, tickets]
-        tail.append(parts)
-    else:
-        ptrs.append(bwd_schedule("cols", b * kvh, s, q.device))
-    _launch(name, source, ptrs, _strides(q, k, v, do), q, kvh, *tail)
+    work, ws, tickets, parts = _dkv_split(q, kvh, causal)
+    _launch(name, source, [q, k, v, do, lse, delta, dk, dv, work, ws,
+                           tickets], _strides(q, k, v, do), q, kvh,
+            _DTYPE_CODES[q.dtype], float(scale), *flags, parts)
     return dk, dv
 
 
@@ -691,8 +685,10 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
              causal: bool, scale: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel dq (the Hopper dq over 128-row q tiles, longest first): (dq
-    (B,S,H,D) of q's dtype, delta = rowsum(dO*O) (B,H,S) fp32)."""
+    """Kernel dq (the Hopper dq over 128-row q tiles, longest first; at
+    head_dim 256 against three stages of 32-row K/V tiles, the next loads
+    under the products): (dq (B,S,H,D) of q's dtype, delta = rowsum(dO*O)
+    (B,H,S) fp32)."""
     return _dq_call("flash_dq", "flash_bwd", q, k, v, o, lse, do, causal,
                     scale, scheduled=True)
 
@@ -702,8 +698,9 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dk/dv (the Hopper dk/dv over 128-row kv tiles, longest
-    first; at head_dim 256 in two sweeps): (dk, dv) (B,S,KVH,D) of k's
-    dtype, the GQA group summed."""
+    first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts
+    of the GQA group, ``_dkv_split``): (dk, dv) (B,S,KVH,D) of k's dtype,
+    the GQA group summed."""
     return _dkv_call("flash_dkv", "flash_bwd", q, k, v, do, lse, delta,
                      causal, scale, (int(causal),))
 
@@ -740,7 +737,7 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     GQA group, ``_dkv_split``): (dk, dv) (B,S,KVH,D) of k's dtype, the
     GQA group summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
-                     lse, delta, causal, scale, (int(causal),), split=True)
+                     lse, delta, causal, scale, (int(causal),))
 
 
 def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
@@ -791,7 +788,7 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tiles and parts of the GQA group, ``_dkv_split``): (dk, dv)
     (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv_tri", "flash_tri", q, k, v, do, lse, delta,
-                     True, scale, (), split=True)
+                     True, scale, ())
 
 
 def flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,9 +6,12 @@ the JAX package on the CPU.
 The resident dq and dk/dv are the Hopper backward body's second instance
 (csrc/flash_bwd.cu over csrc/flash_bwd_sm90.cuh, natural exp, the runtime
 causal flag), walking the same work lists as the triangular pair in both
-causal modes. What a CPU run can hold of that: that the lists, walked with
-the kernels' loop bounds, compute every tile pair the JAX enumeration
-needs exactly once, and that the sources instantiate the body. On the card
+causal modes; at head_dim 256 the dk/dv runs dkv_cta_wide over
+dkv_wide_schedule's list in dkv_parts' parts. What a CPU run can hold of
+that: that the lists, walked with the kernels' loop bounds, compute every
+tile pair the JAX enumeration needs exactly once, that flash_dkv hands
+its launch the list, workspace and P of its width, and that the sources
+instantiate the bodies. On the card
 the op zero-pads head_dim to the kernels' 64 or 128, and f32 takes the
 fp32 kernels; here the pad rule runs through the plain versions wrapped by
 the op's own pad/slice functions, against JAX's flash_attention (Pallas in
@@ -114,8 +117,9 @@ def test_resident_lists_at_the_slice_shape(kind, n_rows):
 
 
 @pytest.mark.parametrize("source,body", [
-    ("flash_bwd.cu", "sm90::dq_cta<D, T, BaseE>"),
+    ("flash_bwd.cu", "sm90::dq_cta<D, T, BaseE, 0, sm90::DqResident<D>>"),
     ("flash_bwd.cu", "sm90::dkv_cta<D, T, BaseE>"),
+    ("flash_bwd.cu", "sm90::dkv_cta_wide<D, T, BaseE>"),
     ("flash_tri.cu", "sm90::dq_cta<D, T, Base2>"),
     ("flash_tri.cu", "sm90::dkv_cta<D, T, Base2>"),
     ("flash_tri.cu", "sm90::dkv_cta_wide<D, T, Base2>"),
@@ -124,12 +128,17 @@ def test_backward_kernels_instantiate_the_hopper_body(source, body):
     # Both backward families are instances of flash_bwd_sm90.cuh's bodies
     # (the resident in natural exp, reading the resident forward's
     # natural-log lse; the triangular in base 2), at the tiles the wrappers
-    # build their lists with (test_work_list_tiles_match_the_kernels);
-    # the mma.sync resident tile bodies are gone.
+    # build their lists with (test_work_list_tiles_match_the_kernels): the
+    # resident dq in its own shape (DqResident), every dk/dv at head_dim
+    # 256 on dkv_cta_wide. The mma.sync resident tile bodies and the
+    # two-sweep width-256 dk/dv are gone.
     assert body in (_CSRC / source).read_text()
     common = (_CSRC / "flash_common.cuh").read_text()
     for gone in ("dq_tile", "dkv_tile", "dq_smem_bytes", "dkv_smem_bytes"):
         assert gone not in common
+    bwd = (_CSRC / "flash_bwd_sm90.cuh").read_text()
+    for gone in ("dkv_consumer_sweeps", "dkv_sweep", "kSweeps", "store_frag"):
+        assert gone not in bwd
 
 
 @pytest.mark.parametrize("source", sorted(_build.SOURCES))
@@ -272,6 +281,80 @@ _PLAIN_NAMES = ("flash_fwd_plain", "flash_bwd_plain", "flash_fwd_tri_plain",
 
 class _OnCard(torch.Tensor):
     is_cuda = True
+
+
+def _spy_resident_dkv(monkeypatch, b, s, h, kvh, d, causal):
+    """One flash_dkv call on bf16 CPU tensors that claim to be on the card
+    (every input check kept, 132 SMs): (pointers, tail) of its launch."""
+    launches = []
+    check = fa_torch._check_inputs
+
+    def on_card(*ts, **kw):
+        check(*(t.as_subclass(_OnCard) for t in ts), **kw)
+
+    monkeypatch.setattr(fa_torch, "_check_inputs", on_card)
+    monkeypatch.setattr(fa_torch, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(fa_torch, "_launch", lambda name, source, ptrs,
+                        strides, q, n_kv, *tail: launches.append(
+                            (name, source, list(ptrs), tail)))
+    rng = np.random.default_rng(9)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+        for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d),
+                      (b, s, h, d)))
+    lse = torch.zeros(b, h, s)
+    fa_torch.flash_dkv(q, k, v, do, lse, lse, causal, d ** -0.5)
+    ((name, source, ptrs, tail),) = launches
+    assert (name, source) == ("flash_dkv", "flash_bwd")
+    return ptrs, tail
+
+
+@pytest.mark.parametrize("d,shape,causal", [
+    # MQA a few waves deep: the group in P > 1 parts, causal or not.
+    (256, (1, 512, 8, 1), True), (256, (1, 520, 8, 1), False),
+    # GQA of 4, ragged S; MHA (Gemma-7B's heads at a ragged S): P = 1.
+    (256, (2, 200, 8, 2), True), (256, (1, 200, 16, 16), True),
+    # Below 256 the 128-row kv tiles, P = 1.
+    (128, (1, 264, 8, 1), True), (64, (2, 200, 8, 2), False),
+])
+def test_resident_dkv_takes_the_split_list_at_256(monkeypatch, d, shape,
+                                                  causal):
+    # flash_dkv launches dkv_cta_wide at head_dim 256: dkv_wide_schedule's
+    # (row, 64-row kv tile, part) list at the shape's P (dkv_parts of the
+    # shape and the SM count), with P > 1 an fp32 workspace (2, P, B, S,
+    # KVH, D) and two zeroed int tickets a kv tile, null at P = 1; its
+    # tail is (dtype, scale, causal, P). At 64 and 128 it keeps
+    # bwd_schedule's "cols" list and P = 1.
+    b, s, h, kvh = shape
+    ptrs, tail = _spy_resident_dkv(monkeypatch, b, s, h, kvh, d, causal)
+    work, ws, tickets = ptrs[8:]
+    assert len(ptrs) == 11 and tail[-2] == int(causal)
+    if d < 256:
+        assert torch.equal(work, fa_torch.bwd_schedule("cols", b * kvh, s))
+        assert (ws, tickets, tail[-1]) == (None, None, 1)
+        return
+    parts = fa_torch.dkv_parts(b, s, kvh, h // kvh, causal, 132)
+    assert tail[-1] == parts
+    assert torch.equal(work, fa_torch.dkv_wide_schedule(b * kvh, s, parts))
+    if parts == 1:
+        assert ws is None and tickets is None
+        return
+    assert ws.shape == (2, parts, b, s, kvh, d) and ws.dtype == torch.float32
+    assert tickets.dtype == torch.int32 and not tickets.any()
+    assert tickets.numel() == 2 * b * kvh * -(-s // fa_torch.WIDE_KV_TILE)
+
+
+def test_resident_dkv_at_the_gemma_lora_shape():
+    # Gemma-2B's LoRA shape (8 x 2048, 8 heads over 1 KV head): P = 1, so
+    # 256 CTAs of one 64-row kv tile each, every one over the whole group,
+    # the longest causal items first.
+    b, s, h, kvh = 8, 2048, 8, 1
+    assert fa_torch.dkv_parts(b, s, kvh, h // kvh, True, 132) == 1
+    work = fa_torch.dkv_wide_schedule(b * kvh, s, 1).tolist()
+    assert len(work) == b * kvh * s // fa_torch.WIDE_KV_TILE == 256
+    assert {p for _, _, p in work} == {0}
+    steps = [s // fa_torch.BWD_INNER - kt for _, kt, _ in work]
+    assert steps == sorted(steps, reverse=True) and steps[0] == 32
 
 
 @pytest.mark.parametrize("fam,dtype,wrappers", [

@@ -331,8 +331,9 @@ def _spy_dkv(monkeypatch, wrapper, b, s, h, kvh, d, *flag):
 ])
 def test_width_256_dkv_launches_carry_the_split_list(monkeypatch, wrapper,
                                                      flag, shape):
-    # At head_dim 256 the triangular and streamed dk/dv launch
-    # dkv_cta_wide over dkv_wide_schedule's list at the shape's P
+    # At head_dim 256 the triangular and streamed dk/dv (and the resident
+    # one: test_torch_flash_resident.py) launch dkv_cta_wide over
+    # dkv_wide_schedule's list at the shape's P
     # (dkv_parts), then, with P > 1, an fp32 workspace (2, P, B, S, KVH,
     # D) for the parts' partials and the kv tiles' tickets (two each,
     # zero), null at P = 1; the tail ends in P.
@@ -353,18 +354,17 @@ def test_width_256_dkv_launches_carry_the_split_list(monkeypatch, wrapper,
 
 
 @pytest.mark.parametrize("wrapper,flag,d", [
-    ("flash_dkv", (True,), 256), ("flash_dkv", (False,), 128),
+    ("flash_dkv", (True,), 64), ("flash_dkv", (False,), 128),
     ("flash_dkv_tri", (), 128), ("flash_dkv_tri", (), 64),
     ("flash_dkv_streamed", (False,), 128)])
 def test_other_dkv_launches_keep_the_cols_list(monkeypatch, wrapper, flag,
                                                d):
-    # The resident dk/dv at every width, and the triangular and streamed
-    # ones below 256, walk bwd_schedule's "cols" list (128-row kv tiles):
-    # no split, P = 1 where the launch takes it.
+    # Every dk/dv below head_dim 256 (resident, triangular, streamed)
+    # walks bwd_schedule's "cols" list (128-row kv tiles): no split, no
+    # workspace, P = 1.
     b, s, h, kvh = 1, 264, 8, 1
     ptrs, tail = _spy_dkv(monkeypatch, wrapper, b, s, h, kvh, d, *flag)
     work = [t for t in ptrs if t is not None and t.dtype == torch.int32]
     assert len(work) == 1
     assert torch.equal(work[0], fa_torch.bwd_schedule("cols", b * kvh, s))
-    if wrapper != "flash_dkv":
-        assert ptrs[-2:] == [None, None] and tail[-1] == 1
+    assert ptrs[-2:] == [None, None] and tail[-1] == 1

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""The width-256 dk/dv of the triangular and streamed families at every
-part count P, and the resident dk/dv beside the same CTA, timed in turns
-on one card.
+"""The width-256 dk/dv of every family at every part count P, timed in
+turns on one card.
 
     python3 tools/flash_dkv_variants.py
     python3 tools/flash_dkv_variants.py --rounds 3 --reps 20
@@ -18,20 +17,17 @@ at S <= 8192) or against P = 1 (within GRAD_REL_TOL) and against itself
 run twice (bit-identical), then times the Ps in turns (ascending, then
 descending, each round), each timing beside nvidia-smi's SM clock and
 power. Per shape it prints each P's median time beside the model's
-makespan and traffic, the P the model picks and the fastest P; then a
+makespan and traffic, the P the model picks and the fastest P (the
+resident flash_dkv, on the same CTA since it left its two-sweep body, at
+its main shape, Gemma-2B's 8 x 2048 causal, beside the triangular
+instance there); then a
 `READINGS` JSON line of every (family, shape, P, median ms, makespan,
 traffic bytes) and the model's scale fitted to them (`fit`: median ms
 = a x makespan + c x bytes by least squares; WIDE_STEP_BYTES is a / c),
 with the shapes where the fitted model's pick is not the fastest P.
 `--fit LOG` prints that fit from a saved run's READINGS line, with no
-card.
-
-Then the resident dk/dv at its width-256 main shape (Gemma-2B's 8 x 2048,
-causal: flash_dkv, the 128-row two-sweep CTA) in turns with dkv_cta_wide
-on the same function (flash_dkv_streamed with the causal flag: natural
-exp, the resident lse and delta), the two held against each other: what
-the new CTA would give that kernel. Imports nothing of JAX; needs a CUDA
-card, the CUDA toolkit and this file's checkout.
+card. Imports nothing of JAX; needs a CUDA card, the CUDA toolkit and
+this file's checkout.
 """
 import argparse
 import json
@@ -48,10 +44,12 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402  (the checkout's, for its timer and checks)
 from skypilot_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-# (family, (B, S, H, KVH, D, causal)): the two main shapes, the op's
-# causal [wide op] shape, shapes the rule sends to P = 1 (a batch of 8,
-# S = 16384, non-causal 8192), a short causal S and a group of 4.
+# (family, (B, S, H, KVH, D, causal)): the resident main shape, the two
+# other main shapes, the op's causal [wide op] shape, shapes the rule
+# sends to P = 1 (a batch of 8, S = 16384, non-causal 8192), a short
+# causal S and a group of 4.
 SHAPES = (
+    (fa.RESIDENT, chip_smoke.WIDE_MAIN_SHAPE),
     (fa.TRIANGULAR, chip_smoke.TRI_WIDE_MAIN_SHAPE),
     (fa.TRIANGULAR, chip_smoke.WIDE_OP_SHAPE),
     (fa.TRIANGULAR, (8, 2048, 8, 1, 256, True)),
@@ -64,7 +62,8 @@ SHAPES = (
     (fa.STREAMED, (1, 8192, 8, 1, 256, False)),
     (fa.STREAMED, (8, 2048, 8, 1, 256, False)),
 )
-_SOURCES = {fa.TRIANGULAR: "flash_tri", fa.STREAMED: "flash_streamed"}
+_SOURCES = {fa.RESIDENT: "flash_bwd", fa.TRIANGULAR: "flash_tri",
+            fa.STREAMED: "flash_streamed"}
 
 
 def main() -> int:
@@ -89,7 +88,6 @@ def main() -> int:
     try:
         for fam, shape in SHAPES:
             summary += _one_shape(fam, shape, sms, args, readings)
-        summary += _resident_shape(args)
     finally:
         chip_smoke.CLOCKS.stop()
     for line in summary:
@@ -195,34 +193,6 @@ def _one_shape(fam, shape, sms, args, readings):
                f"({med[pick]:.4f} ms), fastest P={best} ({med[best]:.4f} "
                f"ms), {sms} SMs")
     return out
-
-
-def _resident_shape(args):
-    shape = chip_smoke.WIDE_MAIN_SHAPE
-    b, s, h, kvh, d, causal = shape
-    scale = d ** -0.5
-    q, k, v, do = chip_smoke._inputs(shape, 0)
-    fns = chip_smoke.Family(fa, fa.RESIDENT, causal, scale)
-    o, lse, _, delta, dk, dv = fns.run(q, k, v, do)
-    runs = {"flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta,
-                                              causal, scale),
-            "wide": lambda: fa.flash_dkv_streamed(q, k, v, do, lse, delta,
-                                                  causal, scale)}
-    dk_w, dv_w = runs["wide"]()
-    torch.cuda.synchronize()
-    parts = fa.dkv_parts(b, s, kvh, h // kvh, causal,
-                         fa._sm_count(q.device))
-    chip_smoke._hold(f"[check] dkv_cta_wide (P={parts}) vs flash_dkv",
-                     shape, (("dk", (dk_w, dk), chip_smoke.GRAD_REL_TOL),
-                             ("dv", (dv_w, dv), chip_smoke.GRAD_REL_TOL)))
-    times = {key: [] for key in runs}
-    for _ in range(args.rounds):
-        for key, ts in chip_smoke._in_turns(runs, "flash_dkv", "wide",
-                                            args.reps).items():
-            times[key] += ts
-    return [f"[summary] resident {shape} {key}: median "
-            f"{statistics.median(ts):.4f} ms over {len(ts)} timings "
-            f"({min(ts):.4f}-{max(ts):.4f})" for key, ts in times.items()]
 
 
 if __name__ == "__main__":
