@@ -254,27 +254,39 @@ PAD_OP_SHAPES = ((2, 256, 8, 4, 16, True), (1, 384, 8, 2, 96, True),
                  (1, 384, 8, 1, 192, True), (1, 4096, 8, 1, 192, True))
 # Width 256 (Gemma's head_dim), each family at its own shapes, the first
 # its main one. Resident: Gemma-2B's LoRA shape (examples/gemma_lora.yaml:
-# 8 x 2048, 8 heads, MQA), a ragged non-causal S, and Gemma-7B's MHA
-# (16/16) at a ragged causal S. Triangular (causal past the budget, S >
-# 2048 at width 256): Gemma-2B at its max_seq_len, Gemma-7B's MHA, a
-# ragged S and a multiple of 64 that is not one of 128 (the second
-# consumer of the last tile has no rows). Streamed: the op's non-causal
-# use past the budget, and a ragged S.
+# 8 x 2048, 8 heads, MQA), a ragged non-causal S, Gemma-7B's MHA (16/16)
+# at a ragged causal S, and an odd GQA group (3). Triangular (causal past
+# the budget, S > 2048 at width 256): Gemma-2B at its max_seq_len,
+# Gemma-7B's MHA, a ragged S and a multiple of 64 that is not one of 128
+# (the second consumer of the last tile has no rows). Streamed: the op's
+# non-causal use past the budget, a ragged S, and Gemma-7B's MHA at it.
 WIDE_MAIN_SHAPE = (8, 2048, 8, 1, 256, True)
 WIDE_CHECK_SHAPES = (WIDE_MAIN_SHAPE, (2, 1000, 8, 1, 256, False),
-                     (1, 200, 16, 16, 256, True))
+                     (1, 200, 16, 16, 256, True), (2, 1000, 6, 2, 256, True))
 # The resident backward pair at width 256 past the budget (the op sends
 # such S to the triangular or streamed family; the kernels take any S): a
 # ragged causal S and a multiple of 64 that is not one of 128.
 WIDE_PAIR_SHAPES = ((1, 4136, 8, 1, 256, True), (1, 4160, 8, 1, 256, False))
 # The resident dq's CTA at width 256 (csrc/flash_bwd_sm90.cuh DqResident).
 WIDE_DQ_DESIGN = "DqWide: 128 q rows, 32-row K/V tiles in 3 stages"
+# The forwards' CTA at width 256 (csrc/flash_fwd_sm90.cuh fwd_cta_wide),
+# by kernel: the resident one with kWideQReg of S's k steps reading Q
+# from registers, the streamed and triangular ones with Q all in shared
+# memory. Each builds without spills.
+_WIDE_LOCKSTEP = "lockstep, one CTA (no cluster), "
+WIDE_FWD_DESIGN = {
+    "flash_fwd": _WIDE_LOCKSTEP + "S's k steps 0-7 with Q in registers",
+    "flash_fwd_streamed": _WIDE_LOCKSTEP + "Q in shared memory",
+    "flash_fwd_tri": _WIDE_LOCKSTEP + "Q in shared memory"}
+NO_SPILL_KERNELS = ("flash_fwd_kernel<256", "flash_fwd_streamed_kernel<256",
+                    "flash_fwd_tri_kernel<256")
 TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
 TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
                          (1, 4136, 8, 1, 256, True),
                          (1, 4160, 8, 1, 256, True))
 STR_WIDE_MAIN_SHAPE = (1, 4096, 8, 1, 256, False)
-STR_WIDE_CHECK_SHAPES = (STR_WIDE_MAIN_SHAPE, (1, 4136, 8, 1, 256, False))
+STR_WIDE_CHECK_SHAPES = (STR_WIDE_MAIN_SHAPE, (1, 4136, 8, 1, 256, False),
+                         (1, 4136, 16, 16, 256, False))
 # The op past the resident budget at width 256 ([wide op]): causal takes
 # the triangular trio, non-causal the streamed one. Past width 256 no
 # kernel exists: the op must refuse before any launch.
@@ -524,8 +536,13 @@ def phase_build(build):
     info = build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in info.items():
+        summary = _ptxas_summary(rec["ptxas"])
         print(f"[build] {name}.cu nvcc {rec['seconds']:.1f} s: "
-              + "; ".join(_ptxas_summary(rec["ptxas"])), flush=True)
+              + "; ".join(summary), flush=True)
+        for line in summary:
+            if line.startswith(NO_SPILL_KERNELS):
+                check(line.endswith("spills 0/0 bytes"),
+                      f"ptxas spills in {line}")
         for line in rec["ptxas"].splitlines():
             if "warning" in line.lower() or "Performance Loss" in line:
                 print(f"[build] {name}.cu: {line.strip()}", flush=True)
@@ -734,8 +751,9 @@ def phase_kernels(fa):
 
 def phase_kernels_wide(fa, records):
     """[kernels] at width 256: each family's trio (the forward's
-    fwd_consumer_wide; the resident dq on WIDE_DQ_DESIGN, the triangular
-    and streamed ones with a one-stage ring of 64-row K/V tiles; every
+    fwd_consumer_wide, WIDE_FWD_DESIGN; the resident dq on
+    WIDE_DQ_DESIGN, the triangular and streamed ones with a one-stage
+    ring of 64-row K/V tiles; every
     dk/dv on dkv_cta_wide, the GQA group in P parts summed by the last
     item of each kv tile; natural exp for the resident and streamed
     families, base 2 for the triangular one) against its plain versions in
@@ -838,6 +856,7 @@ def _print_launches(fa, fam, fns, shape):
         check(getattr(fa._build.library(src), f"stpu_{name}_attrs")(
             d, fa._build.DTYPES["bf16"], out) == 0, f"{name} attrs failed")
         notes.append(f"{name} {n} items, P {p}, {out[1]} B shared")
+    notes[0] += f" ({WIDE_FWD_DESIGN[fns.names[0]]})"
     if fam == fa.RESIDENT:
         notes[1] += f" ({WIDE_DQ_DESIGN})"
     print(f"[kernels d256] {fam} {shape} launches: " + "; ".join(notes),

@@ -116,7 +116,9 @@
 //   two consumers half a tile apart on the forward's ping-pong barriers
 //   (each tile's two batches of products in turn) was correct, causal
 //   included, and no faster than lockstep (PERF.md). A cluster of two
-//   CTAs over two heads of a KV group, one K/V load multicast to both.
+//   CTAs over two heads of a KV group, one K/V load multicast to both
+//   (for the width-256 forward it measured no faster: its multicast
+//   writes every byte into each CTA's shared memory all the same).
 //
 // Traps, and what the code does about each:
 // - Unequal tiles make the two consumers' causal bounds differ. dq, q
@@ -291,22 +293,6 @@ __device__ __forceinline__ void mma_rs_nt(float (&d)[32],
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_m64n64_rs<T, /*kTnspB=*/0>(
         d, a[kk], desc_b + (((kk / 4) * kBwdTile * 128 + (kk % 4) * 32) >> 4));
-}
-
-// The wgmma A fragments of rows R0..R0 + 15 of a kBwdRows-row swizzled
-// tile over D, one k step of 16 columns each: the mma.m16n8k16 A layout,
-// which ldmatrix.x4 gives when lane l points at row R0 + l % 16, chunk
-// 2 kk + l / 16 (eight rows of a matrix, eight distinct swizzled chunks:
-// no bank conflicts).
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4],
-                                             const unsigned char* tile,
-                                             int R0) {
-  const int l = threadIdx.x % 32;
-  const e16* t = reinterpret_cast<const e16*>(tile);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(a[kk], t + swz(R0 + l % 16, 2 * kk + l / 16));
 }
 
 // d (64 x D fp32) += A B: A, 64 x N of T from registers (a[kk] for k
@@ -516,9 +502,9 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   [[maybe_unused]] uint32_t qa[kRegA >= 1 ? D / 16 : 1][4];
   [[maybe_unused]] uint32_t doa[kRegA >= 2 ? D / 16 : 1][4];
   if constexpr (kRegA >= 1)
-    load_a_frags<D>(qa, base + L::kQ, cw * 64 + warp * 16);
+    load_a_frags(qa, base + L::kQ, cw * 64 + warp * 16);
   if constexpr (kRegA >= 2)
-    load_a_frags<D>(doa, base + L::kDO, cw * 64 + warp * 16);
+    load_a_frags(doa, base + L::kDO, cw * 64 + warp * 16);
 
   // Descriptors: this consumer's Q and dO rows (A), the ring's first K
   // and V (B, K-major), and K again MN-major for dS K.

@@ -17,7 +17,9 @@
 // One CTA per item of a host-built longest-first work list of 128-row q
 // tiles (ops/flash_attention.py: tri_schedule), so the causal tail does
 // not idle the card. Head_dim 64, 128 and 256 (Gemma's: 64-row K/V tiles,
-// P V as m64n256; flash_fwd_sm90.cuh), bf16 and f16.
+// P V as m64n256, and the first kWideQReg k steps of S with each
+// consumer's Q rows in registers, a quarter less shared-memory traffic
+// for S; flash_fwd_sm90.cuh), bf16 and f16.
 #include "flash_fwd_sm90.cuh"
 
 namespace stpu {
@@ -30,7 +32,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tv, const FwdParams p,
                  const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::fwd_cta<D, T, /*kNaturalLse=*/true>(tq, tk, tv, p, work, smem);
+  sm90::fwd_cta<D, T, /*kNaturalLse=*/true, /*kOverlap=*/false,
+                sm90::kWideQReg>(tq, tk, tv, p, work, smem);
 }
 
 }  // namespace

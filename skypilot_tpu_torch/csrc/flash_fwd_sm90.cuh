@@ -64,6 +64,20 @@
 //   the two consumers' causal ends differ by a tile, as in the
 //   backward's dq (fwd_consumer_wide). The epilogue is the narrow one, so
 //   the triangular instance writes its base-2 lse as at 64 and 128.
+// - What holds the wide body back is shared memory as much as the tensor
+//   cores: a 64-row K/V tile costs a CTA 2 x 4.2 MFLOP (2,048 clocks at
+//   the SM's 4,096 flop a clock) and ~256 KB of shared-memory traffic
+//   (S with both operands there, 128 KB; P V's V, 64 KB; the TMA writes,
+//   64 KB), 2,048 clocks at 128 bytes a clock. So the resident instance
+//   holds the first kWideQReg k steps of each consumer's Q rows as wgmma
+//   A fragments in registers (32 more a thread, 208 in all), and those
+//   steps read only K: a quarter less traffic for S (faster at its
+//   causal 8 x 2048; not at the streamed family's non-causal 1 x 4096,
+//   which keeps Q in shared memory, as the triangular one does). The
+//   overlapped schedule at this width, and clusters of two CTAs of one
+//   KV group sharing each K/V load by TMA multicast, leave that traffic
+//   as it is and measured no faster (PERF.md); the K/V stream alone
+//   runs in a third to two fifths of the kernel's time.
 // - Epilogue: o / l goes through the consumer's own 64 rows of Q in shared
 //   memory (its last product has read them) and out in 16-byte stores
 //   predicated on row < S; lse = m + log2(l), times ln 2 for the natural-
@@ -121,6 +135,12 @@ static_assert(kBM == kBN, "a causal q tile's loop ends at its own index");
 // Rows of a K/V tile: kBN, and kBNWide at head_dim 256, where a 128-row
 // K and V stage (64 KB each) would not leave room for a second one.
 constexpr int kBNWide = 64;
+// The k steps (of 16) of S = Q K^T at head_dim 256 whose Q operand the
+// resident forward holds in registers (fwd_consumer_wide): the most that
+// fits beside o (128), S (32) and P (16) in the consumers' 232 (at 12
+// ptxas serialises every wgmma), and a quarter less shared-memory
+// traffic for S.
+constexpr int kWideQReg = 8;
 template <int D>
 constexpr int fwd_kv_rows() {
   return D > 128 ? kBNWide : kBN;
@@ -744,6 +764,42 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
     wgmma_pv<D, T>(o, pa[kk], dv + ((tile + kk * 16 * 128) >> 4));
 }
 
+// The wgmma A fragments of rows R0..R0 + 15 of a kBM-row swizzled tile,
+// k steps 0 .. N - 1 of 16 columns each: the mma.m16n8k16 A layout,
+// which ldmatrix.x4 gives when lane l points at row R0 + l % 16, chunk
+// 2 kk + l / 16 (eight rows of a matrix, eight distinct swizzled chunks:
+// no bank conflicts).
+template <int N>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[N][4],
+                                             const unsigned char* tile,
+                                             int R0) {
+  const int l = threadIdx.x % 32;
+  const e16* t = reinterpret_cast<const e16*>(tile);
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk)
+    ldsm_x4(a[kk], t + swz(R0 + l % 16, 2 * kk + l / 16));
+}
+
+// mma_nt with the first NQ k steps' A operand from registers (qa[kk], as
+// load_a_frags leaves them) and the rest from shared memory: those steps
+// read only B there, 2 KB a step instead of 4.
+template <int D, class T, int NQ>
+__device__ __forceinline__ void mma_nt_qreg(float (&d)[32],
+                                            const uint32_t (&qa)[NQ][4],
+                                            uint64_t desc_a, int a_box,
+                                            uint64_t desc_b, int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t in_box = (kk % 4) * 32;  // bytes into the 64-col box
+    const uint64_t b = desc_b + (((kk / 4) * b_box + in_box) >> 4);
+    if (kk < NQ)
+      wgmma_m64n64_rs<T, /*kTnspB=*/0>(d, qa[kk < NQ ? kk : 0], b);
+    else
+      wgmma_m64n64_ss<T>(d, desc_a + (((kk / 4) * a_box + in_box) >> 4), b,
+                         kk);
+  }
+}
+
 // A consumer's epilogue: o / l out through its own rows of the Q tile
 // (its last product has read them), lse = m + log2(l) (times ln 2 when
 // kNaturalLse) for rows < S, by the lanes whose t (lane % 4) is 0.
@@ -928,8 +984,10 @@ __device__ __forceinline__ void fwd_consumer_overlap(const FwdParams& p,
 // 128 qt + 0..63) ends on KV tile 2 qt, its diagonal, consumer 1 on 2 qt
 // + 1; consumer 0 skips 2 qt + 1, wholly above its rows, but still waits
 // for it and arrives on its empty barrier (flash_bwd_sm90.cuh's dq, Traps).
-// Non-causal, every tile, the ragged last one masked.
-template <int D, class T, bool kNaturalLse>
+// Non-causal, every tile, the ragged last one masked. kQReg > 0: k steps
+// 0 .. kQReg - 1 of S take this consumer's Q rows from registers, loaded
+// once (kQReg * 4 registers beside o, S and P: 208 at kWideQReg).
+template <int D, class T, bool kNaturalLse, int kQReg = 0>
 __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
                                                   unsigned char* base, int b,
                                                   int h, int qt, int n_kt) {
@@ -958,6 +1016,9 @@ __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
+  [[maybe_unused]] uint32_t qa[kQReg > 0 ? kQReg : 1][4];
+  if constexpr (kQReg > 0)
+    load_a_frags(qa, base, cw * 64 + warp * 16);
   for (int j = 0; j < n_kt; ++j) {
     const int st = j % kRing;
     mbar_wait(full0 + 8 * st, (j / kRing) & 1);
@@ -966,8 +1027,12 @@ __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
 #pragma unroll
       for (int i = 0; i < kRows / 2; ++i) s[i] = 0.f;
       wgmma_fence();
-      mma_nt<D, T>(s, dq, kBM * 128, dk + ((st * L::kTileKV) >> 4),
-                   kRows * 128);
+      if constexpr (kQReg > 0)
+        mma_nt_qreg<D, T, kQReg>(s, qa, dq, kBM * 128,
+                                 dk + ((st * L::kTileKV) >> 4), kRows * 128);
+      else
+        mma_nt<D, T>(s, dq, kBM * 128, dk + ((st * L::kTileKV) >> 4),
+                     kRows * 128);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -990,9 +1055,10 @@ __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
                                   l);
 }
 
-// One CTA of the forward at head_dim 256 (fwd_consumer_wide; lockstep).
-// Its own function, so the narrow instances below compile as they did.
-template <int D, class T, bool kNaturalLse>
+// One CTA of the forward at head_dim 256 (fwd_consumer_wide; lockstep;
+// kQReg of S's k steps with Q from registers). Its own function, so the
+// narrow instances below compile as they did.
+template <int D, class T, bool kNaturalLse, int kQReg = 0>
 __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
                                              const CUtensorMap& tk,
                                              const CUtensorMap& tv,
@@ -1022,14 +1088,16 @@ __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
       fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    fwd_consumer_wide<D, T, kNaturalLse>(p, base, b, h, qt, n_kt);
+    fwd_consumer_wide<D, T, kNaturalLse, kQReg>(p, base, b, h, qt, n_kt);
   }
 }
 
 // One CTA of the forward: work item blockIdx.x is (b * H + h, q tile);
 // kOverlap picks the overlapped schedule over lockstep; head_dim 256 goes
-// to fwd_cta_wide (lockstep only).
-template <int D, class T, bool kNaturalLse, bool kOverlap = false>
+// to fwd_cta_wide (lockstep only) with kQReg of S's k steps reading Q
+// from registers (kWideQReg, or 0: all from shared memory).
+template <int D, class T, bool kNaturalLse, bool kOverlap = false,
+          int kQReg = 0>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
                                         const CUtensorMap& tv,
@@ -1038,7 +1106,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         unsigned char* smem) {
   static_assert(D <= 128 || !kOverlap, "head_dim 256 runs in lockstep");
   if constexpr (D > 128) {
-    fwd_cta_wide<D, T, kNaturalLse>(tq, tk, tv, p, work, smem);
+    fwd_cta_wide<D, T, kNaturalLse, kQReg>(tq, tk, tv, p, work, smem);
   } else {
   using L = FwdSmem<D, kOverlap>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);

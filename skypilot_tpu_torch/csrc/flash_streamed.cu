@@ -33,9 +33,11 @@
 // - the forward, flash_fwd_sm90.cuh's fwd_cta with the overlapped
 //   schedule (kOverlap: each consumer's softmax under its own P V; the
 //   two consumers in ping-pong on top measured no faster and were
-//   dropped); at head_dim 256 the wide body in lockstep (o takes 128
-//   registers a thread, and S beside it leaves no room for a P V in
-//   flight across the softmax);
+//   dropped); at head_dim 256 the wide body in lockstep with Q in
+//   shared memory (the overlapped schedule there, clusters of two CTAs
+//   sharing each K/V load, and the resident forward's kWideQReg k steps
+//   of S with Q in registers measured no faster at (1, 4096, 8, 1, 256)
+//   non-causal: PERF.md);
 // - dq, flash_bwd_sm90.cuh's dq_cta with each consumer's 64 rows of Q
 //   and dO held as wgmma A fragments in registers for the whole loop
 //   (kRegA = 2: S = Q K^T and dP = dO V^T read only their K or V tile

@@ -43,7 +43,8 @@ At head_dim 256 every dk/dv runs a CTA of its own (``dkv_cta_wide``):
 CTAs (``dkv_wide_schedule``), whose fp32 partials the last CTA of each kv
 tile sums in part order. The resident dq at 256 keeps its next K/V loads
 in flight under its products (``DqWide``: 32-row K/V tiles in three
-stages).
+stages), and the resident forward there reads the first half of each
+consumer's Q rows for S from registers (``kWideQReg``).
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the

@@ -117,6 +117,10 @@ def test_resident_lists_at_the_slice_shape(kind, n_rows):
 
 
 @pytest.mark.parametrize("source,body", [
+    ("flash_fwd.cu", "sm90::fwd_cta<D, T, /*kNaturalLse=*/true, "
+                     "/*kOverlap=*/false,\n                sm90::kWideQReg>"),
+    ("flash_tri.cu", "sm90::fwd_cta<D, T, /*kNaturalLse=*/false>(tq, tk, tv, "
+                     "p, work, smem);"),
     ("flash_bwd.cu", "sm90::dq_cta<D, T, BaseE, 0, sm90::DqResident<D>>"),
     ("flash_bwd.cu", "sm90::dkv_cta<D, T, BaseE>"),
     ("flash_bwd.cu", "sm90::dkv_cta_wide<D, T, BaseE>"),
@@ -125,6 +129,10 @@ def test_resident_lists_at_the_slice_shape(kind, n_rows):
     ("flash_tri.cu", "sm90::dkv_cta_wide<D, T, Base2>"),
 ])
 def test_backward_kernels_instantiate_the_hopper_body(source, body):
+    # The resident forward is fwd_cta in lockstep, at head_dim 256 with
+    # kWideQReg of S's k steps reading Q from registers; the triangular
+    # (and streamed) forward keeps the wide body with Q all in shared
+    # memory (kQReg 0).
     # Both backward families are instances of flash_bwd_sm90.cuh's bodies
     # (the resident in natural exp, reading the resident forward's
     # natural-log lse; the triangular in base 2), at the tiles the wrappers
@@ -139,6 +147,28 @@ def test_backward_kernels_instantiate_the_hopper_body(source, body):
     bwd = (_CSRC / "flash_bwd_sm90.cuh").read_text()
     for gone in ("dkv_consumer_sweeps", "dkv_sweep", "kSweeps", "store_frag"):
         assert gone not in bwd
+
+
+def _header_int(name):
+    text = (_CSRC / "flash_fwd_sm90.cuh").read_text()
+    return int(re.search(rf"\b{name} = (\d+)[;,]", text).group(1))
+
+
+@pytest.mark.parametrize("source,wide_q_regs", [
+    ("flash_fwd.cu", True), ("flash_streamed.cu", False),
+    ("flash_tri.cu", False)])
+def test_wide_forward_q_fragments_fit_the_consumers(source, wide_q_regs):
+    # At head_dim 256 the resident forward holds k steps 0 .. kWideQReg -
+    # 1 of each consumer's Q rows as wgmma A fragments (four registers a
+    # step a thread) beside o (D / 2 = 128), S (kBNWide / 2) and the
+    # packed P (kBNWide / 4), within the consumers' setmaxnreg share; the
+    # streamed and triangular forwards keep Q in shared memory.
+    steps = _header_int("kWideQReg")
+    rows = _header_int("kBNWide")
+    assert 0 < steps <= 256 // 16
+    assert (256 // 2 + 4 * steps + rows // 2 + rows // 4
+            <= _header_int("kConsumerRegs") - 24)
+    assert ("sm90::kWideQReg" in (_CSRC / source).read_text()) == wide_q_regs
 
 
 @pytest.mark.parametrize("source", sorted(_build.SOURCES))
