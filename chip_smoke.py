@@ -267,8 +267,12 @@ WIDE_CHECK_SHAPES = (WIDE_MAIN_SHAPE, (2, 1000, 8, 1, 256, False),
 # such S to the triangular or streamed family; the kernels take any S): a
 # ragged causal S and a multiple of 64 that is not one of 128.
 WIDE_PAIR_SHAPES = ((1, 4136, 8, 1, 256, True), (1, 4160, 8, 1, 256, False))
-# The resident dq's CTA at width 256 (csrc/flash_bwd_sm90.cuh DqResident).
+# The resident dq's CTA at width 256 (csrc/flash_bwd_sm90.cuh DqResident)
+# and the triangular one's (DqTri).
 WIDE_DQ_DESIGN = "DqWide: 128 q rows, 32-row K/V tiles in 3 stages"
+TRI_WIDE_DQ_DESIGN = ("DqSplitKV: 128 q rows, 64-row K tiles in 2 stages "
+                      "and V in 1 on barriers of their own, warpgroup "
+                      "index uniform")
 # The forwards' CTA at width 256 (csrc/flash_fwd_sm90.cuh fwd_cta_wide),
 # by kernel: the resident one with kWideQReg of S's k steps reading Q
 # from registers, the streamed and triangular ones with Q all in shared
@@ -279,7 +283,7 @@ WIDE_FWD_DESIGN = {
     "flash_fwd_streamed": _WIDE_LOCKSTEP + "Q in shared memory",
     "flash_fwd_tri": _WIDE_LOCKSTEP + "Q in shared memory"}
 NO_SPILL_KERNELS = ("flash_fwd_kernel<256", "flash_fwd_streamed_kernel<256",
-                    "flash_fwd_tri_kernel<256")
+                    "flash_fwd_tri_kernel<256", "flash_dq_tri_kernel<256")
 TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
 TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
                          (1, 4136, 8, 1, 256, True),
@@ -752,16 +756,16 @@ def phase_kernels(fa):
 def phase_kernels_wide(fa, records):
     """[kernels] at width 256: each family's trio (the forward's
     fwd_consumer_wide, WIDE_FWD_DESIGN; the resident dq on
-    WIDE_DQ_DESIGN, the triangular and streamed ones with a one-stage
-    ring of 64-row K/V tiles; every
+    WIDE_DQ_DESIGN, the triangular one on TRI_WIDE_DQ_DESIGN, the
+    streamed one with a one-stage ring of 64-row K/V tiles (DqBase); every
     dk/dv on dkv_cta_wide, the GQA group in P parts summed by the last
     item of each kv tile; natural exp for the resident and streamed
     families, base 2 for the triangular one) against its plain versions in
     bf16 at its shapes (the resident pair also at WIDE_PAIR_SHAPES), each
     launch's items, P and shared memory printed, then at its main shape
     the backward pair twice bit-identical, the times (bf16, f16, plain,
-    SDPA, bound) and f16 against the plain versions. Records keyed
-    "<name>@256"."""
+    SDPA, bound), the pair beside SDPA's whole backward and f16 against
+    the plain versions. Records keyed "<name>@256"."""
     seed = 40
     for fam, shapes, main in ((fa.RESIDENT, WIDE_CHECK_SHAPES,
                                WIDE_MAIN_SHAPE),
@@ -796,22 +800,22 @@ def phase_kernels_wide(fa, records):
                 _check_f16(fns, shape, seed, wide)
                 records.update((f"{name}@256", rec)
                                for name, rec in wide.items())
-                if fam == fa.RESIDENT:
-                    _print_pair_vs_sdpa(fns, wide)
+                _print_pair_vs_sdpa(fam, fns, wide)
             del q, k, v, do, o, lse, dq, delta, dk, dv
             torch.cuda.empty_cache()
             seed += 1
     _check_resident_pair_past_budget(fa, seed)
 
 
-def _print_pair_vs_sdpa(fns, records):
-    """The resident backward pair's time at width 256 beside SDPA's whole
+def _print_pair_vs_sdpa(fam, fns, records):
+    """A family's backward pair's time at width 256 beside SDPA's whole
     backward (dq, dk, dv) on the same inputs, both from this run."""
-    dq_ms, dkv_ms = (records[n]["ms"] for n in fns.names[1:])
-    lib = records[fns.names[1]]["library_ms"]
+    dq, dkv = fns.names[1:]
+    dq_ms, dkv_ms = records[dq]["ms"], records[dkv]["ms"]
+    lib = records[dq]["library_ms"]
     total = dq_ms + dkv_ms
-    print(f"[kernels d256] resident backward pair: flash_dq {dq_ms:.4f} + "
-          f"flash_dkv {dkv_ms:.4f} = {total:.4f} ms; SDPA's whole backward "
+    print(f"[kernels d256] {fam} backward pair: {dq} {dq_ms:.4f} + {dkv} "
+          f"{dkv_ms:.4f} = {total:.4f} ms; SDPA's whole backward "
           + ("none" if lib is None else
              f"{lib:.4f} ms (pair / SDPA {total / lib:.3f})"), flush=True)
 
@@ -841,7 +845,7 @@ def _print_launches(fa, fam, fns, shape):
     """Each kernel's launch at a width-256 shape: its items (CTAs), P (the
     parts of the GQA group every width-256 dk/dv splits across CTAs) and
     its dynamic shared memory (the kernel's build report); the resident
-    dq's CTA shape."""
+    and triangular dq's CTA shapes."""
     b, s, h, kvh, d, causal = shape
     parts = fa.dkv_parts(b, s, kvh, h // kvh, causal,
                          fa._sm_count(torch.device("cuda")))
@@ -859,6 +863,8 @@ def _print_launches(fa, fam, fns, shape):
     notes[0] += f" ({WIDE_FWD_DESIGN[fns.names[0]]})"
     if fam == fa.RESIDENT:
         notes[1] += f" ({WIDE_DQ_DESIGN})"
+    elif fam == fa.TRIANGULAR:
+        notes[1] += f" ({TRI_WIDE_DQ_DESIGN})"
     print(f"[kernels d256] {fam} {shape} launches: " + "; ".join(notes),
           flush=True)
 

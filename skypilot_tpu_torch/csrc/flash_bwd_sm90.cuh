@@ -20,7 +20,8 @@
 // then exp2 as Base2);
 // the mask is the runtime TileMask (causal, and key columns at or past S).
 // flash_tri.cu instantiates them in base 2, causal, as flash_dq_tri_kernel
-// and flash_dkv_tri_kernel; flash_bwd.cu in natural exp, with the runtime
+// (its CTA shape DqTri: DqSplitKV at head_dim 256) and
+// flash_dkv_tri_kernel; flash_bwd.cu in natural exp, with the runtime
 // causal flag, as flash_dq_kernel (its CTA shape DqResident: DqWide at
 // head_dim 256) and flash_dkv_kernel (the resident
 // family); flash_streamed.cu instantiates both once more, as flash_bwd.cu
@@ -64,25 +65,49 @@
 //   holds dk and dv (2 x D / 2) beside S^T and dP^T (2 x 32): 192
 //   accumulator registers at D = 128.
 // - Head_dim 256 (Gemma's; every family, in every base). dq: the 128-row
-//   resident pair takes 128 KB, and a stage of 64-row K and V 64 KB. The
-//   triangular and streamed dq keep one such stage (DqBase, bwd_ring;
-//   193 KB), so the producer's next load waits for both consumers to
-//   release the last and loads and products run in turn; they hold dq
-//   (128) + S, dP (32 each) + dS (16) = 208 registers, Q and dO read
-//   from shared memory (kRegA 0). The resident dq runs DqWide: 32-row K/V
-//   tiles in three 32 KB stages (226 KB), so the next two tiles' TMA
-//   loads are in flight while the consumers run a tile's S, dP and dS K.
-//   S and dP become m64n32 (16 registers each, 168 in all, no spills)
-//   with both operands in shared memory: 3 KB per 65.5 kFLOP, 1.5 times
-//   what m64n64 asks a clock of the SM's 128 bytes. Each consumer's 64
-//   rows meet the diagonal in two 32-row tiles, both masked.
-//   Timed against it in turns (tools/flash_dq_variants.py; PERF.md) and
-//   gone: K and V of 64 rows in three slots of their own (216 B of
-//   spills), a 64-row q tile shared by both consumers exchanging P and dP
-//   through shared memory (twice the K/V bytes from L2 per flop), and the
-//   next tile's S and dP issued before this tile's dS (168 B of spills),
-//   tile j's dS K waited for with tile j + 1's S and dP, and consumer 1
-//   started behind consumer 0 (both no faster).
+//   resident pair takes 128 KB, and a 64-row K or V tile 32 KB. Each
+//   consumer holds dq (128 registers) beside S and dP; what binds is the
+//   shared memory's 128 B a clock as much as the tensor cores (an m64n64
+//   with both operands there reads 4 KB per 131 kFLOP, exactly that
+//   rate), and the registers.
+//   - The triangular dq runs DqSplitKV: 64-row K tiles in two stages
+//     and V in one, each on full and empty barriers of its own (230,968
+//     B). A consumer waits for K_j and V_j, runs S and dP as
+//     m64n64, releases V_j, computes dS, runs dS K and releases K_j: the
+//     producer's load of V_{j+1} runs under dS K, and K_{j+1} has been
+//     resident since tile j - 1 ended. S and dP at m64n64 keep shared
+//     memory and the tensor cores in balance (3,072 clocks each a 64-row
+//     tile for the CTA).
+//     V is waited for before S is issued: a wait between S's and dP's
+//     issue makes ptxas serialise every wgmma (C7520). Registers: dq
+//     (128) + S, dP (32 each) + dS (16) = 208, with the warpgroup index
+//     uniform (kUniform) so the descriptors sit in uniform registers;
+//     without it this shape spills 132 B (68 at 240 registers) and runs
+//     1.5 times slower.
+//   - The streamed dq keeps one stage of a 64-row K and V tile (DqBase,
+//     bwd_ring; 193 KB): the producer's next load waits for both
+//     consumers to release the last, so loads and products run in turn,
+//     and at 232 registers it spills 60 B.
+//   - The resident dq runs DqWide: 32-row K/V tiles in three 32 KB stages
+//     (226 KB), the next two tiles' loads in flight under a tile's
+//     products; S and dP become m64n32 (16 registers each, no spills)
+//     with both operands in shared memory: 3 KB per 65.5 kFLOP, 1.5 times
+//     what m64n64 asks a clock. Each consumer's 64 rows meet the diagonal
+//     in two 32-row tiles, both masked.
+//   Timed in turns at the triangular 1 x 8192 (tools/flash_dq_variants.py,
+//   H100 SXM at 700 W; PERF.md): DqSplitKV 0.546 ms; DqWide
+//   0.758, 0.657 with kUniform; DqBase 0.861, 0.784 with kUniform;
+//   DqSplitKV without kUniform 0.811. kUniform is why the resident and
+//   streamed shapes are levers too (PERF.md). Timed and gone: DqWide with
+//   S's first 4 or 8 k steps reading Q from registers (0.760-0.761),
+//   DqSplitKV with its first 4 (ptxas serialises every wgmma for want
+//   of registers, C7512), the consumers at 240 registers and the
+//   producer at 24 (the spills stay), K and V of 64 rows in three slots
+//   of their own (216 B of spills), a 64-row q tile shared by both
+//   consumers exchanging P and dP through shared memory, the next tile's
+//   S and dP issued before this tile's dS (168 B of spills), tile j's dS
+//   K waited for with tile j + 1's S and dP, and consumer 1 started
+//   behind consumer 0 (both no faster).
 //   dk and dv together (256 fp32 a thread) do not fit one consumer, so
 //   every dk/dv at 256 runs dkv_cta_wide, a CTA of its own:
 //   - one 64-row kv tile of one (b, kv head) per CTA, with dv and dk in
@@ -206,12 +231,19 @@ constexpr int bwd_ring() {
   return D > 128 ? 1 : kBwdRing;
 }
 
-// The shape of a dq CTA's K/V ring: kSlots stages of a kKv-row K and V
-// tile each, against the 128 resident q rows (a 64-row half for each
-// consumer).
-template <int kKvN, int kSlotsN>
+// The shape of a dq CTA's K/V ring, against the 128 resident q rows (a
+// 64-row half for each consumer): kSlots stages of a kKv-row K and V tile
+// each, on one full and one empty barrier a stage; or, with kVSlots > 0,
+// kSlots K tiles and kVSlots V tiles, each on barriers of its own (a
+// consumer releases V once dP is done, K once dS K is). kUniform: each
+// consumer takes its warpgroup index from lane 0
+// (__shfl_sync), so ptxas knows it warp-uniform and builds the shared-
+// memory descriptors derived from it in uniform registers; without it
+// they take general registers, and the 64-row tiles at head_dim 256 spill.
+template <int kKvN, int kSlotsN, int kVSlotsN = 0, bool kUniformN = false>
 struct DqShape {
-  static constexpr int kKv = kKvN, kSlots = kSlotsN;
+  static constexpr int kKv = kKvN, kSlots = kSlotsN, kVSlots = kVSlotsN;
+  static constexpr bool kUniform = kUniformN;
 };
 
 // Every dq but the resident one at head_dim 256: bwd_ring<D>() stages of
@@ -229,24 +261,38 @@ using DqWide = DqShape<32, 3>;
 template <int D>
 using DqResident = std::conditional_t<(D > 128), DqWide, DqBase<D>>;
 
+// The triangular dq at head_dim 256: 64-row K tiles in two stages and V
+// in one, each on barriers of its own, the warpgroup index uniform (S
+// and dP as m64n64, the next K resident a tile ahead, the next V loaded
+// under dS K).
+using DqSplitKV = DqShape<kBwdTile, 2, 1, true>;
+
+// The triangular dq's shape (flash_tri.cu): DqSplitKV at head_dim 256.
+template <int D>
+using DqTri = std::conditional_t<(D > 128), DqSplitKV, DqBase<D>>;
+
 // The most dynamic shared memory a block may use.
 constexpr int kMaxSmem = 232448;
 
 // dq's shared memory from a 1024-byte aligned base: Q and dO (kBwdRows x
-// D); kSlots K tiles, then kSlots V tiles (kKv x D), each tile D / 64
+// D); kSlots K tiles, then kVStages V tiles (kKv x D), each tile D / 64
 // boxes of rows x 128 bytes, 128-byte swizzled; delta of the 128 rows;
-// mbarriers full[kSlots], empty[kSlots], q.
+// mbarriers full[kBars], empty[kBars], q (with split K and V barriers
+// each array holds K's kSlots, then V's kVSlots).
 template <int D, class Sh = DqBase<D>>
 struct DqSmem {
+  static constexpr bool kSplit = Sh::kVSlots > 0;
+  static constexpr int kVStages = kSplit ? Sh::kVSlots : Sh::kSlots;
+  static constexpr int kBars = kSplit ? Sh::kSlots + Sh::kVSlots : Sh::kSlots;
   static constexpr int kRowsTile = kBwdRows * D * 2;
   static constexpr int kTile = Sh::kKv * D * 2;
   static constexpr int kQ = 0;
   static constexpr int kDO = kRowsTile;
   static constexpr int kK = 2 * kRowsTile;
   static constexpr int kV = kK + Sh::kSlots * kTile;
-  static constexpr int kDelta = kV + Sh::kSlots * kTile;
+  static constexpr int kDelta = kV + kVStages * kTile;
   static constexpr int kBar = kDelta + kBwdRows * 4;
-  static constexpr int kBytes = kBar + (2 * Sh::kSlots + 1) * 8 + 1024;
+  static constexpr int kBytes = kBar + (2 * kBars + 1) * 8 + 1024;
   static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
 };
 
@@ -377,8 +423,8 @@ __device__ __forceinline__ void dq_producer(
   using L = DqSmem<D, Sh>;
   const int kvh = h / (p.H / p.KVH);
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * Sh::kSlots;
-  const uint32_t qbar = full0 + 16 * Sh::kSlots;
+  const uint32_t empty0 = full0 + 8 * L::kBars;
+  const uint32_t qbar = full0 + 16 * L::kBars;
   mbar_expect_tx(qbar, 2 * L::kRowsTile);
 #pragma unroll
   for (int c = 0; c < D / kBoxCols; ++c) {
@@ -392,14 +438,32 @@ __device__ __forceinline__ void dq_producer(
     const int st = j % Sh::kSlots;
     if (j >= Sh::kSlots) mbar_wait(empty0 + 8 * st, (j / Sh::kSlots - 1) & 1);
     const uint32_t full = full0 + 8 * st;
-    mbar_expect_tx(full, 2 * L::kTile);
+    if constexpr (L::kSplit) {
+      // K_j, then V_j once V_{j - kVSlots} is released (after its dP).
+      mbar_expect_tx(full, L::kTile);
 #pragma unroll
-    for (int c = 0; c < D / kBoxCols; ++c) {
-      const int off = st * L::kTile + c * Sh::kKv * 128;
-      tma_load_4d(base + L::kK + off, &tk, full, c * kBoxCols, j * Sh::kKv,
-                  kvh, b);
-      tma_load_4d(base + L::kV + off, &tv, full, c * kBoxCols, j * Sh::kKv,
-                  kvh, b);
+      for (int c = 0; c < D / kBoxCols; ++c)
+        tma_load_4d(base + L::kK + st * L::kTile + c * Sh::kKv * 128, &tk,
+                    full, c * kBoxCols, j * Sh::kKv, kvh, b);
+      const int sv = j % L::kVStages;
+      const uint32_t vbar = 8 * (Sh::kSlots + sv);
+      if (j >= L::kVStages)
+        mbar_wait(empty0 + vbar, (j / L::kVStages - 1) & 1);
+      mbar_expect_tx(full0 + vbar, L::kTile);
+#pragma unroll
+      for (int c = 0; c < D / kBoxCols; ++c)
+        tma_load_4d(base + L::kV + sv * L::kTile + c * Sh::kKv * 128, &tv,
+                    full0 + vbar, c * kBoxCols, j * Sh::kKv, kvh, b);
+    } else {
+      mbar_expect_tx(full, 2 * L::kTile);
+#pragma unroll
+      for (int c = 0; c < D / kBoxCols; ++c) {
+        const int off = st * L::kTile + c * Sh::kKv * 128;
+        tma_load_4d(base + L::kK + off, &tk, full, c * kBoxCols,
+                    j * Sh::kKv, kvh, b);
+        tma_load_4d(base + L::kV + off, &tv, full, c * kBoxCols,
+                    j * Sh::kKv, kvh, b);
+      }
     }
   }
 }
@@ -445,14 +509,15 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   using L = DqSmem<D, Sh>;
   constexpr int kKv = Sh::kKv;
   static_assert(kRegA == 0 || kKv == kBwdTile, "register A against 64 keys");
-  const int cw = threadIdx.x / 128 - 1;
+  int cw = threadIdx.x / 128 - 1;
+  if constexpr (Sh::kUniform) cw = __shfl_sync(0xffffffffu, cw, 0);
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int q_start = qt * kBwdRows;
   const int R0 = cw * 64 + warp * 16 + lane / 4;  // and R0 + 8
   const int row0 = q_start + R0;
   const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * Sh::kSlots;
-  const uint32_t qbar = full0 + 16 * Sh::kSlots;
+  const uint32_t empty0 = full0 + 8 * L::kBars;
+  const uint32_t qbar = full0 + 16 * L::kBars;
   const float sm = p.scale * Base::kScoreMul;
   const TileMask mask = {p.S, p.causal};
   const long long stat = ((long long)b * p.H + h) * p.S;
@@ -519,7 +584,14 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   for (int j = 0; j < n_kt; ++j) {
     const int st = j % Sh::kSlots;
+    // Split barriers: V_j's stage and the offset of its full and empty
+    // barriers (K's are st's).
+    [[maybe_unused]] const int sv = j % L::kVStages;
+    [[maybe_unused]] const uint32_t vbar = 8 * (Sh::kSlots + sv);
     mbar_wait(full0 + 8 * st, (j / Sh::kSlots) & 1);
+    // V too, before S is issued: a wait between S's and dP's issue makes
+    // ptxas serialise every wgmma (C7520).
+    if constexpr (L::kSplit) mbar_wait(full0 + vbar, (j / L::kVStages) & 1);
     if (j <= j_last) {
       const uint32_t tile = (st * L::kTile) >> 4;
       float s[kKv / 2], dp[kKv / 2];
@@ -530,15 +602,21 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
         mma_rs_nt<D, T>(s, qa, d_k + tile);
       else
         mma_nt_n<D, T, kKv>(s, d_q, kBwdRows * 128, d_k + tile, kKv * 128);
-      if constexpr (kRegA >= 2)
+      if constexpr (L::kSplit) {
+        mma_nt_n<D, T, kKv>(dp, d_do, kBwdRows * 128,
+                            d_v + ((sv * L::kTile) >> 4), kKv * 128);
+      } else if constexpr (kRegA >= 2) {
         mma_rs_nt<D, T>(dp, doa, d_v + tile);
-      else
+      } else {
         mma_nt_n<D, T, kKv>(dp, d_do, kBwdRows * 128, d_v + tile,
                             kKv * 128);
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
       fence_regs(dp);
+      if constexpr (L::kSplit)
+        mbar_arrive_if(empty0 + vbar, tid == 0);  // V_j read
       // Causally the tiles from the diagonal one on take the masked step
       // (64 / kKv of them: the loop stops after them); otherwise only a
       // ragged last tile.
@@ -554,8 +632,10 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p,
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
+    } else if constexpr (L::kSplit) {
+      if (tid == 0) mbar_arrive(empty0 + vbar);
     }
-    if (tid == 0) mbar_arrive(empty0 + 8 * st);  // K and V of st consumed
+    if (tid == 0) mbar_arrive(empty0 + 8 * st);  // K (and V) of st consumed
   }
 
   // dq * scale through this consumer's own rows of Q (its last product has
@@ -584,11 +664,11 @@ __device__ __forceinline__ void dq_cta(const CUtensorMap& tq,
       p.causal ? min(n_all, (qt + 1) * (kBwdRows / Sh::kKv)) : n_all;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
-    for (int i = 0; i < Sh::kSlots; ++i) {
-      mbar_init(bars + 8 * i, 1);                          // full: producer
-      mbar_init(bars + 8 * (Sh::kSlots + i), kConsumers);  // empty
+    for (int i = 0; i < L::kBars; ++i) {
+      mbar_init(bars + 8 * i, 1);                        // full: producer
+      mbar_init(bars + 8 * (L::kBars + i), kConsumers);  // empty
     }
-    mbar_init(bars + 16 * Sh::kSlots, 1);                  // q and dO
+    mbar_init(bars + 16 * L::kBars, 1);                  // q and dO
     asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
   }
   __syncthreads();
@@ -1274,6 +1354,17 @@ inline int launch_dq_resident(Kernel kernel, const BwdParams& p, int B,
 template <int D, class T, class Kernel>
 inline int dq_resident_attrs(Kernel kernel, int* out) {
   return dq_attrs<D, T, DqResident<D>>(kernel, out);
+}
+
+template <int D, class T, class Kernel>
+inline int launch_dq_tri(Kernel kernel, const BwdParams& p, int B,
+                         const int* work, cudaStream_t stream) {
+  return launch_dq<D, T, DqTri<D>>(kernel, p, B, work, stream);
+}
+
+template <int D, class T, class Kernel>
+inline int dq_tri_attrs(Kernel kernel, int* out) {
+  return dq_attrs<D, T, DqTri<D>>(kernel, out);
 }
 
 // Every dk/dv's (dkv_cta_wide's shared memory at head_dim 256).

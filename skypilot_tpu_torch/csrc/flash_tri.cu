@@ -24,11 +24,21 @@
 // product from registers, the GQA group of dk/dv summed in registers
 // without atomics), instanced in base 2. Each kernel has a bf16 and an
 // f16 instance at head_dim 64, 128 and 256 (Gemma's, on the bodies' wide
-// paths: the forward's 64-row K/V tiles, dq's one-stage ring, and
-// dkv_cta_wide for dk/dv: one 64-row kv tile per CTA, dv and dk in separate
-// consumers, the GQA group split in P parts across CTAs and summed in part
-// order by the last to finish; the JAX dispatcher sends Gemma here past S
-// 2048).
+// paths; the JAX dispatcher sends Gemma here past S 2048):
+// - the forward: 64-row K/V tiles, Q in shared memory;
+// - dq: DqSplitKV (flash_bwd_sm90.cuh), 64-row K tiles in two stages and
+//   V in one on barriers of their own, so V's next load runs under dS K
+//   and K's next tile is resident a tile ahead; S and dP as m64n64, the
+//   warpgroup index uniform so the descriptors sit in uniform registers
+//   and nothing spills. In turns at Gemma-2B's 1 x 8192 (H100 SXM, 700
+//   W; PERF.md) it runs 0.546 ms against the one-stage ring's
+//   0.861 (this kernel's body before; it spills 60 B) and DqWide's 0.758
+//   (32-row tiles in three stages, S and dP as m64n32 with both operands
+//   in shared memory, held by its 128 B a clock), and DqWide with Q from
+//   registers for S's first 4 or 8 k steps at 0.760-0.761;
+// - dk/dv: dkv_cta_wide, one 64-row kv tile per CTA, dv and dk in
+//   separate consumers, the GQA group split in P parts across CTAs and
+//   summed in part order by the last to finish.
 //
 // Schedule: the TPU kernels walk scalar-prefetched maps of the lower-
 // triangle block pairs (_tri_maps_row, _tri_maps_col). Here the host builds
@@ -39,10 +49,10 @@
 // queue over the whole launch and the short causal rows fill the last wave.
 // Inside an item the loop stops at the diagonal, so no fully masked tile is
 // loaded, and only the straddling tile runs the masked step. The forward's
-// and dq's lists count 128-row q tiles (dq's pairs against 64-row KV
-// tiles), dk/dv's 128-row kv tiles (pairs against 64-row q tiles), and at
-// head_dim 256 (kv tile, part) items of 64-row kv tiles
-// (dkv_wide_schedule).
+// and dq's lists count 128-row q tiles (dq's pairs against the 64-row KV
+// tiles it walks at every width), dk/dv's 128-row kv tiles (pairs against
+// 64-row q tiles), and at head_dim 256 (kv tile, part) items of 64-row kv
+// tiles (dkv_wide_schedule).
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -66,7 +76,8 @@ flash_dq_tri_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tv,
                     const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dq_cta<D, T, Base2>(tq, tdo, tk, tv, p, work, smem);
+  sm90::dq_cta<D, T, Base2, 0, sm90::DqTri<D>>(tq, tdo, tk, tv, p, work,
+                                               smem);
 }
 
 template <int D, class T>
@@ -121,7 +132,7 @@ extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
                                  nullptr, strides, S, H, KVH, scale, 1);
-  STPU_SM90_BY_D(D, dtype, launch_dq, flash_dq_tri_kernel, p, B,
+  STPU_SM90_BY_D(D, dtype, launch_dq_tri, flash_dq_tri_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
 }
@@ -159,7 +170,7 @@ extern "C" int stpu_flash_fwd_tri_attrs(int D, int dtype, int* out) {
 }
 
 extern "C" int stpu_flash_dq_tri_attrs(int D, int dtype, int* out) {
-  STPU_SM90_BY_D(D, dtype, dq_attrs, stpu::flash_dq_tri_kernel, out);
+  STPU_SM90_BY_D(D, dtype, dq_tri_attrs, stpu::flash_dq_tri_kernel, out);
 }
 
 extern "C" int stpu_flash_dkv_tri_attrs(int D, int dtype, int* out) {

@@ -124,7 +124,9 @@ def test_resident_lists_at_the_slice_shape(kind, n_rows):
     ("flash_bwd.cu", "sm90::dq_cta<D, T, BaseE, 0, sm90::DqResident<D>>"),
     ("flash_bwd.cu", "sm90::dkv_cta<D, T, BaseE>"),
     ("flash_bwd.cu", "sm90::dkv_cta_wide<D, T, BaseE>"),
-    ("flash_tri.cu", "sm90::dq_cta<D, T, Base2>"),
+    # The id the case had when the triangular dq took the default shape.
+    pytest.param("flash_tri.cu", "sm90::dq_cta<D, T, Base2, 0, sm90::DqTri<D>>",
+                 id="flash_tri.cu-sm90::dq_cta<D, T, Base2>"),
     ("flash_tri.cu", "sm90::dkv_cta<D, T, Base2>"),
     ("flash_tri.cu", "sm90::dkv_cta_wide<D, T, Base2>"),
 ])
@@ -137,8 +139,9 @@ def test_backward_kernels_instantiate_the_hopper_body(source, body):
     # (the resident in natural exp, reading the resident forward's
     # natural-log lse; the triangular in base 2), at the tiles the wrappers
     # build their lists with (test_work_list_tiles_match_the_kernels): the
-    # resident dq in its own shape (DqResident), every dk/dv at head_dim
-    # 256 on dkv_cta_wide. The mma.sync resident tile bodies and the
+    # resident and triangular dq in their own shapes (DqResident, DqTri),
+    # every dk/dv at head_dim 256 on dkv_cta_wide. The mma.sync resident
+    # tile bodies and the
     # two-sweep width-256 dk/dv are gone.
     assert body in (_CSRC / source).read_text()
     common = (_CSRC / "flash_common.cuh").read_text()

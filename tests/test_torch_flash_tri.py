@@ -175,7 +175,10 @@ def _ceil(a, b):
     pytest.param(1, 64, _T, _T, id="1-64"),
     pytest.param(3, 512, _T, _T, id="3-512"),
     pytest.param(8, 1024, _T, _T, id="8-1024"),
-] + [pytest.param(2, s, _BT, _BI, id=f"bwd-2-{s}") for s in BWD_S])
+] + [pytest.param(2, s, _BT, _BI, id=f"bwd-2-{s}") for s in BWD_S] + [
+    # Gemma-2B's 8 heads at a ragged length, not a multiple of 64.
+    pytest.param(8, 1000, _BT, _BI, id="bwd-8-1000"),
+])
 def test_row_schedule_covers_the_triangle(n_rows, s, tile, inner):
     # Forward / dq: every (row, q tile) once, longest first; the pair count
     # is the JAX enumeration's at the list's tiles: 64-row q and kv
@@ -190,6 +193,35 @@ def test_row_schedule_covers_the_triangle(n_rows, s, tile, inner):
     cost = [pairs[t] for _, t in work]
     assert cost == sorted(cost, reverse=True)
     assert sum(cost) == n_rows * len(qs)
+
+
+class _OnCard(torch.Tensor):
+    is_cuda = True
+
+
+@pytest.mark.parametrize("s", [8192, 4136, 4160, 200, 1000])
+def test_tri_dq_launch_carries_the_row_schedule(s, monkeypatch):
+    # The triangular dq at head_dim 256 (Gemma-2B's 8 heads over 1)
+    # launches with the row list at 128-row q tiles against the 64-row
+    # K/V tiles its CTA walks (DqSplitKV), as built above and checked
+    # longest first by test_row_schedule_covers_the_triangle. Spied on
+    # bf16 CPU tensors that claim to be on the card, every input check
+    # kept.
+    b, h, kvh, d = 1, 8, 1, 256
+    launches = []
+    check = fa_torch._check_inputs
+    monkeypatch.setattr(fa_torch, "_check_inputs", lambda *ts, **kw: check(
+        *(x.as_subclass(_OnCard) for x in ts), **kw))
+    monkeypatch.setattr(fa_torch, "_launch", lambda name, source, ptrs,
+                        *rest: launches.append((name, source, list(ptrs))))
+    q = torch.zeros(b, s, h, d, dtype=torch.bfloat16)
+    k = torch.zeros(b, s, kvh, d, dtype=torch.bfloat16)
+    lse = torch.zeros(b, h, s)
+    fa_torch.flash_dq_tri(q, k, k, q, lse, q, 0.0625)
+    ((name, source, ptrs),) = launches
+    assert (name, source) == ("flash_dq_tri", "flash_tri")
+    want = fa_torch.tri_schedule("rows", b * h, s, tile=_BT, inner=_BI)
+    assert torch.equal(ptrs[-1], want)
 
 
 # q tiles half the kv tiles: the column list at unequal small tiles.

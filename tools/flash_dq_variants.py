@@ -11,27 +11,39 @@ stages). This script builds one instance per variant (nvcc into build/,
 from the checkout's headers, one process per variant, all at once),
 bf16.
 
-At head_dim 256 (the default), at each family's width-256 main shape:
+At head_dim 256 (the default), at each family's width-256 main shape.
+The designs (DqShape<kKv, kSlots, kVSlots, kUniform>):
 
-  one       DqBase<256> in natural exp at the resident shape, Gemma-2B's
-            (8, 2048, 8, 1, 256) causal: the 128-row CTA against one
-            stage of a 64-row K and V tile (each load waits for both
-            consumers to release the stage, so loads and products run in
-            turn; the triangular and streamed dq's body, and the resident
-            flash_dq's before DqWide);
-  kept      DqResident<256> (DqWide, flash_dq's at 256: 32-row K/V tiles
-            in three stages, two tiles' loads in flight under the
-            products, S and dP as m64n32) in natural exp there;
-  kept_e2   the same in BaseE2 (the natural-log lse scaled into base 2
-            once per row, then exp2);
-  tri, tri_kept   DqBase<256> and DqResident<256> in base 2 at the
-            triangular family's (1, 8192, 8, 1, 256) causal;
-  str, str_kept   the same in BaseE2 at the streamed family's (1, 4096,
-            8, 1, 256) non-causal.
+  base      DqBase<256>: the 128-row CTA against one stage of a 64-row K
+            and V tile (each load waits for both consumers to release the
+            stage, so loads and products run in turn);
+  w         DqWide: 32-row K/V tiles in three stages, two tiles' loads in
+            flight under the products, S and dP as m64n32 with both
+            operands in shared memory;
+  k2v1      64-row K and V tiles on barriers of their own, two K slots
+            and one V slot: S and dP as m64n64, V released after dP
+            (its next load runs under dS K), K after dS K (the next K
+            already resident);
+  ...u      the same with the warpgroup index uniform (kUniform: lane
+            0's, broadcast), so the descriptors sit in uniform registers:
+            k2v1u is DqSplitKV, the kept flash_dq_tri at 256.
 
-The resident group is also checked at two ragged shapes (2 x 1000
-non-causal, Gemma-7B's 16/16 heads at 200 causal). The designs timed
-against DqWide and removed from csrc/ (PERF.md, PR 14) are not here.
+Groups, each timed in turns at its family's main shape:
+
+  triangular, base 2, (1, 8192, 8, 1, 256) causal, first held against
+            the plain backward at chip_smoke.py's TRI_WIDE_CHECK_SHAPES:
+            tri (base: the parent's flash_dq_tri), tri_u, tri_w, tri_wu,
+            tri_k2v1, tri_k2v1u;
+  resident, natural exp, Gemma-2B's (8, 2048, 8, 1, 256) causal, also
+            at 2 x 1000 non-causal and Gemma-7B's 16/16 heads at 200
+            causal: one (base), one_u, kept (w: flash_dq), kept_u,
+            res_k2v1u;
+  streamed, BaseE2, (1, 4096, 8, 1, 256) non-causal: str (base:
+            flash_dq_streamed), str_u, str_w, str_k2v1u.
+
+The designs timed and removed from csrc/ (PERF.md; among them DqWide and
+DqSplitKV with S's first k steps reading Q from registers) are not
+here.
 
 At head_dim 128 (--width 128), the seven instances of PR 8's choice of
 kRegA, at (1, --seq, 32, 8, 128): a, b, c in BaseE with kRegA 0, 1, 2
@@ -76,23 +88,32 @@ VARIANTS = {
           "c2": (128, "BaseE2", 2, "DqBase<128>"),
           "t": (128, "Base2", 0, "DqBase<128>")},
     256: {"one": (256, "BaseE", 0, "DqBase<256>"),
-          "kept": (256, "BaseE", 0, "DqResident<256>"),
-          "kept_e2": (256, "BaseE2", 0, "DqResident<256>"),
+          "one_u": (256, "BaseE", 0, "DqShape<64, 1, 0, true>"),
+          "kept": (256, "BaseE", 0, "DqWide"),
+          "kept_u": (256, "BaseE", 0, "DqShape<32, 3, 0, true>"),
+          "res_k2v1u": (256, "BaseE", 0, "DqSplitKV"),
           "tri": (256, "Base2", 0, "DqBase<256>"),
-          "tri_kept": (256, "Base2", 0, "DqResident<256>"),
+          "tri_u": (256, "Base2", 0, "DqShape<64, 1, 0, true>"),
+          "tri_w": (256, "Base2", 0, "DqWide"),
+          "tri_wu": (256, "Base2", 0, "DqShape<32, 3, 0, true>"),
+          "tri_k2v1": (256, "Base2", 0, "DqShape<64, 2, 1>"),
+          "tri_k2v1u": (256, "Base2", 0, "DqSplitKV"),
           "str": (256, "BaseE2", 0, "DqBase<256>"),
-          "str_kept": (256, "BaseE2", 0, "DqResident<256>")},
+          "str_u": (256, "BaseE2", 0, "DqShape<64, 1, 0, true>"),
+          "str_w": (256, "BaseE2", 0, "DqWide"),
+          "str_k2v1u": (256, "BaseE2", 0, "DqSplitKV")},
 }
 # The groups timed in turns: (family whose forward and plain backward
 # hold the variants, shape, variants, extra check shapes).
 GROUPS = {
-    256: ((fa.RESIDENT, chip_smoke.WIDE_MAIN_SHAPE,
-           ("one", "kept", "kept_e2"),
+    256: ((fa.TRIANGULAR, chip_smoke.TRI_WIDE_MAIN_SHAPE,
+           ("tri", "tri_u", "tri_w", "tri_wu", "tri_k2v1", "tri_k2v1u"),
+           chip_smoke.TRI_WIDE_CHECK_SHAPES[1:]),
+          (fa.RESIDENT, chip_smoke.WIDE_MAIN_SHAPE,
+           ("one", "one_u", "kept", "kept_u", "res_k2v1u"),
            ((2, 1000, 8, 1, 256, False), (1, 200, 16, 16, 256, True))),
-          (fa.TRIANGULAR, chip_smoke.TRI_WIDE_MAIN_SHAPE,
-           ("tri", "tri_kept"), ()),
           (fa.STREAMED, chip_smoke.STR_WIDE_MAIN_SHAPE,
-           ("str", "str_kept"), ())),
+           ("str", "str_u", "str_w", "str_k2v1u"), ())),
 }
 
 _SOURCE = """#include "flash_bwd_sm90.cuh"
@@ -165,7 +186,11 @@ def build(variants):
 
 
 def report(variants, built):
-    """Per variant: ptxas's registers, spills and notes; SASS counts."""
+    """Per variant: ptxas's registers, spills and notes; SASS counts.
+    Fails if a variant has no wgmma or TMA, or as many wgmma waits as
+    wgmmas (ptxas serialised them). Returns {name: "N registers, spills
+    S/L bytes, counts"} for the summary."""
+    facts = {}
     for name, (dll, log, sass) in built.items():
         lines = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                  if "Used" in ln or "spill" in ln or "Performance Loss" in ln]
@@ -176,6 +201,11 @@ def report(variants, built):
         chip_smoke.check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
                          and counts["WARPGROUP.DEPBAR"] < counts["HGMMA"],
                          f"variant {name}: no wgmma, no TMA, or serialised")
+        regs = chip_smoke._ptxas_summary(log)
+        facts[name] = (regs[0].split(": ", 1)[-1] if regs else "?") + (
+            f", HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}, "
+            f"waits {counts['WARPGROUP.DEPBAR']}")
+    return facts
 
 
 def _lse_for(base, fam, lse):
@@ -237,25 +267,31 @@ def _check(variants, built, names, fam, shape, seed):
     return runs
 
 
-def _time(names, runs, shape, args):
+def _time(names, runs, shape, args, facts):
     b, s, h, kvh, d, causal = shape
     flops = 6 * d * b * h * (s * (s + 1) // 2 if causal else s * s)
     bound_ms, _ = chip_smoke._bound(flops, 0)
     times = {n: [] for n in names}
+    clocks = {n: [] for n in names}
     for r in range(args.rounds):
         for n in (names if r % 2 == 0 else names[::-1]):
             t = chip_smoke.time_ms(runs[n], args.reps)
+            clk = chip_smoke.CLOCKS.last()
             times[n].append(t)
+            if clk is not None:
+                clocks[n].append(clk["sm_mhz"])
             print(f"[time] {shape} round {r} variant {n}: {t:.4f} ms; "
-                  f"{chip_smoke.clock_note(chip_smoke.CLOCKS.last())}",
-                  flush=True)
+                  f"{chip_smoke.clock_note(clk)}", flush=True)
     out = []
     for n, ts in times.items():
         med = statistics.median(ts)
+        mhz = (f"SM {statistics.median(clocks[n]):.0f} MHz"
+               if clocks[n] else "SM clock not sampled")
         out.append(f"[summary] variant {n} at {shape}: median {med:.4f} ms "
-                   f"over {len(ts)} timings ({min(ts):.4f}-{max(ts):.4f}), "
-                   f"{flops / med / 1e9:.1f} TFLOP/s, {bound_ms / med:.1%} "
-                   f"of the {bound_ms:.4f} ms bound")
+                   f"over {len(ts)} timings ({min(ts):.4f}-{max(ts):.4f}; "
+                   f"{mhz}), {flops / med / 1e9:.1f} TFLOP/s, "
+                   f"{bound_ms / med:.1%} of the {bound_ms:.4f} ms bound; "
+                   f"{facts[n]}")
     return out
 
 
@@ -278,7 +314,7 @@ def main() -> int:
         variants = {n: variants[n] for n in args.only.split(",")}
     chip_smoke.phase_device()
     built = build(variants)
-    report(variants, built)
+    facts = report(variants, built)
     if args.width == 128:
         groups = ((fa.STREAMED, (args.batch, args.seq, 32, 8, 128,
                                  args.causal), tuple(variants), ()),)
@@ -288,7 +324,7 @@ def main() -> int:
     chip_smoke.CLOCKS.start()
     try:
         for seed, (fam, shape, names, extra) in enumerate(groups):
-            names = tuple(n for n in names if n in variants)
+            names = tuple(n for n in names if n in facts)
             if not names:
                 continue
             for shape_x in extra:
@@ -297,7 +333,7 @@ def main() -> int:
                        shape_x, 60 + seed)
                 torch.cuda.empty_cache()
             runs = _check(variants, built, names, fam, shape, 50 + seed)
-            summary += _time(list(names), runs, shape, args)
+            summary += _time(list(names), runs, shape, args, facts)
             del runs
             torch.cuda.empty_cache()
     finally:

@@ -90,10 +90,10 @@ def instructions(checkout: pathlib.Path) -> dict:
 
 
 def _code(part):
-    """One function's instructions without their addresses, each branch
-    label (.L_x_N) replaced by the index of the instruction its
-    definition line (".L_x_N:") precedes; a label defined nowhere in the
-    function keeps its name."""
+    """One function's instructions without their addresses or padding,
+    each branch label (.L_x_N) replaced by the index of the instruction
+    its definition line (".L_x_N:") precedes; a label defined nowhere in
+    the function keeps its name."""
     code, at = [], {}
     for line in part.splitlines():
         label = re.match(r"^\s*(\.L_x_\d+):", line)
@@ -102,7 +102,9 @@ def _code(part):
             continue
         ins = re.match(r"^\s+/\*[0-9a-f]{4,}\*/ +(.*)$", line)
         if ins:
-            code.append(ins.group(1))
+            # Whitespace collapsed: cuobjdump pads the columns of every
+            # function in a library to the widest instruction in it.
+            code.append(" ".join(ins.group(1).split()))
     return [re.sub(r"\.L_x_\d+", lambda m: (
         f".L@{at[m.group(0)]}" if m.group(0) in at else m.group(0)), line)
         for line in code]
