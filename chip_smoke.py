@@ -158,7 +158,35 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    gemma.forward (through the fp32 kernels at width 256) with three
    planted faults past it (the third: the serving embed without its
    sqrt(dim) multiplier);
-15. a summary of the Hopper kernels (registers, shared memory, time
+15. mixtral_serve: Mixtral-8x7B at full width in three legs. Dense
+   routing is discontinuous: where a token's gates nearly tie, bf16
+   roundings that differ by GEMM shape flip its second expert, so each
+   bf16 reading is taken twice, as served (within the loose
+   MIXTRAL_ROUTED_REL_TOL) and with routing pinned to the reference's
+   picks (within MIXTRAL_CACHE_REL_TOL, the attention faults and the
+   routing faults past it; the flips it pinned and their gate gaps
+   printed; leg 1 plants the nearest, own key masked). Leg 1: the int8
+   tree at full depth (46.7 GB; 93.4 GB in bf16 would not fit), built by
+   serve_llm's --model mixtral-8x7b --weight-quant 1 a layer at a time,
+   served through serve_llm with [serve]'s geometry and nine requests
+   (every stream complete, the ninth a prefix hit, no flash launch in
+   the engine); on the greedy streams the batched T = 1 steps against a
+   fresh prefill over each whole prefix (the emitted tokens its argmax
+   but at near-ties; pinned: paged == dense bit for bit); one decode
+   step at 8 slots profiled (launches, device busy, idle share). Leg 2: bf16 at 16 layers: those streams
+   teacher-forced through the dense and paged cache paths against
+   mixtral.forward at capacity_factor n_experts / top_k (C = T: no token
+   dropped, so capacity routing equals dense routing; one sequence at a
+   time, flash_fwd per layer); the int8 cache path's (weights and KV)
+   top-1 agreement with the bf16 one's at least 0.55. Leg 3: f32 at 4
+   layers, TF32 off: paged == dense == mixtral.decode, speculative
+   decoding on == off (greedy and seeded, parting only at near-ties), the
+   cache paths within F32_CACHE_REL_TOL of the no-drop forward (fp32
+   kernels) and both routing faults past it. Prints each leg's seconds;
+16. decode_bench: the port's measure_decode and measure_engine_paged at
+   the JAX bench's Mixtral shape (decode_bench.build), once each, their
+   dicts printed;
+17. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
    the kernels line ({"kernels": [...]}, eighteen records: the nine at
    head_dim 128 and the nine at 256), then the last line
@@ -383,6 +411,35 @@ F32_CACHE_REL_TOL = 1e-4
 # The host-tier leg (f32, 4 layers): one slot, a pool of 9 usable 64-token
 # blocks, prompts A and B (B needs all nine), a 64 MiB host tier.
 SP_POOL_BLOCKS, SP_PROMPTS, SP_HOST_MB = 10, (200, 520), 64
+# The mixtral_serve phase: Mixtral-8x7B at full width. Its 46.70 B
+# parameters are 93.4 GB in bf16, more than the card holds, and 46.7 GB in
+# int8: leg 1 serves the int8 tree at full depth (32 layers) through
+# serve_llm; leg 2 holds the cache paths in bf16 at 16 layers (23.7 GB)
+# against the no-drop capacity forward, and the int8 cache path's top-1
+# against them; leg 3 does the same in f32 at 4 layers (24.3 GB).
+MXS_BF16_LAYERS, MXS_F32_LAYERS = 16, 4
+# The int8 cache path's teacher-forced top-1 agreement with the bf16
+# tree's, at least the JAX package's floor for Mixtral (tests/test_quant.py
+# TOP1_FLOOR["mixtral"], int8 weights and KV against bf16).
+MXS_TOP1_FLOOR = 0.55
+# Mixtral's bf16 cache paths' logits, norm-relative, on the greedy streams:
+# teacher-forced against the no-drop forward's (flash kernels) at 16
+# layers, and the int8 tree's batched T = 1 steps against a fresh prefill
+# over each whole prefix at 32 layers. Dense routing is discontinuous:
+# bf16 roundings that differ by GEMM shape flip a token's second expert
+# where its gates nearly tie, and a flip moves that token's whole layer
+# output. As served, the readings are 1.08e-1 and 1.22e-1 (H100), the
+# routing faults 4.9e-1 up: MIXTRAL_ROUTED_REL_TOL bounds them. With
+# routing pinned to the reference's picks (_RoutingPins: 1.5% of the
+# (layer, token) picks flip, each by a gate mass under 1.1e-2) the paths'
+# own arithmetic is left: 1.43e-2 and 1.58e-2, against own key masked
+# 4.69e-2 and 4.10e-2, positions shifted 1.37e-1 and 1.09e-1, gates
+# unnormalised 4.87e-1, top-1 routing 7.66e-1. MIXTRAL_CACHE_REL_TOL sits
+# 1.6x over the larger sound reading and 1.6x under the nearest fault.
+MIXTRAL_ROUTED_REL_TOL = 2.5e-1
+MIXTRAL_CACHE_REL_TOL = 2.5e-2
+# One Mixtral decode step profiled: its slots, each at this context.
+MXS_PROFILE_CONTEXT = 128
 
 # The TPU kernel each port kernel replaces: its body, file:line.
 _FA = "skypilot_tpu/ops/pallas/flash_attention.py"
@@ -2017,7 +2074,7 @@ def _serve_leg(fa, cfg, params, reqs, ninth, card, label, dev, **kw):
 
 
 def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
-                       paged, fault=None):
+                       paged, fault=None, pins=None):
     """Each (prompt, tokens) of ``seqs`` teacher-forced through the
     engine's cache path at its geometry ``geo`` (kv_config()): the
     prompt in chunk-sized prefill chunks (the engine's _prefill_chunk /
@@ -2025,21 +2082,21 @@ def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
     steps over all streams, as the decode step runs them. Returns one
     f32 (len(tokens), vocab) per stream: row j predicts tokens[j].
 
-    ``fault`` plants an off-by-one in the T = 1 steps, a control the
-    gates must catch: "self" passes valid_len = position, so a query
-    misses its own key row; "shift" starts each step one position late,
-    so the token's rope position and cache row are one past its place;
-    "embed" gathers the embeddings without gemma's sqrt(dim) multiplier
-    (the serving embed's fault before this was repaired)."""
-    if fault == "embed":
-        from skypilot_tpu_torch.models import llama as llama_mod
-        real = llama_mod._decode_embed
-        llama_mod._decode_embed = lambda c, p, toks: p.embed[toks]
-        try:
+    ``fault`` plants a fault, a control the gates must catch: "self"
+    passes valid_len = position in the T = 1 steps, so a query misses its
+    own key row; "shift" starts each step one position late, so the
+    token's rope position and cache row are one past its place; the
+    faults of ``_planted`` patch the port for the whole run. ``pins``
+    (a ``_RoutingPins``) pins Mixtral's routing to its reference's picks
+    at each token's own position, whatever the fault."""
+    if _planted(fault) is not None:
+        with _planting(fault):
             return _cache_path_logits(llama, decode_engine, cfg, params,
-                                      seqs, geo, dev, paged)
-        finally:
-            llama_mod._decode_embed = real
+                                      seqs, geo, dev, paged, pins=pins)
+    if pins is not None and not pins.active:
+        with pins.replaying():
+            return _cache_path_logits(llama, decode_engine, cfg, params,
+                                      seqs, geo, dev, paged, fault, pins)
     chunk, window, block = geo["chunk"], geo.get("window"), geo["block"]
     b = len(seqs)
     if paged:
@@ -2062,6 +2119,8 @@ def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
                 buf = torch.zeros(chunk, dtype=torch.long, device=dev)
                 buf[:len(piece)] = torch.tensor(piece, device=dev)
                 valid = start + len(piece)
+                if pins is not None:
+                    pins.at([(i, start, len(piece))])
                 if paged:
                     z = decode_engine._paged_prefill_chunk(
                         cfg, params, cache, buf, table[i], start, valid,
@@ -2074,6 +2133,8 @@ def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
         for j in range(len(seqs[0][1]) - 1):
             toks = torch.tensor([t[j] for _, t in seqs], device=dev)[:, None]
             start, valid = pos + j, None
+            if pins is not None:
+                pins.at([(i, int(pos[i]) + j, 1) for i in range(b)])
             if fault == "self":
                 valid = start
             elif fault == "shift":
@@ -2091,6 +2152,126 @@ def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
     return [torch.stack(o) for o in out]
 
 
+def _planted(fault):
+    """(module, attribute, wrong function) of a fault planted by patching
+    the port, or None: "embed" gathers the embeddings without gemma's
+    sqrt(dim) multiplier (the serving embed's fault before it was
+    repaired); "unnorm" leaves Mixtral's two gates unnormalised; "top1"
+    routes each token to its first expert alone, at weight one."""
+    from skypilot_tpu_torch.models import llama as llama_mod
+    from skypilot_tpu_torch.models import mixtral as mixtral_mod
+    real = mixtral_mod._top2_weights
+    return {
+        "embed": (llama_mod, "_decode_embed",
+                  lambda c, p, toks: p.embed[toks]),
+        "unnorm": (mixtral_mod, "_top2_weights",
+                   lambda g: g * (real(g) > 0)),
+        "top1": (mixtral_mod, "_top2_weights",
+                 lambda g: torch.nn.functional.one_hot(
+                     g.argmax(-1), g.shape[-1]).to(g.dtype)),
+    }.get(fault)
+
+
+@contextlib.contextmanager
+def _planting(fault):
+    """``_planted``'s fault patched into the port for the block (nothing
+    for any other ``fault``)."""
+    planted = _planted(fault)
+    if planted is None:
+        yield
+        return
+    module, name, wrong = planted
+    real = getattr(module, name)
+    setattr(module, name, wrong)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+class _RoutingPins:
+    """Mixtral's routing pinned to a reference's picks, to read the cache
+    paths' own arithmetic apart from routing flips. ``recording`` keeps,
+    for each sequence run through a reference in its block, the two
+    experts its gates pick at each (layer, position) (lax.top_k's picks:
+    two first-max argmaxes, as ``_top2_dispatch`` and ``_top2_weights``
+    take them). ``replaying`` wraps mixtral's ``_top2_weights`` (the
+    port's, or a planted fault's): on a row whose own gates pick another
+    pair, the gates outside the reference's pair are zeroed, so the
+    wrapped function picks the reference's two and weighs them by the
+    row's own gates; every other row goes through untouched. ``at`` names
+    the rows of the next forward: (sequence, first position, real rows)
+    per batch row. ``flips`` counts the pinned rows out of ``total``
+    real (layer, token) picks; ``max_gap`` is the largest gate mass by
+    which a row's own pair beat the reference's."""
+
+    def __init__(self, mixtral, n_layers):
+        self._m, self._n = mixtral, n_layers
+        self.picks, self.rows, self.active = [], None, False
+        self.calls = self.flips = self.total = 0
+        self.max_gap = 0.0
+
+    @staticmethod
+    def pick(g):
+        first = g.argmax(-1)
+        second = g.scatter(-1, first[:, None], float("-inf")).argmax(-1)
+        return torch.stack([first, second], -1)
+
+    @contextlib.contextmanager
+    def recording(self):
+        real, layers = self._m.router_gates, []
+
+        def spy(y, lp):
+            g = real(y, lp)
+            layers.append(self.pick(g))
+            return g
+        self._m.router_gates = spy
+        try:
+            yield
+        finally:
+            self._m.router_gates = real
+        check(len(layers) == self._n, f"recorded {len(layers)} routings "
+              f"for {self._n} layers")
+        self.picks.append(torch.stack(layers))
+
+    def at(self, rows):
+        self.rows, self.calls = rows, 0
+
+    @contextlib.contextmanager
+    def replaying(self):
+        real = self._m._top2_weights
+
+        def pinned(g):
+            layer = self.calls % self._n
+            self.calls += 1
+            own = self.pick(g)
+            want = own.clone()
+            t = g.shape[0] // len(self.rows)
+            for r, (s, start, n) in enumerate(self.rows):
+                want[r * t:r * t + n] = self.picks[s][layer, start:start + n]
+            flip = (own.sort(-1).values != want.sort(-1).values).any(-1)
+            n_flip = int(flip.sum())
+            self.flips += n_flip
+            self.total += sum(n for _, _, n in self.rows)
+            if n_flip:
+                gap = (g.gather(-1, own).sum(-1) -
+                       g.gather(-1, want).sum(-1))[flip]
+                self.max_gap = max(self.max_gap, float(gap.max()))
+                e = g.shape[-1]
+                keep = (torch.nn.functional.one_hot(want[:, 0], e) |
+                        torch.nn.functional.one_hot(want[:, 1], e))
+                g = torch.where(flip[:, None], g * keep, g)
+            return real(g)
+
+        self.calls = self.flips = self.total = 0
+        self.max_gap = 0.0
+        self._m._top2_weights, self.active = pinned, True
+        try:
+            yield
+        finally:
+            self._m._top2_weights, self.active = real, False
+
+
 def _rel(a, b):
     """Norm-relative distance of logits a from the reference b, over
     every stream."""
@@ -2100,29 +2281,37 @@ def _rel(a, b):
 
 
 def _hold_cache_paths(label, llama, decode_engine, cfg, params, seqs, geo,
-                      refs, dev, tol, faults=("self", "shift")):
+                      refs, dev, tol, faults=("self", "shift"), pins=None):
     """The dense and paged cache paths against the full forward's
     logits ``refs``: paged == dense bit for bit (the window is the dense
     tile), both within ``tol`` norm-relative, and each planted fault of
-    ``faults`` past ``tol``. Returns the paged logits."""
+    ``faults`` past ``tol``; every run with its routing pinned by
+    ``pins`` when given. Returns the paged logits."""
     dense = _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo,
-                               dev, paged=False)
+                               dev, paged=False, pins=pins)
     paged = _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo,
-                               dev, paged=True)
+                               dev, paged=True, pins=pins)
     check(all(torch.equal(a, b) for a, b in zip(paged, dense)),
           f"{label}: paged cache path logits differ from the dense path's "
           f"(window {geo['window']} = dense tile {geo['block']})")
+    if pins is not None:
+        print(f"{label}: routing pinned to the reference's picks; the "
+              f"path's own gates picked another pair at {pins.flips} of "
+              f"{pins.total} (layer, token) picks, by a gate mass of at "
+              f"most {pins.max_gap:.3e}", flush=True)
     sound = _rel(paged, refs)
     faults = {f: _rel(_cache_path_logits(llama, decode_engine, cfg, params,
                                          seqs, geo, dev, paged=True,
-                                         fault=f), refs)
+                                         fault=f, pins=pins), refs)
               for f in faults}
     names = {"self": "own key masked", "shift": "positions shifted by one",
-             "embed": "embed multiplier dropped"}
+             "embed": "embed multiplier dropped",
+             "unnorm": "gates left unnormalised", "top1": "top-1 routing"}
     print(f"{label}: dense and paged cache paths (chunk {geo['chunk']}, "
           f"window {geo['window']}) bit-equal; {sound:.3e} norm-relative "
-          f"from the forward's logits (tol {tol:g}); planted faults: "
-          + ", ".join(f"{names[f]} {r:.3e}" for f, r in faults.items()),
+          f"from the forward's logits (tol {tol:g})"
+          + "".join(f"{', ' if i else '; planted faults: '}{names[f]} "
+                    f"{r:.3e}" for i, (f, r) in enumerate(faults.items())),
           flush=True)
     check(sound <= tol, f"{label}: cache path logits {sound:.3e} from the "
           f"forward's, past {tol:g}")
@@ -2167,6 +2356,26 @@ def _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
     expect["flash_fwd"] = cfg.n_layers * len(seqs)
     check(launches == expect, f"teacher-forced launches {launches} != "
           f"{expect}")
+    mismatches = _near_tie_tokens(seqs, full, cached, dev)
+    print(f"{label} teacher-forced greedy streams (prompts "
+          f"{[len(p) for p, _ in seqs]}): per stream "
+          f"{[f'{_rel([c], [f]):.2e}' for c, f in zip(cached, full)]} "
+          f"norm-relative from the forward's, "
+          f"{[f'{x:.2e}' for x in ref_rels]} from its fp32 reference "
+          f"attention's (not gated); launches {launches}; emitted != "
+          f"forward argmax at {len(mismatches)} of "
+          f"{len(seqs) * SV_MAX_TOKENS} tokens, each a near-tie "
+          f"(prompt, token, gap, paths' max |logit diff|): "
+          f"{[(n, i, round(g, 4), round(s, 4)) for n, i, g, s in mismatches]}",
+          flush=True)
+
+
+def _near_tie_tokens(seqs, full, cached, dev):
+    """Each stream's emitted tokens against the argmax of the reference
+    logits ``full``: where they differ, the gap between the two must lie
+    within twice the largest |logit| difference between ``cached`` (the
+    path that emitted them) and ``full``. Returns the (prompt length,
+    token, gap, that difference) of each mismatch."""
     mismatches = []
     for (prompt, toks), f, c in zip(seqs, full, cached):
         scale = float((c - f).abs().max())
@@ -2179,17 +2388,7 @@ def _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
                   f"prompt {len(prompt)} token {i}: emitted {toks[i]}, the "
                   f"forward's argmax {int(best[i])} by {gap:.4f}, past "
                   f"twice the paths' largest logit difference {scale:.4f}")
-    print(f"{label} teacher-forced greedy streams (prompts "
-          f"{[len(p) for p, _ in seqs]}): per stream "
-          f"{[f'{_rel([c], [f]):.2e}' for c, f in zip(cached, full)]} "
-          f"norm-relative from the forward's, "
-          f"{[f'{x:.2e}' for x in ref_rels]} from its fp32 reference "
-          f"attention's (not gated); launches {launches}; emitted != "
-          f"forward argmax at {len(mismatches)} of "
-          f"{len(seqs) * SV_MAX_TOKENS} tokens, each a near-tie "
-          f"(prompt, token, gap, paths' max |logit diff|): "
-          f"{[(n, i, round(g, 4), round(s, 4)) for n, i, g, s in mismatches]}",
-          flush=True)
+    return mismatches
 
 
 def _first_divergence(llama, prng, cfg, params, prompt, temp, seed, a, b):
@@ -2560,6 +2759,353 @@ def phase_gemma_serve(fa, card, dev="cuda"):
     reqlog.disarm()
 
 
+class _NoDropMixtral:
+    """The mixtral module with ``forward`` returning the logits of its
+    capacity forward at capacity_factor = n_experts / top_k, which makes
+    the capacity C = T: no token is dropped, so the capacity path equals
+    dense routing (tests/test_mixtral.py's premise). The reference of the
+    teacher-forced checks and of ``_first_divergence``; every cache
+    function is mixtral's own."""
+
+    def __init__(self, mixtral):
+        self._mixtral = mixtral
+
+    def __getattr__(self, name):
+        return getattr(self._mixtral, name)
+
+    def forward(self, cfg, params, tokens):
+        roomy = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k, remat=False)
+        return self._mixtral.forward(roomy, params, tokens)[0]
+
+
+def _whole_prefill(mixtral, cfg, params, seqs, dev, fault=None,
+                   pins=None):
+    """Each (prompt, tokens) as one fresh prefill of prompt + tokens[:-1]
+    through the dense cache path: f32 (len(tokens), vocab), row j
+    predicting tokens[j]. ``fault``: one of ``_planted``'s, patched in
+    for the run; ``pins``: a ``_RoutingPins`` recording its picks."""
+    out = []
+    with _planting(fault), torch.inference_mode():
+        for prompt, toks in seqs:
+            seq = torch.tensor(prompt + toks[:-1], device=dev)[None]
+            with pins.recording() if pins else contextlib.nullcontext():
+                z, _ = mixtral.forward_with_cache(
+                    cfg, params, seq,
+                    mixtral.init_cache(cfg, 1, seq.shape[1], dev), 0)
+            out.append(z[0, len(prompt) - 1:])
+    return out
+
+
+def _profile_decode(decode_engine, cfg, params, dev, label, card, **kw):
+    """One engine's decode step with SV_SLOTS live slots at context
+    MXS_PROFILE_CONTEXT, under torch.profiler: device kernels and copies
+    a step, device busy time a step and the idle share of the window."""
+    from torch.autograd import DeviceType
+    eng = decode_engine.DecodeEngine(cfg, params, slots=SV_SLOTS,
+                                     max_seq=1280, prefill_chunk=SV_BLOCK,
+                                     paged=True, device=dev, **kw)
+    try:
+        gen = torch.Generator().manual_seed(13)
+        for _ in range(SV_SLOTS):
+            eng.submit(torch.randint(1, cfg.vocab_size,
+                                     (MXS_PROFILE_CONTEXT - 1,),
+                                     generator=gen).tolist(), max_tokens=16)
+        eng._admit()
+        while eng._prefill_one():
+            pass
+        for _ in range(2):
+            eng._decode_step()
+        n = 3
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA],
+                acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                check(eng._decode_step() == SV_SLOTS,
+                      f"{label}: a profiled step decoded a slot short")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        eng.shutdown()
+        eng.release()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e6, c + 1)
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    print(f"{label} one decode step, {SV_SLOTS} live slots at context "
+          f"{MXS_PROFILE_CONTEXT} (torch.profiler, {n} steps): "
+          f"{wall / n * 1e3:.1f} ms a step, device busy "
+          f"{busy / n * 1e3:.1f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}, "
+          f"{sum(c for _, c in by_name.values()) / n:.0f} kernels and copies "
+          f"a step; the most device time: " + "; ".join(
+              f"{t / n * 1e3:.1f} ms in {c // n} x {name[:70]}"
+              for name, (t, c) in top) + f" ({card})", flush=True)
+
+
+def _mixtral_int8_leg(fa, mixtral, decode_engine, shim, card, dev):
+    """[mixtral_serve] leg 1: the int8 tree at full width and depth,
+    built by serve_llm's own --model mixtral-8x7b --weight-quant 1 (a
+    layer at a time) and served through serve_llm (SV_SLOTS slots,
+    paged, the nine requests). On the greedy streams, the batched T = 1
+    steps against a fresh prefill over each whole prefix: as served
+    (within MIXTRAL_ROUTED_REL_TOL, the routing faults planted in the
+    prefill past it, the emitted tokens its argmax but at near-ties), and
+    with routing pinned to the prefill's picks (paged == dense bit for
+    bit, within MIXTRAL_CACHE_REL_TOL, the own-key fault past it: the
+    nearest in leg 2, whose pinned gate sees all four);
+    one profiled decode step. Returns the greedy (prompt, tokens) and the
+    geometry."""
+    from skypilot_tpu_torch.recipes import serve_llm
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, tree = serve_llm._build_model(serve_llm._parser().parse_args(
+        ["--model", "mixtral-8x7b", "--weight-quant", "1", "--seed", "14"]),
+        torch.device(dev))
+    torch.cuda.synchronize()
+    check(mixtral.params_quantized(tree), "serve_llm built a bf16 tree")
+    nbytes = sum(p.numel() * p.element_size() for p in tree.parameters())
+    print(f"[mixtral_serve] mixtral_8x7b, {cfg.n_layers} layers (full "
+          f"depth), {cfg.num_params() / 1e9:.3f} B params "
+          f"({2 * cfg.num_params() / 1e9:.1f} GB in bf16): int8 tree built "
+          f"a layer at a time by serve_llm --model mixtral-8x7b "
+          f"--weight-quant 1 in {time.perf_counter() - t0:.1f} s, "
+          f"{nbytes / 1e9:.2f} GB, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while building; "
+          f"KV {2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2} B a "
+          f"token; serve_llm with {SV_SLOTS} engine slots, paged "
+          f"{SV_BLOCK}-token blocks; prompts {list(SV_PROMPTS)}, "
+          f"{SV_MAX_TOKENS} tokens each, even ones greedy, odd ones "
+          f"T={SV_TEMP}", flush=True)
+    reqs, ninth = _serve_requests(cfg, seed=15)
+    streams, geo = _serve_leg(fa, cfg, tree, reqs, ninth, card,
+                              "[mixtral_serve int8]", dev, weight_quant=True)
+    torch.cuda.empty_cache()
+    seqs = [(p, toks) for (p, temp, _), toks in zip(reqs, streams)
+            if not temp]
+    label = "[mixtral_serve int8] greedy streams"
+    pins = _RoutingPins(mixtral, cfg.n_layers)
+    whole = _whole_prefill(mixtral, cfg, tree, seqs, dev, pins=pins)
+    routed = _cache_path_logits(shim, decode_engine, cfg, tree, seqs, geo,
+                                dev, paged=True)
+    sound = _rel(routed, whole)
+    # The controls: each routing fault planted in the whole prefill.
+    faults = {f: _rel(routed, _whole_prefill(mixtral, cfg, tree, seqs, dev,
+                                             fault=f))
+              for f in ("unnorm", "top1")}
+    mismatches = _near_tie_tokens(seqs, whole, routed, dev)
+    print(f"{label}, batched T = 1 steps (paged) as served against a fresh "
+          f"prefill over each whole prefix: {sound:.3e} norm-relative (tol "
+          f"{MIXTRAL_ROUTED_REL_TOL:g}), per stream "
+          f"{[f'{_rel([c], [w]):.2e}' for c, w in zip(routed, whole)]}; the "
+          f"whole prefill with its gates left unnormalised "
+          f"{faults['unnorm']:.3e}, with top-1 routing {faults['top1']:.3e}; "
+          f"emitted != the whole prefill's argmax at {len(mismatches)} of "
+          f"{len(seqs) * SV_MAX_TOKENS} tokens, each a near-tie (prompt, "
+          f"token, gap, paths' max |logit diff|): "
+          f"{[(n, i, round(g, 4), round(d, 4)) for n, i, g, d in mismatches]}",
+          flush=True)
+    check(sound <= MIXTRAL_ROUTED_REL_TOL, f"{label}: {sound:.3e} past "
+          f"{MIXTRAL_ROUTED_REL_TOL:g}")
+    for f, r in faults.items():
+        check(r > MIXTRAL_ROUTED_REL_TOL, f"{label}: the planted fault {f!r} "
+              f"reads {r:.3e}, inside {MIXTRAL_ROUTED_REL_TOL:g}")
+    del routed
+    _hold_cache_paths(
+        f"{label}, batched T = 1 steps against a fresh prefill over each "
+        f"whole prefix, routing pinned", shim, decode_engine, cfg, tree,
+        seqs, geo, whole, dev, MIXTRAL_CACHE_REL_TOL, faults=("self",),
+        pins=pins)
+    del whole
+    torch.cuda.empty_cache()
+    _profile_decode(decode_engine, cfg, tree, dev, "[mixtral_serve int8]",
+                    card, weight_quant=True)
+    return seqs, geo
+
+
+def _mixtral_bf16_leg(fa, mixtral, decode_engine, shim, seqs, geo, card,
+                      dev):
+    """[mixtral_serve] leg 2, bf16 at full width and MXS_BF16_LAYERS
+    layers: the greedy streams teacher-forced through the paged cache
+    path as served and through the dense and paged paths with routing
+    pinned, against the no-drop forward (one sequence at a time: the
+    dispatch tensor is (T, E, T)), four faults past the pinned gate; then
+    the int8 cache path's (weights and KV) top-1 agreement with the bf16
+    one's."""
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                              n_layers=MXS_BF16_LAYERS)
+    params = mixtral.init(cfg, torch.Generator(device=dev).manual_seed(16),
+                          dev)
+    print(f"[mixtral_serve bf16] mixtral_8x7b width, {cfg.n_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B params, bf16; reference "
+          f"mixtral.forward at capacity_factor {cfg.n_experts / cfg.top_k:g} "
+          f"(C = T, no token dropped)", flush=True)
+    fa.reset_launches()
+    pins = _RoutingPins(mixtral, cfg.n_layers)
+    refs = []
+    with torch.no_grad():
+        for p, t in seqs:
+            with pins.recording():
+                refs.append(shim.forward(cfg, params, torch.tensor(
+                    [p + t], device=dev))[0, len(p) - 1:-1])
+    launches = dict(fa.LAUNCHES)
+    expect = dict.fromkeys(launches, 0)
+    expect["flash_fwd"] = cfg.n_layers * len(seqs)
+    check(launches == expect, f"[mixtral_serve bf16] forward launches "
+          f"{launches} != {expect}")
+    label = "[mixtral_serve bf16] teacher-forced greedy streams"
+    bf16 = _cache_path_logits(shim, decode_engine, cfg, params, seqs, geo,
+                              dev, paged=True)
+    sound = _rel(bf16, refs)
+    print(f"{label}, paged cache path as served: {sound:.3e} norm-relative "
+          f"from the forward's (tol {MIXTRAL_ROUTED_REL_TOL:g}), per stream "
+          f"{[f'{_rel([c], [r]):.2e}' for c, r in zip(bf16, refs)]}; "
+          f"forward launches {launches}", flush=True)
+    check(sound <= MIXTRAL_ROUTED_REL_TOL, f"{label}: {sound:.3e} past "
+          f"{MIXTRAL_ROUTED_REL_TOL:g}")
+    _hold_cache_paths(f"{label}, routing pinned", shim, decode_engine, cfg,
+                      params, seqs, geo, refs, dev, MIXTRAL_CACHE_REL_TOL,
+                      faults=("self", "shift", "unnorm", "top1"), pins=pins)
+    del refs
+    q8 = _cache_path_logits(shim, decode_engine, cfg,
+                            mixtral.quantize_params(cfg, params), seqs,
+                            dict(geo, kv_quant=1), dev, paged=True)
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(q8, bf16))
+    total = sum(len(t) for _, t in seqs)
+    print(f"[mixtral_serve bf16] int8 weights and KV, paged cache path: "
+          f"top-1 equal to the bf16 path's at {agree} of {total} "
+          f"teacher-forced positions ({agree / total:.3f}, floor "
+          f"{MXS_TOP1_FLOOR}); {_rel(q8, bf16):.3e} norm-relative apart "
+          f"({card})", flush=True)
+    check(agree / total >= MXS_TOP1_FLOOR,
+          f"int8 top-1 agreement {agree / total:.3f} under {MXS_TOP1_FLOOR}")
+
+
+def _mixtral_exactness(fa, mixtral, decode_engine, prng, shim, dev):
+    """[mixtral_serve] leg 3, f32 at full width and MXS_F32_LAYERS layers,
+    TF32 off: paged == dense == mixtral.decode on the greedy streams,
+    speculative decoding on == off (greedy and seeded), and the
+    teacher-forced cache paths within F32_CACHE_REL_TOL of the no-drop
+    forward (fp32 kernels) with both routing faults past it."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on")
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                              n_layers=MXS_F32_LAYERS, dtype=torch.float32)
+    params = mixtral.init(cfg, torch.Generator(device=dev).manual_seed(17),
+                          dev)
+    cpu = torch.Generator().manual_seed(18)
+    # Prompt + tokens a multiple of 8, so every forward takes the kernels.
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=cpu).tolist()
+               for n in (40, 96, 200)]
+    loop = torch.randint(1, cfg.vocab_size, (6,), generator=cpu).tolist()
+    reqs = ([(p, 0.0, 0) for p in prompts] +
+            [(prompts[1], SV_TEMP, 9), (loop * 8, 0.0, 0),
+             (loop * 8, SV_TEMP, 3)])
+    print(f"[mixtral_serve f32] mixtral_8x7b width, {cfg.n_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B params, f32", flush=True)
+
+    def run(**kw):
+        eng = decode_engine.DecodeEngine(
+            cfg, params, slots=4, max_seq=512, prefill_chunk=64,
+            spec_ngram=2, device=dev, **kw).start()
+        try:
+            hs = [eng.submit(p, max_tokens=SV_EXACT_TOKENS, temperature=t,
+                             seed=s) for p, t, s in reqs]
+            return ([h.result(timeout=900) for h in hs],
+                    sum(h.spec_drafted for h in hs), eng.kv_config())
+        finally:
+            eng.shutdown()
+            eng.release()
+
+    dense, _, _ = run(paged=False)
+    paged, _, geo = run(paged=True)
+    spec, drafted, _ = run(paged=True, spec_k=4)
+    check(drafted > 0, "speculative decoding drafted nothing")
+    for n, req in enumerate(reqs):
+        _hold_equal(f"mixtral f32 request {n}: paged vs dense", shim, prng,
+                    cfg, params, req, paged[n], dense[n])
+        _hold_equal(f"mixtral f32 request {n}: spec_k 4 ({drafted} drafted "
+                    f"in all) vs off", shim, prng, cfg, params, req, spec[n],
+                    paged[n])
+    seqs = [(reqs[n][0], paged[n]) for n in range(len(prompts))]
+    with torch.no_grad():
+        for n, (prompt, toks) in enumerate(seqs):
+            ref = mixtral.decode(cfg, params,
+                                 torch.tensor([prompt], device=dev),
+                                 len(prompt), SV_EXACT_TOKENS,
+                                 len(prompt) + SV_EXACT_TOKENS)[0].tolist()
+            _hold_equal(f"mixtral f32 request {n}: paged vs mixtral.decode",
+                        shim, prng, cfg, params, reqs[n], toks, ref)
+        fa.reset_launches()
+        refs = [shim.forward(cfg, params, torch.tensor([p + t], device=dev))[
+            0, len(p) - 1:-1] for p, t in seqs]
+    launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    check(launches == {"flash_fwd_f32": cfg.n_layers * len(seqs)},
+          f"[mixtral_serve f32] forward launches {launches}, not "
+          f"{cfg.n_layers * len(seqs)} of flash_fwd_f32 alone")
+    _hold_cache_paths("[mixtral_serve f32] teacher-forced greedy streams",
+                      shim, decode_engine, cfg, params, seqs, geo, refs, dev,
+                      F32_CACHE_REL_TOL, faults=("unnorm", "top1"))
+    print(f"[mixtral_serve f32] forward launches {launches}", flush=True)
+
+
+def phase_mixtral_serve(fa, card, dev="cuda"):
+    """[mixtral_serve]: Mixtral's serving half at full width (module
+    docstring, phase 15)."""
+    from skypilot_tpu_torch.models import mixtral
+    from skypilot_tpu_torch.observability import reqlog, stepstats
+    from skypilot_tpu_torch.serve import decode_engine, prng
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqlog.arm(sample=1.0)
+    stepstats.arm(ring=4096)
+    shim = _NoDropMixtral(mixtral)
+    legs = []
+    t0 = time.perf_counter()
+    seqs, geo = _mixtral_int8_leg(fa, mixtral, decode_engine, shim, card,
+                                  dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs.append(time.perf_counter() - t0)
+    _mixtral_bf16_leg(fa, mixtral, decode_engine, shim, seqs, geo, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs.append(time.perf_counter() - t0 - sum(legs))
+    _mixtral_exactness(fa, mixtral, decode_engine, prng, shim, dev)
+    legs.append(time.perf_counter() - t0 - sum(legs))
+    stepstats.disarm()
+    reqlog.disarm()
+    print(f"[mixtral_serve] {sum(legs):.1f} s: int8 leg {legs[0]:.1f} s, "
+          f"bf16 leg {legs[1]:.1f} s, f32 leg {legs[2]:.1f} s", flush=True)
+
+
+def phase_decode_bench(card, dev="cuda"):
+    """[decode_bench]: the port's measurement core at the JAX bench's
+    Mixtral shapes (decode_bench.build), once each: the fixed-batch
+    decode and the paged engine under the mixed-length mix."""
+    from skypilot_tpu_torch.benchmark import decode_bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fixed = decode_bench.measure_decode("mixtral", repeats=1, device=dev)
+    print(f"[decode_bench] measure_decode: {json.dumps(fixed)} ({card})",
+          flush=True)
+    paged = decode_bench.measure_engine_paged("mixtral", device=dev)
+    print(f"[decode_bench] measure_engine_paged: {json.dumps(paged)} "
+          f"({card})", flush=True)
+    check(fixed["tokens_per_sec"] > 0 and paged["generated_tokens"] > 0,
+          "decode_bench measured nothing")
+    print(f"[decode_bench] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -2610,6 +3156,8 @@ def main() -> int:
         phase_serve(fa, llama, card)
         torch.cuda.empty_cache()
         phase_gemma_serve(fa, card)
+        phase_mixtral_serve(fa, card)
+        phase_decode_bench(card)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

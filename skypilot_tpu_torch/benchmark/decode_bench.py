@@ -1,0 +1,763 @@
+"""Serving-decode measurement core of the port: the counterpart of the JAX
+package's ``benchmark/decode_bench.py`` for the port's models and
+DecodeEngine, with its single-process modes.
+
+  * ``measure_decode``: fixed-batch prefill + KV-cached decode
+    (``<model>.decode``; dense top-2 routing for Mixtral), end to end in
+    tokens/s, and the prefill and the steady-state decode step timed
+    apart;
+  * ``measure_engine_ragged``: the continuous-batching engine under a
+    ragged mix of prompt lengths and token budgets;
+  * ``measure_engine_paged``: the engine on the paged pool sized to half
+    the dense budget, under the same mix (tok/s, pool high-water
+    utilization, peak live slots);
+  * ``measure_engine_q8``: the paged engine with int8 KV and weights, and
+    the bf16-to-int8 block-capacity ratio at one byte budget (>= 1.8x);
+  * ``measure_engine_spec``: n-gram speculative decoding on the
+    shared-prefix chat mix against the same mix without it, the two
+    runs' streams asserted identical;
+  * ``measure_engine_prefix``: shared-prefix traffic through the prefix
+    cache (warm/cold TTFT, hit rate, prefill tokens saved);
+  * ``measure_engine_tier``: the host-RAM spill tier under a prefix
+    working set twice the pool (cold vs re-hit TTFT);
+  * ``measure_ckpt``: checkpoint save/restore latency of a family's whole
+    parameter tree (``train/checkpoint.py``).
+
+Each returns the JAX function's dict and takes ``device`` (the card by
+default; ``"cpu"`` on request, with ``tiny=True`` for plumbing runs). The
+JAX package compiles and donates; the port runs eagerly, so JAX's "compile
++ warm" run is a warm-up run here, and ``torch.cuda.synchronize`` brackets
+every timed span. The port's engine has no tuning manifest, so JAX's
+``use_manifest=False`` arguments are gone. Not ported yet: the gang and
+tensor-parallel mode (``measure_engine_tp``) and the load-generator modes
+(``measure_engine_slo``, ``measure_engine_chaos``).
+
+    python -m skypilot_tpu_torch.benchmark.decode_bench --family mixtral \\
+        --mode paged           # one JSON line, as tools/bench_moe_decode.py
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import random
+import shutil
+import tempfile
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from skypilot_tpu_torch import DeviceLike, resolve_device
+
+
+def build(family: str, dim: int = 1024, layers: int = 8,
+          experts: int = 8, tiny: bool = False):
+    """(module, config) of the JAX bench's single-chip model of the family,
+    field for field; ``tiny=True`` the families' test configs (plumbing
+    runs: their numbers compare with nothing)."""
+    if family == "llama":
+        from skypilot_tpu_torch.models import llama as mdl
+        if tiny:
+            return mdl, mdl.LlamaConfig.tiny(vocab_size=128)
+        return mdl, mdl.LlamaConfig(
+            vocab_size=32768, dim=2048, n_heads=16, n_kv_heads=8,
+            mlp_dim=8192, n_layers=16, max_seq_len=2048)
+    if family == "mixtral":
+        from skypilot_tpu_torch.models import mixtral as mdl
+        if tiny:
+            return mdl, mdl.MixtralConfig.tiny()
+        return mdl, dataclasses.replace(
+            mdl.MixtralConfig.mixtral_8x7b(), vocab_size=32768, dim=dim,
+            n_layers=layers, n_heads=16, n_kv_heads=8, mlp_dim=3584,
+            n_experts=experts, max_seq_len=2048)
+    if family == "gemma":
+        from skypilot_tpu_torch.models import gemma as mdl
+        if tiny:
+            return mdl, mdl.GemmaConfig.tiny(vocab_size=128)
+        return mdl, mdl.GemmaConfig.single_chip_bench()
+    raise ValueError(f"unknown family {family!r}")
+
+
+def _model_info(family: str, cfg, params) -> Dict[str, Any]:
+    return {"family": family, "dim": cfg.dim,
+            "layers": cfg.n_layers,
+            "experts": getattr(cfg, "n_experts", 0),
+            "mlp_dim": cfg.mlp_dim,
+            "params": sum(p.numel() for p in params.parameters())}
+
+
+def _setup(family: str, device: DeviceLike, shape_kw):
+    """(module, config, device, params): the family's bench model with
+    weights drawn from seed 0 on ``device``."""
+    device = resolve_device(device)
+    mdl, cfg = build(family, **shape_kw)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return mdl, cfg, device, mdl.init(cfg, gen, device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed(device: torch.device, fn):
+    """(fn(), its wall seconds), the device synchronised on both sides."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _ragged_specs(cfg, n_requests: int, max_prompt: int, max_tokens: int):
+    """The seeded mixed-length mix the ragged, paged and q8 legs share:
+    prompts of 8..max_prompt tokens, budgets of 8..max_tokens."""
+    rng = random.Random(0)
+    return [([rng.randint(1, cfg.vocab_size - 1)
+              for _ in range(rng.randint(8, max_prompt))],
+             rng.randint(8, max_tokens))
+            for _ in range(n_requests)]
+
+
+def _engine(cfg, params, device, **kw):
+    from skypilot_tpu_torch.serve.decode_engine import DecodeEngine
+    engine = DecodeEngine(cfg, params, device=device, **kw)
+    engine.start()
+    engine.warmup()
+    return engine
+
+
+def _close(engine) -> None:
+    engine.shutdown()
+    engine.release()
+
+
+@contextlib.contextmanager
+def _step_telemetry():
+    """Step telemetry armed (and reset) for the block, disarmed after
+    unless it was armed before."""
+    from skypilot_tpu_torch.observability import stepstats
+    was_armed = stepstats.ENABLED
+    stepstats.arm(ring=8192, sync_every=16)
+    stepstats.reset()
+    try:
+        yield stepstats
+    finally:
+        if not was_armed:
+            stepstats.disarm()
+
+
+def _submit_all(engine, specs, **kw):
+    """Every (prompt, max_tokens) submitted at once; (generated tokens,
+    wall seconds, the requests)."""
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_tokens=mt, **kw) for p, mt in specs]
+    total = sum(len(r.result(timeout=1800.0)) for r in reqs)
+    return total, time.perf_counter() - t0, reqs
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def measure_decode(family: str, batch: int = 8, prompt_len: int = 128,
+                   tokens: int = 128, repeats: int = 3,
+                   device: DeviceLike = None, **shape_kw) -> Dict[str, Any]:
+    """Best-of-``repeats`` fixed-batch decode (``<model>.decode``, the
+    cache allocated outside and filled in place) after one warm-up run;
+    then the prefill alone and the steady-state T = 1 step against the
+    warm cache, each timed apart: TTFT and tokens/s are different SLOs,
+    and one end-to-end figure hides which of them moved."""
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    b, s = batch, prompt_len
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=device)
+    max_seq = s + tokens
+
+    @torch.inference_mode()
+    def run():
+        cache = mdl.init_cache(cfg, b, max_seq, device)
+        out = mdl.decode(cfg, params, prompt, s, tokens, max_seq,
+                         cache=cache)
+        return int(out[0, -1])
+
+    @torch.inference_mode()
+    def run_prefill():
+        cache = mdl.init_cache(cfg, b, max_seq, device)
+        logits, cache = mdl.forward_with_cache(
+            cfg, params, prompt, cache, 0, valid_len=s, logits_at=s - 1)
+        return cache
+
+    run()                                       # warm-up
+    best = min(_timed(device, run)[1] for _ in range(repeats))
+    cache = run_prefill()
+    best_prefill = float("inf")
+    for _ in range(repeats):
+        cache, dt = _timed(device, run_prefill)
+        best_prefill = min(best_prefill, dt)
+
+    # Steady-state per-token decode: single steps against the warm cache,
+    # the frontier advancing each step as in a live serving loop.
+    tok = torch.zeros((b, 1), dtype=torch.long, device=device)
+    with torch.inference_mode():
+        mdl.forward_with_cache(cfg, params, tok, cache, s)      # warm
+        n_steps = min(max(tokens // 4, 8), tokens - 1)
+
+        def steps():
+            for i in range(n_steps):
+                mdl.forward_with_cache(cfg, params, tok, cache, s + 1 + i)
+
+        _, dt = _timed(device, steps)
+    steady = dt / n_steps
+    toks = b * tokens
+    return {
+        "model": _model_info(family, cfg, params),
+        "batch": b,
+        "prompt_len": s,
+        "decode_tokens": tokens,
+        "decode_seconds": round(best, 3),
+        "tokens_per_sec": round(toks / best, 1),
+        "ms_per_token_per_seq": round(best / tokens * 1e3, 2),
+        "prefill_ms": round(best_prefill * 1e3, 2),
+        "decode_ms_per_token_steady": round(steady * 1e3, 3),
+        "steady_tokens_per_sec": round(b / steady, 1),
+    }
+
+
+def measure_engine_ragged(family: str, slots: int = 8,
+                          n_requests: int = 32, max_prompt: int = 192,
+                          max_tokens: int = 64,
+                          engine_kw: Optional[Dict[str, Any]] = None,
+                          device: DeviceLike = None,
+                          **shape_kw) -> Dict[str, Any]:
+    """The engine under ragged arrivals: the seeded mixed-length mix
+    submitted at once, generated tokens over the whole wall (prefill
+    included). With tracing armed every request carries a trace context,
+    so the run measures the armed overhead. Step telemetry is armed and
+    its phase breakdown reported."""
+    from skypilot_tpu_torch.observability import tracing
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    kw = dict(prefill_chunk=64)
+    kw.update(engine_kw or {})
+    engine = _engine(cfg, params, device, slots=slots,
+                     max_seq=max_prompt + max_tokens, **kw)
+    specs = _ragged_specs(cfg, n_requests, max_prompt, max_tokens)
+    span = tracing.start_span("bench.engine_ragged", kind="bench",
+                              attrs={"requests": n_requests})
+    trace_ctx = span.context()          # None unless tracing is armed
+    try:
+        with _step_telemetry() as stepstats:
+            total, dt, _ = _submit_all(engine, specs, trace=trace_ctx)
+            snap = stepstats.snapshot()
+    finally:
+        span.end()
+        _close(engine)
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "requests": n_requests,
+        "max_prompt": max_prompt,
+        "max_tokens": max_tokens,
+        "traced": trace_ctx is not None,
+        "generated_tokens": total,
+        "wall_seconds": round(dt, 3),
+        "engine_ragged_tok_s": round(total / dt, 1),
+        "phase_breakdown": snap.get("phases", {}),
+        "busy_fraction": snap.get("busy_fraction"),
+        "dispatch_ms_mean": snap.get("dispatch_ms_mean"),
+        "device_ms_mean": (snap.get("sync") or {}).get("device_ms_mean"),
+    }
+
+
+def _paged_geometry(max_prompt: int, max_tokens: int, slots: int,
+                    pool_tokens: int, block_tokens: int):
+    """(chunk, max_seq, token budget): max_seq rounded up to whole
+    chunks, the budget half the dense one unless given."""
+    chunk = block_tokens or 64
+    max_seq = max_prompt + max_tokens
+    max_seq += (-max_seq) % chunk       # keep chunk | max_seq
+    return chunk, max_seq, pool_tokens or (slots * max_seq) // 2
+
+
+def measure_engine_paged(family: str, slots: int = 16,
+                         n_requests: int = 48, max_prompt: int = 192,
+                         max_tokens: int = 64, pool_tokens: int = 0,
+                         block_tokens: int = 0,
+                         engine_kw: Optional[Dict[str, Any]] = None,
+                         device: DeviceLike = None,
+                         **shape_kw) -> Dict[str, Any]:
+    """The paged engine under the ragged leg's mix, its pool sized to half
+    the dense budget for ``slots`` rows: generated tok/s, the pool's
+    high-water utilization, peak live slots and the phase breakdown."""
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    chunk, max_seq, budget = _paged_geometry(max_prompt, max_tokens, slots,
+                                             pool_tokens, block_tokens)
+    kw = dict(prefill_chunk=chunk, paged=True,
+              kv_pool_blocks=budget // chunk + 1)
+    kw.update(engine_kw or {})
+    engine = _engine(cfg, params, device, slots=slots, max_seq=max_seq,
+                     **kw)
+    specs = _ragged_specs(cfg, n_requests, max_prompt, max_tokens)
+    try:
+        with _step_telemetry() as stepstats:
+            total, dt, _ = _submit_all(engine, specs)
+            snap = stepstats.snapshot()
+        pool = engine._pool
+        utilization = pool.peak_in_use / max(pool.usable_blocks, 1)
+        zero_copy = engine.prefix_cache.stats()["zero_copy_hits"]
+    finally:
+        _close(engine)
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "requests": n_requests,
+        "max_prompt": max_prompt,
+        "max_tokens": max_tokens,
+        "pool_blocks": pool.num_blocks,
+        "block_tokens": pool.block_tokens,
+        "generated_tokens": total,
+        "wall_seconds": round(dt, 3),
+        "engine_paged_tok_s": round(total / dt, 1),
+        "kv_pool_utilization": round(utilization, 3),
+        "peak_live_slots": engine.peak_live_slots,
+        "zero_copy_hits": zero_copy,
+        "phase_breakdown": snap.get("phases", {}),
+        "busy_fraction": snap.get("busy_fraction"),
+    }
+
+
+def measure_engine_q8(family: str, slots: int = 16,
+                      n_requests: int = 48, max_prompt: int = 192,
+                      max_tokens: int = 64, pool_tokens: int = 0,
+                      block_tokens: int = 0,
+                      engine_kw: Optional[Dict[str, Any]] = None,
+                      device: DeviceLike = None,
+                      **shape_kw) -> Dict[str, Any]:
+    """int8 serving: the capacity ratio it exists for, then its throughput.
+
+    Capacity: bytes per block of a bf16 pool and of an int8 + scale pool,
+    read from real two-block pools on the device and checked against
+    ``kv_pool.block_bytes``; the ratio must reach 1.8x (the scale tax
+    keeps it under 2). Throughput: the ragged mix through a kv_quant +
+    weight_quant paged engine whose pool holds the int8 block count of
+    the bf16 pool's byte budget. Output is not held to bf16's here
+    (quantization changes numerics by design)."""
+    from skypilot_tpu_torch.serve import kv_pool
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    chunk, max_seq, budget = _paged_geometry(max_prompt, max_tokens, slots,
+                                             pool_tokens, block_tokens)
+    bf16_blocks = budget // chunk + 1
+
+    def per_block(quantized):
+        pool = mdl.init_paged_cache(cfg, 2, chunk, quantized=quantized,
+                                    device=device)
+        return sum(v.numel() * v.element_size() for v in pool.values()) // 2
+
+    bb_bf16, bb_q8 = per_block(False), per_block(True)
+    kv_bytes = torch.empty((), dtype=cfg.dtype).element_size()
+    assert bb_bf16 == kv_pool.block_bytes(
+        chunk, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+        kv_dtype_bytes=kv_bytes), "bf16 block-byte math drifted"
+    assert bb_q8 == kv_pool.block_bytes(
+        chunk, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+        quantized=True), "int8 block-byte math drifted"
+    byte_budget = bf16_blocks * bb_bf16
+    q8_blocks = byte_budget // bb_q8
+    ratio = bb_bf16 / bb_q8
+    if ratio < 1.8:
+        raise RuntimeError(
+            f"quantized pool fits only {ratio:.2f}x the bf16 blocks "
+            f"({bb_q8} vs {bb_bf16} bytes/block) at the same byte "
+            f"budget: below the 1.8x capacity gate")
+    kw = dict(prefill_chunk=chunk, paged=True, kv_pool_blocks=q8_blocks,
+              kv_quant=True, weight_quant=True)
+    kw.update(engine_kw or {})
+    engine = _engine(cfg, params, device, slots=slots, max_seq=max_seq,
+                     **kw)
+    specs = _ragged_specs(cfg, n_requests, max_prompt, max_tokens)
+    try:
+        with _step_telemetry() as stepstats:
+            total, dt, _ = _submit_all(engine, specs)
+            snap = stepstats.snapshot()
+        pool = engine._pool
+        utilization = pool.peak_in_use / max(pool.usable_blocks, 1)
+    finally:
+        _close(engine)
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "requests": n_requests,
+        "max_prompt": max_prompt,
+        "max_tokens": max_tokens,
+        "block_tokens": chunk,
+        "byte_budget": byte_budget,
+        "block_bytes_bf16": bb_bf16,
+        "block_bytes_q8": bb_q8,
+        "kv_pool_capacity_blocks_bf16": bf16_blocks,
+        "kv_pool_capacity_blocks": q8_blocks,
+        "kv_capacity_ratio": round(ratio, 3),
+        "generated_tokens": total,
+        "wall_seconds": round(dt, 3),
+        "engine_q8_tok_s": round(total / dt, 1),
+        "kv_pool_utilization": round(utilization, 3),
+        "peak_live_slots": engine.peak_live_slots,
+        "phase_breakdown": snap.get("phases", {}),
+        "busy_fraction": snap.get("busy_fraction"),
+    }
+
+
+def measure_engine_spec(family: str, slots: int = 8,
+                        n_requests: int = 32, shared_prefix: int = 128,
+                        max_unique: int = 32, max_tokens: int = 64,
+                        spec_k: int = 4, spec_ngram: int = 3,
+                        device: DeviceLike = None,
+                        **shape_kw) -> Dict[str, Any]:
+    """Speculative decoding on the chat mix (one shared system prompt,
+    seeded templated tails, greedy), run twice through the paged engine:
+    drafting off, then ``spec_k`` drafts per slot per step. The streams
+    must be identical, so the leg cannot win by changing tokens. Reports
+    both tok/s, their ratio and the acceptance rate (tokens per verify
+    pass ~= 1 + accept_rate * k)."""
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    chunk = 64
+    max_seq = shared_prefix + max_unique + max_tokens
+    max_seq += (-max_seq) % chunk       # keep chunk | max_seq
+    rng = random.Random(0)
+    shared = [rng.randint(1, cfg.vocab_size - 1)
+              for _ in range(shared_prefix)]
+
+    def tail():
+        # A short per-request motif repeated with noise: the few-shot /
+        # structured-format shape prompt-lookup drafting exists for.
+        motif = [rng.randint(1, cfg.vocab_size - 1) for _ in range(4)]
+        out: list = []
+        while len(out) < max_unique:
+            out += motif + [rng.randint(1, cfg.vocab_size - 1)]
+        return out[:rng.randint(8, max_unique)]
+
+    specs = [(shared + tail(), rng.randint(16, max_tokens))
+             for _ in range(n_requests)]
+
+    def run(k):
+        engine = _engine(cfg, params, device, slots=slots, max_seq=max_seq,
+                         prefill_chunk=chunk, paged=True, spec_k=k,
+                         spec_ngram=spec_ngram)
+        try:
+            if k:
+                # The verify path's first call outside the timed window
+                # (a prompt whose repetition makes the matcher draft on
+                # the first decode step), as warmup() does for the rest.
+                engine.submit([7, 8, 9] * 6, max_tokens=6).result(
+                    timeout=1800.0)
+            t0 = time.perf_counter()
+            reqs = [engine.submit(p, max_tokens=mt) for p, mt in specs]
+            streams = [r.result(timeout=1800.0) for r in reqs]
+            dt = time.perf_counter() - t0
+        finally:
+            _close(engine)
+        return (streams, sum(map(len, streams)), dt,
+                sum(r.spec_drafted for r in reqs),
+                sum(r.spec_accepted for r in reqs))
+
+    with _step_telemetry() as stepstats:
+        base_streams, base_total, base_dt, _, _ = run(0)
+        stepstats.reset()
+        streams, total, dt, drafted, accepted = run(spec_k)
+        snap = stepstats.snapshot()
+    if streams != base_streams:
+        raise AssertionError(
+            "speculative streams diverged from the non-speculative "
+            "baseline: the bit-identity contract is broken")
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "requests": n_requests,
+        "shared_prefix": shared_prefix,
+        "spec_k": spec_k,
+        "spec_ngram": spec_ngram,
+        "generated_tokens": total,
+        "wall_seconds": round(dt, 3),
+        "engine_spec_tok_s": round(total / dt, 1),
+        "engine_spec_baseline_tok_s": round(base_total / base_dt, 1),
+        "spec_speedup": round(base_dt / dt, 3),
+        "drafted_tokens": drafted,
+        "accepted_tokens": accepted,
+        "spec_accept_rate": round(accepted / max(drafted, 1), 3),
+        "phase_breakdown": snap.get("phases", {}),
+        "busy_fraction": snap.get("busy_fraction"),
+    }
+
+
+def measure_engine_prefix(family: str, slots: int = 8,
+                          n_requests: int = 24, shared_prefix: int = 256,
+                          max_unique: int = 32, max_tokens: int = 48,
+                          device: DeviceLike = None,
+                          **shape_kw) -> Dict[str, Any]:
+    """Shared-prefix traffic through the paged pool's prefix cache: one
+    cold request prefills the system prompt and publishes its blocks,
+    then ``n_requests`` concurrent ones alias them. TTFT split cold/warm
+    in wall seconds and in steps to the first token (the prefill-chunk
+    count: deterministic); hit rate and tokens saved from the engine's
+    own pool stats."""
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    chunk = 64
+    max_seq = shared_prefix + max_unique + max_tokens
+    max_seq += (-max_seq) % chunk       # keep chunk | max_seq
+    engine = _engine(cfg, params, device, slots=slots, max_seq=max_seq,
+                     prefill_chunk=chunk, paged=True)
+    rng = random.Random(0)
+    shared = [rng.randint(1, cfg.vocab_size - 1)
+              for _ in range(shared_prefix)]
+
+    def tail():
+        return [rng.randint(1, cfg.vocab_size - 1)
+                for _ in range(rng.randint(1, max_unique))]
+
+    try:
+        cold = engine.submit(shared + tail(),
+                             max_tokens=rng.randint(16, max_tokens))
+        cold.result(timeout=1800.0)
+        ttft_cold = cold.first_token_at - cold.submitted_at
+        # The hit rate over the warm phase only (the cold request and the
+        # warm-up are misses by construction).
+        stats0 = engine.prefix_cache.stats()
+        total, dt, reqs = _submit_all(
+            engine, [(shared + tail(), rng.randint(16, max_tokens))
+                     for _ in range(n_requests)])
+    finally:
+        stats = engine.prefix_cache.stats()
+        _close(engine)
+    hits = stats["hits"] - stats0["hits"]
+    misses = stats["misses"] - stats0["misses"]
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "requests": n_requests,
+        "shared_prefix": shared_prefix,
+        "generated_tokens": total,
+        "wall_seconds": round(dt, 3),
+        "engine_prefix_tok_s": round(total / dt, 1),
+        "prefix_hit_rate": round(hits / max(hits + misses, 1), 3),
+        "prefill_tokens_saved": stats["tokens_saved"],
+        "ttft_cold_s": round(ttft_cold, 4),
+        # Median: warm requests queue behind each other on the slots, so
+        # the tail reflects queueing, not the cache.
+        "ttft_warm_s": round(_median(r.first_token_at - r.submitted_at
+                                     for r in reqs), 4),
+        "steps_to_first_token_cold": cold.prefill_chunks,
+        "steps_to_first_token_warm": max(r.prefill_chunks for r in reqs),
+    }
+
+
+def measure_engine_tier(family: str, slots: int = 8,
+                        n_requests: int = 12, prompt_blocks: int = 2,
+                        max_tokens: int = 8, host_cache_mb: float = 64.0,
+                        engine_kw: Optional[Dict[str, Any]] = None,
+                        device: DeviceLike = None,
+                        **shape_kw) -> Dict[str, Any]:
+    """The host-RAM KV tier: ``n_requests`` distinct prompts of
+    ``prompt_blocks`` blocks into a pool holding about half that working
+    set, run one at a time (cold: evictions spill D2H); every published
+    block then drained to the host tier, and every prompt again (warm: a
+    hit costs one H2D restore per chunk instead of a prefill). Cold vs
+    re-hit median TTFT in wall seconds and steps to the first token, the
+    tier hit rate and the host pool's own counters."""
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    chunk = 64
+    # Tail tokens past the last full block, so all prompt_blocks blocks
+    # can be re-admitted (an exact multiple keeps its last for prefill).
+    prompt_len = prompt_blocks * chunk + 7
+    max_seq = prompt_len + max_tokens
+    max_seq += (-max_seq) % chunk       # keep chunk | max_seq
+    # Half the published working set, plus room for the live slots' rows.
+    pool_blocks = (n_requests * prompt_blocks // 2 +
+                   2 * (max_seq // chunk) + 1)
+    kw = dict(prefill_chunk=chunk, paged=True, kv_pool_blocks=pool_blocks,
+              prefix_cache_mb=host_cache_mb)
+    kw.update(engine_kw or {})
+    engine = _engine(cfg, params, device, slots=slots, max_seq=max_seq,
+                     **kw)
+    rng = random.Random(0)
+    prompts = [[rng.randint(1, cfg.vocab_size - 1)
+                for _ in range(prompt_len)] for _ in range(n_requests)]
+
+    def one_by_one():
+        out, n = [], 0
+        for p in prompts:
+            r = engine.submit(p, max_tokens=max_tokens)
+            n += len(r.result(timeout=1800.0))
+            out.append(r)
+        return out, n
+
+    def quiesce(deadline_s: float = 30.0) -> None:
+        t_end = time.perf_counter() + deadline_s
+        while (engine.spill_in_flight() > 0
+               and time.perf_counter() < t_end):
+            time.sleep(0.005)
+
+    try:
+        t0 = time.perf_counter()
+        cold_reqs, total = one_by_one()
+        # Drain the published blocks to the host tier, paced so the
+        # bounded spill queue never overflows into drop-on-evict.
+        while True:
+            while engine.spill_in_flight() >= 16:
+                time.sleep(0.001)
+            if not engine.prefix_cache.evict_one():
+                break
+        quiesce()
+        warm_reqs, n = one_by_one()
+        total += n
+        dt = time.perf_counter() - t0
+    finally:
+        tier = engine.host_tier_stats()
+        _close(engine)
+    hits = sum(1 for r in warm_reqs if r.cached_prompt_tokens > 0)
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "requests": n_requests,
+        "prompt_blocks": prompt_blocks,
+        "pool_blocks": pool_blocks,
+        "host_cache_mb": host_cache_mb,
+        "generated_tokens": total,
+        "wall_seconds": round(dt, 3),
+        "engine_tier_tok_s": round(total / dt, 1),
+        "tier_cold_ttft_s": round(_median(
+            r.first_token_at - r.submitted_at for r in cold_reqs), 4),
+        "tier_rehit_ttft_s": round(_median(
+            r.first_token_at - r.submitted_at for r in warm_reqs), 4),
+        "tier_hit_rate": round(hits / max(n_requests, 1), 3),
+        "steps_to_first_token_cold": max(r.prefill_chunks
+                                         for r in cold_reqs),
+        "steps_to_first_token_rehit": max(r.prefill_chunks
+                                          for r in warm_reqs),
+        "host_tier": tier,
+    }
+
+
+def _param_tree(params) -> Dict[str, Any]:
+    """The JAX tree layout of a model's parameters, layers stacked on a
+    new axis 0: the tree the JAX bench checkpoints."""
+    tree = {name: getattr(params, name) for name in
+            ("embed", "embed_scale", "final_norm", "lm_head",
+             "lm_head_scale") if getattr(params, name, None) is not None}
+    names = [n for n, _ in params.layers[0].named_parameters()]
+    tree["layers"] = {n: torch.stack([getattr(lp, n).detach()
+                                      for lp in params.layers])
+                      for n in names}
+    return tree
+
+
+def measure_ckpt(family: str, repeats: int = 3, device: DeviceLike = None,
+                 **shape_kw) -> Dict[str, Any]:
+    """Checkpoint save and restore latency of a family's whole parameter
+    tree through ``train/checkpoint.py`` (atomic rename, checksummed
+    manifest) in a throwaway directory, best of ``repeats``: what a
+    synchronous save costs the step path, and how long a recovery stalls
+    before its first step."""
+    from skypilot_tpu_torch.train import checkpoint as checkpoint_lib
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    tree = {"params": _param_tree(params)}
+    _sync(device)
+    ckpt_dir = tempfile.mkdtemp(prefix=f"stpu-ckpt-bench-{family}-")
+    try:
+        save_s = restore_s = float("inf")
+        for i in range(repeats):
+            _, dt = _timed(device, lambda: checkpoint_lib.save(
+                ckpt_dir, i, tree, keep=1))
+            save_s = min(save_s, dt)
+            restored, dt = _timed(device, lambda: checkpoint_lib.
+                                  restore_latest(ckpt_dir, like=tree))
+            restore_s = min(restore_s, dt)
+            assert restored is not None and restored.step == i
+        manifest = checkpoint_lib.latest_step(ckpt_dir)
+        with open(f"{ckpt_dir}/ckpt-{manifest:08d}.json") as f:
+            nbytes = json.load(f)["payload_bytes"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {
+        "ckpt_save_s": round(save_s, 4),
+        "ckpt_restore_s": round(restore_s, 4),
+        "ckpt_bytes": nbytes,
+        "repeats": repeats,
+        "model": _model_info(family, cfg, params),
+    }
+
+
+MODES = ("fixed", "engine", "paged", "q8", "spec", "prefix", "ckpt",
+         "tier")
+
+
+def main(argv=None) -> None:
+    """``tools/bench_moe_decode.py``'s flags for the ported modes; prints
+    the mode's dict as one JSON line."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--family", choices=("mixtral", "llama", "gemma"),
+                   default="mixtral")
+    p.add_argument("--mode", choices=MODES, default="fixed",
+                   help="fixed: batch decode; engine: the engine under "
+                        "ragged arrivals; paged: the paged pool at half "
+                        "the dense budget; q8: int8 KV and weights with "
+                        "the capacity ratio; spec: speculative decoding "
+                        "vs none on the chat mix; prefix: shared-prefix "
+                        "traffic; ckpt: checkpoint save/restore; tier: "
+                        "the host-RAM spill tier")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--prompt-len", type=int, default=128)
+    p.add_argument("--tokens", type=int, default=128)
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--slots", type=int, default=8,
+                   help="engine modes: concurrent decode slots")
+    p.add_argument("--requests", type=int, default=32,
+                   help="engine modes: requests submitted")
+    p.add_argument("--shared-prefix", type=int, default=256,
+                   help="prefix mode: shared system-prompt tokens")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="spec mode: drafted tokens per slot per step")
+    p.add_argument("--dim", type=int, default=None)
+    p.add_argument("--layers", type=int, default=None)
+    p.add_argument("--experts", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device; default the card, 'cpu' on request")
+    args = p.parse_args(argv)
+    shape_kw = {k: v for k, v in (("dim", args.dim),
+                                  ("layers", args.layers),
+                                  ("experts", args.experts))
+                if v is not None}
+    if shape_kw and args.family != "mixtral":
+        p.error("--dim/--layers/--experts only apply to --family mixtral "
+                "(llama/gemma shapes are fixed)")
+    shape_kw["device"] = args.device
+    engine = dict(slots=args.slots, n_requests=args.requests)
+    if args.mode == "engine":
+        result = measure_engine_ragged(args.family, **engine, **shape_kw)
+    elif args.mode == "paged":
+        result = measure_engine_paged(args.family, **engine, **shape_kw)
+    elif args.mode == "q8":
+        result = measure_engine_q8(args.family, **engine, **shape_kw)
+    elif args.mode == "spec":
+        result = measure_engine_spec(args.family, spec_k=args.spec_k,
+                                     **engine, **shape_kw)
+    elif args.mode == "prefix":
+        result = measure_engine_prefix(args.family, slots=args.slots,
+                                       shared_prefix=args.shared_prefix,
+                                       **shape_kw)
+    elif args.mode == "ckpt":
+        result = measure_ckpt(args.family, repeats=args.repeats, **shape_kw)
+    elif args.mode == "tier":
+        result = measure_engine_tier(args.family, **engine, **shape_kw)
+    else:
+        result = measure_decode(args.family, batch=args.batch,
+                                prompt_len=args.prompt_len,
+                                tokens=args.tokens, repeats=args.repeats,
+                                **shape_kw)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

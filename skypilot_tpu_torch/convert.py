@@ -1,6 +1,7 @@
 """Parameters between the JAX package's trees and the port's modules:
-Llama's, Gemma's and Mixtral's parameters (Llama's and Gemma's also as
-``quantize_params``' int8 tree: codes plus f32 ``<name>_scale`` leaves;
+Llama's, Gemma's and Mixtral's parameters (each also as
+``quantize_params``' int8 tree: codes plus f32 ``<name>_scale`` leaves,
+Mixtral's expert scales (E, out) and its router left f32;
 Gemma's is llama's tree at its shapes, tied: no ``lm_head`` unless
 ``tie_embeddings=False``), the LoRA adapter tree
 (``{"layers": {"wq_lora_a": (L, in, r), "wq_lora_b": (L, r, out), ...}}``)
@@ -57,12 +58,22 @@ def llama_params_from_jax(cfg: llama.LlamaConfig,
     f32 scales, recognised by its ``embed_scale``)."""
     device = resolve_device(device)
     params = llama.LlamaParams(cfg, "meta", cfg.dtype)
-    names = list(llama.layer_shapes(cfg))
+    _put_tree(params, params_np, _layer_names(params, params_np,
+                                              llama.layer_shapes(cfg)),
+              device)
+    return params
+
+
+def _layer_names(params: torch.nn.Module, params_np: Dict[str, Any],
+                 shapes: dict) -> list:
+    """The layer leaves to copy: the module's weights, and, for a
+    ``quantize_params`` tree (recognised by its ``embed_scale``), their
+    scales, after re-typing the meta module as that tree."""
+    names = list(shapes)
     if "embed_scale" in params_np:
         _as_quantized(params)
         names += [n + "_scale" for n in llama.QUANT_LAYER_WEIGHTS]
-    _put_tree(params, params_np, names, device)
-    return params
+    return names
 
 
 def _frozen_meta(shape, dtype) -> torch.nn.Parameter:
@@ -71,8 +82,10 @@ def _frozen_meta(shape, dtype) -> torch.nn.Parameter:
 
 
 def _as_quantized(params: llama.LlamaParams) -> None:
-    """Re-type a meta ``LlamaParams`` as ``quantize_params``' tree: int8
-    codes, and per-output-channel f32 scales beside them."""
+    """Re-type a meta ``LlamaParams`` or ``MixtralParams`` as
+    ``quantize_params``' tree: int8 codes, and per-output-channel f32
+    scales beside them (a weight's shape without its in-features axis
+    -2, so an expert tensor's scale keeps its expert axis)."""
     heads = ["embed"] + (["lm_head"] if params.lm_head is not None else [])
     for name in heads:
         w = getattr(params, name)
@@ -84,7 +97,8 @@ def _as_quantized(params: llama.LlamaParams) -> None:
             w = getattr(lp, name)
             setattr(lp, name, _frozen_meta(w.shape, torch.int8))
             setattr(lp, name + "_scale",
-                    _frozen_meta((w.shape[-1],), torch.float32))
+                    _frozen_meta(w.shape[:-2] + w.shape[-1:],
+                                 torch.float32))
 
 
 def _put(module: torch.nn.Module, name: str, arr: Any,
@@ -156,11 +170,14 @@ def mixtral_params_from_jax(cfg: mixtral.MixtralConfig,
                             device: DeviceLike = None
                             ) -> mixtral.MixtralParams:
     """The port's Mixtral parameters from a JAX mixtral tree of numpy
-    arrays; every leaf's dtype must be the config dtype's (the router's
-    f32)."""
+    arrays, or from its ``quantize_params`` tree (int8 codes, f32 scales);
+    every leaf's dtype must be the module's (the config dtype, int8
+    codes, f32 scales, the router's f32)."""
     device = resolve_device(device)
     params = mixtral.MixtralParams(cfg, "meta", cfg.dtype)
-    _put_tree(params, params_np, mixtral.layer_shapes(cfg), device)
+    _put_tree(params, params_np, _layer_names(params, params_np,
+                                              mixtral.layer_shapes(cfg)),
+              device)
     return params
 
 

@@ -15,16 +15,15 @@ def family_name(cfg) -> str:
 
 def model_api(cfg):
     """Config type -> the model module whose KV-cache functions serve it
-    (``init``, ``init_cache``, ``forward_with_cache``,
-    ``forward_with_paged_cache``, ``verify_step``, ``decode``,
-    ``quantize_params``): llama's, or gemma's (llama's functions under
-    gemma's names). Mixtral's serving half is not ported: it raises a
-    ValueError here, before an engine or a replica allocates anything."""
+    (``init``, ``init_cache``, ``init_paged_cache``, ``forward_with_cache``,
+    ``forward_with_paged_cache``, ``verify_step``, ``verify_step_paged``,
+    ``decode``, ``quantize_params``, ``params_quantized``): llama's,
+    gemma's (llama's functions under gemma's names) or mixtral's (llama's
+    with the MoE block)."""
     family = family_name(cfg)
     if family == "mixtral":
-        raise ValueError(
-            "mixtral serving is not ported yet: the port's KV-cache decode "
-            "path, DecodeEngine and serve_llm take llama and gemma configs")
+        from skypilot_tpu_torch.models import mixtral
+        return mixtral
     if family == "gemma":
         from skypilot_tpu_torch.models import gemma
         return gemma

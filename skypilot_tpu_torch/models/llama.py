@@ -53,6 +53,9 @@ scales), the speculative verify window (``verify_step``,
 package's split-KV online softmax, written as torch ops as it is XLA
 there: one tile function (``_attn_tile``) for the dense and the paged
 loop, so paged output equals dense bit for bit when the tiles align.
+Each cache loop and ``decode`` take the block after attention as
+``mlp_fn``: Mixtral's serving half is these functions with its MoE block
+plugged in.
 
 Cache tensors are updated in place (the JAX package donates them), and
 each forward returns the same cache it was given. The host-side values
@@ -918,7 +921,7 @@ def _read_out(x: torch.Tensor, logits_at) -> torch.Tensor:
 def forward_with_cache(cfg, params: LlamaParams, tokens: torch.Tensor,
                        cache: Cache, start_pos, valid_len=None,
                        logits_at=None, *, write_pos=None,
-                       block: Optional[int] = None
+                       block: Optional[int] = None, mlp_fn=mlp_block
                        ) -> Tuple[torch.Tensor, Cache]:
     """Incremental forward: tokens (B, T) at positions [start_pos,
     start_pos + T), reading and writing the dense cache in place.
@@ -926,14 +929,16 @@ def forward_with_cache(cfg, params: LlamaParams, tokens: torch.Tensor,
     past it are masked) and ``logits_at`` (chunk-relative read-out, (B,
     1, vocab)) take a scalar or a per-slot (B,). ``write_pos`` (B, T)
     selects the verify window's per-token writes; ``block`` the split-KV
-    tile width (SPLIT_KV_BLOCK by default). Returns (fp32 logits, cache)."""
+    tile width (SPLIT_KV_BLOCK by default). ``mlp_fn(cfg, x, lp)`` is the
+    residual block after attention (``mlp_block`` by default; Mixtral
+    passes its MoE block). Returns (fp32 logits, cache)."""
     step = _DenseStep(tokens, start_pos, valid_len, _host_array(write_pos),
                       cache["k"].shape[2])
     x = _decode_embed(cfg, params, tokens)
     for i, lp in enumerate(params.layers):
         x = cached_attention_block(cfg, x, lp, cache["k"][i],
                                    cache["v"][i], step, block)
-        x = mlp_block(cfg, x, lp)
+        x = mlp_fn(cfg, x, lp)
     return lm_head(cfg, params, _read_out(x, logits_at)), cache
 
 
@@ -1063,15 +1068,15 @@ def forward_with_paged_cache(cfg, params: LlamaParams, tokens: torch.Tensor,
                              cache: Cache, table, start_pos,
                              valid_len=None, logits_at=None, *,
                              window: int, write_block: Optional[int] = None,
-                             write_pos=None
+                             write_pos=None, mlp_fn=mlp_block
                              ) -> Tuple[torch.Tensor, Cache]:
     """Incremental forward against the paged pool (``init_paged_cache``,
     updated in place) through ``table`` (B, table_len) block tables; the
     scalar-or-(B,) ``start_pos``/``valid_len``/``logits_at`` contract of
     :func:`forward_with_cache`. ``window`` is the attention tile width
     (match the dense ``min(SPLIT_KV_BLOCK, max_seq)`` for bit parity);
-    ``write_block`` the single-slot prefill's target block. Returns (fp32
-    logits, cache)."""
+    ``write_block`` the single-slot prefill's target block; ``mlp_fn`` as
+    there. Returns (fp32 logits, cache)."""
     step = _PagedStep(tokens, table, start_pos, valid_len,
                       _host_array(write_pos), cache["k"].shape[2])
     wb = None if write_block is None else int(write_block)
@@ -1082,7 +1087,7 @@ def forward_with_paged_cache(cfg, params: LlamaParams, tokens: torch.Tensor,
             cfg, x, lp, cache["k"][i], cache["v"][i], step, window, wb,
             cache["k_scale"][i] if quant else None,
             cache["v_scale"][i] if quant else None)
-        x = mlp_block(cfg, x, lp)
+        x = mlp_fn(cfg, x, lp)
     return lm_head(cfg, params, _read_out(x, logits_at)), cache
 
 
@@ -1098,25 +1103,26 @@ def _verify_write_positions(t: int, start_pos: np.ndarray,
 
 def verify_step(cfg, params: LlamaParams, tokens: torch.Tensor,
                 cache: Cache, start_pos, spec_len, *,
-                block: Optional[int] = None
+                block: Optional[int] = None, mlp_fn=mlp_block
                 ) -> Tuple[torch.Tensor, Cache]:
     """Multi-token speculative verification against the dense cache:
     ``tokens`` (B, T) is each slot's last token and up to T - 1 drafts
     (``spec_len`` real ones); logits at all T positions, writes per token
     with the junk columns dropped, ``valid_len = start_pos + spec_len +
-    1``. Returns (logits (B, T, vocab), cache)."""
+    1``; ``mlp_fn`` as in :func:`forward_with_cache`. Returns (logits
+    (B, T, vocab), cache)."""
     b, t = tokens.shape
     start = _host_ints(start_pos, b)
     spec = _host_ints(spec_len, b)
     wpos = _verify_write_positions(t, start, spec, cache["k"].shape[2])
     return forward_with_cache(cfg, params, tokens, cache, start,
                               valid_len=start + spec + 1, write_pos=wpos,
-                              block=block)
+                              block=block, mlp_fn=mlp_fn)
 
 
 def verify_step_paged(cfg, params: LlamaParams, tokens: torch.Tensor,
                       cache: Cache, table, start_pos, spec_len, *,
-                      window: int
+                      window: int, mlp_fn=mlp_block
                       ) -> Tuple[torch.Tensor, Cache]:
     """:func:`verify_step` against the paged pool: writes scatter through
     each slot's block table (junk columns to the scratch block)."""
@@ -1127,20 +1133,22 @@ def verify_step_paged(cfg, params: LlamaParams, tokens: torch.Tensor,
     wpos = _verify_write_positions(t, start, spec, span)
     return forward_with_paged_cache(
         cfg, params, tokens, cache, table, start,
-        valid_len=start + spec + 1, window=window, write_pos=wpos)
+        valid_len=start + spec + 1, window=window, write_pos=wpos,
+        mlp_fn=mlp_fn)
 
 
 def decode(cfg, params: LlamaParams, prompt: torch.Tensor, true_len,
            max_tokens: int, max_seq: int, temperature: float = 0.0,
            key: Optional[torch.Tensor] = None, *,
-           cache: Optional[Cache] = None) -> torch.Tensor:
+           cache: Optional[Cache] = None, mlp_fn=mlp_block) -> torch.Tensor:
     """Prefill + cached decode: prompt (B, S_pad) -> (B, max_tokens)
     int64 tokens. ``true_len``: the un-padded prompt length, a scalar or a
     per-example (B,) (a ragged batch). temperature 0 is greedy; > 0
     samples from softmax(logits / T) with ``key`` (a ``serve.prng`` key,
     split before each token as ``jax.random.split`` splits it).
     ``cache``: an ``init_cache`` cache to fill in place (allocated on the
-    prompt's device otherwise)."""
+    prompt's device otherwise); ``mlp_fn`` as in
+    :func:`forward_with_cache`."""
     from skypilot_tpu_torch.serve import prng
     b, s_pad = prompt.shape
     lens = _host_array(true_len)
@@ -1170,13 +1178,14 @@ def decode(cfg, params: LlamaParams, prompt: torch.Tensor, true_len,
     if cache is None:
         cache = init_cache(cfg, b, max_seq, dev)
     logits, cache = forward_with_cache(cfg, params, prompt, cache, 0,
-                                       valid_len=lens, logits_at=lens - 1)
+                                       valid_len=lens, logits_at=lens - 1,
+                                       mlp_fn=mlp_fn)
     tok = pick(logits[:, 0])
     toks = []
     for i in range(max_tokens):
         toks.append(tok)
         logits, cache = forward_with_cache(cfg, params, tok[:, None], cache,
-                                           lens + i)
+                                           lens + i, mlp_fn=mlp_fn)
         tok = pick(logits[:, -1])
     return torch.stack(toks, dim=1)
 

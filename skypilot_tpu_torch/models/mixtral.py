@@ -11,7 +11,16 @@ exactly: first-max argmax, positions from a cumsum in the gates' f32,
 ``sum(density * density_proxy) * e^2``. Weights keep the JAX layout:
 router (dim, E) in f32, experts (E, dim, mlp) and (E, mlp, dim).
 
-Not in this slice: the KV-cache decode half and ``quantize_params``.
+Serving (below the training half): ``quantize_params`` (llama's int8
+scheme over the attention and expert weights, the router left f32), and
+the KV-cache paths (``forward_with_cache``, ``forward_with_paged_cache``,
+``verify_step``, ``verify_step_paged``, ``decode``), each llama's with
+the MLP swapped for ``_moe_block``: dense top-2 routing
+(``_moe_mlp_dense``), where every expert runs on every token and the two
+chosen ones are combined. Capacity routing makes a token's output depend
+on the other tokens in the batch, so an incremental decode could never
+reproduce a whole pass; dense routing is per token, and equals the
+capacity path whenever no token is dropped.
 """
 from __future__ import annotations
 
@@ -134,12 +143,23 @@ class MixtralParams(nn.Module):
 
 @torch.no_grad()
 def init(cfg: MixtralConfig, generator: torch.Generator,
-         device: DeviceLike = None) -> MixtralParams:
+         device: DeviceLike = None, *, quantize: bool = False
+         ) -> MixtralParams:
     """Random init as the JAX package draws it (normal * fan_in^-0.5,
     norms at one, the router in f32), from ``generator``; the numbers
-    differ from JAX's PRNG. ``device`` defaults to the card."""
+    differ from JAX's PRNG. ``device`` defaults to the card.
+
+    ``quantize=True`` returns ``quantize_params(cfg, init(cfg, generator,
+    device))``, the same numbers, drawn and quantized a layer at a time,
+    so that no more than one layer is held in the config dtype:
+    Mixtral-8x7B is 93.4 GB in bf16, more than one 80 GB card holds, and
+    46.7 GB in int8."""
     device = resolve_device(device)
-    params = MixtralParams(cfg, device, cfg.dtype)
+    params = MixtralParams(cfg, "meta" if quantize else device, cfg.dtype)
+    if quantize:
+        for name in ("embed", "final_norm", "lm_head"):
+            setattr(params, name, nn.Parameter(torch.empty_like(
+                getattr(params, name), device=device)))
 
     def dense(p: torch.Tensor, fan_in: int) -> None:
         x = torch.randn(p.shape, generator=generator,
@@ -149,15 +169,24 @@ def init(cfg: MixtralConfig, generator: torch.Generator,
         p.copy_((x * fan_in ** -0.5).to(cfg.dtype))
 
     dense(params.embed, cfg.dim)
-    for lp in params.layers:
+    if quantize:
+        _quantize_into(params, params, "embed", -1)
+    for i in range(cfg.n_layers):
+        lp = MixtralLayer(cfg, device, cfg.dtype) if quantize else \
+            params.layers[i]
         lp.attn_norm.fill_(1.0)
         lp.mlp_norm.fill_(1.0)
         for name in ("wq", "wk", "wv", "router", "w_gate", "w_up"):
             dense(getattr(lp, name), cfg.dim)
         dense(lp.wo, cfg.n_heads * cfg.head_dim)
         dense(lp.w_down, cfg.mlp_dim)
+        if quantize:
+            params.layers[i] = _quantized_layer(cfg, lp)
+            del lp
     params.final_norm.fill_(1.0)
     dense(params.lm_head, cfg.dim)
+    if quantize:
+        _quantize_into(params, params, "lm_head", -2)
     return params
 
 
@@ -261,3 +290,166 @@ def forward(cfg: MixtralConfig, params: MixtralParams, tokens: torch.Tensor,
         aux_total = aux_total + aux
     logits = llama.lm_head(cfg, params, x)
     return logits, cfg.router_aux_weight * aux_total / cfg.n_layers
+
+
+# ------------------------------------------------------ int8 serving tree
+
+def _quantize_into(dst: nn.Module, src: nn.Module, name: str,
+                   axis: int) -> None:
+    """``dst.<name>`` and ``dst.<name>_scale``: llama's per-channel int8
+    of ``src.<name>`` over ``axis``; an expert tensor (E, K, M) one expert
+    at a time, so that the f32 temporaries are one expert's (the scale
+    is per expert and channel, so the result is the whole tensor's)."""
+    w = getattr(src, name)
+    if w.dim() == 3:
+        parts = [llama._quantize_weight(w[e], axis)
+                 for e in range(w.shape[0])]
+        codes = torch.stack([c for c, _ in parts])
+        scale = torch.stack([sc for _, sc in parts])
+    else:
+        codes, scale = llama._quantize_weight(w, axis)
+    setattr(dst, name, llama._frozen(codes))
+    setattr(dst, name + "_scale", llama._frozen(scale))
+
+
+def _quantized_layer(cfg: MixtralConfig, src: MixtralLayer) -> MixtralLayer:
+    """One layer of :func:`quantize_params`' tree; the norms and the f32
+    router are ``src``'s own tensors."""
+    dst = MixtralLayer(cfg, "meta", cfg.dtype)
+    for name in ("attn_norm", "mlp_norm", "router"):
+        setattr(dst, name, getattr(src, name))
+    for name in llama.QUANT_LAYER_WEIGHTS:
+        _quantize_into(dst, src, name, -2)
+    return dst
+
+
+@torch.no_grad()
+def quantize_params(cfg: MixtralConfig, params: MixtralParams
+                    ) -> MixtralParams:
+    """The int8 serving tree: llama's per-output-channel scheme over the
+    attention weights and the expert tensors (the in-features axis is
+    always -2, so the expert axis survives into the scale: (E, out)),
+    the embed table per row. The f32 router stays exact: routing is a
+    discrete argmax that quantization noise must not move. Norms and the
+    router are shared with ``params``, not copied. Each tensor is
+    quantized and its f32 temporaries freed before the next."""
+    out = MixtralParams(cfg, "meta", cfg.dtype)
+    for name, axis in (("embed", -1), ("lm_head", -2)):
+        _quantize_into(out, params, name, axis)
+    out.final_norm = params.final_norm
+    for i, src in enumerate(params.layers):
+        out.layers[i] = _quantized_layer(cfg, src)
+    return out
+
+
+params_quantized = llama.params_quantized
+
+
+# ----------------------------------------------------------- KV-cache decode
+
+def _top2_weights(gates: torch.Tensor) -> torch.Tensor:
+    """(..., E) softmax gates -> (..., E) combine weights: exactly two
+    experts, picked as ``lax.top_k`` picks them (the larger gate first,
+    ties toward the lower index: two first-max argmaxes, the winner masked
+    to -inf for the second), their gates renormalised to sum to one in
+    the gates' f32. A value threshold would take three or more experts on
+    tied gates and part from the capacity path."""
+    e = gates.shape[-1]
+    first = F.one_hot(gates.argmax(dim=-1), e).bool()
+    second = F.one_hot(
+        gates.masked_fill(first, float("-inf")).argmax(dim=-1), e).bool()
+    w = gates * (first | second)
+    return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+
+
+def _expert_mm(x: torch.Tensor, lp: nn.Module, name: str) -> torch.Tensor:
+    """x (N, K) or (E, N, K) against every expert's ``name`` (E, K, M):
+    (E, N, M). An int8 weight's codes are cast to x's dtype for the
+    product, and its per-(expert, channel) f32 scale multiplies the
+    result in fp32 before the cast back, as the JAX package rounds it."""
+    w = getattr(lp, name)
+    scale = getattr(lp, name + "_scale", None)
+    if scale is None:
+        return torch.matmul(x, w)
+    r = torch.matmul(x, w.to(x.dtype))
+    return (r.float() * scale[:, None, :]).to(x.dtype)
+
+
+def _moe_mlp_dense(cfg: MixtralConfig, y: torch.Tensor,
+                   lp: nn.Module) -> torch.Tensor:
+    """Inference-time MoE, y (B, T, D) -> (B, T, D): every expert computed
+    on every token, the top-2 combined with their renormalised gates
+    (cast to the activations' dtype first, as the JAX einsum takes
+    them). Experts run as one batched product over E, each on all B * T
+    tokens."""
+    b, t, d = y.shape
+    yt = y.reshape(b * t, d)
+    w = _top2_weights(router_gates(y, lp))                      # (N, E)
+    gate = F.silu(_expert_mm(yt, lp, "w_gate"))                 # (E, N, M)
+    up = _expert_mm(yt, lp, "w_up")
+    out = _expert_mm(gate * up, lp, "w_down")                   # (E, N, D)
+    return torch.einsum("ne,end->nd", w.to(out.dtype), out).reshape(b, t, d)
+
+
+def _moe_block(cfg: MixtralConfig, x: torch.Tensor,
+               lp: nn.Module) -> torch.Tensor:
+    """Pre-norm dense-routed MoE residual block (inference)."""
+    y = llama.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    return x + _moe_mlp_dense(cfg, y, lp)
+
+
+# Llama's cache layouts: the attention blocks are shared and experts add
+# no per-token state.
+init_cache = llama.init_cache
+init_paged_cache = llama.init_paged_cache
+
+
+def forward_with_cache(cfg: MixtralConfig, params: MixtralParams,
+                       tokens: torch.Tensor, cache, start_pos,
+                       valid_len=None, logits_at=None, *,
+                       block: Optional[int] = None):
+    """llama's incremental forward (its scalar-or-(B,) start_pos /
+    valid_len / logits_at contract) with the MoE block as the MLP."""
+    return llama.forward_with_cache(
+        cfg, params, tokens, cache, start_pos, valid_len=valid_len,
+        logits_at=logits_at, block=block, mlp_fn=_moe_block)
+
+
+def forward_with_paged_cache(cfg: MixtralConfig, params: MixtralParams,
+                             tokens: torch.Tensor, cache, table, start_pos,
+                             valid_len=None, logits_at=None, *,
+                             window: int, write_block: Optional[int] = None):
+    """llama's paged incremental forward with the MoE block."""
+    return llama.forward_with_paged_cache(
+        cfg, params, tokens, cache, table, start_pos, valid_len=valid_len,
+        logits_at=logits_at, window=window, write_block=write_block,
+        mlp_fn=_moe_block)
+
+
+def verify_step(cfg: MixtralConfig, params: MixtralParams,
+                tokens: torch.Tensor, cache, start_pos, spec_len, *,
+                block: Optional[int] = None):
+    """llama's dense speculative verify window with the MoE block: routing
+    is per token, so a verify column's logits equal the 1-token step's."""
+    return llama.verify_step(cfg, params, tokens, cache, start_pos,
+                             spec_len, block=block, mlp_fn=_moe_block)
+
+
+def verify_step_paged(cfg: MixtralConfig, params: MixtralParams,
+                      tokens: torch.Tensor, cache, table, start_pos,
+                      spec_len, *, window: int):
+    """llama's paged speculative verify window with the MoE block."""
+    return llama.verify_step_paged(cfg, params, tokens, cache, table,
+                                   start_pos, spec_len, window=window,
+                                   mlp_fn=_moe_block)
+
+
+def decode(cfg: MixtralConfig, params: MixtralParams, prompt: torch.Tensor,
+           true_len, max_tokens: int, max_seq: int,
+           temperature: float = 0.0, key: Optional[torch.Tensor] = None, *,
+           cache=None) -> torch.Tensor:
+    """Prefill + cached decode (llama's loop with the MoE block plugged
+    in; scalar or ragged (B,) ``true_len``)."""
+    return llama.decode(cfg, params, prompt, true_len, max_tokens, max_seq,
+                        temperature=temperature, key=key, cache=cache,
+                        mlp_fn=_moe_block)

@@ -22,12 +22,17 @@ resumes on either package's replica.
     python -m skypilot_tpu_torch.recipes.serve_llm --model llama3-8b \
         --port 8080        # or --model gemma-2b
 
+Mixtral serves through its dense-routed MoE cache path. Its 8x7B is 93.4
+GB in bf16, more than one 80 GB card holds: ``--model mixtral-8x7b
+--weight-quant 1`` draws its int8 tree a layer at a time (46.7 GB), and
+a tree that does not fit the card's free memory is refused before it is
+drawn.
 Runs on the card unless given ``--device cpu``. Not ported yet, and
 refused with a ValueError: gang and tensor-parallel replicas
 (``--replica-hosts`` > 1, ``--tp`` > 1, ``SKYPILOT_NUM_NODES`` > 1 or a
-``SKYPILOT_NODE_RANK`` > 0), the co-located load balancer
+``SKYPILOT_NODE_RANK`` > 0) and the co-located load balancer
 (``--lb-port``: run the JAX package's load balancer process in front
-instead), and the mixtral family.
+instead).
 """
 from __future__ import annotations
 
@@ -745,9 +750,7 @@ def serve(cfg: llama.LlamaConfig, params, port: int,
     backoff, ``engine_max_restarts`` consecutive fast failures →
     permanently down so the replica manager replaces the replica).
     ``device`` (default: the card) must hold ``params``; the CPU runs
-    only on ``device="cpu"``. Mixtral configs raise a ValueError (its
-    serving half is not ported)."""
-    model_api(cfg)
+    only on ``device="cpu"``."""
     device = resolve_device(device)
     if engine_slots is None:
         engine_slots = ENGINE_SLOTS
@@ -838,15 +841,34 @@ MODELS = {
 
 def _build_model(args, device: torch.device):
     """The --model config (--dtype applied) and its random weights from
-    --seed, through the family's own init (gemma's norms start at zero).
-    A family whose serving is not ported raises before any init."""
+    --seed, through the family's own init (gemma's norms start at zero,
+    mixtral's router is f32). Under --weight-quant 1 (or env
+    STPU_WEIGHT_QUANT) mixtral's tree is drawn int8 a layer at a time
+    (the engine then serves it as it is; other families are quantized by
+    the engine). A tree larger than the card's free memory raises a
+    ValueError before anything is drawn."""
     cfg = MODELS[args.model]()
     api = model_api(cfg)
     if args.dtype:
         cfg = dataclasses.replace(
             cfg, dtype={"bfloat16": torch.bfloat16,
                         "float32": torch.float32}[args.dtype])
+    weight_quant = ENGINE_WEIGHT_QUANT if args.weight_quant is None \
+        else bool(args.weight_quant)
+    int8 = weight_quant and api is mixtral
+    if device.type == "cuda":
+        need = cfg.num_params() * (1 if int8 else cfg.dtype.itemsize)
+        free = torch.cuda.mem_get_info(device)[0]
+        if need > free:
+            raise ValueError(
+                f"--model {args.model} is {need / 1e9:.1f} GB in "
+                f"{'int8' if int8 else cfg.dtype}, more than the "
+                f"{free / 1e9:.1f} GB free on {device}" +
+                (": serve it with --weight-quant 1" if api is mixtral
+                 and not int8 else ""))
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    if int8:
+        return cfg, api.init(cfg, gen, device, quantize=True)
     return cfg, api.init(cfg, gen, device)
 
 
@@ -866,7 +888,7 @@ def _refuse_not_ported(args) -> None:
             "the JAX package's load balancer in front of this replica")
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--model", choices=sorted(MODELS), default="llama-tiny")
     p.add_argument("--port", type=int, default=8080)
@@ -946,7 +968,11 @@ def main(argv=None):
     p.add_argument("--lb-port", type=int, default=0,
                    help="the co-located load balancer: not ported, "
                         "raises")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     _refuse_not_ported(args)
     device = resolve_device(args.device)
     cfg, params = _build_model(args, device)

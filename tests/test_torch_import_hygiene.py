@@ -17,7 +17,10 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "skypilot_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "torch_profile_step.py",
     REPO / "tools" / "kernel_turns.py",
-    REPO / "tools" / "flash_dkv_variants.py"]
+    REPO / "tools" / "flash_dkv_variants.py",
+    REPO / "tools" / "flash_fwd_variants.py",
+    REPO / "tools" / "flash_dq_variants.py",
+    REPO / "tools" / "chip_turns.py"]
 BANNED = ("jax", "jaxlib", "skypilot_tpu", "flax", "optax")
 
 
@@ -67,3 +70,6 @@ def test_init_without_device_raises_on_cpu_only_machine(monkeypatch):
         resolve_device("cuda")
     params = llama_torch.init(cfg, torch.Generator().manual_seed(0), "cpu")
     assert params.embed.device.type == "cpu"
+    from skypilot_tpu_torch.benchmark import decode_bench
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_bench.measure_decode("mixtral", tiny=True)

@@ -5,12 +5,14 @@ non-streamed JSON), the trailing stats frame with the same keys, a
 ``resume`` giving the uninterrupted continuation, /health, /drain,
 /metrics and the 400s on bad bodies; the port's replica behind the JAX
 package's load balancer; the same bytes from a Gemma replica pair (its
-tiny config); the --model choices built through their family's init; and
-the replica kinds not ported refusing to start."""
+tiny config); the --model choices built through their family's init; a
+mixtral-tiny replica on the CPU; and the replica kinds not ported refusing
+to start."""
 import dataclasses
 import http.client
 import json
 import threading
+import time
 import types
 
 import jax
@@ -131,7 +133,8 @@ def test_gemma_generate_bytes_equal_jax(gemma_replicas, body):
 @pytest.mark.parametrize("model,family", [("gemma-tiny", "gemma"),
                                           ("llama-tiny", "llama")])
 def test_build_model_inits_through_the_family(model, family):
-    args = types.SimpleNamespace(model=model, dtype="float32", seed=0)
+    args = types.SimpleNamespace(model=model, dtype="float32", seed=0,
+                                 weight_quant=None)
     cfg, params = serve_torch._build_model(args, torch.device("cpu"))
     assert family_name(cfg) == family and cfg.dtype == torch.float32
     norm = float(params.final_norm.detach().abs().sum())
@@ -302,11 +305,68 @@ def test_legacy_locked_path_streams_jax_tokens():
     (["--lb-port", "9"], "load balancer"),
     (["--replica-hosts", "2"], "gang"),
     (["--tp", "2"], "gang"),
-    (["--model", "mixtral-tiny"], "mixtral serving is not ported"),
-], ids=["lb-port", "replica-hosts", "tp", "mixtral"])
+], ids=["lb-port", "replica-hosts", "tp"])
 def test_main_refuses_what_is_not_ported(argv, match):
     with pytest.raises(ValueError, match=match):
         serve_torch.main(argv + ["--device", "cpu", "--port", "0"])
+
+
+@pytest.mark.parametrize("weight_quant", ["0", "1"])
+def test_main_serves_mixtral_on_the_cpu(monkeypatch, weight_quant):
+    """``--model mixtral-tiny --device cpu``: main builds the tree through
+    _build_model (under --weight-quant 1 drawn int8 a layer at a time,
+    the engine serving it as it is) and its replica answers /generate."""
+    served = []
+    real_serve = serve_torch.serve
+
+    def spy(cfg, params, port, **kw):
+        ready = threading.Event()
+        served.append((cfg, params, ready,
+                       real_serve(cfg, params, port, ready_event=ready,
+                                  **kw)))
+        return served[-1][-1]
+    monkeypatch.setattr(serve_torch, "serve", spy)
+    monkeypatch.setattr(serve_torch.signal, "signal", lambda *a: None)
+    main = threading.Thread(target=serve_torch.main, daemon=True, args=(
+        ["--model", "mixtral-tiny", "--device", "cpu", "--port", "0",
+         "--engine-slots", "2", "--weight-quant", weight_quant],))
+    main.start()
+    for _ in range(1200):
+        if served or not main.is_alive():
+            break
+        time.sleep(0.1)
+    cfg, params, ready, httpd = served[0]
+    try:
+        assert ready.wait(timeout=120)
+        status, data = _call(httpd, "POST", "/generate",
+                             {"prompt": [1, 2, 3], "max_tokens": 4})
+    finally:
+        _stop(httpd)
+    main.join(timeout=60)
+    assert not main.is_alive()
+    assert family_name(cfg) == "mixtral"
+    assert mixtral_torch.params_quantized(params) == (weight_quant == "1")
+    assert httpd.engine.kv_config()["weight_quant"] == int(weight_quant)
+    assert status == 200
+    toks = json.loads(data)["tokens"]
+    assert [0 <= t < cfg.vocab_size for t in toks] == [True] * 4
+
+
+@pytest.mark.parametrize("model,weight_quant,free,match", [
+    ("mixtral-8x7b", None, 80e9, "93.4 GB in torch.bfloat16.*--weight-quant 1"),
+    ("mixtral-8x7b", 1, 40e9, "46.7 GB in int8"),
+    ("llama3-8b", 1, 10e9, "16.1 GB in torch.bfloat16, more than the 10.0 GB"),
+])
+def test_build_model_refuses_a_tree_the_card_cannot_hold(
+        monkeypatch, model, weight_quant, free, match):
+    """A --model tree larger than the card's free memory raises before
+    anything is drawn; mixtral in bf16 names --weight-quant 1."""
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (int(free), int(80e9)))
+    args = types.SimpleNamespace(model=model, dtype=None, seed=0,
+                                 weight_quant=weight_quant)
+    with pytest.raises(ValueError, match=match):
+        serve_torch._build_model(args, torch.device("cuda"))
 
 
 @pytest.mark.parametrize("env,value", [("SKYPILOT_NUM_NODES", "2"),
@@ -318,10 +378,21 @@ def test_main_refuses_a_gang_launch(monkeypatch, env, value):
 
 
 def test_serve_refuses_mixtral_and_needs_a_card(monkeypatch):
-    cfg = mixtral_torch.MixtralConfig.tiny()
-    with pytest.raises(ValueError, match="mixtral serving is not ported"):
-        serve_torch.serve(cfg, None, 0, device="cpu")
+    """A mixtral-tiny replica, once refused, serves on the CPU when asked
+    (its tokens through the engine); without a card every model raises."""
+    cfg = mixtral_torch.MixtralConfig.tiny(VOCAB)
+    params = mixtral_torch.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    httpd = _start(serve_torch, cfg, params, device="cpu")
+    try:
+        status, data = _call(httpd, "POST", "/generate",
+                             {"prompt": [1, 2, 3], "max_tokens": 4})
+    finally:
+        _stop(httpd)
+    assert status == 200
+    assert [0 <= t < VOCAB for t in json.loads(data)["tokens"]] == [True] * 4
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_torch.main(["--model", "mixtral-tiny", "--port", "0"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_torch.main(["--port", "0"])
     with pytest.raises(RuntimeError, match="CUDA"):
