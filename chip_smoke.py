@@ -100,7 +100,18 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    step, data position, RNG state), launches exactly 2L/L/L resident per
    step over the 8 steps and no other, and A's trained adapters must
    lower the loss on A's first batch below its step-1 loss; prints the
-   wall time per step of B' and peak memory;
+   wall time per step of B' and peak memory. A runs with the training
+   telemetry armed (observability/trainstats, a timed synchronize after
+   each step): its train_mfu must be a number in (0, 1], the card's
+   trainstats.PEAK_FLOPS entry its data-sheet peak (989e12 for the H100
+   80GB HBM3, written in this script), the live MFU gauge equal to the
+   tokens/s gauge x flops_per_token(2048) / that peak within 1e-6, the
+   train_* keys those gauges rounded, the ring's tokens/s at least 0.95x
+   the recipe's wall rate, the goodput fractions the ring records' sums
+   over its window with the loop's untracked share under UNTRACKED_MAX,
+   snapshot.json and the host JSONL written; the stpu_ckpt_* counters
+   over A, B and B' must read 4 saves, 1 restore and 2 restores that
+   found nothing; prints train_mfu, goodput and dispatch vs device ms;
 10. mixtral: Mixtral-8x7B widths (8 experts, top 2), depth cut to 2,
    batch 2 x seq 2048, adafactor, full remat, 6 steps on one batch: CE +
    aux must fall, the aux loss be finite and positive, launches exactly
@@ -144,12 +155,14 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    2L/L/L of the width-256 resident kernels per step and no other, the
    trained adapters lower the first batch's loss, one forward's loss
    within LOSS_TOL of the reference attention's; ms a step, tokens/s,
-   peak memory;
+   peak memory; trainstats armed, with [lora] A's readings and checks at
+   Gemma-2B's flops_per_token(2048);
 13. gemma_long (right after gemma_lora): the same recipe at Gemma-2B's
    own context, seq 8192, full width and depth, 4 steps with a save at
    the last, at the largest of batch 8, 4, 2, 1 that fits (cut printed):
    launches exactly 2L/L/L of the width-256 triangular kernels per step
-   and no other, the same loss gates; ms a step, tokens/s, peak memory;
+   and no other, the same loss gates and trainstats readings; ms a step,
+   tokens/s, peak memory;
 14. gemma_serve: [serve]'s bf16 leg on a Gemma-2B replica (full width and
    depth, the same nine requests and gates; teacher-forced within
    GEMMA_CACHE_REL_TOL of gemma.forward, whose check launches the
@@ -186,7 +199,16 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
 16. decode_bench: the port's measure_decode and measure_engine_paged at
    the JAX bench's Mixtral shape (decode_bench.build), once each, their
    dicts printed;
-17. a summary of the Hopper kernels (registers, shared memory, time
+17. tune: the engine sweep (tune/sweep.run_sweep) for Llama's paged mode
+   at decode_bench.build("llama")'s shape, quick budgets, 8 slots, on the
+   card: each probe's tokens/s, the winner beside the default; the
+   manifest must validate, name this card as its device_kind and hold a
+   winner that passes check_parity on the card (run again here); read
+   back through STPU_TUNE_MANIFEST, resolve_kv_geometry must take the
+   winner's chunk, window and the manifest's tag, and a decode_bench
+   engine built beside it must keep "manifest": "default". Every other
+   phase runs with STPU_TUNE_MANIFEST=0;
+18. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
    the kernels line ({"kernels": [...]}, eighteen records: the nine at
    head_dim 128 and the nine at 256), then the last line
@@ -202,6 +224,7 @@ import gc
 import http.client
 import io
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -218,6 +241,12 @@ import torch
 
 # H100 SXM dense peaks: bf16 tensor cores and HBM3 (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
+# The MFU identity's denominator, by card name, written here from NVIDIA's
+# data sheets (dense bf16) and not read from trainstats.PEAK_FLOPS, the
+# table under test.
+DATASHEET_BF16_FLOPS = {"NVIDIA H100 80GB HBM3": PEAK_BF16_FLOPS,
+                        "NVIDIA H100 PCIe": 756e12,
+                        "NVIDIA H100 NVL": 835e12}
 PEAK_BYTES_PER_S = 3.35e12
 LN2 = 0.6931471805599453
 
@@ -365,6 +394,24 @@ AF_BATCH, AF_SEQ = 8, 2048
 # width and depth; run A's steps, B's, and B' resuming B to A's count.
 LORA_BATCH, LORA_SEQ = 8, 2048
 LORA_STEPS, LORA_SPLIT = 4, 2
+# Run A (and [gemma_lora], [gemma_long]) run with the training telemetry
+# armed (observability/trainstats), a timed synchronize after every step
+# so each step's dispatch / device split is read. The goodput fractions
+# are held to the ring's own records (each the component over the window,
+# rounded to 4 decimals): the module's own formula, so this is no
+# independent check of goodput. The fractions are not a partition: they
+# count the first step's input wait, which lies before the window (the
+# JAX package's rule, a fault of the reference that the port matches;
+# ROADMAP Queue 3), so their sum passes 1 by that share. What the ring
+# leaves out of the window (the loop's moments outside its timed spans,
+# the telemetry's own sinks among them) must stay under UNTRACKED_MAX.
+TRAINSTATS_SYNC_EVERY = 1
+UNTRACKED_MAX = 1e-2
+# The tune phase: the sweep of the port's engine constants for Llama's
+# paged mode at decode_bench.build("llama")'s shape (quick budgets, 8
+# slots), then the manifest it wrote read back through the engine's
+# geometry at TUNE_MAX_SEQ (wide enough that no window is clamped).
+TUNE_SLOTS, TUNE_MAX_SEQ = 8, 2048
 # The mixtral phase: Mixtral-8x7B widths; depth cut from 32 to 2 layers
 # (47 B parameters in bf16 do not fit one 80 GB card).
 MX_LAYERS, MX_BATCH, MX_SEQ, MX_STEPS = 2, 2, 2048, 6
@@ -1767,6 +1814,95 @@ def phase_adafactor(fa, llama, trainer):
           f"in turns)", flush=True)
 
 
+@contextlib.contextmanager
+def _trainstats_armed(out_dir):
+    """observability/trainstats armed and empty for the block, its files in
+    ``out_dir``, a timed synchronize after every step; disarmed after."""
+    from skypilot_tpu_torch.observability import trainstats
+    old = os.environ.get(trainstats.DIR_ENV)
+    os.environ[trainstats.DIR_ENV] = str(out_dir)
+    trainstats.arm(sync_every=TRAINSTATS_SYNC_EVERY)
+    trainstats.reset()
+    try:
+        yield trainstats
+    finally:
+        trainstats.disarm()
+        if old is None:
+            os.environ.pop(trainstats.DIR_ENV, None)
+        else:
+            os.environ[trainstats.DIR_ENV] = old
+
+
+def _train_readings(label, run, cfg, seq, card, out_dir):
+    """The recipe's train_* keys, held to trainstats' live gauges (the
+    same window, unrounded): MFU a number in (0, 1], equal to tokens/s x
+    flops_per_token(seq) / the card's peak within 1e-6; the ring's
+    tokens/s at least 0.95 x the recipe's wall-clock rate (the ring
+    leaves out the checkpoint waits after the loop); the goodput
+    fractions equal to the ring records' sums over its window, and the
+    window's untracked share under UNTRACKED_MAX; snapshot.json and the
+    host JSONL written. A card missing from the peak table fails here
+    (MFU None)."""
+    from skypilot_tpu_torch.observability import metrics, trainstats
+    snap = trainstats.snapshot()
+    name = torch.cuda.get_device_name(0)
+    peak = DATASHEET_BF16_FLOPS.get(name, 0.0)
+    fpt = cfg.flops_per_token(seq)
+    mfu = metrics.gauge("stpu_train_mfu").get()
+    tok_s = metrics.gauge("stpu_train_tokens_per_sec").get()
+    goodput = run.get("train_goodput") or {}
+    sync = snap.get("sync") or {}
+    recs = trainstats.steps_tail()
+    window = recs[-1]["mono"] - recs[0]["mono"] + recs[0]["dur"]
+    parts = {"productive": sum(r["dur"] for r in recs),
+             "data_wait": sum(r["data_wait_s"] for r in recs),
+             "ckpt": sum(r["ckpt_s"] for r in recs), "restart": 0.0}
+    first_wait = recs[0]["data_wait_s"] / window
+    untracked = 1 - sum(parts.values()) / window + first_wait
+    print(f"{label} trainstats ({card}): train_mfu {run.get('train_mfu')} "
+          f"(live {mfu:.6f}; peak {peak / 1e12:.0f} TFLOP/s for {name!r}, "
+          f"{fpt / 1e9:.3f} GFLOP a token: 6N + causal attention), "
+          f"train_tokens_per_sec {run.get('train_tokens_per_sec')} vs "
+          f"the recipe's wall {run['tokens_per_second']}, "
+          f"train_step_seconds {run.get('train_step_seconds')}, "
+          f"train_goodput {json.dumps(goodput)} (the first step's input "
+          f"wait {first_wait:.6f} of it, untracked {untracked:.6f}), "
+          f"dispatch "
+          f"{snap.get('dispatch_ms_mean')} ms vs device "
+          f"{sync.get('device_ms_mean')} ms a step over "
+          f"{sync.get('samples')} synced steps", flush=True)
+    check(peak > 0, f"{name!r} has no data-sheet peak in chip_smoke.py")
+    check(trainstats.PEAK_FLOPS.get(name) == peak,
+          f"trainstats.PEAK_FLOPS[{name!r}] is "
+          f"{trainstats.PEAK_FLOPS.get(name)}, the data sheet's {peak}")
+    check(isinstance(run.get("train_mfu"), float)
+          and 0 < run["train_mfu"] <= 1,
+          f"train_mfu {run.get('train_mfu')} is not a number in (0, 1]")
+    check(abs(mfu - tok_s * fpt / peak) <= 1e-6 * mfu,
+          f"live MFU {mfu} != {tok_s} tokens/s x {fpt} / {peak}")
+    check(run["train_mfu"] == round(mfu, 4)
+          and run["train_tokens_per_sec"] == round(tok_s, 1),
+          "the recipe's train_* keys are not the live gauges")
+    check(run["train_tokens_per_sec"] >= 0.95 * run["tokens_per_second"],
+          "the ring's tokens/s is below 0.95x the recipe's wall rate")
+    check(goodput == {k: round(min(v / window, 1.0), 4)
+                      for k, v in parts.items()},
+          f"goodput {goodput} is not the ring's {parts} over {window} s")
+    check(-1e-9 <= untracked <= UNTRACKED_MAX,
+          f"the loop's untracked share {untracked:.6f} of the window")
+    check(sync.get("samples") == snap["steps"],
+          f"{sync.get('samples')} synced steps of {snap['steps']}")
+    for f in ("snapshot.json", "host-0.jsonl"):
+        check((pathlib.Path(out_dir) / f).is_file(), f"no trainstats {f}")
+
+
+def _ckpt_outcomes(checkpoint):
+    return {(kind, outcome): fam.labels(outcome=outcome).get()
+            for kind, fam in (("saves", checkpoint._SAVES),
+                              ("restores", checkpoint._RESTORES))
+            for outcome in ("ok", "none", "error")}
+
+
 def _lora_run(llama_lora, argv):
     """The recipe's main() with its stdout kept: its metrics line."""
     out = io.StringIO()
@@ -1775,7 +1911,7 @@ def _lora_run(llama_lora, argv):
     return metrics
 
 
-def phase_lora(fa, llama, trainer):
+def phase_lora(fa, llama, trainer, card):
     from skypilot_tpu_torch.recipes import llama_lora
     from skypilot_tpu_torch.train import checkpoint
     cfg = llama.LlamaConfig.llama3_8b()
@@ -1790,12 +1926,17 @@ def phase_lora(fa, llama, trainer):
     sigterm = signal.getsignal(signal.SIGTERM)  # the recipe installs its own
     with tempfile.TemporaryDirectory(prefix="stpu-lora-") as tmp:
         dir_a, dir_b = f"{tmp}/a", f"{tmp}/b"
+        stats_dir = f"{tmp}/trainstats"
+        ckpt0 = _ckpt_outcomes(checkpoint)
         try:
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launches()
             argv_a = common + ["--steps", str(LORA_STEPS),
                                "--checkpoint-dir", dir_a]
-            run_a = _lora_run(llama_lora, argv_a)
+            with _trainstats_armed(stats_dir):
+                run_a = _lora_run(llama_lora, argv_a)
+                _train_readings("[lora] A", run_a, cfg, LORA_SEQ, card,
+                                stats_dir)
             run_b = _lora_run(llama_lora, common + [
                 "--steps", str(LORA_SPLIT), "--checkpoint-dir", dir_b])
             run_b2 = _lora_run(llama_lora, common + [
@@ -1807,6 +1948,15 @@ def phase_lora(fa, llama, trainer):
         for name, run in (("A", run_a), ("B", run_b), ("B'", run_b2)):
             print(f"[lora] {name}: {json.dumps(run)}", flush=True)
         print(f"[lora] launches {launches}", flush=True)
+        # A saves at steps 2 and 4, B at 2, B' at 4 (after its restore);
+        # A and B find nothing to restore.
+        ckpt = {k: v - ckpt0[k] for k, v in _ckpt_outcomes(
+            checkpoint).items()}
+        print(f"[lora] stpu_ckpt_* over A, B, B': {ckpt}", flush=True)
+        want = {("saves", "ok"): 4, ("saves", "none"): 0,
+                ("saves", "error"): 0, ("restores", "ok"): 1,
+                ("restores", "none"): 2, ("restores", "error"): 0}
+        check(ckpt == want, f"checkpoint outcomes {ckpt} != {want}")
         check(_finite([run_a["first_loss"], run_a["final_loss"]]),
               "non-finite loss")
         check(run_b2["resumed_from"] == LORA_SPLIT,
@@ -2578,7 +2728,7 @@ def phase_serve(fa, llama, card, dev="cuda"):
 
 
 def _gemma_recipe(fa, trainer, records, label, fam, names, seq, batches,
-                  steps, dev):
+                  steps, card, dev):
     """The Gemma LoRA recipe (recipes.gemma_lora.main) at Gemma-2B full
     width and depth, seq `seq`, `steps` steps with a save at the last, at
     the largest batch of `batches` that fits: launches exactly 2L/L/L of
@@ -2610,8 +2760,11 @@ def _gemma_recipe(fa, trainer, records, label, fam, names, seq, batches,
             try:
                 torch.cuda.reset_peak_memory_stats()
                 fa.reset_launches()
-                run = _lora_run(gemma_lora, argv + ["--checkpoint-dir", ckpt,
-                                                    "--device", dev])
+                with _trainstats_armed(f"{ckpt}-trainstats"):
+                    run = _lora_run(gemma_lora, argv + [
+                        "--checkpoint-dir", ckpt, "--device", dev])
+                    _train_readings(label, run, cfg, seq, card,
+                                    f"{ckpt}-trainstats")
                 break
             except torch.cuda.OutOfMemoryError as exc:
                 print(f"{label} batch {batch} x {seq} does not fit the "
@@ -2659,19 +2812,20 @@ def _gemma_recipe(fa, trainer, records, label, fam, names, seq, batches,
     _kernel_vs_reference(label, gemma.forward, cfg, params, tokens, trainer)
 
 
-def phase_gemma_lora(fa, trainer, records, dev="cuda"):
+def phase_gemma_lora(fa, trainer, records, card, dev="cuda"):
     """[gemma_lora]: the recipe at examples/gemma_lora.yaml's seq 2048,
     where every attention call takes the width-256 resident kernels."""
     _gemma_recipe(fa, trainer, records, "[gemma_lora]", fa.RESIDENT,
-                  RESIDENT_NAMES, GL_SEQ, GL_BATCHES, GL_STEPS, dev)
+                  RESIDENT_NAMES, GL_SEQ, GL_BATCHES, GL_STEPS, card, dev)
 
 
-def phase_gemma_long(fa, trainer, records, dev="cuda"):
+def phase_gemma_long(fa, trainer, records, card, dev="cuda"):
     """[gemma_long]: the recipe at Gemma-2B's own context (max_seq_len
     8192), where every attention call takes the width-256 triangular
     kernels."""
     _gemma_recipe(fa, trainer, records, "[gemma_long]", fa.TRIANGULAR,
-                  TRI_NAMES, GLONG_SEQ, GLONG_BATCHES, GLONG_STEPS, dev)
+                  TRI_NAMES, GLONG_SEQ, GLONG_BATCHES, GLONG_STEPS, card,
+                  dev)
 
 
 def _gemma_exactness(decode_engine, prng, dev):
@@ -3106,6 +3260,75 @@ def phase_decode_bench(card, dev="cuda"):
     print(f"[decode_bench] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def phase_tune(card, dev="cuda"):
+    """[tune]: the port's engine sweep (tune/sweep.py) for Llama's paged
+    mode at decode_bench.build("llama")'s shape, quick budgets, on the
+    card: every probe's tokens/s, the winner beside the default. The
+    manifest it writes must validate, name this card as its device, hold
+    a winner that passes the parity gate on the card; read back through
+    STPU_TUNE_MANIFEST, the engine's geometry takes the winner's chunk and
+    window and the manifest's tag, while a decode_bench engine built
+    beside it keeps the default constants."""
+    from skypilot_tpu_torch.benchmark import decode_bench
+    from skypilot_tpu_torch.serve import decode_engine
+    from skypilot_tpu_torch.tune import manifest, parity, sweep
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    key = manifest.tuning_key("llama", TUNE_SLOTS)
+    with tempfile.TemporaryDirectory(prefix="stpu-tune-") as tmp:
+        out = pathlib.Path(tmp) / "manifest.json"
+        doc = sweep.run_sweep(
+            families=("llama",), modes=("paged",), quick=True,
+            slots=TUNE_SLOTS, out_path=out, device=dev,
+            log=lambda line: print(f"[tune] {line}", flush=True))
+        sweep_s = time.perf_counter() - t0
+        with open(out) as f:
+            payload = manifest.validate(json.load(f))
+        prov = payload["provenance"]
+        entry = payload["entries"].get(key)
+        print(f"[tune] manifest {doc['sha256'][:12]} ({card}): "
+              f"{json.dumps(payload)}", flush=True)
+        check(prov["device_kind"] == torch.cuda.get_device_name(0),
+              f"manifest device_kind {prov['device_kind']!r}")
+        check(entry is not None and entry["parity"] == "pass",
+              f"no parity-gated winner for {key}")
+        objective = entry["objective"][sweep._LEG_KEY["paged"]]
+        print(f"[tune] winner chunk {entry['chunk']} window_blocks "
+              f"{entry['window_blocks']}: {objective['tok_s']} tokens/s vs "
+              f"the default's {objective['default_tok_s']} "
+              f"({sweep.DEFAULTS['paged']}) ({card})", flush=True)
+        parity.check_parity("llama", chunk=entry["chunk"],
+                            window_blocks=entry["window_blocks"],
+                            paged=True, device=dev)
+        os.environ[manifest.ENV_MANIFEST] = str(out)
+        try:
+            geo = decode_engine.resolve_kv_geometry(
+                slots=TUNE_SLOTS, max_seq=TUNE_MAX_SEQ, paged=True,
+                family="llama")
+            mdl, cfg = decode_bench.build("llama", tiny=True)
+            params = mdl.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+            bench = decode_bench._engine(cfg, params, torch.device(dev),
+                                         slots=TUNE_SLOTS, max_seq=256,
+                                         paged=True)
+            bench_kv = bench.kv_config()
+            decode_bench._close(bench)
+        finally:
+            os.environ[manifest.ENV_MANIFEST] = "0"
+    print(f"[tune] engine geometry from the manifest: {json.dumps(geo)}; "
+          f"a decode_bench engine beside it: manifest "
+          f"{bench_kv['manifest']!r}, chunk {bench_kv['chunk']}", flush=True)
+    window = min(entry["window_blocks"] * entry["chunk"],
+                 TUNE_MAX_SEQ // entry["chunk"] * entry["chunk"])
+    check((geo["chunk"], geo["window"], geo["manifest"]) ==
+          (entry["chunk"], window, doc["sha256"][:12]),
+          "the engine did not take the manifest's constants")
+    check(bench_kv["manifest"] == "default",
+          "a decode_bench engine read the manifest")
+    print(f"[tune] {time.perf_counter() - t0:.1f} s (sweep {sweep_s:.1f} s)",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -3116,6 +3339,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(repo))
+    # Engines run the default constants unless a phase points this at the
+    # manifest it wrote ([tune]): no ambient tuning manifest.
+    os.environ["STPU_TUNE_MANIFEST"] = "0"
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import attention as attention_ops
@@ -3145,19 +3371,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_adafactor(fa, llama, trainer)
         torch.cuda.empty_cache()
-        phase_lora(fa, llama, trainer)
+        phase_lora(fa, llama, trainer, card)
         torch.cuda.empty_cache()
         phase_mixtral(fa, llama, trainer)
         torch.cuda.empty_cache()
-        phase_gemma_lora(fa, trainer, records)
+        phase_gemma_lora(fa, trainer, records, card)
         torch.cuda.empty_cache()
-        phase_gemma_long(fa, trainer, records)
+        phase_gemma_long(fa, trainer, records, card)
         torch.cuda.empty_cache()
         phase_serve(fa, llama, card)
         torch.cuda.empty_cache()
         phase_gemma_serve(fa, card)
         phase_mixtral_serve(fa, card)
         phase_decode_bench(card)
+        phase_tune(card)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -27,9 +27,11 @@ Each returns the JAX function's dict and takes ``device`` (the card by
 default; ``"cpu"`` on request, with ``tiny=True`` for plumbing runs). The
 JAX package compiles and donates; the port runs eagerly, so JAX's "compile
 + warm" run is a warm-up run here, and ``torch.cuda.synchronize`` brackets
-every timed span. The port's engine has no tuning manifest, so JAX's
-``use_manifest=False`` arguments are gone. Not ported yet: the gang and
-tensor-parallel mode (``measure_engine_tp``) and the load-generator modes
+every timed span. Every engine here is built with ``use_manifest=False``,
+as in the JAX bench: a leg measures its explicit constants (the tuning
+sweep's candidates among them), and an ambient tuning manifest never
+leaks into a measurement. Not ported yet: the gang and tensor-parallel
+mode (``measure_engine_tp``) and the load-generator modes
 (``measure_engine_slo``, ``measure_engine_chaos``).
 
     python -m skypilot_tpu_torch.benchmark.decode_bench --family mixtral \\
@@ -122,8 +124,11 @@ def _ragged_specs(cfg, n_requests: int, max_prompt: int, max_tokens: int):
 
 
 def _engine(cfg, params, device, **kw):
+    """A started, warmed engine at exactly ``kw``'s constants: the
+    tuning manifest is never read (``use_manifest=False``)."""
     from skypilot_tpu_torch.serve.decode_engine import DecodeEngine
-    engine = DecodeEngine(cfg, params, device=device, **kw)
+    engine = DecodeEngine(cfg, params, device=device, use_manifest=False,
+                          **kw)
     engine.start()
     engine.warmup()
     return engine

@@ -15,10 +15,15 @@ position. On SIGTERM the loop finishes its step, saves, and exits 143.
 
 Without ``--device`` it runs on the card, and raises when there is none.
 
+Armed (``STPU_TRAINSTATS=1``, or ``trainstats.arm()`` in-process), the
+loop records every step in ``observability/trainstats`` where the JAX
+recipe does, and the metrics line carries its ``train_mfu``,
+``train_goodput``, ``train_step_seconds`` and ``train_tokens_per_sec``;
+MFU is None on the CPU and on a card missing from the peak table.
+
 Beside the JAX recipe: the optimizer is ``torch.optim.AdamW`` at optax
 ``adamw(lr)``'s defaults (its weight decay 1e-4 passed explicitly; torch's
-default is 1e-2); the RNG leaf is a torch generator's state; the
-``train_*`` keys of the JAX package's trainstats are not reported; and
+default is 1e-2); the RNG leaf is a torch generator's state; and
 multi-node runs (``SKYPILOT_NUM_NODES`` > 1) raise, the port having no
 ``torch.distributed`` set-up yet.
 """
@@ -36,6 +41,7 @@ from torch import nn
 
 from skypilot_tpu_torch import callbacks, resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import trainstats
 from skypilot_tpu_torch.recipes import synthetic_data
 from skypilot_tpu_torch.train import checkpoint as checkpoint_lib
 from skypilot_tpu_torch.train import trainer
@@ -260,6 +266,7 @@ def train_batches(cfg, args, steps: int, skip: int = 0, rank: int = 0):
 
 def run_lora(model_lib, cfg, args, recipe_name: str) -> dict:
     """LoRA finetune loop, generic over the dense model families."""
+    setup_t0 = time.perf_counter()
     rank = _node_rank()
     device = resolve_device(args.device)
     if args.seq_len > cfg.max_seq_len:
@@ -303,46 +310,88 @@ def run_lora(model_lib, cfg, args, recipe_name: str) -> dict:
 
     step_fn = make_step_fn(model_lib, cfg, params, lora, opt)
     grace = checkpoint_lib.GraceHandler.install()
+    if trainstats.ENABLED:
+        trainstats.configure(
+            # 6N over every parameter matmul plus causal attention: the
+            # JAX package's convention, kept for LoRA, whose backward
+            # skips the frozen weights' gradients (2N of the 6N).
+            flops_per_token=cfg.flops_per_token(args.seq_len),
+            peak_flops=trainstats.detect_peak_flops(device),
+            host=rank, hosts=1, job=recipe_name)
+        if start_step:
+            # A resumed run's setup wall (restore + re-init) is restart
+            # downtime in the goodput breakdown.
+            trainstats.note_downtime(time.perf_counter() - setup_t0)
     t0 = time.time()
     losses = []
     # One-step-delayed loss fetch: each iteration reads the previous
     # step's loss, so logging never waits on the step just launched.
     delayed = trainer.DelayedFetch()
-    with callbacks.device_profile():
-        for i, (tokens,) in enumerate(train_batches(
-                cfg, args, args.steps - start_step, skip=data_start,
-                rank=rank)):
-            step = start_step + i + 1
-            loss = step_fn(torch.from_numpy(tokens).long().to(device))
-            prev = delayed.rotate(loss)
-            if prev is not None:
-                losses.append(float(prev))
-            # Chaos seam: a deterministic mid-run crash or preemption
-            # (STPU_FAULTS="train.step:kill:skip=K").
-            if fault_injection.ENABLED:
-                fault_injection.fire("train.step", step=step)
-            # Read once: a SIGTERM between the save test and the exit
-            # test must not skip the grace save.
-            preempting = grace.triggered
-            if saver is not None and (step % args.ckpt_every == 0
-                                      or step == args.steps
-                                      or preempting):
-                saver.save(step, _state_tree(step))
-            if preempting:
-                if saver is not None:
-                    saver.wait()  # the grace save must be durable
-                print(json.dumps({
-                    "recipe": recipe_name, "preempted": True,
-                    "resumed_from": start_step, "stopped_at": step,
-                    "last_ckpt_step": (saver.last_saved_step
-                                       if saver is not None else None),
-                }), flush=True)
-                raise SystemExit(
-                    checkpoint_lib.GraceHandler.GRACE_EXIT_CODE)
-        # The last fetch logs the final loss and waits for its step.
-        final = delayed.drain()
-        if final is not None:
-            losses.append(float(final))
+    tokens_per_step = args.batch_size * args.seq_len
+    try:
+        with callbacks.device_profile():
+            mark = time.perf_counter()
+            for i, (tokens,) in enumerate(train_batches(
+                    cfg, args, args.steps - start_step, skip=data_start,
+                    rank=rank)):
+                data_wait = time.perf_counter() - mark
+                step = start_step + i + 1
+                step_t0 = time.perf_counter()
+                loss = step_fn(torch.from_numpy(tokens).long().to(device))
+                dispatch_s = time.perf_counter() - step_t0
+                fetched = None
+                prev = delayed.rotate(loss)
+                if prev is not None:
+                    fetched = float(prev)
+                    losses.append(fetched)
+                device_s = None
+                if trainstats.ENABLED and trainstats.sync_due():
+                    device_s = trainstats.sampled_sync(loss)
+                dur = time.perf_counter() - step_t0
+                # Chaos seam: a deterministic mid-run crash or
+                # preemption (STPU_FAULTS="train.step:kill:skip=K").
+                if fault_injection.ENABLED:
+                    fault_injection.fire("train.step", step=step)
+                # Read once: a SIGTERM between the save test and the
+                # exit test must not skip the grace save.
+                preempting = grace.triggered
+                ckpt_s = 0.0
+                if saver is not None and (step % args.ckpt_every == 0
+                                          or step == args.steps
+                                          or preempting):
+                    ckpt_t0 = time.perf_counter()
+                    saver.save(step, _state_tree(step))
+                    ckpt_s = time.perf_counter() - ckpt_t0
+                if trainstats.ENABLED:
+                    trainstats.record_step(
+                        step=step, dur=dur, tokens=tokens_per_step,
+                        data_wait_s=data_wait, ckpt_s=ckpt_s,
+                        dispatch_s=dispatch_s, device_s=device_s,
+                        delayed=({"loss": fetched}
+                                 if fetched is not None else None))
+                if preempting:
+                    if saver is not None:
+                        saver.wait()  # the grace save must be durable
+                    if trainstats.ENABLED:
+                        trainstats.dump_flight("sigterm")
+                    print(json.dumps({
+                        "recipe": recipe_name, "preempted": True,
+                        "resumed_from": start_step, "stopped_at": step,
+                        "last_ckpt_step": (saver.last_saved_step
+                                           if saver is not None
+                                           else None),
+                    }), flush=True)
+                    raise SystemExit(
+                        checkpoint_lib.GraceHandler.GRACE_EXIT_CODE)
+                mark = time.perf_counter()
+            # The last fetch logs the final loss and waits for its step.
+            final = delayed.drain()
+            if final is not None:
+                losses.append(float(final))
+    except (Exception, KeyboardInterrupt) as e:
+        if trainstats.ENABLED:
+            trainstats.dump_flight("train_crash", error=repr(e))
+        raise
     if saver is not None:
         saver.wait()
 
@@ -363,6 +412,13 @@ def run_lora(model_lib, cfg, args, recipe_name: str) -> dict:
         "tokens_per_second": round(tokens_seen / wall, 1) if wall else 0,
         "wall_seconds": round(wall, 2),
     }
+    if trainstats.ENABLED:
+        snap = trainstats.snapshot()
+        metrics["train_mfu"] = snap["mfu"]
+        metrics["train_goodput"] = snap["goodput"]
+        metrics["train_step_seconds"] = snap["step_seconds_mean"]
+        metrics["train_tokens_per_sec"] = snap["tokens_per_sec"]
+        trainstats.flush()
     print(json.dumps(metrics), flush=True)
     return metrics
 

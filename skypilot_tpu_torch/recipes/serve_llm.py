@@ -319,8 +319,8 @@ class _Handler(BaseHTTPRequestHandler):
                     "pool_blocks": int(kv.get("pool_blocks", 0)),
                 }
                 # Tuning line for `stpu perf`: the constants this
-                # replica decodes with; the port has no tuning manifest,
-                # so "manifest" is always "default".
+                # replica decodes with and which manifest supplied them
+                # (its sha tag, or "default").
                 doc["tuning"] = {
                     "block": int(kv.get("block", 0)),
                     "chunk": int(kv.get("chunk", 0)),

@@ -120,7 +120,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device, to_device
-from skypilot_tpu_torch.models import model_api
+from skypilot_tpu_torch.models import family_name, model_api
 from skypilot_tpu_torch.observability import events
 from skypilot_tpu_torch.observability import metrics
 from skypilot_tpu_torch.observability import reqlog
@@ -545,7 +545,8 @@ def resolve_kv_geometry(*, slots: int, max_seq: int,
                         spec_k: int = 0, spec_ngram: int = 3,
                         spec_min_accept: float = 0.0,
                         block: int = 0, window_blocks: int = 0,
-                        host_cache_mb: float = 0.0) -> Dict[str, Any]:
+                        host_cache_mb: float = 0.0,
+                        family: Optional[str] = None) -> Dict[str, Any]:
     """EFFECTIVE KV-cache geometry for an engine config — the single
     derivation DecodeEngine.__init__ and kv_config() share, so
     auto-sized values (pool blocks, shrunk chunk, attention window,
@@ -554,15 +555,38 @@ def resolve_kv_geometry(*, slots: int, max_seq: int,
     along (kv_quant halves bytes per block, so the AUTO pool sizing
     doubles).
 
-    The port has no tuning manifest, so the dict always carries
-    ``"manifest": "default"`` and the untuned constants — what the JAX
-    package returns when no manifest file exists."""
+    Tuned constants (``tune/``): when ``family`` is given, the
+    sha-pinned tuning manifest is consulted for the key ``(family,
+    batch-band(slots), tp=1, quant-mode)`` and supplies ``block``
+    (split-KV attention tile),
+    ``chunk``, ``window_blocks`` (paged gather window, in blocks) and
+    ``spec_k`` — but ONLY for knobs the caller left at their 0
+    sentinel: explicit arguments (CLI flags, sweep candidates) always
+    win, and ``STPU_TUNE_MANIFEST=0`` disables the lookup outright. The
+    manifest tag (payload-sha prefix, or "default") rides the output
+    dict, as in the JAX package. The key's ``tp`` is always 1: the
+    port has no mesh."""
     max_seq = int(max_seq)
     if kv_quant and not paged:
         raise ValueError(
             "kv_quant requires paged=True — int8 KV lives in the "
             "paged block pool (the dense row cache has no scales "
             "array and was retired as a prefix-cache representation)")
+    manifest_tag = "default"
+    if family:
+        from skypilot_tpu_torch.tune import manifest as tune_manifest
+        entry, manifest_tag = tune_manifest.entry_for(
+            family=family, slots=int(slots), tp=1,
+            kv_quant=bool(kv_quant), weight_quant=bool(weight_quant))
+        if entry is not None:
+            if not block:
+                block = int(entry.get("block", 0))
+            if not prefill_chunk and not kv_block_tokens:
+                prefill_chunk = int(entry.get("chunk", 0))
+            if not window_blocks:
+                window_blocks = int(entry.get("window_blocks", 0))
+            if not spec_k:
+                spec_k = int(entry.get("spec_k", 0))
     if paged and kv_block_tokens:
         prefill_chunk = int(kv_block_tokens)
     if not prefill_chunk:
@@ -578,7 +602,7 @@ def resolve_kv_geometry(*, slots: int, max_seq: int,
     out: Dict[str, Any] = {
         "paged": int(bool(paged)), "slots": int(slots),
         "max_seq": max_seq, "chunk": chunk,
-        "block": block_eff, "manifest": "default",
+        "block": block_eff, "manifest": manifest_tag,
         "kv_quant": int(bool(kv_quant)),
         "weight_quant": int(bool(weight_quant)),
         "spec_k": int(spec_k), "spec_ngram": int(spec_ngram),
@@ -632,7 +656,8 @@ class DecodeEngine:
                  kv_quant: bool = False, weight_quant: bool = False,
                  spec_k: int = 0, spec_ngram: int = 3,
                  spec_min_accept: float = 0.0, block: int = 0,
-                 window_blocks: int = 0, device: DeviceLike = None):
+                 window_blocks: int = 0, use_manifest: bool = True,
+                 device: DeviceLike = None):
         # prefix_cache_mb is the HOST-TIER byte budget (MiB) for the
         # paged pool's trie: evicted prefix blocks spill D2H into a
         # bounded host pool and re-admit H2D on a warm match. 0 turns
@@ -696,11 +721,16 @@ class DecodeEngine:
             spec_ngram=self._spec_ngram,
             spec_min_accept=self._spec_min_accept,
             block=block, window_blocks=window_blocks,
-            host_cache_mb=(host_mb if self._paged else 0.0))
+            host_cache_mb=(host_mb if self._paged else 0.0),
+            family=family_name(cfg) if use_manifest else None)
         self._kv_geometry = geo
         chunk = geo["chunk"]
         self._chunk = chunk
+        # Tuned constants may enable drafting / resize the tile even
+        # when the caller passed the 0 sentinel — read the EFFECTIVE
+        # values back from the geometry.
         self._block = geo["block"]
+        self._spec_k = geo["spec_k"]
         self._max_queue = int(max_queue)
         self.prefix_cache: Optional[Any] = None
         # Host-RAM spill tier state (paged + host_mb > 0 only, but the

@@ -31,8 +31,12 @@ bytes: bfloat16 is written as its 16 bits under the dtype name
 read back as ``torch.bfloat16``. Restored leaves are CPU tensors (a 0-d
 one for a scalar).
 
-Left out beside the JAX module: its metrics and tracing spans (the port
-has no observability modules yet).
+Observability, as in the JAX module: ``stpu_ckpt_save_seconds`` /
+``stpu_ckpt_restore_seconds`` histograms, ``stpu_ckpt_last_step`` gauge,
+per-outcome counters, ``stpu_ckpt_restore_skipped_total``, a ``skip_torn``
+event per skipped checkpoint, and ``ckpt.save`` / ``ckpt.restore`` tracing
+spans. An async save records its span and metrics on the writer thread,
+around the write, where the JAX module's background ``save`` does.
 """
 from __future__ import annotations
 
@@ -50,6 +54,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.observability import events
+from skypilot_tpu_torch.observability import metrics
+from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.utils import fault_injection
 
 # Env var the jobs controller stamps into every managed task pointing at
@@ -63,6 +70,25 @@ _MANIFEST_FMT = "ckpt-{step:08d}.json"
 _MANIFEST_RE = re.compile(r"^ckpt-(\d{8})\.json$")
 DEFAULT_KEEP = 3
 BFLOAT16 = "bfloat16"
+
+_SAVE_SECONDS = metrics.histogram(
+    "stpu_ckpt_save_seconds",
+    "Wall time of one checkpoint save (D2H + serialize + fsync).",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120))
+_RESTORE_SECONDS = metrics.histogram(
+    "stpu_ckpt_restore_seconds",
+    "Wall time of one checkpoint restore (read + verify + unflatten).",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120))
+_SAVES = metrics.counter(
+    "stpu_ckpt_saves_total", "Checkpoint save attempts.", ("outcome",))
+_RESTORES = metrics.counter(
+    "stpu_ckpt_restores_total", "Checkpoint restore attempts.",
+    ("outcome",))
+_SKIPPED = metrics.counter(
+    "stpu_ckpt_restore_skipped_total",
+    "Checkpoints skipped by restore_latest as torn/corrupt.")
+_LAST_STEP = metrics.gauge(
+    "stpu_ckpt_last_step", "Step of the newest durable checkpoint.")
 
 
 class CheckpointError(Exception):
@@ -227,15 +253,28 @@ def save(ckpt_dir: os.PathLike, step: int, tree: Any,
     ``meta`` is stored in the manifest, never in the payload."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    if not isinstance(tree, _FlatLeaves):
-        tree = _FlatLeaves((key, _to_host(leaf))
-                           for key, leaf in flatten_tree(tree))
-    return _save_locked(ckpt_dir, int(step), tree, meta, keep)
+    t0 = time.perf_counter()
+    with tracing.start_span("ckpt.save", kind="ckpt",
+                            attrs={"step": int(step),
+                                   "dir": str(ckpt_dir)}) as span:
+        try:
+            if not isinstance(tree, _FlatLeaves):
+                tree = _FlatLeaves((key, _to_host(leaf))
+                                   for key, leaf in flatten_tree(tree))
+            path = _save_locked(ckpt_dir, int(step), tree, meta, keep,
+                                span)
+        except BaseException:
+            _SAVES.labels(outcome="error").inc()
+            raise
+    _SAVES.labels(outcome="ok").inc()
+    _SAVE_SECONDS.observe(time.perf_counter() - t0)
+    _LAST_STEP.set(int(step))
+    return path
 
 
 def _save_locked(ckpt_dir: pathlib.Path, step: int, leaves: _FlatLeaves,
                  meta: Optional[Dict[str, Any]],
-                 keep: Optional[int]) -> pathlib.Path:
+                 keep: Optional[int], span) -> pathlib.Path:
     entries: List[Dict[str, Any]] = []
     offset = 0
     payload = ckpt_dir / _PAYLOAD_FMT.format(step=step)
@@ -288,6 +327,7 @@ def _save_locked(ckpt_dir: pathlib.Path, step: int, leaves: _FlatLeaves,
         "meta": meta or {},
     }
     atomic_write_bytes(manifest, json.dumps(doc).encode())
+    span.set_attr("bytes", offset)
     if keep is not None:
         gc(ckpt_dir, keep=keep)
     return manifest
@@ -382,16 +422,27 @@ def restore_latest(ckpt_dir: os.PathLike,
     None when no valid one exists. With ``like`` the tree mirrors the
     template's structure, else it is the flat {key: tensor} mapping."""
     ckpt_dir = pathlib.Path(ckpt_dir)
-    for step in reversed(steps(ckpt_dir)):
-        try:
-            result = _load_one(ckpt_dir, step)
-        except (OSError, ValueError, KeyError, json.JSONDecodeError,
-                CheckpointError):
-            continue
-        if like is not None:
-            result = dataclasses.replace(
-                result, tree=unflatten_like(like, result.tree))
-        return result
+    t0 = time.perf_counter()
+    with tracing.start_span("ckpt.restore", kind="ckpt",
+                            attrs={"dir": str(ckpt_dir)}) as span:
+        for step in reversed(steps(ckpt_dir)):
+            try:
+                result = _load_one(ckpt_dir, step)
+            except (OSError, ValueError, KeyError, json.JSONDecodeError,
+                    CheckpointError) as e:
+                _SKIPPED.inc()
+                span.event("skipped", step=step, reason=str(e)[:200])
+                events.emit("ckpt", str(ckpt_dir), "skip_torn",
+                            step=step, reason=str(e)[:200])
+                continue
+            if like is not None:
+                result = dataclasses.replace(
+                    result, tree=unflatten_like(like, result.tree))
+            span.set_attr("step", step)
+            _RESTORES.labels(outcome="ok").inc()
+            _RESTORE_SECONDS.observe(time.perf_counter() - t0)
+            return result
+    _RESTORES.labels(outcome="none").inc()
     return None
 
 

@@ -16,6 +16,11 @@ port's LoRA recipe's resume, on the CPU.
   resumes from step 4 to the same payload and final loss. Its state tree
   has the JAX recipe's keys, shapes and dtypes (the RNG leaf aside).
 * SIGTERM: the grace handler's flag, and the recipe's save-then-exit-143.
+* Telemetry: save, restore, a torn and a corrupt checkpoint, a save that
+  fails and a restore that finds nothing move the ``stpu_ckpt_*`` metrics
+  by the same deltas as the JAX module's, write the same ``ckpt.save`` /
+  ``ckpt.restore`` spans (names, statuses, attributes, events) and the
+  same ``skip_torn`` events; an async save records them on its writer.
 """
 import json
 import os
@@ -280,3 +285,96 @@ def test_device_profile_writes_a_trace(tmp_path, monkeypatch):
     with callbacks.device_profile():  # unarmed: writes nothing
         torch.ones(8).sum()
     assert list(tmp_path.glob("trace-*.json")) == traces
+
+
+# ------------------------------------------------------------ telemetry
+def _ckpt_counts(mod):
+    """Every stpu_ckpt_* series this module moves."""
+    return {"saves_ok": mod._SAVES.labels(outcome="ok").get(),
+            "saves_error": mod._SAVES.labels(outcome="error").get(),
+            "restores_ok": mod._RESTORES.labels(outcome="ok").get(),
+            "restores_none": mod._RESTORES.labels(outcome="none").get(),
+            "skipped": mod._SKIPPED.get(),
+            "save_seconds": mod._SAVE_SECONDS.labels().snapshot()[2],
+            "restore_seconds": mod._RESTORE_SECONDS.labels().snapshot()[2]}
+
+
+def _telemetry_script(mod, fault, root):
+    """save 1, 2, 3; restore; corrupt 3 and tear 2; restore; a save the
+    ckpt.write seam fails; a restore of an empty directory. Returns the
+    metric deltas, the last-step gauge, the spans and the ckpt events,
+    directories relative to ``root``."""
+    tree = {"w": np.arange(12, dtype=np.float32).reshape(3, 4),
+            "step": np.int64(7)}
+    before = _ckpt_counts(mod)
+    run = root / "run"
+    for step in (1, 2, 3):
+        mod.save(run, step, tree)
+    assert mod.restore_latest(run).step == 3
+    payload = run / "ckpt-00000003.bin"
+    data = bytearray(payload.read_bytes())
+    data[0] ^= 0xFF
+    payload.write_bytes(bytes(data))
+    (run / "ckpt-00000002.bin").write_bytes(b"torn")
+    assert mod.restore_latest(run).step == 1
+    fault.configure("ckpt.write:raise")
+    try:
+        with pytest.raises(fault.InjectedFault):
+            mod.save(run, 4, tree)
+    finally:
+        fault.clear()
+    assert mod.restore_latest(root / "empty") is None
+    after = _ckpt_counts(mod)
+    logs = root / ".stpu" / "logs"
+
+    def lines(name):
+        text = (logs / name).read_text().replace(str(root), "<root>")
+        return [json.loads(line) for line in text.splitlines()]
+
+    spans = [{"name": r["name"], "kind": r["kind"], "status": r["status"],
+              "attrs": r["attrs"],
+              "events": [{k: v for k, v in e.items() if k != "at"}
+                         for e in r["events"]]}
+             for r in lines("traces.jsonl")]
+    events = [{k: r[k] for k in ("kind", "name", "event", "step", "reason")}
+              for r in lines("events.jsonl") if r["kind"] == "ckpt"]
+    return ({k: after[k] - before[k] for k in after},
+            mod._LAST_STEP.get(), spans, events)
+
+
+def test_ckpt_telemetry_matches_jax(tmp_path, monkeypatch):
+    from skypilot_tpu.observability import tracing as tracing_jax
+    from skypilot_tpu.utils import fault_injection as fi_jax
+    from skypilot_tpu.utils import paths as paths_jax
+    from skypilot_tpu_torch.observability import tracing
+    got = {}
+    for name, mod, fault, trace in (("port", ck, fi, tracing),
+                                    ("jax", ck_jax, fi_jax, tracing_jax)):
+        root = tmp_path / name
+        monkeypatch.setenv("STPU_HOME", str(root / ".stpu"))
+        paths_jax.reset_for_tests()
+        trace.arm(sample=1.0)
+        try:
+            got[name] = _telemetry_script(mod, fault, root)
+        finally:
+            trace.disarm()
+    paths_jax.reset_for_tests()
+    assert got["port"] == got["jax"]
+    deltas, last_step, spans, events = got["port"]
+    assert deltas == {"saves_ok": 3, "saves_error": 1, "restores_ok": 2,
+                      "restores_none": 1, "skipped": 2, "save_seconds": 3,
+                      "restore_seconds": 2}
+    assert last_step == 3
+    assert [(s["name"], s["status"]) for s in spans] == (
+        [("ckpt.save", "ok")] * 3 + [("ckpt.restore", "ok")] * 2 +
+        [("ckpt.save", "error"), ("ckpt.restore", "ok")])
+    assert [e["step"] for e in events] == [3, 2]
+
+
+def test_async_save_records_on_the_writer(tmp_path):
+    saves = ck._SAVES.labels(outcome="ok").get()
+    saver = ck.Checkpointer(tmp_path, async_save=True)
+    saver.save(6, {"w": torch.ones(4, dtype=torch.bfloat16)})
+    saver.wait()
+    assert ck._SAVES.labels(outcome="ok").get() == saves + 1
+    assert ck._LAST_STEP.get() == 6

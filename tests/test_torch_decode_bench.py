@@ -17,6 +17,16 @@ from skypilot_tpu.benchmark import decode_bench as bench_jax
 from skypilot_tpu_torch.benchmark import decode_bench as bench_torch
 from skypilot_tpu_torch.serve import decode_engine as engine_torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def no_tuning_manifest():
+    """Every engine here runs the default constants: no ambient tuning
+    manifest (STPU_TUNE_MANIFEST=0), set before the module's engines."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STPU_TUNE_MANIFEST", "0")
+        yield
+
+
 FAMILIES = ("llama", "mixtral", "gemma")
 
 

@@ -35,6 +35,16 @@ from skypilot_tpu_torch.observability import metrics as metrics_torch
 from skypilot_tpu_torch.serve import decode_engine as engine_torch
 from skypilot_tpu_torch.utils import fault_injection
 
+
+@pytest.fixture(scope="module", autouse=True)
+def no_tuning_manifest():
+    """Every engine here runs the default constants: no ambient tuning
+    manifest (STPU_TUNE_MANIFEST=0), set before the module's engines."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STPU_TUNE_MANIFEST", "0")
+        yield
+
+
 VOCAB = 128
 GEOMETRY = dict(slots=2, max_seq=64, prefill_chunk=8)
 

@@ -16,8 +16,16 @@ the JAX package's, on the CPU in f32.
   adapters, ``optax.adamw(lr)``) from the same converted base and
   adapters on the same ``synthetic_data`` batches, which are first held
   equal: losses within 2e-3, adapters within 2e-3 of how far they moved.
+* The recipe's training telemetry (``observability/trainstats``), armed
+  on the CPU: the four ``train_*`` keys (MFU None: the CPU has no peak),
+  the delayed losses in the ring, the host JSONL and ``snapshot.json``;
+  a crash leaves a ``train_crash`` flight dump with the steps before it;
+  disarmed, the loop touches no trainstats function and writes no file.
 """
 import dataclasses
+import json
+import os
+import signal
 import types
 
 import jax
@@ -33,6 +41,7 @@ from skypilot_tpu.recipes import synthetic_data as data_jax
 from skypilot_tpu.train import trainer as trainer_jax
 from skypilot_tpu_torch import convert
 from skypilot_tpu_torch.models import llama as llama_torch
+from skypilot_tpu_torch.observability import trainstats
 from skypilot_tpu_torch.recipes import llama_lora as lora_torch
 from skypilot_tpu_torch.recipes import synthetic_data as data_torch
 
@@ -229,3 +238,94 @@ def test_recipe_steps_match_jax():
         moved = np.linalg.norm(want - init["layers"][name])
         assert moved > 0, name
         assert np.linalg.norm(got[name] - want) <= MOVE_TOL * moved, name
+
+
+# ------------------------------------------------------ trainstats
+RECIPE_ARGS = ["--device", "cpu", "--model", "tiny", "--batch-size", "2",
+               "--seq-len", "32"]
+TRAIN_KEYS = {"train_mfu", "train_goodput", "train_step_seconds",
+              "train_tokens_per_sec"}
+
+
+@pytest.fixture
+def recipe_env(tmp_state_dir):
+    """The recipe installs a SIGTERM handler and may arm fault injection;
+    put both back, and leave trainstats disarmed and empty."""
+    from skypilot_tpu_torch.utils import fault_injection
+    old = signal.getsignal(signal.SIGTERM)
+    yield tmp_state_dir
+    signal.signal(signal.SIGTERM, old)
+    fault_injection.clear()
+    trainstats.disarm()
+    trainstats.reset()
+
+
+def test_armed_recipe_reports_train_keys(recipe_env, tmp_path,
+                                         monkeypatch):
+    out_dir = str(tmp_path / "ts")
+    monkeypatch.setenv(trainstats.DIR_ENV, out_dir)
+    trainstats.arm(ring=128, sync_every=1)
+    trainstats.reset()
+    metrics = lora_torch.main(RECIPE_ARGS + [
+        "--steps", "3", "--checkpoint-dir", str(tmp_path / "ckpt"),
+        "--ckpt-every", "2"])
+    assert TRAIN_KEYS <= set(metrics)
+    assert metrics["train_mfu"] is None          # the CPU: no peak
+    assert metrics["train_tokens_per_sec"] > 0
+    assert metrics["train_step_seconds"] > 0
+    goodput = metrics["train_goodput"]
+    assert 0 < goodput["productive"] <= 1.0 and goodput["ckpt"] > 0
+    snap = trainstats.snapshot()
+    assert snap["total_steps"] == 3 and snap["job"] == "llama_lora"
+    assert snap["sync"]["samples"] == 3 and snap["dispatch_ms_mean"] > 0
+    # One step late: steps 1-2 carry their loss, the last is drained
+    # into the metrics line only.
+    recs = trainstats.steps_tail()
+    assert [r["loss"] is not None for r in recs] == [True, True, False]
+    assert recs[0]["loss"] == metrics["first_loss"]
+    with open(os.path.join(out_dir, "snapshot.json")) as f:
+        assert json.load(f)["job"] == "llama_lora"
+    with open(os.path.join(out_dir, "host-0.jsonl")) as f:
+        assert [json.loads(line)["step"] for line in f] == [1, 2, 3]
+    # A resumed run books its setup as restart downtime.
+    trainstats.reset()
+    resumed = lora_torch.main(RECIPE_ARGS + [
+        "--steps", "4", "--checkpoint-dir", str(tmp_path / "ckpt")])
+    assert resumed["resumed_from"] == 3
+    assert trainstats.snapshot()["downtime_s"] > 0
+    assert resumed["train_goodput"]["restart"] > 0
+
+
+def test_recipe_crash_dumps_flight(recipe_env, tmp_path, monkeypatch):
+    from skypilot_tpu_torch.utils import fault_injection
+    out_dir = str(tmp_path / "ts")
+    monkeypatch.setenv(trainstats.DIR_ENV, out_dir)
+    trainstats.arm(ring=128, sync_every=0)
+    trainstats.reset()
+    fault_injection.configure("train.step:raise:skip=2")
+    with pytest.raises(fault_injection.InjectedFault):
+        lora_torch.main(RECIPE_ARGS + ["--steps", "6"])
+    dumps = trainstats.list_dumps(os.path.join(out_dir, "flightrec"))
+    assert any("train_crash" in d for d in dumps)
+    doc = trainstats.read_dump(dir_path=os.path.join(out_dir, "flightrec"))
+    assert doc["reason"] == "train_crash"
+    assert "InjectedFault" in doc["error"]
+    assert [r["step"] for r in doc["steps"]] == [1, 2]
+
+
+def test_disarmed_recipe_is_trainstats_free(recipe_env, tmp_path,
+                                            monkeypatch):
+    def _boom(*a, **k):
+        raise AssertionError("trainstats touched while disarmed")
+
+    out_dir = tmp_path / "ts"
+    monkeypatch.setenv(trainstats.DIR_ENV, str(out_dir))
+    trainstats.disarm()
+    for name in ("configure", "record_step", "sampled_sync", "sync_due",
+                 "snapshot", "flush", "dump_flight", "note_downtime",
+                 "check_stragglers"):
+        monkeypatch.setattr(trainstats, name, _boom)
+    metrics = lora_torch.main(RECIPE_ARGS + ["--steps", "3"])
+    assert metrics["steps"] == 3
+    assert not TRAIN_KEYS & set(metrics)
+    assert not out_dir.exists()

@@ -42,6 +42,16 @@ from skypilot_tpu_torch.recipes import serve_llm as serve_torch
 from skypilot_tpu_torch.serve import decode_engine as engine_torch
 from skypilot_tpu_torch.serve import prng
 
+
+@pytest.fixture(scope="module", autouse=True)
+def no_tuning_manifest():
+    """Every engine here runs the default constants: no ambient tuning
+    manifest (STPU_TUNE_MANIFEST=0), set before the module's engines."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STPU_TUNE_MANIFEST", "0")
+        yield
+
+
 TOL = 2e-3
 F32_MLP_TOL = 2e-5
 BF16_MLP_TOL = 1e-2

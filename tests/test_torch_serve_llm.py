@@ -35,6 +35,16 @@ from skypilot_tpu_torch.models import family_name
 from skypilot_tpu_torch.observability import reqlog as reqlog_torch
 from skypilot_tpu_torch.recipes import serve_llm as serve_torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def no_tuning_manifest():
+    """Every engine here runs the default constants: no ambient tuning
+    manifest (STPU_TUNE_MANIFEST=0), set before the module's engines."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STPU_TUNE_MANIFEST", "0")
+        yield
+
+
 VOCAB = 128
 
 

@@ -291,7 +291,8 @@ def decode_step(args, model) -> int:
     n_warm, n_time, n_prof = 3, 10, 3
     eng = decode_engine.DecodeEngine(
         cfg, params, slots=args.slots, max_seq=1280, prefill_chunk=64,
-        paged=True, kv_quant=args.kv_quant, weight_quant=args.weight_quant)
+        paged=True, kv_quant=args.kv_quant, weight_quant=args.weight_quant,
+        use_manifest=False)
     cpu = torch.Generator().manual_seed(1)
     for _ in range(args.slots):
         prompt = torch.randint(1, cfg.vocab_size, (args.context - 1,),
@@ -304,7 +305,8 @@ def decode_step(args, model) -> int:
           f"{args.slots} live slots at context ~{args.context}, paged "
           f"64-token blocks, greedy, weights "
           f"{'int8' if args.weight_quant else 'bf16'}, KV "
-          f"{'int8' if args.kv_quant else 'bf16'}")
+          f"{'int8' if args.kv_quant else 'bf16'}, manifest "
+          f"{eng.kv_config()['manifest']}")
     for _ in range(n_warm):
         eng._decode_step()
     times = []
