@@ -196,10 +196,38 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    decoding on == off (greedy and seeded, parting only at near-ties), the
    cache paths within F32_CACHE_REL_TOL of the no-drop forward (fp32
    kernels) and both routing faults past it. Prints each leg's seconds;
-16. decode_bench: the port's measure_decode and measure_engine_paged at
+16. lb: the port's data plane at Llama-3-8B full width and depth, on
+   [serve]'s bf16 params (run inside [serve], after its int8 leg), three
+   legs on one card with no flash kernel launched. (a) One replica with
+   [serve]'s geometry behind the port's load balancer (serve/
+   load_balancer.py, PrefixAffinityPolicy): [serve]'s eight requests one
+   at a time (LB_BYTES_TOKENS tokens each), through the balancer and
+   straight to the replica; the greedy ones' SSE data: frames must be
+   equal (the seeded ones' printed), every stream must end in [DONE], and
+   the balancer's /metrics must carry the replica's stpu_engine_* and its
+   own stpu_lb_* families. (b) The port's load generator through that
+   balancer (chat mix, Poisson, LB_QPS for LB_DURATION s, LB_MAX_TOKENS
+   tokens, seed 0, a 300 s upstream timeout): every scheduled request
+   must complete without error and the scraper must have read the
+   balancer's merged metrics; slo_goodput, TTFT p50/p99, tokens/s,
+   achieved qps and the schedule's sha printed beside the card (readings,
+   not gates). (c) Two replicas on the one param tree (each its own KV
+   pool) behind the balancer: a greedy LB_KILL_TOKENS-token stream whose
+   prompt the policy routes to A; once LB_KILL_AFTER tokens reached the
+   client, A's engine and server are torn down. The stream must complete
+   through B in [DONE] with exactly LB_KILL_TOKENS token frames, B must
+   have been asked to resume with exactly the tokens the client already
+   had (A's, at least LB_KILL_AFTER of them) for the rest of the budget,
+   and stpu_lb_stream_resumes_total{outcome="ok"} must rise; whether B's
+   tail equals a kill-free stream's is printed, not gated (bf16 prefill
+   and decode differ at near-ties). Then, with the 8B weights freed,
+   decode_bench's measure_engine_slo and measure_engine_chaos for Llama
+   at their default shape, once each, their dicts printed. Prints each
+   part's seconds;
+17. decode_bench: the port's measure_decode and measure_engine_paged at
    the JAX bench's Mixtral shape (decode_bench.build), once each, their
    dicts printed;
-17. tune: the engine sweep (tune/sweep.run_sweep) for Llama's paged mode
+18. tune: the engine sweep (tune/sweep.run_sweep) for Llama's paged mode
    at decode_bench.build("llama")'s shape, quick budgets, 8 slots, on the
    card: each probe's tokens/s, the winner beside the default; the
    manifest must validate, name this card as its device_kind and hold a
@@ -208,7 +236,7 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    winner's chunk, window and the manifest's tag, and a decode_bench
    engine built beside it must keep "manifest": "default". Every other
    phase runs with STPU_TUNE_MANIFEST=0;
-18. a summary of the Hopper kernels (registers, shared memory, time
+19. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
    the kernels line ({"kernels": [...]}, eighteen records: the nine at
    head_dim 128 and the nine at 256), then the last line
@@ -235,6 +263,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -435,6 +464,17 @@ GLONG_BATCHES, GLONG_SEQ, GLONG_STEPS = (8, 4, 2, 1), 8192, 4
 SV_SLOTS, SV_BLOCK = 8, 64
 SV_PROMPTS = (32, 64, 128, 256, 384, 512, 768, 1024)
 SV_MAX_TOKENS, SV_TEMP, SV_PREFIX = 128, 0.8, 512
+# The lb phase, on [serve]'s params: leg (a) sends [serve]'s eight
+# requests with LB_BYTES_TOKENS tokens each (cut from SV_MAX_TOKENS: one
+# request at a time decodes at ~0.12 s a token here); leg (b) runs the
+# load generator's chat mix at LB_QPS for LB_DURATION s, LB_MAX_TOKENS
+# tokens a request, graded against decode_bench's default SLOs; leg (c)
+# kills replica A once LB_KILL_AFTER of a greedy LB_KILL_TOKENS-token
+# stream's tokens (prompt LB_KILL_PROMPT tokens) reached the client.
+LB_BYTES_TOKENS = 8
+LB_QPS, LB_DURATION, LB_MAX_TOKENS = 1.0, 8.0, 16
+LB_SLO_TTFT, LB_SLO_TPOT = 3.0, 0.5
+LB_KILL_PROMPT, LB_KILL_TOKENS, LB_KILL_AFTER = 96, 64, 16
 # The cache paths' bf16 logits against the full forward's (flash kernels),
 # norm-relative, on the greedy streams teacher-forced. Set between the
 # sound reading and the planted faults' (H100, 32 layers: 1.93e-2; faults
@@ -2074,9 +2114,10 @@ def phase_mixtral(fa, llama, trainer):
         state.params, tokens, trainer)
 
 
-def _sse_generate(port, body, out, idx):
+def _sse_generate(port, body, out, idx, on_frame=None):
     """One streamed /generate over HTTP: out[idx] = its status, send time
-    and each SSE frame with its arrival time."""
+    and each SSE frame with its arrival time; ``on_frame(frames)`` runs
+    after each frame arrives."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
     t0 = time.perf_counter()
     conn.request("POST", "/generate", json.dumps(body),
@@ -2092,6 +2133,8 @@ def _sse_generate(port, body, out, idx):
             frame, buf = buf.split(b"\n\n", 1)
             frames.append(frame.decode())
             times.append(time.perf_counter())
+            if on_frame is not None:
+                on_frame(frames)
     conn.close()
     out[idx] = {"status": resp.status, "t0": t0, "frames": frames,
                 "times": times}
@@ -2720,11 +2763,251 @@ def phase_serve(fa, llama, card, dev="cuda"):
                for a, b in zip(streams[i], q_streams[i]))
     print(f"[serve int8] greedy tokens equal to the bf16 leg's: {same} of "
           f"{len(greedy) * SV_MAX_TOKENS} (not a gate)", flush=True)
+    torch.cuda.empty_cache()
+    phase_lb(fa, cfg, params, reqs, card, dev)
     del params
     torch.cuda.empty_cache()
     _exactness(llama, decode_engine, prng, dev)
     stepstats.disarm()
     reqlog.disarm()
+
+
+def _data_frames(label, res, n_tokens):
+    """The ``data:`` frames of one SSE response; fails unless it is 200,
+    ends in [DONE] and carries ``n_tokens`` token frames."""
+    check(res is not None and res["status"] == 200,
+          f"{label}: no 200 response")
+    data = [f for f in res["frames"] if f.startswith("data: ")]
+    check(data and data[-1] == "data: [DONE]"
+          and res["frames"][-1] == "data: [DONE]",
+          f"{label}: the stream does not end in [DONE]")
+    check(len(data) == n_tokens + 1,
+          f"{label}: {len(data) - 1} token frames, not {n_tokens}")
+    return data
+
+
+def _scrape(target):
+    from skypilot_tpu_torch.observability import promtext
+    with urllib.request.urlopen(target + "/metrics", timeout=60) as resp:
+        return promtext.parse(resp.read().decode())
+
+
+def _lb_bytes(target, replica, reqs, card):
+    """Leg (a): [serve]'s requests one at a time through the balancer and
+    straight to the replica; the greedy ones' data frames equal."""
+    from skypilot_tpu_torch.observability import promtext
+    ports = {"lb": int(target.rsplit(":", 1)[1]),
+             "direct": replica.server_address[1]}
+    t0 = time.perf_counter()
+    for i, (prompt, temp, seed) in enumerate(reqs):
+        body = {"prompt": prompt, "max_tokens": LB_BYTES_TOKENS,
+                "temperature": temp, "seed": seed, "stream": True}
+        got = {}
+        for name, port in ports.items():
+            out = [None]
+            _sse_generate(port, body, out, 0)
+            got[name] = _data_frames(f"[lb] request {i} ({name})", out[0],
+                                     LB_BYTES_TOKENS)
+        same = got["lb"] == got["direct"]
+        kind = "greedy" if temp == 0 else f"T={temp}"
+        print(f"[lb] request {i} (prompt {len(prompt)}, {kind}): data "
+              f"frames through the balancer "
+              f"{'equal to' if same else 'DIFFER from'} the replica's "
+              f"({LB_BYTES_TOKENS} tokens)", flush=True)
+        check(same or temp != 0,
+              f"[lb] greedy request {i}: the balancer's frames differ")
+    fams = _scrape(target)
+    ok = promtext.counter_total(fams, "stpu_lb_requests_total", code="200")
+    check("stpu_engine_decode_tokens_total" in fams
+          and "stpu_engine_ttft_seconds" in fams
+          and "stpu_lb_request_duration_seconds" in fams
+          and ok >= len(reqs),
+          "[lb] the balancer's /metrics lacks the engine's or its own "
+          "families")
+    print(f"[lb] leg (a): {len(reqs)} requests byte-checked in "
+          f"{time.perf_counter() - t0:.1f} s; /metrics: "
+          f"{sum(n.startswith('stpu_engine_') for n in fams)} stpu_engine_* "
+          f"and {sum(n.startswith('stpu_lb_') for n in fams)} stpu_lb_* "
+          f"families, stpu_lb_requests_total{{code=\"200\"}} {ok:g} "
+          f"({card})", flush=True)
+
+
+def _lb_slo(target, spec, card):
+    """Leg (b): the load generator through the balancer; every request
+    must complete, the scraper must have read the merged metrics."""
+    from skypilot_tpu_torch.benchmark import loadgen
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stpu-lb-slo-") as out:
+        report = loadgen.run(target, spec, slo_ttft_s=LB_SLO_TTFT,
+                             slo_tpot_s=LB_SLO_TPOT, scrape_interval=1.0,
+                             out_dir=out, request_timeout=300.0)
+    reqs, server = report["requests"], report["server"]
+    ttft = report["latency_s"]["ttft"] or {}
+    print(f"[lb] leg (b): loadgen chat mix, poisson {spec.qps:g} qps for "
+          f"{spec.duration_s:g} s, max_tokens {spec.max_tokens}, seed "
+          f"{spec.seed}: {reqs['scheduled']} scheduled, {reqs['ok']} ok; "
+          f"slo_goodput {report['goodput']['fraction']} (TTFT <= "
+          f"{LB_SLO_TTFT:g} s, TPOT <= {LB_SLO_TPOT:g} s), TTFT p50 "
+          f"{ttft.get('p50')} s p99 {ttft.get('p99')} s, loadgen_tok_s "
+          f"{report['tokens']['tok_s']}, achieved qps "
+          f"{report['qps']['achieved']} (offered {report['qps']['offered']}"
+          f"), schedule sha256 {report['schedule_sha256'][:16]}; server "
+          f"engine TTFT {server.get('engine_ttft')}, {server['scrapes']} "
+          f"scrapes; {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    check(reqs["scheduled"] > 0 and reqs["ok"] == reqs["scheduled"]
+          and reqs["error"] == 0 and reqs["unfinished"] == 0,
+          f"[lb] leg (b): not every request completed: {reqs}")
+    # The engine's TTFT (observed at each first token) and the
+    # balancer's own counter, read through one scrape of the balancer;
+    # the balancer counts a request after its last byte, so the last may
+    # land after the closing scrape.
+    check(server["scrapes"] >= 2 and server["scrape_failures"] == 0
+          and server.get("engine_ttft", {}).get("count", 0) >=
+          reqs["scheduled"]
+          and server.get("lb_requests_by_code", {}).get("200", 0) >= 1,
+          f"[lb] leg (b): the scraper did not read the balancer's merged "
+          f"metrics: {server}")
+
+
+def _lb_kill(cfg, target, servers, card):
+    """Leg (c): a greedy stream pinned to replica A; A torn down once
+    LB_KILL_AFTER tokens reached the client; the balancer resumes it on
+    B."""
+    from skypilot_tpu_torch.observability import promtext
+    from skypilot_tpu_torch.serve.load_balancing_policies import (
+        PrefixAffinityPolicy)
+    t0 = time.perf_counter()
+    a, b = servers
+    urls = [f"http://127.0.0.1:{h.server_address[1]}" for h in servers]
+    gen = torch.Generator().manual_seed(7)
+    for _ in range(64):
+        body = {"prompt": torch.randint(1, cfg.vocab_size, (LB_KILL_PROMPT,),
+                                        generator=gen).tolist(),
+                "max_tokens": LB_KILL_TOKENS, "stream": True}
+        probe = PrefixAffinityPolicy()
+        probe.set_ready_replicas(urls)
+        if probe.select_replica({"path": "/generate", "body": json.dumps(
+                body).encode()}) == urls[0]:
+            break
+    else:
+        raise PhaseError("[lb] no prompt routes to replica A")
+    ref = [None]
+    _sse_generate(b.server_address[1], body, ref, 0)
+    ref = _data_frames("[lb] kill-free stream on B", ref[0], LB_KILL_TOKENS)
+    resumes0 = promtext.counter_total(_scrape(target),
+                                      "stpu_lb_stream_resumes_total",
+                                      outcome="ok")
+    asked, submit = [], b.engine.submit
+
+    def spy(prompt, **kw):
+        asked.append((kw.get("resume"), kw.get("max_tokens")))
+        return submit(prompt, **kw)
+
+    b.engine.submit = spy
+    reached, seen = threading.Event(), []
+
+    def on_frame(frames):
+        if not reached.is_set() and len(frames) >= LB_KILL_AFTER:
+            seen.extend(frames[:LB_KILL_AFTER])
+            reached.set()
+
+    out = [None]
+    client = threading.Thread(target=_sse_generate, args=(
+        int(target.rsplit(":", 1)[1]), body, out, 0, on_frame))
+    try:
+        client.start()
+        check(reached.wait(timeout=600),
+              f"[lb] leg (c): {LB_KILL_AFTER} tokens never arrived")
+        t_kill = time.perf_counter()
+        a.engine.shutdown()          # in-flight streams drop, no [DONE]
+        a.shutdown()
+        a.server_close()             # new connects are refused
+        client.join(timeout=600)
+    finally:
+        b.engine.submit = submit
+    check(not client.is_alive(), "[lb] leg (c): the stream never ended")
+    data = _data_frames("[lb] leg (c) stream", out[0], LB_KILL_TOKENS)
+    toks = [json.loads(f[len("data: "):])["token"] for f in data[:-1]]
+    check(len(asked) == 1 and asked[0][0] is not None,
+          f"[lb] leg (c): B was not asked to resume once: {asked}")
+    emitted, rest = asked[0]
+    k = len(emitted)
+    check(k >= LB_KILL_AFTER and toks[:k] == emitted
+          and data[:LB_KILL_AFTER] == seen
+          and rest == LB_KILL_TOKENS - k,
+          f"[lb] leg (c): the splice lost or repeated tokens: B resumed "
+          f"after {k} tokens for {rest} more")
+    # The balancer counts the resume after the spliced stream's last
+    # byte: wait for the count, bounded.
+    deadline = time.perf_counter() + 60
+    while True:
+        fams = _scrape(target)
+        resumes = promtext.counter_total(
+            fams, "stpu_lb_stream_resumes_total", outcome="ok")
+        if resumes > resumes0 or time.perf_counter() > deadline:
+            break
+        time.sleep(0.05)
+    check(resumes == resumes0 + 1,
+          f"[lb] leg (c): stream resumes ok {resumes0:g} -> {resumes:g}")
+    gap = promtext.histogram(fams, "stpu_lb_resume_gap_seconds")
+    ref_toks = [json.loads(f[len("data: "):])["token"] for f in ref[:-1]]
+    diff = [i for i in range(k, LB_KILL_TOKENS) if toks[i] != ref_toks[i]]
+    print(f"[lb] leg (c): replica A torn down "
+          f"{time.perf_counter() - t_kill:.2f} s before the stream's end, "
+          f"after {LB_KILL_AFTER} of {LB_KILL_TOKENS} tokens reached the "
+          f"client; B resumed at position {k} for {rest} tokens; the stream "
+          f"completed with {len(toks)} token frames in [DONE]; resume gap "
+          f"{gap.sum / max(gap.count, 1):.3f} s mean over {gap.count:g}; "
+          f"stpu_lb_stream_resumes_total{{outcome=\"ok\"}} {resumes0:g} -> "
+          f"{resumes:g}; A's {k} tokens equal to the kill-free stream's: "
+          f"{toks[:k] == ref_toks[:k]}; B's tail equal to it: {not diff}"
+          + (f" (first difference at token {diff[0]}, {len(diff)} differ)"
+             if diff else "") + f" (not a gate); "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+
+def phase_lb(fa, cfg, params, reqs, card, dev="cuda"):
+    """[lb] legs (a)-(c) on [serve]'s bf16 params (module docstring,
+    phase 16)."""
+    from skypilot_tpu_torch.benchmark import decode_bench
+    t0 = time.perf_counter()
+    spec = decode_bench._slo_spec(cfg, LB_QPS, LB_DURATION, 0,
+                                  LB_MAX_TOKENS)
+    print(f"[lb] Llama-3-8B bf16, {cfg.n_layers} layers, serve_llm "
+          f"replicas with {SV_SLOTS} slots and paged {SV_BLOCK}-token blocks "
+          f"behind the port's load balancer (prefix_affinity)", flush=True)
+    fa.reset_launches()
+    with decode_bench._data_plane(cfg, params, dev, SV_SLOTS, 1,
+                                  spec) as (target, servers):
+        _lb_bytes(target, servers[0], reqs, card)
+        _lb_slo(target, spec, card)
+    torch.cuda.empty_cache()
+    with decode_bench._data_plane(cfg, params, dev, SV_SLOTS, 2,
+                                  spec) as (target, servers):
+        _lb_kill(cfg, target, servers, card)
+    launches = dict(fa.LAUNCHES)
+    check(all(v == 0 for v in launches.values()),
+          f"[lb] flash kernels launched on the serving path {launches}")
+    print(f"[lb] legs (a)-(c) {time.perf_counter() - t0:.1f} s, no flash "
+          f"kernel launched", flush=True)
+
+
+def phase_lb_bench(card, dev="cuda"):
+    """[lb]'s bench legs: decode_bench's measure_engine_slo and
+    measure_engine_chaos for Llama at their default shape, once each."""
+    from skypilot_tpu_torch.benchmark import decode_bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    slo = decode_bench.measure_engine_slo("llama", device=dev)
+    print(f"[lb] measure_engine_slo: {json.dumps(slo)} ({card})",
+          flush=True)
+    chaos = decode_bench.measure_engine_chaos("llama", device=dev)
+    print(f"[lb] measure_engine_chaos: {json.dumps(chaos)} ({card})",
+          flush=True)
+    check(slo["requests"] > 0 and chaos["requests"] > 0,
+          "[lb] the bench legs scheduled nothing")
+    print(f"[lb] bench legs {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _gemma_recipe(fa, trainer, records, label, fam, names, seq, batches,
@@ -3380,6 +3663,7 @@ def main() -> int:
         phase_gemma_long(fa, trainer, records, card)
         torch.cuda.empty_cache()
         phase_serve(fa, llama, card)
+        phase_lb_bench(card)
         torch.cuda.empty_cache()
         phase_gemma_serve(fa, card)
         phase_mixtral_serve(fa, card)

@@ -21,7 +21,16 @@ DecodeEngine, with its single-process modes.
   * ``measure_engine_tier``: the host-RAM spill tier under a prefix
     working set twice the pool (cold vs re-hit TTFT);
   * ``measure_ckpt``: checkpoint save/restore latency of a family's whole
-    parameter tree (``train/checkpoint.py``).
+    parameter tree (``train/checkpoint.py``);
+  * ``measure_engine_slo``: a serve_llm replica behind the port's load
+    balancer, driven over HTTP by the open-loop load generator
+    (``benchmark/loadgen.py``, Poisson arrivals, the chat mix) and graded
+    against TTFT/TPOT SLOs (``slo_goodput``, ``p99_ttft_s``,
+    ``loadgen_tok_s``);
+  * ``measure_engine_chaos``: the same data plane with two replicas, the
+    schedule run kill-free and then with replica A torn down mid-run: the
+    balancer's stream journal resumes A's streams on B
+    (``chaos_goodput_ratio``, ``resumed_streams``).
 
 Each returns the JAX function's dict and takes ``device`` (the card by
 default; ``"cpu"`` on request, with ``tiny=True`` for plumbing runs). The
@@ -30,9 +39,10 @@ JAX package compiles and donates; the port runs eagerly, so JAX's "compile
 every timed span. Every engine here is built with ``use_manifest=False``,
 as in the JAX bench: a leg measures its explicit constants (the tuning
 sweep's candidates among them), and an ambient tuning manifest never
-leaks into a measurement. Not ported yet: the gang and tensor-parallel
-mode (``measure_engine_tp``) and the load-generator modes
-(``measure_engine_slo``, ``measure_engine_chaos``).
+leaks into a measurement; the SLO and chaos legs serve through
+serve_llm's engines, which read the manifest as a replica does (as in the
+JAX bench). Not ported yet: the gang and tensor-parallel mode
+(``measure_engine_tp``).
 
     python -m skypilot_tpu_torch.benchmark.decode_bench --family mixtral \\
         --mode paged           # one JSON line, as tools/bench_moe_decode.py
@@ -46,7 +56,9 @@ import json
 import random
 import shutil
 import tempfile
+import threading
 import time
+import urllib.request
 from typing import Any, Dict, Optional
 
 import torch
@@ -694,8 +706,210 @@ def measure_ckpt(family: str, repeats: int = 3, device: DeviceLike = None,
     }
 
 
+def _slo_spec(cfg, qps, duration_s, seed, max_tokens):
+    """The SLO and chaos legs' workload: the shared-prefix chat mix under
+    Poisson arrivals."""
+    from skypilot_tpu_torch.benchmark import loadgen
+    return loadgen.LoadSpec(
+        mix="chat", arrival="poisson", qps=qps, duration_s=duration_s,
+        seed=seed, max_tokens=max_tokens,
+        vocab=min(cfg.vocab_size, 32000))
+
+
+def _post(url: str, doc: Dict[str, Any], timeout: float = 600.0) -> bytes:
+    req = urllib.request.Request(
+        url + "/generate", data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.read()
+
+
+def _stop_replica(httpd) -> None:
+    """Engine and server down, the engine's KV pool freed; a replica
+    already torn down passes through."""
+    httpd.engine.shutdown()
+    httpd.shutdown()
+    httpd.server_close()
+    httpd.engine.engine.release()
+
+
+@contextlib.contextmanager
+def _data_plane(cfg, params, device, slots: int, n_replicas: int, spec):
+    """``n_replicas`` serve_llm replicas on one parameter tree (each with
+    its own engine and KV pool), warmed, behind the port's load balancer
+    (PrefixAffinityPolicy, 300 s upstream timeout). Yields the balancer's
+    URL and the replica servers; tears every one down on exit."""
+    from skypilot_tpu_torch.benchmark import loadgen
+    from skypilot_tpu_torch.recipes import serve_llm
+    from skypilot_tpu_torch.serve import load_balancer as lb_lib
+    from skypilot_tpu_torch.serve.load_balancing_policies import (
+        PrefixAffinityPolicy)
+    servers, lb = [], None
+    try:
+        readies = []
+        for _ in range(n_replicas):
+            ready = threading.Event()
+            httpd = serve_llm.serve(cfg, params, 0, ready_event=ready,
+                                    engine_slots=slots, device=device)
+            servers.append(httpd)
+            threading.Thread(target=httpd.serve_forever,
+                             daemon=True).start()
+            readies.append(ready)
+        if not all(r.wait(timeout=600) for r in readies):
+            raise RuntimeError("replica never became healthy")
+        urls = [f"http://127.0.0.1:{h.server_address[1]}" for h in servers]
+        # Warm each replica's whole serving path before the clock starts:
+        # beyond engine.warmup()'s request, the first shared-prefix traffic
+        # publishes prefix blocks (a slot's free) and aliases them (a hit),
+        # and the first calls of those paths pay the CUDA allocator's and
+        # cuBLAS's one-time costs (JAX's bench warms its XLA compiles
+        # here). Two sequential requests sharing the trace's first prefix
+        # run each path once.
+        warm_prefix = loadgen._prefixes(spec)[0]
+        for url in urls:
+            for i in range(2):
+                _post(url, {"prompt": warm_prefix + [17 + i],
+                            "max_tokens": 2})
+        policy = PrefixAffinityPolicy()
+        policy.set_ready_replicas(urls)
+        lb = lb_lib.run_load_balancer(0, policy, lb_lib.RequestRecorder())
+        # Tail requests queue behind slot contention under load; the LB's
+        # default 120 s first-byte timeout would turn a saturated but live
+        # engine into 502s mid-leg.
+        lb.RequestHandlerClass.upstream_timeout = 300.0
+        yield f"http://127.0.0.1:{lb.server_address[1]}", servers
+    finally:
+        if lb is not None:
+            lb.shutdown()
+            lb.server_close()
+        for httpd in servers:
+            _stop_replica(httpd)
+
+
+def measure_engine_slo(family: str, *, slots: int = 8,
+                       qps: float = 6.0, duration_s: float = 8.0,
+                       seed: int = 0, slo_ttft_s: float = 3.0,
+                       slo_tpot_s: float = 0.5, max_tokens: int = 16,
+                       device: DeviceLike = None,
+                       **shape_kw) -> Dict[str, Any]:
+    """SLO-graded serving leg: the family's engine behind a serve_llm
+    replica and the port's load balancer, driven by the open-loop load
+    generator under the shared-prefix chat mix. Unlike the engine legs
+    (the engine alone, everything submitted at once) it measures what a
+    user sees through the whole data plane (HTTP, the balancer's hop,
+    queueing under Poisson arrivals) and grades it against the TTFT and
+    TPOT SLOs: ``slo_goodput``, ``p99_ttft_s`` and ``loadgen_tok_s``. A
+    regression that shows only under concurrent load lands here, where
+    the isolated-engine legs stay green."""
+    from skypilot_tpu_torch.benchmark import loadgen
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    spec = _slo_spec(cfg, qps, duration_s, seed, max_tokens)
+    with _data_plane(cfg, params, device, slots, 1, spec) as (target, _):
+        report = loadgen.run(
+            target, spec, slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s,
+            scrape_interval=1.0,
+            out_dir=tempfile.mkdtemp(
+                prefix=f"stpu-loadgen-bench-{family}-"),
+            request_timeout=300.0)
+    ttft = report["latency_s"]["ttft"] or {}
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "offered_qps": report["qps"]["offered"],
+        "achieved_qps": report["qps"]["achieved"],
+        "requests": report["requests"]["scheduled"],
+        "errors": report["requests"]["error"],
+        "slo_ttft_s": slo_ttft_s,
+        "slo_tpot_s": slo_tpot_s,
+        "slo_goodput": report["goodput"]["fraction"],
+        "p99_ttft_s": ttft.get("p99"),
+        "p50_ttft_s": ttft.get("p50"),
+        "loadgen_tok_s": report["tokens"]["tok_s"],
+        "schedule_sha256": report["schedule_sha256"],
+        "report_dir": report["out_dir"],
+    }
+
+
+def measure_engine_chaos(family: str, *, slots: int = 8,
+                         qps: float = 6.0, duration_s: float = 8.0,
+                         seed: int = 0, slo_ttft_s: float = 3.0,
+                         slo_tpot_s: float = 0.5, max_tokens: int = 16,
+                         kill_at_frac: float = 0.5,
+                         device: DeviceLike = None,
+                         **shape_kw) -> Dict[str, Any]:
+    """Durable-streams chaos leg: the SLO leg's data plane with two
+    replicas, the schedule run twice: kill-free (the baseline), then with
+    replica A's engine and HTTP server torn down ``kill_at_frac`` into
+    the run (in-flight streams drop without ``[DONE]``, new connects are
+    refused). The balancer's stream journal resumes the broken streams on
+    B and its breaker ejects A for the traffic before a first byte, so
+    goodput should barely move: ``chaos_goodput_ratio`` (chaos over
+    baseline goodput) is the within-5%-of-kill-free contract, beside the
+    absolute ``chaos_slo_goodput``. ``resumed_streams`` > 0 tells "healed
+    by resume" from "nothing was in flight when A died"."""
+    from skypilot_tpu_torch.benchmark import loadgen
+    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    spec = _slo_spec(cfg, qps, duration_s, seed, max_tokens)
+    kill_at = max(duration_s * kill_at_frac, 0.1)
+    with _data_plane(cfg, params, device, slots, 2, spec) as (target,
+                                                              servers):
+        def _kill_replica_a() -> None:
+            # The in-process stand-in for a SIGKILL: the engine's shutdown
+            # drops every in-flight stream mid-token (no [DONE]), and the
+            # closed server refuses new connects. No drain, no notice.
+            victim = servers[0]
+            victim.engine.shutdown()
+            victim.shutdown()
+            victim.server_close()
+
+        killer = threading.Timer(kill_at, _kill_replica_a)
+        killer.daemon = True
+        try:
+            baseline = loadgen.run(
+                target, spec, slo_ttft_s=slo_ttft_s,
+                slo_tpot_s=slo_tpot_s, scrape_interval=1.0,
+                out_dir=tempfile.mkdtemp(
+                    prefix=f"stpu-chaos-base-{family}-"),
+                request_timeout=300.0)
+            killer.start()
+            chaos = loadgen.run(
+                target, spec, slo_ttft_s=slo_ttft_s,
+                slo_tpot_s=slo_tpot_s, scrape_interval=1.0,
+                out_dir=tempfile.mkdtemp(
+                    prefix=f"stpu-chaos-kill-{family}-"),
+                request_timeout=300.0)
+        finally:
+            killer.cancel()
+            if killer.is_alive():
+                killer.join()
+    base_frac = baseline["goodput"]["fraction"]
+    chaos_frac = chaos["goodput"]["fraction"]
+    server = chaos.get("server", {})
+    return {
+        "model": _model_info(family, cfg, params),
+        "slots": slots,
+        "replicas": 2,
+        "offered_qps": chaos["qps"]["offered"],
+        "requests": chaos["requests"]["scheduled"],
+        "kill_at_s": round(kill_at, 3),
+        "slo_ttft_s": slo_ttft_s,
+        "slo_tpot_s": slo_tpot_s,
+        "baseline_slo_goodput": base_frac,
+        "chaos_slo_goodput": chaos_frac,
+        "chaos_goodput_ratio": round(
+            chaos_frac / max(base_frac, 1e-9), 4),
+        "chaos_errors": chaos["requests"]["error"],
+        "resumed_streams": server.get("resumed_streams", 0.0),
+        "lb_stream_resumes": server.get("lb_stream_resumes", {}),
+        "resume_gap": server.get("resume_gap"),
+        "schedule_sha256": chaos["schedule_sha256"],
+        "baseline_report_dir": baseline["out_dir"],
+        "chaos_report_dir": chaos["out_dir"],
+    }
+
+
 MODES = ("fixed", "engine", "paged", "q8", "spec", "prefix", "ckpt",
-         "tier")
+         "loadgen", "chaos", "tier")
 
 
 def main(argv=None) -> None:
@@ -710,8 +924,11 @@ def main(argv=None) -> None:
                         "the dense budget; q8: int8 KV and weights with "
                         "the capacity ratio; spec: speculative decoding "
                         "vs none on the chat mix; prefix: shared-prefix "
-                        "traffic; ckpt: checkpoint save/restore; tier: "
-                        "the host-RAM spill tier")
+                        "traffic; ckpt: checkpoint save/restore; "
+                        "loadgen: a replica behind the load balancer "
+                        "under the load generator, SLO-graded; chaos: "
+                        "two replicas, one killed mid-run; tier: the "
+                        "host-RAM spill tier")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=128)
     p.add_argument("--tokens", type=int, default=128)
@@ -724,6 +941,14 @@ def main(argv=None) -> None:
                    help="prefix mode: shared system-prompt tokens")
     p.add_argument("--spec-k", type=int, default=4,
                    help="spec mode: drafted tokens per slot per step")
+    p.add_argument("--qps", type=float, default=6.0,
+                   help="loadgen mode: offered Poisson arrival rate")
+    p.add_argument("--duration", type=float, default=8.0,
+                   help="loadgen mode: trace length in seconds")
+    p.add_argument("--slo-ttft", type=float, default=3.0,
+                   help="loadgen mode: TTFT SLO in seconds")
+    p.add_argument("--slo-tpot", type=float, default=0.5,
+                   help="loadgen mode: per-output-token SLO in seconds")
     p.add_argument("--dim", type=int, default=None)
     p.add_argument("--layers", type=int, default=None)
     p.add_argument("--experts", type=int, default=None)
@@ -754,6 +979,13 @@ def main(argv=None) -> None:
                                        **shape_kw)
     elif args.mode == "ckpt":
         result = measure_ckpt(args.family, repeats=args.repeats, **shape_kw)
+    elif args.mode in ("loadgen", "chaos"):
+        measure = (measure_engine_slo if args.mode == "loadgen"
+                   else measure_engine_chaos)
+        result = measure(args.family, slots=args.slots, qps=args.qps,
+                         duration_s=args.duration,
+                         slo_ttft_s=args.slo_ttft,
+                         slo_tpot_s=args.slo_tpot, **shape_kw)
     elif args.mode == "tier":
         result = measure_engine_tier(args.family, **engine, **shape_kw)
     else:

@@ -1,6 +1,6 @@
 """The port's copy of the JAX package's ``observability/metrics.py`` (it imports
-nothing of that package): the registry and ``render``, as there; the
-load balancer's ``merge_text`` and the textfile ``dump_to_file`` are not
+nothing of that package): the registry, ``render`` and the load
+balancer's ``merge_text``, as there; the textfile ``dump_to_file`` is not
 copied.
 
 Thread-safe metrics registry with Prometheus text exposition.
@@ -359,3 +359,26 @@ def histogram(name: str, help_text: str = "",
 
 def render(registry: Optional[Registry] = None) -> str:
     return (registry or REGISTRY).render()
+
+
+def merge_text(primary: str, extra: str) -> str:
+    """Concatenate two exposition documents, dropping ``extra``'s
+    families whose name already appears in ``primary`` — duplicate
+    HELP/TYPE blocks make the whole scrape invalid to Prometheus.
+    Needed because two processes can both import a module that
+    registers a family (e.g. the controller imports the LB module for
+    RequestRecorder): the live process's series win, the other side's
+    zero-valued copies are dropped."""
+    seen = {line.split()[2] for line in primary.splitlines()
+            if line.startswith("# TYPE ")}
+    out_lines: List[str] = []
+    keep = True
+    for line in extra.splitlines():
+        if line.startswith("# HELP "):
+            keep = line.split()[2] not in seen
+        if keep:
+            out_lines.append(line)
+    merged_extra = "\n".join(out_lines)
+    if not merged_extra.strip():
+        return primary
+    return primary + merged_extra + "\n"

@@ -1,6 +1,7 @@
 """The port's copy of the JAX package's ``observability/reqlog.py`` (it imports
-nothing of that package): arming, the sampling rule and the record
-writer, as there; its readers (``read``, ``is_slow``) are not copied.
+nothing of that package): arming, the sampling rule, the record writer
+and ``read`` (the load balancer's ``/requests``), as there; the CLI's
+``is_slow`` is not copied.
 
 Wide-event request analytics: ONE joined record per served request.
 
@@ -64,7 +65,7 @@ import os
 import random
 import threading
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 ENABLE_ENV = "STPU_REQLOG"
 SAMPLE_ENV = "STPU_REQLOG_SAMPLE"
@@ -186,6 +187,35 @@ def _write(record: Dict[str, Any]) -> None:
     except OSError:
         return
     jsonl_log.append_line(path, line, _MAX_BYTES, _lock)
+
+
+# -------------------------------------------------------------- reading
+def read(path: Optional[str] = None,
+         request_id: Optional[str] = None) -> List[Dict[str, Any]]:
+    """All request records (rotated generation included, oldest first);
+    garbage lines skipped — a crash mid-append leaves at most one
+    truncated line. ``request_id`` accepts an unambiguous prefix (the
+    trace-id abbreviation convention)."""
+    target = str(path or requests_path())
+    out: List[Dict[str, Any]] = []
+    for p in (target + ".1", target):
+        try:
+            with open(p, "r", errors="replace") as f:
+                data = f.read()
+        except OSError:
+            continue
+        for line in data.splitlines():
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if not isinstance(rec, dict) or "request_id" not in rec:
+                continue
+            if (request_id is not None
+                    and not str(rec["request_id"]).startswith(request_id)):
+                continue
+            out.append(rec)
+    return out
 
 
 # Arm from the environment at import: operators export STPU_REQLOG=1

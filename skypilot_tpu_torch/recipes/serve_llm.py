@@ -27,12 +27,12 @@ GB in bf16, more than one 80 GB card holds: ``--model mixtral-8x7b
 --weight-quant 1`` draws its int8 tree a layer at a time (46.7 GB), and
 a tree that does not fit the card's free memory is refused before it is
 drawn.
-Runs on the card unless given ``--device cpu``. Not ported yet, and
-refused with a ValueError: gang and tensor-parallel replicas
-(``--replica-hosts`` > 1, ``--tp`` > 1, ``SKYPILOT_NUM_NODES`` > 1 or a
-``SKYPILOT_NODE_RANK`` > 0) and the co-located load balancer
-(``--lb-port``: run the JAX package's load balancer process in front
-instead).
+Runs on the card unless given ``--device cpu``. ``--lb-port N`` also
+starts the port's load balancer (``serve/load_balancer.py``) in the same
+process on port N, fronting this replica (``--lb-policy round_robin`` or
+``prefix_affinity``). Not ported yet, and refused with a ValueError: gang
+and tensor-parallel replicas (``--replica-hosts`` > 1, ``--tp`` > 1,
+``SKYPILOT_NUM_NODES`` > 1 or a ``SKYPILOT_NODE_RANK`` > 0).
 """
 from __future__ import annotations
 
@@ -55,28 +55,14 @@ from skypilot_tpu_torch.observability import reqlog
 from skypilot_tpu_torch.observability import stepstats
 from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.serve import decode_engine
+from skypilot_tpu_torch.serve import load_balancer as lb_lib
+from skypilot_tpu_torch.serve import load_balancing_policies
 from skypilot_tpu_torch.serve import prng
 from skypilot_tpu_torch.utils import fault_injection
 
 # The gang env contract (the JAX package's ``agent/constants.py``).
 NODE_RANK = "SKYPILOT_NODE_RANK"
 NUM_NODES = "SKYPILOT_NUM_NODES"
-
-
-def write_chunk(wfile, data: bytes) -> None:
-    """One HTTP/1.1 chunked-transfer frame, flushed immediately (the JAX
-    package's ``serve/load_balancer.write_chunk``)."""
-    wfile.write(f"{len(data):x}\r\n".encode())
-    wfile.write(data)
-    wfile.write(b"\r\n")
-    wfile.flush()
-
-
-def end_chunks(wfile) -> None:
-    """Chunked-transfer terminator."""
-    wfile.write(b"0\r\n\r\n")
-    wfile.flush()
-
 
 
 # Request limits: prompt/decode lengths are padded to buckets (the
@@ -629,7 +615,7 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
 
         def emit(payload: str) -> None:
-            write_chunk(self.wfile, f"data: {payload}\n\n".encode())
+            lb_lib.write_chunk(self.wfile, f"data: {payload}\n\n".encode())
 
         t0 = time.perf_counter() if span is not None else 0.0
         sent = 0
@@ -643,7 +629,7 @@ class _Handler(BaseHTTPRequestHandler):
             if reqlog.ENABLED and req is not None:
                 self._emit_stats_frame(req)
             emit("[DONE]")
-            end_chunks(self.wfile)
+            lb_lib.end_chunks(self.wfile)
             if span is not None:
                 # Stream-delivery child span: first flush → [DONE].
                 tracing.record_span("replica.stream", "replica",
@@ -681,7 +667,7 @@ class _Handler(BaseHTTPRequestHandler):
             half["weight_quant"] = bool(kv.get("weight_quant"))
             half["kv_paged"] = bool(kv.get("paged"))
             half["restarts"] = int(getattr(engine, "restarts", 0))
-        write_chunk(self.wfile,
+        lb_lib.write_chunk(self.wfile,
                     b"event: stats\ndata: "
                     + json.dumps(half, default=str).encode()
                     + b"\n\n")
@@ -882,10 +868,6 @@ def _refuse_not_ported(args) -> None:
             "gang and tensor-parallel serving (--replica-hosts > 1, --tp "
             f"> 1, {NUM_NODES} > 1, {NODE_RANK} > 0) are not ported yet: "
             "the port's replica serves on one card")
-    if args.lb_port:
-        raise ValueError(
-            "the co-located load balancer (--lb-port) is not ported: run "
-            "the JAX package's load balancer in front of this replica")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -966,13 +948,30 @@ def _parser() -> argparse.ArgumentParser:
                         "the replica reports permanently unhealthy "
                         "(default env STPU_ENGINE_MAX_RESTARTS or 3)")
     p.add_argument("--lb-port", type=int, default=0,
-                   help="the co-located load balancer: not ported, "
-                        "raises")
+                   help="also start an in-process load balancer on "
+                        "this port fronting the replica — the "
+                        "single-host dev analog of the `stpu serve` "
+                        "data plane")
+    p.add_argument("--lb-policy",
+                   choices=sorted(
+                       load_balancing_policies.POLICIES),
+                   default=None,
+                   help="routing policy for the --lb-port balancer; "
+                        "prefix_affinity keeps shared-prefix traffic "
+                        "on the replica whose prefix cache is warm. "
+                        "Deployed services set "
+                        "service.load_balancing_policy in the YAML "
+                        "instead.")
     return p
 
 
 def main(argv=None):
-    args = _parser().parse_args(argv)
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.lb_policy and not args.lb_port:
+        p.error("--lb-policy only configures the --lb-port balancer; "
+                "deployed services set service.load_balancing_policy "
+                "in the YAML")
     _refuse_not_ported(args)
     device = resolve_device(args.device)
     cfg, params = _build_model(args, device)
@@ -998,6 +997,13 @@ def main(argv=None):
             stepstats.dump_flight("sigterm")
         os._exit(143)
     signal.signal(signal.SIGTERM, _term)
+    if args.lb_port:
+        policy = load_balancing_policies.make_policy(args.lb_policy)
+        policy.set_ready_replicas([f"http://127.0.0.1:{args.port}"])
+        lb_lib.run_load_balancer(args.lb_port, policy,
+                                 lb_lib.RequestRecorder())
+        print(f"serve_llm: LB ({args.lb_policy or 'round_robin'}) "
+              f"on :{args.lb_port}", flush=True)
     print(f"serve_llm: listening on :{args.port}", flush=True)
     httpd.serve_forever()
 

@@ -38,6 +38,14 @@ The port's points:
                  restore_latest must skip)
     train.step   recipes' training loops, after each optimizer step
                  (``skip=K`` + ``kill``: a crash at a chosen step)
+    lb.upstream  serve/load_balancer._proxy_to, before the upstream
+                 connect (a replica failing before its first byte)
+    lb.stream    serve/load_balancer._read1, once per upstream read of a
+                 proxied body (``skip=K`` + ``raise``: a stream killed
+                 after K reads, for the resume journal)
+    controller.sync
+                 serve/load_balancer.run_lb_process, the controller sync
+                 call failing
 """
 from __future__ import annotations
 

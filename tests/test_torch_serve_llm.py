@@ -6,11 +6,13 @@ non-streamed JSON), the trailing stats frame with the same keys, a
 /metrics and the 400s on bad bodies; the port's replica behind the JAX
 package's load balancer; the same bytes from a Gemma replica pair (its
 tiny config); the --model choices built through their family's init; a
-mixtral-tiny replica on the CPU; and the replica kinds not ported refusing
-to start."""
+mixtral-tiny replica on the CPU; ``--lb-port``/``--lb-policy`` parsed and
+refused as JAX's, and main fronting its replica with the port's balancer;
+and the replica kinds not ported refusing to start."""
 import dataclasses
 import http.client
 import json
+import socket
 import threading
 import time
 import types
@@ -106,6 +108,12 @@ def _call(httpd, method, path, body=None):
     data = resp.read()
     conn.close()
     return resp.status, data
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _frames(data: bytes):
@@ -312,13 +320,91 @@ def test_legacy_locked_path_streams_jax_tokens():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--lb-port", "9"], "load balancer"),
+    (["--lb-port", "9", "--tp", "2"], "gang"),
     (["--replica-hosts", "2"], "gang"),
     (["--tp", "2"], "gang"),
 ], ids=["lb-port", "replica-hosts", "tp"])
 def test_main_refuses_what_is_not_ported(argv, match):
+    """Gang and tensor-parallel replicas are refused, with a co-located
+    load balancer asked for too."""
     with pytest.raises(ValueError, match=match):
         serve_torch.main(argv + ["--device", "cpu", "--port", "0"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--lb-port", "9"], ["--lb-port", "9", "--lb-policy", "round_robin"],
+    ["--lb-port", "9", "--lb-policy", "prefix_affinity"]])
+def test_lb_flags_parse_as_jax(argv):
+    args = serve_torch._parser().parse_args(argv)
+    assert (args.lb_port, args.lb_policy) == (
+        9, argv[-1] if "--lb-policy" in argv else None)
+
+
+@pytest.mark.parametrize("argv", [["--lb-policy", "round_robin"],
+                                  ["--lb-port", "9", "--lb-policy", "x"]],
+                         ids=["policy-without-port", "unknown-policy"])
+def test_lb_flag_errors_equal_jax(argv, capsys):
+    """--lb-policy without --lb-port, and an unknown policy, exit 2 with
+    JAX's parser error."""
+    errors = []
+    for module in (serve_jax, serve_torch):
+        with pytest.raises(SystemExit) as e:
+            module.main(argv)
+        assert e.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0] == errors[1]
+    assert "--lb-policy" in errors[1]
+
+
+def test_main_fronts_the_replica_with_its_balancer(monkeypatch, capsys):
+    """``--lb-port N --lb-policy prefix_affinity``: main starts the port's
+    balancer on N in front of the replica, prints JAX's line, and a
+    request through it gets the replica's own bytes."""
+    from skypilot_tpu_torch.serve import load_balancer as lb_torch
+    served, lbs = [], []
+    real_serve, real_lb = serve_torch.serve, lb_torch.run_load_balancer
+
+    def spy(cfg, params, port, **kw):
+        ready = threading.Event()
+        served.append((ready, real_serve(cfg, params, port,
+                                         ready_event=ready, **kw)))
+        return served[-1][-1]
+
+    def lb_spy(*a, **kw):
+        lbs.append(real_lb(*a, **kw))
+        return lbs[-1]
+
+    monkeypatch.setattr(serve_torch, "serve", spy)
+    monkeypatch.setattr(lb_torch, "run_load_balancer", lb_spy)
+    monkeypatch.setattr(serve_torch.signal, "signal", lambda *a: None)
+    port, lb_port = _free_port(), _free_port()
+    main = threading.Thread(target=serve_torch.main, daemon=True, args=(
+        ["--device", "cpu", "--port", str(port), "--engine-slots", "2",
+         "--lb-port", str(lb_port), "--lb-policy", "prefix_affinity"],))
+    main.start()
+    try:
+        for _ in range(1200):
+            if lbs or not main.is_alive():
+                break
+            time.sleep(0.1)
+        ready, httpd = served[0]
+        assert ready.wait(timeout=120)
+        assert type(lbs[0].RequestHandlerClass.policy).__name__ == \
+            "PrefixAffinityPolicy"
+        body = dict(GREEDY, max_tokens=4)
+        via = _call(lbs[0], "POST", "/generate", body)
+        assert via == _call(httpd, "POST", "/generate", body)
+        assert via[0] == 200
+    finally:
+        for lb in lbs:
+            lb.shutdown()
+            lb.server_close()
+        if served:
+            _stop(served[0][1])
+    main.join(timeout=60)
+    assert not main.is_alive()
+    assert f"serve_llm: LB (prefix_affinity) on :{lb_port}" in \
+        capsys.readouterr().out
 
 
 @pytest.mark.parametrize("weight_quant", ["0", "1"])
