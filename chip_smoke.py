@@ -76,6 +76,23 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    show every step went through the three resident kernels (2L/L/L);
    one forward's loss through the kernels must match the reference
    attention's;
+5b. parallel: distributed.initialize_from_env() on the machine's env
+   must give the single-process context, and make_mesh of dp, fsdp, sp
+   and tp at 1 a world-1 NCCL group (backend and world size printed);
+   the slice's configuration and seed then take 8 steps through
+   make_train_step(..., mesh=, rules=DEFAULT_RULES), the state placed
+   by state_shardings and place_state, beside the one-device step from
+   a copy of the same weights: losses finite and falling, each within
+   LOSS_TOL of the one-device step's, launches exactly the slice's
+   (2L/L/L resident); prints the largest parameter difference and both
+   median step times; attention_impl="ring" at sp 1 (one forward on the
+   trained weights: L resident forward launches, loss within LOSS_TOL of
+   "auto"'s) and forward_pipelined at 2 microbatches against forward
+   (PIPE_REL_TOL); then the ring's chunk arithmetic
+   (ring_attention.ring_chunks) at Llama-3-8B's attention shape (1 x
+   8192, 32 heads, 8 KV heads, head_dim 128) in 4 chunks, causal and
+   not, output and gradients against the flash op (triangular causal,
+   streamed not) within OUT_REL_TOL / GRAD_REL_TOL, both timed;
 6. long context: the same width at batch 1 x seq 8192, remat policy
    save_flash_offload_qkv, chunked cross entropy through
    make_train_step(trunk_fn=..., head_fn=...), 8 steps; the loss must
@@ -246,6 +263,7 @@ Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
 the port from beside itself). Imports nothing of JAX.
 """
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import gc
@@ -409,6 +427,15 @@ HEAD_DIMS = (64, 128, 256)
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
 TRAIN_STEPS = 8
+# The parallel phase: [slice]'s configuration on a world-1 mesh of every
+# training axis, and the ring's chunk arithmetic at Llama-3-8B's
+# attention shape (its published context, batch 1) cut into RING_CHUNKS
+# chunks, against the flash op; forward_pipelined at two microbatches
+# against forward, norm-relative (bf16 logits of two batchings).
+PAR_AXES = {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}
+RING_SHAPE = (1, 8192, 32, 8, 128)
+RING_CHUNKS = 4
+PIPE_REL_TOL = 2e-2
 # The long-context phase: JAX bench's long-context leg at its headline
 # point (Llama-3-8B's published context), depth cut to 4 layers.
 LC_LAYERS, LC_BATCH, LC_SEQ = 4, 1, 8192
@@ -1600,6 +1627,181 @@ def phase_slice(fa, llama, trainer, records):
           f"{out['reference']:.5f} |diff| {diff:.2e} (tol {LOSS_TOL})",
           flush=True)
     check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
+
+
+def _slice_setup(llama):
+    """[slice]'s weights and tokens, from its seed."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=N_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+                           generator=gen)
+    return cfg, params, tokens
+
+
+def _timed_steps(fa, step, state, batch):
+    """TRAIN_STEPS steps from zeroed launch counts: (losses, step seconds,
+    launches)."""
+    fa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return [float(x) for x in losses], step_s, dict(fa.LAUNCHES)
+
+
+def _steady_ms(step_s):
+    rest = sorted(step_s[1:])
+    return rest[len(rest) // 2] * 1e3
+
+
+def phase_parallel(fa, llama, trainer, attention_ops):
+    """The training-across-ranks layer on the one card: the env
+    bring-up, a world-1 NCCL mesh of every training axis, the sharded
+    step against the one-device step from the same weights, the ring's
+    fallback and its chunk arithmetic at full size, and the pipeline's
+    fallback."""
+    import torch.distributed as dist
+
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import ring_attention
+    from skypilot_tpu_torch.train import distributed
+    t_phase = time.perf_counter()
+    ctx = distributed.initialize_from_env()
+    print(f"[parallel] env context {ctx}", flush=True)
+    check(not ctx.initialized and not ctx.is_multiprocess,
+          "initialize_from_env brought up a group on one process")
+    mesh = mesh_lib.make_mesh(PAR_AXES)
+    print(f"[parallel] mesh {mesh}: backend {dist.get_backend()}, world "
+          f"size {dist.get_world_size()}", flush=True)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "the world-1 mesh is not an NCCL group of one process")
+    rules = mesh_lib.DEFAULT_RULES
+    try:
+        _parallel_step(fa, llama, trainer, mesh, rules)
+        _parallel_ring(ring_attention, attention_ops)
+    finally:
+        dist.destroy_process_group()
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _parallel_step(fa, llama, trainer, mesh, rules):
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg, params, tokens = _slice_setup(llama)
+    plain = copy.deepcopy(params)
+    batch = {"tokens": tokens}
+    tcfg = trainer.TrainConfig(warmup_steps=1, total_steps=100)
+    tx = trainer.make_optimizer(tcfg)
+    state = trainer.init_train_state(plain, tx)
+    step = trainer.make_train_step(lambda p, t: llama.forward(cfg, p, t), tx,
+                                   with_grad_norm=False)
+    losses_1, step_1, _ = _timed_steps(fa, step, state, batch)
+    del state, step
+    tx = trainer.make_optimizer(tcfg)
+    state = trainer.init_train_state(params, tx)
+    state = trainer.place_state(state, trainer.state_shardings(
+        mesh, rules, llama.param_specs(cfg), state), tx)
+    step = trainer.make_train_step(lambda p, t: llama.forward(cfg, p, t), tx,
+                                   with_grad_norm=False, mesh=mesh,
+                                   rules=rules)
+    losses, step_s, launches = _timed_steps(fa, step, state, batch)
+    print(f"[parallel] sharded step losses {[round(x, 4) for x in losses]}"
+          f"; one-device {[round(x, 4) for x in losses_1]}", flush=True)
+    print(f"[parallel] sharded step launches {launches}", flush=True)
+    check(_finite(losses) and losses[-1] < losses[0],
+          "sharded step: non-finite loss or loss did not fall")
+    worst = max(abs(a - b) for a, b in zip(losses, losses_1))
+    check(worst <= LOSS_TOL, f"sharded step loss off the one-device step's "
+          f"by {worst:.3e} (tol {LOSS_TOL})")
+    check(launches == _step_expect(launches, N_LAYERS, TRAIN_STEPS),
+          f"sharded step launch counts {launches} (2L resident forward, L "
+          "dq, L dk/dv per step)")
+    with torch.no_grad():
+        diff = max((p.full_tensor().float() - q.float()).abs().max().item()
+                   for p, q in zip(state.params.parameters(),
+                                   plain.parameters()))
+    print(f"[parallel] sharded vs one-device: largest loss |diff| "
+          f"{worst:.3e} (tol {LOSS_TOL}), largest parameter |diff| after "
+          f"{TRAIN_STEPS} steps {diff:.3e}; step {_steady_ms(step_s):.1f} ms"
+          f" sharded (world 1, DTensor + NCCL) vs "
+          f"{_steady_ms(step_1):.1f} ms one-device (median of steps 2-"
+          f"{TRAIN_STEPS})", flush=True)
+    del plain
+
+    # The ring at sp 1 falls back to the flash op; the pipeline at pp 1 to
+    # the layers in turn. Both on the trained, placed weights.
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    loss = {}
+    with torch.no_grad(), mesh_lib.use_mesh(mesh, rules):
+        for impl in ("auto", "ring"):
+            fa.reset_launches()
+            logits = llama.forward(dataclasses.replace(
+                fwd_cfg, attention_impl=impl), state.params, tokens)
+            launches = dict(fa.LAUNCHES)
+            loss[impl] = float(trainer.cross_entropy_loss(
+                logits[:, :-1], tokens[:, 1:]))
+            print(f"[parallel] forward impl={impl}: loss {loss[impl]:.5f}, "
+                  f"launches {launches}", flush=True)
+            expect = dict.fromkeys(launches, 0)
+            expect["flash_fwd"] = N_LAYERS
+            check(launches == expect, f"impl={impl} forward launches "
+                  f"{launches} != {expect}")
+            if impl == "auto":
+                ref = logits
+            del logits
+    check(abs(loss["ring"] - loss["auto"]) <= LOSS_TOL,
+          "ring at sp 1 disagrees with the flash op")
+    with torch.no_grad():
+        piped = llama.forward_pipelined(fwd_cfg, state.params, tokens,
+                                        mesh=mesh, rules=rules,
+                                        num_microbatches=2)
+    rel = _rel([piped], [ref])
+    print(f"[parallel] forward_pipelined (2 microbatches, pp 1) vs forward: "
+          f"logits rel {rel:.3e} (tol {PIPE_REL_TOL})", flush=True)
+    check(piped.shape == ref.shape and rel <= PIPE_REL_TOL,
+          "forward_pipelined disagrees with forward")
+    del piped, ref, state
+
+
+def _parallel_ring(ring_attention, attention_ops):
+    for causal in (True, False):
+        shape = RING_SHAPE + (causal,)
+        q, k, v, do = _inputs(shape, 11)
+
+        def ring_grads():
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = ring_attention.ring_chunks(*leaves, RING_CHUNKS,
+                                             causal=causal)
+            return out.detach(), torch.autograd.grad((out * do).sum(),
+                                                     leaves)
+
+        out, grads = ring_grads()
+        ref, ref_grads = _op_grads(attention_ops, q, k, v, causal, do)
+        label = f"[parallel] ring x{RING_CHUNKS}"
+        _hold(label, shape,
+              [("o", (out, ref), OUT_REL_TOL)] +
+              [(n, (g, r), GRAD_REL_TOL) for n, g, r in
+               zip(("dq", "dk", "dv"), grads, ref_grads)])
+        del out, grads, ref, ref_grads
+        with torch.no_grad():
+            ring_fwd = time_ms(lambda: ring_attention.ring_chunks(
+                q, k, v, RING_CHUNKS, causal=causal), 3, warmup=1)
+            op_fwd = time_ms(lambda: attention_ops.attention(
+                q, k, v, causal=causal), 5, warmup=1)
+        ring_all = time_ms(ring_grads, 3, warmup=1)
+        op_all = time_ms(lambda: _op_grads(attention_ops, q, k, v, causal,
+                                           do), 5, warmup=1)
+        print(f"{label} {shape}: forward {ring_fwd:.2f} ms vs the flash op "
+              f"{op_fwd:.2f} ms; forward + backward {ring_all:.2f} ms vs "
+              f"{op_all:.2f} ms", flush=True)
+        del q, k, v, do
+        torch.cuda.empty_cache()
 
 
 def phase_long_context(fa, llama, trainer, records):
@@ -3648,6 +3850,8 @@ def main() -> int:
         phase_streamed(fa, attention_ops, records)
         torch.cuda.empty_cache()
         phase_slice(fa, llama, trainer, records)
+        torch.cuda.empty_cache()
+        phase_parallel(fa, llama, trainer, attention_ops)
         torch.cuda.empty_cache()
         phase_long_context(fa, llama, trainer, records)
         phase_tiny(fa, llama, trainer)

@@ -10,7 +10,10 @@ format (``train.checkpoint``); the LoRA recipe with bit-identical resume
 (``recipes.llama_lora``, on ``recipes.synthetic_data``); and flash
 attention as hand-written sm_90a CUDA kernels (``ops.flash_attention``,
 sources under ``csrc/``). ``convert`` moves parameters and adapters
-between the two packages. The serving half: the models' KV-cache decode
+between the two packages. Across ranks (one process per card): the
+process group on the env contract (``train.distributed``), the mesh,
+sharding rules and placement (``parallel``), the sharded train step,
+ring attention and the GPipe pipeline. The serving half: the models' KV-cache decode
 (``models.llama``), the continuous-batching engine (``serve``) and its
 HTTP replica (``recipes.serve_llm``), with the observability modules
 they report through (``observability``).
@@ -21,6 +24,7 @@ versions. Without a card and without that request they raise.
 """
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import numpy as np
@@ -30,16 +34,18 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``cuda:0`` by default; raises when CUDA is absent. The CPU only on
-    request (``device="cpu"``), never as a silent fallback. A card is
-    returned with its index (``"cuda"`` -> ``cuda:<current>``), as a
-    tensor's ``.device`` names it."""
+    """The process's card by default: ``cuda:<LOCAL_RANK>``, the card
+    torchrun gives each process of a node (``cuda:0`` for a plain
+    launch); raises when CUDA is absent. The CPU only on request
+    (``device="cpu"``), never as a silent fallback. A card is returned
+    with its index (``"cuda"`` -> ``cuda:<current>``), as a tensor's
+    ``.device`` names it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "skypilot_tpu_torch runs on a CUDA device and none is "
                 "available; pass device='cpu' to run the plain CPU path")
-        return torch.device("cuda", 0)
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -233,3 +233,34 @@ def cache_from_jax(cache_np: Dict[str, Any],
 def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """A serving cache as the JAX package's dict of numpy arrays."""
     return {k: to_numpy(v) for k, v in cache.items()}
+
+
+def shard_params(module: torch.nn.Module, mesh, rules, specs) -> torch.nn.Module:
+    """Place a port tree (``llama_params_from_jax``,
+    ``gemma_params_from_jax``; every process builds the same one) onto
+    ``mesh`` by ``rules`` and the model's ``param_specs``: its parameters
+    become DTensors, each process keeping its shard, in place
+    (``parallel/placement.py``)."""
+    from skypilot_tpu_torch.parallel import placement
+    return placement.place_module(
+        module, placement.param_shardings(module, mesh, rules, specs), mesh)
+
+
+def gather_params(module: torch.nn.Module, mesh=None) -> Dict[str, Any]:
+    """The inverse of ``shard_params``: every parameter whole (a stage's
+    layers broadcast from that stage), as numpy in the JAX tree's layout
+    (``llama_params_to_numpy``'s), on every process; every process calls
+    it."""
+    from skypilot_tpu_torch.parallel import placement
+
+    def whole(p):
+        return to_numpy(placement.gather_tensor(p, mesh))
+    out = {}
+    for name in ("embed", "embed_scale", "final_norm", "lm_head",
+                 "lm_head_scale"):
+        if getattr(module, name, None) is not None:
+            out[name] = whole(getattr(module, name))
+    names = [n for n, _ in module.layers[0].named_parameters()]
+    out["layers"] = {n: np.stack([whole(getattr(lp, n))
+                                  for lp in module.layers]) for n in names}
+    return out

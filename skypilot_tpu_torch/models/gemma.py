@@ -42,7 +42,7 @@ class GemmaConfig:
     norm_eps: float = 1e-6
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    attention_impl: str = "auto"  # auto|kernel|reference
+    attention_impl: str = "auto"  # auto|kernel|reference|ring
     remat: bool = True
     remat_policy: str = "full"   # one of llama.REMAT_POLICIES
 
@@ -129,6 +129,8 @@ def init(cfg: GemmaConfig, generator: torch.Generator,
 # serving loop across the dense families, as in the JAX package.
 forward = llama.forward
 forward_trunk = llama.forward_trunk
+# llama's specs read the config's tie: no lm_head entry when tied.
+param_specs = llama.param_specs
 head_weights = llama.head_weights
 init_cache = llama.init_cache
 quantize_params = llama.quantize_params

@@ -80,6 +80,9 @@ from skypilot_tpu_torch import DeviceLike, resolve_device, to_device
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops.linear import matmul_f32
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import pipeline as pipeline_lib
+from skypilot_tpu_torch.parallel import placement, ring_attention
 
 REMAT_POLICIES = ("full", "save_flash", "save_flash_qkv",
                   "save_flash_offload_qkv")
@@ -98,7 +101,7 @@ class LlamaConfig:
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
-    attention_impl: str = "auto"  # auto|kernel|reference
+    attention_impl: str = "auto"  # auto|kernel|reference|ring
     remat: bool = True
     # One of REMAT_POLICIES; see the module docstring.
     remat_policy: str = "full"
@@ -152,6 +155,43 @@ def layer_shapes(cfg: LlamaConfig) -> dict:
         "w_up": (d, cfg.mlp_dim),
         "w_down": (cfg.mlp_dim, d),
     }
+
+
+def param_specs(cfg, *, quantized: bool = False) -> dict:
+    """Logical-axis names for every parameter, mirroring ``init``'s tree:
+    the JAX package's ``param_specs`` with the stacked ``layers`` axis
+    dropped, since the port holds one module per layer; its ``layers``
+    entry applies to each of them (``PIPELINE_RULES``' ``"layers": pp``
+    becomes a layer's stage, ``parallel/placement.py``).
+
+    ``quantized`` mirrors :func:`quantize_params`' tree: every int8
+    weight keeps its spec and gains a ``<name>_scale`` entry whose spec is
+    the weight's output axis."""
+    specs = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("embed",),
+            "wq": ("embed", "q_heads_x_dim"),
+            "wk": ("embed", "kv_heads_x_dim"),
+            "wv": ("embed", "kv_heads_x_dim"),
+            "wo": ("q_heads_x_dim", "embed"),
+            "mlp_norm": ("embed",),
+            "w_gate": ("embed", "mlp"),
+            "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+    if cfg.tie_embeddings:
+        specs.pop("lm_head")
+    if quantized:
+        specs["embed_scale"] = ("vocab",)
+        for name in QUANT_LAYER_WEIGHTS:
+            specs["layers"][name + "_scale"] = (specs["layers"][name][-1],)
+        if "lm_head" in specs:
+            specs["lm_head_scale"] = ("vocab",)
+    return specs
 
 
 def _empty(shape, device, dtype) -> nn.Parameter:
@@ -262,13 +302,22 @@ def lora_dense(y: torch.Tensor, lp: nn.Module, name: str) -> torch.Tensor:
     return out
 
 
+def _tp_group(lp):
+    """The tp group a sharded layer view computes over (None otherwise)."""
+    return getattr(lp, "tp_group", None)
+
+
 def qkv_proj(cfg, y: torch.Tensor, lp: nn.Module, positions: torch.Tensor):
-    """Projection + RoPE; returns (q, k, v), v unroped."""
-    b, t = y.shape[0], y.shape[1]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = lora_dense(y, lp, "wq").reshape(b, t, h, hd)
-    kk = lora_dense(y, lp, "wk").reshape(b, t, kvh, hd)
-    vv = lora_dense(y, lp, "wv").reshape(b, t, kvh, hd)
+    """Projection + RoPE; returns (q, k, v), v unroped. On a tp-split
+    layer view, the local heads (``LayerView``)."""
+    b, t, hd = y.shape[0], y.shape[1], cfg.head_dim
+    y = placement.tp_copy(y, _tp_group(lp))
+    q = lora_dense(y, lp, "wq").reshape(b, t, -1, hd)
+    kk = lora_dense(y, lp, "wk").reshape(b, t, -1, hd)
+    vv = lora_dense(y, lp, "wv").reshape(b, t, -1, hd)
+    sel = getattr(lp, "kv_select", None)
+    if sel is not None:
+        kk, vv = kk[:, :, sel:sel + 1], vv[:, :, sel:sel + 1]
     return (rope(q, positions, cfg.rope_theta),
             rope(kk, positions, cfg.rope_theta), vv)
 
@@ -286,15 +335,18 @@ def mlp_block(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
     """Pre-norm gated-MLP residual block (SwiGLU or GeGLU by config)."""
     y = rms_norm(x, lp.mlp_norm, cfg.norm_eps,
                  getattr(cfg, "norm_offset", 0.0))
+    group = _tp_group(lp)
+    y = placement.tp_copy(y, group)
     gate = _mlp_activation(cfg)(lora_dense(y, lp, "w_gate"))
-    return x + lora_dense(gate * lora_dense(y, lp, "w_up"), lp, "w_down")
+    return x + placement.tp_reduce(
+        lora_dense(gate * lora_dense(y, lp, "w_up"), lp, "w_down"), group)
 
 
 def _attn_residual(cfg, x: torch.Tensor, attn: torch.Tensor,
                    lp: nn.Module) -> torch.Tensor:
     b, s, _ = x.shape
-    return x + lora_dense(attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp,
-                          "wo")
+    return x + placement.tp_reduce(
+        lora_dense(attn.reshape(b, s, -1), lp, "wo"), _tp_group(lp))
 
 
 def _attn_norm(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
@@ -306,19 +358,28 @@ def attention_block(cfg, x: torch.Tensor, lp: nn.Module,
                     positions: torch.Tensor) -> torch.Tensor:
     """Pre-norm GQA attention residual block."""
     q, kk, vv = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp, positions)
-    attn = attention_ops.attention(q, kk, vv, causal=True,
-                                   impl=cfg.attention_impl)
+    if cfg.attention_impl == "ring":
+        attn = ring_attention.ring_attention_from_context(q, kk, vv)
+    else:
+        attn = attention_ops.attention(q, kk, vv, causal=True,
+                                       impl=cfg.attention_impl)
     return _attn_residual(cfg, x, attn, lp)
 
 
 def embed_tokens(params: LlamaParams, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding: a gather (single device)."""
-    return F.embedding(tokens, params.embed)
+    """Token embedding: a gather of the table's rows. A table placed on a
+    mesh (vocab over tp, embed over fsdp) is gathered whole first
+    (``placement.compute_view``), so every process reads the same rows
+    as one device does; its gradient goes back to the shards."""
+    return F.embedding(tokens, placement.compute_view(params.embed))
 
 
 def head_weights(params: LlamaParams) -> torch.Tensor:
-    """(dim, vocab) output projection: the untied head or embed^T."""
-    return params.embed.t() if params.lm_head is None else params.lm_head
+    """(dim, vocab) output projection: the untied head or embed^T (whole
+    on every process when placed on a mesh)."""
+    if params.lm_head is None:
+        return placement.compute_view(params.embed).t()
+    return placement.compute_view(params.lm_head)
 
 
 def _vocab_proj(params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
@@ -336,7 +397,7 @@ def _vocab_proj(params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
 
 def lm_head(cfg, params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
     """Final norm + output projection, fp32 logits."""
-    x = rms_norm(x, params.final_norm, cfg.norm_eps,
+    x = rms_norm(x, placement.compute_view(params.final_norm), cfg.norm_eps,
                  getattr(cfg, "norm_offset", 0.0))
     return _vocab_proj(params, x)
 
@@ -409,7 +470,11 @@ def _grads(outputs, inputs: dict, grad_outputs) -> dict:
 
 
 def layer_param_names(lp: nn.Module) -> Tuple[str, ...]:
-    """The layer's own parameters: its weights and any adapters."""
+    """The layer's own parameters: its weights and any adapters (a
+    ``LayerView``'s names when given one)."""
+    names = getattr(lp, "param_names", None)
+    if names is not None:
+        return names
     return tuple(n for n, _ in lp.named_parameters(recurse=False))
 
 
@@ -565,17 +630,22 @@ def _flash_remat_applies(cfg, x: torch.Tensor) -> bool:
 def forward_trunk(cfg: LlamaConfig, params: LlamaParams,
                   tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token ids (B, S) -> final-normed hidden states (B, S, dim)."""
+    """Token ids (B, S) -> final-normed hidden states (B, S, dim).
+
+    Under an ambient mesh (``mesh_lib.use_mesh``, as the sharded train
+    step enters it) the sharded forward: ``_forward_trunk_sharded``."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+    ambient = mesh_lib.current_mesh_rules()
+    if ambient is not None:
+        return _forward_trunk_sharded(cfg, params, tokens, positions,
+                                      ambient)
     x = embed_tokens(params, tokens)
     scale = getattr(cfg, "embed_multiplier", 1.0)
     if scale != 1.0:  # gemma: embeddings scaled by sqrt(dim)
         x = (x.float() * scale).to(x.dtype)
-    policy = _remat_policy(cfg) if cfg.remat else None
-    if policy not in (None, "full") and not _flash_remat_applies(cfg, x):
-        policy = "full"
+    policy = _layer_policy(cfg, x)
     for lp in params.layers:
         if policy is None:
             x = lp(cfg, x, positions)
@@ -593,6 +663,179 @@ def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token ids (B, S) -> fp32 logits (B, S, vocab)."""
     return _vocab_proj(params, forward_trunk(cfg, params, tokens, positions))
+
+
+# ------------------------------------------------------- the sharded forward
+
+# The dim of each layer weight that a tp-split layer consumes split: the
+# output columns of the column-split products, the input rows of the
+# row-split ones (Megatron's layout, DEFAULT_RULES' placement).
+TP_SPLIT_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1,
+                 "w_up": 1, "w_down": 0}
+_NORMS = ("attn_norm", "mlp_norm")
+
+
+class LayerView:
+    """A layer's weights as the sharded forward computes with them: each
+    parameter through ``placement.compute_view`` (gathered over the data
+    axes at use), read by the blocks as a layer module's attributes.
+
+    When the layer's products are stored split over a ``tp`` axis of
+    more than one rank (wq/wk/wv/w_gate/w_up by columns, wo/w_down by
+    rows), the view keeps them split and carries the tp group: the
+    blocks then work on the rank's heads and MLP columns, between
+    ``tp_copy`` and ``tp_reduce``. Key/value weights whose heads are
+    fewer than the tp ranks (Gemma's one KV head) are gathered whole,
+    and ``kv_select`` picks the head the rank's query heads read; their
+    gradient is summed over tp. Otherwise the view holds whole weights
+    and every tp rank computes the whole layer.
+    """
+
+    def __init__(self, cfg, lp: nn.Module, mesh):
+        names = tuple(n for n, _ in lp.named_parameters(recurse=False))
+        tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
+        split = tp > 1 and all(
+            placement.tp_sharded(getattr(lp, n), d)
+            for n, d in TP_SPLIT_DIMS.items() if n not in ("wk", "wv"))
+        self.param_names = names
+        self.tp_group = None
+        self.kv_select = None
+        kv_whole = False
+        if split:
+            extra = set(names) - set(TP_SPLIT_DIMS) - set(_NORMS)
+            if extra:
+                raise NotImplementedError(
+                    f"a tp-split layer with {sorted(extra)}: adapters and "
+                    "int8 scales are not split over tp")
+            kvh = cfg.n_kv_heads
+            if cfg.n_heads % tp or cfg.mlp_dim % tp:
+                raise ValueError(f"n_heads={cfg.n_heads} / mlp_dim="
+                                 f"{cfg.mlp_dim} not divisible by tp={tp}")
+            if not (kvh % tp == 0 and all(placement.tp_sharded(
+                    getattr(lp, n), 1) for n in ("wk", "wv"))):
+                if tp % kvh:
+                    raise NotImplementedError(
+                        f"n_kv_heads={kvh} neither divisible by nor "
+                        f"dividing tp={tp}")
+                kv_whole = True
+                self.kv_select = (mesh_lib.axis_index(mesh, mesh_lib.TP)
+                                  // (tp // kvh))
+            self.tp_group = mesh_lib.axis_group(mesh, mesh_lib.TP)
+        for n in names:
+            whole_kv = kv_whole and n in ("wk", "wv")
+            keep = TP_SPLIT_DIMS.get(n) if split and not whole_kv else None
+            setattr(self, n, placement.compute_view(
+                getattr(lp, n), keep_tp=keep, tp_partial=whole_kv))
+
+
+def _view_layer(cfg, policy, lp, x, positions, pair):
+    """One decoder layer of the sharded forward under a remat policy, on
+    the (mesh, rules) ``pair``, which it enters itself: a checkpoint's
+    recompute runs in the backward, outside the caller's ``use_mesh``."""
+    mesh = pair[0]
+    if policy not in (None, "full"):
+        view = LayerView(cfg, lp, mesh)
+        if view.tp_group is not None or view.kv_select is not None:
+            raise NotImplementedError(
+                f"remat_policy={policy!r} on a tp-split layer: the "
+                "save_flash* backward is not split over tp; use 'full'")
+        return _FlashRematLayer.apply(
+            cfg, policy, view, x, positions,
+            *(getattr(view, n) for n in view.param_names))
+
+    def run(x, positions):
+        with mesh_lib.use_mesh(*pair):
+            view = LayerView(cfg, lp, mesh)
+            x = attention_block(cfg, x, view, positions)
+            return mlp_block(cfg, x, view)
+
+    if policy is None:
+        return run(x, positions)
+    # The view (the weights' gather) is inside the checkpoint: the
+    # backward gathers again, and gathered weights live a layer at a time.
+    return checkpoint(run, x, positions, use_reentrant=False)
+
+
+def _layer_policy(cfg, x) -> Optional[str]:
+    policy = _remat_policy(cfg) if cfg.remat else None
+    if policy not in (None, "full") and not _flash_remat_applies(cfg, x):
+        policy = "full"
+    return policy
+
+
+def _forward_trunk_sharded(cfg, params, tokens, positions, pair):
+    """The trunk on a mesh: this process's (B, S) batch shard in, the
+    final-normed hidden states of its sequence chunk out (the whole
+    sequence unless ``sp`` > 1, where ring attention joins the chunks).
+    Parameters are read through ``placement.compute_view`` (gathered at
+    use, reduced in the backward); tp-split layers run Megatron-style
+    (``LayerView``)."""
+    mesh = pair[0]
+    sp = mesh_lib.axis_size(mesh, mesh_lib.SP)
+    if sp > 1:
+        if cfg.attention_impl != "ring":
+            raise NotImplementedError(
+                f"a mesh with sp={sp} needs attention_impl='ring' (the "
+                "sequence is split over sp)")
+        s = tokens.shape[1]
+        if s % sp:
+            raise ValueError(f"seq={s} not divisible by sp={sp}")
+        c, sl = mesh_lib.axis_index(mesh, mesh_lib.SP), s // sp
+        tokens = tokens[:, c * sl:(c + 1) * sl]
+        positions = positions[:, c * sl:(c + 1) * sl]
+    x = embed_tokens(params, tokens)
+    scale = getattr(cfg, "embed_multiplier", 1.0)
+    if scale != 1.0:  # gemma: embeddings scaled by sqrt(dim)
+        x = (x.float() * scale).to(x.dtype)
+    policy = _layer_policy(cfg, x)
+    for lp in params.layers:
+        x = _view_layer(cfg, policy, lp, x, positions, pair)
+    return rms_norm(x, placement.compute_view(params.final_norm),
+                    cfg.norm_eps, getattr(cfg, "norm_offset", 0.0))
+
+
+def forward_pipelined(cfg, params: LlamaParams, tokens: torch.Tensor, *,
+                      mesh, rules, num_microbatches: int,
+                      positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """GPipe-pipelined forward: the layers split into mesh ``pp`` stages
+    (placed by ``PIPELINE_RULES``: each stage's processes hold its
+    layers), the batch into microbatches; fp32 logits (B, S, vocab) on
+    every process (``parallel/pipeline.py``)."""
+    if cfg.attention_impl == "ring":
+        raise NotImplementedError(
+            "attention_impl='ring' is not supported under pipeline "
+            "parallelism: ring attention's shard_map over 'sp' cannot nest "
+            "inside the pipeline's shard_map over 'pp'. Use ring attention "
+            "with a dp/sp/tp mesh, or pipeline with impl='auto'.")
+    n_stages = mesh_lib.axis_size(mesh, mesh_lib.PP)
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"pp={n_stages}")
+    b, s = tokens.shape
+    m = num_microbatches
+    if b % m:
+        raise ValueError(f"batch={b} not divisible by microbatches={m}")
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    per = cfg.n_layers // n_stages
+    stages = [list(params.layers)[i * per:(i + 1) * per]
+              for i in range(n_stages)]
+    policy = "full" if cfg.remat else None
+
+    def stage_fn(layers, x_in, pos_in):
+        for lp in layers:
+            x_in = _view_layer(cfg, policy, lp, x_in, pos_in,
+                               (mesh, rules))
+        return x_in
+
+    with mesh_lib.use_mesh(mesh, rules):
+        x = embed_tokens(params, tokens)
+        d = x.shape[-1]
+        x = pipeline_lib.gpipe(stage_fn, stages, x.reshape(m, b // m, s, d),
+                               positions.reshape(m, b // m, s), mesh=mesh,
+                               num_microbatches=m)
+        return lm_head(cfg, params, x.reshape(b, s, d))
 
 
 # ------------------------------------------------------ int8 serving tree

@@ -23,9 +23,20 @@ MFU is None on the CPU and on a card missing from the peak table.
 
 Beside the JAX recipe: the optimizer is ``torch.optim.AdamW`` at optax
 ``adamw(lr)``'s defaults (its weight decay 1e-4 passed explicitly; torch's
-default is 1e-2); the RNG leaf is a torch generator's state; and
-multi-node runs (``SKYPILOT_NUM_NODES`` > 1) raise, the port having no
-``torch.distributed`` set-up yet.
+default is 1e-2); and the RNG leaf is a torch generator's state.
+
+Across ranks: ``distributed.initialize_from_env()`` brings up the group
+from the SKYPILOT_* env, one process per card (a gang host runs
+``torchrun --nproc-per-node <cards> -m
+skypilot_tpu_torch.recipes.llama_lora ...``). With more than one
+process, the frozen base is placed by ``param_specs`` on the mesh
+{"fsdp": all processes} under ``DEFAULT_RULES`` (each layer gathered at
+use), the adapters stay whole on every process, and their gradients are
+averaged over the processes, each of which draws its data from ``seed +
+rank``: one step on the global batch, as on a federated JAX slice. With
+one process there is no mesh, no group and no collective: the one-card
+step, which trainstats shows to be host-bound (dispatch is most of the
+step), keeps its path and its speed.
 """
 from __future__ import annotations
 
@@ -39,11 +50,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from skypilot_tpu_torch import callbacks, resolve_device
+from skypilot_tpu_torch import callbacks, convert, resolve_device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import trainstats
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.recipes import synthetic_data
 from skypilot_tpu_torch.train import checkpoint as checkpoint_lib
+from skypilot_tpu_torch.train import distributed
 from skypilot_tpu_torch.train import trainer
 from skypilot_tpu_torch.utils import fault_injection
 
@@ -52,9 +65,9 @@ LORA_TARGETS = ("wq", "wk", "wv", "wo")
 ADAMW_BETAS = (0.9, 0.999)
 ADAMW_EPS = 1e-8
 ADAMW_WEIGHT_DECAY = 1e-4
-# The framework's node env contract (skypilot_tpu/agent/constants.py).
-NODE_RANK_ENV = "SKYPILOT_NODE_RANK"
-NUM_NODES_ENV = "SKYPILOT_NUM_NODES"
+# The framework's node env contract.
+NODE_RANK_ENV = distributed.NODE_RANK
+NUM_NODES_ENV = distributed.NUM_NODES
 
 
 class LoraParams(nn.Module):
@@ -170,20 +183,41 @@ def load_adamw(opt: torch.optim.AdamW, lora: LoraParams,
                 "exp_avg_sq": nu["layers"][name][i].to(p.device).clone()}
 
 
+def _average_grads(plist: List[torch.Tensor]) -> None:
+    """Mean of the adapters' gradients over the processes, as one
+    all-reduce of their concatenation."""
+    grads = [p.grad for p in plist]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat)
+    flat /= torch.distributed.get_world_size()
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+
+
 def make_step_fn(model_lib, cfg, params: nn.Module, lora: LoraParams,
-                 opt: torch.optim.AdamW):
+                 opt: torch.optim.AdamW, mesh=None):
     """The JAX recipe's ``step_fn``: next-token CE of ``params`` (the
     base with the adapters merged), gradients of the adapters only, one
-    AdamW update; returns the loss, on the device."""
+    AdamW update; returns the loss, on the device. With a ``mesh`` the
+    forward runs on it (the base placed there) and the adapters'
+    gradients are averaged over its processes."""
     plist = list(lora.parameters())
 
     def step_fn(tokens: torch.Tensor) -> torch.Tensor:
         for p in plist:
             p.grad = None
-        logits = model_lib.forward(cfg, params, tokens)
+        if mesh is None:
+            logits = model_lib.forward(cfg, params, tokens)
+        else:
+            with mesh_lib.use_mesh(mesh, mesh_lib.DEFAULT_RULES):
+                logits = model_lib.forward(cfg, params, tokens)
         loss = trainer.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
         del logits
         loss.backward()
+        if mesh is not None:
+            _average_grads(plist)
         opt.step()
         for p in plist:
             p.grad = None
@@ -232,18 +266,6 @@ def main(argv=None) -> dict:
     return run_lora(llama, cfg, args, recipe_name="llama_lora")
 
 
-def _node_rank() -> int:
-    """This node's rank; more than one node raises (no torch.distributed
-    set-up in the port yet), never runs a multi-node job as one
-    process."""
-    num_nodes = int(os.environ.get(NUM_NODES_ENV, "1"))
-    if num_nodes > 1:
-        raise NotImplementedError(
-            f"{NUM_NODES_ENV}={num_nodes}: multi-node training is not "
-            "ported yet; run one node")
-    return int(os.environ.get(NODE_RANK_ENV, "0"))
-
-
 def init_model(model_lib, cfg, args, device: torch.device):
     """The frozen base and the step-0 adapters, both from ``--seed``."""
     gen_device = device if device.type == "cuda" else "cpu"
@@ -267,15 +289,23 @@ def train_batches(cfg, args, steps: int, skip: int = 0, rank: int = 0):
 def run_lora(model_lib, cfg, args, recipe_name: str) -> dict:
     """LoRA finetune loop, generic over the dense model families."""
     setup_t0 = time.perf_counter()
-    rank = _node_rank()
     device = resolve_device(args.device)
+    ctx = distributed.initialize_from_env(device=device)
+    rank, ranks = ctx.rank, ctx.world_size
     if args.seq_len > cfg.max_seq_len:
         raise SystemExit(f"--seq-len {args.seq_len} exceeds model max "
                          f"{cfg.max_seq_len}")
     print(f"{recipe_name}: model={args.model} device={device} "
-          f"rank={rank}/1", flush=True)
+          f"rank={rank}/{ranks}", flush=True)
 
     base, lora = init_model(model_lib, cfg, args, device)
+    mesh = None
+    if ctx.is_multiprocess:
+        # The frozen base sharded by the rule table (fsdp over embed
+        # axes); the adapters are tiny and stay whole on every process.
+        mesh = mesh_lib.make_mesh({"fsdp": -1}, device=device)
+        convert.shard_params(base, mesh, mesh_lib.DEFAULT_RULES,
+                             model_lib.param_specs(cfg))
     params = merge_params(base, lora)
     opt = make_adamw(lora, args.lr)
     start_step = 0
@@ -308,7 +338,7 @@ def run_lora(model_lib, cfg, args, recipe_name: str) -> dict:
             print(f"{recipe_name}: resumed from step {start_step}",
                   flush=True)
 
-    step_fn = make_step_fn(model_lib, cfg, params, lora, opt)
+    step_fn = make_step_fn(model_lib, cfg, params, lora, opt, mesh)
     grace = checkpoint_lib.GraceHandler.install()
     if trainstats.ENABLED:
         trainstats.configure(
@@ -317,7 +347,7 @@ def run_lora(model_lib, cfg, args, recipe_name: str) -> dict:
             # skips the frozen weights' gradients (2N of the 6N).
             flops_per_token=cfg.flops_per_token(args.seq_len),
             peak_flops=trainstats.detect_peak_flops(device),
-            host=rank, hosts=1, job=recipe_name)
+            host=rank, hosts=ranks, job=recipe_name)
         if start_step:
             # A resumed run's setup wall (restore + re-init) is restart
             # downtime in the goodput breakdown.

@@ -1,5 +1,6 @@
-"""Training step on one device: counterpart of
-``skypilot_tpu/train/trainer.py`` (no mesh, no sharding rules).
+"""Training step: counterpart of ``skypilot_tpu/train/trainer.py``, on
+one device, or on a mesh (``make_train_step(..., mesh=, rules=)``, see
+``_make_sharded_step``).
 
 The adamw optimizer mirrors the JAX package's optax chain,
 ``clip_by_global_norm`` then ``adamw`` under a warmup-cosine schedule,
@@ -35,9 +36,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch.ops.linear import matmul_f32
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import placement
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +111,7 @@ class AdamW:
              ) -> AdamWState:
         cfg = self.cfg
         if isinstance(params, nn.Module):
-            params = list(params.parameters())
+            params = placement.held_params(params)
         return AdamWState(count=0, opt=torch.optim.AdamW(
             params, lr=0.0, betas=(cfg.b1, cfg.b2), eps=1e-8,
             weight_decay=cfg.weight_decay, fused=True))
@@ -196,22 +200,59 @@ def _decay_rate(count: int) -> Tuple[float, float]:
     return float(decay), float(np.float32(1.0) - decay)
 
 
+class _Shards:
+    """Where a leaf's local tensors sit in the whole leaf on a mesh: the
+    process groups that split each of its dims (a stacked leaf's dim 0,
+    the layer axis, is never split), and the whole shape. ``sum``
+    all-reduces a partial sum over the groups that split the given
+    dims, so a mean over a dim is over the whole dim, never over a
+    process's shard."""
+
+    def __init__(self, p: torch.Tensor, stacked: bool, shape):
+        self.shape = shape
+        self.groups: Dict[int, list] = {}
+        off = 1 if stacked else 0
+        mesh = p.device_mesh
+        for i, pl in enumerate(p.placements):
+            if pl.is_shard():
+                self.groups.setdefault(pl.dim + off, []).append(
+                    mesh.get_group(i))
+
+    def sum(self, t: torch.Tensor, dims) -> torch.Tensor:
+        for d in dims:
+            for group in self.groups.get(d, ()):
+                torch.distributed.all_reduce(t, group=group)
+        return t
+
+
 def _factored_update(g: torch.Tensor, v_row: torch.Tensor,
                      v_col: torch.Tensor, d1: int, d0: int,
-                     decay: Tuple[float, float]) -> None:
+                     decay: Tuple[float, float],
+                     shards: Optional[_Shards] = None) -> None:
     """Row and column statistics of g^2 + eps over axes d0 and d1, and g
     overwritten by g * row_factor * col_factor (optax's factored branch).
 
     Each mean of g^2 is a vector norm taken in fp32 straight from g,
     squared, plus eps (mean(g^2 + eps) = mean(g^2) + eps), and g is
-    scaled in place: no fp32 copy of the leaf is made."""
+    scaled in place: no fp32 copy of the leaf is made. With ``shards``
+    g and the statistics are a process's shards, and each mean is summed
+    over the processes that split its dim."""
     for v, dim in ((v_row, d0), (v_col, d1)):
-        mean_sq = torch.linalg.vector_norm(
-            g, dim=dim, dtype=torch.float32).square_().div_(g.shape[dim])
+        sq = torch.linalg.vector_norm(g, dim=dim,
+                                      dtype=torch.float32).square_()
+        if shards is None:
+            mean_sq = sq.div_(g.shape[dim])
+        else:
+            mean_sq = shards.sum(sq, (dim,)).div_(shards.shape[dim])
         v.copy_(decay[0] * v.float() + decay[1] * (mean_sq + FACTORED_EPS))
     row, col = v_row.float(), v_col.float()
     reduced_d1 = d1 - 1 if d1 > d0 else d1
-    row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+    if shards is None:
+        row_mean = row.mean(dim=reduced_d1, keepdim=True)
+    else:
+        row_mean = shards.sum(row.sum(dim=reduced_d1, keepdim=True),
+                              (d1,)) / shards.shape[d1]
+    row_factor = (row / row_mean).rsqrt()
     g.mul_(row_factor.unsqueeze(d0)).mul_(col.rsqrt().unsqueeze(d1))
 
 
@@ -245,6 +286,12 @@ class Adafactor:
     together, so both rms reductions run over all layers at once. The
     arithmetic runs in fp32; the statistics are stored in the parameter's
     dtype, as optax stores them.
+
+    On a mesh (DTensor parameters, ``make_train_step(..., mesh=)``) the
+    factoring is decided on the whole leaf's shape, each process keeps
+    the statistics of its shard (the parameter's placement with the
+    reduced dim dropped), and every mean and rms is over the whole leaf
+    (``_Shards``): the same update as on one device.
     """
 
     def __init__(self, cfg: TrainConfig):
@@ -256,12 +303,15 @@ class Adafactor:
         """One state per JAX leaf of ``module`` (``jax_leaves``)."""
         leaves = jax_leaves(module)
         params = list(module.parameters())
+        if any(p.is_meta for p in params):
+            raise NotImplementedError("adafactor under pipeline stages")
         state = AdafactorState(count=0, leaves=leaves, v_row=[], v_col=[],
                                v=[])
         for leaf in leaves:
             p = params[leaf.index[0]]
-            shape = leaf.shape(params)
-            dims = factored_dims(shape)
+            dims = factored_dims(leaf.shape(params))
+            shape = leaf.shape([placement.local(q) for q in params])
+            p = placement.local(p)
 
             def zeros(s):
                 return torch.zeros(s, dtype=p.dtype, device=p.device)
@@ -280,7 +330,8 @@ class Adafactor:
                                params: List[torch.Tensor],
                                gs: List[torch.Tensor],
                                state: AdafactorState,
-                               decay: Tuple[float, float]) -> None:
+                               decay: Tuple[float, float],
+                               shards: Optional[_Shards] = None) -> None:
         dims = factored_dims(leaf.shape(params))
         if dims is None:
             for i, g in enumerate(gs):
@@ -291,7 +342,7 @@ class Adafactor:
             # so the leaf is stacked as JAX holds it.
             stacked = torch.stack(gs)
             _factored_update(stacked, state.v_row[k], state.v_col[k], *dims,
-                             decay)
+                             decay, shards)
             for g, u in zip(gs, stacked.unbind(0)):
                 g.copy_(u)
         else:
@@ -300,7 +351,9 @@ class Adafactor:
                 v_row = state.v_row[k][i] if leaf.stacked else state.v_row[k]
                 v_col = state.v_col[k][i] if leaf.stacked else state.v_col[k]
                 _factored_update(g, v_row, v_col, dims[0] - off,
-                                 dims[1] - off, decay)
+                                 dims[1] - off, decay,
+                                 _unstacked(shards) if leaf.stacked
+                                 else shards)
 
     @torch.no_grad()
     def update_(self, params: List[torch.Tensor], grads: List[torch.Tensor],
@@ -316,13 +369,24 @@ class Adafactor:
         for k, leaf in enumerate(state.leaves):
             ps = [params[i] for i in leaf.index]
             gs = [grads[i].mul_(factor) for i in leaf.index]
-            self._scale_by_factored_rms(leaf, k, params, gs, state, decay)
             numel = sum(g.numel() for g in gs)
-            u_rms = torch.sqrt(sum(torch.linalg.vector_norm(
-                g, dtype=torch.float32).square() for g in gs) / numel)
+            shards = None
+            if isinstance(ps[0], DTensor):
+                shards = _Shards(ps[0], leaf.stacked, leaf.shape(params))
+                ps = [placement.local(p) for p in ps]
+                gs = [placement.local(g) for g in gs]
+            self._scale_by_factored_rms(leaf, k, params, gs, state, decay,
+                                        shards)
+            u_sq = sum(torch.linalg.vector_norm(
+                g, dtype=torch.float32).square() for g in gs)
+            p_sq = sum(torch.linalg.vector_norm(
+                p, dtype=torch.float32).square() for p in ps)
+            if shards is not None:
+                every = range(len(shards.shape))
+                u_sq, p_sq = shards.sum(u_sq, every), shards.sum(p_sq, every)
+            u_rms = torch.sqrt(u_sq / numel)
             clip = torch.clamp(u_rms / CLIP_THRESHOLD, min=1.0)
-            p_rms = torch.sqrt(sum(torch.linalg.vector_norm(
-                p, dtype=torch.float32).square() for p in ps) / numel)
+            p_rms = torch.sqrt(p_sq / numel)
             p_scale = torch.where(p_rms <= MIN_PARAM_SCALE,
                                   torch.full_like(p_rms, MIN_PARAM_SCALE),
                                   p_rms)
@@ -333,6 +397,16 @@ class Adafactor:
                     u.add_(p, alpha=self.weight_decay)
                 p.sub_(u.to(p.dtype))
         state.count += 1
+
+
+def _unstacked(shards: Optional[_Shards]) -> Optional[_Shards]:
+    """A stacked leaf's shards as one layer's tensor sees them."""
+    if shards is None:
+        return None
+    out = _Shards.__new__(_Shards)
+    out.shape = shards.shape[1:]
+    out.groups = {d - 1: g for d, g in shards.groups.items() if d}
+    return out
 
 
 def make_optimizer(cfg: TrainConfig) -> Union[AdamW, Adafactor]:
@@ -380,20 +454,26 @@ def chunked_cross_entropy_loss(hidden: torch.Tensor, head: torch.Tensor,
     b, s, _ = hidden.shape
     if mask is None:
         mask = torch.ones(b, s, dtype=torch.float32, device=hidden.device)
-    mask = mask.float()
+    nll, cnt = _chunked_nll_sums(hidden, head, targets, mask.float())
+    return nll / cnt.clamp(min=1.0)
+
+
+def _chunked_nll_sums(hidden, head, targets, weight):
+    """(sum of weight * NLL, sum of weight), chunk by chunk. Slicing
+    replaces the JAX version's zero padding: a padded row adds 0 to both
+    sums there."""
+    s = hidden.shape[1]
     chunk = min(CE_CHUNK, s)
     nll = hidden.new_zeros((), dtype=torch.float32)
     cnt = hidden.new_zeros((), dtype=torch.float32)
-    # Slicing replaces the JAX version's zero padding: a padded row adds
-    # 0 to both sums there.
     for start in range(0, s, chunk):
         sl = slice(start, start + chunk)
         n_c, c_c = checkpoint(_ce_chunk, hidden[:, sl], head,
-                              targets[:, sl], mask[:, sl],
+                              targets[:, sl], weight[:, sl],
                               use_reentrant=False)
         nll = nll + n_c
         cnt = cnt + c_c
-    return nll / cnt.clamp(min=1.0)
+    return nll, cnt
 
 
 class DelayedFetch:
@@ -435,6 +515,8 @@ def make_train_step(
     trunk_fn: Optional[Callable[..., torch.Tensor]] = None,
     head_fn: Optional[Callable[..., torch.Tensor]] = None,
     with_grad_norm: bool = True,
+    mesh=None,
+    rules: Optional[mesh_lib.ShardingRules] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
               Tuple[TrainState, Dict[str, Any]]]:
     """The step: forward_fn(params, tokens) -> logits or (logits, aux).
@@ -442,7 +524,13 @@ def make_train_step(
     With ``trunk_fn`` (params, tokens) -> final hidden and ``head_fn``
     (params) -> (dim, vocab), the loss is chunked_cross_entropy_loss and
     full-sequence logits never materialize. Metrics stay on the device.
+    With a ``mesh`` (and ``rules``, DEFAULT_RULES by default), the step
+    on the mesh: ``_make_sharded_step``.
     """
+    if mesh is not None:
+        return _make_sharded_step(forward_fn, tx, mesh,
+                                  rules or mesh_lib.DEFAULT_RULES, trunk_fn,
+                                  head_fn, with_grad_norm)
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
@@ -469,6 +557,174 @@ def make_train_step(
         g_norm = global_norm(grads)
         metrics = {"loss": ce.detach(), "aux_loss": aux.detach(),
                    "total_loss": loss.detach(), "step": state.step}
+        if with_grad_norm:
+            metrics["grad_norm"] = g_norm
+        tx.update_(plist, grads, state.opt_state, g_norm)
+        for p in plist:
+            p.grad = None
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+# ------------------------------------------------------------ on a mesh
+
+def _opt_buffers(opt_state) -> Tuple[str, ...]:
+    """The per-parameter tensors an optimizer state keeps beside each
+    parameter, in its shape."""
+    if isinstance(opt_state, AdamWState):
+        return ("exp_avg", "exp_avg_sq")
+    return ()
+
+
+def state_shardings(mesh, rules: mesh_lib.ShardingRules,
+                    param_specs: dict, state: TrainState) -> TrainState:
+    """Shardings for a TrainState: params by their specs (one
+    ``mesh_lib.Sharding`` per parameter name); each optimizer tensor that
+    tracks a parameter takes that parameter's, matched by the longest
+    suffix of its path (``<buffer>/<parameter path>``), never by shape;
+    the rest (counts, adafactor's factored statistics, whose layout
+    ``Adafactor`` derives from the parameter's) replicated."""
+    p_shard = placement.param_shardings(state.params, mesh, rules,
+                                        param_specs)
+    param_paths = {tuple(n.split(".")): sh for n, sh in p_shard.items()}
+    replicated = mesh_lib.Sharding(
+        mesh, (Replicate(),) * len(mesh_lib.axis_names(mesh)))
+
+    def opt_leaf(path):
+        for start in range(len(path)):
+            sh = param_paths.get(path[start:])
+            if sh is not None:
+                return sh
+        return replicated
+
+    o_shard = {f"{buf}/{name}": opt_leaf((buf,) + tuple(name.split(".")))
+               for buf in _opt_buffers(state.opt_state) for name in p_shard}
+    o_shard["count"] = replicated
+    return TrainState(params=p_shard, opt_state=o_shard, step=replicated)
+
+
+def place_state(state: TrainState, shardings: TrainState,
+                tx: Union[AdamW, Adafactor]) -> TrainState:
+    """``jax.device_put(state, state_shardings(...))``: the parameters
+    become DTensors placed by ``shardings.params`` (in place), the
+    optimizer is built anew over them and keeps its count and any
+    buffers it had, placed by ``shardings.opt_state``."""
+    module, old = state.params, state.opt_state
+    named = dict(module.named_parameters())
+    saved = {}
+    if isinstance(old, AdamWState):
+        for name, p in named.items():
+            st = old.opt.state.get(p)
+            if st:
+                saved[name] = st
+    placement.place_module(module, shardings.params, shardings.step.mesh)
+    new = tx.init(module)
+    new.count = old.count
+    if isinstance(new, AdamWState):
+        for name, p in module.named_parameters():
+            if name not in saved or p.is_meta:
+                continue
+            st = dict(saved[name])
+            for buf in _opt_buffers(new):
+                sh = shardings.opt_state[f"{buf}/{name}"]
+                st[buf] = distribute_tensor(
+                    st[buf].detach(), sh.mesh, sh.placements,
+                    src_data_rank=None)
+            new.opt.state[p] = st
+    elif isinstance(new, AdafactorState) and old.count:
+        raise NotImplementedError(
+            "placing an adafactor state after its first step")
+    return TrainState(params=module, opt_state=new, step=state.step)
+
+
+def _shifted_targets(tokens, mask, mesh):
+    """Next-token targets and loss weights of this process's sequence
+    chunk (the whole sequence unless sp > 1): position p predicts token
+    p + 1; the last position of the sequence has no target."""
+    b, s = tokens.shape
+    zero = tokens.new_zeros((b, 1))
+    targets = torch.cat([tokens[:, 1:], zero], dim=1)
+    weight = (torch.ones((b, s - 1), dtype=torch.float32,
+                         device=tokens.device) if mask is None
+              else mask[:, 1:].float())
+    weight = torch.cat([weight, weight.new_zeros((b, 1))], dim=1)
+    sp = mesh_lib.axis_size(mesh, mesh_lib.SP)
+    c, sl = mesh_lib.axis_index(mesh, mesh_lib.SP), s // sp
+    return targets[:, c * sl:(c + 1) * sl], weight[:, c * sl:(c + 1) * sl]
+
+
+def _nll_sums(logits, targets, weight):
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(
+        -1, targets[..., None]).squeeze(-1)
+    return (nll * weight).sum(), weight.sum()
+
+
+def _make_sharded_step(forward_fn, tx, mesh, rules, trunk_fn, head_fn,
+                       with_grad_norm):
+    """The step on a mesh. Parameters and optimizer state are DTensors
+    (``state_shardings`` + ``place_state``); each process feeds its own
+    (B / (dp * fsdp), S) shard of the global batch, the rows of its
+    (dp, fsdp) coordinate in row-major order, and the same on every tp,
+    sp and pp process of that coordinate.
+
+    The forward runs under ``use_mesh``: the model gathers each layer's
+    weights at use and its backward reduce-scatters the gradients onto
+    the shards (``parallel/placement.py``). The loss is the global
+    batch's: each process's summed NLL over the global count of
+    predicted tokens, so the gradients summed over the data axes are the
+    global mean's; a pipeline's stages each weigh it by 1 / pp and the
+    parameters every stage holds are summed over pp after the backward.
+    The gradient norm and the clip are global (``placement.global_norm``).
+    """
+    tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
+    pp = mesh_lib.axis_size(mesh, mesh_lib.PP)
+    # The tp and pp processes of one batch and sequence shard see the
+    # same data, so the all-reduced count holds each token tp * pp times.
+    replicas = tp * pp
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        params = state.params
+        plist = [p for p in placement.held_params(params)
+                 if p.requires_grad]
+        if any(not isinstance(p, DTensor) for p in plist):
+            raise ValueError("the step on a mesh needs its parameters "
+                             "placed: place_state(state, state_shardings("
+                             "...), tx)")
+        for p in plist:
+            p.grad = None
+        tokens = batch["tokens"]
+        targets, weight = _shifted_targets(tokens, batch.get("loss_mask"),
+                                           mesh)
+        with mesh_lib.use_mesh(mesh, rules):
+            if trunk_fn is not None:
+                nll, cnt = _chunked_nll_sums(trunk_fn(params, tokens),
+                                             head_fn(params), targets,
+                                             weight)
+            else:
+                out = forward_fn(params, tokens)
+                if isinstance(out, tuple):
+                    raise NotImplementedError(
+                        "an auxiliary loss on a mesh (MoE on ep)")
+                nll, cnt = _nll_sums(out, targets, weight)
+        total = cnt.detach().clone()
+        torch.distributed.all_reduce(total)
+        loss = nll / (total / replicas).clamp(min=1.0) / pp
+        loss.backward()
+        placement.reduce_pp_grads(plist, mesh)
+        for p in plist:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in plist]
+        g_norm = placement.global_norm(grads, mesh)
+        reported = loss.detach().clone()
+        torch.distributed.all_reduce(reported)
+        reported = reported / tp
+        metrics = {"loss": reported,
+                   "aux_loss": torch.zeros((), device=reported.device),
+                   "total_loss": reported, "step": state.step}
         if with_grad_norm:
             metrics["grad_norm"] = g_norm
         tx.update_(plist, grads, state.opt_state, g_norm)

@@ -265,13 +265,18 @@ def test_recipe_grace_saves_and_exits_143(tmp_path, monkeypatch,
 
 
 
-def test_recipe_needs_a_card_or_cpu_and_one_node(monkeypatch, tmp_path):
+def test_recipe_needs_a_card_or_cpu_and_runs_alone_without_coordinator(
+        monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         lora_torch.main(["--steps", "1"])
+    # Two nodes but no coordinator address: the JAX package's
+    # initialize_from_env runs single-process, and so does the port.
     monkeypatch.setenv(lora_torch.NUM_NODES_ENV, "2")
-    with pytest.raises(NotImplementedError, match="multi-node"):
-        lora_torch.main(RECIPE_ARGS + ["--steps", "1"])
+    monkeypatch.delenv("SKYPILOT_COORDINATOR_ADDR", raising=False)
+    metrics = lora_torch.main(RECIPE_ARGS + ["--steps", "1"])
+    assert metrics["steps"] == 1 and metrics["final_loss"] is not None
+    assert "rank=0/1" in capsys.readouterr().out
 
 
 def test_device_profile_writes_a_trace(tmp_path, monkeypatch):

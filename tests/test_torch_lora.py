@@ -329,3 +329,85 @@ def test_disarmed_recipe_is_trainstats_free(recipe_env, tmp_path,
     assert metrics["steps"] == 3
     assert not TRAIN_KEYS & set(metrics)
     assert not out_dir.exists()
+
+
+# ------------------------------------------------------ across ranks
+MULTI_ARGS = ["--device", "cpu", "--model", "tiny", "--batch-size", "2",
+              "--seq-len", "32", "--steps", "3", "--lr", "1e-2",
+              "--ckpt-sync"]
+
+
+def _tiny_f32():
+    return dataclasses.replace(llama_torch.LlamaConfig.tiny(),
+                               dtype=torch.float32)
+
+
+def _ckpt_lora(path) -> dict:
+    from skypilot_tpu_torch.train import checkpoint as ck
+    tree = ck.restore_latest(path).tree
+    return {k: np.asarray(v) for k, v in tree.items()
+            if k.startswith("lora/")}
+
+
+def _joined_run(args, ranks):
+    """The one-process step fed, each step, every rank's batch joined."""
+    cfg = _tiny_f32()
+    base, lora = lora_torch.init_model(llama_torch, cfg, args,
+                                       torch.device("cpu"))
+    opt = lora_torch.make_adamw(lora, args.lr)
+    step = lora_torch.make_step_fn(llama_torch, cfg,
+                                   lora_torch.merge_params(base, lora), lora,
+                                   opt)
+    streams = [lora_torch.train_batches(cfg, args, args.steps, rank=r)
+               for r in range(ranks)]
+    for parts in zip(*streams):
+        step(torch.from_numpy(np.concatenate([t for (t,) in parts])).long())
+    return {f"lora/layers/{k}": v
+            for k, v in convert.lora_to_numpy(lora)["layers"].items()}
+
+
+def test_recipe_on_two_ranks_equals_the_joined_batch(tmp_path):
+    from torch_rank_worker import launch
+    outs = launch(lambda r: ["lora", str(tmp_path), *MULTI_ARGS,
+                             "--checkpoint-dir", str(tmp_path / f"r{r}")],
+                  2)
+    assert "rank=0/2" in outs[0] and "rank=1/2" in outs[1]
+    got = [_ckpt_lora(tmp_path / f"r{r}") for r in range(2)]
+    assert set(got[0]) == set(got[1]) and got[0]
+    for key in got[0]:
+        np.testing.assert_array_equal(got[0][key], got[1][key])
+    args = lora_torch.build_arg_parser(["tiny"], "tiny").parse_args(
+        MULTI_ARGS)
+    want = _joined_run(args, 2)
+    init = _joined_run(_zero_steps(args), 2)
+    for key, w in want.items():
+        moved = np.linalg.norm(w - init[key])
+        assert moved > 0, key
+        assert np.linalg.norm(got[0][key] - w) <= MOVE_TOL * moved, key
+        np.testing.assert_allclose(got[0][key], w, rtol=0,
+                                   atol=args.lr / 2, err_msg=key)
+
+
+def _zero_steps(args):
+    out = type(args)(**vars(args))
+    out.steps = 0
+    return out
+
+
+def test_one_rank_recipe_is_the_plain_step(tmp_path, monkeypatch,
+                                           recipe_env):
+    """With one process the recipe builds no mesh and makes no collective:
+    its adapters are bit for bit those of the plain step loop."""
+    tiny = llama_torch.LlamaConfig.tiny
+    monkeypatch.setattr(llama_torch.LlamaConfig, "tiny", staticmethod(
+        lambda vocab_size=512: dataclasses.replace(tiny(vocab_size),
+                                                   dtype=torch.float32)))
+    monkeypatch.setattr(torch.distributed, "all_reduce", None)
+    lora_torch.main(MULTI_ARGS + ["--checkpoint-dir", str(tmp_path)])
+    args = lora_torch.build_arg_parser(["tiny"], "tiny").parse_args(
+        MULTI_ARGS)
+    want = _joined_run(args, 1)
+    got = _ckpt_lora(tmp_path)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        np.testing.assert_array_equal(got[key], w)

@@ -1,0 +1,299 @@
+"""One process of a multi-process CPU (gloo) run of the port, for the
+tests that hold its mesh, sharded step, ring attention and pipeline to
+the JAX package. Imports torch and skypilot_tpu_torch only: the tests
+compute the JAX side in their own process and hand the inputs over in a
+pickle.
+
+    python tests/torch_rank_worker.py cases <dir> <rank> <world>
+        rendezvous through file://<dir>/rendezvous; runs every case of
+        <dir>/cases.pkl in order; rank 0 writes <dir>/results.pkl
+    python tests/torch_rank_worker.py env <dir>
+        brings the group up from the SKYPILOT_* env
+        (distributed.initialize_from_env, gloo) and writes
+        <dir>/env_<rank>.pkl
+    python tests/torch_rank_worker.py lora <dir> <recipe arguments>
+        the LoRA recipe's main() under the SKYPILOT_* env, with the tiny
+        Llama config in f32
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pathlib
+import pickle
+import socket
+import subprocess
+import sys
+import traceback
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+from skypilot_tpu_torch import convert  # noqa: E402
+from skypilot_tpu_torch.models import gemma, llama  # noqa: E402
+from skypilot_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from skypilot_tpu_torch.parallel import pipeline  # noqa: E402
+from skypilot_tpu_torch.parallel import ring_attention  # noqa: E402
+from skypilot_tpu_torch.train import distributed  # noqa: E402
+from skypilot_tpu_torch.train import trainer  # noqa: E402
+
+TIMEOUT = timedelta(seconds=60)
+WAIT_S = 180
+MODELS = {"llama": (llama, llama.LlamaConfig, convert.llama_params_from_jax),
+          "gemma": (gemma, gemma.GemmaConfig, convert.gemma_params_from_jax)}
+
+
+def _mesh(c):
+    if c.get("slices"):
+        return mesh_lib.make_multislice_mesh(c["axes"], c["slices"],
+                                             device="cpu")
+    return mesh_lib.make_mesh(c["axes"], device="cpu")
+
+
+def _batch_rows(mesh, n_rows):
+    """This process's rows of the global batch: its (dp, fsdp)
+    coordinate's block, row-major."""
+    dp = mesh_lib.axis_size(mesh, mesh_lib.DP)
+    fsdp = mesh_lib.axis_size(mesh, mesh_lib.FSDP)
+    i = (mesh_lib.axis_index(mesh, mesh_lib.DP) * fsdp +
+         mesh_lib.axis_index(mesh, mesh_lib.FSDP))
+    per = n_rows // (dp * fsdp)
+    return slice(i * per, (i + 1) * per)
+
+
+def _config(c):
+    model, cls, from_jax = MODELS[c["family"]]
+    cfg = dataclasses.replace(cls.tiny(vocab_size=c["vocab"]),
+                              dtype=torch.float32, **c.get("cfg", {}))
+    return model, cfg, from_jax
+
+
+def case_train(c):
+    model, cfg, from_jax = _config(c)
+    mesh = _mesh(c)
+    rules = (mesh_lib.PIPELINE_RULES if c.get("pipelined")
+             else mesh_lib.DEFAULT_RULES)
+    params = from_jax(cfg, c["init"], "cpu")
+    tx = trainer.make_optimizer(trainer.TrainConfig(**c["tcfg"]))
+    want = trainer.state_shardings(mesh, rules, model.param_specs(cfg),
+                                   trainer.init_train_state(params, tx))
+    # The weights go in through convert.shard_params (and come out
+    # through convert.gather_params), placed as state_shardings says.
+    convert.shard_params(params, mesh, rules, model.param_specs(cfg))
+    for name, p in params.named_parameters():
+        sh = want.params[name]
+        assert p.is_meta or (p.device_mesh == sh.mesh and
+                             tuple(p.placements) == sh.placements), name
+    state = trainer.init_train_state(params, tx)
+    if c.get("pipelined"):
+        def fwd(p, t):
+            return llama.forward_pipelined(cfg, p, t, mesh=mesh, rules=rules,
+                                           num_microbatches=2)
+    else:
+        def fwd(p, t):
+            return model.forward(cfg, p, t)
+    if c.get("chunked"):
+        step = trainer.make_train_step(
+            None, tx, trunk_fn=lambda p, t: model.forward_trunk(cfg, p, t),
+            head_fn=model.head_weights, mesh=mesh, rules=rules)
+    else:
+        step = trainer.make_train_step(fwd, tx, mesh=mesh, rules=rules)
+    tokens = torch.from_numpy(c["tokens"]).long()
+    batch = {"tokens": tokens[_batch_rows(mesh, tokens.shape[0])]}
+    losses, norms = [], []
+    calls = []
+    apply = llama._FlashRematLayer.apply
+    llama._FlashRematLayer.apply = lambda *a: calls.append(1) or apply(*a)
+    try:
+        for _ in range(c["steps"]):
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    finally:
+        llama._FlashRematLayer.apply = apply
+    return {"loss": losses, "grad_norm": norms,
+            "final": convert.gather_params(state.params, mesh),
+            "flash_remat_layers": len(calls)}
+
+
+def _gather(obj, world):
+    out = [None] * world
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def case_ring(c):
+    mesh = _mesh(c)
+    for name, value in c.get("patch", {}).items():
+        setattr(ring_attention, name, value)
+    q, k, v = (torch.from_numpy(c[n]) for n in "qkv")
+    rows = _batch_rows(mesh, q.shape[0])
+    sp, tp = (mesh_lib.axis_size(mesh, a) for a in (mesh_lib.SP, mesh_lib.TP))
+    si, ti = (mesh_lib.axis_index(mesh, a) for a in (mesh_lib.SP, mesh_lib.TP))
+    sl = q.shape[1] // sp
+    seq = slice(si * sl, (si + 1) * sl)
+
+    def heads(t):
+        n = t.shape[2] // tp
+        return t[rows, seq, ti * n:(ti + 1) * n].clone().requires_grad_()
+    ql, kl, vl = heads(q), heads(k), heads(v)
+    out = ring_attention.ring_attention(ql, kl, vl, mesh=mesh,
+                                        causal=c["causal"])
+    (out.square().sum()).backward()
+    parts = _gather((rows.start, seq.start, ti, out.detach().numpy(),
+                     ql.grad.numpy(), kl.grad.numpy(), vl.grad.numpy()),
+                    dist.get_world_size())
+    full = {n: np.zeros(t.shape, np.float32)
+            for n, t in (("out", q), ("dq", q), ("dk", k), ("dv", v))}
+    for r0, s0, t_i, *arrs in parts:
+        for n, a in zip(("out", "dq", "dk", "dv"), arrs):
+            b, s, h = a.shape[:3]
+            full[n][r0:r0 + b, s0:s0 + s, t_i * h:(t_i + 1) * h] = a
+    # The sequence is split and the keys/values of each chunk are seen by
+    # every query chunk: a K/V gradient is complete once summed over the
+    # processes that share its heads and rows, which the ring does.
+    for name, value in c.get("restore", {}).items():
+        setattr(ring_attention, name, value)
+    return full
+
+
+def case_pipeline_forward(c):
+    _, cfg, from_jax = _config(c)
+    mesh = _mesh(c)
+    rules = mesh_lib.PIPELINE_RULES
+    params = from_jax(cfg, c["init"], "cpu")
+    tokens = torch.from_numpy(c["tokens"]).long()
+    with torch.no_grad():
+        plain = llama.forward(cfg, params, tokens)
+        convert.shard_params(params, mesh, rules, llama.param_specs(cfg))
+        piped = llama.forward_pipelined(cfg, params, tokens, mesh=mesh,
+                                        rules=rules, num_microbatches=2)
+    return {"piped": piped.detach().numpy(), "plain": plain.numpy()}
+
+
+def case_gpipe(c):
+    mesh = _mesh(c)
+    w = torch.from_numpy(c["w"])
+    x = torch.from_numpy(c["x"])
+    out = pipeline.gpipe(lambda lw, xm, _ex: torch.tanh(xm @ lw), list(w), x,
+                         mesh=mesh, num_microbatches=x.shape[0])
+    return {"out": out.detach().numpy()}
+
+
+CASES = {"train": case_train, "ring": case_ring,
+         "pipeline_forward": case_pipeline_forward, "gpipe": case_gpipe}
+
+
+def run_cases(root: pathlib.Path, rank: int, world: int) -> int:
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous",
+                            rank=rank, world_size=world, timeout=TIMEOUT)
+    cases = pickle.loads((root / "cases.pkl").read_bytes())
+    results = {}
+    for name, c in cases.items():
+        try:
+            results[name] = CASES[c["kind"]](c)
+        except Exception:  # noqa: BLE001 - reported to the test
+            results[name] = {"error": traceback.format_exc()}
+            (root / f"error_{rank}.txt").write_text(results[name]["error"])
+            if rank == 0:
+                (root / "results.pkl").write_bytes(pickle.dumps(results))
+            return 1
+    if rank == 0:
+        (root / "results.pkl").write_bytes(pickle.dumps(results))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_env(root: pathlib.Path) -> int:
+    ctx = distributed.initialize_from_env(timeout_ms=60_000, device="cpu")
+    out = {"ctx": dataclasses.asdict(ctx)}
+    distributed.kv_put(f"hello/{ctx.rank}", f"from {ctx.rank}")
+    distributed.barrier("after_put", timeout_ms=60_000)
+    out["kv"] = [distributed.kv_get(f"hello/{r}", timeout_ms=60_000)
+                 for r in range(ctx.world_size)]
+    rng = np.random.default_rng(ctx.rank)
+    tree = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+            "b": [rng.integers(0, 100, (5,)).astype(np.int32),
+                  torch.from_numpy(rng.standard_normal(2)).to(
+                      torch.float64)]}
+    out["tree"] = {"a": tree["a"], "b": [tree["b"][0],
+                                         tree["b"][1].numpy()]}
+    mean = distributed.kv_allreduce_mean(tree, ctx, "t")
+    out["mean"] = {"a": mean["a"], "b": [mean["b"][0], mean["b"][1].numpy()],
+                   "types": [type(mean["a"]).__name__,
+                             type(mean["b"][1]).__name__,
+                             str(mean["b"][1].dtype)]}
+    os.environ[distributed.NUM_SLICES] = str(ctx.world_size)
+    mesh = distributed.make_mesh_from_env({"fsdp": -1}, device="cpu")
+    out["slices_mesh"] = (mesh.mesh_dim_names, tuple(mesh.shape))
+    os.environ[distributed.NUM_SLICES] = "1"
+    mesh = distributed.make_mesh_from_env({"fsdp": -1}, device="cpu")
+    out["flat_mesh"] = (mesh.mesh_dim_names, tuple(mesh.shape))
+    distributed.barrier("done", timeout_ms=60_000)
+    (root / f"env_{ctx.rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(args, world):
+    """``world`` worker processes with the SKYPILOT_* env of a
+    ``world``-node gang on a free port; returns their outputs, killing
+    every one on a failure or a timeout."""
+    port = free_port()
+    procs = []
+    try:
+        for r in range(world):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith(("JAX", "XLA", "LOCAL_"))}
+            env.update({distributed.NODE_RANK: str(r),
+                        distributed.NUM_NODES: str(world),
+                        distributed.COORDINATOR_ADDR:
+                            f"127.0.0.1:{port}",
+                        "OMP_NUM_THREADS": "1"})
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, *args(r)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        outs = [p.communicate(timeout=WAIT_S)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    return outs
+
+
+def tiny_f32(vocab_size: int = 512) -> llama.LlamaConfig:
+    return dataclasses.replace(TINY(vocab_size), dtype=torch.float32)
+
+
+TINY = llama.LlamaConfig.tiny
+
+
+def run_lora(argv) -> int:
+    from skypilot_tpu_torch.recipes import llama_lora
+    llama.LlamaConfig.tiny = staticmethod(tiny_f32)
+    llama_lora.main(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    mode, root = sys.argv[1], pathlib.Path(sys.argv[2])
+    if mode == "cases":
+        sys.exit(run_cases(root, int(sys.argv[3]), int(sys.argv[4])))
+    if mode == "lora":
+        sys.exit(run_lora(sys.argv[3:]))
+    sys.exit(run_env(root))

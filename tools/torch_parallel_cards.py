@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Training across ranks on every card of one machine: the port's sharded
+step, ring attention and pipeline over NCCL, each held to the same work
+on one card.
+
+    python3 tools/torch_parallel_cards.py [world1] [step] [ring]
+
+[world1] runs on one card; [step] and [ring] need an even count of 2+.
+With no phase named, all three run ([step] includes [pipeline]).
+
+The script launches one process per card itself, as a gang host's
+torchrun would: LOCAL_RANK / LOCAL_WORLD_SIZE and the SKYPILOT_* env
+(one node, the coordinator on 127.0.0.1 and a free port), so each
+process brings its NCCL group up through
+``distributed.initialize_from_env()`` on ``cuda:<LOCAL_RANK>``. Phases
+(rank 0 prints; every number is this run's):
+
+- [world1] chip_smoke.py's [parallel] phase on card 0, in this process,
+  before the others start (a world-1 NCCL group it destroys at its end).
+- [step] Llama-3-8B widths, N_LAYERS layers, the global batch
+  BATCH x SEQ, bf16, adamw, full remat, on {"fsdp": n/2, "tp": 2}: the
+  sharded step's losses against the one-card step's on the same batch
+  (rank 0 runs it first), per-rank flash launches (2L/L/L a step) and
+  both median step times.
+- [pipeline] the same model on {"pp": 2, "tp": n/2}: forward_pipelined
+  at 2 microbatches against forward (norm-relative), then STEPS steps
+  through it against the one-card losses.
+- [ring] attention at Llama-3-8B's shape (1, 8192, 32, 8, 128) on
+  {"sp": n}, causal and not: each card holds one chunk; the output and
+  the gradients of sum(out * dO), gathered, against the flash op on the
+  whole sequence (one card), norm-relative; both timed.
+
+Exit 0 only when every gate holds; the last line is a JSON summary.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+N_LAYERS = 4
+BATCH, SEQ = 4, 2048
+STEPS = 6
+LOSS_TOL = 2e-2
+PIPE_REL_TOL = 2e-2
+RING_SHAPE = (1, 8192, 32, 8, 128)
+OUT_REL_TOL, GRAD_REL_TOL = 1e-2, 2e-2
+
+
+def _launch(phases) -> int:
+    n = torch.cuda.device_count()
+    if set(phases) - {"world1"} and (n < 2 or n % 2):
+        print(f"FAIL: {n} cards; [step] and [ring] need an even count of "
+              "at least 2", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from skypilot_tpu_torch.ops import _build
+    _build.build_all()  # once, before the processes that load it
+    if "world1" in phases:
+        import chip_smoke
+        from skypilot_tpu_torch.models import llama
+        from skypilot_tpu_torch.ops import attention as attention_ops
+        from skypilot_tpu_torch.ops import flash_attention as fa
+        from skypilot_tpu_torch.train import trainer
+        print(chip_smoke.phase_device(), flush=True)
+        chip_smoke.phase_parallel(fa, llama, trainer, attention_ops)
+        torch.cuda.empty_cache()
+        phases = [p for p in phases if p != "world1"]
+        if not phases:
+            return 0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                   SKYPILOT_NODE_RANK="0", SKYPILOT_NUM_NODES="1",
+                   SKYPILOT_COORDINATOR_ADDR=f"127.0.0.1:{port}")
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "--rank", *phases], env=env))
+    # A process that fails leaves its peers waiting in a collective:
+    # stop them all at the first failure.
+    deadline = time.monotonic() + 1500
+    try:
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if any(rc not in (None, 0) for rc in rcs) or None not in rcs:
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return max(p.returncode for p in procs)
+
+
+def _say(*args):
+    if torch.distributed.get_rank() == 0:
+        print(*args, flush=True)
+
+
+def _check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def _setup(llama):
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=N_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+                           generator=gen)
+    return cfg, params, tokens
+
+
+def _steps(step, state, batch, fa):
+    fa.reset_launches()
+    losses, times = [], []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rest = sorted(times[1:])
+    return losses, rest[len(rest) // 2] * 1e3, dict(fa.LAUNCHES)
+
+
+def _rows(mesh, mesh_lib, n_rows):
+    dp = mesh_lib.axis_size(mesh, mesh_lib.DP)
+    fsdp = mesh_lib.axis_size(mesh, mesh_lib.FSDP)
+    i = (mesh_lib.axis_index(mesh, mesh_lib.DP) * fsdp +
+         mesh_lib.axis_index(mesh, mesh_lib.FSDP))
+    per = n_rows // (dp * fsdp)
+    return slice(i * per, (i + 1) * per)
+
+
+def phase_step(n, out, llama, trainer, mesh_lib, fa):
+    tcfg = trainer.TrainConfig(warmup_steps=1, total_steps=100)
+    if torch.distributed.get_rank() == 0:
+        cfg, params, tokens = _setup(llama)
+        tx = trainer.make_optimizer(tcfg)
+        step = trainer.make_train_step(
+            lambda p, t: llama.forward(cfg, p, t), tx, with_grad_norm=False)
+        out["one_card"] = _steps(step, trainer.init_train_state(params, tx),
+                                 {"tokens": tokens}, fa)[:2]
+        del params, step, tx
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    obj = [out.get("one_card")]
+    torch.distributed.broadcast_object_list(obj, src=0)
+    one_losses, one_ms = obj[0]
+    for name, axes, rules, pipelined in (
+            ("step", {"fsdp": n // 2, "tp": 2}, mesh_lib.DEFAULT_RULES,
+             False),
+            ("pipeline", {"pp": 2, "tp": n // 2}, mesh_lib.PIPELINE_RULES,
+             True)):
+        mesh = mesh_lib.make_mesh(axes)
+        cfg, params, tokens = _setup(llama)
+        if pipelined:
+            with torch.no_grad():
+                plain = llama.forward(cfg, params, tokens)
+        tx = trainer.make_optimizer(tcfg)
+        state = trainer.init_train_state(params, tx)
+        state = trainer.place_state(state, trainer.state_shardings(
+            mesh, rules, llama.param_specs(cfg), state), tx)
+        if pipelined:
+            with torch.no_grad():
+                piped = llama.forward_pipelined(cfg, state.params, tokens,
+                                                mesh=mesh, rules=rules,
+                                                num_microbatches=2)
+            rel = float((piped - plain).norm() / plain.norm())
+            del piped, plain
+            _say(f"[{name}] forward_pipelined vs forward: logits rel "
+                 f"{rel:.3e} (tol {PIPE_REL_TOL})")
+            _check(rel <= PIPE_REL_TOL, "forward_pipelined disagrees")
+            out["pipeline_rel"] = rel
+
+            def fwd(p, t, cfg=cfg, mesh=mesh, rules=rules):
+                return llama.forward_pipelined(cfg, p, t, mesh=mesh,
+                                               rules=rules,
+                                               num_microbatches=2)
+        else:
+            def fwd(p, t, cfg=cfg):
+                return llama.forward(cfg, p, t)
+        step = trainer.make_train_step(fwd, tx, with_grad_norm=False,
+                                       mesh=mesh, rules=rules)
+        batch = {"tokens": tokens[_rows(mesh, mesh_lib, BATCH)]}
+        losses, ms, launches = _steps(step, state, batch, fa)
+        worst = max(abs(a - b) for a, b in zip(losses, one_losses))
+        _say(f"[{name}] mesh {axes}: losses {[round(x, 4) for x in losses]}"
+             f"; one card {[round(x, 4) for x in one_losses]}; largest "
+             f"|diff| {worst:.3e} (tol {LOSS_TOL}); step {ms:.1f} ms on "
+             f"{n} cards vs {one_ms:.1f} ms on one (median of steps 2-"
+             f"{STEPS}); rank 0 launches {launches}")
+        _check(worst <= LOSS_TOL, f"[{name}] loss off the one-card step's")
+        _check(losses[-1] < losses[0], f"[{name}] loss did not fall")
+        layers = N_LAYERS // (2 if pipelined else 1)
+        micro = 2 if pipelined else 1
+        want = {"flash_fwd": 2 * layers * micro * STEPS,
+                "flash_dq": layers * micro * STEPS,
+                "flash_dkv": layers * micro * STEPS}
+        got = {k: v for k, v in launches.items() if v}
+        _check(got == want, f"[{name}] launches {got} != {want}")
+        out[name] = {"losses": losses, "one_card_losses": one_losses,
+                     "max_loss_diff": worst, "step_ms": ms,
+                     "one_card_step_ms": one_ms, "mesh": axes}
+        del state, step, tx, params
+        torch.cuda.empty_cache()
+
+
+def _rel_global(a, b):
+    num = torch.tensor([(a.float() - b.float()).square().sum(),
+                        b.float().square().sum()], device="cuda")
+    torch.distributed.all_reduce(num)
+    return float((num[0] / num[1]).sqrt())
+
+
+def _time(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_ring(n, out, mesh_lib, ring_attention, attention_ops):
+    mesh = mesh_lib.make_mesh({"sp": n})
+    b, s, h, kvh, d = RING_SHAPE
+    sl = s // n
+    rank = mesh_lib.axis_index(mesh, mesh_lib.SP)
+    chunk = slice(rank * sl, (rank + 1) * sl)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(*shape, device="cuda", generator=g).to(
+        torch.bfloat16) for shape in ((b, s, h, d), (b, s, kvh, d),
+                                      (b, s, kvh, d), (b, s, h, d)))
+    for causal in (True, False):
+        def ring():
+            leaves = [x[:, chunk].clone().requires_grad_()
+                      for x in (q, k, v)]
+            o = ring_attention.ring_attention(*leaves, mesh=mesh,
+                                              causal=causal)
+            grads = torch.autograd.grad((o * do[:, chunk]).sum(), leaves)
+            return o.detach(), grads
+
+        def flash():
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = attention_ops.attention(*leaves, causal=causal)
+            grads = torch.autograd.grad((o * do).sum(), leaves)
+            return o.detach(), grads
+
+        o, grads = ring()
+        ref, ref_grads = flash()
+        errs = {"o": _rel_global(o, ref[:, chunk])}
+        for name, gr, rg in zip(("dq", "dk", "dv"), grads, ref_grads):
+            errs[name] = _rel_global(gr, rg[:, chunk])
+        ring_ms = _time(ring)
+        flash_ms = _time(flash)
+        with torch.no_grad():
+            ring_fwd = _time(lambda: ring_attention.ring_attention(
+                q[:, chunk], k[:, chunk], v[:, chunk], mesh=mesh,
+                causal=causal))
+            flash_fwd = _time(lambda: attention_ops.attention(
+                q, k, v, causal=causal))
+        _say(f"[ring] sp={n} {RING_SHAPE} causal={causal}: rel o "
+             f"{errs['o']:.3e} (tol {OUT_REL_TOL}), dq {errs['dq']:.3e}, dk "
+             f"{errs['dk']:.3e}, dv {errs['dv']:.3e} (tol {GRAD_REL_TOL}); "
+             f"forward {ring_fwd:.2f} ms vs the flash op on one card "
+             f"{flash_fwd:.2f} ms; forward + backward {ring_ms:.2f} ms vs "
+             f"{flash_ms:.2f} ms")
+        _check(errs["o"] <= OUT_REL_TOL and all(
+            errs[x] <= GRAD_REL_TOL for x in ("dq", "dk", "dv")),
+            f"ring causal={causal} disagrees with the flash op")
+        out[f"ring_causal_{causal}"] = dict(errs, ring_fwd_ms=ring_fwd,
+                                            flash_fwd_ms=flash_fwd,
+                                            ring_ms=ring_ms,
+                                            flash_ms=flash_ms)
+
+
+def _run_rank(phases) -> int:
+    sys.path.insert(0, str(REPO))
+    os.environ["STPU_TUNE_MANIFEST"] = "0"
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import attention as attention_ops
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import ring_attention
+    from skypilot_tpu_torch.train import distributed, trainer
+
+    ctx = distributed.initialize_from_env(timeout_ms=120_000)
+    n = ctx.world_size
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    _say(f"[group] {ctx}; backend {torch.distributed.get_backend()}; "
+         f"cards {cards.strip().splitlines()}")
+    out = {"cards": n}
+    try:
+        t0 = time.perf_counter()
+        if "step" in phases:
+            phase_step(n, out, llama, trainer, mesh_lib, fa)
+        if "ring" in phases:
+            phase_ring(n, out, mesh_lib, ring_attention, attention_ops)
+        out["seconds"] = time.perf_counter() - t0
+        out.pop("one_card", None)
+        _say(json.dumps({"ok": True, **out}))
+        return 0
+    except RuntimeError as e:
+        print(f"FAIL rank {ctx.rank}: {e}", file=sys.stderr, flush=True)
+        return 1
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    phases = ([a for a in sys.argv[1:] if a != "--rank"] or
+              ["world1", "step", "ring"])
+    sys.exit(_run_rank(phases) if "--rank" in sys.argv else
+             _launch(phases))
