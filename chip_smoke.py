@@ -166,6 +166,32 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    seeded stream whose prefix blocks were spilled to the host (clone,
    then the side stream's D2H) while the next request rewrote them, then
    re-admitted, equal to its cold run;
+11b. tp_serve (after serve and its bench legs): the tensor-parallel
+   replica (serve/gang_replica.py) at tp 2 on the one card: two processes
+   on cuda:0 over a gloo group (NCCL refuses two ranks on one device; gloo
+   carries their CUDA tensors), the backend printed. Rank legs (two
+   processes of this script, ``chip_smoke.py tp-rank``, each drawing
+   [serve]'s seed-5 tree and keeping its shard): (a) [serve]'s greedy
+   streams teacher-forced through the model's forward on each rank's 16
+   query and 4 KV heads (flash_fwd, L launches a stream per rank) and the
+   tp paged cache path, within CACHE_REL_TOL of the one-card forward's
+   logits, positions one late (over each stream's first TP_FAULT_TOKENS)
+   past it; f32 at 4 layers (the [serve] f32 leg's model and streams):
+   the tp cache path within F32_CACHE_REL_TOL and the fault past it, the
+   tp engine's streams equal to one card's; (b) int8 weights and KV (the
+   tree quantized whole, then sharded): [serve]'s greedy requests for
+   TP_INT8_TOKENS tokens against the one-card int8 leg's (printed); (e) Mixtral-8x7B width at TP_MIXTRAL_LAYERS layers, bf16,
+   four greedy prompts against one card's engine (printed). Then a
+   ``serve_llm --model llama3-8b --tp 2 --device cuda:0 --tp-backend
+   gloo`` replica: (a) [serve]'s eight streams and the ninth through its
+   /generate, greedy ones parting from one card's only at a near-tie of
+   the one-card forward's logits (gap within twice the tp path's largest
+   logit difference there), its decode-step ms (/perf) beside [serve]'s;
+   (c) its tp rank SIGKILLed mid-stream: 503, the whole-gang restart,
+   stpu_gang_restarts_total 1, 200, and a request's tokens equal to its
+   run before the kill. (d) decode_bench.measure_engine_tp("llama",
+   tp=2) at Llama-3-8B width, TP_BENCH_LAYERS layers, its dict beside
+   measure_engine_ragged on the same model and mix on one card;
 12. gemma_lora (run after mixtral, before serve): the Gemma LoRA recipe at
    Gemma-2B full width and depth, seq 2048, 4 steps, at the largest of
    batch 8, 7, 6, ... that fits the card (cut printed): launches exactly
@@ -196,8 +222,9 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    picks (within MIXTRAL_CACHE_REL_TOL, the attention faults and the
    routing faults past it; the flips it pinned and their gate gaps
    printed; leg 1 plants the nearest, own key masked). Leg 1: the int8
-   tree at full depth (46.7 GB; 93.4 GB in bf16 would not fit), built by
-   serve_llm's --model mixtral-8x7b --weight-quant 1 a layer at a time,
+   tree at MXS_INT8_LAYERS layers (23.4 GB; the full depth's 46.7 GB runs
+   in tools/torch_parallel_cards.py tp_serve), built by serve_llm's
+   --model mixtral-8x7b --weight-quant 1 (depth patched) a layer at a time,
    served through serve_llm with [serve]'s geometry and nine requests
    (every stream complete, the ninth a prefix hit, no flash launch in
    the engine); on the greedy streams the batched T = 1 steps against a
@@ -527,11 +554,13 @@ F32_CACHE_REL_TOL = 1e-4
 SP_POOL_BLOCKS, SP_PROMPTS, SP_HOST_MB = 10, (200, 520), 64
 # The mixtral_serve phase: Mixtral-8x7B at full width. Its 46.70 B
 # parameters are 93.4 GB in bf16, more than the card holds, and 46.7 GB in
-# int8: leg 1 serves the int8 tree at full depth (32 layers) through
-# serve_llm; leg 2 holds the cache paths in bf16 at 16 layers (23.7 GB)
+# int8: leg 1 serves the int8 tree through serve_llm, its depth cut to
+# MXS_INT8_LAYERS (23.4 GB; the full 32 layers, 46.7 GB, ran here until
+# [tp_serve] needed the time, and run in tools/torch_parallel_cards.py
+# tp_serve); leg 2 holds the cache paths in bf16 at 16 layers (23.7 GB)
 # against the no-drop capacity forward, and the int8 cache path's top-1
 # against them; leg 3 does the same in f32 at 4 layers (24.3 GB).
-MXS_BF16_LAYERS, MXS_F32_LAYERS = 16, 4
+MXS_INT8_LAYERS, MXS_BF16_LAYERS, MXS_F32_LAYERS = 16, 16, 4
 # The int8 cache path's teacher-forced top-1 agreement with the bf16
 # tree's, at least the JAX package's floor for Mixtral (tests/test_quant.py
 # TOP1_FLOOR["mixtral"], int8 weights and KV against bf16).
@@ -2374,10 +2403,12 @@ def _median(xs):
     return xs[len(xs) // 2] if xs else float("nan")
 
 
-def _serve_leg(fa, cfg, params, reqs, ninth, card, label, dev, **kw):
+def _serve_leg(fa, cfg, params, reqs, ninth, card, label, dev,
+               ninth_out=None, **kw):
     """One replica through serve(): the eight concurrent streams, then
-    the ninth alone. Returns the streams' tokens and prints the leg's
-    numbers beside the card."""
+    the ninth alone. Returns the streams' tokens (the ninth's appended to
+    ``ninth_out`` when given) and prints the leg's numbers beside the
+    card."""
     from skypilot_tpu_torch.observability import metrics, stepstats
     from skypilot_tpu_torch.recipes import serve_llm
     hits = metrics.REGISTRY.counter("stpu_engine_prefix_cache_hits_total")
@@ -2435,6 +2466,8 @@ def _serve_leg(fa, cfg, params, reqs, ninth, card, label, dev, **kw):
               f"end to end, {(len(toks) - 1) / (res['times'][-3] - res['times'][0]):.1f} "
               f"tokens/s after the first ({card})", flush=True)
     toks9, stats9 = _stream_tokens(f"{label} request 9", last[0])
+    if ninth_out is not None:
+        ninth_out.append(toks9)
     agg = len(reqs) * SV_MAX_TOKENS / (t_end - t_start)
     print(f"{label} aggregate {agg:.1f} tokens/s over the eight streams "
           f"({t_end - t_start:.2f} s wall); peak memory {peak_gb:.2f} GB; "
@@ -2469,7 +2502,7 @@ def _serve_leg(fa, cfg, params, reqs, ninth, card, label, dev, **kw):
 
 
 def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
-                       paged, fault=None, pins=None):
+                       paged, fault=None, pins=None, kv_heads=None):
     """Each (prompt, tokens) of ``seqs`` teacher-forced through the
     engine's cache path at its geometry ``geo`` (kv_config()): the
     prompt in chunk-sized prefill chunks (the engine's _prefill_chunk /
@@ -2483,7 +2516,8 @@ def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
     token's rope position and cache row are one past its place; the
     faults of ``_planted`` patch the port for the whole run. ``pins``
     (a ``_RoutingPins``) pins Mixtral's routing to its reference's picks
-    at each token's own position, whatever the fault."""
+    at each token's own position, whatever the fault. ``kv_heads``: a tp
+    rank's own (its cache holds only those)."""
     if _planted(fault) is not None:
         with _planting(fault):
             return _cache_path_logits(llama, decode_engine, cfg, params,
@@ -2503,9 +2537,10 @@ def _cache_path_logits(llama, decode_engine, cfg, params, seqs, geo, dev,
             nxt += n
         cache = llama.init_paged_cache(cfg, nxt, chunk,
                                        quantized=bool(geo["kv_quant"]),
-                                       device=dev)
+                                       device=dev, kv_heads=kv_heads)
     else:
-        cache = llama.init_cache(cfg, b, geo["max_seq"], dev)
+        cache = llama.init_cache(cfg, b, geo["max_seq"], dev,
+                                 kv_heads=kv_heads)
     out = []
     with torch.inference_mode():
         for i, (prompt, _) in enumerate(seqs):
@@ -2763,6 +2798,7 @@ def _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
           f"(prompt, token, gap, paths' max |logit diff|): "
           f"{[(n, i, round(g, 4), round(s, 4)) for n, i, g, s in mismatches]}",
           flush=True)
+    return seqs, full
 
 
 def _near_tie_tokens(seqs, full, cached, dev):
@@ -2889,6 +2925,8 @@ def _exactness(llama, decode_engine, prng, dev):
                       decode_engine, cfg, params, seqs, geo, refs, dev,
                       F32_CACHE_REL_TOL)
     _spill_readmit(llama, decode_engine, prng, cfg, params, cpu, dev)
+    return {"cfg": cfg, "seqs": seqs, "reqs": reqs, "streams": paged,
+            "geo": geo, "refs": [r.float().cpu().numpy() for r in refs]}
 
 
 def _spill_readmit(llama, decode_engine, prng, cfg, params, gen, dev):
@@ -2951,11 +2989,13 @@ def phase_serve(fa, llama, card, dev="cuda"):
           f"{serve_llm.MAX_PROMPT_TOKENS + serve_llm.MAX_GEN_TOKENS}; prompts "
           f"{list(SV_PROMPTS)}, {SV_MAX_TOKENS} tokens each, even ones "
           f"greedy, odd ones T={SV_TEMP}", flush=True)
+    ninth_tokens = []
     streams, geo = _serve_leg(fa, cfg, params, reqs, ninth, card,
-                              "[serve bf16]", dev)
+                              "[serve bf16]", dev, ninth_out=ninth_tokens)
     torch.cuda.empty_cache()
-    _teacher_forced(fa, llama, decode_engine, cfg, params, reqs, streams,
-                    geo, dev)
+    seqs, full = _teacher_forced(fa, llama, decode_engine, cfg, params,
+                                 reqs, streams, geo, dev)
+    full = [f.float().cpu().numpy() for f in full]
     torch.cuda.empty_cache()
     q_streams, _ = _serve_leg(fa, cfg, params, reqs, ninth, card,
                            "[serve int8]", dev, weight_quant=True,
@@ -2969,9 +3009,14 @@ def phase_serve(fa, llama, card, dev="cuda"):
     phase_lb(fa, cfg, params, reqs, card, dev)
     del params
     torch.cuda.empty_cache()
-    _exactness(llama, decode_engine, prng, dev)
+    f32 = _exactness(llama, decode_engine, prng, dev)
     stepstats.disarm()
     reqlog.disarm()
+    # What [tp_serve] holds the tp-2 replica to: this one-card replica's
+    # streams, its forward's logits on the greedy ones, the f32 leg's.
+    return {"reqs": reqs, "ninth": ninth, "streams": streams,
+            "ninth_tokens": ninth_tokens[0], "q_streams": q_streams, "seqs": seqs, "full": full,
+            "geo": geo, "f32": f32}
 
 
 def _data_frames(label, res, n_tokens):
@@ -3489,9 +3534,9 @@ def _profile_decode(decode_engine, cfg, params, dev, label, card, **kw):
 
 
 def _mixtral_int8_leg(fa, mixtral, decode_engine, shim, card, dev):
-    """[mixtral_serve] leg 1: the int8 tree at full width and depth,
-    built by serve_llm's own --model mixtral-8x7b --weight-quant 1 (a
-    layer at a time) and served through serve_llm (SV_SLOTS slots,
+    """[mixtral_serve] leg 1: the int8 tree at full width, depth
+    MXS_INT8_LAYERS, built by serve_llm's own --model mixtral-8x7b
+    --weight-quant 1 (a layer at a time) and served through serve_llm (SV_SLOTS slots,
     paged, the nine requests). On the greedy streams, the batched T = 1
     steps against a fresh prefill over each whole prefix: as served
     (within MIXTRAL_ROUTED_REL_TOL, the routing faults planted in the
@@ -3504,14 +3549,20 @@ def _mixtral_int8_leg(fa, mixtral, decode_engine, shim, card, dev):
     from skypilot_tpu_torch.recipes import serve_llm
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, tree = serve_llm._build_model(serve_llm._parser().parse_args(
-        ["--model", "mixtral-8x7b", "--weight-quant", "1", "--seed", "14"]),
-        torch.device(dev))
+    full = serve_llm.MODELS["mixtral-8x7b"]
+    serve_llm.MODELS["mixtral-8x7b"] = lambda: dataclasses.replace(
+        full(), n_layers=MXS_INT8_LAYERS)
+    try:
+        cfg, tree = serve_llm._build_model(serve_llm._parser().parse_args(
+            ["--model", "mixtral-8x7b", "--weight-quant", "1", "--seed",
+             "14"]), torch.device(dev))
+    finally:
+        serve_llm.MODELS["mixtral-8x7b"] = full
     torch.cuda.synchronize()
     check(mixtral.params_quantized(tree), "serve_llm built a bf16 tree")
     nbytes = sum(p.numel() * p.element_size() for p in tree.parameters())
-    print(f"[mixtral_serve] mixtral_8x7b, {cfg.n_layers} layers (full "
-          f"depth), {cfg.num_params() / 1e9:.3f} B params "
+    print(f"[mixtral_serve] mixtral_8x7b, {cfg.n_layers} layers (depth "
+          f"cut from 32), {cfg.num_params() / 1e9:.3f} B params "
           f"({2 * cfg.num_params() / 1e9:.1f} GB in bf16): int8 tree built "
           f"a layer at a time by serve_llm --model mixtral-8x7b "
           f"--weight-quant 1 in {time.perf_counter() - t0:.1f} s, "
@@ -3814,7 +3865,475 @@ def phase_tune(card, dev="cuda"):
           flush=True)
 
 
+# ------------------------------------------------------------ [tp_serve]
+# The tp phase: a tp-2 replica on the one card. NCCL refuses two ranks on
+# one device, so the two ranks share cuda:0 over a gloo group (gloo carries
+# CUDA tensors for all_reduce, all_gather and broadcast, the collectives
+# the tp path issues: tp_reduce and the vocab-parallel embedding's sum,
+# the logits' gather, the plans' broadcast on a gloo group of their own).
+TP_DEGREE, TP_BACKEND = 2, "gloo"
+# Leg (c): the request after the whole-gang restart, against its own run
+# before the kill; leg (e): Mixtral at full width cut to this depth, each
+# of four prompts of [serve]'s lengths greedy for this many tokens; leg (d):
+# measure_engine_tp at Llama-3-8B width cut to this depth.
+TP_FAILOVER_TOKENS = 16
+# The planted fault's pass teacher-forces the first TP_FAULT_TOKENS of each
+# stream (positions one late shows from the first step); leg (b) runs the
+# greedy requests for TP_INT8_TOKENS tokens, against the same prefix of
+# the one-card int8 streams.
+TP_FAULT_TOKENS, TP_INT8_TOKENS = 32, 64
+TP_MIXTRAL_LAYERS, TP_MIXTRAL_TOKENS = 4, 32
+TP_BENCH_LAYERS = 8
+
+
+def _tp_model(leg, mesh, rules):
+    """A rank's (module, config, serving tree): the leg's model from its
+    seed on the card, int8 when asked (the whole tree, then sharded)."""
+    from skypilot_tpu_torch.models import llama, mixtral
+    from skypilot_tpu_torch.serve import gang_replica
+    mod = {"llama": llama, "mixtral": mixtral}[leg["family"]]
+    cfg, dev = leg["cfg"], leg["device"]
+    params = mod.init(cfg, torch.Generator(device=dev).manual_seed(
+        leg["seed"]), dev)
+    if leg.get("int8"):
+        params = mod.quantize_params(cfg, params)
+    return mod, cfg, gang_replica.shard_params(cfg, params, mesh, rules)
+
+
+def _tp_leg_teacher(leg, mesh, rules, rank):
+    """The greedy streams teacher-forced on a tp rank: the model's forward
+    over its heads (flash_fwd on 16 query and 4 KV heads at Llama-3-8B),
+    the paged cache path and the path with positions one late, each
+    against the one-card forward's logits; rank 0's readings."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.serve import decode_engine, gang_replica
+    _, cfg, tp = _tp_model(leg, mesh, rules)
+    dev = leg["device"]
+    kvh = gang_replica.local_kv_heads(cfg, TP_DEGREE)
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    fa.reset_launches()
+    fwd = []
+    with torch.no_grad():
+        for prompt, toks in leg["seqs"]:
+            seq = torch.tensor([prompt + toks], device=dev)
+            pos = torch.arange(seq.shape[1], device=dev)[None]
+            x = llama._decode_embed(fwd_cfg, tp, seq)
+            for view in tp.layers:
+                x = llama.mlp_block(fwd_cfg, llama.attention_block(
+                    fwd_cfg, x, view, pos), view)
+            fwd.append(llama.lm_head(fwd_cfg, tp, x)[
+                0, len(prompt) - 1:-1].float().cpu())
+        launches = dict(fa.LAUNCHES)
+        kw = dict(paged=True, kv_heads=kvh)
+        sound = [z.float().cpu() for z in _cache_path_logits(
+            llama, decode_engine, cfg, tp, leg["seqs"], leg["geo"], dev,
+            **kw)]
+        short = [(p, t[:TP_FAULT_TOKENS]) for p, t in leg["seqs"]]
+        shift = [z.float().cpu() for z in _cache_path_logits(
+            llama, decode_engine, cfg, tp, short, leg["geo"], dev,
+            fault="shift", **kw)]
+    if rank:
+        return None
+    refs = [torch.from_numpy(r) for r in leg["refs"]]
+    return {"launches": launches, "fwd": _rel(fwd, refs),
+            "sound": _rel(sound, refs),
+            "shift": _rel(shift, [r[:TP_FAULT_TOKENS] for r in refs]),
+            "per_stream": [_rel([c], [r]) for c, r in zip(sound, refs)],
+            "maxdiff": [(c - r).abs().amax(-1).numpy()
+                        for c, r in zip(sound, refs)]}
+
+
+def _tp_leg_engine(leg, mesh, rules, rank):
+    """The leg's requests through a tp engine (rank 0 schedules, rank 1
+    serves its plans); rank 0's streams."""
+    from skypilot_tpu_torch.serve import decode_engine
+    _, cfg, tp = _tp_model(leg, mesh, rules)
+    eng = decode_engine.DecodeEngine(
+        cfg, tp, mesh=mesh, rules=rules, device=leg["device"],
+        use_manifest=False, weight_quant=bool(leg.get("int8")),
+        **leg["engine"])
+    if rank:
+        eng.work()
+        eng.release()
+        return None
+    eng.start()
+    t0 = time.perf_counter()
+    try:
+        hs = [eng.submit(p, max_tokens=n, temperature=t, seed=s)
+              for p, t, s, n in leg["reqs"]]
+        streams = [h.result(timeout=900) for h in hs]
+    finally:
+        eng.shutdown()
+        eng.release()
+    return {"streams": streams, "seconds": time.perf_counter() - t0,
+            "kv": eng.kv_config()}
+
+
+_TP_LEGS = {"teacher": _tp_leg_teacher, "engine": _tp_leg_engine}
+
+
+def _tp_rank_main(work: pathlib.Path, rank: int, addr: str) -> int:
+    """``chip_smoke.py tp-rank <dir> <rank> <addr>``: one rank of
+    [tp_serve]'s legs (``<dir>/job.pkl``) on their device (the card's
+    cuda:0 for both ranks); rank 0 writes ``<dir>/result.pkl``."""
+    import pickle
+    os.environ["STPU_TUNE_MANIFEST"] = "0"
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    from skypilot_tpu_torch.serve import gang_replica
+    job = pickle.loads((work / "job.pkl").read_bytes())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = gang_replica.TpGroup(tp=TP_DEGREE, rank=rank, addr=addr,
+                                 device=job[0]["device"],
+                                 backend=TP_BACKEND)
+    mesh, rules = gang_replica.build_mesh(gang_replica.ReplicaTopology(
+        ici_axes={"tp": TP_DEGREE}), group)
+    out = {}
+    for leg in job:
+        out[leg["name"]] = _TP_LEGS[leg["kind"]](leg, mesh, rules, rank)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        (work / "result.pkl").write_bytes(pickle.dumps(out))
+    group.close()
+    return 0
+
+
+def _tp_run_ranks(work, job, timeout=900):
+    """[tp_serve]'s rank legs in two processes of this script on the
+    card; rank 0's results."""
+    import pickle
+    from skypilot_tpu_torch.serve import gang_replica
+    (work / "job.pkl").write_bytes(pickle.dumps(job))
+    addr = gang_replica.free_addr()
+    logs = [open(work / f"rank{r}.log", "wb") for r in range(TP_DEGREE)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "tp-rank", str(work),
+         str(r), addr], stdout=log, stderr=subprocess.STDOUT)
+        for r, log in enumerate(logs)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if rcs != [0] * TP_DEGREE:
+        for r in range(TP_DEGREE):
+            tail = (work / f"rank{r}.log").read_text(errors="replace")
+            print(f"[tp_serve] rank {r} log tail:\n{tail[-3000:]}",
+                  file=sys.stderr, flush=True)
+    check(rcs == [0] * TP_DEGREE, f"[tp_serve] rank processes exited {rcs}")
+    return pickle.loads((work / "result.pkl").read_bytes())
+
+
+def _sse_tokens(label, res):
+    """The token frames of a streamed /generate ending in [DONE]."""
+    check(res is not None and res["status"] == 200,
+          f"{label}: HTTP {res and res['status']}")
+    frames = [f for f in res["frames"] if f.startswith("data: ")]
+    check(frames and frames[-1] == "data: [DONE]",
+          f"{label}: stream does not end in [DONE]")
+    return [json.loads(f[len("data: "):])["token"] for f in frames[:-1]]
+
+
+def _tp_first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _tp_replica(ref, tf, card, dev, model):
+    """Legs (a) and (c) through a tp-2 serve_llm replica: [serve]'s eight
+    streams and the ninth against the one-card replica's, greedy ones
+    parting only at a near-tie of the one-card forward's logits (gap
+    within twice the tp cache path's largest logit difference there);
+    then its tp rank SIGKILLed mid-stream: 503, the whole-gang restart,
+    stpu_gang_restarts_total 1, 200, and a request's tokens equal to its
+    run before the kill."""
+    from skypilot_tpu_torch.recipes import serve_llm
+    from skypilot_tpu_torch.serve import gang_replica
+    port = int(gang_replica.free_addr().rsplit(":", 1)[1])
+    base = f"http://127.0.0.1:{port}"
+    env = {**os.environ, "STPU_STEPSTATS": "1"}
+    cmd = [sys.executable, "-m", "skypilot_tpu_torch.recipes.serve_llm",
+           "--model", model, "--seed", "5", "--port", str(port),
+           "--tp", str(TP_DEGREE), "--device", dev, "--tp-backend",
+           TP_BACKEND, "--engine-slots", str(SV_SLOTS), "--kv-paged", "1",
+           "--kv-block-tokens", str(SV_BLOCK)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=pathlib.Path(__file__).resolve().parent,
+                            env=env, stdout=subprocess.DEVNULL,
+                            start_new_session=True)
+
+    def health():
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=5) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+        except OSError:
+            return None
+
+    def wait(code, seconds):
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            if health() == code:
+                return True
+            check(proc.poll() is None, f"[tp_serve] the replica exited "
+                  f"{proc.returncode}")
+            time.sleep(0.1)
+        return False
+
+    try:
+        check(wait(200, 600), "[tp_serve] the tp-2 replica never ready")
+        up = time.perf_counter() - t0
+        reqs = ref["reqs"]
+        out = [None] * len(reqs)
+        threads = [threading.Thread(target=_sse_generate, args=(
+            port, {"prompt": p, "max_tokens": SV_MAX_TOKENS,
+                   "temperature": t, "seed": s, "stream": True}, out, i))
+            for i, (p, t, s) in enumerate(reqs)]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t1
+        with urllib.request.urlopen(base + "/perf", timeout=30) as r:
+            perf = json.loads(r.read())
+        last = [None]
+        _sse_generate(port, {"prompt": ref["ninth"][0],
+                             "max_tokens": SV_MAX_TOKENS, "stream": True},
+                      last, 0)
+        streams = [_sse_tokens(f"[tp_serve] request {i}", res)
+                   for i, res in enumerate(out)]
+        ninth = _sse_tokens("[tp_serve] request 9", last[0])
+        dec = perf["phases"].get("decode", {})
+        step_ms = dec.get("seconds", 0.0) / max(dec.get("steps", 1), 1) * 1e3
+        print(f"[tp_serve] (a) tp-2 replica up in {up:.1f} s; eight streams "
+              f"{len(reqs) * SV_MAX_TOKENS / wall:.1f} tokens/s aggregate "
+              f"({wall:.2f} s); decode step {step_ms:.1f} ms mean over "
+              f"{dec.get('steps', 0)} steps at mean occupancy "
+              f"{perf['occupancy']['mean']} ([serve] one card 128.6-182.1 ms "
+              f"at 8) ({card})", flush=True)
+        greedy = [i for i, r in enumerate(reqs) if not r[1]]
+        ties = []
+        for g, i in enumerate(greedy):
+            div = _tp_first_divergence(streams[i], ref["streams"][i])
+            if div is None:
+                continue
+            full = ref["full"][g][div]
+            gap = abs(float(full[ref["streams"][i][div]] -
+                            full[streams[i][div]]))
+            bound = 2 * float(tf["maxdiff"][g][div])
+            ties.append((i, div, round(gap, 4), round(bound, 4)))
+            check(gap <= bound, f"[tp_serve] greedy request {i} parts from "
+                  f"one card at token {div} by a logit gap {gap:.4f}, past "
+                  f"the near-tie bound {bound:.4f}")
+        seeded_equal = sum(a == b for i, (_, t, _s) in enumerate(reqs) if t
+                           for a, b in zip(streams[i], ref["streams"][i]))
+        print(f"[tp_serve] (a) greedy streams equal to one card's but at "
+              f"near-ties (request, token, gap, bound): {ties}; seeded "
+              f"tokens equal {seeded_equal} of "
+              f"{(len(reqs) - len(greedy)) * SV_MAX_TOKENS}; ninth equal "
+              f"{ninth == ref['ninth_tokens']} (first divergence "
+              f"{_tp_first_divergence(ninth, ref['ninth_tokens'])}, not "
+              f"gated)", flush=True)
+        # (c) failover.
+        body = {"prompt": reqs[0][0], "max_tokens": TP_FAILOVER_TOKENS}
+        before = json.loads(urllib.request.urlopen(urllib.request.Request(
+            base + "/generate", data=json.dumps(body).encode()),
+            timeout=300).read())["tokens"]
+        with urllib.request.urlopen(base + "/gang", timeout=30) as r:
+            members = json.loads(r.read())["members"]
+        victim = [m["pid"] for m in members if m["role"] == "tp"][0]
+        got = [0]
+        seen = threading.Event()
+
+        def on_frame(frames):
+            got[0] = len(frames)
+            if len(frames) >= 4:
+                seen.set()
+
+        def live_stream():
+            try:
+                _sse_generate(port, {"prompt": reqs[1][0],
+                                     "max_tokens": SV_MAX_TOKENS,
+                                     "stream": True}, [None], 0, on_frame)
+            except (http.client.HTTPException, OSError):
+                pass    # the cut itself: the stream died with the rank
+        stream = threading.Thread(target=live_stream)
+        stream.start()
+        check(seen.wait(300), "[tp_serve] (c) the stream never started")
+        t2 = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        check(wait(503, 60), "[tp_serve] (c) /health never answered 503")
+        t503 = time.perf_counter() - t2
+        check(wait(200, 600), "[tp_serve] (c) the gang never recovered")
+        back = time.perf_counter() - t2
+        stream.join(timeout=300)
+        after = json.loads(urllib.request.urlopen(urllib.request.Request(
+            base + "/generate", data=json.dumps(body).encode()),
+            timeout=300).read())["tokens"]
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        restarts = [ln for ln in text.splitlines()
+                    if ln.startswith("stpu_gang_restarts_total ")]
+        print(f"[tp_serve] (c) tp rank SIGKILLed mid-stream (the stream "
+              f"ended after {got[0]} frames): 503 after {t503:.2f} s, 200 "
+              f"after {back:.1f} s (whole-gang restart), {restarts}; the "
+              f"next request's tokens equal its run before the kill: "
+              f"{after == before}", flush=True)
+        check(restarts == ["stpu_gang_restarts_total 1"],
+              f"[tp_serve] (c) restarts {restarts}")
+        check(after == before, f"[tp_serve] (c) tokens after the restart "
+              f"{after} != before {before}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    del serve_llm
+
+
+def phase_tp_serve(fa, card, ref, dev="cuda", model="llama3-8b"):
+    """[tp_serve]: the tensor-parallel replica at Llama-3-8B full width
+    and depth on the one card (module docstring, phase 11b); ``model`` is
+    serve_llm's name of [serve]'s config (seed 5)."""
+    from skypilot_tpu_torch.benchmark import decode_bench
+    from skypilot_tpu_torch.models import llama, mixtral
+    from skypilot_tpu_torch.serve import decode_engine
+    t0 = time.perf_counter()
+    dev = "cuda:0" if dev == "cuda" else dev
+    print(f"[tp_serve] tp {TP_DEGREE} over {TP_BACKEND}: one card, and NCCL "
+          f"refuses two ranks on one device; both ranks on cuda:0, gloo "
+          f"carrying their CUDA tensors (all_reduce, all_gather, "
+          f"broadcast)", flush=True)
+    # (e)'s one-card reference: Mixtral at full width, cut in depth.
+    mx_cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                                 n_layers=TP_MIXTRAL_LAYERS)
+    mx_reqs = [(p, 0.0, 0, TP_MIXTRAL_TOKENS)
+               for p, _, _ in _serve_requests(mx_cfg, seed=22)[0][:4]]
+    mx_engine = dict(slots=SV_SLOTS, max_seq=1280, prefill_chunk=SV_BLOCK,
+                     paged=True)
+    params = mixtral.init(mx_cfg, torch.Generator(device=dev).manual_seed(
+        21), dev)
+    eng = decode_engine.DecodeEngine(mx_cfg, params, device=dev,
+                                     use_manifest=False, **mx_engine).start()
+    try:
+        hs = [eng.submit(p, max_tokens=n) for p, _, _, n in mx_reqs]
+        mx_one = [h.result(timeout=900) for h in hs]
+    finally:
+        eng.shutdown()
+        eng.release()
+    del params
+    torch.cuda.empty_cache()
+    f32 = ref["f32"]
+    cfg = llama.LlamaConfig.llama3_8b()
+    job = [
+        dict(name="teacher", kind="teacher", family="llama", cfg=cfg,
+             seed=5, seqs=ref["seqs"], refs=ref["full"], geo=ref["geo"],
+             device=dev),
+        dict(name="f32_teacher", kind="teacher", family="llama",
+             cfg=f32["cfg"], seed=7, seqs=f32["seqs"], refs=f32["refs"],
+             geo=f32["geo"], device=dev),
+        dict(name="f32", kind="engine", family="llama", cfg=f32["cfg"],
+             seed=7, reqs=[(p, t, s, SV_EXACT_TOKENS)
+                           for p, t, s in f32["reqs"]],
+             engine=dict(slots=4, max_seq=512, prefill_chunk=64,
+                         paged=True), device=dev),
+        dict(name="int8", kind="engine", family="llama", cfg=cfg, seed=5,
+             int8=True, reqs=[(p, t, s, TP_INT8_TOKENS)
+                              for p, t, s in ref["reqs"] if not t],
+             engine=dict(slots=SV_SLOTS, max_seq=1280,
+                         prefill_chunk=SV_BLOCK, paged=True, kv_quant=True,
+                         prefix_cache_mb=64), device=dev),
+        dict(name="mixtral", kind="engine", family="mixtral", cfg=mx_cfg,
+             seed=21, reqs=mx_reqs, engine=mx_engine, device=dev),
+    ]
+    work = pathlib.Path(tempfile.mkdtemp(prefix="stpu_tp_serve_"))
+    try:
+        t1 = time.perf_counter()
+        res = _tp_run_ranks(work, job)
+        ranks_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    tf = res["teacher"]
+    n_greedy = len(ref["seqs"])
+    want = {name: 0 for name in tf["launches"]}
+    want["flash_fwd"] = cfg.n_layers * n_greedy
+    print(f"[tp_serve] (a) teacher-forced greedy streams on each rank's "
+          f"{cfg.n_heads // TP_DEGREE} query and "
+          f"{cfg.n_kv_heads // TP_DEGREE} KV heads: the tp forward "
+          f"{tf['fwd']:.3e} from the one-card forward; the tp paged cache "
+          f"path {tf['sound']:.3e} (per stream "
+          f"{[f'{x:.2e}' for x in tf['per_stream']]}; tol "
+          f"{CACHE_REL_TOL:g}), planted fault (positions one late, first "
+          f"{TP_FAULT_TOKENS} tokens) {tf['shift']:.3e}; rank 0 launches {tf['launches']}", flush=True)
+    check(tf["launches"] == want, f"[tp_serve] teacher-forced launches "
+          f"{tf['launches']} != {want}")
+    check(tf["sound"] <= CACHE_REL_TOL, f"[tp_serve] tp cache path "
+          f"{tf['sound']:.3e} from the one-card forward, past "
+          f"{CACHE_REL_TOL:g}")
+    check(tf["shift"] > CACHE_REL_TOL, f"[tp_serve] the planted fault reads "
+          f"{tf['shift']:.3e}, inside {CACHE_REL_TOL:g}")
+    t32 = res["f32_teacher"]
+    streams32 = res["f32"]["streams"]
+    equal32 = streams32 == f32["streams"]
+    print(f"[tp_serve] (a) f32 at {f32['cfg'].n_layers} layers: tp paged "
+          f"cache path {t32['sound']:.3e} from the one-card forward (tol "
+          f"{F32_CACHE_REL_TOL:g}), fault {t32['shift']:.3e}; tp engine "
+          f"streams equal to one card's: {equal32} (first divergences "
+          f"{[_tp_first_divergence(a, b) for a, b in zip(streams32, f32['streams'])]})",
+          flush=True)
+    check(t32["sound"] <= F32_CACHE_REL_TOL and
+          t32["shift"] > F32_CACHE_REL_TOL,
+          f"[tp_serve] f32 tp cache path {t32['sound']:.3e} / fault "
+          f"{t32['shift']:.3e} against {F32_CACHE_REL_TOL:g}")
+    check(equal32, "[tp_serve] f32 tp streams differ from one card's")
+    greedy = [i for i, r in enumerate(ref["reqs"]) if not r[1]]
+    q = res["int8"]["streams"]
+    one_q = [ref["q_streams"][i][:TP_INT8_TOKENS] for i in greedy]
+    same = sum(a == b for s, t in zip(q, one_q) for a, b in zip(s, t))
+    print(f"[tp_serve] (b) int8 weights and KV at tp 2 (the tree quantized "
+          f"whole, then sharded): the greedy requests' first "
+          f"{TP_INT8_TOKENS} tokens equal to the one-card int8 leg's: {same} "
+          f"of {len(greedy) * TP_INT8_TOKENS} (first divergences "
+          f"{[_tp_first_divergence(s, t) for s, t in zip(q, one_q)]}; not "
+          f"gated: bf16 near-ties); {res['int8']['seconds']:.1f} s ({card})",
+          flush=True)
+    mx = res["mixtral"]["streams"]
+    print(f"[tp_serve] (e) Mixtral-8x7B width, {TP_MIXTRAL_LAYERS} layers, "
+          f"bf16 at tp 2 (experts split on mlp): greedy streams equal to "
+          f"one card's {sum(a == b for a, b in zip(mx, mx_one))} of "
+          f"{len(mx)} (first divergences "
+          f"{[_tp_first_divergence(a, b) for a, b in zip(mx, mx_one)]}; "
+          f"not gated); rank legs {ranks_s:.1f} s", flush=True)
+    check(all(len(s) == TP_MIXTRAL_TOKENS for s in mx),
+          "[tp_serve] (e) incomplete Mixtral streams")
+    _tp_replica(ref, tf, card, dev, model)
+    bench_cfg = dataclasses.replace(cfg, n_layers=TP_BENCH_LAYERS)
+    tp_bench = decode_bench.measure_engine_tp(
+        "llama", tp=TP_DEGREE, device=dev, backend=TP_BACKEND,
+        config=bench_cfg)
+    one = decode_bench.measure_engine_ragged(
+        "llama", n_requests=tp_bench["requests"], config=bench_cfg,
+        device=dev)
+    print(f"[tp_serve] (d) measure_engine_tp at Llama-3-8B width, "
+          f"{TP_BENCH_LAYERS} layers: {json.dumps(tp_bench)}; one card, "
+          f"measure_engine_ragged on the same model and mix: "
+          f"{one['engine_ragged_tok_s']} tokens/s ({one['wall_seconds']} s) "
+          f"({card})", flush=True)
+    print(f"[tp_serve] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["tp-rank"]:
+        return _tp_rank_main(pathlib.Path(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4])
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
@@ -3866,8 +4385,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_gemma_long(fa, trainer, records, card)
         torch.cuda.empty_cache()
-        phase_serve(fa, llama, card)
+        tp_ref = phase_serve(fa, llama, card)
         phase_lb_bench(card)
+        torch.cuda.empty_cache()
+        phase_tp_serve(fa, card, tp_ref)
+        del tp_ref
         torch.cuda.empty_cache()
         phase_gemma_serve(fa, card)
         phase_mixtral_serve(fa, card)

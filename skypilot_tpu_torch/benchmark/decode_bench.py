@@ -53,8 +53,11 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import pickle
 import random
 import shutil
+import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -102,11 +105,12 @@ def _model_info(family: str, cfg, params) -> Dict[str, Any]:
             "params": sum(p.numel() for p in params.parameters())}
 
 
-def _setup(family: str, device: DeviceLike, shape_kw):
-    """(module, config, device, params): the family's bench model with
-    weights drawn from seed 0 on ``device``."""
+def _setup(family: str, device: DeviceLike, shape_kw, config=None):
+    """(module, config, device, params): the family's bench model (or
+    ``config``) with weights drawn from seed 0 on ``device``."""
     device = resolve_device(device)
     mdl, cfg = build(family, **shape_kw)
+    cfg = config or cfg
     gen = torch.Generator(device=device).manual_seed(0)
     return mdl, cfg, device, mdl.init(cfg, gen, device)
 
@@ -249,15 +253,16 @@ def measure_engine_ragged(family: str, slots: int = 8,
                           n_requests: int = 32, max_prompt: int = 192,
                           max_tokens: int = 64,
                           engine_kw: Optional[Dict[str, Any]] = None,
-                          device: DeviceLike = None,
+                          device: DeviceLike = None, config=None,
                           **shape_kw) -> Dict[str, Any]:
     """The engine under ragged arrivals: the seeded mixed-length mix
     submitted at once, generated tokens over the whole wall (prefill
     included). With tracing armed every request carries a trace context,
     so the run measures the armed overhead. Step telemetry is armed and
-    its phase breakdown reported."""
+    its phase breakdown reported. ``config`` replaces ``build``'s model
+    (``measure_engine_tp``'s one-card counterpart)."""
     from skypilot_tpu_torch.observability import tracing
-    mdl, cfg, device, params = _setup(family, device, shape_kw)
+    mdl, cfg, device, params = _setup(family, device, shape_kw, config)
     kw = dict(prefill_chunk=64)
     kw.update(engine_kw or {})
     engine = _engine(cfg, params, device, slots=slots,
@@ -287,6 +292,106 @@ def measure_engine_ragged(family: str, slots: int = 8,
         "busy_fraction": snap.get("busy_fraction"),
         "dispatch_ms_mean": snap.get("dispatch_ms_mean"),
         "device_ms_mean": (snap.get("sync") or {}).get("device_ms_mean"),
+    }
+
+
+def _tp_engine(job: Dict[str, Any], rank: int):
+    """(config, tp group, engine) of rank ``rank`` of measure_engine_tp's
+    job: the job's model from seed 0 on the rank's device, sharded over
+    its group (joined here), and the engine at the job's constants."""
+    from skypilot_tpu_torch.serve import gang_replica
+    from skypilot_tpu_torch.serve.decode_engine import DecodeEngine
+    cfg, tp = job["cfg"], job["tp"]
+    device = resolve_device(job["device"] if job["device"] is not None
+                            else f"cuda:{rank}")
+    mdl = __import__(f"skypilot_tpu_torch.models.{job['family']}",
+                     fromlist=["init"])
+    params = mdl.init(cfg, torch.Generator(device=device).manual_seed(0),
+                      device)
+    group = gang_replica.TpGroup(tp=tp, rank=rank, addr=job["addr"],
+                                 device=device, backend=job["backend"])
+    topology = gang_replica.ReplicaTopology(ici_axes={"tp": tp})
+    mesh, rules = gang_replica.build_mesh(topology, group)
+    params = gang_replica.shard_params(cfg, params, mesh, rules)
+    engine = DecodeEngine(cfg, params, mesh=mesh, rules=rules,
+                          device=device, use_manifest=False, **job["engine"])
+    return cfg, topology, group, engine
+
+
+def _tp_rank_main(job_path: str, rank: int) -> None:
+    """One of measure_engine_tp's spawned ranks: serve rank 0's plans
+    until its engine closes."""
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    _, _, group, engine = _tp_engine(job, rank)
+    engine.work()
+    group.close()
+
+
+def measure_engine_tp(family: str, tp: int = 2, slots: int = 8,
+                      n_requests: int = 24, max_prompt: int = 192,
+                      max_tokens: int = 64, device: DeviceLike = None,
+                      backend: Optional[str] = None, config=None,
+                      **shape_kw) -> Dict[str, Any]:
+    """Tensor-parallel engine throughput under the ragged mix: the
+    sharded-replica serving path (``serve/gang_replica.py``) over a
+    ``tp``-rank group, under the JAX bench's keys. This process is rank
+    0 and spawns the other ranks itself (rank r on ``cuda:r``, or every
+    rank on ``device`` when given; ``backend`` as ``TpGroup``'s: gloo
+    for ranks sharing one card), where JAX forces a CPU mesh. ``config``
+    replaces ``build``'s model (e.g. a wider one); weights from seed 0.
+    The figure tracks the sharded path's cost, not a card's speed alone:
+    on one card its ranks share it."""
+    from skypilot_tpu_torch.serve import gang_replica
+    if torch.distributed.is_initialized():
+        raise RuntimeError("measure_engine_tp makes this process a tp "
+                           "group's rank 0: it already has a group")
+    mdl, cfg = build(family, **shape_kw)
+    job = {"family": family, "cfg": config or cfg, "tp": int(tp),
+           "device": device, "backend": backend,
+           "addr": gang_replica.free_addr(),
+           "engine": dict(slots=slots, max_seq=max_prompt + max_tokens,
+                          prefill_chunk=64)}
+    with tempfile.TemporaryDirectory() as tmp:
+        job_path = f"{tmp}/job.pkl"
+        with open(job_path, "wb") as f:
+            pickle.dump(job, f)
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "skypilot_tpu_torch.benchmark."
+             "decode_bench", "--tp-worker", job_path, str(r)])
+            for r in range(1, int(tp))]
+        group = None
+        try:
+            cfg, topology, group, engine = _tp_engine(job, 0)
+            engine.start()
+            engine.warmup()
+            specs = _ragged_specs(cfg, n_requests, max_prompt, max_tokens)
+            try:
+                total, dt, _ = _submit_all(engine, specs)
+            finally:
+                _close(engine)
+            for proc in procs:
+                if proc.wait(timeout=120) != 0:
+                    raise RuntimeError(f"tp rank exited {proc.returncode}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if group is not None and group.connected:
+                group.close()
+    return {
+        "model": {"family": family, "dim": cfg.dim,
+                  "layers": cfg.n_layers,
+                  "experts": getattr(cfg, "n_experts", 0),
+                  "mlp_dim": cfg.mlp_dim},
+        "slots": slots,
+        "requests": n_requests,
+        "tp": int(tp),
+        "topology": topology.label(),
+        "generated_tokens": total,
+        "wall_seconds": round(dt, 3),
+        "engine_tp_tok_s": round(total / dt, 1),
     }
 
 
@@ -909,12 +1014,17 @@ def measure_engine_chaos(family: str, *, slots: int = 8,
 
 
 MODES = ("fixed", "engine", "paged", "q8", "spec", "prefix", "ckpt",
-         "loadgen", "chaos", "tier")
+         "loadgen", "chaos", "tier", "tp")
 
 
 def main(argv=None) -> None:
     """``tools/bench_moe_decode.py``'s flags for the ported modes; prints
-    the mode's dict as one JSON line."""
+    the mode's dict as one JSON line. (``--tp-worker JOB RANK`` is a
+    rank that ``--mode tp`` spawned.)"""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--tp-worker"]:
+        _tp_rank_main(argv[1], int(argv[2]))
+        return
     p = argparse.ArgumentParser()
     p.add_argument("--family", choices=("mixtral", "llama", "gemma"),
                    default="mixtral")
@@ -928,7 +1038,8 @@ def main(argv=None) -> None:
                         "loadgen: a replica behind the load balancer "
                         "under the load generator, SLO-graded; chaos: "
                         "two replicas, one killed mid-run; tier: the "
-                        "host-RAM spill tier")
+                        "host-RAM spill tier; tp: the engine over --tp "
+                        "ranks it spawns")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=128)
     p.add_argument("--tokens", type=int, default=128)
@@ -954,6 +1065,10 @@ def main(argv=None) -> None:
     p.add_argument("--experts", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="torch device; default the card, 'cpu' on request")
+    p.add_argument("--tp", type=int, default=2,
+                   help="tp mode: ranks (one process each)")
+    p.add_argument("--tp-backend", choices=("nccl", "gloo"), default=None,
+                   help="tp mode: the group's backend")
     args = p.parse_args(argv)
     shape_kw = {k: v for k, v in (("dim", args.dim),
                                   ("layers", args.layers),
@@ -988,6 +1103,10 @@ def main(argv=None) -> None:
                          slo_tpot_s=args.slo_tpot, **shape_kw)
     elif args.mode == "tier":
         result = measure_engine_tier(args.family, **engine, **shape_kw)
+    elif args.mode == "tp":
+        result = measure_engine_tp(args.family, tp=args.tp,
+                                   backend=args.tp_backend, **engine,
+                                   **shape_kw)
     else:
         result = measure_decode(args.family, batch=args.batch,
                                 prompt_len=args.prompt_len,

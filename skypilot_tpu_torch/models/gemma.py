@@ -136,6 +136,8 @@ init_cache = llama.init_cache
 quantize_params = llama.quantize_params
 params_quantized = llama.params_quantized
 init_paged_cache = llama.init_paged_cache
+cache_specs = llama.cache_specs
+paged_cache_specs = llama.paged_cache_specs
 forward_with_cache = llama.forward_with_cache
 forward_with_paged_cache = llama.forward_with_paged_cache
 verify_step = llama.verify_step

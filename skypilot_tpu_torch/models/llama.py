@@ -57,6 +57,15 @@ Each cache loop and ``decode`` take the block after attention as
 ``mlp_fn``: Mixtral's serving half is these functions with its MoE block
 plugged in.
 
+Under tensor parallelism (``serve/gang_replica.py``) the cache paths run
+on a rank's serving tree: ``LayerView``s of its heads and MLP columns
+(int8 scales split with their output channel) and its vocab shard of the
+embedding table and head. The blocks take their head counts from the
+tensors they are given, the cache holds the rank's kv heads (``init_cache``
+and ``init_paged_cache``' ``kv_heads``; ``cache_specs`` names the axes),
+``_decode_embed`` sums the vocab shards' rows over tp and ``_vocab_proj``
+all-gathers the shards' logits.
+
 Cache tensors are updated in place (the JAX package donates them), and
 each forward returns the same cache it was given. The host-side values
 of a forward (``start_pos``, ``valid_len``, ``logits_at``, ``write_pos``
@@ -72,6 +81,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -392,7 +402,21 @@ def _vocab_proj(params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
                     else "embed_scale", None)
     if scale is not None:
         logits = logits * scale
-    return logits
+    return _gather_vocab(params, logits)
+
+
+def _gather_vocab(params, logits: torch.Tensor) -> torch.Tensor:
+    """A tp rank's logits over its vocab shard, all-gathered whole (the
+    serving tree of ``serve/gang_replica.py`` carries ``tp_group``);
+    any other tree's logits as they are."""
+    group = getattr(params, "tp_group", None)
+    if group is None:
+        return logits
+    logits = logits.contiguous()
+    parts = [torch.empty_like(logits)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, logits, group=group)
+    return torch.cat(parts, dim=-1)
 
 
 def lm_head(cfg, params: LlamaParams, x: torch.Tensor) -> torch.Tensor:
@@ -673,6 +697,25 @@ def forward(cfg: LlamaConfig, params: LlamaParams, tokens: torch.Tensor,
 TP_SPLIT_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_gate": 1,
                  "w_up": 1, "w_down": 0}
 _NORMS = ("attn_norm", "mlp_norm")
+# Layer weights every tp rank holds whole: the norms and Mixtral's f32
+# router.
+_WHOLE = _NORMS + ("router",)
+
+
+def _tp_split_dim(name: str, p: torch.Tensor) -> Optional[int]:
+    """The dim a tp-split layer consumes ``name`` split on:
+    ``TP_SPLIT_DIMS``' for a 2-D weight, one later for an expert tensor
+    (E, in, out); an int8 scale of a column-split weight on its output
+    channel (its last dim), as JAX's ``spec[:-2] + spec[-1:]`` places it;
+    None for the scale of a row-split weight, which every rank holds
+    whole, and for a weight outside the table."""
+    base = name.removesuffix("_scale")
+    d = TP_SPLIT_DIMS.get(base)
+    if d is None:
+        return None
+    if name != base:
+        return p.dim() - 1 if d == 1 else None
+    return d + p.dim() - 2
 
 
 class LayerView:
@@ -682,37 +725,42 @@ class LayerView:
 
     When the layer's products are stored split over a ``tp`` axis of
     more than one rank (wq/wk/wv/w_gate/w_up by columns, wo/w_down by
-    rows), the view keeps them split and carries the tp group: the
-    blocks then work on the rank's heads and MLP columns, between
-    ``tp_copy`` and ``tp_reduce``. Key/value weights whose heads are
-    fewer than the tp ranks (Gemma's one KV head) are gathered whole,
-    and ``kv_select`` picks the head the rank's query heads read; their
-    gradient is summed over tp. Otherwise the view holds whole weights
-    and every tp rank computes the whole layer.
+    rows; Mixtral's expert tensors one dim later), the view keeps them
+    split and carries the tp group: the blocks then work on the rank's
+    heads and MLP columns, between ``tp_copy`` and ``tp_reduce``. An int8
+    weight's scale goes with it: split with the output channel of a
+    column-split weight, whole beside a row-split one. Key/value weights
+    whose heads are fewer than the tp ranks (Gemma's one KV head) are
+    gathered whole, and ``kv_select`` picks the head the rank's query
+    heads read; their gradient is summed over tp. Otherwise the view
+    holds whole weights and every tp rank computes the whole layer.
     """
 
     def __init__(self, cfg, lp: nn.Module, mesh):
         names = tuple(n for n, _ in lp.named_parameters(recurse=False))
         tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
-        split = tp > 1 and all(
-            placement.tp_sharded(getattr(lp, n), d)
-            for n, d in TP_SPLIT_DIMS.items() if n not in ("wk", "wv"))
+
+        def sharded(n):
+            p = getattr(lp, n)
+            return placement.tp_sharded(p, _tp_split_dim(n, p))
+        split = tp > 1 and all(sharded(n) for n in TP_SPLIT_DIMS
+                               if n not in ("wk", "wv"))
         self.param_names = names
         self.tp_group = None
         self.kv_select = None
         kv_whole = False
         if split:
-            extra = set(names) - set(TP_SPLIT_DIMS) - set(_NORMS)
+            extra = (set(names) - set(TP_SPLIT_DIMS) - set(_WHOLE) -
+                     {n + "_scale" for n in TP_SPLIT_DIMS})
             if extra:
                 raise NotImplementedError(
-                    f"a tp-split layer with {sorted(extra)}: adapters and "
-                    "int8 scales are not split over tp")
+                    f"a tp-split layer with {sorted(extra)}: adapters are "
+                    "not split over tp")
             kvh = cfg.n_kv_heads
             if cfg.n_heads % tp or cfg.mlp_dim % tp:
                 raise ValueError(f"n_heads={cfg.n_heads} / mlp_dim="
                                  f"{cfg.mlp_dim} not divisible by tp={tp}")
-            if not (kvh % tp == 0 and all(placement.tp_sharded(
-                    getattr(lp, n), 1) for n in ("wk", "wv"))):
+            if not (kvh % tp == 0 and sharded("wk") and sharded("wv")):
                 if tp % kvh:
                     raise NotImplementedError(
                         f"n_kv_heads={kvh} neither divisible by nor "
@@ -722,10 +770,11 @@ class LayerView:
                                   // (tp // kvh))
             self.tp_group = mesh_lib.axis_group(mesh, mesh_lib.TP)
         for n in names:
-            whole_kv = kv_whole and n in ("wk", "wv")
-            keep = TP_SPLIT_DIMS.get(n) if split and not whole_kv else None
+            p = getattr(lp, n)
+            whole_kv = kv_whole and n.removesuffix("_scale") in ("wk", "wv")
+            keep = _tp_split_dim(n, p) if split and not whole_kv else None
             setattr(self, n, placement.compute_view(
-                getattr(lp, n), keep_tp=keep, tp_partial=whole_kv))
+                p, keep_tp=keep, tp_partial=whole_kv))
 
 
 def _view_layer(cfg, policy, lp, x, positions, pair):
@@ -902,7 +951,18 @@ def _decode_embed(cfg, params: LlamaParams,
     """Token-embedding gather for the serving paths, dequantizing the
     per-row scales of an int8 table and applying gemma's sqrt(dim) embed
     multiplier, rounded as the JAX package rounds them: the row scale
-    times the multiplier in f32, then one cast."""
+    times the multiplier in f32, then one cast. On a tp rank's serving
+    tree (``tp_group``, ``vocab_start``) the table is its vocab shard,
+    and the rows are summed over tp: exact, every other rank adds
+    zeros."""
+    group = getattr(params, "tp_group", None)
+    if group is not None:
+        # Vocab-parallel (Megatron): the rank holds rows [vocab_start,
+        # vocab_start + rows); a token outside them reads row 0, is
+        # zeroed, and the one rank that holds it supplies it in the sum.
+        local = tokens - params.vocab_start
+        held = (local >= 0) & (local < params.embed.shape[0])
+        tokens = torch.where(held, local, 0)
     x = params.embed[tokens]
     row_scale = getattr(params, "embed_scale", None)
     mult = getattr(cfg, "embed_multiplier", 1.0)
@@ -910,6 +970,8 @@ def _decode_embed(cfg, params: LlamaParams,
         x = (x.float() * (row_scale[tokens][..., None] * mult)).to(cfg.dtype)
     elif mult != 1.0:
         x = (x.float() * mult).to(x.dtype)
+    if group is not None:
+        x = placement.tp_reduce(torch.where(held[..., None], x, 0), group)
     return x
 
 
@@ -922,29 +984,51 @@ Cache = Dict[str, torch.Tensor]
 
 
 def init_cache(cfg, batch: int, max_seq: int,
-               device: DeviceLike = None) -> Cache:
+               device: DeviceLike = None, *,
+               kv_heads: Optional[int] = None) -> Cache:
     """Per-layer KV cache (layers, batch, max_seq, kv_heads, head_dim),
-    zeros in the config dtype; ``device`` defaults to the card."""
+    zeros in the config dtype; ``device`` defaults to the card.
+    ``kv_heads`` (default ``cfg.n_kv_heads``) is a tp rank's own count
+    (``serve/gang_replica.py`` ``cache_shardings``)."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_seq, kv_heads or cfg.n_kv_heads,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+def cache_specs(cfg) -> Dict[str, tuple]:
+    """Logical-axis names of the dense cache's (layers, batch, max_seq,
+    kv_heads, head_dim) layout, the JAX package's: kv_heads goes on tp
+    (``serve/gang_replica.py`` ``cache_shardings`` turns them into a
+    rank's local geometry)."""
+    spec = ("layers", None, None, "kv_heads", None)
+    return {"k": spec, "v": spec}
+
+
+def paged_cache_specs(cfg) -> Dict[str, tuple]:
+    """The paged pool's specs: :func:`cache_specs`' (its (layers,
+    num_blocks, block_tokens, kv_heads, head_dim) layout keeps kv_heads
+    at the same axis index)."""
+    return cache_specs(cfg)
+
+
 def init_paged_cache(cfg, num_blocks: int, block_tokens: int, *,
                      quantized: bool = False,
-                     device: DeviceLike = None) -> Cache:
+                     device: DeviceLike = None,
+                     kv_heads: Optional[int] = None) -> Cache:
     """ONE paged KV pool shared by every engine slot and the prefix
     cache: (layers, num_blocks, block_tokens, kv_heads, head_dim); block 0
     is the scratch block free slots write into. ``quantized`` stores int8
-    codes plus per-(layer, block, kv_head) f32 ``k_scale``/``v_scale``."""
+    codes plus per-(layer, block, kv_head) f32 ``k_scale``/``v_scale``.
+    ``kv_heads`` as in :func:`init_cache`."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_tokens, cfg.n_kv_heads,
-             cfg.head_dim)
+    kvh = kv_heads or cfg.n_kv_heads
+    shape = (cfg.n_layers, num_blocks, block_tokens, kvh, cfg.head_dim)
     if not quantized:
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-    sshape = (cfg.n_layers, num_blocks, cfg.n_kv_heads)
+    sshape = (cfg.n_layers, num_blocks, kvh)
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
             "k_scale": torch.zeros(sshape, dtype=torch.float32,
@@ -1135,10 +1219,10 @@ def cached_attention_block(cfg, x: torch.Tensor, lp: nn.Module,
     """One pre-norm GQA attention residual block against the dense
     cache: one layer's ck/cv, written in place at ``step``'s rows, then
     attended up to each slot's frontier. Returns x + attn_out."""
-    b, t = x.shape[0], x.shape[1]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, t, hd = x.shape[0], x.shape[1], cfg.head_dim
     q, k_new, v_new = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp,
                                step.positions)
+    h, kvh = q.shape[2], k_new.shape[2]     # the rank's own under tp
     bi, ti, ri = step.write
     ck.index_put_((bi, ri), k_new[bi, ti].to(ck.dtype))
     cv.index_put_((bi, ri), v_new[bi, ti].to(cv.dtype))
@@ -1267,12 +1351,12 @@ def paged_attention_block(cfg, x: torch.Tensor, lp: nn.Module,
     verify window's columns in order), or the single-slot chunk
     prefill's whole block ``write_block`` (B == 1, T == block_tokens).
     Returns x + attn_out."""
-    b, t = x.shape[0], x.shape[1]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, t, hd = x.shape[0], x.shape[1], cfg.head_dim
     bt = pk.shape[1]
     quant = ks is not None
     q, k_new, v_new = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp,
                                step.positions)
+    h, kvh = q.shape[2], k_new.shape[2]     # the rank's own under tp
     if step.rows is not None:
         blk, off = step.rows
         if quant:

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import placement
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +105,40 @@ def layer_shapes(cfg: MixtralConfig) -> dict:
     }
 
 
+def param_specs(cfg: MixtralConfig, *, quantized: bool = False) -> dict:
+    """Logical-axis names for every parameter: the JAX package's
+    ``param_specs`` without the stacked ``layers`` axis (llama's rule).
+    Expert tensors split their ``mlp`` axis over tp (Megatron per
+    expert: w_gate and w_up by columns, w_down by rows); ``expert`` goes
+    on ``ep``, which no serving mesh has; the f32 router is whole.
+    ``quantized``: each int8 weight's ``<name>_scale`` keeps the weight's
+    axes minus its in-features axis (JAX's ``spec[:-2] + spec[-1:]``)."""
+    specs = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("embed",),
+            "wq": ("embed", "q_heads_x_dim"),
+            "wk": ("embed", "kv_heads_x_dim"),
+            "wv": ("embed", "kv_heads_x_dim"),
+            "wo": ("q_heads_x_dim", "embed"),
+            "mlp_norm": ("embed",),
+            "router": ("embed", None),
+            "w_gate": ("expert", "embed", "mlp"),
+            "w_up": ("expert", "embed", "mlp"),
+            "w_down": ("expert", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+    if quantized:
+        specs["embed_scale"] = ("vocab",)
+        for name in llama.QUANT_LAYER_WEIGHTS:
+            spec = specs["layers"][name]
+            specs["layers"][name + "_scale"] = spec[:-2] + spec[-1:]
+        specs["lm_head_scale"] = ("vocab",)
+    return specs
+
+
 # The router stays f32 whatever the config dtype (routing is a discrete
 # argmax).
 ROUTER_DTYPE = torch.float32
@@ -143,8 +178,8 @@ class MixtralParams(nn.Module):
 
 @torch.no_grad()
 def init(cfg: MixtralConfig, generator: torch.Generator,
-         device: DeviceLike = None, *, quantize: bool = False
-         ) -> MixtralParams:
+         device: DeviceLike = None, *, quantize: bool = False,
+         layer_hook=None) -> MixtralParams:
     """Random init as the JAX package draws it (normal * fan_in^-0.5,
     norms at one, the router in f32), from ``generator``; the numbers
     differ from JAX's PRNG. ``device`` defaults to the card.
@@ -153,10 +188,14 @@ def init(cfg: MixtralConfig, generator: torch.Generator,
     device))``, the same numbers, drawn and quantized a layer at a time,
     so that no more than one layer is held in the config dtype:
     Mixtral-8x7B is 93.4 GB in bf16, more than one 80 GB card holds, and
-    46.7 GB in int8."""
+    46.7 GB in int8. ``layer_hook(i, layer)``, when given, takes each
+    layer as soon as it is drawn (and quantized) and returns what the tree
+    keeps in its place: a tensor-parallel rank keeps its shard
+    (``serve/gang_replica.py`` ``shard_init``), never the whole tree."""
     device = resolve_device(device)
-    params = MixtralParams(cfg, "meta" if quantize else device, cfg.dtype)
-    if quantize:
+    staged = quantize or layer_hook is not None
+    params = MixtralParams(cfg, "meta" if staged else device, cfg.dtype)
+    if staged:
         for name in ("embed", "final_norm", "lm_head"):
             setattr(params, name, nn.Parameter(torch.empty_like(
                 getattr(params, name), device=device)))
@@ -172,7 +211,7 @@ def init(cfg: MixtralConfig, generator: torch.Generator,
     if quantize:
         _quantize_into(params, params, "embed", -1)
     for i in range(cfg.n_layers):
-        lp = MixtralLayer(cfg, device, cfg.dtype) if quantize else \
+        lp = MixtralLayer(cfg, device, cfg.dtype) if staged else \
             params.layers[i]
         lp.attn_norm.fill_(1.0)
         lp.mlp_norm.fill_(1.0)
@@ -180,9 +219,11 @@ def init(cfg: MixtralConfig, generator: torch.Generator,
             dense(getattr(lp, name), cfg.dim)
         dense(lp.wo, cfg.n_heads * cfg.head_dim)
         dense(lp.w_down, cfg.mlp_dim)
-        if quantize:
-            params.layers[i] = _quantized_layer(cfg, lp)
+        if staged:
+            layer = _quantized_layer(cfg, lp) if quantize else lp
             del lp
+            params.layers[i] = (layer_hook(i, layer) if layer_hook
+                                else layer)
     params.final_norm.fill_(1.0)
     dense(params.lm_head, cfg.dim)
     if quantize:
@@ -393,15 +434,21 @@ def _moe_mlp_dense(cfg: MixtralConfig, y: torch.Tensor,
 
 def _moe_block(cfg: MixtralConfig, x: torch.Tensor,
                lp: nn.Module) -> torch.Tensor:
-    """Pre-norm dense-routed MoE residual block (inference)."""
+    """Pre-norm dense-routed MoE residual block (inference). On a
+    tp-split layer view each rank runs every expert on its ``mlp``
+    columns (the router is whole, so every rank routes alike), and the
+    combined partial outputs are summed over tp."""
     y = llama.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-    return x + _moe_mlp_dense(cfg, y, lp)
+    return x + placement.tp_reduce(_moe_mlp_dense(cfg, y, lp),
+                                   llama._tp_group(lp))
 
 
-# Llama's cache layouts: the attention blocks are shared and experts add
-# no per-token state.
+# Llama's cache layouts and specs: the attention blocks are shared and
+# experts add no per-token state.
 init_cache = llama.init_cache
 init_paged_cache = llama.init_paged_cache
+cache_specs = llama.cache_specs
+paged_cache_specs = llama.paged_cache_specs
 
 
 def forward_with_cache(cfg: MixtralConfig, params: MixtralParams,

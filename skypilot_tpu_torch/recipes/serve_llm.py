@@ -30,9 +30,23 @@ drawn.
 Runs on the card unless given ``--device cpu``. ``--lb-port N`` also
 starts the port's load balancer (``serve/load_balancer.py``) in the same
 process on port N, fronting this replica (``--lb-policy round_robin`` or
-``prefix_affinity``). Not ported yet, and refused with a ValueError: gang
-and tensor-parallel replicas (``--replica-hosts`` > 1, ``--tp`` > 1,
-``SKYPILOT_NUM_NODES`` > 1 or a ``SKYPILOT_NODE_RANK`` > 0).
+``prefix_affinity``).
+
+Gang and tensor-parallel replicas (``serve/gang_replica.py``):
+``--replica-hosts N --tp K`` (or ``STPU_REPLICA_TOPOLOGY``) serves one
+replica from N x K processes, one per card. Outside a gang launch the
+process started by hand is host 0's tp rank 0: it spawns the others on
+this machine (tp rank r on ``cuda:r``; ``--device`` given carries to every
+rank, ``--device cpu`` too), fronts HTTP as the ``GangLeader`` and
+broadcasts each admission to the other hosts' rank 0 (under
+``gang_admit_lock``, with its own submit). Each host's tp ranks form a
+process group (``--tp-backend``: NCCL on the card by default, gloo on the
+CPU; gloo also for two ranks sharing one card). /health covers every
+rank; a dead one restarts the whole gang; drain and SIGTERM reach every
+rank.
+
+    python -m skypilot_tpu_torch.recipes.serve_llm --model llama3-8b \
+        --tp 2 --port 8080      # two cards; --replica-hosts 2: four
 """
 from __future__ import annotations
 
@@ -41,6 +55,8 @@ import dataclasses
 import json
 import os
 import signal
+import subprocess
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -49,20 +65,23 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import DeviceLike, resolve_device, to_device
-from skypilot_tpu_torch.models import gemma, llama, mixtral, model_api
+from skypilot_tpu_torch.models import (family_name, gemma, llama, mixtral,
+                                       model_api)
 from skypilot_tpu_torch.observability import metrics
 from skypilot_tpu_torch.observability import reqlog
 from skypilot_tpu_torch.observability import stepstats
 from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.serve import decode_engine
+from skypilot_tpu_torch.serve import gang_replica
 from skypilot_tpu_torch.serve import load_balancer as lb_lib
 from skypilot_tpu_torch.serve import load_balancing_policies
 from skypilot_tpu_torch.serve import prng
+from skypilot_tpu_torch.train import distributed
 from skypilot_tpu_torch.utils import fault_injection
 
 # The gang env contract (the JAX package's ``agent/constants.py``).
-NODE_RANK = "SKYPILOT_NODE_RANK"
-NUM_NODES = "SKYPILOT_NUM_NODES"
+NODE_RANK = distributed.NODE_RANK
+NUM_NODES = distributed.NUM_NODES
 
 
 # Request limits: prompt/decode lengths are padded to buckets (the
@@ -241,8 +260,15 @@ class _Handler(BaseHTTPRequestHandler):
             ctx = self.server_ctx
             ready = ctx["ready"].is_set()
             engine = ctx.get("engine")
+            gang = ctx.get("gang")
             if not ready:
                 self._json(503, {"status": "warming"})
+            elif gang is not None and not gang.healthy():
+                # Gang replicas probe as ONE unit: host 0's /health
+                # speaks for every rank (the leader's membership
+                # monitor), so a dead rank never hides behind a READY
+                # replica.
+                self._json(503, {"status": "gang_degraded"})
             elif engine is not None and not engine.healthy():
                 # The readiness probe must tell the truth about the
                 # ENGINE, not just the HTTP process: a dead/restarting
@@ -270,7 +296,16 @@ class _Handler(BaseHTTPRequestHandler):
             # ready replica's /perf like it merges /metrics.
             self._json(200, self._perf_payload())
         elif self.path == "/gang":
-            self._json(404, {"error": "not a gang replica"})
+            gang = self.server_ctx.get("gang")
+            if gang is None:
+                self._json(404, {"error": "not a gang replica"})
+            else:
+                self._json(200, {
+                    "topology": gang.topology.to_config(),
+                    "label": gang.topology.label(),
+                    "healthy": gang.healthy(),
+                    "restarts": gang.restarts,
+                    "members": gang.members_info()})
         elif self.path == "/metrics":
             # Replica-local registry (engine slot/queue/token families);
             # the LB pulls this into its merged /metrics snapshot.
@@ -398,6 +433,11 @@ class _Handler(BaseHTTPRequestHandler):
         engine = ctx.get("engine")
         if engine is not None:
             engine.drain()
+        gang = ctx.get("gang")
+        if gang is not None:
+            # Drain is gang-wide: the other hosts' engines stop
+            # admitting too.
+            gang.drain()
         self._json(200, self._drain_payload())
 
     def do_POST(self):
@@ -529,9 +569,23 @@ class _Handler(BaseHTTPRequestHandler):
         # and regenerates only the remainder, emitting from the same
         # absolute positions (same seed) the dead upstream would have.
         remaining = mt - (len(resume) if resume else 0)
-        req = engine.submit(prompt, max_tokens=remaining,
-                            temperature=temperature, seed=seed,
-                            trace=trace, resume=resume)
+        gang = self.server_ctx.get("gang")
+        if gang is not None:
+            # Mirror the admission (prompt + sampling seed) to every
+            # other host BEFORE the local submit, so every host sees the
+            # same request order. Broadcast + local submit are ONE
+            # critical section: concurrent handlers interleaving them
+            # would admit (A, B) on a follower but (B, A) here.
+            with self.server_ctx["gang_admit_lock"]:
+                gang.broadcast_generate(prompt, remaining, temperature,
+                                        seed, trace=trace, resume=resume)
+                req = engine.submit(prompt, max_tokens=remaining,
+                                    temperature=temperature, seed=seed,
+                                    trace=trace, resume=resume)
+        else:
+            req = engine.submit(prompt, max_tokens=remaining,
+                                temperature=temperature, seed=seed,
+                                trace=trace, resume=resume)
         timeout = self.server_ctx["stream_timeout"]
         if not stream:
             self._json(200, {"tokens": req.result(timeout=timeout)})
@@ -713,7 +767,11 @@ def serve(cfg: llama.LlamaConfig, params, port: int,
           spec_k: int = None,
           spec_ngram: int = None,
           spec_min_accept: float = None,
-          device: DeviceLike = None
+          device: DeviceLike = None,
+          topology: "gang_replica.ReplicaTopology" = None,
+          mesh=None, rules=None,
+          gang: "gang_replica.GangLeader" = None,
+          tp_group: "gang_replica.TpGroup" = None
           ) -> ThreadingHTTPServer:
     """Start the replica server. ``engine_slots`` > 0 (default: env
     STPU_ENGINE_SLOTS or 4) serves through the continuous-batching
@@ -736,7 +794,16 @@ def serve(cfg: llama.LlamaConfig, params, port: int,
     backoff, ``engine_max_restarts`` consecutive fast failures →
     permanently down so the replica manager replaces the replica).
     ``device`` (default: the card) must hold ``params``; the CPU runs
-    only on ``device="cpu"``."""
+    only on ``device="cpu"``.
+
+    Sharded replicas (``serve/gang_replica.py``): ``mesh``/``rules`` make
+    the engine tensor-parallel (``params`` the rank's
+    ``gang_replica.shard_params`` tree; ``tp_group``, when given, is
+    rejoined by each engine build after a gang restart tore it down), and
+    ``gang`` is host 0's GangLeader: admissions broadcast to the other
+    hosts, /health covers every rank, drain propagates, and an engine
+    crash-restart restarts every host's engine, while a dead rank leaves
+    the engine to the gang's restart."""
     device = resolve_device(device)
     if engine_slots is None:
         engine_slots = ENGINE_SLOTS
@@ -768,16 +835,31 @@ def serve(cfg: llama.LlamaConfig, params, port: int,
            "device": device,
            "ready": ready_event or threading.Event(), "engine": None,
            "stream_timeout": float(stream_timeout),
-           "draining": threading.Event(),
+           "draining": threading.Event(), "gang": gang,
+           "gang_admit_lock": threading.Lock(),
            "preempt_notice": threading.Event(),
            "inflight": [0], "inflight_lock": threading.Lock()}
-    _TOPOLOGY_INFO.labels(hosts="1", tp="1").set(1)
+    _TOPOLOGY_INFO.labels(
+        hosts=str(topology.hosts if topology else 1),
+        tp=str(topology.tp if topology else 1)).set(1)
+    if mesh is not None and engine_slots <= 0:
+        raise ValueError("a tensor-parallel replica serves through the "
+                         "decode engine (engine_slots > 0)")
     if engine_slots > 0:
+        first_build = [True]
+
         def _engine_factory():
+            if gang is not None and not first_build[0]:
+                # Supervisor crash-restart: the other hosts rebuild in
+                # lockstep, or the gang serves from desynced caches.
+                gang.broadcast_restart()
+            first_build[0] = False
             return decode_engine.DecodeEngine(
                 cfg, params, slots=engine_slots,
                 max_seq=MAX_PROMPT_TOKENS + MAX_GEN_TOKENS,
                 prefix_cache_mb=prefix_cache_mb,
+                mesh=(tp_group.connect() if tp_group is not None
+                      else mesh), rules=rules,
                 paged=bool(kv_paged),
                 kv_pool_blocks=int(kv_pool_blocks),
                 kv_block_tokens=int(kv_block_tokens),
@@ -790,13 +872,20 @@ def serve(cfg: llama.LlamaConfig, params, port: int,
 
         ctx["engine"] = decode_engine.EngineSupervisor(
             _engine_factory, max_restarts=engine_max_restarts,
-            backoff_base=engine_restart_backoff).start()
+            backoff_base=engine_restart_backoff,
+            defer=((lambda: not gang.healthy()) if gang is not None
+                   else None)).start()
 
     handler = type("Handler", (_Handler,), {"server_ctx": ctx})
     httpd = ThreadingHTTPServer(("0.0.0.0", port), handler)
     httpd.engine = ctx["engine"]  # visible for shutdown/tests
+    httpd.gang = gang
 
     def warmup():
+        if gang is not None and not gang.wait_ready():
+            # Probes keep seeing "warming": the replica manager's
+            # initial-delay deadline replaces the half-formed gang.
+            return
         if ctx["engine"] is not None:
             ctx["engine"].warmup()
         else:
@@ -825,14 +914,17 @@ MODELS = {
 }
 
 
-def _build_model(args, device: torch.device):
+def _build_model(args, device: torch.device, mesh=None, rules=None):
     """The --model config (--dtype applied) and its random weights from
     --seed, through the family's own init (gemma's norms start at zero,
     mixtral's router is f32). Under --weight-quant 1 (or env
     STPU_WEIGHT_QUANT) mixtral's tree is drawn int8 a layer at a time
     (the engine then serves it as it is; other families are quantized by
-    the engine). A tree larger than the card's free memory raises a
-    ValueError before anything is drawn."""
+    the engine). On a tp mesh the rank's serving tree of that same tree
+    (``gang_replica.shard_init``: int8 under --weight-quant 1 for every
+    family, quantized whole before it is split; Mixtral a layer at a
+    time). A tree (a rank's share of it under tp) larger than the card's
+    free memory raises a ValueError before anything is drawn."""
     cfg = MODELS[args.model]()
     api = model_api(cfg)
     if args.dtype:
@@ -842,32 +934,128 @@ def _build_model(args, device: torch.device):
     weight_quant = ENGINE_WEIGHT_QUANT if args.weight_quant is None \
         else bool(args.weight_quant)
     int8 = weight_quant and api is mixtral
+    tp = 1
+    if mesh is not None:
+        from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
     if device.type == "cuda":
-        need = cfg.num_params() * (1 if int8 else cfg.dtype.itemsize)
+        need = cfg.num_params() * (1 if int8 else cfg.dtype.itemsize) / tp
         free = torch.cuda.mem_get_info(device)[0]
         if need > free:
             raise ValueError(
                 f"--model {args.model} is {need / 1e9:.1f} GB in "
-                f"{'int8' if int8 else cfg.dtype}, more than the "
+                f"{'int8' if int8 else cfg.dtype}"
+                f"{f' a rank at tp {tp}' if tp > 1 else ''}, more than the "
                 f"{free / 1e9:.1f} GB free on {device}" +
                 (": serve it with --weight-quant 1" if api is mixtral
                  and not int8 else ""))
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    if mesh is not None:
+        return cfg, gang_replica.shard_init(cfg, gen, device, mesh, rules,
+                                            quantize=weight_quant)
     if int8:
         return cfg, api.init(cfg, gen, device, quantize=True)
     return cfg, api.init(cfg, gen, device)
 
 
-def _refuse_not_ported(args) -> None:
-    """The replica kinds the port does not serve yet raise a ValueError
-    before anything is allocated."""
-    if (args.replica_hosts or 1) > 1 or (args.tp or 1) > 1 or \
-            int(os.environ.get(NUM_NODES, "1")) > 1 or \
-            int(os.environ.get(NODE_RANK, "0")) > 0:
-        raise ValueError(
-            "gang and tensor-parallel serving (--replica-hosts > 1, --tp "
-            f"> 1, {NUM_NODES} > 1, {NODE_RANK} > 0) are not ported yet: "
-            "the port's replica serves on one card")
+def _resolve_kv(args) -> dict:
+    """CLI flags > STPU_KV_* env > defaults, resolved ONCE and used for
+    the local engine, every other rank's engine and the gang welcome's
+    geometry check."""
+    def pick(value, default, cast):
+        return cast(value) if value is not None else default
+    return {
+        "paged": pick(args.kv_paged, ENGINE_KV_PAGED, bool),
+        "pool_blocks": pick(args.kv_pool_blocks, ENGINE_KV_POOL_BLOCKS,
+                            int),
+        "block_tokens": pick(args.kv_block_tokens, ENGINE_KV_BLOCK_TOKENS,
+                             int),
+        "kv_quant": pick(args.kv_quant, ENGINE_KV_QUANT, bool),
+        "weight_quant": pick(args.weight_quant, ENGINE_WEIGHT_QUANT, bool),
+        "spec_k": pick(args.spec_k, ENGINE_SPEC_K, int),
+        "spec_ngram": pick(args.spec_ngram, ENGINE_SPEC_NGRAM, int),
+        "spec_min_accept": pick(args.spec_min_accept,
+                                ENGINE_SPEC_MIN_ACCEPT, float),
+        "prefix_cache_mb": pick(args.prefix_cache_mb,
+                                ENGINE_PREFIX_CACHE_MB, float),
+    }
+
+
+def _check_topology(args, topology, cfg, device: torch.device) -> None:
+    """What a sharded replica cannot serve raises before any rank is
+    spawned: tp over the legacy locked path, NCCL on the CPU, a model
+    whose heads, MLP or vocab tp does not divide, and a tp group larger
+    than this host's cards (a group across nodes is not served)."""
+    tp = topology.tp
+    if tp <= 1:
+        return
+    if args.engine_slots == 0:
+        raise ValueError("a tensor-parallel replica serves through the "
+                         "decode engine: --engine-slots 0 (the legacy "
+                         "locked path) has no tp")
+    if args.tp_backend == "nccl" and device.type != "cuda":
+        raise ValueError("--tp-backend nccl needs the card (NCCL); the "
+                         "CPU runs gloo")
+    for name in ("n_heads", "mlp_dim", "vocab_size"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"--model {args.model}: {name}="
+                             f"{getattr(cfg, name)} not divisible by "
+                             f"--tp {tp}")
+    gang_replica.local_kv_heads(cfg, tp)
+    if args.device is None and device.type == "cuda" and \
+            torch.cuda.device_count() < tp:
+        raise gang_replica.GangError(
+            f"--tp {tp} needs {tp} cards on this host, it has "
+            f"{torch.cuda.device_count()}: a tp group spans one host's "
+            "cards (a group across nodes is not served), or pass --device "
+            "and --tp-backend gloo to share one card")
+
+
+def _resolve_topology(args) -> gang_replica.ReplicaTopology:
+    """CLI flags > STPU_REPLICA_TOPOLOGY env (stamped by the replica
+    manager) > unsharded default."""
+    if args.replica_hosts or args.tp:
+        hosts = int(args.replica_hosts or 1)
+        tp = int(args.tp or 1)
+        return gang_replica.ReplicaTopology(
+            hosts=hosts, ici_axes={"tp": tp} if tp > 1 else {})
+    return (gang_replica.ReplicaTopology.from_env()
+            or gang_replica.ReplicaTopology())
+
+
+# Flags a self-spawned rank inherits from host 0's command line.
+_MEMBER_FLAGS = ("dtype", "device", "tp_backend", "engine_slots",
+                 "prefix_cache_mb", "kv_paged", "kv_pool_blocks",
+                 "kv_block_tokens", "kv_quant", "weight_quant", "spec_k",
+                 "spec_ngram", "spec_min_accept", "stream_timeout")
+
+
+def _spawn_follower_cmd(args, rank: int, topology, leader_port: int,
+                        tp_addrs: dict):
+    """Self-spawn dev gang (``--replica-hosts N --tp K`` outside a gang
+    launch): gang rank ``rank`` (host ``rank // K``, tp rank ``rank %
+    K``) as a process on THIS machine, with the rank/env contract a
+    gang-launched host would see (SKYPILOT_NODE_RANK, the leader's gang
+    channel, its host's tp rendezvous, STPU_TRACE_CTX propagation)."""
+    host, tp_rank = divmod(rank, topology.tp)
+    env = dict(os.environ)
+    env[NODE_RANK] = str(host)
+    env[NUM_NODES] = str(topology.hosts)
+    env[gang_replica.GANG_ADDR_ENV] = f"127.0.0.1:{leader_port}"
+    env[gang_replica.TP_ADDR_ENV] = tp_addrs[host]
+    env[gang_replica.TP_RANK_ENV] = str(tp_rank)
+    env.update(tracing.child_env())
+    argv = [sys.executable, "-m", "skypilot_tpu_torch.recipes.serve_llm",
+            "--model", args.model, "--seed", str(args.seed),
+            "--port", str(args.port),
+            "--replica-hosts", str(topology.hosts),
+            "--tp", str(topology.tp)]
+    for name in _MEMBER_FLAGS:
+        value = getattr(args, name)
+        if value is not None:
+            argv += ["--" + name.replace("_", "-"),
+                     str(int(value) if isinstance(value, bool) else value)]
+    return subprocess.Popen(argv, env=env, start_new_session=True)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -880,11 +1068,19 @@ def _parser() -> argparse.ArgumentParser:
                         "raises when there is none. 'cpu' only on "
                         "request")
     p.add_argument("--replica-hosts", type=int, default=None,
-                   help="hosts in the replica's serving gang; > 1 is not "
-                        "ported and raises")
+                   help="hosts in this replica's serving gang (default "
+                        "env STPU_REPLICA_TOPOLOGY or 1). Outside a "
+                        "gang launch, host 0 self-spawns the other "
+                        "processes: the single-machine dev analog of a "
+                        "gang-scheduled slice")
     p.add_argument("--tp", type=int, default=None,
-                   help="tensor-parallel degree; > 1 is not ported and "
-                        "raises")
+                   help="tensor-parallel degree: each host's ranks (one "
+                        "per card, rank r on cuda:r) split params and KV "
+                        "cache by parallel/mesh.py's rules")
+    p.add_argument("--tp-backend", choices=("nccl", "gloo"), default=None,
+                   help="the tp group's backend (default NCCL on the "
+                        "card, gloo on the CPU; gloo when ranks share a "
+                        "card, which NCCL refuses)")
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
                    default=None,
                    help="override the model compute dtype")
@@ -972,9 +1168,79 @@ def main(argv=None):
         p.error("--lb-policy only configures the --lb-port balancer; "
                 "deployed services set service.load_balancing_policy "
                 "in the YAML")
-    _refuse_not_ported(args)
-    device = resolve_device(args.device)
-    cfg, params = _build_model(args, device)
+    topology = _resolve_topology(args)
+    host = int(os.environ.get(NODE_RANK, "0"))
+    tp_rank = int(os.environ.get(gang_replica.TP_RANK_ENV, "0"))
+    rank = host * topology.tp + tp_rank
+    # Every rank on the device given, or rank r on card r.
+    device = resolve_device(args.device if args.device is not None or
+                            not tp_rank else f"cuda:{tp_rank}")
+    _check_topology(args, topology, MODELS[args.model](), device)
+    kv = _resolve_kv(args)
+    engine_slots = args.engine_slots if args.engine_slots else ENGINE_SLOTS
+    # The welcome compares EFFECTIVE geometry (auto-sized pool included),
+    # not raw knobs.
+    kv_geo = decode_engine.resolve_kv_geometry(
+        slots=engine_slots, max_seq=MAX_PROMPT_TOKENS + MAX_GEN_TOKENS,
+        paged=kv["paged"], kv_pool_blocks=kv["pool_blocks"],
+        kv_block_tokens=kv["block_tokens"], kv_quant=kv["kv_quant"],
+        weight_quant=kv["weight_quant"], spec_k=kv["spec_k"],
+        spec_ngram=kv["spec_ngram"], spec_min_accept=kv["spec_min_accept"],
+        host_cache_mb=kv["prefix_cache_mb"] if kv["paged"] else 0.0,
+        family=family_name(MODELS[args.model]()), tp=topology.tp)
+    gang_launched = (int(os.environ.get(NUM_NODES, "1")) > 1 and
+                     not os.environ.get(gang_replica.GANG_ADDR_ENV))
+    gang = group = None
+    tp_addrs = {h: gang_replica.free_addr() for h in range(topology.hosts)}
+    if topology.is_sharded and rank == 0:
+        if gang_launched:
+            # Members derive the channel address from the env contract
+            # (head ip + serving port + offset), so the port is fixed.
+            gang = gang_replica.GangLeader(
+                topology, port=args.port + gang_replica.GANG_PORT_OFFSET,
+                kv_config=kv_geo)
+        else:
+            # Self-spawn dev gang: OS-assigned channel port, members on
+            # this machine with the addresses stamped explicitly (the
+            # lambda reads gang.port after construction binds it).
+            gang = gang_replica.GangLeader(
+                topology, spawn=lambda r: _spawn_follower_cmd(
+                    args, r, topology, gang.port, tp_addrs),
+                kv_config=kv_geo)
+            gang.start_followers()
+    mesh = rules = None
+    if topology.tp > 1:
+        # This host's tp group (its rendezvous waits for every rank).
+        group = (gang_replica.TpGroup(tp=topology.tp, rank=0,
+                                      addr=tp_addrs[0], device=device,
+                                      backend=args.tp_backend)
+                 if rank == 0 and not gang_launched else
+                 gang_replica.TpGroup.from_env(
+                     topology, host=host, serving_port=args.port,
+                     device=device, backend=args.tp_backend))
+        mesh, rules = gang_replica.build_mesh(topology, group)
+    cfg, params = _build_model(args, device, mesh, rules)
+    engine_kw = dict(
+        slots=engine_slots, max_seq=MAX_PROMPT_TOKENS + MAX_GEN_TOKENS,
+        prefix_cache_mb=kv["prefix_cache_mb"], paged=kv["paged"],
+        kv_pool_blocks=kv["pool_blocks"],
+        kv_block_tokens=kv["block_tokens"], kv_quant=kv["kv_quant"],
+        weight_quant=kv["weight_quant"], spec_k=kv["spec_k"],
+        spec_ngram=kv["spec_ngram"], spec_min_accept=kv["spec_min_accept"],
+        device=device)
+    if rank > 0:
+        # Every other rank: no HTTP. A host's tp rank 0 mirrors the
+        # leader's admissions into its engine; every other tp rank serves
+        # its rank 0's plans.
+        def _member_engine():
+            return decode_engine.DecodeEngine(
+                cfg, params, mesh=group.connect() if group else None,
+                rules=rules, **engine_kw)
+        serve_fn = (gang_replica.tp_worker_serve if tp_rank
+                    else gang_replica.follower_serve)
+        sys.exit(serve_fn(_member_engine, topology,
+                          gang_replica.follower_addr(args.port), rank,
+                          kv_config=kv_geo))
 
     httpd = serve(cfg, params, args.port,
                   engine_slots=args.engine_slots,
@@ -986,7 +1252,16 @@ def main(argv=None):
                   kv_block_tokens=args.kv_block_tokens,
                   kv_quant=args.kv_quant, weight_quant=args.weight_quant,
                   spec_k=args.spec_k, spec_ngram=args.spec_ngram,
-                  spec_min_accept=args.spec_min_accept, device=device)
+                  spec_min_accept=args.spec_min_accept, device=device,
+                  topology=topology, mesh=mesh, rules=rules, gang=gang,
+                  tp_group=group)
+    if gang is not None and httpd.engine is not None:
+        # Whole-gang restart rebuilds host 0's engine too, after its tp
+        # group (if any) was torn down and the members respawned.
+        gang.set_engine_reset(httpd.engine.restart_now)
+        if group is not None and not gang_launched:
+            gang.set_teardown(lambda: _tp_teardown(httpd.engine, group,
+                                                   tp_addrs))
 
     def _term(signum, frame):
         del signum, frame
@@ -995,6 +1270,10 @@ def main(argv=None):
         # scale-down landed (armed replicas only).
         if stepstats.ENABLED:
             stepstats.dump_flight("sigterm")
+        if gang is not None:
+            # SIGTERM reaches every rank: members get an explicit
+            # shutdown, self-spawned ones are reaped.
+            gang.shutdown()
         os._exit(143)
     signal.signal(signal.SIGTERM, _term)
     if args.lb_port:
@@ -1006,6 +1285,24 @@ def main(argv=None):
               f"on :{args.lb_port}", flush=True)
     print(f"serve_llm: listening on :{args.port}", flush=True)
     httpd.serve_forever()
+
+
+def _tp_teardown(supervisor, group, tp_addrs: dict) -> None:
+    """A whole-gang restart's host-0 half, after the members were killed:
+    stop the engine and tear its tp group down (gloo first stops the
+    engine, whose collective fails on the dead peers; an NCCL group is
+    aborted first, so a collective waiting on them returns), then point
+    every host at a fresh rendezvous for the respawned ranks."""
+    engine = supervisor.engine
+    nccl = group.connected and torch.distributed.get_backend() == "nccl"
+    if nccl:
+        group.close()
+    if engine is not None:
+        engine.shutdown()
+    if group.connected:
+        group.close()
+    tp_addrs.update({h: gang_replica.free_addr() for h in tp_addrs})
+    group.addr = tp_addrs[0]
 
 
 if __name__ == "__main__":

@@ -12,8 +12,16 @@ with ``jax.random``'s keys; the spill tier clones a block on the compute
 stream and copies the clone to pinned host memory on a side stream (the
 clone is held until that copy's event fires, so later in-place writes to
 a reallocated block never leak into the spilled bytes). The engine runs
-on the card unless given ``device="cpu"``; tensor-parallel serving
-(``mesh``/``rules``) is not ported and raises.
+on the card unless given ``device="cpu"``.
+
+Tensor-parallel serving (``mesh``/``rules``, ``serve/gang_replica.py``):
+params arrive as a tp rank's serving tree (``gang_replica.shard_params``)
+and the cache holds the rank's kv heads (``cache_shardings``). Rank 0 of
+the tp group is the engine that schedules; before each model call it
+broadcasts the call's plan (``PlanChannel``), and every other rank's
+engine runs ``work()``: the same entry point on its own shard, the spill
+tier included. Every entry point is called through ``_call`` with host
+values only, so a plan is exactly the call.
 
 The design, as in the JAX package:
 
@@ -386,18 +394,26 @@ class _Slot:
 _sample = prng._sample
 
 
+def _on(a, cache) -> torch.Tensor:
+    """Host values (a plan's) uploaded beside the cache; a tensor as it
+    is."""
+    return a if isinstance(a, torch.Tensor) else to_device(
+        a, cache["k"].device)
+
+
 @torch.inference_mode()
 def _prefill_chunk(cfg, params, cache, buf, slot: int, start: int,
                    valid: int, block: int) -> torch.Tensor:
     """Prefill ONE chunk of ONE slot's prompt into the dense cache.
 
-    buf: (P,) tokens for positions [start, start+P) of row ``slot``
+    buf: (P,) host tokens for positions [start, start+P) of row ``slot``
     (tail may be padding on the prompt's final chunk). ``valid`` is the
     absolute count of real tokens after this chunk — padding K/V
     written past it stays masked until decode steps overwrite it. The
     row is a view of the cache, so the write lands in place. Returns
     the last real token's logits (vocab,)."""
     row = {k: v[:, slot:slot + 1] for k, v in cache.items()}
+    buf = _on(buf, cache)
     logits, _ = model_api(cfg).forward_with_cache(
         cfg, params, buf[None, :], row, start, valid_len=valid,
         logits_at=max(valid - start - 1, 0), block=block)
@@ -415,6 +431,7 @@ def _paged_prefill_chunk(cfg, params, cache, buf, table_row, start: int,
     and blocks are the same granularity, which is what lets prefix
     hits alias whole blocks instead of splicing rows). Returns the
     last real token's logits (vocab,)."""
+    buf = _on(buf, cache)
     logits, _ = model_api(cfg).forward_with_paged_cache(
         cfg, params, buf[None, :], cache, table_row[None, :], start,
         valid_len=valid, logits_at=max(valid - start - 1, 0),
@@ -447,6 +464,7 @@ def _paged_step(cfg, params, cache, toks, pos, table, window, temps,
     attention gathers every slot's valid prefix through its table.
     Free slots ride along with table row 0 (the scratch block) and are
     ignored host-side. Returns the next tokens (B,) on the device."""
+    toks = _on(toks, cache)
     logits, _ = model_api(cfg).forward_with_paged_cache(
         cfg, params, toks[:, None], cache, table, pos, window=window)
     return _sample(logits[:, -1], seeds, pos + 1, temps)
@@ -458,6 +476,7 @@ def _engine_step(cfg, params, cache, toks, pos, temps, seeds,
     """One decode step over ALL slots: write each slot's last token at
     its own position, attend its own valid prefix, sample its next
     token. Free slots ride along with pos 0 and are ignored host-side."""
+    toks = _on(toks, cache)
     logits, _ = model_api(cfg).forward_with_cache(
         cfg, params, toks[:, None], cache, pos, block=block)
     return _sample(logits[:, -1], seeds, pos + 1, temps)
@@ -503,8 +522,7 @@ def _spec_step(cfg, params, cache, toks, pos, spec_len, temps, seeds,
     accepted frontier stay masked exactly like any stale slot-reuse
     row."""
     logits, _ = model_api(cfg).verify_step(
-        cfg, params, to_device(toks, cache["k"].device),
-        cache, pos, spec_len, block=block)
+        cfg, params, _on(toks, cache), cache, pos, spec_len, block=block)
     targets = _sample_multi(logits, seeds, pos, temps).cpu().numpy()
     return targets, _accept_counts(toks, targets, spec_len)
 
@@ -518,10 +536,27 @@ def _paged_spec_step(cfg, params, cache, toks, pos, spec_len, table,
     blocks back afterwards (block-table truncate + reservation
     return)."""
     logits, _ = model_api(cfg).verify_step_paged(
-        cfg, params, to_device(toks, cache["k"].device),
-        cache, table, pos, spec_len, window=window)
+        cfg, params, _on(toks, cache), cache, table, pos, spec_len,
+        window=window)
     targets = _sample_multi(logits, seeds, pos, temps).cpu().numpy()
     return targets, _accept_counts(toks, targets, spec_len)
+
+
+def _spill_copy(cache, block: int) -> Dict[str, torch.Tensor]:
+    """A tp rank's own shard of a spilled block, on the host (the rank
+    other than 0 keeps it until rank 0's tier drops it)."""
+    return {k: v[:, block].cpu() for k, v in cache.items()}
+
+
+# The entry points a plan names (``DecodeEngine._call``), by their names
+# here: each is called as fn(cfg, params, cache, *host_args) on every
+# rank of a tp group.
+_OPS = frozenset({"_prefill_chunk", "_paged_prefill_chunk", "_engine_step",
+                  "_paged_step", "_spec_step", "_paged_spec_step"})
+# Plans that are not a model call: a rank-0 engine's session bounds, and
+# a spilled block's shard kept or written back by id.
+PLAN_OPEN, PLAN_CLOSE, PLAN_SPILL, PLAN_RESTORE = (
+    "open", "close", "spill", "restore")
 
 
 def _default_split_kv_block() -> int:
@@ -546,7 +581,8 @@ def resolve_kv_geometry(*, slots: int, max_seq: int,
                         spec_min_accept: float = 0.0,
                         block: int = 0, window_blocks: int = 0,
                         host_cache_mb: float = 0.0,
-                        family: Optional[str] = None) -> Dict[str, Any]:
+                        family: Optional[str] = None,
+                        tp: int = 1) -> Dict[str, Any]:
     """EFFECTIVE KV-cache geometry for an engine config — the single
     derivation DecodeEngine.__init__ and kv_config() share, so
     auto-sized values (pool blocks, shrunk chunk, attention window,
@@ -564,8 +600,9 @@ def resolve_kv_geometry(*, slots: int, max_seq: int,
     sentinel: explicit arguments (CLI flags, sweep candidates) always
     win, and ``STPU_TUNE_MANIFEST=0`` disables the lookup outright. The
     manifest tag (payload-sha prefix, or "default") rides the output
-    dict, as in the JAX package. The key's ``tp`` is always 1: the
-    port has no mesh."""
+    dict, as in the JAX package. ``tp`` is the engine mesh's degree: the
+    manifest key's, and, above 1, a ``"tp"`` entry of the dict (the gang
+    welcome compares it; at tp 1 the dict is the JAX package's)."""
     max_seq = int(max_seq)
     if kv_quant and not paged:
         raise ValueError(
@@ -576,7 +613,7 @@ def resolve_kv_geometry(*, slots: int, max_seq: int,
     if family:
         from skypilot_tpu_torch.tune import manifest as tune_manifest
         entry, manifest_tag = tune_manifest.entry_for(
-            family=family, slots=int(slots), tp=1,
+            family=family, slots=int(slots), tp=int(tp),
             kv_quant=bool(kv_quant), weight_quant=bool(weight_quant))
         if entry is not None:
             if not block:
@@ -607,6 +644,8 @@ def resolve_kv_geometry(*, slots: int, max_seq: int,
         "weight_quant": int(bool(weight_quant)),
         "spec_k": int(spec_k), "spec_ngram": int(spec_ngram),
         "spec_min_accept": float(spec_min_accept)}
+    if int(tp) > 1:
+        out["tp"] = int(tp)
     if paged:
         # Auto sizing targets the dense path's HBM budget: slots *
         # max_seq tokens of bf16 KV plus the scratch block. An int8
@@ -644,8 +683,11 @@ class DecodeEngine:
 
     ``device`` (default: the card; ``"cpu"`` only on request) is where
     the cache lives and every step runs; ``params`` must already be
-    there. ``mesh``/``rules`` (tensor-parallel serving) are not ported
-    and raise.
+    there. ``mesh``/``rules`` (tensor-parallel serving): ``params`` is
+    the rank's ``gang_replica.shard_params`` tree and the cache holds
+    its kv heads; on the tp group's rank 0 the engine schedules and
+    plans every call (``start``), on any other rank it serves those
+    plans (``work``).
     """
 
     def __init__(self, cfg, params, *, slots: int = 4,
@@ -671,20 +713,40 @@ class DecodeEngine:
             raise ValueError("spec_k must be >= 0 (0 disables)")
         if spec_k and spec_ngram < 1:
             raise ValueError("spec_ngram must be >= 1")
-        if mesh is not None or rules is not None:
-            raise ValueError(
-                "tensor-parallel serving (mesh/rules) is not ported yet: "
-                "the port's engine serves on one device")
         self._cfg = cfg
         self._api = model_api(cfg)
         self._device = resolve_device(device)
         if params.embed.device != self._device:
             raise ValueError(f"params are on {params.embed.device}, the "
                              f"engine on {self._device}")
+        # Tensor-parallel serving (serve/gang_replica.py): the plan
+        # channel, this rank's place in the group and its kv heads.
+        self._plan = None
+        self._tp_rank = 0
+        tp = 1
+        if mesh is not None or rules is not None:
+            from skypilot_tpu_torch.parallel import mesh as mesh_lib
+            from skypilot_tpu_torch.serve import gang_replica
+            if mesh is None:
+                raise ValueError("rules without a mesh")
+            if not isinstance(params, gang_replica.TpParams):
+                raise ValueError(
+                    "a tensor-parallel engine takes the rank's serving "
+                    "tree: gang_replica.shard_params(cfg, params, mesh, "
+                    "rules)")
+            tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
+            params.rebind(mesh)
+            self._tp_rank = params.tp_rank
+            self._plan = gang_replica.plan_channel(mesh)
         # int8 weight serving: quantize here (idempotent — params may
         # arrive pre-quantized).
         self._weight_quant = bool(weight_quant)
         if self._weight_quant and not self._api.params_quantized(params):
+            if self._plan is not None:
+                raise ValueError(
+                    "weight_quant under tp: quantize the whole tree before "
+                    "shard_params (a row-split weight's scale reduces over "
+                    "all of its rows)")
             params = self._api.quantize_params(cfg, params)
         self._params = params
         self._slots = [_Slot() for _ in range(slots)]
@@ -722,8 +784,23 @@ class DecodeEngine:
             spec_min_accept=self._spec_min_accept,
             block=block, window_blocks=window_blocks,
             host_cache_mb=(host_mb if self._paged else 0.0),
-            family=family_name(cfg) if use_manifest else None)
+            family=family_name(cfg) if use_manifest else None, tp=tp)
         self._kv_geometry = geo
+        kv_heads = None
+        if self._plan is not None:
+            from skypilot_tpu_torch.serve import gang_replica
+            kv_heads = gang_replica.local_kv_heads(cfg, tp)
+        # The spill tier under tp: rank 0 names each spilled block by an
+        # id its plan carries; every other rank keeps its own shard of it
+        # (_tp_host) until rank 0's tier drops the path (_drop_paths,
+        # filled by the tier's on_drop on the drain thread, read here).
+        # An id pinned by a pending re-admit is dropped only after it.
+        self._spill_ids: Dict[Any, int] = {}
+        self._next_sid = 0
+        self._drop_paths: "collections.deque" = collections.deque()
+        self._held_drops: List[int] = []
+        self._sid_pins: Dict[int, int] = collections.Counter()
+        self._tp_host: Dict[int, Dict[str, torch.Tensor]] = {}
         chunk = geo["chunk"]
         self._chunk = chunk
         # Tuned constants may enable drafting / resize the tile even
@@ -762,15 +839,17 @@ class DecodeEngine:
             self._table = np.zeros((slots, self._table_len), np.int32)
             self._cache = self._api.init_paged_cache(
                 cfg, total, chunk, quantized=self._kv_quant,
-                device=self._device)
+                device=self._device, kv_heads=kv_heads)
             # Host-RAM spill tier under the trie: evictions demote
             # blocks D2H through a bounded queue drained off the
             # compute thread; warm matches re-admit H2D during the
             # prefill phase (_restore_one). Budget 0 = tier off.
             host_mb_eff = float(geo.get("host_mb", 0.0))
-            if host_mb_eff > 0:
+            if host_mb_eff > 0 and self._tp_rank == 0:
                 self._host_pool = kv_pool.HostBlockPool(
-                    int(host_mb_eff * (1 << 20)))
+                    int(host_mb_eff * (1 << 20)),
+                    on_drop=(self._drop_paths.append
+                             if self._plan is not None else None))
                 self._spill_q = queue.Queue(maxsize=32)
                 if self._device.type == "cuda":
                     self._spill_stream = torch.cuda.Stream(self._device)
@@ -791,7 +870,8 @@ class DecodeEngine:
                 v.nbytes for v in self._cache.values()) // total)
         else:
             self._cache = self._api.init_cache(cfg, slots, max_seq,
-                                               device=self._device)
+                                               device=self._device,
+                                               kv_heads=kv_heads)
         _KV_QUANT_ENABLED.set(int(self._kv_quant))
         _WEIGHT_QUANT_ENABLED.set(int(self._weight_quant))
         self._waiting: "collections.deque[Request]" = collections.deque()
@@ -808,9 +888,16 @@ class DecodeEngine:
         # the supervisor's engine_failed event.
         self.flightrec: Optional[str] = None
         _SLOTS_TOTAL.set(slots)
+        if self._plan is not None and self._tp_rank == 0:
+            # A new session: the other ranks start from a fresh cache.
+            self._send(PLAN_OPEN)
 
     # ------------------------------------------------------------- public
     def start(self) -> "DecodeEngine":
+        if self._tp_rank:
+            raise RuntimeError(
+                f"tp rank {self._tp_rank} serves rank 0's plans: work(), "
+                "not start()")
         if self._thread is None:
             self._thread = threading.Thread(
                 target=self._loop, name="decode-engine", daemon=True)
@@ -928,6 +1015,74 @@ class DecodeEngine:
         self._cache = {}
         self._params = None
 
+    # ------------------------------------------------ tensor parallel
+    def _collect_drops(self) -> None:
+        """Turn the paths rank 0's tier dropped into their spill ids
+        (compute thread only)."""
+        while self._drop_paths:
+            sid = self._spill_ids.pop(self._drop_paths.popleft(), None)
+            if sid is not None:
+                self._held_drops.append(sid)
+
+    def _take_drops(self) -> List[int]:
+        """Dropped spill ids to forward: all but those a pending re-admit
+        still needs."""
+        self._collect_drops()
+        out = [i for i in self._held_drops if not self._sid_pins[i]]
+        self._held_drops = [i for i in self._held_drops
+                            if self._sid_pins[i]]
+        return out
+
+    def _send(self, op: str, *args) -> None:
+        """One plan to the group's other ranks: (op, host args, dropped
+        spill ids)."""
+        self._plan.send((op, args, self._take_drops()))
+
+    def _call(self, name: str, *args):
+        """Make one entry-point call (``_OPS``) on this rank, planned
+        first to the other ranks of a tp group."""
+        if self._plan is not None:
+            self._send(name, *args)
+        return globals()[name](self._cfg, self._params, self._cache, *args)
+
+    def _unpin_sid(self, sid: Optional[int]) -> None:
+        if sid is not None:
+            self._sid_pins[sid] -= 1
+
+    def work(self) -> None:
+        """A tp rank other than 0: make every call rank 0 plans, on this
+        rank's params and cache shard, for one rank-0 session; returns at
+        its close, or at a new session's open once this cache was used
+        (the caller builds a fresh engine for the next). A broken group
+        raises."""
+        if self._plan is None or self._tp_rank == 0:
+            raise RuntimeError("work() serves a tp rank other than 0")
+        used = False
+        with torch.inference_mode():
+            if self._device.type == "cuda":
+                torch.cuda.set_device(self._device)
+            while True:
+                op, args, drops = self._plan.recv()
+                for sid in drops:
+                    self._tp_host.pop(sid, None)
+                if op == PLAN_CLOSE or (op == PLAN_OPEN and used):
+                    return
+                if op == PLAN_OPEN:
+                    continue
+                used = True
+                if op == PLAN_SPILL:
+                    block, sid = args
+                    self._tp_host[sid] = _spill_copy(self._cache, block)
+                elif op == PLAN_RESTORE:
+                    block, sid = args
+                    _host_restore_block(self._cache, block,
+                                        self._tp_host[sid])
+                elif op in _OPS:
+                    globals()[op](self._cfg, self._params, self._cache,
+                                  *args)
+                else:
+                    raise EngineError(f"unknown plan {op!r}")
+
     # --------------------------------------------------- host KV tier
     def _spill_block(self, node) -> bool:
         """Offer an eviction victim to the host tier (called by the
@@ -951,6 +1106,13 @@ class DecodeEngine:
             # a slow drain; dropping under backlog is the safe cheap
             # choice (the counter shows it).
             return False
+        sid = None
+        if self._plan is not None:
+            self._collect_drops()   # a re-spilled path takes a new id
+            sid = self._next_sid
+            self._next_sid += 1
+            self._spill_ids[node.path] = sid
+            self._send(PLAN_SPILL, node.block, sid)
         try:
             clones = _slice_block(self._cache, node.block)
             done = None
@@ -971,6 +1133,8 @@ class DecodeEngine:
             else:
                 host = clones
         except RuntimeError:
+            if sid is not None:
+                self._drop_paths.append(node.path)
             return False
         self._host_pool.mark_inflight(node.path)
         self._spill_q.put((node.path, host, clones, done))
@@ -1062,7 +1226,9 @@ class DecodeEngine:
             # trie pins only (cancel / error before their restore ran;
             # the fetched payloads simply fall out of scope).
             self.prefix_cache.unpin_pending(
-                [n for _, n, _ in slot.pending])
+                [n for _, n, _, _ in slot.pending])
+            for *_, sid in slot.pending:
+                self._unpin_sid(sid)
             slot.pending = []
         aliased = len(slot.held)
         if slot.held:
@@ -1187,11 +1353,15 @@ class DecodeEngine:
                 payload = self._host_pool.get(node.path)
                 if payload is None:
                     break       # D2H still in flight (or just dropped)
-                pending.append((node, payload))
+                # Under tp, the id the other ranks keep their shard by.
+                sid = self._spill_ids.get(node.path)
+                if self._plan is not None and sid is None:
+                    break
+                pending.append((node, payload, sid))
             else:
                 break
         self.prefix_cache.pin(dev_nodes)
-        pend_nodes = [n for n, _ in pending]
+        pend_nodes = [n for n, _, _ in pending]
         self.prefix_cache.pin_pending(pend_nodes)
         total = self._pool.blocks_for(len(req.prompt) + req.max_tokens)
         # Host re-admits draw FRESH blocks, budgeted like any other
@@ -1208,8 +1378,11 @@ class DecodeEngine:
         slot = self._slots[i]
         slot.request = req
         slot.held = dev_nodes
-        slot.pending = [(len(dev_nodes) + j, node, payload)
-                        for j, (node, payload) in enumerate(pending)]
+        slot.pending = [(len(dev_nodes) + j, node, payload, sid)
+                        for j, (node, payload, sid) in enumerate(pending)]
+        for _, _, sid in pending:
+            if sid is not None:
+                self._sid_pins[sid] += 1
         for j, node in enumerate(dev_nodes):
             self._table[i, j] = node.block
         slot.blocks = len(dev_nodes)
@@ -1401,23 +1574,20 @@ class DecodeEngine:
             start = slot.prefilled
             piece = req.prompt[start:start + self._chunk]
             # Padded host-side: one upload, no device pad.
-            buf_np = np.zeros((self._chunk,), np.int64)
-            buf_np[:len(piece)] = piece
-            buf = to_device(buf_np, self._device)
+            buf = np.zeros((self._chunk,), np.int64)
+            buf[:len(piece)] = piece
             valid = start + len(piece)
             if fault_injection.ENABLED:
                 fault_injection.fire("engine.prefill", slot=i,
                                      start=start)
             if self._paged:
                 wb = self._ensure_block(i, start // self._chunk)
-                logits = _paged_prefill_chunk(
-                    self._cfg, self._params, self._cache, buf,
-                    self._table[i].copy(), start, valid, wb,
-                    self._window)
+                logits = self._call(
+                    "_paged_prefill_chunk", buf, self._table[i].copy(),
+                    start, valid, wb, self._window)
             else:
-                logits = _prefill_chunk(
-                    self._cfg, self._params, self._cache, buf, i, start,
-                    valid, self._block)
+                logits = self._call("_prefill_chunk", buf, i, start,
+                                    valid, self._block)
             req.prefill_chunks += 1
             slot.prefilled = valid
             slot.pos = valid
@@ -1459,11 +1629,13 @@ class DecodeEngine:
         prefill-phase work for the step telemetry."""
         slot = self._slots[i]
         req = slot.request
-        j, node, payload = slot.pending.pop(0)
+        j, node, payload, sid = slot.pending.pop(0)
         if node.block < 0:
             block = self._pool.alloc()
             slot.reserved -= 1
             self.prefix_cache.promote(node, block)
+            if self._plan is not None:
+                self._send(PLAN_RESTORE, block, sid)
             _host_restore_block(self._cache, block, payload)
             self._readmitted_blocks += 1
             _KV_HOST_READMITS.inc()
@@ -1471,6 +1643,7 @@ class DecodeEngine:
             self._pool.retain(node.block)
             self._pool.unreserve(1)
             slot.reserved -= 1
+        self._unpin_sid(sid)
         # Chunk-order append keeps _release_paged's table-position
         # invariant: held nodes are exactly table[0:len(held)].
         slot.held.append(node)
@@ -1613,13 +1786,13 @@ class DecodeEngine:
                                (slot.pos + int(spec_np[i]))
                                // self._chunk + 1):
                     self._ensure_block(i, j)
-            targets, accepts = _paged_spec_step(
-                self._cfg, self._params, self._cache, toks_np, pos,
-                spec_np, self._table.copy(), self._window, temps, seeds)
+            targets, accepts = self._call(
+                "_paged_spec_step", toks_np, pos, spec_np,
+                self._table.copy(), self._window, temps, seeds)
         else:
-            targets, accepts = _spec_step(
-                self._cfg, self._params, self._cache, toks_np, pos,
-                spec_np, temps, seeds, self._block)
+            targets, accepts = self._call(
+                "_spec_step", toks_np, pos, spec_np, temps, seeds,
+                self._block)
         if stepstats.ENABLED:
             self._stamp_dispatch(t0)
         dt = max(time.perf_counter() - t0, 1e-9)
@@ -1699,8 +1872,7 @@ class DecodeEngine:
             drafts = {i: self._draft(self._slots[i]) for i in live}
             if any(drafts.values()):
                 return self._verify_decode_step(live, drafts)
-        toks = to_device(np.asarray([s.tok for s in self._slots], np.int64),
-                         self._device)
+        toks = np.asarray([s.tok for s in self._slots], np.int64)
         pos, temps, seeds = self._step_inputs(live)
         t0 = time.perf_counter()
         if fault_injection.ENABLED:
@@ -1711,13 +1883,11 @@ class DecodeEngine:
             # exists — admission is preemption-free).
             for i in live:
                 self._ensure_block(i, self._slots[i].pos // self._chunk)
-            nxt = _paged_step(
-                self._cfg, self._params, self._cache, toks, pos,
-                self._table.copy(), self._window, temps, seeds)
+            nxt = self._call("_paged_step", toks, pos, self._table.copy(),
+                             self._window, temps, seeds)
         else:
-            nxt = _engine_step(
-                self._cfg, self._params, self._cache, toks, pos, temps,
-                seeds, self._block)
+            nxt = self._call("_engine_step", toks, pos, temps, seeds,
+                             self._block)
         if stepstats.ENABLED:
             self._stamp_dispatch(t0)
         nxt = nxt.tolist()
@@ -1817,6 +1987,11 @@ class DecodeEngine:
             _REQUESTS.labels(outcome=outcome).inc()
         _SLOTS_OCCUPIED.set(0)
         _QUEUE_DEPTH.set(0)
+        if self._plan is not None:
+            try:
+                self._send(PLAN_CLOSE)
+            except (RuntimeError, ValueError, ConnectionError):  # noqa: stpu-except — the group broke (a rank died): the gang restart rebuilds every rank
+                pass
 
 
 class EngineSupervisor:
@@ -1850,16 +2025,20 @@ class EngineSupervisor:
 
     API-compatible with DecodeEngine where serve handlers touch it
     (submit/warmup/drain/in_flight/shutdown), so recipes/serve_llm.py
-    swaps it in transparently. (The JAX package's ``restart_now``, the
-    gang-restart path, is not ported with the gang.)
+    swaps it in transparently. ``restart_now`` is the gang-restart path.
+    ``defer`` (optional): while it returns True a dead engine is left to
+    it (a tensor-parallel engine dies with a dead rank's collective, and
+    the whole-gang restart, not this loop, rebuilds it).
     """
 
     def __init__(self, factory: Callable[[], "DecodeEngine"], *,
                  max_restarts: int = 3, backoff_base: float = 1.0,
                  backoff_cap: float = 30.0,
                  fast_failure_seconds: float = 30.0,
-                 poll_interval: float = 0.1):
+                 poll_interval: float = 0.1,
+                 defer: Optional[Callable[[], bool]] = None):
         self._factory = factory
+        self._defer = defer
         self.max_restarts = int(max_restarts)
         self.backoff_base = float(backoff_base)
         self.backoff_cap = float(backoff_cap)
@@ -1946,6 +2125,38 @@ class EngineSupervisor:
         engine = self._engine
         return engine.in_flight() if engine is not None else 0
 
+    def restart_now(self) -> None:
+        """Tear down the live engine and build a fresh one now: the
+        whole-gang restart path (losing a gang member invalidates
+        lockstep state on every process, so host 0's engine restarts with
+        the gang even when its own loop never crashed). In-flight
+        requests fail with the shutdown EngineError. Not a crash: the
+        consecutive-fast-failure ladder is untouched."""
+        # The outgoing engine's step ring documents what the gang was
+        # doing when the member died: dump it before it is superseded.
+        flightrec = stepstats.dump_flight("gang_restart")
+        new_engine = self._factory().start()
+        with self._lock:
+            # The outgoing engine is read under the SAME lock as the
+            # swap: _watch's crash path swaps concurrently.
+            if self._stop or self._draining:
+                abandon, old = True, None
+            else:
+                old = self._engine
+                self._engine = new_engine
+                self._started_at = time.monotonic()
+                abandon = False
+        if abandon:
+            new_engine.shutdown()
+            return
+        if old is not None:
+            old.shutdown()
+        self.restarts += 1
+        _RESTARTS.inc()
+        _ENGINE_UP.set(1)
+        events.emit("engine", "decode-engine", "engine_restarted",
+                    reason="gang", flightrec=flightrec)
+
     def shutdown(self) -> None:
         self._stop = True
         if self._watch_thread is not None:
@@ -1970,6 +2181,8 @@ class EngineSupervisor:
             engine = self._engine
             if engine is None or engine._failed is None:
                 continue
+            if self._defer is not None and self._defer():
+                continue        # the gang restart rebuilds it
             # Gauge flips BEFORE the going-down check: a crash during
             # a drain must not leave stpu_engine_up stuck at 1 while
             # /health reports 503.
@@ -1999,6 +2212,8 @@ class EngineSupervisor:
                         self.backoff_cap)
             if not self._sleep(delay):
                 return
+            if self._defer is not None and self._defer():
+                continue
             engine.shutdown()
             engine.release()
             try:

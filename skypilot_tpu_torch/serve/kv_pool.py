@@ -216,9 +216,16 @@ class HostBlockPool:
 
     Thread-safe under its own lock: the engine's background drain
     thread ``put``s while the compute thread matches and ``get``s.
+
+    ``on_drop`` (optional) is told, under the lock, each path whose bytes
+    leave the tier (an LRU drop, a refused or failed spill, a discard):
+    a tensor-parallel engine's rank 0 forwards these to its other ranks,
+    which hold their own shards of the same blocks.
     """
 
-    def __init__(self, budget_bytes: int):
+    def __init__(self, budget_bytes: int,
+                 on_drop: Optional[Callable[[Tuple], None]] = None):
+        self._on_drop = on_drop
         self.budget_bytes = int(budget_bytes)
         self._lock = threading.Lock()
         self._entries: "collections.OrderedDict[Tuple, Dict[str, Any]]"\
@@ -241,8 +248,14 @@ class HostBlockPool:
         with self._lock:
             self._inflight.add(path)
 
+    def _dropped(self, path: Tuple) -> None:
+        if self._on_drop is not None:
+            self._on_drop(path)
+
     def clear_inflight(self, path: Tuple) -> None:
         with self._lock:
+            if path in self._inflight and path not in self._entries:
+                self._dropped(path)
             self._inflight.discard(path)
 
     def put(self, path: Tuple, arrays: Dict[str, Any]) -> bool:
@@ -252,6 +265,8 @@ class HostBlockPool:
         with self._lock:
             self._inflight.discard(path)
             if nbytes > self.budget_bytes:
+                if path not in self._entries:
+                    self._dropped(path)
                 return False
             old = self._sizes.pop(path, 0)
             if old:
@@ -262,6 +277,7 @@ class HostBlockPool:
                 dead, _ = self._entries.popitem(last=False)
                 self.bytes_used -= self._sizes.pop(dead)
                 self.lru_dropped += 1
+                self._dropped(dead)
             self._entries[path] = arrays
             self._sizes[path] = nbytes
             self.bytes_used += nbytes
@@ -282,6 +298,8 @@ class HostBlockPool:
         """Drop an entry (trie pruned the node: the bytes are
         unreachable through any future match)."""
         with self._lock:
+            if path in self._inflight or path in self._entries:
+                self._dropped(path)
             self._inflight.discard(path)
             size = self._sizes.pop(path, None)
             if size is not None:

@@ -41,6 +41,7 @@ NODE_RANK = "SKYPILOT_NODE_RANK"
 NUM_NODES = "SKYPILOT_NUM_NODES"
 COORDINATOR_ADDR = "SKYPILOT_COORDINATOR_ADDR"
 NUM_SLICES = "SKYPILOT_NUM_SLICES"
+NODE_IPS = "SKYPILOT_NODE_IPS"
 # torchrun's per-node process layout.
 LOCAL_RANK = "LOCAL_RANK"
 LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
@@ -104,6 +105,54 @@ def initialize_from_env(timeout_ms: int = 120_000,
                        coordinator=coordinator, initialized=True,
                        federated=dist.get_world_size() > 1,
                        world_size=world, local_rank=local_rank)
+
+
+def initialize_tp_group(*, host: int, tp_rank: int, tp: int, addr: str,
+                        device: DeviceLike = None,
+                        backend: Optional[str] = None,
+                        timeout_s: float = 120.0) -> DistContext:
+    """The process group of one host's ``tp`` ranks, the serving replica's
+    tensor-parallel group (``serve/gang_replica.py``): a replica of
+    ``hosts`` x ``tp`` processes runs one such group per host, each its
+    process's default group, with its own TCP store at ``addr``
+    (``host:port``; tp rank 0 serves it). The context's ``rank`` is the
+    process's global rank ``host * tp + tp_rank``. ``backend`` defaults to
+    NCCL on the card and gloo on the CPU; gloo also carries CUDA tensors,
+    which two ranks sharing one card need (NCCL refuses them). Every
+    collective of the group, and its rendezvous, time out after
+    ``timeout_s``. ``destroy_group`` ends it; a gang restart then calls
+    this again on a fresh port."""
+    global _STORE
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("an NCCL tp group needs the card, not the CPU")
+    host_name, port = _split_addr(addr)
+    timeout = timedelta(seconds=timeout_s)
+    _STORE = dist.TCPStore(host_name, port, world_size=tp,
+                           is_master=tp_rank == 0, timeout=timeout)
+    dist.init_process_group(backend, store=_STORE, rank=tp_rank,
+                            world_size=tp, timeout=timeout)
+    return DistContext(rank=host * tp + tp_rank, num_nodes=1,
+                       coordinator=addr, initialized=True,
+                       federated=tp > 1, world_size=tp,
+                       local_rank=tp_rank)
+
+
+def destroy_group() -> None:
+    """End this process's default group: an NCCL group is aborted first,
+    so a collective still waiting on a dead peer returns instead of
+    hanging until the timeout; gloo's already fails on the closed
+    connection. Its store goes with it."""
+    global _STORE
+    if dist.is_initialized():
+        if dist.get_backend() == "nccl":
+            dist.distributed_c10d._abort_process_group()
+        else:
+            dist.destroy_process_group()
+    _STORE = None
 
 
 def _split_addr(addr: str) -> tuple:

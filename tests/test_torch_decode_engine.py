@@ -275,8 +275,8 @@ def test_live_blocks_written_once_per_step(model, monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported(model, monkeypatch):
-    """Tensor-parallel serving and a missing card raise; a Mixtral config,
-    once refused here, now serves on the CPU when asked."""
+    """A missing card raises; a Mixtral config, once refused here, now
+    serves on the CPU when asked."""
     _, cfg_t, _, params_t = model
     mx_cfg = mixtral_torch.MixtralConfig.tiny(VOCAB)
     mx_params = mixtral_torch.init(mx_cfg, torch.Generator().manual_seed(0),
@@ -284,9 +284,6 @@ def test_engine_refuses_what_is_not_ported(model, monkeypatch):
     eng = engine_torch.DecodeEngine(mx_cfg, mx_params, device="cpu",
                                     **GEOMETRY).start()
     assert [len(s) for s in _run(eng, [([1, 2, 3], 4, 0.0, 0)])] == [4]
-    with pytest.raises(ValueError, match="tensor-parallel"):
-        engine_torch.DecodeEngine(cfg_t, params_t, device="cpu",
-                                  mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_torch.DecodeEngine(cfg_t, params_t)

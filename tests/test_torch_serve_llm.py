@@ -8,7 +8,8 @@ package's load balancer; the same bytes from a Gemma replica pair (its
 tiny config); the --model choices built through their family's init; a
 mixtral-tiny replica on the CPU; ``--lb-port``/``--lb-policy`` parsed and
 refused as JAX's, and main fronting its replica with the port's balancer;
-and the replica kinds not ported refusing to start."""
+and the sharded configurations a replica cannot serve refusing before any
+rank starts."""
 import dataclasses
 import http.client
 import json
@@ -320,13 +321,17 @@ def test_legacy_locked_path_streams_jax_tokens():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--lb-port", "9", "--tp", "2"], "gang"),
-    (["--replica-hosts", "2"], "gang"),
-    (["--tp", "2"], "gang"),
+    (["--lb-port", "9", "--tp", "2", "--engine-slots", "0"],
+     "decode engine"),
+    (["--replica-hosts", "2", "--tp", "3"], "n_heads=8 not divisible"),
+    (["--tp", "2", "--tp-backend", "nccl"], "NCCL"),
 ], ids=["lb-port", "replica-hosts", "tp"])
 def test_main_refuses_what_is_not_ported(argv, match):
-    """Gang and tensor-parallel replicas are refused, with a co-located
-    load balancer asked for too."""
+    """What a gang or tensor-parallel replica cannot serve raises before
+    any rank is spawned: tp over the legacy locked path (with a
+    co-located load balancer asked for too), a tp that does not divide
+    the model's heads, NCCL on the CPU. The replicas themselves serve
+    (tests/test_torch_gang_replica.py)."""
     with pytest.raises(ValueError, match=match):
         serve_torch.main(argv + ["--device", "cpu", "--port", "0"])
 
@@ -463,14 +468,6 @@ def test_build_model_refuses_a_tree_the_card_cannot_hold(
                                  weight_quant=weight_quant)
     with pytest.raises(ValueError, match=match):
         serve_torch._build_model(args, torch.device("cuda"))
-
-
-@pytest.mark.parametrize("env,value", [("SKYPILOT_NUM_NODES", "2"),
-                                       ("SKYPILOT_NODE_RANK", "1")])
-def test_main_refuses_a_gang_launch(monkeypatch, env, value):
-    monkeypatch.setenv(env, value)
-    with pytest.raises(ValueError, match="gang"):
-        serve_torch.main(["--device", "cpu", "--port", "0"])
 
 
 def test_serve_refuses_mixtral_and_needs_a_card(monkeypatch):

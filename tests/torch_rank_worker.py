@@ -14,6 +14,11 @@ pickle.
     python tests/torch_rank_worker.py lora <dir> <recipe arguments>
         the LoRA recipe's main() under the SKYPILOT_* env, with the tiny
         Llama config in f32
+    python tests/torch_rank_worker.py tp <dir> <rank> <tp> <addr>
+        one rank of a tensor-parallel serving group (gang_replica.TpGroup
+        at <addr>): every case of <dir>/cases.pkl through a tp engine, rank
+        0 scheduling, the others serving its plans; rank 0 writes
+        <dir>/results.pkl
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import time
 import traceback
 from datetime import timedelta
 
@@ -184,6 +190,119 @@ def case_gpipe(c):
     return {"out": out.detach().numpy()}
 
 
+def _tp_model(c, mesh, rules):
+    """The case's tiny f32 model from its JAX tree, (int8 when asked)
+    sharded onto the tp mesh: (model module, cfg, serving tree)."""
+    from skypilot_tpu_torch.models import mixtral
+    from skypilot_tpu_torch.serve import gang_replica
+    if c["family"] == "mixtral":
+        cfg = dataclasses.replace(mixtral.MixtralConfig.tiny(c["vocab"]),
+                                  dtype=torch.float32, **c.get("cfg", {}))
+        model, params = mixtral, convert.mixtral_params_from_jax(
+            cfg, c["init"], "cpu")
+    else:
+        model, cfg, from_jax = _config(c)
+        params = from_jax(cfg, c["init"], "cpu")
+    if c.get("quantize"):
+        params = model.quantize_params(cfg, params)
+    return model, cfg, gang_replica.shard_params(cfg, params, mesh, rules)
+
+
+def case_tp_engine(c, group, mesh, rules):
+    """The case's requests through a tp engine: rank 0's streams (and,
+    with ``evict``, a second pass after every prefix block went to the
+    host tier); every other rank serves the plans."""
+    from skypilot_tpu_torch.serve import decode_engine
+    _, cfg, params = _tp_model(c, mesh, rules)
+    engine = decode_engine.DecodeEngine(cfg, params, mesh=mesh, rules=rules,
+                                        device="cpu", use_manifest=False,
+                                        **c["engine"])
+    if group.rank:
+        engine.work()
+        # The spilled shards this rank still keeps, once rank 0's close
+        # forwarded every drop.
+        return {"tp_host": len(engine._tp_host)}
+    engine.start()
+    out = {"kv": engine.kv_config()}
+    try:
+        passes = 2 if c.get("evict") else 1
+        out["streams"] = []
+        for i in range(passes):
+            handles = [engine.submit(p, max_tokens=m, temperature=t, seed=s)
+                       for p, m, t, s in c["requests"]]
+            out["streams"].append([h.result(timeout=120.0)
+                                   for h in handles])
+            out.setdefault("chunks", []).append(
+                [h.prefill_chunks for h in handles])
+            if i + 1 < passes:
+                while engine.prefix_cache.evict_one() == "spilled":
+                    pass
+                while engine.spill_in_flight():
+                    time.sleep(0.001)
+        out["tier"] = engine.host_tier_stats()
+    finally:
+        engine.shutdown()
+    return out
+
+
+def case_tp_logits(c, group, mesh, rules):
+    """Teacher-forced logits of the case's tokens through the tp tree's
+    dense and paged cache paths (every rank calls them; rank 0's
+    returned)."""
+    model, cfg, params = _tp_model(c, mesh, rules)
+    tokens = torch.from_numpy(c["tokens"]).long()
+    b, s = tokens.shape
+    from skypilot_tpu_torch.serve import gang_replica
+    kvh = gang_replica.local_kv_heads(cfg, group.tp)
+    with torch.inference_mode():
+        cache = model.init_cache(cfg, b, s, "cpu", kv_heads=kvh)
+        dense, _ = model.forward_with_cache(cfg, params, tokens, cache, 0)
+        bt = c["block_tokens"]
+        nb = b * s // bt
+        pool = model.init_paged_cache(cfg, nb + 1, bt, device="cpu",
+                                      kv_heads=kvh)
+        table = np.arange(1, nb + 1).reshape(b, s // bt)
+        logits = []
+        for j in range(s // bt):
+            for row in range(b):
+                z, _ = model.forward_with_paged_cache(
+                    cfg, params, tokens[row:row + 1, j * bt:(j + 1) * bt],
+                    pool, table[row:row + 1], j * bt, window=s,
+                    write_block=int(table[row, j]))
+                logits.append(z)
+        paged = torch.stack(logits).reshape(s // bt, b, bt, -1)
+    return {"dense": dense.numpy(),
+            "paged": paged.permute(1, 0, 2, 3).reshape(b, s, -1).numpy()}
+
+
+TP_CASES = {"tp_engine": case_tp_engine, "tp_logits": case_tp_logits}
+
+
+def run_tp(root: pathlib.Path, rank: int, tp: int, addr: str) -> int:
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.serve import gang_replica
+    group = gang_replica.TpGroup(tp=tp, rank=rank, addr=addr, device="cpu",
+                                 timeout_s=TIMEOUT.total_seconds())
+    topology = gang_replica.ReplicaTopology(ici_axes={"tp": tp})
+    mesh, rules = gang_replica.build_mesh(topology, group)
+    assert rules is mesh_lib.DEFAULT_RULES
+    cases = pickle.loads((root / "cases.pkl").read_bytes())
+    results = {}
+    for name, c in cases.items():
+        try:
+            results[name] = TP_CASES[c["kind"]](c, group, mesh, rules)
+        except Exception:  # noqa: BLE001 - reported to the test
+            results[name] = {"error": traceback.format_exc()}
+            (root / f"error_{rank}.txt").write_text(results[name]["error"])
+            if rank == 0:
+                (root / "results.pkl").write_bytes(pickle.dumps(results))
+            return 1
+    (root / ("results.pkl" if rank == 0 else f"results_{rank}.pkl")
+     ).write_bytes(pickle.dumps(results))
+    group.close()
+    return 0
+
+
 CASES = {"train": case_train, "ring": case_ring,
          "pipeline_forward": case_pipeline_forward, "gpipe": case_gpipe}
 
@@ -296,4 +415,7 @@ if __name__ == "__main__":
         sys.exit(run_cases(root, int(sys.argv[3]), int(sys.argv[4])))
     if mode == "lora":
         sys.exit(run_lora(sys.argv[3:]))
+    if mode == "tp":
+        sys.exit(run_tp(root, int(sys.argv[3]), int(sys.argv[4]),
+                        sys.argv[5]))
     sys.exit(run_env(root))

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Training across ranks on every card of one machine: the port's sharded
-step, ring attention and pipeline over NCCL, each held to the same work
-on one card.
+"""Training and serving across ranks on every card of one machine: the
+port's sharded step, ring attention and pipeline over NCCL, and its
+tensor-parallel replica, each held to the same work on one card.
 
-    python3 tools/torch_parallel_cards.py [world1] [step] [ring]
+    python3 tools/torch_parallel_cards.py [world1] [step] [ring] [tp_serve]
 
-[world1] runs on one card; [step] and [ring] need an even count of 2+.
-With no phase named, all three run ([step] includes [pipeline]).
+[world1] runs on one card; [step], [ring] and [tp_serve] need an even
+count of 2+. With no phase named, the first three run ([step] includes
+[pipeline]); [tp_serve] runs when named.
 
 The script launches one process per card itself, as a gang host's
 torchrun would: LOCAL_RANK / LOCAL_WORLD_SIZE and the SKYPILOT_* env
@@ -29,6 +30,19 @@ process brings its NCCL group up through
   {"sp": n}, causal and not: each card holds one chunk; the output and
   the gradients of sum(out * dO), gathered, against the flash op on the
   whole sequence (one card), norm-relative; both timed.
+
+- [tp_serve] serve_llm replicas, each from this process: Llama-3-8B at
+  full depth, bf16, on one card, at tp 2 and at tp n (NCCL, rank r on
+  cuda:r), TP_SLOTS greedy requests of TP_CONTEXT prompt tokens and
+  TP_TOKENS new ones at once; each replica's decode-step ms (its
+  /perf, STPU_STEPSTATS) and tokens/s, and its streams against one
+  card's (printed: bf16 near-ties); then Mixtral-8x7B in bf16 at full
+  depth on tp n (a rank draws and keeps a layer's shard at a time:
+  23.4 GB a card at tp 4), its streams against the int8 tree's on one
+  card (printed, not gated); then tp 2's rank 1 SIGKILLed mid-stream
+  under NCCL: the seconds to 503 and back to 200 (the whole-gang
+  restart aborts the group), or that it never came back within
+  TP_RECOVER_S.
 
 Exit 0 only when every gate holds; the last line is a JSON summary.
 """
@@ -53,13 +67,180 @@ LOSS_TOL = 2e-2
 PIPE_REL_TOL = 2e-2
 RING_SHAPE = (1, 8192, 32, 8, 128)
 OUT_REL_TOL, GRAD_REL_TOL = 1e-2, 2e-2
+TP_SLOTS, TP_CONTEXT, TP_TOKENS = 8, 1024, 64
+TP_VOCAB = 32000        # prompt token ids: Mixtral's vocab, inside Llama-3's
+TP_RECOVER_S = 300
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url, body=None, timeout=600):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+    except OSError:
+        return None, b""
+
+
+class _Replica:
+    """One serve_llm replica (and the gang it spawns) on this machine."""
+
+    def __init__(self, *argv):
+        self.port = _free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "skypilot_tpu_torch.recipes.serve_llm",
+             "--seed", "5", "--port", str(self.port), "--engine-slots",
+             str(TP_SLOTS), "--kv-block-tokens", "64", *argv], cwd=REPO,
+            env=dict(os.environ, STPU_STEPSTATS="1",
+                     STPU_TUNE_MANIFEST="0"),
+            stdout=subprocess.DEVNULL, start_new_session=True)
+
+    def wait(self, code, seconds):
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            if _http(self.base + "/health", timeout=5)[0] == code:
+                return True
+            if self.proc.poll() is not None:
+                return False
+            time.sleep(0.1)
+        return False
+
+    def run(self, prompts):
+        """The prompts at once, greedy: (streams, wall s, decode ms)."""
+        import threading
+        out = [None] * len(prompts)
+
+        def one(i):
+            # A request a rank's death cut answers 503 with an error.
+            out[i] = json.loads(_http(self.base + "/generate", {
+                "prompt": prompts[i], "max_tokens": TP_TOKENS})[1] or
+                b"{}").get("tokens")
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        perf = json.loads(_http(self.base + "/perf")[1])
+        dec = perf["phases"].get("decode", {})
+        return out, wall, dec.get("seconds", 0) / max(dec.get("steps", 1),
+                                                       1) * 1e3
+
+    def stop(self):
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait()
+
+
+def _serve(label, argv, prompts, out, card):
+    rep = _Replica(*argv)
+    try:
+        _check(rep.wait(200, 900), f"[tp_serve] {label} never ready")
+        up = time.perf_counter() - rep.t0
+        streams, wall, step = rep.run(prompts)
+    finally:
+        rep.stop()
+    tok_s = len(prompts) * TP_TOKENS / wall
+    out[label] = {"up_s": up, "wall_s": wall, "tokens_per_s": tok_s,
+                  "decode_step_ms": step, "streams": streams}
+    print(f"[tp_serve] {label}: up in {up:.1f} s; {len(prompts)} x "
+          f"{TP_CONTEXT}+{TP_TOKENS} tokens in {wall:.2f} s, {tok_s:.1f} "
+          f"tokens/s; decode step {step:.1f} ms mean ({card})", flush=True)
+    return streams
+
+
+def _agree(a, b):
+    first = [next((i for i, (x, y) in enumerate(zip(s, t)) if x != y),
+                  None) for s, t in zip(a, b)]
+    same = sum(x == y for s, t in zip(a, b) for x, y in zip(s, t))
+    return f"{same} of {sum(map(len, a))} tokens equal, first divergences " \
+        f"{first}"
+
+
+def phase_tp_serve(n):
+    """[tp_serve] (module docstring), from the launching process."""
+    import threading
+    from skypilot_tpu_torch.serve import gang_replica
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    card = "; ".join(sorted(set(cards.strip().splitlines())))
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(1, TP_VOCAB, (TP_CONTEXT,),
+                             generator=gen).tolist()
+               for _ in range(TP_SLOTS)]
+    out = {"card": card}
+    one = _serve("llama3-8b one card", ["--model", "llama3-8b"], prompts,
+                 out, card)
+    for tp in sorted({2, n}):
+        got = _serve(f"llama3-8b tp {tp}", ["--model", "llama3-8b", "--tp",
+                                            str(tp)], prompts, out, card)
+        print(f"[tp_serve] llama3-8b tp {tp} vs one card: "
+              f"{_agree(got, one)}", flush=True)
+    q = _serve("mixtral-8x7b int8 one card",
+               ["--model", "mixtral-8x7b", "--weight-quant", "1"], prompts,
+               out, card)
+    mx = _serve(f"mixtral-8x7b bf16 tp {n}",
+                ["--model", "mixtral-8x7b", "--tp", str(n)], prompts, out,
+                card)
+    print(f"[tp_serve] mixtral-8x7b bf16 tp {n} vs int8 one card (not "
+          f"gated): {_agree(mx, q)}", flush=True)
+    # A rank killed under NCCL.
+    rep = _Replica("--model", "llama3-8b", "--tp", "2")
+    try:
+        _check(rep.wait(200, 900), "[tp_serve] failover replica never ready")
+        members = json.loads(_http(rep.base + "/gang")[1])["members"]
+        victim = [m["pid"] for m in members if m["role"] == "tp"][0]
+        threading.Thread(target=rep.run, args=(prompts,),
+                         daemon=True).start()
+        time.sleep(10)
+        t0 = time.perf_counter()
+        os.kill(victim, 9)
+        down = rep.wait(503, 120)
+        t503 = time.perf_counter() - t0
+        back = rep.wait(200, TP_RECOVER_S)
+        t200 = time.perf_counter() - t0
+        status, body = _http(rep.base + "/generate", {
+            "prompt": prompts[0], "max_tokens": 8}, timeout=300)
+        out["failover"] = {"503": down, "503_s": t503, "recovered": back,
+                           "200_s": t200, "after": status,
+                           "leader_alive": rep.proc.poll() is None}
+        print(f"[tp_serve] tp 2, rank 1 SIGKILLed under NCCL mid-stream: "
+              f"503 {down} after {t503:.2f} s; 200 {back} after "
+              f"{t200:.1f} s (limit {TP_RECOVER_S} s; group timeout "
+              f"{gang_replica.TP_TIMEOUT_SECONDS:g} s); next request "
+              f"HTTP {status}; leader alive {rep.proc.poll() is None} "
+              f"({card})", flush=True)
+    finally:
+        rep.stop()
+    return {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+            if isinstance(v, dict) else v for k, v in out.items()}
 
 
 def _launch(phases) -> int:
     n = torch.cuda.device_count()
     if set(phases) - {"world1"} and (n < 2 or n % 2):
-        print(f"FAIL: {n} cards; [step] and [ring] need an even count of "
-              "at least 2", file=sys.stderr)
+        print(f"FAIL: {n} cards; [step], [ring] and [tp_serve] need an "
+              "even count of at least 2", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
     from skypilot_tpu_torch.ops import _build
@@ -75,6 +256,16 @@ def _launch(phases) -> int:
         torch.cuda.empty_cache()
         phases = [p for p in phases if p != "world1"]
         if not phases:
+            return 0
+    if "tp_serve" in phases:
+        try:
+            summary = phase_tp_serve(n)
+        except RuntimeError as e:
+            print(f"FAIL: {e}", file=sys.stderr, flush=True)
+            return 1
+        phases = [p for p in phases if p != "tp_serve"]
+        if not phases:
+            print(json.dumps({"ok": True, "cards": n, "tp_serve": summary}))
             return 0
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
