@@ -135,13 +135,25 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    2L/L/L resident and no other, one forward's loss within LOSS_TOL of the
    reference attention's; prints the step and the share of token choices
    dropped by capacity at step 1;
+10b. mixtral_ep: the expert-parallel recipe (recipes/mixtral_ep.run) at
+   [mixtral]'s configuration with its adamw (warmup 100) on a world-1
+   NCCL mesh {dp 1, ep 1}, MXEP_STEPS of its batches, with trainstats
+   armed, against the one-device make_train_step from the same weights on
+   the same batches: every step's CE and the final aux within LOSS_TOL,
+   the parameters within LOSS_TOL, launches exactly 2L/L/L resident;
+   prints the step, tokens/s and train_mfu;
+10c. recipes: resnet_ddp at resnet101, 224 x 224, batch 32, one process
+   (examples/s, p50 iteration, the loss finite; cuDNN TF32 printed);
+   mnist for 300 steps under the benchmark recorder (accuracy >= 0.8,
+   benchmark_summary.json written under STPU_BENCHMARK_LOG_DIR with 300
+   steps); glue_imdb for 200 steps (accuracy >= 0.75);
 11. serve: one Llama-3-8B replica (full width and depth, bf16, random
    weights) through the port's serve_llm.serve in-process, 8 engine
    slots, paged 64-token blocks, max_seq 1280: eight concurrent streamed
-   /generate requests (prompts 32 to 1024 tokens, 128 tokens each, four
+   /generate requests (prompts 32 to 1024 tokens, 64 tokens each, four
    greedy, four seeded at T=0.8), then a ninth sharing a 512-token
    prefix with the longest. Every stream must end in its stats frame and
-   [DONE] after 128 tokens, the ninth must hit the prefix cache, and no
+   [DONE] after 64 tokens, the ninth must hit the prefix cache, and no
    flash kernel may launch during the engine's work (serving attention
    is the split-KV torch path, as it is XLA in the JAX package). The
    greedy streams are teacher-forced through llama.forward (one resident
@@ -222,7 +234,7 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    picks (within MIXTRAL_CACHE_REL_TOL, the attention faults and the
    routing faults past it; the flips it pinned and their gate gaps
    printed; leg 1 plants the nearest, own key masked). Leg 1: the int8
-   tree at MXS_INT8_LAYERS layers (23.4 GB; the full depth's 46.7 GB runs
+   tree at MXS_INT8_LAYERS layers (11.7 GB; the full depth's 46.7 GB runs
    in tools/torch_parallel_cards.py tp_serve), built by serve_llm's
    --model mixtral-8x7b --weight-quant 1 (depth patched) a layer at a time,
    served through serve_llm with [serve]'s geometry and nine requests
@@ -230,7 +242,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    the engine); on the greedy streams the batched T = 1 steps against a
    fresh prefill over each whole prefix (the emitted tokens its argmax
    but at near-ties; pinned: paged == dense bit for bit); one decode
-   step at 8 slots profiled (launches, device busy, idle share). Leg 2: bf16 at 16 layers: those streams
+   step at 8 slots profiled (launches, device busy, idle share). Leg 2:
+   bf16 at MXS_BF16_LAYERS layers: those streams
    teacher-forced through the dense and paged cache paths against
    mixtral.forward at capacity_factor n_experts / top_k (C = T: no token
    dropped, so capacity routing equals dense routing; one sequence at a
@@ -286,6 +299,7 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    head_dim 128 and the nine at 256), then the last line
    {"ok": true, "device": {...}}.
 
+Each phase's wall seconds are printed as it ends (``[timing]``).
 Needs a CUDA card, the CUDA toolkit and this file's checkout (it imports
 the port from beside itself). Imports nothing of JAX.
 """
@@ -498,6 +512,15 @@ TUNE_SLOTS, TUNE_MAX_SEQ = 8, 2048
 # The mixtral phase: Mixtral-8x7B widths; depth cut from 32 to 2 layers
 # (47 B parameters in bf16 do not fit one 80 GB card).
 MX_LAYERS, MX_BATCH, MX_SEQ, MX_STEPS = 2, 2, 2048, 6
+# The mixtral_ep phase: the expert-parallel recipe (recipes/mixtral_ep.run)
+# at [mixtral]'s configuration with the recipe's adamw, on a world-1 NCCL
+# mesh {dp 1, ep 1}, against the one-device step from the same weights
+# and batches.
+MXEP_STEPS, MXEP_SEED = 6, 4
+# The recipes phase: resnet_ddp at its published config (resnet101, 224 x
+# 224, batch 32 a process, one process), its p50 over steps 3 on; mnist
+# and glue_imdb at their default step counts with their accuracy gates.
+RESNET_STEPS, MNIST_STEPS, GLUE_STEPS = 12, 300, 200
 
 # The gemma_lora phase: examples/gemma_lora.yaml's shape (batch 8 x seq
 # 2048), Gemma-2B at full width and depth, where every attention call
@@ -515,9 +538,13 @@ GLONG_BATCHES, GLONG_SEQ, GLONG_STEPS = (8, 4, 2, 1), 8192, 4
 # (MAX_PROMPT_TOKENS + MAX_GEN_TOKENS = 1280), 8 engine slots, paged,
 # 64-token blocks; eight concurrent streamed requests, four greedy and
 # four seeded, then a ninth sharing a 512-token prefix with the longest.
+# Each request generates SV_MAX_TOKENS (128 before [mixtral_ep] and
+# [recipes] were added; cut to 64 with [tp_serve]'s legs below to keep
+# the run inside its time limit: the serving phases are host-bound, and
+# a slower host ran them 1.3x longer).
 SV_SLOTS, SV_BLOCK = 8, 64
 SV_PROMPTS = (32, 64, 128, 256, 384, 512, 768, 1024)
-SV_MAX_TOKENS, SV_TEMP, SV_PREFIX = 128, 0.8, 512
+SV_MAX_TOKENS, SV_TEMP, SV_PREFIX = 64, 0.8, 512
 # The lb phase, on [serve]'s params: leg (a) sends [serve]'s eight
 # requests with LB_BYTES_TOKENS tokens each (cut from SV_MAX_TOKENS: one
 # request at a time decodes at ~0.12 s a token here); leg (b) runs the
@@ -555,12 +582,13 @@ SP_POOL_BLOCKS, SP_PROMPTS, SP_HOST_MB = 10, (200, 520), 64
 # The mixtral_serve phase: Mixtral-8x7B at full width. Its 46.70 B
 # parameters are 93.4 GB in bf16, more than the card holds, and 46.7 GB in
 # int8: leg 1 serves the int8 tree through serve_llm, its depth cut to
-# MXS_INT8_LAYERS (23.4 GB; the full 32 layers, 46.7 GB, ran here until
-# [tp_serve] needed the time, and run in tools/torch_parallel_cards.py
-# tp_serve); leg 2 holds the cache paths in bf16 at 16 layers (23.7 GB)
-# against the no-drop capacity forward, and the int8 cache path's top-1
-# against them; leg 3 does the same in f32 at 4 layers (24.3 GB).
-MXS_INT8_LAYERS, MXS_BF16_LAYERS, MXS_F32_LAYERS = 16, 16, 4
+# MXS_INT8_LAYERS (11.7 GB; the full 32 layers, 46.7 GB, ran here until
+# [tp_serve] needed the time, then 16 until [mixtral_ep] and [recipes]
+# did, and run in tools/torch_parallel_cards.py tp_serve); leg 2 holds
+# the cache paths in bf16 at MXS_BF16_LAYERS (11.9 GB) against the
+# no-drop capacity forward, and the int8 cache path's top-1 against
+# them; leg 3 does the same in f32 at 4 layers (24.3 GB).
+MXS_INT8_LAYERS, MXS_BF16_LAYERS, MXS_F32_LAYERS = 8, 8, 4
 # The int8 cache path's teacher-forced top-1 agreement with the bf16
 # tree's, at least the JAX package's floor for Mixtral (tests/test_quant.py
 # TOP1_FLOOR["mixtral"], int8 weights and KV against bf16).
@@ -2345,6 +2373,170 @@ def phase_mixtral(fa, llama, trainer):
         state.params, tokens, trainer)
 
 
+def phase_mixtral_ep(fa, trainer, card, dev="cuda", cfg=None):
+    """The expert-parallel recipe's step on the one card: a world-1 NCCL
+    mesh {dp 1, ep 1}; the recipe's run() (its weights, batches and adamw
+    from its seed) against the one-device make_train_step from the same
+    weights on the same batches. ``dev="cpu"`` and a small ``cfg``
+    rehearse it on the CPU (gloo; the launch check then fails: no kernel
+    runs there)."""
+    import torch.distributed as dist
+
+    from skypilot_tpu_torch.models import mixtral
+    from skypilot_tpu_torch.recipes import mixtral_ep
+    t_phase = time.perf_counter()
+    cfg = cfg or dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                                     n_layers=MX_LAYERS)
+    args = mixtral_ep.build_arg_parser().parse_args([
+        "--model", "8x7b", "--steps", str(MXEP_STEPS), "--batch-size",
+        str(MX_BATCH), "--seq-len", str(MX_SEQ), "--seed", str(MXEP_SEED),
+        "--device", dev])
+    cuda = dev == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    print(f"[mixtral_ep] mixtral_8x7b width, {cfg.n_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B params, batch {MX_BATCH} x seq "
+          f"{MX_SEQ}, bf16, adamw, full remat, {MXEP_STEPS} steps of the "
+          f"recipe's batches (seed {MXEP_SEED})", flush=True)
+    batches = [torch.from_numpy(t).long().to(dev)
+               for t in mixtral_ep.train_batches(cfg, args)]
+
+    def draw():
+        return mixtral.init(cfg, torch.Generator(dev).manual_seed(
+            args.seed), dev)
+    tx = trainer.make_optimizer(trainer.TrainConfig(total_steps=args.steps))
+    state = trainer.init_train_state(draw(), tx)
+    step = trainer.make_train_step(lambda p, t: mixtral.forward(cfg, p, t),
+                                   tx, with_grad_norm=False)
+    ref_loss, ref_aux, ref_s = [], [], []
+    for tokens in batches:
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        ref_loss.append(float(m["loss"]))
+        ref_aux.append(float(m["aux_loss"]))
+        ref_s.append(time.perf_counter() - t0)
+    ref = [p.detach() for p in state.params.parameters()]
+    del state, step, tx
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="stpu-mxep-") as tmp:
+        try:
+            fa.reset_launches()
+            with _trainstats_armed(tmp) as trainstats:
+                out, state = mixtral_ep.run(args, cfg)
+                launches = dict(fa.LAUNCHES)
+                peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                           else 0.0)
+                recs = trainstats.steps_tail()
+                losses = [r["loss"] for r in recs
+                          if r.get("loss") is not None]
+                run_s = sorted(r["dur"] for r in recs[1:])
+            losses.append(out["final_loss"])
+            backend, world = dist.get_backend(), dist.get_world_size()
+            with torch.no_grad():
+                init = list(draw().parameters())
+                diff = moved = 0.0
+                for p, q, p0 in zip(state.params.parameters(), ref, init):
+                    diff = max(diff, (p.full_tensor().float() - q.float()
+                                      ).abs().max().item())
+                    moved = max(moved, (q.float() - p0.float()
+                                        ).abs().max().item())
+            del state, ref, init
+        finally:
+            dist.destroy_process_group()
+    print(f"[mixtral_ep] mesh {out['mesh']}: backend {backend}, world "
+          f"{world}; losses (CE) {[round(x, 4) for x in losses]}, aux "
+          f"{out['aux_loss']:.5f}; one-device "
+          f"{[round(x, 4) for x in ref_loss]}, aux {ref_aux[-1]:.5f}",
+          flush=True)
+    print(f"[mixtral_ep] launches {launches}", flush=True)
+    check(backend == ("nccl" if cuda else "gloo") and world == 1,
+          f"the recipe's mesh is a {backend} group of {world} processes")
+    check(out["mesh"] == {"dp": 1, "ep": 1}, f"mesh {out['mesh']}")
+    check(len(losses) == MXEP_STEPS and _finite(losses + [out["aux_loss"]]),
+          f"losses {losses}")
+    worst = max(abs(a - b) for a, b in zip(losses, ref_loss))
+    aux_diff = abs(out["aux_loss"] - ref_aux[-1])
+    check(worst <= LOSS_TOL and aux_diff <= LOSS_TOL,
+          f"recipe losses off the one-device step's by {worst:.3e}, aux by "
+          f"{aux_diff:.3e} (tol {LOSS_TOL})")
+    check(out["aux_loss"] > 0, "aux loss not positive")
+    check(diff <= LOSS_TOL, f"parameters off the one-device step's by "
+          f"{diff:.3e} (tol {LOSS_TOL})")
+    expect = _step_expect(launches, cfg.n_layers, MXEP_STEPS)
+    check(launches == expect, f"launch counts {launches} != {expect}")
+    steady = sorted(ref_s[1:])[len(ref_s[1:]) // 2]
+    print(f"[mixtral_ep] vs one-device: largest loss |diff| {worst:.3e}, aux "
+          f"|diff| {aux_diff:.3e} (tol {LOSS_TOL}); largest parameter "
+          f"|diff| {diff:.3e} after {MXEP_STEPS} steps (largest move "
+          f"{moved:.3e}, warmup 100 steps); recipe step "
+          f"{run_s[len(run_s) // 2] * 1e3:.1f} ms (median of steps 2-"
+          f"{MXEP_STEPS}; trainstats mean "
+          f"{out['train_step_seconds'] * 1e3:.1f} ms), "
+          f"{out['tokens_per_second']} tokens/s (wall, first step "
+          f"included), train_tokens_per_sec {out['train_tokens_per_sec']}, "
+          f"train_mfu {out['train_mfu']} (6N, no attention term: the "
+          f"recipe's flops_per_token); one-device step {steady * 1e3:.1f} ms "
+          f"(median of steps 2-{MXEP_STEPS}); peak memory {peak_gb:.2f} GB "
+          f"({card})", flush=True)
+    print(f"[mixtral_ep] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def phase_recipes(card, dev="cuda"):
+    """The small recipes through their main(): resnet_ddp at resnet101 /
+    224 / batch 32 (world 1), mnist under the benchmark recorder, and
+    glue_imdb, each at its accuracy gate."""
+    from skypilot_tpu_torch import callbacks
+    from skypilot_tpu_torch.recipes import glue_imdb, mnist, resnet_ddp
+    t_phase = time.perf_counter()
+    try:
+        res = resnet_ddp.main(["--steps", str(RESNET_STEPS),
+                               "--batch-size", "32", "--device", dev])
+        check(_finite([res["final_loss"]]), "resnet_ddp: non-finite loss")
+        print(f"[recipes] resnet_ddp resnet101 224 x 224, batch 32, world "
+              f"1: {res['examples_per_second']} examples/s, p50 iteration "
+              f"{res['p50_iter_seconds'] * 1e3:.1f} ms (steps 3-"
+              f"{RESNET_STEPS}), final loss {res['final_loss']:.4f}, cuDNN "
+              f"TF32 {torch.backends.cudnn.allow_tf32} ({card})", flush=True)
+        with tempfile.TemporaryDirectory(prefix="stpu-bench-") as tmp:
+            old = os.environ.get(callbacks.ENV_LOG_DIR)
+            os.environ[callbacks.ENV_LOG_DIR] = tmp
+            try:
+                mn = mnist.main(["--steps", str(MNIST_STEPS), "--device",
+                                 dev])
+            finally:
+                callbacks._state = None
+                if old is None:
+                    os.environ.pop(callbacks.ENV_LOG_DIR)
+                else:
+                    os.environ[callbacks.ENV_LOG_DIR] = old
+            summary_path = pathlib.Path(tmp) / callbacks.SUMMARY_NAME
+            check(summary_path.is_file(), "mnist wrote no "
+                  f"{callbacks.SUMMARY_NAME}")
+            summary = json.loads(summary_path.read_text())
+        check(summary["num_steps"] == MNIST_STEPS,
+              f"benchmark summary {summary}")
+        gl = glue_imdb.main(["--steps", str(GLUE_STEPS), "--device", dev])
+    except SystemExit as e:
+        raise PhaseError(f"[recipes] {e}") from e
+    print(f"[recipes] mnist {MNIST_STEPS} steps: accuracy "
+          f"{mn['test_accuracy']:.4f} (gate 0.8), "
+          f"{summary['seconds_per_step'] * 1e3:.2f} ms a step (the "
+          f"recorder's steady state); glue_imdb {GLUE_STEPS} steps: "
+          f"accuracy {gl['test_accuracy']:.4f} (gate 0.75), "
+          f"{gl['wall_seconds']} s ({card})", flush=True)
+    check(mn["test_accuracy"] >= 0.8 and gl["test_accuracy"] >= 0.75,
+          "a recipe's accuracy is below its gate")
+    print(f"[recipes] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def _sse_generate(port, body, out, idx, on_frame=None):
     """One streamed /generate over HTTP: out[idx] = its status, send time
     and each SSE frame with its arrival time; ``on_frame(frames)`` runs
@@ -3869,8 +4061,8 @@ def phase_tune(card, dev="cuda"):
 # The tp phase: a tp-2 replica on the one card. NCCL refuses two ranks on
 # one device, so the two ranks share cuda:0 over a gloo group (gloo carries
 # CUDA tensors for all_reduce, all_gather and broadcast, the collectives
-# the tp path issues: tp_reduce and the vocab-parallel embedding's sum,
-# the logits' gather, the plans' broadcast on a gloo group of their own).
+# of the tp path: group_reduce and the vocab-parallel embedding's
+# sum, the logits' gather, the plans' broadcast on a gloo group of their own).
 TP_DEGREE, TP_BACKEND = 2, "gloo"
 # Leg (c): the request after the whole-gang restart, against its own run
 # before the kill; leg (e): Mixtral at full width cut to this depth, each
@@ -3881,9 +4073,9 @@ TP_FAILOVER_TOKENS = 16
 # stream (positions one late shows from the first step); leg (b) runs the
 # greedy requests for TP_INT8_TOKENS tokens, against the same prefix of
 # the one-card int8 streams.
-TP_FAULT_TOKENS, TP_INT8_TOKENS = 32, 64
-TP_MIXTRAL_LAYERS, TP_MIXTRAL_TOKENS = 4, 32
-TP_BENCH_LAYERS = 8
+TP_FAULT_TOKENS, TP_INT8_TOKENS = 32, 32
+TP_MIXTRAL_LAYERS, TP_MIXTRAL_TOKENS = 2, 32
+TP_BENCH_LAYERS = 4
 
 
 def _tp_model(leg, mesh, rules):
@@ -4330,6 +4522,16 @@ def phase_tp_serve(fa, card, ref, dev="cuda", model="llama3-8b"):
     print(f"[tp_serve] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _timed(phase, *args):
+    """``phase(*args)``, its wall seconds printed as ``[timing]``."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        print(f"[timing] {phase.__name__} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["tp-rank"]:
         return _tp_rank_main(pathlib.Path(sys.argv[2]), int(sys.argv[3]),
@@ -4354,47 +4556,51 @@ def main() -> int:
 
     t0 = time.perf_counter()
     try:
-        card = phase_device()
-        attrs = phase_build(_build)
+        card = _timed(phase_device)
+        attrs = _timed(phase_build, _build)
         CLOCKS.start()
         try:
-            records = phase_kernels(fa)
-            phase_kernels_wide(fa, records)
+            records = _timed(phase_kernels, fa)
+            _timed(phase_kernels_wide, fa, records)
         finally:
             CLOCKS.stop()
-        phase_ragged_op(fa, attention_ops)
-        phase_f32_op(fa, attention_ops)
-        phase_pad_op(fa, attention_ops)
-        phase_wide_op(fa, attention_ops, records)
-        phase_streamed(fa, attention_ops, records)
+        _timed(phase_ragged_op, fa, attention_ops)
+        _timed(phase_f32_op, fa, attention_ops)
+        _timed(phase_pad_op, fa, attention_ops)
+        _timed(phase_wide_op, fa, attention_ops, records)
+        _timed(phase_streamed, fa, attention_ops, records)
         torch.cuda.empty_cache()
-        phase_slice(fa, llama, trainer, records)
+        _timed(phase_slice, fa, llama, trainer, records)
         torch.cuda.empty_cache()
-        phase_parallel(fa, llama, trainer, attention_ops)
+        _timed(phase_parallel, fa, llama, trainer, attention_ops)
         torch.cuda.empty_cache()
-        phase_long_context(fa, llama, trainer, records)
-        phase_tiny(fa, llama, trainer)
+        _timed(phase_long_context, fa, llama, trainer, records)
+        _timed(phase_tiny, fa, llama, trainer)
         torch.cuda.empty_cache()
-        phase_adafactor(fa, llama, trainer)
+        _timed(phase_adafactor, fa, llama, trainer)
         torch.cuda.empty_cache()
-        phase_lora(fa, llama, trainer, card)
+        _timed(phase_lora, fa, llama, trainer, card)
         torch.cuda.empty_cache()
-        phase_mixtral(fa, llama, trainer)
+        _timed(phase_mixtral, fa, llama, trainer)
         torch.cuda.empty_cache()
-        phase_gemma_lora(fa, trainer, records, card)
+        _timed(phase_mixtral_ep, fa, trainer, card)
         torch.cuda.empty_cache()
-        phase_gemma_long(fa, trainer, records, card)
+        _timed(phase_recipes, card)
         torch.cuda.empty_cache()
-        tp_ref = phase_serve(fa, llama, card)
-        phase_lb_bench(card)
+        _timed(phase_gemma_lora, fa, trainer, records, card)
         torch.cuda.empty_cache()
-        phase_tp_serve(fa, card, tp_ref)
+        _timed(phase_gemma_long, fa, trainer, records, card)
+        torch.cuda.empty_cache()
+        tp_ref = _timed(phase_serve, fa, llama, card)
+        _timed(phase_lb_bench, card)
+        torch.cuda.empty_cache()
+        _timed(phase_tp_serve, fa, card, tp_ref)
         del tp_ref
         torch.cuda.empty_cache()
-        phase_gemma_serve(fa, card)
-        phase_mixtral_serve(fa, card)
-        phase_decode_bench(card)
-        phase_tune(card)
+        _timed(phase_gemma_serve, fa, card)
+        _timed(phase_mixtral_serve, fa, card)
+        _timed(phase_decode_bench, card)
+        _timed(phase_tune, card)
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -13,7 +13,10 @@ sources under ``csrc/``). ``convert`` moves parameters and adapters
 between the two packages. Across ranks (one process per card): the
 process group on the env contract (``train.distributed``), the mesh,
 sharding rules and placement (``parallel``), the sharded train step,
-ring attention and the GPipe pipeline. The serving half: the models' KV-cache decode
+ring attention and the GPipe pipeline; Mixtral with expert parallelism
+(``recipes.mixtral_ep``), and the small recipes (``recipes.mnist``,
+``recipes.glue_imdb``, ``recipes.resnet_ddp`` on DDP) with the
+step-callback integrations (``integrations``). The serving half: the models' KV-cache decode
 (``models.llama``), the continuous-batching engine (``serve``) and its
 HTTP replica (``recipes.serve_llm``), with the observability modules
 they report through (``observability``).

@@ -6,7 +6,10 @@ Gemma's is llama's tree at its shapes, tied: no ``lm_head`` unless
 ``tie_embeddings=False``), the LoRA adapter tree
 (``{"layers": {"wq_lora_a": (L, in, r), "wq_lora_b": (L, r, out), ...}}``)
 and the serving KV caches (dense and paged, int8 pools with their
-scales).
+scales), and the small recipes' flax modules (``cnn_from_flax``,
+``text_classifier_from_flax``, ``resnet_from_flax``: a flax ``Dense``
+kernel (in, out) is torch's weight transposed, a ``Conv`` kernel HWIO is
+torch's OIHW).
 
 A JAX tree (``skypilot_tpu.models.llama.init``, ``mixtral.init``) is a
 nested dict with the layers stacked on axis 0 and every weight stored
@@ -233,6 +236,99 @@ def cache_from_jax(cache_np: Dict[str, Any],
 def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """A serving cache as the JAX package's dict of numpy arrays."""
     return {k: to_numpy(v) for k, v in cache.items()}
+
+
+# ------------------------------------------- the small recipes' flax trees
+
+def _leaf(param: torch.nn.Parameter, arr: Any) -> None:
+    """Copy ``arr`` into ``param`` (same shape and dtype, checked)."""
+    t = to_tensor(arr, param.device)
+    if t.shape != param.shape or t.dtype != param.dtype:
+        raise ValueError(f"flax leaf {tuple(t.shape)} {t.dtype} does not "
+                         f"fit {tuple(param.shape)} {param.dtype}")
+    param.copy_(t)
+
+
+def _dense_from_flax(lin: torch.nn.Linear, tree: Dict[str, Any]) -> None:
+    """A flax ``Dense``: kernel (in, out) is ``nn.Linear``'s weight^T."""
+    _leaf(lin.weight, np.asarray(tree["kernel"]).T)
+    _leaf(lin.bias, tree["bias"])
+
+
+def _conv_from_flax(conv: torch.nn.Conv2d, tree: Dict[str, Any]) -> None:
+    """A flax ``Conv``: kernel HWIO is ``nn.Conv2d``'s OIHW weight."""
+    _leaf(conv.weight, np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+    if conv.bias is not None:
+        _leaf(conv.bias, tree["bias"])
+
+
+def _norm_from_flax(norm: torch.nn.Module, tree: Dict[str, Any]) -> None:
+    """A flax ``LayerNorm`` or ``GroupNorm``: scale and bias."""
+    _leaf(norm.weight, tree["scale"])
+    _leaf(norm.bias, tree["bias"])
+
+
+def _flax_params(variables: Dict[str, Any]) -> Dict[str, Any]:
+    """The ``params`` collection of flax variables (or the collection)."""
+    return variables.get("params", variables)
+
+
+@torch.no_grad()
+def cnn_from_flax(model, variables: Dict[str, Any]):
+    """``recipes/mnist.py``'s CNN loaded with the JAX recipe's flax CNN
+    variables (numpy leaves); returns ``model``."""
+    p = _flax_params(variables)
+    _conv_from_flax(model.conv0, p["Conv_0"])
+    _conv_from_flax(model.conv1, p["Conv_1"])
+    _dense_from_flax(model.dense0, p["Dense_0"])
+    _dense_from_flax(model.dense1, p["Dense_1"])
+    return model
+
+
+@torch.no_grad()
+def text_classifier_from_flax(model, variables: Dict[str, Any]):
+    """``recipes/glue_imdb.py``'s ``TextClassifier`` loaded with the flax
+    one's variables: the MHA kernels keep flax's (dim, heads, head_dim)
+    and (heads, head_dim, dim) layouts; returns ``model``."""
+    p = _flax_params(variables)
+    _leaf(model.embed.weight, p["Embed_0"]["embedding"])
+    _leaf(model.pos, p["pos"])
+    for i, block in enumerate(model.blocks):
+        b = p[f"EncoderBlock_{i}"]
+        _norm_from_flax(block.norm0, b["LayerNorm_0"])
+        _norm_from_flax(block.norm1, b["LayerNorm_1"])
+        mha = b["MultiHeadDotProductAttention_0"]
+        for name in ("query", "key", "value", "out"):
+            _leaf(getattr(block.attn, name + "_kernel"), mha[name]["kernel"])
+            _leaf(getattr(block.attn, name + "_bias"), mha[name]["bias"])
+        _dense_from_flax(block.dense0, b["Dense_0"])
+        _dense_from_flax(block.dense1, b["Dense_1"])
+    _norm_from_flax(model.norm, p["LayerNorm_0"])
+    _dense_from_flax(model.head, p["Dense_0"])
+    return model
+
+
+@torch.no_grad()
+def resnet_from_flax(model, variables: Dict[str, Any]):
+    """``recipes/resnet_ddp.py``'s ``ResNet`` loaded with the flax one's
+    variables (blocks numbered across stages, a block's residual
+    projection its ``Conv_2``); returns ``model``."""
+    p = _flax_params(variables)
+    _conv_from_flax(model.stem, p["Conv_0"])
+    _norm_from_flax(model.stem_norm, p["GroupNorm_0"])
+    for i, block in enumerate(model.blocks):
+        b = p[f"ResNetBlock_{i}"]
+        _conv_from_flax(block.conv0, b["Conv_0"])
+        _norm_from_flax(block.norm0, b["GroupNorm_0"])
+        _conv_from_flax(block.conv1, b["Conv_1"])
+        _norm_from_flax(block.norm1, b["GroupNorm_1"])
+        if (block.proj is None) != ("Conv_2" not in b):
+            raise ValueError(f"ResNetBlock_{i}: residual projection "
+                             "differs from the flax block's")
+        if block.proj is not None:
+            _conv_from_flax(block.proj, b["Conv_2"])
+    _dense_from_flax(model.head, p["Dense_0"])
+    return model
 
 
 def shard_params(module: torch.nn.Module, mesh, rules, specs) -> torch.nn.Module:

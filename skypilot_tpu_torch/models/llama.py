@@ -321,7 +321,7 @@ def qkv_proj(cfg, y: torch.Tensor, lp: nn.Module, positions: torch.Tensor):
     """Projection + RoPE; returns (q, k, v), v unroped. On a tp-split
     layer view, the local heads (``LayerView``)."""
     b, t, hd = y.shape[0], y.shape[1], cfg.head_dim
-    y = placement.tp_copy(y, _tp_group(lp))
+    y = placement.group_copy(y, _tp_group(lp))
     q = lora_dense(y, lp, "wq").reshape(b, t, -1, hd)
     kk = lora_dense(y, lp, "wk").reshape(b, t, -1, hd)
     vv = lora_dense(y, lp, "wv").reshape(b, t, -1, hd)
@@ -346,16 +346,16 @@ def mlp_block(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
     y = rms_norm(x, lp.mlp_norm, cfg.norm_eps,
                  getattr(cfg, "norm_offset", 0.0))
     group = _tp_group(lp)
-    y = placement.tp_copy(y, group)
+    y = placement.group_copy(y, group)
     gate = _mlp_activation(cfg)(lora_dense(y, lp, "w_gate"))
-    return x + placement.tp_reduce(
+    return x + placement.group_reduce(
         lora_dense(gate * lora_dense(y, lp, "w_up"), lp, "w_down"), group)
 
 
 def _attn_residual(cfg, x: torch.Tensor, attn: torch.Tensor,
                    lp: nn.Module) -> torch.Tensor:
     b, s, _ = x.shape
-    return x + placement.tp_reduce(
+    return x + placement.group_reduce(
         lora_dense(attn.reshape(b, s, -1), lp, "wo"), _tp_group(lp))
 
 
@@ -727,8 +727,8 @@ class LayerView:
     more than one rank (wq/wk/wv/w_gate/w_up by columns, wo/w_down by
     rows; Mixtral's expert tensors one dim later), the view keeps them
     split and carries the tp group: the blocks then work on the rank's
-    heads and MLP columns, between ``tp_copy`` and ``tp_reduce``. An int8
-    weight's scale goes with it: split with the output channel of a
+    heads and MLP columns, between ``group_copy`` and ``group_reduce``.
+    An int8 weight's scale goes with it: split with the output channel of a
     column-split weight, whole beside a row-split one. Key/value weights
     whose heads are fewer than the tp ranks (Gemma's one KV head) are
     gathered whole, and ``kv_select`` picks the head the rank's query
@@ -971,7 +971,8 @@ def _decode_embed(cfg, params: LlamaParams,
     elif mult != 1.0:
         x = (x.float() * mult).to(x.dtype)
     if group is not None:
-        x = placement.tp_reduce(torch.where(held[..., None], x, 0), group)
+        x = placement.group_reduce(torch.where(held[..., None], x, 0),
+                                   group)
     return x
 
 

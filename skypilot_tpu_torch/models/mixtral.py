@@ -11,6 +11,11 @@ exactly: first-max argmax, positions from a cumsum in the gates' f32,
 ``sum(density * density_proxy) * e^2``. Weights keep the JAX layout:
 router (dim, E) in f32, experts (E, dim, mlp) and (E, mlp, dim).
 
+On a mesh (``forward`` under ``mesh_lib.use_mesh``, as the sharded train
+step calls it) each layer runs through llama's ``LayerView`` and
+``_moe_mlp_sharded``: expert parallelism over ``ep``, with the routing
+of the whole batch (what XLA's partition of the JAX MoE computes).
+
 Serving (below the training half): ``quantize_params`` (llama's int8
 scheme over the attention and expert weights, the router left f32), and
 the KV-cache paths (``forward_with_cache``, ``forward_with_paged_cache``,
@@ -28,12 +33,14 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel import placement
 
 
@@ -237,12 +244,21 @@ def capacity(cfg: MixtralConfig, tokens: int) -> int:
                    cfg.n_experts), cfg.top_k)
 
 
-def _top2_dispatch(gates: torch.Tensor, capacity: int
+def _top2_dispatch(gates: torch.Tensor, capacity: int,
+                   share: Optional["_BatchShare"] = None,
+                   combine_gates: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """GShard-style top-2 capacity routing.
 
     gates: (T, E) softmax probabilities.
     Returns (dispatch (T, E, C) bool, combine (T, E, C) f32, aux_loss ()).
+
+    ``share``: the rest of the batch when these are one data rank's
+    tokens (``_BatchShare``): positions continue the counts of the ranks
+    before, and the aux loss's means are the whole batch's.
+    ``combine_gates``: the gates the combine weights are read from (the
+    same values; on a mesh, their gradient is summed over the ranks that
+    hold the other experts), ``gates`` by default.
     """
     t, e = gates.shape
     idx1 = torch.argmax(gates, dim=-1)          # first max, as jnp.argmax
@@ -253,19 +269,25 @@ def _top2_dispatch(gates: torch.Tensor, capacity: int
 
     # Switch load-balancing loss: the share of tokens whose first choice
     # is each expert times the mean router probability per expert.
-    density = mask1.mean(dim=0)
-    density_proxy = gates.mean(dim=0)
+    if share is None:
+        density = mask1.mean(dim=0)
+        density_proxy = gates.mean(dim=0)
+        before1 = before2 = 0.0
+        total1 = mask1.sum(dim=0, keepdim=True)
+    else:
+        before1, before2, total1, density, density_proxy = share.stats(
+            mask1, mask2, gates)
     aux = (density * density_proxy).sum() * (e ** 2) / 1.0
 
     # Positions within each expert's buffer; tokens past capacity dropped.
-    pos1 = torch.cumsum(mask1, dim=0) * mask1 - mask1
+    pos1 = (torch.cumsum(mask1, dim=0) + before1) * mask1 - mask1
     keep1 = (pos1 < capacity) * mask1
-    pos2 = (torch.cumsum(mask2, dim=0) +
-            mask1.sum(dim=0, keepdim=True)) * mask2 - mask2
+    pos2 = (torch.cumsum(mask2, dim=0) + before2 + total1) * mask2 - mask2
     keep2 = (pos2 < capacity) * mask2
 
-    g1 = (gates * keep1).sum(dim=-1)
-    g2 = (gates * keep2).sum(dim=-1)
+    cg = gates if combine_gates is None else combine_gates
+    g1 = (cg * keep1).sum(dim=-1)
+    g2 = (cg * keep2).sum(dim=-1)
     denom = torch.clamp(g1 + g2, min=1e-9)
     g1, g2 = g1 / denom, g2 / denom
 
@@ -317,10 +339,16 @@ def forward(cfg: MixtralConfig, params: MixtralParams, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """Token ids (B, S) -> (fp32 logits (B, S, vocab), router aux loss
     scaled by router_aux_weight / n_layers): training without the aux loss
-    collapses the router."""
+    collapses the router.
+
+    Under an ambient mesh (``mesh_lib.use_mesh``, as the sharded train
+    step enters it), the sharded forward: ``_forward_sharded``."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+    ambient = mesh_lib.current_mesh_rules()
+    if ambient is not None:
+        return _forward_sharded(cfg, params, tokens, positions, ambient)
     x = llama.embed_tokens(params, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
@@ -328,6 +356,158 @@ def forward(cfg: MixtralConfig, params: MixtralParams, tokens: torch.Tensor,
             x, aux = checkpoint(lp, cfg, x, positions, use_reentrant=False)
         else:
             x, aux = lp(cfg, x, positions)
+        aux_total = aux_total + aux
+    logits = llama.lm_head(cfg, params, x)
+    return logits, cfg.router_aux_weight * aux_total / cfg.n_layers
+
+
+# ------------------------------------------------------- the sharded forward
+
+class _BatchShare:
+    """One data rank's place in the global batch: the batch is split by
+    rows over the mesh's data axes (dp, fsdp; row-major, as the sharded
+    step feeds it), and JAX routes the whole batch at once. ``stats``
+    gathers every data rank's per-expert counts and gate sums (one
+    all-gather over each data axis, no gradient) and returns what
+    ``_top2_dispatch`` needs to route this rank's tokens as the whole
+    batch routes them: the first and second choices of the ranks before
+    (a cumsum over the whole batch continues there), the global count of
+    first choices (``pos2`` adds it), and the aux loss's global means.
+    ``density_proxy`` holds the other ranks' gate sums as constants: its
+    value is the global mean on every rank, its gradient this rank's
+    share, so the gradients summed over the data axes count the aux loss
+    once."""
+
+    def __init__(self, mesh):
+        self.groups = [g for g in (mesh_lib.axis_group(mesh, mesh_lib.FSDP),
+                                   mesh_lib.axis_group(mesh, mesh_lib.DP))
+                       if g is not None]
+        self.n = (mesh_lib.axis_size(mesh, mesh_lib.DP) *
+                  mesh_lib.axis_size(mesh, mesh_lib.FSDP))
+        self.index = (mesh_lib.axis_index(mesh, mesh_lib.DP) *
+                      mesh_lib.axis_size(mesh, mesh_lib.FSDP) +
+                      mesh_lib.axis_index(mesh, mesh_lib.FSDP))
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(n, *t.shape): ``t`` of every data rank, in batch-row order
+        (fsdp gathered first, then dp: dp is the outer axis)."""
+        parts = t.detach()[None].contiguous()
+        for group in self.groups:
+            out = [torch.empty_like(parts)
+                   for _ in range(dist.get_world_size(group))]
+            dist.all_gather(out, parts, group=group)
+            parts = torch.cat(out)
+        return parts
+
+    def stats(self, mask1, mask2, gates):
+        every = self.gather(torch.stack([mask1.sum(dim=0), mask2.sum(dim=0),
+                                         gates.sum(dim=0)]))
+        i, t = self.index, gates.shape[0] * self.n
+        before = every[:i].sum(dim=0)
+        others = torch.cat([every[:i], every[i + 1:]])[:, 2].sum(dim=0)
+        total1 = every[:, 0].sum(dim=0, keepdim=True)
+        density = total1[0] / t
+        density_proxy = (gates.sum(dim=0) + others) / t
+        return before[0], before[1], total1, density, density_proxy
+
+
+def _moe_mlp_sharded(cfg: MixtralConfig, y: torch.Tensor, view, mesh
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_moe_mlp`` on a mesh, computing what JAX's computes on the whole
+    batch (its SPMD partition does not change the function): this
+    process's (B / data ranks, S) rows in, their MoE output and the
+    global aux loss out.
+
+    Routing runs on this rank's tokens with the whole batch's capacity,
+    positions and means (``_BatchShare``). The dispatch fills only this
+    rank's experts' slots (its ``E / ep`` experts: the expert tensors stay
+    split over ``ep``), and the slots are summed over the data axes (each
+    slot holds at most one token; the gradient is summed back the same
+    way). The experts run on the local weights (on a tp-split view, on
+    the rank's ``mlp`` columns); the combine reads this rank's tokens
+    from its experts' slots, and the partial outputs are summed over tp
+    and ep. The inputs of that split work, the tokens dispatched and the
+    gates the combine weights are read from, sum their gradients over tp
+    and ep; the router and the aux loss see them whole, once."""
+    b, s, d = y.shape
+    e = cfg.n_experts
+    share = _BatchShare(mesh)
+    t_local = b * s
+    cap = capacity(cfg, t_local * share.n)
+    e_local = view.w_gate.shape[0]
+    ep = mesh_lib.axis_size(mesh, mesh_lib.EP)
+    if e_local == e:
+        lo, groups = 0, [view.tp_group]
+    elif e_local * ep == e:
+        lo = mesh_lib.axis_index(mesh, mesh_lib.EP) * e_local
+        groups = [view.tp_group, mesh_lib.axis_group(mesh, mesh_lib.EP)]
+    else:
+        raise ValueError(f"n_experts={e} not divisible by ep={ep}")
+
+    def split_input(t):
+        for g in groups:
+            t = placement.group_copy(t, g)
+        return t
+
+    gates = router_gates(y, view)
+    dispatch, combine, aux = _top2_dispatch(
+        gates, cap, share=share, combine_gates=split_input(gates))
+    mine = slice(lo, lo + e_local)
+    yt = split_input(y.reshape(t_local, d))
+    xs = (dispatch[:, mine].reshape(t_local, e_local * cap).to(y.dtype).t()
+          @ yt).reshape(e_local, cap, d)
+    for g in share.groups:
+        xs = placement.group_copy(placement.group_reduce(xs, g), g)
+    gate = F.silu(torch.bmm(xs, view.w_gate))
+    up = torch.bmm(xs, view.w_up)
+    out = torch.bmm(gate * up, view.w_down)
+    yo = (combine[:, mine].reshape(t_local, e_local * cap).to(y.dtype)
+          @ out.reshape(e_local * cap, d))
+    for g in groups:
+        yo = placement.group_reduce(yo, g)
+    return yo.reshape(b, s, d), aux
+
+
+def _view_layer(cfg: MixtralConfig, lp: nn.Module, x: torch.Tensor,
+                positions: torch.Tensor, pair
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer on the (mesh, rules) ``pair``: its weights
+    through llama's ``LayerView`` (gathered over the data axes at use,
+    tp-split products kept split, the experts kept on their ep rank),
+    llama's attention block, then ``_moe_mlp_sharded``. Under
+    ``cfg.remat`` the view is inside the checkpoint, which enters the
+    mesh itself: its recompute runs in the backward."""
+    mesh = pair[0]
+
+    def run(x, positions):
+        with mesh_lib.use_mesh(*pair):
+            view = llama.LayerView(cfg, lp, mesh)
+            x = llama.attention_block(cfg, x, view, positions)
+            y = llama.rms_norm(x, view.mlp_norm, cfg.norm_eps)
+            moe_out, aux = _moe_mlp_sharded(cfg, y, view, mesh)
+            return x + moe_out, aux
+
+    if cfg.remat:
+        return checkpoint(run, x, positions, use_reentrant=False)
+    return run(x, positions)
+
+
+def _forward_sharded(cfg: MixtralConfig, params: MixtralParams,
+                     tokens: torch.Tensor, positions: torch.Tensor, pair):
+    """The forward on a mesh: this process's (B, S) batch shard in, its
+    fp32 logits and the global aux loss out (``forward``'s scaling).
+    Parameters are read through ``placement.compute_view``; each layer is
+    ``_view_layer``."""
+    mesh = pair[0]
+    for axis in (mesh_lib.SP, mesh_lib.PP):
+        if mesh_lib.axis_size(mesh, axis) > 1:
+            raise NotImplementedError(
+                f"Mixtral on a mesh with {axis} > 1: the MoE routes whole "
+                "sequences (dp, fsdp, ep and tp are supported)")
+    x = llama.embed_tokens(params, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params.layers:
+        x, aux = _view_layer(cfg, lp, x, positions, pair)
         aux_total = aux_total + aux
     logits = llama.lm_head(cfg, params, x)
     return logits, cfg.router_aux_weight * aux_total / cfg.n_layers
@@ -439,7 +619,7 @@ def _moe_block(cfg: MixtralConfig, x: torch.Tensor,
     columns (the router is whole, so every rank routes alike), and the
     combined partial outputs are summed over tp."""
     y = llama.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-    return x + placement.tp_reduce(_moe_mlp_dense(cfg, y, lp),
+    return x + placement.group_reduce(_moe_mlp_dense(cfg, y, lp),
                                    llama._tp_group(lp))
 
 

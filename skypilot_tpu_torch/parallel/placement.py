@@ -13,14 +13,22 @@ tensor on every process.
 Compute. ``compute_view`` is FSDP's gather-at-use: a DTensor parameter
 redistributed to the layout the model computes with (replicated on every
 axis but ``tp``, where a weight the layer consumes column- or row-split
-stays split) and handed to the model as its local tensor. Its backward is
+stays split, and ``ep``, where an expert tensor stays split) and handed to the model as its local tensor. Its backward is
 the reduce: the local gradient is declared partial over the data axes
 (dp, fsdp, sp), so DTensor reduce-scatters it onto a sharded dim or
 all-reduces it onto a replicated one. Called inside a layer's
 checkpoint, the gather is repeated in the backward, and the gathered
 weights live one layer at a time (FSDP's reshard after forward).
-``tp_copy`` and ``tp_reduce`` are Megatron's f and g around a layer's
-column- and row-split products.
+``group_copy`` and ``group_reduce`` are Megatron's f and g over any
+group: around a layer's column- and row-split products over ``tp``, and
+around the MoE's local experts over ``ep``.
+
+The ``ep`` axis is expert parallelism. Its ranks hold the same tokens
+(the batch is split over dp and fsdp only, as JAX's ``batch`` rule
+does), like tp ranks: an expert tensor stored split over ``ep`` stays
+split at use (each rank computes with its own experts, and the MoE sums
+their outputs over ``ep``), and no gradient is summed over ``ep``: a
+parameter replicated over it gets the same gradient on every ep rank.
 
 The ``pp`` axis is left out of those reductions: the pipelined step sums
 the gradients of the parameters every stage holds over ``pp`` after the
@@ -38,7 +46,8 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
-from skypilot_tpu_torch.parallel.mesh import PP, TP, Sharding, ShardingRules
+from skypilot_tpu_torch.parallel.mesh import (EP, PP, TP, Sharding,
+                                             ShardingRules)
 
 
 def specs_by_name(module: nn.Module, specs: dict) -> Dict[str, tuple]:
@@ -126,9 +135,16 @@ def place_module(module: nn.Module, shardings: Dict[str, Sharding],
                                requires_grad=p.requires_grad)
         else:
             t = p.full_tensor() if isinstance(p, DTensor) else p.detach()
-            new = nn.Parameter(distribute_tensor(
-                t, sh.mesh, sh.placements, src_data_rank=None),
-                requires_grad=p.requires_grad)
+            d = distribute_tensor(t, sh.mesh, sh.placements,
+                                  src_data_rank=None)
+            local = d.to_local()
+            if local.untyped_storage().nbytes() > local.nbytes:
+                # A shard that is a view of the whole tensor (a split on
+                # dim 0) would keep the whole alive: keep a copy.
+                d = DTensor.from_local(local.clone(), sh.mesh,
+                                       sh.placements, shape=d.shape,
+                                       stride=d.stride())
+            new = nn.Parameter(d, requires_grad=p.requires_grad)
         if sh.stage is not None:
             new.pp_stage = sh.stage
         _set(module, name, new)
@@ -171,6 +187,11 @@ def compute_view(p: torch.Tensor, keep_tp: Optional[int] = None,
         elif name == TP:
             compute.append(Replicate())
             grad.append(Partial() if tp_partial else Replicate())
+        elif name == EP:
+            # Experts stay on their rank; ep ranks see the same tokens.
+            keep = pl if pl.is_shard() else Replicate()
+            compute.append(keep)
+            grad.append(keep)
         elif name == PP:
             compute.append(Replicate())
             grad.append(Replicate())
@@ -193,8 +214,8 @@ def tp_sharded(p: torch.Tensor, dim: int) -> bool:
     return False
 
 
-class _TpCopy(torch.autograd.Function):
-    """Megatron's f: identity forward, gradient summed over tp."""
+class _GroupCopy(torch.autograd.Function):
+    """Megatron's f: identity forward, gradient summed over the group."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -208,8 +229,8 @@ class _TpCopy(torch.autograd.Function):
         return g, None
 
 
-class _TpReduce(torch.autograd.Function):
-    """Megatron's g: the partial products summed over tp, identity
+class _GroupReduce(torch.autograd.Function):
+    """Megatron's g: the partial results summed over the group, identity
     backward."""
 
     @staticmethod
@@ -223,12 +244,16 @@ class _TpReduce(torch.autograd.Function):
         return g, None
 
 
-def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
-    return x if group is None else _TpCopy.apply(x, group)
+def group_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over ``group`` (None: no
+    group, ``x`` itself): the input of work split over the group."""
+    return x if group is None else _GroupCopy.apply(x, group)
 
 
-def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    return x if group is None else _TpReduce.apply(x, group)
+def group_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: ``x`` itself), its gradient
+    passed through: the output of work split over the group."""
+    return x if group is None else _GroupReduce.apply(x, group)
 
 
 def held_params(module: nn.Module) -> List[nn.Parameter]:

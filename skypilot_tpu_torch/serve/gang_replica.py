@@ -24,7 +24,7 @@ unchanged:
 How JAX's single-process tp maps onto one process per card. In JAX a
 ``--tp K`` replica is one process: GSPMD partitions one jitted step over
 K chips and one scheduler drives them. In the port each card is a
-process, and the model's collectives (``tp_reduce`` after ``wo`` and
+process, and the model's collectives (``group_reduce`` after ``wo`` and
 ``w_down``, the vocab shards' sum and gather) run inside every layer, so
 two ranks that schedule on their own would sooner or later call them on
 different shapes. So, within a host's tp group, only tp rank 0 runs a

@@ -668,7 +668,7 @@ def _make_sharded_step(forward_fn, tx, mesh, rules, trunk_fn, head_fn,
     (``state_shardings`` + ``place_state``); each process feeds its own
     (B / (dp * fsdp), S) shard of the global batch, the rows of its
     (dp, fsdp) coordinate in row-major order, and the same on every tp,
-    sp and pp process of that coordinate.
+    ep, sp and pp process of that coordinate.
 
     The forward runs under ``use_mesh``: the model gathers each layer's
     weights at use and its backward reduce-scatters the gradients onto
@@ -677,13 +677,20 @@ def _make_sharded_step(forward_fn, tx, mesh, rules, trunk_fn, head_fn,
     predicted tokens, so the gradients summed over the data axes are the
     global mean's; a pipeline's stages each weigh it by 1 / pp and the
     parameters every stage holds are summed over pp after the backward.
-    The gradient norm and the clip are global (``placement.global_norm``).
+    A forward that returns (logits, aux) (Mixtral) adds its auxiliary
+    loss, which every process holds whole and whose gradient the model
+    gives each data rank its share of (``mixtral._BatchShare``): the
+    loss is CE + aux, and ``loss``, ``aux_loss`` and ``total_loss`` are
+    reported as the one-device step reports them. The gradient norm and
+    the clip are global (``placement.global_norm``).
     """
     tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
     pp = mesh_lib.axis_size(mesh, mesh_lib.PP)
-    # The tp and pp processes of one batch and sequence shard see the
-    # same data, so the all-reduced count holds each token tp * pp times.
-    replicas = tp * pp
+    ep = mesh_lib.axis_size(mesh, mesh_lib.EP)
+    # The tp, ep and pp processes of one batch and sequence shard see the
+    # same data, so the all-reduced count holds each token tp * ep * pp
+    # times.
+    replicas = tp * ep * pp
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
@@ -698,6 +705,7 @@ def _make_sharded_step(forward_fn, tx, mesh, rules, trunk_fn, head_fn,
         tokens = batch["tokens"]
         targets, weight = _shifted_targets(tokens, batch.get("loss_mask"),
                                            mesh)
+        aux = None
         with mesh_lib.use_mesh(mesh, rules):
             if trunk_fn is not None:
                 nll, cnt = _chunked_nll_sums(trunk_fn(params, tokens),
@@ -706,13 +714,12 @@ def _make_sharded_step(forward_fn, tx, mesh, rules, trunk_fn, head_fn,
             else:
                 out = forward_fn(params, tokens)
                 if isinstance(out, tuple):
-                    raise NotImplementedError(
-                        "an auxiliary loss on a mesh (MoE on ep)")
+                    out, aux = out
                 nll, cnt = _nll_sums(out, targets, weight)
         total = cnt.detach().clone()
         torch.distributed.all_reduce(total)
         loss = nll / (total / replicas).clamp(min=1.0) / pp
-        loss.backward()
+        (loss if aux is None else loss + aux).backward()
         placement.reduce_pp_grads(plist, mesh)
         for p in plist:
             if p.grad is None:
@@ -721,10 +728,11 @@ def _make_sharded_step(forward_fn, tx, mesh, rules, trunk_fn, head_fn,
         g_norm = placement.global_norm(grads, mesh)
         reported = loss.detach().clone()
         torch.distributed.all_reduce(reported)
-        reported = reported / tp
-        metrics = {"loss": reported,
-                   "aux_loss": torch.zeros((), device=reported.device),
-                   "total_loss": reported, "step": state.step}
+        reported = reported / (tp * ep)
+        aux = (torch.zeros((), device=reported.device) if aux is None
+               else aux.detach())
+        metrics = {"loss": reported, "aux_loss": aux,
+                   "total_loss": reported + aux, "step": state.step}
         if with_grad_norm:
             metrics["grad_norm"] = g_norm
         tx.update_(plist, grads, state.opt_state, g_norm)

@@ -14,6 +14,9 @@ pickle.
     python tests/torch_rank_worker.py lora <dir> <recipe arguments>
         the LoRA recipe's main() under the SKYPILOT_* env, with the tiny
         Llama config in f32
+    python tests/torch_rank_worker.py resnet <dir> <recipe arguments>
+        resnet_ddp's run() under the SKYPILOT_* env (DDP over gloo);
+        writes <dir>/params_<rank>.pkl, the trained parameters by name
     python tests/torch_rank_worker.py tp <dir> <rank> <tp> <addr>
         one rank of a tensor-parallel serving group (gang_replica.TpGroup
         at <addr>): every case of <dir>/cases.pkl through a tp engine, rank
@@ -40,9 +43,10 @@ import torch.distributed as dist
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from skypilot_tpu_torch import convert  # noqa: E402
-from skypilot_tpu_torch.models import gemma, llama  # noqa: E402
+from skypilot_tpu_torch.models import gemma, llama, mixtral  # noqa: E402
 from skypilot_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from skypilot_tpu_torch.parallel import pipeline  # noqa: E402
+from skypilot_tpu_torch.parallel import placement  # noqa: E402
 from skypilot_tpu_torch.parallel import ring_attention  # noqa: E402
 from skypilot_tpu_torch.train import distributed  # noqa: E402
 from skypilot_tpu_torch.train import trainer  # noqa: E402
@@ -50,7 +54,9 @@ from skypilot_tpu_torch.train import trainer  # noqa: E402
 TIMEOUT = timedelta(seconds=60)
 WAIT_S = 180
 MODELS = {"llama": (llama, llama.LlamaConfig, convert.llama_params_from_jax),
-          "gemma": (gemma, gemma.GemmaConfig, convert.gemma_params_from_jax)}
+          "gemma": (gemma, gemma.GemmaConfig, convert.gemma_params_from_jax),
+          "mixtral": (mixtral, mixtral.MixtralConfig,
+                      convert.mixtral_params_from_jax)}
 
 
 def _mesh(c):
@@ -110,20 +116,76 @@ def case_train(c):
         step = trainer.make_train_step(fwd, tx, mesh=mesh, rules=rules)
     tokens = torch.from_numpy(c["tokens"]).long()
     batch = {"tokens": tokens[_batch_rows(mesh, tokens.shape[0])]}
-    losses, norms = [], []
+    losses, norms, aux = [], [], []
     calls = []
     apply = llama._FlashRematLayer.apply
     llama._FlashRematLayer.apply = lambda *a: calls.append(1) or apply(*a)
+    spy = _EpSpy(mesh)
     try:
-        for _ in range(c["steps"]):
-            state, m = step(state, batch)
-            losses.append(m["loss"].item())
-            norms.append(m["grad_norm"].item())
+        with spy:
+            for _ in range(c["steps"]):
+                state, m = step(state, batch)
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+                aux.append(m["aux_loss"].item())
+                assert abs(m["total_loss"].item() - losses[-1] -
+                           aux[-1]) <= 1e-6 * abs(losses[-1])
     finally:
         llama._FlashRematLayer.apply = apply
-    return {"loss": losses, "grad_norm": norms,
+    return {"loss": losses, "grad_norm": norms, "aux_loss": aux,
             "final": convert.gather_params(state.params, mesh),
-            "flash_remat_layers": len(calls)}
+            "flash_remat_layers": len(calls), "ep_views": spy.views,
+            "ep_gathers": _gather(spy.gathers, dist.get_world_size())}
+
+
+class _EpSpy:
+    """Records, while a step runs, the local shape of every expert
+    tensor's compute view and every redistribution or whole gather of a
+    tensor split over ``ep`` that leaves the ``ep`` axis unsplit."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.views, self.gathers = [], []
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+        self.saved = (placement.compute_view, DTensor.redistribute,
+                      DTensor.full_tensor)
+        view, redistribute, full = self.saved
+        spy = self
+
+        def ep_split(t):
+            names = t.device_mesh.mesh_dim_names
+            return (mesh_lib.EP in names and
+                    t.placements[names.index(mesh_lib.EP)].is_shard())
+
+        def compute_view(p, *a, **k):
+            out = view(p, *a, **k)
+            if p.dim() == 3:
+                spy.views.append((tuple(p.shape), tuple(out.shape)))
+            return out
+
+        def redistribute_(t, device_mesh=None, placements=None, **k):
+            if ep_split(t) and placements is not None:
+                names = t.device_mesh.mesh_dim_names
+                if not placements[names.index(mesh_lib.EP)].is_shard():
+                    spy.gathers.append(("redistribute", tuple(t.shape)))
+            return redistribute(t, device_mesh, placements, **k)
+
+        def full_tensor(t, *a, **k):
+            if ep_split(t):
+                spy.gathers.append(("full_tensor", tuple(t.shape)))
+            return full(t, *a, **k)
+        placement.compute_view = compute_view
+        DTensor.redistribute = redistribute_
+        DTensor.full_tensor = full_tensor
+        return self
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor import DTensor
+        (placement.compute_view, DTensor.redistribute,
+         DTensor.full_tensor) = self.saved
+        return False
 
 
 def _gather(obj, world):
@@ -402,6 +464,16 @@ def tiny_f32(vocab_size: int = 512) -> llama.LlamaConfig:
 TINY = llama.LlamaConfig.tiny
 
 
+def run_resnet(root: pathlib.Path, argv) -> int:
+    from skypilot_tpu_torch.recipes import resnet_ddp
+    args = resnet_ddp.build_arg_parser().parse_args(argv)
+    metrics, model = resnet_ddp.run(args)
+    params = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    (root / f"params_{metrics['rank']}.pkl").write_bytes(pickle.dumps(params))
+    dist.destroy_process_group()
+    return 0
+
+
 def run_lora(argv) -> int:
     from skypilot_tpu_torch.recipes import llama_lora
     llama.LlamaConfig.tiny = staticmethod(tiny_f32)
@@ -415,6 +487,8 @@ if __name__ == "__main__":
         sys.exit(run_cases(root, int(sys.argv[3]), int(sys.argv[4])))
     if mode == "lora":
         sys.exit(run_lora(sys.argv[3:]))
+    if mode == "resnet":
+        sys.exit(run_resnet(root, sys.argv[3:]))
     if mode == "tp":
         sys.exit(run_tp(root, int(sys.argv[3]), int(sys.argv[4]),
                         sys.argv[5]))

@@ -3,11 +3,11 @@
 port's sharded step, ring attention and pipeline over NCCL, and its
 tensor-parallel replica, each held to the same work on one card.
 
-    python3 tools/torch_parallel_cards.py [world1] [step] [ring] [tp_serve]
+    python3 tools/torch_parallel_cards.py [world1] [step] [ring] [tp_serve] [ep]
 
-[world1] runs on one card; [step], [ring] and [tp_serve] need an even
-count of 2+. With no phase named, the first three run ([step] includes
-[pipeline]); [tp_serve] runs when named.
+[world1] runs on one card; [step], [ring], [tp_serve] and [ep] need an
+even count of 2+. With no phase named, the first three run ([step]
+includes [pipeline]); [tp_serve] and [ep] run when named.
 
 The script launches one process per card itself, as a gang host's
 torchrun would: LOCAL_RANK / LOCAL_WORLD_SIZE and the SKYPILOT_* env
@@ -30,6 +30,16 @@ process brings its NCCL group up through
   {"sp": n}, causal and not: each card holds one chunk; the output and
   the gradients of sum(out * dO), gathered, against the flash op on the
   whole sequence (one card), norm-relative; both timed.
+
+- [ep] Mixtral-8x7B widths, bf16, full remat, the global batch
+  BATCH x SEQ, through recipes/mixtral_ep.build (the recipe's weights
+  from its seed, its adamw) on
+  {"ep": n} (8 / n experts a card, the batch on every card): first at
+  EP_CMP_LAYERS layers, its losses, aux losses and final parameters
+  against the one-card step from the same weights (rank 0 runs it
+  first) within LOSS_TOL, launches 2L/L/L a step on every rank; then at
+  EP_BIG_LAYERS layers, a depth one card cannot hold under adamw, timed
+  (median step, tokens/s, peak memory a card).
 
 - [tp_serve] serve_llm replicas, each from this process: Llama-3-8B at
   full depth, bf16, on one card, at tp 2 and at tp n (NCCL, rank r on
@@ -68,6 +78,7 @@ PIPE_REL_TOL = 2e-2
 RING_SHAPE = (1, 8192, 32, 8, 128)
 OUT_REL_TOL, GRAD_REL_TOL = 1e-2, 2e-2
 TP_SLOTS, TP_CONTEXT, TP_TOKENS = 8, 1024, 64
+EP_CMP_LAYERS, EP_BIG_LAYERS, EP_SEED = 2, 8, 4
 TP_VOCAB = 32000        # prompt token ids: Mixtral's vocab, inside Llama-3's
 TP_RECOVER_S = 300
 
@@ -411,6 +422,120 @@ def phase_step(n, out, llama, trainer, mesh_lib, fa):
         torch.cuda.empty_cache()
 
 
+def _ep_build(n_layers, trainer, mesh_lib, mesh=None):
+    """Mixtral-8x7B widths at ``n_layers``, bf16: (cfg, the recipe's args,
+    a batch) and, on a mesh, the recipe's placed state and step; else
+    the one-card state and step from the same weights."""
+    from skypilot_tpu_torch.models import mixtral
+    from skypilot_tpu_torch.recipes import mixtral_ep
+    cfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                              n_layers=n_layers)
+    args = mixtral_ep.build_arg_parser().parse_args([
+        "--model", "8x7b", "--steps", "100", "--seed", str(EP_SEED)])
+    gen = torch.Generator(device="cuda").manual_seed(EP_SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+                           generator=gen)
+    device = torch.device("cuda", torch.cuda.current_device())
+    if mesh is not None:
+        return cfg, mixtral_ep.build(cfg, args, device, mesh), tokens
+    params = mixtral.init(cfg, torch.Generator("cuda").manual_seed(
+        args.seed), device)
+    tx = trainer.make_optimizer(trainer.TrainConfig(total_steps=100))
+    step = trainer.make_train_step(lambda p, t: mixtral.forward(cfg, p, t),
+                                   tx, with_grad_norm=False)
+    return cfg, (trainer.init_train_state(params, tx), step), tokens
+
+
+def _ep_steps(step, state, tokens, fa):
+    fa.reset_launches()
+    losses, aux, times = [], [], []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux_loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rest = sorted(times[1:])
+    return losses, aux, rest[len(rest) // 2] * 1e3, dict(fa.LAUNCHES)
+
+
+def phase_ep(n, out, trainer, mesh_lib, fa):
+    rank = torch.distributed.get_rank()
+    ref = None
+    if rank == 0:
+        _, (state, step), tokens = _ep_build(EP_CMP_LAYERS, trainer,
+                                             mesh_lib)
+        losses, aux, ms, _ = _ep_steps(step, state, tokens, fa)
+        out["ep_one_card"] = (losses, aux, ms)
+        ref = [p.detach() for p in state.params.parameters()]
+        del state, step
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    obj = [out.get("ep_one_card")]
+    torch.distributed.broadcast_object_list(obj, src=0)
+    one_losses, one_aux, one_ms = obj[0]
+    mesh = mesh_lib.make_mesh({"ep": n})
+    for n_layers in (EP_CMP_LAYERS, EP_BIG_LAYERS):
+        torch.cuda.reset_peak_memory_stats()
+        cfg, (state, step), tokens = _ep_build(n_layers, trainer, mesh_lib,
+                                               mesh)
+        losses, aux, ms, launches = _ep_steps(step, state, tokens, fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        local = sum(p.to_local().numel() for p in state.params.parameters())
+        want = {"flash_fwd": 2 * n_layers * STEPS,
+                "flash_dq": n_layers * STEPS, "flash_dkv": n_layers * STEPS}
+        got = {k: v for k, v in launches.items() if v}
+        _check(got == want, f"[ep] rank {rank} launches {got} != {want}")
+        _check(all(x == x for x in losses + aux), "[ep] non-finite loss")
+        res = {"mesh": {"ep": n}, "layers": n_layers, "losses": losses,
+               "aux": aux, "step_ms": ms,
+               "tokens_per_s": BATCH * SEQ / ms * 1e3,
+               "peak_gb_rank0": peak_gb, "params_a_card_b": local / 1e9}
+        if n_layers == EP_CMP_LAYERS:
+            diff = 0.0
+            with torch.no_grad():
+                for i, p in enumerate(state.params.parameters()):
+                    whole = p.full_tensor()
+                    if rank == 0:
+                        diff = max(diff, (whole.float() - ref[i].float()
+                                          ).abs().max().item())
+                    del whole
+            worst = max(abs(a - b) for a, b in zip(losses, one_losses))
+            aux_diff = max(abs(a - b) for a, b in zip(aux, one_aux))
+            obj = [diff]
+            torch.distributed.broadcast_object_list(obj, src=0)
+            diff = obj[0]
+            res.update(one_card_losses=one_losses, one_card_aux=one_aux,
+                       one_card_step_ms=one_ms, max_loss_diff=worst,
+                       max_aux_diff=aux_diff, max_param_diff=diff)
+            _say(f"[ep] {EP_CMP_LAYERS} layers on {{ep {n}}}: losses "
+                 f"{[round(x, 4) for x in losses]}, aux "
+                 f"{[round(x, 5) for x in aux]}; one card "
+                 f"{[round(x, 4) for x in one_losses]}, aux "
+                 f"{[round(x, 5) for x in one_aux]}; largest |diff| loss "
+                 f"{worst:.3e}, aux {aux_diff:.3e}, parameter {diff:.3e} "
+                 f"(tol {LOSS_TOL}); step {ms:.1f} ms on {n} cards vs "
+                 f"{one_ms:.1f} ms on one (median of steps 2-{STEPS}); "
+                 f"{local / 1e9:.3f} B parameters a card; peak "
+                 f"{peak_gb:.2f} GB on rank 0; launches {got}")
+            _check(worst <= LOSS_TOL and aux_diff <= LOSS_TOL
+                   and diff <= LOSS_TOL, "[ep] off the one-card step")
+            del ref
+        else:
+            _say(f"[ep] {n_layers} layers on {{ep {n}}}: "
+                 f"{cfg.num_params() / 1e9:.3f} B parameters, "
+                 f"{local / 1e9:.3f} B a card; losses "
+                 f"{[round(x, 4) for x in losses]}; step {ms:.1f} ms "
+                 f"(median of steps 2-{STEPS}), "
+                 f"{res['tokens_per_s']:.0f} tokens/s; peak {peak_gb:.2f} "
+                 f"GB on rank 0; launches {got}")
+        out[f"ep_{n_layers}_layers"] = res
+        del state, step
+        torch.cuda.empty_cache()
+
+
 def _rel_global(a, b):
     num = torch.tensor([(a.float() - b.float()).square().sum(),
                         b.float().square().sum()], device="cuda")
@@ -508,8 +633,11 @@ def _run_rank(phases) -> int:
             phase_step(n, out, llama, trainer, mesh_lib, fa)
         if "ring" in phases:
             phase_ring(n, out, mesh_lib, ring_attention, attention_ops)
+        if "ep" in phases:
+            phase_ep(n, out, trainer, mesh_lib, fa)
         out["seconds"] = time.perf_counter() - t0
         out.pop("one_card", None)
+        out.pop("ep_one_card", None)
         _say(json.dumps({"ok": True, **out}))
         return 0
     except RuntimeError as e:
