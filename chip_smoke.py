@@ -99,6 +99,31 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    fall, the launch counts must be exactly L/L/L triangular and no
    other per step, and one forward's loss through the kernels must match
    the reference attention's;
+6b. parallel_tp: the sharded step's meshes and policies past world 1,
+   two processes of this script (``chip_smoke.py ptp-rank``) sharing
+   cuda:0 over a gloo group (NCCL refuses two ranks on one device), each
+   leg PTP_STEPS adamw steps from its reference's seed: (a) [long]'s
+   configuration (save_flash_offload_qkv, chunked CE, 1 x 8192) on
+   {tp: 2}, the triangular trio at 16 query and 4 KV heads a rank; (b)
+   [slice]'s (2 x 2048) on {tp: 2} with rank-8 adapters on wq, wk, wv
+   and wo (the LoRA recipe's targets; only they train), remat
+   save_flash, the resident trio; (c) (a)'s model on {sp: 2},
+   attention_impl="kernel", full remat: each rank's embedding, norms,
+   projections, MLP and loss on 4096 tokens, the attention gathered to
+   all 8192 (the triangular trio at 32 and 8 heads). The tp legs keep the
+   vocabulary whole on every rank (PTP_RULES): gloo on CUDA tensors
+   cannot take DTensor's all-gather of a shard. Each leg's losses within
+   LOSS_TOL of the one-device step's ([long]'s first PTP_STEPS for (a)
+   and (c); for (b) a one-device run here, its first-step adapter
+   gradients within GRAD_REL_TOL norm-relative and its final adapters
+   within LOSS_TOL); exactly one forward, one dq and one dk/dv launch per
+   layer, step and rank under save_flash*, two forwards under full
+   remat, and no other kernel, on both ranks; the step ms printed. (d)
+   an adafactor state placed onto a world-1 NCCL mesh after one
+   one-device step, two steps more, within LOSS_TOL of three one-device
+   steps (the pipeline part of (d), {pp: n} alone under adafactor, runs
+   in tools/torch_parallel_cards.py pipe: gloo's send/recv of CUDA
+   tensors kills the process);
 7. tiny: LlamaConfig.tiny() (head_dim 16) takes 8 steps in bf16 and in
    f32 (batch 4 x seq 256, full remat): the loss must fall and the launch
    counts must be 2L/L/L, resident in bf16, fp32 kernels in f32;
@@ -1686,13 +1711,13 @@ def phase_slice(fa, llama, trainer, records):
     check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
 
 
-def _slice_setup(llama):
+def _slice_setup(llama, dev="cuda"):
     """[slice]'s weights and tokens, from its seed."""
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               n_layers=N_LAYERS)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = llama.init(cfg, gen)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = llama.init(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev,
                            generator=gen)
     return cfg, params, tokens
 
@@ -1938,6 +1963,347 @@ def phase_long_context(fa, llama, trainer, records):
           f"{out['reference']:.5f} |diff| {diff:.2e} (tol {LOSS_TOL})",
           flush=True)
     check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
+    return losses
+
+
+# ----------------------------------------------------------- [parallel_tp]
+# The sharded step's meshes and policies beyond world 1 on the one card:
+# two processes on cuda:0 over a gloo group, as [tp_serve]'s are (NCCL
+# refuses two ranks on one device). gloo on CUDA tensors (torch 2.11)
+# carries all_reduce, all_gather, broadcast and reduce-scatter, but
+# DTensor's all-gather of a shard (Shard -> Replicate) kills the process,
+# and so do point-to-point sends: so the tp legs replicate the vocabulary
+# over tp (PTP_RULES: the embedding and head whole on every rank, the
+# layers split as DEFAULT_RULES split them), and the pipeline leg runs on
+# cards of their own (tools/torch_parallel_cards.py pipe) with only its
+# place_state part here, at world 1 over NCCL. Legs: (a) [long]'s
+# configuration and seed on {tp: 2}, held to [long]'s first PTP_STEPS
+# losses; (b) [slice]'s on {tp: 2} with rank-PTP_LORA_RANK adapters on
+# PTP_LORA_TARGETS (B drawn nonzero, so the first step's A gradients are
+# too), remat save_flash, against the one-device step from the same
+# weights: losses, the first step's adapter gradients (norm-relative,
+# GRAD_REL_TOL) and the final adapters (LOSS_TOL); (c) (a)'s model on
+# {sp: 2}, attention_impl="kernel", full remat, held to [long]'s losses
+# (the remat policy does not change the function); (d) an adafactor state
+# placed after one one-device step, then PTP_STEPS - 1 steps on a world-1
+# mesh, against the one-device steps.
+PTP_RANKS, PTP_BACKEND = 2, "gloo"
+PTP_STEPS = 3
+PTP_LORA_RANK, PTP_LORA_SEED = 8, 23
+PTP_LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def _ptp_rules(mesh_lib):
+    return mesh_lib.ShardingRules(rules={**mesh_lib.DEFAULT_RULES.rules,
+                                         "vocab": None})
+
+
+def _ptp_lora(cfg, dev):
+    """The adapters of leg (b): the LoRA recipe's init (A ~ N(0, 1/in)),
+    B drawn N(0, 0.02^2) from the next seed."""
+    from skypilot_tpu_torch.recipes import llama_lora
+    lora = llama_lora.init_lora(cfg, PTP_LORA_RANK, torch.Generator(
+        ).manual_seed(PTP_LORA_SEED), PTP_LORA_TARGETS, device=dev)
+    gen = torch.Generator().manual_seed(PTP_LORA_SEED + 1)
+    with torch.no_grad():
+        for lp in lora.layers:
+            for name, p in lp.named_parameters():
+                if name.endswith("_lora_b"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return lora
+
+
+def _ptp_model(leg, llama, dev):
+    """A leg's (cfg, params, tokens, adapter names) from its seed, as its
+    one-device reference draws them ([long]'s, [slice]'s)."""
+    cfg = leg["cfg"]
+    gen = torch.Generator(device=dev).manual_seed(leg["seed"])
+    params = llama.init(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, leg["batch"], device=dev,
+                           generator=gen)
+    names = []
+    if leg.get("lora"):
+        from skypilot_tpu_torch.recipes import llama_lora
+        lora = _ptp_lora(cfg, dev)
+        params.requires_grad_(False)
+        llama_lora.merge_params(params, lora)
+        names = [f"layers.{i}.{n}" for i, lp in enumerate(lora.layers)
+                 for n, _ in lp.named_parameters()]
+    return cfg, params, tokens, names
+
+
+class _GradTap:
+    """An optimizer whose first update_ keeps a copy of the gradients it is
+    given (before the clip), by parameter name."""
+
+    def __init__(self, tx, module, names):
+        self.tx, self.module, self.names = tx, module, set(names)
+        self.grads = None
+
+    def init(self, module):
+        return self.tx.init(module)
+
+    def update_(self, params, grads, state, g_norm=None):
+        if self.grads is None:
+            # By the module's names now: place_state replaces parameters.
+            ids = {id(p): n for n, p in self.module.named_parameters()}
+            self.grads = {ids[id(p)]: (g.to_local() if hasattr(
+                g, "to_local") else g).float().cpu()
+                for p, g in zip(params, grads) if ids[id(p)] in self.names}
+        self.tx.update_(params, grads, state, g_norm)
+
+
+def _ptp_train(leg, llama, trainer, fa, dev, mesh=None, rules=None):
+    """PTP_STEPS steps of a leg from zeroed launch counts: losses, grad
+    norms, step seconds, launches; with adapters, the first step's
+    adapter gradients and the final adapters."""
+    cfg, params, tokens, names = _ptp_model(leg, llama, dev)
+    tx = _GradTap(trainer.make_optimizer(trainer.TrainConfig(
+        warmup_steps=1, total_steps=100)), params, names)
+    state = trainer.init_train_state(params, tx)
+    if mesh is not None:
+        state = trainer.place_state(state, trainer.state_shardings(
+            mesh, rules, llama.param_specs(cfg), state), tx)
+    kw = dict(mesh=mesh, rules=rules)
+    if leg.get("chunked"):
+        kw.update(trunk_fn=lambda p, t: llama.forward_trunk(cfg, p, t),
+                  head_fn=llama.head_weights)
+    step = trainer.make_train_step(lambda p, t: llama.forward(cfg, p, t),
+                                   tx, **kw)
+    fa.reset_launches()
+    losses, norms, step_s = [], [], []
+    for _ in range(PTP_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        _sync(dev)
+        step_s.append(time.perf_counter() - t0)
+    out = {"losses": losses, "norms": norms, "step_s": step_s,
+           "launches": dict(fa.LAUNCHES), "grads": tx.grads}
+    named = dict(state.params.named_parameters())
+    out["adapters"] = {n: (named[n].to_local() if hasattr(
+        named[n], "to_local") else named[n]).detach().float().cpu()
+        for n in names}
+    return out
+
+
+def _ptp_rank_main(work: pathlib.Path, rank: int, addr: str) -> int:
+    """``chip_smoke.py ptp-rank <dir> <rank> <addr>``: one rank of
+    [parallel_tp]'s legs (``<dir>/job.pkl``) on cuda:0; writes
+    ``<dir>/result<rank>.pkl``."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    os.environ["STPU_TUNE_MANIFEST"] = "0"
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import trainer
+    job = pickle.loads((work / "job.pkl").read_bytes())
+    dev = job[0]["device"]
+    if dev.startswith("cuda"):
+        torch.cuda.set_device(dev)
+    dist.init_process_group(PTP_BACKEND, init_method=f"tcp://{addr}",
+                            rank=rank, world_size=PTP_RANKS,
+                            timeout=timedelta(seconds=300))
+    out = {"backend": dist.get_backend()}
+    try:
+        for leg in job:
+            mesh = mesh_lib.make_mesh(leg["axes"], device=dev)
+            rules = (_ptp_rules(mesh_lib) if leg["tp_rules"]
+                     else mesh_lib.DEFAULT_RULES)
+            out[leg["name"]] = _ptp_train(leg, llama, trainer, fa, dev, mesh,
+                                          rules)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    (work / f"result{rank}.pkl").write_bytes(pickle.dumps(out))
+    return 0
+
+
+def _ptp_run_ranks(work, job, timeout=600):
+    """[parallel_tp]'s rank legs in PTP_RANKS processes of this script on
+    the card; every rank's results."""
+    import pickle
+    from skypilot_tpu_torch.serve import gang_replica
+    (work / "job.pkl").write_bytes(pickle.dumps(job))
+    addr = gang_replica.free_addr()
+    logs = [open(work / f"rank{r}.log", "wb") for r in range(PTP_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "ptp-rank", str(work),
+         str(r), addr], stdout=log, stderr=subprocess.STDOUT)
+        for r, log in enumerate(logs)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if rcs != [0] * PTP_RANKS:
+        for r in range(PTP_RANKS):
+            tail = (work / f"rank{r}.log").read_text(errors="replace")
+            print(f"[parallel_tp] rank {r} log tail:\n{tail[-3000:]}",
+                  file=sys.stderr, flush=True)
+    check(rcs == [0] * PTP_RANKS,
+          f"[parallel_tp] rank processes exited {rcs}")
+    return [pickle.loads((work / f"result{r}.pkl").read_bytes())
+            for r in range(PTP_RANKS)]
+
+
+def _ptp_replace(llama, trainer, mesh_lib, card, dev):
+    """Leg (d)'s place-state part at world 1: an adafactor state placed
+    onto a world-1 NCCL mesh after one one-device step, then two steps
+    there, against three one-device steps from a copy of the weights."""
+    import torch.distributed as dist
+    cfg, params, tokens = _slice_setup(llama, dev)
+    plain = copy.deepcopy(params)
+    tcfg = trainer.TrainConfig(warmup_steps=1, total_steps=100,
+                               optimizer="adafactor")
+    batch = {"tokens": tokens}
+
+    def one_device(p):
+        tx = trainer.make_optimizer(tcfg)
+        return tx, trainer.init_train_state(p, tx), trainer.make_train_step(
+            lambda q, t: llama.forward(cfg, q, t), tx)
+    tx, state, step = one_device(plain)
+    want = []
+    for _ in range(PTP_STEPS):
+        state, m = step(state, batch)
+        want.append(float(m["loss"]))
+    del state, step, plain
+    tx, state, step = one_device(params)
+    state, m = step(state, batch)
+    got = [float(m["loss"])]
+    mesh = mesh_lib.make_mesh(PAR_AXES, device=dev)
+    try:
+        rules = mesh_lib.DEFAULT_RULES
+        state = trainer.place_state(state, trainer.state_shardings(
+            mesh, rules, llama.param_specs(cfg), state), tx)
+        step = trainer.make_train_step(
+            lambda q, t: llama.forward(cfg, q, t), tx, mesh=mesh,
+            rules=rules)
+        for _ in range(PTP_STEPS - 1):
+            state, m = step(state, batch)
+            got.append(float(m["loss"]))
+    finally:
+        dist.destroy_process_group()
+    worst = max(abs(a - b) for a, b in zip(got, want))
+    print(f"[parallel_tp] (d) adafactor state placed on a world-1 mesh "
+          f"after one one-device step: losses {[round(x, 4) for x in got]}"
+          f"; one-device {[round(x, 4) for x in want]}; largest |diff| "
+          f"{worst:.3e} (tol {LOSS_TOL}) ({card})", flush=True)
+    check(_finite(got) and worst <= LOSS_TOL, "[parallel_tp] (d) the placed "
+          "adafactor state's steps are off the one-device steps'")
+    del state, step, params
+
+
+def phase_parallel_tp(fa, llama, trainer, card, lc_losses, dev="cuda"):
+    """[parallel_tp] (module docstring, phase 6b): legs (a)-(c) on two
+    ranks sharing cuda:0 over gloo, (d)'s place_state at world 1."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    t0 = time.perf_counter()
+    dev = "cuda:0" if dev == "cuda" else dev
+    _ptp_replace(llama, trainer, mesh_lib, card, dev)
+    torch.cuda.empty_cache()
+    lc_cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                 n_layers=LC_LAYERS, max_seq_len=LC_SEQ,
+                                 remat_policy=LC_POLICY)
+    sl_cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                 n_layers=N_LAYERS)
+    legs = {
+        "a": dict(cfg=lc_cfg, seed=1, batch=(LC_BATCH, LC_SEQ),
+                  chunked=True, axes={"tp": PTP_RANKS}, tp_rules=True),
+        "b": dict(cfg=dataclasses.replace(sl_cfg, remat_policy="save_flash"),
+                  seed=0, batch=(BATCH, SEQ), lora=True,
+                  axes={"tp": PTP_RANKS}, tp_rules=True),
+        "c": dict(cfg=dataclasses.replace(lc_cfg, attention_impl="kernel",
+                                          remat_policy="full"),
+                  seed=1, batch=(LC_BATCH, LC_SEQ), chunked=True,
+                  axes={"sp": PTP_RANKS}, tp_rules=False),
+    }
+    one_b = _ptp_train(legs["b"], llama, trainer, fa, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="stpu_parallel_tp_"))
+    try:
+        t1 = time.perf_counter()
+        ranks = _ptp_run_ranks(work, [dict(leg, name=k, device=dev)
+                                      for k, leg in legs.items()])
+        ranks_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[parallel_tp] {PTP_RANKS} ranks on cuda:0 over "
+          f"{ranks[0]['backend']}; rank legs {ranks_s:.1f} s ({card})",
+          flush=True)
+    refs = {"a": lc_losses[:PTP_STEPS], "b": one_b["losses"],
+            "c": lc_losses[:PTP_STEPS]}
+    kinds = {"a": (TRI_NAMES, 1), "b": (RESIDENT_NAMES, 1),
+             "c": (TRI_NAMES, 2)}
+    for k, leg in legs.items():
+        cfg = leg["cfg"]
+        names, fwd = kinds[k]
+        want = dict.fromkeys(ranks[0][k]["launches"], 0)
+        want.update(zip(names, (fwd * cfg.n_layers * PTP_STEPS,
+                                cfg.n_layers * PTP_STEPS,
+                                cfg.n_layers * PTP_STEPS)))
+        got = ranks[0][k]
+        worst = max(abs(a - b) for a, b in zip(got["losses"], refs[k]))
+        b, s = leg["batch"]
+        heads = (cfg.n_heads // PTP_RANKS, cfg.n_kv_heads // PTP_RANKS
+                 ) if "tp" in leg["axes"] else (cfg.n_heads, cfg.n_kv_heads)
+        seq = (f"{s // PTP_RANKS} tokens a rank outside attention, "
+               f"attention on all {s}" if "sp" in leg["axes"] else
+               f"{s} tokens")
+        print(f"[parallel_tp] ({k}) {leg['axes']}, remat "
+              f"{cfg.remat_policy}, {b} x {seq}, attention at "
+              f"{(b, s) + heads + (cfg.head_dim,)} a rank: losses "
+              f"{[round(x, 4) for x in got['losses']]}; one-device "
+              f"{[round(x, 4) for x in refs[k]]}; largest |diff| "
+              f"{worst:.3e} (tol {LOSS_TOL}); step "
+              f"{_steady_ms(got['step_s']):.1f} ms (median of steps 2-"
+              f"{PTP_STEPS}; first "
+              f"{got['step_s'][0] * 1e3:.1f} ms); launches per rank "
+              f"{[r[k]['launches'] for r in ranks]} ({card})", flush=True)
+        check(_finite(got["losses"]) and worst <= LOSS_TOL,
+              f"[parallel_tp] ({k}) loss off the one-device step's")
+        for r, res in enumerate(ranks):
+            check(res[k]["launches"] == want, f"[parallel_tp] ({k}) rank "
+                  f"{r} launches {res[k]['launches']} != {want}")
+    got = ranks[0]["b"]
+    names = sorted(one_b["grads"])
+    # Norm-relative over every adapter's gradient at once, as the kernels'
+    # gradients are held: one small adapter gradient summed over tp from
+    # bf16 partials can sit further off alone (printed).
+    grad_rel = _rel([got["grads"][n] for n in names],
+                    [one_b["grads"][n] for n in names])
+    worst_one = max((_rel([got["grads"][n]], [one_b["grads"][n]]), n)
+                    for n in names)
+    adapter_diff = max(float((got["adapters"][n] - one_b["adapters"][n]
+                              ).abs().max()) for n in one_b["adapters"])
+    norm_diff = max(abs(a - b) / b for a, b in zip(got["norms"],
+                                                   one_b["norms"]))
+    print(f"[parallel_tp] (b) {len(names)} adapters: first-step "
+          f"gradients {grad_rel:.3e} norm-relative from the one-device "
+          f"step's (tol {GRAD_REL_TOL}; the farthest alone: "
+          f"{worst_one[1]} {worst_one[0]:.3e}); grad norms "
+          f"{[round(x, 4) for x in got['norms']]} vs "
+          f"{[round(x, 4) for x in one_b['norms']]}; final adapters "
+          f"largest |diff| {adapter_diff:.3e} (tol {LOSS_TOL}); one-device "
+          f"step {_steady_ms(one_b['step_s']):.1f} ms ({card})", flush=True)
+    check(len(got["grads"]) == len(one_b["grads"]) ==
+          2 * len(PTP_LORA_TARGETS) * N_LAYERS,
+          "[parallel_tp] (b) adapter gradients missing")
+    check(grad_rel <= GRAD_REL_TOL and norm_diff <= GRAD_REL_TOL and
+          adapter_diff <= LOSS_TOL,
+          "[parallel_tp] (b) adapters off the one-device step's")
+    print(f"[parallel_tp] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_tiny(fa, llama, trainer):
@@ -1990,6 +2356,11 @@ def _step_expect(launches, n_layers, steps, names=RESIDENT_NAMES):
 
 def _finite(xs):
     return all(x == x and abs(x) != float("inf") for x in xs)
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 class _TimedOptimizer:
@@ -2158,6 +2529,8 @@ def _train_readings(label, run, cfg, seq, card, out_dir):
              "ckpt": sum(r["ckpt_s"] for r in recs), "restart": 0.0}
     first_wait = recs[0]["data_wait_s"] / window
     untracked = 1 - sum(parts.values()) / window + first_wait
+    gaps_ms = [(b["mono"] - a["mono"] - b["dur"] - b["data_wait_s"]
+                - b["ckpt_s"]) * 1e3 for a, b in zip(recs, recs[1:])]
     print(f"{label} trainstats ({card}): train_mfu {run.get('train_mfu')} "
           f"(live {mfu:.6f}; peak {peak / 1e12:.0f} TFLOP/s for {name!r}, "
           f"{fpt / 1e9:.3f} GFLOP a token: 6N + causal attention), "
@@ -2165,7 +2538,8 @@ def _train_readings(label, run, cfg, seq, card, out_dir):
           f"the recipe's wall {run['tokens_per_second']}, "
           f"train_step_seconds {run.get('train_step_seconds')}, "
           f"train_goodput {json.dumps(goodput)} (the first step's input "
-          f"wait {first_wait:.6f} of it, untracked {untracked:.6f}), "
+          f"wait {first_wait:.6f} of it, untracked {untracked:.6f}: "
+          f"{', '.join(f'{g:.3f}' for g in gaps_ms)} ms between steps), "
           f"dispatch "
           f"{snap.get('dispatch_ms_mean')} ms vs device "
           f"{sync.get('device_ms_mean')} ms a step over "
@@ -4536,6 +4910,9 @@ def main() -> int:
     if sys.argv[1:2] == ["tp-rank"]:
         return _tp_rank_main(pathlib.Path(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4])
+    if sys.argv[1:2] == ["ptp-rank"]:
+        return _ptp_rank_main(pathlib.Path(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4])
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
@@ -4574,7 +4951,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         _timed(phase_parallel, fa, llama, trainer, attention_ops)
         torch.cuda.empty_cache()
-        _timed(phase_long_context, fa, llama, trainer, records)
+        lc_losses = _timed(phase_long_context, fa, llama, trainer, records)
+        torch.cuda.empty_cache()
+        _timed(phase_parallel_tp, fa, llama, trainer, card, lc_losses)
+        torch.cuda.empty_cache()
         _timed(phase_tiny, fa, llama, trainer)
         torch.cuda.empty_cache()
         _timed(phase_adafactor, fa, llama, trainer)

@@ -92,7 +92,7 @@ from skypilot_tpu_torch.ops import flash_attention as flash_ops
 from skypilot_tpu_torch.ops.linear import matmul_f32
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel import pipeline as pipeline_lib
-from skypilot_tpu_torch.parallel import placement, ring_attention
+from skypilot_tpu_torch.parallel import placement, ring_attention, seq_gather
 
 REMAT_POLICIES = ("full", "save_flash", "save_flash_qkv",
                   "save_flash_offload_qkv")
@@ -366,10 +366,17 @@ def _attn_norm(cfg, x: torch.Tensor, lp: nn.Module) -> torch.Tensor:
 
 def attention_block(cfg, x: torch.Tensor, lp: nn.Module,
                     positions: torch.Tensor) -> torch.Tensor:
-    """Pre-norm GQA attention residual block."""
+    """Pre-norm GQA attention residual block. Under an ambient mesh with
+    ``sp`` > 1, ``x`` is this process's chunk of the sequence and the
+    attention is the ring's (``attention_impl="ring"``) or runs on the
+    gathered sequence (``parallel/seq_gather.py``)."""
     q, kk, vv = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp, positions)
+    sp_group = seq_gather.sp_group_from_context()
     if cfg.attention_impl == "ring":
         attn = ring_attention.ring_attention_from_context(q, kk, vv)
+    elif sp_group is not None:
+        attn = seq_gather.attention(q, kk, vv, sp_group, causal=True,
+                                    impl=cfg.attention_impl)
     else:
         attn = attention_ops.attention(q, kk, vv, causal=True,
                                        impl=cfg.attention_impl)
@@ -548,7 +555,12 @@ def _qkv_proj_backward(cfg, lp: nn.Module, x: torch.Tensor,
     """Gradients of the norm + qkv_proj segment from the cotangents of its
     saved outputs, without re-running the projections: rope is a rotation,
     so its transpose is rope at -positions; each projection's transpose is
-    ``_dense_backward``; the norm is recomputed under autograd."""
+    ``_dense_backward``; the norm is recomputed under autograd.
+
+    On a tp-split layer view the cotangents are the rank's heads', and
+    the norm's output cotangent is summed over tp (``qkv_proj``'s
+    ``group_copy``, transposed); a whole key/value weight read at one
+    head (``kv_select``) takes that head's cotangent, zero elsewhere."""
     with torch.enable_grad():
         x_ = x.detach().requires_grad_(x.requires_grad)
         y = _attn_norm(cfg, x_, lp)
@@ -557,8 +569,18 @@ def _qkv_proj_backward(cfg, lp: nn.Module, x: torch.Tensor,
     g = {"wq": rope(dq, -positions, cfg.rope_theta).reshape(b * s, -1),
          "wk": rope(dk, -positions, cfg.rope_theta).reshape(b * s, -1),
          "wv": dv.reshape(b * s, -1)}
+    sel = getattr(lp, "kv_select", None)
+    if sel is not None:
+        hd = cfg.head_dim
+        for n in ("wk", "wv"):
+            full = g[n].new_zeros(b * s, getattr(lp, n).shape[-1])
+            full[:, sel * hd:(sel + 1) * hd] = g[n]
+            g[n] = full
     out: dict = {}
     gy = sum(_dense_backward(y2, g[n], lp, n, out) for n in g)
+    group = _tp_group(lp)
+    if group is not None:
+        dist.all_reduce(gy, group=group)
     out.update(_grads(y, {"x": x_, "attn_norm": lp.attn_norm},
                       gy.reshape(b, s, dim)))
     return out
@@ -574,22 +596,37 @@ class _FlashRematLayer(torch.autograd.Function):
     and o under autograd for their gradients and dO; the flash backward of
     the same family; then the norm + qkv_proj segment, recomputed under
     autograd (save_flash) or from the saved q/k/v (``_qkv_proj_backward``).
+
+    On a tp-split layer view (``LayerView``) every product runs on the
+    rank's heads and MLP columns: the recomputes go through the view's
+    ``group_copy``/``group_reduce`` under autograd, and the x cotangent
+    comes out summed over tp once (the qkv segment's by its
+    ``group_copy``, the residual + MLP segment's whole already). With
+    ``sp_group`` x is this process's chunk of the sequence and the flash
+    halves run on the gathered sequence (``seq_gather.flash_forward`` and
+    ``flash_backward``); o, lse and q/k/v are saved as the chunk's rows.
     """
 
     @staticmethod
-    def forward(ctx, cfg, policy: str, lp: nn.Module, x: torch.Tensor,
-                positions: torch.Tensor, *weights: torch.Tensor):
+    def forward(ctx, cfg, policy: str, lp, x: torch.Tensor,
+                positions: torch.Tensor, sp_group, *weights: torch.Tensor):
         # ``weights`` are lp's parameters (``layer_param_names``), passed so
         # that autograd routes their gradients through backward; the body
         # reads them from lp.
         s, hd = x.shape[1], cfg.head_dim
+        if sp_group is not None:
+            s *= dist.get_world_size(sp_group)
         scale = hd ** -0.5
         fam = flash_ops.family(s, hd, True)
         q, k, v = qkv_proj(cfg, _attn_norm(cfg, x, lp), lp, positions)
-        o, lse = flash_ops.flash_forward(q, k, v, True, scale, fam)
+        if sp_group is None:
+            o, lse = flash_ops.flash_forward(q, k, v, True, scale, fam)
+        else:
+            o, lse = seq_gather.flash_forward(q, k, v, True, scale, fam,
+                                              sp_group)
         out = mlp_block(cfg, _attn_residual(cfg, x, o, lp), lp)
         ctx.cfg, ctx.policy, ctx.lp = cfg, policy, lp
-        ctx.scale, ctx.family = scale, fam
+        ctx.scale, ctx.family, ctx.sp_group = scale, fam, sp_group
         ctx.parked = None
         if policy == "save_flash":
             ctx.save_for_backward(x, positions, o, lse)
@@ -619,13 +656,19 @@ class _FlashRematLayer(torch.autograd.Function):
         do = grads.pop("o")
         dx = grads.pop("x", None)
 
+        def flash_backward(q, k, v):
+            if ctx.sp_group is None:
+                return flash_ops.flash_backward(q, k, v, o, lse, do, True,
+                                                ctx.scale, ctx.family)
+            return seq_gather.flash_backward(q, k, v, o, lse, do, True,
+                                             ctx.scale, ctx.family,
+                                             ctx.sp_group)
+
         if ctx.policy == "save_flash":
             with torch.enable_grad():
                 x_ = x.detach().requires_grad_(x.requires_grad)
                 qkv = qkv_proj(cfg, _attn_norm(cfg, x_, lp), lp, positions)
-            dqkv = flash_ops.flash_backward(
-                *(t.detach() for t in qkv), o, lse, do, True, ctx.scale,
-                ctx.family)
+            dqkv = flash_backward(*(t.detach() for t in qkv))
             pre = {"x": x_}
             pre.update((n, getattr(lp, n)) for n in names if _in_pre(n))
             grads.update(_grads(qkv, pre, dqkv))
@@ -633,19 +676,21 @@ class _FlashRematLayer(torch.autograd.Function):
             for ev in ready:
                 if ev is not None:
                     torch.cuda.current_stream(o.device).wait_event(ev)
-            dqkv = flash_ops.flash_backward(*qkv, o, lse, do, True,
-                                            ctx.scale, ctx.family)
+            dqkv = flash_backward(*qkv)
             grads.update(_qkv_proj_backward(cfg, lp, x, positions, *dqkv))
         if dx is not None:
             dx = dx + grads.pop("x")
-        return (None, None, None, dx, None, *(grads.get(n) for n in names))
+        return (None, None, None, dx, None, None,
+                *(grads.get(n) for n in names))
 
 
-def _flash_remat_applies(cfg, x: torch.Tensor) -> bool:
+def _flash_remat_applies(cfg, x: torch.Tensor, s: int) -> bool:
+    """Whether the layer's attention takes the flash path, at the whole
+    sequence's length ``s`` (x may be a chunk of it)."""
     impl = cfg.attention_impl
     if impl == "auto":
         impl = "kernel" if x.is_cuda else "reference"
-    b, s = x.shape[0], x.shape[1]
+    b = x.shape[0]
     return impl == "kernel" and flash_ops.takes_kernel_path(
         (b, s, cfg.n_heads, cfg.head_dim),
         (b, s, cfg.n_kv_heads, cfg.head_dim))
@@ -669,7 +714,7 @@ def forward_trunk(cfg: LlamaConfig, params: LlamaParams,
     scale = getattr(cfg, "embed_multiplier", 1.0)
     if scale != 1.0:  # gemma: embeddings scaled by sqrt(dim)
         x = (x.float() * scale).to(x.dtype)
-    policy = _layer_policy(cfg, x)
+    policy = _layer_policy(cfg, x, s)
     for lp in params.layers:
         if policy is None:
             x = lp(cfg, x, positions)
@@ -677,7 +722,7 @@ def forward_trunk(cfg: LlamaConfig, params: LlamaParams,
             x = checkpoint(lp, cfg, x, positions, use_reentrant=False)
         else:
             x = _FlashRematLayer.apply(
-                cfg, policy, lp, x, positions,
+                cfg, policy, lp, x, positions, None,
                 *(getattr(lp, n) for n in layer_param_names(lp)))
     return rms_norm(x, params.final_norm, cfg.norm_eps,
                     getattr(cfg, "norm_offset", 0.0))
@@ -729,11 +774,19 @@ class LayerView:
     split and carries the tp group: the blocks then work on the rank's
     heads and MLP columns, between ``group_copy`` and ``group_reduce``.
     An int8 weight's scale goes with it: split with the output channel of a
-    column-split weight, whole beside a row-split one. Key/value weights
+    column-split weight, whole beside a row-split one. LoRA adapters
+    (stored whole) are taken at use as their weight is split: a
+    column-split weight's B by its output columns, with A whole; a
+    row-split weight's A by its input rows, with B whole, so that
+    (y_r @ A_r) @ B is summed over tp by the same ``group_reduce`` as
+    y_r @ W_r. Every adapter's gradient is summed over tp: a whole one's
+    parts, and a taken one's chunks, zero outside the rank's part
+    (``placement.compute_view``'s ``tp_partial``). Key/value weights
     whose heads are fewer than the tp ranks (Gemma's one KV head) are
-    gathered whole, and ``kv_select`` picks the head the rank's query
-    heads read; their gradient is summed over tp. Otherwise the view
-    holds whole weights and every tp rank computes the whole layer.
+    gathered whole, with their adapters, and ``kv_select`` picks the
+    head the rank's query heads read; their gradient is summed over tp.
+    Otherwise the view holds whole weights and every tp rank computes
+    the whole layer.
     """
 
     def __init__(self, cfg, lp: nn.Module, mesh):
@@ -750,12 +803,13 @@ class LayerView:
         self.kv_select = None
         kv_whole = False
         if split:
-            extra = (set(names) - set(TP_SPLIT_DIMS) - set(_WHOLE) -
-                     {n + "_scale" for n in TP_SPLIT_DIMS})
-            if extra:
+            known = set(TP_SPLIT_DIMS) | set(_WHOLE) | {
+                n + suffix for n in TP_SPLIT_DIMS
+                for suffix in ("_scale", "_lora_a", "_lora_b")}
+            if set(names) - known:
                 raise NotImplementedError(
-                    f"a tp-split layer with {sorted(extra)}: adapters are "
-                    "not split over tp")
+                    f"a tp-split layer with {sorted(set(names) - known)}: "
+                    "no split over tp is known for them")
             kvh = cfg.n_kv_heads
             if cfg.n_heads % tp or cfg.mlp_dim % tp:
                 raise ValueError(f"n_heads={cfg.n_heads} / mlp_dim="
@@ -771,10 +825,29 @@ class LayerView:
             self.tp_group = mesh_lib.axis_group(mesh, mesh_lib.TP)
         for n in names:
             p = getattr(lp, n)
-            whole_kv = kv_whole and n.removesuffix("_scale") in ("wk", "wv")
-            keep = _tp_split_dim(n, p) if split and not whole_kv else None
-            setattr(self, n, placement.compute_view(
-                p, keep_tp=keep, tp_partial=whole_kv))
+            base, _, side = n.partition("_lora_")
+            whole_kv = kv_whole and base.removesuffix("_scale") in ("wk",
+                                                                    "wv")
+            if side and split:
+                view = placement.compute_view(p, tp_partial=True)
+                d = TP_SPLIT_DIMS[base]
+                if not whole_kv and (d == 0) == (side == "a"):
+                    # A takes a row-split weight's input rows, B a
+                    # column-split weight's output columns.
+                    view = _tp_part(view, d, mesh)
+            else:
+                keep = _tp_split_dim(n, p) if split and not whole_kv else None
+                view = placement.compute_view(p, keep_tp=keep,
+                                              tp_partial=whole_kv)
+            setattr(self, n, view)
+
+
+def _tp_part(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This tp rank's chunk of ``t`` along ``dim`` (a view: autograd
+    gives the rest of the whole gradient zeros)."""
+    tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
+    n = t.shape[dim] // tp
+    return t.narrow(dim, mesh_lib.axis_index(mesh, mesh_lib.TP) * n, n)
 
 
 def _view_layer(cfg, policy, lp, x, positions, pair):
@@ -784,12 +857,9 @@ def _view_layer(cfg, policy, lp, x, positions, pair):
     mesh = pair[0]
     if policy not in (None, "full"):
         view = LayerView(cfg, lp, mesh)
-        if view.tp_group is not None or view.kv_select is not None:
-            raise NotImplementedError(
-                f"remat_policy={policy!r} on a tp-split layer: the "
-                "save_flash* backward is not split over tp; use 'full'")
         return _FlashRematLayer.apply(
             cfg, policy, view, x, positions,
+            mesh_lib.axis_group(mesh, mesh_lib.SP),
             *(getattr(view, n) for n in view.param_names))
 
     def run(x, positions):
@@ -805,9 +875,11 @@ def _view_layer(cfg, policy, lp, x, positions, pair):
     return checkpoint(run, x, positions, use_reentrant=False)
 
 
-def _layer_policy(cfg, x) -> Optional[str]:
+def _layer_policy(cfg, x, s: int) -> Optional[str]:
+    """The remat policy a layer runs: ``full`` where a save_flash* policy
+    has no flash path to name (``s``: the whole sequence's length)."""
     policy = _remat_policy(cfg) if cfg.remat else None
-    if policy not in (None, "full") and not _flash_remat_applies(cfg, x):
+    if policy not in (None, "full") and not _flash_remat_applies(cfg, x, s):
         policy = "full"
     return policy
 
@@ -815,28 +887,18 @@ def _layer_policy(cfg, x) -> Optional[str]:
 def _forward_trunk_sharded(cfg, params, tokens, positions, pair):
     """The trunk on a mesh: this process's (B, S) batch shard in, the
     final-normed hidden states of its sequence chunk out (the whole
-    sequence unless ``sp`` > 1, where ring attention joins the chunks).
-    Parameters are read through ``placement.compute_view`` (gathered at
-    use, reduced in the backward); tp-split layers run Megatron-style
-    (``LayerView``)."""
+    sequence unless ``sp`` > 1, where the ring or the gathered attention
+    of ``parallel/seq_gather.py`` joins the chunks). Parameters are read
+    through ``placement.compute_view`` (gathered at use, reduced in the
+    backward); tp-split layers run Megatron-style (``LayerView``)."""
     mesh = pair[0]
-    sp = mesh_lib.axis_size(mesh, mesh_lib.SP)
-    if sp > 1:
-        if cfg.attention_impl != "ring":
-            raise NotImplementedError(
-                f"a mesh with sp={sp} needs attention_impl='ring' (the "
-                "sequence is split over sp)")
-        s = tokens.shape[1]
-        if s % sp:
-            raise ValueError(f"seq={s} not divisible by sp={sp}")
-        c, sl = mesh_lib.axis_index(mesh, mesh_lib.SP), s // sp
-        tokens = tokens[:, c * sl:(c + 1) * sl]
-        positions = positions[:, c * sl:(c + 1) * sl]
+    s = tokens.shape[1]
+    tokens, positions = seq_gather.seq_chunk(mesh, tokens, positions)
     x = embed_tokens(params, tokens)
     scale = getattr(cfg, "embed_multiplier", 1.0)
     if scale != 1.0:  # gemma: embeddings scaled by sqrt(dim)
         x = (x.float() * scale).to(x.dtype)
-    policy = _layer_policy(cfg, x)
+    policy = _layer_policy(cfg, x, s)
     for lp in params.layers:
         x = _view_layer(cfg, policy, lp, x, positions, pair)
     return rms_norm(x, placement.compute_view(params.final_norm),
@@ -850,7 +912,9 @@ def forward_pipelined(cfg, params: LlamaParams, tokens: torch.Tensor, *,
     """GPipe-pipelined forward: the layers split into mesh ``pp`` stages
     (placed by ``PIPELINE_RULES``: each stage's processes hold its
     layers), the batch into microbatches; fp32 logits (B, S, vocab) on
-    every process (``parallel/pipeline.py``)."""
+    every process (``parallel/pipeline.py``), of its chunk of the
+    sequence when ``sp`` > 1 (as ``forward_trunk``'s; the stages pass
+    chunks, and attention gathers them)."""
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             "attention_impl='ring' is not supported under pipeline "
@@ -867,6 +931,8 @@ def forward_pipelined(cfg, params: LlamaParams, tokens: torch.Tensor, *,
         raise ValueError(f"batch={b} not divisible by microbatches={m}")
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+    tokens, positions = seq_gather.seq_chunk(mesh, tokens, positions)
+    s = tokens.shape[1]
     per = cfg.n_layers // n_stages
     stages = [list(params.layers)[i * per:(i + 1) * per]
               for i in range(n_stages)]

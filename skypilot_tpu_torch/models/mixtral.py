@@ -14,7 +14,8 @@ router (dim, E) in f32, experts (E, dim, mlp) and (E, mlp, dim).
 On a mesh (``forward`` under ``mesh_lib.use_mesh``, as the sharded train
 step calls it) each layer runs through llama's ``LayerView`` and
 ``_moe_mlp_sharded``: expert parallelism over ``ep``, with the routing
-of the whole batch (what XLA's partition of the JAX MoE computes).
+of the whole batch (what XLA's partition of the JAX MoE computes), its
+rows split over the data axes and each row's sequence over ``sp``.
 
 Serving (below the training half): ``quantize_params`` (llama's int8
 scheme over the attention and expert weights, the router left f32), and
@@ -41,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from skypilot_tpu_torch import DeviceLike, resolve_device
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
-from skypilot_tpu_torch.parallel import placement
+from skypilot_tpu_torch.parallel import placement, seq_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,16 +247,18 @@ def capacity(cfg: MixtralConfig, tokens: int) -> int:
 
 def _top2_dispatch(gates: torch.Tensor, capacity: int,
                    share: Optional["_BatchShare"] = None,
-                   combine_gates: Optional[torch.Tensor] = None
+                   combine_gates: Optional[torch.Tensor] = None,
+                   rows: int = 1
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """GShard-style top-2 capacity routing.
 
     gates: (T, E) softmax probabilities.
     Returns (dispatch (T, E, C) bool, combine (T, E, C) f32, aux_loss ()).
 
-    ``share``: the rest of the batch when these are one data rank's
-    tokens (``_BatchShare``): positions continue the counts of the ranks
-    before, and the aux loss's means are the whole batch's.
+    ``share``: the rest of the batch when these are one rank's tokens,
+    ``rows`` batch rows of one sequence chunk (``_BatchShare``):
+    positions continue the counts of the tokens before them in the whole
+    batch, and the aux loss's means are the whole batch's.
     ``combine_gates``: the gates the combine weights are read from (the
     same values; on a mesh, their gradient is summed over the ranks that
     hold the other experts), ``gates`` by default.
@@ -276,7 +279,7 @@ def _top2_dispatch(gates: torch.Tensor, capacity: int,
         total1 = mask1.sum(dim=0, keepdim=True)
     else:
         before1, before2, total1, density, density_proxy = share.stats(
-            mask1, mask2, gates)
+            mask1, mask2, gates, rows)
     aux = (density * density_proxy).sum() * (e ** 2) / 1.0
 
     # Positions within each expert's buffer; tokens past capacity dropped.
@@ -364,33 +367,41 @@ def forward(cfg: MixtralConfig, params: MixtralParams, tokens: torch.Tensor,
 # ------------------------------------------------------- the sharded forward
 
 class _BatchShare:
-    """One data rank's place in the global batch: the batch is split by
-    rows over the mesh's data axes (dp, fsdp; row-major, as the sharded
-    step feeds it), and JAX routes the whole batch at once. ``stats``
-    gathers every data rank's per-expert counts and gate sums (one
-    all-gather over each data axis, no gradient) and returns what
+    """One rank's place in the global batch: the batch is split by rows
+    over the mesh's data axes (dp, fsdp; row-major, as the sharded step
+    feeds it) and each row by sequence chunks over ``sp``, and JAX routes
+    the whole batch at once, its tokens in (b, s) order. ``stats``
+    gathers every such rank's per-row expert counts and gate sums (one
+    all-gather over each axis, no gradient) and returns what
     ``_top2_dispatch`` needs to route this rank's tokens as the whole
-    batch routes them: the first and second choices of the ranks before
-    (a cumsum over the whole batch continues there), the global count of
-    first choices (``pos2`` adds it), and the aux loss's global means.
-    ``density_proxy`` holds the other ranks' gate sums as constants: its
-    value is the global mean on every rank, its gradient this rank's
-    share, so the gradients summed over the data axes count the aux loss
-    once."""
+    batch routes them: each local token's count of first and second
+    choices before it in that order (the whole rows of the data ranks
+    before, the rows before it, and in its own row the chunks before
+    this one; a cumsum over the local tokens continues there), the global
+    count of first choices (``pos2`` adds it), and the aux loss's global
+    means. ``density_proxy`` holds the other ranks' gate sums as
+    constants: its value is the global mean on every rank, its gradient
+    this rank's share, so the gradients summed over the data and sp axes
+    count the aux loss once."""
 
     def __init__(self, mesh):
-        self.groups = [g for g in (mesh_lib.axis_group(mesh, mesh_lib.FSDP),
+        # Gathered sp first, then fsdp, then dp: batch-row order, each
+        # row's chunks in sequence order.
+        self.groups = [g for g in (mesh_lib.axis_group(mesh, mesh_lib.SP),
+                                   mesh_lib.axis_group(mesh, mesh_lib.FSDP),
                                    mesh_lib.axis_group(mesh, mesh_lib.DP))
                        if g is not None]
+        self.sp = mesh_lib.axis_size(mesh, mesh_lib.SP)
+        self.chunk = mesh_lib.axis_index(mesh, mesh_lib.SP)
         self.n = (mesh_lib.axis_size(mesh, mesh_lib.DP) *
-                  mesh_lib.axis_size(mesh, mesh_lib.FSDP))
+                  mesh_lib.axis_size(mesh, mesh_lib.FSDP) * self.sp)
         self.index = (mesh_lib.axis_index(mesh, mesh_lib.DP) *
                       mesh_lib.axis_size(mesh, mesh_lib.FSDP) +
                       mesh_lib.axis_index(mesh, mesh_lib.FSDP))
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        """(n, *t.shape): ``t`` of every data rank, in batch-row order
-        (fsdp gathered first, then dp: dp is the outer axis)."""
+        """(n, *t.shape): ``t`` of every rank of the groups, in
+        batch-row and sequence order."""
         parts = t.detach()[None].contiguous()
         for group in self.groups:
             out = [torch.empty_like(parts)
@@ -399,13 +410,24 @@ class _BatchShare:
             parts = torch.cat(out)
         return parts
 
-    def stats(self, mask1, mask2, gates):
-        every = self.gather(torch.stack([mask1.sum(dim=0), mask2.sum(dim=0),
-                                         gates.sum(dim=0)]))
-        i, t = self.index, gates.shape[0] * self.n
-        before = every[:i].sum(dim=0)
-        others = torch.cat([every[:i], every[i + 1:]])[:, 2].sum(dim=0)
-        total1 = every[:, 0].sum(dim=0, keepdim=True)
+    def stats(self, mask1, mask2, gates, rows: int):
+        """``rows``: the local batch rows, each of T / rows tokens."""
+        t_local, e = gates.shape
+        per_row = torch.stack([mask1, mask2, gates]).reshape(
+            3, rows, t_local // rows, e).sum(dim=2)          # (3, rows, E)
+        every = self.gather(per_row)                       # (n, 3, rows, E)
+        j = self.index * self.sp + self.chunk
+        mine = every[j - self.chunk:j - self.chunk + self.sp]
+        row_totals = mine.sum(dim=0)
+        own = every[j]
+        before = (every[:j - self.chunk].sum(dim=(0, 2))[:, None] +
+                  row_totals.cumsum(dim=1) - row_totals +
+                  mine[:self.chunk].sum(dim=0) - (own.cumsum(dim=1) - own))
+        before = before[:2, :, None].expand(2, rows, t_local // rows, e
+                                            ).reshape(2, t_local, e)
+        t = t_local * self.n
+        others = torch.cat([every[:j], every[j + 1:]])[:, 2].sum(dim=(0, 1))
+        total1 = every[:, 0].sum(dim=(0, 1))[None]
         density = total1[0] / t
         density_proxy = (gates.sum(dim=0) + others) / t
         return before[0], before[1], total1, density, density_proxy
@@ -451,7 +473,7 @@ def _moe_mlp_sharded(cfg: MixtralConfig, y: torch.Tensor, view, mesh
 
     gates = router_gates(y, view)
     dispatch, combine, aux = _top2_dispatch(
-        gates, cap, share=share, combine_gates=split_input(gates))
+        gates, cap, share=share, combine_gates=split_input(gates), rows=b)
     mine = slice(lo, lo + e_local)
     yt = split_input(y.reshape(t_local, d))
     xs = (dispatch[:, mine].reshape(t_local, e_local * cap).to(y.dtype).t()
@@ -499,11 +521,12 @@ def _forward_sharded(cfg: MixtralConfig, params: MixtralParams,
     Parameters are read through ``placement.compute_view``; each layer is
     ``_view_layer``."""
     mesh = pair[0]
-    for axis in (mesh_lib.SP, mesh_lib.PP):
-        if mesh_lib.axis_size(mesh, axis) > 1:
-            raise NotImplementedError(
-                f"Mixtral on a mesh with {axis} > 1: the MoE routes whole "
-                "sequences (dp, fsdp, ep and tp are supported)")
+    if mesh_lib.axis_size(mesh, mesh_lib.PP) > 1:
+        raise NotImplementedError(
+            "Mixtral on a mesh with pp > 1: there is no pipelined Mixtral "
+            "forward (the JAX package has none either); dp, fsdp, sp, ep "
+            "and tp are supported")
+    tokens, positions = seq_gather.seq_chunk(mesh, tokens, positions)
     x = llama.embed_tokens(params, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:

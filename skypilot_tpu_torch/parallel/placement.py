@@ -5,7 +5,8 @@ Storage. ``param_shardings`` gives each parameter of a model module its
 ``Sharding`` from the model's logical specs and a rule table;
 ``place_module`` turns the module's parameters into DTensors so placed
 (each process holds its shard). A layer whose rules put it on ``pp``
-lives on the mesh without ``pp``, on its stage's processes only; the
+lives on the mesh without ``pp`` (on a mesh of ``pp`` alone, a
+one-process mesh: ``stage_mesh``), on its stage's processes only; the
 other stages hold a meta placeholder of its shape (``pp_stage`` on the
 parameter names the stage). ``gather_tensor`` is the inverse: the whole
 tensor on every process.
@@ -42,12 +43,17 @@ from typing import Dict, Iterable, List, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel.mesh import (EP, PP, TP, Sharding,
                                              ShardingRules)
+
+# The axis of a stage's one-process mesh on a mesh of pp alone
+# (``stage_mesh``): no rule names it, so nothing is split over it.
+LOCAL = "local"
 
 
 def specs_by_name(module: nn.Module, specs: dict) -> Dict[str, tuple]:
@@ -81,13 +87,19 @@ def layer_stage(rules: ShardingRules, mesh, layer: int,
 
 
 def stage_mesh(mesh):
-    """The mesh without its ``pp`` axis, through this process."""
+    """The mesh without its ``pp`` axis, through this process. On a mesh
+    of ``pp`` alone a stage is one process: a one-process mesh whose axis
+    (``LOCAL``) splits nothing, built once per mesh (its groups are made
+    by every process together, as a DeviceMesh's are)."""
     rest = tuple(n for n in mesh.mesh_dim_names if n != PP)
-    if not rest:
-        raise NotImplementedError(
-            "a pipeline mesh needs an axis beside pp for the stages' "
-            "layers (e.g. {'pp': P, 'tp': 1})")
-    return mesh[rest]
+    if rest:
+        return mesh[rest]
+    sub = getattr(mesh, "_stpu_stage_mesh", None)
+    if sub is None:
+        sub = DeviceMesh(mesh.device_type, mesh.mesh.reshape(-1, 1),
+                         mesh_dim_names=(PP, LOCAL))[LOCAL]
+        mesh._stpu_stage_mesh = sub
+    return sub
 
 
 def param_shardings(module: nn.Module, mesh, rules: ShardingRules,
@@ -175,8 +187,10 @@ def compute_view(p: torch.Tensor, keep_tp: Optional[int] = None,
     tensor is returned as it is. ``keep_tp``: the dim the layer consumes
     split over ``tp`` (kept split when the parameter is stored so);
     ``tp_partial``: the parameter is gathered over ``tp`` but each tp
-    rank uses only part of it (a key/value weight whose heads are fewer
-    than the tp ranks), so its gradient is summed over ``tp`` too."""
+    rank's use of it gives only part of its gradient (a key/value weight
+    whose heads are fewer than the tp ranks; a LoRA adapter beside a
+    split weight, whole or cut to the rank's part), so its gradient is
+    summed over ``tp`` too."""
     if not isinstance(p, DTensor):
         return p
     compute, grad = [], []

@@ -36,12 +36,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 from torch.utils.checkpoint import checkpoint
 
 from skypilot_tpu_torch.ops.linear import matmul_f32
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
-from skypilot_tpu_torch.parallel import placement
+from skypilot_tpu_torch.parallel import placement, seq_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,12 +186,17 @@ def jax_leaves(module: nn.Module) -> List[Leaf]:
 class AdafactorState:
     """optax's FactoredState as tensors in the JAX tree's layout (a
     stacked leaf's statistics are (L, ...)); a leaf's unused statistics
-    are (1,) zeros, as there."""
+    are (1,) zeros, as there. ``params`` are the module's parameters,
+    which ``leaves`` index; ``pp_group`` is the pipeline's group when
+    some of them are another stage's layers (meta placeholders, whose
+    rows of a statistic stay zeros)."""
     count: int
     leaves: List[Leaf]
     v_row: List[torch.Tensor]
     v_col: List[torch.Tensor]
     v: List[torch.Tensor]
+    params: List[torch.Tensor]
+    pp_group: Any = None
 
 
 def _decay_rate(count: int) -> Tuple[float, float]:
@@ -291,7 +297,14 @@ class Adafactor:
     factoring is decided on the whole leaf's shape, each process keeps
     the statistics of its shard (the parameter's placement with the
     reduced dim dropped), and every mean and rms is over the whole leaf
-    (``_Shards``): the same update as on one device.
+    (``_Shards``): the same update as on one device. Under pipeline
+    stages a stacked leaf's layers are split over ``pp`` like a dim split
+    over a mesh axis: a stage updates its own layers' rows, and a mean or
+    rms over the layer axis is summed over ``pp``.
+
+    ``update_`` finds each leaf's parameters among those it is given by
+    identity: a parameter it is not given (another stage's, or a frozen
+    one) is skipped.
     """
 
     def __init__(self, cfg: TrainConfig):
@@ -301,17 +314,20 @@ class Adafactor:
 
     def init(self, module: nn.Module) -> AdafactorState:
         """One state per JAX leaf of ``module`` (``jax_leaves``)."""
-        leaves = jax_leaves(module)
         params = list(module.parameters())
+        state = AdafactorState(count=0, leaves=jax_leaves(module), v_row=[],
+                               v_col=[], v=[], params=params)
         if any(p.is_meta for p in params):
-            raise NotImplementedError("adafactor under pipeline stages")
-        state = AdafactorState(count=0, leaves=leaves, v_row=[], v_col=[],
-                               v=[])
-        for leaf in leaves:
-            p = params[leaf.index[0]]
+            state.pp_group = next(
+                p.device_mesh.get_group(mesh_lib.PP) for p in params
+                if isinstance(p, DTensor) and
+                mesh_lib.PP in p.device_mesh.mesh_dim_names)
+        for leaf in state.leaves:
             dims = factored_dims(leaf.shape(params))
-            shape = leaf.shape([placement.local(q) for q in params])
-            p = placement.local(p)
+            p = placement.local(next(params[i] for i in leaf.index
+                                     if not params[i].is_meta))
+            shape = ((len(leaf.index),) if leaf.stacked else ()) + tuple(
+                p.shape)
 
             def zeros(s):
                 return torch.zeros(s, dtype=p.dtype, device=p.device)
@@ -326,28 +342,38 @@ class Adafactor:
                 state.v.append(zeros((1,)))
         return state
 
-    def _scale_by_factored_rms(self, leaf: Leaf, k: int,
-                               params: List[torch.Tensor],
+    def _scale_by_factored_rms(self, leaf: Leaf, k: int, rows: List[int],
                                gs: List[torch.Tensor],
                                state: AdafactorState,
                                decay: Tuple[float, float],
                                shards: Optional[_Shards] = None) -> None:
-        dims = factored_dims(leaf.shape(params))
+        """``gs``: the gradients of the leaf's layers at ``rows`` (all of
+        them but under pipeline stages)."""
+        dims = factored_dims(leaf.shape(state.params))
         if dims is None:
-            for i, g in enumerate(gs):
+            for i, g in zip(rows, gs):
                 _full_update(g, state.v[k][i] if leaf.stacked
                              else state.v[k], decay)
         elif leaf.stacked and 0 in dims:
             # The layer axis is one of the two: the statistics mix layers,
-            # so the leaf is stacked as JAX holds it.
+            # so the leaf is stacked as JAX holds it (a stage's rows of it,
+            # its layer axis split over pp, ``shards``).
             stacked = torch.stack(gs)
-            _factored_update(stacked, state.v_row[k], state.v_col[k], *dims,
-                             decay, shards)
+            whole = len(rows) == len(leaf.index)
+            # v_row drops d0, v_col d1: one that keeps the layer axis is
+            # updated at the stage's rows.
+            stats = [v if whole or d == 0 else v[rows]
+                     for v, d in ((state.v_row[k], dims[1]),
+                                  (state.v_col[k], dims[0]))]
+            _factored_update(stacked, *stats, *dims, decay, shards)
+            for v, sub in zip((state.v_row[k], state.v_col[k]), stats):
+                if sub is not v:
+                    v[rows] = sub
             for g, u in zip(gs, stacked.unbind(0)):
                 g.copy_(u)
         else:
             off = 1 if leaf.stacked else 0
-            for i, g in enumerate(gs):
+            for i, g in zip(rows, gs):
                 v_row = state.v_row[k][i] if leaf.stacked else state.v_row[k]
                 v_col = state.v_col[k][i] if leaf.stacked else state.v_col[k]
                 _factored_update(g, v_row, v_col, dims[0] - off,
@@ -366,16 +392,24 @@ class Adafactor:
         factor = _clip_factor(g_norm, self.cfg.max_grad_norm)
         decay = _decay_rate(state.count)
         lr = self.schedule(state.count)
+        given = {id(p): g for p, g in zip(params, grads)}
         for k, leaf in enumerate(state.leaves):
-            ps = [params[i] for i in leaf.index]
-            gs = [grads[i].mul_(factor) for i in leaf.index]
-            numel = sum(g.numel() for g in gs)
+            rows = [j for j, i in enumerate(leaf.index)
+                    if id(state.params[i]) in given]
+            if not rows:
+                continue
+            ps = [state.params[leaf.index[j]] for j in rows]
+            gs = [given[id(p)].mul_(factor) for p in ps]
+            numel = math.prod(leaf.shape(state.params))
             shards = None
             if isinstance(ps[0], DTensor):
-                shards = _Shards(ps[0], leaf.stacked, leaf.shape(params))
+                shards = _Shards(ps[0], leaf.stacked,
+                                 leaf.shape(state.params))
+                if len(rows) < len(leaf.index):
+                    shards.groups.setdefault(0, []).append(state.pp_group)
                 ps = [placement.local(p) for p in ps]
                 gs = [placement.local(g) for g in gs]
-            self._scale_by_factored_rms(leaf, k, params, gs, state, decay,
+            self._scale_by_factored_rms(leaf, k, rows, gs, state, decay,
                                         shards)
             u_sq = sum(torch.linalg.vector_norm(
                 g, dtype=torch.float32).square() for g in gs)
@@ -548,7 +582,9 @@ def make_train_step(
         return ce + aux, ce, aux
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        plist = list(state.params.parameters())
+        # A frozen parameter (requires_grad=False) gets no gradient and no
+        # update, and counts in no norm.
+        plist = [p for p in state.params.parameters() if p.requires_grad]
         for p in plist:
             p.grad = None
         loss, ce, aux = loss_fn(state.params, batch)
@@ -610,7 +646,9 @@ def place_state(state: TrainState, shardings: TrainState,
     """``jax.device_put(state, state_shardings(...))``: the parameters
     become DTensors placed by ``shardings.params`` (in place), the
     optimizer is built anew over them and keeps its count and any
-    buffers it had, placed by ``shardings.opt_state``."""
+    buffers it had, placed by ``shardings.opt_state`` (adamw's), or by
+    their parameter's placement (adafactor's statistics,
+    ``_place_statistics``). ``state`` is one device's."""
     module, old = state.params, state.opt_state
     named = dict(module.named_parameters())
     saved = {}
@@ -633,10 +671,43 @@ def place_state(state: TrainState, shardings: TrainState,
                     st[buf].detach(), sh.mesh, sh.placements,
                     src_data_rank=None)
             new.opt.state[p] = st
-    elif isinstance(new, AdafactorState) and old.count:
-        raise NotImplementedError(
-            "placing an adafactor state after its first step")
+    else:
+        _place_statistics(old, new)
     return TrainState(params=module, opt_state=new, step=state.step)
+
+
+def _place_statistics(old: AdafactorState, new: AdafactorState) -> None:
+    """Each statistic of ``old`` (whole, as one device holds it) into
+    ``new``'s (built on the placed module) at this process's part: the
+    part its parameter's shard reads. A statistic is the parameter's
+    shape with the reduced dim dropped, so it is split where the
+    parameter is, on the dims it keeps: a factored row statistic
+    follows the parameter's row dim, a column statistic its column dim,
+    and one whose reduced dim is split is whole on every process of
+    that split."""
+    for k, leaf in enumerate(new.leaves):
+        p = next(new.params[i] for i in leaf.index
+                 if not new.params[i].is_meta)
+        dims = factored_dims(leaf.shape(new.params))
+        off = 1 if leaf.stacked else 0
+        stats = ([(old.v, new.v, None)] if dims is None else
+                 [(old.v_row, new.v_row, dims[1]),
+                  (old.v_col, new.v_col, dims[0])])
+        for src, dst, dropped in stats:
+            if not isinstance(p, DTensor):
+                dst[k].copy_(src[k])
+                continue
+            places = []
+            for pl in p.placements:
+                d = pl.dim + off if pl.is_shard() else None
+                if d is None or d == dropped:
+                    places.append(Replicate())
+                else:
+                    places.append(Shard(d if dropped is None or d < dropped
+                                        else d - 1))
+            dst[k].copy_(distribute_tensor(
+                src[k].detach(), p.device_mesh, places,
+                src_data_rank=None).to_local())
 
 
 def _shifted_targets(tokens, mask, mesh):
@@ -650,9 +721,7 @@ def _shifted_targets(tokens, mask, mesh):
                          device=tokens.device) if mask is None
               else mask[:, 1:].float())
     weight = torch.cat([weight, weight.new_zeros((b, 1))], dim=1)
-    sp = mesh_lib.axis_size(mesh, mesh_lib.SP)
-    c, sl = mesh_lib.axis_index(mesh, mesh_lib.SP), s // sp
-    return targets[:, c * sl:(c + 1) * sl], weight[:, c * sl:(c + 1) * sl]
+    return seq_gather.seq_chunk(mesh, targets, weight)
 
 
 def _nll_sums(logits, targets, weight):

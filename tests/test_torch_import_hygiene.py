@@ -21,7 +21,8 @@ PORT_FILES = sorted((REPO / "skypilot_tpu_torch").rglob("*.py")) + [
     REPO / "tools" / "flash_fwd_variants.py",
     REPO / "tools" / "flash_dq_variants.py",
     REPO / "tools" / "chip_turns.py",
-    REPO / "tools" / "torch_parallel_cards.py"]
+    REPO / "tools" / "torch_parallel_cards.py",
+    REPO / "tools" / "gloo_cuda_probe.py"]
 BANNED = ("jax", "jaxlib", "skypilot_tpu", "flax", "optax")
 
 

@@ -5,7 +5,8 @@ Four gloo processes (``tests/torch_rank_worker.py``, spawned once for the
 file) run the port's sharded ``make_train_step`` on the tiny Mixtral at
 {dp 2, ep 2}, {ep 4} (one expert a rank) and {ep 2, tp 2} (the expert
 ``mlp`` axis split over tp too). The reference is JAX's step on one
-device: XLA's SPMD partition does not change what it computes. Two adamw
+device: XLA's SPMD partition does not change what it computes; {sp 2,
+ep 2} splits each row's sequence over sp as well. Two adamw
 steps: loss, aux loss and grad norm per step within ``LOSS_TOL``, final
 parameters within ``MOVE_TOL`` of the distance moved
 (``tests/test_torch_parallel_step.py``'s tolerances).
@@ -46,6 +47,10 @@ EP_MESHES = {
     "dp2_ep2": {"dp": 2, "ep": 2},
     "ep4": {"ep": 4},
     "ep2_tp2": {"ep": 2, "tp": 2},
+    # Each row's sequence split over sp: routing continues the (b, s)
+    # order of the whole batch across the chunks (_BatchShare), and
+    # attention gathers the chunks (parallel/seq_gather.py).
+    "sp2_ep2": {"sp": 2, "ep": 2},
 }
 
 

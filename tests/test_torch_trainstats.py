@@ -11,6 +11,8 @@ package's, on the CPU.
   the sync cadence and ``sampled_sync`` (a CUDA tensor waits on
   ``torch.cuda.synchronize``, a CPU tensor on nothing), stragglers, the
   flight dump's round trip and retention, ``dump_dir_flight``.
+* The port's host JSONL sink is opened once, by ``configure``, and each
+  line can be read as soon as its step is recorded.
 * ``peak_flops_for_device`` on H100 names, unknown names and the CPU.
 * Files cross over: the JAX package's ``dump_dir_flight`` and
   ``read_dump`` read what the port wrote, and the port reads the JAX
@@ -126,6 +128,38 @@ def test_delayed_values_attach_to_previous_record(armed):
     snap = ts.snapshot()
     assert snap["last"] == {"step": 2, "loss": 1.5, "grad_norm": 0.25,
                             "loss_step": 1}
+
+
+def test_jsonl_sink_opens_once_and_flushes_every_line(armed, tmp_path,
+                                                     monkeypatch):
+    opened = []
+    real_open = open
+
+    def counting_open(path, *args, **kwargs):
+        opened.append(os.path.basename(str(path)))
+        return real_open(path, *args, **kwargs)
+
+    monkeypatch.setattr("builtins.open", counting_open)
+    out_dir = str(tmp_path / "ts")
+    ts.configure(out_dir=out_dir, host=1, hosts=2)
+    assert opened == ["host-1.jsonl"]    # before the first step
+    path = os.path.join(out_dir, "host-1.jsonl")
+    for s in range(1, 4):
+        ts.record_step(step=s, dur=0.01, tokens=10)
+        with real_open(path) as f:
+            assert [json.loads(line)["step"] for line in f] == list(
+                range(1, s + 1))
+    assert opened.count("host-1.jsonl") == 1
+    # A new host (so a new path) gets a sink of its own; reset closes it.
+    ts.configure(out_dir=out_dir, host=3, hosts=4)
+    ts.record_step(step=4, dur=0.01, tokens=10)
+    assert opened.count("host-3.jsonl") == 1 and ts._sink[0].endswith(
+        "host-3.jsonl")
+    sink = ts._sink[1]
+    ts.reset()
+    assert sink.closed and ts._sink is None
+    with real_open(os.path.join(out_dir, "host-3.jsonl")) as f:
+        assert [json.loads(line)["step"] for line in f] == [4]
 
 
 def test_mfu_and_goodput_math(armed, clock):

@@ -48,6 +48,7 @@ from skypilot_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from skypilot_tpu_torch.parallel import pipeline  # noqa: E402
 from skypilot_tpu_torch.parallel import placement  # noqa: E402
 from skypilot_tpu_torch.parallel import ring_attention  # noqa: E402
+from skypilot_tpu_torch.parallel import seq_gather  # noqa: E402
 from skypilot_tpu_torch.train import distributed  # noqa: E402
 from skypilot_tpu_torch.train import trainer  # noqa: E402
 
@@ -84,23 +85,50 @@ def _config(c):
     return model, cfg, from_jax
 
 
+def _merge_lora(params, lora):
+    """The case's adapters (the JAX tree's stacked layout) registered on
+    the layers beside their frozen weights: only the adapters train."""
+    params.requires_grad_(False)
+    for name, stacked in lora["layers"].items():
+        for lp, a in zip(params.layers, stacked):
+            setattr(lp, name, torch.nn.Parameter(torch.from_numpy(
+                a.copy())))
+
+
 def case_train(c):
     model, cfg, from_jax = _config(c)
     mesh = _mesh(c)
     rules = (mesh_lib.PIPELINE_RULES if c.get("pipelined")
              else mesh_lib.DEFAULT_RULES)
     params = from_jax(cfg, c["init"], "cpu")
+    if c.get("lora"):
+        _merge_lora(params, c["lora"])
     tx = trainer.make_optimizer(trainer.TrainConfig(**c["tcfg"]))
-    want = trainer.state_shardings(mesh, rules, model.param_specs(cfg),
-                                   trainer.init_train_state(params, tx))
-    # The weights go in through convert.shard_params (and come out
-    # through convert.gather_params), placed as state_shardings says.
-    convert.shard_params(params, mesh, rules, model.param_specs(cfg))
-    for name, p in params.named_parameters():
-        sh = want.params[name]
-        assert p.is_meta or (p.device_mesh == sh.mesh and
-                             tuple(p.placements) == sh.placements), name
-    state = trainer.init_train_state(params, tx)
+    tokens = torch.from_numpy(c["tokens"]).long()
+    losses, norms, aux = [], [], []
+    if c.get("replace"):
+        # One step on one device (the whole batch), then the state placed
+        # onto the mesh: jax.device_put of a state after its first step.
+        state = trainer.init_train_state(params, tx)
+        state, m = trainer.make_train_step(
+            lambda p, t: model.forward(cfg, p, t), tx)(state,
+                                                       {"tokens": tokens})
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        aux.append(m["aux_loss"].item())
+        state = trainer.place_state(state, trainer.state_shardings(
+            mesh, rules, model.param_specs(cfg), state), tx)
+    else:
+        want = trainer.state_shardings(mesh, rules, model.param_specs(cfg),
+                                       trainer.init_train_state(params, tx))
+        # The weights go in through convert.shard_params (and come out
+        # through convert.gather_params), placed as state_shardings says.
+        convert.shard_params(params, mesh, rules, model.param_specs(cfg))
+        for name, p in params.named_parameters():
+            sh = want.params[name]
+            assert p.is_meta or (p.device_mesh == sh.mesh and
+                                 tuple(p.placements) == sh.placements), name
+        state = trainer.init_train_state(params, tx)
     if c.get("pipelined"):
         def fwd(p, t):
             return llama.forward_pipelined(cfg, p, t, mesh=mesh, rules=rules,
@@ -114,16 +142,14 @@ def case_train(c):
             head_fn=model.head_weights, mesh=mesh, rules=rules)
     else:
         step = trainer.make_train_step(fwd, tx, mesh=mesh, rules=rules)
-    tokens = torch.from_numpy(c["tokens"]).long()
     batch = {"tokens": tokens[_batch_rows(mesh, tokens.shape[0])]}
-    losses, norms, aux = [], [], []
     calls = []
     apply = llama._FlashRematLayer.apply
     llama._FlashRematLayer.apply = lambda *a: calls.append(1) or apply(*a)
     spy = _EpSpy(mesh)
     try:
-        with spy:
-            for _ in range(c["steps"]):
+        with spy, _SeqSpy() as seq:
+            for _ in range(c["steps"] - len(losses)):
                 state, m = step(state, batch)
                 losses.append(m["loss"].item())
                 norms.append(m["grad_norm"].item())
@@ -135,7 +161,44 @@ def case_train(c):
     return {"loss": losses, "grad_norm": norms, "aux_loss": aux,
             "final": convert.gather_params(state.params, mesh),
             "flash_remat_layers": len(calls), "ep_views": spy.views,
-            "ep_gathers": _gather(spy.gathers, dist.get_world_size())}
+            "ep_gathers": _gather(spy.gathers, dist.get_world_size()),
+            "seq": seq.seen}
+
+
+class _SeqSpy:
+    """Records, while a step runs, the ring's calls and the sequence
+    lengths that meet attention's gather (``seq_gather.gather_seq`` along
+    the sequence: its input, the chunk) and the MLP (``llama.mlp_block``'s
+    input)."""
+
+    def __enter__(self):
+        self.saved = (ring_attention.ring_attention, seq_gather.gather_seq,
+                      llama.mlp_block)
+        ring, gather, mlp = self.saved
+        self.seen = {"ring": 0, "gathered": set(), "mlp": set()}
+        seen = self.seen
+
+        def ring_(*a, **k):
+            seen["ring"] += 1
+            return ring(*a, **k)
+
+        def gather_(t, group, dim=1):
+            if dim == 1:
+                seen["gathered"].add(t.shape[1])
+            return gather(t, group, dim)
+
+        def mlp_(cfg, x, lp):
+            seen["mlp"].add(x.shape[1])
+            return mlp(cfg, x, lp)
+        ring_attention.ring_attention = ring_
+        seq_gather.gather_seq = gather_
+        llama.mlp_block = mlp_
+        return self
+
+    def __exit__(self, *exc):
+        (ring_attention.ring_attention, seq_gather.gather_seq,
+         llama.mlp_block) = self.saved
+        return False
 
 
 class _EpSpy:
@@ -365,8 +428,95 @@ def run_tp(root: pathlib.Path, rank: int, tp: int, addr: str) -> int:
     return 0
 
 
+def stage_tree_arrays(c):
+    """The adafactor-over-stages case's parameters and per-step
+    gradients, drawn from its seed (the test draws the same): a JAX-layout
+    tree {name: array, "layers": {name: (L, ...) array}}."""
+    rng = np.random.default_rng(c["seed"])
+
+    def draw():
+        tree = {n: rng.standard_normal(sh).astype(np.float32)
+                for n, sh in c["top"].items()}
+        tree["layers"] = {
+            n: rng.standard_normal((c["n_layers"],) + sh).astype(np.float32)
+            for n, sh in c["layer"].items()}
+        return tree
+    return draw(), [draw() for _ in range(c["steps"])]
+
+
+def case_adafactor_stages(c):
+    """Adafactor alone on a tree placed under pipeline stages: the layer
+    axis split over pp, a per-layer dim over tp; each step's gradients are
+    the drawn whole ones, placed as their parameters."""
+    from torch.distributed.tensor import distribute_tensor
+    init, grads = stage_tree_arrays(c)
+    module = torch.nn.Module()
+    for n, a in init.items():
+        if n != "layers":
+            setattr(module, n, torch.nn.Parameter(torch.from_numpy(a)))
+    module.layers = torch.nn.ModuleList(torch.nn.Module()
+                                        for _ in range(c["n_layers"]))
+    for n, a in init["layers"].items():
+        for lp, row in zip(module.layers, a):
+            setattr(lp, n, torch.nn.Parameter(torch.from_numpy(row.copy())))
+    mesh = _mesh(c)
+    placement.place_module(module, placement.param_shardings(
+        module, mesh, mesh_lib.PIPELINE_RULES, c["specs"]), mesh)
+    tx = trainer.make_optimizer(trainer.TrainConfig(**c["tcfg"]))
+    state = tx.init(module)
+    for tree in grads:
+        held, gs = [], []
+        for name, p in module.named_parameters():
+            if p.is_meta:
+                continue
+            parts = name.split(".")
+            g = (tree["layers"][parts[2]][int(parts[1])]
+                 if parts[0] == "layers" else tree[name])
+            held.append(p)
+            gs.append(distribute_tensor(torch.from_numpy(g.copy()),
+                                        p.device_mesh, p.placements,
+                                        src_data_rank=None))
+        tx.update_(held, gs, state, placement.global_norm(gs, mesh))
+    return convert.gather_params(module, mesh)
+
+
+def _raised(fn):
+    """(exception type name, message) of what ``fn()`` raises, or None."""
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as exc:
+        return type(exc).__name__, str(exc)
+    return None
+
+
+def case_refusals(c):
+    """The sharded step's refusals that the JAX package shares, each on
+    a mesh of all four ranks, raised by every rank at the same point:
+    an mlp_dim that tp does not divide, n_experts that ep does not
+    divide, and Mixtral on a pipeline."""
+    tokens = torch.from_numpy(c["tokens"]).long()
+    out = {}
+    for name, family, axes, fields in c["meshes"]:
+        model, cls, _ = MODELS[family]
+        cfg = dataclasses.replace(cls.tiny(vocab_size=c["vocab"]),
+                                  dtype=torch.float32, **fields)
+        params = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        mesh = mesh_lib.make_mesh(axes, device="cpu")
+        rules = mesh_lib.DEFAULT_RULES
+        convert.shard_params(params, mesh, rules, model.param_specs(cfg))
+
+        def forward():
+            with mesh_lib.use_mesh(mesh, rules):
+                model.forward(cfg, params, tokens[_batch_rows(
+                    mesh, tokens.shape[0])])
+        out[name] = _raised(forward)
+    return out
+
+
 CASES = {"train": case_train, "ring": case_ring,
-         "pipeline_forward": case_pipeline_forward, "gpipe": case_gpipe}
+         "pipeline_forward": case_pipeline_forward, "gpipe": case_gpipe,
+         "refusals": case_refusals,
+         "adafactor_stages": case_adafactor_stages}
 
 
 def run_cases(root: pathlib.Path, rank: int, world: int) -> int:

@@ -3,11 +3,12 @@
 port's sharded step, ring attention and pipeline over NCCL, and its
 tensor-parallel replica, each held to the same work on one card.
 
-    python3 tools/torch_parallel_cards.py [world1] [step] [ring] [tp_serve] [ep]
+    python3 tools/torch_parallel_cards.py [world1] [step] [ring] [tp_serve] [ep] [pipe]
 
-[world1] runs on one card; [step], [ring], [tp_serve] and [ep] need an
-even count of 2+. With no phase named, the first three run ([step]
-includes [pipeline]); [tp_serve] and [ep] run when named.
+[world1] runs on one card; [step], [ring], [tp_serve], [ep] and [pipe]
+need an even count of 2+. With no phase named, the first three run
+([step] includes [pipeline]); [tp_serve], [ep] and [pipe] run when
+named.
 
 The script launches one process per card itself, as a gang host's
 torchrun would: LOCAL_RANK / LOCAL_WORLD_SIZE and the SKYPILOT_* env
@@ -40,6 +41,17 @@ process brings its NCCL group up through
   first) within LOSS_TOL, launches 2L/L/L a step on every rank; then at
   EP_BIG_LAYERS layers, a depth one card cannot hold under adamw, timed
   (median step, tokens/s, peak memory a card).
+
+- [pipe] the [step] model on a mesh of {"pp": n} alone (a stage is one
+  card, N_LAYERS / n layers; PIPELINE_RULES, 2 microbatches, full
+  remat) with adafactor: STEPS steps from the one-card weights, and a
+  state placed onto the mesh after one one-card step (place_state of an
+  adafactor state) then STEPS - 1 steps, both against the one-card
+  adafactor steps (rank 0 runs them first) within LOSS_TOL; rank 0's
+  launches 2 x 2 x N_LAYERS / n forwards and half as many dq and dk/dv
+  a step; both median step times. It runs here, not on chip_smoke.py's
+  one card: gloo's send/recv of CUDA tensors, which the pipeline's
+  stage boundaries use, kills the process (torch 2.11).
 
 - [tp_serve] serve_llm replicas, each from this process: Llama-3-8B at
   full depth, bf16, on one card, at tp 2 and at tp n (NCCL, rank r on
@@ -422,6 +434,83 @@ def phase_step(n, out, llama, trainer, mesh_lib, fa):
         torch.cuda.empty_cache()
 
 
+def phase_pipe(n, out, llama, trainer, mesh_lib, fa):
+    """[pipe] (module docstring): {pp: n} alone under PIPELINE_RULES with
+    adafactor, from step 0 and from a state placed after one one-card
+    step, against the one-card adafactor steps."""
+    tcfg = trainer.TrainConfig(warmup_steps=1, total_steps=100,
+                               optimizer="adafactor")
+    rules = mesh_lib.PIPELINE_RULES
+
+    def one_card(params):
+        tx = trainer.make_optimizer(tcfg)
+        return tx, trainer.init_train_state(params, tx), \
+            trainer.make_train_step(lambda p, t: llama.forward(cfg, p, t),
+                                    tx, with_grad_norm=False)
+    if torch.distributed.get_rank() == 0:
+        cfg, params, tokens = _setup(llama)
+        _, state, step = one_card(params)
+        out["pipe_one_card"] = _steps(step, state, {"tokens": tokens},
+                                      fa)[:2]
+        del params, state, step
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    obj = [out.get("pipe_one_card")]
+    torch.distributed.broadcast_object_list(obj, src=0)
+    one_losses, one_ms = obj[0]
+    mesh = mesh_lib.make_mesh({"pp": n})
+
+    def fwd(p, t):
+        return llama.forward_pipelined(cfg, p, t, mesh=mesh, rules=rules,
+                                       num_microbatches=2)
+    cfg, params, tokens = _setup(llama)
+    tx = trainer.make_optimizer(tcfg)
+    state = trainer.init_train_state(params, tx)
+    state = trainer.place_state(state, trainer.state_shardings(
+        mesh, rules, llama.param_specs(cfg), state), tx)
+    step = trainer.make_train_step(fwd, tx, with_grad_norm=False, mesh=mesh,
+                                   rules=rules)
+    losses, ms, launches = _steps(step, state, {"tokens": tokens}, fa)
+    del state, step, params
+    torch.cuda.empty_cache()
+    # The state placed after one one-card step (every process takes it on
+    # its own card), then the rest of the steps through the pipeline.
+    cfg, params, tokens = _setup(llama)
+    tx, state, step = one_card(params)
+    state, m = step(state, {"tokens": tokens})
+    placed = [float(m["loss"])]
+    state = trainer.place_state(state, trainer.state_shardings(
+        mesh, rules, llama.param_specs(cfg), state), tx)
+    step = trainer.make_train_step(fwd, tx, with_grad_norm=False, mesh=mesh,
+                                   rules=rules)
+    for _ in range(STEPS - 1):
+        state, m = step(state, {"tokens": tokens})
+        placed.append(float(m["loss"]))
+    del state, step, params
+    torch.cuda.empty_cache()
+    worst = max(abs(a - b) for a, b in zip(losses, one_losses))
+    worst_placed = max(abs(a - b) for a, b in zip(placed, one_losses))
+    layers = N_LAYERS // n
+    want = {"flash_fwd": 2 * layers * 2 * STEPS,
+            "flash_dq": layers * 2 * STEPS, "flash_dkv": layers * 2 * STEPS}
+    got = {k: v for k, v in launches.items() if v}
+    _say(f"[pipe] mesh {{pp: {n}}} alone, adafactor: losses "
+         f"{[round(x, 4) for x in losses]}; placed after one one-card step "
+         f"{[round(x, 4) for x in placed]}; one card "
+         f"{[round(x, 4) for x in one_losses]}; largest |diff| {worst:.3e}, "
+         f"placed {worst_placed:.3e} (tol {LOSS_TOL}); step {ms:.1f} ms on "
+         f"{n} cards vs {one_ms:.1f} ms on one (median of steps 2-{STEPS}); "
+         f"rank 0 launches {got}")
+    _check(worst <= LOSS_TOL and worst_placed <= LOSS_TOL,
+           "[pipe] loss off the one-card step's")
+    _check(losses[-1] < losses[0], "[pipe] loss did not fall")
+    _check(got == want, f"[pipe] rank 0 launches {got} != {want}")
+    out["pipe"] = {"losses": losses, "placed_losses": placed,
+                   "one_card_losses": one_losses, "max_loss_diff": worst,
+                   "max_placed_diff": worst_placed, "step_ms": ms,
+                   "one_card_step_ms": one_ms, "mesh": {"pp": n}}
+
+
 def _ep_build(n_layers, trainer, mesh_lib, mesh=None):
     """Mixtral-8x7B widths at ``n_layers``, bf16: (cfg, the recipe's args,
     a batch) and, on a mesh, the recipe's placed state and step; else
@@ -635,9 +724,11 @@ def _run_rank(phases) -> int:
             phase_ring(n, out, mesh_lib, ring_attention, attention_ops)
         if "ep" in phases:
             phase_ep(n, out, trainer, mesh_lib, fa)
+        if "pipe" in phases:
+            phase_pipe(n, out, llama, trainer, mesh_lib, fa)
         out["seconds"] = time.perf_counter() - t0
-        out.pop("one_card", None)
-        out.pop("ep_one_card", None)
+        for key in ("one_card", "ep_one_card", "pipe_one_card"):
+            out.pop(key, None)
         _say(json.dumps({"ok": True, **out}))
         return 0
     except RuntimeError as e:
