@@ -11,7 +11,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    spills per kernel, and each Hopper kernel's launch registers, shared
    memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
    (wgmma) and UTMALDG (TMA load) instructions, and fewer wgmma waits than
-   wgmmas, in every instance (head_dim 64, 128 and 256; bf16 and f16) of
+   wgmmas, in every instance (head_dim 64, 128, 256 and 512; bf16 and
+   f16) of
    the nine Hopper kernels (flash_fwd, flash_dq, flash_dkv, flash_fwd_tri,
    flash_dq_tri, flash_dkv_tri, flash_fwd_streamed, flash_dq_streamed,
    flash_dkv_streamed);
@@ -48,7 +49,15 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    dk/dv splits across CTAs, and the resident dq's CTA shape) against
    the plain versions, at each family's first shape the pair
    bit-identical twice, f16 and times, and the resident pair's time
-   beside SDPA's whole backward;
+   beside SDPA's whole backward); then at head_dim 512 ([kernels d512]:
+   the chunked bodies, one 256-column chunk of o, dq, dk or dv a CTA or
+   consumer; the resident trio at 8 x 1024, Gemma-7B's MHA at S = 200
+   and an odd GQA group (6) at a ragged non-causal S = 1000; the
+   triangular at 1 x 8192, 4136 and 4160 (GQA 6); the streamed
+   non-causal at 1 x 4096, 4136 (MHA) and 4160) against the plain
+   versions, one launch of each kernel a trio, at each main shape the
+   pair bit-identical twice, f16, times and SDPA's time with the backend
+   it picked (the only one that takes 512 with GQA is MATH);
    then the public attention op through autograd, with exactly one
    launch of each kernel of its family: at a ragged S (200) against the
    plain versions; at head_dim 16, 96 and 192 (zero-padded to the
@@ -56,15 +65,21 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    the padded columns of the kernels' outputs must be exactly 0) against
    the plain versions at that head_dim; at width 256 past the resident
    budget ([wide op]) the triangular trio causal and the streamed trio
-   non-causal against the plain versions, and head_dim 264 a ValueError
-   naming it before any launch; and with f32 inputs (2 x 256, 4 heads, 2
-   KV heads, head_dim 64, causal and not; 1 x 200 at head_dim 128; 1 x
-   2048 and 1 x 4096 at head_dim 256, 8 heads over 1), through the fp32
-   kernels (one launch each), against the fp32 plain versions at the JAX
-   reference tests' elementwise bounds (and, printed, not held, the same
-   inputs as f16 through the f16 kernels), then the fp32 kernels' time at
-   the slice's shape and at width 256, beside the plain versions' and
-   SDPA's in f32 (forward, whole backward);
+   non-causal against the plain versions, then head_dim 264 and 448
+   (resident), 320 (triangular), 392 (streamed) and 512 (all three)
+   zero-padded to the width-512 kernels, one launch of each kernel of
+   the family, against the plain versions at the caller's head_dim, the
+   padded columns of the kernels' outputs exactly 0, and head_dim 520 a
+   ValueError naming it before any launch; and with f32 inputs (2 x 256,
+   4 heads, 2 KV heads, head_dim 64, causal and not; 1 x 200 at head_dim
+   128; 1 x 2048 and 1 x 4096 at head_dim 256, 8 heads over 1; 1 x 1024
+   at 512, causal and not), through the fp32 kernels (one launch each),
+   against the fp32 plain versions at the JAX reference tests'
+   elementwise bounds (and, printed, not held, the same inputs as f16
+   through the f16 kernels), then the fp32 kernels' time at the slice's
+   shape and at widths 256 and 512, beside their bound at the card's
+   fp32 peak and the plain versions' and SDPA's in f32 (forward, whole
+   backward);
 4. streamed: the public attention op, non-causal, at Llama-3-8B
    attention width and seq 8192 (1 x 8192, 32 heads, 8 KV heads,
    head_dim 128), forward and autograd backward of a fixed dO; output
@@ -243,6 +258,12 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    launches exactly 2L/L/L of the width-256 triangular kernels per step
    and no other, the same loss gates and trainstats readings; ms a step,
    tokens/s, peak memory;
+13b. gemma_wide (right after gemma_long): Gemma-2B's widths with head_dim
+   512, depth cut to 2 layers, 1 x 8192 through make_train_step as [long]
+   (save_flash_offload_qkv, chunked CE), 4 adamw steps: the loss falls,
+   launches exactly L/L/L of the width-512 triangular kernels a step and
+   no other, one forward's loss within LOSS_TOL of the reference
+   attention's; ms a step, tokens/s, peak memory;
 14. gemma_serve: [serve]'s bf16 leg on a Gemma-2B replica (full width and
    depth, the same nine requests and gates; teacher-forced within
    GEMMA_CACHE_REL_TOL of gemma.forward, whose check launches the
@@ -320,8 +341,9 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    phase runs with STPU_TUNE_MANIFEST=0;
 19. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
-   the kernels line ({"kernels": [...]}, eighteen records: the nine at
-   head_dim 128 and the nine at 256), then the last line
+   the kernels line ({"kernels": [...]}, twenty-seven records: the nine
+   at head_dim 128, the nine at 256 and the nine at 512), then the last
+   line
    {"ok": true, "device": {...}}.
 
 Each phase's wall seconds are printed as it ends (``[timing]``).
@@ -361,6 +383,9 @@ DATASHEET_BF16_FLOPS = {"NVIDIA H100 80GB HBM3": PEAK_BF16_FLOPS,
                         "NVIDIA H100 PCIe": 756e12,
                         "NVIDIA H100 NVL": 835e12}
 PEAK_BYTES_PER_S = 3.35e12
+# fp32 outside the tensor cores (the same data sheet): the fp32 kernels'
+# bound.
+PEAK_F32_FLOPS = 67e12
 LN2 = 0.6931471805599453
 
 # Kernel vs plain, both on the card from the same bf16 (or f16) inputs.
@@ -416,7 +441,13 @@ RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
 # at width 256 within the resident budget and past it.
 F32_OP_SHAPES = ((2, 256, 4, 2, 64, True), (2, 256, 4, 2, 64, False),
                  (1, 200, 8, 2, 128, True), (1, 2048, 8, 1, 256, True),
-                 (1, 4096, 8, 1, 256, True))
+                 (1, 4096, 8, 1, 256, True), (1, 1024, 8, 1, 512, True),
+                 (1, 1024, 8, 1, 512, False))
+# The fp32 kernels timed (with their bound at PEAK_F32_FLOPS, beside the
+# plain versions' and SDPA's f32 time): the slice's attention shape, and
+# widths 256 and 512.
+F32_TIMED_SHAPES = ((2, 2048, 32, 8, 128, True), (1, 4096, 8, 1, 256, True),
+                    (1, 1024, 8, 1, 512, True))
 # The public op at head_dims the kernels take only zero-padded: the tiny
 # Llama's 16, a 96 and a 192 (to width 256; at S 4096 past the budget,
 # through the triangular kernels).
@@ -454,6 +485,11 @@ WIDE_FWD_DESIGN = {
     "flash_fwd_tri": _WIDE_LOCKSTEP + "Q in shared memory"}
 NO_SPILL_KERNELS = ("flash_fwd_kernel<256", "flash_fwd_streamed_kernel<256",
                     "flash_fwd_tri_kernel<256", "flash_dq_tri_kernel<256")
+# Every width-512 instance builds without spills too (168 registers at
+# launch, 232 a consumer).
+NO_SPILL_KERNELS += tuple(
+    f"flash_{k}{fam}_kernel<512" for k in ("fwd", "dq", "dkv")
+    for fam in ("", "_tri", "_streamed"))
 TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
 TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
                          (1, 4136, 8, 1, 256, True),
@@ -462,10 +498,39 @@ STR_WIDE_MAIN_SHAPE = (1, 4096, 8, 1, 256, False)
 STR_WIDE_CHECK_SHAPES = (STR_WIDE_MAIN_SHAPE, (1, 4136, 8, 1, 256, False),
                          (1, 4136, 16, 16, 256, False))
 # The op past the resident budget at width 256 ([wide op]): causal takes
-# the triangular trio, non-causal the streamed one. Past width 256 no
-# kernel exists: the op must refuse before any launch.
+# the triangular trio, non-causal the streamed one. Then head_dims that
+# pad to the width-512 kernels, each through one family (264 and 448
+# resident, 320 triangular, 392 streamed, 512 in all three), the padded
+# columns of the kernels' outputs exactly 0. Past width 512 no kernel
+# exists: the op must refuse before any launch.
 WIDE_OP_SHAPE = (1, 4096, 8, 1, 256, True)
-REFUSED_HEAD_DIM = 264
+PAD512_OP_SHAPES = ((1, 1024, 8, 1, 264, True), (1, 4096, 8, 1, 320, True),
+                    (1, 4096, 8, 1, 392, False), (2, 512, 8, 2, 448, False),
+                    (1, 1024, 8, 1, 512, True), (1, 4096, 8, 1, 512, True),
+                    (1, 4096, 8, 1, 512, False))
+REFUSED_HEAD_DIM = 520
+# Width 512 ([kernels d512]): each family at its main shape (the
+# width-256 rows' with D doubled: resident 8 x 1024, the budget's longest
+# S at 512; triangular 1 x 8192; streamed 1 x 4096 non-causal), then
+# ragged S (200, 1000, 4136), S = 4160, Gemma-7B's MHA (16/16) and an odd
+# GQA group (6).
+X512_MAIN_SHAPE = (8, 1024, 8, 1, 512, True)
+X512_CHECK_SHAPES = (X512_MAIN_SHAPE, (1, 200, 16, 16, 512, True),
+                     (2, 1000, 12, 2, 512, False))
+TRI_X512_MAIN_SHAPE = (1, 8192, 8, 1, 512, True)
+TRI_X512_CHECK_SHAPES = (TRI_X512_MAIN_SHAPE, (1, 4136, 8, 1, 512, True),
+                         (1, 4160, 12, 2, 512, True))
+STR_X512_MAIN_SHAPE = (1, 4096, 8, 1, 512, False)
+STR_X512_CHECK_SHAPES = (STR_X512_MAIN_SHAPE,
+                         (1, 4136, 16, 16, 512, False),
+                         (1, 4160, 8, 1, 512, False))
+# The width-512 CTAs (csrc/flash_fwd_sm90.cuh fwd_cta_wide,
+# flash_bwd_sm90.cuh dq_cta_512 and dkv_cta_512).
+X512_DESIGN = ("fwd: 128 q rows x one 256-column chunk a CTA, 32-row K/V "
+               "tiles in 2 stages; dq: 64 q rows, a consumer a chunk, 32-row "
+               "K tiles in 2 stages and V in 1; dk/dv: 64 kv rows x a chunk "
+               "a CTA, dv and dk in separate consumers, one stage of 32-row "
+               "Q/dO tiles")
 # The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
 # the SASS.
 SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
@@ -488,7 +553,7 @@ TRI_NAMES = ("flash_fwd_tri", "flash_dq_tri", "flash_dkv_tri")
 STREAMED_NAMES = ("flash_fwd_streamed", "flash_dq_streamed",
                   "flash_dkv_streamed")
 # The head_dim instances of every Hopper kernel.
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256, 512)
 
 N_LAYERS = 4
 BATCH, SEQ = 2, 2048
@@ -558,6 +623,13 @@ GL_BATCHES, GL_SEQ, GL_STEPS = (8, 7, 6, 5, 4), 2048, 4
 # every attention call takes the width-256 triangular kernels; its f32
 # logits are 8.4 GB a copy at batch 1.
 GLONG_BATCHES, GLONG_SEQ, GLONG_STEPS = (8, 4, 2, 1), 8192, 4
+# The gemma_wide phase: Gemma-2B's widths (GemmaConfig(): dim 2048, 8 heads
+# over 1 KV head, mlp 16384, vocab 256000 tied) with head_dim_ 512, depth
+# cut from 18 to 2 layers, at 1 x 8192 through make_train_step as [long]
+# runs it (save_flash_offload_qkv, chunked CE), adamw: every attention
+# call takes the width-512 triangular kernels. A check of the path, not a
+# cell.
+GW_LAYERS, GW_HEAD_DIM, GW_BATCH, GW_SEQ, GW_STEPS = 2, 512, 1, 8192, 4
 # The serve phase: one Llama-3-8B replica (full width and depth, bf16,
 # random weights) through the port's serve_llm at its own max_seq
 # (MAX_PROMPT_TOKENS + MAX_GEN_TOKENS = 1280), 8 engine slots, paged,
@@ -1060,14 +1132,14 @@ def phase_kernels_wide(fa, records):
     _check_resident_pair_past_budget(fa, seed)
 
 
-def _print_pair_vs_sdpa(fam, fns, records):
-    """A family's backward pair's time at width 256 beside SDPA's whole
-    backward (dq, dk, dv) on the same inputs, both from this run."""
+def _print_pair_vs_sdpa(fam, fns, records, tag="[kernels d256]"):
+    """A family's backward pair's time at width 256 (or 512) beside SDPA's
+    whole backward (dq, dk, dv) on the same inputs, both from this run."""
     dq, dkv = fns.names[1:]
     dq_ms, dkv_ms = records[dq]["ms"], records[dkv]["ms"]
     lib = records[dq]["library_ms"]
     total = dq_ms + dkv_ms
-    print(f"[kernels d256] {fam} backward pair: {dq} {dq_ms:.4f} + {dkv} "
+    print(f"{tag} {fam} backward pair: {dq} {dq_ms:.4f} + {dkv} "
           f"{dkv_ms:.4f} = {total:.4f} ms; SDPA's whole backward "
           + ("none" if lib is None else
              f"{lib:.4f} ms (pair / SDPA {total / lib:.3f})"), flush=True)
@@ -1094,16 +1166,19 @@ def _check_resident_pair_past_budget(fa, seed):
         seed += 1
 
 
-def _print_launches(fa, fam, fns, shape):
-    """Each kernel's launch at a width-256 shape: its items (CTAs), P (the
-    parts of the GQA group every width-256 dk/dv splits across CTAs) and
-    its dynamic shared memory (the kernel's build report); the resident
-    and triangular dq's CTA shapes."""
+def _print_launches(fa, fam, fns, shape, tag="[kernels d256]"):
+    """Each kernel's launch at a width-256 or -512 shape: its CTAs, P (the
+    parts of the GQA group every width-256 and -512 dk/dv splits across
+    CTAs) and its dynamic shared memory (the kernel's build report); the
+    resident and triangular dq's CTA shapes at 256, X512_DESIGN at 512."""
     b, s, h, kvh, d, causal = shape
+    width = fa.kernel_head_dim(d)
     parts = fa.dkv_parts(b, s, kvh, h // kvh, causal,
-                         fa._sm_count(torch.device("cuda")))
-    items = (b * h * -(-s // fa.FWD_TILE), b * h * -(-s // fa.BWD_TILE),
-             b * kvh * -(-s // fa.WIDE_KV_TILE) * parts)
+                         fa._sm_count(torch.device("cuda")), width)
+    n = fa.chunks(width)
+    dq_tile = fa.CHUNKED_DQ_TILE if width > 256 else fa.BWD_TILE
+    items = (b * h * -(-s // fa.FWD_TILE) * n, b * h * -(-s // dq_tile),
+             b * kvh * -(-s // fa.WIDE_KV_TILE) * parts * n)
     source = {fa.RESIDENT: ("flash_fwd", "flash_bwd", "flash_bwd"),
               fa.TRIANGULAR: ("flash_tri",) * 3,
               fa.STREAMED: ("flash_streamed",) * 3}[fam]
@@ -1111,15 +1186,115 @@ def _print_launches(fa, fam, fns, shape):
     for name, src, n, p in zip(fns.names, source, items, (1, 1, parts)):
         out = (ctypes.c_int * 5)()
         check(getattr(fa._build.library(src), f"stpu_{name}_attrs")(
-            d, fa._build.DTYPES["bf16"], out) == 0, f"{name} attrs failed")
-        notes.append(f"{name} {n} items, P {p}, {out[1]} B shared")
-    notes[0] += f" ({WIDE_FWD_DESIGN[fns.names[0]]})"
-    if fam == fa.RESIDENT:
-        notes[1] += f" ({WIDE_DQ_DESIGN})"
-    elif fam == fa.TRIANGULAR:
-        notes[1] += f" ({TRI_WIDE_DQ_DESIGN})"
-    print(f"[kernels d256] {fam} {shape} launches: " + "; ".join(notes),
-          flush=True)
+            width, fa._build.DTYPES["bf16"], out) == 0,
+            f"{name} attrs failed")
+        notes.append(f"{name} {n} CTAs, P {p}, {out[1]} B shared")
+    if width > 256:
+        notes.append(X512_DESIGN)
+    else:
+        notes[0] += f" ({WIDE_FWD_DESIGN[fns.names[0]]})"
+        if fam == fa.RESIDENT:
+            notes[1] += f" ({WIDE_DQ_DESIGN})"
+        elif fam == fa.TRIANGULAR:
+            notes[1] += f" ({TRI_WIDE_DQ_DESIGN})"
+    print(f"{tag} {fam} {shape} launches: " + "; ".join(notes), flush=True)
+
+
+def phase_kernels_512(fa, records):
+    """[kernels d512]: each family's trio at width 512 (fwd_cta_wide,
+    dq_cta_512, dkv_cta_512: X512_DESIGN; natural exp for the resident
+    and streamed families, base 2 for the triangular one) against its
+    plain versions in bf16 at its shapes, one launch of each kernel per
+    trio, each launch's CTAs, P and shared memory printed; then at its
+    main shape the backward pair twice bit-identical, the times (bf16,
+    f16, plain, SDPA with the backend it picks, bound), the pair beside
+    SDPA's whole backward and f16 against the plain versions. Records
+    keyed "<name>@512"."""
+    seed = 60
+    for fam, shapes, main in ((fa.RESIDENT, X512_CHECK_SHAPES,
+                               X512_MAIN_SHAPE),
+                              (fa.TRIANGULAR, TRI_X512_CHECK_SHAPES,
+                               TRI_X512_MAIN_SHAPE),
+                              (fa.STREAMED, STR_X512_CHECK_SHAPES,
+                               STR_X512_MAIN_SHAPE)):
+        for shape in shapes:
+            b, s, h, kvh, d, causal = shape
+            check(fa.family(s, d, causal) == fam
+                  and fa.kernel_head_dim(d) == 512,
+                  f"{shape} is not a width-512 {fam} shape")
+            fns = Family(fa, fam, causal, d ** -0.5)
+            _print_launches(fa, fam, fns, shape, "[kernels d512]")
+            q, k, v, do = _inputs(shape, seed)
+            fa.reset_launches()
+            o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+            torch.cuda.synchronize()
+            _expect_launches(fa, f"[kernels d512] {fam}", shape, fns.names)
+            o_p, lse_p = fns.fwd_plain(q, k, v)
+            dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+            errs = _hold(f"[kernels d512] {fam}", shape, (
+                ("o", (o, o_p), OUT_REL_TOL),
+                ("lse", (lse, lse_p), OUT_REL_TOL),
+                ("dq", (dq, dq_p), GRAD_REL_TOL),
+                ("dk", (dk, dk_p), GRAD_REL_TOL),
+                ("dv", (dv, dv_p), GRAD_REL_TOL)))
+            del o_p, lse_p, dq_p, dk_p, dv_p
+            if shape == main:
+                _check_deterministic(fns, (q, k, v, do), (o, lse),
+                                     (dq, dk, dv))
+                x512 = _measure(fns, shape, (q, k, v, do), (o, lse, delta),
+                                errs)
+                _check_f16(fns, shape, seed, x512)
+                records.update((f"{name}@512", rec)
+                               for name, rec in x512.items())
+                _print_pair_vs_sdpa(fam, fns, x512, "[kernels d512]")
+                backend = _sdpa_backend(shape, (q, k, v))
+                for rec in x512.values():
+                    rec["library_backend"] = backend
+            del q, k, v, do, o, lse, dq, delta, dk, dv
+            torch.cuda.empty_cache()
+            seed += 1
+
+
+def _sdpa_backend(shape, qkv):
+    """Which of SDPA's backends take these inputs, each tried alone
+    (torch.nn.attention.sdpa_kernel, forward), and the one its default
+    dispatch ran: named from the CUDA kernels a profiled default call
+    launched ("not identified" when the profiler saw none)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    causal, scale = shape[-1], shape[4] ** -0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in qkv)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+
+    takes = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with torch.no_grad(), sdpa_kernel(backend):
+                sdpa()
+            takes.append(backend.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    names = [e.key for e in sorted(
+        prof.key_averages(), key=lambda e: -e.device_time_total)
+        if e.device_time_total > 0][:3]
+    joined = " ".join(names).lower()
+    picked = ("FLASH_ATTENTION" if "flash" in joined else
+              "EFFICIENT_ATTENTION" if ("fmha" in joined
+                                        or "efficient" in joined) else
+              "CUDNN_ATTENTION" if "cudnn" in joined else
+              "MATH" if names else "not identified")
+    print(f"[kernels d512] SDPA at {shape}: backends that take it {takes}; "
+          f"the default call ran {picked} (kernels {names})", flush=True)
+    return picked
 
 
 def phase_wide_op(fa, attention_ops, records):
@@ -1127,7 +1302,12 @@ def phase_wide_op(fa, attention_ops, records):
     through autograd: causal, exactly one launch of each triangular
     kernel, non-causal one of each streamed kernel (their launches in the
     kernels line: per call of the op), each against its family's plain
-    versions. Past width 256 no kernel exists: head_dim REFUSED_HEAD_DIM
+    versions; then at PAD512_OP_SHAPES, the head_dims that pad to the
+    width-512 kernels, one launch of each kernel of the caller's family
+    (the resident and streamed calls at 512 give their @512 records'
+    launches), against the plain versions at the caller's head_dim, and
+    the padded columns of the kernels' outputs on the padded inputs
+    exactly 0. Past width 512 no kernel exists: head_dim REFUSED_HEAD_DIM
     must raise a ValueError naming it, before any launch."""
     b, s, h, kvh, d, _ = WIDE_OP_SHAPE
     for causal in (True, False):
@@ -1154,6 +1334,8 @@ def phase_wide_op(fa, attention_ops, records):
                 records[f"{name}@256"]["launches"] = launches[name]
         del q, k, v, do, out, grads, o_p, lse_p, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
+    for idx, shape in enumerate(PAD512_OP_SHAPES):
+        _op_at_512(fa, attention_ops, records, shape, 51 + idx)
     shape = (b, s, h, kvh, REFUSED_HEAD_DIM, True)
     q, k, v, do = _inputs(shape, 50)
     fa.reset_launches()
@@ -1169,6 +1351,45 @@ def phase_wide_op(fa, attention_ops, records):
           f"the op at {shape} did not refuse head_dim {REFUSED_HEAD_DIM} "
           "by name")
     _expect_launches(fa, "[wide op]", shape, ())
+
+
+def _op_at_512(fa, attention_ops, records, shape, seed):
+    """The op at a head_dim that pads to 512 (phase_wide_op)."""
+    b, s, h, kvh, d, causal = shape
+    fam = fa.family(s, d, causal)
+    check(fa.kernel_head_dim(d) == 512, f"{shape} does not pad to 512")
+    fns = Family(fa, fam, causal, d ** -0.5)
+    q, k, v, do = _inputs(shape, seed)
+    fa.reset_launches()
+    out, grads = _op_grads(attention_ops, q, k, v, causal, do)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    _expect_launches(fa, f"[wide op] attention(causal={causal}) {fam}",
+                     shape, fns.names)
+    check(out.shape == q.shape and grads[1].shape == k.shape,
+          "padded head_dim leaked out of the op")
+    o_p, lse_p = fns.fwd_plain(q, k, v)
+    dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o_p, lse_p, do)
+    _hold("[wide op]", shape, (("o", (out, o_p), OUT_REL_TOL),
+                               ("dq", (grads[0], dq_p), GRAD_REL_TOL),
+                               ("dk", (grads[1], dk_p), GRAD_REL_TOL),
+                               ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
+    del out, grads, o_p, lse_p, dq_p, dk_p, dv_p
+    if d == 512 and fam != fa.TRIANGULAR:
+        for name in fns.names:
+            records[f"{name}@512"]["launches"] = launches[name]
+    if d < 512:
+        o, _, dq, _, dk, dv = fns.run(
+            *(fa.pad_head_dim(t, 512) for t in (q, k, v, do)))
+        torch.cuda.synchronize()
+        zero = {n: bool((t[..., d:] == 0).all()) for n, t in
+                (("o", o), ("dq", dq), ("dk", dk), ("dv", dv))}
+        print(f"[wide op] {shape} {fns.names} at width 512: columns "
+              f"{d}-511 exactly 0 {zero}", flush=True)
+        check(all(zero.values()), f"padded columns not 0 at {shape}")
+        del o, dq, dk, dv
+    del q, k, v, do
+    torch.cuda.empty_cache()
 
 
 def _time_streamed_forward(fa, fns, shape, qkv, records):
@@ -1354,10 +1575,11 @@ def phase_f32_op(fa, attention_ops):
               f"rtol |ref| o {excess[0]:.3e}, dq {excess[1]:.3e}, dk "
               f"{excess[2]:.3e}, dv {excess[3]:.3e} (bounds {F32_OUT_TOL}, "
               f"{F32_GRAD_TOL})", flush=True)
-    # The fp32 kernels' time at the slice's attention shape and at width
-    # 256 past the budget (not a path the port's bf16 models take: f32 is
-    # the exact path, not the fast one), beside the fp32 plain versions'.
-    for shape in (MAIN_SHAPE, F32_OP_SHAPES[-1]):
+    # The fp32 kernels' time at the slice's attention shape and at widths
+    # 256 and 512 (not a path the port's bf16 models take: f32 is the
+    # exact path, not the fast one), beside their bound at the card's
+    # fp32 peak and the fp32 plain versions'.
+    for shape in F32_TIMED_SHAPES:
         q, k, v, do = _inputs(shape, 22, torch.float32)
         causal, scale = shape[-1], shape[4] ** -0.5
         o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
@@ -1380,10 +1602,15 @@ def phase_f32_op(fa, attention_ops):
         lib_note = ("SDPA none" if lib[0] is None else
                     f"SDPA forward {lib[0]:.3f} ms, whole backward "
                     f"{lib[1]:.3f} ms")
+        b, s, h, _, d, _ = shape
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        bounds = [1e3 * n * d * pairs / PEAK_F32_FLOPS for n in (4, 6, 8)]
         print(f"[f32 op] fp32 kernels at {shape}: forward {times[0]:.3f} "
-              f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms; plain "
-              f"forward {plain[0]:.3f} ms, backward {plain[1]:.3f} ms; "
-              f"{lib_note}", flush=True)
+              f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms; bound "
+              f"at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s fp32 "
+              f"{bounds[0]:.3f} / {bounds[1]:.3f} / {bounds[2]:.3f} ms "
+              f"(operations); plain forward {plain[0]:.3f} ms, backward "
+              f"{plain[1]:.3f} ms; {lib_note}", flush=True)
         del q, k, v, do, o, lse, delta
 
 
@@ -3924,6 +4151,84 @@ def phase_gemma_long(fa, trainer, records, card, dev="cuda"):
                   dev)
 
 
+def phase_gemma_wide(fa, trainer, records):
+    """[gemma_wide]: GW_STEPS adamw steps of Gemma-2B's widths at head_dim
+    512 (GW_LAYERS layers, GW_BATCH x GW_SEQ) through make_train_step with
+    [long]'s remat policy and chunked CE: the loss falls, launches exactly
+    L/L/L of the width-512 triangular kernels a step and no other, and one
+    forward's loss within LOSS_TOL of the reference attention's."""
+    from skypilot_tpu_torch.models import gemma
+    cfg = dataclasses.replace(gemma.GemmaConfig(), n_layers=GW_LAYERS,
+                              head_dim_=GW_HEAD_DIM, max_seq_len=GW_SEQ,
+                              remat_policy=LC_POLICY)
+    check(fa.family(GW_SEQ, cfg.head_dim, True) == fa.TRIANGULAR
+          and fa.kernel_head_dim(cfg.head_dim) == 512,
+          f"head_dim {cfg.head_dim} at seq {GW_SEQ} does not take the "
+          "width-512 triangular kernels")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = gemma.init(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (GW_BATCH, GW_SEQ),
+                           device="cuda", generator=gen)
+    batch = {"tokens": tokens}
+    tx = trainer.make_optimizer(trainer.TrainConfig(warmup_steps=1,
+                                                    total_steps=100))
+    state = trainer.init_train_state(params, tx)
+    step = trainer.make_train_step(
+        lambda p, t: gemma.forward(cfg, p, t), tx,
+        trunk_fn=lambda p, t: gemma.forward_trunk(cfg, p, t),
+        head_fn=gemma.head_weights, with_grad_norm=False)
+    print(f"[gemma_wide] Gemma-2B widths, head_dim {cfg.head_dim} "
+          f"({cfg.n_heads} heads / {cfg.n_kv_heads} KV head), {GW_LAYERS} "
+          f"layers, {cfg.num_params() / 1e9:.3f} B params, batch "
+          f"{GW_BATCH} x seq {GW_SEQ}, bf16, remat {cfg.remat_policy}, "
+          f"chunked CE, adamw", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(GW_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    losses = [float(x) for x in losses]
+    print(f"[gemma_wide] losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[gemma_wide] launches {launches}", flush=True)
+    check(_finite(losses), "non-finite loss")
+    check(losses[-1] < losses[0], "loss did not fall")
+    expect = dict.fromkeys(launches, 0)
+    expect.update(dict.fromkeys(TRI_NAMES, GW_LAYERS * GW_STEPS))
+    check(launches == expect, f"launch counts {launches} != {expect} "
+          "(L width-512 triangular forward, dq and dk/dv per step, no "
+          "other)")
+    steady = statistics.median(step_s[1:])
+    print(f"[gemma_wide] step {steady * 1e3:.1f} ms (median of steps 2-"
+          f"{GW_STEPS}; first {step_s[0] * 1e3:.1f} ms), "
+          f"{GW_BATCH * GW_SEQ / steady:.0f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    for name in TRI_NAMES:
+        records[f"{name}@512"]["launches"] = launches[name]
+        records[f"{name}@512"]["step_ms"] = steady * 1e3
+    with torch.no_grad():
+        out = {}
+        for impl in ("kernel", "reference"):
+            c = dataclasses.replace(cfg, attention_impl=impl, remat=False)
+            hidden = gemma.forward_trunk(c, state.params, tokens)
+            check(bool(torch.isfinite(hidden).all()),
+                  f"non-finite hidden states from impl={impl}")
+            out[impl] = float(trainer.chunked_cross_entropy_loss(
+                hidden[:, :-1], gemma.head_weights(state.params),
+                tokens[:, 1:]))
+            del hidden
+    diff = abs(out["kernel"] - out["reference"])
+    print(f"[gemma_wide] loss kernel {out['kernel']:.5f} reference "
+          f"{out['reference']:.5f} |diff| {diff:.2e} (tol {LOSS_TOL})",
+          flush=True)
+    check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
+
+
 def _gemma_exactness(decode_engine, prng, dev):
     """f32 at Gemma-2B's width cut to 4 layers, TF32 off: the engine's
     paged streams == its dense ones == gemma.decode (greedy), then the
@@ -4939,6 +5244,7 @@ def main() -> int:
         try:
             records = _timed(phase_kernels, fa)
             _timed(phase_kernels_wide, fa, records)
+            _timed(phase_kernels_512, fa, records)
         finally:
             CLOCKS.stop()
         _timed(phase_ragged_op, fa, attention_ops)
@@ -4971,6 +5277,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         _timed(phase_gemma_long, fa, trainer, records, card)
         torch.cuda.empty_cache()
+        _timed(phase_gemma_wide, fa, trainer, records)
+        torch.cuda.empty_cache()
         tp_ref = _timed(phase_serve, fa, llama, card)
         _timed(phase_lb_bench, card)
         torch.cuda.empty_cache()
@@ -4986,13 +5294,13 @@ def main() -> int:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
     summary = [(name, kernel, 128) for name, _, kernel in SM90_KERNELS]
-    summary += [(f"{name}@256", kernel, 256)
+    summary += [(f"{name}@{d}", kernel, d) for d in (256, 512)
                 for name, _, kernel in SM90_KERNELS]
     for key, kernel, d in summary:
         rec = records[key]
         rec["regs"], rec["smem_bytes"] = attrs[(kernel, d, "Bf16")]
         where = (f"its step {rec['step_ms']:.1f} ms" if "step_ms" in rec
-                 else "per call of the non-causal op")
+                 else "per call of the op")
         clock = (f"SM {rec['sm_clock_mhz']:.0f} MHz" if rec["sm_clock_mhz"]
                  else "SM clock not sampled")
         lib = ("none" if rec["library_ms"] is None

@@ -34,7 +34,11 @@
 // dkv_cta_wide, as the triangular and streamed dk/dv do (one 64-row kv
 // tile per CTA, dv and dk in separate consumers, the GQA group in P
 // parts over dkv_wide_schedule's (b*KVH, kv tile, part) items, partials
-// summed in part order by the last to finish).
+// summed in part order by the last to finish). At 512 dq runs dq_cta_512
+// (64 q rows, one 256-column chunk of dq a consumer, 32-row K tiles in two
+// stages and V in one) over 64-row q tiles, and dk/dv dkv_cta_512 (one CTA
+// per chunk of each dkv_wide_schedule item, one stage of 32-row Q/dO
+// tiles); both recompute S and dP over all 512 columns per chunk.
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -48,8 +52,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv, const BwdParams p,
                 const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dq_cta<D, T, BaseE, 0, sm90::DqResident<D>>(tq, tdo, tk, tv, p, work,
-                                                    smem);
+  if constexpr (D > 256)
+    sm90::dq_cta_512<D, T, BaseE>(tq, tdo, tk, tv, p, work, smem);
+  else
+    sm90::dq_cta<D, T, BaseE, 0, sm90::DqResident<D>>(tq, tdo, tk, tv, p,
+                                                      work, smem);
 }
 
 template <int D, class T>
@@ -62,7 +69,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tdlt, const BwdParams p,
                  const int* __restrict__ work, const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 128)
+  if constexpr (D > 256)
+    sm90::dkv_cta_512<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work,
+                                    split, smem);
+  else if constexpr (D > 128)
     sm90::dkv_cta_wide<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work,
                                      split, smem);
   else
@@ -72,7 +82,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace
 }  // namespace stpu
 
-// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs. dtype: the
+// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs (at head_dim
+// 512 B*H*ceil(S/64), 64-row tiles). dtype: the
 // element type of q, k, v, o, dO and dq (Bf16::kDtype, F16::kDtype).
 // strides: (batch, seq, head) in elements for q, k, v, o, dO. dq (B, S, H,
 // D) and delta (B, H, S) fp32 are written contiguous; lse is natural-log.
@@ -92,13 +103,14 @@ extern "C" int stpu_flash_dq(const void* q, const void* k, const void* v,
 }
 
 // work: at head_dim 64 and 128, B*KVH*ceil(S/128) (b*KVH, 128-row kv tile)
-// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row
-// kv tile, part) triples, parts dividing H / KVH, and with parts > 1 an
-// fp32 workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64)
-// int32 tickets, zero (dkv_cta_wide). strides: (batch, seq, head) in
-// elements for q, k, v, dO. dk and dv are written contiguous (B, S, KVH,
-// D), of the inputs' type; lse and delta (B, H, S) fp32 are read through
-// tensor maps.
+// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row kv
+// tile, part) triples, parts dividing H / KVH, and with parts > 1 an fp32
+// workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64) int32
+// tickets, zero (dkv_cta_wide); at 512 the same items, two CTAs each, and
+// 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: (batch, seq, head) in
+// elements for q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D),
+// of the inputs' type; lse and delta (B, H, S) fp32 are read through tensor
+// maps.
 extern "C" int stpu_flash_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv,

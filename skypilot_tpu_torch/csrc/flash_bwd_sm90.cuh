@@ -12,7 +12,7 @@
 //   family (below), the group split across CTAs and summed in a fixed
 //   order.
 //
-// Both are templates over D (64, 128, 256), the element type T (bf16,
+// Both are templates over D (64, 128, 256, 512), the element type T (bf16,
 // f16: the inputs', P's and dS's before their products, and the outputs') and
 // the softmax base (Base2: exp2 with a base-2 lse, sm = scale * log2(e)
 // folded into the one FFMA each score takes; BaseE: natural exp and lse;
@@ -133,6 +133,27 @@
 //     load issued before the sums), times scale for dk, rounds to T and
 //     writes them: one launch, no float atomics, and the same sum in the
 //     same order whichever item arrives last, so deterministic.
+// - Head_dim 512 (every family, in every base): a consumer cannot hold a
+//   64-row block of dq, dk or dv (256 fp32 a thread), so each holds one
+//   kChunk (256)-column chunk, and S and dP (S^T and dP^T) are recomputed
+//   over all 512 columns for each chunk; every tile streamed against the
+//   resident operand is kTile512 (32) rows, S and dP m64n32 with both
+//   operands in shared memory.
+//   - dq_cta_512: 64 q rows a CTA (Q and dO, 128 KB), both consumers on
+//     them, consumer c computing dq's chunk c (dS K with K read MN-major
+//     from its chunk's boxes): S and dP computed twice, 1.67 times dq's
+//     minimal FLOPs. K tiles in two stages and V in one on barriers of
+//     their own (DqSplitKV's ring; 230,968 B). Each consumer computes
+//     delta of the rows; consumer 0 writes it. dq goes out from registers
+//     (store_acc): the other consumer may still read Q.
+//   - dkv_cta_512: one 64-row kv tile (K and V, 128 KB) and one chunk a
+//     CTA (block i is chunk i % 2 of dkv_wide_schedule's item i / 2),
+//     dv's chunk in consumer 0 and dk's in consumer 1 as dkv_cta_wide;
+//     the ring has one stage of a 32-row Q and dO tile (a second would
+//     pass 227 KB), so loads and products run in turn (197,928 B). Twice
+//     dk/dv's minimal FLOPs. The GQA split, its workspace (2, P, B, S,
+//     KVH, 512) and the last-arrival sum are dkv_cta_wide's, ticketed per
+//     kv tile and chunk.
 // - Not done: a persistent grid; overlapping one tile's elementwise work
 //   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
 //   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
@@ -351,51 +372,6 @@ __device__ __forceinline__ void mma_rs(float (&d)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
     wgmma_pv<D, T>(d, a[kk], desc_b + ((kk * 16 * 128) >> 4));
-}
-
-// d (m64n32, fp32) = A B, or d += A B when scale_d is nonzero; A and B (T)
-// read from shared memory through descriptors, both K-major.
-template <class T>
-__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16],
-                                               uint64_t desc_a,
-                                               uint64_t desc_b,
-                                               int scale_d) {
-#define STPU_WGMMA(TY)                                                      \
-  asm volatile(                                                             \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                          \
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"          \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
-      "%12, %13, %14, %15"                                                  \
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                    \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-        "+f"(d[15])                                                         \
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
-  if constexpr (T::kHalf)
-    STPU_WGMMA("f16");
-  else
-    STPU_WGMMA("bf16");
-#undef STPU_WGMMA
-}
-
-// mma_nt with N-row B tiles: d (64 x N fp32) = A B^T over D, N = 64 or
-// 32.
-template <int D, class T, int N>
-__device__ __forceinline__ void mma_nt_n(float (&d)[N / 2], uint64_t desc_a,
-                                         int a_box, uint64_t desc_b,
-                                         int b_box) {
-  if constexpr (N == 64) {
-    mma_nt<D, T>(d, desc_a, a_box, desc_b, b_box);
-  } else {
-    static_assert(N == 32, "S and dP tiles of 64 or 32 keys");
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t in_box = (kk % 4) * 32;
-      wgmma_m64n32_ss<T>(d, desc_a + (((kk / 4) * a_box + in_box) >> 4),
-                         desc_b + (((kk / 4) * b_box + in_box) >> 4), kk);
-    }
-  }
 }
 
 // Sum of the products of 8 pairs of T.
@@ -1215,17 +1191,500 @@ __device__ __forceinline__ void dkv_cta_wide(
   }
 }
 
+// ------------------------------------------------ dq and dk/dv at head_dim 512
+
+// 16-byte chunk ch of row R of a kRows-row tile stored as TMA's 128-byte
+// swizzle left it (D / 64 boxes of kRows x 128 bytes), in elements: swz
+// for tiles of other than kBM rows.
+template <int kRows>
+__device__ __forceinline__ int swz_rows(int R, int ch) {
+  return (ch / 8) * kRows * kBoxCols + R * kBoxCols + ((ch % 8) ^ (R % 8)) * 8;
+}
+
+// The dq CTA at head_dim 512: kDq512Rows q rows of Q and dO (64 KB each),
+// held by both consumers, consumer c computing dq's chunk c; K tiles of
+// kTile512 rows in kDq512KSlots stages and V tiles in one, each on
+// barriers of their own (DqSplitKV's ring at half the rows and twice the
+// width); delta of the rows once per consumer; mbarriers full[3],
+// empty[3] (K's stages, then V's), q. 230,968 B.
+constexpr int kDq512Rows = 64;
+constexpr int kDq512KSlots = 2;
+template <int D>
+struct DqSmem512 {
+  static constexpr int kRowsTile = kDq512Rows * D * 2;
+  static constexpr int kTile = kTile512 * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kRowsTile;
+  static constexpr int kK = 2 * kRowsTile;
+  static constexpr int kV = kK + kDq512KSlots * kTile;
+  static constexpr int kDelta = kV + kTile;
+  static constexpr int kBars = kDq512KSlots + 1;
+  static constexpr int kBar = kDelta + kConsumers * kDq512Rows * 4;
+  static constexpr int kBytes = kBar + (2 * kBars + 1) * 8 + 1024;
+  static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
+};
+
+// The producer's one thread: Q and dO, then K_j into its stage (once K_{j
+// - 2} is released) and V_j into the one V stage (once V_{j - 1} is: after
+// both consumers' dP).
+template <int D>
+__device__ __forceinline__ void dq_producer_512(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, const BwdParams& p, unsigned char* base, int b,
+    int h, int qt, int n_kt) {
+  using L = DqSmem512<D>;
+  const int kvh = h / (p.H / p.KVH);
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kBars;
+  const uint32_t qbar = full0 + 16 * L::kBars;
+  const uint32_t vbar = 8 * kDq512KSlots;
+  mbar_expect_tx(qbar, 2 * L::kRowsTile);
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c) {
+    const int off = c * kDq512Rows * 128;
+    tma_load_4d(base + L::kQ + off, &tq, qbar, c * kBoxCols,
+                qt * kDq512Rows, h, b);
+    tma_load_4d(base + L::kDO + off, &tdo, qbar, c * kBoxCols,
+                qt * kDq512Rows, h, b);
+  }
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kDq512KSlots;
+    if (j >= kDq512KSlots)
+      mbar_wait(empty0 + 8 * st, (j / kDq512KSlots - 1) & 1);
+    mbar_expect_tx(full0 + 8 * st, L::kTile);
+#pragma unroll
+    for (int c = 0; c < D / kBoxCols; ++c)
+      tma_load_4d(base + L::kK + st * L::kTile + c * kTile512 * 128, &tk,
+                  full0 + 8 * st, c * kBoxCols, j * kTile512, kvh, b);
+    if (j >= 1) mbar_wait(empty0 + vbar, (j - 1) & 1);
+    mbar_expect_tx(full0 + vbar, L::kTile);
+#pragma unroll
+    for (int c = 0; c < D / kBoxCols; ++c)
+      tma_load_4d(base + L::kV + c * kTile512 * 128, &tv, full0 + vbar,
+                  c * kBoxCols, j * kTile512, kvh, b);
+  }
+}
+
+// A consumer warpgroup of the width-512 dq: chunk cw (its warpgroup index,
+// taken from lane 0 so the descriptors derived from it sit in uniform
+// registers) of dq for the CTA's 64 q rows. Each consumer computes delta
+// of the rows (consumer 0 writes it), then per K/V tile S = Q K^T and dP =
+// dO V^T over all D columns as m64n32 (both operands from shared memory),
+// releases V, dS, and dq_cw += dS K[:, chunk] (two m64n256k16, K read
+// MN-major from its chunk's boxes), and releases K. Causal, both consumers
+// own the same rows: the loop ends on the CTA's last diagonal tile and
+// masks the two diagonal ones. dq (128), S and dP (16 each) and dS (8) a
+// thread.
+template <int D, class T, class Base>
+__device__ __forceinline__ void dq_consumer_512(const BwdParams& p,
+                                                unsigned char* base, int b,
+                                                int h, int qt, int n_kt) {
+  using L = DqSmem512<D>;
+  constexpr int kKv = kTile512;
+  const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128 - 1, 0);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int q_start = qt * kDq512Rows;
+  const int R0 = warp * 16 + lane / 4;  // and R0 + 8
+  const int row0 = q_start + R0;
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kBars;
+  const uint32_t qbar = full0 + 16 * L::kBars;
+  const uint32_t vbar = 8 * kDq512KSlots;
+  const float sm = p.scale * Base::kScoreMul;
+  const TileMask mask = {p.S, p.causal};
+  const long long stat = ((long long)b * p.H + h) * p.S;
+  const int j_mask =
+      p.causal ? qt * (kDq512Rows / kKv) : masked_tile(0, p.S, kKv, n_kt);
+  float lse_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    lse_r[hf] = row0 + 8 * hf < p.S
+                    ? p.lse[stat + row0 + 8 * hf] * Base::kLseMul
+                    : 0.f;
+
+  // delta = rowsum(dO * O): two threads a row, O from global memory, dO
+  // from the swizzled tile; 0 past S.
+  mbar_wait(qbar, 0);
+  float* sDelta =
+      reinterpret_cast<float*>(base + L::kDelta) + cw * kDq512Rows;
+  {
+    const e16* sdO = reinterpret_cast<const e16*>(base + L::kDO);
+    const int R = tid / 2, half = tid % 2, row = q_start + R;
+    float sum = 0.f;
+    if (row < p.S) {
+      const e16* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+#pragma unroll 4
+      for (int c = 0; c < D / 16; ++c) {
+        const int ch = half * (D / 16) + c;
+        sum += dot8<T>(
+            *reinterpret_cast<const uint4*>(orow + ch * 8),
+            *reinterpret_cast<const uint4*>(sdO +
+                                            swz_rows<kDq512Rows>(R, ch)));
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      sDelta[R] = sum;
+      if (cw == 0 && row < p.S) p.delta[stat + row] = sum;
+    }
+  }
+  warpgroup_sync(1 + cw);
+  const float dlt_r[2] = {sDelta[R0], sDelta[R0 + 8]};
+
+  const uint64_t d_q = smem_desc(base + L::kQ, 16, 1024);
+  const uint64_t d_do = smem_desc(base + L::kDO, 16, 1024);
+  const uint64_t d_k = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t d_v = smem_desc(base + L::kV, 16, 1024);
+  // This consumer's chunk of K (boxes cw * kChunk / 64 on), MN-major.
+  const uint64_t d_kmn = smem_desc(
+      base + L::kK + cw * (kChunk / kBoxCols) * kKv * 128, kKv * 128, 1024);
+
+  float acc[kChunk / 2];
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kDq512KSlots;
+    mbar_wait(full0 + 8 * st, (j / kDq512KSlots) & 1);
+    // V too, before S is issued (DqSplitKV's trap, C7520).
+    mbar_wait(full0 + vbar, j & 1);
+    const uint32_t tile = (st * L::kTile) >> 4;
+    float s[kKv / 2], dp[kKv / 2];
+#pragma unroll
+    for (int i = 0; i < kKv / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma_nt_n<D, T, kKv>(s, d_q, kDq512Rows * 128, d_k + tile, kKv * 128);
+    mma_nt_n<D, T, kKv>(dp, d_do, kDq512Rows * 128, d_v, kKv * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    mbar_arrive_if(empty0 + vbar, tid == 0);  // V_j read
+    uint32_t da[kKv / 16][4];
+    if (p.causal ? j >= j_mask : j == j_mask)
+      ds_tile<T, Base, true, kKv>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                  j * kKv, mask);
+    else
+      ds_tile<T, Base, false, kKv>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                   j * kKv, mask);
+    wgmma_fence();
+    mma_rs<kChunk, T, kKv>(acc, da, d_kmn + tile);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    if (tid == 0) mbar_arrive(empty0 + 8 * st);  // K_j read
+  }
+  store_acc<kChunk, T, false>(
+      acc, p.scale, p.dq + ((long long)b * p.S * p.H + h) * D + cw * kChunk,
+      (long long)p.H * D, q_start, p.S);
+}
+
+// One CTA of the width-512 dq: work item blockIdx.x is (b * H + h,
+// kDq512Rows-row q tile).
+template <int D, class T, class Base>
+__device__ __forceinline__ void dq_cta_512(const CUtensorMap& tq,
+                                           const CUtensorMap& tdo,
+                                           const CUtensorMap& tk,
+                                           const CUtensorMap& tv,
+                                           const BwdParams& p,
+                                           const int* __restrict__ work,
+                                           unsigned char* smem) {
+  static_assert(out_chunks<D>() == kConsumers, "a consumer a chunk");
+  using L = DqSmem512<D>;
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_all = ceil_div(p.S, kTile512);
+  const int n_kt =
+      p.causal ? min(n_all, (qt + 1) * (kDq512Rows / kTile512)) : n_all;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kBars; ++i) {
+      mbar_init(bars + 8 * i, 1);                        // full: producer
+      mbar_init(bars + 8 * (L::kBars + i), kConsumers);  // empty
+    }
+    mbar_init(bars + 16 * L::kBars, 1);                  // q and dO
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      dq_producer_512<D>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    dq_consumer_512<D, T, Base>(p, base, b, h, qt, n_kt);
+  }
+}
+
+// The dk/dv CTA at head_dim 512: K and V of one kWideRows-row kv tile
+// (64 KB each), and one stage of a kTile512-row tile of Q and dO (32 KB
+// each; a second would pass 227 KB) with its lse and delta; two
+// last-arrival flags; mbarriers full, empty, kv. 197,928 B.
+template <int D>
+struct DkvSmem512 {
+  static constexpr int kRing = 1;
+  static constexpr int kTile = kTile512 * D * 2;
+  static constexpr int kRowsTile = kWideRows * D * 2;
+  static constexpr int kStat = kTile512 * 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kRowsTile;
+  static constexpr int kQ = 2 * kRowsTile;
+  static constexpr int kDO = kQ + kRing * kTile;
+  static constexpr int kLse = kDO + kRing * kTile;
+  static constexpr int kDelta = kLse + kRing * kStat;
+  static constexpr int kFlag = kDelta + kRing * kStat;
+  static constexpr int kBar = kFlag + 16;
+  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
+  static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
+};
+
+// The producer's one thread: K and V, then for each of the item's `heads`
+// query heads from h0 its kTile512-row q tiles from i0 (Q, dO, lse,
+// delta), each once for both consumers.
+template <int D>
+__device__ __forceinline__ void dkv_producer_512(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
+    const BwdParams& p, unsigned char* base, int b, int kvh, int kt, int h0,
+    int heads, int i0, int n_qt) {
+  using L = DkvSmem512<D>;
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
+  mbar_expect_tx(kvbar, 2 * L::kRowsTile);
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c) {
+    const int off = c * kWideRows * 128;
+    tma_load_4d(base + L::kK + off, &tk, kvbar, c * kBoxCols, kt * kWideRows,
+                kvh, b);
+    tma_load_4d(base + L::kV + off, &tv, kvbar, c * kBoxCols, kt * kWideRows,
+                kvh, b);
+  }
+  int n = 0;
+  for (int h = h0; h < h0 + heads; ++h) {
+    for (int i = i0; i < n_qt; ++i, ++n) {
+      const int st = n % L::kRing;
+      if (n >= L::kRing) mbar_wait(empty0 + 8 * st, (n / L::kRing - 1) & 1);
+      const uint32_t full = full0 + 8 * st;
+      mbar_expect_tx(full, 2 * L::kTile + 2 * L::kStat);
+#pragma unroll
+      for (int c = 0; c < D / kBoxCols; ++c) {
+        const int off = st * L::kTile + c * kTile512 * 128;
+        tma_load_4d(base + L::kQ + off, &tq, full, c * kBoxCols,
+                    i * kTile512, h, b);
+        tma_load_4d(base + L::kDO + off, &tdo, full, c * kBoxCols,
+                    i * kTile512, h, b);
+      }
+      tma_load_2d(base + L::kLse + st * L::kStat, &tlse, full, i * kTile512,
+                  b * p.H + h);
+      tma_load_2d(base + L::kDelta + st * L::kStat, &tdlt, full,
+                  i * kTile512, b * p.H + h);
+    }
+  }
+}
+
+// P^T = exp(sm * s^T - lse[q]) (kDS false) or dS^T = P^T * (dP^T -
+// delta[q]) (kDS true) of one 64 (kv) x N (q) tile, into the A fragments
+// of the next product, rounded to T. MASK drops the causal pairs q < k.
+template <class T, class Base, bool MASK, bool kDS, int N>
+__device__ __forceinline__ void pds_tile(const float (&s)[N / 2],
+                                         const float (&dp)[N / 2],
+                                         uint32_t (&a)[N / 16][4],
+                                         const float* lse, const float* dlt,
+                                         float sm, int krow0, int q_start) {
+  const int t = threadIdx.x % 4;
+  const float kDrop = -__int_as_float(0x7f800000);  // -inf: exp gives 0
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse + i * 8 + 2 * t);
+    const float2 d2 = *reinterpret_cast<const float2*>(dlt + i * 8 + 2 * t);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(s[4 * i + e], sm, (e & 1) ? -l2.y : -l2.x);
+      if (MASK && q_start + i * 8 + 2 * t + (e & 1) < krow0 + 8 * (e >> 1))
+        x = kDrop;
+      v[e] = Base::exp(x);
+      if constexpr (kDS) v[e] *= dp[4 * i + e] - ((e & 1) ? d2.y : d2.x);
+    }
+    a[i / 2][(i % 2) * 2] = T::pack(v[0], v[1]);
+    a[i / 2][(i % 2) * 2 + 1] = T::pack(v[2], v[3]);
+  }
+}
+
+// One consumer of dkv_cta_512 over the item's q tiles, both on the CTA's
+// kWideRows kv rows and its chunk of columns: kDk false is consumer 0,
+// S^T = K Q^T over all D columns (m64n32), P^T, acc = dv[:, chunk] +=
+// P^T dO[:, chunk]; kDk true is consumer 1, S^T and dP^T = V dO^T, dS^T,
+// acc = dk[:, chunk] += dS^T Q[:, chunk] (unscaled). Causal, both mask q
+// tiles i0 and i0 + 1 (the 64 kv rows' diagonal).
+template <int D, class T, class Base, bool kDk>
+__device__ __forceinline__ void dkv_consumer_512(float (&acc)[kChunk / 2],
+                                                 const BwdParams& p,
+                                                 unsigned char* base, int kt,
+                                                 int chunk, int heads,
+                                                 int i0, int n_qt) {
+  using L = DkvSmem512<D>;
+  constexpr int kN = kTile512;
+  const int tid = threadIdx.x % 128;
+  const int krow0 = kt * kWideRows + (tid / 32) * 16 + (tid % 32) / 4;
+  const uint32_t full0 = smem_addr(base + L::kBar);
+  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
+  const float sm = p.scale * Base::kScoreMul;
+  const int i_end_mask = p.causal ? i0 + kWideRows / kN : -1;
+  const uint64_t d_k = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t d_v = smem_desc(base + L::kV, 16, 1024);
+  const uint64_t d_q = smem_desc(base + L::kQ, 16, 1024);
+  const uint64_t d_do = smem_desc(base + L::kDO, 16, 1024);
+  // dk += dS^T Q reads Q's chunk MN-major, dv += P^T dO reads dO's so.
+  const uint64_t d_bmn =
+      smem_desc(base + (kDk ? L::kQ : L::kDO) +
+                    chunk * (kChunk / kBoxCols) * kN * 128,
+                kN * 128, 1024);
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kvbar, 0);
+  int n = 0;
+  for (int g = 0; g < heads; ++g) {
+    for (int i = i0; i < n_qt; ++i, ++n) {
+      const int st = n % L::kRing;
+      mbar_wait(full0 + 8 * st, (n / L::kRing) & 1);
+      const uint32_t tile = (st * L::kTile) >> 4;
+      const float* lse =
+          reinterpret_cast<const float*>(base + L::kLse + st * L::kStat);
+      const float* dlt =
+          reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
+      float s[kN / 2], dp[kN / 2];
+      uint32_t a[kN / 16][4];
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e) s[e] = dp[e] = 0.f;
+      wgmma_fence();
+      mma_nt_n<D, T, kN>(s, d_k, kWideRows * 128, d_q + tile, kN * 128);
+      if constexpr (kDk)
+        mma_nt_n<D, T, kN>(dp, d_v, kWideRows * 128, d_do + tile, kN * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      if constexpr (kDk) fence_regs(dp);
+      if (i < i_end_mask)
+        pds_tile<T, Base, true, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
+                                         i * kN);
+      else
+        pds_tile<T, Base, false, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
+                                          i * kN);
+      wgmma_fence();
+      mma_rs<kChunk, T, kN>(acc, a, d_bmn + tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(empty0 + 8 * st);  // Q, dO, lse, delta read
+    }
+  }
+}
+
+// A consumer's epilogue at head_dim 512 (which: 0 dv, 1 dk), for its
+// chunk's columns: dkv_wide_store's, with each (kv tile, chunk) ticketed
+// on its own counters.
+template <int D, class T>
+__device__ __forceinline__ void dkv_store_512(
+    const float (&acc)[kChunk / 2], float mul, e16* out, const BwdParams& p,
+    const DkvSplit& split, unsigned char* base, int which, long long off,
+    int bkv, int kt, int chunk, int part) {
+  const long long ss = (long long)p.KVH * D;
+  const int row0 = kt * kWideRows;
+  off += chunk * kChunk;
+  if (split.parts == 1) {
+    store_acc<kChunk, T, false>(acc, mul, out + off, ss, row0, p.S);
+    return;
+  }
+  const long long plane = (long long)split.batch * p.S * ss;
+  float* ws = split.ws + which * split.parts * plane + off;
+  store_acc<kChunk, T, true>(acc, 1.f, ws + part * plane, ss, row0, p.S);
+  __threadfence();
+  warpgroup_sync(1 + which);
+  volatile int* last =
+      reinterpret_cast<int*>(base + DkvSmem512<D>::kFlag) + which;
+  if (threadIdx.x % 128 == 0) {
+    const int tile =
+        (bkv * ceil_div(p.S, kWideRows) + kt) * out_chunks<D>() + chunk;
+    *last = atomicAdd(split.tickets + 2 * tile + which, 1) ==
+            split.parts - 1;
+  }
+  warpgroup_sync(1 + which);
+  if (*last) {
+    __threadfence();
+    sum_parts<kChunk, T>(mul, ws, plane, split.parts, out + off, ss, row0,
+                         p.S);
+  }
+}
+
+// One CTA of every dk/dv at head_dim 512: block i is chunk i % C (C =
+// out_chunks) of work item i / C of dkv_wide_schedule's list, (b * KVH +
+// kvh, kWideRows-row kv tile, part of the GQA group).
+template <int D, class T, class Base>
+__device__ __forceinline__ void dkv_cta_512(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
+    const BwdParams& p, const int* __restrict__ work, const DkvSplit& split,
+    unsigned char* smem) {
+  static_assert(Base::kLseMul == 1.f, "dk/dv reads lse as the base's own");
+  using L = DkvSmem512<D>;
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  constexpr int kC = out_chunks<D>();
+  const int* item = work + 3 * (blockIdx.x / kC);
+  const int chunk = blockIdx.x % kC;
+  const int bkv = item[0], kt = item[1], part = item[2];
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  const int heads = p.H / p.KVH / split.parts;
+  const int h0 = kvh * (p.H / p.KVH) + part * heads;
+  const int n_qt = ceil_div(p.S, kTile512);
+  // Causal: q tiles from the kv tile's first row (kt's rows start before
+  // S).
+  const int i0 = p.causal ? kt * (kWideRows / kTile512) : 0;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kRing; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      mbar_init(bars + 8 * (L::kRing + i), kConsumers);
+    }
+    mbar_init(bars + 16 * L::kRing, 1);  // K and V
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      dkv_producer_512<D>(tq, tdo, tk, tv, tlse, tdlt, p, base, b, kvh, kt,
+                          h0, heads, i0, n_qt);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
+  float acc[kChunk / 2];
+  if (threadIdx.x < 256) {
+    dkv_consumer_512<D, T, Base, false>(acc, p, base, kt, chunk, heads, i0,
+                                        n_qt);
+    dkv_store_512<D, T>(acc, 1.f, p.dv, p, split, base, 0, off, bkv, kt,
+                        chunk, part);
+  } else {
+    dkv_consumer_512<D, T, Base, true>(acc, p, base, kt, chunk, heads, i0,
+                                       n_qt);
+    dkv_store_512<D, T>(acc, p.scale, p.dk, p, split, base, 1, off, bkv, kt,
+                        chunk, part);
+  }
+}
+
 // ----------------------------------------------------------------- host
 
 // A map of the (B * H, S) fp32 rows of lse or delta, as dimensions (S,
-// B * H): boxes of kBwdTile values of one row, unswizzled. Values at or
-// past S read as zeros.
-inline int encode_stats(CUtensorMap* map, const void* ptr, int S, int rows) {
+// B * H): boxes of box_len values of one row, unswizzled. Values at or past
+// S read as zeros.
+inline int encode_stats(CUtensorMap* map, const void* ptr, int S, int rows,
+                        int box_len = kBwdTile) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)S, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)S * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)kBwdTile, 1};
+  const cuuint32_t box[2] = {(cuuint32_t)box_len, 1};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
@@ -1235,31 +1694,45 @@ inline int encode_stats(CUtensorMap* map, const void* ptr, int S, int rows) {
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
-// Encodes dq's four maps and launches `kernel` (an instance of dq_cta of
-// shape Sh) over the B * H * ceil(S / 128) items of `work`.
+// Encodes dq's four maps (Q and dO in boxes of `rows`, K and V of
+// `kv_rows`) and launches `kernel` with `smem` bytes over the B * H *
+// ceil(S / rows) items of `work`.
+template <class T, class Kernel>
+inline int launch_dq_rows(Kernel kernel, const BwdParams& p, int B, int D,
+                          int rows, int kv_rows, int smem, const int* work,
+                          cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
+                           rows);
+  if (!err)
+    err = encode_rows<T>(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
+                         p.do_sb, rows);
+  if (!err)
+    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
+                         kv_rows);
+  if (!err)
+    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
+                         kv_rows);
+  if (err) return err;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int items = B * p.H * ceil_div(p.S, rows);
+  kernel<<<items, kFwdThreads, smem, stream>>>(tq, tdo, tk, tv, p, work);
+  return (int)cudaGetLastError();
+}
+
+// Launches `kernel` (an instance of dq_cta of shape Sh over the B * H *
+// ceil(S / 128) items of `work`; at head_dim 512 of dq_cta_512 over B * H
+// * ceil(S / 64)).
 template <int D, class T, class Sh = DqBase<D>, class Kernel>
 inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
                      const int* work, cudaStream_t stream) {
-  using L = DqSmem<D, Sh>;
-  CUtensorMap tq, tdo, tk, tv;
-  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
-                           kBwdRows);
-  if (!err)
-    err = encode_rows<T>(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
-                         p.do_sb, kBwdRows);
-  if (!err)
-    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                         Sh::kKv);
-  if (!err)
-    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                         Sh::kKv);
-  if (err) return err;
-  const cudaError_t e = allow_smem(kernel, L::kBytes);
-  if (e != cudaSuccess) return (int)e;
-  const int items = B * p.H * ceil_div(p.S, kBwdRows);
-  kernel<<<items, kFwdThreads, L::kBytes, stream>>>(tq, tdo, tk, tv, p,
-                                                    work);
-  return (int)cudaGetLastError();
+  if constexpr (D > 256)
+    return launch_dq_rows<T>(kernel, p, B, D, kDq512Rows, kTile512,
+                             DqSmem512<D>::kBytes, work, stream);
+  else
+    return launch_dq_rows<T>(kernel, p, B, D, kBwdRows, Sh::kKv,
+                             DqSmem<D, Sh>::kBytes, work, stream);
 }
 
 // Encodes dk/dv's six maps and launches `kernel` (an instance of dkv_cta)
@@ -1292,38 +1765,46 @@ inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
   return (int)cudaGetLastError();
 }
 
-// Encodes dkv_cta_wide's six maps (K and V in kWideRows-row boxes) and
-// launches `kernel` over the B * KVH * ceil(S / 64) * P items of `work`.
+// Encodes dkv_cta_wide's six maps (K and V in kWideRows-row boxes, Q, dO,
+// lse and delta in kBwdTile-row ones) and launches `kernel` over the B *
+// KVH * ceil(S / 64) * P items of `work`; at head_dim 512 dkv_cta_512's
+// (Q, dO, lse and delta in kTile512-row ones), out_chunks CTAs an item.
 template <int D, class T, class Kernel>
 inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
                            const int* work, const DkvSplit& split,
                            cudaStream_t stream) {
-  using L = DkvWideSmem<D>;
+  constexpr int kQRows = D > 256 ? kTile512 : kBwdTile;
+  int smem;
+  if constexpr (D > 256)
+    smem = DkvSmem512<D>::kBytes;
+  else
+    smem = DkvWideSmem<D>::kBytes;
   CUtensorMap tq, tdo, tk, tv, tlse, tdlt;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
-                           kBwdTile);
+                           kQRows);
   if (!err)
     err = encode_rows<T>(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
-                         p.do_sb, kBwdTile);
+                         p.do_sb, kQRows);
   if (!err)
     err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
                          kWideRows);
   if (!err)
     err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
                          kWideRows);
-  if (!err) err = encode_stats(&tlse, p.lse, p.S, B * p.H);
-  if (!err) err = encode_stats(&tdlt, p.delta, p.S, B * p.H);
+  if (!err) err = encode_stats(&tlse, p.lse, p.S, B * p.H, kQRows);
+  if (!err) err = encode_stats(&tdlt, p.delta, p.S, B * p.H, kQRows);
   if (err) return err;
-  const cudaError_t e = allow_smem(kernel, L::kBytes);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int items = B * p.KVH * ceil_div(p.S, kWideRows) * split.parts;
-  kernel<<<items, kFwdThreads, L::kBytes, stream>>>(tq, tdo, tk, tv, tlse,
-                                                    tdlt, p, work, split);
+  const int items = B * p.KVH * ceil_div(p.S, kWideRows) * split.parts *
+                    out_chunks<D>();
+  kernel<<<items, kFwdThreads, smem, stream>>>(tq, tdo, tk, tv, tlse, tdlt,
+                                               p, work, split);
   return (int)cudaGetLastError();
 }
 
 // Every dk/dv: dkv_cta's launch at head_dim 64 and 128 (P must be 1),
-// dkv_cta_wide's at 256. P must divide H / KVH.
+// dkv_cta_wide's at 256, dkv_cta_512's at 512. P must divide H / KVH.
 template <int D, class T, class Kernel>
 inline int launch_dkv_split(Kernel kernel, const BwdParams& p, int B,
                             const int* work, const DkvSplit& split,
@@ -1341,8 +1822,13 @@ inline int launch_dkv_split(Kernel kernel, const BwdParams& p, int B,
 
 template <int D, class T, class Sh = DqBase<D>, class Kernel>
 inline int dq_attrs(Kernel kernel, int* out) {
-  return kernel_attrs(kernel, DqSmem<D, Sh>::kBytes, kFwdThreads,
-                      kProducerRegs, kConsumerRegs, out);
+  int smem;
+  if constexpr (D > 256)
+    smem = DqSmem512<D>::kBytes;
+  else
+    smem = DqSmem<D, Sh>::kBytes;
+  return kernel_attrs(kernel, smem, kFwdThreads, kProducerRegs,
+                      kConsumerRegs, out);
 }
 
 template <int D, class T, class Kernel>
@@ -1367,11 +1853,14 @@ inline int dq_tri_attrs(Kernel kernel, int* out) {
   return dq_attrs<D, T, DqTri<D>>(kernel, out);
 }
 
-// Every dk/dv's (dkv_cta_wide's shared memory at head_dim 256).
+// Every dk/dv's (dkv_cta_wide's shared memory at head_dim 256,
+// dkv_cta_512's at 512).
 template <int D, class T, class Kernel>
 inline int dkv_attrs(Kernel kernel, int* out) {
   int smem;
-  if constexpr (D > 128)
+  if constexpr (D > 256)
+    smem = DkvSmem512<D>::kBytes;
+  else if constexpr (D > 128)
     smem = DkvWideSmem<D>::kBytes;
   else
     smem = DkvSmem<D>::kBytes;

@@ -1,7 +1,7 @@
 // Flash attention in fp32 on Hopper (sm_90a): forward, dq and dk/dv for
 // f32 inputs, every family's shapes (any S that is a multiple of 8,
-// head_dim 64, 128 or 256, causal or not), natural exp and a natural-log
-// lse.
+// head_dim 64, 128, 256 or 512, causal or not), natural exp and a
+// natural-log lse.
 //
 // Replaces, for f32 inputs, skypilot_tpu/ops/pallas/flash_attention.py's
 // kernels, whose dots take the input dtype (_fwd_kernel_resident,
@@ -15,24 +15,28 @@
 // What bounds them: fp32 arithmetic outside the tensor cores (67 TFLOP/s
 // on the card, against 989 for bf16 products), and, as written, L2 reads
 // of the K/V (or q/dO) rows. They are the exact path, not the fast one:
-// bf16 and f16 inputs take the Hopper kernels. Design, for plainness: one
-// warp owns kF32Rows rows (q rows for the forward and dq, kv rows of one KV
-// head for dk/dv) and keeps them and their sums in registers, each lane D
-// / 32 columns; it walks the other operand one row at a time up to the
-// causal bound, reading it from global memory (coalesced: a row is D
+// bf16 and f16 inputs take the Hopper kernels. Design, for plainness: one warp
+// owns f32_rows<D>() rows (q rows for the forward and dq, kv rows of one KV
+// head for dk/dv: 4, and 2 at head_dim 512, where four rows of k, v, dk and dv
+// would take 256 registers a lane) and keeps them and their sums in registers,
+// each lane D / 32 columns; it walks the other operand one row at a time up to
+// the causal bound, reading it from global memory (coalesced: a row is D
 // contiguous floats), each dot product a warp sum. No tiles, so a ragged S
-// needs no mask, and no atomics: dk/dv sums the GQA group in registers,
-// and every kernel is deterministic. dq writes delta = rowsum(dO * O) for
-// dk/dv, as the other families do.
+// needs no mask, and no atomics: dk/dv sums the GQA group in registers, and
+// every kernel is deterministic. dq writes delta = rowsum(dO * O) for dk/dv,
+// as the other families do.
 #include "flash_common.cuh"
 
 namespace stpu {
 namespace {
 
-constexpr int kF32Rows = 4;                  // rows a warp owns
 constexpr int kF32Warps = 4;                 // warps a block
 constexpr int kF32Block = 32 * kF32Warps;
-constexpr int kF32BlockRows = kF32Rows * kF32Warps;
+// Rows a warp owns at head_dim D.
+template <int D>
+__host__ __device__ constexpr int f32_rows() {
+  return D > 256 ? 2 : 4;
+}
 
 // The params' 16-bit pointers carry f32 tensors here (element strides of
 // f32).
@@ -68,11 +72,13 @@ __device__ __forceinline__ float dot(const float (&x)[C],
   return warp_sum(s);
 }
 
-// Forward: block (blockIdx.x, b * H + h), warp rows row0 .. row0 + 3.
+// Forward: block (blockIdx.x, b * H + h), warp rows row0 .. row0 +
+// kF32Rows - 1.
 template <int D>
 __global__ void __launch_bounds__(kF32Block)
 flash_fwd_f32_kernel(const FwdParams p) {
-  constexpr int C = D / 32;
+  constexpr int C = D / 32, kF32Rows = f32_rows<D>();
+  constexpr int kF32BlockRows = kF32Rows * kF32Warps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.KVH);
@@ -121,11 +127,13 @@ flash_fwd_f32_kernel(const FwdParams p) {
   }
 }
 
-// dq and delta: block (blockIdx.x, b * H + h), warp rows row0 .. row0 + 3.
+// dq and delta: block (blockIdx.x, b * H + h), warp rows row0 .. row0 +
+// kF32Rows - 1.
 template <int D>
 __global__ void __launch_bounds__(kF32Block)
 flash_dq_f32_kernel(const BwdParams p) {
-  constexpr int C = D / 32;
+  constexpr int C = D / 32, kF32Rows = f32_rows<D>();
+  constexpr int kF32BlockRows = kF32Rows * kF32Warps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.KVH);
@@ -178,11 +186,12 @@ flash_dq_f32_kernel(const BwdParams p) {
 }
 
 // dk and dv: block (blockIdx.x, b * KVH + kvh), warp kv rows row0 ..
-// row0 + 3, summed over the G query heads of the group.
+// row0 + kF32Rows - 1, summed over the G query heads of the group.
 template <int D>
 __global__ void __launch_bounds__(kF32Block)
 flash_dkv_f32_kernel(const BwdParams p) {
-  constexpr int C = D / 32;
+  constexpr int C = D / 32, kF32Rows = f32_rows<D>();
+  constexpr int kF32BlockRows = kF32Rows * kF32Warps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.y / p.KVH, kvh = blockIdx.y % p.KVH;
   const int groups = p.H / p.KVH;
@@ -236,23 +245,32 @@ flash_dkv_f32_kernel(const BwdParams p) {
   }
 }
 
+// Launches `kernel` (an instance at head_dim D) over (ceil(S /
+// (f32_rows<D>() * kF32Warps)), rows) blocks.
+template <int D, class Params>
+int launch_f32(void (*kernel)(const Params), int rows, int S,
+               cudaStream_t stream, const Params& p) {
+  const dim3 grid(ceil_div(S, f32_rows<D>() * kF32Warps), rows);
+  kernel<<<grid, kF32Block, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace stpu
 
-// Launches KERNEL<64>, KERNEL<128> or KERNEL<256> over (ceil(S / 16),
-// ROWS) blocks.
+// Launches KERNEL<64>, KERNEL<128>, KERNEL<256> or KERNEL<512> over ROWS
+// rows of blocks.
 #define STPU_F32_BY_D(HEAD_DIM, KERNEL, ROWS, STREAM, P)                    \
   do {                                                                      \
-    const dim3 grid(ceil_div(S, kF32BlockRows), (ROWS));                    \
     if ((HEAD_DIM) == 64)                                                   \
-      KERNEL<64><<<grid, kF32Block, 0, (STREAM)>>>(P);                      \
-    else if ((HEAD_DIM) == 128)                                             \
-      KERNEL<128><<<grid, kF32Block, 0, (STREAM)>>>(P);                     \
-    else if ((HEAD_DIM) == 256)                                             \
-      KERNEL<256><<<grid, kF32Block, 0, (STREAM)>>>(P);                     \
-    else                                                                    \
-      return (int)cudaErrorInvalidValue;                                    \
-    return (int)cudaGetLastError();                                         \
+      return launch_f32<64>(KERNEL<64>, (ROWS), S, (STREAM), (P));          \
+    if ((HEAD_DIM) == 128)                                                  \
+      return launch_f32<128>(KERNEL<128>, (ROWS), S, (STREAM), (P));        \
+    if ((HEAD_DIM) == 256)                                                  \
+      return launch_f32<256>(KERNEL<256>, (ROWS), S, (STREAM), (P));        \
+    if ((HEAD_DIM) == 512)                                                  \
+      return launch_f32<512>(KERNEL<512>, (ROWS), S, (STREAM), (P));        \
+    return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
 // strides: (batch, seq, head) in elements for q, k, v. o (B, S, H, D) and

@@ -19,7 +19,9 @@
 // not idle the card. Head_dim 64, 128 and 256 (Gemma's: 64-row K/V tiles,
 // P V as m64n256, and the first kWideQReg k steps of S with each
 // consumer's Q rows in registers, a quarter less shared-memory traffic
-// for S; flash_fwd_sm90.cuh), bf16 and f16.
+// for S; flash_fwd_sm90.cuh) and 512 (fwd_cta_wide: one CTA per 256-column
+// chunk of o, S recomputed over all 512 columns against 32-row K/V
+// tiles), bf16 and f16.
 #include "flash_fwd_sm90.cuh"
 
 namespace stpu {

@@ -2,12 +2,11 @@
 // specialised. One body, instantiated by flash_fwd.cu (the resident
 // family, natural-log lse), flash_tri.cu (the triangular family, base-2
 // lse) and flash_streamed.cu (the streamed family, natural-log lse, with
-// the overlapped schedule below), each at head_dim 64, 128 and 256
+// the overlapped schedule below), each at head_dim 64, 128, 256 and 512
 // (fwd_consumer_wide below) and element type bf16 and f16 (T, the inputs'
 // and outputs' type; the softmax and the sums stay fp32). The function is
-// the TPU forward's: o =
-// softmax(scale * q k^T, causal) v and lse = m + log(l), query head h
-// reading KV head h / (H / KVH).
+// the TPU forward's: o = softmax(scale * q k^T, causal) v and lse = m +
+// log(l), query head h reading KV head h / (H / KVH).
 //
 // What bounds it: the tensor cores. At the main shapes it does ~S*D/2 (or
 // more) flops per byte it must move, far past the card's ~295 flop/byte
@@ -78,6 +77,18 @@
 //   KV group sharing each K/V load by TMA multicast, leave that traffic
 //   as it is and measured no faster (PERF.md); the K/V stream alone
 //   runs in a third to two fifths of the kernel's time.
+// - Head_dim 512 (every family, in lockstep; fwd_cta_wide): o of 64 rows x
+//   512 columns is 256 fp32 a thread, past what a consumer holds beside S
+//   and P (and wgmma's N stops at 256). So each CTA computes one kChunk
+//   (256)-column chunk of o for its 128 q rows, the two chunks of an item
+//   side by side in the launch (block i is chunk i % 2 of item i / 2):
+//   both recompute S = Q K^T over all 512 columns, 1.5 times the minimal
+//   FLOPs. Shared memory holds Q (128 KB) beside two stages of a 32-row K
+//   tile (32 KB) and the CTA's chunk of the 32-row V tile (16 KB): 225 KB.
+//   S is m64n32 with both operands in shared memory (16 registers), P V two
+//   m64n256k16 (o: 128 registers). With 32-row tiles each consumer's 64
+//   rows meet the diagonal in two masked tiles, and consumer 0 skips the
+//   CTA's last two. Only chunk 0 writes lse.
 // - Epilogue: o / l goes through the consumer's own 64 rows of Q in shared
 //   memory (its last product has read them) and out in 16-byte stores
 //   predicated on row < S; lse = m + log2(l), times ln 2 for the natural-
@@ -141,28 +152,45 @@ constexpr int kBNWide = 64;
 // ptxas serialises every wgmma), and a quarter less shared-memory
 // traffic for S.
 constexpr int kWideQReg = 8;
+// Head_dim 512 (fwd_cta_wide below; the backward's dq_cta_512 and
+// dkv_cta_wide): no consumer holds a whole 64-row block of o, dq, dk or dv
+// (256 fp32 a thread), so each holds one kChunk-column chunk of it, and
+// every tile streamed against a resident operand is kTile512 rows.
+constexpr int kChunk = 256;
+constexpr int kTile512 = 32;
 template <int D>
-constexpr int fwd_kv_rows() {
-  return D > 128 ? kBNWide : kBN;
+__host__ __device__ constexpr int fwd_kv_rows() {
+  return D > 256 ? kTile512 : D > 128 ? kBNWide : kBN;
+}
+// The output chunks of an item at head_dim D: one CTA each for the
+// forward and dk/dv, one consumer each for dq.
+template <int D>
+__host__ __device__ constexpr int out_chunks() {
+  return D > 256 ? D / kChunk : 1;
 }
 
 // Shared memory in bytes from a 1024-byte aligned base: Q (kBM x D), kRing
-// K tiles, kRing V tiles (kKvRows x D), each stored as D / 64 boxes of rows
-// x 128 bytes in the 128-byte swizzle; then kBars full mbarriers, kBars
-// empty ones and q: a K/V stage has one of each (kBars = kRing), or, for
-// the overlapped schedule (kSplit), K and V have their own (kBars = 2 *
-// kRing, K's stages first). kBytes adds the slack for aligning the base:
-// 161 KB at D = 128, 193 KB at D = 256 (64-row K/V tiles).
+// K tiles (kKvRows x D), kRing V tiles (kKvRows x the CTA's DV = D /
+// out_chunks columns), each stored as boxes of rows x 128 bytes in the
+// 128-byte swizzle; then kBars full mbarriers, kBars empty ones and q: a
+// K/V stage has one of each (kBars = kRing), or, for the overlapped
+// schedule (kSplit), K and V have their own (kBars = 2 * kRing, K's
+// stages first). kBytes adds the slack for aligning the base: 161 KB at
+// D = 128, 193 KB at D = 256 (64-row K/V tiles), 225 KB at D = 512
+// (32-row tiles, V's 256-column chunk).
 template <int D, bool kSplit = false>
 struct FwdSmem {
   static constexpr int kKvRows = fwd_kv_rows<D>();
+  static constexpr int kDV = D / out_chunks<D>();
   static constexpr int kQ = kBM * D * 2;
   static constexpr int kTileKV = kKvRows * D * 2;
+  static constexpr int kTileV = kKvRows * kDV * 2;
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kRing * kTileKV;
-  static constexpr int kBar = kV + kRing * kTileKV;
+  static constexpr int kBar = kV + kRing * kTileV;
   static constexpr int kBars = kSplit ? 2 * kRing : kRing;
   static constexpr int kBytes = kBar + (2 * kBars + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "past the 227 KB a block may use");
 };
 
 // ------------------------------------------------------------- mbarriers
@@ -518,6 +546,51 @@ __device__ __forceinline__ void mma_nt(float (&d)[32], uint64_t desc_a,
   }
 }
 
+// d (m64n32, fp32) = A B, or d += A B when scale_d is nonzero; A and B (T)
+// read from shared memory through descriptors, both K-major.
+template <class T>
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b,
+                                               int scale_d) {
+#define STPU_WGMMA(TY)                                                      \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15"                                                  \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15])                                                         \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+  if constexpr (T::kHalf)
+    STPU_WGMMA("f16");
+  else
+    STPU_WGMMA("bf16");
+#undef STPU_WGMMA
+}
+
+// mma_nt with N-row B tiles: d (64 x N fp32) = A B^T over D, N = 64 or
+// 32.
+template <int D, class T, int N>
+__device__ __forceinline__ void mma_nt_n(float (&d)[N / 2], uint64_t desc_a,
+                                         int a_box, uint64_t desc_b,
+                                         int b_box) {
+  if constexpr (N == 64) {
+    mma_nt<D, T>(d, desc_a, a_box, desc_b, b_box);
+  } else {
+    static_assert(N == 32, "S and dP tiles of 64 or 32 keys");
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t in_box = (kk % 4) * 32;
+      wgmma_m64n32_ss<T>(d, desc_a + (((kk / 4) * a_box + in_box) >> 4),
+                         desc_b + (((kk / 4) * b_box + in_box) >> 4), kk);
+    }
+  }
+}
+
 // Element offset of 16-byte chunk ch (8 elements) of row R in a kBM-row
 // tile stored as TMA's 128-byte swizzle left it (D / 64 boxes of kBM x 128
 // bytes): box ch / 8, chunk ch % 8 at (ch % 8) ^ (R % 8).
@@ -560,14 +633,16 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
 
 // ------------------------------------------------------------ the forward
 
-// The producer's one thread: Q, then the K/V ring.
+// The producer's one thread: Q, then the K/V ring (V's columns [chunk *
+// DV, + DV): all of them but at head_dim 512).
 template <int D>
 __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
                                              const CUtensorMap& tk,
                                              const CUtensorMap& tv,
                                              const FwdParams& p,
                                              unsigned char* base, int b,
-                                             int h, int qt, int n_kt) {
+                                             int h, int qt, int n_kt,
+                                             int chunk = 0) {
   using L = FwdSmem<D>;
   const int kvh = h / (p.H / p.KVH);
   const uint32_t full0 = smem_addr(base + L::kBar);
@@ -582,14 +657,14 @@ __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
     const int st = j % kRing;
     if (j >= kRing) mbar_wait(empty0 + 8 * st, (j / kRing - 1) & 1);
     const uint32_t full = full0 + 8 * st;
-    mbar_expect_tx(full, 2 * L::kTileKV);
+    mbar_expect_tx(full, L::kTileKV + L::kTileV);
 #pragma unroll
     for (int c = 0; c < D / kBoxCols; ++c) {
-      const int off = st * L::kTileKV + c * kRows * 128;
-      tma_load_4d(base + L::kK + off, &tk, full, c * kBoxCols, j * kRows,
-                  kvh, b);
-      tma_load_4d(base + L::kV + off, &tv, full, c * kBoxCols, j * kRows,
-                  kvh, b);
+      tma_load_4d(base + L::kK + st * L::kTileKV + c * kRows * 128, &tk, full,
+                  c * kBoxCols, j * kRows, kvh, b);
+      if (c < L::kDV / kBoxCols)
+        tma_load_4d(base + L::kV + st * L::kTileV + c * kRows * 128, &tv,
+                    full, chunk * L::kDV + c * kBoxCols, j * kRows, kvh, b);
     }
   }
 }
@@ -802,24 +877,26 @@ __device__ __forceinline__ void mma_nt_qreg(float (&d)[32],
 
 // A consumer's epilogue: o / l out through its own rows of the Q tile
 // (its last product has read them), lse = m + log2(l) (times ln 2 when
-// kNaturalLse) for rows < S, by the lanes whose t (lane % 4) is 0.
-template <int D, class T, bool kNaturalLse>
+// kNaturalLse) for rows < S, by the lanes whose t (lane % 4) is 0. o holds
+// DO of the D columns, from column col0 (at head_dim 512 a CTA's chunk);
+// only the CTA holding column 0 writes lse.
+template <int D, class T, bool kNaturalLse, int DO = D>
 __device__ __forceinline__ void fwd_epilogue(const FwdParams& p,
                                              unsigned char* base, int b,
                                              int h, int q_start, int row0,
-                                             int t, const float (&o)[D / 2],
+                                             int t, const float (&o)[DO / 2],
                                              const float (&m)[2],
-                                             float (&l)[2]) {
+                                             float (&l)[2], int col0 = 0) {
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
     inv[r] = 1.f / l[r];
   }
-  store_rows<D, T>(o, inv, reinterpret_cast<e16*>(base),
-                p.o + ((long long)b * p.S * p.H + h) * D, (long long)p.H * D,
-                q_start, p.S);
-  if (t == 0) {
+  store_rows<DO, T>(o, inv, reinterpret_cast<e16*>(base),
+                    p.o + ((long long)b * p.S * p.H + h) * D + col0,
+                    (long long)p.H * D, q_start, p.S);
+  if (t == 0 && col0 == 0) {
     float* lg = p.lse + ((long long)b * p.H + h) * p.S;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -977,22 +1054,28 @@ __device__ __forceinline__ void fwd_consumer_overlap(const FwdParams& p,
                                   l);
 }
 
-// A consumer warpgroup at head_dim 256, in lockstep over kBNWide-row K/V
-// tiles: S = Q K^T as sixteen m64n64k16 (both from shared memory), P V as
-// four m64n256k16 (P from registers). o (128), S (32) and the packed P
-// (16) a thread. The two consumers' causal ends differ: consumer 0 (q rows
-// 128 qt + 0..63) ends on KV tile 2 qt, its diagonal, consumer 1 on 2 qt
-// + 1; consumer 0 skips 2 qt + 1, wholly above its rows, but still waits
-// for it and arrives on its empty barrier (flash_bwd_sm90.cuh's dq, Traps).
-// Non-causal, every tile, the ragged last one masked. kQReg > 0: k steps
-// 0 .. kQReg - 1 of S take this consumer's Q rows from registers, loaded
-// once (kQReg * 4 registers beside o, S and P: 208 at kWideQReg).
+// A consumer warpgroup at head_dim 256 and 512, in lockstep over
+// kKvRows-row K/V tiles (64 at 256, 32 at 512): S = Q K^T over all D
+// columns (m64n64 or m64n32, both from shared memory), P V into o, the
+// CTA's DV columns (all 256 at 256; at 512 chunk `chunk`'s 256), as
+// m64n256k16 with P from registers. o (128), S (32 or 16) and the packed
+// P (16 or 8) a thread. The two consumers' causal ends differ: consumer
+// cw's 64 rows (q rows 128 qt + 64 cw ..) meet the diagonal in the
+// kSub = 64 / kKvRows KV tiles from diag = qt * 128 / kKvRows + cw *
+// kSub, which it masks; consumer 0 skips the CTA's tiles past its rows,
+// wholly above them, but still waits for each and arrives on its empty
+// barrier (flash_bwd_sm90.cuh's dq, Traps). Non-causal, every tile, the
+// ragged last one masked. kQReg > 0 (at 256 only): k steps 0 .. kQReg -
+// 1 of S take this consumer's Q rows from registers, loaded once (kQReg
+// * 4 registers beside o, S and P: 208 at kWideQReg).
 template <int D, class T, bool kNaturalLse, int kQReg = 0>
 __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
                                                   unsigned char* base, int b,
-                                                  int h, int qt, int n_kt) {
+                                                  int h, int qt, int n_kt,
+                                                  int chunk) {
   using L = FwdSmem<D>;
-  constexpr int kRows = L::kKvRows;
+  constexpr int kRows = L::kKvRows, kSub = 64 / kRows, kDV = L::kDV;
+  static_assert(kQReg == 0 || kRows == 64, "Q from registers against m64n64");
   const int cw = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1002,17 +1085,17 @@ __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
   const uint32_t empty0 = full0 + 8 * kRing, qbar = full0 + 16 * kRing;
   const float sm = p.scale * kLog2e;
   const TileMask mask = {p.S, p.causal};
-  const int diag = qt * (kBM / kRows) + cw;
-  const int j_last = p.causal ? min(diag, n_kt - 1) : n_kt - 1;
+  const int diag = qt * (kBM / kRows) + cw * kSub;
+  const int j_last = p.causal ? min(diag + kSub - 1, n_kt - 1) : n_kt - 1;
   const int j_mask = p.causal ? diag : masked_tile(0, p.S, kRows, n_kt);
 
   const uint64_t dq = smem_desc(base + cw * 64 * 128, 16, 1024);
   const uint64_t dk = smem_desc(base + L::kK, 16, 1024);
   const uint64_t dv = smem_desc(base + L::kV, kRows * 128, 1024);
 
-  float o[D / 2];
+  float o[kDV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
@@ -1031,32 +1114,36 @@ __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
         mma_nt_qreg<D, T, kQReg>(s, qa, dq, kBM * 128,
                                  dk + ((st * L::kTileKV) >> 4), kRows * 128);
       else
-        mma_nt<D, T>(s, dq, kBM * 128, dk + ((st * L::kTileKV) >> 4),
-                     kRows * 128);
+        mma_nt_n<D, T, kRows>(s, dq, kBM * 128,
+                              dk + ((st * L::kTileKV) >> 4), kRows * 128);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
 
       uint32_t pa[kRows / 16][4];
-      if (j == j_mask)
-        softmax_step<D, T, true>(s, o, m, l, pa, sm, row0, j * kRows, mask);
+      if ((kSub > 1 && p.causal) ? j >= j_mask : j == j_mask)
+        softmax_step<kDV, T, true>(s, o, m, l, pa, sm, row0, j * kRows,
+                                   mask);
       else
-        softmax_step<D, T, false>(s, o, m, l, pa, sm, row0, j * kRows, mask);
+        softmax_step<kDV, T, false>(s, o, m, l, pa, sm, row0, j * kRows,
+                                    mask);
 
       wgmma_fence();
-      issue_pv<D, T>(o, pa, dv, st * L::kTileKV);
+      issue_pv<kDV, T>(o, pa, dv, st * L::kTileV);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
     }
     if (tid == 0) mbar_arrive(empty0 + 8 * st);  // K and V of st consumed
   }
-  fwd_epilogue<D, T, kNaturalLse>(p, base, b, h, q_start, row0, t, o, m,
-                                  l);
+  fwd_epilogue<D, T, kNaturalLse, kDV>(p, base, b, h, q_start, row0, t, o,
+                                       m, l, chunk * kDV);
 }
 
-// One CTA of the forward at head_dim 256 (fwd_consumer_wide; lockstep;
-// kQReg of S's k steps with Q from registers). Its own function, so the
+// One CTA of the forward at head_dim 256 and 512 (fwd_consumer_wide;
+// lockstep; kQReg of S's k steps with Q from registers). At 512 block i
+// is chunk i % C (C = out_chunks) of work item i / C, the two chunks of an
+// item side by side in the longest-first list. Its own function, so the
 // narrow instances below compile as they did.
 template <int D, class T, bool kNaturalLse, int kQReg = 0>
 __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
@@ -1066,12 +1153,14 @@ __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
                                              const int* __restrict__ work,
                                              unsigned char* smem) {
   using L = FwdSmem<D>;
+  constexpr int kC = out_chunks<D>(), kRows = L::kKvRows;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
-  const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
+  const int item = blockIdx.x / kC, chunk = blockIdx.x % kC;
+  const int bh = work[2 * item], qt = work[2 * item + 1];
   const int b = bh / p.H, h = bh % p.H;
-  const int n_all = ceil_div(p.S, kBNWide);
-  // Causal: to consumer 1's diagonal, KV tile 2 qt + 1 (or S's end).
-  const int n_kt = p.causal ? min(n_all, (qt + 1) * (kBM / kBNWide)) : n_all;
+  const int n_all = ceil_div(p.S, kRows);
+  // Causal: to consumer 1's last diagonal tile (or S's end).
+  const int n_kt = p.causal ? min(n_all, (qt + 1) * (kBM / kRows)) : n_all;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
     for (int i = 0; i < L::kBars; ++i) {
@@ -1085,17 +1174,18 @@ __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0)
-      fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
+      fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt, chunk);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    fwd_consumer_wide<D, T, kNaturalLse, kQReg>(p, base, b, h, qt, n_kt);
+    fwd_consumer_wide<D, T, kNaturalLse, kQReg>(p, base, b, h, qt, n_kt,
+                                                chunk);
   }
 }
 
 // One CTA of the forward: work item blockIdx.x is (b * H + h, q tile);
-// kOverlap picks the overlapped schedule over lockstep; head_dim 256 goes
-// to fwd_cta_wide (lockstep only) with kQReg of S's k steps reading Q
-// from registers (kWideQReg, or 0: all from shared memory).
+// kOverlap picks the overlapped schedule over lockstep; head_dim 256 and
+// 512 go to fwd_cta_wide (lockstep only), at 256 with kQReg of S's k steps
+// reading Q from registers (kWideQReg, or 0: all from shared memory).
 template <int D, class T, bool kNaturalLse, bool kOverlap = false,
           int kQReg = 0>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
@@ -1106,7 +1196,8 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         unsigned char* smem) {
   static_assert(D <= 128 || !kOverlap, "head_dim 256 runs in lockstep");
   if constexpr (D > 128) {
-    fwd_cta_wide<D, T, kNaturalLse, kQReg>(tq, tk, tv, p, work, smem);
+    fwd_cta_wide<D, T, kNaturalLse, (D > 256 ? 0 : kQReg)>(tq, tk, tv, p,
+                                                          work, smem);
   } else {
   using L = FwdSmem<D, kOverlap>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
@@ -1213,7 +1304,7 @@ constexpr int fwd_smem_bytes(bool overlap) {
 
 // Encodes the three maps and launches `kernel` (an instance of this
 // forward, with the overlapped schedule when `overlap`) over the B * H *
-// ceil(S / 128) items of `work`.
+// ceil(S / 128) items of `work`, out_chunks CTAs an item.
 template <int D, class T, class Kernel>
 inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
                       const int* work, cudaStream_t stream,
@@ -1232,7 +1323,7 @@ inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
   if (err) return err;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int items = B * p.H * ceil_div(p.S, kBM);
+  const int items = B * p.H * ceil_div(p.S, kBM) * out_chunks<D>();
   kernel<<<items, kFwdThreads, smem, stream>>>(tq, tk, tv, p, work);
   return (int)cudaGetLastError();
 }
@@ -1265,8 +1356,8 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
 // Returns from the calling C entry with FN<D, T>(KERNEL<D, T>, ...) for the
 // runtime head_dim and element type (T::kDtype): the instances of one
 // Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or reported
-// (fwd_attrs, dq_attrs, dkv_attrs) at head_dim 64, 128 and 256; any other
-// head_dim or type returns cudaErrorInvalidValue.
+// (fwd_attrs, dq_attrs, dkv_attrs) at head_dim 64, 128, 256 and 512; any
+// other head_dim or type returns cudaErrorInvalidValue.
 #define STPU_SM90_ONE(D_, T_, FN, KERNEL, ...) \
   return stpu::sm90::FN<D_, stpu::T_>(KERNEL<D_, stpu::T_>, __VA_ARGS__)
 
@@ -1287,5 +1378,6 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
     STPU_SM90_AT_D(64, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                 \
     STPU_SM90_AT_D(128, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
     STPU_SM90_AT_D(256, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
+    STPU_SM90_AT_D(512, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)

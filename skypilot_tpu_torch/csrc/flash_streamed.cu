@@ -23,12 +23,12 @@
 // On the TPU the streamed family differs from the resident one by how it
 // stages the KV (or q/dO) stream through VMEM; on Hopper every body
 // streams that operand through a shared-memory ring whatever S is, so all
-// three kernels are instances of the Hopper bodies (wgmma + TMA, one
-// producer and two consumer warpgroups, a host-built work list; every
-// bf16 and f16 instance at head_dim 64, 128 and 256), reading and writing a
+// three kernels are instances of the Hopper bodies (wgmma + TMA, one producer
+// and two consumer warpgroups, a host-built work list; every bf16 and f16
+// instance at head_dim 64, 128, 256 and 512), reading and writing a
 // natural-log lse with the runtime causal flag, as flash_fwd.cu's and
-// flash_bwd.cu's, each with what its long loops (64 or 128 tiles a CTA at
-// S 8192) take:
+// flash_bwd.cu's, each with what its long loops (64 or 128 tiles a CTA at S
+// 8192) take:
 //
 // - the forward, flash_fwd_sm90.cuh's fwd_cta with the overlapped
 //   schedule (kOverlap: each consumer's softmax under its own P V; the
@@ -49,7 +49,9 @@
 //   registers beside dq's 128);
 // - dk/dv, dkv_cta as the resident instance runs it, in lockstep (its
 //   consumers offset half a tile measured no faster); at head_dim 256
-//   dkv_cta_wide, as the triangular family's, in natural exp.
+//   dkv_cta_wide, as the triangular family's, in natural exp;
+// - at head_dim 512 the chunked bodies of every family (fwd_cta_wide,
+//   dq_cta_512 in BaseE2, dkv_cta_512 in natural exp).
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -74,8 +76,11 @@ flash_dq_streamed_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tv,
                          const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dq_cta<D, T, BaseE2, /*kRegA=*/(D > 128 ? 0 : 2)>(tq, tdo, tk, tv,
-                                                          p, work, smem);
+  if constexpr (D > 256)
+    sm90::dq_cta_512<D, T, BaseE2>(tq, tdo, tk, tv, p, work, smem);
+  else
+    sm90::dq_cta<D, T, BaseE2, /*kRegA=*/(D > 128 ? 0 : 2)>(tq, tdo, tk, tv,
+                                                            p, work, smem);
 }
 
 template <int D, class T>
@@ -89,7 +94,10 @@ flash_dkv_streamed_kernel(const __grid_constant__ CUtensorMap tq,
                           const BwdParams p, const int* __restrict__ work,
                           const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 128)
+  if constexpr (D > 256)
+    sm90::dkv_cta_512<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work,
+                                    split, smem);
+  else if constexpr (D > 128)
     sm90::dkv_cta_wide<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work,
                                      split, smem);
   else
@@ -99,7 +107,8 @@ flash_dkv_streamed_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace
 }  // namespace stpu
 
-// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. dtype: the element type
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs (at head_dim 512 two
+// CTAs an item, one per 256-column chunk of o). dtype: the element type
 // of q, k, v and o (Bf16::kDtype, F16::kDtype). strides: (batch, seq, head)
 // in elements for q, k, v. o is written contiguous (B, S, H, D) and lse
 // (B, H, S) fp32, natural log.
@@ -119,7 +128,8 @@ extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
                  static_cast<cudaStream_t>(stream), /*overlap=*/true);
 }
 
-// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs. strides: q, k,
+// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs (at head_dim
+// 512 B*H*ceil(S/64), 64-row tiles). strides: q, k,
 // v, o, dO. dq (B, S, H, D), of the inputs' type, and delta (B, H, S) fp32
 // are written contiguous; lse is natural-log.
 extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
@@ -140,11 +150,12 @@ extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
 }
 
 // work: at head_dim 64 and 128, B*KVH*ceil(S/128) (b*KVH, 128-row kv tile)
-// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row
-// kv tile, part) triples, parts dividing H / KVH, and with parts > 1 an
-// fp32 workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64)
-// int32 tickets, zero (dkv_cta_wide). strides: q, k, v, dO. dk and dv are
-// written contiguous (B, S, KVH, D), of the inputs' type; lse and delta
+// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row kv
+// tile, part) triples, parts dividing H / KVH, and with parts > 1 an fp32
+// workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64) int32
+// tickets, zero (dkv_cta_wide); at 512 the same items, two CTAs each, and
+// 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: q, k, v, dO. dk and dv
+// are written contiguous (B, S, KVH, D), of the inputs' type; lse and delta
 // (B, H, S) fp32 are read through tensor maps.
 extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
                                        const void* v, const void* dout,

@@ -24,7 +24,10 @@
 // product from registers, the GQA group of dk/dv summed in registers
 // without atomics), instanced in base 2. Each kernel has a bf16 and an
 // f16 instance at head_dim 64, 128 and 256 (Gemma's, on the bodies' wide
-// paths; the JAX dispatcher sends Gemma here past S 2048):
+// paths; the JAX dispatcher sends Gemma here past S 2048), and 512 (on
+// the chunked bodies fwd_cta_wide, dq_cta_512, dkv_cta_512: one 256-column
+// chunk of o, dq, dk or dv a CTA or consumer, S and dP recomputed over
+// all 512 columns, 32-row streamed tiles; flash_bwd_sm90.cuh):
 // - the forward: 64-row K/V tiles, Q in shared memory;
 // - dq: DqSplitKV (flash_bwd_sm90.cuh), 64-row K tiles in two stages and
 //   V in one on barriers of their own, so V's next load runs under dS K
@@ -52,7 +55,9 @@
 // and dq's lists count 128-row q tiles (dq's pairs against the 64-row KV
 // tiles it walks at every width), dk/dv's 128-row kv tiles (pairs against
 // 64-row q tiles), and at head_dim 256 (kv tile, part) items of 64-row kv
-// tiles (dkv_wide_schedule).
+// tiles (dkv_wide_schedule); at 512 dq's list counts 64-row q tiles
+// against 32-row KV tiles (dq_schedule) and dk/dv keeps the width-256
+// items.
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -76,8 +81,11 @@ flash_dq_tri_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tv,
                     const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  sm90::dq_cta<D, T, Base2, 0, sm90::DqTri<D>>(tq, tdo, tk, tv, p, work,
-                                               smem);
+  if constexpr (D > 256)
+    sm90::dq_cta_512<D, T, Base2>(tq, tdo, tk, tv, p, work, smem);
+  else
+    sm90::dq_cta<D, T, Base2, 0, sm90::DqTri<D>>(tq, tdo, tk, tv, p, work,
+                                                 smem);
 }
 
 template <int D, class T>
@@ -91,7 +99,10 @@ flash_dkv_tri_kernel(const __grid_constant__ CUtensorMap tq,
                      const BwdParams p, const int* __restrict__ work,
                      const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 128)
+  if constexpr (D > 256)
+    sm90::dkv_cta_512<D, T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work,
+                                    split, smem);
+  else if constexpr (D > 128)
     sm90::dkv_cta_wide<D, T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work,
                                      split, smem);
   else
@@ -101,7 +112,8 @@ flash_dkv_tri_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace
 }  // namespace stpu
 
-// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. dtype: the element type
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs (at head_dim 512 two
+// CTAs an item, one per 256-column chunk of o). dtype: the element type
 // of q, k, v and o (Bf16::kDtype, F16::kDtype). strides: (batch, seq, head)
 // in elements for q, k, v. o is written contiguous (B, S, H, D) and lse
 // (B, H, S) fp32, base 2.
@@ -119,7 +131,8 @@ extern "C" int stpu_flash_fwd_tri(const void* q, const void* k,
                  static_cast<cudaStream_t>(stream));
 }
 
-// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs. strides: q, k,
+// work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs (at head_dim
+// 512 B*H*ceil(S/64), 64-row tiles). strides: q, k,
 // v, o, dO. dq (B, S, H, D), of the inputs' type, and delta (B, H, S) fp32
 // are written contiguous; lse is base 2.
 extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
@@ -138,11 +151,12 @@ extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
 }
 
 // work: at head_dim 64 and 128, B*KVH*ceil(S/128) (b*KVH, 128-row kv tile)
-// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row
-// kv tile, part) triples, parts dividing H / KVH, and with parts > 1 an
-// fp32 workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64)
-// int32 tickets, zero (dkv_cta_wide). strides: q, k, v, dO. dk and dv are
-// written contiguous (B, S, KVH, D), of the inputs' type.
+// int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row kv
+// tile, part) triples, parts dividing H / KVH, and with parts > 1 an fp32
+// workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64) int32
+// tickets, zero (dkv_cta_wide); at 512 the same items, two CTAs each, and
+// 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: q, k, v, dO. dk and dv
+// are written contiguous (B, S, KVH, D), of the inputs' type.
 extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,

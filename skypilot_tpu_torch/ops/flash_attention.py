@@ -10,7 +10,7 @@ take what their long loops need (at head_dim 64 and 128 the forward
 overlaps each consumer's softmax with its own products and dq holds Q
 and dO in registers; dq takes the natural-log lse into exp2). Every
 kernel takes any S that is a multiple of 8 (a ragged last tile is
-masked), head_dim 64, 128 or 256 (Gemma's), and bf16 or f16 (one
+masked), head_dim 64, 128, 256 (Gemma's) or 512, and bf16 or f16 (one
 instance each); f32 inputs take three fp32 kernels of their own
 (``csrc/flash_f32.cu``: ``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dkv_f32``, every family's shapes and widths, natural-log lse):
@@ -46,6 +46,17 @@ in flight under its products (``DqWide``: 32-row K/V tiles in three
 stages), and the resident forward there reads the first half of each
 consumer's Q rows for S from registers (``kWideQReg``).
 
+At head_dim 512 no consumer can hold a 64-row block of o, dq, dk or dv
+(256 fp32 a thread past the 128 of wgmma's widest N): each holds one
+CHUNK-column chunk, and S, dP (and their transposes) are recomputed over
+all 512 columns for each chunk. The forward and dk/dv run one CTA a
+chunk, the two side by side for each item of their lists (the forward's
+128-row q tiles against 32-row K/V tiles; dk/dv's 64-row kv tiles, parts
+of the GQA group as at 256, against one stage of 32-row Q/dO tiles); dq
+runs CHUNKED_DQ_TILE q rows a CTA, one chunk a consumer, against 32-row
+K tiles in two stages and V in one (``dq_schedule``). Every head_dim
+that is a multiple of 8 up to 512 reaches a kernel.
+
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
 triangular family for causal attention past it, the streamed family for
@@ -54,11 +65,11 @@ forward, on the caller's head_dim, and carried to the backward, so the
 base-2 lse never meets a natural-log kernel.
 
 On the card, ``flash_forward`` and ``flash_backward`` (and so the op)
-bring any head_dim up to 256 to the kernels: head_dim is zero-padded to
+bring any head_dim up to 512 to the kernels: head_dim is zero-padded to
 the next kernel width (``kernel_head_dim``, ``pad_head_dim``; zero columns
 change neither q k^T nor the lse, and the padded columns of o, dq, dk and
 dv come out 0 and are sliced off by ``unpad_head_dim``). Every family and
-the fp32 kernels have every width; past 256 the op raises a ValueError
+the fp32 kernels have every width; past 512 the op raises a ValueError
 before any launch (``kernel_head_dim``). ``kernel_dtype`` names the
 kernels an input dtype reaches.
 
@@ -111,8 +122,19 @@ WIDE_STEP_BYTES = 3.69e6
 SEQ_MULTIPLE = 8
 # The kernel widths, of every family and of the fp32 kernels (256 on the
 # Hopper bodies' wide paths: csrc/flash_fwd_sm90.cuh fwd_consumer_wide,
-# flash_bwd_sm90.cuh bwd_ring, DqWide and dkv_cta_wide).
-HEAD_DIMS = (64, 128, 256)
+# flash_bwd_sm90.cuh bwd_ring, DqWide and dkv_cta_wide; 512 on the
+# forward's wide body, chunked, and on dq_cta_512 and dkv_cta_512). No
+# width past 512: the forward's 128 q rows of Q (128 x D x 2 bytes) and a
+# K/V stage beside them fill the 227 KB of shared memory a block may use
+# there.
+HEAD_DIMS = (64, 128, 256, 512)
+# At head_dim 512: the columns of o, dq, dk or dv one consumer holds
+# (csrc kChunk; CHUNK-wide chunks, one CTA each for the forward and dk/dv,
+# one consumer each for dq), the q rows of a dq CTA (kDq512Rows), and the
+# rows of every tile streamed against a resident one (kTile512).
+CHUNK = 256
+CHUNKED_DQ_TILE = 64
+CHUNKED_INNER = 32
 # The kernels' element types, by the code their C entries take.
 _DTYPE_CODES = {torch.bfloat16: _build.DTYPES["bf16"],
                 torch.float16: _build.DTYPES["f16"]}
@@ -384,10 +406,11 @@ def tri_schedule(kind: str, n_rows: int, s: int,
 def dkv_wide_schedule(n_rows: int, s: int, parts: int,
                       device: Optional[torch.device] = None
                       ) -> torch.Tensor:
-    """The work list of every dk/dv at head_dim 256 (``dkv_cta_wide``),
-    (n_rows * ceil(S / WIDE_KV_TILE) * parts, 3) int32: one (row, kv
-    tile, part) item per CTA, a row being b * KVH + kvh and part p the
-    p-th of ``parts`` equal slices of the GQA group.
+    """The work list of every dk/dv at head_dim 256 (``dkv_cta_wide``)
+    and 512 (``dkv_cta_512``, ``chunks(512)`` CTAs an item), (n_rows *
+    ceil(S / WIDE_KV_TILE) * parts, 3) int32: one (row, kv tile, part)
+    item, a row being b * KVH + kvh and part p the p-th of ``parts`` equal
+    slices of the GQA group.
     Items are sorted by the causal tile pairs of their kv tile, from the
     JAX package's own enumeration (``_tri_maps_col``) at WIDE_KV_TILE x
     BWD_INNER tiles, longest first across all rows; a tile's parts stay
@@ -407,41 +430,69 @@ def dkv_wide_schedule(n_rows: int, s: int, parts: int,
     return work
 
 
+def chunks(width: int) -> int:
+    """The CHUNK-column chunks of o, dq, dk and dv at kernel width
+    ``width``: 2 at 512, else 1 (csrc out_chunks)."""
+    return width // CHUNK if width > 256 else 1
+
+
+# A tile step of the width-512 dk/dv in width-256 steps: per 64 q rows a
+# chunk's CTA runs S^T twice (one a consumer) and dP^T over 512 columns
+# and its two 256-wide products, eight 64 x 64 x 256 products, against
+# the width-256 CTA's five. From the product count, not fitted.
+WIDE_STEP_512 = 8 / 5
+
+
 def dkv_parts_cost(b: int, s: int, kvh: int, groups: int, causal: bool,
-                   sms: int, parts: int) -> Tuple[int, float]:
-    """The modelled time of the width-256 dk/dv with the GQA group of
-    ``groups`` query heads in ``parts`` parts, in tile steps (one q tile
-    of one head against a kv tile): (the makespan of its longest-first
-    work list dealt to ``sms`` SMs as each frees, one CTA an SM, each item
-    its steps plus one for its K/V load; the partials' traffic with P > 1,
-    dk's and dv's fp32 planes of B x S x KVH x 256 written and read once
-    per part, in WIDE_STEP_BYTES)."""
+                   sms: int, parts: int, width: int = 256
+                   ) -> Tuple[int, float]:
+    """The modelled time of the dk/dv at kernel width ``width`` (256 or
+    512) with the GQA group of ``groups`` query heads in ``parts`` parts,
+    in width-256 tile steps (one 64-row q tile of one head against a kv
+    tile; WIDE_STEP_512 of them at 512): (the makespan of its
+    longest-first work list, ``chunks(width)`` CTAs an item, dealt to
+    ``sms`` SMs as each frees, one CTA an SM, each CTA its steps plus one
+    for its K/V load; the partials' traffic with P > 1, dk's and dv's fp32
+    planes of B x S x KVH x width written and read once per part, in
+    WIDE_STEP_BYTES)."""
     n = -(-s // WIDE_KV_TILE)
     heads = groups // parts
+    step = 1 if width <= 256 else WIDE_STEP_512
     loads = [0] * sms
     for kt in range(n):
-        cost = heads * (n - kt if causal else n) + 1
-        for _ in range(b * kvh * parts):
+        cost = heads * (n - kt if causal else n) * step + 1
+        for _ in range(b * kvh * parts * chunks(width)):
             heapq.heappush(loads, heapq.heappop(loads) + cost)
-    plane = b * s * kvh * 256 * 4
+    plane = b * s * kvh * width * 4
     traffic = 0.0 if parts == 1 else 4 * parts * plane / WIDE_STEP_BYTES
     return max(loads), traffic
 
 
 @functools.lru_cache(maxsize=None)
 def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
-              sms: int) -> int:
+              sms: int, width: int = 256) -> int:
     """P, the parts the GQA group of ``groups`` query heads is split in
-    across the CTAs of the width-256 dk/dv: the divisor of the group, up
-    to MAX_PARTS, of least ``dkv_parts_cost`` (the least such divisor on
-    a tie). Fewer parts leave the card part
+    across the CTAs of the dk/dv at kernel width ``width`` (256 or 512):
+    the divisor of the group, up to MAX_PARTS, of least ``dkv_parts_cost``
+    (the least such divisor on a tie). Fewer parts leave the card part
     idle behind the longest items; more add partials to write and sum.
     P = 1 where the shape alone fills the card (MHA; a batch of 8 at
     2048, MQA)."""
     divisors = [p for p in range(1, min(groups, MAX_PARTS) + 1)
                 if groups % p == 0]
     return min(divisors, key=lambda p: sum(
-        dkv_parts_cost(b, s, kvh, groups, causal, sms, p)))
+        dkv_parts_cost(b, s, kvh, groups, causal, sms, p, width)))
+
+
+def dq_schedule(n_rows: int, s: int, width: int,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """Every dq's work list over B * H rows at kernel width ``width``:
+    ``bwd_schedule``'s "rows" list, and at 512 (``dq_cta_512``)
+    CHUNKED_DQ_TILE-row q tiles against CHUNKED_INNER-row KV tiles."""
+    if width > 256:
+        return tri_schedule("rows", n_rows, s, device, tile=CHUNKED_DQ_TILE,
+                            inner=CHUNKED_INNER)
+    return bwd_schedule("rows", n_rows, s, device)
 
 
 def bwd_schedule(kind: str, n_rows: int, s: int,
@@ -472,14 +523,16 @@ def kernel_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def kernel_head_dim(d: int) -> int:
     """The kernel width head_dim ``d`` is zero-padded to: the least of
-    HEAD_DIMS at or above it. Past 256 it raises: wgmma's widest product
-    is N = 256, the width of one P V."""
+    HEAD_DIMS at or above it (264-512 pad to 512). Past 512 it raises:
+    the forward's 128 resident q rows of Q and a K/V stage would pass the
+    227 KB of shared memory a block may use (HEAD_DIMS)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
     raise ValueError(f"flash kernels take head_dim up to {HEAD_DIMS[-1]}; "
-                     f"no kernel for head_dim {d} (wgmma's N is at most "
-                     "256)")
+                     f"no kernel for head_dim {d} (a 128-row Q tile and a "
+                     "K/V stage pass the 227 KB of shared memory a block "
+                     "may use)")
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -617,7 +670,7 @@ def _dq_call(name: str, source: str, q, k, v, o, lse, do, causal, scale,
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     ptrs = [q, k, v, o, do, lse, dq, delta]
     if scheduled:
-        ptrs.append(bwd_schedule("rows", b * h, s, q.device))
+        ptrs.append(dq_schedule(b * h, s, d, q.device))
     _launch(name, source, ptrs, _strides(q, k, v, o, do), q, k.shape[2],
             _DTYPE_CODES[q.dtype], float(scale), int(causal))
     return dq, delta
@@ -629,30 +682,31 @@ def _sm_count(device: torch.device) -> int:
 
 
 def dkv_wide_buffers(q, kvh: int, parts: int):
-    """(work list, workspace, tickets) of a width-256 dk/dv launch split
-    in ``parts``: ``dkv_wide_schedule``'s list, and with P > 1 the fp32
-    partials' workspace, (2, P, B, S, KVH, D) from the caching allocator,
-    and the kv tiles' tickets, zeroed (None, None at P = 1)."""
+    """(work list, workspace, tickets) of a width-256 or -512 dk/dv launch
+    split in ``parts``: ``dkv_wide_schedule``'s list, and with P > 1 the
+    fp32 partials' workspace, (2, P, B, S, KVH, D) from the caching
+    allocator, and the tickets of each kv tile's chunks, zeroed (None,
+    None at P = 1)."""
     b, s, _, d = q.shape
     work = dkv_wide_schedule(b * kvh, s, parts, q.device)
     if parts == 1:
         return work, None, None
     ws = torch.empty((2, parts, b, s, kvh, d), dtype=torch.float32,
                      device=q.device)
-    tickets = torch.zeros(2 * b * kvh * -(-s // WIDE_KV_TILE),
+    tickets = torch.zeros(2 * b * kvh * -(-s // WIDE_KV_TILE) * chunks(d),
                           dtype=torch.int32, device=q.device)
     return work, ws, tickets
 
 
 def _dkv_split(q, kvh: int, causal: bool):
     """(work list, workspace, tickets, P) of a dk/dv launch: at head_dim 64
-    and 128 the "cols" list of ``bwd_schedule`` and P = 1; at 256
-    ``dkv_wide_buffers`` at P = ``dkv_parts`` of the shape and the card's
-    SM count."""
+    and 128 the "cols" list of ``bwd_schedule`` and P = 1; at 256 and 512
+    ``dkv_wide_buffers`` at P = ``dkv_parts`` of the shape, the width and
+    the card's SM count."""
     b, s, h, d = q.shape
     if d <= 128:
         return bwd_schedule("cols", b * kvh, s, q.device), None, None, 1
-    parts = dkv_parts(b, s, kvh, h // kvh, causal, _sm_count(q.device))
+    parts = dkv_parts(b, s, kvh, h // kvh, causal, _sm_count(q.device), d)
     return (*dkv_wide_buffers(q, kvh, parts), parts)
 
 
@@ -677,7 +731,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel forward (the Hopper forward over 128-row q tiles,
-    longest first): (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32)."""
+    longest first; at head_dim 512 one CTA per CHUNK columns of each):
+    (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32)."""
     return _fwd_call("flash_fwd", "flash_fwd", q, k, v, causal, scale,
                      scheduled=True)
 
@@ -688,8 +743,9 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dq (the Hopper dq over 128-row q tiles, longest first; at
     head_dim 256 against three stages of 32-row K/V tiles, the next loads
-    under the products): (dq (B,S,H,D) of q's dtype, delta = rowsum(dO*O)
-    (B,H,S) fp32)."""
+    under the products; at 512 over CHUNKED_DQ_TILE-row q tiles, a
+    consumer per chunk, ``dq_schedule``): (dq (B,S,H,D) of q's dtype,
+    delta = rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq", "flash_bwd", q, k, v, o, lse, do, causal,
                     scale, scheduled=True)
 
@@ -700,8 +756,8 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dk/dv (the Hopper dk/dv over 128-row kv tiles, longest
     first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts
-    of the GQA group, ``_dkv_split``): (dk, dv) (B,S,KVH,D) of k's dtype,
-    the GQA group summed."""
+    of the GQA group, ``_dkv_split``; at 512 the same items, one CTA per
+    chunk): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv", "flash_bwd", q, k, v, do, lse, delta,
                      causal, scale, (int(causal),))
 
@@ -711,7 +767,8 @@ def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed-family kernel forward (the Hopper forward over 128-row q
     tiles, longest first, each consumer's softmax overlapped with its own
-    P V): (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in natural log)."""
+    P V; at head_dim 256 and 512 in lockstep, at 512 one CTA per chunk):
+    (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in natural log)."""
     return _fwd_call("flash_fwd_streamed", "flash_streamed", q, k, v, causal,
                      scale, scheduled=True)
 
@@ -722,7 +779,8 @@ def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed-family kernel dq (the Hopper dq over 128-row q tiles,
     longest first, each consumer's Q and dO held in registers, exp2 on
-    the natural-log lse): (dq (B,S,H,D) of q's dtype, delta =
+    the natural-log lse; at head_dim 512 ``dq_schedule``'s tiles, a
+    consumer per chunk): (dq (B,S,H,D) of q's dtype, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
                     do, causal, scale, scheduled=True)
@@ -735,8 +793,8 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Streamed-family kernel dk/dv (the Hopper dk/dv body, the resident
     instance's, in lockstep, over 128-row kv tiles, longest first; at
     head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts of the
-    GQA group, ``_dkv_split``): (dk, dv) (B,S,KVH,D) of k's dtype, the
-    GQA group summed."""
+    GQA group, ``_dkv_split``; at 512 one CTA per chunk of each): (dk, dv)
+    (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
                      lse, delta, causal, scale, (int(causal),))
 
@@ -752,8 +810,8 @@ def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
 def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel forward (the Hopper forward over 128-row
-    q tiles, longest first), causal: (o (B,S,H,D) of q's dtype, lse
-    (B,H,S) fp32 in base 2)."""
+    q tiles, longest first; at head_dim 512 one CTA per chunk), causal:
+    (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in base 2)."""
     _check_inputs(q, k, v)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -769,13 +827,14 @@ def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dq from the base-2 lse (the Hopper dq over
-    128-row q tiles, longest first): (dq (B,S,H,D) of q's dtype, delta =
+    128-row q tiles, longest first; at head_dim 512 ``dq_schedule``'s
+    tiles, a consumer per chunk): (dq (B,S,H,D) of q's dtype, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
     _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    work = bwd_schedule("rows", b * h, s, q.device)
+    work = dq_schedule(b * h, s, d, q.device)
     _tri_call("flash_dq_tri", (q, k, v, o, do, lse, dq, delta),
               _strides(q, k, v, o, do), work, scale)
     return dq, delta
@@ -786,8 +845,9 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dk/dv (the Hopper dk/dv over 128-row kv
     tiles, longest first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv
-    tiles and parts of the GQA group, ``_dkv_split``): (dk, dv)
-    (B,S,KVH,D) of k's dtype, the GQA group summed."""
+    tiles and parts of the GQA group, ``_dkv_split``; at 512 one CTA per
+    chunk of each): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group
+    summed."""
     return _dkv_call("flash_dkv_tri", "flash_tri", q, k, v, do, lse, delta,
                      True, scale, ())
 
@@ -845,7 +905,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) through family ``fam``: the kernel for CUDA tensors (q, k
     and v padded to its head_dim first, o sliced back; f32 tensors take the
-    fp32 kernel, whatever the family; past head_dim 256 a ValueError before
+    fp32 kernel, whatever the family; past head_dim 512 a ValueError before
     any launch), the plain version for CPU tensors.
     lse is in the family's base (natural log from the fp32 kernel; its
     backward reads it so)."""
@@ -947,11 +1007,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sends them (``takes_kernel_path``); every other S reaches the kernels,
     ragged tails included. On CUDA:
 
-    * head_dim: any multiple of 8 up to 256; it is zero-padded to 64, 128
-      or 256 (head_dim 136-256, Gemma's 256) for the kernels of every
-      family and dtype, the scale stays ``D ** -0.5`` of the caller's D,
-      and the output and gradients are sliced back. A head_dim past 256
-      raises a ValueError before any launch (``kernel_head_dim``).
+    * head_dim: any multiple of 8 up to 512; it is zero-padded to 64,
+      128, 256 (head_dim 136-256, Gemma's 256) or 512 (264-512) for the
+      kernels of every family and dtype, the scale stays ``D ** -0.5`` of
+      the caller's D, and the output and gradients are sliced back. A
+      head_dim past 512 raises a ValueError before any launch
+      (``kernel_head_dim``).
     * dtype: bf16 and f16 run on the Hopper kernels' instances of that
       type (fp32 sums inside, outputs in the input type); f16 holds |x|
       <= 65504: an input, output or gradient past that becomes inf (and

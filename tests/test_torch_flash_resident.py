@@ -293,7 +293,9 @@ def test_f32_wrappers_refuse_cpu_and_16_bit_tensors(wrapper):
 
 @pytest.mark.parametrize("d,width", [(8, 64), (16, 64), (32, 64), (64, 64),
                                      (72, 128), (96, 128), (128, 128),
-                                     (136, 256), (200, 256), (256, 256)])
+                                     (136, 256), (200, 256), (256, 256),
+                                     (264, 512), (320, 512), (392, 512),
+                                     (448, 512), (512, 512)])
 def test_kernel_head_dim_pads_to_the_next_width(d, width):
     assert fa_torch.kernel_head_dim(d) == width
     assert fa_torch.kernel_shape_error((1, 256, 8, width),
@@ -302,8 +304,12 @@ def test_kernel_head_dim_pads_to_the_next_width(d, width):
 
 @pytest.mark.parametrize("d", [264, 512])
 def test_kernel_head_dim_refuses_past_256(d):
-    with pytest.raises(ValueError, match=f"head_dim {d}"):
-        fa_torch.kernel_head_dim(d)
+    # Head_dim 264-512 once raised here; they now pad to the width-512
+    # kernels, and the refusal sits past the widest width: d + 256 (520,
+    # 768) raises, naming it, before any launch.
+    assert fa_torch.kernel_head_dim(d) == 512 == fa_torch.HEAD_DIMS[-1]
+    with pytest.raises(ValueError, match=f"head_dim {d + 256}"):
+        fa_torch.kernel_head_dim(d + 256)
 
 
 _F32_NAMES = ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")
