@@ -15,7 +15,9 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    f16) of
    the nine Hopper kernels (flash_fwd, flash_dq, flash_dkv, flash_fwd_tri,
    flash_dq_tri, flash_dkv_tri, flash_fwd_streamed, flash_dq_streamed,
-   flash_dkv_streamed);
+   flash_dkv_streamed), and FFMA and no HMMA or HGMMA in every instance of
+   the fp32 dq and dk/dv (exact fp32), which ptxas must build without
+   spills;
 3. kernels: each kernel of the three families against its plain PyTorch
    version on the card in bf16 (the resident family at its training
    shape and four others, causal and not, two with ragged S; the
@@ -73,13 +75,17 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    ValueError naming it before any launch; and with f32 inputs (2 x 256,
    4 heads, 2 KV heads, head_dim 64, causal and not; 1 x 200 at head_dim
    128; 1 x 2048 and 1 x 4096 at head_dim 256, 8 heads over 1; 1 x 1024
-   at 512, causal and not), through the fp32 kernels (one launch each),
-   against the fp32 plain versions at the JAX reference tests'
-   elementwise bounds (and, printed, not held, the same inputs as f16
-   through the f16 kernels), then the fp32 kernels' time at the slice's
-   shape and at widths 256 and 512, beside their bound at the card's
-   fp32 peak and the plain versions' and SDPA's in f32 (forward, whole
-   backward);
+   at 512, causal and not; then at each width 64-512, both causal flags,
+   ragged S 1000 with 6 heads over 2, ragged S 4136 MHA and S 4160 with 6
+   heads over 2), through the fp32 kernels (one launch each; the dk/dv's
+   GQA parts printed, at least one case past one part), against the fp32
+   plain versions at the JAX reference tests' elementwise bounds (and,
+   printed, not held, the first seven cases as f16 through the f16
+   kernels), the fp32 backward pair run twice bit-identical, then the
+   fp32 kernels' time at the slice's shape and at widths 256 and 512,
+   beside their bound at the card's fp32 peak (each kernel's share of
+   it), the plain versions' and SDPA's in f32 (forward, whole backward;
+   the fp32 pair's ratio to SDPA's backward);
 4. streamed: the public attention op, non-causal, at Llama-3-8B
    attention width and seq 8192 (1 x 8192, 32 heads, 8 KV heads,
    head_dim 128), forward and autograd backward of a fixed dO; output
@@ -443,6 +449,16 @@ F32_OP_SHAPES = ((2, 256, 4, 2, 64, True), (2, 256, 4, 2, 64, False),
                  (1, 200, 8, 2, 128, True), (1, 2048, 8, 1, 256, True),
                  (1, 4096, 8, 1, 256, True), (1, 1024, 8, 1, 512, True),
                  (1, 1024, 8, 1, 512, False))
+# The closing set of the fp32 backward (csrc/flash_f32.cu), at each width
+# and both causal flags: a ragged S (1000, not a multiple of the 32- or
+# 64-row tiles) with an odd GQA group (6 over 2), a ragged S past the
+# resident budget with MHA (4136, 4 over 4), and S 4160 (a multiple of 64
+# but not of 128) with the odd group. The f16 comparison runs on the
+# cases above only.
+F32_CLOSING_SHAPES = tuple(
+    (1, s, h, kvh, d, causal) for d in (64, 128, 256, 512)
+    for s, h, kvh in ((1000, 6, 2), (4136, 4, 4), (4160, 6, 2))
+    for causal in (True, False))
 # The fp32 kernels timed (with their bound at PEAK_F32_FLOPS, beside the
 # plain versions' and SDPA's f32 time): the slice's attention shape, and
 # widths 256 and 512.
@@ -490,6 +506,11 @@ NO_SPILL_KERNELS = ("flash_fwd_kernel<256", "flash_fwd_streamed_kernel<256",
 NO_SPILL_KERNELS += tuple(
     f"flash_{k}{fam}_kernel<512" for k in ("fwd", "dq", "dkv")
     for fam in ("", "_tri", "_streamed"))
+# The fp32 backward at every width (csrc/flash_f32.cu: 128-254 registers,
+# no spills).
+F32_BWD_KERNELS = ("flash_dq_f32_kernel", "flash_dkv_f32_kernel")
+NO_SPILL_KERNELS += tuple(f"{k}<{d}>" for k in F32_BWD_KERNELS
+                          for d in (64, 128, 256, 512))
 TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
 TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
                          (1, 4136, 8, 1, 256, True),
@@ -900,7 +921,8 @@ def phase_sass(build):
     SASS, and its wgmmas must run asynchronously: ptxas serialises them
     (with a "Potential Performance Loss" note) by placing a wait
     (WARPGROUP.DEPBAR) after each one, so a kernel with as many waits as
-    wgmmas fails."""
+    wgmmas fails. Every instance of the fp32 dq and dk/dv must hold FFMA
+    and no HMMA or HGMMA: their products stay exact fp32."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
     for name, source, kernel in SM90_KERNELS:
@@ -930,6 +952,28 @@ def phase_sass(build):
                 for tag in ELEM_TAGS.values()}
         check(found == want, f"{kernel}: instances {sorted(found)} in "
               f"{lib}'s SASS, expected {sorted(want)}")
+    # The fp32 backward is exact fp32: FFMA on the CUDA cores, no
+    # tensor-core product (HMMA, HGMMA) in any instance.
+    lib = build.build_dir() / "libflash_f32.so"
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {lib}: "
+          f"{out.stderr[-2000:]}")
+    for kernel in F32_BWD_KERNELS:
+        found = set()
+        for part in out.stdout.split("Function : ")[1:]:
+            m = re.search(kernel + r"ILi(\d+)E", part.split(None, 1)[0])
+            if not m:
+                continue
+            found.add(int(m.group(1)))
+            ffma, mma = part.count("FFMA"), part.count("HMMA")
+            gmma = part.count("HGMMA")
+            print(f"[sass] {kernel}<{m.group(1)}>: {ffma} FFMA, {mma} HMMA, "
+                  f"{gmma} HGMMA", flush=True)
+            check(ffma > 0 and mma == 0 and gmma == 0,
+                  f"{kernel}<{m.group(1)}> is not FFMA alone")
+        check(found == set(HEAD_DIMS), f"{kernel}: instances "
+              f"{sorted(found)} in {lib}'s SASS, expected {HEAD_DIMS}")
 
 
 def _ptxas_summary(log):
@@ -1534,13 +1578,25 @@ def phase_ragged_op(fa, attention_ops):
                                  ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
 
 
+def _f32_backward(fa, q, k, v, o, lse, do, causal, scale):
+    """The fp32 backward pair on a forward's (o, lse): (dq, delta, dk,
+    dv)."""
+    dq, delta = fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
+    dk, dv = fa.flash_dkv_f32(q, k, v, do, lse, delta, causal, scale)
+    return dq, delta, dk, dv
+
+
 def phase_f32_op(fa, attention_ops):
     """The public op with f32 inputs on the card: the fp32 kernels, one
     launch each, outputs and gradients in f32, within the JAX reference
     tests' elementwise bounds of the fp32 plain versions (matmuls in full
-    fp32: TF32 off)."""
+    fp32: TF32 off), at F32_OP_SHAPES and the fp32 backward's closing set;
+    the fp32 backward pair bit-identical when run twice; then the fp32
+    kernels' times."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    for idx, shape in enumerate(F32_OP_SHAPES):
+    split = []
+    cases = F32_OP_SHAPES + F32_CLOSING_SHAPES
+    for idx, shape in enumerate(cases):
         b, s, h, kvh, d, causal = shape
         scale = d ** -0.5
         q, k, v, _ = _inputs(shape, 20 + idx, torch.float32)
@@ -1554,14 +1610,20 @@ def phase_f32_op(fa, attention_ops):
         o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
         ref = (o_p, *fa.flash_bwd_plain(q, k, v, o_p, lse_p, 2 * o_p,
                                         causal, scale))
+        parts = (1 if h == kvh else fa.dkv_parts(
+            b, s, kvh, h // kvh, causal, fa._sm_count(q.device), d, True))
+        split.append(parts > 1)
         for name, got, want, tol in zip(
                 ("o", "dq", "dk", "dv"), (out, *grads), ref,
                 (F32_OUT_TOL, F32_GRAD_TOL, F32_GRAD_TOL, F32_GRAD_TOL)):
             excess = ((got - want).abs() - tol * want.abs()).max().item()
             print(f"[f32 op] {shape} {name}: max |err| - rtol |ref| "
-                  f"{excess:.3e} (atol {tol})", flush=True)
+                  f"{excess:.3e} (atol {tol}); dk/dv in {parts} part(s)",
+                  flush=True)
             check(excess <= tol, f"f32 {name} outside rtol = atol = {tol} "
                   f"at {shape}")
+        if idx >= len(F32_OP_SHAPES):
+            continue
         # Not a gate: the same inputs rounded to f16 through the f16
         # kernels, against the same fp32 references, show why f32 has
         # kernels of its own.
@@ -1575,15 +1637,25 @@ def phase_f32_op(fa, attention_ops):
               f"rtol |ref| o {excess[0]:.3e}, dq {excess[1]:.3e}, dk "
               f"{excess[2]:.3e}, dv {excess[3]:.3e} (bounds {F32_OUT_TOL}, "
               f"{F32_GRAD_TOL})", flush=True)
+    check(any(split), "no f32 case split the dk/dv's GQA group in parts")
     # The fp32 kernels' time at the slice's attention shape and at widths
     # 256 and 512 (not a path the port's bf16 models take: f32 is the
     # exact path, not the fast one), beside their bound at the card's
-    # fp32 peak and the fp32 plain versions'.
+    # fp32 peak, the fp32 plain versions' and SDPA's; the backward pair
+    # twice on the same inputs must agree bit for bit.
     for shape in F32_TIMED_SHAPES:
         q, k, v, do = _inputs(shape, 22, torch.float32)
         causal, scale = shape[-1], shape[4] ** -0.5
         o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
-        _, delta = fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
+        grads = _f32_backward(fa, q, k, v, o, lse, do, causal, scale)
+        again = _f32_backward(fa, q, k, v, o, lse, do, causal, scale)
+        delta = grads[1]
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(grads, again)]
+        print(f"[f32 op] fp32 backward twice at {shape}: dq, delta, dk, dv "
+              f"bit-identical {same}", flush=True)
+        check(all(same), f"the fp32 backward is not deterministic at {shape}")
+        del grads, again
         times = (time_ms(lambda: fa.flash_fwd_f32(q, k, v, causal, scale),
                          3, warmup=1),
                  time_ms(lambda: fa.flash_dq_f32(q, k, v, o, lse, do, causal,
@@ -1599,17 +1671,21 @@ def phase_f32_op(fa, attention_ops):
         # SDPA in f32 (TF32 off), forward and whole backward: a yardstick
         # only.
         lib = _sdpa_ms(shape, (q, k, v, do), reps=3)
+        pair = times[1] + times[2]
         lib_note = ("SDPA none" if lib[0] is None else
                     f"SDPA forward {lib[0]:.3f} ms, whole backward "
-                    f"{lib[1]:.3f} ms")
+                    f"{lib[1]:.3f} ms (fp32 dq + dk/dv {pair:.3f} ms, "
+                    f"{pair / lib[1]:.3f}x SDPA's)")
         b, s, h, _, d, _ = shape
         pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
         bounds = [1e3 * n * d * pairs / PEAK_F32_FLOPS for n in (4, 6, 8)]
+        shares = [bound / ms for bound, ms in zip(bounds, times)]
         print(f"[f32 op] fp32 kernels at {shape}: forward {times[0]:.3f} "
               f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms; bound "
               f"at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s fp32 "
               f"{bounds[0]:.3f} / {bounds[1]:.3f} / {bounds[2]:.3f} ms "
-              f"(operations); plain forward {plain[0]:.3f} ms, backward "
+              f"(operations), shares {shares[0]:.1%} / {shares[1]:.1%} / "
+              f"{shares[2]:.1%}; plain forward {plain[0]:.3f} ms, backward "
               f"{plain[1]:.3f} ms; {lib_note}", flush=True)
         del q, k, v, do, o, lse, delta
 

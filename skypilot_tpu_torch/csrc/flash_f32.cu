@@ -1,31 +1,95 @@
-// Flash attention in fp32 on Hopper (sm_90a): forward, dq and dk/dv for
-// f32 inputs, every family's shapes (any S that is a multiple of 8,
-// head_dim 64, 128, 256 or 512, causal or not), natural exp and a
-// natural-log lse.
+// Flash attention in fp32 on Hopper (sm_90a): forward, dq and dk/dv for f32
+// inputs, every family's shapes (any S that is a multiple of 8, head_dim 64,
+// 128, 256 or 512, causal or not), natural exp and a natural-log lse.
 //
 // Replaces, for f32 inputs, skypilot_tpu/ops/pallas/flash_attention.py's
-// kernels, whose dots take the input dtype (_fwd_kernel_resident,
-// _dq_kernel_resident and _dkv_kernel_resident feed f32 q, k, v, P and dS
-// to jax.lax.dot_general): the same three functions, in fp32 throughout.
-// The 16-bit kernels cannot stand in for them: rounding q, k and v to f16,
-// with everything else exact, already puts causal gradients past the JAX
-// reference tests' 5e-3 (tools/flash_f16_error_model.py), and the f16
-// kernels' own rounding of P and dS adds to it.
+// kernels, whose dots take the input dtype: _fwd_kernel_resident :759,
+// _fwd_kernel_tri :417 and _fwd_kernel :57 (the forward);
+// _dq_kernel_resident :862, _dq_kernel_tri :543 and _dq_kernel :178 (dq);
+// _dkv_kernel_resident :906, _dkv_kernel_tri :598 and _dkv_kernel :227
+// (dk/dv). Each feeds f32 q, k, v, P and dS to jax.lax.dot_general; these
+// are the same three functions, in fp32 throughout. The 16-bit kernels
+// cannot stand in for them: rounding q, k and v to f16, with everything else
+// exact, already puts causal gradients past the JAX reference tests' 5e-3
+// (tools/flash_f16_error_model.py), and the f16 kernels' own rounding of P
+// and dS adds to it.
 //
-// What bounds them: fp32 arithmetic outside the tensor cores (67 TFLOP/s
-// on the card, against 989 for bf16 products), and, as written, L2 reads
-// of the K/V (or q/dO) rows. They are the exact path, not the fast one:
-// bf16 and f16 inputs take the Hopper kernels. Design, for plainness: one warp
-// owns f32_rows<D>() rows (q rows for the forward and dq, kv rows of one KV
-// head for dk/dv: 4, and 2 at head_dim 512, where four rows of k, v, dk and dv
-// would take 256 registers a lane) and keeps them and their sums in registers,
-// each lane D / 32 columns; it walks the other operand one row at a time up to
-// the causal bound, reading it from global memory (coalesced: a row is D
-// contiguous floats), each dot product a warp sum. No tiles, so a ragged S
-// needs no mask, and no atomics: dk/dv sums the GQA group in registers, and
-// every kernel is deterministic. dq writes delta = rowsum(dO * O) for dk/dv,
-// as the other families do.
+// What bounds them: fp32 arithmetic outside the tensor cores (67 TFLOP/s on
+// the card, against 989 for bf16 products). Every product is FFMA on the
+// CUDA cores, exact to fp32 rounding: no tensor-core instruction, TF32 or
+// split-TF32 scheme.
+//
+// The forward, written for plainness: one warp owns f32_rows<D>() q rows (4,
+// and 2 at head_dim 512) and keeps them and their sums in registers, each
+// lane D / 32 columns; it walks K and V one row at a time up to the causal
+// bound, reading them from global memory, each dot product a warp sum. Its
+// L2 reads of each K/V row serve 4 rows, and each score is five shuffles
+// beside D / 32 FFMAs.
+//
+// The backward (flash_dq_f32_kernel, flash_dkv_f32_kernel) is built as an
+// SGEMM is, for the FFMA rate: a CTA of 256 threads keeps a tile of resident
+// rows in shared memory (dq: Q and dO of kRows q rows; dk/dv: K and V of
+// kRows kv rows) and streams the other operand's tiles of kInner rows (dq:
+// K, V; dk/dv: Q, dO of each head of its part of the GQA group) through a
+// ring of kStages slabs, kSlab columns each: one TMA box a slab, kSlab + 4
+// columns wide, so it lands as the padded rows the products read (the 4
+// extra columns fill the padding: the next slab's, or zeros past D; rows
+// past S read as zeros), completing on the slot's mbarrier (sm90::mbar_*,
+// sm90::tma_load_4d). The resident tiles, whose padded rows pass a box's
+// 256 columns at D = 256 and 512, come once a CTA by one bulk copy
+// (cp.async.bulk) a row.
+// Every product is a register-blocked outer product: a thread owns a (kSM x
+// kSN) block of S and dP (S^T, dP^T) and a (kOM x kON) block of each output
+// slab, reading its operands from shared memory as float4 (rows padded to 4
+// floats past a multiple of 32, P and dS rows to 8, so the four row groups
+// and eight column groups of a warp's lanes meet distinct banks or one
+// broadcast). Each product takes both operands row-major: S = Q K^T and dP =
+// dO V^T reduce along the rows of both; dq += dS K, dk += dS^T Q and dv +=
+// P^T dO read A along its rows and B down its columns, so no tile is stored
+// transposed. P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = P (dP -
+// delta) are formed in the registers that computed S and dP, then staged in
+// shared memory as the A operand of the output products; the outputs stay in
+// registers across the whole stream. A tile's ring steps: the kSlab-wide
+// slabs of V (dP), then of K (S; the last one also feeds the output product
+// of its columns, so a one-slab head_dim reads K once), then K again for the
+// other column slabs of dq (dq); dk/dv the same with dO and Q, then dO again
+// for dv. Per (row, key) pair that is 6 D FLOPs for dq and 8 D for dk/dv, S
+// and dP recomputed in each (one fused pass would need float atomics for
+// dq).
+//
+// Budget of a CTA (DqTiles, DkvTiles; shared memory: the resident pair, P
+// and dS, the ring, the rows' stats, the mbarriers, 128 bytes to align),
+// every one 256 threads, one CTA an SM:
+//   dq     D=64: 64 q rows, 64-key tiles, one 64-column slab, 4 stages,
+//          S 4x4 a thread, dq 16 registers (123,560 B);
+//          D=128: the same in one 128-column slab, 3 stages, dq 32
+//          (188,064 B);
+//          D=256: two 128-column slabs, 2 stages, dq 64 (219,800 B);
+//          D=512: 32 q rows (64 Q and dO rows would not fit) against
+//          128-key tiles, S 4x4, eight 64-column slabs, 2 stages, dq 64
+//          (219,544 B).
+//   dk/dv  D=64: 64 kv rows, 64-row q tiles, one slab, 4 stages, dk and
+//          dv 32 registers (141,992 B);
+//          D=128: one 128-column slab, 3 stages, dk and dv 64
+//          (206,496 B);
+//          D=256: four 64-column slabs, 3 stages, dk and dv 128
+//          (222,880 B);
+//          D=512: 32 kv rows, S^T 2x4, eight 64-column slabs, 2 stages,
+//          dk and dv 128 (185,752 B).
+//
+// Work lists, built on the host (ops/flash_attention.py), longest first: dq
+// walks (b * H + h, q tile) items, each over the key tiles up to its causal
+// bound; dk/dv walks (b * KVH + kvh, kv tile, part) items, each over the q
+// tiles from its causal start for each of the G / P query heads of its part
+// of the group. Where B * KVH * S / kRows would leave the card part idle,
+// P > 1 parts write fp32 partials to a workspace, and the last CTA of each kv
+// tile to take its integer ticket sums them in part order: no float atomics,
+// so every kernel is deterministic. Rows past S are zeros in shared memory
+// and are masked out of P (key columns in dq, q columns in dk/dv); only
+// rows < S are written. dq writes delta = rowsum(dO * O) for dk/dv, as the
+// other families do.
 #include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"  // the mbarrier helpers (sm90::mbar_*)
 
 namespace stpu {
 namespace {
@@ -127,121 +191,632 @@ flash_fwd_f32_kernel(const FwdParams p) {
   }
 }
 
-// dq and delta: block (blockIdx.x, b * H + h), warp rows row0 .. row0 +
-// kF32Rows - 1.
-template <int D>
-__global__ void __launch_bounds__(kF32Block)
-flash_dq_f32_kernel(const BwdParams p) {
-  constexpr int C = D / 32, kF32Rows = f32_rows<D>();
-  constexpr int kF32BlockRows = kF32Rows * kF32Warps;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const int row0 = blockIdx.x * kF32BlockRows + warp * kF32Rows;
-  if (row0 >= p.S) return;
-  const float* qg = f32(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* og = f32(p.o) + b * p.o_sb + h * p.o_sh;
-  const float* dog = f32(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* kg = f32(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = f32(p.v) + b * p.v_sb + kvh * p.v_sh;
-  const long long stat = ((long long)b * p.H + h) * p.S;
-  float q[kF32Rows][C], dO[kF32Rows][C], dq[kF32Rows][C];
-  float lse[kF32Rows], dlt[kF32Rows];
-#pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    const int row = min(row0 + r, p.S - 1);
-    float o[C];
-    load_row<C>(q[r], qg, p.q_ss, row);
-    load_row<C>(dO[r], dog, p.do_ss, row);
-    load_row<C>(o, og, p.o_ss, row);
-    dlt[r] = dot<C>(dO[r], o);
-    lse[r] = p.lse[stat + row];
-#pragma unroll
-    for (int c = 0; c < C; ++c) dq[r][c] = 0.f;
-    if (lane == 0 && row0 + r < p.S) p.delta[stat + row] = dlt[r];
+// ----------------------------------------------------------------------
+// The backward: dq and dk/dv as register-blocked FFMA products over
+// shared-memory tiles (see the note at the top).
+
+constexpr int kBwdThreads = 256;  // 8 warps, one CTA an SM
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kMaxSmemBytes = 232448;  // what a block may use
+
+// dq's launch: the work list holds (b * H + h, q tile) pairs.
+struct F32Dq {
+  BwdParams p;
+  const int* work;
+  int batch;
+};
+
+// dk/dv's launch: the work list holds (b * KVH + kvh, kv tile, part)
+// triples. With parts > 1 each part's fp32 partials go to ws, (2, parts,
+// batch, S, KVH, D) (dv, then dk), and each kv tile has one ticket, zero
+// at launch.
+struct F32Dkv {
+  BwdParams p;
+  const int* work;
+  float* ws;
+  int* tickets;
+  int parts;
+  int batch;
+};
+
+// A CTA's tiles at head_dim D: resident rows, rows of a streamed tile,
+// columns of a streamed slab, ring stages, a thread's block of S (S^T)
+// and dP (kSM x kSN) and of each output slab (kOM x kON).
+template <int D> struct DqTiles;
+template <> struct DqTiles<64> {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 64, kStages = 4;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 4;
+};
+template <> struct DqTiles<128> {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 128, kStages = 3;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 8;
+};
+template <> struct DqTiles<256> {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 128, kStages = 2;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 8;
+};
+template <> struct DqTiles<512> {
+  static constexpr int kRows = 32, kInner = 128, kSlab = 64, kStages = 2;
+  static constexpr int kSM = 4, kSN = 4, kOM = 2, kON = 4;
+};
+template <int D> struct DkvTiles;
+template <> struct DkvTiles<64> {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 64, kStages = 4;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 4;
+};
+template <> struct DkvTiles<128> {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 128, kStages = 3;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 8;
+};
+template <> struct DkvTiles<256> {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 64, kStages = 3;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 4;
+};
+template <> struct DkvTiles<512> {
+  static constexpr int kRows = 32, kInner = 64, kSlab = 64, kStages = 2;
+  static constexpr int kSM = 2, kSN = 4, kOM = 2, kON = 4;
+};
+
+// Shared memory of a CTA, in floats from a 128-byte aligned base: the two
+// resident tiles (kRows rows of D + 4), kPTiles tiles of P or dS (kRows
+// rows of kInner + 8), the ring's slabs (kInner rows of kSlab + 4), two
+// floats a resident row (dq: lse * log2(e) and delta; dk/dv: the ticket's
+// flag); then kStages + 1 mbarriers (the slabs', the resident tiles').
+template <class T, int D, int kPTiles>
+struct BwdSmem {
+  static constexpr int kLdRes = D + 4, kLdP = T::kInner + 8;
+  static constexpr int kLdSlab = T::kSlab + 4;
+  static constexpr int kResTile = T::kRows * kLdRes;
+  static constexpr int kPTile = T::kRows * kLdP;
+  static constexpr int kSlabTile = T::kInner * kLdSlab;
+  static constexpr int kP = 2 * kResTile;
+  static constexpr int kRing = kP + kPTiles * kPTile;
+  static constexpr int kStat = kRing + T::kStages * kSlabTile;
+  static constexpr int kBar = kStat + 2 * T::kRows;  // 8-byte aligned
+  static constexpr int kSlabBytes = 4 * kSlabTile;    // a whole TMA box
+  // 128 bytes of slack to align the base: every TMA slot starts on a
+  // 128-byte boundary.
+  static constexpr int kBytes = 4 * kBar + 8 * (T::kStages + 1) + 128;
+  static_assert(kRing % 32 == 0 && kSlabTile % 32 == 0,
+                "128-byte aligned slots");
+  static_assert(kLdSlab <= 256, "a TMA box spans at most 256 columns");
+  static_assert(kBytes <= kMaxSmemBytes, "a CTA's tiles pass 227 KB");
+  static_assert(D % T::kSlab == 0 && T::kStages >= 2, "slabs of a row");
+};
+
+// A thread's place in an M x N product of the CTA: the 8 warps tile it in
+// (M / 4 TM) x (N / 8 TN) blocks, the lanes of a warp 4 x 8. Rows row0 +
+// 4 i (i < TM); columns col0 + 8 j (j < TN) for S and dP, or col4 + 32 g
+// + c (g < TN / 4, c < 4) for an output slab, read as float4.
+template <int M, int N, int TM, int TN>
+struct Frag {
+  static constexpr int kWarpsN = N / (8 * TN);
+  static_assert((M / (4 * TM)) * kWarpsN == kBwdWarps && TN % 4 == 0,
+                "8 warps tile the product");
+  static __device__ __forceinline__ int row0() {
+    return threadIdx.x / 32 / kWarpsN * 4 * TM + threadIdx.x % 32 / 8;
   }
-  const int n_keys = p.causal ? min(p.S, row0 + kF32Rows) : p.S;
-  for (int j = 0; j < n_keys; ++j) {
-    float kj[C], vj[C];
-    load_row<C>(kj, kg, p.k_ss, j);
-    load_row<C>(vj, vg, p.v_ss, j);
+  static __device__ __forceinline__ int col0() {
+    return threadIdx.x / 32 % kWarpsN * 8 * TN + threadIdx.x % 8;
+  }
+  static __device__ __forceinline__ int col4() {
+    return threadIdx.x / 32 % kWarpsN * 8 * TN + 4 * (threadIdx.x % 8);
+  }
+};
+
+// One row of `bytes` from global src to shared dst by the bulk-copy engine,
+// completing on mbarrier `bar`'s transaction count.
+__device__ __forceinline__ void bulk_row(float* dst, const float* src,
+                                         int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int c) {
+  return c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
+}
+
+// Rows row0 .. row0 + n - 1 (all < S) of a (.., S, .., D) tensor (row
+// stride gs) into shared rows of LD floats, one bulk copy a row from the
+// lanes of warp 0, completing on `bar` (armed for their bytes by the
+// caller).
+template <int D, int LD>
+__device__ __forceinline__ void copy_rows(float* s, const float* g,
+                                          long long gs, int row0, int n,
+                                          uint32_t bar) {
+  for (int r = threadIdx.x % 32; r < n; r += 32)
+    bulk_row(s + r * LD, g + (row0 + r) * gs, 4 * D, bar);
+}
+
+// Rows n .. R - 1 of a shared tile of R rows of C columns (LD floats a
+// row), zeroed by the CTA: a resident tile's rows past S.
+template <int R, int C, int LD>
+__device__ __forceinline__ void zero_rows(float* s, int n) {
+  for (int i = threadIdx.x; i < (R - n) * (C / 4); i += kBwdThreads)
+    *reinterpret_cast<float4*>(s + (n + i / (C / 4)) * LD +
+                               4 * (i % (C / 4))) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The two resident tiles (R rows of D columns from row0 of a and of b,
+// back to back) by warp 0's bulk copies on `bar`, which it arms for their
+// bytes; their rows past S are zeroed by the CTA.
+template <int R, int D, int LD>
+__device__ __forceinline__ void load_resident(float* s, const float* a,
+                                              long long as, const float* b,
+                                              long long bs, int row0, int S,
+                                              uint32_t bar) {
+  const int n = min(R, S - row0);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) sm90::mbar_expect_tx(bar, 8 * n * D);
+    __syncwarp();
+    copy_rows<D, LD>(s, a, as, row0, n, bar);
+    copy_rows<D, LD>(s + R * LD, b, bs, row0, n, bar);
+  }
+  zero_rows<R, D, LD>(s, n);
+  zero_rows<R, D, LD>(s + R * LD, n);
+}
+
+// The dynamic shared memory from its first 128-byte boundary (the layouts
+// keep 128 bytes of slack for it).
+__device__ __forceinline__ float* aligned_smem() {
+  extern __shared__ float4 smem_f4[];
+  unsigned char* raw = reinterpret_cast<unsigned char*>(smem_f4);
+  return reinterpret_cast<float*>(raw + ((128 - (smem_addr(raw) & 127)) &
+                                         127));
+}
+
+// The CTA's kStages + 1 mbarriers at `bars`, one arrival a phase; the
+// CTA meets before any is used.
+template <int kStages>
+__device__ __forceinline__ void init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) sm90::mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// acc[i][j] += sum_{k < K} a[i][k] b[j][k], a's rows 4 apart (LDA floats
+// each), b's rows 8 apart (LDB floats each): S = Q K^T, dP = dO V^T and
+// their transposes.
+template <int TM, int TN, int K, int LDA, int LDB>
+__device__ __forceinline__ void fma_nt(float (&acc)[TM][TN],
+                                       const float* a, const float* b) {
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float4 x[TM], y[TN];
 #pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      if (p.causal && j > row0 + r) continue;
-      const float pr = expf(dot<C>(q[r], kj) * p.scale - lse[r]);
-      const float ds = pr * (dot<C>(dO[r], vj) - dlt[r]);
+    for (int i = 0; i < TM; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + i * 4 * LDA + k);
 #pragma unroll
-      for (int c = 0; c < C; ++c) dq[r][c] = fmaf(ds, kj[c], dq[r][c]);
+    for (int j = 0; j < TN; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + j * 8 * LDB + k);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
     }
-  }
-  float* dqg = f32(p.dq) + ((long long)b * p.S * p.H + h) * D;
-#pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    const int row = row0 + r;
-    if (row >= p.S) continue;
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      dqg[(long long)row * p.H * D + lane + 32 * c] = dq[r][c] * p.scale;
   }
 }
 
-// dk and dv: block (blockIdx.x, b * KVH + kvh), warp kv rows row0 ..
-// row0 + kF32Rows - 1, summed over the G query heads of the group.
-template <int D>
-__global__ void __launch_bounds__(kF32Block)
-flash_dkv_f32_kernel(const BwdParams p) {
-  constexpr int C = D / 32, kF32Rows = f32_rows<D>();
-  constexpr int kF32BlockRows = kF32Rows * kF32Warps;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y / p.KVH, kvh = blockIdx.y % p.KVH;
-  const int groups = p.H / p.KVH;
-  const int row0 = blockIdx.x * kF32BlockRows + warp * kF32Rows;
-  if (row0 >= p.S) return;
-  const float* kg = f32(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = f32(p.v) + b * p.v_sb + kvh * p.v_sh;
-  float k[kF32Rows][C], v[kF32Rows][C], dk[kF32Rows][C], dv[kF32Rows][C];
+// acc[i][4 g + c] += sum_{k < K} a[i][k] b[k][32 g + c], a's rows 4 apart
+// (LDA floats each), b's rows LDB floats apart: dq += dS K, dk += dS^T Q,
+// dv += P^T dO on one column slab.
+template <int TM, int TN, int K, int LDA, int LDB>
+__device__ __forceinline__ void fma_nn(float (&acc)[TM][TN],
+                                       const float* a, const float* b) {
+  constexpr int G = TN / 4;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 x[TM];
 #pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    const int row = min(row0 + r, p.S - 1);
-    load_row<C>(k[r], kg, p.k_ss, row);
-    load_row<C>(v[r], vg, p.v_ss, row);
+    for (int i = 0; i < TM; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + i * 4 * LDA + k);
 #pragma unroll
-    for (int c = 0; c < C; ++c) dk[r][c] = dv[r][c] = 0.f;
-  }
-  for (int gi = 0; gi < groups; ++gi) {
-    const int h = kvh * groups + gi;
-    const float* qg = f32(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* dog = f32(p.dout) + b * p.do_sb + h * p.do_sh;
-    const long long stat = ((long long)b * p.H + h) * p.S;
-    for (int i = p.causal ? row0 : 0; i < p.S; ++i) {
-      float qi[C], doi[C];
-      load_row<C>(qi, qg, p.q_ss, i);
-      load_row<C>(doi, dog, p.do_ss, i);
-      const float lse = p.lse[stat + i], dlt = p.delta[stat + i];
+    for (int u = 0; u < 4; ++u) {
+      float4 y[G];
 #pragma unroll
-      for (int r = 0; r < kF32Rows; ++r) {
-        if (row0 + r >= p.S || (p.causal && i < row0 + r)) continue;
-        const float pr = expf(dot<C>(qi, k[r]) * p.scale - lse);
-        const float ds = pr * (dot<C>(doi, v[r]) - dlt);
+      for (int g = 0; g < G; ++g)
+        y[g] = *reinterpret_cast<const float4*>(b + (k + u) * LDB + 32 * g);
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          dv[r][c] = fmaf(pr, doi[c], dv[r][c]);
-          dk[r][c] = fmaf(ds, qi[c], dk[r][c]);
+      for (int i = 0; i < TM; ++i) {
+        const float xi = lane_of(x[i], u);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          acc[i][4 * g + 0] = fmaf(xi, y[g].x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(xi, y[g].y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(xi, y[g].z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(xi, y[g].w, acc[i][4 * g + 3]);
         }
       }
     }
   }
-  const long long base = ((long long)b * p.S * p.KVH + kvh) * D;
-  const long long ss = (long long)p.KVH * D;
+}
+
+// The ring: step g's slab sits in slot g % kStages, on mbarrier g %
+// kStages. A step waits for its slab, meets the CTA (which has then
+// finished step g - 1), and refills step g - 1's slot with the slab of
+// step g + kStages - 1.
+template <int kStages>
+struct Ring {
+  float* base;
+  int slab_floats;
+  uint32_t bars;
+  template <class Fetch>
+  __device__ __forceinline__ const float* step(int g, const Fetch& fetch) {
+    sm90::mbar_wait(bars + 8 * (g % kStages), (g / kStages) & 1);
+    __syncthreads();
+    fetch(g + kStages - 1);
+    return base + (g % kStages) * slab_floats;
+  }
+};
+
+// Rows [r0, r0 + 4 TM) (4 apart from row0) of an output slab's block, a
+// row's columns col4 + 32 g + c, times mul, to the rows < S of out (row
+// stride ss).
+template <int TM, int TN>
+__device__ __forceinline__ void store_block(const float (&acc)[TM][TN],
+                                            float mul, float* out,
+                                            long long ss, int row0, int S) {
 #pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    const int row = row0 + r;
-    if (row >= p.S) continue;
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + 4 * i;
+    if (row >= S) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      f32(p.dk)[base + row * ss + lane + 32 * c] = dk[r][c] * p.scale;
-      f32(p.dv)[base + row * ss + lane + 32 * c] = dv[r][c];
+    for (int g = 0; g < TN / 4; ++g)
+      *reinterpret_cast<float4*>(out + row * ss + 32 * g) =
+          make_float4(acc[i][4 * g] * mul, acc[i][4 * g + 1] * mul,
+                      acc[i][4 * g + 2] * mul, acc[i][4 * g + 3] * mul);
+  }
+}
+
+// dq and delta: block i is item i of the work list, (b * H + h, q tile of
+// kRows rows), walking the kInner-key tiles up to its causal bound; tk and
+// tv map K and V in boxes of kInner rows x kSlab + 4 columns.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_dq_f32_kernel(const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const F32Dq a) {
+  using T = DqTiles<D>;
+  using L = BwdSmem<T, D, 1>;
+  using SF = Frag<T::kRows, T::kInner, T::kSM, T::kSN>;
+  using OF = Frag<T::kRows, T::kSlab, T::kOM, T::kON>;
+  constexpr int kN = D / T::kSlab;     // column slabs a row
+  constexpr int kSteps = 3 * kN - 1;   // ring steps a key tile
+  float* sm = aligned_smem();
+  const BwdParams& p = a.p;
+  const int bh = a.work[2 * blockIdx.x], qt = a.work[2 * blockIdx.x + 1];
+  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KVH);
+  const int q0 = qt * T::kRows;
+  const float* qg = f32(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* og = f32(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* dog = f32(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int n_all = ceil_div(p.S, T::kInner);
+  const int n_kt = p.causal
+                       ? min(n_all, (q0 + T::kRows - 1) / T::kInner + 1)
+                       : n_all;
+  const int total = n_kt * kSteps;
+  const uint32_t bars = smem_addr(sm + L::kBar);
+  init_bars<T::kStages>(bars);
+  // Step w of a key tile: V slab w (w < kN), K slab w - kN, then K slabs
+  // kN - 2 .. 0.
+  const auto fetch = [&](int g) {
+    if (g >= total || threadIdx.x != 0) return;
+    const int t = g / kSteps, w = g % kSteps;
+    const int slab = w < kN ? w : w < 2 * kN ? w - kN : 3 * kN - 2 - w;
+    const uint32_t bar = bars + 8 * (g % T::kStages);
+    sm90::mbar_expect_tx(bar, L::kSlabBytes);
+    sm90::tma_load_4d(sm + L::kRing + (g % T::kStages) * L::kSlabTile,
+                      w < kN ? &tv : &tk, bar, slab * T::kSlab,
+                      t * T::kInner, kvh, b);
+  };
+  load_resident<T::kRows, D, L::kLdRes>(sm, qg, p.q_ss, dog, p.do_ss, q0,
+                                        p.S, bars + 8 * T::kStages);
+#pragma unroll
+  for (int g = 0; g < T::kStages - 1; ++g) fetch(g);
+  sm90::mbar_wait(bars + 8 * T::kStages, 0);
+  __syncthreads();
+  // delta = rowsum(dO * O), a warp a row; lse into base 2 (BaseE2).
+  const long long stat = ((long long)b * p.H + h) * p.S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < T::kRows; r += kBwdWarps) {
+    const int row = q0 + r;
+    float s = 0.f;
+    if (row < p.S) {
+      for (int c = 4 * lane; c < D; c += 128) {
+        const float4 o =
+            __ldg(reinterpret_cast<const float4*>(og + row * p.o_ss + c));
+        const float4 d = *reinterpret_cast<const float4*>(
+            sm + L::kResTile + r * L::kLdRes + c);
+        s = fmaf(d.x, o.x, s);
+        s = fmaf(d.y, o.y, s);
+        s = fmaf(d.z, o.z, s);
+        s = fmaf(d.w, o.w, s);
+      }
     }
+    s = warp_sum(s);
+    if (lane == 0) {
+      sm[L::kStat + r] =
+          row < p.S ? p.lse[stat + row] * BaseE2::kLseMul : 0.f;
+      sm[L::kStat + T::kRows + r] = s;
+      if (row < p.S) p.delta[stat + row] = s;
+    }
+  }
+  __syncthreads();
+  const int sr = SF::row0(), sc = SF::col0();
+  const int orow = OF::row0(), ocol = OF::col4();
+  float lse2[T::kSM], dlt[T::kSM];
+#pragma unroll
+  for (int i = 0; i < T::kSM; ++i) {
+    lse2[i] = sm[L::kStat + sr + 4 * i];
+    dlt[i] = sm[L::kStat + T::kRows + sr + 4 * i];
+  }
+  const float* qs = sm + sr * L::kLdRes;
+  const float* dos = qs + L::kResTile;
+  float* ds = sm + L::kP;
+  const float c2 = p.scale * BaseE2::kScoreMul;
+  Ring<T::kStages> ring{sm + L::kRing, L::kSlabTile, bars};
+  float acc[kN][T::kOM][T::kON];
+#pragma unroll
+  for (int w = 0; w < kN; ++w)
+#pragma unroll
+    for (int i = 0; i < T::kOM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) acc[w][i][j] = 0.f;
+  for (int t = 0; t < n_kt; ++t) {
+    float s[T::kSM][T::kSN], dp[T::kSM][T::kSN];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) s[i][j] = dp[i][j] = 0.f;
+    const int g0 = t * kSteps;
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const float* v = ring.step(g0 + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdRes, L::kLdSlab>(
+          dp, dos + w * T::kSlab, v + sc * L::kLdSlab);
+    }
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const float* k = ring.step(g0 + kN + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdRes, L::kLdSlab>(
+          s, qs + w * T::kSlab, k + sc * L::kLdSlab);
+      if (w == kN - 1) {
+        // dS of the tile, masked: key columns at or past S, and above the
+        // diagonal when causal.
+#pragma unroll
+        for (int i = 0; i < T::kSM; ++i) {
+          const int qpos = q0 + sr + 4 * i;
+#pragma unroll
+          for (int j = 0; j < T::kSN; ++j) {
+            const int kpos = t * T::kInner + sc + 8 * j;
+            const bool keep = kpos < p.S && !(p.causal && kpos > qpos);
+            const float pr =
+                keep ? BaseE2::exp(fmaf(s[i][j], c2, -lse2[i])) : 0.f;
+            ds[(sr + 4 * i) * L::kLdP + sc + 8 * j] = pr * (dp[i][j] - dlt[i]);
+          }
+        }
+        __syncthreads();
+        fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+            acc[kN - 1], ds + orow * L::kLdP, k + ocol);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kN - 1; ++w) {
+      const float* k = ring.step(g0 + 2 * kN + w, fetch);
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          acc[kN - 2 - w], ds + orow * L::kLdP, k + ocol);
+    }
+  }
+  float* dqg = f32(p.dq) + ((long long)b * p.S * p.H + h) * D;
+  const long long ss = (long long)p.H * D;
+#pragma unroll
+  for (int w = 0; w < kN; ++w)
+    store_block(acc[w], p.scale, dqg + w * T::kSlab + ocol, ss, q0 + orow,
+                p.S);
+}
+
+// The rows < S of a kv tile's dk or dv (which: 0 dv, 1 dk) summed over
+// the parts' fp32 partials in part order, times mul, into out.
+template <int D, int kRows>
+__device__ __forceinline__ void sum_parts(const F32Dkv& a, int which,
+                                          float mul, float* out,
+                                          long long off, long long ss,
+                                          int row0) {
+  const long long plane = (long long)a.batch * a.p.S * ss;
+  const float* ws = a.ws + which * a.parts * plane + off;
+  constexpr int kRowChunks = D / 4;
+  for (int c = threadIdx.x; c < kRows * kRowChunks; c += kBwdThreads) {
+    const int row = row0 + c / kRowChunks;
+    if (row >= a.p.S) continue;
+    const long long at = row * ss + 4 * (c % kRowChunks);
+    float4 s = __ldcg(reinterpret_cast<const float4*>(ws + at));
+    for (int pp = 1; pp < a.parts; ++pp) {
+      const float4 x =
+          __ldcg(reinterpret_cast<const float4*>(ws + pp * plane + at));
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    *reinterpret_cast<float4*>(out + off + at) =
+        make_float4(s.x * mul, s.y * mul, s.z * mul, s.w * mul);
+  }
+}
+
+// dk and dv: block i is item i of the work list, (b * KVH + kvh, kv tile
+// of kRows rows, part), walking, for each of the part's G / parts query
+// heads, the kInner-row q tiles from its causal start; tq and tdo map Q
+// and dO in boxes of kInner rows x kSlab + 4 columns.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const F32Dkv a) {
+  using T = DkvTiles<D>;
+  using L = BwdSmem<T, D, 2>;
+  using SF = Frag<T::kRows, T::kInner, T::kSM, T::kSN>;
+  using OF = Frag<T::kRows, T::kSlab, T::kOM, T::kON>;
+  constexpr int kN = D / T::kSlab;
+  constexpr int kSteps = 4 * kN - 1;  // ring steps a q tile
+  float* sm = aligned_smem();
+  const BwdParams& p = a.p;
+  const int* item = a.work + 3 * blockIdx.x;
+  const int bkv = item[0], kt = item[1], part = item[2];
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  const int heads = p.H / p.KVH / a.parts;
+  const int h0 = kvh * (p.H / p.KVH) + part * heads;
+  const int k0 = kt * T::kRows;
+  // Causal: q tiles from the one that holds row k0.
+  const int i0 = p.causal ? k0 / T::kInner : 0;
+  const int n_qt = ceil_div(p.S, T::kInner) - i0;
+  const int total = heads * n_qt * kSteps;
+  const float* kg = f32(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vg = f32(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const uint32_t bars = smem_addr(sm + L::kBar);
+  init_bars<T::kStages>(bars);
+  // Step w of a q tile: dO slab w (w < kN), Q slab w - kN, Q slabs
+  // kN - 2 .. 0, then dO slabs 0 .. kN - 1.
+  const auto fetch = [&](int g) {
+    if (g >= total || threadIdx.x != 0) return;
+    const int t = g / kSteps, w = g % kSteps;
+    const int h = h0 + t / n_qt, qt = i0 + t % n_qt;
+    const bool is_do = w < kN || w >= 3 * kN - 1;
+    const int slab = w < kN            ? w
+                     : w < 2 * kN      ? w - kN
+                     : w < 3 * kN - 1  ? 3 * kN - 2 - w
+                                       : w - (3 * kN - 1);
+    const uint32_t bar = bars + 8 * (g % T::kStages);
+    sm90::mbar_expect_tx(bar, L::kSlabBytes);
+    sm90::tma_load_4d(sm + L::kRing + (g % T::kStages) * L::kSlabTile,
+                      is_do ? &tdo : &tq, bar, slab * T::kSlab,
+                      qt * T::kInner, h, b);
+  };
+  load_resident<T::kRows, D, L::kLdRes>(sm, kg, p.k_ss, vg, p.v_ss, k0,
+                                        p.S, bars + 8 * T::kStages);
+#pragma unroll
+  for (int g = 0; g < T::kStages - 1; ++g) fetch(g);
+  sm90::mbar_wait(bars + 8 * T::kStages, 0);
+  const int sr = SF::row0(), sc = SF::col0();
+  const int orow = OF::row0(), ocol = OF::col4();
+  const float* ks = sm + sr * L::kLdRes;
+  const float* vs = ks + L::kResTile;
+  float* pt = sm + L::kP;
+  float* dst = pt + L::kPTile;
+  const float c2 = p.scale * BaseE2::kScoreMul;
+  Ring<T::kStages> ring{sm + L::kRing, L::kSlabTile, bars};
+  float dk[kN][T::kOM][T::kON], dv[kN][T::kOM][T::kON];
+#pragma unroll
+  for (int w = 0; w < kN; ++w)
+#pragma unroll
+    for (int i = 0; i < T::kOM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) dk[w][i][j] = dv[w][i][j] = 0.f;
+  for (int t = 0; t < heads * n_qt; ++t) {
+    const int h = h0 + t / n_qt, qt = i0 + t % n_qt;
+    const long long stat = ((long long)b * p.H + h) * p.S;
+    float lse2[T::kSN], dlt[T::kSN];
+#pragma unroll
+    for (int j = 0; j < T::kSN; ++j) {
+      const int qpos = qt * T::kInner + sc + 8 * j;
+      lse2[j] =
+          qpos < p.S ? __ldg(p.lse + stat + qpos) * BaseE2::kLseMul : 0.f;
+      dlt[j] = qpos < p.S ? __ldg(p.delta + stat + qpos) : 0.f;
+    }
+    float s[T::kSM][T::kSN], dp[T::kSM][T::kSN];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) s[i][j] = dp[i][j] = 0.f;
+    const int g0 = t * kSteps;
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const float* d = ring.step(g0 + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdRes, L::kLdSlab>(
+          dp, vs + w * T::kSlab, d + sc * L::kLdSlab);
+    }
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const float* q = ring.step(g0 + kN + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdRes, L::kLdSlab>(
+          s, ks + w * T::kSlab, q + sc * L::kLdSlab);
+      if (w == kN - 1) {
+        // P^T and dS^T of the tile, masked: q columns at or past S, and
+        // those before the kv row when causal.
+#pragma unroll
+        for (int i = 0; i < T::kSM; ++i) {
+          const int kpos = k0 + sr + 4 * i;
+#pragma unroll
+          for (int j = 0; j < T::kSN; ++j) {
+            const int qpos = qt * T::kInner + sc + 8 * j;
+            const bool keep = qpos < p.S && !(p.causal && kpos > qpos);
+            const float pr =
+                keep ? BaseE2::exp(fmaf(s[i][j], c2, -lse2[j])) : 0.f;
+            const int at = (sr + 4 * i) * L::kLdP + sc + 8 * j;
+            pt[at] = pr;
+            dst[at] = pr * (dp[i][j] - dlt[j]);
+          }
+        }
+        __syncthreads();
+        fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+            dk[kN - 1], dst + orow * L::kLdP, q + ocol);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kN - 1; ++w) {
+      const float* q = ring.step(g0 + 2 * kN + w, fetch);
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          dk[kN - 2 - w], dst + orow * L::kLdP, q + ocol);
+    }
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const float* d = ring.step(g0 + 3 * kN - 1 + w, fetch);
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          dv[w], pt + orow * L::kLdP, d + ocol);
+    }
+  }
+  const long long ss = (long long)p.KVH * D;
+  const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
+  const int row0 = k0 + orow;
+  if (a.parts == 1) {
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const int c = w * T::kSlab + ocol;
+      store_block(dv[w], 1.f, f32(p.dv) + off + c, ss, row0, p.S);
+      store_block(dk[w], p.scale, f32(p.dk) + off + c, ss, row0, p.S);
+    }
+    return;
+  }
+  // This part's partials, then the kv tile's ticket: the CTA that takes
+  // the last one sums every part, its own read back, in part order.
+  const long long plane = (long long)a.batch * p.S * ss;
+#pragma unroll
+  for (int w = 0; w < kN; ++w) {
+    const int c = w * T::kSlab + ocol;
+    store_block(dv[w], 1.f, a.ws + part * plane + off + c, ss, row0, p.S);
+    store_block(dk[w], 1.f, a.ws + (a.parts + part) * plane + off + c, ss,
+                row0, p.S);
+  }
+  __threadfence();
+  __syncthreads();
+  volatile int* last = reinterpret_cast<int*>(sm + L::kStat);
+  if (threadIdx.x == 0)
+    *last = atomicAdd(a.tickets + bkv * ceil_div(p.S, T::kRows) + kt, 1) ==
+            a.parts - 1;
+  __syncthreads();
+  if (*last) {
+    __threadfence();
+    sum_parts<D, T::kRows>(a, 0, 1.f, f32(p.dv), off, ss, k0);
+    sum_parts<D, T::kRows>(a, 1, p.scale, f32(p.dk), off, ss, k0);
   }
 }
 
@@ -252,6 +827,73 @@ int launch_f32(void (*kernel)(const Params), int rows, int S,
                cudaStream_t stream, const Params& p) {
   const dim3 grid(ceil_div(S, f32_rows<D>() * kF32Warps), rows);
   kernel<<<grid, kF32Block, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// A map of a (B, S, heads, D) fp32 tensor at ptr with element strides
+// (sb, ss, sh, 1), as dimensions (D, S, heads, B) innermost first: boxes of
+// `cols` columns x `rows` rows of one head, unswizzled, so a box lands as
+// `rows` rows of `cols` floats; columns and rows past the tensor's read as
+// zeros.
+inline int encode_f32_rows(CUtensorMap* map, const void* ptr, int D, int S,
+                           int heads, int B, long long ss, long long sh,
+                           long long sb, int cols, int rows) {
+  const sm90::TensorMapEncodeTiled encode = sm90::tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 4, (cuuint64_t)sh * 4,
+                                 (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : sm90::kTensorMapError + (int)r;
+}
+
+// Launches the fp32 dq at head_dim D: `rows` (B * H) rows of work items,
+// ceil(S / kRows) each, one CTA an item, with K's and V's maps.
+template <int D>
+int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dq), int rows,
+               int S, cudaStream_t stream, const F32Dq& a) {
+  using T = DqTiles<D>;
+  constexpr int kBytes = BwdSmem<T, D, 1>::kBytes;
+  const BwdParams& p = a.p;
+  CUtensorMap tk, tv;
+  int err = encode_f32_rows(&tk, p.k, D, S, p.KVH, a.batch, p.k_ss, p.k_sh,
+                            p.k_sb, T::kSlab + 4, T::kInner);
+  if (!err)
+    err = encode_f32_rows(&tv, p.v, D, S, p.KVH, a.batch, p.v_ss, p.v_sh,
+                          p.v_sb, T::kSlab + 4, T::kInner);
+  if (!err) err = (int)allow_smem(kernel, kBytes);
+  if (err) return err;
+  kernel<<<rows * ceil_div(S, T::kRows), kBwdThreads, kBytes, stream>>>(
+      tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+// Launches the fp32 dk/dv at head_dim D: `rows` (B * KVH * parts) rows of
+// work items, ceil(S / kRows) each, one CTA an item, with Q's and dO's
+// maps.
+template <int D>
+int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dkv), int rows,
+               int S, cudaStream_t stream, const F32Dkv& a) {
+  using T = DkvTiles<D>;
+  constexpr int kBytes = BwdSmem<T, D, 2>::kBytes;
+  const BwdParams& p = a.p;
+  CUtensorMap tq, tdo;
+  int err = encode_f32_rows(&tq, p.q, D, S, p.H, a.batch, p.q_ss, p.q_sh,
+                            p.q_sb, T::kSlab + 4, T::kInner);
+  if (!err)
+    err = encode_f32_rows(&tdo, p.dout, D, S, p.H, a.batch, p.do_ss,
+                          p.do_sh, p.do_sb, T::kSlab + 4, T::kInner);
+  if (!err) err = (int)allow_smem(kernel, kBytes);
+  if (err) return err;
+  kernel<<<rows * ceil_div(S, T::kRows), kBwdThreads, kBytes, stream>>>(
+      tq, tdo, a);
   return (int)cudaGetLastError();
 }
 
@@ -288,35 +930,45 @@ extern "C" int stpu_flash_fwd_f32(const void* q, const void* k,
                 static_cast<cudaStream_t>(stream), p);
 }
 
-// strides: q, k, v, o, dO. dq (B, S, H, D) and delta (B, H, S) are written
-// contiguous, fp32.
+// strides: q, k, v, o, dO. work: dq's list, ceil(S / kRows) (b * H + h,
+// q tile) pairs a row, longest first. dq (B, S, H, D) and delta (B, H, S)
+// are written contiguous, fp32.
 extern "C" int stpu_flash_dq_f32(const void* q, const void* k,
                                  const void* v, const void* o,
                                  const void* dout, const void* lse, void* dq,
-                                 void* delta, const long long* strides,
-                                 int B, int S, int H, int KVH, int D,
-                                 float scale, int causal, void* stream) {
+                                 void* delta, const void* work,
+                                 const long long* strides, int B, int S,
+                                 int H, int KVH, int D, float scale,
+                                 int causal, void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
-  const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
-                                 nullptr, strides, S, H, KVH, scale, causal);
+  const F32Dq a = {bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
+                              nullptr, strides, S, H, KVH, scale, causal),
+                   static_cast<const int*>(work), B};
   STPU_F32_BY_D(D, flash_dq_f32_kernel, B * H,
-                static_cast<cudaStream_t>(stream), p);
+                static_cast<cudaStream_t>(stream), a);
 }
 
-// strides: q, k, v, dO. dk and dv (B, S, KVH, D) are written contiguous,
+// strides: q, k, v, dO. work: dk/dv's list, ceil(S / kRows) (b * KVH +
+// kvh, kv tile, part) triples a row and part, longest first; with parts >
+// 1, ws (2, parts, B, S, KVH, D) fp32 and tickets, one int a kv tile,
+// zeroed (else null). dk and dv (B, S, KVH, D) are written contiguous,
 // fp32.
 extern "C" int stpu_flash_dkv_f32(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dk, void* dv,
+                                  void* dk, void* dv, const void* work,
+                                  void* ws, void* tickets,
                                   const long long* strides, int B, int S,
                                   int H, int KVH, int D, float scale,
-                                  int causal, void* stream) {
+                                  int causal, int parts, void* stream) {
   using namespace stpu;
-  if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
-  const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
-                                 dk, dv, strides, S, H, KVH, scale, causal);
-  STPU_F32_BY_D(D, flash_dkv_f32_kernel, B * KVH,
-                static_cast<cudaStream_t>(stream), p);
+  if (S % 8 || H % KVH || parts < 1 || (H / KVH) % parts)
+    return (int)cudaErrorInvalidValue;
+  const F32Dkv a = {bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
+                               dk, dv, strides, S, H, KVH, scale, causal),
+                    static_cast<const int*>(work), static_cast<float*>(ws),
+                    static_cast<int*>(tickets), parts, B};
+  STPU_F32_BY_D(D, flash_dkv_f32_kernel, B * KVH * parts,
+                static_cast<cudaStream_t>(stream), a);
 }

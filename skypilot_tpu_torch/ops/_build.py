@@ -34,10 +34,10 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, dtype, scale, causal,
 # stream), dtype being the element type's code (DTYPES); the triangular
-# family is causal only; every Hopper kernel (all but the fp32 kernels)
-# takes its work list after its tensors; every dk/dv then takes its split
-# workspace and tickets, and its number of parts after the scale (and
-# causal flag); the fp32 kernels take no dtype.
+# family is causal only; every kernel but the fp32 forward takes its work
+# list after its tensors; every dk/dv then takes its split workspace and
+# tickets, and its number of parts after the scale (and causal flag); the
+# fp32 kernels take no dtype.
 # The *_attrs entries fill five ints for a Hopper kernel at a head_dim and
 # dtype: registers at launch, dynamic shared memory, threads, producer and
 # consumer registers (setmaxnreg).
@@ -46,6 +46,7 @@ _TRI_TAIL = [_STRIDES, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 _SPLIT_TAIL = _TAIL[:-1] + [_I, _P]
 _TRI_SPLIT_TAIL = _TRI_TAIL[:-1] + [_I, _P]
 _F32_TAIL = [_STRIDES, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_F32_SPLIT_TAIL = _F32_TAIL[:-1] + [_I, _P]
 _ATTRS = [_I, _I, ctypes.POINTER(_I)]
 SIGNATURES = {
     "flash_fwd": {"stpu_flash_fwd": [_P] * 6 + _TAIL,
@@ -67,8 +68,8 @@ SIGNATURES = {
                        "stpu_flash_dkv_streamed": [_P] * 11 + _SPLIT_TAIL,
                        "stpu_flash_dkv_streamed_attrs": _ATTRS},
     "flash_f32": {"stpu_flash_fwd_f32": [_P] * 5 + _F32_TAIL,
-                  "stpu_flash_dq_f32": [_P] * 8 + _F32_TAIL,
-                  "stpu_flash_dkv_f32": [_P] * 8 + _F32_TAIL},
+                  "stpu_flash_dq_f32": [_P] * 9 + _F32_TAIL,
+                  "stpu_flash_dkv_f32": [_P] * 11 + _F32_SPLIT_TAIL},
 }
 # The element types the kernels have instances of, by the code the C
 # entries take (csrc/flash_common.cuh: Bf16::kDtype, F16::kDtype).

@@ -13,7 +13,10 @@ kernel takes any S that is a multiple of 8 (a ragged last tile is
 masked), head_dim 64, 128, 256 (Gemma's) or 512, and bf16 or f16 (one
 instance each); f32 inputs take three fp32 kernels of their own
 (``csrc/flash_f32.cu``: ``flash_fwd_f32``, ``flash_dq_f32``,
-``flash_dkv_f32``, every family's shapes and widths, natural-log lse):
+``flash_dkv_f32``, every family's shapes and widths, natural-log lse,
+FFMA products exact to fp32 rounding; the backward pair as SGEMM-style
+tiles, F32_DQ_TILES and F32_DKV_TILES, its GQA group in ``dkv_parts``
+parts):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
   ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
@@ -88,7 +91,7 @@ import collections
 import ctypes
 import functools
 import heapq
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -115,6 +118,17 @@ WIDE_KV_TILE = 64
 # (tools/flash_dkv_variants.py: 2.01 us a step, partials at 1.84 TB/s).
 MAX_PARTS = 8
 WIDE_STEP_BYTES = 3.69e6
+# The fp32 backward (csrc/flash_f32.cu DqTiles, DkvTiles), by kernel
+# width: (resident rows a CTA, rows of each tile streamed against them).
+# dq: q rows against K/V tiles; dk/dv: kv rows against q tiles.
+F32_DQ_TILES = {64: (64, 64), 128: (64, 64), 256: (64, 64), 512: (32, 128)}
+F32_DKV_TILES = {64: (64, 64), 128: (64, 64), 256: (64, 64), 512: (32, 64)}
+# dkv_parts' cost model of the fp32 dk/dv: the rate of its tile steps
+# per SM, the card's fp32 peak (67 TFLOP/s over 132 SMs) at half use (it
+# runs at 47-52% of it on an H100, tools/kernel_turns.py), and the rate
+# at which the partials move (WIDE_STEP_BYTES in the fitted 2.01 us).
+F32_SM_FLOPS = 0.5 * 67e12 / 132
+PARTIAL_BYTES_PER_S = WIDE_STEP_BYTES / 2.01e-6
 # S must be a multiple of this: the JAX package only sends such S to its
 # kernels (its blocks are multiples of 8), and the dk/dv kernels read lse
 # and delta through a tensor map whose rows (4 * S bytes) a TMA copy needs
@@ -404,24 +418,27 @@ def tri_schedule(kind: str, n_rows: int, s: int,
 
 
 def dkv_wide_schedule(n_rows: int, s: int, parts: int,
-                      device: Optional[torch.device] = None
+                      device: Optional[torch.device] = None, *,
+                      tile: int = WIDE_KV_TILE, inner: int = BWD_INNER
                       ) -> torch.Tensor:
     """The work list of every dk/dv at head_dim 256 (``dkv_cta_wide``)
-    and 512 (``dkv_cta_512``, ``chunks(512)`` CTAs an item), (n_rows *
-    ceil(S / WIDE_KV_TILE) * parts, 3) int32: one (row, kv tile, part)
-    item, a row being b * KVH + kvh and part p the p-th of ``parts`` equal
-    slices of the GQA group.
+    and 512 (``dkv_cta_512``, ``chunks(512)`` CTAs an item), and of the
+    fp32 dk/dv (``tile``, ``inner`` from F32_DKV_TILES), (n_rows *
+    ceil(S / tile) * parts, 3) int32: one (row, kv tile, part) item, a
+    row being b * KVH + kvh and part p the p-th of ``parts`` equal slices
+    of the GQA group.
     Items are sorted by the causal tile pairs of their kv tile, from the
-    JAX package's own enumeration (``_tri_maps_col``) at WIDE_KV_TILE x
-    BWD_INNER tiles, longest first across all rows; a tile's parts stay
-    together. One list serves both causal modes (a non-causal launch's
-    items all cost the same). Built once per shape and device."""
-    key = ("wide", n_rows, s, str(device), parts)
+    JAX package's own enumeration (``_tri_maps_col``) at ``tile`` x
+    ``inner`` tiles (WIDE_KV_TILE x BWD_INNER by default), longest first
+    across all rows; a tile's parts stay together. One list serves both
+    causal modes (a non-causal launch's items all cost the same). Built
+    once per shape and device."""
+    key = ("wide", n_rows, s, str(device), parts, tile, inner)
     work = _SCHEDULES.get(key)
     if work is not None:
         return work
-    nt, ni = -(-s // WIDE_KV_TILE), -(-s // BWD_INNER)
-    tiles, _, _ = _tri_maps_col(ni, nt, BWD_INNER, WIDE_KV_TILE, 1)
+    nt, ni = -(-s // tile), -(-s // inner)
+    tiles, _, _ = _tri_maps_col(ni, nt, inner, tile, 1)
     pairs = collections.Counter(tiles)
     items = sorted(((r, t, p) for t in range(nt) for r in range(n_rows)
                     for p in range(parts)), key=lambda it: -pairs[it[1]])
@@ -443,37 +460,69 @@ def chunks(width: int) -> int:
 WIDE_STEP_512 = 8 / 5
 
 
+class DkvTiling(NamedTuple):
+    """A dk/dv body's split work as ``dkv_parts_cost`` models it: kv rows
+    of an item, rows of the q tiles it walks, CTAs an item, the time of
+    its tile step (one q tile of one head against the kv tile) in the
+    model's step, the partials' bytes that move in one such step, and
+    the tickets of a kv tile."""
+    kv_tile: int
+    q_tile: int
+    ctas: int
+    step: float
+    step_bytes: float
+    tickets: int
+
+
+def dkv_tiling(width: int, f32: bool = False) -> DkvTiling:
+    """The split dk/dv at kernel width ``width``: the Hopper body at 256
+    and 512 (``dkv_cta_wide``, ``dkv_cta_512``: width-256 tile steps,
+    WIDE_STEP_BYTES each, two tickets a tile and chunk), or with ``f32``
+    the fp32 body at any width (F32_DKV_TILES; its step's 8 x rows x
+    inner x width FLOPs at F32_SM_FLOPS, one ticket a tile)."""
+    if f32:
+        rows, inner = F32_DKV_TILES[width]
+        step_s = 8 * rows * inner * width / F32_SM_FLOPS
+        return DkvTiling(rows, inner, 1, 1.0, step_s * PARTIAL_BYTES_PER_S,
+                         1)
+    step = 1.0 if width <= 256 else WIDE_STEP_512
+    return DkvTiling(WIDE_KV_TILE, BWD_INNER, chunks(width), step,
+                     WIDE_STEP_BYTES, 2 * chunks(width))
+
+
 def dkv_parts_cost(b: int, s: int, kvh: int, groups: int, causal: bool,
-                   sms: int, parts: int, width: int = 256
-                   ) -> Tuple[int, float]:
-    """The modelled time of the dk/dv at kernel width ``width`` (256 or
-    512) with the GQA group of ``groups`` query heads in ``parts`` parts,
-    in width-256 tile steps (one 64-row q tile of one head against a kv
-    tile; WIDE_STEP_512 of them at 512): (the makespan of its
-    longest-first work list, ``chunks(width)`` CTAs an item, dealt to
-    ``sms`` SMs as each frees, one CTA an SM, each CTA its steps plus one
-    for its K/V load; the partials' traffic with P > 1, dk's and dv's fp32
-    planes of B x S x KVH x width written and read once per part, in
-    WIDE_STEP_BYTES)."""
-    n = -(-s // WIDE_KV_TILE)
+                   sms: int, parts: int, width: int = 256,
+                   f32: bool = False) -> Tuple[int, float]:
+    """The modelled time of the dk/dv at kernel width ``width`` (the
+    Hopper body at 256 or 512; with ``f32`` the fp32 body at any width:
+    ``dkv_tiling``) with the GQA group of ``groups`` query heads in
+    ``parts`` parts, in its tile steps: (the makespan of its
+    longest-first work list, ``ctas`` CTAs an item, dealt to ``sms`` SMs
+    as each frees, one CTA an SM, each CTA ``step`` for each of its q
+    tiles plus one for its K/V load; the partials' traffic with P > 1,
+    dk's and dv's fp32 planes of B x S x KVH x width written and read
+    once per part, in ``step_bytes``)."""
+    t = dkv_tiling(width, f32)
+    n, nq = -(-s // t.kv_tile), -(-s // t.q_tile)
     heads = groups // parts
-    step = 1 if width <= 256 else WIDE_STEP_512
     loads = [0] * sms
     for kt in range(n):
-        cost = heads * (n - kt if causal else n) * step + 1
-        for _ in range(b * kvh * parts * chunks(width)):
+        q_tiles = nq - kt * t.kv_tile // t.q_tile if causal else nq
+        cost = heads * q_tiles * t.step + 1
+        for _ in range(b * kvh * parts * t.ctas):
             heapq.heappush(loads, heapq.heappop(loads) + cost)
     plane = b * s * kvh * width * 4
-    traffic = 0.0 if parts == 1 else 4 * parts * plane / WIDE_STEP_BYTES
+    traffic = 0.0 if parts == 1 else 4 * parts * plane / t.step_bytes
     return max(loads), traffic
 
 
 @functools.lru_cache(maxsize=None)
 def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
-              sms: int, width: int = 256) -> int:
+              sms: int, width: int = 256, f32: bool = False) -> int:
     """P, the parts the GQA group of ``groups`` query heads is split in
-    across the CTAs of the dk/dv at kernel width ``width`` (256 or 512):
-    the divisor of the group, up to MAX_PARTS, of least ``dkv_parts_cost``
+    across the CTAs of the dk/dv at kernel width ``width`` (the Hopper
+    body at 256 or 512, or with ``f32`` the fp32 body at any width): the
+    divisor of the group, up to MAX_PARTS, of least ``dkv_parts_cost``
     (the least such divisor on a tie). Fewer parts leave the card part
     idle behind the longest items; more add partials to write and sum.
     P = 1 where the shape alone fills the card (MHA; a batch of 8 at
@@ -481,7 +530,7 @@ def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
     divisors = [p for p in range(1, min(groups, MAX_PARTS) + 1)
                 if groups % p == 0]
     return min(divisors, key=lambda p: sum(
-        dkv_parts_cost(b, s, kvh, groups, causal, sms, p, width)))
+        dkv_parts_cost(b, s, kvh, groups, causal, sms, p, width, f32)))
 
 
 def dq_schedule(n_rows: int, s: int, width: int,
@@ -632,8 +681,9 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # Every C entry takes (pointers..., strides, B, S, H, KVH, D, tail...,
 # stream); the tail is (dtype, scale, causal) for the resident and streamed
 # families, (dtype, scale) for the causal-only triangular one, (scale,
-# causal) for the fp32 kernels. The Hopper kernels take their work list as
-# their last pointer.
+# causal) for the fp32 kernels, every dk/dv's followed by its P. Every
+# kernel but the fp32 forward takes its work list after its tensors, and
+# every dk/dv then its workspace and tickets.
 
 def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
             *tail) -> None:
@@ -681,33 +731,39 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def dkv_wide_buffers(q, kvh: int, parts: int):
+def dkv_wide_buffers(q, kvh: int, parts: int, f32: bool = False):
     """(work list, workspace, tickets) of a width-256 or -512 dk/dv launch
-    split in ``parts``: ``dkv_wide_schedule``'s list, and with P > 1 the
-    fp32 partials' workspace, (2, P, B, S, KVH, D) from the caching
-    allocator, and the tickets of each kv tile's chunks, zeroed (None,
-    None at P = 1)."""
+    (with ``f32``, of the fp32 dk/dv at any width) split in ``parts``:
+    ``dkv_wide_schedule``'s list at the body's tiles (``dkv_tiling``),
+    and with P > 1 the fp32 partials' workspace, (2, P, B, S, KVH, D)
+    from the caching allocator, and the tickets of each kv tile (and
+    chunk), zeroed (None, None at P = 1)."""
     b, s, _, d = q.shape
-    work = dkv_wide_schedule(b * kvh, s, parts, q.device)
+    t = dkv_tiling(d, f32)
+    work = dkv_wide_schedule(b * kvh, s, parts, q.device, tile=t.kv_tile,
+                             inner=t.q_tile)
     if parts == 1:
         return work, None, None
     ws = torch.empty((2, parts, b, s, kvh, d), dtype=torch.float32,
                      device=q.device)
-    tickets = torch.zeros(2 * b * kvh * -(-s // WIDE_KV_TILE) * chunks(d),
+    tickets = torch.zeros(t.tickets * b * kvh * -(-s // t.kv_tile),
                           dtype=torch.int32, device=q.device)
     return work, ws, tickets
 
 
-def _dkv_split(q, kvh: int, causal: bool):
+def _dkv_split(q, kvh: int, causal: bool, f32: bool = False):
     """(work list, workspace, tickets, P) of a dk/dv launch: at head_dim 64
-    and 128 the "cols" list of ``bwd_schedule`` and P = 1; at 256 and 512
-    ``dkv_wide_buffers`` at P = ``dkv_parts`` of the shape, the width and
-    the card's SM count."""
+    and 128 the "cols" list of ``bwd_schedule`` and P = 1; at 256 and 512,
+    and for the fp32 dk/dv (``f32``) at every width, ``dkv_wide_buffers``
+    at P = ``dkv_parts`` of the shape, the width and the card's SM count
+    (1 for MHA, whatever the card)."""
     b, s, h, d = q.shape
-    if d <= 128:
+    if d <= 128 and not f32:
         return bwd_schedule("cols", b * kvh, s, q.device), None, None, 1
-    parts = dkv_parts(b, s, kvh, h // kvh, causal, _sm_count(q.device), d)
-    return (*dkv_wide_buffers(q, kvh, parts), parts)
+    groups = h // kvh
+    parts = 1 if groups == 1 else dkv_parts(b, s, kvh, groups, causal,
+                                            _sm_count(q.device), d, f32)
+    return (*dkv_wide_buffers(q, kvh, parts, f32), parts)
 
 
 def _dkv_call(name: str, source: str, q, k, v, do, lse, delta, causal,
@@ -870,13 +926,17 @@ def flash_dq_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  causal: bool, scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 kernel dq from the natural-log lse: (dq (B,S,H,D) fp32, delta =
-    rowsum(dO*O) (B,H,S) fp32)."""
+    """fp32 kernel dq from the natural-log lse (F32_DQ_TILES: q tiles
+    against K/V tiles streamed through shared memory, longest first):
+    (dq (B,S,H,D) fp32, delta = rowsum(dO*O) (B,H,S) fp32)."""
     _check_inputs(q, k, v, o, do, lse, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("flash_dq_f32", "flash_f32", (q, k, v, o, do, lse, dq, delta),
+    rows, inner = F32_DQ_TILES[d]
+    work = tri_schedule("rows", b * h, s, q.device, tile=rows, inner=inner)
+    _launch("flash_dq_f32", "flash_f32",
+            (q, k, v, o, do, lse, dq, delta, work),
             _strides(q, k, v, o, do), q, k.shape[2], float(scale),
             int(causal))
     return dq, delta
@@ -886,15 +946,19 @@ def flash_dkv_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 kernel dk/dv: (dk, dv) (B,S,KVH,D) fp32, the GQA group
+    """fp32 kernel dk/dv (F32_DKV_TILES: kv tiles against q tiles streamed
+    through shared memory, longest first, the GQA group in ``dkv_parts``
+    parts, ``_dkv_split``): (dk, dv) (B,S,KVH,D) fp32, the GQA group
     summed."""
     _check_inputs(q, k, v, do, lse, delta, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     kvh = k.shape[2]
     dk = torch.empty((b, s, kvh, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, kvh, d), dtype=v.dtype, device=q.device)
-    _launch("flash_dkv_f32", "flash_f32", (q, k, v, do, lse, delta, dk, dv),
-            _strides(q, k, v, do), q, kvh, float(scale), int(causal))
+    work, ws, tickets, parts = _dkv_split(q, kvh, causal, f32=True)
+    _launch("flash_dkv_f32", "flash_f32",
+            (q, k, v, do, lse, delta, dk, dv, work, ws, tickets),
+            _strides(q, k, v, do), q, kvh, float(scale), int(causal), parts)
     return dk, dv
 
 
@@ -1018,8 +1082,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       <= 65504: an input, output or gradient past that becomes inf (and
       the results inf or NaN; nothing clips or checks it), and values
       under 6.1e-5 keep fewer bits. f32 runs on the fp32 kernels, exact to
-      fp32 rounding and far slower than the 16-bit ones. Other dtypes
-      raise (``kernel_dtype``).
+      fp32 rounding (no TF32): at chip_smoke.py's F32_TIMED_SHAPES on an
+      H100 their backward takes 0.87-1.6x the time of SDPA's f32 backward
+      and their forward 1.6-2.1x SDPA's forward. Other dtypes raise
+      (``kernel_dtype``).
 
     Nothing on the card falls back to the plain versions."""
     if scale is None:

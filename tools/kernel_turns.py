@@ -7,10 +7,13 @@
 Each LABEL=DIR argument runs, in a process of its own from that checkout
 (its own sources, its own build), every Hopper kernel at chip_smoke.py's
 main shapes: the resident, triangular and streamed families at head_dim
-128, and at head_dim 256 the families the checkout has there.
-Each kernel is timed over 20 launches by CUDA events after a warm-up,
-beside the median SM clock nvidia-smi sampled during it, and the run
-prints one line, `TIMES {"flash_fwd": [ms, MHz], ...}`. Parent, change,
+128, and at head_dim 256 the families the checkout has there; then the
+fp32 kernels (flash_fwd_f32, flash_dq_f32, flash_dkv_f32) at its
+F32_TIMED_SHAPES, keyed "flash_dq_f32@(B, S, H, KVH, D)".
+Each kernel is timed over 20 launches (the fp32 kernels over 5) by CUDA
+events after a warm-up, beside the median SM clock nvidia-smi sampled
+during it, and the run prints one line, `TIMES {"flash_fwd": [ms, MHz],
+...}`. Parent, change,
 change, parent compares two trees on one card. Then, once per checkout,
 the SASS instruction count of each kernel instance (cuobjdump -sass of the
 libraries it built), and whether the instructions themselves are
@@ -34,6 +37,7 @@ import sys
 CHILD = r'''
 import json, sys
 sys.path.insert(0, ".")
+import torch
 import chip_smoke as cs
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import flash_attention as fa
@@ -62,11 +66,30 @@ try:
             clk = cs.CLOCKS.last()
             out[name + tag] = [round(ms, 4), clk and clk["sm_mhz"]]
         del q, k, v, do, o, lse, dq, delta, dk, dv
+    for shape in getattr(cs, "F32_TIMED_SHAPES", ()):
+        b, s, h, kvh, d, causal = shape
+        scale = d ** -0.5
+        q, k, v, do = cs._inputs(shape, 22, torch.float32)
+        o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
+        dq, delta = fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
+        tag = "@" + str(tuple(shape[:5])).replace(" ", "")
+        for name, fn in (
+                ("flash_fwd_f32", lambda: fa.flash_fwd_f32(q, k, v, causal,
+                                                           scale)),
+                ("flash_dq_f32", lambda: fa.flash_dq_f32(q, k, v, o, lse, do,
+                                                         causal, scale)),
+                ("flash_dkv_f32", lambda: fa.flash_dkv_f32(
+                    q, k, v, do, lse, delta, causal, scale))):
+            ms = cs.time_ms(fn, 5, warmup=1)
+            clk = cs.CLOCKS.last()
+            out[name + tag] = [round(ms, 4), clk and clk["sm_mhz"]]
+        del q, k, v, do, o, lse, dq, delta
 finally:
     cs.CLOCKS.stop()
 print("TIMES", json.dumps(out), flush=True)
 '''
-KERNEL = re.compile(r"\d(flash_[a-z_]+_kernel)ILi(\d+)ENS_\d(Bf16|F16)E")
+KERNEL = re.compile(
+    r"\d(flash_[a-z0-9_]+_kernel)ILi(\d+)E(?:NS_\d(Bf16|F16)E)?")
 
 
 def instructions(checkout: pathlib.Path) -> dict:
@@ -84,7 +107,8 @@ def instructions(checkout: pathlib.Path) -> dict:
             m = KERNEL.search(part.split(None, 1)[0])
             if m:
                 code = _code(part)
-                counts[f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"] = (
+                tag = f", {m.group(3)}" if m.group(3) else ""
+                counts[f"{m.group(1)}<{m.group(2)}{tag}>"] = (
                     len(code), "\n".join(code))
     return counts
 
