@@ -81,8 +81,9 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    GQA parts printed, at least one case past one part), against the fp32
    plain versions at the JAX reference tests' elementwise bounds (and,
    printed, not held, the first seven cases as f16 through the f16
-   kernels), the fp32 backward pair run twice bit-identical, then the
-   fp32 kernels' time at the slice's shape and at widths 256 and 512,
+   kernels), the fp32 forward and the fp32 backward pair each run twice
+   bit-identical, then the fp32 kernels' time at the slice's shape and
+   at widths 256 and 512,
    beside their bound at the card's fp32 peak (each kernel's share of
    it), the plain versions' and SDPA's in f32 (forward, whole backward;
    the fp32 pair's ratio to SDPA's backward);
@@ -347,9 +348,10 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    phase runs with STPU_TUNE_MANIFEST=0;
 19. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
-   the kernels line ({"kernels": [...]}, twenty-seven records: the nine
-   at head_dim 128, the nine at 256 and the nine at 512), then the last
-   line
+   the kernels line ({"kernels": [...]}, thirty-six records: the nine
+   Hopper kernels at head_dim 128, at 256 and at 512, and the three fp32
+   kernels at each of F32_TIMED_SHAPES, their launches [tiny]'s f32
+   run's), then the last line
    {"ok": true, "device": {...}}.
 
 Each phase's wall seconds are printed as it ends (``[timing]``).
@@ -506,10 +508,11 @@ NO_SPILL_KERNELS = ("flash_fwd_kernel<256", "flash_fwd_streamed_kernel<256",
 NO_SPILL_KERNELS += tuple(
     f"flash_{k}{fam}_kernel<512" for k in ("fwd", "dq", "dkv")
     for fam in ("", "_tri", "_streamed"))
-# The fp32 backward at every width (csrc/flash_f32.cu: 128-254 registers,
+# The fp32 kernels at every width (csrc/flash_f32.cu: 128-254 registers,
 # no spills).
-F32_BWD_KERNELS = ("flash_dq_f32_kernel", "flash_dkv_f32_kernel")
-NO_SPILL_KERNELS += tuple(f"{k}<{d}>" for k in F32_BWD_KERNELS
+F32_KERNELS = ("flash_fwd_f32_kernel", "flash_dq_f32_kernel",
+               "flash_dkv_f32_kernel")
+NO_SPILL_KERNELS += tuple(f"{k}<{d}>" for k in F32_KERNELS
                           for d in (64, 128, 256, 512))
 TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
 TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
@@ -549,9 +552,11 @@ STR_X512_CHECK_SHAPES = (STR_X512_MAIN_SHAPE,
 # flash_bwd_sm90.cuh dq_cta_512 and dkv_cta_512).
 X512_DESIGN = ("fwd: 128 q rows x one 256-column chunk a CTA, 32-row K/V "
                "tiles in 2 stages; dq: 64 q rows, a consumer a chunk, 32-row "
-               "K tiles in 2 stages and V in 1; dk/dv: 64 kv rows x a chunk "
-               "a CTA, dv and dk in separate consumers, one stage of 32-row "
-               "Q/dO tiles")
+               "K tiles in 2 stages and V in 1; dk/dv: a cluster of two CTAs "
+               "a 64-row kv tile, each its chunk of K, V, Q and dO (2 stages "
+               "of 64-row Q/dO tiles), S^T and dP^T partials exchanged "
+               "through distributed shared memory, dv and dk in separate "
+               "consumers")
 # The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
 # the SASS.
 SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
@@ -921,8 +926,8 @@ def phase_sass(build):
     SASS, and its wgmmas must run asynchronously: ptxas serialises them
     (with a "Potential Performance Loss" note) by placing a wait
     (WARPGROUP.DEPBAR) after each one, so a kernel with as many waits as
-    wgmmas fails. Every instance of the fp32 dq and dk/dv must hold FFMA
-    and no HMMA or HGMMA: their products stay exact fp32."""
+    wgmmas fails. Every instance of the fp32 forward, dq and dk/dv must
+    hold FFMA and no HMMA or HGMMA: their products stay exact fp32."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
     for name, source, kernel in SM90_KERNELS:
@@ -952,14 +957,14 @@ def phase_sass(build):
                 for tag in ELEM_TAGS.values()}
         check(found == want, f"{kernel}: instances {sorted(found)} in "
               f"{lib}'s SASS, expected {sorted(want)}")
-    # The fp32 backward is exact fp32: FFMA on the CUDA cores, no
+    # The fp32 kernels are exact fp32: FFMA on the CUDA cores, no
     # tensor-core product (HMMA, HGMMA) in any instance.
     lib = build.build_dir() / "libflash_f32.so"
     out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed on {lib}: "
           f"{out.stderr[-2000:]}")
-    for kernel in F32_BWD_KERNELS:
+    for kernel in F32_KERNELS:
         found = set()
         for part in out.stdout.split("Function : ")[1:]:
             m = re.search(kernel + r"ILi(\d+)E", part.split(None, 1)[0])
@@ -1586,13 +1591,14 @@ def _f32_backward(fa, q, k, v, o, lse, do, causal, scale):
     return dq, delta, dk, dv
 
 
-def phase_f32_op(fa, attention_ops):
+def phase_f32_op(fa, attention_ops, records):
     """The public op with f32 inputs on the card: the fp32 kernels, one
     launch each, outputs and gradients in f32, within the JAX reference
     tests' elementwise bounds of the fp32 plain versions (matmuls in full
     fp32: TF32 off), at F32_OP_SHAPES and the fp32 backward's closing set;
-    the fp32 backward pair bit-identical when run twice; then the fp32
-    kernels' times."""
+    then at F32_TIMED_SHAPES the forward and the backward pair each
+    bit-identical when run twice, and the fp32 kernels' times, each
+    kernel's record (keyed "<name>@<shape>") added to records."""
     torch.backends.cuda.matmul.allow_tf32 = False
     split = []
     cases = F32_OP_SHAPES + F32_CLOSING_SHAPES
@@ -1641,21 +1647,34 @@ def phase_f32_op(fa, attention_ops):
     # The fp32 kernels' time at the slice's attention shape and at widths
     # 256 and 512 (not a path the port's bf16 models take: f32 is the
     # exact path, not the fast one), beside their bound at the card's
-    # fp32 peak, the fp32 plain versions' and SDPA's; the backward pair
-    # twice on the same inputs must agree bit for bit.
+    # fp32 peak, the fp32 plain versions' and SDPA's; the forward and the
+    # backward pair twice on the same inputs must agree bit for bit.
     for shape in F32_TIMED_SHAPES:
         q, k, v, do = _inputs(shape, 22, torch.float32)
-        causal, scale = shape[-1], shape[4] ** -0.5
+        b, s, h, kvh, d, causal = shape
+        scale = d ** -0.5
         o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
+        o2, lse2 = fa.flash_fwd_f32(q, k, v, causal, scale)
         grads = _f32_backward(fa, q, k, v, o, lse, do, causal, scale)
         again = _f32_backward(fa, q, k, v, o, lse, do, causal, scale)
         delta = grads[1]
         torch.cuda.synchronize()
+        same_fwd = torch.equal(o, o2) and torch.equal(lse, lse2)
         same = [torch.equal(x, y) for x, y in zip(grads, again)]
-        print(f"[f32 op] fp32 backward twice at {shape}: dq, delta, dk, dv "
-              f"bit-identical {same}", flush=True)
+        print(f"[f32 op] fp32 forward twice at {shape}: o, lse bit-identical "
+              f"{same_fwd}; backward twice: dq, delta, dk, dv bit-identical "
+              f"{same}", flush=True)
+        check(same_fwd, f"the fp32 forward is not deterministic at {shape}")
         check(all(same), f"the fp32 backward is not deterministic at {shape}")
-        del grads, again
+        # Each kernel's largest error against the plain versions here.
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        ref = fa.flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+        errs = (max((o - o_p).abs().max().item(),
+                    (lse - lse_p).abs().max().item()),
+                (grads[0] - ref[0]).abs().max().item(),
+                max((g - r).abs().max().item()
+                    for g, r in zip(grads[2:], ref[1:])))
+        del o2, lse2, grads, again, o_p, lse_p, ref
         times = (time_ms(lambda: fa.flash_fwd_f32(q, k, v, causal, scale),
                          3, warmup=1),
                  time_ms(lambda: fa.flash_dq_f32(q, k, v, o, lse, do, causal,
@@ -1676,9 +1695,14 @@ def phase_f32_op(fa, attention_ops):
                     f"SDPA forward {lib[0]:.3f} ms, whole backward "
                     f"{lib[1]:.3f} ms (fp32 dq + dk/dv {pair:.3f} ms, "
                     f"{pair / lib[1]:.3f}x SDPA's)")
-        b, s, h, _, d, _ = shape
         pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-        bounds = [1e3 * n * d * pairs / PEAK_F32_FLOPS for n in (4, 6, 8)]
+        # Bytes: each input read once, each output written once (fp32).
+        q_b, kv_b, st_b = 4 * q.numel(), 4 * k.numel(), 4 * b * h * s
+        nbytes = (2 * q_b + 2 * kv_b + st_b,
+                  4 * q_b + 2 * kv_b + 2 * st_b,
+                  2 * q_b + 4 * kv_b + 2 * st_b)
+        bounds = [max(n * d * pairs / PEAK_F32_FLOPS, nb / PEAK_BYTES_PER_S)
+                  * 1e3 for n, nb in zip((4, 6, 8), nbytes)]
         shares = [bound / ms for bound, ms in zip(bounds, times)]
         print(f"[f32 op] fp32 kernels at {shape}: forward {times[0]:.3f} "
               f"ms, dq {times[1]:.3f} ms, dk/dv {times[2]:.3f} ms; bound "
@@ -1687,6 +1711,31 @@ def phase_f32_op(fa, attention_ops):
               f"(operations), shares {shares[0]:.1%} / {shares[1]:.1%} / "
               f"{shares[2]:.1%}; plain forward {plain[0]:.3f} ms, backward "
               f"{plain[1]:.3f} ms; {lib_note}", flush=True)
+        fam = fa.family(s, d, causal)
+        suffix = {fa.RESIDENT: "", fa.TRIANGULAR: "_tri",
+                  fa.STREAMED: "_streamed"}[fam]
+        tag = str(tuple(shape[:5])).replace(" ", "")
+        for i, name in enumerate(F32_NAMES):
+            kind = ("fwd", "dq", "dkv")[i]
+            n_ops = (4, 6, 8)[i] * d * pairs
+            records[f"{name}@{tag}"] = {
+                "name": name, "route": "cuda",
+                "source": f"{_CSRC}/flash_f32.cu",
+                "replaces": TPU_KERNELS[f"flash_{kind}{suffix}"],
+                # Set by [tiny]'s f32 training run, the port's f32 path.
+                "launches": 0,
+                "max_abs_err": errs[i], "ms": times[i],
+                "plain_ms": plain[0] if i == 0 else plain[1],
+                "bound_ms": bounds[i],
+                "bound_by": ("operations" if n_ops / PEAK_F32_FLOPS
+                             >= nbytes[i] / PEAK_BYTES_PER_S else "bytes"),
+                "library_ms": lib[0] if i == 0 else lib[1],
+                "plain_covers": "o, lse" if i == 0 else "dq, dk, dv",
+                "library_covers": ("sdpa forward, f32" if i == 0 else
+                                   "sdpa backward, f32: dq, dk, dv"),
+                "flops": n_ops, "bytes": nbytes[i], "shape": list(shape),
+                "head_dim": d, "dtype": "float32", "family": fam,
+            }
         del q, k, v, do, o, lse, delta
 
 
@@ -2609,11 +2658,12 @@ def phase_parallel_tp(fa, llama, trainer, card, lc_losses, dev="cuda"):
     print(f"[parallel_tp] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def phase_tiny(fa, llama, trainer):
+def phase_tiny(fa, llama, trainer, records):
     """LlamaConfig.tiny() (head_dim 16: the kernels' 64, zero-padded) on the
     card, in bf16 and in f32: 8 steps each on one repeated batch, full
     remat; the loss must fall and every step must go through the resident
-    kernels (bf16) or the fp32 kernels (f32), 2L/L/L."""
+    kernels (bf16) or the fp32 kernels (f32), 2L/L/L. The f32 run's
+    counts are the fp32 kernels' launches in records."""
     for dtype, names in ((torch.bfloat16, RESIDENT_NAMES),
                          (torch.float32, F32_NAMES)):
         cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=dtype)
@@ -2645,6 +2695,10 @@ def phase_tiny(fa, llama, trainer):
                                   cfg.n_layers * TRAIN_STEPS,
                                   cfg.n_layers * TRAIN_STEPS)))
         check(launches == expect, f"launch counts {launches} != {expect}")
+        if dtype == torch.float32:
+            for rec in records.values():
+                if rec["name"] in F32_NAMES:
+                    rec["launches"] = launches[rec["name"]]
 
 
 def _step_expect(launches, n_layers, steps, names=RESIDENT_NAMES):
@@ -5324,7 +5378,7 @@ def main() -> int:
         finally:
             CLOCKS.stop()
         _timed(phase_ragged_op, fa, attention_ops)
-        _timed(phase_f32_op, fa, attention_ops)
+        _timed(phase_f32_op, fa, attention_ops, records)
         _timed(phase_pad_op, fa, attention_ops)
         _timed(phase_wide_op, fa, attention_ops, records)
         _timed(phase_streamed, fa, attention_ops, records)
@@ -5337,7 +5391,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         _timed(phase_parallel_tp, fa, llama, trainer, card, lc_losses)
         torch.cuda.empty_cache()
-        _timed(phase_tiny, fa, llama, trainer)
+        _timed(phase_tiny, fa, llama, trainer, records)
         torch.cuda.empty_cache()
         _timed(phase_adafactor, fa, llama, trainer)
         torch.cuda.empty_cache()
@@ -5365,6 +5419,7 @@ def main() -> int:
         _timed(phase_mixtral_serve, fa, card)
         _timed(phase_decode_bench, card)
         _timed(phase_tune, card)
+        check(len(records) == 36, f"{len(records)} kernel records, not 36")
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)

@@ -36,9 +36,11 @@
 // parts over dkv_wide_schedule's (b*KVH, kv tile, part) items, partials
 // summed in part order by the last to finish). At 512 dq runs dq_cta_512
 // (64 q rows, one 256-column chunk of dq a consumer, 32-row K tiles in two
-// stages and V in one) over 64-row q tiles, and dk/dv dkv_cta_512 (one CTA
-// per chunk of each dkv_wide_schedule item, one stage of 32-row Q/dO
-// tiles); both recompute S and dP over all 512 columns per chunk.
+// stages and V in one; S and dP recomputed over all 512 columns per
+// chunk) over 64-row q tiles, and dk/dv dkv_cta_512 (a cluster of two
+// CTAs per dkv_wide_schedule item, one a chunk, that split S^T's and
+// dP^T's reduction over the columns between them and exchange the fp32
+// partials through distributed shared memory).
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -106,11 +108,11 @@ extern "C" int stpu_flash_dq(const void* q, const void* k, const void* v,
 // int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row kv
 // tile, part) triples, parts dividing H / KVH, and with parts > 1 an fp32
 // workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64) int32
-// tickets, zero (dkv_cta_wide); at 512 the same items, two CTAs each, and
-// 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: (batch, seq, head) in
-// elements for q, k, v, dO. dk and dv are written contiguous (B, S, KVH, D),
-// of the inputs' type; lse and delta (B, H, S) fp32 are read through tensor
-// maps.
+// tickets, zero (dkv_cta_wide); at 512 the same items, a cluster of two
+// CTAs each, and 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides:
+// (batch, seq, head) in elements for q, k, v, dO. dk and dv are written
+// contiguous (B, S, KVH, D), of the inputs' type; lse and delta (B, H, S)
+// fp32 are read through tensor maps.
 extern "C" int stpu_flash_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv,

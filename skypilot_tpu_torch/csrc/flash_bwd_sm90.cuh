@@ -135,25 +135,44 @@
 //     same order whichever item arrives last, so deterministic.
 // - Head_dim 512 (every family, in every base): a consumer cannot hold a
 //   64-row block of dq, dk or dv (256 fp32 a thread), so each holds one
-//   kChunk (256)-column chunk, and S and dP (S^T and dP^T) are recomputed
-//   over all 512 columns for each chunk; every tile streamed against the
-//   resident operand is kTile512 (32) rows, S and dP m64n32 with both
-//   operands in shared memory.
+//   kChunk (256)-column chunk; the forward's and dq's tiles streamed
+//   against the resident operand are kTile512 (32) rows, S and dP
+//   m64n32 with both operands in shared memory; dk/dv's q tiles are
+//   kDkv512QRows (64) rows, S^T and dP^T m64n64.
 //   - dq_cta_512: 64 q rows a CTA (Q and dO, 128 KB), both consumers on
 //     them, consumer c computing dq's chunk c (dS K with K read MN-major
-//     from its chunk's boxes): S and dP computed twice, 1.67 times dq's
-//     minimal FLOPs. K tiles in two stages and V in one on barriers of
-//     their own (DqSplitKV's ring; 230,968 B). Each consumer computes
-//     delta of the rows; consumer 0 writes it. dq goes out from registers
-//     (store_acc): the other consumer may still read Q.
-//   - dkv_cta_512: one 64-row kv tile (K and V, 128 KB) and one chunk a
-//     CTA (block i is chunk i % 2 of dkv_wide_schedule's item i / 2),
-//     dv's chunk in consumer 0 and dk's in consumer 1 as dkv_cta_wide;
-//     the ring has one stage of a 32-row Q and dO tile (a second would
-//     pass 227 KB), so loads and products run in turn (197,928 B). Twice
-//     dk/dv's minimal FLOPs. The GQA split, its workspace (2, P, B, S,
-//     KVH, 512) and the last-arrival sum are dkv_cta_wide's, ticketed per
-//     kv tile and chunk.
+//     from its chunk's boxes): S and dP computed twice, over all 512
+//     columns, 1.67 times dq's minimal FLOPs. K tiles in two stages and
+//     V in one on barriers of their own (DqSplitKV's ring; 230,968 B).
+//     Each consumer computes delta of the rows; consumer 0 writes it. dq
+//     goes out from registers (store_acc): the other consumer may still
+//     read Q.
+//   - dkv_cta_512: a cluster of two CTAs a 64-row kv tile (block i is
+//     rank i % 2, chunk i % 2 of dkv_wide_schedule's item i / 2), CTA c
+//     holding chunk c of K, V (32 KB each), Q and dO (two stages of a
+//     kDkv512QRows (64)-row tile, 32 KB each). The reduction of S^T and
+//     dP^T over the 512 columns is split between the two: consumer 0
+//     computes S^T_c = K_c Q_c^T, consumer 1 S^T_c and dP^T_c = V_c
+//     dO_c^T (m64n64), consumer 0 sends S^T_c and consumer 1 dP^T_c, as
+//     fp32 fragments, to the other CTA's shared memory (st.async,
+//     completing on an mbarrier there), and each forms S^T = S^T_c +
+//     S^T_other (dP^T likewise): one IEEE sum of two terms, the same in
+//     both CTAs and consumers, so P^T and dS^T agree bit for bit and the
+//     backward stays deterministic. Then dv_c += P^T dO_c (consumer 0)
+//     and dk_c += dS^T Q_c (consumer 1): five products a tile pair,
+//     against four minimal and the parent body's eight (one CTA a chunk,
+//     S^T in both consumers and dP^T over all 512 columns, m64n32, one
+//     stage of 32-row tiles). One exchange stage (two partials, 32 KB),
+//     written again once all four consumers have read it (x_free, remote
+//     arrivals). 231,504 B. Timed in turns on an H100 SXM
+//     (tools/flash_dkv_variants.py --width 512; PERF.md): 1.65-1.95x the
+//     parent's speed at the three families' main shapes; with 32-row
+//     tiles (m64n32) 1.24-1.36x slower, which also holds for the same
+//     body with consumer 0's S^T handed to consumer 1 instead of
+//     recomputed (three stages; a 64-row copy would pass 227 KB). The
+//     GQA split, its workspace (2, P, B, S, KVH, 512) and the
+//     last-arrival sum are dkv_cta_wide's, ticketed per kv tile and
+//     chunk.
 // - Not done: a persistent grid; overlapping one tile's elementwise work
 //   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
 //   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
@@ -1416,48 +1435,131 @@ __device__ __forceinline__ void dq_cta_512(const CUtensorMap& tq,
   }
 }
 
-// The dk/dv CTA at head_dim 512: K and V of one kWideRows-row kv tile
-// (64 KB each), and one stage of a kTile512-row tile of Q and dO (32 KB
-// each; a second would pass 227 KB) with its lse and delta; two
-// last-arrival flags; mbarriers full, empty, kv. 197,928 B.
+// The dk/dv cluster at head_dim 512: two CTAs a 64-row kv tile, CTA c
+// (its rank in the cluster) holding column chunk c of everything, against
+// q tiles of kDkv512QRows rows. Its shared memory: K and V of the tile's
+// chunk (kWideRows x kChunk, 32 KB each); kDkv512Ring stages of a q
+// tile's chunk of Q and dO with the tile's lse and delta; kDkv512Exchange
+// stages of the exchange (S^T and dP^T from the other CTA: one
+// warpgroup's m64 x kDkv512QRows fp32 fragments each); two last-arrival
+// flags; mbarriers full[kRing], empty[kRing], kv, s_full[kX],
+// dp_full[kX], x_free[kX].
+constexpr int kDkv512QRows = 64;
+constexpr int kDkv512Ring = 2;
+constexpr int kDkv512Exchange = 1;
 template <int D>
 struct DkvSmem512 {
-  static constexpr int kRing = 1;
-  static constexpr int kTile = kTile512 * D * 2;
-  static constexpr int kRowsTile = kWideRows * D * 2;
-  static constexpr int kStat = kTile512 * 4;
+  static constexpr int kRing = kDkv512Ring;
+  static constexpr int kX = kDkv512Exchange;
+  static constexpr int kN = kDkv512QRows;
+  static constexpr int kTile = kN * kChunk * 2;
+  static constexpr int kRowsTile = kWideRows * kChunk * 2;
+  static constexpr int kStat = kN * 4;
+  static constexpr int kPart = 128 * (kN / 2) * 4;
   static constexpr int kK = 0;
   static constexpr int kV = kRowsTile;
   static constexpr int kQ = 2 * kRowsTile;
   static constexpr int kDO = kQ + kRing * kTile;
   static constexpr int kLse = kDO + kRing * kTile;
   static constexpr int kDelta = kLse + kRing * kStat;
-  static constexpr int kFlag = kDelta + kRing * kStat;
+  static constexpr int kXch = kDelta + kRing * kStat;
+  static constexpr int kFlag = kXch + kX * 2 * kPart;
   static constexpr int kBar = kFlag + 16;
-  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;
+  static constexpr int kFull = 0, kEmpty = 8 * kRing, kKv = 16 * kRing;
+  static constexpr int kSFull = kKv + 8, kDpFull = kSFull + 8 * kX;
+  static constexpr int kFree = kDpFull + 8 * kX;
+  static constexpr int kBytes = kBar + kFree + 8 * kX + 1024;
+  static_assert(D == 2 * kChunk, "a chunk a CTA of the cluster");
+  static_assert(kWideRows % kN == 0, "q tiles meet the kv tile's diagonal");
   static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
 };
 
-// The producer's one thread: K and V, then for each of the item's `heads`
-// query heads from h0 its kTile512-row q tiles from i0 (Q, dO, lse,
-// delta), each once for both consumers.
+// Distributed shared memory between the CTAs of a cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `addr` (this CTA's shared memory) in
+// the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of the cluster meets here (release, then acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" : : :
+               "memory");
+}
+
+// One arrival on a barrier of another CTA of the cluster (its shared::
+// cluster address), ordering this thread's earlier accesses before it at
+// cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      :
+      : "r"(bar)
+      : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: for phases that arrivals and
+// transactions from the other CTA complete.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 16 bytes into another CTA's shared memory (shared::cluster address
+// dst), completing 16 bytes of transactions on its mbarrier bar.
+__device__ __forceinline__ void st_async(uint32_t dst, float a, float b,
+                                         float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      :
+      : "r"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// The producer's one thread: K and V of the tile's chunk, then for each of
+// the item's `heads` query heads from h0 its kDkv512QRows-row q tiles
+// from i0 (the chunk of Q and dO, and lse, delta), each once for both
+// consumers.
 template <int D>
 __device__ __forceinline__ void dkv_producer_512(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
     const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
-    const BwdParams& p, unsigned char* base, int b, int kvh, int kt, int h0,
-    int heads, int i0, int n_qt) {
+    const BwdParams& p, unsigned char* base, int b, int kvh, int kt,
+    int chunk, int h0, int heads, int i0, int n_qt) {
   using L = DkvSmem512<D>;
-  const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
+  constexpr int kBoxes = kChunk / kBoxCols;
+  const int col0 = chunk * kChunk;
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t full0 = bars + L::kFull, empty0 = bars + L::kEmpty;
+  const uint32_t kvbar = bars + L::kKv;
   mbar_expect_tx(kvbar, 2 * L::kRowsTile);
 #pragma unroll
-  for (int c = 0; c < D / kBoxCols; ++c) {
+  for (int c = 0; c < kBoxes; ++c) {
     const int off = c * kWideRows * 128;
-    tma_load_4d(base + L::kK + off, &tk, kvbar, c * kBoxCols, kt * kWideRows,
-                kvh, b);
-    tma_load_4d(base + L::kV + off, &tv, kvbar, c * kBoxCols, kt * kWideRows,
-                kvh, b);
+    tma_load_4d(base + L::kK + off, &tk, kvbar, col0 + c * kBoxCols,
+                kt * kWideRows, kvh, b);
+    tma_load_4d(base + L::kV + off, &tv, kvbar, col0 + c * kBoxCols,
+                kt * kWideRows, kvh, b);
   }
   int n = 0;
   for (int h = h0; h < h0 + heads; ++h) {
@@ -1467,17 +1569,17 @@ __device__ __forceinline__ void dkv_producer_512(
       const uint32_t full = full0 + 8 * st;
       mbar_expect_tx(full, 2 * L::kTile + 2 * L::kStat);
 #pragma unroll
-      for (int c = 0; c < D / kBoxCols; ++c) {
-        const int off = st * L::kTile + c * kTile512 * 128;
-        tma_load_4d(base + L::kQ + off, &tq, full, c * kBoxCols,
-                    i * kTile512, h, b);
-        tma_load_4d(base + L::kDO + off, &tdo, full, c * kBoxCols,
-                    i * kTile512, h, b);
+      for (int c = 0; c < kBoxes; ++c) {
+        const int off = st * L::kTile + c * L::kN * 128;
+        tma_load_4d(base + L::kQ + off, &tq, full, col0 + c * kBoxCols,
+                    i * L::kN, h, b);
+        tma_load_4d(base + L::kDO + off, &tdo, full, col0 + c * kBoxCols,
+                    i * L::kN, h, b);
       }
-      tma_load_2d(base + L::kLse + st * L::kStat, &tlse, full, i * kTile512,
+      tma_load_2d(base + L::kLse + st * L::kStat, &tlse, full, i * L::kN,
                   b * p.H + h);
       tma_load_2d(base + L::kDelta + st * L::kStat, &tdlt, full,
-                  i * kTile512, b * p.H + h);
+                  i * L::kN, b * p.H + h);
     }
   }
 }
@@ -1511,73 +1613,129 @@ __device__ __forceinline__ void pds_tile(const float (&s)[N / 2],
   }
 }
 
-// One consumer of dkv_cta_512 over the item's q tiles, both on the CTA's
-// kWideRows kv rows and its chunk of columns: kDk false is consumer 0,
-// S^T = K Q^T over all D columns (m64n32), P^T, acc = dv[:, chunk] +=
-// P^T dO[:, chunk]; kDk true is consumer 1, S^T and dP^T = V dO^T, dS^T,
-// acc = dk[:, chunk] += dS^T Q[:, chunk] (unscaled). Causal, both mask q
-// tiles i0 and i0 + 1 (the 64 kv rows' diagonal).
+// One consumer of dkv_cta_512 over the item's q tiles, on the CTA's
+// kWideRows kv rows and its chunk of columns (rank `chunk` of the
+// cluster). Per q tile, consumer 0 runs S^T_c = K_c Q_c^T, consumer 1
+// S^T_c and dP^T_c = V_c dO_c^T (m64 x kDkv512QRows over the chunk's 256
+// columns); consumer 0 sends S^T_c, consumer 1 dP^T_c to the other CTA
+// (st.async, completing on its s_full or dp_full); then S^T = S^T_c +
+// S^T_other and dP^T likewise (one IEEE sum of two terms, the same in
+// both CTAs and both consumers, so P^T and dS^T agree bit for bit), and
+// consumer 0 runs P^T and acc = dv[:, chunk] += P^T dO_c, consumer 1
+// dS^T and acc = dk[:, chunk] += dS^T Q_c (unscaled): five products a
+// tile pair where four are minimal. An exchange stage is written again
+// only once all four consumers of the cluster have read it (x_free).
+// Causal, both mask the q tiles that meet the 64 kv rows' diagonal.
 template <int D, class T, class Base, bool kDk>
 __device__ __forceinline__ void dkv_consumer_512(float (&acc)[kChunk / 2],
                                                  const BwdParams& p,
                                                  unsigned char* base, int kt,
-                                                 int chunk, int heads,
+                                                 uint32_t chunk, int heads,
                                                  int i0, int n_qt) {
   using L = DkvSmem512<D>;
-  constexpr int kN = kTile512;
+  constexpr int kN = L::kN;
+  constexpr int kF = kN / 2;  // a thread's share of an m64 x kN product
+  constexpr int kPartF = L::kPart / 4;
   const int tid = threadIdx.x % 128;
   const int krow0 = kt * kWideRows + (tid / 32) * 16 + (tid % 32) / 4;
-  const uint32_t full0 = smem_addr(base + L::kBar);
-  const uint32_t empty0 = full0 + 8 * L::kRing, kvbar = full0 + 16 * L::kRing;
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t full0 = bars + L::kFull, empty0 = bars + L::kEmpty;
+  const uint32_t s_full0 = bars + L::kSFull, dp_full0 = bars + L::kDpFull;
+  const uint32_t free0 = bars + L::kFree;
+  const uint32_t other = chunk ^ 1;
   const float sm = p.scale * Base::kScoreMul;
   const int i_end_mask = p.causal ? i0 + kWideRows / kN : -1;
+  // S^T and dP^T read K, V, Q and dO K-major.
   const uint64_t d_k = smem_desc(base + L::kK, 16, 1024);
   const uint64_t d_v = smem_desc(base + L::kV, 16, 1024);
   const uint64_t d_q = smem_desc(base + L::kQ, 16, 1024);
   const uint64_t d_do = smem_desc(base + L::kDO, 16, 1024);
   // dk += dS^T Q reads Q's chunk MN-major, dv += P^T dO reads dO's so.
   const uint64_t d_bmn =
-      smem_desc(base + (kDk ? L::kQ : L::kDO) +
-                    chunk * (kChunk / kBoxCols) * kN * 128,
-                kN * 128, 1024);
+      smem_desc(base + (kDk ? L::kQ : L::kDO), kN * 128, 1024);
+  float* xch = reinterpret_cast<float*>(base + L::kXch);
+  const int nq = n_qt - i0, total = heads * nq;
 #pragma unroll
   for (int i = 0; i < kChunk / 2; ++i) acc[i] = 0.f;
-  mbar_wait(kvbar, 0);
-  int n = 0;
-  for (int g = 0; g < heads; ++g) {
-    for (int i = i0; i < n_qt; ++i, ++n) {
-      const int st = n % L::kRing;
-      mbar_wait(full0 + 8 * st, (n / L::kRing) & 1);
-      const uint32_t tile = (st * L::kTile) >> 4;
-      const float* lse =
-          reinterpret_cast<const float*>(base + L::kLse + st * L::kStat);
-      const float* dlt =
-          reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
-      float s[kN / 2], dp[kN / 2];
-      uint32_t a[kN / 16][4];
+  mbar_wait(bars + L::kKv, 0);
+  for (int n = 0; n < total; ++n) {
+    const int i = i0 + n % nq, st = n % L::kRing, x = n % L::kX;
+    const uint32_t tile = (st * L::kTile) >> 4;
+    mbar_wait(full0 + 8 * st, (n / L::kRing) & 1);
+    float s[kF], dp[kF];
 #pragma unroll
-      for (int e = 0; e < kN / 2; ++e) s[e] = dp[e] = 0.f;
-      wgmma_fence();
-      mma_nt_n<D, T, kN>(s, d_k, kWideRows * 128, d_q + tile, kN * 128);
-      if constexpr (kDk)
-        mma_nt_n<D, T, kN>(dp, d_v, kWideRows * 128, d_do + tile, kN * 128);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(s);
-      if constexpr (kDk) fence_regs(dp);
-      if (i < i_end_mask)
-        pds_tile<T, Base, true, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
-                                         i * kN);
-      else
-        pds_tile<T, Base, false, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
-                                          i * kN);
-      wgmma_fence();
-      mma_rs<kChunk, T, kN>(acc, a, d_bmn + tile);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(acc);
-      if (tid == 0) mbar_arrive(empty0 + 8 * st);  // Q, dO, lse, delta read
+    for (int e = 0; e < kF; ++e) s[e] = dp[e] = 0.f;
+    wgmma_fence();
+    mma_nt_n<kChunk, T, kN>(s, d_k, kWideRows * 128, d_q + tile, kN * 128);
+    if constexpr (kDk)
+      mma_nt_n<kChunk, T, kN>(dp, d_v, kWideRows * 128, d_do + tile,
+                              kN * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    if constexpr (kDk) fence_regs(dp);
+    // Stage x of the exchange: the other CTA's S^T, then its dP^T;
+    // fragment element 4 e4 + c of thread tid at 4 (e4 * 128 + tid) + c.
+    float* xs = xch + x * 2 * kPartF;
+    // Consumer 0 sends S^T_c, consumer 1 dP^T_c, once stage x is free in
+    // both CTAs; each arms its own barrier of stage x for the other CTA's
+    // kPart bytes.
+    if (n >= L::kX) mbar_wait_cluster(free0 + 8 * x, (n / L::kX - 1) & 1);
+    {
+      const float(&out)[kF] = kDk ? dp : s;
+      const uint32_t bar = (kDk ? dp_full0 : s_full0) + 8 * x;
+      if (tid == 0) mbar_expect_tx(bar, L::kPart);
+      const uint32_t dst =
+          map_rank(smem_addr(xs + (kDk ? kPartF : 0)), other) + 16 * tid;
+      const uint32_t rbar = map_rank(bar, other);
+#pragma unroll
+      for (int e4 = 0; e4 < kF / 4; ++e4)
+        st_async(dst + e4 * 128 * 16, out[4 * e4], out[4 * e4 + 1],
+                 out[4 * e4 + 2], out[4 * e4 + 3], rbar);
     }
+    // S^T (and dP^T) of the tile: this CTA's partial plus the other's.
+    mbar_wait_cluster(s_full0 + 8 * x, (n / L::kX) & 1);
+    if constexpr (kDk) mbar_wait_cluster(dp_full0 + 8 * x, (n / L::kX) & 1);
+#pragma unroll
+    for (int e4 = 0; e4 < kF / 4; ++e4) {
+      const float4 r =
+          *reinterpret_cast<const float4*>(xs + 4 * (e4 * 128 + tid));
+      s[4 * e4] += r.x;
+      s[4 * e4 + 1] += r.y;
+      s[4 * e4 + 2] += r.z;
+      s[4 * e4 + 3] += r.w;
+      if constexpr (kDk) {
+        const float4 d = *reinterpret_cast<const float4*>(
+            xs + kPartF + 4 * (e4 * 128 + tid));
+        dp[4 * e4] += d.x;
+        dp[4 * e4 + 1] += d.y;
+        dp[4 * e4 + 2] += d.z;
+        dp[4 * e4 + 3] += d.w;
+      }
+    }
+    // Stage x read here: free for the writers of both CTAs.
+    warpgroup_sync(1 + kDk);
+    if (tid == 0) {
+      mbar_arrive(free0 + 8 * x);
+      mbar_arrive_remote(map_rank(free0 + 8 * x, other));
+    }
+    uint32_t a[kN / 16][4];
+    const float* lse =
+        reinterpret_cast<const float*>(base + L::kLse + st * L::kStat);
+    const float* dlt =
+        reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
+    if (i < i_end_mask)
+      pds_tile<T, Base, true, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
+                                       i * kN);
+    else
+      pds_tile<T, Base, false, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
+                                        i * kN);
+    wgmma_fence();
+    mma_rs<kChunk, T, kN>(acc, a, d_bmn + tile);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    if (tid == 0) mbar_arrive(empty0 + 8 * st);  // Q, dO, lse, delta read
   }
 }
 
@@ -1617,9 +1775,10 @@ __device__ __forceinline__ void dkv_store_512(
   }
 }
 
-// One CTA of every dk/dv at head_dim 512: block i is chunk i % C (C =
-// out_chunks) of work item i / C of dkv_wide_schedule's list, (b * KVH +
-// kvh, kWideRows-row kv tile, part of the GQA group).
+// One CTA of every dk/dv at head_dim 512, launched in clusters of C =
+// out_chunks CTAs: block i is rank i % C, chunk i % C of work item i / C
+// of dkv_wide_schedule's list, (b * KVH + kvh, kWideRows-row kv tile,
+// part of the GQA group).
 template <int D, class T, class Base>
 __device__ __forceinline__ void dkv_cta_512(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
@@ -1630,47 +1789,58 @@ __device__ __forceinline__ void dkv_cta_512(
   using L = DkvSmem512<D>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
   constexpr int kC = out_chunks<D>();
+  const uint32_t chunk = cluster_rank();
   const int* item = work + 3 * (blockIdx.x / kC);
-  const int chunk = blockIdx.x % kC;
   const int bkv = item[0], kt = item[1], part = item[2];
   const int b = bkv / p.KVH, kvh = bkv % p.KVH;
   const int heads = p.H / p.KVH / split.parts;
   const int h0 = kvh * (p.H / p.KVH) + part * heads;
-  const int n_qt = ceil_div(p.S, kTile512);
+  const int n_qt = ceil_div(p.S, L::kN);
   // Causal: q tiles from the kv tile's first row (kt's rows start before
   // S).
-  const int i0 = p.causal ? kt * (kWideRows / kTile512) : 0;
+  const int i0 = p.causal ? kt * (kWideRows / L::kN) : 0;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
     for (int i = 0; i < L::kRing; ++i) {
-      mbar_init(bars + 8 * i, 1);
-      mbar_init(bars + 8 * (L::kRing + i), kConsumers);
+      mbar_init(bars + L::kFull + 8 * i, 1);
+      mbar_init(bars + L::kEmpty + 8 * i, kConsumers);
     }
-    mbar_init(bars + 16 * L::kRing, 1);  // K and V
+    mbar_init(bars + L::kKv, 1);  // K and V
+    for (int x = 0; x < L::kX; ++x) {
+      // S^T: consumer 0's expect_tx (the other CTA's bytes); dP^T:
+      // consumer 1's; free: both consumers of both CTAs.
+      mbar_init(bars + L::kSFull + 8 * x, 1);
+      mbar_init(bars + L::kDpFull + 8 * x, 1);
+      mbar_init(bars + L::kFree + 8 * x, 2 * kConsumers);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
   }
-  __syncthreads();
+  // Every barrier of both CTAs is initialised before any remote arrival.
+  cluster_sync();
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0)
       dkv_producer_512<D>(tq, tdo, tk, tv, tlse, tdlt, p, base, b, kvh, kt,
-                          h0, heads, i0, n_qt);
-    return;
-  }
-  setmaxnreg_inc<kConsumerRegs>();
-  const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
-  float acc[kChunk / 2];
-  if (threadIdx.x < 256) {
-    dkv_consumer_512<D, T, Base, false>(acc, p, base, kt, chunk, heads, i0,
-                                        n_qt);
-    dkv_store_512<D, T>(acc, 1.f, p.dv, p, split, base, 0, off, bkv, kt,
-                        chunk, part);
+                          chunk, h0, heads, i0, n_qt);
   } else {
-    dkv_consumer_512<D, T, Base, true>(acc, p, base, kt, chunk, heads, i0,
-                                       n_qt);
-    dkv_store_512<D, T>(acc, p.scale, p.dk, p, split, base, 1, off, bkv, kt,
-                        chunk, part);
+    setmaxnreg_inc<kConsumerRegs>();
+    const long long off = ((long long)b * p.S * p.KVH + kvh) * D;
+    float acc[kChunk / 2];
+    if (threadIdx.x < 256) {
+      dkv_consumer_512<D, T, Base, false>(acc, p, base, kt, chunk, heads,
+                                          i0, n_qt);
+      dkv_store_512<D, T>(acc, 1.f, p.dv, p, split, base, 0, off, bkv, kt,
+                          chunk, part);
+    } else {
+      dkv_consumer_512<D, T, Base, true>(acc, p, base, kt, chunk, heads, i0,
+                                         n_qt);
+      dkv_store_512<D, T>(acc, p.scale, p.dk, p, split, base, 1, off, bkv,
+                          kt, chunk, part);
+    }
   }
+  // Neither CTA leaves while the other may still write its shared memory
+  // or arrive on its barriers.
+  cluster_sync();
 }
 
 // ----------------------------------------------------------------- host
@@ -1768,12 +1938,13 @@ inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
 // Encodes dkv_cta_wide's six maps (K and V in kWideRows-row boxes, Q, dO,
 // lse and delta in kBwdTile-row ones) and launches `kernel` over the B *
 // KVH * ceil(S / 64) * P items of `work`; at head_dim 512 dkv_cta_512's
-// (Q, dO, lse and delta in kTile512-row ones), out_chunks CTAs an item.
+// (Q, dO, lse and delta in kDkv512QRows-row ones), out_chunks CTAs an
+// item, each item a cluster.
 template <int D, class T, class Kernel>
 inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
                            const int* work, const DkvSplit& split,
                            cudaStream_t stream) {
-  constexpr int kQRows = D > 256 ? kTile512 : kBwdTile;
+  constexpr int kQRows = D > 256 ? kDkv512QRows : kBwdTile;
   int smem;
   if constexpr (D > 256)
     smem = DkvSmem512<D>::kBytes;
@@ -1798,8 +1969,27 @@ inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
   if (e != cudaSuccess) return (int)e;
   const int items = B * p.KVH * ceil_div(p.S, kWideRows) * split.parts *
                     out_chunks<D>();
-  kernel<<<items, kFwdThreads, smem, stream>>>(tq, tdo, tk, tv, tlse, tdlt,
-                                               p, work, split);
+  if constexpr (D > 256) {
+    // A cluster of the out_chunks CTAs of each item.
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = out_chunks<D>();
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(items);
+    cfg.blockDim = dim3(kFwdThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t l = cudaLaunchKernelEx(&cfg, kernel, tq, tdo, tk, tv,
+                                             tlse, tdlt, p, work, split);
+    if (l != cudaSuccess) return (int)l;
+  } else {
+    kernel<<<items, kFwdThreads, smem, stream>>>(tq, tdo, tk, tv, tlse,
+                                                 tdlt, p, work, split);
+  }
   return (int)cudaGetLastError();
 }
 

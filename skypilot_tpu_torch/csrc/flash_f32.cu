@@ -19,47 +19,62 @@
 // CUDA cores, exact to fp32 rounding: no tensor-core instruction, TF32 or
 // split-TF32 scheme.
 //
-// The forward, written for plainness: one warp owns f32_rows<D>() q rows (4,
-// and 2 at head_dim 512) and keeps them and their sums in registers, each
-// lane D / 32 columns; it walks K and V one row at a time up to the causal
-// bound, reading them from global memory, each dot product a warp sum. Its
-// L2 reads of each K/V row serve 4 rows, and each score is five shuffles
-// beside D / 32 FFMAs.
-//
-// The backward (flash_dq_f32_kernel, flash_dkv_f32_kernel) is built as an
-// SGEMM is, for the FFMA rate: a CTA of 256 threads keeps a tile of resident
-// rows in shared memory (dq: Q and dO of kRows q rows; dk/dv: K and V of
-// kRows kv rows) and streams the other operand's tiles of kInner rows (dq:
-// K, V; dk/dv: Q, dO of each head of its part of the GQA group) through a
-// ring of kStages slabs, kSlab columns each: one TMA box a slab, kSlab + 4
-// columns wide, so it lands as the padded rows the products read (the 4
-// extra columns fill the padding: the next slab's, or zeros past D; rows
-// past S read as zeros), completing on the slot's mbarrier (sm90::mbar_*,
-// sm90::tma_load_4d). The resident tiles, whose padded rows pass a box's
-// 256 columns at D = 256 and 512, come once a CTA by one bulk copy
-// (cp.async.bulk) a row.
+// Every kernel is built as an SGEMM is, for the FFMA rate: a CTA of 256
+// threads keeps a tile of resident rows in shared memory (forward: Q of
+// kRows q rows; dq: Q and dO of kRows q rows; dk/dv: K and V of kRows kv
+// rows) and streams the other operand's tiles of kInner rows (forward and
+// dq: K, V; dk/dv: Q, dO of each head of its part of the GQA group)
+// through a ring of kStages slabs, kSlab columns each: one TMA box a slab,
+// kSlab + 4 columns wide, so it lands as the padded rows the products read
+// (the 4 extra columns fill the padding: the next slab's, or zeros past D;
+// rows past S read as zeros), completing on the slot's mbarrier
+// (sm90::mbar_*, sm90::tma_load_4d). The resident tiles, whose padded rows
+// pass a box's 256 columns at D = 256 and 512, come once a CTA by one bulk
+// copy (cp.async.bulk) a row.
 // Every product is a register-blocked outer product: a thread owns a (kSM x
 // kSN) block of S and dP (S^T, dP^T) and a (kOM x kON) block of each output
 // slab, reading its operands from shared memory as float4 (rows padded to 4
 // floats past a multiple of 32, P and dS rows to 8, so the four row groups
 // and eight column groups of a warp's lanes meet distinct banks or one
 // broadcast). Each product takes both operands row-major: S = Q K^T and dP =
-// dO V^T reduce along the rows of both; dq += dS K, dk += dS^T Q and dv +=
-// P^T dO read A along its rows and B down its columns, so no tile is stored
-// transposed. P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = P (dP -
-// delta) are formed in the registers that computed S and dP, then staged in
-// shared memory as the A operand of the output products; the outputs stay in
-// registers across the whole stream. A tile's ring steps: the kSlab-wide
-// slabs of V (dP), then of K (S; the last one also feeds the output product
-// of its columns, so a one-slab head_dim reads K once), then K again for the
-// other column slabs of dq (dq); dk/dv the same with dO and Q, then dO again
-// for dv. Per (row, key) pair that is 6 D FLOPs for dq and 8 D for dk/dv, S
-// and dP recomputed in each (one fused pass would need float atomics for
-// dq).
+// dO V^T reduce along the rows of both; o += P V, dq += dS K, dk += dS^T Q
+// and dv += P^T dO read A along its rows and B down its columns, so no tile
+// is stored transposed. P and dS are formed in the registers that computed
+// S and dP, then staged in shared memory as the A operand of the output
+// products; the outputs stay in registers across the whole stream.
+// - The forward: a key tile's ring steps are the kSlab-wide slabs of K (S),
+//   then of V (o). Between them the online softmax in base 2: each row's
+//   tile maximum by three shuffles across the 8 lanes of a warp that share
+//   it and, where kWarpsN warps share a row, through shared memory; m_new =
+//   max(m, tile max), P = exp2(S * scale * log2(e) - m_new) and the row's
+//   rescale alpha = exp2(m - m_new), staged in shared memory for the
+//   threads that hold the row in o; each thread keeps its own part of the
+//   row sum l (alpha is the row's, so the parts are summed once, at the
+//   end, in a fixed order). The epilogue writes o / l and lse = (m +
+//   log2(l)) ln(2), natural log, as the backward reads it. 4 D FLOPs a
+//   (row, key) pair.
+// - The backward: P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = P
+//   (dP - delta). A tile's ring steps: the kSlab-wide slabs of V (dP), then
+//   of K (S; the last one also feeds the output product of its columns, so
+//   a one-slab head_dim reads K once), then K again for the other column
+//   slabs of dq (dq); dk/dv the same with dO and Q, then dO again for dv.
+//   Per (row, key) pair that is 6 D FLOPs for dq and 8 D for dk/dv, S and
+//   dP recomputed in each (one fused pass would need float atomics for
+//   dq).
 //
-// Budget of a CTA (DqTiles, DkvTiles; shared memory: the resident pair, P
-// and dS, the ring, the rows' stats, the mbarriers, 128 bytes to align),
-// every one 256 threads, one CTA an SM:
+// Budget of a CTA (FwdTiles, DqTiles, DkvTiles; shared memory: the resident
+// tiles, P (and dS), the ring, the rows' stats, the mbarriers, 128 bytes to
+// align), every one 256 threads, one CTA an SM:
+//   fwd    D=64: 64 q rows, 64-key tiles, one 64-column slab, 4 stages,
+//          S 4x4 a thread (two warps a row), o 16 registers (106,408 B);
+//          D=128: 128 q rows (each K/V slab serves twice 64 rows'
+//          products; 0.87x the time of 64 rows on an H100 SXM,
+//          tools/flash_f32_variants.py), S 8x4, one 128-column slab, 3
+//          stages, o 64 (207,520 B);
+//          D=256: 128 q rows (0.92x), S 8x4, four 64-column slabs, 3
+//          stages, o 128 (223,904 B);
+//          D=512: 32 q rows against 128-key tiles, S 4x4 (four warps a
+//          row), eight 64-column slabs, 3 stages, o 64 (188,704 B).
 //   dq     D=64: 64 q rows, 64-key tiles, one 64-column slab, 4 stages,
 //          S 4x4 a thread, dq 16 registers (123,560 B);
 //          D=128: the same in one 128-column slab, 3 stages, dq 32
@@ -77,30 +92,23 @@
 //          D=512: 32 kv rows, S^T 2x4, eight 64-column slabs, 2 stages,
 //          dk and dv 128 (185,752 B).
 //
-// Work lists, built on the host (ops/flash_attention.py), longest first: dq
-// walks (b * H + h, q tile) items, each over the key tiles up to its causal
-// bound; dk/dv walks (b * KVH + kvh, kv tile, part) items, each over the q
-// tiles from its causal start for each of the G / P query heads of its part
-// of the group. Where B * KVH * S / kRows would leave the card part idle,
-// P > 1 parts write fp32 partials to a workspace, and the last CTA of each kv
-// tile to take its integer ticket sums them in part order: no float atomics,
-// so every kernel is deterministic. Rows past S are zeros in shared memory
-// and are masked out of P (key columns in dq, q columns in dk/dv); only
-// rows < S are written. dq writes delta = rowsum(dO * O) for dk/dv, as the
-// other families do.
+// Work lists, built on the host (ops/flash_attention.py), longest first:
+// the forward and dq walk (b * H + h, q tile) items, each over the key
+// tiles up to its causal bound; dk/dv walks (b * KVH + kvh, kv tile, part)
+// items, each over the q tiles from its causal start for each of the G / P
+// query heads of its part of the group. Where B * KVH * S / kRows would
+// leave the card part idle, P > 1 parts write fp32 partials to a
+// workspace, and the last CTA of each kv tile to take its integer ticket
+// sums them in part order: no float atomics, so every kernel is
+// deterministic. Rows past S are zeros in shared memory and are masked out
+// of P (key columns in the forward and dq, q columns in dk/dv); only rows <
+// S are written. dq writes delta = rowsum(dO * O) for dk/dv, as the other
+// families do.
 #include "flash_common.cuh"
 #include "flash_fwd_sm90.cuh"  // the mbarrier helpers (sm90::mbar_*)
 
 namespace stpu {
 namespace {
-
-constexpr int kF32Warps = 4;                 // warps a block
-constexpr int kF32Block = 32 * kF32Warps;
-// Rows a warp owns at head_dim D.
-template <int D>
-__host__ __device__ constexpr int f32_rows() {
-  return D > 256 ? 2 : 4;
-}
 
 // The params' 16-bit pointers carry f32 tensors here (element strides of
 // f32).
@@ -117,87 +125,21 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// This lane's C = D / 32 columns of row `row` of a (B, S, heads, D) tensor
-// at g (the (b, head) row 0), row stride ss.
-template <int C>
-__device__ __forceinline__ void load_row(float (&x)[C], const float* g,
-                                         long long ss, int row) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int c = 0; c < C; ++c) x[c] = __ldg(g + row * ss + lane + 32 * c);
-}
-
-template <int C>
-__device__ __forceinline__ float dot(const float (&x)[C],
-                                     const float (&y)[C]) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) s = fmaf(x[c], y[c], s);
-  return warp_sum(s);
-}
-
-// Forward: block (blockIdx.x, b * H + h), warp rows row0 .. row0 +
-// kF32Rows - 1.
-template <int D>
-__global__ void __launch_bounds__(kF32Block)
-flash_fwd_f32_kernel(const FwdParams p) {
-  constexpr int C = D / 32, kF32Rows = f32_rows<D>();
-  constexpr int kF32BlockRows = kF32Rows * kF32Warps;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const int row0 = blockIdx.x * kF32BlockRows + warp * kF32Rows;
-  if (row0 >= p.S) return;
-  const float* qg = f32(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kg = f32(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = f32(p.v) + b * p.v_sb + kvh * p.v_sh;
-  float q[kF32Rows][C], o[kF32Rows][C], m[kF32Rows], l[kF32Rows];
-#pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    load_row<C>(q[r], qg, p.q_ss, min(row0 + r, p.S - 1));
-#pragma unroll
-    for (int c = 0; c < C; ++c) o[r][c] = 0.f;
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-  const int n_keys = p.causal ? min(p.S, row0 + kF32Rows) : p.S;
-  for (int j = 0; j < n_keys; ++j) {
-    float kj[C], vj[C];
-    load_row<C>(kj, kg, p.k_ss, j);
-    load_row<C>(vj, vg, p.v_ss, j);
-#pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      if (p.causal && j > row0 + r) continue;  // uniform across the warp
-      const float s = dot<C>(q[r], kj) * p.scale;
-      const float m_new = fmaxf(m[r], s);
-      const float alpha = expf(m[r] - m_new), pj = expf(s - m_new);
-      l[r] = fmaf(l[r], alpha, pj);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) o[r][c] = fmaf(o[r][c], alpha, pj * vj[c]);
-    }
-  }
-  float* og = f32(p.o) + ((long long)b * p.S * p.H + h) * D;
-  float* lg = p.lse + ((long long)b * p.H + h) * p.S;
-#pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    const int row = row0 + r;
-    if (row >= p.S) continue;
-    const float inv = 1.f / l[r];
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      og[(long long)row * p.H * D + lane + 32 * c] = o[r][c] * inv;
-    if (lane == 0) lg[row] = m[r] + logf(l[r]);
-  }
-}
-
 // ----------------------------------------------------------------------
-// The backward: dq and dk/dv as register-blocked FFMA products over
+// The forward, dq and dk/dv as register-blocked FFMA products over
 // shared-memory tiles (see the note at the top).
 
-constexpr int kBwdThreads = 256;  // 8 warps, one CTA an SM
-constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kThreads = 256;  // 8 warps, one CTA an SM
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmemBytes = 232448;  // what a block may use
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The forward's launch: the work list holds (b * H + h, q tile) pairs.
+struct F32Fwd {
+  FwdParams p;
+  const int* work;
+  int batch;
+};
 
 // dq's launch: the work list holds (b * H + h, q tile) pairs.
 struct F32Dq {
@@ -222,6 +164,23 @@ struct F32Dkv {
 // A CTA's tiles at head_dim D: resident rows, rows of a streamed tile,
 // columns of a streamed slab, ring stages, a thread's block of S (S^T)
 // and dP (kSM x kSN) and of each output slab (kOM x kON).
+template <int D> struct FwdTiles;
+template <> struct FwdTiles<64> {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 64, kStages = 4;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 4;
+};
+template <> struct FwdTiles<128> {
+  static constexpr int kRows = 128, kInner = 64, kSlab = 128, kStages = 3;
+  static constexpr int kSM = 8, kSN = 4, kOM = 8, kON = 8;
+};
+template <> struct FwdTiles<256> {
+  static constexpr int kRows = 128, kInner = 64, kSlab = 64, kStages = 3;
+  static constexpr int kSM = 8, kSN = 4, kOM = 8, kON = 4;
+};
+template <> struct FwdTiles<512> {
+  static constexpr int kRows = 32, kInner = 128, kSlab = 64, kStages = 3;
+  static constexpr int kSM = 4, kSN = 4, kOM = 2, kON = 4;
+};
 template <int D> struct DqTiles;
 template <> struct DqTiles<64> {
   static constexpr int kRows = 64, kInner = 64, kSlab = 64, kStages = 4;
@@ -257,22 +216,24 @@ template <> struct DkvTiles<512> {
   static constexpr int kSM = 2, kSN = 4, kOM = 2, kON = 4;
 };
 
-// Shared memory of a CTA, in floats from a 128-byte aligned base: the two
-// resident tiles (kRows rows of D + 4), kPTiles tiles of P or dS (kRows
-// rows of kInner + 8), the ring's slabs (kInner rows of kSlab + 4), two
-// floats a resident row (dq: lse * log2(e) and delta; dk/dv: the ticket's
-// flag); then kStages + 1 mbarriers (the slabs', the resident tiles').
-template <class T, int D, int kPTiles>
-struct BwdSmem {
+// Shared memory of a CTA, in floats from a 128-byte aligned base:
+// kResTiles resident tiles (kRows rows of D + 4; the forward's Q, dq's Q
+// and dO, dk/dv's K and V), kPTiles tiles of P or dS (kRows rows of
+// kInner + 8), the ring's slabs (kInner rows of kSlab + 4), kStats floats
+// a resident row (forward: the warps' row maxima and sums, the rows'
+// rescale; dq: lse * log2(e) and delta; dk/dv: the ticket's flag); then
+// kStages + 1 mbarriers (the slabs', the resident tiles').
+template <class T, int D, int kPTiles, int kResTiles = 2, int kStats = 2>
+struct TileSmem {
   static constexpr int kLdRes = D + 4, kLdP = T::kInner + 8;
   static constexpr int kLdSlab = T::kSlab + 4;
   static constexpr int kResTile = T::kRows * kLdRes;
   static constexpr int kPTile = T::kRows * kLdP;
   static constexpr int kSlabTile = T::kInner * kLdSlab;
-  static constexpr int kP = 2 * kResTile;
+  static constexpr int kP = kResTiles * kResTile;
   static constexpr int kRing = kP + kPTiles * kPTile;
   static constexpr int kStat = kRing + T::kStages * kSlabTile;
-  static constexpr int kBar = kStat + 2 * T::kRows;  // 8-byte aligned
+  static constexpr int kBar = kStat + kStats * T::kRows;  // 8-byte aligned
   static constexpr int kSlabBytes = 4 * kSlabTile;    // a whole TMA box
   // 128 bytes of slack to align the base: every TMA slot starts on a
   // 128-byte boundary.
@@ -291,7 +252,7 @@ struct BwdSmem {
 template <int M, int N, int TM, int TN>
 struct Frag {
   static constexpr int kWarpsN = N / (8 * TN);
-  static_assert((M / (4 * TM)) * kWarpsN == kBwdWarps && TN % 4 == 0,
+  static_assert((M / (4 * TM)) * kWarpsN == kWarps && TN % 4 == 0,
                 "8 warps tile the product");
   static __device__ __forceinline__ int row0() {
     return threadIdx.x / 32 / kWarpsN * 4 * TM + threadIdx.x % 32 / 8;
@@ -335,29 +296,30 @@ __device__ __forceinline__ void copy_rows(float* s, const float* g,
 // row), zeroed by the CTA: a resident tile's rows past S.
 template <int R, int C, int LD>
 __device__ __forceinline__ void zero_rows(float* s, int n) {
-  for (int i = threadIdx.x; i < (R - n) * (C / 4); i += kBwdThreads)
+  for (int i = threadIdx.x; i < (R - n) * (C / 4); i += kThreads)
     *reinterpret_cast<float4*>(s + (n + i / (C / 4)) * LD +
                                4 * (i % (C / 4))) =
         make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// The two resident tiles (R rows of D columns from row0 of a and of b,
-// back to back) by warp 0's bulk copies on `bar`, which it arms for their
-// bytes; their rows past S are zeroed by the CTA.
-template <int R, int D, int LD>
+// The kTiles (1 or 2) resident tiles (R rows of D columns from row0 of a
+// and, with two, of b, back to back) by warp 0's bulk copies on `bar`,
+// which it arms for their bytes; their rows past S are zeroed by the CTA.
+template <int R, int D, int LD, int kTiles = 2>
 __device__ __forceinline__ void load_resident(float* s, const float* a,
                                               long long as, const float* b,
                                               long long bs, int row0, int S,
                                               uint32_t bar) {
   const int n = min(R, S - row0);
   if (threadIdx.x < 32) {
-    if (threadIdx.x == 0) sm90::mbar_expect_tx(bar, 8 * n * D);
+    if (threadIdx.x == 0) sm90::mbar_expect_tx(bar, 4 * kTiles * n * D);
     __syncwarp();
     copy_rows<D, LD>(s, a, as, row0, n, bar);
-    copy_rows<D, LD>(s + R * LD, b, bs, row0, n, bar);
+    if constexpr (kTiles == 2)
+      copy_rows<D, LD>(s + R * LD, b, bs, row0, n, bar);
   }
   zero_rows<R, D, LD>(s, n);
-  zero_rows<R, D, LD>(s + R * LD, n);
+  if constexpr (kTiles == 2) zero_rows<R, D, LD>(s + R * LD, n);
 }
 
 // The dynamic shared memory from its first 128-byte boundary (the layouts
@@ -479,15 +441,217 @@ __device__ __forceinline__ void store_block(const float (&acc)[TM][TN],
   }
 }
 
+// Shared memory of the forward at head_dim D: Q, P, the ring, and
+// kWarpsN + 1 floats a row (the warps' row maxima, then sums; the rows'
+// rescale of o, then 1 / l).
+template <int D>
+using FwdSmem = TileSmem<FwdTiles<D>, D, 1, 1,
+                         Frag<FwdTiles<D>::kRows, FwdTiles<D>::kInner,
+                              FwdTiles<D>::kSM, FwdTiles<D>::kSN>::kWarpsN +
+                             1>;
+
+// o and the natural-log lse: block i is item i of the work list, (b * H +
+// h, q tile of kRows rows), walking the kInner-key tiles up to its causal
+// bound; tk and tv map K and V in boxes of kInner rows x kSlab + 4
+// columns.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const F32Fwd a) {
+  using T = FwdTiles<D>;
+  using L = FwdSmem<D>;
+  using SF = Frag<T::kRows, T::kInner, T::kSM, T::kSN>;
+  using OF = Frag<T::kRows, T::kSlab, T::kOM, T::kON>;
+  constexpr int kN = D / T::kSlab;  // column slabs a row
+  constexpr int kSteps = 2 * kN;    // ring steps a key tile
+  constexpr int kWN = SF::kWarpsN;  // warps that share a row of S
+  float* sm = aligned_smem();
+  const FwdParams& p = a.p;
+  const int bh = a.work[2 * blockIdx.x], qt = a.work[2 * blockIdx.x + 1];
+  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KVH);
+  const int q0 = qt * T::kRows;
+  const int n_all = ceil_div(p.S, T::kInner);
+  const int n_kt = p.causal
+                       ? min(n_all, (q0 + T::kRows - 1) / T::kInner + 1)
+                       : n_all;
+  const int total = n_kt * kSteps;
+  const uint32_t bars = smem_addr(sm + L::kBar);
+  init_bars<T::kStages>(bars);
+  // Step w of a key tile: K slab w (w < kN), then V slab w - kN.
+  const auto fetch = [&](int g) {
+    if (g >= total || threadIdx.x != 0) return;
+    const int t = g / kSteps, w = g % kSteps;
+    const uint32_t bar = bars + 8 * (g % T::kStages);
+    sm90::mbar_expect_tx(bar, L::kSlabBytes);
+    sm90::tma_load_4d(sm + L::kRing + (g % T::kStages) * L::kSlabTile,
+                      w < kN ? &tk : &tv, bar, (w % kN) * T::kSlab,
+                      t * T::kInner, kvh, b);
+  };
+  load_resident<T::kRows, D, L::kLdRes, 1>(
+      sm, f32(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, nullptr, 0, q0, p.S,
+      bars + 8 * T::kStages);
+#pragma unroll
+  for (int g = 0; g < T::kStages - 1; ++g) fetch(g);
+  sm90::mbar_wait(bars + 8 * T::kStages, 0);
+  const int sr = SF::row0(), sc = SF::col0();
+  const int orow = OF::row0(), ocol = OF::col4();
+  const int wn = threadIdx.x / 32 % kWN, lane = threadIdx.x % 32;
+  const bool row_leader = wn == 0 && lane % 8 == 0;
+  const float* qs = sm + sr * L::kLdRes;
+  float* pb = sm + L::kP;
+  float* red = sm + L::kStat;            // kWN x kRows
+  float* rescale = red + kWN * T::kRows;  // kRows
+  const float c2 = p.scale * BaseE2::kScoreMul;
+  Ring<T::kStages> ring{sm + L::kRing, L::kSlabTile, bars};
+  // The row's running maximum (base 2, the same in every thread of the
+  // row) and this thread's part of its sum.
+  float m[T::kSM], l[T::kSM];
+#pragma unroll
+  for (int i = 0; i < T::kSM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  float acc[kN][T::kOM][T::kON];
+#pragma unroll
+  for (int w = 0; w < kN; ++w)
+#pragma unroll
+    for (int i = 0; i < T::kOM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) acc[w][i][j] = 0.f;
+  for (int t = 0; t < n_kt; ++t) {
+    float s[T::kSM][T::kSN];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) s[i][j] = 0.f;
+    const int g0 = t * kSteps;
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const float* k = ring.step(g0 + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdRes, L::kLdSlab>(
+          s, qs + w * T::kSlab, k + sc * L::kLdSlab);
+    }
+    // The tile's scores in base 2, masked (key columns at or past S, and
+    // above the diagonal when causal), and each row's maximum.
+    float mx[T::kSM];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const int qpos = q0 + sr + 4 * i;
+      mx[i] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) {
+        const int kpos = t * T::kInner + sc + 8 * j;
+        const bool keep = kpos < p.S && !(p.causal && kpos > qpos);
+        s[i][j] = keep ? s[i][j] * c2 : -INFINITY;
+        mx[i] = fmaxf(mx[i], s[i][j]);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+    }
+    if constexpr (kWN > 1) {
+      if (lane % 8 == 0)
+#pragma unroll
+        for (int i = 0; i < T::kSM; ++i)
+          red[wn * T::kRows + sr + 4 * i] = mx[i];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+        for (int u = 0; u < kWN; ++u)
+          mx[i] = fmaxf(mx[i], red[u * T::kRows + sr + 4 * i]);
+    }
+    // P and the rows' rescale, for the products below (the next ring
+    // step's barrier publishes them). Every row has a key below S in tile
+    // 0 (key 0), so m is finite from then on.
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const float m_new = fmaxf(m[i], mx[i]);
+      const float alpha = BaseE2::exp(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) {
+        const float pr = BaseE2::exp(s[i][j] - m_new);
+        pb[(sr + 4 * i) * L::kLdP + sc + 8 * j] = pr;
+        sum += pr;
+      }
+      l[i] = fmaf(l[i], alpha, sum);
+      if (row_leader) rescale[sr + 4 * i] = alpha;
+    }
+#pragma unroll
+    for (int w = 0; w < kN; ++w) {
+      const float* v = ring.step(g0 + kN + w, fetch);
+      if (w == 0) {
+#pragma unroll
+        for (int i = 0; i < T::kOM; ++i) {
+          const float alpha = rescale[orow + 4 * i];
+#pragma unroll
+          for (int u = 0; u < kN; ++u)
+#pragma unroll
+            for (int j = 0; j < T::kON; ++j) acc[u][i][j] *= alpha;
+        }
+      }
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          acc[w], pb + orow * L::kLdP, v + ocol);
+    }
+  }
+  // Each row's sum over its threads (the lanes, then the warps, in a
+  // fixed order), 1 / l for o and the natural-log lse.
+#pragma unroll
+  for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+  __syncthreads();  // every read of red and rescale is done
+  if constexpr (kWN > 1) {
+    if (lane % 8 == 0)
+#pragma unroll
+      for (int i = 0; i < T::kSM; ++i)
+        red[wn * T::kRows + sr + 4 * i] = l[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      l[i] = red[sr + 4 * i];
+#pragma unroll
+      for (int u = 1; u < kWN; ++u) l[i] += red[u * T::kRows + sr + 4 * i];
+    }
+  }
+  const long long stat = ((long long)b * p.H + h) * p.S;
+  if (row_leader) {
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const int row = q0 + sr + 4 * i;
+      rescale[sr + 4 * i] = 1.f / l[i];
+      if (row < p.S) p.lse[stat + row] = (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+  __syncthreads();
+  float* og = f32(p.o) + ((long long)b * p.S * p.H + h) * D;
+  const long long ss = (long long)p.H * D;
+#pragma unroll
+  for (int i = 0; i < T::kOM; ++i) {
+    const float inv = rescale[orow + 4 * i];
+#pragma unroll
+    for (int w = 0; w < kN; ++w)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) acc[w][i][j] *= inv;
+  }
+#pragma unroll
+  for (int w = 0; w < kN; ++w)
+    store_block(acc[w], 1.f, og + w * T::kSlab + ocol, ss, q0 + orow, p.S);
+}
+
 // dq and delta: block i is item i of the work list, (b * H + h, q tile of
 // kRows rows), walking the kInner-key tiles up to its causal bound; tk and
 // tv map K and V in boxes of kInner rows x kSlab + 4 columns.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dq_f32_kernel(const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const F32Dq a) {
   using T = DqTiles<D>;
-  using L = BwdSmem<T, D, 1>;
+  using L = TileSmem<T, D, 1>;
   using SF = Frag<T::kRows, T::kInner, T::kSM, T::kSN>;
   using OF = Frag<T::kRows, T::kSlab, T::kOM, T::kON>;
   constexpr int kN = D / T::kSlab;     // column slabs a row
@@ -528,7 +692,7 @@ flash_dq_f32_kernel(const __grid_constant__ CUtensorMap tk,
   // delta = rowsum(dO * O), a warp a row; lse into base 2 (BaseE2).
   const long long stat = ((long long)b * p.H + h) * p.S;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < T::kRows; r += kBwdWarps) {
+  for (int r = warp; r < T::kRows; r += kWarps) {
     const int row = q0 + r;
     float s = 0.f;
     if (row < p.S) {
@@ -635,7 +799,7 @@ __device__ __forceinline__ void sum_parts(const F32Dkv& a, int which,
   const long long plane = (long long)a.batch * a.p.S * ss;
   const float* ws = a.ws + which * a.parts * plane + off;
   constexpr int kRowChunks = D / 4;
-  for (int c = threadIdx.x; c < kRows * kRowChunks; c += kBwdThreads) {
+  for (int c = threadIdx.x; c < kRows * kRowChunks; c += kThreads) {
     const int row = row0 + c / kRowChunks;
     if (row >= a.p.S) continue;
     const long long at = row * ss + 4 * (c % kRowChunks);
@@ -658,12 +822,12 @@ __device__ __forceinline__ void sum_parts(const F32Dkv& a, int which,
 // heads, the kInner-row q tiles from its causal start; tq and tdo map Q
 // and dO in boxes of kInner rows x kSlab + 4 columns.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
                      const F32Dkv a) {
   using T = DkvTiles<D>;
-  using L = BwdSmem<T, D, 2>;
+  using L = TileSmem<T, D, 2>;
   using SF = Frag<T::kRows, T::kInner, T::kSM, T::kSN>;
   using OF = Frag<T::kRows, T::kSlab, T::kOM, T::kON>;
   constexpr int kN = D / T::kSlab;
@@ -820,16 +984,6 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// Launches `kernel` (an instance at head_dim D) over (ceil(S /
-// (f32_rows<D>() * kF32Warps)), rows) blocks.
-template <int D, class Params>
-int launch_f32(void (*kernel)(const Params), int rows, int S,
-               cudaStream_t stream, const Params& p) {
-  const dim3 grid(ceil_div(S, f32_rows<D>() * kF32Warps), rows);
-  kernel<<<grid, kF32Block, 0, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 // A map of a (B, S, heads, D) fp32 tensor at ptr with element strides
 // (sb, ss, sh, 1), as dimensions (D, S, heads, B) innermost first: boxes of
 // `cols` columns x `rows` rows of one head, unswizzled, so a box lands as
@@ -854,14 +1008,14 @@ inline int encode_f32_rows(CUtensorMap* map, const void* ptr, int D, int S,
   return r == CUDA_SUCCESS ? 0 : sm90::kTensorMapError + (int)r;
 }
 
-// Launches the fp32 dq at head_dim D: `rows` (B * H) rows of work items,
-// ceil(S / kRows) each, one CTA an item, with K's and V's maps.
-template <int D>
-int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dq), int rows,
-               int S, cudaStream_t stream, const F32Dq& a) {
-  using T = DqTiles<D>;
-  constexpr int kBytes = BwdSmem<T, D, 1>::kBytes;
-  const BwdParams& p = a.p;
+// Launches a kernel that streams K and V against resident q rows (the
+// forward, dq) with tiles T and kBytes of shared memory: `rows` (B * H)
+// rows of work items, ceil(S / kRows) each, one CTA an item, with K's and
+// V's maps.
+template <class T, int kBytes, int D, class A>
+int launch_kv(void (*kernel)(CUtensorMap, CUtensorMap, A), int rows, int S,
+              cudaStream_t stream, const A& a) {
+  const auto& p = a.p;
   CUtensorMap tk, tv;
   int err = encode_f32_rows(&tk, p.k, D, S, p.KVH, a.batch, p.k_ss, p.k_sh,
                             p.k_sb, T::kSlab + 4, T::kInner);
@@ -870,9 +1024,25 @@ int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dq), int rows,
                           p.v_sb, T::kSlab + 4, T::kInner);
   if (!err) err = (int)allow_smem(kernel, kBytes);
   if (err) return err;
-  kernel<<<rows * ceil_div(S, T::kRows), kBwdThreads, kBytes, stream>>>(
+  kernel<<<rows * ceil_div(S, T::kRows), kThreads, kBytes, stream>>>(
       tk, tv, a);
   return (int)cudaGetLastError();
+}
+
+// The fp32 forward at head_dim D (FwdTiles).
+template <int D>
+int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Fwd), int rows,
+               int S, cudaStream_t stream, const F32Fwd& a) {
+  return launch_kv<FwdTiles<D>, FwdSmem<D>::kBytes, D>(kernel, rows, S,
+                                                       stream, a);
+}
+
+// The fp32 dq at head_dim D (DqTiles).
+template <int D>
+int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dq), int rows,
+               int S, cudaStream_t stream, const F32Dq& a) {
+  return launch_kv<DqTiles<D>, TileSmem<DqTiles<D>, D, 1>::kBytes, D>(
+      kernel, rows, S, stream, a);
 }
 
 // Launches the fp32 dk/dv at head_dim D: `rows` (B * KVH * parts) rows of
@@ -882,7 +1052,7 @@ template <int D>
 int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dkv), int rows,
                int S, cudaStream_t stream, const F32Dkv& a) {
   using T = DkvTiles<D>;
-  constexpr int kBytes = BwdSmem<T, D, 2>::kBytes;
+  constexpr int kBytes = TileSmem<T, D, 2>::kBytes;
   const BwdParams& p = a.p;
   CUtensorMap tq, tdo;
   int err = encode_f32_rows(&tq, p.q, D, S, p.H, a.batch, p.q_ss, p.q_sh,
@@ -892,7 +1062,7 @@ int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dkv), int rows,
                           p.do_sh, p.do_sb, T::kSlab + 4, T::kInner);
   if (!err) err = (int)allow_smem(kernel, kBytes);
   if (err) return err;
-  kernel<<<rows * ceil_div(S, T::kRows), kBwdThreads, kBytes, stream>>>(
+  kernel<<<rows * ceil_div(S, T::kRows), kThreads, kBytes, stream>>>(
       tq, tdo, a);
   return (int)cudaGetLastError();
 }
@@ -915,19 +1085,22 @@ int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dkv), int rows,
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
-// strides: (batch, seq, head) in elements for q, k, v. o (B, S, H, D) and
-// lse (B, H, S), natural log, are written contiguous, fp32.
+// strides: (batch, seq, head) in elements for q, k, v. work: the
+// forward's list, ceil(S / kRows) (b * H + h, q tile) pairs a row, longest
+// first. o (B, S, H, D) and lse (B, H, S), natural log, are written
+// contiguous, fp32.
 extern "C" int stpu_flash_fwd_f32(const void* q, const void* k,
                                   const void* v, void* o, void* lse,
-                                  const long long* strides, int B, int S,
-                                  int H, int KVH, int D, float scale,
-                                  int causal, void* stream) {
+                                  const void* work, const long long* strides,
+                                  int B, int S, int H, int KVH, int D,
+                                  float scale, int causal, void* stream) {
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
-  const FwdParams p =
-      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
+  const F32Fwd a = {
+      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal),
+      static_cast<const int*>(work), B};
   STPU_F32_BY_D(D, flash_fwd_f32_kernel, B * H,
-                static_cast<cudaStream_t>(stream), p);
+                static_cast<cudaStream_t>(stream), a);
 }
 
 // strides: q, k, v, o, dO. work: dq's list, ceil(S / kRows) (b * H + h,

@@ -153,10 +153,11 @@ extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
 // int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row kv
 // tile, part) triples, parts dividing H / KVH, and with parts > 1 an fp32
 // workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64) int32
-// tickets, zero (dkv_cta_wide); at 512 the same items, two CTAs each, and
-// 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: q, k, v, dO. dk and dv
-// are written contiguous (B, S, KVH, D), of the inputs' type; lse and delta
-// (B, H, S) fp32 are read through tensor maps.
+// tickets, zero (dkv_cta_wide); at 512 the same items, a cluster of two
+// CTAs each, and 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: q,
+// k, v, dO. dk and dv are written contiguous (B, S, KVH, D), of the
+// inputs' type; lse and delta (B, H, S) fp32 are read through tensor
+// maps.
 extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,

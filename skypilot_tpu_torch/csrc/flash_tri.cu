@@ -26,8 +26,10 @@
 // f16 instance at head_dim 64, 128 and 256 (Gemma's, on the bodies' wide
 // paths; the JAX dispatcher sends Gemma here past S 2048), and 512 (on
 // the chunked bodies fwd_cta_wide, dq_cta_512, dkv_cta_512: one 256-column
-// chunk of o, dq, dk or dv a CTA or consumer, S and dP recomputed over
-// all 512 columns, 32-row streamed tiles; flash_bwd_sm90.cuh):
+// chunk of o, dq, dk or dv a CTA or consumer, 32-row streamed tiles; the
+// forward and dq recompute S (and dP) over all 512 columns per chunk,
+// dk/dv's two CTAs of a cluster exchange their partials of S^T and dP^T;
+// flash_bwd_sm90.cuh):
 // - the forward: 64-row K/V tiles, Q in shared memory;
 // - dq: DqSplitKV (flash_bwd_sm90.cuh), 64-row K tiles in two stages and
 //   V in one on barriers of their own, so V's next load runs under dS K
@@ -154,9 +156,10 @@ extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
 // int32 pairs and parts 1; at 256, B*KVH*ceil(S/64)*parts (b*KVH, 64-row kv
 // tile, part) triples, parts dividing H / KVH, and with parts > 1 an fp32
 // workspace ws of (2, parts, B, S, KVH, D) and 2*B*KVH*ceil(S/64) int32
-// tickets, zero (dkv_cta_wide); at 512 the same items, two CTAs each, and
-// 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: q, k, v, dO. dk and dv
-// are written contiguous (B, S, KVH, D), of the inputs' type.
+// tickets, zero (dkv_cta_wide); at 512 the same items, a cluster of two
+// CTAs each, and 4*B*KVH*ceil(S/64) tickets (dkv_cta_512). strides: q,
+// k, v, dO. dk and dv are written contiguous (B, S, KVH, D), of the
+// inputs' type.
 extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signatures: (pointers..., strides, B, S, H, KVH, D, dtype, scale, causal,
 # stream), dtype being the element type's code (DTYPES); the triangular
-# family is causal only; every kernel but the fp32 forward takes its work
-# list after its tensors; every dk/dv then takes its split workspace and
+# family is causal only; every kernel takes its work list after its
+# tensors; every dk/dv then takes its split workspace and
 # tickets, and its number of parts after the scale (and causal flag); the
 # fp32 kernels take no dtype.
 # The *_attrs entries fill five ints for a Hopper kernel at a head_dim and
@@ -67,7 +67,7 @@ SIGNATURES = {
                        "stpu_flash_dq_streamed_attrs": _ATTRS,
                        "stpu_flash_dkv_streamed": [_P] * 11 + _SPLIT_TAIL,
                        "stpu_flash_dkv_streamed_attrs": _ATTRS},
-    "flash_f32": {"stpu_flash_fwd_f32": [_P] * 5 + _F32_TAIL,
+    "flash_f32": {"stpu_flash_fwd_f32": [_P] * 6 + _F32_TAIL,
                   "stpu_flash_dq_f32": [_P] * 9 + _F32_TAIL,
                   "stpu_flash_dkv_f32": [_P] * 11 + _F32_SPLIT_TAIL},
 }
@@ -137,6 +137,16 @@ def build_all() -> Dict[str, dict]:
     return BUILD_INFO
 
 
+def load_library(path: pathlib.Path, name: str) -> ctypes.CDLL:
+    """The shared library at ``path``, built from source ``name``, with
+    that source's C signatures set."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of source ``name``, built on first use."""
     lib = _LIBS.get(name)
@@ -144,9 +154,5 @@ def library(name: str) -> ctypes.CDLL:
         path = build_dir() / f"lib{name}.so"
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = load_library(path, name)
     return lib

@@ -14,9 +14,9 @@ masked), head_dim 64, 128, 256 (Gemma's) or 512, and bf16 or f16 (one
 instance each); f32 inputs take three fp32 kernels of their own
 (``csrc/flash_f32.cu``: ``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dkv_f32``, every family's shapes and widths, natural-log lse,
-FFMA products exact to fp32 rounding; the backward pair as SGEMM-style
-tiles, F32_DQ_TILES and F32_DKV_TILES, its GQA group in ``dkv_parts``
-parts):
+FFMA products exact to fp32 rounding, all three as SGEMM-style tiles,
+F32_FWD_TILES, F32_DQ_TILES and F32_DKV_TILES, the dk/dv's GQA group in
+``dkv_parts`` parts):
 
 * the resident family (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), for
   ``_fwd_kernel_resident``, ``_dq_kernel_resident`` and
@@ -51,14 +51,18 @@ consumer's Q rows for S from registers (``kWideQReg``).
 
 At head_dim 512 no consumer can hold a 64-row block of o, dq, dk or dv
 (256 fp32 a thread past the 128 of wgmma's widest N): each holds one
-CHUNK-column chunk, and S, dP (and their transposes) are recomputed over
-all 512 columns for each chunk. The forward and dk/dv run one CTA a
-chunk, the two side by side for each item of their lists (the forward's
-128-row q tiles against 32-row K/V tiles; dk/dv's 64-row kv tiles, parts
-of the GQA group as at 256, against one stage of 32-row Q/dO tiles); dq
-runs CHUNKED_DQ_TILE q rows a CTA, one chunk a consumer, against 32-row
-K tiles in two stages and V in one (``dq_schedule``). Every head_dim
-that is a multiple of 8 up to 512 reaches a kernel.
+CHUNK-column chunk. The forward and dk/dv run one CTA a chunk, the two
+side by side for each item of their lists: the forward's 128-row q
+tiles against 32-row K/V tiles, S recomputed over all 512 columns for
+each chunk; dk/dv's 64-row kv tiles, parts of the GQA group as at 256,
+as a cluster of the two CTAs, each holding its chunk of K, V, Q and dO
+(two stages of BWD_INNER-row Q/dO tiles) and computing its partial of
+S^T and dP^T over its 256 columns, which the two exchange through
+distributed shared memory and sum in one order. dq runs CHUNKED_DQ_TILE
+q rows a CTA, one chunk a consumer, against 32-row K tiles in two
+stages and V in one (``dq_schedule``), S and dP recomputed for each
+chunk. Every head_dim that is a multiple of 8 up to 512 reaches a
+kernel.
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
@@ -107,8 +111,9 @@ FWD_TILE = 128
 # too; kBwdTile).
 BWD_TILE = 128
 BWD_INNER = 64
-# kv rows per CTA of every dk/dv at head_dim 256 (csrc/flash_bwd_sm90.cuh
-# dkv_cta_wide, kWideRows), walked against BWD_INNER-row q tiles.
+# kv rows per CTA of every dk/dv at head_dim 256 and 512
+# (csrc/flash_bwd_sm90.cuh dkv_cta_wide, dkv_cta_512; kWideRows), walked
+# against BWD_INNER-row q tiles (at 512 kDkv512QRows).
 WIDE_KV_TILE = 64
 # The most parts it splits a GQA group in (kMaxParts), and the partials'
 # bytes that cost the time of one tile step (five 64 x 64 x 256
@@ -118,9 +123,12 @@ WIDE_KV_TILE = 64
 # (tools/flash_dkv_variants.py: 2.01 us a step, partials at 1.84 TB/s).
 MAX_PARTS = 8
 WIDE_STEP_BYTES = 3.69e6
-# The fp32 backward (csrc/flash_f32.cu DqTiles, DkvTiles), by kernel
-# width: (resident rows a CTA, rows of each tile streamed against them).
-# dq: q rows against K/V tiles; dk/dv: kv rows against q tiles.
+# The fp32 kernels (csrc/flash_f32.cu FwdTiles, DqTiles, DkvTiles), by
+# kernel width: (resident rows a CTA, rows of each tile streamed against
+# them). The forward and dq: q rows against K/V tiles; dk/dv: kv rows
+# against q tiles.
+F32_FWD_TILES = {64: (64, 64), 128: (128, 64), 256: (128, 64),
+                 512: (32, 128)}
 F32_DQ_TILES = {64: (64, 64), 128: (64, 64), 256: (64, 64), 512: (32, 128)}
 F32_DKV_TILES = {64: (64, 64), 128: (64, 64), 256: (64, 64), 512: (32, 64)}
 # dkv_parts' cost model of the fp32 dk/dv: the rate of its tile steps
@@ -453,11 +461,13 @@ def chunks(width: int) -> int:
     return width // CHUNK if width > 256 else 1
 
 
-# A tile step of the width-512 dk/dv in width-256 steps: per 64 q rows a
-# chunk's CTA runs S^T twice (one a consumer) and dP^T over 512 columns
-# and its two 256-wide products, eight 64 x 64 x 256 products, against
-# the width-256 CTA's five. From the product count, not fitted.
-WIDE_STEP_512 = 8 / 5
+# A tile step of the width-512 dk/dv in width-256 steps. Per 64 q rows a
+# chunk's CTA of the cluster runs five 64 x 64 x 256 products (S^T in
+# both consumers, dP^T, its chunk of dv and dk), as many as the width-256
+# CTA, and exchanges its partials; timed, a step takes 1.57 of the
+# width-256 body's 2.01 us (1.46-1.68 at the three families' main shapes,
+# H100 SXM, tools/flash_dkv_variants.py --width 512).
+WIDE_STEP_512 = 1.6
 
 
 class DkvTiling(NamedTuple):
@@ -682,8 +692,8 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # stream); the tail is (dtype, scale, causal) for the resident and streamed
 # families, (dtype, scale) for the causal-only triangular one, (scale,
 # causal) for the fp32 kernels, every dk/dv's followed by its P. Every
-# kernel but the fp32 forward takes its work list after its tensors, and
-# every dk/dv then its workspace and tickets.
+# kernel takes its work list after its tensors, and every dk/dv then its
+# workspace and tickets.
 
 def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
             *tail) -> None:
@@ -812,8 +822,9 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dk/dv (the Hopper dk/dv over 128-row kv tiles, longest
     first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts
-    of the GQA group, ``_dkv_split``; at 512 the same items, one CTA per
-    chunk): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group summed."""
+    of the GQA group, ``_dkv_split``; at 512 the same items, a cluster of
+    two CTAs each, one a chunk, the grid and tickets as before): (dk, dv)
+    (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv", "flash_bwd", q, k, v, do, lse, delta,
                      causal, scale, (int(causal),))
 
@@ -849,8 +860,9 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Streamed-family kernel dk/dv (the Hopper dk/dv body, the resident
     instance's, in lockstep, over 128-row kv tiles, longest first; at
     head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts of the
-    GQA group, ``_dkv_split``; at 512 one CTA per chunk of each): (dk, dv)
-    (B,S,KVH,D) of k's dtype, the GQA group summed."""
+    GQA group, ``_dkv_split``; at 512 a cluster of two CTAs, one a chunk,
+    for each): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group
+    summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
                      lse, delta, causal, scale, (int(causal),))
 
@@ -901,9 +913,9 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dk/dv (the Hopper dk/dv over 128-row kv
     tiles, longest first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv
-    tiles and parts of the GQA group, ``_dkv_split``; at 512 one CTA per
-    chunk of each): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group
-    summed."""
+    tiles and parts of the GQA group, ``_dkv_split``; at 512 a cluster of
+    two CTAs, one a chunk, for each): (dk, dv) (B,S,KVH,D) of k's dtype,
+    the GQA group summed."""
     return _dkv_call("flash_dkv_tri", "flash_tri", q, k, v, do, lse, delta,
                      True, scale, ())
 
@@ -911,13 +923,17 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 kernel forward, any family's shape: (o (B,S,H,D) fp32, lse
-    (B,H,S) fp32 in natural log)."""
+    """fp32 kernel forward, any family's shape (F32_FWD_TILES: q tiles
+    against K/V tiles streamed through shared memory, longest first, the
+    online softmax in fp32): (o (B,S,H,D) fp32, lse (B,H,S) fp32 in
+    natural log)."""
     _check_inputs(q, k, v, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_f32", "flash_f32", (q, k, v, o, lse),
+    rows, inner = F32_FWD_TILES[d]
+    work = tri_schedule("rows", b * h, s, q.device, tile=rows, inner=inner)
+    _launch("flash_fwd_f32", "flash_f32", (q, k, v, o, lse, work),
             _strides(q, k, v), q, k.shape[2], float(scale), int(causal))
     return o, lse
 

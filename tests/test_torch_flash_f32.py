@@ -1,9 +1,11 @@
-"""The fp32 backward (csrc/flash_f32.cu: flash_dq_f32, flash_dkv_f32) on
-the CPU: its work lists, the GQA parts rule, what its wrappers hand their
-launches, its source, and its tiled walk against the JAX package.
+"""The fp32 kernels (csrc/flash_f32.cu: flash_fwd_f32, flash_dq_f32,
+flash_dkv_f32) on the CPU: their work lists, the GQA parts rule, what
+their wrappers hand their launches, their source, and their tiled walks
+against the JAX package.
 
-The two kernels are SGEMM-style FFMA bodies: dq over (b * H + h, q tile)
-items, each walking the key tiles up to its causal bound; dk/dv over (b *
+The three kernels are SGEMM-style FFMA bodies: the forward and dq over (b
+* H + h, q tile) items, each walking the key tiles up to its causal bound
+(the forward with an online maximum and sum in base 2); dk/dv over (b *
 KVH + kvh, kv tile, part) items, each walking the q tiles from its causal
 start for every query head of its part of the GQA group, the parts' fp32
 partials summed in part order by the last CTA of each kv tile. What a CPU
@@ -12,10 +14,12 @@ bounds, compute every tile pair the JAX enumeration needs exactly once,
 longest first; that P divides the group and splits the card's work where
 the shape alone leaves it idle; that the wrappers hand the launch the list,
 workspace, tickets and P (spied on tensors that claim to be on the card);
-that the source holds no tensor-core or TF32 instruction; and that the same
-walk, done tile by tile in fp32 here (the kernels' masks, base-2 exp, the
-parts summed in order), gives JAX's gradients. Inputs come from numpy with a
-seed; tolerances are the JAX tests' own (2e-3 outputs, 5e-3 gradients).
+that the source holds no tensor-core or TF32 instruction and that its tile
+structs are the wrappers' tables; and that the same walks, done tile by
+tile in fp32 here (the kernels' masks, base-2 exp, the online softmax's
+rescales, the parts summed in order), give JAX's outputs and gradients.
+Inputs come from numpy with a seed; tolerances are the JAX tests' own
+(2e-3 outputs and lse, 5e-3 gradients).
 """
 import pathlib
 import re
@@ -29,6 +33,7 @@ import torch
 from skypilot_tpu.ops.pallas import flash_attention as fa_jax
 from skypilot_tpu_torch.ops import flash_attention as fa_torch
 
+OUT_TOL = 2e-3
 GRAD_TOL = 5e-3
 _CSRC = pathlib.Path(fa_torch.__file__).resolve().parents[1] / "csrc"
 _SOURCE = (_CSRC / "flash_f32.cu").read_text()
@@ -68,6 +73,34 @@ def _dkv_walk(work, s, causal, rows, inner, groups, parts):
 
 
 # ------------------------------------------------------------- work lists
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", _SEQS)
+@pytest.mark.parametrize("width", fa_torch.HEAD_DIMS)
+def test_fwd_f32_list_covers_every_tile_once(width, s, causal):
+    # The forward walks the same (row, q tile) lists as dq, at its own
+    # tiles: every (row, q tile) once, and with the kernel's loop bounds
+    # every (q tile, key tile) pair JAX's enumeration needs (all of them
+    # when not causal) exactly once; causal items longest first.
+    rows, inner = fa_torch.F32_FWD_TILES[width]
+    n_rows = 3
+    work = fa_torch.tri_schedule("rows", n_rows, s, tile=rows,
+                                 inner=inner).tolist()
+    nt, ni = _ceil(s, rows), _ceil(s, inner)
+    assert sorted(map(tuple, work)) == [(r, t) for r in range(n_rows)
+                                        for t in range(nt)]
+    got = _dq_walk(work, s, causal, rows, inner)
+    if causal:
+        tiles, keys = fa_jax._tri_maps_row(nt, ni, rows, inner)
+        want = [(r, t, k) for r in range(n_rows)
+                for t, k in zip(tiles.tolist(), keys.tolist())]
+    else:
+        want = [(r, t, k) for r in range(n_rows) for t in range(nt)
+                for k in range(ni)]
+    assert len(got) == len(set(got)) and sorted(got) == sorted(want)
+    lengths = [len(_dq_walk([it], s, True, rows, inner)) for it in work]
+    assert lengths == sorted(lengths, reverse=True)
+
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", _SEQS)
@@ -241,6 +274,31 @@ def test_f32_backward_hands_its_launch_lists_and_workspace(monkeypatch,
         assert tickets.numel() == b * kvh * _ceil(s, rows)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa_torch.HEAD_DIMS)
+def test_f32_forward_hands_its_launch_its_list(monkeypatch, d, causal):
+    # On the card, flash_forward on f32 tensors launches flash_fwd_f32
+    # once, whatever the family, with tri_schedule's "rows" list at
+    # F32_FWD_TILES after its five tensors and (scale, causal) as its
+    # tail.
+    launches = _spy(monkeypatch)
+    b, s, h, kvh = 2, 1000, 6, 2
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(dims).astype(
+        np.float32)).as_subclass(_OnCard)
+        for dims in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    fa_torch.flash_forward(q, k, v, causal, d ** -0.5,
+                           fa_torch.family(s, d, causal))
+    ((name, source, ptrs, n_kv, tail),) = launches
+    assert (name, source, n_kv) == ("flash_fwd_f32", "flash_f32", kvh)
+    assert len(ptrs) == 6 and tail == (d ** -0.5, int(causal))
+    rows, inner = fa_torch.F32_FWD_TILES[d]
+    assert torch.equal(ptrs[5], fa_torch.tri_schedule("rows", b * h, s,
+                                                      tile=rows,
+                                                      inner=inner))
+    assert len(ptrs[5]) == b * h * _ceil(s, rows)
+
+
 # ------------------------------------------------------------- the source
 
 def _code(text):
@@ -277,15 +335,99 @@ def test_f32_tiles_match_the_source():
             assert d % int(vals["kSlab"]) == 0
 
 
-def test_f32_forward_is_the_plain_warp_body():
-    # The forward (not redesigned) keeps its one-warp-a-few-rows body and
-    # its launch over (ceil(S / rows), B * H) blocks.
-    assert "flash_fwd_f32_kernel(const FwdParams p)" in _SOURCE
-    assert re.search(r"STPU_F32_BY_D\(D, flash_fwd_f32_kernel, B \* H,",
-                     _SOURCE)
+@pytest.mark.parametrize("d", fa_torch.HEAD_DIMS)
+def test_f32_fwd_tiles_match_the_source(d):
+    # F32_FWD_TILES is the forward's FwdTiles<D> (resident q rows, keys of
+    # a streamed tile); the slabs divide the row, and the 8 warps tile
+    # both of its products: S (kRows x kInner in kSM x kSN blocks) and
+    # each output slab (kRows x kSlab in kOM x kON blocks), a warp's
+    # lanes 4 x 8 of them.
+    body = re.search(rf"struct FwdTiles<{d}> {{(.*?)}};", _SOURCE,
+                     re.S).group(1)
+    tiles = {k: int(v) for k, v in re.findall(r"(k\w+) = (\d+)", body)}
+    assert (tiles["kRows"], tiles["kInner"]) == fa_torch.F32_FWD_TILES[d]
+    assert d % tiles["kSlab"] == 0 and tiles["kStages"] >= 2
+    for rows, cols, tm, tn in (
+            (tiles["kRows"], tiles["kInner"], tiles["kSM"], tiles["kSN"]),
+            (tiles["kRows"], tiles["kSlab"], tiles["kOM"], tiles["kON"])):
+        assert (rows // (4 * tm)) * (cols // (8 * tn)) == 8
+        assert rows % (4 * tm) == 0 and cols % (8 * tn) == 0
 
 
-# ------------------------------------------ the tiled walk against JAX
+# ------------------------------------------ the tiled walks against JAX
+
+def _tiled_forward(q, k, v, causal, scale):
+    """The fp32 forward as its kernel walks its list, on CPU tensors: item
+    by item, each q tile over its key tiles up to the causal bound, with
+    the online softmax in base 2 (scores times scale log2(e), masked past
+    S and above the diagonal; the running maximum m, o and the sum l
+    rescaled by exp2(m - m_new) each tile); then o / l and the natural-log
+    lse (m + log2(l)) ln(2)."""
+    b, s, h, d = q.shape
+    groups = h // k.shape[2]
+    rows, inner = fa_torch.F32_FWD_TILES[d]
+    c2 = scale * fa_torch.LOG2E
+    o = torch.zeros_like(q)
+    lse = torch.zeros(b, h, s)
+    n_all = _ceil(s, inner)
+    for bh, qt in fa_torch.tri_schedule("rows", b * h, s, tile=rows,
+                                        inner=inner).tolist():
+        bb, hh = divmod(bh, h)
+        qi = torch.arange(qt * rows, min(s, qt * rows + rows))
+        n_kt = (min(n_all, (qt * rows + rows - 1) // inner + 1) if causal
+                else n_all)
+        m = torch.full((len(qi),), -float("inf"))
+        l = torch.zeros(len(qi))
+        acc = torch.zeros(len(qi), d)
+        for kt in range(n_kt):
+            ki = torch.arange(kt * inner, min(s, kt * inner + inner))
+            sc = (q[bb, qi, hh] @ k[bb, ki, hh // groups].T) * c2
+            if causal:
+                sc = sc.masked_fill(ki[None] > qi[:, None], -float("inf"))
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(sc - m_new[:, None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[:, None] + p @ v[bb, ki, hh // groups]
+            m = m_new
+        o[bb, qi, hh] = acc / l[:, None]
+        lse[bb, hh, qi] = (m + torch.log2(l)) * np.log(2.0)
+    return o, lse
+
+
+# (JAX family, causal, S): ragged S (not a multiple of the 64- or 128-row
+# tiles) in each family's own mode, the triangular family's base-2 lse
+# taken to natural log.
+_FWD_CASES = [("triangular", True, 200), ("streamed", False, 200),
+              ("resident", True, 136), ("resident", False, 136)]
+
+
+@pytest.mark.parametrize("fam,causal,s", _FWD_CASES)
+@pytest.mark.parametrize("d", fa_torch.HEAD_DIMS)
+def test_tiled_forward_matches_jax(d, fam, causal, s):
+    # The fp32 forward's walk of its list (tiles, causal bounds, masks past
+    # a ragged S, the online softmax's rescales, the natural-log lse)
+    # against JAX's forward kernels in interpret mode, 8-row blocks.
+    rng = np.random.default_rng(d + s)
+    q, k, v = (rng.standard_normal(dims).astype(np.float32)
+               for dims in ((1, s, 4, d), (1, s, 2, d), (1, s, 2, d)))
+    scale = d ** -0.5
+    kw = dict(scale=scale, block_q=8, block_k=8)
+    args = tuple(map(jnp.asarray, (q, k, v)))
+    if fam == "triangular":
+        o_j, lse_j = fa_jax._flash_fwd_tri(*args, **kw)
+        lse_j = np.asarray(lse_j) * np.log(2.0)
+    else:
+        fwd = (fa_jax._flash_fwd_resident if fam == "resident"
+               else fa_jax._flash_fwd_streamed)
+        o_j, lse_j = fwd(*args, causal=causal, **kw)
+    o_t, lse_t = _tiled_forward(*map(torch.from_numpy, (q, k, v)), causal,
+                                scale)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=OUT_TOL,
+                               atol=OUT_TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                               rtol=OUT_TOL, atol=OUT_TOL)
+
 
 def _tiled_backward(q, k, v, o, lse, do, causal, scale, parts):
     """The fp32 backward as the two kernels walk it, on CPU tensors: dq

@@ -398,6 +398,7 @@ _CSRC = pathlib.Path(fa_torch.__file__).resolve().parents[1] / "csrc"
     ("flash_bwd_sm90.cuh", "kBwdTile", fa_torch.BWD_INNER),
     ("flash_bwd_sm90.cuh", "kWideRows", fa_torch.WIDE_KV_TILE),
     ("flash_bwd_sm90.cuh", "kMaxParts", fa_torch.MAX_PARTS),
+    ("flash_bwd_sm90.cuh", "kDkv512QRows", fa_torch.BWD_INNER),
 ])
 def test_work_list_tiles_match_the_kernels(header, name, value):
     # The wrappers build each Hopper kernel's work list at its tiles: one

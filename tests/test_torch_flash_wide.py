@@ -15,6 +15,10 @@ next (264-512 to 512). Here:
 * the width rule, and the width-512 work lists (dq_schedule's 64-row q
   tiles, dkv_wide_schedule's items in dkv_parts' parts at width 512)
   walked with the kernels' loop bounds against JAX's enumeration;
+* the width-512 dk/dv's cluster walk (each chunk's partials of S^T and
+  dP^T summed chunk 0 + chunk 1, P^T and dS^T rounded to bf16, each
+  chunk's dk and dv, the GQA parts summed in order) against JAX's
+  backward kernels;
 * each wrapper, on bf16 or f16 CPU tensors that claim to be on the card,
   launching its width-512 instance on padded tensors with the list,
   workspace and tickets of that width;
@@ -44,6 +48,11 @@ from skypilot_tpu_torch.train import trainer as trainer_torch
 
 OUT_TOL = 2e-3
 GRAD_TOL = 5e-3
+# Gradients from P and dS rounded to bf16 (2^-9 relative) before their
+# products, as the bf16 kernels round them, against JAX's fp32 ones: the
+# bf16 kernels' bound against their plain versions (chip_smoke.py
+# GRAD_REL_TOL).
+BF16_GRAD_TOL = 2e-2
 BLOCK = 64
 
 
@@ -297,6 +306,105 @@ def test_dkv_parts_and_list_at_512(shape, causal):
     # model's makespan at 512 is at least the width-256 one's.
     assert (fa_torch.dkv_parts_cost(b, s, kvh, groups, causal, 132, 1, 512)[0]
             >= fa_torch.dkv_parts_cost(b, s, kvh, groups, causal, 132, 1)[0])
+
+
+def _cluster_walk_512(q, k, v, o, lse, do, causal, scale, base, parts,
+                      rounded=True):
+    """What the width-512 dk/dv's clusters compute, item by item, on CPU
+    tensors: for each (b * KVH + kvh, 64-row kv tile, part) item of
+    dkv_wide_schedule's list, over the heads of its part of the group and
+    the q rows of its BWD_INNER-row q tiles from its causal start,
+    chunk c's partials S^T_c = K_c Q_c^T and dP^T_c = V_c dO_c^T over its
+    CHUNK columns, summed chunk 0 + chunk 1; P^T = exp(S^T scale - lse) in
+    the family's base (``base``), masked where q < k when causal, and
+    dS^T = P^T (dP^T - delta), both rounded to bf16 as the kernel rounds
+    them before its products (kept fp32 when not ``rounded``); chunk c's
+    dv += P^T dO_c and dk += dS^T Q_c into the part's fp32 partials,
+    summed in part order, dk times scale. (The kernel adds the q tiles
+    one by one; here each item's tiles are one product.)"""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    groups = h // kvh
+    heads = groups // parts
+    exp, _, mul = fa_torch._BASES[base]
+    kv_tile, q_tile = fa_torch.WIDE_KV_TILE, fa_torch.BWD_INNER
+    chunks = [slice(c * fa_torch.CHUNK, (c + 1) * fa_torch.CHUNK)
+              for c in range(fa_torch.chunks(d))]
+    delta = (do * o).sum(-1)  # (b, s, h)
+    ws = torch.zeros((2, parts, b, s, kvh, d))
+
+    def bf16(x):
+        return x.to(torch.bfloat16).float() if rounded else x
+
+    for row, kt, part in fa_torch.dkv_wide_schedule(b * kvh, s,
+                                                    parts).tolist():
+        bb, j = divmod(row, kvh)
+        ki = torch.arange(kt * kv_tile, min(s, kt * kv_tile + kv_tile))
+        qi = torch.arange((kt * kv_tile // q_tile) * q_tile if causal else 0,
+                          s)
+        hs = slice(j * groups + part * heads, j * groups + (part + 1) * heads)
+        qq, dd = q[bb][qi][:, hs], do[bb][qi][:, hs]     # (q, heads, d)
+        st = dpt = 0
+        for cols in chunks:
+            st = st + torch.einsum("kd,qhd->hkq", k[bb, ki, j, cols],
+                                   qq[..., cols])
+            dpt = dpt + torch.einsum("kd,qhd->hkq", v[bb, ki, j, cols],
+                                     dd[..., cols])
+        pt = exp(st * scale * mul - lse[bb, hs][:, qi][:, None, :])
+        if causal:
+            pt = pt.masked_fill(ki[:, None] > qi[None], 0.0)
+        dst = bf16(pt * (dpt - delta[bb][qi][:, hs].T[:, None, :]))
+        pt = bf16(pt)
+        for cols in chunks:
+            ws[0, part, bb, ki, j, cols] += torch.einsum(
+                "hkq,qhd->kd", pt, dd[..., cols])
+            ws[1, part, bb, ki, j, cols] += torch.einsum(
+                "hkq,qhd->kd", dst, qq[..., cols])
+    dv, dk = ws[0, 0].clone(), ws[1, 0].clone()
+    for part in range(1, parts):
+        dv += ws[0, part]
+        dk += ws[1, part]
+    return dk * scale, dv
+
+
+@pytest.mark.parametrize("h,kvh,parts", [(4, 4, 1), (6, 2, 3), (4, 1, 2)])
+@pytest.mark.parametrize("fam,causal", [("triangular", True),
+                                        ("resident", True),
+                                        ("resident", False),
+                                        ("streamed", False)])
+def test_cluster_walk_matches_jax_at_512(fam, causal, h, kvh, parts):
+    # The width-512 dk/dv's cluster walk from the family's own forward
+    # (triangular base 2, resident and streamed natural) against JAX's
+    # backward of that family at head_dim 512: MHA, a group of 3 in 3
+    # parts, and MQA in 2; S 192, three kv tiles. In fp32 it holds the
+    # JAX tests' gradient bound; with P^T and dS^T rounded to bf16, as the
+    # kernel runs it, the bf16 kernels' bound.
+    s, d = 192, 512
+    q, k, v, do = _arrays(h + 10 * parts, s=s, h=h, kvh=kvh, d=d)
+    scale = d ** -0.5
+    fwd_j, bwd_j = _jax_family(fam, causal, scale)
+    qj, kj, vj, doj = map(jnp.asarray, (q, k, v, do))
+    o_j, lse_pad = fwd_j(qj, kj, vj, keep_lse_pad=True)
+    _, dk_j, dv_j = bwd_j((qj, kj, vj, o_j, lse_pad), doj)
+    fwd_t, _ = _torch_family(fam, causal, scale)
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    o_t, lse_t = fwd_t(qt, kt, vt)
+    base = "2" if fam == "triangular" else "e"
+    # The walk's products are small: one thread each, so they do not wait
+    # on a thread pool that other test processes share.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        walks = [(_cluster_walk_512(qt, kt, vt, o_t, lse_t, dot, causal,
+                                    scale, base, parts, rounded), tol)
+                 for rounded, tol in ((False, GRAD_TOL),
+                                      (True, BF16_GRAD_TOL))]
+    finally:
+        torch.set_num_threads(threads)
+    for rounded, ((dk, dv), tol) in zip((False, True), walks):
+        for name, a, b in (("dk", dk, dk_j), ("dv", dv, dv_j)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=tol,
+                                       atol=tol, err_msg=f"{name} {rounded}")
 
 
 # ----------------------------------------------------- the wrappers at 512

@@ -13,9 +13,11 @@ import ast
 import dataclasses
 import http.server
 import inspect
+import itertools
 import json
 import math
 import pathlib
+import socket
 import socketserver
 import threading
 import time
@@ -203,12 +205,13 @@ class _Server(socketserver.ThreadingMixIn, http.server.HTTPServer):
 class _SSEReplica(http.server.BaseHTTPRequestHandler):
     """A stub replica: min(max_tokens, token_cap) token events ``delay``
     s apart, then [DONE] (or, with ``abort_after``, the connection
-    dropped after that many); its first token observed into the port's
-    engine TTFT histogram, which the balancer's merged /metrics carries;
-    /metrics is the port's registry. ``hits`` records each /generate's
-    port."""
+    dropped after that many; with ``served`` too, a count of its streams,
+    only every second stream it serves is dropped); its first token
+    observed into the port's engine TTFT histogram, which the balancer's
+    merged /metrics carries; /metrics is the port's registry. ``hits``
+    records each /generate's port."""
     protocol_version = "HTTP/1.1"
-    delay, token_cap, abort_after, hits = 0.002, 6, None, None
+    delay, token_cap, abort_after, hits, served = 0.002, 6, None, None, None
 
     def log_message(self, *a):
         pass
@@ -226,6 +229,8 @@ class _SSEReplica(http.server.BaseHTTPRequestHandler):
             int(self.headers.get("Content-Length") or 0)))
         if self.hits is not None:
             self.hits.append(self.server.server_address[1])
+        drop = self.abort_after is not None and (
+            self.served is None or next(self.served) % 2 == 0)
         t0 = time.perf_counter()
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -235,7 +240,7 @@ class _SSEReplica(http.server.BaseHTTPRequestHandler):
             time.sleep(self.delay)
             if i == 0:
                 decode_engine._TTFT.observe(time.perf_counter() - t0)
-            if self.abort_after is not None and i >= self.abort_after:
+            if drop and i >= self.abort_after:
                 self.wfile.flush()          # no [DONE], no terminator
                 self.connection.close()
                 return
@@ -348,12 +353,18 @@ def _drained(policy, timeout=30.0):
 def test_inflight_slots_return_under_burst_failures(tmp_path):
     """Every exit path returns its in-flight slot (clean streams, retries
     off a dead replica, mid-stream aborts, a 413) under the generator's
-    open-loop burst, as the JAX package's balancer does."""
-    servers = _start_stubs({}, {"abort_after": 1})
+    open-loop burst, as the JAX package's balancer does. The policy's
+    ring hangs on the replicas' URLs, whose ports the OS picks, so which
+    live replica takes the burst varies: each serves clean streams and
+    drops every second one."""
+    servers = _start_stubs(*({"abort_after": 1, "served": itertools.count(1)}
+                             for _ in range(2)))
     urls = [f"http://127.0.0.1:{s.server_address[1]}" for s in servers]
-    dead = _Server(("127.0.0.1", 0), _SSEReplica)
-    urls.append(f"http://127.0.0.1:{dead.server_address[1]}")
-    dead.server_close()                       # connects are refused
+    # Bound and never listening: connects are refused, and no other
+    # server can take the port while the burst runs.
+    dead = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    dead.bind(("127.0.0.1", 0))
+    urls.append(f"http://127.0.0.1:{dead.getsockname()[1]}")
     policy = PrefixAffinityPolicy()
     policy.set_ready_replicas(urls)
     # No resume: the aborts must stay aborts here (the resume ladder's
@@ -380,6 +391,7 @@ def test_inflight_slots_return_under_burst_failures(tmp_path):
         for srv in [lb] + servers:
             srv.shutdown()
             srv.server_close()
+        dead.close()
     reqs = report["requests"]
     assert reqs["ok"] > 0 and reqs["error"] > 0
     assert set(reqs["errors_by_kind"]) & {"truncated_stream",

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""The width-256 dk/dv of every family at every part count P, timed in
-turns on one card.
+"""The width-256 dk/dv of every family at every part count P, and the
+width-512 dk/dv's designs, timed in turns on one card.
 
     python3 tools/flash_dkv_variants.py
     python3 tools/flash_dkv_variants.py --rounds 3 --reps 20
+    git archive HEAD | tar -x -C build/parent     # the parent, gitignored
+    python3 tools/flash_dkv_variants.py --width 512 --parent build/parent
 
 csrc/flash_bwd_sm90.cuh's dkv_cta_wide splits each KV head's group of G
 query heads in P parts across CTAs and sums the parts' fp32 partials in
@@ -26,13 +28,29 @@ traffic bytes) and the model's scale fitted to them (`fit`: median ms
 = a x makespan + c x bytes by least squares; WIDE_STEP_BYTES is a / c),
 with the shapes where the fitted model's pick is not the fastest P.
 `--fit LOG` prints that fit from a saved run's READINGS line, with no
-card. Imports nothing of JAX; needs a CUDA card, the CUDA toolkit and
-this file's checkout.
+card.
+
+`--width 512` times the width-512 dk/dv (dkv_cta_512) instead: each
+entry of DESIGNS_512 rewrites constants of csrc/flash_bwd_sm90.cuh in a
+copy of csrc/ under build/dkv_variants/NAME, and `--parent DIR` adds
+that checkout's sources as they are ("parent"); each is built with the
+port's nvcc flags (every design and family at once, its ptxas registers
+and spills printed) and run through the port's own wrappers, its
+library swapped in. At each family's width-512 main shape
+(chip_smoke.py's [kernels d512]) each is held against the plain backward
+(chip_smoke's bounds) and against itself run twice (bit-identical), then
+timed in turns with the checkout's body (base, designs, then reversed,
+each round), each timing beside nvidia-smi's SM clock; last a
+`READINGS` JSON line. Imports nothing of JAX; needs a CUDA card, the
+CUDA toolkit and this file's checkout.
 """
 import argparse
 import json
 import pathlib
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 
 import numpy as np
@@ -42,6 +60,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402  (the checkout's, for its timer and checks)
+from skypilot_tpu_torch.ops import _build  # noqa: E402
 from skypilot_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 # (family, (B, S, H, KVH, D, causal)): the resident main shape, the two
@@ -64,6 +83,93 @@ SHAPES = (
 )
 _SOURCES = {fa.RESIDENT: "flash_bwd", fa.TRIANGULAR: "flash_tri",
             fa.STREAMED: "flash_streamed"}
+# The width-512 dk/dv's designs beside the checkout's (a cluster of two
+# CTAs a kv tile, each its 256-column chunk; consumer 0 computes S^T,
+# consumer 1 S^T and dP^T over the chunk, each sends one partial to the
+# other CTA's shared memory; 64-row q tiles in two Q/dO stages, one
+# exchange stage): (name, the constants of csrc/flash_bwd_sm90.cuh it
+# sets). "q32": 32-row q tiles (m64n32 products) in three stages, two
+# exchange stages; "q32_ring2": in two stages, one exchange stage.
+DESIGNS_512 = (
+    ("q32", {"kDkv512QRows": "32", "kDkv512Ring": "3",
+             "kDkv512Exchange": "2"}),
+    ("q32_ring2", {"kDkv512QRows": "32"}),
+)
+# With --parent, the parent's body as it is ("parent": one CTA a chunk,
+# each recomputing S^T in both consumers and dP^T over all 512 columns,
+# one Q/dO stage) and, patched onto its header, "s_once": consumer 0
+# alone runs S^T and hands P^T (its packed bf16 A fragments, 4 KB) to
+# consumer 1 through shared memory on an mbarrier of its own; consumer 1
+# runs dP^T and dS^T = P^T (dP^T - delta) from them: 1.5x the minimal
+# products. The one Q/dO stage orders the buffer's reuse (consumer 0
+# writes tile n + 1's P^T only after both consumers released tile n).
+S_ONCE_PATCH = (
+    ("  static constexpr int kBar = kFlag + 16;\n"
+     "  static constexpr int kBytes = kBar + (2 * kRing + 1) * 8 + 1024;",
+     "  static constexpr int kPBuf = kFlag + 16;\n"
+     "  static constexpr int kBar = kPBuf + 128 * 32;\n"
+     "  static constexpr int kBytes = kBar + (2 * kRing + 2) * 8 + 1024;"),
+    ("    mbar_init(bars + 16 * L::kRing, 1);  // K and V",
+     "    mbar_init(bars + 16 * L::kRing, 1);  // K and V\n"
+     "    mbar_init(bars + 16 * L::kRing + 8, 1);  // P^T handed over"),
+    ("""      wgmma_fence();
+      mma_nt_n<D, T, kN>(s, d_k, kWideRows * 128, d_q + tile, kN * 128);
+      if constexpr (kDk)
+        mma_nt_n<D, T, kN>(dp, d_v, kWideRows * 128, d_do + tile, kN * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      if constexpr (kDk) fence_regs(dp);
+      if (i < i_end_mask)
+        pds_tile<T, Base, true, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
+                                         i * kN);
+      else
+        pds_tile<T, Base, false, kDk, kN>(s, dp, a, lse, dlt, sm, krow0,
+                                          i * kN);""",
+     """      uint32_t* pbuf = reinterpret_cast<uint32_t*>(base + L::kPBuf);
+      const uint32_t pbar = kvbar + 8;
+      wgmma_fence();
+      if constexpr (kDk)
+        mma_nt_n<D, T, kN>(dp, d_v, kWideRows * 128, d_do + tile, kN * 128);
+      else
+        mma_nt_n<D, T, kN>(s, d_k, kWideRows * 128, d_q + tile, kN * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+      if constexpr (kDk) {
+        fence_regs(dp);
+        mbar_wait(pbar, n & 1);
+        const int t4 = threadIdx.x % 4;
+#pragma unroll
+        for (int i2 = 0; i2 < kN / 8; ++i2) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dlt + i2 * 8 + 2 * t4);
+          const int r = i2 / 2, c = (i2 % 2) * 2;
+          const float2 p01 = T::unpack(pbuf[(r * 4 + c) * 128 + tid]);
+          const float2 p23 = T::unpack(pbuf[(r * 4 + c + 1) * 128 + tid]);
+          a[r][c] = T::pack(p01.x * (dp[4 * i2] - d2.x),
+                            p01.y * (dp[4 * i2 + 1] - d2.y));
+          a[r][c + 1] = T::pack(p23.x * (dp[4 * i2 + 2] - d2.x),
+                                p23.y * (dp[4 * i2 + 3] - d2.y));
+        }
+      } else {
+        fence_regs(s);
+        if (i < i_end_mask)
+          pds_tile<T, Base, true, false, kN>(s, dp, a, lse, dlt, sm, krow0,
+                                             i * kN);
+        else
+          pds_tile<T, Base, false, false, kN>(s, dp, a, lse, dlt, sm,
+                                              krow0, i * kN);
+#pragma unroll
+        for (int r = 0; r < kN / 16; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pbuf[(r * 4 + c) * 128 + tid] = a[r][c];
+        warpgroup_sync(1);
+        if (tid == 0) mbar_arrive(pbar);
+      }"""),
+)
+SHAPES_512 = ((fa.TRIANGULAR, chip_smoke.TRI_X512_MAIN_SHAPE),
+              (fa.RESIDENT, chip_smoke.X512_MAIN_SHAPE),
+              (fa.STREAMED, chip_smoke.STR_X512_MAIN_SHAPE))
 
 
 def main() -> int:
@@ -72,6 +178,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--fit", type=pathlib.Path,
                     help="a saved run's output: fit its READINGS, no card")
+    ap.add_argument("--width", type=int, choices=(256, 512), default=256)
+    ap.add_argument("--parent", type=pathlib.Path,
+                    help="--width 512: a checkout whose body is timed too")
     args = ap.parse_args()
     if args.fit:
         line = next(ln for ln in args.fit.read_text().splitlines()
@@ -82,6 +191,8 @@ def main() -> int:
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
     chip_smoke.phase_device()
+    if args.width == 512:
+        return designs_512(args)
     sms = fa._sm_count(torch.device("cuda"))
     summary, readings = [], []
     chip_smoke.CLOCKS.start()
@@ -193,6 +304,146 @@ def _one_shape(fam, shape, sms, args, readings):
                f"({med[pick]:.4f} ms), fastest P={best} ({med[best]:.4f} "
                f"ms), {sms} SMs")
     return out
+
+
+def _with_constants(text, consts):
+    for name, value in consts.items():
+        text, n = re.subn(rf"(constexpr \w+ {name} = )[^;]+;",
+                          rf"\g<1>{value};", text)
+        assert n == 1, name
+    return text
+
+
+def build_designs(parent):
+    """{name: {source: loaded library}} of every width-512 design (and of
+    the parent's sources), all nvcc runs at once; prints each dk/dv
+    instance's ptxas line."""
+    root = REPO / "build" / "dkv_variants"
+    dirs = {}
+    for name, consts in DESIGNS_512:
+        out = root / name
+        if out.exists():
+            shutil.rmtree(out)
+        shutil.copytree(_build.CSRC, out)
+        hdr = out / "flash_bwd_sm90.cuh"
+        hdr.write_text(_with_constants(hdr.read_text(), consts))
+        dirs[name] = out
+    if parent is not None:
+        src = parent.resolve() / "skypilot_tpu_torch" / "csrc"
+        dirs["parent"] = src
+        # s_once: the patch applies to a header that still holds the
+        # parent body (from its DkvSmem512 on); skipped where it does not.
+        hdr = (src / "flash_bwd_sm90.cuh").read_text()
+        at = hdr.find("struct DkvSmem512 {")
+        head, tail = hdr[:at], hdr[at:]
+        if at >= 0 and all(tail.count(old) == 1 for old, _ in S_ONCE_PATCH):
+            for old, new in S_ONCE_PATCH:
+                tail = tail.replace(old, new)
+            out = root / "s_once"
+            if out.exists():
+                shutil.rmtree(out)
+            shutil.copytree(src, out)
+            (out / "flash_bwd_sm90.cuh").write_text(head + tail)
+            dirs["s_once"] = out
+        else:
+            print("[design] s_once: the parent's header has no parent body "
+                  "to patch; not built", flush=True)
+    procs = []
+    for name, src in dirs.items():
+        out = root / name
+        out.mkdir(parents=True, exist_ok=True)
+        for source in _SOURCES.values():
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
+                   str(out / f"lib{source}.so"), str(src / f"{source}.cu")]
+            procs.append((name, source, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    libs = {}
+    for name, source, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {name} {source} failed:\n{log}")
+        lib = _build.load_library(out / f"lib{source}.so", source)
+        libs.setdefault(name, {})[source] = lib
+        print(f"[ptxas] {name} {source}: " + "; ".join(
+            line for line in chip_smoke._ptxas_summary(log)
+            if "dkv" in line and "<512" in line), flush=True)
+    return libs
+
+
+class Swap:
+    """The port's wrappers on other libraries within the block."""
+
+    def __init__(self, libs):
+        self.libs = libs
+
+    def __enter__(self):
+        self.saved = {s: _build._LIBS.get(s) for s in self.libs}
+        _build._LIBS.update(self.libs)
+
+    def __exit__(self, *exc):
+        _build._LIBS.update(self.saved)
+
+
+def designs_512(args):
+    _build.build_all()
+    libs = build_designs(args.parent)
+    readings = []
+    chip_smoke.CLOCKS.start()
+    try:
+        for fam, shape in SHAPES_512:
+            readings.append(_designs_at(fam, shape, libs, args))
+    finally:
+        chip_smoke.CLOCKS.stop()
+    print("READINGS " + json.dumps(readings), flush=True)
+    return 0
+
+
+def _designs_at(fam, shape, libs, args):
+    b, s, h, kvh, d, causal = shape
+    fns = chip_smoke.Family(fa, fam, causal, d ** -0.5)
+    q, k, v, do = chip_smoke._inputs(shape, 0)
+    o, lse, _, delta, _, _ = fns.run(q, k, v, do)
+    _, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+    source = _SOURCES[fam]
+    runs = {"base": Swap({})}
+    runs.update((name, Swap({source: lib[source]}))
+                for name, lib in libs.items())
+    for name, swap in runs.items():
+        with swap:
+            got = fns.dkv(q, k, v, do, lse, delta)
+            again = fns.dkv(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+        chip_smoke._hold(f"[design] {name} {fam} dk/dv vs plain", shape, (
+            ("dk", (got[0], dk_p), chip_smoke.GRAD_REL_TOL),
+            ("dv", (got[1], dv_p), chip_smoke.GRAD_REL_TOL)))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        print(f"[design] {name} {fam} {shape}: bit-identical twice {same}",
+              flush=True)
+        chip_smoke.check(same, f"{name} is not deterministic at {shape}")
+    del dk_p, dv_p, got, again
+
+    def run(swap):
+        with swap:
+            fns.dkv(q, k, v, do, lse, delta)
+
+    times = {name: [] for name in runs}
+    clocks = {name: [] for name in runs}
+    for r in range(args.rounds):
+        order = list(runs) + list(runs)[::-1]
+        for name in order:
+            times[name].append(chip_smoke.time_ms(
+                lambda: run(runs[name]), args.reps))
+            clk = chip_smoke.CLOCKS.last()
+            clocks[name].append(clk and clk["sm_mhz"])
+    med = {name: statistics.median(ts) for name, ts in times.items()}
+    for name, ts in times.items():
+        print(f"[design] {fam} {shape} {name}: median {med[name]:.4f} ms "
+              f"({med[name] / med['base']:.3f}x base; turns "
+              f"{[round(x, 4) for x in ts]}; SM MHz {clocks[name]})",
+              flush=True)
+    return {"family": fam, "shape": list(shape), "ms": med,
+            "turns": times, "sm_mhz": clocks}
 
 
 if __name__ == "__main__":

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""The fp32 backward's tilings and GQA parts, timed in turns on one card.
+"""The fp32 kernels' tilings and the dk/dv's GQA parts, timed in turns on
+one card.
 
     python3 tools/flash_f32_variants.py
     python3 tools/flash_f32_variants.py --rounds 3 --reps 5
 
-csrc/flash_f32.cu's flash_dq_f32 and flash_dkv_f32 take their tiles from
-DqTiles<D> and DkvTiles<D> (resident rows, rows of a streamed tile,
-columns of a slab, ring stages, a thread's blocks). Each entry of
-VARIANTS rewrites one of those structs in a copy of csrc/ under
+csrc/flash_f32.cu's flash_fwd_f32, flash_dq_f32 and flash_dkv_f32 take
+their tiles from FwdTiles<D>, DqTiles<D> and DkvTiles<D> (resident rows,
+rows of a streamed tile, columns of a slab, ring stages, a thread's
+blocks). Each entry of VARIANTS rewrites one of those structs in a copy
+of csrc/ under
 build/f32_variants/NAME, which is built with the port's nvcc flags (every
 variant at once) and run through the port's own wrappers, its library
 and tile table swapped in. At each shape of chip_smoke.F32_TIMED_SHAPES
-of the variant's width it is held against the plain backward (the JAX
-reference tests' fp32 bounds) and timed in turns with the checkout's
+of the variant's width it is held against the plain forward or backward
+(the JAX reference tests' fp32 bounds) and timed in turns with the
+checkout's
 tiles (base, variant, variant, base, each round), beside nvidia-smi's SM
 clock. Then, at each timed shape with a GQA group, the checkout's dk/dv
 at every P dividing the group, in turns, beside the P dkv_parts picks.
@@ -22,7 +25,6 @@ the CUDA toolkit and this file's checkout.
 """
 import argparse
 import contextlib
-import ctypes
 import functools
 import json
 import pathlib
@@ -41,9 +43,17 @@ import chip_smoke  # noqa: E402  (the checkout's, for its timer and inputs)
 from skypilot_tpu_torch.ops import _build  # noqa: E402
 from skypilot_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-# (name, struct, head_dim, fields): the fields of DqTiles<D> or
-# DkvTiles<D> that the variant sets.
+# (name, struct, head_dim, fields): the fields of FwdTiles<D>, DqTiles<D>
+# or DkvTiles<D> that the variant sets (each timed at the
+# F32_TIMED_SHAPES of its width). The forward's: 64 q rows a CTA (4x4 S
+# and 4x8 output blocks) at 128, and in 128-column slabs at 256; 64 rows
+# against 64-key tiles at 512.
 VARIANTS = (
+    ("fwd128_rows64", "FwdTiles", 128, {"kRows": 64, "kSM": 4, "kOM": 4}),
+    ("fwd256_rows64", "FwdTiles", 256, {"kRows": 64, "kSlab": 128,
+                                        "kSM": 4, "kOM": 4, "kON": 8}),
+    ("fwd512_rows64", "FwdTiles", 512, {"kRows": 64, "kInner": 64,
+                                        "kSM": 4, "kOM": 4}),
     ("dq128_4stages", "DqTiles", 128, {"kStages": 4}),
     ("dkv128_2stages", "DkvTiles", 128, {"kStages": 2}),
     ("dq256_slab64", "DqTiles", 256, {"kSlab": 64, "kStages": 4,
@@ -90,10 +100,7 @@ def build_variants():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        lib = ctypes.CDLL(str(out / "libflash_f32.so"))
-        for fn, argtypes in _build.SIGNATURES["flash_f32"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+        lib = _build.load_library(out / "libflash_f32.so", "flash_f32")
         libs[name] = (lib, chip_smoke._ptxas_summary(log))
     return libs
 
@@ -105,8 +112,9 @@ class Swap:
 
     def __init__(self, lib, struct, d, fields):
         self.lib, self.d = lib, d
-        self.table = (fa.F32_DQ_TILES if struct == "DqTiles"
-                      else fa.F32_DKV_TILES)
+        self.table = {"FwdTiles": fa.F32_FWD_TILES,
+                      "DqTiles": fa.F32_DQ_TILES,
+                      "DkvTiles": fa.F32_DKV_TILES}[struct]
         rows, inner = self.table[d]
         self.tiles = (fields.get("kRows", rows), fields.get("kInner", inner))
         self.parts = functools.lru_cache(maxsize=None)(
@@ -138,7 +146,9 @@ class Parts:
         fa.dkv_parts = self.saved
 
 
-def _backward(kind, q, k, v, o, lse, do, delta, causal, scale):
+def _kernel(kind, q, k, v, o, lse, do, delta, causal, scale):
+    if kind == "FwdTiles":
+        return fa.flash_fwd_f32(q, k, v, causal, scale)
     if kind == "DqTiles":
         return fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
     return fa.flash_dkv_f32(q, k, v, do, lse, delta, causal, scale)
@@ -174,8 +184,7 @@ def main() -> int:
     print(f"[card] {smi}", flush=True)
     for name, (_, ptxas) in libs.items():
         print(f"[ptxas] {name}: " + "; ".join(
-            line for line in ptxas if "_f32_kernel" in line
-            and not line.startswith("flash_fwd")), flush=True)
+            line for line in ptxas if "_f32_kernel" in line), flush=True)
     readings = []
     chip_smoke.CLOCKS.start()
     try:
@@ -186,27 +195,30 @@ def main() -> int:
             o, lse = fa.flash_fwd_f32(q, k, v, causal, scale)
             _, delta = fa.flash_dq_f32(q, k, v, o, lse, do, causal, scale)
             ref = fa.flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+            ref_o = fa.flash_fwd_plain(q, k, v, causal, scale)
             for name, struct, vd, fields in VARIANTS:
                 if vd != d:
                     continue
                 swap = Swap(libs[name][0], struct, d, fields)
                 with swap:
-                    got = _backward(struct, q, k, v, o, lse, do, delta,
-                                    causal, scale)
+                    got = _kernel(struct, q, k, v, o, lse, do, delta,
+                                  causal, scale)
                     torch.cuda.synchronize()
-                want = (ref[0],) if struct == "DqTiles" else ref[1:]
+                want, tol = {"FwdTiles": (ref_o, chip_smoke.F32_OUT_TOL),
+                             "DqTiles": (ref[:1], GRAD_TOL),
+                             "DkvTiles": (ref[1:], GRAD_TOL)}[struct]
                 got = got[:1] if struct == "DqTiles" else got
-                excess = max(((g - w).abs() - GRAD_TOL * w.abs()).max().item()
+                excess = max(((g - w).abs() - tol * w.abs()).max().item()
                              for g, w in zip(got, want))
-                if excess > GRAD_TOL:
+                if excess > tol:
                     print(f"[variant] {name} at {shape}: outside the fp32 "
                           f"bound ({excess:.3e})", flush=True)
                     continue
 
                 def run(ctx, struct=struct):
                     with ctx:
-                        _backward(struct, q, k, v, o, lse, do, delta,
-                                  causal, scale)
+                        _kernel(struct, q, k, v, o, lse, do, delta, causal,
+                                scale)
 
                 base = contextlib.nullcontext()
                 times = _in_turns({"base": lambda: run(base),
@@ -248,7 +260,7 @@ def main() -> int:
                     + f"; dkv_parts picks P={pick}, fastest "
                     f"{min(med, key=med.get)}", flush=True)
                 readings.append({"parts": shape, "ms": med, "pick": pick})
-            del q, k, v, do, o, lse, delta, ref
+            del q, k, v, do, o, lse, delta, ref, ref_o
     finally:
         chip_smoke.CLOCKS.stop()
     print("READINGS " + json.dumps(readings), flush=True)

@@ -7,9 +7,10 @@
 Each LABEL=DIR argument runs, in a process of its own from that checkout
 (its own sources, its own build), every Hopper kernel at chip_smoke.py's
 main shapes: the resident, triangular and streamed families at head_dim
-128, and at head_dim 256 the families the checkout has there; then the
-fp32 kernels (flash_fwd_f32, flash_dq_f32, flash_dkv_f32) at its
-F32_TIMED_SHAPES, keyed "flash_dq_f32@(B, S, H, KVH, D)".
+128, and at head_dims 256 and 512 the families the checkout has there
+(keyed "flash_dkv_tri@512"); then the fp32 kernels (flash_fwd_f32,
+flash_dq_f32, flash_dkv_f32) at its F32_TIMED_SHAPES, keyed
+"flash_dq_f32@(B, S, H, KVH, D)".
 Each kernel is timed over 20 launches (the fp32 kernels over 5) by CUDA
 events after a warm-up, beside the median SM clock nvidia-smi sampled
 during it, and the run prints one line, `TIMES {"flash_fwd": [ms, MHz],
@@ -50,6 +51,10 @@ if 256 in getattr(fa, "HEAD_DIMS", ()):
 if hasattr(cs, "TRI_WIDE_MAIN_SHAPE"):
     shapes += [(fa.TRIANGULAR, cs.TRI_WIDE_MAIN_SHAPE, "@256"),
                (fa.STREAMED, cs.STR_WIDE_MAIN_SHAPE, "@256")]
+if hasattr(cs, "X512_MAIN_SHAPE"):
+    shapes += [(fa.RESIDENT, cs.X512_MAIN_SHAPE, "@512"),
+               (fa.TRIANGULAR, cs.TRI_X512_MAIN_SHAPE, "@512"),
+               (fa.STREAMED, cs.STR_X512_MAIN_SHAPE, "@512")]
 out = {}
 cs.CLOCKS.start()
 try:
