@@ -52,8 +52,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    the plain versions, at each family's first shape the pair
    bit-identical twice, f16 and times, and the resident pair's time
    beside SDPA's whole backward); then at head_dim 512 ([kernels d512]:
-   the chunked bodies, one 256-column chunk of o, dq, dk or dv a CTA or
-   consumer; the resident trio at 8 x 1024, Gemma-7B's MHA at S = 200
+   the cluster bodies, two CTAs an item, each its 256-column chunk of
+   every operand, exchanging fp32 partials; the resident trio at 8 x 1024, Gemma-7B's MHA at S = 200
    and an odd GQA group (6) at a ragged non-causal S = 1000; the
    triangular at 1 x 8192, 4136 and 4160 (GQA 6); the streamed
    non-causal at 1 x 4096, 4136 (MHA) and 4160) against the plain
@@ -548,15 +548,21 @@ STR_X512_MAIN_SHAPE = (1, 4096, 8, 1, 512, False)
 STR_X512_CHECK_SHAPES = (STR_X512_MAIN_SHAPE,
                          (1, 4136, 16, 16, 512, False),
                          (1, 4160, 8, 1, 512, False))
-# The width-512 CTAs (csrc/flash_fwd_sm90.cuh fwd_cta_wide,
-# flash_bwd_sm90.cuh dq_cta_512 and dkv_cta_512).
-X512_DESIGN = ("fwd: 128 q rows x one 256-column chunk a CTA, 32-row K/V "
-               "tiles in 2 stages; dq: 64 q rows, a consumer a chunk, 32-row "
-               "K tiles in 2 stages and V in 1; dk/dv: a cluster of two CTAs "
-               "a 64-row kv tile, each its chunk of K, V, Q and dO (2 stages "
-               "of 64-row Q/dO tiles), S^T and dP^T partials exchanged "
-               "through distributed shared memory, dv and dk in separate "
-               "consumers")
+# The width-512 clusters (csrc/flash_fwd_sm90.cuh fwd_cta_512,
+# flash_bwd_sm90.cuh dq_cta_512 and dkv_cta_512): two CTAs an item, each
+# its 256-column chunk of every operand, partials exchanged through
+# distributed shared memory and summed in one order in both.
+X512_DESIGN = ("a cluster of two CTAs an item, each its 256-column chunk "
+               "of every operand, fp32 partials exchanged through "
+               "distributed shared memory; fwd: 128 q rows against 64-row "
+               "K/V tiles (2 stages each), S partials sent a tile ahead; "
+               "dq (triangular, streamed): 64 q rows against 64-row K tiles "
+               "(3 stages) and V (1), consumer 0 S and consumer 1 dP "
+               "partials sent a tile ahead, each consumer a 128-column half "
+               "of dq; the resident dq one CTA an item, a consumer a chunk, "
+               "S and dP recomputed, 32-row K/V tiles; dk/dv: a 64-row kv "
+               "tile against 2 stages of 64-row Q/dO tiles, S^T and dP^T "
+               "partials, dv and dk in separate consumers")
 # The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
 # the SASS.
 SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
@@ -1226,7 +1232,9 @@ def _print_launches(fa, fam, fns, shape, tag="[kernels d256]"):
                          fa._sm_count(torch.device("cuda")), width)
     n = fa.chunks(width)
     dq_tile = fa.CHUNKED_DQ_TILE if width > 256 else fa.BWD_TILE
-    items = (b * h * -(-s // fa.FWD_TILE) * n, b * h * -(-s // dq_tile),
+    # The resident dq at 512 runs a CTA an item (X512_DESIGN).
+    n_dq = 1 if fam == fa.RESIDENT else n
+    items = (b * h * -(-s // fa.FWD_TILE) * n, b * h * -(-s // dq_tile) * n_dq,
              b * kvh * -(-s // fa.WIDE_KV_TILE) * parts * n)
     source = {fa.RESIDENT: ("flash_fwd", "flash_bwd", "flash_bwd"),
               fa.TRIANGULAR: ("flash_tri",) * 3,
@@ -1250,7 +1258,7 @@ def _print_launches(fa, fam, fns, shape, tag="[kernels d256]"):
 
 
 def phase_kernels_512(fa, records):
-    """[kernels d512]: each family's trio at width 512 (fwd_cta_wide,
+    """[kernels d512]: each family's trio at width 512 (fwd_cta_512,
     dq_cta_512, dkv_cta_512: X512_DESIGN; natural exp for the resident
     and streamed families, base 2 for the triangular one) against its
     plain versions in bf16 at its shapes, one launch of each kernel per

@@ -34,10 +34,11 @@
 // dkv_cta_wide, as the triangular and streamed dk/dv do (one 64-row kv
 // tile per CTA, dv and dk in separate consumers, the GQA group in P
 // parts over dkv_wide_schedule's (b*KVH, kv tile, part) items, partials
-// summed in part order by the last to finish). At 512 dq runs dq_cta_512
-// (64 q rows, one 256-column chunk of dq a consumer, 32-row K tiles in two
-// stages and V in one; S and dP recomputed over all 512 columns per
-// chunk) over 64-row q tiles, and dk/dv dkv_cta_512 (a cluster of two
+// summed in part order by the last to finish). At 512 dq runs
+// dq_cta_chunked_512 (64 q rows a CTA, one 256-column chunk of dq a
+// consumer, S and dP recomputed over all 512 columns per chunk): at this
+// family's 8 x 1024 the cluster body of the other two families measured
+// slower (flash_bwd_sm90.cuh). dk/dv runs dkv_cta_512 (a cluster of two
 // CTAs per dkv_wide_schedule item, one a chunk, that split S^T's and
 // dP^T's reduction over the columns between them and exchange the fp32
 // partials through distributed shared memory).
@@ -55,7 +56,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (D > 256)
-    sm90::dq_cta_512<D, T, BaseE>(tq, tdo, tk, tv, p, work, smem);
+    sm90::dq_cta_chunked_512<D, T, BaseE>(tq, tdo, tk, tv, p, work, smem);
   else
     sm90::dq_cta<D, T, BaseE, 0, sm90::DqResident<D>>(tq, tdo, tk, tv, p,
                                                       work, smem);

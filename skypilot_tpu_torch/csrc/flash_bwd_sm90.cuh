@@ -134,19 +134,36 @@
 //     writes them: one launch, no float atomics, and the same sum in the
 //     same order whichever item arrives last, so deterministic.
 // - Head_dim 512 (every family, in every base): a consumer cannot hold a
-//   64-row block of dq, dk or dv (256 fp32 a thread), so each holds one
-//   kChunk (256)-column chunk; the forward's and dq's tiles streamed
-//   against the resident operand are kTile512 (32) rows, S and dP
-//   m64n32 with both operands in shared memory; dk/dv's q tiles are
-//   kDkv512QRows (64) rows, S^T and dP^T m64n64.
-//   - dq_cta_512: 64 q rows a CTA (Q and dO, 128 KB), both consumers on
-//     them, consumer c computing dq's chunk c (dS K with K read MN-major
-//     from its chunk's boxes): S and dP computed twice, over all 512
-//     columns, 1.67 times dq's minimal FLOPs. K tiles in two stages and
-//     V in one on barriers of their own (DqSplitKV's ring; 230,968 B).
-//     Each consumer computes delta of the rows; consumer 0 writes it. dq
-//     goes out from registers (store_acc): the other consumer may still
-//     read Q.
+//   64-row block of dq, dk or dv (256 fp32 a thread), so both bodies run
+//   clusters of two CTAs, CTA c holding chunk c (kChunk = 256 columns) of
+//   every operand, each reduction over the 512 columns split between the
+//   two: each CTA computes its partials over its chunk (m64n64, 256 deep),
+//   sends them as fp32 wgmma fragments into the other's shared memory
+//   (st.async, completing on an mbarrier there, which its reader arms for
+//   the bytes) and adds the other's: one IEEE sum of two terms, the same
+//   in both CTAs, so everything formed from it agrees bit for bit and the
+//   backward stays deterministic.
+//   - dq_cta_512: an item of kDq512Rows (64) q rows, CTA c holding Q_c and
+//     dO_c (32 KB each), 64-row K_c tiles in three stages and V_c in one,
+//     on barriers of their own. Consumer 0 computes S_c = Q_c K_c^T,
+//     consumer 1 dP_c = dO_c V_c^T; each sends its partial to its
+//     counterpart and adds the one received, in place in the exchange
+//     buffer, so after one barrier of the two consumers each reads the
+//     other's sum: both hold S and dP, form dS (the same in both) and run
+//     their 128-column half of dq_c += dS K_c (m64n128k16, K_c MN-major).
+//     Three products' worth of work a tile pair, the minimal, against the
+//     parent body's 1.67 times (one consumer a chunk, each recomputing S
+//     and dP over all 512 columns as m64n32). The exchange runs a tile
+//     ahead (tile j + 1's partial computed before tile j's is awaited),
+//     so each crosses under this CTA's products, and the remote arrival
+//     that frees a buffer is a release at CTA scope
+//     (mbar_arrive_remote_if). delta spans the 512 columns: each CTA forms
+//     its chunk's partial (O from global memory, dO_c from shared memory)
+//     and sends it to the other, delta = part 0 + part 1 in both; rank 0's
+//     consumer 0 writes it (dk/dv reads it). The triangular and streamed
+//     families run it; the resident one keeps dq_cta_chunked_512, a CTA an
+//     item (below).
+//     231,012 B.
 //   - dkv_cta_512: a cluster of two CTAs a 64-row kv tile (block i is
 //     rank i % 2, chunk i % 2 of dkv_wide_schedule's item i / 2), CTA c
 //     holding chunk c of K, V (32 KB each), Q and dO (two stages of a
@@ -1220,24 +1237,364 @@ __device__ __forceinline__ int swz_rows(int R, int ch) {
   return (ch / 8) * kRows * kBoxCols + R * kBoxCols + ((ch % 8) ^ (R % 8)) * 8;
 }
 
-// The dq CTA at head_dim 512: kDq512Rows q rows of Q and dO (64 KB each),
-// held by both consumers, consumer c computing dq's chunk c; K tiles of
-// kTile512 rows in kDq512KSlots stages and V tiles in one, each on
-// barriers of their own (DqSplitKV's ring at half the rows and twice the
-// width); delta of the rows once per consumer; mbarriers full[3],
-// empty[3] (K's stages, then V's), q. 230,968 B.
+// The dq cluster at head_dim 512: two CTAs an item of kDq512Rows q rows,
+// CTA c (its rank) holding chunk c of Q and dO (kDq512Rows x kChunk, 32 KB
+// each); kDq512KSlots stages of chunk c of a kKv512-row K tile and
+// kDq512VSlots of V (32 KB each), on barriers of their own (K_j is read
+// from tile j - 1's partial of S to tile j's dS K: three stages keep K_{j
+// + 2}'s load in flight meanwhile); the exchange (the other CTA's
+// partials of S, then dP: m64 x kKv512 fp32 fragments each); the two
+// chunks' partials of delta; mbarriers k_full[KS], k_empty[KS],
+// v_full[VS], v_empty[VS], q, delta, x_full[2] (S's, dP's), x_free.
+// 231,016 B.
 constexpr int kDq512Rows = 64;
-constexpr int kDq512KSlots = 2;
+constexpr int kDq512KSlots = 3;
+constexpr int kDq512VSlots = 1;
 template <int D>
 struct DqSmem512 {
-  static constexpr int kRowsTile = kDq512Rows * D * 2;
-  static constexpr int kTile = kTile512 * D * 2;
+  static constexpr int kKS = kDq512KSlots, kVS = kDq512VSlots;
+  static constexpr int kRowsTile = kDq512Rows * kChunk * 2;
+  static constexpr int kTile = kKv512 * kChunk * 2;
+  static constexpr int kPart = 64 * kKv512 * 4;
   static constexpr int kQ = 0;
   static constexpr int kDO = kRowsTile;
   static constexpr int kK = 2 * kRowsTile;
-  static constexpr int kV = kK + kDq512KSlots * kTile;
+  static constexpr int kV = kK + kKS * kTile;
+  static constexpr int kXch = kV + kVS * kTile;
+  static constexpr int kDelta = kXch + 2 * kPart;
+  static constexpr int kBar = kDelta + 2 * kDq512Rows * 4;
+  static constexpr int kKFull = 0, kKEmpty = 8 * kKS, kVFull = 16 * kKS;
+  static constexpr int kVEmpty = kVFull + 8 * kVS, kQBar = kVEmpty + 8 * kVS;
+  static constexpr int kDlt = kQBar + 8, kXFull = kDlt + 8;
+  static constexpr int kXFree = kXFull + 16;
+  static constexpr int kBytes = kBar + kXFree + 8 + 1024;
+  static_assert(D == 2 * kChunk, "a chunk a CTA of the cluster");
+  static_assert(kDq512Rows == kKv512, "a q tile's loop ends at its index");
+  static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
+};
+
+// Both consumer warpgroups (named barrier 3; 1 and 2 are each one's own).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, 256;\n" : : : "memory");
+}
+
+// The producer's one thread of the dq CTA of rank `chunk`: its chunk of Q
+// and dO, then of K_j into its stage (once K_{j - KS} is released by both
+// consumers) and of V_j into its (once V_{j - VS} is, by consumer 1).
+template <int D>
+__device__ __forceinline__ void dq_producer_512(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, const BwdParams& p, unsigned char* base, int b,
+    int h, int qt, int n_kt, int chunk) {
+  using L = DqSmem512<D>;
+  constexpr int kBoxes = kChunk / kBoxCols;
+  const int kvh = h / (p.H / p.KVH), col0 = chunk * kChunk;
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t qbar = bars + L::kQBar;
+  mbar_expect_tx(qbar, 2 * L::kRowsTile);
+#pragma unroll
+  for (int c = 0; c < kBoxes; ++c) {
+    const int off = c * kDq512Rows * 128;
+    tma_load_4d(base + L::kQ + off, &tq, qbar, col0 + c * kBoxCols,
+                qt * kDq512Rows, h, b);
+    tma_load_4d(base + L::kDO + off, &tdo, qbar, col0 + c * kBoxCols,
+                qt * kDq512Rows, h, b);
+  }
+  for (int j = 0; j < n_kt; ++j) {
+    const int ks = j % L::kKS, vs = j % L::kVS;
+    if (j >= L::kKS)
+      mbar_wait(bars + L::kKEmpty + 8 * ks, (j / L::kKS - 1) & 1);
+    mbar_expect_tx(bars + L::kKFull + 8 * ks, L::kTile);
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c)
+      tma_load_4d(base + L::kK + ks * L::kTile + c * kKv512 * 128, &tk,
+                  bars + L::kKFull + 8 * ks, col0 + c * kBoxCols,
+                  j * kKv512, kvh, b);
+    if (j >= L::kVS)
+      mbar_wait(bars + L::kVEmpty + 8 * vs, (j / L::kVS - 1) & 1);
+    mbar_expect_tx(bars + L::kVFull + 8 * vs, L::kTile);
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c)
+      tma_load_4d(base + L::kV + vs * L::kTile + c * kKv512 * 128, &tv,
+                  bars + L::kVFull + 8 * vs, col0 + c * kBoxCols,
+                  j * kKv512, kvh, b);
+  }
+}
+
+// One consumer warpgroup of the width-512 dq's CTA of rank `chunk` (kDp
+// false: consumer 0, S; true: consumer 1, dP), on the item's 64 q rows.
+// delta = rowsum(dO * O), once the first partial is sent: each consumer
+// takes 32 rows of its CTA's chunk (four threads a row, O from global
+// memory, dO from its tile), keeps the partial and sends it to the other
+// CTA (st.async onto its delta barrier); delta = part 0 + part 1 in both.
+// Per K/V tile j:
+// consumer 0's partial S_c = Q_c K_c^T, consumer 1's dP_c = dO_c V_c^T
+// (m64n64, 256 deep), each sent to its counterpart in the other CTA, which
+// sends its own here (x_full); each adds the one received to its own and
+// writes the sum back in place, and after both consumers have
+// (consumers_sync) reads the other's: both hold S_j and dP_j, bit-equal in
+// both CTAs, and arrive on the other CTA's x_free (its writers send the
+// next partials only after that). Each forms dS = P (dP - delta) and runs
+// its 128-column half of dq_c += dS K_c (m64n128k16, K_c read MN-major from
+// the half's two boxes). The exchange runs a tile ahead: the partial of
+// tile j + 1 is computed before tile j's is awaited and sent after it, so
+// each crosses to the other CTA under this one's products, and no wait
+// falls between a product's issue and its wait. Causal, the loop ends on
+// the diagonal tile, which both mask. dq (64), the two kinds of tile j
+// and this consumer's of tile j + 1 (32 each) and dS (16) a thread (Q_c or
+// dO_c held in registers too, 64 more, spills and ran 1.1-1.3 times
+// slower: PERF.md).
+template <int D, class T, class Base, bool kDp>
+__device__ __forceinline__ void dq_consumer_512(const BwdParams& p,
+                                                unsigned char* base, int b,
+                                                int h, int qt, int n_kt,
+                                                uint32_t chunk) {
+  using L = DqSmem512<D>;
+  constexpr int kF = kKv512 / 2, kPartF = L::kPart / 4, kHalf = kChunk / 2;
+  constexpr int kW = kDp ? 1 : 0;
+  const int tid = threadIdx.x % 128;
+  const int R0 = (tid / 32) * 16 + (tid % 32) / 4;  // and R0 + 8
+  const int q_start = qt * kDq512Rows, row0 = q_start + R0;
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t other = chunk ^ 1;
+  const float sm = p.scale * Base::kScoreMul;
+  const TileMask mask = {p.S, p.causal};
+  const long long stat = ((long long)b * p.H + h) * p.S;
+  const int j_mask = p.causal ? qt : masked_tile(0, p.S, kKv512, n_kt);
+  float lse_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    lse_r[hf] = row0 + 8 * hf < p.S
+                    ? p.lse[stat + row0 + 8 * hf] * Base::kLseMul
+                    : 0.f;
+
+  // This consumer's A (Q_c or dO_c) and B (K_c or V_c) K-major, and its
+  // half of K_c MN-major for dS K.
+  const uint64_t d_a = smem_desc(base + (kDp ? L::kDO : L::kQ), 16, 1024);
+  const uint64_t d_b = smem_desc(base + (kDp ? L::kV : L::kK), 16, 1024);
+  const uint64_t d_kmn =
+      smem_desc(base + L::kK + kW * (kHalf / kBoxCols) * kKv512 * 128,
+                kKv512 * 128, 1024);
+  // delta's partial over this CTA's chunk (rows 32 kW .. + 31, 0 past
+  // S) goes to the other CTA after the first partial of S or dP: its
+  // loads of O run while that partial crosses.
+  float* sDelta = reinterpret_cast<float*>(base + L::kDelta);
+  const uint32_t dlt_bar = bars + L::kDlt;
+  mbar_expect_tx_if(dlt_bar, kDq512Rows * 4, !kDp && tid == 0);
+  mbar_wait(bars + L::kQBar, 0);
+  // The exchange: this consumer's kind (S or dP) as the other CTA sent
+  // it, and the other consumer's.
+  float* x_mine = reinterpret_cast<float*>(base + L::kXch) + kW * kPartF;
+  const float* x_theirs =
+      reinterpret_cast<const float*>(base + L::kXch) + (1 - kW) * kPartF;
+  const uint32_t x_full = bars + L::kXFull + 8 * kW;
+  const uint32_t x_free = bars + L::kXFree;
+  const uint32_t x_dst = map_rank(smem_addr(x_mine), other);
+  const uint32_t x_bar = map_rank(x_full, other);
+  // This CTA's partial of this consumer's kind of tile j into x (K_j or
+  // V_j waited for; V_j released after it).
+  auto partial = [&](float (&x)[kF], int j) {
+    const int slot = kDp ? j % L::kVS : j % L::kKS;
+    const int ring = kDp ? L::kVS : L::kKS;
+    mbar_wait(bars + (kDp ? L::kVFull : L::kKFull) + 8 * slot,
+              (j / ring) & 1);
+    const uint32_t tile = (slot * L::kTile) >> 4;
+#pragma unroll
+    for (int i = 0; i < kF; ++i) x[i] = 0.f;
+    wgmma_fence();
+    mma_nt<kChunk, T>(x, d_a, kDq512Rows * 128, d_b + tile, kKv512 * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+    if constexpr (kDp) mbar_arrive_if(bars + L::kVEmpty + 8 * slot, tid == 0);
+  };
+
+  float acc[kHalf / 2];
+#pragma unroll
+  for (int i = 0; i < kHalf / 2; ++i) acc[i] = 0.f;
+  float x[kF], xn[kF], y[kF];
+  mbar_expect_tx_if(x_full, L::kPart, tid == 0);
+  partial(x, 0);
+  send_part(x, x_dst, x_bar);
+  {
+    const e16* sdO = reinterpret_cast<const e16*>(base + L::kDO);
+    const int R = kW * 32 + tid / 4, quarter = tid % 4, row = q_start + R;
+    float sum = 0.f;
+    if (row < p.S) {
+      const e16* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss +
+                        chunk * kChunk;
+#pragma unroll
+      for (int c = 0; c < kChunk / 32; ++c) {
+        const int ch = quarter * (kChunk / 32) + c;
+        sum += dot8<T>(*reinterpret_cast<const uint4*>(orow + ch * 8),
+                       *reinterpret_cast<const uint4*>(
+                           sdO + swz_rows<kDq512Rows>(R, ch)));
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (quarter == 0) {
+      float* at = sDelta + chunk * kDq512Rows + R;
+      *at = sum;
+      st_async(map_rank(smem_addr(at), other), sum,
+               map_rank(dlt_bar, other));
+    }
+  }
+  consumers_sync();
+  mbar_wait_cluster(dlt_bar, 0);
+  float dlt_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    dlt_r[hf] = sDelta[R0 + 8 * hf] + sDelta[kDq512Rows + R0 + 8 * hf];
+  if (chunk == 0 && !kDp && tid % 4 == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (row0 + 8 * hf < p.S) p.delta[stat + row0 + 8 * hf] = dlt_r[hf];
+  }
+
+  for (int j = 0; j < n_kt; ++j) {
+    const bool more = j + 1 < n_kt;
+    if (more) partial(xn, j + 1);
+    // x = this CTA's partial + the other's, written back for the other
+    // consumer; y = the other consumer's sum.
+    mbar_wait_cluster(x_full, j & 1);
+#pragma unroll
+    for (int e4 = 0; e4 < kF / 4; ++e4) {
+      float4* at = reinterpret_cast<float4*>(x_mine + 4 * (e4 * 128 + tid));
+      const float4 r = *at;
+      x[4 * e4] += r.x;
+      x[4 * e4 + 1] += r.y;
+      x[4 * e4 + 2] += r.z;
+      x[4 * e4 + 3] += r.w;
+      *at = make_float4(x[4 * e4], x[4 * e4 + 1], x[4 * e4 + 2],
+                        x[4 * e4 + 3]);
+    }
+    mbar_expect_tx_if(x_full, L::kPart, more && tid == 0);
+    consumers_sync();
+#pragma unroll
+    for (int e4 = 0; e4 < kF / 4; ++e4) {
+      const float4 r =
+          *reinterpret_cast<const float4*>(x_theirs + 4 * (e4 * 128 + tid));
+      y[4 * e4] = r.x;
+      y[4 * e4 + 1] = r.y;
+      y[4 * e4 + 2] = r.z;
+      y[4 * e4 + 3] = r.w;
+    }
+    // Both of this CTA's buffers read here: free for the other CTA.
+    warpgroup_sync(1 + kW);
+    mbar_arrive_remote_if(map_rank(x_free, other), tid == 0);
+    if (more) {
+      mbar_wait(x_free, j & 1);
+      send_part(xn, x_dst, x_bar);
+    }
+    const int ks = j % L::kKS;
+    if constexpr (kDp) mbar_wait(bars + L::kKFull + 8 * ks, (j / L::kKS) & 1);
+    uint32_t da[kKv512 / 16][4];
+    const float(&s)[kF] = kDp ? y : x;
+    const float(&dp)[kF] = kDp ? x : y;
+    if (j == j_mask)
+      ds_tile<T, Base, true, kKv512>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                     j * kKv512, mask);
+    else
+      ds_tile<T, Base, false, kKv512>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                      j * kKv512, mask);
+    wgmma_fence();
+    mma_rs<kHalf, T, kKv512>(acc, da, d_kmn + ((ks * L::kTile) >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive_if(bars + L::kKEmpty + 8 * ks, tid == 0);  // K_j read
+#pragma unroll
+    for (int i = 0; i < kF; ++i) x[i] = xn[i];
+  }
+  store_acc<kHalf, T, false>(
+      acc, p.scale,
+      p.dq + ((long long)b * p.S * p.H + h) * D + chunk * kChunk + kW * kHalf,
+      (long long)p.H * D, q_start, p.S);
+}
+
+// One CTA of the width-512 dq, launched in clusters of C = out_chunks
+// CTAs: block i is rank i % C, chunk i % C of work item i / C, (b * H +
+// h, kDq512Rows-row q tile).
+template <int D, class T, class Base>
+__device__ __forceinline__ void dq_cta_512(const CUtensorMap& tq,
+                                           const CUtensorMap& tdo,
+                                           const CUtensorMap& tk,
+                                           const CUtensorMap& tv,
+                                           const BwdParams& p,
+                                           const int* __restrict__ work,
+                                           unsigned char* smem) {
+  using L = DqSmem512<D>;
+  constexpr int kC = out_chunks<D>();
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const uint32_t chunk = cluster_rank();
+  const int item = blockIdx.x / kC;
+  const int bh = work[2 * item], qt = work[2 * item + 1];
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_all = ceil_div(p.S, kKv512);
+  const int n_kt = p.causal ? min(n_all, qt + 1) : n_all;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kKS; ++i) {
+      mbar_init(bars + L::kKFull + 8 * i, 1);
+      mbar_init(bars + L::kKEmpty + 8 * i, kConsumers);
+    }
+    for (int i = 0; i < L::kVS; ++i) {
+      mbar_init(bars + L::kVFull + 8 * i, 1);
+      mbar_init(bars + L::kVEmpty + 8 * i, 1);  // consumer 1's dP
+    }
+    mbar_init(bars + L::kQBar, 1);
+    // delta: consumer 0's expect_tx (the other CTA's bytes); x_full: each
+    // consumer's; x_free: both consumers of the other CTA.
+    mbar_init(bars + L::kDlt, 1);
+    mbar_init(bars + L::kXFull, 1);
+    mbar_init(bars + L::kXFull + 8, 1);
+    mbar_init(bars + L::kXFree, kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  // Every barrier of both CTAs is initialised before any remote arrival.
+  cluster_sync();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      dq_producer_512<D>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt, chunk);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    if (threadIdx.x < 256)
+      dq_consumer_512<D, T, Base, false>(p, base, b, h, qt, n_kt, chunk);
+    else
+      dq_consumer_512<D, T, Base, true>(p, base, b, h, qt, n_kt, chunk);
+  }
+  // Neither CTA leaves while the other may still write its shared memory
+  // or arrive on its barriers.
+  cluster_sync();
+}
+
+// The resident family's dq at head_dim 512 (flash_bwd.cu), the body of
+// the width-512 dq before the cluster (dq_cta_512): at the resident main
+// shape, Gemma-7B-like items of 64 q rows in 8 x 1024, two CTAs an item
+// each paying the prologue (Q, dO, the first K/V tiles, delta and its
+// exchange) measured 1.11 times slower than this one CTA an item, which
+// keeps it (tools/flash_dq_variants.py --width 512; PERF.md). kDq512Rows q
+// rows of Q and dO (64 KB each), held by both consumers, consumer c
+// computing dq's chunk c, S and dP recomputed by each over all 512
+// columns (1.67 times dq's minimal FLOPs); K tiles of kDqChunkedKv rows in
+// kDqChunkedKSlots stages and V tiles in one, each on barriers of their
+// own (DqSplitKV's ring at half the rows and twice the width); delta of
+// the rows once per consumer; mbarriers full[3], empty[3] (K's stages,
+// then V's), q. 230,968 B.
+constexpr int kDqChunkedKv = 32;
+constexpr int kDqChunkedKSlots = 2;
+template <int D>
+struct DqSmemChunked512 {
+  static constexpr int kRowsTile = kDq512Rows * D * 2;
+  static constexpr int kTile = kDqChunkedKv * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kRowsTile;
+  static constexpr int kK = 2 * kRowsTile;
+  static constexpr int kV = kK + kDqChunkedKSlots * kTile;
   static constexpr int kDelta = kV + kTile;
-  static constexpr int kBars = kDq512KSlots + 1;
+  static constexpr int kBars = kDqChunkedKSlots + 1;
   static constexpr int kBar = kDelta + kConsumers * kDq512Rows * 4;
   static constexpr int kBytes = kBar + (2 * kBars + 1) * 8 + 1024;
   static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
@@ -1247,16 +1604,16 @@ struct DqSmem512 {
 // - 2} is released) and V_j into the one V stage (once V_{j - 1} is: after
 // both consumers' dP).
 template <int D>
-__device__ __forceinline__ void dq_producer_512(
+__device__ __forceinline__ void dq_producer_chunked_512(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
     const CUtensorMap& tv, const BwdParams& p, unsigned char* base, int b,
     int h, int qt, int n_kt) {
-  using L = DqSmem512<D>;
+  using L = DqSmemChunked512<D>;
   const int kvh = h / (p.H / p.KVH);
   const uint32_t full0 = smem_addr(base + L::kBar);
   const uint32_t empty0 = full0 + 8 * L::kBars;
   const uint32_t qbar = full0 + 16 * L::kBars;
-  const uint32_t vbar = 8 * kDq512KSlots;
+  const uint32_t vbar = 8 * kDqChunkedKSlots;
   mbar_expect_tx(qbar, 2 * L::kRowsTile);
 #pragma unroll
   for (int c = 0; c < D / kBoxCols; ++c) {
@@ -1267,20 +1624,20 @@ __device__ __forceinline__ void dq_producer_512(
                 qt * kDq512Rows, h, b);
   }
   for (int j = 0; j < n_kt; ++j) {
-    const int st = j % kDq512KSlots;
-    if (j >= kDq512KSlots)
-      mbar_wait(empty0 + 8 * st, (j / kDq512KSlots - 1) & 1);
+    const int st = j % kDqChunkedKSlots;
+    if (j >= kDqChunkedKSlots)
+      mbar_wait(empty0 + 8 * st, (j / kDqChunkedKSlots - 1) & 1);
     mbar_expect_tx(full0 + 8 * st, L::kTile);
 #pragma unroll
     for (int c = 0; c < D / kBoxCols; ++c)
-      tma_load_4d(base + L::kK + st * L::kTile + c * kTile512 * 128, &tk,
-                  full0 + 8 * st, c * kBoxCols, j * kTile512, kvh, b);
+      tma_load_4d(base + L::kK + st * L::kTile + c * kDqChunkedKv * 128, &tk,
+                  full0 + 8 * st, c * kBoxCols, j * kDqChunkedKv, kvh, b);
     if (j >= 1) mbar_wait(empty0 + vbar, (j - 1) & 1);
     mbar_expect_tx(full0 + vbar, L::kTile);
 #pragma unroll
     for (int c = 0; c < D / kBoxCols; ++c)
-      tma_load_4d(base + L::kV + c * kTile512 * 128, &tv, full0 + vbar,
-                  c * kBoxCols, j * kTile512, kvh, b);
+      tma_load_4d(base + L::kV + c * kDqChunkedKv * 128, &tv, full0 + vbar,
+                  c * kBoxCols, j * kDqChunkedKv, kvh, b);
   }
 }
 
@@ -1295,11 +1652,11 @@ __device__ __forceinline__ void dq_producer_512(
 // masks the two diagonal ones. dq (128), S and dP (16 each) and dS (8) a
 // thread.
 template <int D, class T, class Base>
-__device__ __forceinline__ void dq_consumer_512(const BwdParams& p,
+__device__ __forceinline__ void dq_consumer_chunked_512(const BwdParams& p,
                                                 unsigned char* base, int b,
                                                 int h, int qt, int n_kt) {
-  using L = DqSmem512<D>;
-  constexpr int kKv = kTile512;
+  using L = DqSmemChunked512<D>;
+  constexpr int kKv = kDqChunkedKv;
   const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128 - 1, 0);
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int q_start = qt * kDq512Rows;
@@ -1308,7 +1665,7 @@ __device__ __forceinline__ void dq_consumer_512(const BwdParams& p,
   const uint32_t full0 = smem_addr(base + L::kBar);
   const uint32_t empty0 = full0 + 8 * L::kBars;
   const uint32_t qbar = full0 + 16 * L::kBars;
-  const uint32_t vbar = 8 * kDq512KSlots;
+  const uint32_t vbar = 8 * kDqChunkedKSlots;
   const float sm = p.scale * Base::kScoreMul;
   const TileMask mask = {p.S, p.causal};
   const long long stat = ((long long)b * p.H + h) * p.S;
@@ -1362,8 +1719,8 @@ __device__ __forceinline__ void dq_consumer_512(const BwdParams& p,
 #pragma unroll
   for (int i = 0; i < kChunk / 2; ++i) acc[i] = 0.f;
   for (int j = 0; j < n_kt; ++j) {
-    const int st = j % kDq512KSlots;
-    mbar_wait(full0 + 8 * st, (j / kDq512KSlots) & 1);
+    const int st = j % kDqChunkedKSlots;
+    mbar_wait(full0 + 8 * st, (j / kDqChunkedKSlots) & 1);
     // V too, before S is issued (DqSplitKV's trap, C7520).
     mbar_wait(full0 + vbar, j & 1);
     const uint32_t tile = (st * L::kTile) >> 4;
@@ -1400,7 +1757,7 @@ __device__ __forceinline__ void dq_consumer_512(const BwdParams& p,
 // One CTA of the width-512 dq: work item blockIdx.x is (b * H + h,
 // kDq512Rows-row q tile).
 template <int D, class T, class Base>
-__device__ __forceinline__ void dq_cta_512(const CUtensorMap& tq,
+__device__ __forceinline__ void dq_cta_chunked_512(const CUtensorMap& tq,
                                            const CUtensorMap& tdo,
                                            const CUtensorMap& tk,
                                            const CUtensorMap& tv,
@@ -1408,13 +1765,13 @@ __device__ __forceinline__ void dq_cta_512(const CUtensorMap& tq,
                                            const int* __restrict__ work,
                                            unsigned char* smem) {
   static_assert(out_chunks<D>() == kConsumers, "a consumer a chunk");
-  using L = DqSmem512<D>;
+  using L = DqSmemChunked512<D>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
   const int bh = work[2 * blockIdx.x], qt = work[2 * blockIdx.x + 1];
   const int b = bh / p.H, h = bh % p.H;
-  const int n_all = ceil_div(p.S, kTile512);
+  const int n_all = ceil_div(p.S, kDqChunkedKv);
   const int n_kt =
-      p.causal ? min(n_all, (qt + 1) * (kDq512Rows / kTile512)) : n_all;
+      p.causal ? min(n_all, (qt + 1) * (kDq512Rows / kDqChunkedKv)) : n_all;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
     for (int i = 0; i < L::kBars; ++i) {
@@ -1428,12 +1785,13 @@ __device__ __forceinline__ void dq_cta_512(const CUtensorMap& tq,
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0)
-      dq_producer_512<D>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt);
+      dq_producer_chunked_512<D>(tq, tdo, tk, tv, p, base, b, h, qt, n_kt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    dq_consumer_512<D, T, Base>(p, base, b, h, qt, n_kt);
+    dq_consumer_chunked_512<D, T, Base>(p, base, b, h, qt, n_kt);
   }
 }
+
 
 // The dk/dv cluster at head_dim 512: two CTAs a 64-row kv tile, CTA c
 // (its rank in the cluster) holding column chunk c of everything, against
@@ -1473,68 +1831,6 @@ struct DkvSmem512 {
   static_assert(kWideRows % kN == 0, "q tiles meet the kv tile's diagonal");
   static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
 };
-
-// Distributed shared memory between the CTAs of a cluster.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The shared::cluster address of `addr` (this CTA's shared memory) in
-// the CTA of rank `rank`.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
-// Every thread of the cluster meets here (release, then acquire).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" : : :
-               "memory");
-}
-
-// One arrival on a barrier of another CTA of the cluster (its shared::
-// cluster address), ordering this thread's earlier accesses before it at
-// cluster scope.
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
-      :
-      : "r"(bar)
-      : "memory");
-}
-
-// mbar_wait that acquires at cluster scope: for phases that arrivals and
-// transactions from the other CTA complete.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 16 bytes into another CTA's shared memory (shared::cluster address
-// dst), completing 16 bytes of transactions on its mbarrier bar.
-__device__ __forceinline__ void st_async(uint32_t dst, float a, float b,
-                                         float c, float d, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n"
-      :
-      : "r"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
-      : "memory");
-}
 
 // The producer's one thread: K and V of the tile's chunk, then for each of
 // the item's `heads` query heads from h0 its kDkv512QRows-row q tiles
@@ -1866,11 +2162,12 @@ inline int encode_stats(CUtensorMap* map, const void* ptr, int S, int rows,
 
 // Encodes dq's four maps (Q and dO in boxes of `rows`, K and V of
 // `kv_rows`) and launches `kernel` with `smem` bytes over the B * H *
-// ceil(S / rows) items of `work`.
+// ceil(S / rows) items of `work`, in clusters of `cluster` CTAs an item
+// when it is past 1.
 template <class T, class Kernel>
 inline int launch_dq_rows(Kernel kernel, const BwdParams& p, int B, int D,
                           int rows, int kv_rows, int smem, const int* work,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, int cluster = 1) {
   CUtensorMap tq, tdo, tk, tv;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
                            rows);
@@ -1887,19 +2184,23 @@ inline int launch_dq_rows(Kernel kernel, const BwdParams& p, int B, int D,
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int items = B * p.H * ceil_div(p.S, rows);
+  if (cluster > 1)
+    return launch_clusters(kernel, items * cluster, cluster, smem, stream,
+                           tq, tdo, tk, tv, p, work);
   kernel<<<items, kFwdThreads, smem, stream>>>(tq, tdo, tk, tv, p, work);
   return (int)cudaGetLastError();
 }
 
 // Launches `kernel` (an instance of dq_cta of shape Sh over the B * H *
 // ceil(S / 128) items of `work`; at head_dim 512 of dq_cta_512 over B * H
-// * ceil(S / 64)).
+// * ceil(S / 64), a cluster of out_chunks CTAs each).
 template <int D, class T, class Sh = DqBase<D>, class Kernel>
 inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
                      const int* work, cudaStream_t stream) {
   if constexpr (D > 256)
-    return launch_dq_rows<T>(kernel, p, B, D, kDq512Rows, kTile512,
-                             DqSmem512<D>::kBytes, work, stream);
+    return launch_dq_rows<T>(kernel, p, B, D, kDq512Rows, kKv512,
+                             DqSmem512<D>::kBytes, work, stream,
+                             out_chunks<D>());
   else
     return launch_dq_rows<T>(kernel, p, B, D, kBwdRows, Sh::kKv,
                              DqSmem<D, Sh>::kBytes, work, stream);
@@ -1971,26 +2272,13 @@ inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
                     out_chunks<D>();
   if constexpr (D > 256) {
     // A cluster of the out_chunks CTAs of each item.
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = out_chunks<D>();
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(items);
-    cfg.blockDim = dim3(kFwdThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t l = cudaLaunchKernelEx(&cfg, kernel, tq, tdo, tk, tv,
-                                             tlse, tdlt, p, work, split);
-    if (l != cudaSuccess) return (int)l;
+    return launch_clusters(kernel, items, out_chunks<D>(), smem, stream, tq,
+                           tdo, tk, tv, tlse, tdlt, p, work, split);
   } else {
     kernel<<<items, kFwdThreads, smem, stream>>>(tq, tdo, tk, tv, tlse,
                                                  tdlt, p, work, split);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 // Every dk/dv: dkv_cta's launch at head_dim 64 and 128 (P must be 1),
@@ -2021,15 +2309,25 @@ inline int dq_attrs(Kernel kernel, int* out) {
                       kConsumerRegs, out);
 }
 
+// The resident dq: DqResident's CTA, at head_dim 512 dq_cta_chunked_512
+// (one CTA an item, no cluster).
 template <int D, class T, class Kernel>
 inline int launch_dq_resident(Kernel kernel, const BwdParams& p, int B,
                               const int* work, cudaStream_t stream) {
-  return launch_dq<D, T, DqResident<D>>(kernel, p, B, work, stream);
+  if constexpr (D > 256)
+    return launch_dq_rows<T>(kernel, p, B, D, kDq512Rows, kDqChunkedKv,
+                             DqSmemChunked512<D>::kBytes, work, stream);
+  else
+    return launch_dq<D, T, DqResident<D>>(kernel, p, B, work, stream);
 }
 
 template <int D, class T, class Kernel>
 inline int dq_resident_attrs(Kernel kernel, int* out) {
-  return dq_attrs<D, T, DqResident<D>>(kernel, out);
+  if constexpr (D > 256)
+    return kernel_attrs(kernel, DqSmemChunked512<D>::kBytes, kFwdThreads,
+                        kProducerRegs, kConsumerRegs, out);
+  else
+    return dq_attrs<D, T, DqResident<D>>(kernel, out);
 }
 
 template <int D, class T, class Kernel>

@@ -19,9 +19,10 @@
 // not idle the card. Head_dim 64, 128 and 256 (Gemma's: 64-row K/V tiles,
 // P V as m64n256, and the first kWideQReg k steps of S with each
 // consumer's Q rows in registers, a quarter less shared-memory traffic
-// for S; flash_fwd_sm90.cuh) and 512 (fwd_cta_wide: one CTA per 256-column
-// chunk of o, S recomputed over all 512 columns against 32-row K/V
-// tiles), bf16 and f16.
+// for S; flash_fwd_sm90.cuh) and 512 (fwd_cta_512: a cluster of two CTAs
+// an item, each holding one 256-column chunk of Q, K and V and
+// exchanging its partial of S with the other against 64-row K/V tiles),
+// bf16 and f16.
 #include "flash_fwd_sm90.cuh"
 
 namespace stpu {
@@ -41,7 +42,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }  // namespace
 }  // namespace stpu
 
-// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs. dtype: the element type
+// work: B*H*ceil(S/128) (b*h, q tile) int32 pairs (at head_dim 512 two
+// CTAs an item, one per 256-column chunk). dtype: the element type
 // of q, k, v and o (Bf16::kDtype, F16::kDtype). strides: (batch, seq, head)
 // in elements for q, k, v. o is written contiguous (B, S, H, D) and lse
 // (B, H, S) fp32.

@@ -77,18 +77,30 @@
 //   KV group sharing each K/V load by TMA multicast, leave that traffic
 //   as it is and measured no faster (PERF.md); the K/V stream alone
 //   runs in a third to two fifths of the kernel's time.
-// - Head_dim 512 (every family, in lockstep; fwd_cta_wide): o of 64 rows x
+// - Head_dim 512 (every family, in lockstep; fwd_cta_512): o of 64 rows x
 //   512 columns is 256 fp32 a thread, past what a consumer holds beside S
-//   and P (and wgmma's N stops at 256). So each CTA computes one kChunk
-//   (256)-column chunk of o for its 128 q rows, the two chunks of an item
-//   side by side in the launch (block i is chunk i % 2 of item i / 2):
-//   both recompute S = Q K^T over all 512 columns, 1.5 times the minimal
-//   FLOPs. Shared memory holds Q (128 KB) beside two stages of a 32-row K
-//   tile (32 KB) and the CTA's chunk of the 32-row V tile (16 KB): 225 KB.
-//   S is m64n32 with both operands in shared memory (16 registers), P V two
-//   m64n256k16 (o: 128 registers). With 32-row tiles each consumer's 64
-//   rows meet the diagonal in two masked tiles, and consumer 0 skips the
-//   CTA's last two. Only chunk 0 writes lse.
+//   and P (and wgmma's N stops at 256). So an item (128 q rows) is a
+//   cluster of two CTAs (block i is rank i % 2 of item i / 2), CTA c
+//   holding only chunk c (kChunk = 256 columns) of Q, K and V: Q_c (64 KB)
+//   beside two stages of 64-row K_c and V_c tiles (32 KB each). Per tile
+//   each consumer computes its rows' partial S_c = Q_c K_c^T (m64n64, 256
+//   deep, both operands in shared memory), sends it as fp32 wgmma
+//   fragments to the other CTA's shared memory (st.async, completing on
+//   the reader's mbarrier, which the reader arms for the bytes: a write
+//   may land before the arm) and adds the other's: S = S_0 + S_1, one IEEE
+//   sum of two terms, the same in both CTAs, so m, l and P agree bit for
+//   bit; then o_c += P V_c (m64n256k16, o: 128 registers). Four products'
+//   worth of work a tile pair, the minimal, against the 1.5 times of a CTA
+//   a chunk recomputing S over all 512 columns (PERF.md). The exchange runs
+//   a tile ahead: S_{j + 1}'s partial is computed and sent after tile j's
+//   softmax, before its P V, so it crosses under that product. K and V
+//   have barriers of their own, K_j released once its partial is done. A consumer rewrites the other CTA's exchange buffer
+//   only after its reader there has arrived on the writer's x_free
+//   (remotely, a release at CTA scope: the reads it orders are done; at
+//   cluster scope the body ran 1.2-1.25 times slower); cluster barriers
+//   after the barriers' init and before exit keep both CTAs' shared memory
+//   alive while the other may write it. Causal, the consumers' ends differ
+//   by a tile, as at 256. Only chunk 0 writes lse.
 // - Epilogue: o / l goes through the consumer's own 64 rows of Q in shared
 //   memory (its last product has read them) and out in 16-byte stores
 //   predicated on row < S; lse = m + log2(l), times ln 2 for the natural-
@@ -152,44 +164,77 @@ constexpr int kBNWide = 64;
 // ptxas serialises every wgmma), and a quarter less shared-memory
 // traffic for S.
 constexpr int kWideQReg = 8;
-// Head_dim 512 (fwd_cta_wide below; the backward's dq_cta_512 and
-// dkv_cta_wide): no consumer holds a whole 64-row block of o, dq, dk or dv
-// (256 fp32 a thread), so each holds one kChunk-column chunk of it, and
-// every tile streamed against a resident operand is kTile512 rows.
+// Head_dim 512 (fwd_cta_512 below; the backward's dq_cta_512 and
+// dkv_cta_512): no consumer holds a whole 64-row block of o, dq, dk or dv
+// (256 fp32 a thread), so each CTA of a cluster of out_chunks holds one
+// kChunk-column chunk of every operand, and the forward and dq stream
+// kKv512-row K/V tiles.
 constexpr int kChunk = 256;
-constexpr int kTile512 = 32;
+constexpr int kKv512 = 64;
 template <int D>
 __host__ __device__ constexpr int fwd_kv_rows() {
-  return D > 256 ? kTile512 : D > 128 ? kBNWide : kBN;
+  return D > 256 ? kKv512 : D > 128 ? kBNWide : kBN;
 }
-// The output chunks of an item at head_dim D: one CTA each for the
-// forward and dk/dv, one consumer each for dq.
+// The output chunks of an item at head_dim D: the CTAs of its cluster.
 template <int D>
 __host__ __device__ constexpr int out_chunks() {
   return D > 256 ? D / kChunk : 1;
 }
 
 // Shared memory in bytes from a 1024-byte aligned base: Q (kBM x D), kRing
-// K tiles (kKvRows x D), kRing V tiles (kKvRows x the CTA's DV = D /
-// out_chunks columns), each stored as boxes of rows x 128 bytes in the
-// 128-byte swizzle; then kBars full mbarriers, kBars empty ones and q: a
+// K tiles and kRing V tiles (kKvRows x D), each stored as boxes of rows x
+// 128 bytes in the 128-byte swizzle; then kBars full mbarriers, kBars
+// empty ones and q: a
 // K/V stage has one of each (kBars = kRing), or, for the overlapped
 // schedule (kSplit), K and V have their own (kBars = 2 * kRing, K's
 // stages first). kBytes adds the slack for aligning the base: 161 KB at
-// D = 128, 193 KB at D = 256 (64-row K/V tiles), 225 KB at D = 512
-// (32-row tiles, V's 256-column chunk).
+// D = 128, 193 KB at D = 256 (64-row K/V tiles). Head_dim 512 has
+// FwdSmem512.
 template <int D, bool kSplit = false>
 struct FwdSmem {
   static constexpr int kKvRows = fwd_kv_rows<D>();
-  static constexpr int kDV = D / out_chunks<D>();
   static constexpr int kQ = kBM * D * 2;
   static constexpr int kTileKV = kKvRows * D * 2;
-  static constexpr int kTileV = kKvRows * kDV * 2;
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kRing * kTileKV;
-  static constexpr int kBar = kV + kRing * kTileV;
+  static constexpr int kBar = kV + kRing * kTileKV;
   static constexpr int kBars = kSplit ? 2 * kRing : kRing;
   static constexpr int kBytes = kBar + (2 * kBars + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "past the 227 KB a block may use");
+};
+
+// The width-512 forward's CTA, rank c of a cluster of two (fwd_cta_512):
+// chunk c of Q (kBM x kChunk), kKS stages of chunk c of a kKv512-row K
+// tile and kVS of V, on barriers of their own (a consumer releases K_j
+// once its partial of S_j is done, a tile before V_j), the exchange (the
+// other CTA's partial of S for each consumer, m64 x kKv512 fp32
+// fragments), then mbarriers k_full[kKS], k_empty[kKS], v_full[kVS],
+// v_empty[kVS], q, x_full[2], x_free[2]: 230,504 B.
+// kFwd512QReg: the k steps (of 16) of each consumer's S partial whose Q
+// operand it holds in registers (the rest read Q from shared memory).
+// The consumers take kConsumerRegs512 registers, the producer
+// kProducerRegs512 (24 + 2 x 240 = 3 x 168), as every width-512 forward
+// was timed (o 128, S 32, P 16, Q's k steps 16 a thread).
+constexpr int kFwd512QReg = 4;
+constexpr int kFwd512KSlots = 2;
+constexpr int kFwd512VSlots = 2;
+constexpr int kProducerRegs512 = 24, kConsumerRegs512 = 240;
+template <int D>
+struct FwdSmem512 {
+  static constexpr int kKS = kFwd512KSlots, kVS = kFwd512VSlots;
+  static constexpr int kTile = kKv512 * kChunk * 2;
+  static constexpr int kPart = 64 * kKv512 * 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kBM * kChunk * 2;
+  static constexpr int kV = kK + kKS * kTile;
+  static constexpr int kXch = kV + kVS * kTile;
+  static constexpr int kBar = kXch + kConsumers * kPart;
+  static constexpr int kKFull = 0, kKEmpty = 8 * kKS;
+  static constexpr int kVFull = 16 * kKS, kVEmpty = kVFull + 8 * kVS;
+  static constexpr int kQBar = kVEmpty + 8 * kVS;
+  static constexpr int kXFull = kQBar + 8, kXFree = kXFull + 8 * kConsumers;
+  static constexpr int kBytes = kBar + kXFree + 8 * kConsumers + 1024;
+  static_assert(D == 2 * kChunk, "a chunk a CTA of the cluster");
   static_assert(kBytes <= 232448, "past the 227 KB a block may use");
 };
 
@@ -208,6 +253,18 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
                :
                : "r"(bar), "r"(bytes)
                : "memory");
+}
+
+// mbar_expect_tx from each thread whose `pred` holds, predicated inside
+// the instruction.
+__device__ __forceinline__ void mbar_expect_tx_if(uint32_t bar, int bytes,
+                                                  bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n"
+      :
+      : "r"(bar), "r"(bytes), "r"((int)pred)
+      : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -255,6 +312,127 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
         "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// ------------------------------------------------ clusters of two CTAs
+
+// Distributed shared memory between the CTAs of a cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `addr` (this CTA's shared memory) in
+// the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of the cluster meets here (release, then acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" : : :
+               "memory");
+}
+
+// One arrival on a barrier of another CTA of the cluster (its shared::
+// cluster address), ordering this thread's earlier accesses before it at
+// cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      :
+      : "r"(bar)
+      : "memory");
+}
+
+// One arrival on a barrier of another CTA of the cluster from each thread
+// whose `pred` holds (predicated inside the instruction, as
+// mbar_arrive_if), a release at CTA scope: it tells a writer in the other
+// CTA that this CTA has read the buffer the writer fills, and those reads
+// have completed (the warpgroup's barrier before it), so nothing needs
+// ordering at cluster scope. A release at cluster scope here (as
+// mbar_arrive_remote) left the width-512 forward 1.3-1.6 times slower
+// and dq 1.1-1.3 times (tools/flash_{fwd,dq}_variants.py, PERF.md).
+__device__ __forceinline__ void mbar_arrive_remote_if(uint32_t bar,
+                                                      bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [%0];\n}\n"
+      :
+      : "r"(bar), "r"((int)pred)
+      : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: for phases that arrivals and
+// transactions from the other CTA complete.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 16 bytes into another CTA's shared memory (shared::cluster address
+// dst), completing 16 bytes of transactions on its mbarrier bar.
+__device__ __forceinline__ void st_async(uint32_t dst, float a, float b,
+                                         float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      :
+      : "r"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// The same for 4 bytes.
+__device__ __forceinline__ void st_async(uint32_t dst, float a,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n"
+      :
+      : "r"(dst), "f"(a), "r"(bar)
+      : "memory");
+}
+
+// A consumer's m64 x 64 fp32 fragments (32 a thread) to the other CTA's
+// exchange buffer (its shared::cluster address, `dst`), completing on its
+// barrier `bar`: element 4 e4 + c of thread tid at float 4 (e4 * 128 +
+// tid) + c, the same place in both CTAs, each store 16 contiguous bytes.
+__device__ __forceinline__ void send_part(const float (&x)[32], uint32_t dst,
+                                          uint32_t bar) {
+  const uint32_t at = dst + 16 * (threadIdx.x % 128);
+#pragma unroll
+  for (int e4 = 0; e4 < 8; ++e4)
+    st_async(at + e4 * 128 * 16, x[4 * e4], x[4 * e4 + 1], x[4 * e4 + 2],
+             x[4 * e4 + 3], bar);
+}
+
+// x += the fragments send_part left at `part` in this CTA: the IEEE sum of
+// two terms, the same whichever CTA adds.
+__device__ __forceinline__ void add_part(float (&x)[32], const float* part) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int e4 = 0; e4 < 8; ++e4) {
+    const float4 r =
+        *reinterpret_cast<const float4*>(part + 4 * (e4 * 128 + tid));
+    x[4 * e4] += r.x;
+    x[4 * e4 + 1] += r.y;
+    x[4 * e4 + 2] += r.z;
+    x[4 * e4 + 3] += r.w;
+  }
 }
 
 template <int N>
@@ -633,16 +811,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
 
 // ------------------------------------------------------------ the forward
 
-// The producer's one thread: Q, then the K/V ring (V's columns [chunk *
-// DV, + DV): all of them but at head_dim 512).
+// The producer's one thread: Q, then the K/V ring.
 template <int D>
 __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
                                              const CUtensorMap& tk,
                                              const CUtensorMap& tv,
                                              const FwdParams& p,
                                              unsigned char* base, int b,
-                                             int h, int qt, int n_kt,
-                                             int chunk = 0) {
+                                             int h, int qt, int n_kt) {
   using L = FwdSmem<D>;
   const int kvh = h / (p.H / p.KVH);
   const uint32_t full0 = smem_addr(base + L::kBar);
@@ -657,14 +833,13 @@ __device__ __forceinline__ void fwd_producer(const CUtensorMap& tq,
     const int st = j % kRing;
     if (j >= kRing) mbar_wait(empty0 + 8 * st, (j / kRing - 1) & 1);
     const uint32_t full = full0 + 8 * st;
-    mbar_expect_tx(full, L::kTileKV + L::kTileV);
+    mbar_expect_tx(full, 2 * L::kTileKV);
 #pragma unroll
     for (int c = 0; c < D / kBoxCols; ++c) {
       tma_load_4d(base + L::kK + st * L::kTileKV + c * kRows * 128, &tk, full,
                   c * kBoxCols, j * kRows, kvh, b);
-      if (c < L::kDV / kBoxCols)
-        tma_load_4d(base + L::kV + st * L::kTileV + c * kRows * 128, &tv,
-                    full, chunk * L::kDV + c * kBoxCols, j * kRows, kvh, b);
+      tma_load_4d(base + L::kV + st * L::kTileKV + c * kRows * 128, &tv,
+                  full, c * kBoxCols, j * kRows, kvh, b);
     }
   }
 }
@@ -1054,28 +1229,24 @@ __device__ __forceinline__ void fwd_consumer_overlap(const FwdParams& p,
                                   l);
 }
 
-// A consumer warpgroup at head_dim 256 and 512, in lockstep over
-// kKvRows-row K/V tiles (64 at 256, 32 at 512): S = Q K^T over all D
-// columns (m64n64 or m64n32, both from shared memory), P V into o, the
-// CTA's DV columns (all 256 at 256; at 512 chunk `chunk`'s 256), as
-// m64n256k16 with P from registers. o (128), S (32 or 16) and the packed
-// P (16 or 8) a thread. The two consumers' causal ends differ: consumer
-// cw's 64 rows (q rows 128 qt + 64 cw ..) meet the diagonal in the
-// kSub = 64 / kKvRows KV tiles from diag = qt * 128 / kKvRows + cw *
-// kSub, which it masks; consumer 0 skips the CTA's tiles past its rows,
-// wholly above them, but still waits for each and arrives on its empty
-// barrier (flash_bwd_sm90.cuh's dq, Traps). Non-causal, every tile, the
-// ragged last one masked. kQReg > 0 (at 256 only): k steps 0 .. kQReg -
-// 1 of S take this consumer's Q rows from registers, loaded once (kQReg
-// * 4 registers beside o, S and P: 208 at kWideQReg).
+// A consumer warpgroup at head_dim 256, in lockstep over kBNWide-row K/V
+// tiles: S = Q K^T (m64n64, K from shared memory), P V into o as
+// m64n256k16 with P from registers. o (128), S (32) and the packed P (16)
+// a thread. The two consumers' causal ends differ: consumer cw's 64 rows
+// (q rows 128 qt + 64 cw ..) meet the diagonal in KV tile diag = 2 qt +
+// cw, which it masks; consumer 0 skips the CTA's last tile, wholly above
+// its rows, but still waits for it and arrives on its empty barrier
+// (flash_bwd_sm90.cuh's dq, Traps). Non-causal, every tile, the ragged
+// last one masked. kQReg > 0: k steps 0 .. kQReg - 1 of S take this
+// consumer's Q rows from registers, loaded once (kQReg * 4 registers
+// beside o, S and P: 208 at kWideQReg).
 template <int D, class T, bool kNaturalLse, int kQReg = 0>
 __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
                                                   unsigned char* base, int b,
-                                                  int h, int qt, int n_kt,
-                                                  int chunk) {
+                                                  int h, int qt, int n_kt) {
   using L = FwdSmem<D>;
-  constexpr int kRows = L::kKvRows, kSub = 64 / kRows, kDV = L::kDV;
-  static_assert(kQReg == 0 || kRows == 64, "Q from registers against m64n64");
+  constexpr int kRows = L::kKvRows;
+  static_assert(D == 256 && kRows == 64, "head_dim 256's 64-row tiles");
   const int cw = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1085,17 +1256,17 @@ __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
   const uint32_t empty0 = full0 + 8 * kRing, qbar = full0 + 16 * kRing;
   const float sm = p.scale * kLog2e;
   const TileMask mask = {p.S, p.causal};
-  const int diag = qt * (kBM / kRows) + cw * kSub;
-  const int j_last = p.causal ? min(diag + kSub - 1, n_kt - 1) : n_kt - 1;
+  const int diag = qt * (kBM / kRows) + cw;
+  const int j_last = p.causal ? min(diag, n_kt - 1) : n_kt - 1;
   const int j_mask = p.causal ? diag : masked_tile(0, p.S, kRows, n_kt);
 
   const uint64_t dq = smem_desc(base + cw * 64 * 128, 16, 1024);
   const uint64_t dk = smem_desc(base + L::kK, 16, 1024);
   const uint64_t dv = smem_desc(base + L::kV, kRows * 128, 1024);
 
-  float o[kDV / 2];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < kDV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
@@ -1114,36 +1285,31 @@ __device__ __forceinline__ void fwd_consumer_wide(const FwdParams& p,
         mma_nt_qreg<D, T, kQReg>(s, qa, dq, kBM * 128,
                                  dk + ((st * L::kTileKV) >> 4), kRows * 128);
       else
-        mma_nt_n<D, T, kRows>(s, dq, kBM * 128,
-                              dk + ((st * L::kTileKV) >> 4), kRows * 128);
+        mma_nt<D, T>(s, dq, kBM * 128, dk + ((st * L::kTileKV) >> 4),
+                     kRows * 128);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
 
       uint32_t pa[kRows / 16][4];
-      if ((kSub > 1 && p.causal) ? j >= j_mask : j == j_mask)
-        softmax_step<kDV, T, true>(s, o, m, l, pa, sm, row0, j * kRows,
-                                   mask);
+      if (j == j_mask)
+        softmax_step<D, T, true>(s, o, m, l, pa, sm, row0, j * kRows, mask);
       else
-        softmax_step<kDV, T, false>(s, o, m, l, pa, sm, row0, j * kRows,
-                                    mask);
+        softmax_step<D, T, false>(s, o, m, l, pa, sm, row0, j * kRows, mask);
 
       wgmma_fence();
-      issue_pv<kDV, T>(o, pa, dv, st * L::kTileV);
+      issue_pv<D, T>(o, pa, dv, st * L::kTileKV);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
     }
     if (tid == 0) mbar_arrive(empty0 + 8 * st);  // K and V of st consumed
   }
-  fwd_epilogue<D, T, kNaturalLse, kDV>(p, base, b, h, q_start, row0, t, o,
-                                       m, l, chunk * kDV);
+  fwd_epilogue<D, T, kNaturalLse>(p, base, b, h, q_start, row0, t, o, m, l);
 }
 
-// One CTA of the forward at head_dim 256 and 512 (fwd_consumer_wide;
-// lockstep; kQReg of S's k steps with Q from registers). At 512 block i
-// is chunk i % C (C = out_chunks) of work item i / C, the two chunks of an
-// item side by side in the longest-first list. Its own function, so the
+// One CTA of the forward at head_dim 256 (fwd_consumer_wide; lockstep;
+// kQReg of S's k steps with Q from registers). Its own function, so the
 // narrow instances below compile as they did.
 template <int D, class T, bool kNaturalLse, int kQReg = 0>
 __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
@@ -1153,13 +1319,13 @@ __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
                                              const int* __restrict__ work,
                                              unsigned char* smem) {
   using L = FwdSmem<D>;
-  constexpr int kC = out_chunks<D>(), kRows = L::kKvRows;
+  constexpr int kRows = L::kKvRows;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
-  const int item = blockIdx.x / kC, chunk = blockIdx.x % kC;
+  const int item = blockIdx.x;
   const int bh = work[2 * item], qt = work[2 * item + 1];
   const int b = bh / p.H, h = bh % p.H;
   const int n_all = ceil_div(p.S, kRows);
-  // Causal: to consumer 1's last diagonal tile (or S's end).
+  // Causal: to consumer 1's diagonal tile (or S's end).
   const int n_kt = p.causal ? min(n_all, (qt + 1) * (kBM / kRows)) : n_all;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_addr(base + L::kBar);
@@ -1174,18 +1340,241 @@ __device__ __forceinline__ void fwd_cta_wide(const CUtensorMap& tq,
   if (threadIdx.x < 128) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0)
-      fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt, chunk);
+      fwd_producer<D>(tq, tk, tv, p, base, b, h, qt, n_kt);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    fwd_consumer_wide<D, T, kNaturalLse, kQReg>(p, base, b, h, qt, n_kt,
-                                                chunk);
+    fwd_consumer_wide<D, T, kNaturalLse, kQReg>(p, base, b, h, qt, n_kt);
   }
 }
 
+// --------------------------------------------- the forward at head_dim 512
+
+// The producer's one thread of the width-512 forward's CTA of rank
+// `chunk`: chunk `chunk` of Q, then of K_j into its stage (once both
+// consumers have released K_{j - kKS}) and of V_j into its own.
+template <int D>
+__device__ __forceinline__ void fwd_producer_512(const CUtensorMap& tq,
+                                                 const CUtensorMap& tk,
+                                                 const CUtensorMap& tv,
+                                                 const FwdParams& p,
+                                                 unsigned char* base, int b,
+                                                 int h, int qt, int n_kt,
+                                                 int chunk) {
+  using L = FwdSmem512<D>;
+  constexpr int kBoxes = kChunk / kBoxCols;
+  const int kvh = h / (p.H / p.KVH), col0 = chunk * kChunk;
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t qbar = bars + L::kQBar;
+  mbar_expect_tx(qbar, L::kK - L::kQ);
+#pragma unroll
+  for (int c = 0; c < kBoxes; ++c)
+    tma_load_4d(base + L::kQ + c * kBM * 128, &tq, qbar, col0 + c * kBoxCols,
+                qt * kBM, h, b);
+  // Tile j of operand x (0: K, 1: V) into its stage.
+  auto load = [&](int x, int j) {
+    const int ring = x ? L::kVS : L::kKS, st = j % ring;
+    const uint32_t full = bars + (x ? L::kVFull : L::kKFull) + 8 * st;
+    if (j >= ring)
+      mbar_wait(bars + (x ? L::kVEmpty : L::kKEmpty) + 8 * st,
+                (j / ring - 1) & 1);
+    mbar_expect_tx(full, L::kTile);
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c)
+      tma_load_4d(base + (x ? L::kV : L::kK) + st * L::kTile +
+                      c * kKv512 * 128,
+                  x ? &tv : &tk, full, col0 + c * kBoxCols, j * kKv512, kvh,
+                  b);
+  };
+  for (int j = 0; j < n_kt; ++j) {
+    load(0, j);
+    load(1, j);
+  }
+}
+
+// A consumer warpgroup of the width-512 forward's CTA of rank `chunk`: its
+// 64 q rows through every K/V tile up to its causal end. Per tile j: its
+// partial S_c = Q_c K_c^T (m64n64, 256 deep; the first kFwd512QReg k steps
+// with Q from registers), sent to the same consumer of the other CTA,
+// which sends its own here (x_full); S_j = own + other, the online softmax
+// on it, o_c += P V_c. The exchange runs a tile ahead: the partial of S_{j
+// + 1} is computed and sent between tile j's softmax and its P V, so each
+// partial crosses to the other CTA under a product of this one, and no
+// wait falls between a product's issue and its wait (before the softmax,
+// S_j and S_{j + 1} live together and the body spills: PERF.md). A partial is sent once the other CTA has read the
+// last (x_free). The causal ends and masks are fwd_consumer_wide's, the
+// same in both CTAs, so both exchange on the same tiles. o (128), S (32),
+// P (16) and Q's kFwd512QReg k steps (16) a thread.
+template <int D, class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_consumer_512(const FwdParams& p,
+                                                 unsigned char* base, int b,
+                                                 int h, int qt, int n_kt,
+                                                 uint32_t chunk) {
+  using L = FwdSmem512<D>;
+  constexpr int kQReg = kFwd512QReg, kF = kKv512 / 2;
+  const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128 - 1, 0);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q_start = qt * kBM;
+  const int row0 = q_start + cw * 64 + warp * 16 + g;  // and row0 + 8
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t x_full = bars + L::kXFull + 8 * cw;
+  const uint32_t x_free = bars + L::kXFree + 8 * cw;
+  const uint32_t other = chunk ^ 1;
+  const float sm = p.scale * kLog2e;
+  const TileMask mask = {p.S, p.causal};
+  const int diag = qt * (kBM / kKv512) + cw;
+  const int j_last = p.causal ? min(diag, n_kt - 1) : n_kt - 1;
+  const int j_mask = p.causal ? diag : masked_tile(0, p.S, kKv512, n_kt);
+
+  const uint64_t dq = smem_desc(base + L::kQ + cw * 64 * 128, 16, 1024);
+  const uint64_t dk = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t dv = smem_desc(base + L::kV, kKv512 * 128, 1024);
+  // This consumer's exchange buffer, here and in the other CTA.
+  const float* xs =
+      reinterpret_cast<const float*>(base + L::kXch + cw * L::kPart);
+  const uint32_t x_dst = map_rank(smem_addr(xs), other);
+  const uint32_t x_bar = map_rank(x_full, other);
+
+  float o[kChunk / 2];
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bars + L::kQBar, 0);
+  [[maybe_unused]] uint32_t qa[kQReg > 0 ? kQReg : 1][4];
+  if constexpr (kQReg > 0)
+    load_a_frags(qa, base + L::kQ, cw * 64 + warp * 16);
+  // This CTA's partial of S_j into x, then K_j released.
+  auto partial = [&](float (&x)[kF], int j) {
+    const int st = j % L::kKS;
+    mbar_wait(bars + L::kKFull + 8 * st, (j / L::kKS) & 1);
+#pragma unroll
+    for (int i = 0; i < kF; ++i) x[i] = 0.f;
+    wgmma_fence();
+    if constexpr (kQReg > 0)
+      mma_nt_qreg<kChunk, T, kQReg>(x, qa, dq, kBM * 128,
+                                    dk + ((st * L::kTile) >> 4),
+                                    kKv512 * 128);
+    else
+      mma_nt<kChunk, T>(x, dq, kBM * 128, dk + ((st * L::kTile) >> 4),
+                        kKv512 * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+    mbar_arrive_if(bars + L::kKEmpty + 8 * st, tid == 0);
+  };
+
+  float s[kF], sn[kF];
+  mbar_expect_tx_if(x_full, L::kPart, tid == 0);
+  partial(s, 0);
+  send_part(s, x_dst, x_bar);
+  for (int j = 0; j <= j_last; ++j) {
+    const bool more = j < j_last;
+    // S_j: this CTA's partial plus the other's, which frees the buffer
+    // for the other's next (x_full armed for it first).
+    mbar_wait_cluster(x_full, j & 1);
+    add_part(s, xs);
+    mbar_expect_tx_if(x_full, L::kPart, more && tid == 0);
+    warpgroup_sync(1 + cw);
+    mbar_arrive_remote_if(map_rank(x_free, other), tid == 0);
+
+    uint32_t pa[kKv512 / 16][4];
+    if (j == j_mask)
+      softmax_step<kChunk, T, true>(s, o, m, l, pa, sm, row0, j * kKv512,
+                                    mask);
+    else
+      softmax_step<kChunk, T, false>(s, o, m, l, pa, sm, row0, j * kKv512,
+                                     mask);
+    // The partial of S_{j + 1}, sent once the other CTA has read this
+    // one's S_j; it crosses under P V_j.
+    if (more) {
+      partial(sn, j + 1);
+      mbar_wait(x_free, j & 1);
+      send_part(sn, x_dst, x_bar);
+    }
+    const int st = j % L::kVS;
+    mbar_wait(bars + L::kVFull + 8 * st, (j / L::kVS) & 1);
+    wgmma_fence();
+    issue_pv<kChunk, T>(o, pa, dv, st * L::kTile);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive_if(bars + L::kVEmpty + 8 * st, tid == 0);
+#pragma unroll
+    for (int i = 0; i < kF; ++i) s[i] = sn[i];
+  }
+  // Tiles past this consumer's rows (consumer 0, causal): waited for and
+  // released, so the ring goes on for the other.
+  for (int j = j_last + 1; j < n_kt; ++j) {
+    const int ks = j % L::kKS, vs = j % L::kVS;
+    mbar_wait(bars + L::kKFull + 8 * ks, (j / L::kKS) & 1);
+    mbar_arrive_if(bars + L::kKEmpty + 8 * ks, tid == 0);
+    mbar_wait(bars + L::kVFull + 8 * vs, (j / L::kVS) & 1);
+    mbar_arrive_if(bars + L::kVEmpty + 8 * vs, tid == 0);
+  }
+  fwd_epilogue<D, T, kNaturalLse, kChunk>(p, base + L::kQ, b, h, q_start,
+                                          row0, t, o, m, l, chunk * kChunk);
+}
+
+// One CTA of the forward at head_dim 512, launched in clusters of C =
+// out_chunks CTAs: block i is rank i % C, chunk i % C of work item i / C,
+// (b * H + h, 128-row q tile).
+template <int D, class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_cta_512(const CUtensorMap& tq,
+                                            const CUtensorMap& tk,
+                                            const CUtensorMap& tv,
+                                            const FwdParams& p,
+                                            const int* __restrict__ work,
+                                            unsigned char* smem) {
+  using L = FwdSmem512<D>;
+  constexpr int kC = out_chunks<D>();
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const uint32_t chunk = cluster_rank();
+  const int item = blockIdx.x / kC;
+  const int bh = work[2 * item], qt = work[2 * item + 1];
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_all = ceil_div(p.S, kKv512);
+  // Causal: to consumer 1's diagonal tile (or S's end).
+  const int n_kt = p.causal ? min(n_all, (qt + 1) * (kBM / kKv512)) : n_all;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kKS; ++i) {
+      mbar_init(bars + L::kKFull + 8 * i, 1);
+      mbar_init(bars + L::kKEmpty + 8 * i, kConsumers);
+    }
+    for (int i = 0; i < L::kVS; ++i) {
+      mbar_init(bars + L::kVFull + 8 * i, 1);
+      mbar_init(bars + L::kVEmpty + 8 * i, kConsumers);
+    }
+    mbar_init(bars + L::kQBar, 1);
+    for (int c = 0; c < kConsumers; ++c) {
+      // x_full: its consumer's expect_tx (the other CTA's bytes); x_free:
+      // the other CTA's reader of the partial this consumer sends.
+      mbar_init(bars + L::kXFull + 8 * c, 1);
+      mbar_init(bars + L::kXFree + 8 * c, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  // Every barrier of both CTAs is initialised before any remote arrival.
+  cluster_sync();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs512>();
+    if (threadIdx.x == 0)
+      fwd_producer_512<D>(tq, tk, tv, p, base, b, h, qt, n_kt, chunk);
+  } else {
+    setmaxnreg_inc<kConsumerRegs512>();
+    fwd_consumer_512<D, T, kNaturalLse>(p, base, b, h, qt, n_kt, chunk);
+  }
+  // Neither CTA leaves while the other may still write its shared memory
+  // or arrive on its barriers.
+  cluster_sync();
+}
+
 // One CTA of the forward: work item blockIdx.x is (b * H + h, q tile);
-// kOverlap picks the overlapped schedule over lockstep; head_dim 256 and
-// 512 go to fwd_cta_wide (lockstep only), at 256 with kQReg of S's k steps
-// reading Q from registers (kWideQReg, or 0: all from shared memory).
+// kOverlap picks the overlapped schedule over lockstep; head_dim 256 goes
+// to fwd_cta_wide (lockstep only), with kQReg of S's k steps reading Q
+// from registers (kWideQReg, or 0: all from shared memory), and 512 to
+// fwd_cta_512 (a cluster of two CTAs an item, lockstep).
 template <int D, class T, bool kNaturalLse, bool kOverlap = false,
           int kQReg = 0>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
@@ -1195,9 +1584,10 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         const int* __restrict__ work,
                                         unsigned char* smem) {
   static_assert(D <= 128 || !kOverlap, "head_dim 256 runs in lockstep");
-  if constexpr (D > 128) {
-    fwd_cta_wide<D, T, kNaturalLse, (D > 256 ? 0 : kQReg)>(tq, tk, tv, p,
-                                                          work, smem);
+  if constexpr (D > 256) {
+    fwd_cta_512<D, T, kNaturalLse>(tq, tk, tv, p, work, smem);
+  } else if constexpr (D > 128) {
+    fwd_cta_wide<D, T, kNaturalLse, kQReg>(tq, tk, tv, p, work, smem);
   } else {
   using L = FwdSmem<D, kOverlap>;
   unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
@@ -1295,22 +1685,49 @@ inline int encode_rows(CUtensorMap* map, const void* ptr, int D, int S,
 }
 
 // The dynamic shared memory of an instance: the overlapped schedule's
-// split barriers when `overlap` (head_dim 256 runs in lockstep whatever
-// the family asks).
+// split barriers when `overlap` (head_dim 256 and 512 run in lockstep
+// whatever the family asks).
 template <int D>
 constexpr int fwd_smem_bytes(bool overlap) {
-  return overlap && D <= 128 ? FwdSmem<D, true>::kBytes : FwdSmem<D>::kBytes;
+  if constexpr (D > 256)
+    return FwdSmem512<D>::kBytes;
+  else
+    return overlap && D <= 128 ? FwdSmem<D, true>::kBytes
+                               : FwdSmem<D>::kBytes;
+}
+
+// Launches `kernel` over `blocks` CTAs of kFwdThreads in clusters of
+// `cluster` along x (cudaLaunchKernelEx with a cluster attribute; the
+// grid a multiple of it), with `smem` bytes of dynamic shared memory.
+template <class Kernel, class... Args>
+inline int launch_clusters(Kernel kernel, int blocks, int cluster, int smem,
+                           cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t l = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return l != cudaSuccess ? (int)l : (int)cudaGetLastError();
 }
 
 // Encodes the three maps and launches `kernel` (an instance of this
 // forward, with the overlapped schedule when `overlap`) over the B * H *
-// ceil(S / 128) items of `work`, out_chunks CTAs an item.
+// ceil(S / 128) items of `work`; at head_dim 512 out_chunks CTAs an
+// item, each item a cluster.
 template <int D, class T, class Kernel>
 inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
                       const int* work, cudaStream_t stream,
                       bool overlap = false) {
   const int smem = fwd_smem_bytes<D>(overlap);
-  constexpr int kRows = FwdSmem<D>::kKvRows;
+  constexpr int kRows = fwd_kv_rows<D>();
   CUtensorMap tq, tk, tv;
   int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
                            kBM);
@@ -1323,9 +1740,14 @@ inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
   if (err) return err;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int items = B * p.H * ceil_div(p.S, kBM) * out_chunks<D>();
-  kernel<<<items, kFwdThreads, smem, stream>>>(tq, tk, tv, p, work);
-  return (int)cudaGetLastError();
+  const int items = B * p.H * ceil_div(p.S, kBM);
+  if constexpr (D > 256) {
+    return launch_clusters(kernel, items * out_chunks<D>(), out_chunks<D>(),
+                           smem, stream, tq, tk, tv, p, work);
+  } else {
+    kernel<<<items, kFwdThreads, smem, stream>>>(tq, tk, tv, p, work);
+    return (int)cudaGetLastError();
+  }
 }
 
 // The build report of one kernel instance: out = {registers per thread at
@@ -1347,7 +1769,8 @@ inline int kernel_attrs(Kernel kernel, int smem, int threads, int producer,
 template <int D, class T, class Kernel>
 inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
   return kernel_attrs(kernel, fwd_smem_bytes<D>(overlap), kFwdThreads,
-                      kProducerRegs, kConsumerRegs, out);
+                      D > 256 ? kProducerRegs512 : kProducerRegs,
+                      D > 256 ? kConsumerRegs512 : kConsumerRegs, out);
 }
 
 }  // namespace sm90

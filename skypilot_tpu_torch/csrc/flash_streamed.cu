@@ -50,7 +50,7 @@
 // - dk/dv, dkv_cta as the resident instance runs it, in lockstep (its
 //   consumers offset half a tile measured no faster); at head_dim 256
 //   dkv_cta_wide, as the triangular family's, in natural exp;
-// - at head_dim 512 the chunked bodies of every family (fwd_cta_wide,
+// - at head_dim 512 the cluster bodies of every family (fwd_cta_512,
 //   dq_cta_512 in BaseE2, dkv_cta_512 in natural exp).
 #include "flash_bwd_sm90.cuh"
 
@@ -129,7 +129,7 @@ extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
 }
 
 // work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs (at head_dim
-// 512 B*H*ceil(S/64), 64-row tiles). strides: q, k,
+// 512 B*H*ceil(S/64), 64-row tiles, two CTAs an item). strides: q, k,
 // v, o, dO. dq (B, S, H, D), of the inputs' type, and delta (B, H, S) fp32
 // are written contiguous; lse is natural-log.
 extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,

@@ -25,10 +25,10 @@
 // without atomics), instanced in base 2. Each kernel has a bf16 and an
 // f16 instance at head_dim 64, 128 and 256 (Gemma's, on the bodies' wide
 // paths; the JAX dispatcher sends Gemma here past S 2048), and 512 (on
-// the chunked bodies fwd_cta_wide, dq_cta_512, dkv_cta_512: one 256-column
-// chunk of o, dq, dk or dv a CTA or consumer, 32-row streamed tiles; the
-// forward and dq recompute S (and dP) over all 512 columns per chunk,
-// dk/dv's two CTAs of a cluster exchange their partials of S^T and dP^T;
+// the cluster bodies fwd_cta_512, dq_cta_512, dkv_cta_512: two CTAs an
+// item, each holding one 256-column chunk of every operand, 64-row
+// streamed tiles, the two exchanging their partials of S and dP (S^T and
+// dP^T) through distributed shared memory; flash_fwd_sm90.cuh,
 // flash_bwd_sm90.cuh):
 // - the forward: 64-row K/V tiles, Q in shared memory;
 // - dq: DqSplitKV (flash_bwd_sm90.cuh), 64-row K tiles in two stages and
@@ -58,8 +58,8 @@
 // tiles it walks at every width), dk/dv's 128-row kv tiles (pairs against
 // 64-row q tiles), and at head_dim 256 (kv tile, part) items of 64-row kv
 // tiles (dkv_wide_schedule); at 512 dq's list counts 64-row q tiles
-// against 32-row KV tiles (dq_schedule) and dk/dv keeps the width-256
-// items.
+// against 64-row KV tiles (dq_schedule) and dk/dv keeps the width-256
+// items, each item a cluster of two CTAs.
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -134,7 +134,7 @@ extern "C" int stpu_flash_fwd_tri(const void* q, const void* k,
 }
 
 // work: B*H*ceil(S/128) (b*h, 128-row q tile) int32 pairs (at head_dim
-// 512 B*H*ceil(S/64), 64-row tiles). strides: q, k,
+// 512 B*H*ceil(S/64), 64-row tiles, two CTAs an item). strides: q, k,
 // v, o, dO. dq (B, S, H, D), of the inputs' type, and delta (B, H, S) fp32
 // are written contiguous; lse is base 2.
 extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,

@@ -50,19 +50,21 @@ stages), and the resident forward there reads the first half of each
 consumer's Q rows for S from registers (``kWideQReg``).
 
 At head_dim 512 no consumer can hold a 64-row block of o, dq, dk or dv
-(256 fp32 a thread past the 128 of wgmma's widest N): each holds one
-CHUNK-column chunk. The forward and dk/dv run one CTA a chunk, the two
-side by side for each item of their lists: the forward's 128-row q
-tiles against 32-row K/V tiles, S recomputed over all 512 columns for
-each chunk; dk/dv's 64-row kv tiles, parts of the GQA group as at 256,
-as a cluster of the two CTAs, each holding its chunk of K, V, Q and dO
-(two stages of BWD_INNER-row Q/dO tiles) and computing its partial of
-S^T and dP^T over its 256 columns, which the two exchange through
-distributed shared memory and sum in one order. dq runs CHUNKED_DQ_TILE
-q rows a CTA, one chunk a consumer, against 32-row K tiles in two
-stages and V in one (``dq_schedule``), S and dP recomputed for each
-chunk. Every head_dim that is a multiple of 8 up to 512 reaches a
-kernel.
+(256 fp32 a thread past the 128 of wgmma's widest N), so every kernel
+runs each item of its list as a cluster of two CTAs, CTA c holding only
+CHUNK-column chunk c of every operand: each computes its partials of
+the products that span all 512 columns over its chunk, the two exchange
+them through distributed shared memory and sum them in one order, so
+both hold the same scores bit for bit and no chunk recomputes them. The
+forward's 128-row q tiles against 64-row K/V tiles (partials of S);
+dq's CHUNKED_DQ_TILE-row q tiles against CHUNKED_INNER-row K/V tiles
+(``dq_schedule``; partials of S and dP, and of delta), each consumer a
+half of its chunk of dq; dk/dv's 64-row kv tiles, parts of the GQA
+group as at 256 (partials of S^T and dP^T). The resident dq is the one
+exception: at its 8 x 1024 the cluster measured slower than one CTA an
+item, which it keeps (a consumer a chunk, S and dP recomputed over all
+512 columns for each, against 32-row K/V tiles). Every head_dim that is
+a multiple of 8 up to 512 reaches a kernel.
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
@@ -145,18 +147,18 @@ SEQ_MULTIPLE = 8
 # The kernel widths, of every family and of the fp32 kernels (256 on the
 # Hopper bodies' wide paths: csrc/flash_fwd_sm90.cuh fwd_consumer_wide,
 # flash_bwd_sm90.cuh bwd_ring, DqWide and dkv_cta_wide; 512 on the
-# forward's wide body, chunked, and on dq_cta_512 and dkv_cta_512). No
-# width past 512: the forward's 128 q rows of Q (128 x D x 2 bytes) and a
-# K/V stage beside them fill the 227 KB of shared memory a block may use
-# there.
+# cluster bodies fwd_cta_512, dq_cta_512 and dkv_cta_512). No width past
+# 512: those bodies split each item between exactly two CTAs, one
+# CHUNK-column chunk each, whose shared memory (a chunk of the 128-row Q
+# tile beside two K/V stages and the exchange, 225 KB) has no room for a
+# wider chunk, and whose exchange pairs rank 0 with rank 1.
 HEAD_DIMS = (64, 128, 256, 512)
-# At head_dim 512: the columns of o, dq, dk or dv one consumer holds
-# (csrc kChunk; CHUNK-wide chunks, one CTA each for the forward and dk/dv,
-# one consumer each for dq), the q rows of a dq CTA (kDq512Rows), and the
-# rows of every tile streamed against a resident one (kTile512).
+# At head_dim 512: the columns of every operand one CTA of a cluster
+# holds (csrc kChunk), the q rows of a dq item (kDq512Rows), and the rows
+# of the K/V tiles the forward and dq stream (kKv512).
 CHUNK = 256
 CHUNKED_DQ_TILE = 64
-CHUNKED_INNER = 32
+CHUNKED_INNER = 64
 # The kernels' element types, by the code their C entries take.
 _DTYPE_CODES = {torch.bfloat16: _build.DTYPES["bf16"],
                 torch.float16: _build.DTYPES["f16"]}
@@ -546,8 +548,9 @@ def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
 def dq_schedule(n_rows: int, s: int, width: int,
                 device: Optional[torch.device] = None) -> torch.Tensor:
     """Every dq's work list over B * H rows at kernel width ``width``:
-    ``bwd_schedule``'s "rows" list, and at 512 (``dq_cta_512``)
-    CHUNKED_DQ_TILE-row q tiles against CHUNKED_INNER-row KV tiles."""
+    ``bwd_schedule``'s "rows" list, and at 512 (``dq_cta_512``, a
+    cluster of ``chunks(512)`` CTAs an item) CHUNKED_DQ_TILE-row q tiles
+    against CHUNKED_INNER-row KV tiles."""
     if width > 256:
         return tri_schedule("rows", n_rows, s, device, tile=CHUNKED_DQ_TILE,
                             inner=CHUNKED_INNER)
@@ -583,15 +586,18 @@ def kernel_dtype(dtype: torch.dtype) -> torch.dtype:
 def kernel_head_dim(d: int) -> int:
     """The kernel width head_dim ``d`` is zero-padded to: the least of
     HEAD_DIMS at or above it (264-512 pad to 512). Past 512 it raises:
-    the forward's 128 resident q rows of Q and a K/V stage would pass the
-    227 KB of shared memory a block may use (HEAD_DIMS)."""
+    the widest bodies split an item between two CTAs of CHUNK columns
+    each, and a CTA's chunk of the forward's 128-row Q tile, two K/V
+    stages and the exchange already take 225 KB of the 227 KB of shared
+    memory a block may use (HEAD_DIMS)."""
     for width in HEAD_DIMS:
         if d <= width:
             return width
     raise ValueError(f"flash kernels take head_dim up to {HEAD_DIMS[-1]}; "
-                     f"no kernel for head_dim {d} (a 128-row Q tile and a "
-                     "K/V stage pass the 227 KB of shared memory a block "
-                     "may use)")
+                     f"no kernel for head_dim {d} (the kernels split an "
+                     "item between two CTAs of 256 columns each, and a "
+                     "wider chunk passes the 227 KB of shared memory a "
+                     "block may use)")
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -797,7 +803,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel forward (the Hopper forward over 128-row q tiles,
-    longest first; at head_dim 512 one CTA per CHUNK columns of each):
+    longest first; at head_dim 512 a cluster of two CTAs each, one per
+    CHUNK columns):
     (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32)."""
     return _fwd_call("flash_fwd", "flash_fwd", q, k, v, causal, scale,
                      scheduled=True)
@@ -809,8 +816,9 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dq (the Hopper dq over 128-row q tiles, longest first; at
     head_dim 256 against three stages of 32-row K/V tiles, the next loads
-    under the products; at 512 over CHUNKED_DQ_TILE-row q tiles, a
-    consumer per chunk, ``dq_schedule``): (dq (B,S,H,D) of q's dtype,
+    under the products; at 512 over CHUNKED_DQ_TILE-row q tiles, one CTA
+    each, a consumer per chunk recomputing S and dP, ``dq_schedule``):
+    (dq (B,S,H,D) of q's dtype,
     delta = rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq", "flash_bwd", q, k, v, o, lse, do, causal,
                     scale, scheduled=True)
@@ -834,7 +842,8 @@ def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed-family kernel forward (the Hopper forward over 128-row q
     tiles, longest first, each consumer's softmax overlapped with its own
-    P V; at head_dim 256 and 512 in lockstep, at 512 one CTA per chunk):
+    P V; at head_dim 256 and 512 in lockstep, at 512 a cluster of two
+    CTAs an item, one per chunk):
     (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in natural log)."""
     return _fwd_call("flash_fwd_streamed", "flash_streamed", q, k, v, causal,
                      scale, scheduled=True)
@@ -847,7 +856,7 @@ def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Streamed-family kernel dq (the Hopper dq over 128-row q tiles,
     longest first, each consumer's Q and dO held in registers, exp2 on
     the natural-log lse; at head_dim 512 ``dq_schedule``'s tiles, a
-    consumer per chunk): (dq (B,S,H,D) of q's dtype, delta =
+    cluster of two CTAs each, one per chunk): (dq (B,S,H,D) of q's dtype, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
                     do, causal, scale, scheduled=True)
@@ -878,7 +887,8 @@ def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
 def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel forward (the Hopper forward over 128-row
-    q tiles, longest first; at head_dim 512 one CTA per chunk), causal:
+    q tiles, longest first; at head_dim 512 a cluster of two CTAs each,
+    one per chunk), causal:
     (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in base 2)."""
     _check_inputs(q, k, v)
     b, s, h, d = q.shape
@@ -896,7 +906,7 @@ def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dq from the base-2 lse (the Hopper dq over
     128-row q tiles, longest first; at head_dim 512 ``dq_schedule``'s
-    tiles, a consumer per chunk): (dq (B,S,H,D) of q's dtype, delta =
+    tiles, a cluster of two CTAs each, one per chunk): (dq (B,S,H,D) of q's dtype, delta =
     rowsum(dO*O) (B,H,S) fp32)."""
     _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape

@@ -18,7 +18,15 @@ next (264-512 to 512). Here:
 * the width-512 dk/dv's cluster walk (each chunk's partials of S^T and
   dP^T summed chunk 0 + chunk 1, P^T and dS^T rounded to bf16, each
   chunk's dk and dv, the GQA parts summed in order) against JAX's
-  backward kernels;
+  backward kernels; the forward's and dq's cluster walks likewise (the
+  chunks' partials of S, and of dP and delta, as each rank sums them, P
+  and dS rounded, each chunk's o or each half-chunk's dq) against JAX's
+  forward and backward kernels, with the ranks' S, dP and delta
+  bit-equal; the forward's and dq's cluster walks likewise (the
+  chunks' partials of S, and of dP and delta, summed in rank order, P
+  and dS rounded, each chunk's o or each half-chunk's dq) against JAX's
+  forward and backward kernels, with the ranks' S, dP and delta
+  bit-equal;
 * each wrapper, on bf16 or f16 CPU tensors that claim to be on the card,
   launching its width-512 instance on padded tensors with the list,
   workspace and tickets of that width;
@@ -29,7 +37,9 @@ Inputs come from numpy with a seed. Tolerances are the JAX flash tests'
 own: 2e-3 for outputs and lse, 5e-3 for gradients (f32 on both sides; the
 gap is summation order).
 """
+import collections
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +63,10 @@ GRAD_TOL = 5e-3
 # bf16 kernels' bound against their plain versions (chip_smoke.py
 # GRAD_REL_TOL).
 BF16_GRAD_TOL = 2e-2
+# The forward's o with P rounded to bf16 before P V, as the bf16 kernels
+# round it: their bound against the plain forward (chip_smoke.py
+# OUT_REL_TOL).
+BF16_OUT_TOL = 1e-2
 BLOCK = 64
 
 
@@ -84,9 +98,10 @@ FAMILIES = {
 }
 
 
-def _jax_family(fam, causal, scale):
-    """(forward, backward) of JAX family `fam`, called directly."""
-    kw = dict(scale=scale, block_q=BLOCK, block_k=BLOCK)
+def _jax_family(fam, causal, scale, block=BLOCK):
+    """(forward, backward) of JAX family `fam`, called directly with
+    `block`-row blocks."""
+    kw = dict(scale=scale, block_q=block, block_k=block)
     if fam == "triangular":
         return (lambda q, k, v, **x: fa_jax._flash_fwd_tri(q, k, v, **kw, **x),
                 lambda res, do: fa_jax._flash_bwd_tri(res, do, **kw))
@@ -243,11 +258,48 @@ def _ceil(a, b):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [8192, 4136, 1024, 200, 136])
+def test_fwd_list_at_512_covers_every_pair_once(s, causal):
+    # fwd_cta_512 walks the forward's (row, 128-row q tile) items, two
+    # CTAs each, against CHUNKED_INNER (64)-row K/V tiles to n_kt = min(n_all,
+    # 2 (qt + 1)); consumer cw's 64 rows stop at tile 2 qt + cw when
+    # causal. Every 64 x 64 tile pair that JAX's enumeration needs for
+    # rows before S, exactly once (a consumer whose rows all lie past S
+    # computes and stores nothing that counts); the CTAs' loops longest
+    # first.
+    n_rows, tile, kv = 3, fa_torch.FWD_TILE, fa_torch.CHUNKED_INNER
+    work = fa_torch.tri_schedule("rows", n_rows, s, tile=tile,
+                                 inner=tile).tolist()
+    nt, nk, nq = _ceil(s, tile), _ceil(s, kv), _ceil(s, kv)
+    assert sorted(map(tuple, work)) == [(r, t) for r in range(n_rows)
+                                        for t in range(nt)]
+    got, steps = [], []
+    for row, qt in work:
+        n_kt = min(nk, (qt + 1) * (tile // kv)) if causal else nk
+        steps.append(n_kt)
+        for cw in range(tile // kv):
+            qb = qt * (tile // kv) + cw
+            j_last = min(qb, n_kt - 1) if causal else n_kt - 1
+            if qb < nq:
+                got += [(row, qb, j) for j in range(j_last + 1)]
+    if causal:
+        qs, ks = fa_jax._tri_maps_row(nq, nk, kv, kv)
+        want = [(r, qi, ki) for r in range(n_rows)
+                for qi, ki in zip(qs.tolist(), ks.tolist())]
+    else:
+        want = [(r, qi, ki) for r in range(n_rows) for qi in range(nq)
+                for ki in range(nk)]
+    assert len(got) == len(set(got)) and sorted(got) == sorted(want)
+    assert steps == sorted(steps, reverse=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [8192, 4136, 1024, 200])
 def test_dq_list_at_512_covers_every_pair_once(s, causal):
-    # dq_cta_512 walks dq_schedule's (row, 64-row q tile) items against
-    # 32-row K/V tiles up to its causal bound (n_kt = min(n_all, 2 (qt +
-    # 1))): every tile pair the JAX enumeration needs, exactly once.
+    # dq_cta_512 walks dq_schedule's (row, 64-row q tile) items, two CTAs
+    # each, against 64-row K/V tiles up to its causal bound (n_kt =
+    # min(n_all, qt + 1)): every tile pair the JAX enumeration needs,
+    # exactly once.
     n_rows, tile, inner = 3, fa_torch.CHUNKED_DQ_TILE, fa_torch.CHUNKED_INNER
     work = fa_torch.dq_schedule(n_rows, s, 512).tolist()
     nt, ni = _ceil(s, tile), _ceil(s, inner)
@@ -257,6 +309,7 @@ def test_dq_list_at_512_covers_every_pair_once(s, causal):
     for row, qt in work:
         n_kt = min(ni, (qt + 1) * (tile // inner)) if causal else ni
         got += [(row, qt, j) for j in range(n_kt)]
+    assert tile == inner == 64  # dq_cta_512's 64-row q and K/V tiles
     if causal:
         tiles, inner_idx = fa_jax._tri_maps_row(nt, ni, tile, inner)
         want = [(r, t, i) for r in range(n_rows)
@@ -265,7 +318,7 @@ def test_dq_list_at_512_covers_every_pair_once(s, causal):
         want = [(r, t, i) for r in range(n_rows) for t in range(nt)
                 for i in range(ni)]
     assert len(got) == len(set(got)) and sorted(got) == sorted(want)
-    steps = [min(ni, (qt + 1) * 2) for _, qt in work]
+    steps = [min(ni, (qt + 1) * (tile // inner)) for _, qt in work]
     assert steps == sorted(steps, reverse=True)
     # Below 512 the 128-row tiles of bwd_schedule.
     assert torch.equal(fa_torch.dq_schedule(n_rows, s, 256),
@@ -405,6 +458,228 @@ def test_cluster_walk_matches_jax_at_512(fam, causal, h, kvh, parts):
         for name, a, b in (("dk", dk, dk_j), ("dv", dv, dv_j)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=tol,
                                        atol=tol, err_msg=f"{name} {rounded}")
+
+
+def _chunks(d):
+    return [slice(c * fa_torch.CHUNK, (c + 1) * fa_torch.CHUNK)
+            for c in range(fa_torch.chunks(d))]
+
+
+def _rank_sums(parts):
+    """What each rank of a cluster forms from the chunks' partials: rank c
+    adds the other's partial to its own (csrc add_part: own + other)."""
+    return [parts[c] + parts[1 - c] for c in range(len(parts))]
+
+
+def _fwd_cluster_walk_512(q, k, v, causal, scale, natural, rounded=True):
+    """What the width-512 forward's clusters compute, item by item, on CPU
+    tensors: for each (b * H + h, FWD_TILE-row q tile) item of the
+    forward's list and each consumer's 64 rows, over the CHUNKED_INNER-row
+    K/V tiles to its causal end, chunk c's partial S_c = Q_c K_c^T over
+    its CHUNK columns, S as each rank forms it (own + other); the online
+    softmax in base 2 (scale * log2 e folded in, the running max and sum
+    rescaled tile by tile), P rounded to bf16 as the kernel rounds it
+    before P V (kept fp32 when not ``rounded``); o_c += P V_c for each
+    chunk c; o = o / l and lse = m + log2(l), times ln 2 for the
+    natural-log families (``natural``). Returns (o, lse, ranks): ranks
+    holds every tile's S as rank 0 and rank 1 formed it."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    tile, kv = fa_torch.FWD_TILE, fa_torch.CHUNKED_INNER
+    sm = scale * fa_torch.LOG2E
+    o = torch.zeros((b, s, h, d))
+    lse = torch.zeros((b, h, s))
+    ranks = []
+    n_all = _ceil(s, kv)
+
+    def bf16(x):
+        return x.to(torch.bfloat16).float() if rounded else x
+
+    for row, qt in fa_torch.tri_schedule("rows", b * h, s, tile=tile,
+                                         inner=tile).tolist():
+        bb, hh = divmod(row, h)
+        j_kv = hh // g
+        n_kt = min(n_all, (qt + 1) * (tile // kv)) if causal else n_all
+        for cw in range(tile // kv):
+            r0 = qt * tile + cw * kv
+            qi = torch.arange(r0, min(s, r0 + kv))
+            if not len(qi):
+                continue
+            j_last = (min(qt * (tile // kv) + cw, n_kt - 1) if causal
+                      else n_kt - 1)
+            m = torch.full((len(qi),), fa_torch.NEG_INF)
+            lsum = torch.zeros(len(qi))
+            acc = torch.zeros((len(qi), d))
+            for j in range(j_last + 1):
+                ki = torch.arange(j * kv, min(s, j * kv + kv))
+                sums = _rank_sums([q[bb, qi, hh, cols] @ k[bb, ki, j_kv, cols].T
+                                   for cols in _chunks(d)])
+                ranks.append(sums)
+                x = sums[0] * sm
+                if causal:
+                    x = x.masked_fill(ki[None] > qi[:, None], -math.inf)
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                pr = torch.exp2(x - m_new[:, None])
+                lsum = lsum * alpha + pr.sum(-1)
+                acc *= alpha[:, None]
+                for cols in _chunks(d):
+                    acc[:, cols] += bf16(pr) @ v[bb, ki, j_kv, cols]
+                m = m_new
+            o[bb, qi, hh] = acc / lsum[:, None]
+            x = m + torch.log2(lsum)
+            lse[bb, hh, qi] = x * math.log(2) if natural else x
+    return o, lse, ranks
+
+
+def _dq_cluster_walk_512(q, k, v, o, lse, do, causal, scale, base,
+                         rounded=True):
+    """What the width-512 dq's clusters compute, item by item, on CPU
+    tensors: for each (b * H + h, CHUNKED_DQ_TILE-row q tile) item of
+    dq_schedule's list, delta = part 0 + part 1 of the chunks' partials
+    rowsum(dO_c * O_c); over the CHUNKED_INNER-row K/V tiles to the causal
+    end, the chunks' partials of S = Q K^T and dP = dO V^T as each rank
+    forms them (own + other); P = exp(S scale - lse) in the family's base
+    (``base``), masked where q < k when causal, dS = P (dP - delta),
+    rounded to bf16 as the kernel rounds it before dS K (kept fp32 when
+    not ``rounded``); each half of each chunk's dq += dS K_half; dq times
+    scale. Returns (dq, delta, ranks): ranks holds each item's delta and
+    every tile's (S, dP) as rank 0 and rank 1 formed them."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    exp, _, mul = fa_torch._BASES[base]
+    tile, kv = fa_torch.CHUNKED_DQ_TILE, fa_torch.CHUNKED_INNER
+    dq = torch.zeros((b, s, h, d))
+    delta = torch.zeros((b, h, s))
+    ranks = []
+    n_all = _ceil(s, kv)
+    halves = [slice(x * fa_torch.CHUNK // 2, (x + 1) * fa_torch.CHUNK // 2)
+              for x in range(2 * fa_torch.chunks(d))]
+    for row, qt in fa_torch.dq_schedule(b * h, s, d).tolist():
+        bb, hh = divmod(row, h)
+        j_kv = hh // g
+        qi = torch.arange(qt * tile, min(s, qt * tile + tile))
+        parts = [(do[bb, qi, hh, cols] * o[bb, qi, hh, cols]).sum(-1)
+                 for cols in _chunks(d)]
+        dlt = [parts[0] + parts[1] for _ in parts]  # part 0 + part 1 in both
+        ranks.append(("delta", dlt))
+        delta[bb, hh, qi] = dlt[0]
+        n_kt = min(n_all, qt + 1) if causal else n_all
+        for j in range(n_kt):
+            ki = torch.arange(j * kv, min(s, j * kv + kv))
+            s_r = _rank_sums([q[bb, qi, hh, cols] @ k[bb, ki, j_kv, cols].T
+                              for cols in _chunks(d)])
+            dp_r = _rank_sums([do[bb, qi, hh, cols] @ v[bb, ki, j_kv, cols].T
+                               for cols in _chunks(d)])
+            ranks.append(("S", s_r))
+            ranks.append(("dP", dp_r))
+            pr = exp(s_r[0] * scale * mul - lse[bb, hh, qi][:, None])
+            if causal:
+                pr = pr.masked_fill(ki[None] > qi[:, None], 0.0)
+            ds = pr * (dp_r[0] - dlt[0][:, None])
+            if rounded:
+                ds = ds.to(torch.bfloat16).float()
+            for cols in halves:
+                dq[bb, qi, hh, cols] += ds @ k[bb, ki, j_kv, cols]
+    return dq * scale, delta, ranks
+
+
+# (family, causal, S, H, KVH): each family in each causal mode it takes,
+# MHA and a GQA group, a ragged S (200 against 64-row tiles).
+WALKS_512 = [("triangular", True, 192, 4, 4), ("triangular", True, 200, 6, 2),
+             ("resident", True, 200, 4, 4), ("resident", True, 128, 6, 2),
+             ("resident", False, 128, 6, 2), ("resident", False, 200, 4, 4),
+             ("streamed", False, 200, 6, 2), ("streamed", False, 192, 4, 4)]
+
+
+def _jax_block(s):
+    """JAX's block at S: BLOCK where it divides S, else S itself (JAX's
+    kernels take only whole blocks; test_torch_flash_ragged.py)."""
+    return BLOCK if s % BLOCK == 0 else s
+
+
+def _one_thread(fn, *args):
+    """fn(*args) with torch on one thread: the walks' products are small,
+    and a thread pool that other test processes share only waits."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*args)
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("fam,causal,s,h,kvh", WALKS_512)
+def test_fwd_cluster_walk_matches_jax_at_512(fam, causal, s, h, kvh):
+    # The width-512 forward's cluster walk against JAX's forward of the
+    # family (interpret mode, 64-row blocks) at head_dim 512: o in fp32 to
+    # the JAX tests' bound, with P rounded to bf16 as the kernel runs it
+    # to the bf16 kernels' bound; lse, in the family's base, to the JAX
+    # tests' bound in both.
+    d = 512
+    q, k, v, _ = _arrays(s + h, s=s, h=h, kvh=kvh, d=d)
+    scale = d ** -0.5
+    fwd_j, _ = _jax_family(fam, causal, scale, _jax_block(s))
+    o_j, lse_j = fwd_j(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    for rounded, tol in ((False, OUT_TOL), (True, BF16_OUT_TOL)):
+        o, lse, _ = _one_thread(_fwd_cluster_walk_512, qt, kt, vt, causal,
+                                scale, fam != "triangular", rounded)
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_j), rtol=tol,
+                                   atol=tol, err_msg=f"o {rounded}")
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j),
+                                   rtol=OUT_TOL, atol=OUT_TOL,
+                                   err_msg=f"lse {rounded}")
+
+
+@pytest.mark.parametrize("fam,causal,s,h,kvh", [
+    w for w in WALKS_512 if w[0] != "resident"])
+def test_dq_cluster_walk_matches_jax_at_512(fam, causal, s, h, kvh):
+    # The width-512 dq's cluster walk (the triangular and streamed dq; the
+    # resident one keeps a CTA an item) from JAX's own saved forward
+    # against JAX's backward of the family at head_dim 512: dq in fp32 to
+    # the JAX tests' bound, with dS rounded to bf16 to the bf16 kernels'
+    # bound; delta against rowsum(dO * O) over all 512 columns.
+    d = 512
+    q, k, v, do = _arrays(2 * s + h, s=s, h=h, kvh=kvh, d=d)
+    scale = d ** -0.5
+    fwd_j, bwd_j = _jax_family(fam, causal, scale, _jax_block(s))
+    qj, kj, vj, doj = map(jnp.asarray, (q, k, v, do))
+    o_j, lse_pad = fwd_j(qj, kj, vj, keep_lse_pad=True)
+    dq_j, _, _ = bwd_j((qj, kj, vj, o_j, lse_pad), doj)
+    _, lse_j = fwd_j(qj, kj, vj)
+    qt, kt, vt, ot, lset, dot = map(torch.from_numpy, (
+        q, k, v, np.array(o_j), np.array(lse_j), do))
+    base = "2" if fam == "triangular" else "e"
+    for rounded, tol in ((False, GRAD_TOL), (True, BF16_GRAD_TOL)):
+        dq, delta, _ = _one_thread(_dq_cluster_walk_512, qt, kt, vt, ot,
+                                   lset, dot, causal, scale, base, rounded)
+        np.testing.assert_allclose(dq.numpy(), np.asarray(dq_j), rtol=tol,
+                                   atol=tol, err_msg=f"dq {rounded}")
+    np.testing.assert_allclose(
+        delta.numpy(), (dot * ot).sum(-1).permute(0, 2, 1).numpy(),
+        rtol=OUT_TOL, atol=OUT_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cluster_ranks_agree_bit_for_bit_at_512(causal):
+    # Every S (forward and dq), dP and delta that the two ranks of a
+    # width-512 cluster form from their chunks' partials is the same bit
+    # for bit, so both take the same softmax and the same dS: o and dq
+    # are deterministic. Ragged S, a GQA group.
+    s, h, kvh, d = 200, 6, 2, 512
+    q, k, v, do = map(torch.from_numpy,
+                      _arrays(31 + causal, s=s, h=h, kvh=kvh, d=d))
+    scale = d ** -0.5
+    o, lse, fwd_ranks = _one_thread(_fwd_cluster_walk_512, q, k, v, causal,
+                                    scale, True)
+    _, _, dq_ranks = _one_thread(_dq_cluster_walk_512, q, k, v, o, lse, do,
+                                 causal, scale, "e")
+    kinds = collections.Counter(kind for kind, _ in dq_ranks)
+    assert kinds["delta"] == _ceil(s, fa_torch.CHUNKED_DQ_TILE) * h
+    assert kinds["S"] == kinds["dP"] > 0 and fwd_ranks
+    for r0, r1 in fwd_ranks + [pair for _, pair in dq_ranks]:
+        assert torch.equal(r0, r1)
 
 
 # ----------------------------------------------------- the wrappers at 512

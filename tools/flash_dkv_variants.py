@@ -32,14 +32,15 @@ card.
 
 `--width 512` times the width-512 dk/dv (dkv_cta_512) instead: each
 entry of DESIGNS_512 rewrites constants of csrc/flash_bwd_sm90.cuh in a
-copy of csrc/ under build/dkv_variants/NAME, and `--parent DIR` adds
-that checkout's sources as they are ("parent"); each is built with the
-port's nvcc flags (every design and family at once, its ptxas registers
-and spills printed) and run through the port's own wrappers, its
-library swapped in. At each family's width-512 main shape
-(chip_smoke.py's [kernels d512]) each is held against the plain backward
-(chip_smoke's bounds) and against itself run twice (bit-identical), then
-timed in turns with the checkout's body (base, designs, then reversed,
+copy of csrc/ under build/stpu_torch_kernels/dkv_variants/NAME, and
+`--parent DIR` adds that checkout's sources as they are ("parent");
+each is built with the port's nvcc flags (every design and family at
+once, its ptxas registers and spills printed) and run through the
+port's own wrappers, its library swapped in (tools/designs_512.py). At
+each family's width-512 main shape (chip_smoke.py's [kernels d512]) each
+is held against the plain backward (chip_smoke's bounds) and against
+itself run twice (bit-identical), then timed in turns with the
+checkout's body (base, designs, then reversed,
 each round), each timing beside nvidia-smi's SM clock; last a
 `READINGS` JSON line. Imports nothing of JAX; needs a CUDA card, the
 CUDA toolkit and this file's checkout.
@@ -47,10 +48,8 @@ CUDA toolkit and this file's checkout.
 import argparse
 import json
 import pathlib
-import re
 import shutil
 import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -60,6 +59,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402  (the checkout's, for its timer and checks)
+import designs_512  # noqa: E402
 from skypilot_tpu_torch.ops import _build  # noqa: E402
 from skypilot_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
@@ -306,33 +306,18 @@ def _one_shape(fam, shape, sms, args, readings):
     return out
 
 
-def _with_constants(text, consts):
-    for name, value in consts.items():
-        text, n = re.subn(rf"(constexpr \w+ {name} = )[^;]+;",
-                          rf"\g<1>{value};", text)
-        assert n == 1, name
-    return text
-
-
 def build_designs(parent):
     """{name: {source: loaded library}} of every width-512 design (and of
     the parent's sources), all nvcc runs at once; prints each dk/dv
     instance's ptxas line."""
-    root = REPO / "build" / "dkv_variants"
-    dirs = {}
-    for name, consts in DESIGNS_512:
-        out = root / name
-        if out.exists():
-            shutil.rmtree(out)
-        shutil.copytree(_build.CSRC, out)
-        hdr = out / "flash_bwd_sm90.cuh"
-        hdr.write_text(_with_constants(hdr.read_text(), consts))
-        dirs[name] = out
+    root = _build.BUILD_ROOT / "dkv_variants"
+    dirs = designs_512.design_dirs(
+        {name: {"flash_bwd_sm90.cuh": consts}
+         for name, consts in DESIGNS_512}, root, parent)
     if parent is not None:
-        src = parent.resolve() / "skypilot_tpu_torch" / "csrc"
-        dirs["parent"] = src
         # s_once: the patch applies to a header that still holds the
         # parent body (from its DkvSmem512 on); skipped where it does not.
+        src = dirs["parent"]
         hdr = (src / "flash_bwd_sm90.cuh").read_text()
         at = hdr.find("struct DkvSmem512 {")
         head, tail = hdr[:at], hdr[at:]
@@ -348,41 +333,8 @@ def build_designs(parent):
         else:
             print("[design] s_once: the parent's header has no parent body "
                   "to patch; not built", flush=True)
-    procs = []
-    for name, src in dirs.items():
-        out = root / name
-        out.mkdir(parents=True, exist_ok=True)
-        for source in _SOURCES.values():
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
-                   str(out / f"lib{source}.so"), str(src / f"{source}.cu")]
-            procs.append((name, source, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-    libs = {}
-    for name, source, out, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc {name} {source} failed:\n{log}")
-        lib = _build.load_library(out / f"lib{source}.so", source)
-        libs.setdefault(name, {})[source] = lib
-        print(f"[ptxas] {name} {source}: " + "; ".join(
-            line for line in chip_smoke._ptxas_summary(log)
-            if "dkv" in line and "<512" in line), flush=True)
-    return libs
-
-
-class Swap:
-    """The port's wrappers on other libraries within the block."""
-
-    def __init__(self, libs):
-        self.libs = libs
-
-    def __enter__(self):
-        self.saved = {s: _build._LIBS.get(s) for s in self.libs}
-        _build._LIBS.update(self.libs)
-
-    def __exit__(self, *exc):
-        _build._LIBS.update(self.saved)
+    return designs_512.build(dirs, root, sorted(set(_SOURCES.values())),
+                             "dkv")
 
 
 def designs_512(args):
@@ -405,10 +357,7 @@ def _designs_at(fam, shape, libs, args):
     q, k, v, do = chip_smoke._inputs(shape, 0)
     o, lse, _, delta, _, _ = fns.run(q, k, v, do)
     _, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
-    source = _SOURCES[fam]
-    runs = {"base": Swap({})}
-    runs.update((name, Swap({source: lib[source]}))
-                for name, lib in libs.items())
+    runs = designs_512.runs_for(libs, _SOURCES[fam])
     for name, swap in runs.items():
         with swap:
             got = fns.dkv(q, k, v, do, lse, delta)
@@ -422,28 +371,12 @@ def _designs_at(fam, shape, libs, args):
               flush=True)
         chip_smoke.check(same, f"{name} is not deterministic at {shape}")
     del dk_p, dv_p, got, again
-
-    def run(swap):
-        with swap:
-            fns.dkv(q, k, v, do, lse, delta)
-
-    times = {name: [] for name in runs}
-    clocks = {name: [] for name in runs}
-    for r in range(args.rounds):
-        order = list(runs) + list(runs)[::-1]
-        for name in order:
-            times[name].append(chip_smoke.time_ms(
-                lambda: run(runs[name]), args.reps))
-            clk = chip_smoke.CLOCKS.last()
-            clocks[name].append(clk and clk["sm_mhz"])
-    med = {name: statistics.median(ts) for name, ts in times.items()}
-    for name, ts in times.items():
-        print(f"[design] {fam} {shape} {name}: median {med[name]:.4f} ms "
-              f"({med[name] / med['base']:.3f}x base; turns "
-              f"{[round(x, 4) for x in ts]}; SM MHz {clocks[name]})",
-              flush=True)
-    return {"family": fam, "shape": list(shape), "ms": med,
-            "turns": times, "sm_mhz": clocks}
+    pairs = s * (s + 1) // 2 if causal else s * s
+    bound_ms, _ = chip_smoke._bound(8 * d * b * h * pairs, 0)
+    rec = designs_512.turns(f"{fam} {shape} dk/dv", runs,
+                            lambda: fns.dkv(q, k, v, do, lse, delta),
+                            args.rounds, args.reps, bound_ms)
+    return {"family": fam, "shape": list(shape), **rec}
 
 
 if __name__ == "__main__":

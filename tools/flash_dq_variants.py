@@ -3,6 +3,8 @@
 
     python3 tools/flash_dq_variants.py                  # head_dim 256
     python3 tools/flash_dq_variants.py --width 128 --causal --rounds 5
+    git archive HEAD | tar -x -C build/parent     # the parent, gitignored
+    python3 tools/flash_dq_variants.py --width 512 --parent build/parent
 
 csrc/flash_bwd_sm90.cuh's dq_cta takes a softmax base, kRegA (how many of
 a consumer's resident A operands it holds in registers for its whole
@@ -56,14 +58,24 @@ holds its dq against the family's plain version and itself run twice
 (bit-identical); then times each group's variants in turns, forward and
 reversed order each round, each timing beside nvidia-smi's SM clock and
 power (chip_smoke.py's sampler), and prints each median beside the
-bound. Imports nothing of JAX; needs a CUDA card, the CUDA toolkit and
-this file's checkout.
+bound.
+
+At head_dim 512 (--width 512), the width-512 dq (dq_cta_512: a cluster
+of two CTAs an item, each its 256-column chunk of Q, dO, K and V,
+exchanging its partials of S and dP): the checkout's body ("base"), each
+design of DESIGNS_512 (tools/designs_512.py: a copy of csrc/ with
+constants set) and, with `--parent DIR`, that checkout's body as it is
+("parent"), through the port's own wrappers at each family's width-512
+main shape, each held against the plain backward's dq and against
+itself run twice (bit-identical), then timed in turns; last a
+`READINGS` JSON line. Imports nothing of JAX; needs a CUDA card, the
+CUDA toolkit and this file's checkout.
 """
 import argparse
 import ctypes
 import hashlib
+import json
 import pathlib
-import re
 import shutil
 import statistics
 import subprocess
@@ -75,6 +87,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402  (the checkout's, for its timer and checks)
+import designs_512  # noqa: E402
 from skypilot_tpu_torch.ops import _build  # noqa: E402
 from skypilot_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
@@ -114,6 +127,36 @@ GROUPS = {
            ((2, 1000, 8, 1, 256, False), (1, 200, 16, 16, 256, True))),
           (fa.STREAMED, chip_smoke.STR_WIDE_MAIN_SHAPE,
            ("str", "str_u", "str_w", "str_k2v1u"), ())),
+}
+
+# The width-512 dq's designs beside the checkout's (three K stages, one V
+# stage; the remote arrival that frees the exchange buffers a release at
+# CTA scope): "k2v2", two K stages and two V stages; "cluster_release",
+# that arrival a release at cluster scope and its wait an acquire there.
+# (Each consumer's A operand, Q_c or dO_c, held in registers for the
+# whole loop spilled and ran 1.14-1.32x slower; it is gone from csrc/:
+# PERF.md.)
+_BWD = "flash_bwd_sm90.cuh"
+DESIGNS_512 = {
+    "k2v2": {_BWD: {"kDq512KSlots": "2", "kDq512VSlots": "2"}},
+    "cluster_release": {
+        "flash_fwd_sm90.cuh": [
+            ("@p mbarrier.arrive.shared::cluster.b64",
+             "@p mbarrier.arrive.release.cluster.shared::cluster.b64")],
+        _BWD: [("      mbar_wait(x_free, j & 1);\n",
+                "      mbar_wait_cluster(x_free, j & 1);\n")]},
+    # Probe: no exchange between the CTAs (each sums its own partial with
+    # whatever its buffer holds, never written or awaited): what the
+    # exchange costs.
+    "probe_noxch": {_BWD: [
+        ("  mbar_expect_tx_if(x_full, L::kPart, tid == 0);\n"
+         "  partial(x, 0);\n  send_part(x, x_dst, x_bar);\n",
+         "  partial(x, 0);\n"),
+        ("    mbar_wait_cluster(x_full, j & 1);\n#pragma unroll\n",
+         "#pragma unroll\n"),
+        ("    mbar_expect_tx_if(x_full, L::kPart, more && tid == 0);\n", ""),
+        ("    if (more) {\n      mbar_wait(x_free, j & 1);\n"
+         "      send_part(xn, x_dst, x_bar);\n    }\n", "")]},
 }
 
 _SOURCE = """#include "flash_bwd_sm90.cuh"
@@ -295,9 +338,60 @@ def _time(names, runs, shape, args, facts):
     return out
 
 
+def width_512(args):
+    """--width 512: the checkout's body, DESIGNS_512 and the parent's,
+    checked, then timed in turns at each family's main shape."""
+    _build.build_all()
+    root = _build.BUILD_ROOT / "dq_variants_512"
+    dirs = designs_512.design_dirs(DESIGNS_512, root, args.parent)
+    libs = designs_512.build(
+        dirs, root, sorted(set(designs_512.SOURCES.values())), "dq")
+    readings = []
+    chip_smoke.CLOCKS.start()
+    try:
+        for fam, shape in designs_512.SHAPES:
+            b, s, h, kvh, d, causal = shape
+            fns = chip_smoke.Family(fa, fam, causal, d ** -0.5)
+            q, k, v, do = chip_smoke._inputs(shape, 0)
+            o, lse = fns.fwd(q, k, v)
+            dq_p, _, _ = fns.bwd_plain(q, k, v, o, lse, do)
+            runs = designs_512.runs_for(libs, designs_512.SOURCES[fam])
+            for name, swap in runs.items():
+                if designs_512.is_probe(name):
+                    continue
+                with swap:
+                    got, again = (fns.dq(q, k, v, o, lse, do),
+                                  fns.dq(q, k, v, o, lse, do))
+                    torch.cuda.synchronize()
+                chip_smoke._hold(f"[design] {name} {fam} dq vs plain",
+                                 shape, (("dq", (got[0], dq_p),
+                                          chip_smoke.GRAD_REL_TOL),))
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                print(f"[design] {name} {fam} {shape}: dq and delta "
+                      f"bit-identical twice {same}", flush=True)
+                chip_smoke.check(same, f"{name} is not deterministic")
+            del dq_p, got, again
+            torch.cuda.empty_cache()
+            pairs = s * (s + 1) // 2 if causal else s * s
+            bound_ms, _ = chip_smoke._bound(6 * d * b * h * pairs, 0)
+            rec = designs_512.turns(f"{fam} {shape} dq", runs,
+                                    lambda: fns.dq(q, k, v, o, lse, do),
+                                    args.rounds, args.reps, bound_ms)
+            readings.append({"family": fam, "shape": list(shape), **rec})
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+    finally:
+        chip_smoke.CLOCKS.stop()
+    print("READINGS " + json.dumps(readings), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--width", type=int, choices=(128, 256), default=256)
+    ap.add_argument("--width", type=int, choices=(128, 256, 512),
+                    default=256)
+    ap.add_argument("--parent", type=pathlib.Path,
+                    help="--width 512: a checkout whose body is timed too")
     ap.add_argument("--seq", type=int, default=8192, help="width 128 only")
     ap.add_argument("--batch", type=int, default=1, help="width 128 only")
     ap.add_argument("--causal", action="store_true", help="width 128 only")
@@ -309,10 +403,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
+    chip_smoke.phase_device()
+    if args.width == 512:
+        return width_512(args)
     variants = VARIANTS[args.width]
     if args.only:
         variants = {n: variants[n] for n in args.only.split(",")}
-    chip_smoke.phase_device()
     built = build(variants)
     facts = report(variants, built)
     if args.width == 128:

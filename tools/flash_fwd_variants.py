@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""The width-256 Hopper forward's designs, timed in turns on one card.
+"""The width-256 and width-512 Hopper forward's designs, timed in turns on
+one card.
 
     python3 tools/flash_fwd_variants.py
     python3 tools/flash_fwd_variants.py --only p,q --rounds 5
+    git archive HEAD | tar -x -C build/parent     # the parent, gitignored
+    python3 tools/flash_fwd_variants.py --width 512 --parent build/parent
 
 csrc/flash_fwd_sm90.cuh's fwd_cta_wide (the forward's CTA at head_dim
 256: lockstep over a two-stage ring of 64-row K/V tiles) takes kQReg, the
@@ -35,12 +38,22 @@ beside the bound and the rate at which its K/V tiles leave L2 (every
 CTA's tiles, over the cluster size). For each instance it also prints
 ptxas's registers, spills and "Potential Performance Loss" notes and the
 SASS's HGMMA, UTMALDG (and its forms) and WARPGROUP.DEPBAR counts.
+
+`--width 512` times the width-512 forward (fwd_cta_512: a cluster of two
+CTAs an item, each its 256-column chunk of Q, K and V, exchanging its
+partial of S) instead: the checkout's body ("base"), each design of
+DESIGNS_512 (tools/designs_512.py: a copy of csrc/ with constants set)
+and, with `--parent DIR`, that checkout's body as it is ("parent"),
+through the port's own wrappers at each family's width-512 main shape,
+each held against the plain forward and against itself run twice
+(bit-identical), then timed in turns; last a `READINGS` JSON line.
 Imports nothing of JAX; needs a CUDA card, the CUDA toolkit and this
 file's checkout.
 """
 import argparse
 import ctypes
 import hashlib
+import json
 import pathlib
 import re
 import shutil
@@ -54,6 +67,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402  (the checkout's, for its timer and checks)
+import designs_512  # noqa: E402
 from skypilot_tpu_torch.ops import _build  # noqa: E402
 from skypilot_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
@@ -76,6 +90,38 @@ SHAPES = (("7w", chip_smoke.STR_WIDE_MAIN_SHAPE),
 CHECK_SHAPES = ((2, 1000, 8, 1, 256, False), (1, 4136, 8, 1, 256, True),
                 (1, 200, 16, 16, 256, True), (2, 1000, 6, 2, 256, True))
 KV_TILE = 64  # kBNWide
+# The width-512 forward's designs beside the checkout's (each consumer's
+# partial of S_{j + 1} computed and sent after tile j's softmax, before
+# its P V; its first 4 of 16 k steps with Q_c from registers; two K and
+# two V stages; the remote arrival that frees an exchange buffer a
+# release at CTA scope): "qreg0" and "qreg8", none or 8 of the k steps
+# with Q_c from registers; "k3v1", three K stages and one V stage;
+# "cluster_release", that arrival a release at cluster scope and its wait
+# an acquire there. (Computing and sending the partial of S_{j + 1} before
+# tile j's softmax, S_j and S_{j + 1} live together, spilled and ran
+# 1.14-1.23x slower; it is gone from csrc/: PERF.md.)
+_FWD = "flash_fwd_sm90.cuh"
+_SEND = "      mbar_wait(x_free, j & 1);\n      send_part(sn, x_dst, x_bar);"
+DESIGNS_512 = {
+    "qreg0": {_FWD: {"kFwd512QReg": "0"}},
+    "qreg8": {_FWD: {"kFwd512QReg": "8"}},
+    "k3v1": {_FWD: {"kFwd512KSlots": "3", "kFwd512VSlots": "1"}},
+    "cluster_release": {_FWD: [
+        ("@p mbarrier.arrive.shared::cluster.b64",
+         "@p mbarrier.arrive.release.cluster.shared::cluster.b64"),
+        (_SEND, _SEND.replace("mbar_wait(", "mbar_wait_cluster("))]},
+    # Probe: no exchange (each CTA's softmax on its own partial of S, the
+    # other's buffer read but never written or awaited): what the
+    # exchange costs.
+    "probe_noxch": {_FWD: [
+        ("  mbar_expect_tx_if(x_full, L::kPart, tid == 0);\n"
+         "  partial(s, 0);\n  send_part(s, x_dst, x_bar);\n",
+         "  partial(s, 0);\n"),
+        ("    mbar_wait_cluster(x_full, j & 1);\n    add_part(s, xs);",
+         "    add_part(s, xs);"),
+        ("    mbar_expect_tx_if(x_full, L::kPart, more && tid == 0);\n", ""),
+        (_SEND, "")]},
+}
 
 # The load-only CTA, in clusters of 1 or 2 (the launch's): the forward's
 # shared-memory layout and ring; box c of K's and of V's four issued by
@@ -396,6 +442,54 @@ def _time(label, designs, runs, shape, args):
     return out
 
 
+def width_512(args):
+    """--width 512: the checkout's body, DESIGNS_512 and the parent's,
+    checked, then timed in turns at each family's main shape."""
+    _build.build_all()
+    root = _build.BUILD_ROOT / "fwd_variants_512"
+    dirs = designs_512.design_dirs(DESIGNS_512, root, args.parent)
+    libs = designs_512.build(
+        dirs, root, sorted(set(designs_512.FWD_SOURCES.values())), "fwd")
+    readings = []
+    chip_smoke.CLOCKS.start()
+    try:
+        for fam, shape in designs_512.SHAPES:
+            b, s, h, kvh, d, causal = shape
+            fns = chip_smoke.Family(fa, fam, causal, d ** -0.5)
+            q, k, v, _ = chip_smoke._inputs(shape, 0)
+            o_p, lse_p = fns.fwd_plain(q, k, v)
+            runs = designs_512.runs_for(libs, designs_512.FWD_SOURCES[fam])
+            for name, swap in runs.items():
+                if designs_512.is_probe(name):
+                    continue
+                with swap:
+                    got, again = fns.fwd(q, k, v), fns.fwd(q, k, v)
+                    torch.cuda.synchronize()
+                chip_smoke._hold(f"[design] {name} {fam} forward vs plain",
+                                 shape, (("o", (got[0], o_p),
+                                          chip_smoke.OUT_REL_TOL),
+                                         ("lse", (got[1], lse_p),
+                                          chip_smoke.OUT_REL_TOL)))
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                print(f"[design] {name} {fam} {shape}: bit-identical twice "
+                      f"{same}", flush=True)
+                chip_smoke.check(same, f"{name} is not deterministic")
+            del o_p, lse_p, got, again
+            torch.cuda.empty_cache()
+            pairs = s * (s + 1) // 2 if causal else s * s
+            bound_ms, _ = chip_smoke._bound(4 * d * b * h * pairs, 0)
+            rec = designs_512.turns(f"{fam} {shape} forward", runs,
+                                    lambda: fns.fwd(q, k, v), args.rounds,
+                                    args.reps, bound_ms)
+            readings.append({"family": fam, "shape": list(shape), **rec})
+            del q, k, v
+            torch.cuda.empty_cache()
+    finally:
+        chip_smoke.CLOCKS.stop()
+    print("READINGS " + json.dumps(readings), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
@@ -404,12 +498,17 @@ def main() -> int:
                     help="comma-separated designs (default: all)")
     ap.add_argument("--shapes", default="7w,1w,4w",
                     help="comma-separated main shapes to time")
+    ap.add_argument("--width", type=int, choices=(256, 512), default=256)
+    ap.add_argument("--parent", type=pathlib.Path,
+                    help="--width 512: a checkout whose body is timed too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
-    designs = list(DESIGNS) if not args.only else args.only.split(",")
     chip_smoke.phase_device()
+    if args.width == 512:
+        return width_512(args)
+    designs = list(DESIGNS) if not args.only else args.only.split(",")
     built = build(sorted({DESIGNS[n][0] for n in designs}))
     report(built)
     summary = []
