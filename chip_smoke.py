@@ -11,13 +11,13 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    spills per kernel, and each Hopper kernel's launch registers, shared
    memory, threads and setmaxnreg split; cuobjdump -sass must find HGMMA
    (wgmma) and UTMALDG (TMA load) instructions, and fewer wgmma waits than
-   wgmmas, in every instance (head_dim 64, 128, 256 and 512; bf16 and
-   f16) of
+   wgmmas, in every instance (head_dim 64, 128, 256, 512 and 2048, the
+   one instance of the widths past 512; bf16 and f16) of
    the nine Hopper kernels (flash_fwd, flash_dq, flash_dkv, flash_fwd_tri,
    flash_dq_tri, flash_dkv_tri, flash_fwd_streamed, flash_dq_streamed,
    flash_dkv_streamed), and FFMA and no HMMA or HGMMA in every instance of
-   the fp32 dq and dk/dv (exact fp32), which ptxas must build without
-   spills;
+   the fp32 forward, dq and dk/dv and in their wide bodies past 512 (exact
+   fp32), which ptxas must build without spills;
 3. kernels: each kernel of the three families against its plain PyTorch
    version on the card in bf16 (the resident family at its training
    shape and four others, causal and not, two with ragged S; the
@@ -59,7 +59,17 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    non-causal at 1 x 4096, 4136 (MHA) and 4160) against the plain
    versions, one launch of each kernel a trio, at each main shape the
    pair bit-identical twice, f16, times and SDPA's time with the backend
-   it picked (the only one that takes 512 with GQA is MATH);
+   it picked (the only one that takes 512 with GQA is MATH); then past
+   head_dim 512 ([kernels dxwide]: the cluster bodies of width / 256
+   CTAs an item, one instance for every width, each CTA's partials read
+   by every rank in rank order; at width 1024 the resident trio at 8 x
+   512, the triangular at 1 x 8192 and the streamed non-causal at 1 x
+   4096; at 768 ragged S 200, 1000 and 4136, S 4160, MHA and a GQA group
+   of 6; at 2048 one shape a family) against the plain versions, one
+   launch of each kernel a trio, the pair bit-identical twice at every
+   shape, at each main shape f16, times and SDPA's time with its backend,
+   and the trio's time at the main shape's batch, S and heads at widths
+   768 and 2048;
    then the public attention op through autograd, with exactly one
    launch of each kernel of its family: at a ragged S (200) against the
    plain versions; at head_dim 16, 96 and 192 (zero-padded to the
@@ -71,11 +81,14 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    (resident), 320 (triangular), 392 (streamed) and 512 (all three)
    zero-padded to the width-512 kernels, one launch of each kernel of
    the family, against the plain versions at the caller's head_dim, the
-   padded columns of the kernels' outputs exactly 0, and head_dim 520 a
-   ValueError naming it before any launch; and with f32 inputs (2 x 256,
+   padded columns of the kernels' outputs exactly 0, the same for head_dim
+   520 (triangular) and 640 (resident) at width 768, 1000 (resident and
+   streamed) at 1024, 1536 (triangular) and 2048 (resident), and head_dim
+   2056 a ValueError naming it before any launch; and with f32 inputs (2 x 256,
    4 heads, 2 KV heads, head_dim 64, causal and not; 1 x 200 at head_dim
    128; 1 x 2048 and 1 x 4096 at head_dim 256, 8 heads over 1; 1 x 1024
-   at 512, causal and not; then at each width 64-512, both causal flags,
+   at 512, causal and not; 1 x 1000 at 1024, 6 heads over 2; then at
+   each width 64-512, both causal flags,
    ragged S 1000 with 6 heads over 2, ragged S 4136 MHA and S 4160 with 6
    heads over 2), through the fp32 kernels (one launch each; the dk/dv's
    GQA parts printed, at least one case past one part), against the fp32
@@ -83,7 +96,7 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    printed, not held, the first seven cases as f16 through the f16
    kernels), the fp32 forward and the fp32 backward pair each run twice
    bit-identical, then the fp32 kernels' time at the slice's shape and
-   at widths 256 and 512,
+   at widths 256, 512 and 1024,
    beside their bound at the card's fp32 peak (each kernel's share of
    it), the plain versions' and SDPA's in f32 (forward, whole backward;
    the fp32 pair's ratio to SDPA's backward);
@@ -271,6 +284,8 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    launches exactly L/L/L of the width-512 triangular kernels a step and
    no other, one forward's loss within LOSS_TOL of the reference
    attention's; ms a step, tokens/s, peak memory;
+13c. gemma_xwide (right after gemma_wide): the same at head_dim 1024, 3
+   steps, through the width-1024 triangular clusters (4 CTAs an item);
 14. gemma_serve: [serve]'s bf16 leg on a Gemma-2B replica (full width and
    depth, the same nine requests and gates; teacher-forced within
    GEMMA_CACHE_REL_TOL of gemma.forward, whose check launches the
@@ -348,10 +363,11 @@ Phases, each fatal (nonzero exit, no result line) when it fails:
    phase runs with STPU_TUNE_MANIFEST=0;
 19. a summary of the Hopper kernels (registers, shared memory, time
    beside bound and SDPA and the SM clock during it, their step's time);
-   the kernels line ({"kernels": [...]}, thirty-six records: the nine
-   Hopper kernels at head_dim 128, at 256 and at 512, and the three fp32
-   kernels at each of F32_TIMED_SHAPES, their launches [tiny]'s f32
-   run's), then the last line
+   the kernels line ({"kernels": [...]}, forty-eight records: the nine
+   Hopper kernels at head_dim 128, 256, 512 and 1024 (the last with their
+   times at 768 and 2048 under "width_ms"), and the three fp32 kernels at
+   each of F32_TIMED_SHAPES, their launches [tiny]'s f32 run's), then the
+   last line
    {"ok": true, "device": {...}}.
 
 Each phase's wall seconds are printed as it ends (``[timing]``).
@@ -450,7 +466,7 @@ RAGGED_OP_SHAPE = (1, 200, 8, 2, 128, True)
 F32_OP_SHAPES = ((2, 256, 4, 2, 64, True), (2, 256, 4, 2, 64, False),
                  (1, 200, 8, 2, 128, True), (1, 2048, 8, 1, 256, True),
                  (1, 4096, 8, 1, 256, True), (1, 1024, 8, 1, 512, True),
-                 (1, 1024, 8, 1, 512, False))
+                 (1, 1024, 8, 1, 512, False), (1, 1000, 6, 2, 1024, True))
 # The closing set of the fp32 backward (csrc/flash_f32.cu), at each width
 # and both causal flags: a ragged S (1000, not a multiple of the 32- or
 # 64-row tiles) with an odd GQA group (6 over 2), a ragged S past the
@@ -463,9 +479,9 @@ F32_CLOSING_SHAPES = tuple(
     for causal in (True, False))
 # The fp32 kernels timed (with their bound at PEAK_F32_FLOPS, beside the
 # plain versions' and SDPA's f32 time): the slice's attention shape, and
-# widths 256 and 512.
+# widths 256, 512 and 1024 (the wide kernels).
 F32_TIMED_SHAPES = ((2, 2048, 32, 8, 128, True), (1, 4096, 8, 1, 256, True),
-                    (1, 1024, 8, 1, 512, True))
+                    (1, 1024, 8, 1, 512, True), (1, 1024, 8, 1, 1024, True))
 # The public op at head_dims the kernels take only zero-padded: the tiny
 # Llama's 16, a 96 and a 192 (to width 256; at S 4096 past the budget,
 # through the triangular kernels).
@@ -506,14 +522,19 @@ NO_SPILL_KERNELS = ("flash_fwd_kernel<256", "flash_fwd_streamed_kernel<256",
 # Every width-512 instance builds without spills too (168 registers at
 # launch, 232 a consumer).
 NO_SPILL_KERNELS += tuple(
-    f"flash_{k}{fam}_kernel<512" for k in ("fwd", "dq", "dkv")
-    for fam in ("", "_tri", "_streamed"))
+    f"flash_{k}{fam}_kernel<{d}" for k in ("fwd", "dq", "dkv")
+    for fam in ("", "_tri", "_streamed") for d in (512, 2048))
 # The fp32 kernels at every width (csrc/flash_f32.cu: 128-254 registers,
 # no spills).
 F32_KERNELS = ("flash_fwd_f32_kernel", "flash_dq_f32_kernel",
                "flash_dkv_f32_kernel")
 NO_SPILL_KERNELS += tuple(f"{k}<{d}>" for k in F32_KERNELS
                           for d in (64, 128, 256, 512))
+# Past 512 the fp32 kernels' wide bodies (no template head_dim: one for
+# every width), FFMA alone and no spills too.
+F32_WIDE_KERNELS = ("flash_fwd_f32_wide_kernel", "flash_dq_f32_wide_kernel",
+                    "flash_dkv_f32_wide_kernel")
+NO_SPILL_KERNELS += tuple(f"{k}:" for k in F32_WIDE_KERNELS)
 TRI_WIDE_MAIN_SHAPE = (1, 8192, 8, 1, 256, True)
 TRI_WIDE_CHECK_SHAPES = (TRI_WIDE_MAIN_SHAPE, (1, 4096, 16, 16, 256, True),
                          (1, 4136, 8, 1, 256, True),
@@ -532,7 +553,15 @@ PAD512_OP_SHAPES = ((1, 1024, 8, 1, 264, True), (1, 4096, 8, 1, 320, True),
                     (1, 4096, 8, 1, 392, False), (2, 512, 8, 2, 448, False),
                     (1, 1024, 8, 1, 512, True), (1, 4096, 8, 1, 512, True),
                     (1, 4096, 8, 1, 512, False))
-REFUSED_HEAD_DIM = 520
+# Then head_dims past 512, each padded to its cluster width and through
+# one family: 520 (triangular) and 640 (resident) to 768, 1000 to 1024
+# (resident and streamed: their @1024 records' launches), 1536
+# (triangular), 2048 (resident). Past width 2048 no kernel exists (a
+# cluster would pass 8 CTAs): the op must refuse before any launch.
+XW_OP_SHAPES = ((1, 1024, 8, 1, 520, True), (2, 512, 8, 2, 640, False),
+                (1, 512, 8, 1, 1000, True), (1, 2048, 8, 1, 1000, False),
+                (1, 1024, 8, 1, 1536, True), (1, 256, 8, 1, 2048, False))
+REFUSED_HEAD_DIM = 2056
 # Width 512 ([kernels d512]): each family at its main shape (the
 # width-256 rows' with D doubled: resident 8 x 1024, the budget's longest
 # S at 512; triangular 1 x 8192; streamed 1 x 4096 non-causal), then
@@ -563,6 +592,48 @@ X512_DESIGN = ("a cluster of two CTAs an item, each its 256-column chunk "
                "S and dP recomputed, 32-row K/V tiles; dk/dv: a 64-row kv "
                "tile against 2 stages of 64-row Q/dO tiles, S^T and dP^T "
                "partials, dv and dk in separate consumers")
+# Past width 512 ([kernels dxwide]): each family's main shape at width
+# 1024 (the width-512 rows' with the resident S halved, the budget's
+# longest S at 1024: resident 8 x 512; triangular 1 x 8192; streamed 1 x
+# 4096 non-causal), then at 768 ragged S (200, 1000, 4136), S = 4160,
+# Gemma-7B's MHA (16/16) and a GQA group of 6 (12/2), and at 2048 one
+# shape a family; the trio is timed at the main shapes and again, at the
+# same (B, S, H, KVH), at widths 768 and 2048 (XW_TIMED_WIDTHS).
+XW_WIDTH = 1024
+XW_TIMED_WIDTHS = (768, 2048)
+XW_MAIN_SHAPE = (8, 512, 8, 1, 1024, True)
+XW_CHECK_SHAPES = (XW_MAIN_SHAPE, (1, 200, 16, 16, 768, True),
+                   (2, 512, 12, 2, 768, False), (2, 256, 8, 1, 2048, True))
+TRI_XW_MAIN_SHAPE = (1, 8192, 8, 1, 1024, True)
+TRI_XW_CHECK_SHAPES = (TRI_XW_MAIN_SHAPE, (1, 1000, 8, 1, 768, True),
+                       (1, 4136, 16, 16, 768, True),
+                       (1, 4160, 12, 2, 768, True),
+                       (1, 1024, 8, 1, 2048, True))
+STR_XW_MAIN_SHAPE = (1, 4096, 8, 1, 1024, False)
+STR_XW_CHECK_SHAPES = (STR_XW_MAIN_SHAPE, (1, 1000, 12, 2, 768, False),
+                       (1, 4136, 8, 1, 768, False),
+                       (1, 4160, 16, 16, 768, False),
+                       (1, 1024, 8, 1, 2048, False))
+# The clusters past 512 (csrc/flash_fwd_sm90.cuh fwd_cta_x,
+# flash_bwd_sm90.cuh dq_cta_x and dkv_cta_x): one instance for every
+# width, n = width / 256 CTAs an item, each its chunk of every operand,
+# partials pulled by every rank in rank order.
+XW_DESIGN = ("a cluster of width / 256 CTAs an item, each its 256-column "
+             "chunk of every operand, each CTA's fp32 partial left in a slot "
+             "of its own shared memory and read by every rank through "
+             "distributed shared memory in rank order; fwd: 128 q rows "
+             "against 64-row K/V tiles (2 stages each); dq (every family): "
+             "64 q rows against 64-row K tiles (2 stages) and V (1), "
+             "consumer 0 S and consumer 1 dP partials, each summed by its "
+             "consumer and handed to the other, each consumer a 128-column "
+             "half of dq; dk/dv: a 64-row kv tile against 2 stages of 64-row "
+             "Q/dO tiles, consumer 0 S^T and consumer 1 dP^T partials, dv "
+             "and dk in separate consumers; all in lockstep across the "
+             "ranks, one tile at a time")
+# The instance of every Hopper kernel that serves the widths past 512
+# (csrc kClusterD).
+CLUSTER_D = 2048
+
 # The Hopper kernels (wgmma + TMA): launch counter, library, kernel name in
 # the SASS.
 SM90_KERNELS = (("flash_fwd", "flash_fwd", "flash_fwd_kernel"),
@@ -662,6 +733,10 @@ GLONG_BATCHES, GLONG_SEQ, GLONG_STEPS = (8, 4, 2, 1), 8192, 4
 # call takes the width-512 triangular kernels. A check of the path, not a
 # cell.
 GW_LAYERS, GW_HEAD_DIM, GW_BATCH, GW_SEQ, GW_STEPS = 2, 512, 1, 8192, 4
+# The gemma_xwide phase: the same at head_dim_ 1024, 3 steps: every
+# attention call takes the width-1024 triangular clusters (4 CTAs an
+# item).
+GX_HEAD_DIM, GX_STEPS = 1024, 3
 # The serve phase: one Llama-3-8B replica (full width and depth, bf16,
 # random weights) through the port's serve_llm at its own max_seq
 # (MAX_PROMPT_TOKENS + MAX_GEN_TOKENS = 1280), 8 engine slots, paged,
@@ -910,7 +985,8 @@ def phase_build(build):
     attrs = {}
     for name, source, kernel in SM90_KERNELS:
         fn = getattr(build.library(source), f"stpu_{name}_attrs")
-        for d in HEAD_DIMS:
+        # At XW_WIDTH the report is the CLUSTER_D instance's.
+        for d in HEAD_DIMS + (XW_WIDTH,):
             for elem, code in build.DTYPES.items():
                 tag = ELEM_TAGS[elem]
                 out = (ctypes.c_int * 5)()
@@ -918,7 +994,8 @@ def phase_build(build):
                       f"for {kernel}<{d}, {tag}>")
                 regs, smem, threads, producer, consumer = out
                 attrs[(kernel, d, tag)] = (regs, smem)
-                print(f"[build] {kernel}<{d}, {tag}>: {regs} registers per "
+                inst = d if d in HEAD_DIMS else f"{CLUSTER_D}> at width {d}"
+                print(f"[build] {kernel}<{inst}, {tag}>: {regs} registers per "
                       f"thread at launch (setmaxnreg: producer {producer}, "
                       f"consumers {consumer}), {smem} bytes dynamic shared "
                       f"memory, {threads} threads", flush=True)
@@ -927,13 +1004,15 @@ def phase_build(build):
 
 
 def phase_sass(build):
-    """Every instance of the Hopper kernels (head_dim 64, 128 and 256;
-    bf16 and f16) must hold wgmma (HGMMA) and TMA loads (UTMALDG) in its
+    """Every instance of the Hopper kernels (head_dim 64, 128, 256, 512
+    and CLUSTER_D, the one past 512; bf16 and f16) must hold wgmma (HGMMA)
+    and TMA loads (UTMALDG) in its
     SASS, and its wgmmas must run asynchronously: ptxas serialises them
     (with a "Potential Performance Loss" note) by placing a wait
     (WARPGROUP.DEPBAR) after each one, so a kernel with as many waits as
-    wgmmas fails. Every instance of the fp32 forward, dq and dk/dv must
-    hold FFMA and no HMMA or HGMMA: their products stay exact fp32."""
+    wgmmas fails. Every instance of the fp32 forward, dq and dk/dv, and
+    their wide bodies past 512, must hold FFMA and no HMMA or HGMMA: their
+    products stay exact fp32."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
     for name, source, kernel in SM90_KERNELS:
@@ -959,7 +1038,7 @@ def phase_sass(build):
             check(hgmma > 0 and utmaldg > 0,
                   f"{mangled} holds no wgmma or no TMA load")
             check(waits < hgmma, f"{mangled}: ptxas serialised its wgmmas")
-        want = {(str(d), tag) for d in HEAD_DIMS
+        want = {(str(d), tag) for d in HEAD_DIMS + (CLUSTER_D,)
                 for tag in ELEM_TAGS.values()}
         check(found == want, f"{kernel}: instances {sorted(found)} in "
               f"{lib}'s SASS, expected {sorted(want)}")
@@ -985,6 +1064,17 @@ def phase_sass(build):
                   f"{kernel}<{m.group(1)}> is not FFMA alone")
         check(found == set(HEAD_DIMS), f"{kernel}: instances "
               f"{sorted(found)} in {lib}'s SASS, expected {HEAD_DIMS}")
+    for kernel in F32_WIDE_KERNELS:
+        parts = [part for part in out.stdout.split("Function : ")[1:]
+                 if kernel in part.split(None, 1)[0]]
+        check(len(parts) == 1, f"{kernel}: {len(parts)} bodies in {lib}'s "
+              "SASS, expected 1")
+        ffma, mma = parts[0].count("FFMA"), parts[0].count("HMMA")
+        gmma = parts[0].count("HGMMA")
+        print(f"[sass] {kernel}: {ffma} FFMA, {mma} HMMA, {gmma} HGMMA",
+              flush=True)
+        check(ffma > 0 and mma == 0 and gmma == 0,
+              f"{kernel} is not FFMA alone")
 
 
 def _ptxas_summary(log):
@@ -994,9 +1084,12 @@ def _ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tri|_streamed|_f32)?_kernel)"
                       r"ILi(\d+)E(?:NS_\d(Bf16|F16)E)?", line)
+        wide = re.search(r"(flash_(?:fwd|dq|dkv)_f32_wide_kernel)", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}" + (
                 f", {m.group(3)}>" if m.group(3) else ">")
+        elif wide:
+            name = wide.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -1222,10 +1315,11 @@ def _check_resident_pair_past_budget(fa, seed):
 
 
 def _print_launches(fa, fam, fns, shape, tag="[kernels d256]"):
-    """Each kernel's launch at a width-256 or -512 shape: its CTAs, P (the
-    parts of the GQA group every width-256 and -512 dk/dv splits across
-    CTAs) and its dynamic shared memory (the kernel's build report); the
-    resident and triangular dq's CTA shapes at 256, X512_DESIGN at 512."""
+    """Each kernel's launch at a shape of width 256 or more: its CTAs, P
+    (the parts of the GQA group every dk/dv from width 256 on splits
+    across CTAs) and its dynamic shared memory (the kernel's build
+    report); the resident and triangular dq's CTA shapes at 256,
+    X512_DESIGN at 512, XW_DESIGN past it."""
     b, s, h, kvh, d, causal = shape
     width = fa.kernel_head_dim(d)
     parts = fa.dkv_parts(b, s, kvh, h // kvh, causal,
@@ -1233,7 +1327,7 @@ def _print_launches(fa, fam, fns, shape, tag="[kernels d256]"):
     n = fa.chunks(width)
     dq_tile = fa.CHUNKED_DQ_TILE if width > 256 else fa.BWD_TILE
     # The resident dq at 512 runs a CTA an item (X512_DESIGN).
-    n_dq = 1 if fam == fa.RESIDENT else n
+    n_dq = 1 if fam == fa.RESIDENT and width == 512 else n
     items = (b * h * -(-s // fa.FWD_TILE) * n, b * h * -(-s // dq_tile) * n_dq,
              b * kvh * -(-s // fa.WIDE_KV_TILE) * parts * n)
     source = {fa.RESIDENT: ("flash_fwd", "flash_bwd", "flash_bwd"),
@@ -1246,7 +1340,9 @@ def _print_launches(fa, fam, fns, shape, tag="[kernels d256]"):
             width, fa._build.DTYPES["bf16"], out) == 0,
             f"{name} attrs failed")
         notes.append(f"{name} {n} CTAs, P {p}, {out[1]} B shared")
-    if width > 256:
+    if width > 512:
+        notes.append(f"{n} CTAs a cluster ({XW_DESIGN})")
+    elif width > 256:
         notes.append(X512_DESIGN)
     else:
         notes[0] += f" ({WIDE_FWD_DESIGN[fns.names[0]]})"
@@ -1312,7 +1408,99 @@ def phase_kernels_512(fa, records):
             seed += 1
 
 
-def _sdpa_backend(shape, qkv):
+def phase_kernels_xwide(fa, records):
+    """[kernels dxwide]: each family's trio past width 512 (fwd_cta_x,
+    dq_cta_x, dkv_cta_x: XW_DESIGN; natural exp for the resident and
+    streamed families, base 2 for the triangular one) against its plain
+    versions in bf16 at its shapes (widths 1024, 768 and 2048), one launch
+    of each kernel per trio, each launch's CTAs, P and shared memory
+    printed, the backward pair twice bit-identical at every shape; at its
+    main shape (width 1024) the times (bf16, f16, plain, SDPA with the
+    backend it picks, bound), the pair beside SDPA's whole backward and
+    f16 against the plain versions; then the trio's time at the main
+    shape's (B, S, H, KVH) at XW_TIMED_WIDTHS beside its bound there.
+    Records keyed "<name>@1024" (the other widths' times under
+    "width_ms")."""
+    seed = 70
+    for fam, shapes, main in ((fa.RESIDENT, XW_CHECK_SHAPES, XW_MAIN_SHAPE),
+                              (fa.TRIANGULAR, TRI_XW_CHECK_SHAPES,
+                               TRI_XW_MAIN_SHAPE),
+                              (fa.STREAMED, STR_XW_CHECK_SHAPES,
+                               STR_XW_MAIN_SHAPE)):
+        for shape in shapes:
+            b, s, h, kvh, d, causal = shape
+            check(fa.family(s, d, causal) == fam
+                  and d in fa.CLUSTER_WIDTHS,
+                  f"{shape} is not a {fam} shape at a width past 512")
+            fns = Family(fa, fam, causal, d ** -0.5)
+            _print_launches(fa, fam, fns, shape, "[kernels dxwide]")
+            q, k, v, do = _inputs(shape, seed)
+            fa.reset_launches()
+            o, lse, dq, delta, dk, dv = fns.run(q, k, v, do)
+            torch.cuda.synchronize()
+            _expect_launches(fa, f"[kernels dxwide] {fam}", shape, fns.names)
+            o_p, lse_p = fns.fwd_plain(q, k, v)
+            dq_p, dk_p, dv_p = fns.bwd_plain(q, k, v, o, lse, do)
+            errs = _hold(f"[kernels dxwide] {fam}", shape, (
+                ("o", (o, o_p), OUT_REL_TOL),
+                ("lse", (lse, lse_p), OUT_REL_TOL),
+                ("dq", (dq, dq_p), GRAD_REL_TOL),
+                ("dk", (dk, dk_p), GRAD_REL_TOL),
+                ("dv", (dv, dv_p), GRAD_REL_TOL)))
+            del o_p, lse_p, dq_p, dk_p, dv_p
+            _check_deterministic(fns, (q, k, v, do), (o, lse), (dq, dk, dv))
+            if shape == main:
+                xw = _measure(fns, shape, (q, k, v, do), (o, lse, delta),
+                              errs)
+                _check_f16(fns, shape, seed, xw)
+                records.update((f"{name}@{XW_WIDTH}", rec)
+                               for name, rec in xw.items())
+                _print_pair_vs_sdpa(fam, fns, xw, "[kernels dxwide]")
+                backend = _sdpa_backend(shape, (q, k, v), "[kernels dxwide]")
+                for rec in xw.values():
+                    rec["library_backend"] = backend
+            del q, k, v, do, o, lse, dq, delta, dk, dv
+            torch.cuda.empty_cache()
+            seed += 1
+        _time_other_widths(fa, fam, main, records, seed)
+
+
+def _time_other_widths(fa, fam, main, records, seed):
+    """The family's trio at the main shape's (B, S, H, KVH) at
+    XW_TIMED_WIDTHS (the cluster instance at 3 and 8 CTAs an item), each
+    beside its bound there (the FLOPs and bytes of _measure); under
+    "width_ms" and "width_bound_ms" of the @XW_WIDTH records."""
+    b, s, h, kvh, _, causal = main
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    for width in XW_TIMED_WIDTHS:
+        shape = (b, s, h, kvh, width, causal)
+        fns = Family(fa, fam, causal, width ** -0.5)
+        q, k, v, do = _inputs(shape, seed)
+        o, lse = fns.fwd(q, k, v)
+        _, delta = fns.dq(q, k, v, o, lse, do)
+        qb, kvb, stb = 2 * q.numel(), 2 * k.numel(), 4 * b * h * s
+        work = ((4, 2 * qb + 2 * kvb + stb), (6, 4 * qb + 2 * kvb + 2 * stb),
+                (8, 2 * qb + 4 * kvb + 2 * stb))
+        notes = []
+        for name, fn, (mul, nbytes) in zip(fns.names, (
+                lambda: fns.fwd(q, k, v),
+                lambda: fns.dq(q, k, v, o, lse, do),
+                lambda: fns.dkv(q, k, v, do, lse, delta)), work):
+            ms = time_ms(fn, 10)
+            bound, by = _bound(mul * width * pairs, nbytes)
+            rec = records[f"{name}@{XW_WIDTH}"]
+            rec.setdefault("width_ms", {})[str(width)] = ms
+            rec.setdefault("width_bound_ms", {})[str(width)] = bound
+            notes.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms, {by}; "
+                         f"{bound / ms:.1%}; {clock_note(CLOCKS.last())})")
+        print(f"[kernels dxwide] {fam} at {shape}, "
+              f"{fa.chunks(width)} CTAs an item: " + "; ".join(notes),
+              flush=True)
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+
+
+def _sdpa_backend(shape, qkv, tag="[kernels d512]"):
     """Which of SDPA's backends take these inputs, each tried alone
     (torch.nn.attention.sdpa_kernel, forward), and the one its default
     dispatch ran: named from the CUDA kernels a profiled default call
@@ -1349,7 +1537,7 @@ def _sdpa_backend(shape, qkv):
                                         or "efficient" in joined) else
               "CUDNN_ATTENTION" if "cudnn" in joined else
               "MATH" if names else "not identified")
-    print(f"[kernels d512] SDPA at {shape}: backends that take it {takes}; "
+    print(f"{tag} SDPA at {shape}: backends that take it {takes}; "
           f"the default call ran {picked} (kernels {names})", flush=True)
     return picked
 
@@ -1360,12 +1548,14 @@ def phase_wide_op(fa, attention_ops, records):
     kernel, non-causal one of each streamed kernel (their launches in the
     kernels line: per call of the op), each against its family's plain
     versions; then at PAD512_OP_SHAPES, the head_dims that pad to the
-    width-512 kernels, one launch of each kernel of the caller's family
-    (the resident and streamed calls at 512 give their @512 records'
-    launches), against the plain versions at the caller's head_dim, and
-    the padded columns of the kernels' outputs on the padded inputs
-    exactly 0. Past width 512 no kernel exists: head_dim REFUSED_HEAD_DIM
-    must raise a ValueError naming it, before any launch."""
+    width-512 kernels, and at XW_OP_SHAPES, head_dims past 512 padded to
+    the cluster widths, one launch of each kernel of the caller's family
+    (the resident and streamed calls at 512 and 1024 give their @512 and
+    @1024 records' launches), against the plain versions at the caller's
+    head_dim, and the padded columns of the kernels' outputs on the
+    padded inputs exactly 0. Past width 2048 no kernel exists: head_dim
+    REFUSED_HEAD_DIM must raise a ValueError naming it, before any
+    launch."""
     b, s, h, kvh, d, _ = WIDE_OP_SHAPE
     for causal in (True, False):
         shape = (b, s, h, kvh, d, causal)
@@ -1391,8 +1581,8 @@ def phase_wide_op(fa, attention_ops, records):
                 records[f"{name}@256"]["launches"] = launches[name]
         del q, k, v, do, out, grads, o_p, lse_p, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
-    for idx, shape in enumerate(PAD512_OP_SHAPES):
-        _op_at_512(fa, attention_ops, records, shape, 51 + idx)
+    for idx, shape in enumerate(PAD512_OP_SHAPES + XW_OP_SHAPES):
+        _op_at_width(fa, attention_ops, records, shape, 51 + idx)
     shape = (b, s, h, kvh, REFUSED_HEAD_DIM, True)
     q, k, v, do = _inputs(shape, 50)
     fa.reset_launches()
@@ -1410,11 +1600,13 @@ def phase_wide_op(fa, attention_ops, records):
     _expect_launches(fa, "[wide op]", shape, ())
 
 
-def _op_at_512(fa, attention_ops, records, shape, seed):
-    """The op at a head_dim that pads to 512 (phase_wide_op)."""
+def _op_at_width(fa, attention_ops, records, shape, seed):
+    """The op at a head_dim that pads to 512 or past it
+    (phase_wide_op)."""
     b, s, h, kvh, d, causal = shape
     fam = fa.family(s, d, causal)
-    check(fa.kernel_head_dim(d) == 512, f"{shape} does not pad to 512")
+    width = fa.kernel_head_dim(d)
+    check(width >= 512, f"{shape} does not pad to 512 or past it")
     fns = Family(fa, fam, causal, d ** -0.5)
     q, k, v, do = _inputs(shape, seed)
     fa.reset_launches()
@@ -1432,17 +1624,17 @@ def _op_at_512(fa, attention_ops, records, shape, seed):
                                ("dk", (grads[1], dk_p), GRAD_REL_TOL),
                                ("dv", (grads[2], dv_p), GRAD_REL_TOL)))
     del out, grads, o_p, lse_p, dq_p, dk_p, dv_p
-    if d == 512 and fam != fa.TRIANGULAR:
+    if (d == 512 or width == XW_WIDTH) and fam != fa.TRIANGULAR:
         for name in fns.names:
-            records[f"{name}@512"]["launches"] = launches[name]
-    if d < 512:
+            records[f"{name}@{width}"]["launches"] = launches[name]
+    if d < width:
         o, _, dq, _, dk, dv = fns.run(
-            *(fa.pad_head_dim(t, 512) for t in (q, k, v, do)))
+            *(fa.pad_head_dim(t, width) for t in (q, k, v, do)))
         torch.cuda.synchronize()
         zero = {n: bool((t[..., d:] == 0).all()) for n, t in
                 (("o", o), ("dq", dq), ("dk", dk), ("dv", dv))}
-        print(f"[wide op] {shape} {fns.names} at width 512: columns "
-              f"{d}-511 exactly 0 {zero}", flush=True)
+        print(f"[wide op] {shape} {fns.names} at width {width}: columns "
+              f"{d}-{width - 1} exactly 0 {zero}", flush=True)
         check(all(zero.values()), f"padded columns not 0 at {shape}")
         del o, dq, dk, dv
     del q, k, v, do
@@ -4295,14 +4487,31 @@ def phase_gemma_wide(fa, trainer, records):
     [long]'s remat policy and chunked CE: the loss falls, launches exactly
     L/L/L of the width-512 triangular kernels a step and no other, and one
     forward's loss within LOSS_TOL of the reference attention's."""
+    _gemma_wide_steps(fa, trainer, records, "[gemma_wide]", GW_HEAD_DIM,
+                      GW_STEPS)
+
+
+def phase_gemma_xwide(fa, trainer, records):
+    """[gemma_xwide]: [gemma_wide] at head_dim GX_HEAD_DIM, GX_STEPS
+    steps, through the width-1024 triangular clusters (4 CTAs an
+    item)."""
+    _gemma_wide_steps(fa, trainer, records, "[gemma_xwide]", GX_HEAD_DIM,
+                      GX_STEPS)
+
+
+def _gemma_wide_steps(fa, trainer, records, label, head_dim, steps):
+    """`steps` adamw steps of Gemma-2B's widths at `head_dim` (GW_LAYERS
+    layers, GW_BATCH x GW_SEQ), the gates of phase_gemma_wide; the
+    triangular records at that width take the launches and step time."""
     from skypilot_tpu_torch.models import gemma
     cfg = dataclasses.replace(gemma.GemmaConfig(), n_layers=GW_LAYERS,
-                              head_dim_=GW_HEAD_DIM, max_seq_len=GW_SEQ,
+                              head_dim_=head_dim, max_seq_len=GW_SEQ,
                               remat_policy=LC_POLICY)
+    width = fa.kernel_head_dim(cfg.head_dim)
     check(fa.family(GW_SEQ, cfg.head_dim, True) == fa.TRIANGULAR
-          and fa.kernel_head_dim(cfg.head_dim) == 512,
+          and width == head_dim,
           f"head_dim {cfg.head_dim} at seq {GW_SEQ} does not take the "
-          "width-512 triangular kernels")
+          f"width-{head_dim} triangular kernels")
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = gemma.init(cfg, gen)
     tokens = torch.randint(0, cfg.vocab_size, (GW_BATCH, GW_SEQ),
@@ -4315,7 +4524,7 @@ def phase_gemma_wide(fa, trainer, records):
         lambda p, t: gemma.forward(cfg, p, t), tx,
         trunk_fn=lambda p, t: gemma.forward_trunk(cfg, p, t),
         head_fn=gemma.head_weights, with_grad_norm=False)
-    print(f"[gemma_wide] Gemma-2B widths, head_dim {cfg.head_dim} "
+    print(f"{label} Gemma-2B widths, head_dim {cfg.head_dim} "
           f"({cfg.n_heads} heads / {cfg.n_kv_heads} KV head), {GW_LAYERS} "
           f"layers, {cfg.num_params() / 1e9:.3f} B params, batch "
           f"{GW_BATCH} x seq {GW_SEQ}, bf16, remat {cfg.remat_policy}, "
@@ -4323,7 +4532,7 @@ def phase_gemma_wide(fa, trainer, records):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     losses, step_s = [], []
-    for _ in range(GW_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
@@ -4332,23 +4541,23 @@ def phase_gemma_wide(fa, trainer, records):
         step_s.append(time.perf_counter() - t0)
     launches = dict(fa.LAUNCHES)
     losses = [float(x) for x in losses]
-    print(f"[gemma_wide] losses {[round(x, 4) for x in losses]}", flush=True)
-    print(f"[gemma_wide] launches {launches}", flush=True)
+    print(f"{label} losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"{label} launches {launches}", flush=True)
     check(_finite(losses), "non-finite loss")
     check(losses[-1] < losses[0], "loss did not fall")
     expect = dict.fromkeys(launches, 0)
-    expect.update(dict.fromkeys(TRI_NAMES, GW_LAYERS * GW_STEPS))
+    expect.update(dict.fromkeys(TRI_NAMES, GW_LAYERS * steps))
     check(launches == expect, f"launch counts {launches} != {expect} "
-          "(L width-512 triangular forward, dq and dk/dv per step, no "
+          f"(L width-{width} triangular forward, dq and dk/dv per step, no "
           "other)")
     steady = statistics.median(step_s[1:])
-    print(f"[gemma_wide] step {steady * 1e3:.1f} ms (median of steps 2-"
-          f"{GW_STEPS}; first {step_s[0] * 1e3:.1f} ms), "
+    print(f"{label} step {steady * 1e3:.1f} ms (median of steps 2-"
+          f"{steps}; first {step_s[0] * 1e3:.1f} ms), "
           f"{GW_BATCH * GW_SEQ / steady:.0f} tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     for name in TRI_NAMES:
-        records[f"{name}@512"]["launches"] = launches[name]
-        records[f"{name}@512"]["step_ms"] = steady * 1e3
+        records[f"{name}@{width}"]["launches"] = launches[name]
+        records[f"{name}@{width}"]["step_ms"] = steady * 1e3
     with torch.no_grad():
         out = {}
         for impl in ("kernel", "reference"):
@@ -4361,7 +4570,7 @@ def phase_gemma_wide(fa, trainer, records):
                 tokens[:, 1:]))
             del hidden
     diff = abs(out["kernel"] - out["reference"])
-    print(f"[gemma_wide] loss kernel {out['kernel']:.5f} reference "
+    print(f"{label} loss kernel {out['kernel']:.5f} reference "
           f"{out['reference']:.5f} |diff| {diff:.2e} (tol {LOSS_TOL})",
           flush=True)
     check(diff <= LOSS_TOL, "kernel forward disagrees with the reference")
@@ -5383,6 +5592,7 @@ def main() -> int:
             records = _timed(phase_kernels, fa)
             _timed(phase_kernels_wide, fa, records)
             _timed(phase_kernels_512, fa, records)
+            _timed(phase_kernels_xwide, fa, records)
         finally:
             CLOCKS.stop()
         _timed(phase_ragged_op, fa, attention_ops)
@@ -5417,6 +5627,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         _timed(phase_gemma_wide, fa, trainer, records)
         torch.cuda.empty_cache()
+        _timed(phase_gemma_xwide, fa, trainer, records)
+        torch.cuda.empty_cache()
         tp_ref = _timed(phase_serve, fa, llama, card)
         _timed(phase_lb_bench, card)
         torch.cuda.empty_cache()
@@ -5427,13 +5639,13 @@ def main() -> int:
         _timed(phase_mixtral_serve, fa, card)
         _timed(phase_decode_bench, card)
         _timed(phase_tune, card)
-        check(len(records) == 36, f"{len(records)} kernel records, not 36")
+        check(len(records) == 48, f"{len(records)} kernel records, not 48")
     except (PhaseError, RuntimeError, ValueError, OSError,
             subprocess.SubprocessError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
     summary = [(name, kernel, 128) for name, _, kernel in SM90_KERNELS]
-    summary += [(f"{name}@{d}", kernel, d) for d in (256, 512)
+    summary += [(f"{name}@{d}", kernel, d) for d in (256, 512, XW_WIDTH)
                 for name, _, kernel in SM90_KERNELS]
     for key, kernel, d in summary:
         rec = records[key]

@@ -41,7 +41,10 @@
 // slower (flash_bwd_sm90.cuh). dk/dv runs dkv_cta_512 (a cluster of two
 // CTAs per dkv_wide_schedule item, one a chunk, that split S^T's and
 // dP^T's reduction over the columns between them and exchange the fp32
-// partials through distributed shared memory).
+// partials through distributed shared memory). Past 512 (every multiple
+// of 256 up to 2048, one instance each) dq runs dq_cta_x and dk/dv
+// dkv_cta_x: clusters of head_dim / 256 CTAs, every rank reading the
+// others' partials in rank order (flash_bwd_sm90.cuh).
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -55,7 +58,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv, const BwdParams p,
                 const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 256)
+  if constexpr (D == sm90::kClusterD)
+    sm90::dq_cta_x<T, BaseE>(tq, tdo, tk, tv, p, work, smem);
+  else if constexpr (D > 256)
     sm90::dq_cta_chunked_512<D, T, BaseE>(tq, tdo, tk, tv, p, work, smem);
   else
     sm90::dq_cta<D, T, BaseE, 0, sm90::DqResident<D>>(tq, tdo, tk, tv, p,
@@ -72,7 +77,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tdlt, const BwdParams p,
                  const int* __restrict__ work, const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 256)
+  if constexpr (D == sm90::kClusterD)
+    sm90::dkv_cta_x<T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work, split,
+                              smem);
+  else if constexpr (D > 256)
     sm90::dkv_cta_512<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work,
                                     split, smem);
   else if constexpr (D > 128)
@@ -99,7 +107,7 @@ extern "C" int stpu_flash_dq(const void* q, const void* k, const void* v,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
-                                 nullptr, strides, S, H, KVH, scale, causal);
+                                 nullptr, strides, S, H, KVH, scale, causal, D);
   STPU_SM90_BY_D(D, dtype, launch_dq_resident, flash_dq_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
@@ -124,7 +132,7 @@ extern "C" int stpu_flash_dkv(const void* q, const void* k, const void* v,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
-                                 dk, dv, strides, S, H, KVH, scale, causal);
+                                 dk, dv, strides, S, H, KVH, scale, causal, D);
   const sm90::DkvSplit split = {static_cast<float*>(ws),
                                 static_cast<int*>(tickets), parts, B};
   STPU_SM90_BY_D(D, dtype, launch_dkv_split, flash_dkv_kernel, p, B,

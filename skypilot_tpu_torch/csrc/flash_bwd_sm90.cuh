@@ -12,7 +12,8 @@
 //   family (below), the group split across CTAs and summed in a fixed
 //   order.
 //
-// Both are templates over D (64, 128, 256, 512), the element type T (bf16,
+// Both are templates over D (64, 128, 256, 512, and kClusterD for every
+// width past 512), the element type T (bf16,
 // f16: the inputs', P's and dS's before their products, and the outputs') and
 // the softmax base (Base2: exp2 with a base-2 lse, sm = scale * log2(e)
 // folded into the one FFMA each score takes; BaseE: natural exp and lse;
@@ -190,6 +191,23 @@
 //     GQA split, its workspace (2, P, B, S, KVH, 512) and the
 //     last-arrival sum are dkv_cta_wide's, ticketed per kv tile and
 //     chunk.
+// - Past head_dim 512 (768 ... 2048; the kClusterD instances, width p.D):
+//   dq_cta_x and dkv_cta_x run an item of the width-512 lists as a cluster
+//   of n = width / kChunk CTAs, CTA c holding chunk c of every operand,
+//   with the forward's pulled exchange (flash_fwd_sm90.cuh, fwd_cta_x): a
+//   consumer puts its partial in a slot of its own CTA and publishes it to
+//   every rank, every rank reads the n slots in rank order, and a slot is
+//   rewritten once all n have read it, so every rank forms the same sums.
+//   dq (every family, the resident one too): consumer 0 puts S_c, consumer
+//   1 dP_c; each sums its kind over the ranks and leaves the sum for the
+//   other in this CTA's shared memory (two barriers of the consumers a
+//   tile; K in two stages, V in one, the sums in the third K stage's
+//   room), delta's partials pulled once an item; each consumer a
+//   128-column half of dq_c. dk/dv: consumer 0 puts S^T_c and consumer 1
+//   dP^T_c (four products a tile pair, none recomputed), consumer 0 pulls
+//   S^T, consumer 1 S^T and dP^T (a quarter of the tile at a time, so it
+//   does not spill); dkv_cta_512's shared memory and GQA parts, ticketed
+//   per kv tile and chunk. Both one tile at a time.
 // - Not done: a persistent grid; overlapping one tile's elementwise work
 //   with the same consumer's next products (dk/dv would hold dk, dv, P^T,
 //   dS^T, S^T and dP^T in flight, 224 registers a thread at D = 128:
@@ -1278,15 +1296,15 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, 256;\n" : : : "memory");
 }
 
-// The producer's one thread of the dq CTA of rank `chunk`: its chunk of Q
-// and dO, then of K_j into its stage (once K_{j - KS} is released by both
-// consumers) and of V_j into its (once V_{j - VS} is, by consumer 1).
-template <int D>
+// The producer's one thread of the dq CTA of rank `chunk` (shared memory
+// L: DqSmem512, or dq_cta_x's DqSmemX): its chunk of Q and dO, then of K_j
+// into its stage (once K_{j - KS} is released by both consumers) and of
+// V_j into its (once V_{j - VS} is, by consumer 1).
+template <int D, class L = DqSmem512<D>>
 __device__ __forceinline__ void dq_producer_512(
     const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
     const CUtensorMap& tv, const BwdParams& p, unsigned char* base, int b,
     int h, int qt, int n_kt, int chunk) {
-  using L = DqSmem512<D>;
   constexpr int kBoxes = kChunk / kBoxCols;
   const int kvh = h / (p.H / p.KVH), col0 = chunk * kChunk;
   const uint32_t bars = smem_addr(base + L::kBar);
@@ -1827,7 +1845,8 @@ struct DkvSmem512 {
   static constexpr int kSFull = kKv + 8, kDpFull = kSFull + 8 * kX;
   static constexpr int kFree = kDpFull + 8 * kX;
   static constexpr int kBytes = kBar + kFree + 8 * kX + 1024;
-  static_assert(D == 2 * kChunk, "a chunk a CTA of the cluster");
+  static_assert(D == 2 * kChunk || D == kClusterD,
+                "a chunk a CTA of the cluster");
   static_assert(kWideRows % kN == 0, "q tiles meet the kv tile's diagonal");
   static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
 };
@@ -1883,7 +1902,9 @@ __device__ __forceinline__ void dkv_producer_512(
 // P^T = exp(sm * s^T - lse[q]) (kDS false) or dS^T = P^T * (dP^T -
 // delta[q]) (kDS true) of one 64 (kv) x N (q) tile, into the A fragments
 // of the next product, rounded to T. MASK drops the causal pairs q < k.
-template <class T, class Base, bool MASK, bool kDS, int N>
+// Only 8-column groups kI0 .. kI0 + kNI - 1 (all by default).
+template <class T, class Base, bool MASK, bool kDS, int N, int kI0 = 0,
+          int kNI = N / 8>
 __device__ __forceinline__ void pds_tile(const float (&s)[N / 2],
                                          const float (&dp)[N / 2],
                                          uint32_t (&a)[N / 16][4],
@@ -1892,7 +1913,7 @@ __device__ __forceinline__ void pds_tile(const float (&s)[N / 2],
   const int t = threadIdx.x % 4;
   const float kDrop = -__int_as_float(0x7f800000);  // -inf: exp gives 0
 #pragma unroll
-  for (int i = 0; i < N / 8; ++i) {
+  for (int i = kI0; i < kI0 + kNI; ++i) {
     const float2 l2 = *reinterpret_cast<const float2*>(lse + i * 8 + 2 * t);
     const float2 d2 = *reinterpret_cast<const float2*>(dlt + i * 8 + 2 * t);
     float v[4];
@@ -2035,15 +2056,15 @@ __device__ __forceinline__ void dkv_consumer_512(float (&acc)[kChunk / 2],
   }
 }
 
-// A consumer's epilogue at head_dim 512 (which: 0 dv, 1 dk), for its
-// chunk's columns: dkv_wide_store's, with each (kv tile, chunk) ticketed
-// on its own counters.
+// A consumer's epilogue at head_dim 512 and past it (which: 0 dv, 1 dk;
+// `width` the kernel width), for its chunk's columns: dkv_wide_store's,
+// with each (kv tile, chunk) ticketed on its own counters.
 template <int D, class T>
 __device__ __forceinline__ void dkv_store_512(
     const float (&acc)[kChunk / 2], float mul, e16* out, const BwdParams& p,
     const DkvSplit& split, unsigned char* base, int which, long long off,
-    int bkv, int kt, int chunk, int part) {
-  const long long ss = (long long)p.KVH * D;
+    int bkv, int kt, int chunk, int part, int width = D) {
+  const long long ss = (long long)p.KVH * width;
   const int row0 = kt * kWideRows;
   off += chunk * kChunk;
   if (split.parts == 1) {
@@ -2059,7 +2080,7 @@ __device__ __forceinline__ void dkv_store_512(
       reinterpret_cast<int*>(base + DkvSmem512<D>::kFlag) + which;
   if (threadIdx.x % 128 == 0) {
     const int tile =
-        (bkv * ceil_div(p.S, kWideRows) + kt) * out_chunks<D>() + chunk;
+        (bkv * ceil_div(p.S, kWideRows) + kt) * (width / kChunk) + chunk;
     *last = atomicAdd(split.tickets + 2 * tile + which, 1) ==
             split.parts - 1;
   }
@@ -2139,6 +2160,442 @@ __device__ __forceinline__ void dkv_cta_512(
   cluster_sync();
 }
 
+// ---------------------------------------- dq and dk/dv past head_dim 512
+
+// dq_cta_x's shared memory (the kClusterD instance: a cluster of n =
+// width / kChunk CTAs an item of kDq512Rows q rows, CTA c holding chunk c
+// of every operand): Q_c and dO_c (kDq512Rows x kChunk, 32 KB each);
+// kDqXKSlots stages of chunk c of a kKv512-row K tile and one of V (32 KB
+// each); this CTA's slots, its partial of S (consumer 0's) and of dP
+// (consumer 1's), m64 x kKv512 fp32 fragments each, which every rank
+// reads; the sums of S and dP, each consumer's gathered for the other;
+// this chunk's partial of delta; mbarriers k_full[KS], k_empty[KS],
+// v_full, v_empty, q, delta, x_full[2] (S's, dP's), x_free[2]. 230,752 B.
+constexpr int kDqXKSlots = 2;
+struct DqSmemX {
+  static constexpr int kKS = kDqXKSlots, kVS = 1;
+  static constexpr int kRowsTile = kDq512Rows * kChunk * 2;
+  static constexpr int kTile = kKv512 * kChunk * 2;
+  static constexpr int kPart = 64 * kKv512 * 4;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kRowsTile;
+  static constexpr int kK = 2 * kRowsTile;
+  static constexpr int kV = kK + kKS * kTile;
+  static constexpr int kXch = kV + kVS * kTile;
+  static constexpr int kSum = kXch + 2 * kPart;
+  static constexpr int kDelta = kSum + 2 * kPart;
+  static constexpr int kBar = kDelta + kDq512Rows * 4;
+  static constexpr int kKFull = 0, kKEmpty = 8 * kKS, kVFull = 16 * kKS;
+  static constexpr int kVEmpty = kVFull + 8 * kVS, kQBar = kVEmpty + 8 * kVS;
+  static constexpr int kDlt = kQBar + 8, kXFull = kDlt + 8;
+  static constexpr int kXFree = kXFull + 16;
+  static constexpr int kBytes = kBar + kXFree + 16 + 1024;
+  static_assert(kDq512Rows == kKv512, "a q tile's loop ends at its index");
+  static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
+};
+
+// One consumer warpgroup of dq_cta_x's CTA of rank `chunk` in a cluster of
+// n (kDp false: consumer 0, S; true: consumer 1, dP), on the item's 64 q
+// rows. delta = rowsum(dO * O): each consumer takes 32 rows of its CTA's
+// chunk (four threads a row, O from global memory, dO from its tile) into
+// the CTA's partial, published to every rank; delta = the n ranks'
+// partials in rank order. Per K/V tile j, in lockstep with the other
+// ranks: consumer 0's partial S_c = Q_c K_c^T, consumer 1's dP_c = dO_c
+// V_c^T (m64n64, 256 deep; V_j released after it), into this CTA's slot
+// of its kind once every rank has read the last (x_free) and published
+// (x_full); each gathers its kind's n partials in rank order and leaves
+// the sum for the other consumer (consumers_sync), then reads the other's:
+// both hold S_j and dP_j, bit-equal in every rank, form dS = P (dP -
+// delta) and run their 128-column half of dq_c += dS K_c (m64n128k16, K_c
+// read MN-major from the half's two boxes). Causal, the loop ends on the
+// diagonal tile, which both mask.
+template <class T, class Base, bool kDp>
+__device__ __forceinline__ void dq_consumer_x(const BwdParams& p,
+                                              unsigned char* base, int b,
+                                              int h, int qt, int n_kt,
+                                              uint32_t chunk, int n) {
+  using L = DqSmemX;
+  constexpr int kF = kKv512 / 2, kPartF = L::kPart / 4, kHalf = kChunk / 2;
+  constexpr int kW = kDp ? 1 : 0;
+  const int tid = threadIdx.x % 128;
+  const int R0 = (tid / 32) * 16 + (tid % 32) / 4;  // and R0 + 8
+  const int q_start = qt * kDq512Rows, row0 = q_start + R0;
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const float sm = p.scale * Base::kScoreMul;
+  const TileMask mask = {p.S, p.causal};
+  const long long stat = ((long long)b * p.H + h) * p.S;
+  const int j_mask = p.causal ? qt : masked_tile(0, p.S, kKv512, n_kt);
+  float lse_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    lse_r[hf] = row0 + 8 * hf < p.S
+                    ? p.lse[stat + row0 + 8 * hf] * Base::kLseMul
+                    : 0.f;
+
+  // This consumer's A (Q_c or dO_c) and B (K_c or V_c) K-major, and its
+  // half of K_c MN-major for dS K.
+  const uint64_t d_a = smem_desc(base + (kDp ? L::kDO : L::kQ), 16, 1024);
+  const uint64_t d_b = smem_desc(base + (kDp ? L::kV : L::kK), 16, 1024);
+  const uint64_t d_kmn =
+      smem_desc(base + L::kK + kW * (kHalf / kBoxCols) * kKv512 * 128,
+                kKv512 * 128, 1024);
+  float* slot = reinterpret_cast<float*>(base + L::kXch) + kW * kPartF;
+  float* sum_mine = reinterpret_cast<float*>(base + L::kSum) + kW * kPartF;
+  const float* sum_theirs =
+      reinterpret_cast<const float*>(base + L::kSum) + (1 - kW) * kPartF;
+  const uint32_t x_full = bars + L::kXFull + 8 * kW;
+  const uint32_t x_free = bars + L::kXFree + 8 * kW;
+  mbar_wait(bars + L::kQBar, 0);
+  // delta's partial over this CTA's chunk (rows 32 kW .. + 31, 0 past S).
+  float* sDelta = reinterpret_cast<float*>(base + L::kDelta);
+  {
+    const e16* sdO = reinterpret_cast<const e16*>(base + L::kDO);
+    const int R = kW * 32 + tid / 4, quarter = tid % 4, row = q_start + R;
+    float sum = 0.f;
+    if (row < p.S) {
+      const e16* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss +
+                        chunk * kChunk;
+#pragma unroll
+      for (int c = 0; c < kChunk / 32; ++c) {
+        const int ch = quarter * (kChunk / 32) + c;
+        sum += dot8<T>(*reinterpret_cast<const uint4*>(orow + ch * 8),
+                       *reinterpret_cast<const uint4*>(
+                           sdO + swz_rows<kDq512Rows>(R, ch)));
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (quarter == 0) sDelta[R] = sum;
+  }
+  warpgroup_sync(1 + kW);
+  arrive_ranks<true>(bars + L::kDlt, n);
+  mbar_wait_cluster(bars + L::kDlt, 0);
+  float dlt_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const uint32_t at = smem_addr(sDelta + R0 + 8 * hf);
+    float x = ld_cluster_f32(map_rank(at, 0));
+    for (int r = 1; r < n; ++r) x += ld_cluster_f32(map_rank(at, r));
+    dlt_r[hf] = x;
+  }
+  if (chunk == 0 && !kDp && tid % 4 == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (row0 + 8 * hf < p.S) p.delta[stat + row0 + 8 * hf] = dlt_r[hf];
+  }
+
+  float acc[kHalf / 2];
+#pragma unroll
+  for (int i = 0; i < kHalf / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n_kt; ++j) {
+    // This CTA's partial of this consumer's kind of tile j (K_j or V_j
+    // waited for; V_j released after it).
+    const int ring = kDp ? L::kVS : L::kKS, st = j % ring;
+    mbar_wait(bars + (kDp ? L::kVFull : L::kKFull) + 8 * st, (j / ring) & 1);
+    float x[kF], y[kF];
+#pragma unroll
+    for (int i = 0; i < kF; ++i) x[i] = 0.f;
+    wgmma_fence();
+    mma_nt<kChunk, T>(x, d_a, kDq512Rows * 128,
+                      d_b + ((st * L::kTile) >> 4), kKv512 * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+    if constexpr (kDp) mbar_arrive_if(bars + L::kVEmpty + 8 * st, tid == 0);
+    if (j > 0) mbar_wait(x_free, (j - 1) & 1);
+    put_part(x, slot);
+    warpgroup_sync(1 + kW);
+    arrive_ranks<true>(x_full, n);
+    // This kind summed over the n ranks; the other kind from the other
+    // consumer.
+    mbar_wait_cluster(x_full, j & 1);
+    gather_parts(x, smem_addr(slot), n);
+    warpgroup_sync(1 + kW);
+    arrive_ranks<false>(x_free, n);
+    put_part(x, sum_mine);
+    consumers_sync();
+#pragma unroll
+    for (int e4 = 0; e4 < kF / 4; ++e4) {
+      const float4 r =
+          *reinterpret_cast<const float4*>(sum_theirs + 4 * (e4 * 128 + tid));
+      y[4 * e4] = r.x;
+      y[4 * e4 + 1] = r.y;
+      y[4 * e4 + 2] = r.z;
+      y[4 * e4 + 3] = r.w;
+    }
+    // Both sums read before either consumer writes the next tile's.
+    consumers_sync();
+    const int ks = j % L::kKS;
+    if constexpr (kDp) mbar_wait(bars + L::kKFull + 8 * ks, (j / L::kKS) & 1);
+    uint32_t da[kKv512 / 16][4];
+    const float(&s)[kF] = kDp ? y : x;
+    const float(&dp)[kF] = kDp ? x : y;
+    if (j == j_mask)
+      ds_tile<T, Base, true, kKv512>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                     j * kKv512, mask);
+    else
+      ds_tile<T, Base, false, kKv512>(s, dp, da, sm, lse_r, dlt_r, row0,
+                                      j * kKv512, mask);
+    wgmma_fence();
+    mma_rs<kHalf, T, kKv512>(acc, da, d_kmn + ((ks * L::kTile) >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive_if(bars + L::kKEmpty + 8 * ks, tid == 0);  // K_j read
+  }
+  store_acc<kHalf, T, false>(
+      acc, p.scale,
+      p.dq + ((long long)b * p.S * p.H + h) * p.D + chunk * kChunk +
+          kW * kHalf,
+      (long long)p.H * p.D, q_start, p.S);
+}
+
+// One CTA of every dq past head_dim 512 (the kClusterD instance of each
+// family, the resident one included), launched in clusters of n = p.D /
+// kChunk CTAs: block i is rank i % n, chunk i % n of work item i / n, (b
+// * H + h, kDq512Rows-row q tile).
+template <class T, class Base>
+__device__ __forceinline__ void dq_cta_x(const CUtensorMap& tq,
+                                         const CUtensorMap& tdo,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const BwdParams& p,
+                                         const int* __restrict__ work,
+                                         unsigned char* smem) {
+  using L = DqSmemX;
+  const int n = p.D / kChunk;
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const uint32_t chunk = cluster_rank();
+  const int item = blockIdx.x / n;
+  const int bh = work[2 * item], qt = work[2 * item + 1];
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_all = ceil_div(p.S, kKv512);
+  const int n_kt = p.causal ? min(n_all, qt + 1) : n_all;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kKS; ++i) {
+      mbar_init(bars + L::kKFull + 8 * i, 1);
+      mbar_init(bars + L::kKEmpty + 8 * i, kConsumers);
+    }
+    mbar_init(bars + L::kVFull, 1);
+    mbar_init(bars + L::kVEmpty, 1);  // consumer 1's dP
+    mbar_init(bars + L::kQBar, 1);
+    // delta: both consumers of each rank; x_full (S's, dP's): its kind's
+    // consumer of each rank, once its partial is in place; x_free: the
+    // same, once it has read this CTA's.
+    mbar_init(bars + L::kDlt, kConsumers * n);
+    for (int c = 0; c < kConsumers; ++c) {
+      mbar_init(bars + L::kXFull + 8 * c, n);
+      mbar_init(bars + L::kXFree + 8 * c, n);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  // Every barrier of every rank is initialised before any remote arrival.
+  cluster_sync();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0)
+      dq_producer_512<kClusterD, L>(tq, tdo, tk, tv, p, base, b, h, qt,
+                                    n_kt, chunk);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    if (threadIdx.x < 256)
+      dq_consumer_x<T, Base, false>(p, base, b, h, qt, n_kt, chunk, n);
+    else
+      dq_consumer_x<T, Base, true>(p, base, b, h, qt, n_kt, chunk, n);
+  }
+  // No CTA leaves while another may still read its shared memory or
+  // arrive on its barriers.
+  cluster_sync();
+}
+
+// dkv_cta_x's shared memory: dkv_cta_512's (DkvSmem512), its exchange
+// buffer now this CTA's slots (its partial of S^T from consumer 0, of
+// dP^T from consumer 1, which every rank reads), and a second free
+// barrier: S^T's slot is read by both consumers of every rank, dP^T's by
+// consumer 1 alone. 231,512 B.
+struct DkvSmemX : DkvSmem512<kClusterD> {
+  static_assert(kX == 1, "one stage of slots");
+  static constexpr int kDpFree = kFree + 8;
+  static constexpr int kBytes = DkvSmem512<kClusterD>::kBytes + 8;
+  static_assert(kBytes <= kMaxSmem, "past the 227 KB a block may use");
+};
+
+// One consumer of dkv_cta_x over the item's q tiles, on the CTA's
+// kWideRows kv rows and its chunk of columns, in lockstep with the other
+// ranks. Per q tile: consumer 0's partial S^T_c = K_c Q_c^T, consumer 1's
+// dP^T_c = V_c dO_c^T (m64 x kDkv512QRows over the chunk's 256 columns),
+// each into this CTA's slot of its kind once every reader has read the
+// last (its free barrier), and published (s_full, dp_full); then S^T (both
+// consumers) and dP^T (consumer 1) = the n ranks' partials in rank order,
+// the same in every rank and consumer, so P^T and dS^T agree bit for bit;
+// consumer 0 runs P^T and acc = dv[:, chunk] += P^T dO_c, consumer 1 dS^T
+// and acc = dk[:, chunk] += dS^T Q_c (unscaled): four products a tile
+// pair, the minimal. Causal, both mask the q tiles that meet the 64 kv
+// rows' diagonal.
+template <class T, class Base, bool kDk>
+__device__ __forceinline__ void dkv_consumer_x(float (&acc)[kChunk / 2],
+                                               const BwdParams& p,
+                                               unsigned char* base, int kt,
+                                               int heads, int i0, int n_qt,
+                                               int n) {
+  using L = DkvSmemX;
+  constexpr int kN = L::kN;
+  constexpr int kF = kN / 2;  // a thread's share of an m64 x kN product
+  constexpr int kPartF = L::kPart / 4;
+  const int tid = threadIdx.x % 128;
+  const int krow0 = kt * kWideRows + (tid / 32) * 16 + (tid % 32) / 4;
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t full0 = bars + L::kFull, empty0 = bars + L::kEmpty;
+  const uint32_t s_full = bars + L::kSFull, dp_full = bars + L::kDpFull;
+  const uint32_t s_free = bars + L::kFree, dp_free = bars + L::kDpFree;
+  const float sm = p.scale * Base::kScoreMul;
+  const int i_end_mask = p.causal ? i0 + kWideRows / kN : -1;
+  const uint64_t d_k = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t d_v = smem_desc(base + L::kV, 16, 1024);
+  const uint64_t d_q = smem_desc(base + L::kQ, 16, 1024);
+  const uint64_t d_do = smem_desc(base + L::kDO, 16, 1024);
+  // dk += dS^T Q reads Q's chunk MN-major, dv += P^T dO reads dO's so.
+  const uint64_t d_bmn =
+      smem_desc(base + (kDk ? L::kQ : L::kDO), kN * 128, 1024);
+  float* xs = reinterpret_cast<float*>(base + L::kXch);
+  float* xd = xs + kPartF;
+  const int nq = n_qt - i0, total = heads * nq;
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bars + L::kKv, 0);
+  for (int t = 0; t < total; ++t) {
+    const int i = i0 + t % nq, st = t % L::kRing;
+    const uint32_t tile = (st * L::kTile) >> 4;
+    mbar_wait(full0 + 8 * st, (t / L::kRing) & 1);
+    float s[kF], dp[kF];
+    float(&mine)[kF] = kDk ? dp : s;
+#pragma unroll
+    for (int e = 0; e < kF; ++e) mine[e] = 0.f;
+    wgmma_fence();
+    if constexpr (kDk)
+      mma_nt_n<kChunk, T, kN>(dp, d_v, kWideRows * 128, d_do + tile,
+                              kN * 128);
+    else
+      mma_nt_n<kChunk, T, kN>(s, d_k, kWideRows * 128, d_q + tile,
+                              kN * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(mine);
+    if (t > 0) mbar_wait(kDk ? dp_free : s_free, (t - 1) & 1);
+    put_part(mine, kDk ? xd : xs);
+    warpgroup_sync(1 + kDk);
+    arrive_ranks<true>(kDk ? dp_full : s_full, n);
+    // S^T (and dP^T) of the tile: the n ranks' partials in rank order,
+    // pulled and turned into P^T (dS^T) a part of the tile at a time:
+    // consumer 1 holds dk (128) beside a quarter of S^T and dP^T (8 each;
+    // whole, or by halves, they spill at 232 registers), consumer 0 dv
+    // beside half of S^T.
+    mbar_wait_cluster(s_full, t & 1);
+    if constexpr (kDk) mbar_wait_cluster(dp_full, t & 1);
+    uint32_t a[kN / 16][4];
+    const float* lse =
+        reinterpret_cast<const float*>(base + L::kLse + st * L::kStat);
+    const float* dlt =
+        reinterpret_cast<const float*>(base + L::kDelta + st * L::kStat);
+    constexpr int kParts = kDk ? 4 : 2, kG = kN / 8 / kParts;
+    const auto part = [&](auto h) {
+      constexpr int kH = decltype(h)::value;
+      if constexpr (kH < kParts) {
+        gather_parts<kH * kG, kG>(s, smem_addr(xs), n);
+        if constexpr (kDk) gather_parts<kH * kG, kG>(dp, smem_addr(xd), n);
+        if (i < i_end_mask)
+          pds_tile<T, Base, true, kDk, kN, kH * kG, kG>(s, dp, a, lse, dlt,
+                                                        sm, krow0, i * kN);
+        else
+          pds_tile<T, Base, false, kDk, kN, kH * kG, kG>(s, dp, a, lse, dlt,
+                                                         sm, krow0, i * kN);
+      }
+    };
+    part(std::integral_constant<int, 0>());
+    part(std::integral_constant<int, 1>());
+    part(std::integral_constant<int, 2>());
+    part(std::integral_constant<int, 3>());
+    warpgroup_sync(1 + kDk);
+    arrive_ranks<false>(s_free, n);
+    if constexpr (kDk) arrive_ranks<false>(dp_free, n);
+    wgmma_fence();
+    mma_rs<kChunk, T, kN>(acc, a, d_bmn + tile);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive_if(empty0 + 8 * st, tid == 0);  // Q, dO, lse, delta read
+  }
+}
+
+// One CTA of every dk/dv past head_dim 512 (the kClusterD instance),
+// launched in clusters of n = p.D / kChunk CTAs: block i is rank i % n,
+// chunk i % n of work item i / n of dkv_wide_schedule's list, (b * KVH +
+// kvh, kWideRows-row kv tile, part of the GQA group). The GQA parts are
+// dkv_cta_512's, ticketed per kv tile and chunk.
+template <class T, class Base>
+__device__ __forceinline__ void dkv_cta_x(
+    const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, const CUtensorMap& tlse, const CUtensorMap& tdlt,
+    const BwdParams& p, const int* __restrict__ work, const DkvSplit& split,
+    unsigned char* smem) {
+  static_assert(Base::kLseMul == 1.f, "dk/dv reads lse as the base's own");
+  using L = DkvSmemX;
+  const int n = p.D / kChunk;
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const uint32_t chunk = cluster_rank();
+  const int* item = work + 3 * (blockIdx.x / n);
+  const int bkv = item[0], kt = item[1], part = item[2];
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  const int heads = p.H / p.KVH / split.parts;
+  const int h0 = kvh * (p.H / p.KVH) + part * heads;
+  const int n_qt = ceil_div(p.S, L::kN);
+  // Causal: q tiles from the kv tile's first row (kt's rows start before
+  // S).
+  const int i0 = p.causal ? kt * (kWideRows / L::kN) : 0;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kRing; ++i) {
+      mbar_init(bars + L::kFull + 8 * i, 1);
+      mbar_init(bars + L::kEmpty + 8 * i, kConsumers);
+    }
+    mbar_init(bars + L::kKv, 1);  // K and V
+    // s_full, dp_full: consumer 0 (S^T), consumer 1 (dP^T) of each rank;
+    // s_free: both consumers of each rank, dp_free: consumer 1 of each.
+    mbar_init(bars + L::kSFull, n);
+    mbar_init(bars + L::kDpFull, n);
+    mbar_init(bars + L::kFree, kConsumers * n);
+    mbar_init(bars + L::kDpFree, n);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  // Every barrier of every rank is initialised before any remote arrival.
+  // The consumers take kConsumerRegs512 (240), the producer
+  // kProducerRegs512: at 232 the dk consumer spills a few bytes.
+  cluster_sync();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs512>();
+    if (threadIdx.x == 0)
+      dkv_producer_512<kClusterD>(tq, tdo, tk, tv, tlse, tdlt, p, base, b,
+                                  kvh, kt, chunk, h0, heads, i0, n_qt);
+  } else {
+    setmaxnreg_inc<kConsumerRegs512>();
+    const long long off = ((long long)b * p.S * p.KVH + kvh) * p.D;
+    float acc[kChunk / 2];
+    if (threadIdx.x < 256) {
+      dkv_consumer_x<T, Base, false>(acc, p, base, kt, heads, i0, n_qt, n);
+      dkv_store_512<kClusterD, T>(acc, 1.f, p.dv, p, split, base, 0, off,
+                                  bkv, kt, chunk, part, p.D);
+    } else {
+      dkv_consumer_x<T, Base, true>(acc, p, base, kt, heads, i0, n_qt, n);
+      dkv_store_512<kClusterD, T>(acc, p.scale, p.dk, p, split, base, 1, off,
+                                  bkv, kt, chunk, part, p.D);
+    }
+  }
+  // No CTA leaves while another may still read its shared memory or
+  // arrive on its barriers.
+  cluster_sync();
+}
+
 // ----------------------------------------------------------------- host
 
 // A map of the (B * H, S) fp32 rows of lse or delta, as dimensions (S,
@@ -2193,11 +2650,16 @@ inline int launch_dq_rows(Kernel kernel, const BwdParams& p, int B, int D,
 
 // Launches `kernel` (an instance of dq_cta of shape Sh over the B * H *
 // ceil(S / 128) items of `work`; at head_dim 512 of dq_cta_512 over B * H
-// * ceil(S / 64), a cluster of out_chunks CTAs each).
+// * ceil(S / 64), a cluster of out_chunks CTAs each; the kClusterD
+// instance, dq_cta_x, over the same items at width p.D, a cluster of p.D
+// / kChunk CTAs each).
 template <int D, class T, class Sh = DqBase<D>, class Kernel>
 inline int launch_dq(Kernel kernel, const BwdParams& p, int B,
                      const int* work, cudaStream_t stream) {
-  if constexpr (D > 256)
+  if constexpr (D == kClusterD)
+    return launch_dq_rows<T>(kernel, p, B, p.D, kDq512Rows, kKv512,
+                             DqSmemX::kBytes, work, stream, p.D / kChunk);
+  else if constexpr (D > 256)
     return launch_dq_rows<T>(kernel, p, B, D, kDq512Rows, kKv512,
                              DqSmem512<D>::kBytes, work, stream,
                              out_chunks<D>());
@@ -2240,40 +2702,44 @@ inline int launch_dkv(Kernel kernel, const BwdParams& p, int B,
 // lse and delta in kBwdTile-row ones) and launches `kernel` over the B *
 // KVH * ceil(S / 64) * P items of `work`; at head_dim 512 dkv_cta_512's
 // (Q, dO, lse and delta in kDkv512QRows-row ones), out_chunks CTAs an
-// item, each item a cluster.
+// item, each item a cluster; the kClusterD instance dkv_cta_x's, p.D /
+// kChunk CTAs an item at width p.D.
 template <int D, class T, class Kernel>
 inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
                            const int* work, const DkvSplit& split,
                            cudaStream_t stream) {
   constexpr int kQRows = D > 256 ? kDkv512QRows : kBwdTile;
   int smem;
-  if constexpr (D > 256)
+  if constexpr (D == kClusterD)
+    smem = DkvSmemX::kBytes;
+  else if constexpr (D > 256)
     smem = DkvSmem512<D>::kBytes;
   else
     smem = DkvWideSmem<D>::kBytes;
+  const int width = D == kClusterD ? p.D : D;
   CUtensorMap tq, tdo, tk, tv, tlse, tdlt;
-  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
-                           kQRows);
+  int err = encode_rows<T>(&tq, p.q, width, p.S, p.H, B, p.q_ss, p.q_sh,
+                           p.q_sb, kQRows);
   if (!err)
-    err = encode_rows<T>(&tdo, p.dout, D, p.S, p.H, B, p.do_ss, p.do_sh,
+    err = encode_rows<T>(&tdo, p.dout, width, p.S, p.H, B, p.do_ss, p.do_sh,
                          p.do_sb, kQRows);
   if (!err)
-    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                         kWideRows);
+    err = encode_rows<T>(&tk, p.k, width, p.S, p.KVH, B, p.k_ss, p.k_sh,
+                         p.k_sb, kWideRows);
   if (!err)
-    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                         kWideRows);
+    err = encode_rows<T>(&tv, p.v, width, p.S, p.KVH, B, p.v_ss, p.v_sh,
+                         p.v_sb, kWideRows);
   if (!err) err = encode_stats(&tlse, p.lse, p.S, B * p.H, kQRows);
   if (!err) err = encode_stats(&tdlt, p.delta, p.S, B * p.H, kQRows);
   if (err) return err;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int items = B * p.KVH * ceil_div(p.S, kWideRows) * split.parts *
-                    out_chunks<D>();
+  const int n = D > 256 ? width / kChunk : 1;
+  const int items = B * p.KVH * ceil_div(p.S, kWideRows) * split.parts * n;
   if constexpr (D > 256) {
-    // A cluster of the out_chunks CTAs of each item.
-    return launch_clusters(kernel, items, out_chunks<D>(), smem, stream, tq,
-                           tdo, tk, tv, tlse, tdlt, p, work, split);
+    // A cluster of the n CTAs of each item.
+    return launch_clusters(kernel, items, n, smem, stream, tq, tdo, tk, tv,
+                           tlse, tdlt, p, work, split);
   } else {
     kernel<<<items, kFwdThreads, smem, stream>>>(tq, tdo, tk, tv, tlse,
                                                  tdlt, p, work, split);
@@ -2282,7 +2748,8 @@ inline int launch_dkv_wide(Kernel kernel, const BwdParams& p, int B,
 }
 
 // Every dk/dv: dkv_cta's launch at head_dim 64 and 128 (P must be 1),
-// dkv_cta_wide's at 256, dkv_cta_512's at 512. P must divide H / KVH.
+// dkv_cta_wide's at 256, dkv_cta_512's at 512, dkv_cta_x's past it. P
+// must divide H / KVH.
 template <int D, class T, class Kernel>
 inline int launch_dkv_split(Kernel kernel, const BwdParams& p, int B,
                             const int* work, const DkvSplit& split,
@@ -2301,7 +2768,9 @@ inline int launch_dkv_split(Kernel kernel, const BwdParams& p, int B,
 template <int D, class T, class Sh = DqBase<D>, class Kernel>
 inline int dq_attrs(Kernel kernel, int* out) {
   int smem;
-  if constexpr (D > 256)
+  if constexpr (D == kClusterD)
+    smem = DqSmemX::kBytes;
+  else if constexpr (D > 256)
     smem = DqSmem512<D>::kBytes;
   else
     smem = DqSmem<D, Sh>::kBytes;
@@ -2310,11 +2779,13 @@ inline int dq_attrs(Kernel kernel, int* out) {
 }
 
 // The resident dq: DqResident's CTA, at head_dim 512 dq_cta_chunked_512
-// (one CTA an item, no cluster).
+// (one CTA an item, no cluster), past it dq_cta_x as every family's.
 template <int D, class T, class Kernel>
 inline int launch_dq_resident(Kernel kernel, const BwdParams& p, int B,
                               const int* work, cudaStream_t stream) {
-  if constexpr (D > 256)
+  if constexpr (D == kClusterD)
+    return launch_dq<D, T>(kernel, p, B, work, stream);
+  else if constexpr (D > 256)
     return launch_dq_rows<T>(kernel, p, B, D, kDq512Rows, kDqChunkedKv,
                              DqSmemChunked512<D>::kBytes, work, stream);
   else
@@ -2323,7 +2794,9 @@ inline int launch_dq_resident(Kernel kernel, const BwdParams& p, int B,
 
 template <int D, class T, class Kernel>
 inline int dq_resident_attrs(Kernel kernel, int* out) {
-  if constexpr (D > 256)
+  if constexpr (D == kClusterD)
+    return dq_attrs<D, T>(kernel, out);
+  else if constexpr (D > 256)
     return kernel_attrs(kernel, DqSmemChunked512<D>::kBytes, kFwdThreads,
                         kProducerRegs, kConsumerRegs, out);
   else
@@ -2342,18 +2815,22 @@ inline int dq_tri_attrs(Kernel kernel, int* out) {
 }
 
 // Every dk/dv's (dkv_cta_wide's shared memory at head_dim 256,
-// dkv_cta_512's at 512).
+// dkv_cta_512's at 512, dkv_cta_x's past it).
 template <int D, class T, class Kernel>
 inline int dkv_attrs(Kernel kernel, int* out) {
   int smem;
-  if constexpr (D > 256)
+  if constexpr (D == kClusterD)
+    smem = DkvSmemX::kBytes;
+  else if constexpr (D > 256)
     smem = DkvSmem512<D>::kBytes;
   else if constexpr (D > 128)
     smem = DkvWideSmem<D>::kBytes;
   else
     smem = DkvSmem<D>::kBytes;
-  return kernel_attrs(kernel, smem, kFwdThreads, kProducerRegs,
-                      kConsumerRegs, out);
+  const bool x = D == kClusterD;
+  return kernel_attrs(kernel, smem, kFwdThreads,
+                      x ? kProducerRegs512 : kProducerRegs,
+                      x ? kConsumerRegs512 : kConsumerRegs, out);
 }
 
 }  // namespace sm90

@@ -160,6 +160,10 @@ struct FwdParams {
   int S, H, KVH;
   float scale;
   int causal;
+  // The kernel width: read only by the instances that serve every width
+  // past 512 at run time (flash_fwd_sm90.cuh kClusterD); last, so the
+  // fields before it and the struct's size stay as they were.
+  int D;
 };
 
 struct BwdParams {
@@ -178,13 +182,15 @@ struct BwdParams {
   int S, H, KVH;
   float scale;
   int causal;
+  int D;  // the kernel width, as FwdParams::D
 };
 
 // strides: (batch, seq, head) in elements for q, k, v. o is written
-// contiguous (B, S, H, D) and lse (B, H, S) fp32.
+// contiguous (B, S, H, D) and lse (B, H, S) fp32. D: the kernel width.
 inline FwdParams fwd_params(const void* q, const void* k, const void* v,
                             void* o, void* lse, const long long* st, int S,
-                            int H, int KVH, float scale, int causal) {
+                            int H, int KVH, float scale, int causal,
+                            int D) {
   FwdParams p;
   p.q = static_cast<const e16*>(q);
   p.k = static_cast<const e16*>(k);
@@ -197,6 +203,7 @@ inline FwdParams fwd_params(const void* q, const void* k, const void* v,
   p.S = S; p.H = H; p.KVH = KVH;
   p.scale = scale;
   p.causal = causal;
+  p.D = D;
   return p;
 }
 
@@ -206,7 +213,8 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const void* lse, const void* delta, void* dq,
                             void* dk, void* dv, const long long* st, int S,
-                            int H, int KVH, float scale, int causal) {
+                            int H, int KVH, float scale, int causal,
+                            int D) {
   BwdParams p = {};
   p.q = static_cast<const e16*>(q);
   p.k = static_cast<const e16*>(k);
@@ -230,6 +238,7 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v,
   p.S = S; p.H = H; p.KVH = KVH;
   p.scale = scale;
   p.causal = causal;
+  p.D = D;
   return p;
 }
 

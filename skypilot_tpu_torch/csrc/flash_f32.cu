@@ -1,6 +1,7 @@
 // Flash attention in fp32 on Hopper (sm_90a): forward, dq and dk/dv for f32
 // inputs, every family's shapes (any S that is a multiple of 8, head_dim 64,
-// 128, 256 or 512, causal or not), natural exp and a natural-log lse.
+// 128, 256, 512 or any multiple of 256 up to 2048, causal or not), natural
+// exp and a natural-log lse.
 //
 // Replaces, for f32 inputs, skypilot_tpu/ops/pallas/flash_attention.py's
 // kernels, whose dots take the input dtype: _fwd_kernel_resident :759,
@@ -91,6 +92,10 @@
 //          (222,880 B);
 //          D=512: 32 kv rows, S^T 2x4, eight 64-column slabs, 2 stages,
 //          dk and dv 128 (185,752 B).
+//   Past 512 the wide kernels (WideTiles, below): 64 rows against 64-row
+//   tiles, four stages of a slot holding both operands' 64-column slabs,
+//   S 4x4 and a 256-column chunk of the output 64 registers a thread (dk
+//   and dv 128): 158,624 B (forward), 158,368 B (dq), 176,544 B (dk/dv).
 //
 // Work lists, built on the host (ops/flash_attention.py), longest first:
 // the forward and dq walk (b * H + h, q tile) items, each over the key
@@ -984,6 +989,579 @@ flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ----------------------------------------------------------------------
+// Past head_dim 512 (768 ... 2048, every multiple of kWideChunk): a
+// resident tile of 64 rows of D fp32 columns would pass the block's shared
+// memory on its own, and a row's output (o, dq, dk, dv) the registers. So
+// the output is split in n = D / kWideChunk column chunks, one CTA each
+// (block i: chunk i % n of work item i / n; no cluster), and nothing is
+// resident: each step of the ring brings a slab of both operands of S
+// (dP, S^T, dP^T), the resident side's kRows rows and the streamed side's
+// kInner rows of kSlab columns (two TMA boxes on one barrier), so the
+// chunk's CTA forms S over all D columns itself, then a slab of the
+// streamed operand's chunk for each output slab. Every chunk's CTA of an
+// item forms the same S, m, l and P bit for bit (the same sums in the
+// same order): (n + 1) / 2 times the forward's minimal FLOPs, n + 2 / 3
+// times dq's and (n + 1) / 2 times dk/dv's (at 1024: 2.5x, 4.3x, 2.5x).
+struct WideTiles {
+  static constexpr int kRows = 64, kInner = 64, kSlab = 64, kStages = 4;
+  static constexpr int kSM = 4, kSN = 4, kOM = 4, kON = 4;
+};
+constexpr int kWideChunk = 256;
+constexpr int kWideOut = kWideChunk / WideTiles::kSlab;  // output slabs
+static_assert(kWideChunk == sm90::kChunk,
+              "the Hopper kernels' widths past 512 (sm90::cluster_width)");
+
+// Shared memory of the wide kernels, in floats from a 128-byte aligned
+// base: kPTiles tiles of P or dS (kRows rows of kInner + 8), the ring's
+// slots (each the resident side's kRows rows, then the streamed side's
+// kInner rows, of kSlab + 4), kStats floats a resident row; then kStages
+// mbarriers.
+template <int kPTiles, int kStats>
+struct WideSmem {
+  using T = WideTiles;
+  static constexpr int kLdP = T::kInner + 8, kLdSlab = T::kSlab + 4;
+  static constexpr int kPTile = T::kRows * kLdP;
+  static constexpr int kA = T::kRows * kLdSlab;  // a slot's first part
+  static constexpr int kSlot = kA + T::kInner * kLdSlab;
+  static constexpr int kP = 0;
+  static constexpr int kRing = kP + kPTiles * kPTile;
+  static constexpr int kStat = kRing + T::kStages * kSlot;
+  static constexpr int kBar = kStat + kStats * T::kRows;  // 8-byte aligned
+  static constexpr int kBoxBytes = 4 * T::kRows * kLdSlab;  // a TMA box
+  static constexpr int kBytes = 4 * kBar + 8 * T::kStages + 128;
+  static_assert(T::kRows == T::kInner, "both sides' boxes of one shape");
+  static_assert(kRing % 32 == 0 && kSlot % 32 == 0 && kA % 32 == 0,
+                "128-byte aligned slots");
+  static_assert(kBytes <= kMaxSmemBytes, "a CTA's tiles pass 227 KB");
+  static_assert(kWideChunk % T::kSlab == 0, "slabs of a chunk");
+};
+
+// The wide kernels' ring: step g's slot on mbarrier g % kStages, filled by
+// fetch(g); a step waits for its slot, meets the CTA and refills the
+// previous step's slot (Ring's).
+using WideRing = Ring<WideTiles::kStages>;
+// Their fragments of S (dP, S^T, dP^T) and of an output slab, and their
+// shared memory: the forward's P and the warps' row maxima and sums and
+// the rows' rescale; dq's dS, lse and delta; dk/dv's P^T and dS^T and the
+// ticket's flag.
+using WideSF = Frag<WideTiles::kRows, WideTiles::kInner, WideTiles::kSM,
+                    WideTiles::kSN>;
+using WideOF = Frag<WideTiles::kRows, WideTiles::kSlab, WideTiles::kOM,
+                    WideTiles::kON>;
+using FwdWideSmem = WideSmem<1, WideSF::kWarpsN + 1>;
+using DqWideSmem = WideSmem<1, 2>;
+using DkvWideSmem = WideSmem<2, 1>;
+
+// The forward past 512: o's chunk and (chunk 0) the natural-log lse. Per
+// key tile, steps 0 .. ns - 1 bring slab w of Q (the item's q rows) and of
+// K; steps ns .. ns + kWideOut - 1 slab u of V's chunk. The online softmax
+// is flash_fwd_f32_kernel's.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const F32Fwd a) {
+  using T = WideTiles;
+  using SF = WideSF;
+  using OF = WideOF;
+  using L = FwdWideSmem;
+  constexpr int kWN = SF::kWarpsN;  // warps that share a row of S
+  float* sm = aligned_smem();
+  const FwdParams& p = a.p;
+  const int n = p.D / kWideChunk, ns = p.D / T::kSlab;
+  const int item = blockIdx.x / n, chunk = blockIdx.x % n;
+  const int bh = a.work[2 * item], qt = a.work[2 * item + 1];
+  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KVH);
+  const int q0 = qt * T::kRows;
+  const int n_all = ceil_div(p.S, T::kInner);
+  const int n_kt = p.causal
+                       ? min(n_all, (q0 + T::kRows - 1) / T::kInner + 1)
+                       : n_all;
+  const int steps = ns + kWideOut;  // ring steps a key tile
+  const int total = n_kt * steps;
+  const uint32_t bars = smem_addr(sm + L::kBar);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T::kStages; ++i) sm90::mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const auto fetch = [&](int g) {
+    if (g >= total || threadIdx.x != 0) return;
+    const int t = g / steps, w = g % steps;
+    const uint32_t bar = bars + 8 * (g % T::kStages);
+    float* slot = sm + L::kRing + (g % T::kStages) * L::kSlot;
+    if (w < ns) {
+      sm90::mbar_expect_tx(bar, 2 * L::kBoxBytes);
+      sm90::tma_load_4d(slot, &tq, bar, w * T::kSlab, q0, h, b);
+      sm90::tma_load_4d(slot + L::kA, &tk, bar, w * T::kSlab, t * T::kInner,
+                        kvh, b);
+    } else {
+      sm90::mbar_expect_tx(bar, L::kBoxBytes);
+      sm90::tma_load_4d(slot + L::kA, &tv, bar,
+                        chunk * kWideChunk + (w - ns) * T::kSlab,
+                        t * T::kInner, kvh, b);
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < T::kStages - 1; ++g) fetch(g);
+  const int sr = SF::row0(), sc = SF::col0();
+  const int orow = OF::row0(), ocol = OF::col4();
+  const int wn = threadIdx.x / 32 % kWN, lane = threadIdx.x % 32;
+  const bool row_leader = wn == 0 && lane % 8 == 0;
+  float* pb = sm + L::kP;
+  float* red = sm + L::kStat;             // kWN x kRows
+  float* rescale = red + kWN * T::kRows;  // kRows
+  const float c2 = p.scale * BaseE2::kScoreMul;
+  WideRing ring{sm + L::kRing, L::kSlot, bars};
+  float m[T::kSM], l[T::kSM];
+#pragma unroll
+  for (int i = 0; i < T::kSM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  float acc[kWideOut][T::kOM][T::kON];
+#pragma unroll
+  for (int w = 0; w < kWideOut; ++w)
+#pragma unroll
+    for (int i = 0; i < T::kOM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) acc[w][i][j] = 0.f;
+  for (int t = 0; t < n_kt; ++t) {
+    float s[T::kSM][T::kSN];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) s[i][j] = 0.f;
+    const int g0 = t * steps;
+    for (int w = 0; w < ns; ++w) {
+      const float* slot = ring.step(g0 + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdSlab, L::kLdSlab>(
+          s, slot + sr * L::kLdSlab, slot + L::kA + sc * L::kLdSlab);
+    }
+    // The tile's scores in base 2, masked (key columns at or past S, and
+    // above the diagonal when causal), and each row's maximum.
+    float mx[T::kSM];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const int qpos = q0 + sr + 4 * i;
+      mx[i] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) {
+        const int kpos = t * T::kInner + sc + 8 * j;
+        const bool keep = kpos < p.S && !(p.causal && kpos > qpos);
+        s[i][j] = keep ? s[i][j] * c2 : -INFINITY;
+        mx[i] = fmaxf(mx[i], s[i][j]);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+    }
+    if (lane % 8 == 0)
+#pragma unroll
+      for (int i = 0; i < T::kSM; ++i) red[wn * T::kRows + sr + 4 * i] = mx[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+      for (int u = 0; u < kWN; ++u)
+        mx[i] = fmaxf(mx[i], red[u * T::kRows + sr + 4 * i]);
+    // P and the rows' rescale, for the products below (the next ring
+    // step's barrier publishes them).
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const float m_new = fmaxf(m[i], mx[i]);
+      const float alpha = BaseE2::exp(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) {
+        const float pr = BaseE2::exp(s[i][j] - m_new);
+        pb[(sr + 4 * i) * L::kLdP + sc + 8 * j] = pr;
+        sum += pr;
+      }
+      l[i] = fmaf(l[i], alpha, sum);
+      if (row_leader) rescale[sr + 4 * i] = alpha;
+    }
+#pragma unroll
+    for (int w = 0; w < kWideOut; ++w) {
+      const float* v = ring.step(g0 + ns + w, fetch) + L::kA;
+      if (w == 0) {
+#pragma unroll
+        for (int i = 0; i < T::kOM; ++i) {
+          const float alpha = rescale[orow + 4 * i];
+#pragma unroll
+          for (int u = 0; u < kWideOut; ++u)
+#pragma unroll
+            for (int j = 0; j < T::kON; ++j) acc[u][i][j] *= alpha;
+        }
+      }
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          acc[w], pb + orow * L::kLdP, v + ocol);
+    }
+  }
+  // Each row's sum over its threads (the lanes, then the warps, in a
+  // fixed order), 1 / l for o and the natural-log lse.
+#pragma unroll
+  for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+  __syncthreads();  // every read of red and rescale is done
+  if (lane % 8 == 0)
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) red[wn * T::kRows + sr + 4 * i] = l[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < T::kSM; ++i) {
+    l[i] = red[sr + 4 * i];
+#pragma unroll
+    for (int u = 1; u < kWN; ++u) l[i] += red[u * T::kRows + sr + 4 * i];
+  }
+  const long long stat = ((long long)b * p.H + h) * p.S;
+  if (row_leader) {
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const int row = q0 + sr + 4 * i;
+      rescale[sr + 4 * i] = 1.f / l[i];
+      if (chunk == 0 && row < p.S)
+        p.lse[stat + row] = (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+  __syncthreads();
+  float* og = f32(p.o) + ((long long)b * p.S * p.H + h) * p.D +
+              chunk * kWideChunk;
+  const long long ss = (long long)p.H * p.D;
+#pragma unroll
+  for (int i = 0; i < T::kOM; ++i) {
+    const float inv = rescale[orow + 4 * i];
+#pragma unroll
+    for (int w = 0; w < kWideOut; ++w)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) acc[w][i][j] *= inv;
+  }
+#pragma unroll
+  for (int w = 0; w < kWideOut; ++w)
+    store_block(acc[w], 1.f, og + w * T::kSlab + ocol, ss, q0 + orow, p.S);
+}
+
+// dq past 512: dq's chunk and (chunk 0) delta = rowsum(dO * O), a warp a
+// row over all D columns from global memory. Per key tile, steps 0 .. ns -
+// 1 bring slab w of dO and of V (dP), ns .. 2 ns - 1 slab w of Q and of K
+// (S); dS = P (dP - delta) into shared memory; then kWideOut steps slab u
+// of K's chunk (dq += dS K).
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const F32Dq a) {
+  using T = WideTiles;
+  using L = DqWideSmem;
+  using SF = WideSF;
+  using OF = WideOF;
+  float* sm = aligned_smem();
+  const BwdParams& p = a.p;
+  const int n = p.D / kWideChunk, ns = p.D / T::kSlab;
+  const int item = blockIdx.x / n, chunk = blockIdx.x % n;
+  const int bh = a.work[2 * item], qt = a.work[2 * item + 1];
+  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KVH);
+  const int q0 = qt * T::kRows;
+  const int n_all = ceil_div(p.S, T::kInner);
+  const int n_kt = p.causal
+                       ? min(n_all, (q0 + T::kRows - 1) / T::kInner + 1)
+                       : n_all;
+  const int steps = 2 * ns + kWideOut;
+  const int total = n_kt * steps;
+  const uint32_t bars = smem_addr(sm + L::kBar);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T::kStages; ++i) sm90::mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const auto fetch = [&](int g) {
+    if (g >= total || threadIdx.x != 0) return;
+    const int t = g / steps, w = g % steps;
+    const uint32_t bar = bars + 8 * (g % T::kStages);
+    float* slot = sm + L::kRing + (g % T::kStages) * L::kSlot;
+    if (w < 2 * ns) {
+      const bool dp = w < ns;
+      const int col = (dp ? w : w - ns) * T::kSlab;
+      sm90::mbar_expect_tx(bar, 2 * L::kBoxBytes);
+      sm90::tma_load_4d(slot, dp ? &tdo : &tq, bar, col, q0, h, b);
+      sm90::tma_load_4d(slot + L::kA, dp ? &tv : &tk, bar, col,
+                        t * T::kInner, kvh, b);
+    } else {
+      sm90::mbar_expect_tx(bar, L::kBoxBytes);
+      sm90::tma_load_4d(slot + L::kA, &tk, bar,
+                        chunk * kWideChunk + (w - 2 * ns) * T::kSlab,
+                        t * T::kInner, kvh, b);
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < T::kStages - 1; ++g) fetch(g);
+  // delta = rowsum(dO * O), a warp a row; lse into base 2 (BaseE2).
+  const long long stat = ((long long)b * p.H + h) * p.S;
+  const float* og = f32(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* dog = f32(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < T::kRows; r += kWarps) {
+    const int row = q0 + r;
+    float s = 0.f;
+    if (row < p.S) {
+      for (int c = 4 * lane; c < p.D; c += 128) {
+        const float4 o =
+            __ldg(reinterpret_cast<const float4*>(og + row * p.o_ss + c));
+        const float4 d =
+            __ldg(reinterpret_cast<const float4*>(dog + row * p.do_ss + c));
+        s = fmaf(d.x, o.x, s);
+        s = fmaf(d.y, o.y, s);
+        s = fmaf(d.z, o.z, s);
+        s = fmaf(d.w, o.w, s);
+      }
+    }
+    s = warp_sum(s);
+    if (lane == 0) {
+      sm[L::kStat + r] =
+          row < p.S ? p.lse[stat + row] * BaseE2::kLseMul : 0.f;
+      sm[L::kStat + T::kRows + r] = s;
+      if (chunk == 0 && row < p.S) p.delta[stat + row] = s;
+    }
+  }
+  __syncthreads();
+  const int sr = SF::row0(), sc = SF::col0();
+  const int orow = OF::row0(), ocol = OF::col4();
+  float lse2[T::kSM], dlt[T::kSM];
+#pragma unroll
+  for (int i = 0; i < T::kSM; ++i) {
+    lse2[i] = sm[L::kStat + sr + 4 * i];
+    dlt[i] = sm[L::kStat + T::kRows + sr + 4 * i];
+  }
+  float* ds = sm + L::kP;
+  const float c2 = p.scale * BaseE2::kScoreMul;
+  WideRing ring{sm + L::kRing, L::kSlot, bars};
+  float acc[kWideOut][T::kOM][T::kON];
+#pragma unroll
+  for (int w = 0; w < kWideOut; ++w)
+#pragma unroll
+    for (int i = 0; i < T::kOM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) acc[w][i][j] = 0.f;
+  for (int t = 0; t < n_kt; ++t) {
+    float s[T::kSM][T::kSN], dp[T::kSM][T::kSN];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) s[i][j] = dp[i][j] = 0.f;
+    const int g0 = t * steps;
+    for (int w = 0; w < ns; ++w) {
+      const float* slot = ring.step(g0 + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdSlab, L::kLdSlab>(
+          dp, slot + sr * L::kLdSlab, slot + L::kA + sc * L::kLdSlab);
+    }
+    for (int w = 0; w < ns; ++w) {
+      const float* slot = ring.step(g0 + ns + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdSlab, L::kLdSlab>(
+          s, slot + sr * L::kLdSlab, slot + L::kA + sc * L::kLdSlab);
+    }
+    // dS of the tile, masked: key columns at or past S, and above the
+    // diagonal when causal (the next ring step's barrier publishes it).
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const int qpos = q0 + sr + 4 * i;
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) {
+        const int kpos = t * T::kInner + sc + 8 * j;
+        const bool keep = kpos < p.S && !(p.causal && kpos > qpos);
+        const float pr =
+            keep ? BaseE2::exp(fmaf(s[i][j], c2, -lse2[i])) : 0.f;
+        ds[(sr + 4 * i) * L::kLdP + sc + 8 * j] = pr * (dp[i][j] - dlt[i]);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kWideOut; ++w) {
+      const float* k = ring.step(g0 + 2 * ns + w, fetch) + L::kA;
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          acc[w], ds + orow * L::kLdP, k + ocol);
+    }
+  }
+  float* dqg = f32(p.dq) + ((long long)b * p.S * p.H + h) * p.D +
+               chunk * kWideChunk;
+  const long long ss = (long long)p.H * p.D;
+#pragma unroll
+  for (int w = 0; w < kWideOut; ++w)
+    store_block(acc[w], p.scale, dqg + w * T::kSlab + ocol, ss, q0 + orow,
+                p.S);
+}
+
+// dk/dv past 512: the chunk of dk and dv of a kv tile, for each of its
+// part's G / parts heads over its q tiles from the causal start. Per q
+// tile, steps 0 .. ns - 1 bring slab w of V (the kv rows) and of dO (dP^T),
+// ns .. 2 ns - 1 slab w of K and of Q (S^T); P^T and dS^T into shared
+// memory; then kWideOut steps slab u of Q's chunk (dk += dS^T Q) and
+// kWideOut of dO's (dv += P^T dO). The GQA parts are flash_dkv_f32_kernel's,
+// ticketed per kv tile and chunk.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const F32Dkv a) {
+  using T = WideTiles;
+  using L = DkvWideSmem;
+  using SF = WideSF;
+  using OF = WideOF;
+  float* sm = aligned_smem();
+  const BwdParams& p = a.p;
+  const int n = p.D / kWideChunk, ns = p.D / T::kSlab;
+  const int* item = a.work + 3 * (blockIdx.x / n);
+  const int chunk = blockIdx.x % n;
+  const int bkv = item[0], kt = item[1], part = item[2];
+  const int b = bkv / p.KVH, kvh = bkv % p.KVH;
+  const int heads = p.H / p.KVH / a.parts;
+  const int h0 = kvh * (p.H / p.KVH) + part * heads;
+  const int k0 = kt * T::kRows;
+  // Causal: q tiles from the one that holds row k0.
+  const int i0 = p.causal ? k0 / T::kInner : 0;
+  const int n_qt = ceil_div(p.S, T::kInner) - i0;
+  const int steps = 2 * ns + 2 * kWideOut;
+  const int total = heads * n_qt * steps;
+  const uint32_t bars = smem_addr(sm + L::kBar);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T::kStages; ++i) sm90::mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const auto fetch = [&](int g) {
+    if (g >= total || threadIdx.x != 0) return;
+    const int t = g / steps, w = g % steps;
+    const int h = h0 + t / n_qt, qrow = (i0 + t % n_qt) * T::kInner;
+    const uint32_t bar = bars + 8 * (g % T::kStages);
+    float* slot = sm + L::kRing + (g % T::kStages) * L::kSlot;
+    if (w < 2 * ns) {
+      const bool dp = w < ns;
+      const int col = (dp ? w : w - ns) * T::kSlab;
+      sm90::mbar_expect_tx(bar, 2 * L::kBoxBytes);
+      sm90::tma_load_4d(slot, dp ? &tv : &tk, bar, col, k0, kvh, b);
+      sm90::tma_load_4d(slot + L::kA, dp ? &tdo : &tq, bar, col, qrow, h, b);
+    } else {
+      const bool dk = w < 2 * ns + kWideOut;
+      const int u = w - 2 * ns - (dk ? 0 : kWideOut);
+      sm90::mbar_expect_tx(bar, L::kBoxBytes);
+      sm90::tma_load_4d(slot + L::kA, dk ? &tq : &tdo, bar,
+                        chunk * kWideChunk + u * T::kSlab, qrow, h, b);
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < T::kStages - 1; ++g) fetch(g);
+  const int sr = SF::row0(), sc = SF::col0();
+  const int orow = OF::row0(), ocol = OF::col4();
+  float* pt = sm + L::kP;
+  float* dst = pt + L::kPTile;
+  const float c2 = p.scale * BaseE2::kScoreMul;
+  WideRing ring{sm + L::kRing, L::kSlot, bars};
+  float dk[kWideOut][T::kOM][T::kON], dv[kWideOut][T::kOM][T::kON];
+#pragma unroll
+  for (int w = 0; w < kWideOut; ++w)
+#pragma unroll
+    for (int i = 0; i < T::kOM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kON; ++j) dk[w][i][j] = dv[w][i][j] = 0.f;
+  for (int t = 0; t < heads * n_qt; ++t) {
+    const int h = h0 + t / n_qt, qt = i0 + t % n_qt;
+    const long long stat = ((long long)b * p.H + h) * p.S;
+    float lse2[T::kSN], dlt[T::kSN];
+#pragma unroll
+    for (int j = 0; j < T::kSN; ++j) {
+      const int qpos = qt * T::kInner + sc + 8 * j;
+      lse2[j] =
+          qpos < p.S ? __ldg(p.lse + stat + qpos) * BaseE2::kLseMul : 0.f;
+      dlt[j] = qpos < p.S ? __ldg(p.delta + stat + qpos) : 0.f;
+    }
+    float s[T::kSM][T::kSN], dp[T::kSM][T::kSN];
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) s[i][j] = dp[i][j] = 0.f;
+    const int g0 = t * steps;
+    for (int w = 0; w < ns; ++w) {
+      const float* slot = ring.step(g0 + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdSlab, L::kLdSlab>(
+          dp, slot + sr * L::kLdSlab, slot + L::kA + sc * L::kLdSlab);
+    }
+    for (int w = 0; w < ns; ++w) {
+      const float* slot = ring.step(g0 + ns + w, fetch);
+      fma_nt<T::kSM, T::kSN, T::kSlab, L::kLdSlab, L::kLdSlab>(
+          s, slot + sr * L::kLdSlab, slot + L::kA + sc * L::kLdSlab);
+    }
+    // P^T and dS^T of the tile, masked: q columns at or past S, and those
+    // before the kv row when causal.
+#pragma unroll
+    for (int i = 0; i < T::kSM; ++i) {
+      const int kpos = k0 + sr + 4 * i;
+#pragma unroll
+      for (int j = 0; j < T::kSN; ++j) {
+        const int qpos = qt * T::kInner + sc + 8 * j;
+        const bool keep = qpos < p.S && !(p.causal && kpos > qpos);
+        const float pr =
+            keep ? BaseE2::exp(fmaf(s[i][j], c2, -lse2[j])) : 0.f;
+        const int at = (sr + 4 * i) * L::kLdP + sc + 8 * j;
+        pt[at] = pr;
+        dst[at] = pr * (dp[i][j] - dlt[j]);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kWideOut; ++w) {
+      const float* q = ring.step(g0 + 2 * ns + w, fetch) + L::kA;
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          dk[w], dst + orow * L::kLdP, q + ocol);
+    }
+#pragma unroll
+    for (int w = 0; w < kWideOut; ++w) {
+      const float* d = ring.step(g0 + 2 * ns + kWideOut + w, fetch) + L::kA;
+      fma_nn<T::kOM, T::kON, T::kInner, L::kLdP, L::kLdSlab>(
+          dv[w], pt + orow * L::kLdP, d + ocol);
+    }
+  }
+  const long long ss = (long long)p.KVH * p.D;
+  const long long off =
+      ((long long)b * p.S * p.KVH + kvh) * p.D + chunk * kWideChunk;
+  const int row0 = k0 + orow;
+  if (a.parts == 1) {
+#pragma unroll
+    for (int w = 0; w < kWideOut; ++w) {
+      const int c = w * T::kSlab + ocol;
+      store_block(dv[w], 1.f, f32(p.dv) + off + c, ss, row0, p.S);
+      store_block(dk[w], p.scale, f32(p.dk) + off + c, ss, row0, p.S);
+    }
+    return;
+  }
+  // This part's partials of the chunk, then the (kv tile, chunk)'s ticket:
+  // the CTA that takes the last one sums every part, its own read back,
+  // in part order.
+  const long long plane = (long long)a.batch * p.S * ss;
+#pragma unroll
+  for (int w = 0; w < kWideOut; ++w) {
+    const int c = w * T::kSlab + ocol;
+    store_block(dv[w], 1.f, a.ws + part * plane + off + c, ss, row0, p.S);
+    store_block(dk[w], 1.f, a.ws + (a.parts + part) * plane + off + c, ss,
+                row0, p.S);
+  }
+  __threadfence();
+  __syncthreads();
+  volatile int* last = reinterpret_cast<int*>(sm + L::kStat);
+  if (threadIdx.x == 0)
+    *last = atomicAdd(a.tickets +
+                          (bkv * ceil_div(p.S, T::kRows) + kt) * n + chunk,
+                      1) == a.parts - 1;
+  __syncthreads();
+  if (*last) {
+    __threadfence();
+    sum_parts<kWideChunk, T::kRows>(a, 0, 1.f, f32(p.dv), off, ss, k0);
+    sum_parts<kWideChunk, T::kRows>(a, 1, p.scale, f32(p.dk), off, ss, k0);
+  }
+}
+
 // A map of a (B, S, heads, D) fp32 tensor at ptr with element strides
 // (sb, ss, sh, 1), as dimensions (D, S, heads, B) innermost first: boxes of
 // `cols` columns x `rows` rows of one head, unswizzled, so a box lands as
@@ -1067,6 +1645,63 @@ int launch_f32(void (*kernel)(CUtensorMap, CUtensorMap, F32Dkv), int rows,
   return (int)cudaGetLastError();
 }
 
+// A map of a wide kernel (past head_dim 512): the (B, S, heads, p.D) fp32
+// tensor at ptr with element strides (sb, ss, sh, 1) in boxes of kRows
+// rows x kSlab + 4 columns.
+template <class P>
+int encode_wide(CUtensorMap* map, const void* ptr, int heads, long long sb,
+                long long ss, long long sh, const P& p, int batch) {
+  return encode_f32_rows(map, ptr, p.D, p.S, heads, batch, ss, sh, sb,
+                         WideTiles::kSlab + 4, WideTiles::kRows);
+}
+
+// The blocks of a wide kernel's launch: `rows` rows of work items,
+// ceil(S / kRows) each, D / kWideChunk CTAs an item.
+template <class P>
+int wide_blocks(int rows, const P& p) {
+  return rows * ceil_div(p.S, WideTiles::kRows) * (p.D / kWideChunk);
+}
+
+// The fp32 forward past 512 over `rows` (B * H) rows of work items.
+int launch_fwd_f32_wide(int rows, cudaStream_t stream, const F32Fwd& a) {
+  const FwdParams& p = a.p;
+  constexpr int kBytes = FwdWideSmem::kBytes;
+  CUtensorMap tq, tk, tv;
+  int err = encode_wide(&tq, p.q, p.H, p.q_sb, p.q_ss, p.q_sh, p, a.batch);
+  if (!err)
+    err = encode_wide(&tk, p.k, p.KVH, p.k_sb, p.k_ss, p.k_sh, p, a.batch);
+  if (!err)
+    err = encode_wide(&tv, p.v, p.KVH, p.v_sb, p.v_ss, p.v_sh, p, a.batch);
+  if (!err) err = (int)allow_smem(flash_fwd_f32_wide_kernel, kBytes);
+  if (err) return err;
+  flash_fwd_f32_wide_kernel<<<wide_blocks(rows, p), kThreads, kBytes,
+                              stream>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+// The maps of the backward past 512 (Q and dO, K and V), then its launch.
+template <class A>
+int launch_bwd_f32_wide(void (*kernel)(CUtensorMap, CUtensorMap,
+                                       CUtensorMap, CUtensorMap, A),
+                        int bytes, int rows, cudaStream_t stream,
+                        const A& a) {
+  const BwdParams& p = a.p;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = encode_wide(&tq, p.q, p.H, p.q_sb, p.q_ss, p.q_sh, p, a.batch);
+  if (!err)
+    err = encode_wide(&tdo, p.dout, p.H, p.do_sb, p.do_ss, p.do_sh, p,
+                      a.batch);
+  if (!err)
+    err = encode_wide(&tk, p.k, p.KVH, p.k_sb, p.k_ss, p.k_sh, p, a.batch);
+  if (!err)
+    err = encode_wide(&tv, p.v, p.KVH, p.v_sb, p.v_ss, p.v_sh, p, a.batch);
+  if (!err) err = (int)allow_smem(kernel, bytes);
+  if (err) return err;
+  kernel<<<wide_blocks(rows, p), kThreads, bytes, stream>>>(tq, tdo, tk, tv,
+                                                            a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace stpu
 
@@ -1097,8 +1732,10 @@ extern "C" int stpu_flash_fwd_f32(const void* q, const void* k,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const F32Fwd a = {
-      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal),
+      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal, D),
       static_cast<const int*>(work), B};
+  if (sm90::cluster_width(D))
+    return launch_fwd_f32_wide(B * H, static_cast<cudaStream_t>(stream), a);
   STPU_F32_BY_D(D, flash_fwd_f32_kernel, B * H,
                 static_cast<cudaStream_t>(stream), a);
 }
@@ -1116,8 +1753,11 @@ extern "C" int stpu_flash_dq_f32(const void* q, const void* k,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const F32Dq a = {bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
-                              nullptr, strides, S, H, KVH, scale, causal),
+                              nullptr, strides, S, H, KVH, scale, causal, D),
                    static_cast<const int*>(work), B};
+  if (sm90::cluster_width(D))
+    return launch_bwd_f32_wide(flash_dq_f32_wide_kernel, DqWideSmem::kBytes,
+                               B * H, static_cast<cudaStream_t>(stream), a);
   STPU_F32_BY_D(D, flash_dq_f32_kernel, B * H,
                 static_cast<cudaStream_t>(stream), a);
 }
@@ -1139,9 +1779,13 @@ extern "C" int stpu_flash_dkv_f32(const void* q, const void* k,
   if (S % 8 || H % KVH || parts < 1 || (H / KVH) % parts)
     return (int)cudaErrorInvalidValue;
   const F32Dkv a = {bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
-                               dk, dv, strides, S, H, KVH, scale, causal),
+                               dk, dv, strides, S, H, KVH, scale, causal, D),
                     static_cast<const int*>(work), static_cast<float*>(ws),
                     static_cast<int*>(tickets), parts, B};
+  if (sm90::cluster_width(D))
+    return launch_bwd_f32_wide(flash_dkv_f32_wide_kernel,
+                               DkvWideSmem::kBytes, B * KVH * parts,
+                               static_cast<cudaStream_t>(stream), a);
   STPU_F32_BY_D(D, flash_dkv_f32_kernel, B * KVH * parts,
                 static_cast<cudaStream_t>(stream), a);
 }

@@ -22,7 +22,9 @@
 // for S; flash_fwd_sm90.cuh) and 512 (fwd_cta_512: a cluster of two CTAs
 // an item, each holding one 256-column chunk of Q, K and V and
 // exchanging its partial of S with the other against 64-row K/V tiles),
-// bf16 and f16.
+// and every multiple of 256 up to 2048 past it (one instance, fwd_cta_x:
+// a cluster of head_dim / 256 CTAs an item, every rank reading the
+// others' partials of S in rank order), bf16 and f16.
 #include "flash_fwd_sm90.cuh"
 
 namespace stpu {
@@ -55,7 +57,7 @@ extern "C" int stpu_flash_fwd(const void* q, const void* k, const void* v,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
-      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
+      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal, D);
   STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));

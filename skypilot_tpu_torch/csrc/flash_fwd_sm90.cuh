@@ -3,7 +3,8 @@
 // family, natural-log lse), flash_tri.cu (the triangular family, base-2
 // lse) and flash_streamed.cu (the streamed family, natural-log lse, with
 // the overlapped schedule below), each at head_dim 64, 128, 256 and 512
-// (fwd_consumer_wide below) and element type bf16 and f16 (T, the inputs'
+// (fwd_consumer_wide below), at kClusterD for every width past 512
+// (fwd_cta_x), and element type bf16 and f16 (T, the inputs'
 // and outputs' type; the softmax and the sums stay fp32). The function is
 // the TPU forward's: o = softmax(scale * q k^T, causal) v and lse = m +
 // log(l), query head h reading KV head h / (H / KVH).
@@ -101,6 +102,19 @@
 //   after the barriers' init and before exit keep both CTAs' shared memory
 //   alive while the other may write it. Causal, the consumers' ends differ
 //   by a tile, as at 256. Only chunk 0 writes lse.
+// - Past head_dim 512 (768 ... 2048, fwd_cta_x): one instance, at
+//   template head_dim kClusterD, takes the width from its parameters and
+//   runs an item as a cluster of n = width / kChunk CTAs (3 ... 8) on
+//   fwd_cta_512's shared memory. A push to the n - 1 others would need n -
+//   1 receive buffers (32 KB each), past 227 KB from n = 3, so the
+//   exchange is pulled: each consumer puts its partial of S_j in a slot of
+//   its own CTA, publishes it (a release at cluster scope to every rank's
+//   x_full, n arrivals a phase), and every rank reads the n slots over
+//   distributed shared memory in rank order 0 .. n - 1, so all form the
+//   same S_j; each reader then arrives on every writer's x_free (at CTA
+//   scope: its reads are done), and a slot is rewritten only once all n
+//   have. One slot a consumer, the 32 KB width 512 budgets, at any n. One
+//   tile at a time in lockstep with the other ranks (no tile ahead).
 // - Epilogue: o / l goes through the consumer's own 64 rows of Q in shared
 //   memory (its last product has read them) and out in 16-byte stores
 //   predicated on row < S; lse = m + log2(l), times ln 2 for the natural-
@@ -180,6 +194,17 @@ template <int D>
 __host__ __device__ constexpr int out_chunks() {
   return D > 256 ? D / kChunk : 1;
 }
+// Past head_dim 512 (fwd_cta_x below; the backward's dq_cta_x and
+// dkv_cta_x): one instance of each kernel, at template head_dim
+// kClusterD, serves every kernel width 768 ... kClusterD that is a
+// multiple of kChunk. It reads the width from its parameters (p.D) and
+// runs each item as a cluster of n = p.D / kChunk CTAs, CTA c holding
+// chunk c of every operand, as at 512; 8 CTAs, the portable cluster
+// size, bound the width.
+constexpr int kClusterD = 2048;
+__host__ __device__ constexpr bool cluster_width(int width) {
+  return width > 2 * kChunk && width <= kClusterD && width % kChunk == 0;
+}
 
 // Shared memory in bytes from a 1024-byte aligned base: Q (kBM x D), kRing
 // K tiles and kRing V tiles (kKvRows x D), each stored as boxes of rows x
@@ -234,7 +259,8 @@ struct FwdSmem512 {
   static constexpr int kQBar = kVEmpty + 8 * kVS;
   static constexpr int kXFull = kQBar + 8, kXFree = kXFull + 8 * kConsumers;
   static constexpr int kBytes = kBar + kXFree + 8 * kConsumers + 1024;
-  static_assert(D == 2 * kChunk, "a chunk a CTA of the cluster");
+  static_assert(D == 2 * kChunk || D == kClusterD,
+                "a chunk a CTA of the cluster");
   static_assert(kBytes <= 232448, "past the 227 KB a block may use");
 };
 
@@ -433,6 +459,104 @@ __device__ __forceinline__ void add_part(float (&x)[32], const float* part) {
     x[4 * e4 + 2] += r.z;
     x[4 * e4 + 3] += r.w;
   }
+}
+
+// ---------------------------------------- clusters of n CTAs (past 512)
+
+// Past head_dim 512 the exchange is pulled, not pushed: a push to each of
+// the n - 1 others would need n - 1 receive buffers (32 KB each at the
+// forward's two consumers), past the block's shared memory from n = 3.
+// Each CTA writes its own partial into a slot of its own shared memory
+// (put_part), and every rank of the cluster, itself included, reads the
+// n ranks' slots through distributed shared memory in rank order 0 .. n -
+// 1 (gather_parts): the same IEEE sums in the same order in every rank,
+// so everything formed from them agrees bit for bit. A slot's full
+// barrier (in every rank, n arrivals a phase: one from each writer) says
+// that all n partials of a tile are in place; its free barrier (in its
+// writer's CTA: one arrival from each reader) lets the writer rewrite it.
+
+// A consumer's m64 x 64 fp32 fragments (32 a thread) into this CTA's slot
+// in send_part's layout: element 4 e4 + c of thread tid at float 4 (e4 *
+// 128 + tid) + c, each store 16 contiguous bytes.
+__device__ __forceinline__ void put_part(const float (&x)[32], float* slot) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int e4 = 0; e4 < 8; ++e4)
+    *reinterpret_cast<float4*>(slot + 4 * (e4 * 128 + tid)) =
+        make_float4(x[4 * e4], x[4 * e4 + 1], x[4 * e4 + 2], x[4 * e4 + 3]);
+}
+
+// 16 bytes of a CTA's shared memory at a shared::cluster address.
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 r;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+               : "r"(addr)
+               : "memory");
+  return r;
+}
+
+// 4 bytes of a CTA's shared memory at a shared::cluster address.
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float r;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(r)
+               : "r"(addr)
+               : "memory");
+  return r;
+}
+
+// x = the sum of the n ranks' put_part fragments at `slot` (this CTA's
+// shared address of it: every rank keeps its own at the same place), in
+// rank order 0 .. n - 1, rank 0's loaded first: of a thread's eight
+// 16-byte groups (x[4 e4 .. 4 e4 + 3]), the kNum from kFirst on, all of a
+// rank's loads issued before their sums.
+template <int kFirst = 0, int kNum = 8>
+__device__ __forceinline__ void gather_parts(float (&x)[32], uint32_t slot,
+                                             int n) {
+  static_assert(kFirst + kNum <= 8, "a thread's eight groups");
+  const uint32_t at = slot + 16 * (threadIdx.x % 128);
+  for (int r = 0; r < n; ++r) {
+    const uint32_t src = map_rank(at, r);
+    {
+      constexpr int e0 = kFirst, kInFlight = kNum;
+      float4 v[kInFlight];
+#pragma unroll
+      for (int i = 0; i < kInFlight; ++i)
+        v[i] = ld_cluster(src + (e0 + i) * 128 * 16);
+#pragma unroll
+      for (int i = 0; i < kInFlight; ++i) {
+        const int e = 4 * (e0 + i);
+        x[e] = r ? x[e] + v[i].x : v[i].x;
+        x[e + 1] = r ? x[e + 1] + v[i].y : v[i].y;
+        x[e + 2] = r ? x[e + 2] + v[i].z : v[i].z;
+        x[e + 3] = r ? x[e + 3] + v[i].w : v[i].w;
+      }
+    }
+  }
+}
+
+// One arrival on barrier `bar` (this CTA's shared address: every rank
+// keeps it at the same place) in each of the n ranks of the cluster, from
+// threads 0 .. n - 1 of the calling warpgroup, thread r arriving in rank
+// r, predicated inside the instruction. kPublish: a release at cluster
+// scope, after the warpgroup's barrier, so the partial its threads put in
+// this CTA's slot is visible to every rank that acquires the phase;
+// otherwise a release at CTA scope (mbar_arrive_remote_if's: the reads of
+// the others' slots it reports have completed).
+template <bool kPublish>
+__device__ __forceinline__ void arrive_ranks(uint32_t bar, int n) {
+  const int tid = threadIdx.x % 128;
+  const uint32_t at = map_rank(bar, tid < n ? tid : 0);
+  if constexpr (kPublish)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+        "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n}\n"
+        :
+        : "r"(at), "r"((int)(tid < n))
+        : "memory");
+  else
+    mbar_arrive_remote_if(at, tid < n);
 }
 
 template <int N>
@@ -1053,15 +1177,16 @@ __device__ __forceinline__ void mma_nt_qreg(float (&d)[32],
 // A consumer's epilogue: o / l out through its own rows of the Q tile
 // (its last product has read them), lse = m + log2(l) (times ln 2 when
 // kNaturalLse) for rows < S, by the lanes whose t (lane % 4) is 0. o holds
-// DO of the D columns, from column col0 (at head_dim 512 a CTA's chunk);
-// only the CTA holding column 0 writes lse.
+// DO of the `width` (D) columns, from column col0 (past head_dim 256 a
+// CTA's chunk); only the CTA holding column 0 writes lse.
 template <int D, class T, bool kNaturalLse, int DO = D>
 __device__ __forceinline__ void fwd_epilogue(const FwdParams& p,
                                              unsigned char* base, int b,
                                              int h, int q_start, int row0,
                                              int t, const float (&o)[DO / 2],
                                              const float (&m)[2],
-                                             float (&l)[2], int col0 = 0) {
+                                             float (&l)[2], int col0 = 0,
+                                             int width = D) {
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1069,8 +1194,8 @@ __device__ __forceinline__ void fwd_epilogue(const FwdParams& p,
     inv[r] = 1.f / l[r];
   }
   store_rows<DO, T>(o, inv, reinterpret_cast<e16*>(base),
-                    p.o + ((long long)b * p.S * p.H + h) * D + col0,
-                    (long long)p.H * D, q_start, p.S);
+                    p.o + ((long long)b * p.S * p.H + h) * width + col0,
+                    (long long)p.H * width, q_start, p.S);
   if (t == 0 && col0 == 0) {
     float* lg = p.lse + ((long long)b * p.H + h) * p.S;
 #pragma unroll
@@ -1570,11 +1695,169 @@ __device__ __forceinline__ void fwd_cta_512(const CUtensorMap& tq,
   cluster_sync();
 }
 
+// --------------------------------------- the forward past head_dim 512
+
+// A consumer warpgroup of the forward's CTA of rank `chunk` in a cluster
+// of n (width n * kChunk): its 64 q rows through every K/V tile up to its
+// causal end, in lockstep with its counterparts in the other ranks. Per
+// tile j: its partial S_c = Q_c K_c^T (m64n64, 256 deep, both operands in
+// shared memory), K_j released; once every rank has read its last one
+// (x_free), the partial into its slot (put_part) and published to the n
+// ranks (x_full); S_j = the n partials in rank order (gather_parts), the
+// slots released (x_free in each writer); the online softmax on S_j and
+// o_c += P V_c (m64n256k16). The causal ends and masks are
+// fwd_consumer_512's, the same in every rank, so all exchange on the same
+// tiles. o (128), S (32) and P (16) a thread.
+template <class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_consumer_x(const FwdParams& p,
+                                               unsigned char* base, int b,
+                                               int h, int qt, int n_kt,
+                                               uint32_t chunk, int n) {
+  using L = FwdSmem512<kClusterD>;
+  constexpr int kF = kKv512 / 2;
+  const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128 - 1, 0);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q_start = qt * kBM;
+  const int row0 = q_start + cw * 64 + warp * 16 + g;  // and row0 + 8
+  const uint32_t bars = smem_addr(base + L::kBar);
+  const uint32_t x_full = bars + L::kXFull + 8 * cw;
+  const uint32_t x_free = bars + L::kXFree + 8 * cw;
+  const float sm = p.scale * kLog2e;
+  const TileMask mask = {p.S, p.causal};
+  const int diag = qt * (kBM / kKv512) + cw;
+  const int j_last = p.causal ? min(diag, n_kt - 1) : n_kt - 1;
+  const int j_mask = p.causal ? diag : masked_tile(0, p.S, kKv512, n_kt);
+
+  const uint64_t dq = smem_desc(base + L::kQ + cw * 64 * 128, 16, 1024);
+  const uint64_t dk = smem_desc(base + L::kK, 16, 1024);
+  const uint64_t dv = smem_desc(base + L::kV, kKv512 * 128, 1024);
+  // This consumer's slot: its partial, read by every rank.
+  float* xs = reinterpret_cast<float*>(base + L::kXch + cw * L::kPart);
+
+  float o[kChunk / 2];
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bars + L::kQBar, 0);
+  for (int j = 0; j <= j_last; ++j) {
+    const int ks = j % L::kKS;
+    mbar_wait(bars + L::kKFull + 8 * ks, (j / L::kKS) & 1);
+    float s[kF];
+#pragma unroll
+    for (int i = 0; i < kF; ++i) s[i] = 0.f;
+    wgmma_fence();
+    mma_nt<kChunk, T>(s, dq, kBM * 128, dk + ((ks * L::kTile) >> 4),
+                      kKv512 * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    mbar_arrive_if(bars + L::kKEmpty + 8 * ks, tid == 0);
+    // The partial into this CTA's slot once every rank has read the last.
+    if (j > 0) mbar_wait(x_free, (j - 1) & 1);
+    put_part(s, xs);
+    warpgroup_sync(1 + cw);
+    arrive_ranks<true>(x_full, n);
+    // S_j: the n ranks' partials; then this one's reads are done.
+    mbar_wait_cluster(x_full, j & 1);
+    gather_parts(s, smem_addr(xs), n);
+    warpgroup_sync(1 + cw);
+    arrive_ranks<false>(x_free, n);
+
+    uint32_t pa[kKv512 / 16][4];
+    if (j == j_mask)
+      softmax_step<kChunk, T, true>(s, o, m, l, pa, sm, row0, j * kKv512,
+                                    mask);
+    else
+      softmax_step<kChunk, T, false>(s, o, m, l, pa, sm, row0, j * kKv512,
+                                     mask);
+    const int vs = j % L::kVS;
+    mbar_wait(bars + L::kVFull + 8 * vs, (j / L::kVS) & 1);
+    wgmma_fence();
+    issue_pv<kChunk, T>(o, pa, dv, vs * L::kTile);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive_if(bars + L::kVEmpty + 8 * vs, tid == 0);
+  }
+  // Tiles past this consumer's rows (consumer 0, causal): waited for and
+  // released, so the ring goes on for the other.
+  for (int j = j_last + 1; j < n_kt; ++j) {
+    const int ks = j % L::kKS, vs = j % L::kVS;
+    mbar_wait(bars + L::kKFull + 8 * ks, (j / L::kKS) & 1);
+    mbar_arrive_if(bars + L::kKEmpty + 8 * ks, tid == 0);
+    mbar_wait(bars + L::kVFull + 8 * vs, (j / L::kVS) & 1);
+    mbar_arrive_if(bars + L::kVEmpty + 8 * vs, tid == 0);
+  }
+  fwd_epilogue<kClusterD, T, kNaturalLse, kChunk>(
+      p, base + L::kQ, b, h, q_start, row0, t, o, m, l, chunk * kChunk, p.D);
+}
+
+// One CTA of the forward past head_dim 512 (the kClusterD instance),
+// launched in clusters of n = p.D / kChunk CTAs: block i is rank i % n,
+// chunk i % n of work item i / n, (b * H + h, 128-row q tile). Its shared
+// memory is fwd_cta_512's (FwdSmem512), the exchange buffer now this
+// CTA's own slots (one a consumer).
+template <class T, bool kNaturalLse>
+__device__ __forceinline__ void fwd_cta_x(const CUtensorMap& tq,
+                                          const CUtensorMap& tk,
+                                          const CUtensorMap& tv,
+                                          const FwdParams& p,
+                                          const int* __restrict__ work,
+                                          unsigned char* smem) {
+  using L = FwdSmem512<kClusterD>;
+  const int n = p.D / kChunk;
+  unsigned char* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  const uint32_t chunk = cluster_rank();
+  const int item = blockIdx.x / n;
+  const int bh = work[2 * item], qt = work[2 * item + 1];
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_all = ceil_div(p.S, kKv512);
+  // Causal: to consumer 1's diagonal tile (or S's end).
+  const int n_kt = p.causal ? min(n_all, (qt + 1) * (kBM / kKv512)) : n_all;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_addr(base + L::kBar);
+    for (int i = 0; i < L::kKS; ++i) {
+      mbar_init(bars + L::kKFull + 8 * i, 1);
+      mbar_init(bars + L::kKEmpty + 8 * i, kConsumers);
+    }
+    for (int i = 0; i < L::kVS; ++i) {
+      mbar_init(bars + L::kVFull + 8 * i, 1);
+      mbar_init(bars + L::kVEmpty + 8 * i, kConsumers);
+    }
+    mbar_init(bars + L::kQBar, 1);
+    for (int c = 0; c < kConsumers; ++c) {
+      // x_full: consumer c of each rank, once its partial is in place;
+      // x_free: consumer c of each rank, once it has read this one's.
+      mbar_init(bars + L::kXFull + 8 * c, n);
+      mbar_init(bars + L::kXFree + 8 * c, n);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
+  }
+  // Every barrier of every rank is initialised before any remote arrival.
+  cluster_sync();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs512>();
+    if (threadIdx.x == 0)
+      fwd_producer_512<kClusterD>(tq, tk, tv, p, base, b, h, qt, n_kt,
+                                  chunk);
+  } else {
+    setmaxnreg_inc<kConsumerRegs512>();
+    fwd_consumer_x<T, kNaturalLse>(p, base, b, h, qt, n_kt, chunk, n);
+  }
+  // No CTA leaves while another may still read its shared memory or
+  // arrive on its barriers.
+  cluster_sync();
+}
+
 // One CTA of the forward: work item blockIdx.x is (b * H + h, q tile);
 // kOverlap picks the overlapped schedule over lockstep; head_dim 256 goes
 // to fwd_cta_wide (lockstep only), with kQReg of S's k steps reading Q
-// from registers (kWideQReg, or 0: all from shared memory), and 512 to
-// fwd_cta_512 (a cluster of two CTAs an item, lockstep).
+// from registers (kWideQReg, or 0: all from shared memory), 512 to
+// fwd_cta_512 (a cluster of two CTAs an item, lockstep), and the
+// kClusterD instance to fwd_cta_x (every width past 512, a cluster of
+// width / kChunk CTAs an item, lockstep).
 template <int D, class T, bool kNaturalLse, bool kOverlap = false,
           int kQReg = 0>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
@@ -1584,7 +1867,9 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tq,
                                         const int* __restrict__ work,
                                         unsigned char* smem) {
   static_assert(D <= 128 || !kOverlap, "head_dim 256 runs in lockstep");
-  if constexpr (D > 256) {
+  if constexpr (D == kClusterD) {
+    fwd_cta_x<T, kNaturalLse>(tq, tk, tv, p, work, smem);
+  } else if constexpr (D > 256) {
     fwd_cta_512<D, T, kNaturalLse>(tq, tk, tv, p, work, smem);
   } else if constexpr (D > 128) {
     fwd_cta_wide<D, T, kNaturalLse, kQReg>(tq, tk, tv, p, work, smem);
@@ -1721,29 +2006,32 @@ inline int launch_clusters(Kernel kernel, int blocks, int cluster, int smem,
 // Encodes the three maps and launches `kernel` (an instance of this
 // forward, with the overlapped schedule when `overlap`) over the B * H *
 // ceil(S / 128) items of `work`; at head_dim 512 out_chunks CTAs an
-// item, each item a cluster.
+// item, each item a cluster, and at the kClusterD instance p.D / kChunk
+// (its maps then of width p.D).
 template <int D, class T, class Kernel>
 inline int launch_fwd(Kernel kernel, const FwdParams& p, int B,
                       const int* work, cudaStream_t stream,
                       bool overlap = false) {
   const int smem = fwd_smem_bytes<D>(overlap);
   constexpr int kRows = fwd_kv_rows<D>();
+  const int width = D == kClusterD ? p.D : D;
   CUtensorMap tq, tk, tv;
-  int err = encode_rows<T>(&tq, p.q, D, p.S, p.H, B, p.q_ss, p.q_sh, p.q_sb,
-                           kBM);
+  int err = encode_rows<T>(&tq, p.q, width, p.S, p.H, B, p.q_ss, p.q_sh,
+                           p.q_sb, kBM);
   if (!err)
-    err = encode_rows<T>(&tk, p.k, D, p.S, p.KVH, B, p.k_ss, p.k_sh, p.k_sb,
-                         kRows);
+    err = encode_rows<T>(&tk, p.k, width, p.S, p.KVH, B, p.k_ss, p.k_sh,
+                         p.k_sb, kRows);
   if (!err)
-    err = encode_rows<T>(&tv, p.v, D, p.S, p.KVH, B, p.v_ss, p.v_sh, p.v_sb,
-                         kRows);
+    err = encode_rows<T>(&tv, p.v, width, p.S, p.KVH, B, p.v_ss, p.v_sh,
+                         p.v_sb, kRows);
   if (err) return err;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int items = B * p.H * ceil_div(p.S, kBM);
   if constexpr (D > 256) {
-    return launch_clusters(kernel, items * out_chunks<D>(), out_chunks<D>(),
-                           smem, stream, tq, tk, tv, p, work);
+    const int n = width / kChunk;
+    return launch_clusters(kernel, items * n, n, smem, stream, tq, tk, tv, p,
+                           work);
   } else {
     kernel<<<items, kFwdThreads, smem, stream>>>(tq, tk, tv, p, work);
     return (int)cudaGetLastError();
@@ -1779,8 +2067,9 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
 // Returns from the calling C entry with FN<D, T>(KERNEL<D, T>, ...) for the
 // runtime head_dim and element type (T::kDtype): the instances of one
 // Hopper kernel, launched (launch_fwd, launch_dq, launch_dkv) or reported
-// (fwd_attrs, dq_attrs, dkv_attrs) at head_dim 64, 128, 256 and 512; any
-// other head_dim or type returns cudaErrorInvalidValue.
+// (fwd_attrs, dq_attrs, dkv_attrs) at head_dim 64, 128, 256 and 512, and
+// the kClusterD instance at every cluster_width (768 ... 2048); any other
+// head_dim or type returns cudaErrorInvalidValue.
 #define STPU_SM90_ONE(D_, T_, FN, KERNEL, ...) \
   return stpu::sm90::FN<D_, stpu::T_>(KERNEL<D_, stpu::T_>, __VA_ARGS__)
 
@@ -1788,6 +2077,13 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
   if ((HEAD_DIM) == D_) {                                                 \
     if (half_) STPU_SM90_ONE(D_, F16, FN, KERNEL, __VA_ARGS__);           \
     STPU_SM90_ONE(D_, Bf16, FN, KERNEL, __VA_ARGS__);                     \
+  }
+
+#define STPU_SM90_CLUSTER(HEAD_DIM, FN, KERNEL, ...)                      \
+  if (stpu::sm90::cluster_width(HEAD_DIM)) {                              \
+    if (half_)                                                            \
+      STPU_SM90_ONE(stpu::sm90::kClusterD, F16, FN, KERNEL, __VA_ARGS__); \
+    STPU_SM90_ONE(stpu::sm90::kClusterD, Bf16, FN, KERNEL, __VA_ARGS__);  \
   }
 
 #define STPU_SM90_DTYPE(DTYPE)                                            \
@@ -1802,5 +2098,6 @@ inline int fwd_attrs(Kernel kernel, int* out, bool overlap = false) {
     STPU_SM90_AT_D(128, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
     STPU_SM90_AT_D(256, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
     STPU_SM90_AT_D(512, HEAD_DIM, FN, KERNEL, __VA_ARGS__)                \
+    STPU_SM90_CLUSTER(HEAD_DIM, FN, KERNEL, __VA_ARGS__)                  \
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)

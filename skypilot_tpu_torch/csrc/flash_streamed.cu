@@ -51,7 +51,9 @@
 //   consumers offset half a tile measured no faster); at head_dim 256
 //   dkv_cta_wide, as the triangular family's, in natural exp;
 // - at head_dim 512 the cluster bodies of every family (fwd_cta_512,
-//   dq_cta_512 in BaseE2, dkv_cta_512 in natural exp).
+//   dq_cta_512 in BaseE2, dkv_cta_512 in natural exp), and past it, one
+//   instance for every multiple of 256 up to 2048, fwd_cta_x, dq_cta_x in
+//   BaseE2 and dkv_cta_x in natural exp.
 #include "flash_bwd_sm90.cuh"
 
 namespace stpu {
@@ -76,7 +78,9 @@ flash_dq_streamed_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tv,
                          const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 256)
+  if constexpr (D == sm90::kClusterD)
+    sm90::dq_cta_x<T, BaseE2>(tq, tdo, tk, tv, p, work, smem);
+  else if constexpr (D > 256)
     sm90::dq_cta_512<D, T, BaseE2>(tq, tdo, tk, tv, p, work, smem);
   else
     sm90::dq_cta<D, T, BaseE2, /*kRegA=*/(D > 128 ? 0 : 2)>(tq, tdo, tk, tv,
@@ -94,7 +98,10 @@ flash_dkv_streamed_kernel(const __grid_constant__ CUtensorMap tq,
                           const BwdParams p, const int* __restrict__ work,
                           const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 256)
+  if constexpr (D == sm90::kClusterD)
+    sm90::dkv_cta_x<T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work, split,
+                              smem);
+  else if constexpr (D > 256)
     sm90::dkv_cta_512<D, T, BaseE>(tq, tdo, tk, tv, tlse, tdlt, p, work,
                                     split, smem);
   else if constexpr (D > 128)
@@ -122,7 +129,7 @@ extern "C" int stpu_flash_fwd_streamed(const void* q, const void* k,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p =
-      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal);
+      fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale, causal, D);
   STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_streamed_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream), /*overlap=*/true);
@@ -143,7 +150,7 @@ extern "C" int stpu_flash_dq_streamed(const void* q, const void* k,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
-                                 nullptr, strides, S, H, KVH, scale, causal);
+                                 nullptr, strides, S, H, KVH, scale, causal, D);
   STPU_SM90_BY_D(D, dtype, launch_dq, flash_dq_streamed_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
@@ -170,7 +177,7 @@ extern "C" int stpu_flash_dkv_streamed(const void* q, const void* k,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
-                                 dk, dv, strides, S, H, KVH, scale, causal);
+                                 dk, dv, strides, S, H, KVH, scale, causal, D);
   const sm90::DkvSplit split = {static_cast<float*>(ws),
                                 static_cast<int*>(tickets), parts, B};
   STPU_SM90_BY_D(D, dtype, launch_dkv_split, flash_dkv_streamed_kernel, p, B,

@@ -29,7 +29,9 @@
 // item, each holding one 256-column chunk of every operand, 64-row
 // streamed tiles, the two exchanging their partials of S and dP (S^T and
 // dP^T) through distributed shared memory; flash_fwd_sm90.cuh,
-// flash_bwd_sm90.cuh):
+// flash_bwd_sm90.cuh), and one instance for every multiple of 256 up to
+// 2048 past it (fwd_cta_x, dq_cta_x, dkv_cta_x: clusters of head_dim /
+// 256 CTAs, every rank reading the others' partials in rank order):
 // - the forward: 64-row K/V tiles, Q in shared memory;
 // - dq: DqSplitKV (flash_bwd_sm90.cuh), 64-row K tiles in two stages and
 //   V in one on barriers of their own, so V's next load runs under dS K
@@ -83,7 +85,9 @@ flash_dq_tri_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tv,
                     const BwdParams p, const int* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 256)
+  if constexpr (D == sm90::kClusterD)
+    sm90::dq_cta_x<T, Base2>(tq, tdo, tk, tv, p, work, smem);
+  else if constexpr (D > 256)
     sm90::dq_cta_512<D, T, Base2>(tq, tdo, tk, tv, p, work, smem);
   else
     sm90::dq_cta<D, T, Base2, 0, sm90::DqTri<D>>(tq, tdo, tk, tv, p, work,
@@ -101,7 +105,10 @@ flash_dkv_tri_kernel(const __grid_constant__ CUtensorMap tq,
                      const BwdParams p, const int* __restrict__ work,
                      const sm90::DkvSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if constexpr (D > 256)
+  if constexpr (D == sm90::kClusterD)
+    sm90::dkv_cta_x<T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work, split,
+                              smem);
+  else if constexpr (D > 256)
     sm90::dkv_cta_512<D, T, Base2>(tq, tdo, tk, tv, tlse, tdlt, p, work,
                                     split, smem);
   else if constexpr (D > 128)
@@ -127,7 +134,7 @@ extern "C" int stpu_flash_fwd_tri(const void* q, const void* k,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const FwdParams p = fwd_params(q, k, v, o, lse, strides, S, H, KVH, scale,
-                                 /*causal=*/1);
+                                 /*causal=*/1, D);
   STPU_SM90_BY_D(D, dtype, launch_fwd, flash_fwd_tri_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
@@ -146,7 +153,7 @@ extern "C" int stpu_flash_dq_tri(const void* q, const void* k, const void* v,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, o, dout, lse, delta, dq, nullptr,
-                                 nullptr, strides, S, H, KVH, scale, 1);
+                                 nullptr, strides, S, H, KVH, scale, 1, D);
   STPU_SM90_BY_D(D, dtype, launch_dq_tri, flash_dq_tri_kernel, p, B,
                  static_cast<const int*>(work),
                  static_cast<cudaStream_t>(stream));
@@ -171,7 +178,7 @@ extern "C" int stpu_flash_dkv_tri(const void* q, const void* k,
   using namespace stpu;
   if (S % 8 || H % KVH) return (int)cudaErrorInvalidValue;
   const BwdParams p = bwd_params(q, k, v, nullptr, dout, lse, delta, nullptr,
-                                 dk, dv, strides, S, H, KVH, scale, 1);
+                                 dk, dv, strides, S, H, KVH, scale, 1, D);
   const sm90::DkvSplit split = {static_cast<float*>(ws),
                                 static_cast<int*>(tickets), parts, B};
   STPU_SM90_BY_D(D, dtype, launch_dkv_split, flash_dkv_tri_kernel, p, B,

@@ -10,8 +10,9 @@ take what their long loops need (at head_dim 64 and 128 the forward
 overlaps each consumer's softmax with its own products and dq holds Q
 and dO in registers; dq takes the natural-log lse into exp2). Every
 kernel takes any S that is a multiple of 8 (a ragged last tile is
-masked), head_dim 64, 128, 256 (Gemma's) or 512, and bf16 or f16 (one
-instance each); f32 inputs take three fp32 kernels of their own
+masked), head_dim 64, 128, 256 (Gemma's), 512 or any multiple of 256 from
+768 to 2048 (CLUSTER_WIDTHS, one instance for all of them), and bf16 or
+f16 (one instance each); f32 inputs take three fp32 kernels of their own
 (``csrc/flash_f32.cu``: ``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dkv_f32``, every family's shapes and widths, natural-log lse,
 FFMA products exact to fp32 rounding, all three as SGEMM-style tiles,
@@ -63,8 +64,22 @@ half of its chunk of dq; dk/dv's 64-row kv tiles, parts of the GQA
 group as at 256 (partials of S^T and dP^T). The resident dq is the one
 exception: at its 8 x 1024 the cluster measured slower than one CTA an
 item, which it keeps (a consumer a chunk, S and dP recomputed over all
-512 columns for each, against 32-row K/V tiles). Every head_dim that is
-a multiple of 8 up to 512 reaches a kernel.
+512 columns for each, against 32-row K/V tiles).
+
+Past 512 (CLUSTER_WIDTHS: 768 ... 2048) one instance of each kernel
+(template head_dim CLUSTER_INSTANCE) serves every width: it runs each
+item of the width-512 work lists as a cluster of n = width / CHUNK CTAs
+(``chunks``; at most MAX_CLUSTER), n taken from the width at launch (the
+bodies ``fwd_cta_x``, ``dq_cta_x``, ``dkv_cta_x``; the resident dq takes
+the cluster too). A push of each partial to the n - 1 others would need
+n - 1 receive buffers, past a block's shared memory from n = 3; so each
+CTA leaves its partial in a slot of its own shared memory and every rank
+reads the n slots through distributed shared memory, summing them in
+rank order 0 .. n - 1: the same sums in every rank, so S (dP, delta, S^T,
+dP^T) and what is formed from them agree bit for bit. The fp32 kernels
+past 512 run a CTA per CHUNK columns of the output, no cluster, each
+streaming both operands of S over all the columns. Every head_dim that
+is a multiple of 8 up to 2048 reaches a kernel.
 
 ``family`` picks one from the shape, as the JAX dispatcher does: the
 resident family while 3 * S * D * 4 bytes fit its 6 MiB budget, the
@@ -74,11 +89,11 @@ forward, on the caller's head_dim, and carried to the backward, so the
 base-2 lse never meets a natural-log kernel.
 
 On the card, ``flash_forward`` and ``flash_backward`` (and so the op)
-bring any head_dim up to 512 to the kernels: head_dim is zero-padded to
+bring any head_dim up to 2048 to the kernels: head_dim is zero-padded to
 the next kernel width (``kernel_head_dim``, ``pad_head_dim``; zero columns
 change neither q k^T nor the lse, and the padded columns of o, dq, dk and
 dv come out 0 and are sliced off by ``unpad_head_dim``). Every family and
-the fp32 kernels have every width; past 512 the op raises a ValueError
+the fp32 kernels have every width; past 2048 the op raises a ValueError
 before any launch (``kernel_head_dim``). ``kernel_dtype`` names the
 kernels an input dtype reaches.
 
@@ -129,6 +144,9 @@ WIDE_STEP_BYTES = 3.69e6
 # kernel width: (resident rows a CTA, rows of each tile streamed against
 # them). The forward and dq: q rows against K/V tiles; dk/dv: kv rows
 # against q tiles.
+# Past 512 (every CLUSTER_WIDTHS width) the wide kernels' WideTiles, n =
+# width / CHUNK CTAs an item, one per CHUNK columns of the output.
+F32_WIDE_TILES = (64, 64)
 F32_FWD_TILES = {64: (64, 64), 128: (128, 64), 256: (128, 64),
                  512: (32, 128)}
 F32_DQ_TILES = {64: (64, 64), 128: (64, 64), 256: (64, 64), 512: (32, 128)}
@@ -144,19 +162,30 @@ PARTIAL_BYTES_PER_S = WIDE_STEP_BYTES / 2.01e-6
 # and delta through a tensor map whose rows (4 * S bytes) a TMA copy needs
 # 16-byte aligned.
 SEQ_MULTIPLE = 8
-# The kernel widths, of every family and of the fp32 kernels (256 on the
-# Hopper bodies' wide paths: csrc/flash_fwd_sm90.cuh fwd_consumer_wide,
-# flash_bwd_sm90.cuh bwd_ring, DqWide and dkv_cta_wide; 512 on the
-# cluster bodies fwd_cta_512, dq_cta_512 and dkv_cta_512). No width past
-# 512: those bodies split each item between exactly two CTAs, one
-# CHUNK-column chunk each, whose shared memory (a chunk of the 128-row Q
-# tile beside two K/V stages and the exchange, 225 KB) has no room for a
-# wider chunk, and whose exchange pairs rank 0 with rank 1.
+# The kernel widths with an instance of their own, of every family and of
+# the fp32 kernels (256 on the Hopper bodies' wide paths:
+# csrc/flash_fwd_sm90.cuh fwd_consumer_wide, flash_bwd_sm90.cuh bwd_ring,
+# DqWide and dkv_cta_wide; 512 on the cluster bodies fwd_cta_512,
+# dq_cta_512 and dkv_cta_512, two CTAs an item).
 HEAD_DIMS = (64, 128, 256, 512)
-# At head_dim 512: the columns of every operand one CTA of a cluster
-# holds (csrc kChunk), the q rows of a dq item (kDq512Rows), and the rows
-# of the K/V tiles the forward and dq stream (kKv512).
+# At head_dim 512 and past it: the columns of every operand one CTA of a
+# cluster holds (csrc kChunk), the q rows of a dq item (kDq512Rows), and
+# the rows of the K/V tiles the forward and dq stream (kKv512).
 CHUNK = 256
+# The widths past 512: every multiple of CHUNK up to CLUSTER_INSTANCE,
+# all served by one instance of each Hopper kernel (csrc kClusterD: the
+# cluster bodies fwd_cta_x, dq_cta_x and dkv_cta_x, a cluster of width /
+# CHUNK CTAs an item, the count taken from the width at launch) and by
+# the fp32 kernels' wide ones (n CTAs an item, no cluster). A cluster
+# holds at most 8 CTAs where no launch asks for more (the portable
+# size), so the widest is 8 chunks.
+CLUSTER_INSTANCE = 2048
+MAX_CLUSTER = 8
+CLUSTER_WIDTHS = tuple(range(3 * CHUNK, CLUSTER_INSTANCE + 1, CHUNK))
+KERNEL_WIDTHS = HEAD_DIMS + CLUSTER_WIDTHS
+F32_FWD_TILES.update(dict.fromkeys(CLUSTER_WIDTHS, F32_WIDE_TILES))
+F32_DQ_TILES.update(dict.fromkeys(CLUSTER_WIDTHS, F32_WIDE_TILES))
+F32_DKV_TILES.update(dict.fromkeys(CLUSTER_WIDTHS, F32_WIDE_TILES))
 CHUNKED_DQ_TILE = 64
 CHUNKED_INNER = 64
 # The kernels' element types, by the code their C entries take.
@@ -431,9 +460,10 @@ def dkv_wide_schedule(n_rows: int, s: int, parts: int,
                       device: Optional[torch.device] = None, *,
                       tile: int = WIDE_KV_TILE, inner: int = BWD_INNER
                       ) -> torch.Tensor:
-    """The work list of every dk/dv at head_dim 256 (``dkv_cta_wide``)
-    and 512 (``dkv_cta_512``, ``chunks(512)`` CTAs an item), and of the
-    fp32 dk/dv (``tile``, ``inner`` from F32_DKV_TILES), (n_rows *
+    """The work list of every dk/dv at head_dim 256 (``dkv_cta_wide``),
+    512 and past it (``dkv_cta_512``, ``dkv_cta_x``: ``chunks(width)``
+    CTAs an item), and of the fp32 dk/dv (``tile``, ``inner`` from
+    F32_DKV_TILES), (n_rows *
     ceil(S / tile) * parts, 3) int32: one (row, kv tile, part) item, a
     row being b * KVH + kvh and part p the p-th of ``parts`` equal slices
     of the GQA group.
@@ -459,7 +489,9 @@ def dkv_wide_schedule(n_rows: int, s: int, parts: int,
 
 def chunks(width: int) -> int:
     """The CHUNK-column chunks of o, dq, dk and dv at kernel width
-    ``width``: 2 at 512, else 1 (csrc out_chunks)."""
+    ``width``, the CTAs of an item: width / CHUNK past 256 (2 at 512, n
+    = 3 ... 8 at CLUSTER_WIDTHS), else 1 (csrc out_chunks, p.D /
+    kChunk)."""
     return width // CHUNK if width > 256 else 1
 
 
@@ -487,16 +519,22 @@ class DkvTiling(NamedTuple):
 
 
 def dkv_tiling(width: int, f32: bool = False) -> DkvTiling:
-    """The split dk/dv at kernel width ``width``: the Hopper body at 256
-    and 512 (``dkv_cta_wide``, ``dkv_cta_512``: width-256 tile steps,
-    WIDE_STEP_BYTES each, two tickets a tile and chunk), or with ``f32``
-    the fp32 body at any width (F32_DKV_TILES; its step's 8 x rows x
-    inner x width FLOPs at F32_SM_FLOPS, one ticket a tile)."""
+    """The split dk/dv at kernel width ``width``: the Hopper body at 256,
+    512 and past it (``dkv_cta_wide``, ``dkv_cta_512``, ``dkv_cta_x``:
+    width-256 tile steps, WIDE_STEP_BYTES each, two tickets a tile and
+    chunk), or with ``f32`` the fp32 body at any width (F32_DKV_TILES; its
+    step's 8 x rows x inner x width FLOPs at F32_SM_FLOPS, one ticket a
+    tile; past 512 a CTA a chunk, each step 4 x rows x inner x (width +
+    CHUNK) FLOPs: S^T and dP^T over the width, its chunk of dk and dv,
+    one ticket a tile and chunk). The step of the Hopper bodies past 512
+    is the width-512 one's, not fitted there."""
     if f32:
         rows, inner = F32_DKV_TILES[width]
-        step_s = 8 * rows * inner * width / F32_SM_FLOPS
-        return DkvTiling(rows, inner, 1, 1.0, step_s * PARTIAL_BYTES_PER_S,
-                         1)
+        ctas = chunks(width) if width > 512 else 1
+        flops = (4 * (width + CHUNK) if ctas > 1 else 8 * width) * rows * inner
+        step_s = flops / F32_SM_FLOPS
+        return DkvTiling(rows, inner, ctas, 1.0,
+                         step_s * PARTIAL_BYTES_PER_S, ctas)
     step = 1.0 if width <= 256 else WIDE_STEP_512
     return DkvTiling(WIDE_KV_TILE, BWD_INNER, chunks(width), step,
                      WIDE_STEP_BYTES, 2 * chunks(width))
@@ -548,8 +586,9 @@ def dkv_parts(b: int, s: int, kvh: int, groups: int, causal: bool,
 def dq_schedule(n_rows: int, s: int, width: int,
                 device: Optional[torch.device] = None) -> torch.Tensor:
     """Every dq's work list over B * H rows at kernel width ``width``:
-    ``bwd_schedule``'s "rows" list, and at 512 (``dq_cta_512``, a
-    cluster of ``chunks(512)`` CTAs an item) CHUNKED_DQ_TILE-row q tiles
+    ``bwd_schedule``'s "rows" list, and from 512 on (``dq_cta_512`` and
+    ``dq_cta_x``, a cluster of ``chunks(width)`` CTAs an item; the
+    resident dq at 512, one CTA an item) CHUNKED_DQ_TILE-row q tiles
     against CHUNKED_INNER-row KV tiles."""
     if width > 256:
         return tri_schedule("rows", n_rows, s, device, tile=CHUNKED_DQ_TILE,
@@ -585,19 +624,18 @@ def kernel_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def kernel_head_dim(d: int) -> int:
     """The kernel width head_dim ``d`` is zero-padded to: the least of
-    HEAD_DIMS at or above it (264-512 pad to 512). Past 512 it raises:
-    the widest bodies split an item between two CTAs of CHUNK columns
-    each, and a CTA's chunk of the forward's 128-row Q tile, two K/V
-    stages and the exchange already take 225 KB of the 227 KB of shared
-    memory a block may use (HEAD_DIMS)."""
-    for width in HEAD_DIMS:
+    KERNEL_WIDTHS at or above it (264-512 pad to 512, 520-768 to 768, and
+    so on by CHUNK up to 2048). Past CLUSTER_INSTANCE it raises: a width
+    is split between a cluster of width / CHUNK CTAs, and a cluster holds
+    at most MAX_CLUSTER (8) CTAs, the portable limit."""
+    for width in KERNEL_WIDTHS:
         if d <= width:
             return width
-    raise ValueError(f"flash kernels take head_dim up to {HEAD_DIMS[-1]}; "
-                     f"no kernel for head_dim {d} (the kernels split an "
-                     "item between two CTAs of 256 columns each, and a "
-                     "wider chunk passes the 227 KB of shared memory a "
-                     "block may use)")
+    raise ValueError(f"flash kernels take head_dim up to {KERNEL_WIDTHS[-1]}"
+                     f"; no kernel for head_dim {d} (the kernels split an "
+                     f"item between a cluster of CTAs of {CHUNK} columns "
+                     f"each, and a cluster holds at most {MAX_CLUSTER} "
+                     "CTAs, the portable limit)")
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -628,7 +666,7 @@ def _strides(*tensors):
 def kernel_shape_error(q_shape, k_shape) -> Optional[str]:
     """Why the kernels cannot take q of shape (B,S,H,D) with k and v of
     shape (B,S,KVH,D), or None when they can: H % KVH == 0, head_dim in
-    HEAD_DIMS, S a positive multiple of SEQ_MULTIPLE, B*H within the
+    KERNEL_WIDTHS, S a positive multiple of SEQ_MULTIPLE, B*H within the
     grid's y limit."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return f"bad shapes q {tuple(q_shape)} k {tuple(k_shape)}"
@@ -637,9 +675,9 @@ def kernel_shape_error(q_shape, k_shape) -> Optional[str]:
     if (k_shape[0], k_shape[1], k_shape[3]) != (b, s, d) or h % kvh:
         return (f"k/v {tuple(k_shape)} do not match q {tuple(q_shape)} "
                 "(need H % KVH == 0)")
-    if d not in HEAD_DIMS:
-        return (f"flash kernels take head_dim {HEAD_DIMS}; no kernel for "
-                f"head_dim {d}")
+    if d not in KERNEL_WIDTHS:
+        return (f"flash kernels take head_dim {KERNEL_WIDTHS}; no kernel "
+                f"for head_dim {d}")
     if s <= 0 or s % SEQ_MULTIPLE:
         return f"flash kernels take S a multiple of {SEQ_MULTIPLE}, got {s}"
     if b * h > 65535:
@@ -699,7 +737,8 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # families, (dtype, scale) for the causal-only triangular one, (scale,
 # causal) for the fp32 kernels, every dk/dv's followed by its P. Every
 # kernel takes its work list after its tensors, and every dk/dv then its
-# workspace and tickets.
+# workspace and tickets. D is the kernel width: past 512 it is also the
+# launch's chunk count, n = D / CHUNK CTAs an item (``chunks``).
 
 def _launch(name: str, source: str, ptrs, strides, q, kvh: int,
             *tail) -> None:
@@ -748,8 +787,9 @@ def _sm_count(device: torch.device) -> int:
 
 
 def dkv_wide_buffers(q, kvh: int, parts: int, f32: bool = False):
-    """(work list, workspace, tickets) of a width-256 or -512 dk/dv launch
-    (with ``f32``, of the fp32 dk/dv at any width) split in ``parts``:
+    """(work list, workspace, tickets) of a dk/dv launch at width 256 or
+    more (with ``f32``, of the fp32 dk/dv at any width) split in
+    ``parts``:
     ``dkv_wide_schedule``'s list at the body's tiles (``dkv_tiling``),
     and with P > 1 the fp32 partials' workspace, (2, P, B, S, KVH, D)
     from the caching allocator, and the tickets of each kv tile (and
@@ -769,7 +809,7 @@ def dkv_wide_buffers(q, kvh: int, parts: int, f32: bool = False):
 
 def _dkv_split(q, kvh: int, causal: bool, f32: bool = False):
     """(work list, workspace, tickets, P) of a dk/dv launch: at head_dim 64
-    and 128 the "cols" list of ``bwd_schedule`` and P = 1; at 256 and 512,
+    and 128 the "cols" list of ``bwd_schedule`` and P = 1; from 256 on,
     and for the fp32 dk/dv (``f32``) at every width, ``dkv_wide_buffers``
     at P = ``dkv_parts`` of the shape, the width and the card's SM count
     (1 for MHA, whatever the card)."""
@@ -803,8 +843,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel forward (the Hopper forward over 128-row q tiles,
-    longest first; at head_dim 512 a cluster of two CTAs each, one per
-    CHUNK columns):
+    longest first; at head_dim 512 and past it a cluster of
+    ``chunks(width)`` CTAs each, one per CHUNK columns):
     (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32)."""
     return _fwd_call("flash_fwd", "flash_fwd", q, k, v, causal, scale,
                      scheduled=True)
@@ -817,7 +857,8 @@ def flash_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel dq (the Hopper dq over 128-row q tiles, longest first; at
     head_dim 256 against three stages of 32-row K/V tiles, the next loads
     under the products; at 512 over CHUNKED_DQ_TILE-row q tiles, one CTA
-    each, a consumer per chunk recomputing S and dP, ``dq_schedule``):
+    each, a consumer per chunk recomputing S and dP, ``dq_schedule``; past
+    512 the same tiles, a cluster of ``chunks(width)`` CTAs each):
     (dq (B,S,H,D) of q's dtype,
     delta = rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq", "flash_bwd", q, k, v, o, lse, do, causal,
@@ -830,9 +871,10 @@ def flash_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel dk/dv (the Hopper dk/dv over 128-row kv tiles, longest
     first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts
-    of the GQA group, ``_dkv_split``; at 512 the same items, a cluster of
-    two CTAs each, one a chunk, the grid and tickets as before): (dk, dv)
-    (B,S,KVH,D) of k's dtype, the GQA group summed."""
+    of the GQA group, ``_dkv_split``; at 512 and past it the same items, a
+    cluster of ``chunks(width)`` CTAs each, one a chunk, tickets per kv
+    tile and chunk): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group
+    summed."""
     return _dkv_call("flash_dkv", "flash_bwd", q, k, v, do, lse, delta,
                      causal, scale, (int(causal),))
 
@@ -842,8 +884,8 @@ def flash_fwd_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed-family kernel forward (the Hopper forward over 128-row q
     tiles, longest first, each consumer's softmax overlapped with its own
-    P V; at head_dim 256 and 512 in lockstep, at 512 a cluster of two
-    CTAs an item, one per chunk):
+    P V; from head_dim 256 on in lockstep, from 512 on a cluster of
+    ``chunks(width)`` CTAs an item, one per chunk):
     (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in natural log)."""
     return _fwd_call("flash_fwd_streamed", "flash_streamed", q, k, v, causal,
                      scale, scheduled=True)
@@ -855,9 +897,9 @@ def flash_dq_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed-family kernel dq (the Hopper dq over 128-row q tiles,
     longest first, each consumer's Q and dO held in registers, exp2 on
-    the natural-log lse; at head_dim 512 ``dq_schedule``'s tiles, a
-    cluster of two CTAs each, one per chunk): (dq (B,S,H,D) of q's dtype, delta =
-    rowsum(dO*O) (B,H,S) fp32)."""
+    the natural-log lse; from head_dim 512 on ``dq_schedule``'s tiles, a
+    cluster of ``chunks(width)`` CTAs each, one per chunk): (dq (B,S,H,D)
+    of q's dtype, delta = rowsum(dO*O) (B,H,S) fp32)."""
     return _dq_call("flash_dq_streamed", "flash_streamed", q, k, v, o, lse,
                     do, causal, scale, scheduled=True)
 
@@ -869,9 +911,9 @@ def flash_dkv_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Streamed-family kernel dk/dv (the Hopper dk/dv body, the resident
     instance's, in lockstep, over 128-row kv tiles, longest first; at
     head_dim 256 ``dkv_cta_wide`` over 64-row kv tiles and parts of the
-    GQA group, ``_dkv_split``; at 512 a cluster of two CTAs, one a chunk,
-    for each): (dk, dv) (B,S,KVH,D) of k's dtype, the GQA group
-    summed."""
+    GQA group, ``_dkv_split``; from 512 on a cluster of ``chunks(width)``
+    CTAs, one a chunk, for each): (dk, dv) (B,S,KVH,D) of k's dtype, the
+    GQA group summed."""
     return _dkv_call("flash_dkv_streamed", "flash_streamed", q, k, v, do,
                      lse, delta, causal, scale, (int(causal),))
 
@@ -887,8 +929,8 @@ def _tri_call(fn: str, ptrs, strides, work: torch.Tensor,
 def flash_fwd_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel forward (the Hopper forward over 128-row
-    q tiles, longest first; at head_dim 512 a cluster of two CTAs each,
-    one per chunk), causal:
+    q tiles, longest first; from head_dim 512 on a cluster of
+    ``chunks(width)`` CTAs each, one per chunk), causal:
     (o (B,S,H,D) of q's dtype, lse (B,H,S) fp32 in base 2)."""
     _check_inputs(q, k, v)
     b, s, h, d = q.shape
@@ -905,9 +947,10 @@ def flash_dq_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dq from the base-2 lse (the Hopper dq over
-    128-row q tiles, longest first; at head_dim 512 ``dq_schedule``'s
-    tiles, a cluster of two CTAs each, one per chunk): (dq (B,S,H,D) of q's dtype, delta =
-    rowsum(dO*O) (B,H,S) fp32)."""
+    128-row q tiles, longest first; from head_dim 512 on
+    ``dq_schedule``'s tiles, a cluster of ``chunks(width)`` CTAs each, one
+    per chunk): (dq (B,S,H,D) of q's dtype, delta = rowsum(dO*O) (B,H,S)
+    fp32)."""
     _check_inputs(q, k, v, o, do, lse)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -923,9 +966,9 @@ def flash_dkv_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangular-family kernel dk/dv (the Hopper dk/dv over 128-row kv
     tiles, longest first; at head_dim 256 ``dkv_cta_wide`` over 64-row kv
-    tiles and parts of the GQA group, ``_dkv_split``; at 512 a cluster of
-    two CTAs, one a chunk, for each): (dk, dv) (B,S,KVH,D) of k's dtype,
-    the GQA group summed."""
+    tiles and parts of the GQA group, ``_dkv_split``; from 512 on a
+    cluster of ``chunks(width)`` CTAs, one a chunk, for each): (dk, dv)
+    (B,S,KVH,D) of k's dtype, the GQA group summed."""
     return _dkv_call("flash_dkv_tri", "flash_tri", q, k, v, do, lse, delta,
                      True, scale, ())
 
@@ -935,7 +978,8 @@ def flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 kernel forward, any family's shape (F32_FWD_TILES: q tiles
     against K/V tiles streamed through shared memory, longest first, the
-    online softmax in fp32): (o (B,S,H,D) fp32, lse (B,H,S) fp32 in
+    online softmax in fp32; past 512 ``chunks(width)`` CTAs an item, one
+    per CHUNK columns of o): (o (B,S,H,D) fp32, lse (B,H,S) fp32 in
     natural log)."""
     _check_inputs(q, k, v, dtypes=(torch.float32,))
     b, s, h, d = q.shape
@@ -953,8 +997,9 @@ def flash_dq_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool, scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 kernel dq from the natural-log lse (F32_DQ_TILES: q tiles
-    against K/V tiles streamed through shared memory, longest first):
-    (dq (B,S,H,D) fp32, delta = rowsum(dO*O) (B,H,S) fp32)."""
+    against K/V tiles streamed through shared memory, longest first; past
+    512 ``chunks(width)`` CTAs an item, one per CHUNK columns of dq): (dq
+    (B,S,H,D) fp32, delta = rowsum(dO*O) (B,H,S) fp32)."""
     _check_inputs(q, k, v, o, do, lse, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -974,8 +1019,9 @@ def flash_dkv_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 kernel dk/dv (F32_DKV_TILES: kv tiles against q tiles streamed
     through shared memory, longest first, the GQA group in ``dkv_parts``
-    parts, ``_dkv_split``): (dk, dv) (B,S,KVH,D) fp32, the GQA group
-    summed."""
+    parts, ``_dkv_split``; past 512 ``chunks(width)`` CTAs an item, one
+    per CHUNK columns, tickets per kv tile and chunk): (dk, dv)
+    (B,S,KVH,D) fp32, the GQA group summed."""
     _check_inputs(q, k, v, do, lse, delta, dtypes=(torch.float32,))
     b, s, h, d = q.shape
     kvh = k.shape[2]
@@ -995,8 +1041,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) through family ``fam``: the kernel for CUDA tensors (q, k
     and v padded to its head_dim first, o sliced back; f32 tensors take the
-    fp32 kernel, whatever the family; past head_dim 512 a ValueError before
-    any launch), the plain version for CPU tensors.
+    fp32 kernel, whatever the family; past head_dim 2048 a ValueError
+    before any launch), the plain version for CPU tensors.
     lse is in the family's base (natural log from the fp32 kernel; its
     backward reads it so)."""
     if not q.is_cuda:
@@ -1097,12 +1143,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sends them (``takes_kernel_path``); every other S reaches the kernels,
     ragged tails included. On CUDA:
 
-    * head_dim: any multiple of 8 up to 512; it is zero-padded to 64,
-      128, 256 (head_dim 136-256, Gemma's 256) or 512 (264-512) for the
-      kernels of every family and dtype, the scale stays ``D ** -0.5`` of
-      the caller's D, and the output and gradients are sliced back. A
-      head_dim past 512 raises a ValueError before any launch
-      (``kernel_head_dim``).
+    * head_dim: any multiple of 8 up to 2048; it is zero-padded to 64,
+      128, 256 (head_dim 136-256, Gemma's 256), 512 (264-512) or the next
+      multiple of 256 past that (520-768 to 768, ... 1800-2048 to 2048)
+      for the kernels of every family and dtype, the scale stays
+      ``D ** -0.5`` of the caller's D, and the output and gradients are
+      sliced back. A head_dim past 2048 raises a ValueError before any
+      launch (``kernel_head_dim``).
     * dtype: bf16 and f16 run on the Hopper kernels' instances of that
       type (fp32 sums inside, outputs in the input type); f16 holds |x|
       <= 65504: an input, output or gradient past that becomes inf (and

@@ -309,15 +309,17 @@ def _code(text):
 def test_f32_source_is_exact_fp32():
     # The fp32 kernels' products are FFMA on the CUDA cores: no wgmma, no
     # mma.sync, no TF32 conversion or type; of the Hopper header they take
-    # the mbarrier and TMA helpers alone (the backward's ring), and their
-    # only atomic is the integer ticket of the GQA parts' sum.
+    # the mbarrier and TMA helpers (the backward's ring) and the widths
+    # past 512 (cluster_width, kChunk) alone, and their only atomic is the
+    # integer ticket of the GQA parts' sum.
     code = _code(_SOURCE)
     for pattern in (r"wgmma", r"\bmma\.", r"tf32", r"HMMA", r"ldmatrix",
                     r"cvt\.rna"):
         assert not re.search(pattern, code, re.I), pattern
     assert set(re.findall(r"sm90::(\w+)", code)) == {
         "mbar_init", "mbar_expect_tx", "mbar_wait", "tma_load_4d",
-        "tensor_map_encoder", "TensorMapEncodeTiled", "kTensorMapError"}
+        "tensor_map_encoder", "TensorMapEncodeTiled", "kTensorMapError",
+        "cluster_width", "kChunk"}
     assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT32" in code
     assert "atomicAdd(a.tickets" in code
     assert not re.search(r"atomicAdd\((?!a\.tickets)", code)

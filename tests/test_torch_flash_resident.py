@@ -305,11 +305,13 @@ def test_kernel_head_dim_pads_to_the_next_width(d, width):
 @pytest.mark.parametrize("d", [264, 512])
 def test_kernel_head_dim_refuses_past_256(d):
     # Head_dim 264-512 once raised here; they now pad to the width-512
-    # kernels, and the refusal sits past the widest width: d + 256 (520,
-    # 768) raises, naming it, before any launch.
+    # kernels, d + 256 (520, 768) to the width-768 clusters, and the
+    # refusal sits past the widest width: d + 1792 (2056, 2304) raises,
+    # naming it, before any launch.
     assert fa_torch.kernel_head_dim(d) == 512 == fa_torch.HEAD_DIMS[-1]
-    with pytest.raises(ValueError, match=f"head_dim {d + 256}"):
-        fa_torch.kernel_head_dim(d + 256)
+    assert fa_torch.kernel_head_dim(d + 256) == 768
+    with pytest.raises(ValueError, match=f"head_dim {d + 1792}"):
+        fa_torch.kernel_head_dim(d + 1792)
 
 
 _F32_NAMES = ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")

@@ -235,16 +235,20 @@ def test_op_pad_rule_matches_jax_at_320():
 
 def test_every_multiple_of_8_up_to_512_reaches_a_kernel_width():
     # JAX's kernels take every d % 8 == 0; the port pads each to the least
-    # kernel width at or above it, and only past 512 refuses.
-    for d in range(8, 513, 8):
+    # kernel width at or above it (up to 512 an instance of its own, past
+    # it the cluster widths, every multiple of 256 up to 2048), and only
+    # past 2048 refuses.
+    for d in range(8, 2049, 8):
         width = fa_torch.kernel_head_dim(d)
         # The least width that holds d: the next narrower one does not.
-        assert width in fa_torch.HEAD_DIMS and d <= width
-        assert width == fa_torch.HEAD_DIMS[0] or width // 2 < d
+        assert width in fa_torch.KERNEL_WIDTHS and d <= width
+        narrower = [w for w in fa_torch.KERNEL_WIDTHS if w < width]
+        assert not narrower or narrower[-1] < d
         assert fa_torch.kernel_shape_error((1, 64, 4, width),
                                            (1, 64, 2, width)) is None
     assert fa_torch.HEAD_DIMS[-1] == 512
-    for d in (520, 768, 1024):
+    assert fa_torch.KERNEL_WIDTHS[-1] == 2048
+    for d in (2056, 2304, 4096):
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             fa_torch.kernel_head_dim(d)
         assert fa_torch.kernel_shape_error((1, 64, 4, d),
@@ -784,20 +788,21 @@ def test_f32_takes_the_fp32_kernels_at_512(monkeypatch):
     ("flash_dq_tri", lambda q, lse: (q, q, q, q, lse, q)),
     ("flash_dkv_streamed", lambda q, lse: (q, q, q, q, lse, lse, False))])
 def test_wrappers_take_512_and_refuse_264(monkeypatch, wrapper, args):
-    # Called directly, a wrapper takes only kernel widths: 512 launches,
-    # 264 (which the op pads to 512) and 520 raise, naming the head_dim,
-    # before any launch.
+    # Called directly, a wrapper takes only kernel widths: 512, 768 and
+    # 1024 launch; 264 and 520 (which the op pads to 512 and 768) raise,
+    # naming the head_dim, before any launch.
     launches = _spy_launches(monkeypatch)
     lse = torch.zeros(1, 2, 64)
-    getattr(fa_torch, wrapper)(*args(torch.zeros(1, 64, 2, 512,
-                                                  dtype=torch.bfloat16),
-                                     lse), 0.04)
-    assert [(n, w) for n, _, _, w, _ in launches] == [(wrapper, 512)]
+    for width in (512, 768, 1024):
+        getattr(fa_torch, wrapper)(*args(torch.zeros(
+            1, 64, 2, width, dtype=torch.bfloat16), lse), 0.04)
+    assert [(n, w) for n, _, _, w, _ in launches] == [
+        (wrapper, 512), (wrapper, 768), (wrapper, 1024)]
     for d in (264, 520):
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             getattr(fa_torch, wrapper)(*args(torch.zeros(
                 1, 64, 2, d, dtype=torch.bfloat16), lse), 0.04)
-    assert len(launches) == 1
+    assert len(launches) == 3
 
 
 # ------------------------------------------- a Gemma at head_dim 512
